@@ -7,17 +7,29 @@ Phases, in order; any failure exits non-zero:
 
 1. build the hand-written kernels from ``tpusystem_torch/ops/cuda/csrc``
    (``nvcc`` for ``sm_90a``, one process per source, in parallel);
-2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (bfloat16, batch 8, prefill lengths 512 and 1024)
-   and time it beside the plain version, the one PyTorch library call that
-   computes the same function, and its bound;
-3. serve GPT-2 125M (full width, random weights from ``--seed``) through the
+2. hold each serving kernel against its plain PyTorch version on the card at
+   the serving path's shapes (bfloat16, batch 8, prefill lengths 512 and
+   1024) and time it beside the plain version, the one PyTorch library call
+   that computes the same function, and its bound;
+3. the same for the flash backward kernels (fused, and the split dq / dkv
+   pair) at the training shape [16, 1024, 12, 64], causal, plus a bitwise
+   repeat and GQA, non-causal and ragged-length cases;
+4. serve GPT-2 125M (full width, random weights from ``--seed``) through the
    paged ``Engine``: eight requests of 20 to 700 prompt tokens, 32 new tokens
-   each; every kernel's launch count must rise during this run, and one
-   decode step's logits through the fused kernels must agree with the module
-   path on the same state; then a traced window of decode steps says where
-   a step's time goes;
-4. print the ``kernels`` line, the card's name and power limit, and last the
+   each; every serving kernel's launch count must rise during this run, and
+   one decode step's logits through the fused kernels must agree with the
+   module path on the same state; then a traced window of decode steps says
+   where a step's time goes;
+5. train GPT-2 125M as ``bench.py``'s recipe does (vocab 50304, flash
+   attention, the chunked loss over 8 chunks, AdamW with clipping, 16 x 1024
+   tokens, the same batch every step): one warm-up and six timed steps whose
+   losses must be finite and fall, with the flash forward and the fused
+   backward launched once per layer per step; first its loss and gradient
+   are held against the same model on plain PyTorch attention; then a traced
+   window of two steps;
+6. one layer's attention forward and backward through the split backward,
+   its gradients held against the fused one's;
+7. print the ``kernels`` line, the card's name and power limit, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -39,6 +51,8 @@ BF16_FLOPS = 989e12             # dense bf16 tensor-core peak, same source
 L2_FLUSH_BYTES = 128 << 20      # rotating inputs exceed the 50 MB L2
 ROWS, BLOCK, MAX_NEW = 8, 16, 32
 PROMPT_LENGTHS = (20, 300, 700, 20, 300, 700, 100, 450)
+TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM = 16, 1024, 12, 64
+TRAIN_STEPS = 6                 # timed, after one warm-up step
 
 
 def fail(message: str) -> None:
@@ -99,6 +113,18 @@ def rotating(make, one_set_bytes: int):
     return [make() for _ in range(copies)]
 
 
+def record_check(name, shape, err, tol, timed, plain, library, bound):
+    """Print one kernel's check and fail if its error is over ``tol``."""
+    entry = dict(shape=shape, max_abs_err=err, tol=tol, ms=timed[0],
+                 event_ms=timed[1], plain_ms=plain[0],
+                 library_ms=None if library is None else library[0],
+                 bound_ms=bound[0], bound_by=bound[1])
+    print('kernel-check ' + json.dumps({'name': name, **entry}))
+    if not err <= tol:
+        fail(f'{name} {shape}: max abs err {err} over {tol}')
+    return name, entry
+
+
 def check_kernels(torch, generator):
     """Phase 2: every kernel against its plain version, timed."""
     import torch.nn.functional as F
@@ -119,15 +145,8 @@ def check_kernels(torch, generator):
 
     rows = []
 
-    def record(name, shape, err, tol, timed, plain, library, bound):
-        entry = dict(shape=shape, max_abs_err=err, tol=tol, ms=timed[0],
-                     event_ms=timed[1], plain_ms=plain[0],
-                     library_ms=None if library is None else library[0],
-                     bound_ms=bound[0], bound_by=bound[1])
-        print('kernel-check ' + json.dumps({'name': name, **entry}))
-        if not err <= tol:
-            fail(f'{name} {shape}: max abs err {err} over {tol}')
-        rows.append((name, entry))
+    def record(*args):
+        rows.append(record_check(*args))
 
     # K4 decode_matmul at the qkv and out shapes of one decode step
     for label, cols in (('qkv', 3 * dim), ('out', dim)):
@@ -219,10 +238,275 @@ def check_kernels(torch, generator):
     return rows
 
 
-def profile_steps(torch, engine, steps: int = 4) -> dict:
-    """Where a decode step's time goes: a traced window of ``steps`` engine
-    steps (tracing slows the host, so the step time of the untraced run is
-    the one to quote). Device busy share = summed kernel time over the
+def grad_errors(got, want) -> list:
+    """``[(max abs err, tol)]`` for each of ``(dq, dk, dv)``; ``tol`` is
+    four bfloat16 steps (2**-6) of that tensor's largest reference
+    gradient. The kernels round P and dS to bfloat16 where the plain
+    version does, but sum in another order, so a rounding may land one step
+    apart and carry through the sums."""
+    pairs = []
+    for g, w in zip(got, want):
+        if not g.float().isfinite().all():
+            fail('non-finite gradient from a backward kernel')
+        pairs.append(((g.float() - w.float()).abs().max().item(),
+                      2 ** -6 * w.float().abs().max().item()))
+    return pairs
+
+
+def worst(pairs):
+    """The ``(err, tol)`` pair over its tol if any, else the largest err."""
+    return max(pairs, key=lambda pair: (pair[0] > pair[1], pair[0]))
+
+
+def attention_pairs(batch, seq, heads) -> float:
+    """Causal (query, key) pairs of one attention call."""
+    return batch * heads * seq * (seq + 1) / 2
+
+
+def check_backward(torch, generator):
+    """Phase 3: the flash backward kernels against the plain backward, at
+    the training shape and in GQA, non-causal and ragged cases; timed at the
+    training shape, with the flash forward beside them."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.ops.cuda import flash
+
+    device = torch.device('cuda')
+    bf16 = torch.bfloat16
+
+    def inputs(batch, seq, heads, kv_heads, causal, lse_cotangent):
+        shape = (batch, seq, heads, HEAD_DIM)
+        kv_shape = (batch, seq, kv_heads, HEAD_DIM)
+        q, k, v, d_out = (torch.randn(s, generator=generator,
+                                      device=device).to(bf16)
+                          for s in (shape, kv_shape, kv_shape, shape))
+        out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
+        d_lse = (torch.randn(lse.shape, generator=generator, device=device)
+                 * 0.1 if lse_cotangent else None)
+        return q, k, v, out, lse, d_out, d_lse
+
+    cases = {'train': (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEADS, True, False),
+             'gqa': (2, TRAIN_SEQ, HEADS, 4, True, True),
+             'non-causal': (2, TRAIN_SEQ, HEADS, HEADS, False, True),
+             'ragged': (2, 1000, HEADS, HEADS, True, True)}
+    errors = {}
+    for case, (batch, seq, heads, kv_heads, causal, cotangent) in \
+            cases.items():
+        q, k, v, out, lse, d_out, d_lse = inputs(batch, seq, heads, kv_heads,
+                                                 causal, cotangent)
+        want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out,
+                                               d_lse, causal=causal)
+        got = {}
+        for backward in ('fused', 'split'):
+            got[backward] = flash.flash_attention_bwd(
+                q, k, v, out, lse, d_out, d_lse, causal=causal,
+                backward=backward)
+            again = flash.flash_attention_bwd(
+                q, k, v, out, lse, d_out, d_lse, causal=causal,
+                backward=backward)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b)
+                          for a, b in zip(got[backward], again))
+            errors[(case, backward)] = pairs = grad_errors(got[backward],
+                                                           want)
+            err, tol = worst(pairs)
+            print('backward-check ' + json.dumps(
+                {'case': case, 'backward': backward,
+                 'shape': [batch, seq, heads, kv_heads, HEAD_DIM],
+                 'causal': causal, 'lse_cotangent': cotangent,
+                 'max_abs_err': dict(zip(('dq', 'dk', 'dv'),
+                                         (pair[0] for pair in pairs))),
+                 'worst': [err, tol], 'bitwise_repeat': bitwise}))
+            if err > tol:
+                fail(f'{backward} backward, {case}: max abs err {err} over '
+                     f'{tol}')
+            if not bitwise:
+                fail(f'{backward} backward, {case}: two calls differ')
+        err, tol = worst(grad_errors(got['split'], got['fused']))
+        if err > tol:
+            fail(f'split vs fused backward, {case}: {err} over {tol}')
+        if case == 'train':
+            train_inputs = (q, k, v, out, lse, d_out)
+
+    q, k, v, out, lse, d_out = train_inputs
+    delta = flash.attention_delta(out, d_out)
+    shape = [TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM]
+    elements = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM
+    stats = TRAIN_BATCH * TRAIN_SEQ * HEADS * 4          # lse or delta
+    # flops of one [query, key]-shaped product over the causal pairs
+    product = 2 * HEAD_DIM * attention_pairs(TRAIN_BATCH, TRAIN_SEQ, HEADS)
+    plain = measure(lambda i: flash.flash_attention_bwd_plain(
+        q, k, v, out, lse, d_out), calls=5)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    reference = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    d_reference = d_out.transpose(1, 2)
+    library = measure(lambda i: torch.autograd.grad(
+        reference, leaves, d_reference, retain_graph=True), calls=20)
+    rows = []
+    timed = measure(lambda i: flash.flash_bwd_fused(q, k, v, d_out, lse,
+                                                    delta), calls=20)
+    rows.append(record_check(
+        'flash_bwd_fused[train]', shape,
+        *worst(errors[('train', 'fused')]), timed, plain, library,
+        bound_ms(7 * 2 * elements + 2 * stats, 5 * product)))
+    timed = measure(lambda i: flash.flash_bwd_dq(q, k, v, d_out, lse, delta),
+                    calls=20)
+    split_dq, *split_dkv = errors[('train', 'split')]
+    rows.append(record_check(
+        'flash_bwd_dq[train]', shape, *split_dq, timed, plain, library,
+        bound_ms(5 * 2 * elements + 2 * stats, 3 * product)))
+    timed = measure(lambda i: flash.flash_bwd_dkv(q, k, v, d_out, lse,
+                                                  delta), calls=20)
+    rows.append(record_check(
+        'flash_bwd_dkv[train]', shape, *worst(split_dkv), timed, plain,
+        library, bound_ms(6 * 2 * elements + 2 * stats, 4 * product)))
+
+    # the flash forward K1 at the training shape, as the train step runs it
+    want_out, want_lse = flash.flash_attention_plain(q, k, v)
+    err = (out.float() - want_out.float()).abs().max().item()
+    if (lse - want_lse).abs().max().item() > 1e-3:
+        fail('flash forward at the training shape: lse over 1e-3')
+    timed = measure(lambda i: flash.flash_attention_lse(q, k, v), calls=20)
+    plain = measure(lambda i: flash.flash_attention_plain(q, k, v), calls=5)
+    with torch.no_grad():
+        library = measure(lambda i: F.scaled_dot_product_attention(
+            *leaves, is_causal=True), calls=20)
+    rows.append(record_check(
+        'flash_attention[train]', shape, err, 2e-2, timed, plain, library,
+        bound_ms(4 * 2 * elements + stats, 2 * product)))
+    return rows
+
+
+def train_reference(torch, module, criterion, tokens) -> dict:
+    """The flash model's loss and gradient against the same weights on
+    plain PyTorch attention (``'xla'``: autograd through
+    ``dot_product_attention``, no kernel), on a few rows of the batch. Both
+    keep bfloat16 activations, so the losses agree within 1e-2 and the
+    full gradients point the same way (cosine above 0.999)."""
+    params = list(module.parameters())
+    results = {}
+    for kernel in ('flash', 'xla'):
+        clone = module.replace(attention=kernel)
+        loss = criterion(clone(tokens, train=True), tokens)
+        grads = torch.autograd.grad(loss, params)
+        results[kernel] = (loss.item(),
+                           torch.cat([g.float().flatten() for g in grads]))
+    (flash_loss, flash_grad), (plain_loss, plain_grad) = (results['flash'],
+                                                          results['xla'])
+    cosine = torch.nn.functional.cosine_similarity(flash_grad, plain_grad,
+                                                   dim=0).item()
+    relative = ((flash_grad - plain_grad).norm() / plain_grad.norm()).item()
+    result = dict(rows=tokens.shape[0], flash_loss=flash_loss,
+                  plain_loss=plain_loss, grad_cosine=cosine,
+                  grad_relative_err=relative)
+    print('train-reference ' + json.dumps(result))
+    if not (math.isfinite(flash_loss) and abs(flash_loss - plain_loss) <= 1e-2
+            and cosine > 0.999):
+        fail(f'flash train step vs plain attention: {result}')
+    return result
+
+
+def train(torch, seed: int) -> dict:
+    """Phase 5: GPT-2 125M trains with bench.py's recipe (the main path of
+    this slice)."""
+    import numpy as np
+
+    from tpusystem_torch.models import gpt2_small
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    module = gpt2_small(vocab_size=50304, dropout=0.0, attention='flash',
+                        return_features=True, device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    criterion = ChunkedNextTokenLoss(chunks=8)
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
+    reference = train_reference(torch, module, criterion, tokens[:2])
+
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    started = time.perf_counter()
+    state, (_, loss) = step(state, tokens, tokens)              # warm-up
+    losses = [loss.item()]
+    warmup_s = time.perf_counter() - started
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(TRAIN_STEPS):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())                        # waits for the step
+        seconds.append(time.perf_counter() - started)
+    launches = {counter.__name__: counter.launches for counter in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'non-finite training loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'training loss did not fall: {losses}')
+    for name, count in launches.items():
+        if count != module.layers * TRAIN_STEPS:
+            fail(f'{name} launched {count} times in {TRAIN_STEPS} steps, '
+                 f'not {module.layers} per step')
+    params = sum(p.numel() for p in module.parameters())
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T for the weights; causal attention 12 D per (query, key) pair
+    # and head per layer (4 D forward, twice that backward)
+    flops = (6 * params * tokens_per_step + 12 * HEAD_DIM * module.layers
+             * attention_pairs(TRAIN_BATCH, TRAIN_SEQ, HEADS))
+    median = sorted(seconds)[len(seconds) // 2]
+    profile = profile_steps(torch, lambda: step(state, tokens, tokens),
+                            steps=2)
+    print('train-profile ' + json.dumps(profile))
+    return dict(launches=launches, losses=losses,
+                step_ms=[1e3 * s for s in seconds], median_step_ms=1e3 * median,
+                min_step_ms=1e3 * min(seconds), max_step_ms=1e3 * max(seconds),
+                warmup_s=warmup_s, tokens_per_s=tokens_per_step / median,
+                peak_memory_bytes=peak, params=params, flops_per_step=flops,
+                mfu=flops / median / BF16_FLOPS, reference=reference,
+                batch=[TRAIN_BATCH, TRAIN_SEQ], steps=TRAIN_STEPS)
+
+
+def split_step(torch, generator) -> dict:
+    """Phase 6: one layer's attention at the training shape through
+    ``backward='split'``, its gradients held against ``'fused'``."""
+    from tpusystem_torch.ops.cuda import flash
+
+    device = torch.device('cuda')
+    shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
+    q, k, v, d_out = (torch.randn(shape, generator=generator,
+                                  device=device).to(torch.bfloat16)
+                      for _ in range(4))
+    grads = {}
+    for backward in ('fused', 'split'):
+        if backward == 'split':
+            flash.flash_bwd_dq.launches = flash.flash_bwd_dkv.launches = 0
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash.flash_attention(*leaves, backward=backward)
+        grads[backward] = torch.autograd.grad(out, leaves, d_out)
+    torch.cuda.synchronize()
+    launches = {'flash_bwd_dq': flash.flash_bwd_dq.launches,
+                'flash_bwd_dkv': flash.flash_bwd_dkv.launches}
+    err, tol = worst(grad_errors(grads['split'], grads['fused']))
+    result = dict(launches=launches, max_abs_err=err, tol=tol)
+    print('split-step ' + json.dumps(result))
+    if err > tol:
+        fail(f'split vs fused gradients: {err} over {tol}')
+    if launches != {'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
+        fail(f'the split backward launched {launches}')
+    return result
+
+
+def profile_steps(torch, step, steps: int = 4) -> dict:
+    """Where a step's time goes: a traced window of ``steps`` calls of
+    ``step()`` (tracing slows the host, so the step time of the untraced run
+    is the one to quote). Device busy share = summed kernel time over the
     window's wall time; the rest is the card waiting on the host."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -231,7 +515,7 @@ def profile_steps(torch, engine, steps: int = 4) -> dict:
                                 record_shapes=True) as profile:
         started = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - started
     kernels, launches = {}, 0
@@ -330,7 +614,7 @@ def serve(torch, seed: int):
     if logit_err > logit_tol:
         fail(f'fused vs module logits: max abs err {logit_err} over '
              f'{logit_tol}')
-    print('step-profile ' + json.dumps(profile_steps(torch, engine)))
+    print('step-profile ' + json.dumps(profile_steps(torch, engine.step)))
     return dict(launches=launches, steps=steps, decode_tokens=emitted,
                 decode_tokens_per_s=emitted / step_seconds,
                 step_ms=1e3 * step_seconds / steps,
@@ -369,29 +653,43 @@ def main() -> None:
     print(f'built {sorted(LIBRARIES.build())} in {build_seconds:.1f} s')
 
     generator = torch.Generator('cuda').manual_seed(args.seed)
-    checks = check_kernels(torch, generator)
+    checks = check_kernels(torch, generator) + check_backward(torch,
+                                                              generator)
     served = serve(torch, args.seed)
     print('serve ' + json.dumps(served))
+    trained = train(torch, args.seed)
+    print('train ' + json.dumps(trained))
+    split = split_step(torch, generator)
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
-    sources = {'decode_matmul': csrc + 'decode_matmul.cu',
-               'decode_ffn': csrc + 'decode_matmul.cu',
-               'flash_attention_lse': csrc + 'flash_fwd.cu'}
-    replaces = {'decode_matmul': 'tpusystem/ops/pallas/decode_matmul.py:99',
-                'decode_ffn': 'tpusystem/ops/pallas/decode_matmul.py:181',
-                'flash_attention_lse': 'tpusystem/ops/pallas/flash.py:106'}
-    # the line reports each kernel at its largest main-path shape
-    headline = {'decode_matmul': 'decode_matmul[qkv]',
-                'decode_ffn': 'decode_ffn',
-                'flash_attention_lse': 'flash_attention[S=1024]'}
+    pallas = 'tpusystem/ops/pallas/'
+    # name: (source, replaces, headline check, launches on the main paths)
+    table = {
+        'decode_matmul': ('decode_matmul.cu', 'decode_matmul.py:99',
+                          'decode_matmul[qkv]',
+                          served['launches']['decode_matmul']),
+        'decode_ffn': ('decode_matmul.cu', 'decode_matmul.py:181',
+                       'decode_ffn', served['launches']['decode_ffn']),
+        'flash_attention_lse': (
+            'flash_fwd.cu', 'flash.py:106', 'flash_attention[S=1024]',
+            served['launches']['flash_attention_lse']
+            + trained['launches']['flash_attention_lse']),
+        'flash_bwd_fused': ('flash_bwd.cu', 'flash.py:281',
+                            'flash_bwd_fused[train]',
+                            trained['launches']['flash_bwd_fused']),
+        'flash_bwd_dq': ('flash_bwd.cu', 'flash.py:162', 'flash_bwd_dq[train]',
+                         split['launches']['flash_bwd_dq']),
+        'flash_bwd_dkv': ('flash_bwd.cu', 'flash.py:201',
+                          'flash_bwd_dkv[train]',
+                          split['launches']['flash_bwd_dkv']),
+    }
     measured = dict(checks)
     kernels = []
-    for name, label in headline.items():
+    for name, (source, replaces, label, launches) in table.items():
         entry = measured[label]
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': sources[name],
-            'replaces': replaces[name],
-            'launches': served['launches'][name],
+            'name': name, 'route': 'cuda', 'source': csrc + source,
+            'replaces': pallas + replaces, 'launches': launches,
             'max_abs_err': entry['max_abs_err'], 'ms': entry['ms'],
             'plain_ms': entry['plain_ms'], 'bound_ms': entry['bound_ms'],
             'bound_by': entry['bound_by'], 'library_ms': entry['library_ms'],
@@ -400,7 +698,8 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {'card': card, 'build_s': build_seconds, 'checks': checks,
-             'serve': served, 'kernels': kernels,
+             'serve': served, 'train': trained, 'split': split,
+             'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))
     print(card)

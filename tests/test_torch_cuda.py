@@ -14,7 +14,11 @@ round their float32 sums to bfloat16 once, as the plain versions do, so they
 may differ by the summation order's effect on that rounding: at most two
 bfloat16 steps (2**-7) of the largest output. The flash kernel's output may
 differ by two bfloat16 steps of values below 2 (2e-2); its float32
-logsumexp by 1e-3.
+logsumexp by 1e-3. The backward kernels round P and dS to bfloat16 where the
+plain version does, but their float32 sums run in another order, so a
+rounding may land one bfloat16 step apart and the step propagates through
+the sums: dq, dk and dv may differ by four bfloat16 steps (2**-6) of the
+largest gradient of their tensor.
 """
 
 import pytest
@@ -131,3 +135,108 @@ def test_generate_and_engine_run_the_kernels_on_the_card(device):
     _close(fused, module_path, 2 ** -4 * module_path.abs().max().item())
     while engine.active_rows:
         engine.step()
+
+
+def _bwd_inputs(device, batch, seq, heads, kv_heads, seed):
+    generator = torch.Generator(device).manual_seed(seed)
+    shape, kv_shape = (batch, seq, heads, 64), (batch, seq, kv_heads, 64)
+    q, k, v, d_out = (_normal(generator, s, 1.0, device)
+                      for s in (shape, kv_shape, kv_shape, shape))
+    d_lse = torch.randn((batch, seq, heads), generator=generator,
+                        device=device) * 0.1
+    return q, k, v, d_out, d_lse
+
+
+def _close_grads(got, want):
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, w, 2 ** -6 * w.float().abs().max().item())
+
+
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal', [
+    (1, 1024, 12, 12, True),
+    (8, 512, 12, 12, True),
+    (2, 256, 12, 4, True),          # GQA group 3
+    (1, 300, 4, 4, False),          # non-causal, ragged
+    (2, 1000, 4, 2, True),          # ragged, GQA
+    (1, 1, 2, 2, True),
+])
+@pytest.mark.parametrize('backward', ['fused', 'split'])
+def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
+                                      causal, backward):
+    q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
+                                        seq + heads)
+    out, lse = flash.flash_attention_plain(q, k, v, causal=causal)
+    counters = ((flash.flash_bwd_fused,) if backward == 'fused'
+                else (flash.flash_bwd_dq, flash.flash_bwd_dkv))
+    before = [counter.launches for counter in counters]
+    got = flash.flash_attention_bwd(q, k, v, out, lse, d_out, d_lse,
+                                    causal=causal, backward=backward)
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out, d_lse,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1] * len(
+        counters)
+    _close_grads(got, want)
+
+
+@pytest.mark.parametrize('backward', ['fused', 'split'])
+def test_flash_backward_repeats_bitwise(device, backward):
+    q, k, v, d_out, d_lse = _bwd_inputs(device, 2, 640, 8, 4, 5)
+    out, lse = flash.flash_attention_plain(q, k, v)
+    first = flash.flash_attention_bwd(q, k, v, out, lse, d_out, d_lse,
+                                      backward=backward)
+    second = flash.flash_attention_bwd(q, k, v, out, lse, d_out, d_lse,
+                                       backward=backward)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_autograd_through_flash_attention_lse_on_the_card(device):
+    """torch.autograd.grad through the kernels' Function, both outputs
+    carrying a cotangent, against the plain backward; 'fused' and 'split'
+    agree."""
+    q, k, v, d_out, d_lse = _bwd_inputs(device, 2, 384, 6, 3, 9)
+    grads = {}
+    for backward in ('fused', 'split'):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = flash.flash_attention_lse(*leaves, backward=backward)
+        grads[backward] = torch.autograd.grad((out, lse), leaves,
+                                              (d_out, d_lse))
+    want = flash.flash_attention_bwd_plain(q, k, v, out.detach(),
+                                           lse.detach(), d_out, d_lse)
+    torch.cuda.synchronize()
+    _close_grads(grads['fused'], want)
+    _close_grads(grads['split'], grads['fused'])
+
+
+def test_gpt2_tiny_trains_on_the_card(device):
+    """Three AdamW steps of gpt2_tiny (bf16, flash, chunked loss): finite
+    losses that fall, the kernels launched once per layer per step."""
+    import numpy as np
+
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    module = gpt2_tiny(attention='flash', return_features=True,
+                       device=device)
+    optimizer = AdamW(lr=3e-3, grad_clip=1.0)
+    state = init_state(module, optimizer)
+    step = build_train_step(module_apply(module),
+                            ChunkedNextTokenLoss(chunks=4), optimizer)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, 256,
+                                                               (4, 128)),
+                             device=device)
+    before = flash.flash_attention_lse.launches, flash.flash_bwd_fused.launches
+    losses = []
+    for _ in range(3):
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert (flash.flash_attention_lse.launches - before[0],
+            flash.flash_bwd_fused.launches - before[1]) == (
+                3 * module.layers, 3 * module.layers)
+    assert int(state.step) == 3 and state.step.device.type == 'cuda'

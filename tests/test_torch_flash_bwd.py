@@ -1,0 +1,158 @@
+"""The port's flash backward against the JAX package's Pallas backward.
+
+The same seeded numpy inputs go through ``jax.vjp`` of the reference's
+``flash_attention_lse`` (interpret mode on the CPU, as the JAX package's own
+tests run it, with ``backward='fused'`` and ``'split'``) and through the
+port's plain backward, which the wrappers take for CPU tensors. Both run in
+float32 with a non-zero lse cotangent, where the two differ only by
+summation order: ``rtol = atol = 1e-5``. A second check holds the plain
+backward against autograd of ``dot_product_attention`` in float64, where
+only rounding separates them: ``rtol = atol = 1e-10``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpusystem.ops.pallas import flash as jflash
+from tpusystem_torch.ops.attention import dot_product_attention
+from tpusystem_torch.ops.cuda import flash as tflash
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+F64_TOL = dict(rtol=1e-10, atol=1e-10)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """Small attention shapes gain nothing from torch's thread pool, whose
+    spinning threads would slow the test workers beside this one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _inputs(seed, batch, seq, heads, kv_heads, head_dim, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    shape = (batch, seq, heads, head_dim)
+    kv_shape = (batch, seq, kv_heads, head_dim)
+    return (rng.standard_normal(shape).astype(dtype),
+            rng.standard_normal(kv_shape).astype(dtype),
+            rng.standard_normal(kv_shape).astype(dtype),
+            rng.standard_normal(shape).astype(dtype),            # d_out
+            rng.standard_normal((batch, seq, heads)).astype(dtype))  # d_lse
+
+
+def _jax_vjp(q, k, v, d_out, d_lse, *, causal, backward, block):
+    def attention(q, k, v):
+        return jflash.flash_attention_lse(q, k, v, causal=causal,
+                                          block_q=block, block_kv=block,
+                                          interpret=True, backward=backward)
+    (out, lse), vjp = jax.vjp(attention, *(jnp.asarray(a) for a in (q, k, v)))
+    grads = vjp((jnp.asarray(d_out), jnp.asarray(d_lse)))
+    return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
+
+
+# (seq, block): one reference block, and two kv steps (the partial-dq sum
+# under GQA, the resident-dq kernel under MHA)
+@pytest.mark.parametrize('seq,block', [(64, 32), (256, 128)])
+@pytest.mark.parametrize('kv_heads', [4, 2])             # MHA, GQA group 2
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('backward', ['fused', 'split'])
+def test_plain_backward_matches_jax_vjp(seq, block, kv_heads, causal,
+                                        backward):
+    q, k, v, d_out, d_lse = _inputs(seq + kv_heads, 1, seq, 4, kv_heads, 16)
+    out, lse, want = _jax_vjp(q, k, v, d_out, d_lse, causal=causal,
+                              backward=backward, block=block)
+    got = tflash.flash_attention_bwd_plain(
+        *(torch.tensor(a) for a in (q, k, v, out, lse, d_out, d_lse)),
+        causal=causal, backward=backward)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize('kv_heads,causal', [(4, True), (2, True),
+                                             (2, False)])
+def test_autograd_through_flash_attention_lse_matches_jax(kv_heads, causal):
+    """The autograd Function on CPU tensors: plain forward, plain backward,
+    no kernel launches; both outputs carry a cotangent."""
+    q, k, v, d_out, d_lse = _inputs(7, 2, 96, 4, kv_heads, 16)
+    _, _, want = _jax_vjp(q, k, v, d_out, d_lse, causal=causal,
+                          backward='fused', block=96)
+    tensors = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = (tflash.flash_attention_lse.launches,
+              tflash.flash_bwd_fused.launches)
+    out, lse = tflash.flash_attention_lse(*tensors, causal=causal)
+    got = torch.autograd.grad(
+        (out, lse), tensors,
+        (torch.from_numpy(d_out), torch.from_numpy(d_lse)))
+    assert (tflash.flash_attention_lse.launches,
+            tflash.flash_bwd_fused.launches) == before
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize('kv_heads,causal', [(4, True), (2, True),
+                                             (2, False)])
+def test_plain_backward_matches_float64_autograd(kv_heads, causal):
+    q, k, v, d_out, d_lse = (
+        torch.from_numpy(a) for a in _inputs(11, 2, 80, 4, kv_heads, 16,
+                                             np.float64))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = dot_product_attention(*leaves, causal=causal)
+    group = 4 // kv_heads
+    scores = torch.einsum('bqhd,bkhd->bhqk', leaves[0],
+                          leaves[1].repeat_interleave(group, 2)) * 16 ** -0.5
+    if causal:
+        scores = scores.masked_fill(
+            ~torch.ones(80, 80, dtype=torch.bool).tril(), tflash.NEG_INF)
+    lse = torch.logsumexp(scores, -1).transpose(1, 2)        # [B, S, H]
+    want = torch.autograd.grad((out, lse), leaves, (d_out, d_lse))
+    got = tflash.flash_attention_bwd_plain(
+        q, k, v, out.detach(), lse.detach(), d_out, d_lse, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F64_TOL)
+
+
+def test_lse_cotangent_alone_and_output_cotangent_alone():
+    """An unused output's cotangent arrives as None: each output alone
+    differentiates like the pair with a zero cotangent for the other."""
+    q, k, v, d_out, d_lse = (torch.from_numpy(a)
+                             for a in _inputs(3, 1, 40, 2, 2, 16))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = tflash.flash_attention_lse(*leaves)
+    only_out = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+    only_lse = torch.autograd.grad(lse, leaves, d_lse)
+    want_out = tflash.flash_attention_bwd_plain(
+        q, k, v, out.detach(), lse.detach(), d_out, torch.zeros_like(d_lse))
+    want_lse = tflash.flash_attention_bwd_plain(
+        q, k, v, out.detach(), lse.detach(), torch.zeros_like(d_out), d_lse)
+    for got, want in ((only_out, want_out), (only_lse, want_lse)):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_fused_mha_past_1024_keys_is_k2a_and_raises():
+    q = torch.zeros(1, 1032, 2, 16)
+    args = (q, q, q, q, torch.zeros(1, 1032, 2), q)
+    with pytest.raises(NotImplementedError, match='K2a'):
+        tflash.flash_attention_bwd(*args, backward='fused')
+    with pytest.raises(ValueError, match='backward'):
+        tflash.flash_attention_lse(q, q, q, backward='both')
+    # GQA takes K2b at any length, and 'split' is K3a/K3b at any length
+    kv = torch.zeros(1, 1032, 1, 16)
+    assert tflash.flash_attention_bwd(q, kv, kv, q, args[4], q)[1].shape == (
+        1, 1032, 1, 16)
+    assert tflash.flash_attention_bwd(*args, backward='split')[0].shape == (
+        q.shape)
+
+
+def test_backward_refuses_tensors_the_card_cannot_take():
+    x = torch.zeros(1, 8, 2, 16, device='meta')
+    lse = torch.zeros(1, 8, 2, device='meta')
+    with pytest.raises(ValueError, match='not supported'):
+        tflash.flash_attention_bwd(x, x, x, x, lse, x)

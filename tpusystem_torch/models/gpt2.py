@@ -19,10 +19,13 @@ logits, rounding where the reference rounds:
 ``decode=True`` is the KV-cache mode: ``forward(tokens, cache)`` returns
 ``(logits, cache)``, the cache a dict of tensors keyed by the reference's
 cache paths (see :mod:`tpusystem_torch.ops.attention`). ``decode_pages``
-switches it to the serving engine's paged pool. Not ported yet, each
-raising ``NotImplementedError``: ``scan_layers``, MoE blocks, ``remat``,
-ring/ulysses attention and training-time dropout; ``return_features`` (the
-chunked loss's input) is not a field yet.
+switches it to the serving engine's paged pool. ``return_features=True``
+returns ``(features, table)`` instead of logits: the input of
+:class:`tpusystem_torch.train.ChunkedNextTokenLoss`, which owns the head.
+``forward(train=True)`` trains through autograd at ``dropout=0.0`` (the
+flash kernels carry their own backward). Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP item: ``scan_layers``, MoE
+blocks, ``remat``, ring/ulysses attention and training-time dropout.
 """
 
 from __future__ import annotations
@@ -139,24 +142,25 @@ class GPT2(nn.Module):
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'remat', 'scan_layers',
-              'decode', 'per_row_decode', 'decode_pages', 'moe_experts')
+              'return_features', 'decode', 'per_row_decode', 'decode_pages',
+              'moe_experts')
 
     def __init__(self, vocab_size: int = 50257, layers: int = 12,
                  dim: int = 768, heads: int = 12, max_seq: int = 1024,
                  mlp_ratio: int = 4, dropout: float = 0.1,
                  dtype: str = 'bfloat16', attention: str = 'xla',
                  remat: bool = False, scan_layers: bool = False,
-                 decode: bool = False,
+                 return_features: bool = False, decode: bool = False,
                  per_row_decode: bool = False,
                  decode_pages: tuple | None = None, moe_experts: int = 0,
                  device=None) -> None:
         super().__init__()
         if scan_layers:
-            raise _not_ported('scan_layers', 'the GPT-2 train step')
+            raise _not_ported('scan_layers', 'scan_layers')
         if moe_experts:
             raise _not_ported('MoE blocks', 'MoE')
         if remat:
-            raise _not_ported('remat', 'the GPT-2 train step')
+            raise _not_ported('remat', 'remat')
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               'multi-GPU parallelism')
@@ -165,6 +169,7 @@ class GPT2(nn.Module):
         self.heads, self.max_seq, self.mlp_ratio = heads, max_seq, mlp_ratio
         self.dropout, self.dtype, self.attention = dropout, dtype, attention
         self.remat, self.scan_layers, self.decode = remat, scan_layers, decode
+        self.return_features = return_features
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
         self.moe_experts = moe_experts
         compute_dtype(dtype)                               # validates
@@ -250,7 +255,7 @@ class GPT2(nn.Module):
         the deepest row's cursor before the call, the host's choice of read
         window; when omitted it is read from the cache."""
         if train and self.dropout:
-            raise _not_ported('training-time dropout', 'the GPT-2 train step')
+            raise _not_ported('training-time dropout', 'dropout')
         dtype = self.compute_dtype
         batch, length = tokens.shape
         if length > self.max_seq:
@@ -282,9 +287,15 @@ class GPT2(nn.Module):
             else:
                 attention = functools.partial(attend, kernel=self.attention)
             hidden = block(hidden, dtype, attention)
-        logits = head_logits(self.ln_f(hidden).to(dtype),
-                             self.wte.embedding.to(dtype), tied=True)
-        return (logits, cache) if self.decode else logits
+        features = self.ln_f(hidden).to(dtype)
+        table = self.wte.embedding.to(dtype)
+        if self.return_features:
+            # the criterion owns the head: the [batch * seq, vocab] float32
+            # logits never form (ChunkedNextTokenLoss)
+            outputs = (features, table)
+        else:
+            outputs = head_logits(features, table, tied=True)
+        return (outputs, cache) if self.decode else outputs
 
 
 register(GPT2, excluded_kwargs={'device'})

@@ -46,13 +46,15 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
                           mask=None):
     """Multi-head attention over ``[batch, length, heads, head_dim]``.
 
-    Scores and softmax in float32; the weights are rounded to the input
-    dtype before the product with ``value``; the output returns in the
-    input dtype. ``mask`` broadcasts against ``[batch, heads, q, k]``."""
+    Scores and softmax in float32 (float64 for float64 inputs); the weights
+    are rounded to the input dtype before the product with ``value``; the
+    output returns in the input dtype. ``mask`` broadcasts against
+    ``[batch, heads, q, k]``. Differentiable through autograd."""
     dtype = query.dtype
+    work = torch.promote_types(dtype, torch.float32)
     scale = query.shape[-1] ** -0.5
     key, value = repeat_kv_heads(query, key, value)
-    scores = torch.einsum('bqhd,bkhd->bhqk', query.float(), key.float())
+    scores = torch.einsum('bqhd,bkhd->bhqk', query.to(work), key.to(work))
     scores = scores * scale
     if causal:
         scores = scores.masked_fill(
@@ -61,14 +63,16 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum('bhqk,bkhd->bqhd', weights.to(dtype).float(),
-                       value.float())
+    out = torch.einsum('bhqk,bkhd->bqhd', weights.to(dtype).to(work),
+                       value.to(work))
     return out.to(dtype)
 
 
 def attend(query, key, value, *, kernel: str = 'xla'):
-    """Causal attention of the forward pass: ``'xla'`` is
-    :func:`dot_product_attention`, ``'flash'`` the flash kernel."""
+    """Causal attention of the forward and training passes: ``'xla'`` is
+    :func:`dot_product_attention` (autograd), ``'flash'`` the flash kernels
+    (K1 forward, the fused backward K2b). Attention-probability dropout is
+    not ported: the model raises before a training call with dropout."""
     if kernel == 'xla':
         return dot_product_attention(query, key, value, causal=True)
     if kernel == 'flash':

@@ -1,0 +1,514 @@
+// Flash-attention backward for Hopper (sm_90a): bf16 q, k, v, out and dO,
+// float32 lse and delta, bf16 dq, dk and dv.
+//
+// Replaces the Pallas TPU kernels of tpusystem/ops/pallas/flash.py reached
+// through _flash_bwd_impl:
+//   * flash_bwd_fused  <- _flash_fused_bwd_kernel (K2b, call at :586);
+//   * flash_bwd_dq     <- _flash_dq_kernel        (K3a, call at :622);
+//   * flash_bwd_dkv    <- _flash_dkv_kernel       (K3b, call at :651).
+// K2a (_flash_fused_bwd_g1_kernel, resident f32 dq for MHA past 1024 keys)
+// and the in-kernel dropout hash are not ported.
+//
+// One __device__ routine, tile_terms, holds the per-tile math of
+// _bwd_block_terms (flash.py:253-278) for all three kernels, so they cannot
+// drift apart numerically: scores = (q . k) * scale with the causal mask,
+// P = exp(scores - lse), dP = dO . v, dS = P * (dP - delta) * scale. P is
+// rounded to bf16 (dO's dtype) before dV += P^T dO, dS to bf16 (q's dtype)
+// before dK += dS^T Q and dQ += dS K; every sum is float32.
+//
+// What bounds it on an H100: at the GPT-2 125M training shape
+// [16, 1024, 12, 64], causal, the fused backward does 5 products of
+// 2 * 64 flops per visible (query, key) pair: ~6.5e10 flops against
+// ~0.18 GB of q, k, v, dO, dq, dk, dv, lse and delta, so the tensor-core
+// bound is ~65 us and the memory bound ~53 us. These first kernels do their
+// products with scalar float32 FMAs out of shared memory (4 x 4 register
+// tiles per thread), so they are bound by the SMs' scalar FP32 rate, far
+// above that bound: mma.sync / wgmma with TMA-fed tiles is the later step.
+//
+// What the design does:
+//   * 64 x 64 tiles; 256 threads, thread (ty, tx) owning rows ty + 16 i and
+//     columns tx + 16 j of every tile product, so shared-memory reads are
+//     broadcasts or conflict-free (rows padded by two bf16).
+//   * flash_bwd_dkv: a block per (kv tile, batch * kv head) holds k and v in
+//     shared memory and sweeps every (group member, q tile) pair that can
+//     see the tile, member-major as the reference's grid does, with dk and
+//     dv in registers; under GQA the mask row is the query head's row.
+//   * flash_bwd_dq: a block per (q tile, batch * q head) holds q and dO and
+//     sweeps the visible kv tiles with dq in registers.
+//   * flash_bwd_fused: the dkv sweep that also forms dS K for every tile it
+//     recomputes (5 products per tile instead of the split pair's 7). No
+//     Hopper block can carry dq across blocks that run in no order, so each
+//     (q tile, kv tile) writes its float32 dq partial, and a second pass
+//     sums a row's partials in kv order and rounds once. Only the visible
+//     pairs are stored: tiles * (tiles + 1) / 2 per query head when causal
+//     (136 of 256 at S = 1024), 428 MB at the training shape instead of the
+//     805 MB of a dense [kv_tiles, B * H, S, D] array.
+//   * No float atomics anywhere: two calls on the same inputs give bitwise
+//     the same dq, dk and dv.
+//   * Any sequence length: rows and columns past S are masked (P = 0) and
+//     never written. Tensors keep the public [B, S, H, D] layout (lse and
+//     delta [B, S, Hq]); the kernels compute their own strided offsets.
+//
+// Plain C interface (bound with ctypes); launches on the given stream,
+// allocates nothing and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 64;               // query rows and kv rows per tile
+constexpr int THREADS = 256;
+constexpr int TX = 16;                 // threads along a product's columns
+constexpr int TY = THREADS / TX;       // threads along its rows
+constexpr int RPT = TILE / TY;         // tile rows per thread
+constexpr int CPT = TILE / TX;         // score columns per thread
+constexpr int SP = TILE + 2;           // padded row of the P and dS tiles
+
+typedef __nv_bfloat16 bf16;
+
+template <int D>
+struct Layout {
+  static constexpr int P = D + 2;      // padded row of a q, k, v or dO tile
+  static constexpr int DPT = D / TX;   // output dims per thread
+  static constexpr size_t bytes =
+      (4 * TILE * P + 2 * TILE * SP) * sizeof(bf16) + 2 * TILE * sizeof(float);
+};
+
+struct Tiles {
+  bf16 *q, *k, *v, *dout, *p, *ds;
+  float *lse, *delta;
+};
+
+template <int D>
+__device__ Tiles carve(unsigned char* smem) {
+  constexpr int P = Layout<D>::P;
+  Tiles t;
+  t.q = reinterpret_cast<bf16*>(smem);
+  t.k = t.q + TILE * P;
+  t.v = t.k + TILE * P;
+  t.dout = t.v + TILE * P;
+  t.p = t.dout + TILE * P;
+  t.ds = t.p + TILE * SP;
+  t.lse = reinterpret_cast<float*>(t.ds + TILE * SP);
+  t.delta = t.lse + TILE;
+  return t;
+}
+
+// rows row0 .. row0 + 63 of head h of batch b of a [B, S, H, D] tensor into
+// a padded shared tile; zeros past the sequence end
+template <int D>
+__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int row0, int S,
+                          int H, int h, int b) {
+  constexpr int P = Layout<D>::P;
+  constexpr int CHUNKS = D / 8;        // 16-byte chunks per row
+  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = i % CHUNKS;
+    const int row = row0 + r;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (row < S)
+      raw = *reinterpret_cast<const uint4*>(
+          src + ((static_cast<size_t>(b) * S + row) * H + h) * D + c * 8);
+    uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * P + c * 8);
+    out[0] = raw.x;
+    out[1] = raw.y;
+    out[2] = raw.z;
+    out[3] = raw.w;
+  }
+}
+
+// one row statistic (lse or delta, [B, S, H] float32) per tile row
+__device__ void load_stats(float* dst, const float* __restrict__ src, int row0, int S,
+                           int H, int h, int b) {
+  for (int r = threadIdx.x; r < TILE; r += THREADS) {
+    const int row = row0 + r;
+    dst[r] = row < S ? src[(static_cast<size_t>(b) * S + row) * H + h] : 0.0f;
+  }
+}
+
+// _bwd_block_terms: P and dS of the (q0.., k0..) tile pair into shared
+// memory, both rounded to bf16. Callers synchronise before and after.
+template <int D>
+__device__ void tile_terms(const Tiles& t, int q0, int k0, int S, float scale, int causal) {
+  constexpr int P = Layout<D>::P;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.0f;
+
+#pragma unroll 4
+  for (int d = 0; d < D; d += 2) {
+    float2 qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = (ty + TY * i) * P + d;
+      qv[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.q + r));
+      ov[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.dout + r));
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = (tx + TX * j) * P + d;
+      kv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.k + c));
+      vv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.v + c));
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+        dp[i][j] = fmaf(ov[i].x, vv[j].x, dp[i][j]);
+        dp[i][j] = fmaf(ov[i].y, vv[j].y, dp[i][j]);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = ty + TY * i;
+    const int qrow = q0 + row;
+    const float lse = t.lse[row];
+    const float delta = t.delta[row];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int col = tx + TX * j;
+      const int kcol = k0 + col;
+      const bool visible = qrow < S && kcol < S && (!causal || kcol <= qrow);
+      // masked scores are -1e30 in the reference: exp(-1e30 - lse) == 0
+      const float p = visible ? expf(s[i][j] * scale - lse) : 0.0f;
+      const float ds = p * (dp[i][j] - delta) * scale;
+      t.p[row * SP + col] = __float2bfloat16(p);
+      t.ds[row * SP + col] = __float2bfloat16(ds);
+    }
+  }
+}
+
+// acc[r][d] += sum over the tile's query rows x of a[x][r] * m[x][d]
+// (dV += P^T dO with a = P, dK += dS^T Q with a = dS)
+template <int D>
+__device__ void accumulate_transposed(float (&acc)[RPT][Layout<D>::DPT], const bf16* a,
+                                      const bf16* m) {
+  constexpr int P = Layout<D>::P;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+#pragma unroll 4
+  for (int x = 0; x < TILE; ++x) {
+    float av[RPT], mv[Layout<D>::DPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) av[i] = __bfloat162float(a[x * SP + ty + TY * i]);
+#pragma unroll
+    for (int j = 0; j < Layout<D>::DPT; ++j) mv[j] = __bfloat162float(m[x * P + tx + TX * j]);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < Layout<D>::DPT; ++j) acc[i][j] = fmaf(av[i], mv[j], acc[i][j]);
+  }
+}
+
+// acc[r][d] += sum over the tile's kv rows c of a[r][c] * m[c][d]
+// (dQ += dS K)
+template <int D>
+__device__ void accumulate(float (&acc)[RPT][Layout<D>::DPT], const bf16* a, const bf16* m) {
+  constexpr int P = Layout<D>::P;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+#pragma unroll 4
+  for (int c = 0; c < TILE; ++c) {
+    float av[RPT], mv[Layout<D>::DPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) av[i] = __bfloat162float(a[(ty + TY * i) * SP + c]);
+#pragma unroll
+    for (int j = 0; j < Layout<D>::DPT; ++j) mv[j] = __bfloat162float(m[c * P + tx + TX * j]);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < Layout<D>::DPT; ++j) acc[i][j] = fmaf(av[i], mv[j], acc[i][j]);
+  }
+}
+
+// rows row0 + ty + 16 i (below S) of head h of batch b, rounded to bf16
+template <int D>
+__device__ void store_rows(bf16* __restrict__ dst, const float (&acc)[RPT][Layout<D>::DPT],
+                           int row0, int S, int H, int h, int b) {
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = row0 + ty + TY * i;
+    if (row >= S) continue;
+    bf16* out = dst + ((static_cast<size_t>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < Layout<D>::DPT; ++j) out[tx + TX * j] = __float2bfloat16(acc[i][j]);
+  }
+}
+
+// visible (q tile, kv tile) pairs per query head, and the first pair of q tile qt
+__host__ __device__ inline size_t pair_count(int tiles, int causal) {
+  return causal ? static_cast<size_t>(tiles) * (tiles + 1) / 2
+                : static_cast<size_t>(tiles) * tiles;
+}
+__host__ __device__ inline size_t pair_base(int qt, int tiles, int causal) {
+  return causal ? static_cast<size_t>(qt) * (qt + 1) / 2 : static_cast<size_t>(qt) * tiles;
+}
+
+// K3b (FUSED = false) and K2b (FUSED = true): one block per (kv tile,
+// batch * kv head), sweeping (group member, q tile) pairs
+template <int D, bool FUSED>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_partial,
+                    int S, int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles t = carve<D>(smem);
+  constexpr int DPT = Layout<D>::DPT;
+  const int kt = blockIdx.x;
+  const int b = blockIdx.y / Hkv;
+  const int hk = blockIdx.y % Hkv;
+  const int group = Hq / Hkv;
+  const int tiles = (S + TILE - 1) / TILE;
+  const int k0 = kt * TILE;
+  load_tile<D>(t.k, k, k0, S, Hkv, hk, b);
+  load_tile<D>(t.v, v, k0, S, Hkv, hk, b);
+
+  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+
+  const int first = causal ? kt : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    for (int qt = first; qt < tiles; ++qt) {
+      const int q0 = qt * TILE;
+      __syncthreads();                   // the last pair's readers are done
+      load_tile<D>(t.q, q, q0, S, Hq, h, b);
+      load_tile<D>(t.dout, dout, q0, S, Hq, h, b);
+      load_stats(t.lse, lse, q0, S, Hq, h, b);
+      load_stats(t.delta, delta, q0, S, Hq, h, b);
+      __syncthreads();
+      tile_terms<D>(t, q0, k0, S, scale, causal);
+      __syncthreads();
+      accumulate_transposed<D>(dv_acc, t.p, t.dout);
+      accumulate_transposed<D>(dk_acc, t.ds, t.q);
+      if (FUSED) {
+        float dq_acc[RPT][DPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < DPT; ++j) dq_acc[i][j] = 0.0f;
+        accumulate<D>(dq_acc, t.ds, t.k);
+        const size_t slot = (static_cast<size_t>(b) * Hq + h) * pair_count(tiles, causal) +
+                            pair_base(qt, tiles, causal) + kt;
+        float* out = dq_partial + slot * TILE * D;
+        const int tx = threadIdx.x % TX;
+        const int ty = threadIdx.x / TX;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < DPT; ++j) out[(ty + TY * i) * D + tx + TX * j] = dq_acc[i][j];
+      }
+    }
+  }
+  store_rows<D>(dk, dk_acc, k0, S, Hkv, hk, b);
+  store_rows<D>(dv, dv_acc, k0, S, Hkv, hk, b);
+}
+
+// second pass of the fused backward: a query row's partials summed in kv
+// order, rounded once; one thread per (batch * head, row, dim)
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dq_reduce_kernel(const float* __restrict__ dq_partial, bf16* __restrict__ dq, int B, int S,
+                 int Hq, int causal) {
+  const size_t index = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (index >= static_cast<size_t>(B) * Hq * S * D) return;
+  const int d = static_cast<int>(index % D);
+  const int row = static_cast<int>((index / D) % S);
+  const size_t bh = index / (static_cast<size_t>(D) * S);
+  const int tiles = (S + TILE - 1) / TILE;
+  const int qt = row / TILE;
+  const int last = causal ? qt : tiles - 1;
+  const float* src = dq_partial +
+                     (bh * pair_count(tiles, causal) + pair_base(qt, tiles, causal)) * TILE * D +
+                     (row % TILE) * D + d;
+  float sum = 0.0f;
+  for (int kt = 0; kt <= last; ++kt) sum += src[static_cast<size_t>(kt) * TILE * D];
+  const int b = static_cast<int>(bh / Hq);
+  const int h = static_cast<int>(bh % Hq);
+  dq[((static_cast<size_t>(b) * S + row) * Hq + h) * D + d] = __float2bfloat16(sum);
+}
+
+// K3a: one block per (q tile, batch * q head), sweeping the visible kv tiles
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles t = carve<D>(smem);
+  constexpr int DPT = Layout<D>::DPT;
+  const int qt = blockIdx.x;
+  const int b = blockIdx.y / Hq;
+  const int h = blockIdx.y % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int tiles = (S + TILE - 1) / TILE;
+  const int q0 = qt * TILE;
+  load_tile<D>(t.q, q, q0, S, Hq, h, b);
+  load_tile<D>(t.dout, dout, q0, S, Hq, h, b);
+  load_stats(t.lse, lse, q0, S, Hq, h, b);
+  load_stats(t.delta, delta, q0, S, Hq, h, b);
+
+  float dq_acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dq_acc[i][j] = 0.0f;
+
+  const int last = causal ? qt : tiles - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();                     // the last tile's readers are done
+    load_tile<D>(t.k, k, k0, S, Hkv, hk, b);
+    load_tile<D>(t.v, v, k0, S, Hkv, hk, b);
+    __syncthreads();
+    tile_terms<D>(t, q0, k0, S, scale, causal);
+    __syncthreads();
+    accumulate<D>(dq_acc, t.ds, t.k);
+  }
+  store_rows<D>(dq, dq_acc, q0, S, Hq, h, b);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <int D, bool FUSED>
+int launch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, void* dq_partial, int B, int S, int Hq,
+              int Hkv, float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_kv_kernel<D, FUSED>;
+  const size_t bytes = Layout<D>::bytes;
+  if (const int err = prepare(kernel, bytes)) return err;
+  const dim3 grid((S + TILE - 1) / TILE, B * Hkv);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(dq_partial), S, Hq, Hkv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_reduce(const void* dq_partial, void* dq, int B, int S, int Hq, int causal,
+                  cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(B) * Hq * S * D;
+  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
+  dq_reduce_kernel<D><<<blocks, THREADS, 0, stream>>>(static_cast<const float*>(dq_partial),
+                                                      static_cast<bf16*>(dq), B, S, Hq, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int S, int Hq, int Hkv, float scale,
+              int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<D>;
+  const size_t bytes = Layout<D>::bytes;
+  if (const int err = prepare(kernel, bytes)) return err;
+  const dim3 grid((S + TILE - 1) / TILE, B * Hq);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int B, int S, int Hq, int Hkv) {
+  return B >= 1 && S >= 1 && Hkv >= 1 && Hq % Hkv == 0 && B * Hq <= 65535;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Elements of the float32 partial buffer flash_bwd_fused_bf16 needs.
+size_t flash_bwd_partial_elements(int B, int S, int Hq, int D, int causal) {
+  const int tiles = (S + TILE - 1) / TILE;
+  return static_cast<size_t>(B) * Hq * pair_count(tiles, causal) * TILE * D;
+}
+
+// q, dout [B, S, Hq, D]; k, v [B, S, Hkv, D] bf16 (contiguous); lse and
+// delta [B, S, Hq] float32; dq like q, dk and dv like k; dq_partial holds
+// flash_bwd_partial_elements(...) floats. D in {16, 32, 64}.
+int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                         void* dq_partial, int B, int S, int Hq, int Hkv, int D, float scale,
+                         int causal, void* stream) {
+  if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (D) {
+    case 16:
+      err = launch_kv<16, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
+                                scale, causal, s);
+      return err ? err : launch_reduce<16>(dq_partial, dq, B, S, Hq, causal, s);
+    case 32:
+      err = launch_kv<32, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
+                                scale, causal, s);
+      return err ? err : launch_reduce<32>(dq_partial, dq, B, S, Hq, causal, s);
+    case 64:
+      err = launch_kv<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
+                                scale, causal, s);
+      return err ? err : launch_reduce<64>(dq_partial, dq, B, S, Hq, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+                       int Hq, int Hkv, int D, float scale, int causal, void* stream) {
+  if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_kv<16, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
+                                  scale, causal, s);
+    case 32:
+      return launch_kv<32, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
+                                  scale, causal, s);
+    case 64:
+      return launch_kv<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
+                                  scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int B, int S, int Hq,
+                      int Hkv, int D, float scale, int causal, void* stream) {
+  if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+    case 32:
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+    case 64:
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"
