@@ -27,9 +27,20 @@ Phases, in order; any failure exits non-zero:
    backward launched once per layer per step; first its loss and gradient
    are held against the same model on plain PyTorch attention; then a traced
    window of two steps;
-6. one layer's attention forward and backward through the split backward,
+6. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
+   (``matmul_scatter_rows``) against their plain versions at the four shapes
+   one MoE layer gives them in training (forward and backward, 16,384 tokens
+   routed top-2 over 8 experts at capacity 5,120), with bitwise repeats;
+7. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
+   settings: the 125M body, 8 experts top-2 in every second block,
+   ``moe_sparse_impl='fused'``, ``WithAuxLoss`` over the chunked loss, AdamW,
+   16 x 1024 tokens): its loss and gradient on 2 rows held against the same
+   weights through the gather impl, then one warm-up and three timed steps
+   whose losses must be finite and fall, K6 and K7 launched 12 times per
+   step each; then a traced window of two steps;
+8. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's;
-7. print the ``kernels`` line, the card's name and power limit, and last the
+9. print the ``kernels`` line, the card's name and power limit, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -53,6 +64,8 @@ ROWS, BLOCK, MAX_NEW = 8, 16, 32
 PROMPT_LENGTHS = (20, 300, 700, 20, 300, 700, 100, 450)
 TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM = 16, 1024, 12, 64
 TRAIN_STEPS = 6                 # timed, after one warm-up step
+MOE_EXPERTS, MOE_K, MOE_FACTOR, MOE_STEPS = 8, 2, 1.25, 3
+DIM, HIDDEN = 768, 3072
 
 
 def fail(message: str) -> None:
@@ -113,12 +126,18 @@ def rotating(make, one_set_bytes: int):
     return [make() for _ in range(copies)]
 
 
-def record_check(name, shape, err, tol, timed, plain, library, bound):
-    """Print one kernel's check and fail if its error is over ``tol``."""
-    entry = dict(shape=shape, max_abs_err=err, tol=tol, ms=timed[0],
-                 event_ms=timed[1], plain_ms=plain[0],
-                 library_ms=None if library is None else library[0],
-                 bound_ms=bound[0], bound_by=bound[1])
+def record_check(name, shape, err, tol, timed, plain, library, bound,
+                 by_events=False, **notes):
+    """Print one kernel's check and fail if its error is over ``tol``. With
+    ``by_events`` the times quoted are the CUDA-event ones (for kernels of
+    milliseconds, where the host's gaps between launches are negligible),
+    the profiler's kernel sum kept beside them."""
+    pick = 1 if by_events else 0
+    entry = dict(shape=shape, max_abs_err=err, tol=tol, ms=timed[pick],
+                 event_ms=timed[1], profiler_ms=timed[0],
+                 plain_ms=plain[pick],
+                 library_ms=None if library is None else library[pick],
+                 bound_ms=bound[0], bound_by=bound[1], **notes)
     print('kernel-check ' + json.dumps({'name': name, **entry}))
     if not err <= tol:
         fail(f'{name} {shape}: max abs err {err} over {tol}')
@@ -377,38 +396,270 @@ def check_backward(torch, generator):
     return rows
 
 
-def train_reference(torch, module, criterion, tokens) -> dict:
-    """The flash model's loss and gradient against the same weights on
-    plain PyTorch attention (``'xla'``: autograd through
-    ``dot_product_attention``, no kernel), on a few rows of the batch. Both
-    keep bfloat16 activations, so the losses agree within 1e-2 and the
-    full gradients point the same way (cosine above 0.999)."""
+def grouped_inputs(torch, generator):
+    """One MoE layer's operands at the training shape: 16 x 1024 tokens
+    routed top-2 over 8 experts by the port's own routing (capacity 5120,
+    so some choices drop), random bf16 activations and weights."""
+    from tpusystem_torch.ops import moe
+
+    device, bf16 = torch.device('cuda'), torch.bfloat16
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    capacity = moe.expert_capacity(tokens, MOE_EXPERTS, MOE_K, MOE_FACTOR)
+
+    def normal(shape, scale=1.0):
+        return (torch.randn(shape, generator=generator, device=device)
+                * scale).to(bf16)
+
+    gates = torch.softmax(torch.randn((tokens, MOE_EXPERTS),
+                                      generator=generator, device=device),
+                          -1)
+    _, slots, weights, _ = moe.route_top_k_sparse(gates, MOE_K, capacity)
+    slot_asg, slot_token, _ = moe._invert_seating(
+        slots, MOE_K, tokens, MOE_EXPERTS * capacity)
+    return dict(tokens=tokens, capacity=capacity, slot_token=slot_token,
+                clamped=slot_token.clamp(max=tokens - 1),
+                valid=(slot_token < tokens).float(),
+                w_slot=moe._take(weights, slot_asg),
+                seated=int((slot_token < tokens).sum()),
+                x=normal((tokens, DIM)), d_out=normal((tokens, DIM), 0.01),
+                w1=normal((MOE_EXPERTS, DIM, HIDDEN), DIM ** -0.5),
+                w2=normal((MOE_EXPERTS, HIDDEN, DIM), HIDDEN ** -0.5),
+                b2=normal((MOE_EXPERTS, DIM), 0.1),
+                grown=normal((MOE_EXPERTS * capacity, HIDDEN)),
+                d_pre=normal((MOE_EXPERTS * capacity, HIDDEN), 0.01))
+
+
+def check_grouped(torch, generator):
+    """Phase 6: K6 and K7 against their plain versions at the four shapes
+    of one MoE layer's training step, each with a bitwise repeat, timed
+    beside the plain version, ``torch.bmm`` over the same rows gathered
+    into the ``[8, 5120, k]`` buffer beforehand (the product alone: no
+    gather, no combine) and the bound. Flops count the seated rows only
+    (empty slots need no product); bytes count each input read once and
+    each output written once."""
+    from tpusystem_torch.ops import moe
+    from tpusystem_torch.ops.cuda import grouped_matmul as gm
+
+    g = grouped_inputs(torch, generator)
+    tokens, capacity, seated = g['tokens'], g['capacity'], g['seated']
+    rows = MOE_EXPERTS * capacity
+    ids_bytes = rows * 8                                  # int32 id, f32 scale
+
+    def buffer(src):                      # the dispatch buffer K6 never forms
+        return moe._take(src, g['slot_token']).reshape(MOE_EXPERTS, capacity,
+                                                       -1)
+
+    cases = {
+        'gather_rows_matmul[fwd]': dict(
+            kernel=gm.gather_rows_matmul, plain=gm.gather_rows_matmul_plain,
+            args=(g['x'], g['w1'], g['clamped'], g['valid']), options={},
+            library=(buffer(g['x']), g['w1']), shape=[tokens, DIM, HIDDEN],
+            moved=tokens * DIM * 2 + g['w1'].numel() * 2 + ids_bytes
+            + rows * HIDDEN * 2, flops=2 * seated * DIM * HIDDEN),
+        'gather_rows_matmul[bwd]': dict(
+            kernel=gm.gather_rows_matmul, plain=gm.gather_rows_matmul_plain,
+            args=(g['d_out'], g['w2'], g['clamped'], g['w_slot']),
+            options=dict(transpose_rhs=True),
+            library=(buffer(g['d_out']), g['w2'].transpose(1, 2)),
+            shape=[tokens, DIM, HIDDEN],
+            moved=tokens * DIM * 2 + g['w2'].numel() * 2 + ids_bytes
+            + rows * HIDDEN * 2, flops=2 * seated * DIM * HIDDEN),
+        'matmul_scatter_rows[fwd]': dict(
+            kernel=gm.matmul_scatter_rows, plain=gm.matmul_scatter_rows_plain,
+            args=(g['grown'], g['w2'], g['b2'], g['slot_token'], g['w_slot'],
+                  tokens), options={},
+            library=(g['grown'].reshape(MOE_EXPERTS, capacity, HIDDEN),
+                     g['w2']), shape=[rows, HIDDEN, DIM],
+            moved=rows * HIDDEN * 2 + g['w2'].numel() * 2 + MOE_EXPERTS * DIM
+            * 2 + ids_bytes + tokens * DIM * 2 + rows * DIM * 2,
+            flops=2 * seated * HIDDEN * DIM),
+        'matmul_scatter_rows[bwd]': dict(
+            kernel=gm.matmul_scatter_rows, plain=gm.matmul_scatter_rows_plain,
+            args=(g['d_pre'], g['w1'], None, g['slot_token'], g['valid'],
+                  tokens), options=dict(transpose_rhs=True, save_rows=False),
+            library=(g['d_pre'].reshape(MOE_EXPERTS, capacity, HIDDEN),
+                     g['w1'].transpose(1, 2)), shape=[rows, HIDDEN, DIM],
+            moved=rows * HIDDEN * 2 + g['w1'].numel() * 2 + ids_bytes
+            + tokens * DIM * 2, flops=2 * seated * HIDDEN * DIM),
+    }
+    results = []
+    for name, case in cases.items():
+        options = dict(rows_per_group=capacity, **case['options'])
+        run = lambda i: case['kernel'](*case['args'], **options)
+        first, again = run(0), run(1)
+        want = case['plain'](*case['args'], **options)
+        torch.cuda.synchronize()
+        if isinstance(first, tuple):               # K7: (out, rows | None)
+            bitwise = all(a is None or torch.equal(a, b)
+                          for a, b in zip(first, again))
+            (out, saved), (want_out, want_rows) = first, want
+            pairs = [((out.float() - want_out.float()).abs().max().item(),
+                      2 ** -5 * want_out.float().abs().max().item())]
+            if saved is not None:
+                pairs.append(((saved.float() - want_rows.float()).abs()
+                              .max().item(),
+                              2 ** -7 * want_rows.float().abs().max().item()))
+            finite = torch.isfinite(out.float()).all().item()
+        else:
+            bitwise = torch.equal(first, again)
+            pairs = [((first.float() - want.float()).abs().max().item(),
+                      2 ** -7 * want.float().abs().max().item())]
+            finite = torch.isfinite(first.float()).all().item()
+        err, tol = worst(pairs)
+        print('grouped-check ' + json.dumps(
+            {'name': name, 'bitwise_repeat': bitwise, 'finite': finite,
+             'seated_rows': seated, 'buffer_rows': rows,
+             'errors': [list(pair) for pair in pairs]}))
+        if not finite:
+            fail(f'{name}: non-finite output')
+        if not bitwise:
+            fail(f'{name}: two calls differ')
+        lhs, rhs = case['library']
+        timed = measure(run, calls=20)
+        plain = measure(lambda i: case['plain'](*case['args'], **options),
+                        calls=3)
+        library = measure(lambda i: torch.bmm(lhs, rhs), calls=20)
+        results.append(record_check(
+            name, case['shape'], err, tol, timed, plain, library,
+            bound_ms(case['moved'], case['flops']), by_events=True,
+            bitwise_repeat=bitwise, library_call='torch.bmm over the rows '
+            'gathered into the [8, 5120, k] buffer beforehand: the product '
+            'alone, no gather, no bias, no combine'))
+    return results
+
+
+def compare_clones(torch, module, criterion, tokens, field, values) -> dict:
+    """The loss and full gradient of ``module`` on ``tokens`` with ``field``
+    set to ``values[0]``, held against the same weights with ``values[1]``
+    (clones of the module that share its parameters)."""
     params = list(module.parameters())
-    results = {}
-    for kernel in ('flash', 'xla'):
-        clone = module.replace(attention=kernel)
+    results = []
+    for value in values:
+        clone = module.replace(**{field: value})
         loss = criterion(clone(tokens, train=True), tokens)
         grads = torch.autograd.grad(loss, params)
-        results[kernel] = (loss.item(),
-                           torch.cat([g.float().flatten() for g in grads]))
-    (flash_loss, flash_grad), (plain_loss, plain_grad) = (results['flash'],
-                                                          results['xla'])
-    cosine = torch.nn.functional.cosine_similarity(flash_grad, plain_grad,
-                                                   dim=0).item()
-    relative = ((flash_grad - plain_grad).norm() / plain_grad.norm()).item()
-    result = dict(rows=tokens.shape[0], flash_loss=flash_loss,
-                  plain_loss=plain_loss, grad_cosine=cosine,
-                  grad_relative_err=relative)
-    print('train-reference ' + json.dumps(result))
-    if not (math.isfinite(flash_loss) and abs(flash_loss - plain_loss) <= 1e-2
-            and cosine > 0.999):
-        fail(f'flash train step vs plain attention: {result}')
-    return result
+        results.append((loss.item(),
+                        torch.cat([g.float().flatten() for g in grads])))
+    (loss, grad), (reference_loss, reference_grad) = results
+    return {'rows': tokens.shape[0], field: list(values), 'loss': loss,
+            'reference_loss': reference_loss,
+            'grad_cosine': torch.nn.functional.cosine_similarity(
+                grad, reference_grad, dim=0).item(),
+            'grad_relative_err': ((grad - reference_grad).norm()
+                                  / reference_grad.norm()).item()}
+
+
+def timed_steps(torch, step, state, tokens, steps: int, counters):
+    """One warm-up step, then ``steps`` timed ones, every counter of
+    ``counters`` set to 0 just before them and read just after; fails unless
+    the losses are finite and fall. Returns ``(state, result)``."""
+    started = time.perf_counter()
+    state, (_, loss) = step(state, tokens, tokens)              # warm-up
+    losses = [loss.item()]
+    warmup_s = time.perf_counter() - started
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())                        # waits for the step
+        seconds.append(time.perf_counter() - started)
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'non-finite training loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'training loss did not fall: {losses}')
+    median = sorted(seconds)[len(seconds) // 2]
+    return state, dict(
+        launches={counter.__name__: counter.launches for counter in counters},
+        losses=losses, step_ms=[1e3 * s for s in seconds],
+        median_step_ms=1e3 * median, min_step_ms=1e3 * min(seconds),
+        max_step_ms=1e3 * max(seconds), warmup_s=warmup_s,
+        tokens_per_s=tokens.numel() / median,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        batch=list(tokens.shape), steps=steps)
+
+
+def check_launches(result, per_step: dict) -> None:
+    steps = result['steps']
+    for name, count in per_step.items():
+        if result['launches'][name] != count * steps:
+            fail(f"{name} launched {result['launches'][name]} times in "
+                 f'{steps} steps, not {count} per step')
+
+
+def train_moe(torch, seed: int) -> dict:
+    """Phase 7: the 8-expert GPT-2 MoE trains on the fused expert kernels
+    (the main path of this slice). Its loss and gradient on 2 rows are held
+    against the same weights through the gather impl (no K6/K7: gathers and
+    cuBLAS products); both keep bfloat16 activations, so the losses agree
+    within a relative 1e-3 and the gradients' cosine is at least 0.999."""
+    import numpy as np
+
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import grouped_matmul as gm
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       WithAuxLoss, build_train_step,
+                                       init_state, module_apply)
+
+    module = GPT2(vocab_size=50304, dropout=0.0, attention='flash',
+                  return_features=True, moe_experts=MOE_EXPERTS,
+                  moe_every=2, moe_k=MOE_K, moe_capacity_factor=MOE_FACTOR,
+                  moe_sparse_impl='fused', device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    criterion = WithAuxLoss(ChunkedNextTokenLoss(chunks=8))
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
+    reference = compare_clones(torch, module, criterion, tokens[:2],
+                               'moe_sparse_impl', ('fused', 'gather'))
+    reference['loss_relative_err'] = (abs(reference['loss']
+                                          - reference['reference_loss'])
+                                      / abs(reference['reference_loss']))
+    print('moe-reference ' + json.dumps(reference))
+    if not (math.isfinite(reference['loss'])
+            and reference['loss_relative_err'] <= 1e-3
+            and reference['grad_cosine'] >= 0.999):
+        fail(f'fused MoE train step vs the gather impl: {reference}')
+
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    state, result = timed_steps(
+        torch, step, state, tokens, MOE_STEPS,
+        (gm.gather_rows_matmul, gm.matmul_scatter_rows,
+         flash.flash_attention_lse, flash.flash_bwd_fused))
+    moe_layers = sum(module.is_moe(i) for i in range(module.layers))
+    check_launches(result, {'gather_rows_matmul': 2 * moe_layers,
+                            'matmul_scatter_rows': 2 * moe_layers,
+                            'flash_attention_lse': module.layers,
+                            'flash_bwd_fused': module.layers})
+    # moe_ceiling.py's accounting: active params are all params less the
+    # (experts - k) idle experts' FFNs per MoE layer; attention 12 S^2 D
+    # per layer and row
+    params = sum(p.numel() for p in module.parameters())
+    per_expert = DIM * HIDDEN * 2 + HIDDEN + DIM
+    active = params - moe_layers * (MOE_EXPERTS - MOE_K) * per_expert
+    flops = (6 * active * tokens.numel() + 12 * module.layers * HEADS
+             * TRAIN_SEQ * TRAIN_SEQ * HEAD_DIM * TRAIN_BATCH)
+    profile = profile_steps(torch, lambda: step(state, tokens, tokens),
+                            steps=2, top_n=16)
+    print('moe-train-profile ' + json.dumps(profile))
+    return dict(result, params=params, active_params=active,
+                flops_per_step=flops, moe_layers=moe_layers,
+                mfu=flops / (result['median_step_ms'] / 1e3) / BF16_FLOPS,
+                reference=reference, profile=profile)
 
 
 def train(torch, seed: int) -> dict:
     """Phase 5: GPT-2 125M trains with bench.py's recipe (the main path of
-    this slice)."""
+    the dense training slice). First its loss and gradient on 2 rows are
+    held against the same weights on plain PyTorch attention (``'xla'``:
+    autograd through ``dot_product_attention``, no kernel); both keep
+    bfloat16 activations, so the losses agree within 1e-2 and the
+    gradients' cosine is above 0.999."""
     import numpy as np
 
     from tpusystem_torch.models import gpt2_small
@@ -424,53 +675,32 @@ def train(torch, seed: int) -> dict:
     optimizer = AdamW(lr=3e-4, grad_clip=1.0)
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
         0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
-    reference = train_reference(torch, module, criterion, tokens[:2])
+    reference = compare_clones(torch, module, criterion, tokens[:2],
+                               'attention', ('flash', 'xla'))
+    print('train-reference ' + json.dumps(reference))
+    if not (math.isfinite(reference['loss'])
+            and abs(reference['loss'] - reference['reference_loss']) <= 1e-2
+            and reference['grad_cosine'] > 0.999):
+        fail(f'flash train step vs plain attention: {reference}')
 
     state = init_state(module, optimizer, rng=seed)
     step = build_train_step(module_apply(module), criterion, optimizer)
-    started = time.perf_counter()
-    state, (_, loss) = step(state, tokens, tokens)              # warm-up
-    losses = [loss.item()]
-    warmup_s = time.perf_counter() - started
-    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
-    for counter in counters:
-        counter.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    seconds = []
-    for _ in range(TRAIN_STEPS):
-        started = time.perf_counter()
-        state, (_, loss) = step(state, tokens, tokens)
-        losses.append(loss.item())                        # waits for the step
-        seconds.append(time.perf_counter() - started)
-    launches = {counter.__name__: counter.launches for counter in counters}
-    peak = torch.cuda.max_memory_allocated()
-
-    if not all(math.isfinite(value) for value in losses):
-        fail(f'non-finite training loss: {losses}')
-    if not losses[-1] < losses[0]:
-        fail(f'training loss did not fall: {losses}')
-    for name, count in launches.items():
-        if count != module.layers * TRAIN_STEPS:
-            fail(f'{name} launched {count} times in {TRAIN_STEPS} steps, '
-                 f'not {module.layers} per step')
+    state, result = timed_steps(
+        torch, step, state, tokens, TRAIN_STEPS,
+        (flash.flash_attention_lse, flash.flash_bwd_fused))
+    check_launches(result, {'flash_attention_lse': module.layers,
+                            'flash_bwd_fused': module.layers})
     params = sum(p.numel() for p in module.parameters())
-    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
     # 6 N T for the weights; causal attention 12 D per (query, key) pair
     # and head per layer (4 D forward, twice that backward)
-    flops = (6 * params * tokens_per_step + 12 * HEAD_DIM * module.layers
+    flops = (6 * params * tokens.numel() + 12 * HEAD_DIM * module.layers
              * attention_pairs(TRAIN_BATCH, TRAIN_SEQ, HEADS))
-    median = sorted(seconds)[len(seconds) // 2]
     profile = profile_steps(torch, lambda: step(state, tokens, tokens),
                             steps=2)
     print('train-profile ' + json.dumps(profile))
-    return dict(launches=launches, losses=losses,
-                step_ms=[1e3 * s for s in seconds], median_step_ms=1e3 * median,
-                min_step_ms=1e3 * min(seconds), max_step_ms=1e3 * max(seconds),
-                warmup_s=warmup_s, tokens_per_s=tokens_per_step / median,
-                peak_memory_bytes=peak, params=params, flops_per_step=flops,
-                mfu=flops / median / BF16_FLOPS, reference=reference,
-                batch=[TRAIN_BATCH, TRAIN_SEQ], steps=TRAIN_STEPS)
+    return dict(result, params=params, flops_per_step=flops,
+                mfu=flops / (result['median_step_ms'] / 1e3) / BF16_FLOPS,
+                reference=reference)
 
 
 def split_step(torch, generator) -> dict:
@@ -503,7 +733,7 @@ def split_step(torch, generator) -> dict:
     return result
 
 
-def profile_steps(torch, step, steps: int = 4) -> dict:
+def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
     """Where a step's time goes: a traced window of ``steps`` calls of
     ``step()`` (tracing slows the host, so the step time of the untraced run
     is the one to quote). Device busy share = summed kernel time over the
@@ -534,7 +764,7 @@ def profile_steps(torch, step, steps: int = 4) -> dict:
     busy_us = sum(kernels.values())
 
     def top(table):
-        ranked = sorted(table.items(), key=lambda item: -item[1])[:8]
+        ranked = sorted(table.items(), key=lambda item: -item[1])[:top_n]
         return {name[:90]: us / steps for name, us in ranked}
 
     return dict(steps=steps, traced_step_ms=1e3 * wall / steps,
@@ -659,6 +889,9 @@ def main() -> None:
     print('serve ' + json.dumps(served))
     trained = train(torch, args.seed)
     print('train ' + json.dumps(trained))
+    checks += check_grouped(torch, generator)
+    moe_trained = train_moe(torch, args.seed)
+    print('moe-train ' + json.dumps(moe_trained))
     split = split_step(torch, generator)
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
@@ -673,15 +906,23 @@ def main() -> None:
         'flash_attention_lse': (
             'flash_fwd.cu', 'flash.py:106', 'flash_attention[S=1024]',
             served['launches']['flash_attention_lse']
-            + trained['launches']['flash_attention_lse']),
+            + trained['launches']['flash_attention_lse']
+            + moe_trained['launches']['flash_attention_lse']),
         'flash_bwd_fused': ('flash_bwd.cu', 'flash.py:281',
                             'flash_bwd_fused[train]',
-                            trained['launches']['flash_bwd_fused']),
+                            trained['launches']['flash_bwd_fused']
+                            + moe_trained['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', 'flash.py:162', 'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
         'flash_bwd_dkv': ('flash_bwd.cu', 'flash.py:201',
                           'flash_bwd_dkv[train]',
                           split['launches']['flash_bwd_dkv']),
+        'gather_rows_matmul': ('grouped_matmul.cu', 'grouped_matmul.py:99',
+                               'gather_rows_matmul[fwd]',
+                               moe_trained['launches']['gather_rows_matmul']),
+        'matmul_scatter_rows': ('grouped_matmul.cu', 'grouped_matmul.py:225',
+                                'matmul_scatter_rows[fwd]',
+                                moe_trained['launches']['matmul_scatter_rows']),
     }
     measured = dict(checks)
     kernels = []
@@ -698,7 +939,8 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {'card': card, 'build_s': build_seconds, 'checks': checks,
-             'serve': served, 'train': trained, 'split': split,
+             'serve': served, 'train': trained, 'moe_train': moe_trained,
+             'split': split,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

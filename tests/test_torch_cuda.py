@@ -18,14 +18,20 @@ logsumexp by 1e-3. The backward kernels round P and dS to bfloat16 where the
 plain version does, but their float32 sums run in another order, so a
 rounding may land one bfloat16 step apart and the step propagates through
 the sums: dq, dk and dv may differ by four bfloat16 steps (2**-6) of the
-largest gradient of their tensor.
+largest gradient of their tensor. The grouped kernels (K6, K7) round each
+product once to bfloat16 as the plain versions do, after float32 sums in
+another order: their rows may differ by two bfloat16 steps (2**-7) of the
+largest row; K7's combined output sums up to k such rows, each add rounded
+to bfloat16, so it may differ by 2**-5 of its largest value.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from tpusystem_torch.ops.cuda import decode_matmul as dm
 from tpusystem_torch.ops.cuda import flash
+from tpusystem_torch.ops.cuda import grouped_matmul as gm
 
 pytestmark = pytest.mark.cuda
 
@@ -240,3 +246,207 @@ def test_gpt2_tiny_trains_on_the_card(device):
             flash.flash_bwd_fused.launches - before[1]) == (
                 3 * module.layers, 3 * module.layers)
     assert int(state.step) == 3 and state.step.device.type == 'cuda'
+
+
+def _seating(tokens, experts, k, capacity, seed):
+    """Buffer row -> token (``tokens`` for an empty slot) of a top-k
+    routing with k distinct experts per token, seated choice-major as the
+    MoE layer seats them, over-capacity choices dropped."""
+    rng = np.random.default_rng(seed)
+    choices = np.argsort(rng.random((tokens, experts)), axis=1)[:, :k]
+    slot_token = np.full(experts * capacity, tokens, np.int32)
+    filled = np.zeros(experts, np.int64)
+    for choice in range(k):
+        for token in range(tokens):
+            expert = choices[token, choice]
+            if filled[expert] < capacity:
+                slot_token[expert * capacity + filled[expert]] = token
+                filled[expert] += 1
+    return slot_token
+
+
+def _grouped_inputs(device, tokens, experts, k, capacity, dim, hidden, seed):
+    generator = torch.Generator(device).manual_seed(seed)
+    slot_token = torch.as_tensor(
+        _seating(tokens, experts, k, capacity, seed), device=device)
+    valid = slot_token < tokens
+    scale = torch.rand(experts * capacity, generator=generator,
+                       device=device) * valid
+    return dict(
+        slot_token=slot_token, clamped=slot_token.clamp(max=tokens - 1),
+        scale=scale, src=_normal(generator, (tokens, dim), 1.0, device),
+        w1=_normal(generator, (experts, dim, hidden), dim ** -0.5, device),
+        lhs=_normal(generator, (experts * capacity, hidden), 1.0, device),
+        w2=_normal(generator, (experts, hidden, dim), hidden ** -0.5, device),
+        b2=_normal(generator, (experts, dim), 0.1, device))
+
+
+GROUPED_CASES = [   # tokens, experts, k, capacity, dim, hidden
+    (48, 4, 2, 12, 16, 24),          # ragged tiles, sentinels
+    (40, 4, 2, 12, 20, 30),          # widths off the 16-byte loads
+    (40, 6, 4, 12, 32, 16),          # k = 4
+    (2048, 8, 2, 640, 768, 3072),    # one MoE layer's widths
+    (1024, 8, 4, 640, 256, 512),     # k = 4, no drops
+]
+
+
+@pytest.mark.parametrize('tokens,experts,k,capacity,dim,hidden',
+                         GROUPED_CASES)
+@pytest.mark.parametrize('transpose_rhs', [False, True])
+def test_gather_rows_matmul_matches_plain(device, tokens, experts, k,
+                                          capacity, dim, hidden,
+                                          transpose_rhs):
+    x = _grouped_inputs(device, tokens, experts, k, capacity, dim, hidden,
+                        tokens + k)
+    rhs = x['w1'].transpose(1, 2).contiguous() if transpose_rhs else x['w1']
+    before = gm.gather_rows_matmul.launches
+    got = gm.gather_rows_matmul(x['src'], rhs, x['clamped'], x['scale'],
+                                rows_per_group=capacity,
+                                transpose_rhs=transpose_rhs)
+    want = gm.gather_rows_matmul_plain(x['src'], rhs, x['clamped'],
+                                       x['scale'], rows_per_group=capacity,
+                                       transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert gm.gather_rows_matmul.launches - before == 1
+    assert got.shape == (experts * capacity, hidden)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('tokens,experts,k,capacity,dim,hidden',
+                         GROUPED_CASES)
+@pytest.mark.parametrize('transpose_rhs,bias,save_rows',
+                         [(False, True, True), (True, False, False)])
+def test_matmul_scatter_rows_matches_plain(device, tokens, experts, k,
+                                           capacity, dim, hidden,
+                                           transpose_rhs, bias, save_rows):
+    x = _grouped_inputs(device, tokens, experts, k, capacity, dim, hidden,
+                        tokens + 2 * k)
+    rhs = x['w2'].transpose(1, 2).contiguous() if transpose_rhs else x['w2']
+    b2 = x['b2'] if bias else None
+    args = (x['lhs'], rhs, b2, x['slot_token'], x['scale'], tokens)
+    options = dict(rows_per_group=capacity, transpose_rhs=transpose_rhs,
+                   save_rows=save_rows)
+    before = gm.matmul_scatter_rows.launches
+    out, rows = gm.matmul_scatter_rows(*args, **options)
+    want_out, want_rows = gm.matmul_scatter_rows_plain(
+        *args, **dict(options, save_rows=True))
+    torch.cuda.synchronize()
+    assert gm.matmul_scatter_rows.launches - before == 1
+    assert out.shape == (tokens, dim) and out.dtype == torch.bfloat16
+    assert (rows is None) == (not save_rows)
+    if save_rows:
+        _close(rows, want_rows, 2 ** -7 * want_rows.float().abs().max().item())
+    _close(out, want_out, 2 ** -5 * want_out.float().abs().max().item())
+    # tokens no slot seats come out exactly zero
+    seated = torch.zeros(tokens + 1, dtype=torch.bool, device=device)
+    seated[x['slot_token'].long()] = True
+    assert (out[~seated[:tokens]] == 0).all()
+
+
+def test_grouped_kernels_repeat_bitwise(device):
+    x = _grouped_inputs(device, 2048, 8, 2, 640, 768, 3072, 7)
+    for _ in range(2):
+        up = gm.gather_rows_matmul(x['src'], x['w1'], x['clamped'],
+                                   x['scale'], rows_per_group=640)
+        out, rows = gm.matmul_scatter_rows(x['lhs'], x['w2'], x['b2'],
+                                           x['slot_token'], x['scale'], 2048,
+                                           rows_per_group=640)
+        if _ == 0:
+            first = (up, out, rows)
+    for a, b in zip(first, (up, out, rows)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('tokens,experts,k,factor', [
+    (4096, 8, 2, 1.25), (4096, 8, 2, 0.5), (999, 6, 3, 1.0)])
+def test_routing_on_the_card_matches_the_cpu_bitwise(device, tokens, experts,
+                                                     k, factor):
+    """Top-k by rounds of argmax breaks ties toward the lower index and the
+    stable sort seats in input order on the card too: gates full of exact
+    ties route to the same slots as on the CPU (whose routing the CPU tests
+    hold bitwise to the reference's)."""
+    from tpusystem_torch.ops import moe
+
+    rng = np.random.default_rng(tokens + k)
+    gates = torch.tensor(rng.integers(0, 3, (tokens, experts)) / 8.0,
+                         dtype=torch.float32)
+    capacity = moe.expert_capacity(tokens, experts, k, factor)
+    on_cpu = moe.route_top_k_sparse(gates, k, capacity)
+    for got, want in zip(moe.route_top_k_sparse(gates.to(device), k,
+                                                capacity), on_cpu):
+        assert torch.equal(got.cpu(), want)
+    slots = on_cpu[1]
+    for got, want in zip(
+            moe._invert_seating(slots.to(device), k, tokens,
+                                experts * capacity),
+            moe._invert_seating(slots, k, tokens, experts * capacity)):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_autograd_through_the_fused_moe_on_the_card(device):
+    """The fused MoE Function (K6 and K7, each once forward and once
+    backward) against the gather impl on the same weights: output, aux and
+    every gradient within the reference's bf16 cross-impl tolerance (rtol
+    0.05, atol 2e-2: the kernels sum the products in float32 in another
+    order than cuBLAS)."""
+    from tpusystem_torch.ops.moe import MoEMLP
+
+    generator = torch.Generator(device).manual_seed(3)
+    hidden = torch.randn((4, 256, 64), generator=generator, device=device)
+    results = {}
+    for impl in ('gather', 'fused'):
+        layer = MoEMLP(64, 8, capacity_factor=1.25, sparse_impl=impl,
+                       device=device)
+        x = hidden.to(torch.bfloat16).requires_grad_()
+        before = (gm.gather_rows_matmul.launches,
+                  gm.matmul_scatter_rows.launches)
+        out, aux = layer(x)
+        loss = out.float().square().mean() + aux
+        grads = torch.autograd.grad(loss, list(layer.parameters()) + [x])
+        torch.cuda.synchronize()
+        launched = (gm.gather_rows_matmul.launches - before[0],
+                    gm.matmul_scatter_rows.launches - before[1])
+        assert launched == ((2, 2) if impl == 'fused' else (0, 0))
+        results[impl] = (out, aux, grads)
+    (out_g, aux_g, grads_g), (out_f, aux_f, grads_f) = (results['gather'],
+                                                        results['fused'])
+    torch.testing.assert_close(out_f.float(), out_g.float(), rtol=0.05,
+                               atol=2e-2)
+    torch.testing.assert_close(aux_f, aux_g, rtol=1e-6, atol=0)
+    for got, want in zip(grads_f, grads_g):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0.05,
+                                   atol=2e-2)
+
+
+def test_gpt2_tiny_moe_trains_on_the_card(device):
+    """Three AdamW steps of the MoE gpt2_tiny (bf16, flash, fused experts,
+    WithAuxLoss over the chunked loss): finite falling losses, K6 and K7
+    each launched twice per MoE layer per step."""
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       WithAuxLoss, build_train_step,
+                                       init_state, module_apply)
+
+    module = gpt2_tiny(attention='flash', return_features=True,
+                       moe_experts=4, moe_every=2, moe_sparse_impl='fused',
+                       device=device)
+    optimizer = AdamW(lr=3e-3, grad_clip=1.0)
+    state = init_state(module, optimizer)
+    step = build_train_step(module_apply(module),
+                            WithAuxLoss(ChunkedNextTokenLoss(chunks=4)),
+                            optimizer)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, 256,
+                                                               (4, 128)),
+                             device=device)
+    before = gm.gather_rows_matmul.launches, gm.matmul_scatter_rows.launches
+    losses = []
+    for _ in range(3):
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    moe_layers = sum(module.is_moe(i) for i in range(module.layers))
+    assert (gm.gather_rows_matmul.launches - before[0],
+            gm.matmul_scatter_rows.launches - before[1]) == (
+                3 * 2 * moe_layers, 3 * 2 * moe_layers)

@@ -132,7 +132,8 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
-    for option in ({'scan_layers': True}, {'moe_experts': 2},
+    for option in ({'scan_layers': True},
+                   {'moe_experts': 2, 'decode': True},
                    {'remat': True}, {'attention': 'ring'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             gpt2_tiny(device='cpu', **option)

@@ -23,9 +23,14 @@ switches it to the serving engine's paged pool. ``return_features=True``
 returns ``(features, table)`` instead of logits: the input of
 :class:`tpusystem_torch.train.ChunkedNextTokenLoss`, which owns the head.
 ``forward(train=True)`` trains through autograd at ``dropout=0.0`` (the
-flash kernels carry their own backward). Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: ``scan_layers``, MoE
-blocks, ``remat``, ring/ulysses attention and training-time dropout.
+flash kernels carry their own backward). With ``moe_experts > 0`` block ``i``
+is an MoE block iff ``i % moe_every == moe_every - 1``: its FFN is a
+:class:`~tpusystem_torch.ops.moe.MoEMLP` named ``moe``, and the model
+returns ``(outputs, aux)``, ``aux`` the mean of the MoE layers' router
+losses (for :class:`tpusystem_torch.train.WithAuxLoss`). Not ported yet,
+each raising ``NotImplementedError`` that names its ROADMAP item:
+``scan_layers``, ``remat``, ring/ulysses attention, training-time dropout,
+and decoding an MoE model.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch import nn
 
 from tpusystem_torch.device import compute_dtype, resolve_device
 from tpusystem_torch.ops.attention import attend, cached_attention
+from tpusystem_torch.ops.moe import MoEMLP, init_parameter
 from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.registry import register
 
@@ -108,23 +114,39 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block: attention, then the GELU MLP."""
+    """Pre-norm transformer block: attention, then the GELU MLP, or with
+    ``moe`` (the :class:`MoEMLP` arguments) the expert FFN; an MoE block
+    returns ``(hidden, aux)``."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int, *,
-                 device) -> None:
+                 device, moe: dict | None = None) -> None:
         super().__init__()
         self.ln_1 = LayerNorm(dim, device=device)
         self.attn = SelfAttention(dim, heads, device=device)
         self.ln_2 = LayerNorm(dim, device=device)
-        self.fc = Dense(dim, mlp_ratio * dim, device=device)
-        self.proj = Dense(mlp_ratio * dim, dim, device=device)
+        if moe:
+            self.moe = MoEMLP(dim, mlp_ratio=mlp_ratio, device=device, **moe)
+        else:
+            self.moe = None
+            self.fc = Dense(dim, mlp_ratio * dim, device=device)
+            self.proj = Dense(mlp_ratio * dim, dim, device=device)
 
     def forward(self, hidden, dtype, attention):
         normed = self.ln_1(hidden).to(dtype)
         hidden = hidden + self.attn(normed, dtype, attention)
         normed = self.ln_2(hidden).to(dtype)
+        if self.moe is not None:
+            shrunk, aux = self.moe(normed)
+            return hidden + shrunk, aux
         grown = F.gelu(self.fc(normed, dtype), approximate='tanh')
         return hidden + self.proj(grown, dtype)
+
+
+MOE_SERVING = 'Llama and MoE serving through the module paged step'
+# GPT2 field -> the MoEMLP setting it governs
+MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
+                    'moe_sparse_impl': 'sparse_impl', 'dtype': 'dtype',
+                    'decode': 'full_capacity'}
 
 
 def _not_ported(what: str, item: str):
@@ -143,7 +165,8 @@ class GPT2(nn.Module):
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'remat', 'scan_layers',
               'return_features', 'decode', 'per_row_decode', 'decode_pages',
-              'moe_experts')
+              'moe_experts', 'moe_every', 'moe_k', 'moe_capacity_factor',
+              'moe_sparse_impl')
 
     def __init__(self, vocab_size: int = 50257, layers: int = 12,
                  dim: int = 768, heads: int = 12, max_seq: int = 1024,
@@ -153,12 +176,14 @@ class GPT2(nn.Module):
                  return_features: bool = False, decode: bool = False,
                  per_row_decode: bool = False,
                  decode_pages: tuple | None = None, moe_experts: int = 0,
-                 device=None) -> None:
+                 moe_every: int = 2, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 moe_sparse_impl: str = 'gather', device=None) -> None:
         super().__init__()
         if scan_layers:
             raise _not_ported('scan_layers', 'scan_layers')
-        if moe_experts:
-            raise _not_ported('MoE blocks', 'MoE')
+        if moe_experts and decode:
+            raise _not_ported('decoding an MoE model', MOE_SERVING)
         if remat:
             raise _not_ported('remat', 'remat')
         if attention not in ('xla', 'flash'):  # ring / ulysses
@@ -171,13 +196,20 @@ class GPT2(nn.Module):
         self.remat, self.scan_layers, self.decode = remat, scan_layers, decode
         self.return_features = return_features
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
-        self.moe_experts = moe_experts
+        self.moe_experts, self.moe_every, self.moe_k = (moe_experts,
+                                                        moe_every, moe_k)
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_sparse_impl = moe_sparse_impl
         compute_dtype(dtype)                               # validates
         self.wte = Embed(vocab_size, dim, device=device)
         self.wpe = Embed(max_seq, dim, device=device)
+        moe = dict(experts=moe_experts, **{
+            layer_field: getattr(self, field)
+            for field, layer_field in MOE_LAYER_FIELDS.items()})
         for index in range(layers):
-            self.add_module(f'h_{index}',
-                            Block(dim, heads, mlp_ratio, device=device))
+            self.add_module(f'h_{index}', Block(
+                dim, heads, mlp_ratio, device=device,
+                moe=moe if self.is_moe(index) else None))
         self.ln_f = LayerNorm(dim, device=device)
         self.init_weights(torch.Generator(device).manual_seed(0))
 
@@ -192,13 +224,22 @@ class GPT2(nn.Module):
     def blocks(self):
         return [getattr(self, f'h_{index}') for index in range(self.layers)]
 
+    def is_moe(self, index: int) -> bool:
+        """Whether block ``index`` carries the expert FFN."""
+        return (self.moe_experts > 0
+                and index % self.moe_every == self.moe_every - 1)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Redraw every weight from ``generator`` (on the weights' device):
         lecun-normal kernels (std ``fan_in ** -0.5``), embeddings with std
-        0.02; biases 0, layernorm scales 1."""
+        0.02; biases 0, layernorm scales 1; MoE weights as
+        :func:`~tpusystem_torch.ops.moe.init_parameter` draws them."""
         for name, param in self.named_parameters():
             leaf = name.rsplit('.', 1)[-1]
+            if '.moe.' in name:
+                init_parameter(leaf, param, generator)
+                continue
             if leaf == 'kernel':
                 std = param.shape[0] ** -0.5
             elif leaf == 'embedding':
@@ -211,13 +252,34 @@ class GPT2(nn.Module):
 
     def replace(self, **updates) -> 'GPT2':
         """A clone with other mode fields (``dataclasses.replace`` on the
-        flax module). The clone shares this module's parameters."""
+        flax module). The clone shares this module's parameters; its MoE
+        layers are clones too when a field they read changes. Fields that
+        shape the parameters of the experts cannot change."""
         unknown = set(updates) - set(self.FIELDS)
         if unknown:
             raise TypeError(f'unknown GPT2 fields {sorted(unknown)}')
+        for name in ('moe_experts', 'moe_every'):
+            if name in updates and updates[name] != getattr(self, name):
+                raise ValueError(f'replace cannot change {name}: it shapes '
+                                 'the parameters')
         clone = copy.copy(self)
         for name, value in updates.items():
             setattr(clone, name, value)
+        layer_updates = {MOE_LAYER_FIELDS[name]: value
+                         for name, value in updates.items()
+                         if name in MOE_LAYER_FIELDS}
+        if self.moe_experts and layer_updates:
+            clone._modules = dict(self._modules)
+            for index in range(self.layers):
+                if self.is_moe(index):
+                    name = f'h_{index}'
+                    block = copy.copy(self._modules[name])
+                    layer = copy.copy(block.moe)
+                    layer._parameters = dict(layer._parameters)
+                    for field, value in layer_updates.items():
+                        setattr(layer, field, value)
+                    block._modules = dict(block._modules, moe=layer)
+                    clone._modules[name] = block
         return clone
 
     def init_cache(self, batch: int, device=None) -> dict:
@@ -256,6 +318,8 @@ class GPT2(nn.Module):
         window; when omitted it is read from the cache."""
         if train and self.dropout:
             raise _not_ported('training-time dropout', 'dropout')
+        if self.decode and self.moe_experts:
+            raise _not_ported('decoding an MoE model', MOE_SERVING)
         dtype = self.compute_dtype
         batch, length = tokens.shape
         if length > self.max_seq:
@@ -277,6 +341,7 @@ class GPT2(nn.Module):
         else:
             positions = steps
         hidden = (self.wte(tokens) + self.wpe(positions)).to(dtype)
+        aux_losses = []
         for index, block in enumerate(self.blocks()):
             if self.decode:
                 attention = functools.partial(
@@ -287,6 +352,9 @@ class GPT2(nn.Module):
             else:
                 attention = functools.partial(attend, kernel=self.attention)
             hidden = block(hidden, dtype, attention)
+            if self.is_moe(index):
+                hidden, aux = hidden
+                aux_losses.append(aux)
         features = self.ln_f(hidden).to(dtype)
         table = self.wte.embedding.to(dtype)
         if self.return_features:
@@ -295,6 +363,11 @@ class GPT2(nn.Module):
             outputs = (features, table)
         else:
             outputs = head_logits(features, table, tied=True)
+        if self.moe_experts:
+            # the arity follows the configuration, not which layers are MoE
+            aux = (torch.stack(aux_losses).mean() if aux_losses
+                   else features.new_zeros((), dtype=torch.float32))
+            return outputs, aux
         return (outputs, cache) if self.decode else outputs
 
 

@@ -1,2 +1,3 @@
-"""Operators of the port: attention, the head's precision rule, and the
+"""Operators of the port: attention, the head's precision rule, the
+mixture-of-experts FFN (:mod:`tpusystem_torch.ops.moe`), and the
 hand-written CUDA kernels under :mod:`tpusystem_torch.ops.cuda`."""

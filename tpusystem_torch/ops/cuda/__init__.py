@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one module per TPU kernel
-family: ``decode_matmul`` (decode_matmul, decode_ffn) and ``flash`` (flash
+family: ``decode_matmul`` (decode_matmul, decode_ffn), ``flash`` (flash
 attention forward, and its fused and split backward behind a
-``torch.autograd.Function``). Sources live in ``csrc/`` and build on first
-use (:mod:`tpusystem_torch.ops.cuda._build`)."""
+``torch.autograd.Function``) and ``grouped_matmul`` (the MoE grouped
+gather-matmul and matmul-scatter). Sources live in ``csrc/`` and build on
+first use (:mod:`tpusystem_torch.ops.cuda._build`)."""

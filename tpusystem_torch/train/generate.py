@@ -32,7 +32,14 @@ STREAM_DTYPES = ('auto', 'float32', 'bfloat16', 'int8', 'fp8')
 def _decoder(module, per_row: bool = False):
     """The module's decode-mode clone: xla attention, no dropout, logits
     output, contiguous cache (the serving engine sets ``decode_pages`` on
-    its own clone). ``per_row`` switches the cache writes to per-row."""
+    its own clone). ``per_row`` switches the cache writes to per-row. An
+    MoE module raises: the reference serves it through its module paged
+    step, not ported yet."""
+    if getattr(module, 'moe_experts', 0):
+        raise NotImplementedError(
+            'decoding an MoE model is not ported to tpusystem_torch yet '
+            '(ROADMAP queue 1: Llama and MoE serving through the module '
+            'paged step)')
     return module.replace(decode=True, attention='xla', dropout=0.0,
                           remat=False, per_row_decode=per_row,
                           decode_pages=None)

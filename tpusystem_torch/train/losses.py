@@ -5,8 +5,7 @@ Each criterion is a hashable hyperparameter recipe (its registry digest
 equals the reference's) whose ``__call__`` takes tensors and returns a
 scalar tensor that autograd differentiates. The formulas are optax's,
 written out: cross-entropy is ``logsumexp(logits) - logits[label]``, the
-binary one uses ``log_sigmoid`` of both signs. ``WithAuxLoss`` (MoE) is not
-ported yet.
+binary one uses ``log_sigmoid`` of both signs.
 """
 
 from __future__ import annotations
@@ -68,6 +67,26 @@ class BCEWithLogitsLoss:
         losses = (-labels * F.logsigmoid(logits)
                   - (1.0 - labels) * F.logsigmoid(-logits))
         return losses.mean()
+
+
+@register
+class WithAuxLoss:
+    """Wrap a criterion for models whose outputs are ``(predictions, aux)``,
+    such as MoE models returning their router losses
+    (:mod:`tpusystem_torch.ops.moe`). The aux term, already scaled by the
+    model's coefficients, adds to the base loss; ``coef`` rescales it. The
+    inner criterion's ``weight`` (its unmasked-token count) is forwarded,
+    so accumulation weighs microbatches by tokens."""
+
+    def __init__(self, criterion, coef: float = 1.0):
+        self.criterion = criterion
+        self.coef = coef
+        if hasattr(criterion, 'weight'):  # forward the accumulation weight
+            self.weight = criterion.weight
+
+    def __call__(self, outputs, targets):
+        predictions, aux = outputs
+        return self.criterion(predictions, targets) + self.coef * aux
 
 
 def _token_weight(tokens):
