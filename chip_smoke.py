@@ -40,8 +40,19 @@ Phases, in order; any failure exits non-zero:
    step each; then a traced window of two steps;
 8. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's;
-9. print the ``kernels`` line, the card's name and power limit, and last the
-   ``{"ok": true, "device": ...}`` line.
+9. the recommender's kernels K8 (``gather_rows``) and K9
+   (``scatter_add_rows``) against their plain versions on a CPU copy, bit
+   for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
+   with 65,536 Zipf ids, through the dedup pass and without it, the
+   batch-side fold, a bf16 table and a width off the 16-byte loads;
+10. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
+    (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the port's
+    ``Loader``: ``dlrm_tiny`` first held against the CPU, then one warm-up
+    and five timed steps whose losses must fall, K8 launched 26 times and
+    K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
+    and a traced window;
+11. print the ``kernels`` line, the card's name and power limit, and last the
+    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -66,6 +77,12 @@ TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM = 16, 1024, 12, 64
 TRAIN_STEPS = 6                 # timed, after one warm-up step
 MOE_EXPERTS, MOE_K, MOE_FACTOR, MOE_STEPS = 8, 2, 1.25, 3
 DIM, HIDDEN = 768, 3072
+# torchrec's DLRM example: the Criteo Kaggle table cardinalities
+CRITEO_KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
+                 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
+                 7046547, 18, 15, 286181, 105, 142572)
+DLRM_BATCH, DLRM_DIM, DLRM_STEPS = 65536, 128, 5
+DLRM_LR = 0.3                   # SGD; 1.0 rose after 3 steps on the card
 
 
 def fail(message: str) -> None:
@@ -733,6 +750,331 @@ def split_step(torch, generator) -> dict:
     return result
 
 
+def zipf_ids(vocab: int, count: int, seed: int, alpha: float = 1.3):
+    """``count`` int32 ids from the truncated Zipf distribution
+    ``SyntheticClicks`` draws (id 0 the most frequent)."""
+    import numpy as np
+    pmf = 1.0 / np.arange(1, vocab + 1) ** alpha
+    pmf /= pmf.sum()
+    return np.random.default_rng(seed).choice(vocab, size=count,
+                                              p=pmf).astype(np.int32)
+
+
+def lookup_bitwise(torch, label, got, again, want) -> float:
+    """Fail unless the kernel's ``got`` equals the plain version's
+    ``want`` (computed on a CPU copy of the inputs) bit for bit and the
+    kernel's second call ``again`` repeats it. Returns the max abs error."""
+    torch.cuda.synchronize()
+    host = got.cpu()
+    err = (host.float() - want.float()).abs().max().item()
+    same, repeats = torch.equal(host, want), torch.equal(got, again)
+    print('lookup-check ' + json.dumps({'case': label, 'shape': list(
+        got.shape), 'dtype': str(got.dtype), 'bitwise': same,
+        'bitwise_repeat': repeats, 'max_abs_err': err}))
+    if not torch.isfinite(host.float()).all():
+        fail(f'{label}: non-finite output')
+    if not same:
+        fail(f'{label}: differs from the plain version (max abs err {err})')
+    if not repeats:
+        fail(f'{label}: two calls differ')
+    return err
+
+
+def check_lookup(torch, generator, seed: int):
+    """Phase 9: K8 (``gather_rows``) and K9 (``scatter_add_rows``) against
+    their plain versions on a CPU copy of the inputs, bit for bit, each
+    with a bitwise repeat: the largest Criteo Kaggle table (10,131,227 x
+    128 float32) with 65,536 Zipf ids, through ``dedup_ids`` (unique ids,
+    sentinel padding: the DLRM's path) and without it (heavy duplicates);
+    the batch-side fold (K9 over ``inverse`` into [65,536, 128]); a bf16
+    table; a width off the 16-byte loads. Timed by the profiler's device
+    time (a K8 call is shorter than the host's launch of it, so CUDA events
+    would time the host) beside the plain version on the card and the
+    library calls (``index_select`` times
+    the scale for K8, ``torch.zeros`` + ``index_add_`` with float atomics
+    for K9), never called by the port. Bounds count bytes: K8 the distinct
+    rows read, its output written, ids and scales; K9 its rows, ids and
+    scales read and the float32 table written whole (the zero fill), and
+    without the fill a row read and write per distinct id."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    from tpusystem_torch.recsys import dedup_ids
+
+    device = torch.device('cuda')
+    vocab, dim, count = max(CRITEO_KAGGLE), DLRM_DIM, DLRM_BATCH
+    table = torch.randn((vocab, dim), generator=generator, device=device)
+    table_cpu = table.cpu()
+    raw = torch.as_tensor(zipf_ids(vocab, count, seed), device=device)
+    reps, inverse = dedup_ids(raw, vocab)
+    distinct = int((reps < vocab).sum())
+    d_rows = torch.randn((count, dim), generator=generator, device=device)
+    weights = torch.rand(count, generator=generator, device=device) + 0.5
+    paths = {'dedup': (reps, (reps < vocab).float()), 'dup': (raw, weights)}
+    rows, results = [], {}
+    for path, (ids, scale) in paths.items():
+        clamped = ids.clamp(max=vocab - 1)
+        cpu = [t.cpu() for t in (clamped, scale, ids, d_rows)]
+        got = el.gather_rows(table, clamped, scale)
+        err = lookup_bitwise(torch, f'gather_rows[{path}]', got,
+                             el.gather_rows(table, clamped, scale),
+                             el.gather_rows_plain(table_cpu, *cpu[:2]))
+        read = int(torch.unique(clamped).numel())
+        timed = measure(lambda i: el.gather_rows(table, clamped, scale),
+                        calls=20)
+        plain = measure(lambda i: el.gather_rows_plain(table, clamped,
+                                                       scale), calls=20)
+        library = measure(lambda i: torch.index_select(
+            table, 0, clamped) * scale[:, None], calls=20)
+        rows.append(record_check(
+            f'gather_rows[{path}]', [count, vocab, dim], err, 0.0, timed,
+            plain, library, bound_ms(read * dim * 4 + count * dim * 4
+                                     + count * 8, count * dim),
+            distinct_rows_read=read,
+            library_call='torch.index_select(table, 0, ids) * scale'))
+
+        got = el.scatter_add_rows(d_rows, ids, scale, vocab)
+        err = lookup_bitwise(torch, f'scatter_add_rows[{path}]', got,
+                             el.scatter_add_rows(d_rows, ids, scale, vocab),
+                             el.scatter_add_rows_plain(cpu[3], cpu[2],
+                                                       cpu[1], vocab))
+        del got
+        valid = int((ids < vocab).sum())
+        segments = int(torch.unique(ids[ids < vocab]).numel())
+        sorted_ids, order = el.sort_ids(ids)
+        zeroed = torch.zeros((vocab, dim), device=device)
+        kernel = measure(lambda i: el.scatter_add_into(
+            zeroed, d_rows, scale, sorted_ids, order), calls=20)
+        timed = measure(lambda i: el.scatter_add_rows(d_rows, ids, scale,
+                                                      vocab), calls=10)
+        plain = measure(lambda i: el.scatter_add_rows_plain(
+            d_rows, ids, scale, vocab), calls=10)
+        weighted = d_rows * scale[:, None]
+        library = measure(lambda i: torch.zeros((vocab, dim), device=device)
+                          .index_add_(0, clamped, weighted), calls=10)
+        atomics = measure(lambda i: zeroed.index_add_(0, clamped, weighted),
+                          calls=20)
+        inputs = valid * dim * 4 + count * 8
+        without_fill = bound_ms(inputs + 2 * segments * dim * 4,
+                                2 * valid * dim)
+        rows.append(record_check(
+            f'scatter_add_rows[{path}]', [count, vocab, dim], err, 0.0,
+            timed, plain, library,
+            bound_ms(inputs + vocab * dim * 4, 2 * valid * dim),
+            distinct_ids=segments, valid_ids=valid,
+            kernel_only_ms=kernel[0], kernel_only_bound_ms=without_fill[0],
+            index_add_only_ms=atomics[0],
+            library_call='torch.zeros + index_add_ (float atomics)'))
+        del zeroed
+        results[path] = dict(distinct=segments, valid=valid)
+
+    # the batch-side fold of the dedup path: inverse (heavy duplicates)
+    # into [n, dim], the sum of each distinct id's cotangents
+    ones = torch.ones(count, device=device)
+    got = el.scatter_add_rows(d_rows, inverse, ones, count)
+    err = lookup_bitwise(torch, 'scatter_add_rows[fold]', got,
+                         el.scatter_add_rows(d_rows, inverse, ones, count),
+                         el.scatter_add_rows_plain(d_rows.cpu(),
+                                                   inverse.cpu(),
+                                                   ones.cpu(), count))
+    longest = int(torch.bincount(inverse.long()).max())
+    timed = measure(lambda i: el.scatter_add_rows(d_rows, inverse, ones,
+                                                  count), calls=20)
+    plain = measure(lambda i: el.scatter_add_rows_plain(d_rows, inverse,
+                                                        ones, count),
+                    calls=20)
+    library = measure(lambda i: torch.zeros((count, dim), device=device)
+                      .index_add_(0, inverse, d_rows), calls=20)
+    rows.append(record_check(
+        'scatter_add_rows[fold]', [count, count, dim], err, 0.0, timed,
+        plain, library, bound_ms(count * dim * 4 * 2 + count * 8,
+                                 2 * count * dim),
+        distinct_ids=distinct, longest_segment=longest,
+        library_call='torch.zeros + index_add_ (float atomics)'))
+    del table, table_cpu
+
+    # a bf16 table, and a width off the 16-byte loads (130 float32)
+    for label, (rows_n, width, dtype) in {
+            'bf16': (1 << 20, dim, torch.bfloat16),
+            'dim130': (1 << 17, 130, torch.float32)}.items():
+        small = torch.randn((rows_n, width), generator=generator,
+                            device=device).to(dtype)
+        ids = torch.as_tensor(zipf_ids(rows_n, count, seed + 1),
+                              device=device)
+        ids[::97] = rows_n                                  # sentinels
+        scale = (ids < rows_n).float() * weights
+        clamped = ids.clamp(max=rows_n - 1)
+        grads = torch.randn((count, width), generator=generator,
+                            device=device).to(dtype)
+        cpu = [t.cpu() for t in (small, clamped, scale, grads, ids)]
+        lookup_bitwise(torch, f'gather_rows[{label}]',
+                       el.gather_rows(small, clamped, scale),
+                       el.gather_rows(small, clamped, scale),
+                       el.gather_rows_plain(*cpu[:3]))
+        lookup_bitwise(torch, f'scatter_add_rows[{label}]',
+                       el.scatter_add_rows(grads, ids, scale, rows_n),
+                       el.scatter_add_rows(grads, ids, scale, rows_n),
+                       el.scatter_add_rows_plain(cpu[3], cpu[4], cpu[2],
+                                                 rows_n))
+    results['longest_fold_segment'] = longest
+    return rows, results
+
+
+def dlrm_card_vs_cpu(torch) -> dict:
+    """``dlrm_tiny`` on the card against the same weights on the CPU (the
+    plain versions): one SGD step on a 64-row click batch with multi-hot
+    ids, the loss within 1e-5 and every parameter after the step within
+    1e-5 (float32 sums in another order)."""
+    from tpusystem_torch.data import SyntheticClicks
+    from tpusystem_torch.models import dlrm_tiny
+    from tpusystem_torch.train import (SGD, BCEWithLogitsLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    features, labels = SyntheticClicks(samples=64, seed=1)[slice(0, 64)]
+    weights = dlrm_tiny(device='cpu').state_dict()
+    results = {}
+    for device in ('cuda', 'cpu'):
+        module = dlrm_tiny(device=device)
+        module.load_state_dict(weights)
+        optimizer = SGD(lr=0.5)
+        state = init_state(module, optimizer)
+        step = build_train_step(module_apply(module), BCEWithLogitsLoss(),
+                                optimizer)
+        batch = {key: torch.as_tensor(value, device=device)
+                 for key, value in features.items()}
+        state, (_, loss) = step(state, batch, torch.as_tensor(
+            labels, device=device))
+        results[device] = (loss.item(), {name: p.detach().cpu() for name, p
+                                         in state.params.items()})
+    (loss, params), (cpu_loss, cpu_params) = results['cuda'], results['cpu']
+    err = max((params[name] - cpu_params[name]).abs().max().item()
+              for name in params)
+    result = dict(loss=loss, cpu_loss=cpu_loss, param_max_abs_err=err)
+    print('dlrm-reference ' + json.dumps(result))
+    if not (abs(loss - cpu_loss) <= 1e-5 and err <= 1e-5):
+        fail(f'dlrm_tiny on the card vs the CPU: {result}')
+    return result
+
+
+def repeat_step(torch, step, state, features, labels) -> dict:
+    """Run ``step`` twice from the same state on the same batch; the
+    parameters after each must be equal bit for bit. The state before and
+    the parameters after the first run wait in host memory (the tables fill
+    a fifth of the card)."""
+    params = state.params
+    before = {name: p.detach().cpu() for name, p in params.items()}
+    count = state.opt_state['count'].clone()
+    step(state, features, labels)
+    first = {name: p.detach().cpu() for name, p in params.items()}
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(before[name])
+    state.opt_state['count'].copy_(count)
+    del before
+    step(state, features, labels)
+    differ = [name for name, p in params.items()
+              if not torch.equal(p.detach().cpu(), first[name])]
+    result = dict(bitwise=not differ, differing_params=differ)
+    print('dlrm-repeat ' + json.dumps(result))
+    if differ:
+        fail(f'a repeated DLRM step from the same state differs in {differ}')
+    return result
+
+
+def train_dlrm(torch, seed: int) -> dict:
+    """Phase 10: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
+    PyTorch recipe: 13 dense features, 26 tables of dim 128, bottom MLP
+    512-256-128, top MLP 1024-1024-512-256-1, dot interaction) over the
+    Criteo Kaggle cardinalities (33,762,577 rows, 17.3 GB of float32
+    tables), batch 65,536 one-hot, trained with SGD: the main path of this
+    slice. Batches come from the port's ``Loader`` over ``SyntheticClicks``
+    (truncated Zipf, alpha 1.3). One warm-up and DLRM_STEPS timed steps
+    whose losses must fall, K8 launched once per table per step and K9
+    twice (the table gradient and the batch-side fold); a repeated step
+    from the same state equal bit for bit; a holdout AUC; a traced
+    window of two steps."""
+    import gc
+
+    from tpusystem_torch.data import Loader, SyntheticClicks
+    from tpusystem_torch.models import DLRM
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    from tpusystem_torch.recsys import RecsysEvaluator
+    from tpusystem_torch.train import (SGD, BCEWithLogitsLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reference = dlrm_card_vs_cpu(torch)
+    started = time.perf_counter()
+    module = DLRM(vocabs=CRITEO_KAGGLE, dim=DLRM_DIM, dense_features=13,
+                  bottom=(512, 256), top=(1024, 1024, 512, 256),
+                  device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    clicks = dict(vocabs=CRITEO_KAGGLE, hot=1, dense=13, seed=0)
+    data = SyntheticClicks(samples=DLRM_BATCH * (1 + DLRM_STEPS), **clicks)
+    holdout = SyntheticClicks(samples=DLRM_BATCH * 2, train=False, **clicks)
+    setup_s = time.perf_counter() - started
+    optimizer = SGD(lr=DLRM_LR)
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module), BCEWithLogitsLoss(),
+                            optimizer)
+    batches = iter(Loader(data, DLRM_BATCH, shuffle=True, seed=seed))
+    features, labels = next(batches)
+    started = time.perf_counter()
+    state, (_, loss) = step(state, features, labels)            # warm-up
+    losses = [loss.item()]
+    warmup_s = time.perf_counter() - started
+    counters = (el.gather_rows, el.scatter_add_rows)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for features, labels in batches:
+        started = time.perf_counter()
+        state, (_, loss) = step(state, features, labels)
+        losses.append(loss.item())                        # waits for the step
+        seconds.append(time.perf_counter() - started)
+    launches = {counter.__name__: counter.launches for counter in counters}
+    peak = torch.cuda.max_memory_allocated()
+    steps, tables = len(seconds), len(CRITEO_KAGGLE)
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'non-finite DLRM loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'DLRM loss did not fall: {losses}')
+    if steps != DLRM_STEPS or launches != {
+            'gather_rows': tables * steps,
+            'scatter_add_rows': 2 * tables * steps}:
+        fail(f'{steps} DLRM steps launched {launches}')
+    median = sorted(seconds)[len(seconds) // 2]
+    repeat = repeat_step(torch, step, state, features, labels)
+    metrics = RecsysEvaluator(module, Loader(holdout, DLRM_BATCH)).run(state)
+    print('dlrm-eval ' + json.dumps(metrics))
+    if not (math.isfinite(metrics['loss']) and 0.0 <= metrics['auc'] <= 1.0):
+        fail(f'DLRM holdout metrics: {metrics}')
+    profile = profile_steps(torch, lambda: step(state, features, labels),
+                            steps=2, top_n=16)
+    print('dlrm-train-profile ' + json.dumps(profile))
+    # the least a dense-gradient SGD step moves through the tables: the
+    # gradient's zero fill, then the parameters and gradients read and the
+    # parameters written; the port's SGD also writes and reads -lr * g
+    table_bytes = sum(CRITEO_KAGGLE) * DLRM_DIM * 4
+    return dict(
+        launches=launches, launches_per_step={
+            name: count / steps for name, count in launches.items()},
+        losses=losses, step_ms=[1e3 * s for s in seconds],
+        median_step_ms=1e3 * median, min_step_ms=1e3 * min(seconds),
+        max_step_ms=1e3 * max(seconds), warmup_s=warmup_s, setup_s=setup_s,
+        samples_per_s=DLRM_BATCH / median, peak_memory_bytes=peak,
+        batch=DLRM_BATCH, steps=steps, lr=DLRM_LR,
+        params=sum(p.numel() for p in module.parameters()),
+        table_bytes=table_bytes, step_table_bytes_least=4 * table_bytes,
+        hbm_bound_ms=4 * table_bytes / HBM_BYTES_PER_S * 1e3,
+        step_table_bytes_port=6 * table_bytes, holdout=metrics,
+        repeat=repeat, reference=reference, profile=profile)
+
+
 def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
     """Where a step's time goes: a traced window of ``steps`` calls of
     ``step()`` (tracing slows the host, so the step time of the untraced run
@@ -893,6 +1235,10 @@ def main() -> None:
     moe_trained = train_moe(torch, args.seed)
     print('moe-train ' + json.dumps(moe_trained))
     split = split_step(torch, generator)
+    lookup_rows, lookup = check_lookup(torch, generator, args.seed)
+    checks += lookup_rows
+    dlrm = train_dlrm(torch, args.seed)
+    print('dlrm-train ' + json.dumps(dlrm))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -923,6 +1269,11 @@ def main() -> None:
         'matmul_scatter_rows': ('grouped_matmul.cu', 'grouped_matmul.py:225',
                                 'matmul_scatter_rows[fwd]',
                                 moe_trained['launches']['matmul_scatter_rows']),
+        'gather_rows': ('embedding_lookup.cu', 'embedding_lookup.py:106',
+                        'gather_rows[dedup]', dlrm['launches']['gather_rows']),
+        'scatter_add_rows': ('embedding_lookup.cu', 'embedding_lookup.py:191',
+                             'scatter_add_rows[dedup]',
+                             dlrm['launches']['scatter_add_rows']),
     }
     measured = dict(checks)
     kernels = []
@@ -940,7 +1291,7 @@ def main() -> None:
         args.out.write_text(json.dumps(
             {'card': card, 'build_s': build_seconds, 'checks': checks,
              'serve': served, 'train': trained, 'moe_train': moe_trained,
-             'split': split,
+             'split': split, 'lookup': lookup, 'dlrm': dlrm,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

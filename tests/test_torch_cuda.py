@@ -450,3 +450,175 @@ def test_gpt2_tiny_moe_trains_on_the_card(device):
     assert (gm.gather_rows_matmul.launches - before[0],
             gm.matmul_scatter_rows.launches - before[1]) == (
                 3 * 2 * moe_layers, 3 * 2 * moe_layers)
+
+
+# --- the recommender: K8 gather_rows, K9 scatter_add_rows ---------------
+
+def _lookup_case(device, rows, dim, count, distinct, dtype, seed):
+    """A table, ids drawn from the first ``distinct`` rows (duplicates),
+    every 7th a sentinel (``rows``), weights in [0.5, 1.5), cotangents."""
+    generator = torch.Generator(device).manual_seed(seed)
+    table = torch.randn((rows, dim), generator=generator,
+                        device=device).to(dtype)
+    ids = torch.randint(0, distinct, (count,), generator=generator,
+                        device=device, dtype=torch.int32)
+    ids[::7] = rows
+    scale = ((ids < rows).float()
+             * (torch.rand(count, generator=generator, device=device) + 0.5))
+    grads = torch.randn((count, dim), generator=generator,
+                        device=device).to(dtype)
+    return table, ids, scale, grads
+
+
+LOOKUP_SHAPES = [          # rows, dim, count, distinct, dtype
+    (1000, 128, 4096, 1000, torch.float32),
+    (50, 128, 3000, 3, torch.float32),       # segments past 1,000 rows
+    (100000, 64, 65536, 100000, torch.float32),
+    (300, 130, 777, 300, torch.float32),     # off the 16-byte loads
+    (4096, 128, 2048, 40, torch.bfloat16),
+    (64, 24, 513, 64, torch.bfloat16),       # bf16 off the 16-byte loads
+    (10, 7, 100, 2, torch.float32)]
+
+
+@pytest.mark.parametrize('rows,dim,count,distinct,dtype', LOOKUP_SHAPES)
+def test_gather_rows_matches_plain_bitwise(device, rows, dim, count,
+                                           distinct, dtype):
+    """One multiply in float32 and one rounding (to nearest even for bf16)
+    in both: bitwise, on the card and against the CPU."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    table, ids, scale, _ = _lookup_case(device, rows, dim, count, distinct,
+                                        dtype, rows + dim)
+    clamped = ids.clamp(max=rows - 1)
+    before = el.gather_rows.launches
+    got = el.gather_rows(table, clamped, scale)
+    torch.cuda.synchronize()
+    assert el.gather_rows.launches - before == 1
+    assert got.dtype == dtype and got.shape == (count, dim)
+    assert torch.equal(got, el.gather_rows_plain(table, clamped, scale))
+    assert torch.equal(got.cpu(), el.gather_rows_plain(
+        table.cpu(), clamped.cpu(), scale.cpu()))
+    if dtype == torch.bfloat16:
+        wide = el.gather_rows(table, clamped, scale, out_dtype=torch.float32)
+        assert torch.equal(wide, el.gather_rows_plain(
+            table, clamped, scale, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize('rows,dim,count,distinct,dtype', LOOKUP_SHAPES)
+def test_scatter_add_rows_matches_plain_bitwise(device, rows, dim, count,
+                                                distinct, dtype):
+    """Each id's rows summed from 0.0 in ascending position, one rounding
+    per product and per add, sentinels skipped: bitwise the plain version
+    on the CPU (``index_add_`` adds in index order there)."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    _, ids, scale, grads = _lookup_case(device, rows, dim, count, distinct,
+                                        dtype, rows * dim)
+    before = el.scatter_add_rows.launches
+    got = el.scatter_add_rows(grads, ids, scale, rows)
+    torch.cuda.synchronize()
+    assert el.scatter_add_rows.launches - before == 1
+    assert got.dtype == torch.float32 and got.shape == (rows, dim)
+    want = el.scatter_add_rows_plain(grads.cpu(), ids.cpu(), scale.cpu(),
+                                     rows)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lookup_kernels_repeat_bitwise(device):
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    table, ids, scale, grads = _lookup_case(device, 50, 128, 3000, 3,
+                                            torch.float32, 1)
+    clamped = ids.clamp(max=49)
+    assert torch.equal(el.gather_rows(table, clamped, scale),
+                       el.gather_rows(table, clamped, scale))
+    assert torch.equal(el.scatter_add_rows(grads, ids, scale, 50),
+                       el.scatter_add_rows(grads, ids, scale, 50))
+
+
+def test_lookup_kernels_refuse_what_they_do_not_take(device):
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    table, ids, scale, grads = _lookup_case(device, 10, 8, 16, 10,
+                                            torch.float32, 2)
+    with pytest.raises(ValueError, match='takes'):
+        el.gather_rows(table.half(), ids.clamp(max=9), scale)
+    with pytest.raises(ValueError, match='float32 or'):
+        el.scatter_add_rows(grads.half(), ids, scale, 10)
+    with pytest.raises(ValueError, match=r'row_scale \(16,\), expected'):
+        el.gather_rows(table, ids[:5], scale)
+
+
+def test_embedding_lookup_gradient_on_the_card_matches_the_cpu(device):
+    """The fused lookup with weights that need a gradient: K8 forward, K9
+    for the table, the K8 re-gather for the weights; all within 1e-6 of
+    the CPU (the weights' dot products sum in another order)."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    table, ids, scale, grads = _lookup_case(device, 200, 32, 500, 20,
+                                            torch.float32, 3)
+    ids = torch.where(ids == 200, torch.full_like(ids, -1), ids)
+    results = {}
+    for where in ('cuda', 'cpu'):
+        leaf = table.to(where).clone().requires_grad_()
+        weights = scale.to(where).clone().requires_grad_()
+        before = (el.gather_rows.launches, el.scatter_add_rows.launches)
+        out = el.embedding_lookup(leaf, ids.to(where), weights)
+        d_table, d_weights = torch.autograd.grad(
+            (out * grads.to(where)).sum(), (leaf, weights))
+        launched = (el.gather_rows.launches - before[0],
+                    el.scatter_add_rows.launches - before[1])
+        assert launched == ((2, 1) if where == 'cuda' else (0, 0))
+        results[where] = [t.detach().cpu() for t in (out, d_table,
+                                                     d_weights)]
+    assert torch.equal(results['cuda'][0], results['cpu'][0])
+    assert torch.equal(results['cuda'][1], results['cpu'][1])
+    torch.testing.assert_close(results['cuda'][2], results['cpu'][2],
+                               rtol=1e-6, atol=1e-6)
+
+
+def _carried_step(device, factory, criterion, batch, targets, state_dict):
+    """One SGD step of ``factory(device=device)`` from ``state_dict``."""
+    from tpusystem_torch.train import SGD, build_train_step, init_state, \
+        module_apply
+    module = factory(device=device)
+    module.load_state_dict(state_dict)
+    optimizer = SGD(lr=0.5)
+    state = init_state(module, optimizer)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    losses = []
+    for _ in range(2):
+        state, (_, loss) = step(state, {key: value.to(device) for key, value
+                                        in batch.items()}, targets.to(device))
+        losses.append(loss.item())
+    return losses, {name: p.detach().cpu()
+                    for name, p in state.params.items()}
+
+
+@pytest.mark.parametrize('model', ['dlrm_tiny', 'two_tower_tiny'])
+def test_recommender_steps_on_the_card_match_the_cpu(device, model):
+    """Two SGD steps from the same weights on the card (K8, K9) and on the
+    CPU (the plain versions): losses and parameters within 1e-5."""
+    from tpusystem_torch import models
+    from tpusystem_torch.data import SyntheticClicks
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    from tpusystem_torch.train import BCEWithLogitsLoss, CrossEntropyLoss
+    factory = getattr(models, model)
+    if model == 'dlrm_tiny':
+        features, labels = SyntheticClicks(samples=64, seed=2)[slice(0, 64)]
+        batch = {key: torch.as_tensor(value) for key, value in
+                 features.items()}
+        targets, criterion = torch.as_tensor(labels), BCEWithLogitsLoss()
+        tables = 2
+    else:
+        rng = np.random.default_rng(4)
+        users = torch.as_tensor(rng.integers(0, 64, (32, 3)), dtype=torch.int32)
+        users[::4, 2] = -1
+        batch = {'user': users, 'item': (users[:, 0] % 32)}
+        targets, criterion = torch.arange(32), CrossEntropyLoss()
+        tables = 2
+    weights = factory(device='cpu').state_dict()
+    before = (el.gather_rows.launches, el.scatter_add_rows.launches)
+    card = _carried_step(device, factory, criterion, batch, targets, weights)
+    assert (el.gather_rows.launches - before[0],
+            el.scatter_add_rows.launches - before[1]) == (
+                2 * tables, 2 * 2 * tables)
+    cpu = _carried_step('cpu', factory, criterion, batch, targets, weights)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    for name, value in card[1].items():
+        torch.testing.assert_close(value, cpu[1][name], rtol=1e-5, atol=1e-5)

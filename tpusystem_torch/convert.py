@@ -3,7 +3,9 @@
 The port keeps the reference's parameter names and layouts (a flax
 ``Dense`` kernel stays ``[in, out]``), so the conversion is a flattening:
 the nested param tree's path ``h_0/attn/qkv/kernel`` becomes the state-dict
-key ``h_0.attn.qkv.kernel``. Leaves arrive as numpy arrays (or anything
+key ``h_0.attn.qkv.kernel`` (a DLRM's ``table_3/embedding`` becomes
+``table_3.embedding``, a TwoTower's ``user_tower/fc_0/kernel``
+``user_tower.fc_0.kernel``). Leaves arrive as numpy arrays (or anything
 ``numpy.asarray`` takes), so this module needs no JAX.
 """
 

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one module per TPU kernel
 family: ``decode_matmul`` (decode_matmul, decode_ffn), ``flash`` (flash
 attention forward, and its fused and split backward behind a
-``torch.autograd.Function``) and ``grouped_matmul`` (the MoE grouped
-gather-matmul and matmul-scatter). Sources live in ``csrc/`` and build on
-first use (:mod:`tpusystem_torch.ops.cuda._build`)."""
+``torch.autograd.Function``), ``grouped_matmul`` (the MoE grouped
+gather-matmul and matmul-scatter) and ``embedding_lookup`` (the
+recommender's row gather and ordered row scatter-add, behind a
+``torch.autograd.Function``). Sources live in ``csrc/`` and build on first
+use (:mod:`tpusystem_torch.ops.cuda._build`)."""

@@ -115,10 +115,30 @@ def _adam_direction(grads, mu, nu, count, b1, b2, eps):
     return direction
 
 
+RUN_ELEMENTS = 1 << 28      # 1 GiB of float32 updates per _apply run
+
+
+def _runs(leaves):
+    """``(start, stop)`` spans of consecutive leaves holding at most
+    :data:`RUN_ELEMENTS` elements together (a larger leaf alone)."""
+    start, size = 0, 0
+    for index, leaf in enumerate(leaves):
+        if index > start and size + leaf.numel() > RUN_ELEMENTS:
+            yield start, index
+            start, size = index, 0
+        size += leaf.numel()
+    if start < len(leaves):
+        yield start, len(leaves)
+
+
 def _apply(params, updates, step_size) -> None:
     """optax ``scale_by_learning_rate`` then ``apply_updates``:
-    ``p + (-lr) * u``."""
-    torch._foreach_add_(params, torch._foreach_mul(updates, step_size))
+    ``p + (-lr) * u``. It runs over spans of leaves (:func:`_runs`), so the
+    temporary ``-lr * u`` holds at most one span, not a copy of every
+    update: a recommender's tables fill a fifth of the card."""
+    for start, stop in _runs(params):
+        torch._foreach_add_(params[start:stop], torch._foreach_mul(
+            updates[start:stop], step_size))
 
 
 @register
