@@ -14,44 +14,68 @@ Phases, in order; any failure exits non-zero:
 3. the same for the flash backward kernels (fused, and the split dq / dkv
    pair) at the training shape [16, 1024, 12, 64], causal, plus a bitwise
    repeat and GQA, non-causal and ragged-length cases;
-4. serve GPT-2 125M (full width, random weights from ``--seed``) through the
+4. the flash forward K1 against its plain version at the long-context
+   ladder's shapes [4, 4096, 12, 64], [2, 8192, 12, 64] and
+   [1, 16384, 12, 64], timed beside it and ``scaled_dot_product_attention``;
+   the resident-dq fused backward K2a (``flash_bwd_fused_g1``, multi-head
+   attention past 1024 keys) at [1, 16384, 12, 64] and [4, 4096, 12, 64]:
+   bit for bit K2b and itself on a repeat, within tolerance of the plain
+   backward, timed beside K2b, the plain version and the backward of
+   ``scaled_dot_product_attention``; then a non-causal and a ragged case
+   through the backward's routing;
+5. serve GPT-2 125M (full width, random weights from ``--seed``) through the
    paged ``Engine``: eight requests of 20 to 700 prompt tokens, 32 new tokens
    each; every serving kernel's launch count must rise during this run, and
    one decode step's logits through the fused kernels must agree with the
    module path on the same state; then a traced window of decode steps says
    where a step's time goes;
-5. train GPT-2 125M as ``bench.py``'s recipe does (vocab 50304, flash
+6. train GPT-2 125M as ``bench.py``'s recipe does (vocab 50304, flash
    attention, the chunked loss over 8 chunks, AdamW with clipping, 16 x 1024
    tokens, the same batch every step): one warm-up and six timed steps whose
    losses must be finite and fall, with the flash forward and the fused
    backward launched once per layer per step; first its loss and gradient
    are held against the same model on plain PyTorch attention; then a traced
    window of two steps;
-6. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
+7. the long-context ladder (``benchmarks/headline_sweep.py``'s ``long``):
+   GPT-2 125M with ``max_seq = seq`` and ``remat=True`` at 16,384 tokens a
+   step, (4, 4096), (2, 8192) and (1, 16384): the ``remat`` model's loss and
+   gradient equal the model's without it bit for bit at (1, 16384), then one
+   warm-up and three timed steps a point with falling losses, K2a launched
+   12 times a step, K1 24 times (the recompute) and K2b never; step time,
+   tokens/s, peak memory and MFU per point, and a traced window at
+   (1, 16384);
+8. dropout in the flash kernels at ``p = 0.1``: K1, K2a, K2b, K3a and K3b's
+   keep masks read back from their outputs equal the plain hash bit for bit
+   (a small shape, MHA and GQA), and each kernel agrees with its plain
+   version at the dropout step's shape [16, 1024, 12, 64], a GQA group of 3
+   and K2a at 2048 keys; then GPT-2 125M trains with bench.py's recipe
+   at ``dropout=0.1``: one warm-up and three timed steps with falling losses,
+   K1 and K2b launched 12 times a step;
+9. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
    (``matmul_scatter_rows``) against their plain versions at the four shapes
    one MoE layer gives them in training (forward and backward, 16,384 tokens
    routed top-2 over 8 experts at capacity 5,120), with bitwise repeats;
-7. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
+10. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
    settings: the 125M body, 8 experts top-2 in every second block,
    ``moe_sparse_impl='fused'``, ``WithAuxLoss`` over the chunked loss, AdamW,
    16 x 1024 tokens): its loss and gradient on 2 rows held against the same
    weights through the gather impl, then one warm-up and three timed steps
    whose losses must be finite and fall, K6 and K7 launched 12 times per
    step each; then a traced window of two steps;
-8. one layer's attention forward and backward through the split backward,
+11. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's;
-9. the recommender's kernels K8 (``gather_rows``) and K9
+12. the recommender's kernels K8 (``gather_rows``) and K9
    (``scatter_add_rows``) against their plain versions on a CPU copy, bit
    for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
    with 65,536 Zipf ids, through the dedup pass and without it, the
    batch-side fold, a bf16 table and a width off the 16-byte loads;
-10. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
+13. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
     (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the port's
     ``Loader``: ``dlrm_tiny`` first held against the CPU, then one warm-up
     and five timed steps whose losses must fall, K8 launched 26 times and
     K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
     and a traced window;
-11. print the ``kernels`` line, the card's name and power limit, and last the
+14. print the ``kernels`` line, the card's name and power limit, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -83,6 +107,17 @@ CRITEO_KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  7046547, 18, 15, 286181, 105, 142572)
 DLRM_BATCH, DLRM_DIM, DLRM_STEPS = 65536, 128, 5
 DLRM_LR = 0.3                   # SGD; 1.0 rose after 3 steps on the card
+# benchmarks/headline_sweep.py:149-154: 16,384 tokens a step at three lengths
+LONG_LADDER = ((4, 4096), (2, 8192), (1, 16384))
+LONG_KERNEL_SHAPES = ((1, 16384), (4, 4096))
+LONG_STEPS = 3                  # timed, after one warm-up step
+DROPOUT = 0.1                   # GPT2's default rate
+DROPOUT_STEPS = 3
+# the dropout kernel check: K2b/K3a/K3b at the dropout step's shape and a GQA
+# group of 3, K2a past 1024 keys
+DROPOUT_KERNEL_SHAPES = {'mha': (TRAIN_BATCH, TRAIN_SEQ, HEADS),
+                         'gqa': (2, 1024, 4),
+                         'k2a': (1, 2048, HEADS)}
 
 
 def fail(message: str) -> None:
@@ -101,12 +136,12 @@ def card_line() -> str:
         return f'nvidia-smi unavailable ({error})'
 
 
-def measure(fn, calls: int = 50):
+def measure(fn, calls: int = 50, warmup: int = 5):
     """Device milliseconds per call of ``fn(i)``: the summed kernel time of
     a profiled window, and the CUDA-event time of the same window (which
     also counts the gaps the host leaves between launches)."""
     import torch
-    for i in range(5):
+    for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -447,7 +482,7 @@ def grouped_inputs(torch, generator):
 
 
 def check_grouped(torch, generator):
-    """Phase 6: K6 and K7 against their plain versions at the four shapes
+    """Phase 9: K6 and K7 against their plain versions at the four shapes
     of one MoE layer's training step, each with a bitwise repeat, timed
     beside the plain version, ``torch.bmm`` over the same rows gathered
     into the ``[8, 5120, k]`` buffer beforehand (the product alone: no
@@ -608,7 +643,7 @@ def check_launches(result, per_step: dict) -> None:
 
 
 def train_moe(torch, seed: int) -> dict:
-    """Phase 7: the 8-expert GPT-2 MoE trains on the fused expert kernels
+    """Phase 10: the 8-expert GPT-2 MoE trains on the fused expert kernels
     (the main path of this slice). Its loss and gradient on 2 rows are held
     against the same weights through the gather impl (no K6/K7: gathers and
     cuBLAS products); both keep bfloat16 activations, so the losses agree
@@ -671,7 +706,7 @@ def train_moe(torch, seed: int) -> dict:
 
 
 def train(torch, seed: int) -> dict:
-    """Phase 5: GPT-2 125M trains with bench.py's recipe (the main path of
+    """Phase 6: GPT-2 125M trains with bench.py's recipe (the main path of
     the dense training slice). First its loss and gradient on 2 rows are
     held against the same weights on plain PyTorch attention (``'xla'``:
     autograd through ``dot_product_attention``, no kernel); both keep
@@ -721,7 +756,7 @@ def train(torch, seed: int) -> dict:
 
 
 def split_step(torch, generator) -> dict:
-    """Phase 6: one layer's attention at the training shape through
+    """Phase 11: one layer's attention at the training shape through
     ``backward='split'``, its gradients held against ``'fused'``."""
     from tpusystem_torch.ops.cuda import flash
 
@@ -748,6 +783,436 @@ def split_step(torch, generator) -> dict:
     if launches != {'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
         fail(f'the split backward launched {launches}')
     return result
+
+
+def backward_inputs(torch, generator, batch, seq, heads, causal,
+                    dropout=0.0, seed=None):
+    """bf16 q, k, v and dO ``[batch, seq, heads, 64]``, K1's out and lse of
+    them, and the backward's delta."""
+    from tpusystem_torch.ops.cuda import flash
+
+    shape = (batch, seq, heads, HEAD_DIM)
+    q, k, v, d_out = (torch.randn(shape, generator=generator,
+                                  device='cuda').to(torch.bfloat16)
+                      for _ in range(4))
+    out, lse = flash.flash_attention_lse(q, k, v, causal=causal,
+                                         dropout=dropout, seed=seed)
+    delta = flash.attention_delta(out, d_out).contiguous()
+    return q, k, v, d_out, out, lse, delta
+
+
+def all_equal(torch, got, want) -> bool:
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def check_long_forward(torch, label, q, k, v, out, lse):
+    """K1's ``out`` and ``lse`` of ``q, k, v`` (causal) against the plain
+    forward, timed beside it and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.ops.cuda import flash
+
+    want_out, want_lse = flash.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+        fail(f'{label}: non-finite output')
+    err = (out.float() - want_out.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    del want_out, want_lse
+    if lse_err > 1e-3:
+        fail(f'{label}: lse max abs err {lse_err} over 1e-3')
+    timed = measure(lambda i: flash.flash_attention_lse(q, k, v), calls=5,
+                    warmup=2)
+    plain = measure(lambda i: flash.flash_attention_plain(q, k, v), calls=2,
+                    warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = measure(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), calls=5, warmup=2)
+    batch, seq, heads, head_dim = q.shape
+    moved = 4 * batch * seq * heads * head_dim * 2 + batch * seq * heads * 4
+    flops = 4 * head_dim * attention_pairs(batch, seq, heads)
+    return record_check(label, list(q.shape), err, 2e-2, timed, plain,
+                        library, bound_ms(moved, flops), by_events=True,
+                        lse_err=lse_err,
+                        library_call='scaled_dot_product_attention, causal')
+
+
+def check_long_backward(torch, generator):
+    """Phase 4: the flash kernels at the long-context ladder's shapes. K1
+    against its plain forward at every point ([4, 4096], [2, 8192] and
+    [1, 16384], 12 heads of 64, causal), timed beside it and
+    ``scaled_dot_product_attention``. K2a, the resident-dq fused backward
+    of multi-head attention past 1024 keys, at [1, 16384, 12, 64] and
+    [4, 4096, 12, 64]: bit for bit K2b (the partial-array kernel) and
+    itself on a repeat, within the gradient tolerance of the plain
+    backward, timed beside K2b, the plain version and the backward of
+    ``scaled_dot_product_attention``; then a non-causal and a ragged case
+    through ``flash_attention_bwd``'s routing."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.ops.cuda import flash
+
+    rows = []
+    for batch, seq in LONG_LADDER:
+        q, k, v, d_out, out, lse, delta = backward_inputs(
+            torch, generator, batch, seq, HEADS, True)
+        rows.append(check_long_forward(
+            torch, f'flash_attention[{batch}x{seq}]', q, k, v, out, lse))
+        if (batch, seq) not in LONG_KERNEL_SHAPES:
+            continue
+        args = (q, k, v, d_out, lse, delta)
+        got = flash.flash_bwd_fused_g1(*args)
+        again = flash.flash_bwd_fused_g1(*args)
+        partials = flash.flash_bwd_fused(*args)
+        same_as_k2b, repeat = (all_equal(torch, got, partials),
+                               all_equal(torch, got, again))
+        del again, partials
+        want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out)
+        err, tol = worst(grad_errors(got, want))
+        del got, want
+        shape = [batch, seq, HEADS, HEAD_DIM]
+        print('long-backward-check ' + json.dumps(
+            {'shape': shape, 'k2a_equals_k2b': same_as_k2b,
+             'bitwise_repeat': repeat, 'max_abs_err': err, 'tol': tol}))
+        if not (same_as_k2b and repeat):
+            fail(f'K2a at {shape}: equals K2b {same_as_k2b}, repeats '
+                 f'{repeat}')
+        elements = batch * seq * HEADS * HEAD_DIM
+        stats = batch * seq * HEADS * 4
+        product = 2 * HEAD_DIM * attention_pairs(batch, seq, HEADS)
+        timed = measure(lambda i: flash.flash_bwd_fused_g1(*args), calls=5,
+                        warmup=2)
+        k2b = measure(lambda i: flash.flash_bwd_fused(*args), calls=5,
+                      warmup=2)
+        plain = measure(lambda i: flash.flash_attention_bwd_plain(
+            q, k, v, out, lse, d_out), calls=2, warmup=1)
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        reference = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        library = measure(lambda i: torch.autograd.grad(
+            reference, leaves, d_out.transpose(1, 2), retain_graph=True),
+            calls=5, warmup=2)
+        del reference, leaves
+        rows.append(record_check(
+            f'flash_bwd_fused_g1[{batch}x{seq}]', shape, err, tol, timed,
+            plain, library, bound_ms(7 * 2 * elements + 2 * stats,
+                                     5 * product),
+            by_events=True, k2a_equals_k2b=same_as_k2b,
+            bitwise_repeat=repeat, k2b_ms=k2b[1], k2b_profiler_ms=k2b[0],
+            library_call='scaled_dot_product_attention backward, causal'))
+    # the routing: fused MHA past 1024 keys launches K2a, at any length
+    for case, (seq, causal) in {'non-causal': (2048, False),
+                                'ragged': (4100, True)}.items():
+        q, k, v, d_out, out, lse, _ = backward_inputs(torch, generator, 1,
+                                                      seq, HEADS, causal)
+        d_lse = torch.randn(lse.shape, generator=generator,
+                            device='cuda') * 0.1
+        before = flash.flash_bwd_fused_g1.launches
+        got = flash.flash_attention_bwd(q, k, v, out, lse, d_out, d_lse,
+                                        causal=causal)
+        launched = flash.flash_bwd_fused_g1.launches - before
+        delta = flash.attention_delta(out, d_out, d_lse).contiguous()
+        partials = flash.flash_bwd_fused(q, k, v, d_out, lse, delta,
+                                         causal=causal)
+        want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out,
+                                               d_lse, causal=causal)
+        err, tol = worst(grad_errors(got, want))
+        same = all_equal(torch, got, partials)
+        print('long-backward-check ' + json.dumps(
+            {'case': case, 'shape': [1, seq, HEADS, HEAD_DIM],
+             'causal': causal, 'k2a_launches': launched,
+             'k2a_equals_k2b': same, 'max_abs_err': err, 'tol': tol}))
+        if launched != 1 or not same or err > tol:
+            fail(f'K2a {case}: launched {launched}, equals K2b {same}, '
+                 f'err {err} over {tol}')
+    return rows
+
+
+def dropout_masks(torch, kernel, batch, seq, heads, kv_heads, seed,
+                  outputs=('dq', 'dv')):
+    """The keep masks a backward kernel applied, read from its gradients:
+    with q = 0, lse = 0 and delta = 0 every visible P is 1; dO one-hot on
+    the rows of q tile t of head h, v all ones and k one-hot on the rows of
+    kv tile u make ``dv[j, c] = keep(64 t + c, j) / (1 - p)`` and
+    ``dq[i, c] = keep(i, 64 u + c) * scale / (1 - p)``. Returns
+    ``{output: int8 [batch, heads, seq, seq]}``."""
+    tiles = math.ceil(seq / 64)
+    group = heads // kv_heads
+    shape = (batch, seq, heads, HEAD_DIM)
+    masks = {name: torch.full((batch, heads, seq, seq), -1,
+                              dtype=torch.int8, device='cuda')
+             for name in outputs}
+    zeros = torch.zeros(shape, dtype=torch.bfloat16, device='cuda')
+    lse = torch.zeros(shape[:3], device='cuda')
+    value = torch.ones((batch, seq, kv_heads, HEAD_DIM),
+                       dtype=torch.bfloat16, device='cuda')
+    for t in range(tiles):
+        rows = torch.arange(64 * t, min(64 * t + 64, seq), device='cuda')
+        for u in range(tiles):
+            cols = torch.arange(64 * u, min(64 * u + 64, seq), device='cuda')
+            key = torch.zeros_like(value)
+            key[:, cols, :, cols - 64 * u] = 1
+            for h in range(heads):
+                d_out = torch.zeros_like(zeros)
+                d_out[:, rows, h, rows - 64 * t] = 1
+                grads = dict(zip(outputs, kernel(
+                    zeros, key, value, d_out, lse, lse, dropout=DROPOUT,
+                    seed=seed)))
+                if 'dq' in grads:
+                    masks['dq'][:, h, rows[:, None], cols[None, :]] = (
+                        grads['dq'][:, rows, h, :len(cols)] != 0).to(
+                            torch.int8)
+                if 'dv' in grads:
+                    masks['dv'][:, h, rows, :] = (
+                        grads['dv'][:, :, h // group, :len(rows)] != 0).to(
+                            torch.int8).transpose(1, 2)
+    return masks
+
+
+def forward_masks(torch, generator, batch, seq, heads, kv_heads, seed):
+    """K1's keep masks, read from its output: with q = 0 every visible
+    probability of row i is ``1 / (i + 1)``, and v one-hot on the rows of
+    kv tile t makes ``out[i, c]`` nonzero iff ``keep(i, 64 t + c)``."""
+    from tpusystem_torch.ops.cuda import flash
+
+    mask = torch.full((batch, heads, seq, seq), -1, dtype=torch.int8,
+                      device='cuda')
+    query = torch.zeros((batch, seq, heads, HEAD_DIM), dtype=torch.bfloat16,
+                        device='cuda')
+    key = torch.randn((batch, seq, kv_heads, HEAD_DIM), generator=generator,
+                      device='cuda').to(torch.bfloat16)
+    for t in range(math.ceil(seq / 64)):
+        cols = torch.arange(64 * t, min(64 * t + 64, seq), device='cuda')
+        value = torch.zeros_like(key)
+        value[:, cols, :, cols - 64 * t] = 1
+        out, _ = flash.flash_attention_lse(query, key, value,
+                                           dropout=DROPOUT, seed=seed)
+        mask[:, :, :, cols] = (out[:, :, :, :len(cols)] != 0).to(
+            torch.int8).transpose(1, 2)
+    return mask
+
+
+def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
+                    seq=128) -> dict:
+    """K1, K2a (multi-head only), K2b, K3a and K3b's keep masks at
+    ``p = DROPOUT``, read back from their outputs, against the plain hash:
+    ``{'kernel.output heads/kv_heads heads': visible entries that differ or
+    were not read}``, all 0 when every kernel applies exactly the plain
+    hash's masks (the query head's row under GQA)."""
+    from tpusystem_torch.ops.cuda import flash
+
+    positions = torch.arange(seq, device='cuda')
+    head_rows = torch.arange(batch * heads, device='cuda').reshape(
+        batch, heads, 1, 1)
+    want = flash.keep_mask(seed, head_rows, positions[:, None],
+                           positions[None, :], DROPOUT)
+    visible = torch.ones(seq, seq, dtype=torch.bool, device='cuda').tril()
+
+    def count(mask):
+        return int((((mask < 0) | (mask.bool() != want)) & visible).sum()
+                   .item())
+
+    case = f'{heads}/{kv_heads} heads'
+    mismatches = {f'K1 {case}': count(forward_masks(
+        torch, generator, batch, seq, heads, kv_heads, seed))}
+    kernels = {'K2b': (flash.flash_bwd_fused, ('dq', 'dk', 'dv')),
+               'K3a': (flash.flash_bwd_dq, ('dq',)),
+               'K3b': (flash.flash_bwd_dkv, ('dk', 'dv'))}
+    if heads == kv_heads:
+        kernels['K2a'] = (flash.flash_bwd_fused_g1, ('dq', 'dk', 'dv'))
+    for name, (kernel, outputs) in kernels.items():
+        if name == 'K3a':
+            kernel = (lambda *a, _k=kernel, **kw: (_k(*a, **kw),))
+        masks = dropout_masks(torch, kernel, batch, seq, heads, kv_heads,
+                              seed, outputs)
+        for output in ('dq', 'dv'):
+            if output in masks:
+                mismatches[f'{name}.{output} {case}'] = count(masks[output])
+    return mismatches
+
+
+def check_dropout_kernels(torch, generator):
+    """Phase 8: the flash kernels at ``p = 0.1``. Each kernel's keep masks,
+    read back from its outputs at a small shape (MHA and GQA, two batch
+    rows), equal the plain hash bit for bit; then K1, K2a, K2b, K3a and K3b
+    against their plain versions at the dropout step's shape (MHA,
+    [16, 1024, 12, 64]), a GQA group of 3 and K2a past 1024 keys, and K1
+    timed beside its ``p = 0`` time."""
+    from tpusystem_torch.ops.cuda import flash
+
+    seed = 987_654_321
+    mismatches = {}
+    for heads, kv_heads in ((2, 2), (2, 1)):
+        mismatches.update(mask_mismatches(torch, generator, heads, kv_heads,
+                                          seed))
+    print('dropout-masks ' + json.dumps(mismatches))
+    if any(mismatches.values()):
+        fail(f'dropout masks differ from the plain hash: {mismatches}')
+
+    results = {}
+    for name, (batch, seq, kv_heads) in DROPOUT_KERNEL_SHAPES.items():
+        shape = (batch, seq, HEADS, HEAD_DIM)
+        kv_shape = (batch, seq, kv_heads, HEAD_DIM)
+        q, k, v, d_out = (torch.randn(s, generator=generator,
+                                      device='cuda').to(torch.bfloat16)
+                          for s in (shape, kv_shape, kv_shape, shape))
+        out, lse = flash.flash_attention_lse(q, k, v, dropout=DROPOUT,
+                                             seed=seed)
+        want_out, want_lse = flash.flash_attention_plain(
+            q, k, v, dropout=DROPOUT, seed=seed)
+        errors = {'K1': ((out.float() - want_out.float()).abs().max().item(),
+                         2e-2),
+                  'K1.lse': ((lse - want_lse).abs().max().item(), 1e-3)}
+        want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out,
+                                               dropout=DROPOUT, seed=seed)
+        for backward in ('fused', 'split'):
+            label = {'fused': flash.backward_kernels(q, k)[0].__name__,
+                     'split': 'flash_bwd_dq+dkv'}[backward]
+            got = flash.flash_attention_bwd(q, k, v, out, lse, d_out,
+                                            backward=backward,
+                                            dropout=DROPOUT, seed=seed)
+            errors[label] = worst(grad_errors(got, want))
+        results[name] = dict(shape=list(shape), kv_heads=kv_heads,
+                             errors=errors)
+        for label, (err, tol) in errors.items():
+            if not err <= tol:
+                fail(f'dropout {label} at {list(shape)}: {err} over {tol}')
+    q, k, v, *_ = backward_inputs(torch, generator, TRAIN_BATCH, TRAIN_SEQ,
+                                  HEADS, True)
+    results['K1_ms'] = {
+        'p=0': measure(lambda i: flash.flash_attention_lse(q, k, v),
+                       calls=20)[1],
+        f'p={DROPOUT}': measure(lambda i: flash.flash_attention_lse(
+            q, k, v, dropout=DROPOUT, seed=seed), calls=20)[1],
+        'shape': [TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM]}
+    print('dropout-kernels ' + json.dumps(results))
+    return dict(results, masks=mismatches)
+
+
+def gpt2_125m(torch, seed: int, **overrides):
+    """GPT-2 125M as the training recipes build it (vocab 50304, flash
+    attention, features for the chunked loss), random weights from
+    ``seed``."""
+    from tpusystem_torch.models import gpt2_small
+
+    config = dict(vocab_size=50304, dropout=0.0, attention='flash',
+                  return_features=True, device='cuda')
+    config.update(overrides)
+    module = gpt2_small(**config)
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    return module
+
+
+def remat_identity(torch, module, criterion, tokens) -> dict:
+    """The loss and full gradient of the ``remat`` model on ``tokens``
+    against the same weights without ``remat``: the same kernels on the
+    same inputs, so they must agree bit for bit."""
+    params = list(module.parameters())
+    results = []
+    for remat in (True, False):
+        clone = module.replace(remat=remat)
+        loss = criterion(clone(tokens, train=True), tokens)
+        grads = torch.autograd.grad(loss, params)
+        results.append((loss.detach(), grads))
+        del loss
+    (loss, grads), (plain_loss, plain_grads) = results
+    torch.cuda.synchronize()
+    differing = [name for (name, _), a, b in zip(module.named_parameters(),
+                                                 grads, plain_grads)
+                 if not torch.equal(a, b)]
+    return {'tokens': list(tokens.shape), 'loss': loss.item(),
+            'no_remat_loss': plain_loss.item(),
+            'loss_bitwise': bool(torch.equal(loss, plain_loss)),
+            'grads_bitwise': not differing, 'differing': differing[:5]}
+
+
+def train_long(torch, seed: int) -> dict:
+    """Phase 7: the long-context ladder of ``benchmarks/headline_sweep.py``
+    (``long``): the GPT-2 125M body with ``max_seq = seq``, ``remat=True``,
+    flash attention, the chunked loss over 8 chunks and AdamW with
+    clipping, 16,384 tokens a step at (4, 4096), (2, 8192) and (1, 16384).
+    First, at (1, 16384), the ``remat`` model's loss and gradient equal the
+    model's without it bit for bit. Each point takes one warm-up and
+    ``LONG_STEPS`` timed steps on one batch, with falling losses, K2a
+    launched once per layer a step, K1 twice (the recomputed forward) and
+    K2b never; then a traced window of two steps at (1, 16384)."""
+    import numpy as np
+
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    criterion = ChunkedNextTokenLoss(chunks=8)
+    points, identity, profile = [], None, None
+    for batch, seq in sorted(LONG_LADDER, key=lambda point: -point[1]):
+        module = gpt2_125m(torch, seed, max_seq=seq, remat=True)
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, 50257, (batch, seq)), device='cuda')
+        if identity is None:
+            identity = remat_identity(torch, module, criterion, tokens)
+            print('long-remat-identity ' + json.dumps(identity))
+            if not (identity['loss_bitwise'] and identity['grads_bitwise']):
+                fail(f'remat vs no remat at {[batch, seq]}: {identity}')
+        optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+        state = init_state(module, optimizer, rng=seed)
+        step = build_train_step(module_apply(module), criterion, optimizer)
+        state, result = timed_steps(
+            torch, step, state, tokens, LONG_STEPS,
+            (flash.flash_attention_lse, flash.flash_bwd_fused_g1,
+             flash.flash_bwd_fused))
+        check_launches(result, {'flash_attention_lse': 2 * module.layers,
+                                'flash_bwd_fused_g1': module.layers,
+                                'flash_bwd_fused': 0})
+        params = sum(p.numel() for p in module.parameters())
+        # headline_sweep.py:46-49 (the recompute not counted)
+        flops = (6 * params * batch * seq + 12 * module.layers * HEADS
+                 * seq * seq * HEAD_DIM * batch)
+        point = dict(result, params=params, flops_per_step=flops,
+                     mfu=flops / (result['median_step_ms'] / 1e3)
+                     / BF16_FLOPS)
+        print('long-train ' + json.dumps(point))
+        if seq == max(s for _, s in LONG_LADDER):
+            profile = profile_steps(torch, lambda: step(state, tokens,
+                                                        tokens),
+                                    steps=2, top_n=12)
+            print('long-train-profile ' + json.dumps(profile))
+        points.append(point)
+        del module, state, step, optimizer
+        torch.cuda.empty_cache()
+    return dict(points=points, remat_identity=identity, profile=profile,
+                launches={name: sum(point['launches'][name]
+                                    for point in points)
+                          for name in points[0]['launches']})
+
+
+def train_dropout(torch, seed: int) -> dict:
+    """Phase 8: GPT-2 125M trains with bench.py's recipe (16 x 1024) at
+    ``dropout=0.1``: the embeddings, the attention and MLP outputs, and the
+    attention probabilities inside K1 and K2b. One warm-up and
+    ``DROPOUT_STEPS`` timed steps with finite, falling losses, K1 and K2b
+    launched once per layer a step."""
+    import numpy as np
+
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    module = gpt2_125m(torch, seed, dropout=DROPOUT)
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module),
+                            ChunkedNextTokenLoss(chunks=8), optimizer)
+    state, result = timed_steps(
+        torch, step, state, tokens, DROPOUT_STEPS,
+        (flash.flash_attention_lse, flash.flash_bwd_fused))
+    check_launches(result, {'flash_attention_lse': module.layers,
+                            'flash_bwd_fused': module.layers})
+    return dict(result, dropout=DROPOUT)
 
 
 def zipf_ids(vocab: int, count: int, seed: int, alpha: float = 1.3):
@@ -781,7 +1246,7 @@ def lookup_bitwise(torch, label, got, again, want) -> float:
 
 
 def check_lookup(torch, generator, seed: int):
-    """Phase 9: K8 (``gather_rows``) and K9 (``scatter_add_rows``) against
+    """Phase 12: K8 (``gather_rows``) and K9 (``scatter_add_rows``) against
     their plain versions on a CPU copy of the inputs, bit for bit, each
     with a bitwise repeat: the largest Criteo Kaggle table (10,131,227 x
     128 float32) with 65,536 Zipf ids, through ``dedup_ids`` (unique ids,
@@ -981,7 +1446,7 @@ def repeat_step(torch, step, state, features, labels) -> dict:
 
 
 def train_dlrm(torch, seed: int) -> dict:
-    """Phase 10: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
+    """Phase 13: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
     PyTorch recipe: 13 dense features, 26 tables of dim 128, bottom MLP
     512-256-128, top MLP 1024-1024-512-256-1, dot interaction) over the
     Criteo Kaggle cardinalities (33,762,577 rows, 17.3 GB of float32
@@ -1118,7 +1583,7 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
 
 
 def serve(torch, seed: int):
-    """Phase 3: GPT-2 125M through the paged Engine (the main path)."""
+    """Phase 5: GPT-2 125M through the paged Engine (the main path)."""
     import numpy as np
 
     from tpusystem_torch.models import gpt2_small
@@ -1227,10 +1692,15 @@ def main() -> None:
     generator = torch.Generator('cuda').manual_seed(args.seed)
     checks = check_kernels(torch, generator) + check_backward(torch,
                                                               generator)
+    checks += check_long_backward(torch, generator)
     served = serve(torch, args.seed)
     print('serve ' + json.dumps(served))
     trained = train(torch, args.seed)
     print('train ' + json.dumps(trained))
+    long = train_long(torch, args.seed)
+    dropout_checks = check_dropout_kernels(torch, generator)
+    dropout_trained = train_dropout(torch, args.seed)
+    print('dropout-train ' + json.dumps(dropout_trained))
     checks += check_grouped(torch, generator)
     moe_trained = train_moe(torch, args.seed)
     print('moe-train ' + json.dumps(moe_trained))
@@ -1253,10 +1723,16 @@ def main() -> None:
             'flash_fwd.cu', 'flash.py:106', 'flash_attention[S=1024]',
             served['launches']['flash_attention_lse']
             + trained['launches']['flash_attention_lse']
+            + long['launches']['flash_attention_lse']
+            + dropout_trained['launches']['flash_attention_lse']
             + moe_trained['launches']['flash_attention_lse']),
+        'flash_bwd_fused_g1': ('flash_bwd.cu', 'flash.py:344',
+                               'flash_bwd_fused_g1[1x16384]',
+                               long['launches']['flash_bwd_fused_g1']),
         'flash_bwd_fused': ('flash_bwd.cu', 'flash.py:281',
                             'flash_bwd_fused[train]',
                             trained['launches']['flash_bwd_fused']
+                            + dropout_trained['launches']['flash_bwd_fused']
                             + moe_trained['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', 'flash.py:162', 'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -1290,7 +1766,9 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {'card': card, 'build_s': build_seconds, 'checks': checks,
-             'serve': served, 'train': trained, 'moe_train': moe_trained,
+             'serve': served, 'train': trained, 'long': long,
+             'dropout_kernels': dropout_checks,
+             'dropout_train': dropout_trained, 'moe_train': moe_trained,
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))

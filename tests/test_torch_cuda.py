@@ -199,6 +199,104 @@ def test_flash_backward_repeats_bitwise(device, backward):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize('batch,seq,heads,causal', [
+    (1, 2048, 4, True),             # the routed case: MHA past 1024 keys
+    (2, 1100, 4, False),            # non-causal, ragged
+    (1, 4100, 2, True),             # ragged, 65 tiles
+    (2, 200, 3, True),              # shorter than the route, same kernel
+    (1, 1, 2, True),
+])
+def test_k2a_equals_k2b_bitwise_and_matches_plain(device, batch, seq, heads,
+                                                  causal):
+    """K2a sums each dq row in kv order in its resident buffer, which is
+    the sum K2b's reduction takes over the same float32 products: dq, dk
+    and dv equal bit for bit, repeat, and match the plain backward."""
+    q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, heads,
+                                        seq + 7)
+    out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
+    delta = flash.attention_delta(out, d_out, d_lse).contiguous()
+    args = (q, k, v, d_out, lse, delta)
+    before = flash.flash_bwd_fused_g1.launches
+    got = flash.flash_bwd_fused_g1(*args, causal=causal)
+    again = flash.flash_bwd_fused_g1(*args, causal=causal)
+    partials = flash.flash_bwd_fused(*args, causal=causal)
+    want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out, d_lse,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    assert flash.flash_bwd_fused_g1.launches - before == 2
+    for a, b, c in zip(got, again, partials):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _close_grads(got, want)
+
+
+def test_fused_mha_past_1024_keys_launches_k2a(device):
+    q, k, v, d_out, d_lse = _bwd_inputs(device, 1, 1030, 4, 4, 11)
+    out, lse = flash.flash_attention_lse(q, k, v)
+    counts = (flash.flash_bwd_fused_g1.launches,
+              flash.flash_bwd_fused.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash.flash_attention_lse(*leaves),
+                              leaves, (d_out, d_lse))
+    assert (flash.flash_bwd_fused_g1.launches - counts[0],
+            flash.flash_bwd_fused.launches - counts[1]) == (1, 0)
+    _close_grads(got, flash.flash_attention_bwd_plain(
+        q, k, v, out, lse, d_out, d_lse))
+
+
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,backward', [
+    (2, 384, 4, 4, True, 'fused'),            # K2b
+    (2, 384, 6, 2, True, 'fused'),            # K2b, GQA
+    (1, 1100, 4, 4, True, 'fused'),           # K2a
+    (1, 300, 4, 4, False, 'split'),           # K3a + K3b
+    (2, 256, 4, 2, True, 'split'),
+])
+def test_dropout_kernels_match_plain(device, batch, seq, heads, kv_heads,
+                                     causal, backward):
+    """At p = 0.1 every flash kernel hashes the plain version's masks from
+    the same seed: K1's output and lse and the backward within the
+    tolerances above, through the autograd Function."""
+    q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
+                                        seq + heads)
+    options = dict(causal=causal, dropout=0.1, seed=424_242)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = flash.flash_attention_lse(*leaves, backward=backward,
+                                         **options)
+    got = torch.autograd.grad((out, lse), leaves, (d_out, d_lse))
+    want_out, want_lse = flash.flash_attention_plain(q, k, v, **options)
+    want = flash.flash_attention_bwd_plain(q, k, v, out.detach(),
+                                           lse.detach(), d_out, d_lse,
+                                           **options)
+    torch.cuda.synchronize()
+    _close(out, want_out, 2e-2)
+    _close(lse, want_lse, 1e-3)
+    _close_grads(got, want)
+    undropped, _ = flash.flash_attention_lse(q, k, v, causal=causal)
+    assert not torch.equal(out.detach(), undropped)
+
+
+@pytest.mark.parametrize('heads,kv_heads', [(2, 2), (4, 2), (2, 1)])
+def test_dropout_masks_equal_the_plain_hash_bitwise(device, heads, kv_heads):
+    """K1, K2a, K2b, K3a and K3b apply exactly the plain hash's masks, the
+    query head's row under GQA: read back from their outputs at a small
+    shape (two batch rows, two tiles), every visible entry, by the same
+    read-back ``chip_smoke.py`` runs."""
+    import chip_smoke
+
+    generator = torch.Generator(device).manual_seed(heads + kv_heads)
+    mismatches = chip_smoke.mask_mismatches(torch, generator, heads,
+                                            kv_heads, seed=987_654_321)
+    assert len(mismatches) == (7 if heads == kv_heads else 5)
+    assert not any(mismatches.values()), mismatches
+    batch, seq = 2, 128
+    positions = torch.arange(seq, device=device)
+    head_rows = torch.arange(batch * heads, device=device).reshape(
+        batch, heads, 1, 1)
+    kept = flash.keep_mask(987_654_321, head_rows, positions[:, None],
+                           positions[None, :], 0.1)
+    visible = torch.ones(seq, seq, dtype=torch.bool, device=device).tril()
+    assert abs(kept[..., visible].float().mean().item() - 0.9) < 0.01
+
+
 def test_autograd_through_flash_attention_lse_on_the_card(device):
     """torch.autograd.grad through the kernels' Function, both outputs
     carrying a cotangent, against the plain backward; 'fused' and 'split'
@@ -246,6 +344,72 @@ def test_gpt2_tiny_trains_on_the_card(device):
             flash.flash_bwd_fused.launches - before[1]) == (
                 3 * module.layers, 3 * module.layers)
     assert int(state.step) == 3 and state.step.device.type == 'cuda'
+
+
+def test_gpt2_tiny_trains_at_long_context_with_remat_on_the_card(device):
+    """gpt2_tiny(remat=True) at 1,100 tokens a row (MHA past 1024 keys):
+    the remat model's loss and gradient equal the plain model's bit for
+    bit, and three AdamW steps launch K1 twice a layer (the recompute) and
+    K2a once, with falling losses."""
+    import numpy as np
+
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    module = gpt2_tiny(attention='flash', return_features=True, remat=True,
+                       max_seq=1100, device=device)
+    criterion = ChunkedNextTokenLoss(chunks=4)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 256,
+                                                               (2, 1100)),
+                             device=device)
+    params = list(module.parameters())
+    results = []
+    for remat in (True, False):
+        loss = criterion(module.replace(remat=remat)(tokens, train=True),
+                         tokens)
+        results.append((loss.detach(), torch.autograd.grad(loss, params)))
+    (loss, grads), (plain_loss, plain_grads) = results
+    assert torch.equal(loss, plain_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, plain_grads))
+    optimizer = AdamW(lr=3e-3, grad_clip=1.0)
+    state = init_state(module, optimizer)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused_g1,
+                flash.flash_bwd_fused)
+    before = [counter.launches for counter in counters]
+    losses = [step(state, tokens, tokens)[1][1].item() for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        6 * module.layers, 3 * module.layers, 0]
+
+
+def test_gpt2_tiny_trains_with_dropout_on_the_card(device):
+    """gpt2_tiny(dropout=0.1) on flash: a fixed carried seed gives the same
+    losses twice, and they fall."""
+    import numpy as np
+
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, 256,
+                                                               (4, 128)),
+                             device=device)
+    runs = []
+    for _ in range(2):
+        module = gpt2_tiny(attention='flash', return_features=True,
+                           dropout=0.1, device=device)
+        optimizer = AdamW(lr=3e-3, grad_clip=1.0)
+        state = init_state(module, optimizer, rng=5)
+        step = build_train_step(module_apply(module),
+                                ChunkedNextTokenLoss(chunks=4), optimizer)
+        runs.append([step(state, tokens, tokens)[1][1].item()
+                     for _ in range(3)])
+    assert runs[0] == runs[1]
+    assert all(np.isfinite(runs[0])) and runs[0][-1] < runs[0][0], runs
 
 
 def _seating(tokens, experts, k, capacity, seed):

@@ -137,14 +137,29 @@ def test_lse_cotangent_alone_and_output_cotangent_alone():
 
 
 def test_fused_mha_past_1024_keys_is_k2a_and_raises():
+    """Fused MHA past 1024 keys routes to K2a (the reference's resident-dq
+    kernel), whose plain version on the CPU is the one plain backward; a
+    bad ``backward`` still raises. GQA takes K2b at any length, ``'split'``
+    K3a and K3b at any length."""
     q = torch.zeros(1, 1032, 2, 16)
     args = (q, q, q, q, torch.zeros(1, 1032, 2), q)
-    with pytest.raises(NotImplementedError, match='K2a'):
-        tflash.flash_attention_bwd(*args, backward='fused')
+    assert tflash.backward_kernels(q, q) == (tflash.flash_bwd_fused_g1,)
+    assert tflash.backward_kernels(q[:, :1024], q[:, :1024]) == (
+        tflash.flash_bwd_fused,)
+    launches = tflash.flash_bwd_fused_g1.launches
+    fused = tflash.flash_attention_bwd(*args, backward='fused')
+    assert tflash.flash_bwd_fused_g1.launches == launches        # CPU: plain
+    for got, want in zip(fused, tflash.flash_attention_bwd_plain(*args)):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match='backward'):
         tflash.flash_attention_lse(q, q, q, backward='both')
-    # GQA takes K2b at any length, and 'split' is K3a/K3b at any length
+    with pytest.raises(ValueError, match='multi-head'):
+        tflash.flash_bwd_fused_g1(q, q[:, :, :1], q[:, :, :1], q,
+                                  args[4], args[4])
     kv = torch.zeros(1, 1032, 1, 16)
+    assert tflash.backward_kernels(q, kv) == (tflash.flash_bwd_fused,)
+    assert tflash.backward_kernels(q, q, 'split') == (tflash.flash_bwd_dq,
+                                                      tflash.flash_bwd_dkv)
     assert tflash.flash_attention_bwd(q, kv, kv, q, args[4], q)[1].shape == (
         1, 1032, 1, 16)
     assert tflash.flash_attention_bwd(*args, backward='split')[0].shape == (

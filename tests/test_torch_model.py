@@ -132,12 +132,19 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
+    """``remat`` and training-time dropout are ported; ``scan_layers``, MoE
+    decoding and sequence-parallel attention still name their item. A
+    training forward with dropout needs the step's generator."""
     for option in ({'scan_layers': True},
                    {'moe_experts': 2, 'decode': True},
-                   {'remat': True}, {'attention': 'ring'}):
+                   {'attention': 'ring'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             gpt2_tiny(device='cpu', **option)
+    assert gpt2_tiny(device='cpu', remat=True).remat
     module = GPT2(vocab_size=32, layers=1, dim=16, heads=2, max_seq=16,
                   dropout=0.1, device='cpu')
-    with pytest.raises(NotImplementedError, match='dropout'):
-        module(torch.zeros(1, 4, dtype=torch.long), train=True)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError, match='rng'):
+        module(tokens, train=True)
+    assert module(tokens, train=True,
+                  rng=torch.Generator().manual_seed(0)).shape == (1, 4, 32)

@@ -22,15 +22,25 @@ cache paths (see :mod:`tpusystem_torch.ops.attention`). ``decode_pages``
 switches it to the serving engine's paged pool. ``return_features=True``
 returns ``(features, table)`` instead of logits: the input of
 :class:`tpusystem_torch.train.ChunkedNextTokenLoss`, which owns the head.
-``forward(train=True)`` trains through autograd at ``dropout=0.0`` (the
-flash kernels carry their own backward). With ``moe_experts > 0`` block ``i``
-is an MoE block iff ``i % moe_every == moe_every - 1``: its FFN is a
+``forward(train=True)`` trains through autograd (the flash kernels carry
+their own backward). With ``moe_experts > 0`` block ``i`` is an MoE block
+iff ``i % moe_every == moe_every - 1``: its FFN is a
 :class:`~tpusystem_torch.ops.moe.MoEMLP` named ``moe``, and the model
 returns ``(outputs, aux)``, ``aux`` the mean of the MoE layers' router
-losses (for :class:`tpusystem_torch.train.WithAuxLoss`). Not ported yet,
-each raising ``NotImplementedError`` that names its ROADMAP item:
-``scan_layers``, ``remat``, ring/ulysses attention, training-time dropout,
-and decoding an MoE model.
+losses (for :class:`tpusystem_torch.train.WithAuxLoss`).
+
+``remat=True`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant): the reference's
+``nn.remat(Block)``, which saves nothing inside a block. Training-time
+dropout (``forward(train=True, rng=generator)``) drops at the reference's
+sites: the embeddings, the attention output, the MLP output and, at
+``attn_dropout`` (``None`` follows ``dropout``), the attention
+probabilities, in the flash kernels on ``'flash'``. Every mask is a function
+of a seed drawn from ``rng`` before the block runs, so a recomputed block
+draws the masks it drew the first time (``torch.utils.checkpoint`` restores
+only the default generators). Masks are not flax's threefry bits. Not
+ported yet, each raising ``NotImplementedError`` that names its ROADMAP
+item: ``scan_layers``, ring/ulysses attention, and decoding an MoE model.
 """
 
 from __future__ import annotations
@@ -41,9 +51,12 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
-from tpusystem_torch.ops.attention import attend, cached_attention
+from tpusystem_torch.ops.attention import (apply_dropout, attend,
+                                          cached_attention)
+from tpusystem_torch.ops.cuda.flash import SEED_LIMIT
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
 from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.registry import register
@@ -116,7 +129,8 @@ class SelfAttention(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block: attention, then the GELU MLP, or with
     ``moe`` (the :class:`MoEMLP` arguments) the expert FFN; an MoE block
-    returns ``(hidden, aux)``."""
+    returns ``(hidden, aux)``. ``rate`` drops the attention and FFN
+    outputs, from masks drawn from ``seeds`` (two ints)."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int, *,
                  device, moe: dict | None = None) -> None:
@@ -131,15 +145,17 @@ class Block(nn.Module):
             self.fc = Dense(dim, mlp_ratio * dim, device=device)
             self.proj = Dense(mlp_ratio * dim, dim, device=device)
 
-    def forward(self, hidden, dtype, attention):
+    def forward(self, hidden, dtype, attention, rate: float = 0.0,
+                seeds: tuple = (None, None)):
         normed = self.ln_1(hidden).to(dtype)
-        hidden = hidden + self.attn(normed, dtype, attention)
+        attended = self.attn(normed, dtype, attention)
+        hidden = hidden + apply_dropout(attended, rate, seeds[0])
         normed = self.ln_2(hidden).to(dtype)
         if self.moe is not None:
             shrunk, aux = self.moe(normed)
-            return hidden + shrunk, aux
+            return hidden + apply_dropout(shrunk, rate, seeds[1]), aux
         grown = F.gelu(self.fc(normed, dtype), approximate='tanh')
-        return hidden + self.proj(grown, dtype)
+        return hidden + apply_dropout(self.proj(grown, dtype), rate, seeds[1])
 
 
 MOE_SERVING = 'Llama and MoE serving through the module paged step'
@@ -163,7 +179,8 @@ class GPT2(nn.Module):
     them, ``load_state_dict`` replaces them."""
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
-              'dropout', 'dtype', 'attention', 'remat', 'scan_layers',
+              'dropout', 'dtype', 'attention', 'attn_dropout', 'remat',
+              'scan_layers',
               'return_features', 'decode', 'per_row_decode', 'decode_pages',
               'moe_experts', 'moe_every', 'moe_k', 'moe_capacity_factor',
               'moe_sparse_impl')
@@ -172,6 +189,7 @@ class GPT2(nn.Module):
                  dim: int = 768, heads: int = 12, max_seq: int = 1024,
                  mlp_ratio: int = 4, dropout: float = 0.1,
                  dtype: str = 'bfloat16', attention: str = 'xla',
+                 attn_dropout: float | None = None,
                  remat: bool = False, scan_layers: bool = False,
                  return_features: bool = False, decode: bool = False,
                  per_row_decode: bool = False,
@@ -184,8 +202,6 @@ class GPT2(nn.Module):
             raise _not_ported('scan_layers', 'scan_layers')
         if moe_experts and decode:
             raise _not_ported('decoding an MoE model', MOE_SERVING)
-        if remat:
-            raise _not_ported('remat', 'remat')
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               'multi-GPU parallelism')
@@ -193,6 +209,7 @@ class GPT2(nn.Module):
         self.vocab_size, self.layers, self.dim = vocab_size, layers, dim
         self.heads, self.max_seq, self.mlp_ratio = heads, max_seq, mlp_ratio
         self.dropout, self.dtype, self.attention = dropout, dtype, attention
+        self.attn_dropout = attn_dropout
         self.remat, self.scan_layers, self.decode = remat, scan_layers, decode
         self.return_features = return_features
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
@@ -307,17 +324,30 @@ class GPT2(nn.Module):
             cache[prefix + '/index'] = index
         return cache
 
+    def dropout_rates(self, train: bool) -> tuple[float, float]:
+        """``(rate, attention rate)`` of a forward: 0 outside training;
+        ``attn_dropout=None`` follows ``dropout``."""
+        if not train:
+            return 0.0, 0.0
+        attn = self.dropout if self.attn_dropout is None else self.attn_dropout
+        return self.dropout, attn
+
     def forward(self, tokens, cache: dict | None = None, *,
-                train: bool = False, depth: int | None = None):
+                train: bool = False, depth: int | None = None,
+                rng: torch.Generator | None = None):
         """Logits ``[batch, length, vocab]`` (float32) for ``tokens``.
 
         In decode mode returns ``(logits, cache)``: ``cache=None`` is the
         prefill, which creates the contiguous cache; later calls pass the
         returned cache back (its tensors are updated in place). ``depth`` is
         the deepest row's cursor before the call, the host's choice of read
-        window; when omitted it is read from the cache."""
-        if train and self.dropout:
-            raise _not_ported('training-time dropout', 'dropout')
+        window; when omitted it is read from the cache. A training forward
+        with dropout draws its masks' seeds from ``rng`` (the step's
+        generator, the reference's ``'dropout'`` rng)."""
+        rate, attn_rate = self.dropout_rates(train)
+        if (rate or attn_rate) and rng is None:
+            raise ValueError('a training forward with dropout needs rng=, a '
+                             'torch.Generator')
         if self.decode and self.moe_experts:
             raise _not_ported('decoding an MoE model', MOE_SERVING)
         dtype = self.compute_dtype
@@ -340,9 +370,16 @@ class GPT2(nn.Module):
             cache['position'] = offset + length
         else:
             positions = steps
-        hidden = (self.wte(tokens) + self.wpe(positions)).to(dtype)
+        # one seed per mask, drawn before any block runs (see the docstring)
+        seeds = (torch.randint(0, SEED_LIMIT, (1 + 3 * self.layers,),
+                               generator=rng, device=rng.device).tolist()
+                 if rate or attn_rate else [None] * (1 + 3 * self.layers))
+        hidden = apply_dropout(self.wte(tokens) + self.wpe(positions), rate,
+                               seeds[0]).to(dtype)
         aux_losses = []
+        remat = self.remat and not self.decode and torch.is_grad_enabled()
         for index, block in enumerate(self.blocks()):
+            attn_seed, *block_seeds = seeds[1 + 3 * index:4 + 3 * index]
             if self.decode:
                 attention = functools.partial(
                     cached_attention, cache=cache, prefix=f'h_{index}/attn',
@@ -350,8 +387,12 @@ class GPT2(nn.Module):
                     per_row=self.per_row_decode, pages=self.decode_pages,
                     depth=depth)
             else:
-                attention = functools.partial(attend, kernel=self.attention)
-            hidden = block(hidden, dtype, attention)
+                attention = functools.partial(attend, kernel=self.attention,
+                                              dropout=attn_rate,
+                                              seed=attn_seed)
+            run = (functools.partial(checkpoint, block, use_reentrant=False)
+                   if remat else block)
+            hidden = run(hidden, dtype, attention, rate, tuple(block_seeds))
             if self.is_moe(index):
                 hidden, aux = hidden
                 aux_losses.append(aux)

@@ -42,14 +42,36 @@ def repeat_kv_heads(query, key, value):
             value.repeat_interleave(group, dim=2))
 
 
+def dropout_mask(shape, rate: float, seed: int, device):
+    """Bernoulli(``1 - rate``) keep mask drawn from a generator seeded
+    ``seed`` on ``device``: a function of the seed, so a recomputed forward
+    (``GPT2(remat=True)``) draws the same mask again."""
+    generator = torch.Generator(device).manual_seed(int(seed))
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(x, rate: float, seed: int | None):
+    """``flax.linen.Dropout`` in training: elements kept with probability
+    ``1 - rate`` (:func:`dropout_mask` of ``seed``) and divided by it in
+    ``x``'s dtype, the rest zeroed. ``rate == 0`` returns ``x``."""
+    if not rate:
+        return x
+    keep = dropout_mask(x.shape, rate, seed, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def dot_product_attention(query, key, value, *, causal: bool = True,
-                          mask=None):
+                          mask=None, dropout: float = 0.0,
+                          seed: int | None = None):
     """Multi-head attention over ``[batch, length, heads, head_dim]``.
 
     Scores and softmax in float32 (float64 for float64 inputs); the weights
     are rounded to the input dtype before the product with ``value``; the
     output returns in the input dtype. ``mask`` broadcasts against
-    ``[batch, heads, q, k]``. Differentiable through autograd."""
+    ``[batch, heads, q, k]``. ``dropout > 0`` drops normalised weights and
+    scales the survivors by ``1 / (1 - dropout)`` (the reference's
+    ``attention.py:373-375``), the mask drawn from ``seed``. Differentiable
+    through autograd."""
     dtype = query.dtype
     work = torch.promote_types(dtype, torch.float32)
     scale = query.shape[-1] ** -0.5
@@ -63,21 +85,27 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
+    weights = apply_dropout(weights, dropout, seed)
     out = torch.einsum('bhqk,bkhd->bqhd', weights.to(dtype).to(work),
                        value.to(work))
     return out.to(dtype)
 
 
-def attend(query, key, value, *, kernel: str = 'xla'):
+def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
+           seed: int | None = None):
     """Causal attention of the forward and training passes: ``'xla'`` is
     :func:`dot_product_attention` (autograd), ``'flash'`` the flash kernels
-    (K1 forward, the fused backward K2b). Attention-probability dropout is
-    not ported: the model raises before a training call with dropout."""
+    (K1 forward, the fused backward K2a or K2b). ``dropout > 0`` drops
+    attention probabilities, from masks that are a function of the int
+    ``seed``: drawn from a generator seeded with it on ``'xla'``, the flash
+    kernels' positional hash on ``'flash'``."""
     if kernel == 'xla':
-        return dot_product_attention(query, key, value, causal=True)
+        return dot_product_attention(query, key, value, causal=True,
+                                     dropout=dropout, seed=seed)
     if kernel == 'flash':
         from tpusystem_torch.ops.cuda.flash import flash_attention
-        return flash_attention(query, key, value, causal=True)
+        return flash_attention(query, key, value, causal=True,
+                               dropout=dropout, seed=seed)
     raise ValueError(f"unknown attention kernel {kernel!r}; expected 'xla' "
                      "or 'flash'")
 

@@ -3,18 +3,20 @@
 //
 // Replaces the Pallas TPU kernels of tpusystem/ops/pallas/flash.py reached
 // through _flash_bwd_impl:
-//   * flash_bwd_fused  <- _flash_fused_bwd_kernel (K2b, call at :586);
-//   * flash_bwd_dq     <- _flash_dq_kernel        (K3a, call at :622);
-//   * flash_bwd_dkv    <- _flash_dkv_kernel       (K3b, call at :651).
-// K2a (_flash_fused_bwd_g1_kernel, resident f32 dq for MHA past 1024 keys)
-// and the in-kernel dropout hash are not ported.
+//   * flash_bwd_fused_g1 <- _flash_fused_bwd_g1_kernel (K2a, call at :541);
+//   * flash_bwd_fused    <- _flash_fused_bwd_kernel    (K2b, call at :586);
+//   * flash_bwd_dq       <- _flash_dq_kernel           (K3a, call at :622);
+//   * flash_bwd_dkv      <- _flash_dkv_kernel          (K3b, call at :651).
 //
 // One __device__ routine, tile_terms, holds the per-tile math of
-// _bwd_block_terms (flash.py:253-278) for all three kernels, so they cannot
+// _bwd_block_terms (flash.py:253-278) for all four kernels, so they cannot
 // drift apart numerically: scores = (q . k) * scale with the causal mask,
 // P = exp(scores - lse), dP = dO . v, dS = P * (dP - delta) * scale. P is
 // rounded to bf16 (dO's dtype) before dV += P^T dO, dS to bf16 (q's dtype)
-// before dK += dS^T Q and dQ += dS K; every sum is float32.
+// before dK += dS^T Q and dQ += dS K; every sum is float32. Under dropout
+// (flash_dropout.cuh's positional hash of the query head's row, as the
+// forward hashed it) dV takes kept = P * keep / (1 - p) and dS takes
+// keep * dP / (1 - p) in place of dP (flash.py:270-277).
 //
 // What bounds it on an H100: at the GPT-2 125M training shape
 // [16, 1024, 12, 64], causal, the fused backward does 5 products of
@@ -43,6 +45,23 @@
 //     pairs are stored: tiles * (tiles + 1) / 2 per query head when causal
 //     (136 of 256 at S = 1024), 428 MB at the training shape instead of the
 //     805 MB of a dense [kv_tiles, B * H, S, D] array.
+//   * flash_bwd_fused_g1 (MHA): K2b's sweep, a block per (kv tile, batch *
+//     head), without the partials. Each block adds its dS K product for q
+//     tile i into a float32 dq_acc [B, S, H, D] that the wrapper zeroes
+//     (50 MB at [1, 16384, 12, 64] where K2b's partials take 6.47 GB). The
+//     adds to one (head row, q tile) happen in ascending kv-tile order: kv
+//     tile j waits until that pair's integer ticket reads j, adds, and
+//     releases it as j + 1; the last contributor (the diagonal tile when
+//     causal, else the last kv tile) rounds the row to bf16 and writes dq.
+//     So every dq element is ((0 + c0) + c1) + ..., the sum dq_reduce_kernel
+//     takes over K2b's partials of the same products: K2a equals K2b bit
+//     for bit in dq, dk and dv. A block takes its work item from an atomic
+//     counter when it starts, items numbered kv-tile-major (the longest
+//     causal sweeps first), so a block only ever waits on items that blocks
+//     already running have claimed: no deadlock, whatever order the
+//     hardware launches blocks in. The ticket is released with a fence and
+//     st.release.gpu and read with ld.acquire.gpu; dq_acc moves through L2
+//     (ld/st .cg), never a stale L1 line.
 //   * No float atomics anywhere: two calls on the same inputs give bitwise
 //     the same dq, dk and dv.
 //   * Any sequence length: rows and columns past S are masked (P = 0) and
@@ -55,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -128,10 +149,12 @@ __device__ void load_stats(float* dst, const float* __restrict__ src, int row0, 
   }
 }
 
-// _bwd_block_terms: P and dS of the (q0.., k0..) tile pair into shared
-// memory, both rounded to bf16. Callers synchronise before and after.
+// _bwd_block_terms: the kept P and dS of the (q0.., k0..) tile pair of
+// query head row head_row into shared memory, both rounded to bf16. Callers
+// synchronise before and after.
 template <int D>
-__device__ void tile_terms(const Tiles& t, int q0, int k0, int S, float scale, int causal) {
+__device__ void tile_terms(const Tiles& t, int q0, int k0, int S, float scale, int causal,
+                           const Dropout& drop, int head_row) {
   constexpr int P = Layout<D>::P;
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
@@ -180,8 +203,14 @@ __device__ void tile_terms(const Tiles& t, int q0, int k0, int S, float scale, i
       const bool visible = qrow < S && kcol < S && (!causal || kcol <= qrow);
       // masked scores are -1e30 in the reference: exp(-1e30 - lse) == 0
       const float p = visible ? expf(s[i][j] * scale - lse) : 0.0f;
-      const float ds = p * (dp[i][j] - delta) * scale;
-      t.p[row * SP + col] = __float2bfloat16(p);
+      float kept = p, d_kept = dp[i][j];
+      if (drop.on) {
+        const float keep = keep_element(qrow, kcol, head_row, drop) ? 1.0f : 0.0f;
+        kept = p * keep / drop.keep;
+        d_kept = keep * d_kept / drop.keep;
+      }
+      const float ds = p * (d_kept - delta) * scale;
+      t.p[row * SP + col] = __float2bfloat16(kept);
       t.ds[row * SP + col] = __float2bfloat16(ds);
     }
   }
@@ -263,7 +292,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_partial,
-                    int S, int Hq, int Hkv, float scale, int causal) {
+                    int S, int Hq, int Hkv, float scale, int causal, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles t = carve<D>(smem);
   constexpr int DPT = Layout<D>::DPT;
@@ -293,7 +322,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_stats(t.lse, lse, q0, S, Hq, h, b);
       load_stats(t.delta, delta, q0, S, Hq, h, b);
       __syncthreads();
-      tile_terms<D>(t, q0, k0, S, scale, causal);
+      tile_terms<D>(t, q0, k0, S, scale, causal, drop, b * Hq + h);
       __syncthreads();
       accumulate_transposed<D>(dv_acc, t.p, t.dout);
       accumulate_transposed<D>(dk_acc, t.ds, t.q);
@@ -350,7 +379,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale, int causal) {
+                    bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale, int causal,
+                    Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles t = carve<D>(smem);
   constexpr int DPT = Layout<D>::DPT;
@@ -378,11 +408,107 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<D>(t.k, k, k0, S, Hkv, hk, b);
     load_tile<D>(t.v, v, k0, S, Hkv, hk, b);
     __syncthreads();
-    tile_terms<D>(t, q0, k0, S, scale, causal);
+    tile_terms<D>(t, q0, k0, S, scale, causal, drop, blockIdx.y);
     __syncthreads();
     accumulate<D>(dq_acc, t.ds, t.k);
   }
   store_rows<D>(dq, dq_acc, q0, S, Hq, h, b);
+}
+
+__device__ __forceinline__ int load_acquire(const int* flag) {
+  int value;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(value) : "l"(flag) : "memory");
+  return value;
+}
+
+__device__ __forceinline__ void store_release(int* flag, int value) {
+  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" : : "l"(flag), "r"(value) : "memory");
+}
+
+// K2a: one block per work item (kv tile, batch * head), MHA. tickets[0] is
+// the item counter, tickets[1 + bh * tiles + qt] the next kv tile whose dS K
+// may enter dq_acc's q tile qt of head row bh.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_g1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ dq_acc, int* __restrict__ tickets, int B, int S, int H,
+                    float scale, int causal, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int claimed;
+  const Tiles t = carve<D>(smem);
+  constexpr int DPT = Layout<D>::DPT;
+  if (threadIdx.x == 0) claimed = atomicAdd(tickets, 1);
+  __syncthreads();
+  const int rows = B * H;
+  const int kt = claimed / rows;       // kv-tile-major: longest sweeps first
+  const int bh = claimed % rows;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int tiles = (S + TILE - 1) / TILE;
+  const int k0 = kt * TILE;
+  int* ticket = tickets + 1 + static_cast<size_t>(bh) * tiles;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  load_tile<D>(t.k, k, k0, S, H, h, b);
+  load_tile<D>(t.v, v, k0, S, H, h, b);
+
+  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+
+  for (int qt = causal ? kt : 0; qt < tiles; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();                     // the last pair's readers are done
+    load_tile<D>(t.q, q, q0, S, H, h, b);
+    load_tile<D>(t.dout, dout, q0, S, H, h, b);
+    load_stats(t.lse, lse, q0, S, H, h, b);
+    load_stats(t.delta, delta, q0, S, H, h, b);
+    __syncthreads();
+    tile_terms<D>(t, q0, k0, S, scale, causal, drop, bh);
+    __syncthreads();
+    accumulate_transposed<D>(dv_acc, t.p, t.dout);
+    accumulate_transposed<D>(dk_acc, t.ds, t.q);
+    float part[RPT][DPT];                // this pair's dS K, as K2b's partial
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) part[i][j] = 0.0f;
+    accumulate<D>(part, t.ds, t.k);
+
+    // kv tile kt's turn on q tile qt: the tiles before it have added
+    if (threadIdx.x == 0) {
+      while (load_acquire(ticket + qt) != kt) __nanosleep(64);
+    }
+    __syncthreads();
+    const bool last = kt == (causal ? qt : tiles - 1);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = q0 + ty + TY * i;
+      if (row >= S) continue;
+      const size_t base = ((static_cast<size_t>(b) * S + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = tx + TX * j;
+        const float sum = __ldcg(dq_acc + base + d) + part[i][j];
+        if (last)
+          dq[base + d] = __float2bfloat16(sum);
+        else
+          __stcg(dq_acc + base + d, sum);
+      }
+    }
+    if (!last) {
+      __threadfence();                   // this thread's adds reach L2 first
+      __syncthreads();
+      if (threadIdx.x == 0) store_release(ticket + qt, kt + 1);
+    }
+  }
+  store_rows<D>(dk, dk_acc, k0, S, H, h, b);
+  store_rows<D>(dv, dv_acc, k0, S, H, h, b);
 }
 
 template <typename Kernel>
@@ -394,7 +520,7 @@ int prepare(Kernel kernel, size_t bytes) {
 template <int D, bool FUSED>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, void* dq_partial, int B, int S, int Hq,
-              int Hkv, float scale, int causal, cudaStream_t stream) {
+              int Hkv, float scale, int causal, const Dropout& drop, cudaStream_t stream) {
   auto kernel = flash_bwd_kv_kernel<D, FUSED>;
   const size_t bytes = Layout<D>::bytes;
   if (const int err = prepare(kernel, bytes)) return err;
@@ -403,7 +529,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout, con
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dq_partial), S, Hq, Hkv, scale, causal);
+      static_cast<float*>(dq_partial), S, Hq, Hkv, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,7 +546,7 @@ int launch_reduce(const void* dq_partial, void* dq, int B, int S, int Hq, int ca
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int S, int Hq, int Hkv, float scale,
-              int causal, cudaStream_t stream) {
+              int causal, const Dropout& drop, cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<D>;
   const size_t bytes = Layout<D>::bytes;
   if (const int err = prepare(kernel, bytes)) return err;
@@ -428,7 +554,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, scale, causal);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, scale, causal,
+      drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_g1(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, void* dk, void* dv, void* dq_acc, void* tickets,
+              int B, int S, int H, float scale, int causal, const Dropout& drop,
+              cudaStream_t stream) {
+  auto kernel = flash_bwd_g1_kernel<D>;
+  const size_t bytes = Layout<D>::bytes;
+  if (const int err = prepare(kernel, bytes)) return err;
+  const unsigned items = static_cast<unsigned>((S + TILE - 1) / TILE) * B * H;
+  kernel<<<items, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), static_cast<float*>(dq_acc), static_cast<int*>(tickets), B, S, H,
+      scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,29 +591,62 @@ size_t flash_bwd_partial_elements(int B, int S, int Hq, int D, int causal) {
   return static_cast<size_t>(B) * Hq * pair_count(tiles, causal) * TILE * D;
 }
 
+// Ints of the zeroed ticket buffer flash_bwd_fused_g1_bf16 needs: the item
+// counter and one ticket per (batch * head, q tile).
+size_t flash_bwd_g1_tickets(int B, int S, int H) {
+  return 1 + static_cast<size_t>(B) * H * ((S + TILE - 1) / TILE);
+}
+
 // q, dout [B, S, Hq, D]; k, v [B, S, Hkv, D] bf16 (contiguous); lse and
 // delta [B, S, Hq] float32; dq like q, dk and dv like k; dq_partial holds
-// flash_bwd_partial_elements(...) floats. D in {16, 32, 64}.
+// flash_bwd_partial_elements(...) floats. D in {16, 32, 64}. dropout NULL or
+// off for none (as in every entry point below).
 int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
                          void* dq_partial, int B, int S, int Hq, int Hkv, int D, float scale,
-                         int causal, void* stream) {
+                         int causal, const Dropout* dropout, void* stream) {
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop = dropout_or_off(dropout);
   int err;
   switch (D) {
     case 16:
       err = launch_kv<16, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, s);
+                                scale, causal, drop, s);
       return err ? err : launch_reduce<16>(dq_partial, dq, B, S, Hq, causal, s);
     case 32:
       err = launch_kv<32, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, s);
+                                scale, causal, drop, s);
       return err ? err : launch_reduce<32>(dq_partial, dq, B, S, Hq, causal, s);
     case 64:
       err = launch_kv<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, s);
+                                scale, causal, drop, s);
       return err ? err : launch_reduce<64>(dq_partial, dq, B, S, Hq, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// MHA: q, k, v, dout [B, S, H, D] bf16 (contiguous); lse and delta
+// [B, S, H] float32; dq, dk, dv like q; dq_acc [B, S, H, D] float32 and
+// tickets (flash_bwd_g1_tickets(...) ints) zeroed by the caller.
+int flash_bwd_fused_g1_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                            void* dq_acc, void* tickets, int B, int S, int H, int D,
+                            float scale, int causal, const Dropout* dropout, void* stream) {
+  if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop = dropout_or_off(dropout);
+  switch (D) {
+    case 16:
+      return launch_g1<16>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
+                           scale, causal, drop, s);
+    case 32:
+      return launch_g1<32>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
+                           scale, causal, drop, s);
+    case 64:
+      return launch_g1<64>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
+                           scale, causal, drop, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -476,19 +654,21 @@ int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void
 
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                       int Hq, int Hkv, int D, float scale, int causal, void* stream) {
+                       int Hq, int Hkv, int D, float scale, int causal, const Dropout* dropout,
+                       void* stream) {
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop = dropout_or_off(dropout);
   switch (D) {
     case 16:
       return launch_kv<16, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, s);
+                                  scale, causal, drop, s);
     case 32:
       return launch_kv<32, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, s);
+                                  scale, causal, drop, s);
     case 64:
       return launch_kv<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, s);
+                                  scale, causal, drop, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -496,16 +676,18 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* 
 
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int S, int Hq,
-                      int Hkv, int D, float scale, int causal, void* stream) {
+                      int Hkv, int D, float scale, int causal, const Dropout* dropout,
+                      void* stream) {
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop = dropout_or_off(dropout);
   switch (D) {
     case 16:
-      return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+      return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
     case 32:
-      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, s);
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel tpusystem/ops/pallas/flash.py:
 // _flash_fwd_kernel (reached through _flash_fwd, flash_attention and
-// flash_attention_lse) -- K1, forward only, without the dropout hash.
+// flash_attention_lse) -- K1, with its attention-probability dropout.
 //
 // What bounds it on an H100: at the prefill shapes of GPT-2 125M (one
 // sequence of 512 or 1024 tokens, 12 heads of 64) the causal work is
@@ -28,6 +28,11 @@
 //     broadcast.
 //   * Tensors keep the public [B, S, H, D] layout; the kernel computes its own
 //     strided offsets, so the wrapper transposes nothing.
+//   * Dropout (flash.py:127-157): l sums the unmasked probabilities, the
+//     kept ones (probs * keep, from flash_dropout.cuh's positional hash of
+//     the query head's row b * Hq + h) are rounded to bf16 before the
+//     product with v, out = acc / safe_l / (1 - p), and lse stays the full
+//     denominator. At p = 0 none of it runs.
 //
 // Plain C interface (bound with ctypes); launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -35,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -48,7 +55,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int S, int Hq, int Hkv, float scale, int causal) {
+                 float* __restrict__ lse, int S, int Hq, int Hkv, float scale, int causal,
+                 Dropout drop) {
   static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
   constexpr int KP = D + 2;                 // padded k row: conflict-free reads
   constexpr int DPT = D / PER_ROW;          // output dims per thread
@@ -149,8 +157,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int j = 0; j < COLS; ++j) {
       const float p = expf(s[j] - m_new);
       tile_sum += p;
+      const int col = sub + PER_ROW * j;
+      // the denominator keeps every probability; dropout masks what meets v
+      const float kept =
+          drop.on && !keep_element(qrow, kt * TILE + col, blockIdx.y, drop) ? 0.0f : p;
       // probabilities meet v in v's dtype, as in the reference kernel
-      p_s[row * (TILE + 1) + sub + PER_ROW * j] = __bfloat162float(__float2bfloat16(p));
+      p_s[row * (TILE + 1) + col] = __bfloat162float(__float2bfloat16(kept));
     }
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 1);
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 2);
@@ -174,18 +186,22 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const size_t base = (static_cast<size_t>(b) * S + qrow) * Hq + h;
   __nv_bfloat16* dst = o + base * D + sub * DPT;
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) dst[d] = __float2bfloat16(acc[d] / safe_l);
+  for (int d = 0; d < DPT; ++d) {
+    float value = acc[d] / safe_l;
+    if (drop.on) value = value / drop.keep;        // inverted-dropout scaling
+    dst[d] = __float2bfloat16(value);
+  }
   if (sub == 0) lse[base] = m + logf(safe_l);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
-           int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
+           int Hq, int Hkv, float scale, int causal, const Dropout& drop, cudaStream_t stream) {
   const dim3 grid((S + TILE - 1) / TILE, B * Hq);
   flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, Hq, Hkv, scale, causal);
+      static_cast<float*>(lse), S, Hq, Hkv, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,16 +210,19 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 extern "C" {
 
 // q [B, S, Hq, D], k and v [B, S, Hkv, D] bf16 (contiguous); o like q;
-// lse [B, S, Hq] float32. D in {16, 32, 64}; Hq a multiple of Hkv.
+// lse [B, S, Hq] float32. D in {16, 32, 64}; Hq a multiple of Hkv. dropout
+// NULL or off for none.
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                   int S, int Hq, int Hkv, int D, float scale, int causal, void* stream) {
+                   int S, int Hq, int Hkv, int D, float scale, int causal,
+                   const Dropout* dropout, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || B * Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop = dropout_or_off(dropout);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, s);
-    case 32: return launch<32>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, drop, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, drop, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, Hq, Hkv, scale, causal, drop, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

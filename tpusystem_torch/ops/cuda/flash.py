@@ -4,19 +4,31 @@ The counterpart of :mod:`tpusystem.ops.pallas.flash`: causal online-softmax
 attention over ``[batch, length, heads, head_dim]`` tensors that returns the
 output and the float32 logsumexp ``[batch, length, heads]``, with
 grouped-query attention mapping query head ``h`` to kv head ``h // group``.
-``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2b, K3a, K3b) hold the
-design notes. :func:`flash_attention_lse` is differentiable in both outputs
-through a ``torch.autograd.Function``: its forward runs K1 and saves the
-logsumexp, its backward runs ``backward='fused'`` (one recomputation of each
-tile for dq, dk and dv) or ``'split'`` (a dq sweep and a dk/dv sweep). Not
-ported yet: the resident-dq fused backward K2a (MHA past 1024 keys) and the
-in-kernel dropout hash.
+``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2a, K2b, K3a, K3b)
+hold the design notes. :func:`flash_attention_lse` is differentiable in both
+outputs through a ``torch.autograd.Function``: its forward runs K1 and saves
+the logsumexp, its backward runs ``backward='fused'`` (one recomputation of
+each tile for dq, dk and dv) or ``'split'`` (a dq sweep and a dk/dv sweep).
+The fused backward of multi-head attention over more than
+``FUSED_MHA_KEYS`` keys is the resident-dq kernel K2a, as in the reference
+(``flash.py:508``); GQA and shorter MHA take K2b, whose float32 dq partials
+grow with the square of the tile count. The reference also reroutes K2a to
+the split sweeps past a 96 MB working set (``flash.py:508-528``): that is
+the TPU's scoped-VMEM limit, and K2a here keeps its dq sum in device memory,
+so there is no such reroute.
+
+Attention-probability dropout (``dropout > 0`` with an int ``seed``) runs
+in every kernel through the reference's positional hash (:func:`keep_mask`,
+``csrc/flash_dropout.cuh``): the backward kernels regenerate the forward's
+masks from the same seed, nothing of size seq**2 is stored.
 
 Every wrapper follows its tensors' device: a CPU tensor takes the plain
 PyTorch version (:func:`flash_attention_plain`,
-:func:`flash_attention_bwd_plain`), a CUDA tensor launches the kernel or
-raises. ``flash_attention_lse.launches``, ``flash_bwd_fused.launches``,
-``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` count launches.
+:func:`flash_attention_bwd_plain`, the plain version of every backward
+kernel), a CUDA tensor launches the kernel or raises.
+``flash_attention_lse.launches``, ``flash_bwd_fused_g1.launches``,
+``flash_bwd_fused.launches``, ``flash_bwd_dq.launches`` and
+``flash_bwd_dkv.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -30,14 +42,68 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 NEG_INF = -1e30
 TILE = 64          # kv rows per online-softmax step, as in the CUDA kernels
 HEAD_DIMS = (16, 32, 64)
-FUSED_MHA_KEYS = 1024   # past this, the reference's fused MHA backward is K2a
+FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
+SEED_LIMIT = 2 ** 31 - 1   # seeds are drawn from [0, int32 max), as the
+                           # reference draws them (flash.py:773)
+_U32 = 0xFFFFFFFF
 
 
-def flash_attention_plain(query, key, value, *, causal: bool = True):
+def _mul32(x, constant: int):
+    """``x * constant`` modulo 2**32 for int64 ``x`` in [0, 2**32), in
+    16-bit halves of the constant so no int64 product overflows."""
+    low, high = constant & 0xFFFF, constant >> 16
+    return (x * low + (((x * high) & 0xFFFF) << 16)) & _U32
+
+
+def keep_threshold(dropout: float) -> int:
+    """The hash's keep threshold: ``round((1 - p) * 2**24)``, as the
+    reference computes it."""
+    return int(round((1.0 - dropout) * (1 << 24)))
+
+
+def keep_mask(seed: int, head_rows, rows, cols, dropout: float):
+    """The reference's ``_keep_mask`` (``flash.py:80-103``) on global
+    positions: bool, broadcast over ``head_rows`` (the query head's row
+    ``b * Hq + h``), ``rows`` (query positions) and ``cols`` (key
+    positions), int tensors in [0, 2**32). The uint32 arithmetic runs on
+    int64 masked to 32 bits; the mask does not depend on the tiling."""
+    head_rows, rows, cols = (torch.as_tensor(t).long()
+                             for t in (head_rows, rows, cols))
+    x = _mul32(rows, 0x9E3779B1) ^ _mul32(cols, 0x85EBCA77)
+    x = (x + (int(seed) & _U32) + _mul32(head_rows, 0xC2B2AE35)) & _U32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return (x >> 8) < keep_threshold(dropout)
+
+
+def _tile_keep(seed, dropout, batch, q_heads, seq, cols, device):
+    """``[B, Hq, S, len(cols)]`` float32 keep mask of one kv tile."""
+    head_rows = torch.arange(batch * q_heads, device=device).reshape(
+        batch, q_heads, 1, 1)
+    rows = torch.arange(seq, device=device)[:, None]
+    return keep_mask(seed, head_rows, rows, cols[None, :], dropout).float()
+
+
+def _check_dropout(dropout: float, seed) -> None:
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f'dropout must be in [0, 1), got {dropout}')
+    if dropout and seed is None:
+        raise ValueError('dropout > 0 needs an int seed')
+
+
+def flash_attention_plain(query, key, value, *, causal: bool = True,
+                          dropout: float = 0.0, seed: int | None = None):
     """Plain PyTorch ``(out, lse)``: the kernel's online softmax over
     64-wide kv tiles in float32, probabilities rounded to ``value``'s dtype
-    before the product with ``value``, ``lse = m + log(safe_l)``."""
+    before the product with ``value``, ``lse = m + log(safe_l)``. Under
+    dropout ``l`` sums the unmasked probabilities, the kept ones meet
+    ``value`` and ``out`` is divided by ``1 - dropout`` (``flash.py:127-157``);
+    lse stays the full denominator."""
+    _check_dropout(dropout, seed)
     batch, seq, q_heads, head_dim = query.shape
     group = q_heads // key.shape[2]
     scale = head_dim ** -0.5
@@ -60,13 +126,25 @@ def flash_attention_plain(query, key, value, *, causal: bool = True):
         correction = torch.exp(m - m_new)
         probs = torch.exp(scores - m_new[..., None])
         l = correction * l + probs.sum(-1)
+        if dropout:
+            probs = probs * _tile_keep(seed, dropout, batch, q_heads, seq,
+                                       cols, query.device)
         acc = acc * correction[..., None] + torch.matmul(
             probs.to(value.dtype).float(), v[:, :, start:start + TILE])
         m = m_new
     safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = (acc / safe[..., None]).to(query.dtype).transpose(1, 2)
+    out = acc / safe[..., None]
+    if dropout:
+        out = out / _keep_scale(dropout, out)
+    out = out.to(query.dtype).transpose(1, 2)
     lse = (m + torch.log(safe)).transpose(1, 2)
     return out.contiguous(), lse.contiguous()
+
+
+def _keep_scale(dropout: float, like):
+    """``1 - dropout`` as a scalar tensor of ``like``'s dtype (float32 in
+    the kernels), so the division rounds as the kernels' does."""
+    return torch.tensor(1.0 - dropout, dtype=like.dtype, device=like.device)
 
 
 def attention_delta(out, d_out, d_lse=None):
@@ -80,16 +158,22 @@ def attention_delta(out, d_out, d_lse=None):
 
 def flash_attention_bwd_plain(query, key, value, out, lse, d_out, d_lse=None,
                               *, causal: bool = True,
-                              backward: str = 'fused'):
+                              backward: str = 'fused', dropout: float = 0.0,
+                              seed: int | None = None):
     """Plain PyTorch ``(dq, dk, dv)`` of :func:`flash_attention_lse`: the
     kernels' tile math written out over 64-wide kv tiles (not autograd of
     the forward). ``P = exp(scores - lse)``, ``dP = dO V^T``,
     ``dS = P (dP - delta) scale``; ``P`` is rounded to ``d_out``'s dtype
     before ``dV += P^T dO``, ``dS`` to ``query``'s before ``dK += dS^T Q``
-    and ``dQ += dS K``; sums in float32 (float64 for float64 inputs). dk and
-    dv of a kv head sum its group's query heads in order. ``'fused'`` and
-    ``'split'`` compute the same function, so ``backward`` is only checked."""
+    and ``dQ += dS K``; sums in float32 (float64 for float64 inputs). Under
+    dropout ``dV`` takes ``P * keep / (1 - p)`` and ``dS`` takes
+    ``keep * dP / (1 - p)`` for ``dP`` (``flash.py:270-277``). dk and dv of a
+    kv head sum its group's query heads in order; dq sums the kv tiles in
+    ascending order, as K2a's resident sum and K2b's reduction do. The one
+    plain version of K2a, K2b and the split pair K3a + K3b: they compute the
+    same function, so ``backward`` is only checked."""
     _check_backward(backward)
+    _check_dropout(dropout, seed)
     batch, seq, q_heads, head_dim = query.shape
     kv_heads = key.shape[2]
     group = q_heads // kv_heads
@@ -114,8 +198,14 @@ def flash_attention_bwd_plain(query, key, value, out, lse, d_out, d_lse=None,
                                  torch.full_like(scores, NEG_INF))
         probs = torch.exp(scores - lse)
         d_probs = torch.matmul(grad, v_tile.transpose(-1, -2))
+        kept = probs
+        if dropout:
+            keep = _tile_keep(seed, dropout, batch, q_heads, seq, cols,
+                              query.device).to(work)
+            kept = probs * keep / _keep_scale(dropout, probs)
+            d_probs = keep * d_probs / _keep_scale(dropout, probs)
         d_scores = probs * (d_probs - delta) * scale
-        kept = probs.to(d_out.dtype).to(work)
+        kept = kept.to(d_out.dtype).to(work)
         d_scores = d_scores.to(query.dtype).to(work)
         dv[:, :, start:stop] = torch.matmul(kept.transpose(-1, -2), grad)
         dk[:, :, start:stop] = torch.matmul(d_scores.transpose(-1, -2), q)
@@ -130,12 +220,27 @@ def flash_attention_bwd_plain(query, key, value, out, lse, d_out, d_lse=None,
             grouped(dv).to(value.dtype).contiguous())
 
 
+class _Dropout(ctypes.Structure):
+    """``struct Dropout`` of ``csrc/flash_dropout.cuh``."""
+    _fields_ = [('on', ctypes.c_int), ('threshold', ctypes.c_uint32),
+                ('seed', ctypes.c_uint32), ('keep', ctypes.c_float)]
+
+
+def _dropout_arg(dropout: float, seed):
+    """The kernels' dropout argument: NULL at ``dropout == 0``."""
+    if not dropout:
+        return None
+    return ctypes.byref(_Dropout(1, keep_threshold(dropout), int(seed) & _U32,
+                                 1.0 - dropout))
+
+
 def _library():
     lib = LIBRARIES.library('flash_fwd')
     if not getattr(lib, '_typed', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_bf16.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                       i32, i32, ctypes.c_float, i32, ptr]
+                                       i32, i32, ctypes.c_float, i32, ptr,
+                                       ptr]
         lib.flash_fwd_bf16.restype = i32
         lib._typed = True
     return lib
@@ -145,16 +250,22 @@ def _bwd_library():
     lib = LIBRARIES.library('flash_bwd')
     if not getattr(lib, '_typed', False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        size = ctypes.c_size_t
         lib.flash_bwd_partial_elements.argtypes = [i32, i32, i32, i32, i32]
-        lib.flash_bwd_partial_elements.restype = ctypes.c_size_t
+        lib.flash_bwd_partial_elements.restype = size
+        lib.flash_bwd_g1_tickets.argtypes = [i32, i32, i32]
+        lib.flash_bwd_g1_tickets.restype = size
+        lib.flash_bwd_fused_g1_bf16.argtypes = [ptr] * 11 + [i32] * 4 + [
+            f32, i32, ptr, ptr]
+        lib.flash_bwd_fused_g1_bf16.restype = i32
         lib.flash_bwd_fused_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [
-            f32, i32, ptr]
+            f32, i32, ptr, ptr]
         lib.flash_bwd_fused_bf16.restype = i32
         lib.flash_bwd_dkv_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [
-            f32, i32, ptr]
+            f32, i32, ptr, ptr]
         lib.flash_bwd_dkv_bf16.restype = i32
         lib.flash_bwd_dq_bf16.argtypes = [ptr] * 7 + [i32] * 5 + [
-            f32, i32, ptr]
+            f32, i32, ptr, ptr]
         lib.flash_bwd_dq_bf16.restype = i32
         lib._typed = True
     return lib
@@ -207,11 +318,12 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f'{name}: CUDA launch failed with error {err}')
 
 
-def _flash_forward(query, key, value, causal: bool):
+def _flash_forward(query, key, value, causal: bool, dropout: float, seed):
     """K1 or, for CPU tensors, its plain version: ``(out, lse)`` and the
     contiguous ``(query, key, value)`` the kernel read."""
     if query.device.type == 'cpu':
-        return (*flash_attention_plain(query, key, value, causal=causal),
+        return (*flash_attention_plain(query, key, value, causal=causal,
+                                       dropout=dropout, seed=seed),
                 (query, key, value))
     _check_cuda('flash_attention', (query, key, value), query.device)
     batch, seq, q_heads, head_dim = query.shape
@@ -222,7 +334,8 @@ def _flash_forward(query, key, value, causal: bool):
     err = _library().flash_fwd_bf16(
         _pointer(query), _pointer(key), _pointer(value), _pointer(out),
         _pointer(lse), batch, seq, q_heads, key.shape[2], head_dim,
-        head_dim ** -0.5, int(causal), _stream(query.device))
+        head_dim ** -0.5, int(causal), _dropout_arg(dropout, seed),
+        _stream(query.device))
     _raise_on(err, 'flash_attention')
     flash_attention_lse.launches += 1
     return out, lse, (query, key, value)
@@ -233,11 +346,40 @@ def _kernel_args(query, key):
     return batch, seq, q_heads, key.shape[2], head_dim
 
 
-def flash_bwd_fused(query, key, value, d_out, lse, delta, *,
-                    causal: bool = True):
-    """K2b on the card: ``(dq, dk, dv)`` from one recomputation of each
-    visible tile; ``delta`` from :func:`attention_delta`. Contiguous bf16
+def flash_bwd_fused_g1(query, key, value, d_out, lse, delta, *,
+                       causal: bool = True, dropout: float = 0.0,
+                       seed: int | None = None):
+    """K2a on the card: ``(dq, dk, dv)`` of multi-head attention from one
+    recomputation of each visible tile, dq summed in kv order in a resident
+    float32 buffer (no partials); bitwise K2b's result. Contiguous bf16
     ``[B, S, H, D]`` tensors, float32 ``lse``/``delta``."""
+    batch, seq, heads, kv_heads, head_dim = _kernel_args(query, key)
+    if kv_heads != heads:
+        raise ValueError('flash_bwd_fused_g1 takes multi-head attention '
+                         f'({heads} query heads, {kv_heads} KV heads)')
+    lib = _bwd_library()
+    dq_acc = torch.zeros(query.shape, dtype=torch.float32,
+                         device=query.device)
+    tickets = torch.zeros(lib.flash_bwd_g1_tickets(batch, seq, heads),
+                          dtype=torch.int32, device=query.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (query, key, value))
+    err = lib.flash_bwd_fused_g1_bf16(
+        *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq, dk,
+                                dv, dq_acc, tickets)),
+        batch, seq, heads, head_dim, head_dim ** -0.5, int(causal),
+        _dropout_arg(dropout, seed), _stream(query.device))
+    _raise_on(err, 'flash_bwd_fused_g1')
+    flash_bwd_fused_g1.launches += 1
+    return dq, dk, dv
+
+
+def flash_bwd_fused(query, key, value, d_out, lse, delta, *,
+                    causal: bool = True, dropout: float = 0.0,
+                    seed: int | None = None):
+    """K2b on the card: ``(dq, dk, dv)`` from one recomputation of each
+    visible tile, float32 dq partials summed in kv order by a second pass;
+    ``delta`` from :func:`attention_delta`. Contiguous bf16 ``[B, S, H, D]``
+    tensors, float32 ``lse``/``delta``."""
     batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
     lib = _bwd_library()
     partial = torch.empty(
@@ -249,28 +391,30 @@ def flash_bwd_fused(query, key, value, d_out, lse, delta, *,
         *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq, dk,
                                 dv, partial)),
         batch, seq, q_heads, kv_heads, head_dim, head_dim ** -0.5,
-        int(causal), _stream(query.device))
+        int(causal), _dropout_arg(dropout, seed), _stream(query.device))
     _raise_on(err, 'flash_bwd_fused')
     flash_bwd_fused.launches += 1
     return dq, dk, dv
 
 
 def flash_bwd_dq(query, key, value, d_out, lse, delta, *,
-                 causal: bool = True):
+                 causal: bool = True, dropout: float = 0.0,
+                 seed: int | None = None):
     """K3a on the card: dq, a sweep over the visible kv tiles per q tile."""
     batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
     dq = torch.empty_like(query)
     err = _bwd_library().flash_bwd_dq_bf16(
         *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq)),
         batch, seq, q_heads, kv_heads, head_dim, head_dim ** -0.5,
-        int(causal), _stream(query.device))
+        int(causal), _dropout_arg(dropout, seed), _stream(query.device))
     _raise_on(err, 'flash_bwd_dq')
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(query, key, value, d_out, lse, delta, *,
-                  causal: bool = True):
+                  causal: bool = True, dropout: float = 0.0,
+                  seed: int | None = None):
     """K3b on the card: ``(dk, dv)``, a sweep over every (group member, q
     tile) pair that sees each kv tile."""
     batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
@@ -279,57 +423,69 @@ def flash_bwd_dkv(query, key, value, d_out, lse, delta, *,
         *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dk,
                                 dv)),
         batch, seq, q_heads, kv_heads, head_dim, head_dim ** -0.5,
-        int(causal), _stream(query.device))
+        int(causal), _dropout_arg(dropout, seed), _stream(query.device))
     _raise_on(err, 'flash_bwd_dkv')
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
+def backward_kernels(query, key, backward: str = 'fused') -> tuple:
+    """The backward kernels :func:`flash_attention_bwd` launches for these
+    shapes on the card: K2a for fused multi-head attention over more than
+    ``FUSED_MHA_KEYS`` keys (the reference's ``resident_dq``,
+    ``flash.py:508``), K2b for other fused calls, K3a and K3b for
+    ``'split'``."""
+    _check_backward(backward)
+    if backward == 'split':
+        return flash_bwd_dq, flash_bwd_dkv
+    if query.shape[2] == key.shape[2] and key.shape[1] > FUSED_MHA_KEYS:
+        return (flash_bwd_fused_g1,)
+    return (flash_bwd_fused,)
+
+
 def flash_attention_bwd(query, key, value, out, lse, d_out, d_lse=None, *,
-                        causal: bool = True, backward: str = 'fused'):
+                        causal: bool = True, backward: str = 'fused',
+                        dropout: float = 0.0, seed: int | None = None):
     """``(dq, dk, dv)`` of :func:`flash_attention_lse` for the cotangents
     ``d_out`` and ``d_lse`` (``None`` for none). CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch
-    :func:`flash_bwd_fused` (``'fused'``) or :func:`flash_bwd_dq` and
-    :func:`flash_bwd_dkv` (``'split'``) on the current stream."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernels
+    :func:`backward_kernels` names on the current stream."""
     _check_backward(backward)
     _check_shapes(query, key)
-    if (backward == 'fused' and query.shape[2] == key.shape[2]
-            and key.shape[1] > FUSED_MHA_KEYS):
-        raise NotImplementedError(
-            f"backward='fused' for multi-head attention over more than "
-            f'{FUSED_MHA_KEYS} keys is the reference\'s resident-dq kernel '
-            "K2a, not ported yet (ROADMAP queue 2: K2a); pass "
-            "backward='split'")
+    _check_dropout(dropout, seed)
     if query.device.type == 'cpu':
         return flash_attention_bwd_plain(query, key, value, out, lse, d_out,
                                          d_lse, causal=causal,
-                                         backward=backward)
+                                         backward=backward, dropout=dropout,
+                                         seed=seed)
     _check_cuda('flash_attention_bwd', (query, key, value, out, d_out),
                 query.device)
     query, key, value, d_out = (t.contiguous()
                                 for t in (query, key, value, d_out))
     lse = lse.float().contiguous()
     delta = attention_delta(out, d_out, d_lse).contiguous()
-    if backward == 'fused':
-        return flash_bwd_fused(query, key, value, d_out, lse, delta,
-                               causal=causal)
-    dq = flash_bwd_dq(query, key, value, d_out, lse, delta, causal=causal)
-    dk, dv = flash_bwd_dkv(query, key, value, d_out, lse, delta,
-                           causal=causal)
-    return dq, dk, dv
+    args = (query, key, value, d_out, lse, delta)
+    options = dict(causal=causal, dropout=dropout, seed=seed)
+    grads = ()
+    for kernel in backward_kernels(query, key, backward):
+        got = kernel(*args, **options)
+        grads += got if isinstance(got, tuple) else (got,)
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward saving ``(q, k, v, out, lse)``; the backward kernels.
-    The autograd engine runs ``backward`` on the forward's stream, which is
-    the current stream the kernels launch on."""
+    """K1 forward saving ``(q, k, v, out, lse)`` and the dropout seed; the
+    backward kernels regenerate the forward's masks from that seed. The
+    autograd engine runs ``backward`` on the forward's stream, which is the
+    current stream the kernels launch on."""
 
     @staticmethod
-    def forward(ctx, query, key, value, causal, backward):
-        out, lse, inputs = _flash_forward(query, key, value, causal)
+    def forward(ctx, query, key, value, causal, backward, dropout, seed):
+        out, lse, inputs = _flash_forward(query, key, value, causal, dropout,
+                                          seed)
         ctx.save_for_backward(*inputs, out, lse)
         ctx.causal, ctx.backward = causal, backward
+        ctx.dropout, ctx.seed = dropout, seed
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -339,32 +495,44 @@ class _FlashAttention(torch.autograd.Function):
         if d_out is None:
             d_out = torch.zeros_like(out)
         grads = flash_attention_bwd(query, key, value, out, lse, d_out, d_lse,
-                                    causal=ctx.causal, backward=ctx.backward)
-        return (*grads, None, None)
+                                    causal=ctx.causal, backward=ctx.backward,
+                                    dropout=ctx.dropout, seed=ctx.seed)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention_lse(query, key, value, *, causal: bool = True,
-                        backward: str = 'fused'):
+                        backward: str = 'fused', dropout: float = 0.0,
+                        seed: int | None = None):
     """Flash attention returning ``(out [B,S,Hq,D], lse [B,S,Hq] float32)``,
     differentiable in both outputs.
 
     ``key``/``value`` may carry fewer heads than ``query`` (GQA). On CUDA
     the kernels take bfloat16 and head dims in ``HEAD_DIMS``; any length.
-    ``backward`` picks the gradient kernels: ``'fused'`` (K2b) or
-    ``'split'`` (K3a + K3b)."""
+    ``backward`` picks the gradient kernels: ``'fused'`` (K2a or K2b, see
+    :func:`backward_kernels`) or ``'split'`` (K3a + K3b). ``dropout > 0``
+    drops attention probabilities with the 'xla' path's semantics
+    (normalised weights dropped, survivors scaled by ``1 / (1 - dropout)``,
+    lse the full denominator) through masks hashed from ``seed``, an int in
+    ``[0, SEED_LIMIT)`` the caller draws (the reference draws it from its
+    dropout key, ``flash.py:770-774``); it raises without one."""
     _check_shapes(query, key)
     _check_backward(backward)
-    return _FlashAttention.apply(query, key, value, causal, backward)
+    _check_dropout(dropout, seed)
+    return _FlashAttention.apply(query, key, value, causal, backward,
+                                 float(dropout), seed)
 
 
 def flash_attention(query, key, value, *, causal: bool = True,
-                    backward: str = 'fused'):
+                    backward: str = 'fused', dropout: float = 0.0,
+                    seed: int | None = None):
     """:func:`flash_attention_lse` without the logsumexp."""
     return flash_attention_lse(query, key, value, causal=causal,
-                               backward=backward)[0]
+                               backward=backward, dropout=dropout,
+                               seed=seed)[0]
 
 
 flash_attention_lse.launches = 0
+flash_bwd_fused_g1.launches = 0
 flash_bwd_fused.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

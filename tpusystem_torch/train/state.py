@@ -16,7 +16,14 @@ from typing import Any
 
 import torch
 
-__all__ = ['TrainState']
+__all__ = ['TrainState', 'split_rng']
+
+
+def split_rng(generator: torch.Generator, count: int) -> list:
+    """``count`` fresh generators seeded from ``generator`` (which advances):
+    the counterpart of ``jax.random.split``."""
+    seeds = torch.randint(0, 2 ** 62, (count,), generator=generator)
+    return [torch.Generator().manual_seed(int(seed)) for seed in seeds]
 
 
 class TrainState:
@@ -55,8 +62,7 @@ class TrainState:
     def next_rng(self) -> torch.Generator:
         """Advance the carried generator; return a fresh one seeded from
         it (the counterpart of splitting the carried key)."""
-        seed = int(torch.randint(0, 2 ** 62, (), generator=self.rng))
-        return torch.Generator().manual_seed(seed)
+        return split_rng(self.rng, 1)[0]
 
     @property
     def global_step(self) -> int:

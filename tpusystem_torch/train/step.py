@@ -20,7 +20,7 @@ from typing import Any
 
 import torch
 
-from tpusystem_torch.train.state import TrainState
+from tpusystem_torch.train.state import TrainState, split_rng
 
 # apply_fn contract: (params, inputs, rng, train) -> outputs
 ApplyFn = Callable[[dict, Any, torch.Generator | None, bool], Any]
@@ -37,13 +37,14 @@ def module_apply(module: torch.nn.Module) -> ApplyFn:
     """Adapt an ``nn.Module`` to the step builders' apply contract (the
     counterpart of ``flax_apply``): the forward runs with ``params`` in
     place of the module's own tensors (``torch.func.functional_call``) and
-    gets ``train=`` only when its ``forward`` accepts it. The port's modules
-    draw no randomness yet (dropout is not ported), so ``rng`` is accepted
-    and not passed on."""
-    accepts_train = 'train' in signature(module.forward).parameters
+    gets ``train=`` and ``rng=`` (the step's generator, which dropout draws
+    from) only when its ``forward`` accepts them."""
+    accepted = signature(module.forward).parameters
 
     def apply(params, inputs, rng=None, train=False):
-        kwargs = {'train': train} if accepts_train else {}
+        kwargs = {'train': train} if 'train' in accepted else {}
+        if rng is not None and 'rng' in accepted:
+            kwargs['rng'] = rng
         return torch.func.functional_call(module, params, (inputs,), kwargs)
 
     return apply
@@ -73,7 +74,9 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
     and grads are weighted by it, so the result equals the full-batch step
     even when padding gives microbatches different token counts; other
     criteria are averaged equally. The returned ``outputs`` are the last
-    microbatch's, ``loss`` the weighted mean."""
+    microbatch's, ``loss`` the weighted mean. Each microbatch draws its
+    dropout from its own generator, split from the step's as the reference
+    splits its key."""
     if guard is not None:
         raise _not_ported('build_train_step(guard=)', 'guard and Sentinel')
     if fault is not None:
@@ -104,10 +107,12 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                     for leaf in leaves]
             loss_sum = torch.zeros((), device=device)
             weight_sum = torch.zeros((), device=device)
-            for micro_inputs, micro_targets in zip(inputs.split(size),
-                                                   targets.split(size)):
+            for micro_inputs, micro_targets, micro_rng in zip(
+                    inputs.split(size), targets.split(size),
+                    split_rng(rng, accumulate)):
                 loss, outputs, grads = value_and_grad(
-                    leaves, state.params, micro_inputs, micro_targets, rng)
+                    leaves, state.params, micro_inputs, micro_targets,
+                    micro_rng)
                 weight = (weight_fn(micro_targets).float() if weight_fn
                           else torch.ones((), device=device))
                 for total, grad in zip(sums, grads):
