@@ -29,14 +29,22 @@ Phases, in order; any failure exits non-zero:
    one decode step's logits through the fused kernels must agree with the
    module path on the same state; then a traced window of decode steps says
    where a step's time goes;
-6. train GPT-2 125M as ``bench.py``'s recipe does (vocab 50304, flash
+6. streamed int8 and fp8 weights: K4 and K5 with int8, then float8 e4m3
+   weights and float32 per-channel scales against their plain versions at
+   phase 2's shapes, timed beside them, ``F.linear`` on the widened bf16
+   weight and the narrow bytes' bound; then phase 5's model and requests
+   through ``Engine(stream_dtype='int8')`` and ``'fp8'``: the narrow K4/K5
+   launch (and the bf16 ones do not), one fused step's logits agree with
+   the module path on the same quantized state, and decode tokens/s, step
+   ms and the share of tokens equal to phase 5's are printed;
+7. train GPT-2 125M as ``bench.py``'s recipe does (vocab 50304, flash
    attention, the chunked loss over 8 chunks, AdamW with clipping, 16 x 1024
    tokens, the same batch every step): one warm-up and six timed steps whose
    losses must be finite and fall, with the flash forward and the fused
    backward launched once per layer per step; first its loss and gradient
    are held against the same model on plain PyTorch attention; then a traced
    window of two steps;
-7. the long-context ladder (``benchmarks/headline_sweep.py``'s ``long``):
+8. the long-context ladder (``benchmarks/headline_sweep.py``'s ``long``):
    GPT-2 125M with ``max_seq = seq`` and ``remat=True`` at 16,384 tokens a
    step, (4, 4096), (2, 8192) and (1, 16384): the ``remat`` model's loss and
    gradient equal the model's without it bit for bit at (1, 16384), then one
@@ -44,38 +52,39 @@ Phases, in order; any failure exits non-zero:
    12 times a step, K1 24 times (the recompute) and K2b never; step time,
    tokens/s, peak memory and MFU per point, and a traced window at
    (1, 16384);
-8. dropout in the flash kernels at ``p = 0.1``: K1, K2a, K2b, K3a and K3b's
-   keep masks read back from their outputs equal the plain hash bit for bit
-   (a small shape, MHA and GQA), and each kernel agrees with its plain
-   version at the dropout step's shape [16, 1024, 12, 64], a GQA group of 3
-   and K2a at 2048 keys; then GPT-2 125M trains with bench.py's recipe
+9. dropout at ``p = 0.1``: K1, K2a, K2b, K3a and K3b's keep masks read back
+   from their outputs equal the plain hash bit for bit (a small shape, MHA
+   and GQA), and each kernel agrees with its plain version at the dropout
+   step's shape [16, 1024, 12, 64], a GQA group of 3 and K2a at 2048 keys;
+   the threefry mask kernel equals its plain bits on a CPU copy at
+   [16, 1024, 768], timed; then GPT-2 125M trains with bench.py's recipe
    at ``dropout=0.1``: one warm-up and three timed steps with falling losses,
-   K1 and K2b launched 12 times a step;
-9. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
+   K1 and K2b launched 12 times a step, the mask kernel 25 times;
+10. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
    (``matmul_scatter_rows``) against their plain versions at the four shapes
    one MoE layer gives them in training (forward and backward, 16,384 tokens
    routed top-2 over 8 experts at capacity 5,120), with bitwise repeats;
-10. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
+11. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
    settings: the 125M body, 8 experts top-2 in every second block,
    ``moe_sparse_impl='fused'``, ``WithAuxLoss`` over the chunked loss, AdamW,
    16 x 1024 tokens): its loss and gradient on 2 rows held against the same
    weights through the gather impl, then one warm-up and three timed steps
    whose losses must be finite and fall, K6 and K7 launched 12 times per
    step each; then a traced window of two steps;
-11. one layer's attention forward and backward through the split backward,
+12. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's;
-12. the recommender's kernels K8 (``gather_rows``) and K9
+13. the recommender's kernels K8 (``gather_rows``) and K9
    (``scatter_add_rows``) against their plain versions on a CPU copy, bit
    for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
    with 65,536 Zipf ids, through the dedup pass and without it, the
    batch-side fold, a bf16 table and a width off the 16-byte loads;
-13. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
+14. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
     (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the port's
     ``Loader``: ``dlrm_tiny`` first held against the CPU, then one warm-up
     and five timed steps whose losses must fall, K8 launched 26 times and
     K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
     and a traced window;
-14. print the ``kernels`` line, the card's name and power limit, and last the
+15. print the ``kernels`` line, the card's name and power limit, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -94,6 +103,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak, same source
+FP32_OPS = 67e12                # float32 outside the tensor cores, same source
 L2_FLUSH_BYTES = 128 << 20      # rotating inputs exceed the 50 MB L2
 ROWS, BLOCK, MAX_NEW = 8, 16, 32
 PROMPT_LENGTHS = (20, 300, 700, 20, 300, 700, 100, 450)
@@ -138,8 +148,10 @@ def card_line() -> str:
 
 def measure(fn, calls: int = 50, warmup: int = 5):
     """Device milliseconds per call of ``fn(i)``: the summed kernel time of
-    a profiled window, and the CUDA-event time of the same window (which
-    also counts the gaps the host leaves between launches)."""
+    a profiled window (taken again, up to three windows, when the profiler
+    returns one without device time; the event time only if all three do),
+    and the CUDA-event time of an unprofiled window (which also counts the
+    gaps the host leaves between launches)."""
     import torch
     for i in range(warmup):
         fn(i)
@@ -153,15 +165,19 @@ def measure(fn, calls: int = 50, warmup: int = 5):
     event_ms = start.elapsed_time(end) / calls
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as profile:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
-    device_us = 0.0
-    for event in profile.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            device_us += getattr(event, 'self_device_time_total', 0.0)
-    device_ms = device_us / 1e3 / calls
+    device_ms = 0.0
+    for _ in range(3):   # now and then a window comes back without device time
+        with torch.profiler.profile(activities=activities) as profile:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        device_us = 0.0
+        for event in profile.key_averages():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                device_us += getattr(event, 'self_device_time_total', 0.0)
+        device_ms = device_us / 1e3 / calls
+        if device_ms > 0:
+            break
     return (device_ms if device_ms > 0 else event_ms), event_ms
 
 
@@ -196,24 +212,44 @@ def record_check(name, shape, err, tol, timed, plain, library, bound,
     return name, entry
 
 
-def check_kernels(torch, generator):
-    """Phase 2: every kernel against its plain version, timed."""
+def decode_checks(torch, generator, mode: str = 'bf16'):
+    """K4 at the qkv and out shapes and K5 at the FFN shape of one decode
+    step (8 rows), with ``mode`` weights: bfloat16, or int8 / fp8
+    ``QuantizedLeaf`` s whose narrow values and float32 scales the kernels
+    read. Each against its plain version, timed beside it, ``F.linear`` on
+    the weight as a bfloat16 matrix (widened: twice a narrow weight's
+    bytes) and the bound of the bytes the kernel must move."""
     import torch.nn.functional as F
 
     from tpusystem_torch.ops.cuda import decode_matmul as dm
-    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.precision import (dequantize_leaf,
+                                               quantize_leaf)
 
     device = torch.device('cuda')
     bf16 = torch.bfloat16
-    dim, hidden = 768, 3072
+    dim, hidden = DIM, HIDDEN
+    suffix = '' if mode == 'bf16' else f'_{mode}'
 
     def normal(shape, scale=1.0):
         return (torch.randn(shape, generator=generator, device=device)
                 * scale).to(bf16)
 
+    def weight(shape):
+        if mode == 'bf16':
+            return normal(shape, shape[0] ** -0.5)
+        return quantize_leaf(torch.randn(shape, generator=generator,
+                                         device=device) * shape[0] ** -0.5,
+                             mode)
+
+    def wide_t(w):
+        """The weight as ``F.linear`` takes it: bf16, ``[out, in]``."""
+        wide = w if mode == 'bf16' else dequantize_leaf(w, bf16)
+        return wide.t().contiguous()
+
     def vector(cols):
         return torch.randn(cols, generator=generator, device=device) * 0.1
 
+    weight_bytes = 2 if mode == 'bf16' else 1
     rows = []
 
     def record(*args):
@@ -222,11 +258,10 @@ def check_kernels(torch, generator):
     # K4 decode_matmul at the qkv and out shapes of one decode step
     for label, cols in (('qkv', 3 * dim), ('out', dim)):
         sets = rotating(lambda: dict(x=normal((ROWS, dim)),
-                                     w=normal((dim, cols), dim ** -0.5),
-                                     b=vector(cols)),
-                        dim * cols * 2)
+                                     w=weight((dim, cols)), b=vector(cols)),
+                        dim * cols * weight_bytes)
         for s in sets:
-            s['wt'], s['b16'] = s['w'].t().contiguous(), s['b'].to(bf16)
+            s['wt'], s['b16'] = wide_t(s['w']), s['b'].to(bf16)
         first = sets[0]
         got = dm.decode_matmul(first['x'], first['w'], first['b'])
         want = dm.decode_matmul_plain(first['x'], first['w'], first['b'])
@@ -240,19 +275,18 @@ def check_kernels(torch, generator):
             pick(i)['x'], pick(i)['w'], pick(i)['b']))
         library = measure(lambda i: F.linear(pick(i)['x'], pick(i)['wt'],
                                              pick(i)['b16']))
-        moved = (ROWS * dim * 2 + dim * cols * 2 + cols * 4 + ROWS * cols * 2)
-        record(f'decode_matmul[{label}]', [ROWS, dim, cols], err, tol, timed,
-               plain, library, bound_ms(moved, 2 * ROWS * dim * cols))
+        moved = (ROWS * dim * 2 + first['w'].nbytes + cols * 4
+                 + ROWS * cols * 2)
+        record(f'decode_matmul{suffix}[{label}]', [ROWS, dim, cols], err, tol,
+               timed, plain, library, bound_ms(moved, 2 * ROWS * dim * cols))
 
     # K5 decode_ffn at the FFN shape of one decode step
     sets = rotating(lambda: dict(x=normal((ROWS, dim)),
-                                 w1=normal((dim, hidden), dim ** -0.5),
-                                 b1=vector(hidden),
-                                 w2=normal((hidden, dim), hidden ** -0.5),
-                                 b2=vector(dim)),
-                    2 * dim * hidden * 2)
+                                 w1=weight((dim, hidden)), b1=vector(hidden),
+                                 w2=weight((hidden, dim)), b2=vector(dim)),
+                    2 * dim * hidden * weight_bytes)
     for s in sets:
-        s['w1t'], s['w2t'] = s['w1'].t().contiguous(), s['w2'].t().contiguous()
+        s['w1t'], s['w2t'] = wide_t(s['w1']), wide_t(s['w2'])
         s['b1h'], s['b2h'] = s['b1'].to(bf16), s['b2'].to(bf16)
     pick = lambda i: sets[i % len(sets)]
     args = lambda s: (s['x'], s['w1'], s['b1'], s['w2'], s['b2'])
@@ -266,10 +300,30 @@ def check_kernels(torch, generator):
     library = measure(lambda i: F.linear(F.gelu(
         F.linear(pick(i)['x'], pick(i)['w1t'], pick(i)['b1h']),
         approximate='tanh'), pick(i)['w2t'], pick(i)['b2h']))
-    moved = (ROWS * dim * 2 + 2 * dim * hidden * 2 + hidden * 4 + dim * 4
-             + ROWS * dim * 2)
-    record('decode_ffn', [ROWS, dim, hidden, dim], err, tol, timed, plain,
-           library, bound_ms(moved, 4 * ROWS * dim * hidden))
+    moved = (ROWS * dim * 2 + sets[0]['w1'].nbytes + sets[0]['w2'].nbytes
+             + hidden * 4 + dim * 4 + ROWS * dim * 2)
+    record(f'decode_ffn{suffix}', [ROWS, dim, hidden, dim], err, tol, timed,
+           plain, library, bound_ms(moved, 4 * ROWS * dim * hidden))
+    return rows
+
+
+def check_kernels(torch, generator):
+    """Phase 2: every serving kernel against its plain version, timed."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.ops.cuda import flash
+
+    device = torch.device('cuda')
+    bf16 = torch.bfloat16
+
+    def normal(shape, scale=1.0):
+        return (torch.randn(shape, generator=generator, device=device)
+                * scale).to(bf16)
+
+    rows = decode_checks(torch, generator)
+
+    def record(*args):
+        rows.append(record_check(*args))
 
     # K1 flash forward at the two prefill buckets that route to it
     heads, head_dim = 12, 64
@@ -482,7 +536,7 @@ def grouped_inputs(torch, generator):
 
 
 def check_grouped(torch, generator):
-    """Phase 9: K6 and K7 against their plain versions at the four shapes
+    """Phase 10: K6 and K7 against their plain versions at the four shapes
     of one MoE layer's training step, each with a bitwise repeat, timed
     beside the plain version, ``torch.bmm`` over the same rows gathered
     into the ``[8, 5120, k]`` buffer beforehand (the product alone: no
@@ -643,7 +697,7 @@ def check_launches(result, per_step: dict) -> None:
 
 
 def train_moe(torch, seed: int) -> dict:
-    """Phase 10: the 8-expert GPT-2 MoE trains on the fused expert kernels
+    """Phase 11: the 8-expert GPT-2 MoE trains on the fused expert kernels
     (the main path of this slice). Its loss and gradient on 2 rows are held
     against the same weights through the gather impl (no K6/K7: gathers and
     cuBLAS products); both keep bfloat16 activations, so the losses agree
@@ -706,7 +760,7 @@ def train_moe(torch, seed: int) -> dict:
 
 
 def train(torch, seed: int) -> dict:
-    """Phase 6: GPT-2 125M trains with bench.py's recipe (the main path of
+    """Phase 7: GPT-2 125M trains with bench.py's recipe (the main path of
     the dense training slice). First its loss and gradient on 2 rows are
     held against the same weights on plain PyTorch attention (``'xla'``:
     autograd through ``dot_product_attention``, no kernel); both keep
@@ -756,7 +810,7 @@ def train(torch, seed: int) -> dict:
 
 
 def split_step(torch, generator) -> dict:
-    """Phase 11: one layer's attention at the training shape through
+    """Phase 12: one layer's attention at the training shape through
     ``backward='split'``, its gradients held against ``'fused'``."""
     from tpusystem_torch.ops.cuda import flash
 
@@ -1033,7 +1087,7 @@ def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
 
 
 def check_dropout_kernels(torch, generator):
-    """Phase 8: the flash kernels at ``p = 0.1``. Each kernel's keep masks,
+    """Phase 9: the flash kernels at ``p = 0.1``. Each kernel's keep masks,
     read back from its outputs at a small shape (MHA and GQA, two batch
     rows), equal the plain hash bit for bit; then K1, K2a, K2b, K3a and K3b
     against their plain versions at the dropout step's shape (MHA,
@@ -1090,6 +1144,40 @@ def check_dropout_kernels(torch, generator):
     return dict(results, masks=mismatches)
 
 
+def check_mask_kernel(torch):
+    """Phase 9: the threefry dropout-mask kernel at the dropout
+    step's activation shape [16, 1024, 768] equals its plain version (the
+    integer ops of ``tpusystem_torch.ops.threefry``, run on a CPU copy) bit
+    for bit; timed beside the plain version on the card. Its bound counts
+    the mask's bytes written once and ~123 32-bit integer operations an
+    element (20 rounds of add, two shifts, or and xor; five key injections
+    of three adds; the counter split and the uniform's shift, or, subtract
+    and compare) over the 67 T/s non-tensor float32 rate, the table's
+    nearest row (the int32 units are slower, so the bound is generous)."""
+    from tpusystem_torch.ops import threefry
+    from tpusystem_torch.ops.cuda import threefry as tf
+
+    shape = (TRAIN_BATCH, TRAIN_SEQ, DIM)
+    keep = 1.0 - DROPOUT
+    key = threefry.split(threefry.PRNGKey(20_260_101))[1]
+    got = tf.bernoulli_mask(key, keep, shape, 'cuda')
+    torch.cuda.synchronize()
+    want = tf.bernoulli_mask_plain(key, keep, shape, 'cpu')
+    mismatches = int((got.cpu() != want).sum())
+    keys = threefry.split(key, 8)
+    timed = measure(lambda i: tf.bernoulli_mask(keys[i % 8], keep, shape,
+                                                'cuda'))
+    plain = measure(lambda i: threefry.bernoulli(keys[i % 8], keep, shape,
+                                                 'cuda'), calls=5, warmup=1)
+    count = TRAIN_BATCH * TRAIN_SEQ * DIM
+    memory, compute = count / HBM_BYTES_PER_S, count * 123 / FP32_OPS
+    bound = (max(memory, compute) * 1e3,
+             'bytes' if memory >= compute else 'operations')
+    return record_check('bernoulli_mask', list(shape), mismatches, 0, timed,
+                        plain, None, bound,
+                        kept_share=got.float().mean().item())
+
+
 def gpt2_125m(torch, seed: int, **overrides):
     """GPT-2 125M as the training recipes build it (vocab 50304, flash
     attention, features for the chunked loss), random weights from
@@ -1128,7 +1216,7 @@ def remat_identity(torch, module, criterion, tokens) -> dict:
 
 
 def train_long(torch, seed: int) -> dict:
-    """Phase 7: the long-context ladder of ``benchmarks/headline_sweep.py``
+    """Phase 8: the long-context ladder of ``benchmarks/headline_sweep.py``
     (``long``): the GPT-2 125M body with ``max_seq = seq``, ``remat=True``,
     flash attention, the chunked loss over 8 chunks and AdamW with
     clipping, 16,384 tokens a step at (4, 4096), (2, 8192) and (1, 16384).
@@ -1188,14 +1276,16 @@ def train_long(torch, seed: int) -> dict:
 
 
 def train_dropout(torch, seed: int) -> dict:
-    """Phase 8: GPT-2 125M trains with bench.py's recipe (16 x 1024) at
-    ``dropout=0.1``: the embeddings, the attention and MLP outputs, and the
-    attention probabilities inside K1 and K2b. One warm-up and
-    ``DROPOUT_STEPS`` timed steps with finite, falling losses, K1 and K2b
-    launched once per layer a step."""
+    """Phase 9: GPT-2 125M trains with bench.py's recipe (16 x 1024) at
+    ``dropout=0.1``: the embeddings, the attention and MLP outputs (masks
+    from the threefry kernel, the reference's bits), and the attention
+    probabilities inside K1 and K2b. One warm-up and ``DROPOUT_STEPS`` timed
+    steps with finite, falling losses, K1 and K2b launched once per layer a
+    step, the mask kernel 25 times."""
     import numpy as np
 
     from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import threefry as tf
     from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
                                        build_train_step, init_state,
                                        module_apply)
@@ -1209,9 +1299,13 @@ def train_dropout(torch, seed: int) -> dict:
                             ChunkedNextTokenLoss(chunks=8), optimizer)
     state, result = timed_steps(
         torch, step, state, tokens, DROPOUT_STEPS,
-        (flash.flash_attention_lse, flash.flash_bwd_fused))
+        (flash.flash_attention_lse, flash.flash_bwd_fused,
+         tf.bernoulli_mask))
+    # the masks of the embeddings and of each block's two outputs; the
+    # attention probabilities' are hashed inside K1 and K2b
     check_launches(result, {'flash_attention_lse': module.layers,
-                            'flash_bwd_fused': module.layers})
+                            'flash_bwd_fused': module.layers,
+                            'bernoulli_mask': 1 + 2 * module.layers})
     return dict(result, dropout=DROPOUT)
 
 
@@ -1246,7 +1340,7 @@ def lookup_bitwise(torch, label, got, again, want) -> float:
 
 
 def check_lookup(torch, generator, seed: int):
-    """Phase 12: K8 (``gather_rows``) and K9 (``scatter_add_rows``) against
+    """Phase 13: K8 (``gather_rows``) and K9 (``scatter_add_rows``) against
     their plain versions on a CPU copy of the inputs, bit for bit, each
     with a bitwise repeat: the largest Criteo Kaggle table (10,131,227 x
     128 float32) with 65,536 Zipf ids, through ``dedup_ids`` (unique ids,
@@ -1446,7 +1540,7 @@ def repeat_step(torch, step, state, features, labels) -> dict:
 
 
 def train_dlrm(torch, seed: int) -> dict:
-    """Phase 13: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
+    """Phase 14: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
     PyTorch recipe: 13 dense features, 26 tables of dim 128, bottom MLP
     512-256-128, top MLP 1024-1024-512-256-1, dot interaction) over the
     Criteo Kaggle cardinalities (33,762,577 rows, 17.3 GB of float32
@@ -1582,10 +1676,78 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
                 top_operators_us_per_step=top(operators))
 
 
+def serving_prompts(seed: int, vocab: int) -> list:
+    """The eight requests of the serving phases, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (n,)) for n in PROMPT_LENGTHS]
+
+
+def drive_engine(torch, engine, prompts) -> dict:
+    """Admit every prompt (``MAX_NEW`` tokens each), then step until every
+    request has finished by length with in-vocabulary tokens: the tokens
+    of each request in prompt order, and the run's step and token counts
+    and host times."""
+    vocab = engine._decoder.vocab_size
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    seated = []
+    for prompt in prompts:
+        admission = engine.admit(prompt, MAX_NEW)
+        if admission.finished:
+            fail(f'request in row {admission.row} finished at admission')
+        seated.append(admission.row)
+    admit_seconds = time.perf_counter() - started
+    finished, steps, step_seconds, emitted = {}, 0, 0.0, 0
+    while engine.active_rows:
+        report = engine.step()
+        steps += 1
+        step_seconds += engine.last_step_seconds
+        emitted += sum(len(tokens) for tokens in report.emitted.values())
+        for row, reason, tokens in report.finished:
+            finished[row] = (reason, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    if len(finished) != len(prompts):
+        fail(f'{len(finished)} of {len(prompts)} requests finished')
+    for row, (reason, tokens) in finished.items():
+        if reason != 'length' or len(tokens) != MAX_NEW or not all(
+                0 <= t < vocab for t in tokens):
+            fail(f'row {row}: {reason}, {len(tokens)} tokens')
+    return dict(tokens=[finished[row][1] for row in seated], steps=steps,
+                decode_tokens=emitted,
+                decode_tokens_per_s=emitted / step_seconds,
+                step_ms=1e3 * step_seconds / steps,
+                prefill_s=engine.timings['prefill'], admit_s=admit_seconds,
+                wall_s=wall)
+
+
+def logit_probe(torch, engine, prompts) -> dict:
+    """Seat ``prompts`` and hold one decode step's logits through the fused
+    kernels against the module path on the same state. The two paths round
+    at different points (the module rounds each dense product before its
+    bias, the kernels once after it): a few bfloat16 steps per layer,
+    summed over 12 layers, of logits of order 1, so the tolerance is 2**-4
+    of the largest logit."""
+    for prompt in prompts:
+        engine.admit(prompt, MAX_NEW)
+    fused = engine.next_logits('fused')
+    module_path = engine.next_logits('flax')
+    torch.cuda.synchronize()
+    if not (torch.isfinite(fused).all() and fused.shape == (
+            ROWS, engine._decoder.vocab_size)):
+        fail('fused step logits are not finite [rows, vocab]')
+    err = (fused - module_path).abs().max().item()
+    tol = 2 ** -4 * module_path.abs().max().item()
+    if err > tol:
+        fail(f'fused vs module logits: max abs err {err} over {tol}')
+    return dict(logit_max_abs_err=err, logit_tol=tol,
+                argmax_agreement=(fused.argmax(-1) == module_path.argmax(-1)
+                                  ).float().mean().item())
+
+
 def serve(torch, seed: int):
     """Phase 5: GPT-2 125M through the paged Engine (the main path)."""
-    import numpy as np
-
     from tpusystem_torch.models import gpt2_small
     from tpusystem_torch.ops.cuda import decode_matmul as dm
     from tpusystem_torch.ops.cuda import flash
@@ -1597,68 +1759,66 @@ def serve(torch, seed: int):
     if engine.decode_impl != 'fused':
         fail(f"the engine chose decode_impl={engine.decode_impl!r} on the "
              "card, not 'fused'")
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, module.vocab_size, (n,))
-               for n in PROMPT_LENGTHS]
+    prompts = serving_prompts(seed, module.vocab_size)
     counters = (dm.decode_matmul, dm.decode_ffn, flash.flash_attention_lse)
-    for counter in counters:
-        counter.launches = 0
-    torch.cuda.synchronize()
-    started = time.perf_counter()
-    finished, steps, step_seconds, emitted = {}, 0, 0.0, 0
-    for prompt in prompts:
-        admission = engine.admit(prompt, MAX_NEW)
-        if admission.finished:
-            fail(f'request in row {admission.row} finished at admission')
-    admit_seconds = time.perf_counter() - started
-    while engine.active_rows:
-        report = engine.step()
-        steps += 1
-        step_seconds += engine.last_step_seconds
-        emitted += sum(len(tokens) for tokens in report.emitted.values())
-        for row, reason, tokens in report.finished:
-            finished[row] = (reason, tokens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - started
+    dm.reset_launches()
+    flash.flash_attention_lse.launches = 0
+    run = drive_engine(torch, engine, prompts)
     launches = {counter.__name__: counter.launches for counter in counters}
-    prefill_seconds = engine.timings['prefill']
-
-    if len(finished) != len(prompts):
-        fail(f'{len(finished)} of {len(prompts)} requests finished')
-    for row, (reason, tokens) in finished.items():
-        if reason != 'length' or len(tokens) != MAX_NEW or not all(
-                0 <= t < module.vocab_size for t in tokens):
-            fail(f'row {row}: {reason}, {len(tokens)} tokens')
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was not launched on the main path')
-
-    # one decode step's logits, fused kernels vs module path, same state
-    for prompt in prompts:
-        engine.admit(prompt, MAX_NEW)
-    fused = engine.next_logits('fused')
-    module_path = engine.next_logits('flax')
-    torch.cuda.synchronize()
-    if not (torch.isfinite(fused).all() and fused.shape == (
-            ROWS, module.vocab_size)):
-        fail('fused step logits are not finite [rows, vocab]')
-    logit_err = (fused - module_path).abs().max().item()
-    # the two paths round at different points (the module rounds each dense
-    # product before its bias, the kernels once after it): a few bfloat16
-    # steps per layer, summed over 12 layers, of logits of order 1
-    logit_tol = 2 ** -4 * module_path.abs().max().item()
-    agree = (fused.argmax(-1) == module_path.argmax(-1)).float().mean().item()
-    if logit_err > logit_tol:
-        fail(f'fused vs module logits: max abs err {logit_err} over '
-             f'{logit_tol}')
+    probe = logit_probe(torch, engine, prompts)
     print('step-profile ' + json.dumps(profile_steps(torch, engine.step)))
-    return dict(launches=launches, steps=steps, decode_tokens=emitted,
-                decode_tokens_per_s=emitted / step_seconds,
-                step_ms=1e3 * step_seconds / steps,
-                prefill_s=prefill_seconds, admit_s=admit_seconds,
-                wall_s=wall, logit_max_abs_err=logit_err,
-                logit_tol=logit_tol, argmax_agreement=agree,
+    return dict(run, **probe, launches=launches,
                 prompt_lengths=list(PROMPT_LENGTHS), max_new=MAX_NEW)
+
+
+def serve_quantized(torch, seed: int, bf16_tokens: list) -> dict:
+    """Phase 6, part 2: GPT-2 125M (phase 5's weights and requests) through
+    the paged Engine at ``stream_dtype='int8'``, then ``'fp8'`` (the main
+    path of this slice): the int8 / fp8 K4 and K5 must launch and the bf16
+    ones must not; one fused step's logits agree with the module path on
+    the same quantized state within phase 5's tolerance. Prints decode
+    tokens/s, step ms and the share of tokens equal to the bf16 run's."""
+    from tpusystem_torch.models import gpt2_small
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.serve import Engine
+
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    prompts = serving_prompts(seed, module.vocab_size)
+    results = {}
+    for mode in ('int8', 'fp8'):
+        engine = Engine(module, None, rows=ROWS, block_size=BLOCK,
+                        stream_dtype=mode)
+        if engine.decode_impl != 'fused':
+            fail(f'the {mode} engine chose decode_impl='
+                 f"{engine.decode_impl!r} on the card, not 'fused'")
+        dm.reset_launches()
+        run = drive_engine(torch, engine, prompts)
+        launches = {f'{kernel.__name__}_{mode}': kernel.mode_launches[mode]
+                    for kernel in (dm.decode_matmul, dm.decode_ffn)}
+        if not all(launches.values()) or any(
+                kernel.mode_launches['bf16']
+                for kernel in (dm.decode_matmul, dm.decode_ffn)):
+            fail(f'{mode} serving launched {launches} narrow and '
+                 f'{dm.decode_matmul.mode_launches} K4 kernels')
+        pairs = [(a, b) for got, want in zip(run['tokens'], bf16_tokens)
+                 for a, b in zip(got, want)]
+        probe = logit_probe(torch, engine, prompts)
+        profile = profile_steps(torch, engine.step)
+        results[mode] = dict(
+            run, **probe, launches=launches, profile=profile,
+            equal_to_bf16=sum(a == b for a, b in pairs) / len(pairs),
+            first_token_equal_to_bf16=sum(
+                got[0] == want[0] for got, want in zip(run['tokens'],
+                                                       bf16_tokens)) / len(
+                                                           prompts))
+        del results[mode]['tokens']
+        print(f'serve-{mode} ' + json.dumps(results[mode]))
+        del engine
+    return results
 
 
 def main() -> None:
@@ -1694,11 +1854,16 @@ def main() -> None:
                                                               generator)
     checks += check_long_backward(torch, generator)
     served = serve(torch, args.seed)
+    bf16_tokens = served.pop('tokens')
     print('serve ' + json.dumps(served))
+    checks += (decode_checks(torch, generator, 'int8')
+               + decode_checks(torch, generator, 'fp8'))
+    quantized = serve_quantized(torch, args.seed, bf16_tokens)
     trained = train(torch, args.seed)
     print('train ' + json.dumps(trained))
     long = train_long(torch, args.seed)
     dropout_checks = check_dropout_kernels(torch, generator)
+    checks.append(check_mask_kernel(torch))
     dropout_trained = train_dropout(torch, args.seed)
     print('dropout-train ' + json.dumps(dropout_trained))
     checks += check_grouped(torch, generator)
@@ -1714,42 +1879,58 @@ def main() -> None:
     pallas = 'tpusystem/ops/pallas/'
     # name: (source, replaces, headline check, launches on the main paths)
     table = {
-        'decode_matmul': ('decode_matmul.cu', 'decode_matmul.py:99',
+        'decode_matmul': ('decode_matmul.cu', pallas + 'decode_matmul.py:99',
                           'decode_matmul[qkv]',
                           served['launches']['decode_matmul']),
-        'decode_ffn': ('decode_matmul.cu', 'decode_matmul.py:181',
+        'decode_ffn': ('decode_matmul.cu', pallas + 'decode_matmul.py:181',
                        'decode_ffn', served['launches']['decode_ffn']),
+        **{f'{kernel}_{mode}': (
+            'decode_matmul.cu', pallas + f'decode_matmul.py:{line}',
+            f'{kernel}_{mode}{label}',
+            quantized[mode]['launches'][f'{kernel}_{mode}'])
+           for mode in ('int8', 'fp8')
+           for kernel, line, label in (('decode_matmul', 99, '[qkv]'),
+                                       ('decode_ffn', 181, ''))},
         'flash_attention_lse': (
-            'flash_fwd.cu', 'flash.py:106', 'flash_attention[S=1024]',
+            'flash_fwd.cu', pallas + 'flash.py:106', 'flash_attention[S=1024]',
             served['launches']['flash_attention_lse']
             + trained['launches']['flash_attention_lse']
             + long['launches']['flash_attention_lse']
             + dropout_trained['launches']['flash_attention_lse']
             + moe_trained['launches']['flash_attention_lse']),
-        'flash_bwd_fused_g1': ('flash_bwd.cu', 'flash.py:344',
+        'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
-        'flash_bwd_fused': ('flash_bwd.cu', 'flash.py:281',
+        'flash_bwd_fused': ('flash_bwd.cu', pallas + 'flash.py:281',
                             'flash_bwd_fused[train]',
                             trained['launches']['flash_bwd_fused']
                             + dropout_trained['launches']['flash_bwd_fused']
                             + moe_trained['launches']['flash_bwd_fused']),
-        'flash_bwd_dq': ('flash_bwd.cu', 'flash.py:162', 'flash_bwd_dq[train]',
+        'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
+                         'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
-        'flash_bwd_dkv': ('flash_bwd.cu', 'flash.py:201',
+        'flash_bwd_dkv': ('flash_bwd.cu', pallas + 'flash.py:201',
                           'flash_bwd_dkv[train]',
                           split['launches']['flash_bwd_dkv']),
-        'gather_rows_matmul': ('grouped_matmul.cu', 'grouped_matmul.py:99',
+        'gather_rows_matmul': ('grouped_matmul.cu',
+                               pallas + 'grouped_matmul.py:99',
                                'gather_rows_matmul[fwd]',
                                moe_trained['launches']['gather_rows_matmul']),
-        'matmul_scatter_rows': ('grouped_matmul.cu', 'grouped_matmul.py:225',
-                                'matmul_scatter_rows[fwd]',
-                                moe_trained['launches']['matmul_scatter_rows']),
-        'gather_rows': ('embedding_lookup.cu', 'embedding_lookup.py:106',
+        'matmul_scatter_rows': (
+            'grouped_matmul.cu', pallas + 'grouped_matmul.py:225',
+            'matmul_scatter_rows[fwd]',
+            moe_trained['launches']['matmul_scatter_rows']),
+        'gather_rows': ('embedding_lookup.cu',
+                        pallas + 'embedding_lookup.py:106',
                         'gather_rows[dedup]', dlrm['launches']['gather_rows']),
-        'scatter_add_rows': ('embedding_lookup.cu', 'embedding_lookup.py:191',
+        'scatter_add_rows': ('embedding_lookup.cu',
+                             pallas + 'embedding_lookup.py:191',
                              'scatter_add_rows[dedup]',
                              dlrm['launches']['scatter_add_rows']),
+        # no pallas_call: the reference's masks are XLA's jax.random.bernoulli
+        'bernoulli_mask': ('threefry.cu', 'tpusystem/ops/attention.py:374',
+                           'bernoulli_mask',
+                           dropout_trained['launches']['bernoulli_mask']),
     }
     measured = dict(checks)
     kernels = []
@@ -1757,7 +1938,7 @@ def main() -> None:
         entry = measured[label]
         kernels.append({
             'name': name, 'route': 'cuda', 'source': csrc + source,
-            'replaces': pallas + replaces, 'launches': launches,
+            'replaces': replaces, 'launches': launches,
             'max_abs_err': entry['max_abs_err'], 'ms': entry['ms'],
             'plain_ms': entry['plain_ms'], 'bound_ms': entry['bound_ms'],
             'bound_by': entry['bound_by'], 'library_ms': entry['library_ms'],
@@ -1766,7 +1947,8 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {'card': card, 'build_s': build_seconds, 'checks': checks,
-             'serve': served, 'train': trained, 'long': long,
+             'serve': served, 'serve_quantized': quantized,
+             'train': trained, 'long': long,
              'dropout_kernels': dropout_checks,
              'dropout_train': dropout_trained, 'moe_train': moe_trained,
              'split': split, 'lookup': lookup, 'dlrm': dlrm,

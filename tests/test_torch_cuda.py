@@ -22,7 +22,10 @@ largest gradient of their tensor. The grouped kernels (K6, K7) round each
 product once to bfloat16 as the plain versions do, after float32 sums in
 another order: their rows may differ by two bfloat16 steps (2**-7) of the
 largest row; K7's combined output sums up to k such rows, each add rounded
-to bfloat16, so it may differ by 2**-5 of its largest value.
+to bfloat16, so it may differ by 2**-5 of its largest value. The decode
+kernels with int8 / e4m3 weights widen them exactly, so they keep the bf16
+kernels' tolerance; the dropout keep mask of the threefry kernel is integer
+arithmetic and equals its plain version bit for bit.
 """
 
 import numpy as np
@@ -32,6 +35,8 @@ import torch
 from tpusystem_torch.ops.cuda import decode_matmul as dm
 from tpusystem_torch.ops.cuda import flash
 from tpusystem_torch.ops.cuda import grouped_matmul as gm
+from tpusystem_torch.ops.cuda import threefry as tf
+from tpusystem_torch.ops.precision import quantize_leaf
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +91,98 @@ def test_decode_ffn_matches_plain(device, batch):
     _close(got, want, 2 ** -7 * want.float().abs().max().item())
 
 
+@pytest.mark.parametrize('mode', ['int8', 'fp8'])
+@pytest.mark.parametrize('batch', [1, 8, 19])
+@pytest.mark.parametrize('cols,activation', [(2304, None), (768, 'gelu')])
+def test_quantized_decode_matmul_matches_plain(device, mode, batch, cols,
+                                               activation):
+    """K4 on int8 / e4m3 weights with float32 scales, 8 rows a launch."""
+    generator = torch.Generator(device).manual_seed(batch + cols + len(mode))
+    x = _normal(generator, (batch, 768), 1.0, device)
+    w = quantize_leaf(torch.randn((768, cols), generator=generator,
+                                  device=device) * 768 ** -0.5, mode)
+    bias = torch.randn(cols, generator=generator, device=device) * 0.1
+    before = dm.decode_matmul.mode_launches[mode]
+    got = dm.decode_matmul(x, w, bias, activation=activation)
+    want = dm.decode_matmul_plain(x, w, bias, activation=activation)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, cols) and got.dtype == torch.bfloat16
+    assert dm.decode_matmul.mode_launches[mode] - before == -(-batch // 8)
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('mode', ['int8', 'fp8'])
+@pytest.mark.parametrize('batch', [1, 8, 19])
+def test_quantized_decode_ffn_matches_plain(device, mode, batch):
+    """K5 on int8 / e4m3 weights: w1's scale before the GELU, w2's on the
+    ordered sum of the hidden splits."""
+    generator = torch.Generator(device).manual_seed(batch + len(mode))
+    x = _normal(generator, (batch, 768), 1.0, device)
+    w1, w2 = (quantize_leaf(torch.randn(shape, generator=generator,
+                                        device=device) * shape[0] ** -0.5,
+                            mode)
+              for shape in ((768, 3072), (3072, 768)))
+    b1 = torch.randn(3072, generator=generator, device=device) * 0.1
+    b2 = torch.randn(768, generator=generator, device=device) * 0.1
+    before = dm.decode_ffn.mode_launches[mode]
+    got = dm.decode_ffn(x, w1, b1, w2, b2)
+    want = dm.decode_ffn_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 768) and got.dtype == torch.bfloat16
+    assert dm.decode_ffn.mode_launches[mode] - before == -(-batch // 8)
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('shape', [(1,), (1000,), (3, 77, 5), (16, 128, 768)])
+@pytest.mark.parametrize('keep', [0.9, 0.5])
+def test_threefry_mask_kernel_equals_the_plain_bits(device, shape, keep):
+    key = (0x12345678, 0x9ABCDEF0)
+    before = tf.bernoulli_mask.launches
+    got = tf.bernoulli_mask(key, keep, shape, device)
+    torch.cuda.synchronize()
+    assert tf.bernoulli_mask.launches - before == 1
+    assert got.dtype == torch.bool and got.shape == shape
+    assert torch.equal(got.cpu(), tf.bernoulli_mask_plain(key, keep, shape))
+
+
+def test_gpt2_tiny_dropout_step_on_the_card_matches_the_cpu(device):
+    """Two SGD steps of gpt2_tiny(dropout=0.1) in float32 on ``'xla'``
+    attention (every mask, the attention probabilities' too, from the mask
+    kernel) from the same weights and seed on the card and on the CPU (the
+    plain bits): the same masks, so losses and parameters agree within
+    1e-5 (float32 sums in another order)."""
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.train import (SGD, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(0, 256,
+                                                               (2, 64)))
+    weights = gpt2_tiny(device='cpu').state_dict()
+    results = []
+    for where in (device, torch.device('cpu')):
+        module = gpt2_tiny(dtype='float32', attention='xla', dropout=0.1,
+                           return_features=True, device=where)
+        module.load_state_dict(weights)
+        optimizer = SGD(lr=0.1)
+        state = init_state(module, optimizer, rng=3)
+        step = build_train_step(module_apply(module),
+                                ChunkedNextTokenLoss(chunks=2), optimizer)
+        before = tf.bernoulli_mask.launches
+        losses = [step(state, tokens.to(where), tokens.to(where))[1][1].item()
+                  for _ in range(2)]
+        masks = 2 * (1 + 3 * module.layers)
+        if where.type == 'cuda':
+            assert tf.bernoulli_mask.launches - before == masks
+        results.append((losses, {name: p.detach().cpu()
+                                 for name, p in state.params.items()}))
+    (card, card_params), (cpu, cpu_params) = results
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-5)
+    for name, value in card_params.items():
+        torch.testing.assert_close(value, cpu_params[name], rtol=1e-5,
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize('batch,seq,heads,kv_heads,head_dim,causal', [
     (1, 512, 12, 12, 64, True),
     (1, 1024, 12, 12, 64, True),
@@ -135,6 +232,37 @@ def test_generate_and_engine_run_the_kernels_on_the_card(device):
     flashes = flash.flash_attention_lse.launches
     engine.admit(np.arange(300) % 256, max_new=4)
     assert flash.flash_attention_lse.launches - flashes == module.layers
+    fused = engine.next_logits('fused')
+    module_path = engine.next_logits('flax')
+    assert torch.isfinite(fused).all()
+    _close(fused, module_path, 2 ** -4 * module_path.abs().max().item())
+    while engine.active_rows:
+        engine.step()
+
+
+@pytest.mark.parametrize('mode', ['int8', 'fp8'])
+def test_quantized_generate_and_engine_run_the_narrow_kernels(device, mode):
+    """generate and the Engine at ``stream_dtype=mode`` on the card: the
+    fused path launches the int8 / fp8 kernels, and one fused step's logits
+    stay within bf16 reach of the module path's on the same quantized state
+    (2**-4 of the largest logit, as in chip_smoke)."""
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.serve import Engine
+    from tpusystem_torch.train import generate
+
+    module = gpt2_tiny(device=device)
+    prompt = np.random.default_rng(1).integers(0, 256, (2, 9))
+    before = (dm.decode_matmul.mode_launches[mode],
+              dm.decode_ffn.mode_launches[mode])
+    outputs = [generate(module, None, prompt, steps=6, decode_impl=impl,
+                        stream_dtype=mode) for impl in ('flax', 'fused')]
+    assert all(out.shape == (2, 15) for out in outputs)
+    assert dm.decode_matmul.mode_launches[mode] - before[0] == 2 * 2 * 5
+    assert dm.decode_ffn.mode_launches[mode] - before[1] == 2 * 5
+
+    engine = Engine(module, None, rows=2, block_size=16, stream_dtype=mode)
+    assert engine.decode_impl == 'fused'
+    engine.admit(np.arange(40) % 256, max_new=4)
     fused = engine.next_logits('fused')
     module_path = engine.next_logits('flax')
     assert torch.isfinite(fused).all()

@@ -7,8 +7,12 @@ flash forward and backward at ``p = 0.1`` with one int seed must match the
 reference's ``_flash_lse`` given that seed (interpret mode) at
 ``rtol = atol = 1e-5``: float32, the same masks, sums in another order. The
 model's other masks (embeddings, attention and MLP outputs, and the
-attention probabilities on ``'xla'``) are drawn from torch generators and
-cannot equal flax's threefry bits: they are held to their semantics, to
+attention probabilities on ``'xla'``) are flax's own threefry bits, from the
+keys flax's ``make_rng`` derives at the reference's module paths, and the
+flash kernels' seed is the reference's ``randint`` of the attention's key:
+three SGD steps at ``p = 0.1`` match the reference's ``build_train_step``
+(losses at ``rtol = 1e-5``, parameters at ``atol = 1e-5``: the same masks,
+float32 sums in another order). They are also held to their semantics, to
 determinism under a fixed seed, to ``remat`` (bitwise the same step with
 and without it) and to a kept share within three standard deviations of
 ``1 - p``.
@@ -22,14 +26,19 @@ import numpy as np
 import pytest
 import torch
 
+from tpusystem import train as jtrain
+from tpusystem.models import gpt2_tiny as jax_gpt2_tiny
 from tpusystem.ops.pallas import flash as jflash
 from tpusystem_torch import train as ttrain
+from tpusystem_torch.convert import params_from_jax
 from tpusystem_torch.models import gpt2_tiny
 from tpusystem_torch.ops import attention as tattention
+from tpusystem_torch.ops import threefry
 from tpusystem_torch.ops.cuda import flash as tflash
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SEED = 1_234_567
+KEY = threefry.PRNGKey(SEED)
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -176,13 +185,15 @@ def test_flash_dropout_needs_a_seed_and_zero_is_unchanged():
 
 def test_dropout_helper_semantics_and_share():
     x = torch.full((64, 1024), 2.0)
-    out = tattention.apply_dropout(x, 0.1, SEED)
+    out = tattention.apply_dropout(x, 0.1, KEY)
     kept = out != 0
     _within_three_sigma(kept, 0.1)
     assert torch.equal(out[kept], torch.full_like(out[kept], 2.0 / 0.9))
-    assert torch.equal(tattention.apply_dropout(x, 0.1, SEED), out)
-    assert not torch.equal(tattention.apply_dropout(x, 0.1, SEED + 1), out)
+    assert torch.equal(tattention.apply_dropout(x, 0.1, KEY), out)
+    assert not torch.equal(tattention.apply_dropout(
+        x, 0.1, threefry.PRNGKey(SEED + 1)), out)
     assert tattention.apply_dropout(x, 0.0, None) is x
+    assert not tattention.apply_dropout(x, 1.0, KEY).any()
 
 
 def test_xla_attention_dropout_drops_normalised_weights():
@@ -195,9 +206,8 @@ def test_xla_attention_dropout_drops_normalised_weights():
     eye = torch.eye(12).reshape(1, 12, 1, 12).expand(1, 12, 2, 12)
     eye = eye.contiguous()
     weights = tattention.dot_product_attention(q, k, eye)   # [B, q, H, k]
-    got = tattention.dot_product_attention(q, k, eye, dropout=0.25,
-                                           seed=SEED)
-    keep = tattention.dropout_mask((1, 2, 12, 12), 0.25, SEED,
+    got = tattention.dot_product_attention(q, k, eye, dropout=0.25, rng=KEY)
+    keep = tattention.dropout_mask((1, 2, 12, 12), 0.25, KEY,
                                    torch.device('cpu'))      # [B, H, q, k]
     want = torch.where(keep.transpose(1, 2), weights / 0.75,
                        torch.zeros_like(weights))
@@ -245,17 +255,16 @@ def test_gpt2_dropout_remat_equals_no_remat_bitwise(attention):
 
 
 def test_gpt2_dropout_microbatches_draw_their_own_masks():
-    """``accumulate=2`` splits the step's generator, one per microbatch, as
-    the reference splits its key: the result is deterministic and differs
-    from the full batch's (other masks)."""
+    """``accumulate=2`` splits the step's key, one per microbatch, as the
+    reference splits its key: the result is deterministic and differs from
+    the full batch's (other masks)."""
     micro, _ = _train('flash', accumulate=2, steps=1)
     again, _ = _train('flash', accumulate=2, steps=1)
     full, _ = _train('flash', steps=1)
     assert micro == again and micro != full
-    generators = ttrain.state.split_rng(torch.Generator().manual_seed(0), 2)
-    draws = [torch.randint(0, 2 ** 31 - 1, (4,), generator=g).tolist()
-             for g in generators]
-    assert draws[0] != draws[1]
+    keys = threefry.split(threefry.PRNGKey(0), 2)
+    draws = [threefry.random_bits(key, (4,)).tolist() for key in keys]
+    assert keys[0] != keys[1] and draws[0] != draws[1]
 
 
 def test_gpt2_attn_dropout_follows_dropout_unless_set():
@@ -265,3 +274,73 @@ def test_gpt2_attn_dropout_follows_dropout_unless_set():
     assert module.replace(attn_dropout=0.0).dropout_rates(True) == (0.1, 0.0)
     assert gpt2_tiny(device='cpu', dropout=0.0,
                      attn_dropout=0.2).dropout_rates(True) == (0.0, 0.2)
+
+
+# --- the reference's masks: three steps against build_train_step ----------
+
+# the model's configurations with dropout: both attention kernels, remat on
+# each (the recomputed blocks derive the same keys), an MoE model (its
+# expert FFN output is the block's Dropout_1), and microbatches
+PARITY_CASES = {
+    'xla': (dict(attention='xla'), 1),
+    'flash': (dict(attention='flash'), 1),
+    'xla-remat': (dict(attention='xla', remat=True), 1),
+    'flash-remat': (dict(attention='flash', remat=True), 1),
+    'moe': (dict(attention='flash', moe_experts=2, moe_sparse_impl='fused'),
+            1),
+    'flash-accumulate': (dict(attention='flash'), 2),
+}
+
+
+@pytest.mark.parametrize('case', list(PARITY_CASES))
+def test_gpt2_dropout_steps_match_the_reference(case):
+    """Three SGD steps of ``gpt2_tiny(dropout=0.1)`` (every site, and the
+    attention probabilities) from ``init_state(rng=0)`` in both packages:
+    the losses agree at ``rtol = 1e-5`` and the parameters at ``atol =
+    1e-5``, which only the same masks give. SGD, because Adam's
+    normalisation turns float32 noise in near-zero gradients into
+    lr-sized steps of either sign."""
+    config, accumulate = PARITY_CASES[case]
+    config = dict(config, dtype='float32', dropout=0.1, return_features=True)
+    tokens = np.random.default_rng(5).integers(0, 256, (2, 32))
+    jax_loss, loss = (module.ChunkedNextTokenLoss(chunks=4)
+                      for module in (jtrain, ttrain))
+    if 'moe_experts' in config:
+        jax_loss, loss = jtrain.WithAuxLoss(jax_loss), ttrain.WithAuxLoss(loss)
+
+    reference = jax_gpt2_tiny(**config)
+    batch = jnp.asarray(tokens, jnp.int32)
+    state = jtrain.init_state(reference, jtrain.SGD(lr=0.1), batch, rng=0)
+    params = params_from_jax(jax.tree.map(np.asarray, state.params))
+    step = jtrain.build_train_step(jtrain.flax_apply(reference), jax_loss,
+                                   jtrain.SGD(lr=0.1), accumulate=accumulate)
+    want = []
+    for _ in range(3):
+        state, (_, value) = step(state, batch, batch)
+        want.append(float(value))
+
+    module = gpt2_tiny(device='cpu', **config)
+    module.load_state_dict(params)
+    optimizer = ttrain.SGD(lr=0.1)
+    port = ttrain.init_state(module, optimizer, rng=0)
+    port_step = ttrain.build_train_step(ttrain.module_apply(module), loss,
+                                        optimizer, accumulate=accumulate)
+    inputs = torch.as_tensor(tokens)
+    got = [port_step(port, inputs, inputs)[1][1].item() for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert port.rng == threefry.as_key(np.asarray(state.rng))
+    final = params_from_jax(jax.tree.map(np.asarray, state.params))
+    for name, leaf in port.params.items():
+        np.testing.assert_allclose(leaf.detach().numpy(), final[name].numpy(),
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_gpt2_dropout_keys_follow_flax_module_paths():
+    """The embeddings' mask key is the root scope's ``Dropout_0``; block
+    ``i`` takes ``h_i/attn``, ``h_i/Dropout_0`` and ``h_i/Dropout_1``."""
+    from tpusystem_torch.models.gpt2 import dropout_keys
+    embed, blocks = dropout_keys(KEY, 3)
+    assert embed == threefry.make_rng(KEY, ('Dropout_0',))
+    assert blocks[2] == tuple(threefry.make_rng(KEY, ('h_2', site))
+                              for site in ('attn', 'Dropout_0', 'Dropout_1'))
+    assert len({embed, *(key for block in blocks for key in block)}) == 10

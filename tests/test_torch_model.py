@@ -19,6 +19,7 @@ from tpusystem.registry import gethash as jax_gethash
 from tpusystem.train import cursors as jax_cursors
 from tpusystem_torch.convert import params_from_jax
 from tpusystem_torch.models import GPT2, gpt2_tiny
+from tpusystem_torch.ops import threefry
 from tpusystem_torch.registry import gethash
 from tpusystem_torch.train import cursors
 
@@ -134,7 +135,7 @@ def test_registry_identity_matches_bitwise(overrides):
 def test_unported_options_name_their_roadmap_item():
     """``remat`` and training-time dropout are ported; ``scan_layers``, MoE
     decoding and sequence-parallel attention still name their item. A
-    training forward with dropout needs the step's generator."""
+    training forward with dropout needs the step's threefry key."""
     for option in ({'scan_layers': True},
                    {'moe_experts': 2, 'decode': True},
                    {'attention': 'ring'}):
@@ -147,4 +148,4 @@ def test_unported_options_name_their_roadmap_item():
     with pytest.raises(ValueError, match='rng'):
         module(tokens, train=True)
     assert module(tokens, train=True,
-                  rng=torch.Generator().manual_seed(0)).shape == (1, 4, 32)
+                  rng=threefry.PRNGKey(0)).shape == (1, 4, 32)

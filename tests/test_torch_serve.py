@@ -206,9 +206,6 @@ def test_engine_refuses_what_is_not_ported(served):
     with pytest.raises(NotImplementedError, match='threefry'):
         generate(port, state, [[1, 2]], steps=2, temperature=0.5,
                  device='cpu')
-    with pytest.raises(NotImplementedError, match='int8'):
-        generate(port, state, [[1, 2]], steps=2, stream_dtype='int8',
-                 device='cpu')
 
 
 def test_engine_validates_capacity_and_saturation(served):

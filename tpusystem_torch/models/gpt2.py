@@ -32,15 +32,18 @@ losses (for :class:`tpusystem_torch.train.WithAuxLoss`).
 ``remat=True`` recomputes each block's activations in the backward
 (``torch.utils.checkpoint``, non-reentrant): the reference's
 ``nn.remat(Block)``, which saves nothing inside a block. Training-time
-dropout (``forward(train=True, rng=generator)``) drops at the reference's
-sites: the embeddings, the attention output, the MLP output and, at
-``attn_dropout`` (``None`` follows ``dropout``), the attention
-probabilities, in the flash kernels on ``'flash'``. Every mask is a function
-of a seed drawn from ``rng`` before the block runs, so a recomputed block
-draws the masks it drew the first time (``torch.utils.checkpoint`` restores
-only the default generators). Masks are not flax's threefry bits. Not
-ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``scan_layers``, ring/ulysses attention, and decoding an MoE model.
+dropout (``forward(train=True, rng=key)``, ``key`` the threefry key the
+reference passes as ``rngs={'dropout': key}``) drops at the reference's
+sites with the reference's masks: each site's key is the one flax's
+``make_rng('dropout')`` returns there (:func:`dropout_keys`), the
+embeddings' ``Dropout_0``, each block's ``Dropout_0`` (attention output) and
+``Dropout_1`` (MLP or expert output) and, at ``attn_dropout`` (``None``
+follows ``dropout``), the attention probabilities from ``attn``'s key,
+inside the flash kernels on ``'flash'``. The keys are derived on the host
+before any block runs, so a recomputed block draws the masks it drew the
+first time. Not ported yet, each raising ``NotImplementedError`` that names
+its ROADMAP item: ``scan_layers``, ring/ulysses attention, and decoding an
+MoE model.
 """
 
 from __future__ import annotations
@@ -56,9 +59,9 @@ from torch.utils.checkpoint import checkpoint
 from tpusystem_torch.device import compute_dtype, resolve_device
 from tpusystem_torch.ops.attention import (apply_dropout, attend,
                                           cached_attention)
-from tpusystem_torch.ops.cuda.flash import SEED_LIMIT
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
 from tpusystem_torch.ops.precision import head_logits
+from tpusystem_torch.ops.threefry import as_key, make_rng
 from tpusystem_torch.registry import register
 
 EMBED_STD = 0.02    # GPT-2's initializer range for the embedding tables
@@ -130,7 +133,7 @@ class Block(nn.Module):
     """Pre-norm transformer block: attention, then the GELU MLP, or with
     ``moe`` (the :class:`MoEMLP` arguments) the expert FFN; an MoE block
     returns ``(hidden, aux)``. ``rate`` drops the attention and FFN
-    outputs, from masks drawn from ``seeds`` (two ints)."""
+    outputs, with masks from ``keys`` (two threefry keys)."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int, *,
                  device, moe: dict | None = None) -> None:
@@ -146,16 +149,16 @@ class Block(nn.Module):
             self.proj = Dense(mlp_ratio * dim, dim, device=device)
 
     def forward(self, hidden, dtype, attention, rate: float = 0.0,
-                seeds: tuple = (None, None)):
+                keys: tuple = (None, None)):
         normed = self.ln_1(hidden).to(dtype)
         attended = self.attn(normed, dtype, attention)
-        hidden = hidden + apply_dropout(attended, rate, seeds[0])
+        hidden = hidden + apply_dropout(attended, rate, keys[0])
         normed = self.ln_2(hidden).to(dtype)
         if self.moe is not None:
             shrunk, aux = self.moe(normed)
-            return hidden + apply_dropout(shrunk, rate, seeds[1]), aux
+            return hidden + apply_dropout(shrunk, rate, keys[1]), aux
         grown = F.gelu(self.fc(normed, dtype), approximate='tanh')
-        return hidden + apply_dropout(self.proj(grown, dtype), rate, seeds[1])
+        return hidden + apply_dropout(self.proj(grown, dtype), rate, keys[1])
 
 
 MOE_SERVING = 'Llama and MoE serving through the module paged step'
@@ -168,6 +171,19 @@ MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
 def _not_ported(what: str, item: str):
     return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
                                f'(ROADMAP queue 1: {item})')
+
+
+def dropout_keys(rng, layers: int) -> tuple:
+    """The dropout keys of one training forward from the step's key ``rng``:
+    ``(embeddings, [(attention, attention output, FFN output)] * layers)``,
+    each the key flax's ``make_rng('dropout')`` returns at the reference
+    module's path (``Dropout_0``; ``h_i/attn``, ``h_i/Dropout_0``,
+    ``h_i/Dropout_1``), the first call of each scope."""
+    rng = as_key(rng)
+    blocks = [tuple(make_rng(rng, (f'h_{index}', site))
+                    for site in ('attn', 'Dropout_0', 'Dropout_1'))
+              for index in range(layers)]
+    return make_rng(rng, ('Dropout_0',)), blocks
 
 
 class GPT2(nn.Module):
@@ -334,7 +350,7 @@ class GPT2(nn.Module):
 
     def forward(self, tokens, cache: dict | None = None, *,
                 train: bool = False, depth: int | None = None,
-                rng: torch.Generator | None = None):
+                rng=None):
         """Logits ``[batch, length, vocab]`` (float32) for ``tokens``.
 
         In decode mode returns ``(logits, cache)``: ``cache=None`` is the
@@ -342,12 +358,12 @@ class GPT2(nn.Module):
         returned cache back (its tensors are updated in place). ``depth`` is
         the deepest row's cursor before the call, the host's choice of read
         window; when omitted it is read from the cache. A training forward
-        with dropout draws its masks' seeds from ``rng`` (the step's
-        generator, the reference's ``'dropout'`` rng)."""
+        with dropout derives its masks' keys from ``rng``, the step's
+        threefry key (the reference's ``'dropout'`` rng)."""
         rate, attn_rate = self.dropout_rates(train)
         if (rate or attn_rate) and rng is None:
             raise ValueError('a training forward with dropout needs rng=, a '
-                             'torch.Generator')
+                             'threefry key')
         if self.decode and self.moe_experts:
             raise _not_ported('decoding an MoE model', MOE_SERVING)
         dtype = self.compute_dtype
@@ -370,16 +386,16 @@ class GPT2(nn.Module):
             cache['position'] = offset + length
         else:
             positions = steps
-        # one seed per mask, drawn before any block runs (see the docstring)
-        seeds = (torch.randint(0, SEED_LIMIT, (1 + 3 * self.layers,),
-                               generator=rng, device=rng.device).tolist()
-                 if rate or attn_rate else [None] * (1 + 3 * self.layers))
+        # every mask's key, derived before any block runs (see the docstring)
+        embed_key, block_keys = (dropout_keys(rng, self.layers)
+                                 if rate or attn_rate
+                                 else (None, [(None,) * 3] * self.layers))
         hidden = apply_dropout(self.wte(tokens) + self.wpe(positions), rate,
-                               seeds[0]).to(dtype)
+                               embed_key).to(dtype)
         aux_losses = []
         remat = self.remat and not self.decode and torch.is_grad_enabled()
         for index, block in enumerate(self.blocks()):
-            attn_seed, *block_seeds = seeds[1 + 3 * index:4 + 3 * index]
+            attn_key, *output_keys = block_keys[index]
             if self.decode:
                 attention = functools.partial(
                     cached_attention, cache=cache, prefix=f'h_{index}/attn',
@@ -388,11 +404,10 @@ class GPT2(nn.Module):
                     depth=depth)
             else:
                 attention = functools.partial(attend, kernel=self.attention,
-                                              dropout=attn_rate,
-                                              seed=attn_seed)
+                                              dropout=attn_rate, rng=attn_key)
             run = (functools.partial(checkpoint, block, use_reentrant=False)
                    if remat else block)
-            hidden = run(hidden, dtype, attention, rate, tuple(block_seeds))
+            hidden = run(hidden, dtype, attention, rate, tuple(output_keys))
             if self.is_moe(index):
                 hidden, aux = hidden
                 aux_losses.append(aux)

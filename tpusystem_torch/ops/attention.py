@@ -18,6 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from tpusystem_torch.ops.cuda.threefry import bernoulli_mask
+from tpusystem_torch.ops.threefry import flash_seed
+
 NEG_INF = -1e30
 FLASH_MIN_LENGTH = 512      # prefill lengths routed to the flash kernel
 
@@ -42,27 +45,30 @@ def repeat_kv_heads(query, key, value):
             value.repeat_interleave(group, dim=2))
 
 
-def dropout_mask(shape, rate: float, seed: int, device):
-    """Bernoulli(``1 - rate``) keep mask drawn from a generator seeded
-    ``seed`` on ``device``: a function of the seed, so a recomputed forward
-    (``GPT2(remat=True)``) draws the same mask again."""
-    generator = torch.Generator(device).manual_seed(int(seed))
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+def dropout_mask(shape, rate: float, key, device):
+    """``jax.random.bernoulli(key, 1 - rate, shape)``, bit for bit: the keep
+    mask flax's ``nn.Dropout`` draws from the threefry ``key``. A function of
+    the key alone, so a recomputed forward (``GPT2(remat=True)``) draws the
+    same mask again. On the card it is one kernel
+    (:func:`tpusystem_torch.ops.cuda.threefry.bernoulli_mask`)."""
+    return bernoulli_mask(key, 1.0 - rate, shape, device)
 
 
-def apply_dropout(x, rate: float, seed: int | None):
-    """``flax.linen.Dropout`` in training: elements kept with probability
-    ``1 - rate`` (:func:`dropout_mask` of ``seed``) and divided by it in
-    ``x``'s dtype, the rest zeroed. ``rate == 0`` returns ``x``."""
+def apply_dropout(x, rate: float, key):
+    """``flax.linen.Dropout`` in training: elements kept where
+    :func:`dropout_mask` of ``key`` is True and divided by ``1 - rate`` in
+    ``x``'s dtype, the rest zeroed; ``rate == 1`` zeroes everything.
+    ``rate == 0`` returns ``x``."""
     if not rate:
         return x
-    keep = dropout_mask(x.shape, rate, seed, x.device)
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = dropout_mask(x.shape, rate, key, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def dot_product_attention(query, key, value, *, causal: bool = True,
-                          mask=None, dropout: float = 0.0,
-                          seed: int | None = None):
+                          mask=None, dropout: float = 0.0, rng=None):
     """Multi-head attention over ``[batch, length, heads, head_dim]``.
 
     Scores and softmax in float32 (float64 for float64 inputs); the weights
@@ -70,7 +76,8 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
     output returns in the input dtype. ``mask`` broadcasts against
     ``[batch, heads, q, k]``. ``dropout > 0`` drops normalised weights and
     scales the survivors by ``1 / (1 - dropout)`` (the reference's
-    ``attention.py:373-375``), the mask drawn from ``seed``. Differentiable
+    ``attention.py:373-375``), the mask ``bernoulli(rng, 1 - dropout)``
+    over ``[batch, heads, q, k]``, ``rng`` a threefry key. Differentiable
     through autograd."""
     dtype = query.dtype
     work = torch.promote_types(dtype, torch.float32)
@@ -85,25 +92,27 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
-    weights = apply_dropout(weights, dropout, seed)
+    weights = apply_dropout(weights, dropout, rng)
     out = torch.einsum('bhqk,bkhd->bqhd', weights.to(dtype).to(work),
                        value.to(work))
     return out.to(dtype)
 
 
 def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
-           seed: int | None = None):
+           rng=None):
     """Causal attention of the forward and training passes: ``'xla'`` is
     :func:`dot_product_attention` (autograd), ``'flash'`` the flash kernels
     (K1 forward, the fused backward K2a or K2b). ``dropout > 0`` drops
-    attention probabilities, from masks that are a function of the int
-    ``seed``: drawn from a generator seeded with it on ``'xla'``, the flash
-    kernels' positional hash on ``'flash'``."""
+    attention probabilities with masks from the threefry key ``rng`` (the
+    reference's ``dropout_rng``): ``bernoulli`` on it over the weights on
+    ``'xla'``; on ``'flash'`` the kernels' positional hash of the seed
+    ``randint(rng, (1,), 0, 2**31 - 1)`` (``flash.py:773``)."""
     if kernel == 'xla':
         return dot_product_attention(query, key, value, causal=True,
-                                     dropout=dropout, seed=seed)
+                                     dropout=dropout, rng=rng)
     if kernel == 'flash':
         from tpusystem_torch.ops.cuda.flash import flash_attention
+        seed = flash_seed(rng) if dropout else None
         return flash_attention(query, key, value, causal=True,
                                dropout=dropout, seed=seed)
     raise ValueError(f"unknown attention kernel {kernel!r}; expected 'xla' "

@@ -1,8 +1,9 @@
-// Decode-step weight-streaming kernels for Hopper (sm_90a), bf16.
+// Decode-step weight-streaming kernels for Hopper (sm_90a): bf16 weights,
+// or int8 / float8 e4m3 weights with a float32 scale per output channel.
 //
 // Replaces the Pallas TPU kernels of tpusystem/ops/pallas/decode_matmul.py:
-//   * decode_matmul_bf16  <- decode_matmul / _matmul_kernel   (K4)
-//   * decode_ffn_bf16     <- decode_ffn / _ffn_kernel         (K5)
+//   * decode_matmul_{bf16,int8,fp8}  <- decode_matmul / _matmul_kernel   (K4)
+//   * decode_ffn_{bf16,int8,fp8}     <- decode_ffn / _ffn_kernel         (K5)
 //
 // What bounds them on an H100: bytes. A greedy decode step at batch <= 16
 // multiplies a few-KB activation by every weight matrix once, so each weight
@@ -12,9 +13,17 @@
 //
 // What the design does about it:
 //   * x ([B, K], a few KB) is staged once in shared memory; the weight is
-//     streamed with 16-byte loads, four neighbouring threads covering one
-//     64-byte row segment of a 32-column tile, 64 rows of the weight in
-//     flight per block. Each weight element is read exactly once.
+//     streamed with 16-byte loads (8 bf16 or 16 int8 / e4m3 values), the
+//     threads that cover one row of a 32-column tile neighbours in a warp,
+//     64 (bf16) or 128 (narrow) rows of the weight in flight per block.
+//     Each weight element is read exactly once.
+//   * int8 / e4m3 tiles are widened on chip, exactly (|int8| <= 127 and
+//     every e4m3 value are bf16 values), so the products are the reference's
+//     bf16 x widen(w) products. The per-output-channel scale factors out of
+//     the sum: K4 multiplies the float32 sum once, before bias and
+//     activation; K5 scales its hidden sums per channel before b1 and GELU,
+//     and the proj output once in the epilogue, on the full sum of the
+//     ordered second pass (not on each partial), before b2.
 //   * Every block owns an independent column tile (the TPU grid walks the
 //     tiles in order; here they run in parallel on the SMs). Partial sums of
 //     the 64 row groups are reduced in a fixed order (warp shuffles, then a
@@ -36,6 +45,7 @@
 // given stream, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,26 +53,56 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int VEC = 8;                            // bf16 values per 16-byte load
 constexpr int TILE_COLS = 32;                     // output columns per block
-constexpr int COL_THREADS = TILE_COLS / VEC;      // threads covering one tile row
-constexpr int K_GROUPS = THREADS / COL_THREADS;   // weight rows in flight per block
+
+// The streamed weight types: 16 bytes a load, widened to float on chip.
+template <typename W>
+struct Weight;
+
+template <>
+struct Weight<__nv_bfloat16> {
+  static constexpr int VEC = 8;                   // values per 16-byte load
+  static constexpr int MAX_ROWS = 16;             // rows of x per launch
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float out[VEC]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const float2 f = __bfloat1622float2(pairs[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Weight<int8_t> {
+  static constexpr int VEC = 16;
+  static constexpr int MAX_ROWS = 8;              // 8 x 16 float sums a thread
+  __device__ __forceinline__ static void load(const int8_t* p, float out[VEC]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = static_cast<float>(v[i]);
+  }
+};
+
+template <>
+struct Weight<__nv_fp8_e4m3> {
+  static constexpr int VEC = 16;
+  static constexpr int MAX_ROWS = 8;
+  __device__ __forceinline__ static void load(const __nv_fp8_e4m3* p, float out[VEC]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_fp8_e4m3* v = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = static_cast<float>(v[i]);
+  }
+};
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   // jax.nn.gelu's default (approximate=True), torch's approximate='tanh'
   const float k0 = 0.7978845608028654f;           // sqrt(2 / pi)
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[VEC]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 __host__ __device__ constexpr size_t align16(size_t bytes) {
@@ -79,9 +119,12 @@ __device__ void stage_x(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* x_s,
 }
 
 // acc[b][j] = sum over this thread's weight rows of x[b][k] * w[k][n0 + j].
-template <int BT>
-__device__ void tile_gemv(const __nv_bfloat16* x_s, const __nv_bfloat16* __restrict__ w,
-                          int K, int N, int col0, float acc[BT][VEC]) {
+template <int BT, typename W>
+__device__ void tile_gemv(const __nv_bfloat16* x_s, const W* __restrict__ w, int K, int N,
+                          int col0, float acc[BT][Weight<W>::VEC]) {
+  constexpr int VEC = Weight<W>::VEC;
+  constexpr int COL_THREADS = TILE_COLS / VEC;    // threads covering one tile row
+  constexpr int K_GROUPS = THREADS / COL_THREADS; // weight rows in flight per block
   const int ct = threadIdx.x % COL_THREADS;
   const int kg = threadIdx.x / COL_THREADS;
   const int n0 = col0 + ct * VEC;
@@ -92,7 +135,7 @@ __device__ void tile_gemv(const __nv_bfloat16* x_s, const __nv_bfloat16* __restr
   if (n0 >= N) return;
   for (int k = kg; k < K; k += K_GROUPS) {
     float wv[VEC];
-    load8(w + static_cast<size_t>(k) * N + n0, wv);
+    Weight<W>::load(w + static_cast<size_t>(k) * N + n0, wv);
 #pragma unroll
     for (int b = 0; b < BT; ++b) {
       const float xv = __bfloat162float(x_s[b * K + k]);
@@ -102,9 +145,10 @@ __device__ void tile_gemv(const __nv_bfloat16* x_s, const __nv_bfloat16* __restr
   }
 }
 
-// Sum the 64 row groups' partials in a fixed order into out_s [BT, TILE_COLS].
-template <int BT>
+// Sum the row groups' partials in a fixed order into out_s [BT, TILE_COLS].
+template <int BT, int VEC>
 __device__ void reduce_tile(float acc[BT][VEC], float* red, float* out_s) {
+  constexpr int COL_THREADS = TILE_COLS / VEC;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
 #pragma unroll
@@ -113,9 +157,9 @@ __device__ void reduce_tile(float acc[BT][VEC], float* red, float* out_s) {
     for (int j = 0; j < VEC; ++j) {
       float v = acc[b][j];
       // lane = group * COL_THREADS + ct: xor over the group bits
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
+#pragma unroll
+      for (int offset = COL_THREADS; offset < 32; offset <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, offset);
       acc[b][j] = v;
     }
   if (lane < COL_THREADS) {
@@ -140,11 +184,12 @@ constexpr size_t gemv_smem(int K) {
          static_cast<size_t>(WARPS * BT * TILE_COLS + BT * TILE_COLS) * sizeof(float);
 }
 
-template <int BT, bool GELU>
+// scale: float32 [N] per output channel, or null (bf16 weights).
+template <int BT, bool GELU, typename W>
 __global__ void __launch_bounds__(THREADS)
-decode_matmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                     int B, int K, int N) {
+decode_matmul_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int B, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);
   float* red = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(BT) * K * 2));
@@ -153,14 +198,15 @@ decode_matmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   stage_x<BT>(x, x_s, B, K);
   __syncthreads();
   const int col0 = blockIdx.x * TILE_COLS;
-  float acc[BT][VEC];
-  tile_gemv<BT>(x_s, w, K, N, col0, acc);
-  reduce_tile<BT>(acc, red, out_s);
+  float acc[BT][Weight<W>::VEC];
+  tile_gemv<BT, W>(x_s, w, K, N, col0, acc);
+  reduce_tile<BT, Weight<W>::VEC>(acc, red, out_s);
   for (int i = threadIdx.x; i < BT * TILE_COLS; i += THREADS) {
     const int b = i / TILE_COLS;
     const int n = col0 + i % TILE_COLS;
     if (b < B && n < N) {
       float v = out_s[i];
+      if (scale != nullptr) v *= scale[n];
       if (bias != nullptr) v += bias[n];
       if (GELU) v = gelu_tanh(v);
       out[static_cast<size_t>(b) * N + n] = __float2bfloat16(v);
@@ -168,11 +214,15 @@ decode_matmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
-template <int BT>
+// s1: float32 [H] (w1's scale per hidden channel) or null; w2's scale goes on
+// in splits_reduce_kernel, on the full sum.
+template <int BT, typename W>
 __global__ void __launch_bounds__(THREADS)
-decode_ffn_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-                  const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                  float* __restrict__ partial, int B, int K, int H, int N) {
+decode_ffn_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w1,
+                  const float* __restrict__ s1, const float* __restrict__ b1,
+                  const W* __restrict__ w2, float* __restrict__ partial, int B, int K, int H,
+                  int N) {
+  constexpr int VEC = Weight<W>::VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);
   float* red = reinterpret_cast<float*>(smem + align16(static_cast<size_t>(BT) * K * 2));
@@ -183,12 +233,17 @@ decode_ffn_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int col0 = blockIdx.x * TILE_COLS;          // this block's hidden slab
   {
     float acc[BT][VEC];
-    tile_gemv<BT>(x_s, w1, K, H, col0, acc);
-    reduce_tile<BT>(acc, red, hid_s);
+    tile_gemv<BT, W>(x_s, w1, K, H, col0, acc);
+    reduce_tile<BT, VEC>(acc, red, hid_s);
   }
   for (int i = threadIdx.x; i < BT * TILE_COLS; i += THREADS) {
     const int h = col0 + i % TILE_COLS;
-    const float v = (h < H) ? gelu_tanh(hid_s[i] + b1[h]) : 0.0f;
+    float v = 0.0f;
+    if (h < H) {
+      v = hid_s[i];
+      if (s1 != nullptr) v *= s1[h];              // real values before the GELU
+      v = gelu_tanh(v + b1[h]);
+    }
     // the reference casts the hidden slab to x's dtype before the proj product
     hid_s[i] = __bfloat162float(__float2bfloat16(v));
   }
@@ -205,7 +260,7 @@ decode_ffn_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       for (int j = 0; j < VEC; ++j) acc[b][j] = 0.0f;
     for (int r = 0; r < rows; ++r) {
       float wv[VEC];
-      load8(w2 + static_cast<size_t>(col0 + r) * N + n0, wv);
+      Weight<W>::load(w2 + static_cast<size_t>(col0 + r) * N + n0, wv);
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
         const float hv = hid_s[b * TILE_COLS + r];
@@ -223,13 +278,17 @@ decode_ffn_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
+// out = (sum over splits, in split order) * scale + bias, rounded to bf16;
+// scale (w2's, per output channel) and bias may be null.
 __global__ void __launch_bounds__(THREADS)
-splits_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int splits, int B, int N) {
+splits_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ scale,
+                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int splits,
+                     int B, int N) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= B * N) return;
   float total = 0.0f;
   for (int s = 0; s < splits; ++s) total += partial[static_cast<size_t>(s) * B * N + i];
+  if (scale != nullptr) total *= scale[i % N];
   if (bias != nullptr) total += bias[i % N];
   out[i] = __float2bfloat16(total);
 }
@@ -241,31 +300,77 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int BT, bool GELU>
-int launch_matmul(const void* x, const void* w, const void* bias, void* out, int B, int K,
-                  int N, cudaStream_t stream) {
+template <int BT, bool GELU, typename W>
+int launch_matmul(const void* x, const void* w, const void* scale, const void* bias, void* out,
+                  int B, int K, int N, cudaStream_t stream) {
   const size_t smem = gemv_smem<BT>(K);
-  auto kernel = decode_matmul_kernel<BT, GELU>;
+  auto kernel = decode_matmul_kernel<BT, GELU, W>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE_COLS - 1) / TILE_COLS);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, K, N);
+      static_cast<const __nv_bfloat16*>(x), static_cast<const W*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), B, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BT>
-int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, float* partial,
-               int B, int K, int H, int N, cudaStream_t stream) {
+template <int BT, typename W>
+int launch_matmul_act(const void* x, const void* w, const void* scale, const void* bias,
+                      void* out, int B, int K, int N, int gelu, cudaStream_t stream) {
+  return gelu ? launch_matmul<BT, true, W>(x, w, scale, bias, out, B, K, N, stream)
+              : launch_matmul<BT, false, W>(x, w, scale, bias, out, B, K, N, stream);
+}
+
+template <typename W>
+int decode_matmul(const void* x, const void* w, const void* scale, const void* bias,
+                  void* out, int B, int K, int N, int gelu, void* stream) {
+  constexpr int VEC = Weight<W>::VEC;
+  if (B < 1 || B > Weight<W>::MAX_ROWS || N % VEC != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 4) return launch_matmul_act<4, W>(x, w, scale, bias, out, B, K, N, gelu, s);
+  if (B <= 8) return launch_matmul_act<8, W>(x, w, scale, bias, out, B, K, N, gelu, s);
+  return launch_matmul_act<Weight<W>::MAX_ROWS, W>(x, w, scale, bias, out, B, K, N, gelu, s);
+}
+
+template <int BT, typename W>
+int launch_ffn(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+               float* partial, int B, int K, int H, int N, cudaStream_t stream) {
   const size_t smem = gemv_smem<BT>(K);
-  auto kernel = decode_ffn_kernel<BT>;
+  auto kernel = decode_ffn_kernel<BT, W>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + TILE_COLS - 1) / TILE_COLS);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2), partial, B, K, H, N);
+      static_cast<const __nv_bfloat16*>(x), static_cast<const W*>(w1),
+      static_cast<const float*>(s1), static_cast<const float*>(b1), static_cast<const W*>(w2),
+      partial, B, K, H, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int decode_ffn(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+               const void* s2, const void* b2, void* partial, void* out, int B, int K, int H,
+               int N, void* stream) {
+  constexpr int VEC = Weight<W>::VEC;
+  if (B < 1 || B > Weight<W>::MAX_ROWS || N % VEC != 0 || H % VEC != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scratch = static_cast<float*>(partial);
+  int err;
+  if (B <= 4) {
+    err = launch_ffn<4, W>(x, w1, s1, b1, w2, scratch, B, K, H, N, s);
+  } else if (B <= 8) {
+    err = launch_ffn<8, W>(x, w1, s1, b1, w2, scratch, B, K, H, N, s);
+  } else {
+    err = launch_ffn<Weight<W>::MAX_ROWS, W>(x, w1, s1, b1, w2, scratch, B, K, H, N, s);
+  }
+  if (err != 0) return err;
+  const int total = B * N;
+  splits_reduce_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      scratch, static_cast<const float*>(s2), static_cast<const float*>(b2),
+      static_cast<__nv_bfloat16*>(out), (H + TILE_COLS - 1) / TILE_COLS, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,28 +378,32 @@ int launch_ffn(const void* x, const void* w1, const void* b1, const void* w2, fl
 
 extern "C" {
 
-// Rows of x one launch takes; the Python wrapper splits larger batches.
-int decode_max_rows() { return 16; }
+// Rows of x one launch takes (16 with bf16 weights, 8 with int8 / e4m3);
+// the Python wrapper splits larger batches.
+int decode_max_rows(int weight_bytes) {
+  return weight_bytes == 2 ? Weight<__nv_bfloat16>::MAX_ROWS : Weight<int8_t>::MAX_ROWS;
+}
 
-// Float32 partial slabs decode_ffn_bf16 writes for a hidden width H.
+// Float32 partial slabs decode_ffn_* writes for a hidden width H.
 int decode_ffn_splits(int H) { return (H + TILE_COLS - 1) / TILE_COLS; }
 
 // out[B, N] = act(x[B, K] @ w[K, N] + bias[N]); bias may be null; act is
 // tanh GELU when gelu != 0. bf16 in and out, float32 accumulation.
 int decode_matmul_bf16(const void* x, const void* w, const void* bias, void* out, int B, int K,
                        int N, int gelu, void* stream) {
-  if (B < 1 || B > 16 || N % VEC != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 4) {
-    return gelu ? launch_matmul<4, true>(x, w, bias, out, B, K, N, s)
-                : launch_matmul<4, false>(x, w, bias, out, B, K, N, s);
-  }
-  if (B <= 8) {
-    return gelu ? launch_matmul<8, true>(x, w, bias, out, B, K, N, s)
-                : launch_matmul<8, false>(x, w, bias, out, B, K, N, s);
-  }
-  return gelu ? launch_matmul<16, true>(x, w, bias, out, B, K, N, s)
-              : launch_matmul<16, false>(x, w, bias, out, B, K, N, s);
+  return decode_matmul<__nv_bfloat16>(x, w, nullptr, bias, out, B, K, N, gelu, stream);
+}
+
+// The same with int8 / e4m3 w and its float32 scale[N]:
+// out = act((x @ widen(w)) * scale + bias).
+int decode_matmul_int8(const void* x, const void* w, const void* scale, const void* bias,
+                       void* out, int B, int K, int N, int gelu, void* stream) {
+  return decode_matmul<int8_t>(x, w, scale, bias, out, B, K, N, gelu, stream);
+}
+
+int decode_matmul_fp8(const void* x, const void* w, const void* scale, const void* bias,
+                      void* out, int B, int K, int N, int gelu, void* stream) {
+  return decode_matmul<__nv_fp8_e4m3>(x, w, scale, bias, out, B, K, N, gelu, stream);
 }
 
 // out[B, N] = gelu(x[B, K] @ w1[K, H] + b1[H]) @ w2[H, N] + b2[N], the hidden
@@ -303,24 +412,23 @@ int decode_matmul_bf16(const void* x, const void* w, const void* bias, void* out
 int decode_ffn_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                     const void* b2, void* partial, void* out, int B, int K, int H, int N,
                     void* stream) {
-  if (B < 1 || B > 16 || N % VEC != 0 || H % VEC != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* scratch = static_cast<float*>(partial);
-  int err;
-  if (B <= 4) {
-    err = launch_ffn<4>(x, w1, b1, w2, scratch, B, K, H, N, s);
-  } else if (B <= 8) {
-    err = launch_ffn<8>(x, w1, b1, w2, scratch, B, K, H, N, s);
-  } else {
-    err = launch_ffn<16>(x, w1, b1, w2, scratch, B, K, H, N, s);
-  }
-  if (err != 0) return err;
-  const int total = B * N;
-  splits_reduce_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      scratch, static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out),
-      decode_ffn_splits(H), B, N);
-  return static_cast<int>(cudaGetLastError());
+  return decode_ffn<__nv_bfloat16>(x, w1, nullptr, b1, w2, nullptr, b2, partial, out, B, K, H,
+                                   N, stream);
+}
+
+// The same with int8 / e4m3 w1, w2 and their float32 scales s1[H], s2[N]:
+// out = (bf16(gelu((x @ widen(w1)) * s1 + b1)) @ widen(w2)) * s2 + b2.
+int decode_ffn_int8(const void* x, const void* w1, const void* s1, const void* b1,
+                    const void* w2, const void* s2, const void* b2, void* partial, void* out,
+                    int B, int K, int H, int N, void* stream) {
+  return decode_ffn<int8_t>(x, w1, s1, b1, w2, s2, b2, partial, out, B, K, H, N, stream);
+}
+
+int decode_ffn_fp8(const void* x, const void* w1, const void* s1, const void* b1,
+                   const void* w2, const void* s2, const void* b2, void* partial, void* out,
+                   int B, int K, int H, int N, void* stream) {
+  return decode_ffn<__nv_fp8_e4m3>(x, w1, s1, b1, w2, s2, b2, partial, out, B, K, H, N,
+                                   stream);
 }
 
 }  // extern "C"

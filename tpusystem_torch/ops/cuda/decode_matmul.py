@@ -11,12 +11,19 @@ weight bytes (``csrc/decode_matmul.cu`` holds the design note):
   ``[B, 4 * dim]`` hidden never reaches device memory (TPU kernel
   ``_ffn_kernel``).
 
+A weight is a bfloat16 matrix or, as in the reference, a
+:class:`~tpusystem_torch.ops.precision.QuantizedLeaf` of int8 or float8 e4m3
+values and float32 per-output-channel scales: the kernels stream the narrow
+bytes, widen each tile on chip and apply the scale to the float32 sum
+(:func:`~tpusystem_torch.ops.precision.qdot`'s arithmetic).
+
 Each wrapper follows its tensor's device: a CPU tensor takes the plain
 PyTorch version beside it (:func:`decode_matmul_plain`,
 :func:`decode_ffn_plain`), a CUDA tensor launches the kernel or raises.
-Each keeps a ``launches`` counter of kernel launches. Accumulation is
-float32; bias and activation are applied to the float32 sum and rounded once.
-The int8/fp8 in-kernel dequantization of the TPU kernels is not ported yet.
+Each keeps a ``launches`` counter of kernel launches and, by weight type,
+``mode_launches`` (``'bf16'``, ``'int8'``, ``'fp8'``). Accumulation is
+float32; scale, bias and activation are applied to the float32 sum, which
+is rounded once.
 """
 
 from __future__ import annotations
@@ -27,8 +34,20 @@ import torch
 import torch.nn.functional as F
 
 from tpusystem_torch.ops.cuda._build import LIBRARIES
+from tpusystem_torch.ops.precision import QuantizedLeaf, qdot
 
 ACTIVATIONS = (None, 'gelu')
+# the kernels' weight types, by the name of their entry points
+MODES = {torch.bfloat16: 'bf16', torch.int8: 'int8',
+         torch.float8_e4m3fn: 'fp8'}
+
+
+def _split(w):
+    """``(values, scales)`` of a weight: ``scales`` ``None`` for a plain
+    matrix, the per-output-channel row of a :class:`QuantizedLeaf`."""
+    if isinstance(w, QuantizedLeaf):
+        return w.values, w.scales.reshape(-1)
+    return w, None
 
 
 def _activate(acc, activation):
@@ -42,10 +61,12 @@ def _activate(acc, activation):
 
 
 def decode_matmul_plain(x, w, bias=None, *, activation=None):
-    """Plain PyTorch ``activation(x @ w + bias)``: the weight cast to
-    ``x``'s dtype, the product accumulated in float32, bias and activation
-    on the float32 sum, one rounding to ``x``'s dtype."""
-    acc = torch.matmul(x.float(), w.to(x.dtype).float())
+    """Plain PyTorch ``activation(x @ w + bias)``: the product as
+    :func:`~tpusystem_torch.ops.precision.qdot` takes it (the weight, or a
+    :class:`QuantizedLeaf`'s values, cast to ``x``'s dtype, float32 sums,
+    times the scales), bias and activation on the float32 sum, one
+    rounding to ``x``'s dtype."""
+    acc = qdot(x, w)
     if bias is not None:
         acc = acc + bias.float()
     return _activate(acc, activation).to(x.dtype)
@@ -54,10 +75,11 @@ def decode_matmul_plain(x, w, bias=None, *, activation=None):
 def decode_ffn_plain(x, w1, b1, w2, b2, *, activation='gelu'):
     """Plain PyTorch ``activation(x @ w1 + b1) @ w2 + b2``, the hidden
     rounded to ``x``'s dtype before the second product (as the TPU kernel
-    does), float32 accumulation, one rounding at the end."""
-    mid = torch.matmul(x.float(), w1.to(x.dtype).float())
-    mid = _activate(mid + b1.float(), activation)
-    acc = torch.matmul(mid.to(x.dtype).float(), w2.to(x.dtype).float())
+    does), float32 accumulation, each product times its weight's scales
+    when quantized (w1's before the bias and activation, w2's before b2),
+    one rounding at the end."""
+    mid = _activate(qdot(x, w1) + b1.float(), activation)
+    acc = qdot(mid.to(x.dtype), w2)
     return (acc + b2.float()).to(x.dtype)
 
 
@@ -65,15 +87,19 @@ def _library():
     lib = LIBRARIES.library('decode_matmul')
     if not getattr(lib, '_typed', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.decode_matmul_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                           i32, ptr]
-        lib.decode_matmul_bf16.restype = i32
-        lib.decode_ffn_bf16.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                        i32, i32, i32, i32, ptr]
-        lib.decode_ffn_bf16.restype = i32
+        lib.decode_matmul_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.decode_ffn_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        for mode in ('int8', 'fp8'):
+            getattr(lib, f'decode_matmul_{mode}').argtypes = (
+                [ptr] * 5 + [i32] * 4 + [ptr])
+            getattr(lib, f'decode_ffn_{mode}').argtypes = (
+                [ptr] * 9 + [i32] * 4 + [ptr])
+        for mode in MODES.values():
+            getattr(lib, f'decode_matmul_{mode}').restype = i32
+            getattr(lib, f'decode_ffn_{mode}').restype = i32
         lib.decode_ffn_splits.argtypes = [i32]
         lib.decode_ffn_splits.restype = i32
-        lib.decode_max_rows.argtypes = []
+        lib.decode_max_rows.argtypes = [i32]
         lib.decode_max_rows.restype = i32
         lib._typed = True
     return lib
@@ -83,23 +109,55 @@ def _pointer(tensor):
     return None if tensor is None else ctypes.c_void_p(tensor.data_ptr())
 
 
-def _check_cuda(name, x, weights):
+def _check_cuda(name, x, weights) -> str:
+    """Check the kernel's inputs; return the weights' mode (``'bf16'``,
+    ``'int8'`` or ``'fp8'``)."""
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: tensors on {x.device} are not supported '
                          '(CPU takes the plain version, CUDA the kernel)')
     if x.dim() != 2:
         raise ValueError(f'{name}: x must be [batch, features], got '
                          f'{tuple(x.shape)}')
-    for w in (x, *weights):
-        if w.dtype != torch.bfloat16:
-            raise ValueError(f'{name}: the CUDA kernel takes bfloat16 '
-                             f'activations and weights, got {w.dtype}')
-        if w.device != x.device:
-            raise ValueError(f'{name}: tensors on {w.device} and {x.device}')
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f'{name}: the CUDA kernel takes bfloat16 '
+                         f'activations, got {x.dtype}')
+    return _weight_mode(name, x.device, weights)
+
+
+def _weight_mode(name, device, weights) -> str:
+    """The one mode of ``weights`` on ``device``: bfloat16 matrices, or
+    :class:`QuantizedLeaf` s of int8 or float8 e4m3 values with a float32
+    scale per output channel."""
+    modes = set()
     for w in weights:
-        if not w.is_contiguous() or w.data_ptr() % 16:
+        values, scales = _split(w)
+        quantized = scales is not None
+        mode = MODES.get(values.dtype)
+        if mode is None or quantized != (mode != 'bf16'):
+            raise ValueError(f'{name}: the CUDA kernel takes bfloat16 weights '
+                             'or a QuantizedLeaf of int8 / float8_e4m3fn '
+                             f'values, got {values.dtype}'
+                             + (' with scales' if quantized else ''))
+        for tensor in (values,) + ((scales,) if quantized else ()):
+            if tensor.device != device:
+                raise ValueError(f'{name}: tensors on {tensor.device} and '
+                                 f'{device}')
+        if not values.is_contiguous() or values.data_ptr() % 16:
             raise ValueError(f'{name}: weights must be contiguous and 16-byte '
                              'aligned')
+        if quantized and scales.numel() != values.shape[-1]:
+            raise ValueError(f'{name}: {scales.numel()} scales for '
+                             f'{values.shape[-1]} output channels')
+        modes.add(mode)
+    if len(modes) != 1:
+        raise ValueError(f'{name}: weights of one type only, got {modes}')
+    return modes.pop()
+
+
+def _scales(w):
+    """The float32 scale row of a quantized weight (``None`` for bf16)."""
+    scales = _split(w)[1]
+    return None if scales is None else scales.float().contiguous()
 
 
 def _bias(bias, cols, device):
@@ -116,85 +174,116 @@ def _raise_on(err, name):
         raise RuntimeError(f'{name}: CUDA launch failed with error {err}')
 
 
+def _vector(mode: str) -> int:
+    """Weight values per 16-byte load: the column multiple a kernel takes."""
+    return 8 if mode == 'bf16' else 16
+
+
 def decode_matmul(x, w, bias=None, *, activation=None):
     """``activation(x @ w + bias)`` for decode: ``x`` ``[B, K]``, ``w``
-    ``[K, N]`` (flax layout), ``bias`` ``[N]`` applied in float32,
-    ``activation`` ``None`` or ``'gelu'`` (tanh). Returns ``[B, N]``.
+    ``[K, N]`` (flax layout), bfloat16 or a :class:`QuantizedLeaf` (its
+    scales multiply the float32 sum before the bias), ``bias`` ``[N]``
+    applied in float32, ``activation`` ``None`` or ``'gelu'`` (tanh).
+    Returns ``[B, N]``.
 
-    On CUDA: bfloat16 ``x`` and ``w`` only, ``N`` a multiple of 8; batches
-    over 16 rows launch once per 16-row slice."""
+    On CUDA: bfloat16 ``x``; ``N`` a multiple of 8 (bf16) or 16 (int8 and
+    fp8); batches over 16 rows (8 with narrow weights) launch once per
+    slice."""
     if x.device.type == 'cpu':
         return decode_matmul_plain(x, w, bias, activation=activation)
     if activation not in ACTIVATIONS:
         raise ValueError(f'unknown activation {activation!r}; expected one '
                          f'of {ACTIVATIONS}')
-    _check_cuda('decode_matmul', x, (w,))
-    (batch, inner), (inner_w, cols) = x.shape, w.shape
+    mode = _check_cuda('decode_matmul', x, (w,))
+    values = _split(w)[0]
+    (batch, inner), (inner_w, cols) = x.shape, values.shape
     if inner != inner_w:
         raise ValueError(f'x cols {inner} != w rows {inner_w}')
-    if cols % 8:
+    if cols % _vector(mode):
         raise ValueError(f'decode_matmul: {cols} output columns, the CUDA '
-                         'kernel needs a multiple of 8')
+                         f'kernel needs a multiple of {_vector(mode)}')
     lib = _library()
     x = x.contiguous()
     bias = _bias(bias, cols, x.device)
+    scales = _scales(w)
     out = torch.empty((batch, cols), dtype=torch.bfloat16, device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    step = lib.decode_max_rows()
+    kernel = getattr(lib, f'decode_matmul_{mode}')
+    step = lib.decode_max_rows(values.element_size())
     for start in range(0, batch, step):
         rows = min(step, batch - start)
-        err = lib.decode_matmul_bf16(
-            _pointer(x[start:start + rows]), _pointer(w), _pointer(bias),
-            _pointer(out[start:start + rows]), rows, inner, cols,
-            int(activation == 'gelu'), stream)
+        weights = ((_pointer(values),) if scales is None
+                   else (_pointer(values), _pointer(scales)))
+        err = kernel(_pointer(x[start:start + rows]), *weights,
+                     _pointer(bias), _pointer(out[start:start + rows]), rows,
+                     inner, cols, int(activation == 'gelu'), stream)
         _raise_on(err, 'decode_matmul')
         decode_matmul.launches += 1
+        decode_matmul.mode_launches[mode] += 1
     return out
 
 
 def decode_ffn(x, w1, b1, w2, b2, *, activation='gelu'):
     """The fused FFN chain ``activation(x @ w1 + b1) @ w2 + b2``: ``x``
-    ``[B, K]``, ``w1`` ``[K, H]``, ``w2`` ``[H, N]``, biases float32. The
-    CUDA kernel splits the hidden dimension over blocks and sums their
-    float32 partials in a second, deterministic pass; it takes bfloat16,
-    ``activation='gelu'``, and ``H`` and ``N`` multiples of 8."""
+    ``[B, K]``, ``w1`` ``[K, H]``, ``w2`` ``[H, N]`` (both bfloat16, or both
+    :class:`QuantizedLeaf` s: w1's scales multiply the hidden sums before
+    ``b1`` and the activation, w2's the output sums before ``b2``), biases
+    float32. The CUDA kernel splits the hidden dimension over blocks and
+    sums their float32 partials in a second, deterministic pass, which also
+    applies w2's scales to the full sum; it takes bfloat16 ``x``,
+    ``activation='gelu'``, and ``H`` and ``N`` multiples of 8 (bf16) or 16
+    (int8 and fp8)."""
     if x.device.type == 'cpu':
         return decode_ffn_plain(x, w1, b1, w2, b2, activation=activation)
     if activation != 'gelu':
         raise ValueError("decode_ffn: the CUDA kernel implements "
                          f"activation='gelu' only, got {activation!r}")
-    _check_cuda('decode_ffn', x, (w1, w2))
-    (batch, inner), (inner_w, hidden) = x.shape, w1.shape
-    hidden_w, cols = w2.shape
+    mode = _check_cuda('decode_ffn', x, (w1, w2))
+    v1, v2 = _split(w1)[0], _split(w2)[0]
+    (batch, inner), (inner_w, hidden) = x.shape, v1.shape
+    hidden_w, cols = v2.shape
     if inner != inner_w or hidden != hidden_w:
         raise ValueError(f'chain shapes do not compose: x {tuple(x.shape)}, '
-                         f'w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}')
-    if hidden % 8 or cols % 8:
+                         f'w1 {tuple(v1.shape)}, w2 {tuple(v2.shape)}')
+    if hidden % _vector(mode) or cols % _vector(mode):
         raise ValueError('decode_ffn: the CUDA kernel needs hidden and output '
-                         f'widths that are multiples of 8, got {hidden}, '
-                         f'{cols}')
+                         f'widths that are multiples of {_vector(mode)}, got '
+                         f'{hidden}, {cols}')
     if b1 is None or b2 is None:
         raise ValueError('decode_ffn: both biases are required')
     lib = _library()
     x = x.contiguous()
     b1, b2 = _bias(b1, hidden, x.device), _bias(b2, cols, x.device)
+    s1, s2 = _scales(w1), _scales(w2)
     out = torch.empty((batch, cols), dtype=torch.bfloat16, device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    step = lib.decode_max_rows()
+    kernel = getattr(lib, f'decode_ffn_{mode}')
+    step = lib.decode_max_rows(v1.element_size())
     splits = lib.decode_ffn_splits(hidden)
     for start in range(0, batch, step):
         rows = min(step, batch - start)
         partial = torch.empty((splits, rows, cols), dtype=torch.float32,
                               device=x.device)
-        err = lib.decode_ffn_bf16(
-            _pointer(x[start:start + rows]), _pointer(w1), _pointer(b1),
-            _pointer(w2), _pointer(b2), _pointer(partial),
-            _pointer(out[start:start + rows]), rows, inner, hidden, cols,
-            stream)
+        if mode == 'bf16':
+            weights = (_pointer(v1), _pointer(b1), _pointer(v2),
+                       _pointer(b2))
+        else:
+            weights = (_pointer(v1), _pointer(s1), _pointer(b1), _pointer(v2),
+                       _pointer(s2), _pointer(b2))
+        err = kernel(_pointer(x[start:start + rows]), *weights,
+                     _pointer(partial), _pointer(out[start:start + rows]),
+                     rows, inner, hidden, cols, stream)
         _raise_on(err, 'decode_ffn')
         decode_ffn.launches += 1
+        decode_ffn.mode_launches[mode] += 1
     return out
 
 
-decode_matmul.launches = 0
-decode_ffn.launches = 0
+def reset_launches() -> None:
+    """Set both kernels' counters, overall and by weight type, to 0."""
+    for kernel in (decode_matmul, decode_ffn):
+        kernel.launches = 0
+        kernel.mode_launches = dict.fromkeys(MODES.values(), 0)
+
+
+reset_launches()

@@ -44,8 +44,6 @@ TILE = 64          # kv rows per online-softmax step, as in the CUDA kernels
 HEAD_DIMS = (16, 32, 64)
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
-SEED_LIMIT = 2 ** 31 - 1   # seeds are drawn from [0, int32 max), as the
-                           # reference draws them (flash.py:773)
 _U32 = 0xFFFFFFFF
 
 
@@ -513,8 +511,10 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     drops attention probabilities with the 'xla' path's semantics
     (normalised weights dropped, survivors scaled by ``1 / (1 - dropout)``,
     lse the full denominator) through masks hashed from ``seed``, an int in
-    ``[0, SEED_LIMIT)`` the caller draws (the reference draws it from its
-    dropout key, ``flash.py:770-774``); it raises without one."""
+    ``[0, 2**31 - 1)`` the caller draws (the model draws it from its
+    dropout key as the reference does, ``flash.py:770-774``:
+    :func:`tpusystem_torch.ops.threefry.flash_seed`); it raises without
+    one."""
     _check_shapes(query, key)
     _check_backward(backward)
     _check_dropout(dropout, seed)

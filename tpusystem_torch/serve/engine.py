@@ -18,9 +18,12 @@ pool while batch membership changes between steps:
 ``decode_impl='fused'`` runs the step through
 :func:`tpusystem_torch.train.decode_fused.build_fused_paged_step`, whose
 products are the hand-written decode kernels; ``'flax'`` through the
-module's paged decode mode. Greedy outputs are token-exact against the JAX
-package's engine and against standalone ``generate`` in window-invariant
-arithmetic (float32 on the CPU).
+module's paged decode mode. ``stream_dtype='int8'`` or ``'fp8'`` keeps the
+streamed matrices quantized: the fused step's kernels read them narrow, the
+prefill and the module path run on their dequantized view, as the
+reference's do (``engine.py:207,569``). Greedy outputs are token-exact
+against the JAX package's engine and against standalone ``generate`` in
+window-invariant arithmetic (float32 on the CPU).
 
 The host keeps a mirror of every row's cursor, so each step's read window
 is chosen without waiting on the device; the only per-step device-to-host
@@ -46,8 +49,9 @@ from tpusystem_torch.serve.kvcache import (PagedKVCache, adopt_prefill,
 from tpusystem_torch.train.cursors import rewind
 from tpusystem_torch.train.decode_fused import (build_fused_paged_step,
                                                 fused_paged_reason)
-from tpusystem_torch.train.generate import (_decoder, _resolve_impl,
-                                            _stream_params, param_dict)
+from tpusystem_torch.train.generate import (_decoder, _dequant,
+                                            _resolve_impl, _stream_params,
+                                            param_dict)
 
 
 class Saturated(RuntimeError):
@@ -143,7 +147,9 @@ class Engine:
         block_size: tokens per KV block.
         blocks: physical blocks in the pool, trash block 0 included.
             Default: every row backed at full ``max_seq`` depth.
-        stream_dtype: ``'auto'`` | ``'bfloat16'`` | ``'float32'``.
+        stream_dtype: ``'auto'`` | ``'bfloat16'`` | ``'float32'`` |
+            ``'int8'`` | ``'fp8'`` (:func:`tpusystem_torch.train.generate`'s
+            weight-streaming levers).
         decode_impl: ``'flax'`` | ``'fused'`` | ``'auto'`` (fused on the card
             for bfloat16 modules, flax elsewhere).
         device: where to serve; ``None`` is the card.
@@ -252,7 +258,7 @@ class Engine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :prompt.size] = prompt
         logits, cache = functional_call(
-            self._prefiller, self._params,
+            self._prefiller, _dequant(self._params, self._prefiller),
             (torch.as_tensor(padded, device=self.device),), {'cache': None})
         return int(logits[0, prompt.size - 1].argmax()), cache
 
@@ -305,8 +311,8 @@ class Engine:
         if decode_impl == 'fused':
             return self._fused(self._params, cache, self._tokens_dev, depth)
         logits, cache = functional_call(
-            self._decoder, self._params, (self._tokens_dev[:, None],),
-            {'cache': cache, 'depth': depth})
+            self._decoder, _dequant(self._params, self._decoder),
+            (self._tokens_dev[:, None],), {'cache': cache, 'depth': depth})
         return logits[:, -1], cache
 
     def next_logits(self, decode_impl: str | None = None):

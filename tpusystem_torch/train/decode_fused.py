@@ -4,11 +4,15 @@ One hand-rolled GPT-2 token step whose three matrix products per layer run
 through the decode kernels of :mod:`tpusystem_torch.ops.cuda.decode_matmul`:
 ``decode_matmul`` for qkv and for the attention output, ``decode_ffn`` for
 the fc → GELU → proj chain. On a CUDA tensor those are the hand-written
-kernels; on the CPU their plain versions. The rest of the step mirrors the
-module's decode mode op for op: float32 layernorms (flax's fast-variance
-form, epsilon 1e-6), the bucketed cache read, the tied float32-logit head.
-Prefill runs through the module itself, so the cache layout and the prompt
-logits are the module path's own.
+kernels; on the CPU their plain versions. With ``stream_dtype='int8'`` or
+``'fp8'`` the four matrices of a block are
+:class:`~tpusystem_torch.ops.precision.QuantizedLeaf` s, which the kernels
+read narrow (the reference's ``decode_fused.py:202-265``). The rest of the
+step mirrors the module's decode mode op for op: float32 layernorms (flax's
+fast-variance form, epsilon 1e-6), the bucketed cache read, the tied
+float32-logit head.
+Prefill runs through the module itself, on the dequantized weights, so the
+cache layout and the prompt logits are the module path's own.
 
 Contract: **the same greedy tokens as the module path** in
 window-invariant arithmetic (float32 on the CPU).
@@ -28,7 +32,7 @@ from torch.func import functional_call
 from tpusystem_torch.ops.attention import (NEG_INF, contiguous_window,
                                            paged_window)
 from tpusystem_torch.ops.cuda.decode_matmul import decode_ffn, decode_matmul
-from tpusystem_torch.ops.precision import head_logits
+from tpusystem_torch.ops.precision import dequantize_streamed, head_logits
 
 
 def fused_unsupported_reason(decoder) -> str | None:
@@ -214,8 +218,9 @@ def build_fused(decoder, steps: int):
 
     @torch.no_grad()
     def run(params, prompt):
-        logits, cache = functional_call(decoder, params, (prompt,),
-                                        {'cache': None})
+        logits, cache = functional_call(
+            decoder, dequantize_streamed(params, compute), (prompt,),
+            {'cache': None})
         length = prompt.shape[1]
         cursor = cache['position'].long()                        # uniform
         token = logits[:, -1].argmax(-1)

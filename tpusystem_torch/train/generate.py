@@ -9,12 +9,18 @@ module itself; ``'fused'`` through the hand-rolled token step of
 decode kernels. PyTorch runs eagerly, so the loop is a Python loop and the
 host picks each step's read window from the cursor it already knows.
 
+``stream_dtype='int8'`` or ``'fp8'`` quantizes the streamed matrices per
+output channel (:func:`tpusystem_torch.ops.precision.quantize_streamed`):
+the fused step hands the narrow leaves to the decode kernels, which widen
+them on chip; the prefill and the module path run on their dequantized view
+(:func:`_dequant`), as the reference's do.
+
 Parameters travel beside the module, as in the reference (``params`` is a
 state dict such as :func:`tpusystem_torch.convert.params_from_jax` returns,
 or ``None`` for the module's own), and are applied with
 :func:`torch.func.functional_call`. Not ported yet: sampling
-(``temperature > 0``, which needs the threefry port), ``int8``/``fp8``
-weight streaming and speculative decoding.
+(``temperature > 0``: ``categorical`` on top of
+:mod:`tpusystem_torch.ops.threefry`) and speculative decoding.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 from torch.func import functional_call
 
 from tpusystem_torch.device import resolve_device
+from tpusystem_torch.ops.precision import (dequantize_streamed,
+                                           quantize_streamed)
 from tpusystem_torch.train.decode_fused import (build_fused,
                                                 fused_unsupported_reason)
 
@@ -64,24 +72,42 @@ def _cast(params: dict, dtype: torch.dtype) -> dict:
 
 
 def _stream_params(decoder, params: dict, stream_dtype: str) -> dict:
-    """The param dict a decode loop streams: float32 matrices pre-cast to
-    the compute dtype (``'auto'`` when that is narrower, or ``'bfloat16'``),
-    or the masters untouched (``'float32'``)."""
+    """The param dict a decode loop streams (``generate.py:52-77``): float32
+    matrices pre-cast to the compute dtype (``'auto'`` when that is
+    narrower, or ``'bfloat16'``), quantized to per-channel-scaled
+    :class:`~tpusystem_torch.ops.precision.QuantizedLeaf` s (``'int8'``,
+    ``'fp8'``), or the masters untouched (``'float32'``)."""
     if stream_dtype not in STREAM_DTYPES:
         raise ValueError(f'unknown stream_dtype {stream_dtype!r}; '
                          f'expected one of {STREAM_DTYPES}')
     if stream_dtype == 'float32':
         return params
     if stream_dtype in ('int8', 'fp8'):
-        raise NotImplementedError(
-            f"stream_dtype={stream_dtype!r} is not ported yet (ROADMAP queue "
-            '1: int8/fp8 streaming with the decode kernels\' dequant)')
+        return quantize_streamed(params, stream_dtype)
     if stream_dtype == 'auto':
         dtype = decoder.compute_dtype
         if dtype.itemsize >= torch.float32.itemsize:
             return params
         return _cast(params, dtype)
     return _cast(params, torch.bfloat16)
+
+
+def streamed_bytes(module, params, stream_dtype: str) -> int:
+    """Bytes of :func:`generate`'s streamed param dict under one
+    ``stream_dtype`` (``generate.py:117``): what a decode step reads of the
+    weights, narrow values and their scales counted for the quantized
+    modes, embeddings and vectors as they stay."""
+    streamed = _stream_params(_decoder(module),
+                              param_dict(module, params, module.device),
+                              stream_dtype)
+    return sum(leaf.nbytes for leaf in streamed.values())
+
+
+def _dequant(params: dict, decoder) -> dict:
+    """The dequantized view of a streamed dict in the module's compute
+    dtype, for the prefill and the module path (``generate.py:128``); the
+    same dict when nothing is quantized."""
+    return dequantize_streamed(params, decoder.compute_dtype)
 
 
 def _resolve_impl(decode_impl: str, reason: str | None, decoder,
@@ -119,7 +145,8 @@ def generate(module, params, prompt, *, steps: int,
         steps: tokens to generate per sequence.
         temperature: 0 only (greedy); sampling is not ported yet.
         rng: unused until sampling is ported.
-        stream_dtype: ``'auto'`` | ``'bfloat16'`` | ``'float32'``.
+        stream_dtype: ``'auto'`` | ``'bfloat16'`` | ``'float32'`` |
+            ``'int8'`` | ``'fp8'``.
         decode_impl: ``'flax'`` | ``'fused'`` | ``'auto'``.
         device: where to run; ``None`` is the card.
 
@@ -150,6 +177,7 @@ def generate(module, params, prompt, *, steps: int,
 
 def _run(decoder, steps: int, params: dict, prompt):
     """The module-path decode loop: prefill, then one forward per token."""
+    params = _dequant(params, decoder)
     logits, cache = functional_call(decoder, params, (prompt,),
                                     {'cache': None})
     token = logits[:, -1].argmax(-1)

@@ -4,10 +4,10 @@ The reference's state is an immutable pytree that a jitted step takes and
 donates, so its buffers are reused in place. The port's step updates the
 state **in place** instead: the parameters (the module's own tensors), the
 optimizer's slots and the step counter change where they lie, and the step
-returns the same object. The carried PRNG key becomes a ``torch.Generator``
-(on the CPU: drawing from it never waits on the card) from which each step
-takes a fresh generator. ``health`` (the guard's statistics) is not ported
-yet.
+returns the same object. The carried PRNG key is the reference's threefry
+key, two 32-bit words held on the host (:mod:`tpusystem_torch.ops.threefry`:
+deriving a key never waits on the card), split each step as the reference
+splits it. ``health`` (the guard's statistics) is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,41 +16,35 @@ from typing import Any
 
 import torch
 
-__all__ = ['TrainState', 'split_rng']
+from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
 
-
-def split_rng(generator: torch.Generator, count: int) -> list:
-    """``count`` fresh generators seeded from ``generator`` (which advances):
-    the counterpart of ``jax.random.split``."""
-    seeds = torch.randint(0, 2 ** 62, (count,), generator=generator)
-    return [torch.Generator().manual_seed(int(seed)) for seed in seeds]
+__all__ = ['TrainState']
 
 
 class TrainState:
-    """Parameters, optimizer slots, the carried generator and a step counter
+    """Parameters, optimizer slots, the carried key and a step counter
     that lives on the parameters' device (incrementing it never waits on
     the host).
 
     Attributes:
         params: ``{name: tensor}``, updated in place by the step.
         opt_state: the optimizer's slots (:meth:`Optimizer.init`).
-        rng: the carried ``torch.Generator``.
+        rng: the carried threefry key, ``(k0, k1)``.
         step: scalar int32 tensor on the parameters' device.
     """
 
-    def __init__(self, params: dict, opt_state: Any, rng: torch.Generator,
+    def __init__(self, params: dict, opt_state: Any, rng: tuple,
                  step: torch.Tensor) -> None:
         self.params, self.opt_state, self.rng, self.step = (
             params, opt_state, rng, step)
 
     @classmethod
     def create(cls, params: dict, opt_state: Any,
-               rng: torch.Generator | int = 0, health: Any = None
-               ) -> 'TrainState':
+               rng=0, health: Any = None) -> 'TrainState':
+        """``rng`` an int seed (``PRNGKey(rng)``) or a key."""
         if health is not None:
             raise _health_not_ported()
-        if isinstance(rng, int):
-            rng = torch.Generator().manual_seed(rng)
+        rng = PRNGKey(rng) if isinstance(rng, int) else as_key(rng)
         device = next(iter(params.values())).device
         return cls(params, opt_state, rng,
                    torch.zeros((), dtype=torch.int32, device=device))
@@ -59,10 +53,11 @@ class TrainState:
     def health(self):
         raise _health_not_ported()
 
-    def next_rng(self) -> torch.Generator:
-        """Advance the carried generator; return a fresh one seeded from
-        it (the counterpart of splitting the carried key)."""
-        return split_rng(self.rng, 1)[0]
+    def next_rng(self) -> tuple:
+        """Split the carried key (``tpusystem/train/state.py:103-106``):
+        carry the first half, return the second."""
+        self.rng, sub = split(self.rng)
+        return sub
 
     @property
     def global_step(self) -> int:

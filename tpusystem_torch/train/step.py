@@ -20,10 +20,12 @@ from typing import Any
 
 import torch
 
-from tpusystem_torch.train.state import TrainState, split_rng
+from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
+from tpusystem_torch.train.state import TrainState
 
-# apply_fn contract: (params, inputs, rng, train) -> outputs
-ApplyFn = Callable[[dict, Any, torch.Generator | None, bool], Any]
+# apply_fn contract: (params, inputs, rng, train) -> outputs; rng a threefry
+# key (two 32-bit words) or None
+ApplyFn = Callable[[dict, Any, tuple | None, bool], Any]
 # criterion contract: (outputs, targets) -> scalar loss
 Criterion = Callable[[Any, Any], torch.Tensor]
 
@@ -37,8 +39,8 @@ def module_apply(module: torch.nn.Module) -> ApplyFn:
     """Adapt an ``nn.Module`` to the step builders' apply contract (the
     counterpart of ``flax_apply``): the forward runs with ``params`` in
     place of the module's own tensors (``torch.func.functional_call``) and
-    gets ``train=`` and ``rng=`` (the step's generator, which dropout draws
-    from) only when its ``forward`` accepts them."""
+    gets ``train=`` and ``rng=`` (the step's threefry key, from which
+    dropout derives its masks) only when its ``forward`` accepts them."""
     accepted = signature(module.forward).parameters
 
     def apply(params, inputs, rng=None, train=False):
@@ -74,9 +76,8 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
     and grads are weighted by it, so the result equals the full-batch step
     even when padding gives microbatches different token counts; other
     criteria are averaged equally. The returned ``outputs`` are the last
-    microbatch's, ``loss`` the weighted mean. Each microbatch draws its
-    dropout from its own generator, split from the step's as the reference
-    splits its key."""
+    microbatch's, ``loss`` the weighted mean. Microbatch ``i`` takes key
+    ``i`` of ``split(step key, accumulate)``, as the reference does."""
     if guard is not None:
         raise _not_ported('build_train_step(guard=)', 'guard and Sentinel')
     if fault is not None:
@@ -109,7 +110,7 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
             weight_sum = torch.zeros((), device=device)
             for micro_inputs, micro_targets, micro_rng in zip(
                     inputs.split(size), targets.split(size),
-                    split_rng(rng, accumulate)):
+                    split(rng, accumulate)):
                 loss, outputs, grads = value_and_grad(
                     leaves, state.params, micro_inputs, micro_targets,
                     micro_rng)
@@ -154,11 +155,14 @@ def build_1f1b_train_step(*args, **kwargs):
 
 
 def init_state(module: torch.nn.Module, optimizer, *,
-               rng: int | torch.Generator = 0) -> TrainState:
+               rng=0) -> TrainState:
     """A :class:`TrainState` over ``module``'s own parameters, which the
     step then updates in place: the module's weights are its initialization
     (drawn from a seeded generator when it was built, or loaded with
-    ``load_state_dict``), the optimizer's slots start at zero, and ``rng``
-    seeds the carried generator."""
+    ``load_state_dict``) and the optimizer's slots start at zero. ``rng``
+    (an int seed or a key) is split as the reference's ``init_state``
+    splits it into the init key and the carried key: the state carries the
+    second, so a seed gives the reference's dropout stream."""
     params = dict(module.named_parameters())
-    return TrainState.create(params, optimizer.init(params), rng)
+    key = PRNGKey(rng) if isinstance(rng, int) else as_key(rng)
+    return TrainState.create(params, optimizer.init(params), split(key)[1])
