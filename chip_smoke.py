@@ -11,6 +11,12 @@ Phases, in order; any failure exits non-zero:
    the serving path's shapes (bfloat16, batch 8, prefill lengths 512 and
    1024) and time it beside the plain version, the one PyTorch library call
    that computes the same function, and its bound;
+   then K1 at head dim 128, Llama-3 8B's prefill shapes [1, S, 32, 8, 128]
+   for S = 512, 1024, 4096 and 8192, an MHA case [2, 1024, 8, 8, 128], a
+   ragged length (S = 1000) and a non-causal case, each against the plain
+   forward, timed beside it, ``scaled_dot_product_attention`` (GQA) and
+   its bound, with ptxas' registers and spills of every K1 instantiation
+   (``k1-ptxas``);
 3. the same for the flash backward kernels (fused, and the split dq / dkv
    pair) at the training shape [16, 1024, 12, 64], causal, plus a bitwise
    repeat and GQA, non-causal and ragged-length cases;
@@ -84,7 +90,18 @@ Phases, in order; any failure exits non-zero:
     and five timed steps whose losses must fall, K8 launched 26 times and
     K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
     and a traced window;
-15. print the ``kernels`` line, the card's name and power limit, and last the
+15. serve Llama-3 8B (``llama3_8b``: 32 layers, dim 4096, 32 / 8 heads of
+    128, FFN 14336, vocab 128256, ``max_seq`` 8192; random weights from
+    ``--seed``) through ``Engine(rows=8, block_size=16)``, after freeing the
+    earlier phases: the route resolves to the module paged step, eight
+    requests of 20 to 7,000 prompt tokens (buckets 32, 512 ... 8192) take 32
+    new tokens each, K1 launches 32 times for each bucket of 512 or more
+    (224) and K4/K5 never; the logits through the paged cache at one
+    request's prefill and first 4 decode steps agree with the model's
+    non-cached forward; time to first token by bucket, decode tokens/s,
+    step ms, peak memory and a traced window of 4 decode steps
+    (``serve-llama``);
+16. print the ``kernels`` line, the card's name and power limit, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -128,6 +145,19 @@ DROPOUT_STEPS = 3
 DROPOUT_KERNEL_SHAPES = {'mha': (TRAIN_BATCH, TRAIN_SEQ, HEADS),
                          'gqa': (2, 1024, 4),
                          'k2a': (1, 2048, HEADS)}
+# K1 at head dim 128: (label, batch, seq, q heads, kv heads, causal);
+# Llama-3 8B's prefill buckets at 32 / 8 heads, then MHA, ragged, non-causal
+K1_128_CASES = (('S=512', 1, 512, 32, 8, True),
+                ('S=1024', 1, 1024, 32, 8, True),
+                ('S=4096', 1, 4096, 32, 8, True),
+                ('S=8192', 1, 8192, 32, 8, True),
+                ('mha', 2, 1024, 8, 8, True),
+                ('ragged', 1, 1000, 32, 8, True),
+                ('noncausal', 1, 1024, 32, 8, False))
+# Llama-3 8B serving: eight requests whose buckets are 32, then 512 to 8192
+LLAMA_PROMPT_LENGTHS = (20, 300, 600, 1100, 2100, 3000, 4500, 7000)
+LLAMA_PROBE = 1100              # the request whose logits are probed
+LLAMA_PROBE_STEPS = 4
 
 
 def fail(message: str) -> None:
@@ -860,14 +890,19 @@ def all_equal(torch, got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def check_long_forward(torch, label, q, k, v, out, lse):
-    """K1's ``out`` and ``lse`` of ``q, k, v`` (causal) against the plain
-    forward, timed beside it and ``scaled_dot_product_attention``."""
+def check_long_forward(torch, label, q, k, v, out, lse, causal=True,
+                       by_events=True, calls=5):
+    """K1's ``out`` and ``lse`` of ``q, k, v`` against the plain forward,
+    timed beside it and ``scaled_dot_product_attention`` (with
+    ``enable_gqa`` where the kv heads are fewer). The bound counts q, k, v,
+    out and lse once, and 4 head_dim flops per visible (query, key) pair.
+    ``by_events`` quotes the CUDA-event times (for kernels of
+    milliseconds)."""
     import torch.nn.functional as F
 
     from tpusystem_torch.ops.cuda import flash
 
-    want_out, want_lse = flash.flash_attention_plain(q, k, v)
+    want_out, want_lse = flash.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
         fail(f'{label}: non-finite output')
@@ -876,20 +911,88 @@ def check_long_forward(torch, label, q, k, v, out, lse):
     del want_out, want_lse
     if lse_err > 1e-3:
         fail(f'{label}: lse max abs err {lse_err} over 1e-3')
-    timed = measure(lambda i: flash.flash_attention_lse(q, k, v), calls=5,
-                    warmup=2)
-    plain = measure(lambda i: flash.flash_attention_plain(q, k, v), calls=2,
-                    warmup=1)
+    timed = measure(lambda i: flash.flash_attention_lse(q, k, v,
+                                                        causal=causal),
+                    calls=calls, warmup=2)
+    plain = measure(lambda i: flash.flash_attention_plain(q, k, v,
+                                                          causal=causal),
+                    calls=2, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    grouped = ({'enable_gqa': True} if k.shape[2] != q.shape[2] else {})
     library = measure(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), calls=5, warmup=2)
+        qt, kt, vt, is_causal=causal, **grouped), calls=calls, warmup=2)
     batch, seq, heads, head_dim = q.shape
-    moved = 4 * batch * seq * heads * head_dim * 2 + batch * seq * heads * 4
-    flops = 4 * head_dim * attention_pairs(batch, seq, heads)
+    moved = (2 * q.numel() + 2 * k.numel()) * 2 + batch * seq * heads * 4
+    pairs = (attention_pairs(batch, seq, heads) if causal
+             else batch * heads * seq * seq)
     return record_check(label, list(q.shape), err, 2e-2, timed, plain,
-                        library, bound_ms(moved, flops), by_events=True,
-                        lse_err=lse_err,
-                        library_call='scaled_dot_product_attention, causal')
+                        library, bound_ms(moved, 4 * head_dim * pairs),
+                        by_events=by_events, lse_err=lse_err,
+                        kv_heads=k.shape[2], causal=causal,
+                        library_call='scaled_dot_product_attention'
+                        + (', causal' if causal else '')
+                        + (', enable_gqa' if grouped else ''))
+
+
+def ptxas_report(output: str) -> dict:
+    """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from one
+    ``nvcc -Xptxas -v`` output, kernels by their demangled template name
+    (``flash_fwd_kernel<128>``) where the mangled one carries it."""
+    import re
+
+    report, name = {}, None
+    for line in output.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+            # a template argument: ..16flash_fwd_kernelILi128EE..
+            template = re.search(r'([A-Za-z_]+)ILi(\d+)E', name)
+            if template:
+                name = f'{template.group(1)}<{template.group(2)}>'
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        found = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
+                          r'stores, (\d+) bytes spill loads', line)
+        if found:
+            report[name].update(stack=int(found.group(1)),
+                                spill_stores=int(found.group(2)),
+                                spill_loads=int(found.group(3)))
+        found = re.search(r'Used (\d+) registers', line)
+        if found:
+            report[name]['registers'] = int(found.group(1))
+    return report
+
+
+def check_k1_head_dim_128(torch, generator):
+    """Phase 2b: K1 at head dim 128, Llama-3 8B's prefill shapes (32 query
+    heads over 8 kv heads) at S = 512, 1024, 4096 and 8192, an MHA case
+    [2, 1024, 8, 128], a ragged length (S = 1000) and a non-causal case,
+    each against the plain forward (out within 2e-2, lse within 1e-3),
+    timed beside it, ``scaled_dot_product_attention`` and the bound; and
+    ptxas' registers and spills of every K1 instantiation."""
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+
+    registers = {name: entry for name, entry in ptxas_report(
+        LIBRARIES.compiler_output.get('flash_fwd', '')).items()
+        if 'flash_fwd_kernel' in name}
+    print('k1-ptxas ' + json.dumps(registers or 'not available: the '
+                                   'library was built by an earlier process'))
+    rows = []
+    for label, batch, seq, heads, kv_heads, causal in K1_128_CASES:
+        q = torch.randn((batch, seq, heads, 128), generator=generator,
+                        device='cuda').to(torch.bfloat16)
+        k, v = (torch.randn((batch, seq, kv_heads, 128), generator=generator,
+                            device='cuda').to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
+        rows.append(check_long_forward(
+            torch, f'flash_attention_d128[{label}]', q, k, v, out, lse,
+            causal=causal, by_events=False, calls=10))
+        del q, k, v, out, lse
+    return rows, registers
 
 
 def check_long_backward(torch, generator):
@@ -1024,7 +1127,8 @@ def dropout_masks(torch, kernel, batch, seq, heads, kv_heads, seed,
     return masks
 
 
-def forward_masks(torch, generator, batch, seq, heads, kv_heads, seed):
+def forward_masks(torch, generator, batch, seq, heads, kv_heads, seed,
+                  head_dim=HEAD_DIM):
     """K1's keep masks, read from its output: with q = 0 every visible
     probability of row i is ``1 / (i + 1)``, and v one-hot on the rows of
     kv tile t makes ``out[i, c]`` nonzero iff ``keep(i, 64 t + c)``."""
@@ -1032,9 +1136,9 @@ def forward_masks(torch, generator, batch, seq, heads, kv_heads, seed):
 
     mask = torch.full((batch, heads, seq, seq), -1, dtype=torch.int8,
                       device='cuda')
-    query = torch.zeros((batch, seq, heads, HEAD_DIM), dtype=torch.bfloat16,
+    query = torch.zeros((batch, seq, heads, head_dim), dtype=torch.bfloat16,
                         device='cuda')
-    key = torch.randn((batch, seq, kv_heads, HEAD_DIM), generator=generator,
+    key = torch.randn((batch, seq, kv_heads, head_dim), generator=generator,
                       device='cuda').to(torch.bfloat16)
     for t in range(math.ceil(seq / 64)):
         cols = torch.arange(64 * t, min(64 * t + 64, seq), device='cuda')
@@ -1683,26 +1787,33 @@ def serving_prompts(seed: int, vocab: int) -> list:
     return [rng.integers(0, vocab, (n,)) for n in PROMPT_LENGTHS]
 
 
-def drive_engine(torch, engine, prompts) -> dict:
+def drive_engine(torch, engine, prompts, profile_at: int | None = None
+                 ) -> dict:
     """Admit every prompt (``MAX_NEW`` tokens each), then step until every
     request has finished by length with in-vocabulary tokens: the tokens
-    of each request in prompt order, and the run's step and token counts
-    and host times."""
+    of each request in prompt order, each admission's seconds (prefill and
+    seating, synchronised: the time to first token), the untraced steps'
+    seconds, and the run's step and token counts. ``profile_at`` traces
+    four steps (not counted) after that many."""
     vocab = engine._decoder.vocab_size
     torch.cuda.synchronize()
     started = time.perf_counter()
-    seated = []
+    seated, admissions = [], []
     for prompt in prompts:
+        admitted = time.perf_counter()
         admission = engine.admit(prompt, MAX_NEW)
+        torch.cuda.synchronize()
+        admissions.append(time.perf_counter() - admitted)
         if admission.finished:
             fail(f'request in row {admission.row} finished at admission')
         seated.append(admission.row)
     admit_seconds = time.perf_counter() - started
-    finished, steps, step_seconds, emitted = {}, 0, 0.0, 0
+    finished, step_seconds, emitted, profile = {}, [], 0, None
     while engine.active_rows:
+        if len(step_seconds) == profile_at:
+            profile = profile_steps(torch, engine.step)
         report = engine.step()
-        steps += 1
-        step_seconds += engine.last_step_seconds
+        step_seconds.append(engine.last_step_seconds)
         emitted += sum(len(tokens) for tokens in report.emitted.values())
         for row, reason, tokens in report.finished:
             finished[row] = (reason, tokens)
@@ -1714,12 +1825,24 @@ def drive_engine(torch, engine, prompts) -> dict:
         if reason != 'length' or len(tokens) != MAX_NEW or not all(
                 0 <= t < vocab for t in tokens):
             fail(f'row {row}: {reason}, {len(tokens)} tokens')
+    steps = len(step_seconds)
     return dict(tokens=[finished[row][1] for row in seated], steps=steps,
                 decode_tokens=emitted,
-                decode_tokens_per_s=emitted / step_seconds,
-                step_ms=1e3 * step_seconds / steps,
+                decode_tokens_per_s=emitted / sum(step_seconds),
+                step_ms=1e3 * sum(step_seconds) / steps,
+                step_ms_quantiles=[1e3 * q for q in quantiles(step_seconds)],
+                admission_s=admissions,
                 prefill_s=engine.timings['prefill'], admit_s=admit_seconds,
-                wall_s=wall)
+                wall_s=wall, **({} if profile is None else
+                                {'profile': profile}))
+
+
+def quantiles(values) -> list:
+    """``[min, median, p90, max]`` of ``values``."""
+    ranked = sorted(values)
+    pick = lambda share: ranked[min(len(ranked) - 1,
+                                    int(share * (len(ranked) - 1) + 0.5))]
+    return [ranked[0], pick(0.5), pick(0.9), ranked[-1]]
 
 
 def logit_probe(torch, engine, prompts) -> dict:
@@ -1821,6 +1944,109 @@ def serve_quantized(torch, seed: int, bf16_tokens: list) -> dict:
     return results
 
 
+def llama_probe(torch, engine, module, prompt) -> dict:
+    """The logits through the paged cache of one request, at its prefill's
+    last position and at its first ``LLAMA_PROBE_STEPS`` decode steps
+    (``Engine.next_logits``), held against the model's own non-cached
+    forward (``decode=False``, xla attention, no kernel) over the prompt and
+    the tokens so far. Both run the same bf16 weights; they round at other
+    points (K1 and the paged read against one einsum attention, the prefill
+    padded to its bucket), and a bfloat16 step here and there, carried
+    through 32 residual blocks, reaches logits of order 1: the tolerance is
+    2**-4 of the largest logit, GPT-2's probe's."""
+    full = module.replace(decode=False, attention='xla')
+    tokens = [int(t) for t in prompt]
+    with torch.no_grad():
+        got = [engine._prefill(prompt)[0]]
+    admission = engine.admit(prompt, MAX_NEW)
+    tokens.append(admission.token)
+    pairs = []
+    for step in range(LLAMA_PROBE_STEPS + 1):
+        if step:
+            got = [engine.next_logits()[admission.row]]
+            tokens += engine.step().emitted[admission.row]
+        with torch.no_grad():
+            want = full(torch.as_tensor([tokens[:len(tokens) - 1]],
+                                        device=module.device))[0, -1]
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got[0]).all()
+                and got[0].shape == want.shape):
+            fail('Llama probe: logits not finite [vocab]')
+        err = (got[0] - want).abs().max().item()
+        tol = 2 ** -4 * want.abs().max().item()
+        pairs.append((err, tol, bool(got[0].argmax() == want.argmax())))
+    for err, tol, _ in pairs:
+        if err > tol:
+            fail(f'Llama probe: logits through the cache vs the full forward '
+                 f'max abs err {err} over {tol}')
+    engine.evict(admission.row)
+    return dict(probe_prompt=len(prompt),
+                probe_max_abs_err=[err for err, _, _ in pairs],
+                probe_tol=[tol for _, tol, _ in pairs],
+                probe_argmax_equal=[same for _, _, same in pairs])
+
+
+def serve_llama(torch, seed: int) -> dict:
+    """Phase 15: Llama-3 8B (``llama3_8b``, full width, 32 layers, random
+    weights from ``seed``) through ``Engine(rows=8, block_size=16)``: the
+    route resolves to the module paged step, eight requests of 20 to 7,000
+    prompt tokens (buckets 32, 512 ... 8192) take 32 new tokens each, K1
+    launches once a layer for each prefill of 512 tokens or more and K4/K5
+    never; then the logits probe and a traced window of 4 decode steps.
+    ``serving_peak_bytes`` is the peak of the serving run;
+    ``peak_bytes`` adds the probe's (``next_logits`` clones the pool, and
+    the full forward casts the float32 masters per use)."""
+    import gc
+
+    import numpy as np
+
+    from tpusystem_torch.models import llama3_8b
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.serve import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    module = llama3_8b(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - started
+    if engine.decode_impl != 'flax':
+        fail(f'the Llama engine chose decode_impl={engine.decode_impl!r}, '
+             "not 'flax' (the module paged step)")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, module.vocab_size, (n,))
+               for n in LLAMA_PROMPT_LENGTHS]
+    buckets = [engine.bucket(len(prompt)) for prompt in prompts]
+    dm.reset_launches()
+    flash.flash_attention_lse.launches = 0
+    run = drive_engine(torch, engine, prompts, profile_at=8)
+    serving_peak = torch.cuda.max_memory_allocated()
+    launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                'decode_matmul': dm.decode_matmul.launches,
+                'decode_ffn': dm.decode_ffn.launches}
+    flashed = module.layers * sum(bucket >= 512 for bucket in buckets)
+    if launches != {'flash_attention_lse': flashed, 'decode_matmul': 0,
+                    'decode_ffn': 0}:
+        fail(f'Llama serving launched {launches}; expected K1 {flashed} '
+             'times and K4/K5 never')
+    probe = llama_probe(torch, engine, module,
+                        prompts[LLAMA_PROMPT_LENGTHS.index(LLAMA_PROBE)])
+    del run['tokens']
+    return dict(run, **probe, launches=launches, buckets=buckets,
+                prompt_lengths=list(LLAMA_PROMPT_LENGTHS), max_new=MAX_NEW,
+                ttft_s_by_bucket=dict(zip(map(str, buckets),
+                                          run['admission_s'])),
+                params=sum(p.numel() for p in module.parameters()),
+                setup_s=setup_s, held_before_bytes=held,
+                serving_peak_bytes=serving_peak,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1850,8 +2076,9 @@ def main() -> None:
     print(f'built {sorted(LIBRARIES.build())} in {build_seconds:.1f} s')
 
     generator = torch.Generator('cuda').manual_seed(args.seed)
-    checks = check_kernels(torch, generator) + check_backward(torch,
-                                                              generator)
+    checks = check_kernels(torch, generator)
+    k1_128_rows, k1_ptxas = check_k1_head_dim_128(torch, generator)
+    checks += k1_128_rows + check_backward(torch, generator)
     checks += check_long_backward(torch, generator)
     served = serve(torch, args.seed)
     bf16_tokens = served.pop('tokens')
@@ -1874,6 +2101,8 @@ def main() -> None:
     checks += lookup_rows
     dlrm = train_dlrm(torch, args.seed)
     print('dlrm-train ' + json.dumps(dlrm))
+    llama = serve_llama(torch, args.seed)
+    print('serve-llama ' + json.dumps(llama))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -1897,7 +2126,8 @@ def main() -> None:
             + trained['launches']['flash_attention_lse']
             + long['launches']['flash_attention_lse']
             + dropout_trained['launches']['flash_attention_lse']
-            + moe_trained['launches']['flash_attention_lse']),
+            + moe_trained['launches']['flash_attention_lse']
+            + llama['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -1943,6 +2173,15 @@ def main() -> None:
             'plain_ms': entry['plain_ms'], 'bound_ms': entry['bound_ms'],
             'bound_by': entry['bound_by'], 'library_ms': entry['library_ms'],
             'shape': entry['shape']})
+    # K1's head-dim-128 shapes (Llama-3 8B's prefill), and its registers
+    kernels[[k['name'] for k in kernels].index('flash_attention_lse')][
+        'head_dim_128'] = dict(
+            launches=llama['launches']['flash_attention_lse'],
+            ptxas=k1_ptxas.get('flash_fwd_kernel<128>'),
+            shapes=[{key: entry[key] for key in (
+                'shape', 'kv_heads', 'causal', 'max_abs_err', 'ms',
+                'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+                for _, entry in k1_128_rows])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -1952,6 +2191,7 @@ def main() -> None:
              'dropout_kernels': dropout_checks,
              'dropout_train': dropout_trained, 'moe_train': moe_trained,
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
+             'serve_llama': llama, 'k1_ptxas': k1_ptxas,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

@@ -188,6 +188,13 @@ def test_gpt2_tiny_dropout_step_on_the_card_matches_the_cpu(device):
     (1, 1024, 12, 12, 64, True),
     (2, 200, 4, 2, 32, True),
     (1, 65, 6, 3, 16, False),
+    # head dim 128 (Llama): MHA, GQA groups 4 and 8, ragged, non-causal
+    (2, 256, 8, 8, 128, True),
+    (1, 512, 32, 8, 128, True),
+    (1, 1000, 8, 1, 128, True),
+    (1, 2048, 32, 8, 128, True),
+    (1, 300, 4, 4, 128, False),
+    (2, 130, 8, 2, 128, False),
 ])
 def test_flash_matches_plain(device, batch, seq, heads, kv_heads, head_dim,
                              causal):
@@ -204,6 +211,103 @@ def test_flash_matches_plain(device, batch, seq, heads, kv_heads, head_dim,
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     _close(out, want_out, 2e-2)
     _close(lse, want_lse, 1e-3)
+
+
+def test_flash_at_head_dim_128_repeats_bitwise(device):
+    """K1 at head dim 128 gives the same bits on a repeat (no atomics)."""
+    generator = torch.Generator(device).manual_seed(128)
+    q = _normal(generator, (1, 1000, 16, 128), 1.0, device)
+    k = _normal(generator, (1, 1000, 4, 128), 1.0, device)
+    v = _normal(generator, (1, 1000, 4, 128), 1.0, device)
+    first = flash.flash_attention_lse(q, k, v)
+    again = flash.flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize('heads,kv_heads', [(2, 2), (4, 1)])
+def test_head_dim_128_dropout_masks_equal_the_plain_hash_bitwise(
+        device, heads, kv_heads):
+    """K1 at head dim 128 applies exactly the plain hash's keep masks at
+    p = 0.1, read back from its output as ``chip_smoke.py`` reads them; and
+    its dropped output and lse agree with the plain version."""
+    import chip_smoke
+
+    generator = torch.Generator(device).manual_seed(heads * 16 + kv_heads)
+    seed, batch, seq = 123_456_789, 2, 128
+    got = chip_smoke.forward_masks(torch, generator, batch, seq, heads,
+                                   kv_heads, seed, head_dim=128)
+    positions = torch.arange(seq, device=device)
+    head_rows = torch.arange(batch * heads, device=device).reshape(
+        batch, heads, 1, 1)
+    want = flash.keep_mask(seed, head_rows, positions[:, None],
+                           positions[None, :], 0.1)
+    visible = torch.ones(seq, seq, dtype=torch.bool, device=device).tril()
+    assert not (((got < 0) | (got.bool() != want)) & visible).any()
+    q = _normal(generator, (batch, 300, heads, 128), 1.0, device)
+    k = _normal(generator, (batch, 300, kv_heads, 128), 1.0, device)
+    v = _normal(generator, (batch, 300, kv_heads, 128), 1.0, device)
+    out, lse = flash.flash_attention_lse(q, k, v, dropout=0.1, seed=seed)
+    want_out, want_lse = flash.flash_attention_plain(q, k, v, dropout=0.1,
+                                                     seed=seed)
+    torch.cuda.synchronize()
+    _close(out, want_out, 2e-2)
+    _close(lse, want_lse, 1e-3)
+
+
+def test_flash_backward_at_head_dim_128_refuses_with_the_roadmap_item(
+        device):
+    """No backward kernel takes head dim 128: a forward that autograd would
+    differentiate raises before K1 runs, every backward entry raises, and
+    nothing falls back. Without grad, K1 runs."""
+    generator = torch.Generator(device).manual_seed(7)
+    q, k, v = (_normal(generator, (1, 256, 4, 128), 1.0, device)
+               for _ in range(3))
+    leaf = q.clone().requires_grad_()
+    before = flash.flash_attention_lse.launches
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 2 part B'):
+        flash.flash_attention_lse(leaf, k, v)
+    assert flash.flash_attention_lse.launches == before
+    lse = torch.zeros(1, 256, 4, device=device)
+    for kernel in (flash.flash_bwd_fused_g1, flash.flash_bwd_fused,
+                   flash.flash_bwd_dq, flash.flash_bwd_dkv):
+        with pytest.raises(NotImplementedError, match='Llama training'):
+            kernel(q, k, v, q, lse, lse)
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 2 part B'):
+        flash.flash_attention_bwd(q, k, v, q, lse, q)
+    with torch.no_grad():
+        out, _ = flash.flash_attention_lse(leaf, k, v)
+    assert flash.flash_attention_lse.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+
+
+def test_llama_serves_through_the_engine_on_the_card(device):
+    """A head-dim-128 Llama on the card through generate and the Engine:
+    a 600-token prompt prefills through K1 (one launch a layer), the decode
+    runs the module paged step (K4/K5 never launch), and the logits
+    through the paged cache agree with the non-cached forward within
+    2**-4 of the largest logit (bf16 rounding at other points)."""
+    from tpusystem_torch.models import llama_tiny
+    from tpusystem_torch.serve import Engine
+    from tpusystem_torch.train import generate
+
+    module = llama_tiny(dim=256, heads=2, kv_heads=1, max_seq=1024,
+                        device=device)
+    prompt = np.random.default_rng(3).integers(0, 256, (600,))
+    before = (dm.decode_matmul.launches, dm.decode_ffn.launches,
+              flash.flash_attention_lse.launches)
+    out = generate(module, None, prompt[None], steps=4)
+    assert out.shape == (1, 604) and out.device.type == 'cuda'
+    engine = Engine(module, None, rows=2, block_size=16)
+    assert engine.decode_impl == 'flax'
+    tokens = list(prompt) + [engine.admit(prompt, max_new=6).token]
+    with torch.no_grad():
+        full = module(torch.as_tensor([tokens], device=device))[0, -1]
+    _close(engine.next_logits()[0], full, 2 ** -4 * full.abs().max().item())
+    while engine.active_rows:
+        engine.step()
+    assert (dm.decode_matmul.launches, dm.decode_ffn.launches) == before[:2]
+    assert flash.flash_attention_lse.launches - before[2] == 2 * module.layers
 
 
 def test_generate_and_engine_run_the_kernels_on_the_card(device):

@@ -68,17 +68,21 @@ EMBED_STD = 0.02    # GPT-2's initializer range for the embedding tables
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense``: a ``[in, out]`` kernel and a bias."""
+    """``flax.linen.Dense``: a ``[in, out]`` kernel and, unless
+    ``use_bias=False``, a bias; the product and the bias add run in the
+    compute dtype."""
 
-    def __init__(self, features_in: int, features: int, *, device) -> None:
+    def __init__(self, features_in: int, features: int, *, device,
+                 use_bias: bool = True) -> None:
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(features_in, features,
                                                device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
 
     def forward(self, x, dtype):
-        return (torch.matmul(x.to(dtype), self.kernel.to(dtype))
-                + self.bias.to(dtype))
+        out = torch.matmul(x.to(dtype), self.kernel.to(dtype))
+        return out if self.bias is None else out + self.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -161,7 +165,7 @@ class Block(nn.Module):
         return hidden + apply_dropout(self.proj(grown, dtype), rate, keys[1])
 
 
-MOE_SERVING = 'Llama and MoE serving through the module paged step'
+MOE_SERVING = 'MoE serving through the module paged step'
 # GPT2 field -> the MoEMLP setting it governs
 MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
                     'moe_sparse_impl': 'sparse_impl', 'dtype': 'dtype',

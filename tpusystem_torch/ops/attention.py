@@ -171,8 +171,8 @@ def paged_attention(query, key, value, cache, prefix: str, max_seq: int,
         raise ValueError(f'max_seq ({max_seq}) must be a multiple of the '
                          f'page block_size ({block})')
     if prefix + '/table' not in cache:
-        raise ValueError('a paged cache is created by GPT2.init_cache (the '
-                         "serving engine's pool), not by a forward call")
+        raise ValueError("a paged cache is created by the model's init_cache "
+                         "(the serving engine's pool), not by a forward call")
     batch, length, kv_heads, head_dim = key.shape
     max_blocks = max_seq // block
     pool_key, pool_value = cache[prefix + '/key'], cache[prefix + '/value']

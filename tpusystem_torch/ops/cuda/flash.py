@@ -41,7 +41,10 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 
 NEG_INF = -1e30
 TILE = 64          # kv rows per online-softmax step, as in the CUDA kernels
-HEAD_DIMS = (16, 32, 64)
+FORWARD_HEAD_DIMS = (16, 32, 64, 128)    # K1's instantiations
+BACKWARD_HEAD_DIMS = (16, 32, 64)        # K2a, K2b, K3a and K3b's
+BACKWARD_ITEM = ('ROADMAP queue 2 part B: the flash backward at head dim 128, '
+                 'with Llama training')
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
 _U32 = 0xFFFFFFFF
@@ -294,10 +297,21 @@ def _check_shapes(query, key) -> None:
                          f'{key.shape[1]})')
 
 
+def _check_backward_head_dim(name: str, head_dim: int) -> None:
+    """The backward kernels are instantiated for ``BACKWARD_HEAD_DIMS``
+    only: a call that would need one at another head dim raises here,
+    before anything runs."""
+    if head_dim not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f'{name}: the flash backward kernels take head dims '
+            f'{BACKWARD_HEAD_DIMS}, not {head_dim}; the backward at head dim '
+            f'128 is not ported to tpusystem_torch yet ({BACKWARD_ITEM})')
+
+
 def _check_cuda(name, tensors, device) -> None:
     """What the CUDA kernels take: bfloat16 ``[B, S, H, D]`` tensors on one
-    device, a head dim in ``HEAD_DIMS`` and at most 65535 batch rows x
-    heads."""
+    device, a head dim in ``FORWARD_HEAD_DIMS`` and at most 65535 batch rows
+    x heads."""
     if device.type != 'cuda':
         raise ValueError(f'{name}: tensors on {device} are not supported')
     for tensor in tensors:
@@ -305,8 +319,9 @@ def _check_cuda(name, tensors, device) -> None:
             raise ValueError(f'{name}: the CUDA kernel takes bfloat16 '
                              'tensors on one device')
     batch, _, heads, head_dim = tensors[0].shape
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f'{name}: head_dim {head_dim} not in {HEAD_DIMS}')
+    if head_dim not in FORWARD_HEAD_DIMS:
+        raise ValueError(f'{name}: head_dim {head_dim} not in '
+                         f'{FORWARD_HEAD_DIMS}')
     if batch * heads > 65535:
         raise ValueError(f'{name}: batch * heads over 65535')
 
@@ -339,8 +354,11 @@ def _flash_forward(query, key, value, causal: bool, dropout: float, seed):
     return out, lse, (query, key, value)
 
 
-def _kernel_args(query, key):
+def _kernel_args(name, query, key):
+    """``(batch, seq, q_heads, kv_heads, head_dim)`` of a backward kernel's
+    call, which raises at a head dim the backward kernels do not take."""
     batch, seq, q_heads, head_dim = query.shape
+    _check_backward_head_dim(name, head_dim)
     return batch, seq, q_heads, key.shape[2], head_dim
 
 
@@ -351,7 +369,8 @@ def flash_bwd_fused_g1(query, key, value, d_out, lse, delta, *,
     recomputation of each visible tile, dq summed in kv order in a resident
     float32 buffer (no partials); bitwise K2b's result. Contiguous bf16
     ``[B, S, H, D]`` tensors, float32 ``lse``/``delta``."""
-    batch, seq, heads, kv_heads, head_dim = _kernel_args(query, key)
+    batch, seq, heads, kv_heads, head_dim = _kernel_args(
+        'flash_bwd_fused_g1', query, key)
     if kv_heads != heads:
         raise ValueError('flash_bwd_fused_g1 takes multi-head attention '
                          f'({heads} query heads, {kv_heads} KV heads)')
@@ -378,7 +397,8 @@ def flash_bwd_fused(query, key, value, d_out, lse, delta, *,
     visible tile, float32 dq partials summed in kv order by a second pass;
     ``delta`` from :func:`attention_delta`. Contiguous bf16 ``[B, S, H, D]``
     tensors, float32 ``lse``/``delta``."""
-    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
+    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
+        'flash_bwd_fused', query, key)
     lib = _bwd_library()
     partial = torch.empty(
         lib.flash_bwd_partial_elements(batch, seq, q_heads, head_dim,
@@ -399,7 +419,8 @@ def flash_bwd_dq(query, key, value, d_out, lse, delta, *,
                  causal: bool = True, dropout: float = 0.0,
                  seed: int | None = None):
     """K3a on the card: dq, a sweep over the visible kv tiles per q tile."""
-    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
+    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
+        'flash_bwd_dq', query, key)
     dq = torch.empty_like(query)
     err = _bwd_library().flash_bwd_dq_bf16(
         *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq)),
@@ -415,7 +436,8 @@ def flash_bwd_dkv(query, key, value, d_out, lse, delta, *,
                   seed: int | None = None):
     """K3b on the card: ``(dk, dv)``, a sweep over every (group member, q
     tile) pair that sees each kv tile."""
-    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(query, key)
+    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
+        'flash_bwd_dkv', query, key)
     dk, dv = torch.empty_like(key), torch.empty_like(value)
     err = _bwd_library().flash_bwd_dkv_bf16(
         *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dk,
@@ -456,6 +478,7 @@ def flash_attention_bwd(query, key, value, out, lse, d_out, d_lse=None, *,
                                          d_lse, causal=causal,
                                          backward=backward, dropout=dropout,
                                          seed=seed)
+    _check_backward_head_dim('flash_attention_bwd', query.shape[-1])
     _check_cuda('flash_attention_bwd', (query, key, value, out, d_out),
                 query.device)
     query, key, value, d_out = (t.contiguous()
@@ -505,7 +528,11 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     differentiable in both outputs.
 
     ``key``/``value`` may carry fewer heads than ``query`` (GQA). On CUDA
-    the kernels take bfloat16 and head dims in ``HEAD_DIMS``; any length.
+    the kernels take bfloat16 and any length; K1 takes the head dims in
+    ``FORWARD_HEAD_DIMS``, the backward kernels those in
+    ``BACKWARD_HEAD_DIMS``, so a call off the CPU that autograd would
+    differentiate (grad mode on and an input that requires grad) at head
+    dim 128 raises ``NotImplementedError`` before K1 runs.
     ``backward`` picks the gradient kernels: ``'fused'`` (K2a or K2b, see
     :func:`backward_kernels`) or ``'split'`` (K3a + K3b). ``dropout > 0``
     drops attention probabilities with the 'xla' path's semantics
@@ -518,6 +545,9 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     _check_shapes(query, key)
     _check_backward(backward)
     _check_dropout(dropout, seed)
+    if (query.device.type != 'cpu' and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (query, key, value))):
+        _check_backward_head_dim('flash_attention_lse', query.shape[-1])
     return _FlashAttention.apply(query, key, value, causal, backward,
                                  float(dropout), seed)
 

@@ -140,8 +140,8 @@ class Engine:
     """The continuous-batching engine over one model's parameters.
 
     Args:
-        module: a GPT-2 module (:func:`engine_unsupported_reason` is the
-            scope gate).
+        module: a GPT-2 or Llama module (:func:`engine_unsupported_reason`
+            is the scope gate).
         params: state dict of weights, or ``None`` for the module's own.
         rows: fixed decode batch width.
         block_size: tokens per KV block.
@@ -253,14 +253,16 @@ class Engine:
 
     @torch.no_grad()
     def _prefill(self, prompt):
-        """First token and contiguous KV strips of one padded prompt."""
+        """The float32 logits ``[vocab]`` at the prompt's last position and
+        the contiguous KV strips of one padded prompt."""
         bucket = self.bucket(prompt.size)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :prompt.size] = prompt
         logits, cache = functional_call(
             self._prefiller, _dequant(self._params, self._prefiller),
             (torch.as_tensor(padded, device=self.device),), {'cache': None})
-        return int(logits[0, prompt.size - 1].argmax()), cache
+        # a copy of the row, so the [1, bucket, vocab] logits free now
+        return logits[0, prompt.size - 1].clone(), cache
 
     @torch.no_grad()
     def admit(self, prompt, max_new: int, *, stop_token: int | None = None,
@@ -273,7 +275,8 @@ class Engine:
         row = self._seat(prompt, max_new)
 
         started = time.perf_counter()
-        first, prefill_cache = self._prefill(prompt)
+        logits, prefill_cache = self._prefill(prompt)
+        first = int(logits.argmax())
         self.timings['prefill'] += time.perf_counter() - started
 
         started = time.perf_counter()

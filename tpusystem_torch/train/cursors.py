@@ -2,7 +2,8 @@
 :mod:`tpusystem.train.cursors`.
 
 A decode cache is a dict keyed by the reference's cache paths
-(``h_{i}/attn/index`` per layer, the model-level ``position``). Cursor
+(``h_{i}/attn/index`` or Llama's ``layer_{i}/attn/index`` per layer, and
+GPT-2's model-level ``position``). Cursor
 leaves are never written in place: an edit installs a new tensor, shared by
 every cursor leaf, so the per-layer cursors cannot drift apart.
 """
@@ -47,7 +48,7 @@ def read_cursor(cache: dict) -> torch.Tensor:
         if _leaf(path) == 'index':
             return leaf
     raise ValueError('no index cursor leaf in this cache — was it created by '
-                     'a decode-mode forward or GPT2.init_cache?')
+                     "a decode-mode forward or the model's init_cache?")
 
 
 def gather_rows(cache: dict, rows) -> dict:

@@ -40,17 +40,23 @@ STREAM_DTYPES = ('auto', 'float32', 'bfloat16', 'int8', 'fp8')
 def _decoder(module, per_row: bool = False):
     """The module's decode-mode clone: xla attention, no dropout, logits
     output, contiguous cache (the serving engine sets ``decode_pages`` on
-    its own clone). ``per_row`` switches the cache writes to per-row. An
-    MoE module raises: the reference serves it through its module paged
-    step, not ported yet."""
+    its own clone). Each field is set only where the module has it, as the
+    reference does (``generate.py:36-46``), so one clone serves GPT-2 and
+    Llama. ``per_row`` switches the cache writes to per-row. An MoE module
+    raises: the reference serves it through its module paged step, not
+    ported yet."""
     if getattr(module, 'moe_experts', 0):
         raise NotImplementedError(
             'decoding an MoE model is not ported to tpusystem_torch yet '
-            '(ROADMAP queue 1: Llama and MoE serving through the module '
-            'paged step)')
-    return module.replace(decode=True, attention='xla', dropout=0.0,
-                          remat=False, per_row_decode=per_row,
-                          decode_pages=None)
+            '(ROADMAP queue 1: MoE serving through the module paged step)')
+    updates = {'decode': True}
+    for field, value in (('attention', 'xla'), ('dropout', 0.0),
+                         ('return_features', False), ('remat', False),
+                         ('per_row_decode', per_row),
+                         ('decode_pages', None)):
+        if hasattr(module, field):
+            updates[field] = value
+    return module.replace(**updates)
 
 
 def param_dict(module, params, device) -> dict:
