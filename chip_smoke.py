@@ -17,9 +17,17 @@ Phases, in order; any failure exits non-zero:
    forward, timed beside it, ``scaled_dot_product_attention`` (GQA) and
    its bound, with ptxas' registers and spills of every K1 instantiation
    (``k1-ptxas``);
-3. the same for the flash backward kernels (fused, and the split dq / dkv
-   pair) at the training shape [16, 1024, 12, 64], causal, plus a bitwise
-   repeat and GQA, non-causal and ragged-length cases;
+3. the flash forward K1 at the training shape [16, 1024, 12, 64], then the
+   flash backward kernels K2b (fused), K3a and K3b (the split dq / dkv
+   pair), and K2a under multi-head attention, at GPT-2's head dim 64 (the
+   training shape, GQA, non-causal and ragged cases) and at head dim 128
+   (Llama-3 8B's training shapes [1, S, 32, 8, 128] for S = 8192 and 2048,
+   MHA [1, 4096, 8, 8, 128], a ragged S = 1000 and a non-causal S = 1024):
+   each against the plain backward, repeated bitwise, K2a bit for bit K2b,
+   the split pair against the fused kernel, timed beside the plain
+   backward, the backward of ``scaled_dot_product_attention``
+   (``enable_gqa``) and its bound; with ptxas' registers and spills of
+   every backward instantiation (``bwd-ptxas``);
 4. the flash forward K1 against its plain version at the long-context
    ladder's shapes [4, 4096, 12, 64], [2, 8192, 12, 64] and
    [1, 16384, 12, 64], timed beside it and ``scaled_dot_product_attention``;
@@ -60,8 +68,9 @@ Phases, in order; any failure exits non-zero:
    (1, 16384);
 9. dropout at ``p = 0.1``: K1, K2a, K2b, K3a and K3b's keep masks read back
    from their outputs equal the plain hash bit for bit (a small shape, MHA
-   and GQA), and each kernel agrees with its plain version at the dropout
-   step's shape [16, 1024, 12, 64], a GQA group of 3 and K2a at 2048 keys;
+   and GQA, head dims 64 and 128), and each kernel agrees with its plain
+   version at the dropout step's shape [16, 1024, 12, 64], a GQA group of 3
+   and K2a at 2048 keys;
    the threefry mask kernel equals its plain bits on a CPU copy at
    [16, 1024, 768], timed; then GPT-2 125M trains with bench.py's recipe
    at ``dropout=0.1``: one warm-up and three timed steps with falling losses,
@@ -78,7 +87,8 @@ Phases, in order; any failure exits non-zero:
    whose losses must be finite and fall, K6 and K7 launched 12 times per
    step each; then a traced window of two steps;
 12. one layer's attention forward and backward through the split backward,
-   its gradients held against the fused one's;
+   its gradients held against the fused one's, at the training shape and
+   at head dim 128 under Llama-3 8B's GQA ([1, 2048, 32, 8, 128]);
 13. the recommender's kernels K8 (``gather_rows``) and K9
    (``scatter_add_rows``) against their plain versions on a CPU copy, bit
    for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
@@ -101,7 +111,18 @@ Phases, in order; any failure exits non-zero:
     non-cached forward; time to first token by bucket, decode tokens/s,
     step ms, peak memory and a traced window of 4 decode steps
     (``serve-llama``);
-16. print the ``kernels`` line, the card's name and power limit, and last the
+16. train Llama at Llama-3 8B's width with
+    ``benchmarks/llama8b_rehearsal.py``'s ``chip()`` recipe (dim 4096,
+    32 / 8 heads of 128, FFN 14336, ``remat=True``, flash attention, vocab
+    16384, the chunked loss over 8 chunks, AdamW with clipping, one
+    sequence of 8192 tokens) at 8 layers, after freeing phase 15: the
+    same model at 2 layers on [1, 2048] held against plain PyTorch
+    attention, then one warm-up and three timed steps with falling losses,
+    K1 16 and K2b 8 launches a step (K2a, K3a, K3b none); step ms,
+    tokens/s, peak memory and ``mfu``, and a traced window
+    (``train-llama``, ``train-llama-profile``);
+17. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+    each backward kernel), the card's name and power limit, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
@@ -154,10 +175,27 @@ K1_128_CASES = (('S=512', 1, 512, 32, 8, True),
                 ('mha', 2, 1024, 8, 8, True),
                 ('ragged', 1, 1000, 32, 8, True),
                 ('noncausal', 1, 1024, 32, 8, False))
+# the backward kernels, by head dim: (label, batch, seq, q heads, kv heads,
+# causal, an lse cotangent); GPT-2's training shape, GQA, non-causal and
+# ragged; Llama-3 8B's training shapes, K2a's MHA case, ragged, non-causal
+BWD_CASES = {
+    HEAD_DIM: (('train', TRAIN_BATCH, TRAIN_SEQ, HEADS, HEADS, True, False),
+               ('gqa', 2, TRAIN_SEQ, HEADS, 4, True, True),
+               ('non-causal', 2, TRAIN_SEQ, HEADS, HEADS, False, True),
+               ('ragged', 2, 1000, HEADS, HEADS, True, True)),
+    128: (('S=8192', 1, 8192, 32, 8, True, False),
+          ('S=2048', 1, 2048, 32, 8, True, False),
+          ('mha', 1, 4096, 8, 8, True, False),
+          ('ragged', 1, 1000, 32, 8, True, False),
+          ('noncausal', 1, 1024, 32, 8, False, False))}
 # Llama-3 8B serving: eight requests whose buckets are 32, then 512 to 8192
 LLAMA_PROMPT_LENGTHS = (20, 300, 600, 1100, 2100, 3000, 4500, 7000)
 LLAMA_PROBE = 1100              # the request whose logits are probed
 LLAMA_PROBE_STEPS = 4
+# Llama training: benchmarks/llama8b_rehearsal.py's chip() recipe (one
+# sequence of 8192 tokens, vocab 16384) with depth cut to fit one card
+LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_VOCAB, LLAMA_TRAIN_SEQ = 8, 16384, 8192
+LLAMA_TRAIN_STEPS = 3           # timed, after one warm-up step
 
 
 def fail(message: str) -> None:
@@ -418,118 +456,151 @@ def attention_pairs(batch, seq, heads) -> float:
     return batch * heads * seq * (seq + 1) / 2
 
 
-def check_backward(torch, generator):
-    """Phase 3: the flash backward kernels against the plain backward, at
-    the training shape and in GQA, non-causal and ragged cases; timed at the
-    training shape, with the flash forward beside them."""
+def backward_bound(kernel, batch, seq, heads, kv_heads, head_dim, causal):
+    """``bound_ms``'s ``(ms, by)`` of one backward kernel's call: the
+    tensors it reads and writes once (q, dO, lse and delta of the query
+    heads, k and v of the kv heads, and its gradients), and 5 (K2a, K2b),
+    3 (K3a) or 4 (K3b) products of 2 head_dim flops a visible pair."""
+    q_bytes = batch * seq * heads * head_dim * 2
+    kv_bytes = batch * seq * kv_heads * head_dim * 2
+    stats = 2 * batch * seq * heads * 4
+    pairs = (attention_pairs(batch, seq, heads) if causal
+             else batch * heads * seq * seq)
+    q_tensors, kv_tensors, products = {
+        'flash_bwd_fused': (3, 4, 5), 'flash_bwd_fused_g1': (3, 4, 5),
+        'flash_bwd_dq': (3, 2, 3), 'flash_bwd_dkv': (2, 4, 4)}[kernel]
+    return bound_ms(q_tensors * q_bytes + kv_tensors * kv_bytes + stats,
+                    products * 2 * head_dim * pairs)
+
+
+def check_backward(torch, generator, head_dim, cases):
+    """Phase 3: the flash backward kernels K2b (fused), K3a and K3b (the
+    split dq / dkv pair), and K2a under multi-head attention, at
+    ``head_dim`` for each of ``cases`` (``BWD_CASES``): each against the
+    plain backward (the gradient tolerance of ``grad_errors``), repeated
+    bitwise, K2a bit for bit K2b, the split pair's gradients against the
+    fused ones; each timed (CUDA events) beside the plain backward, the
+    backward of ``scaled_dot_product_attention`` (``enable_gqa`` under
+    GQA; none for a case with an lse cotangent, which it does not take) and
+    its bound (``backward_bound``). Rows are ``name[label]``, with
+    ``_d{head_dim}`` after the name off GPT-2's head dim."""
     import torch.nn.functional as F
 
     from tpusystem_torch.ops.cuda import flash
 
-    device = torch.device('cuda')
-    bf16 = torch.bfloat16
-
-    def inputs(batch, seq, heads, kv_heads, causal, lse_cotangent):
-        shape = (batch, seq, heads, HEAD_DIM)
-        kv_shape = (batch, seq, kv_heads, HEAD_DIM)
-        q, k, v, d_out = (torch.randn(s, generator=generator,
-                                      device=device).to(bf16)
-                          for s in (shape, kv_shape, kv_shape, shape))
+    suffix = '' if head_dim == HEAD_DIM else f'_d{head_dim}'
+    rows = []
+    for label, batch, seq, heads, kv_heads, causal, cotangent in cases:
+        shape = [batch, seq, heads, kv_heads, head_dim]
+        q, d_out = (torch.randn((batch, seq, heads, head_dim),
+                                generator=generator,
+                                device='cuda').to(torch.bfloat16)
+                    for _ in range(2))
+        k, v = (torch.randn((batch, seq, kv_heads, head_dim),
+                            generator=generator,
+                            device='cuda').to(torch.bfloat16)
+                for _ in range(2))
         out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
-        d_lse = (torch.randn(lse.shape, generator=generator, device=device)
-                 * 0.1 if lse_cotangent else None)
-        return q, k, v, out, lse, d_out, d_lse
-
-    cases = {'train': (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEADS, True, False),
-             'gqa': (2, TRAIN_SEQ, HEADS, 4, True, True),
-             'non-causal': (2, TRAIN_SEQ, HEADS, HEADS, False, True),
-             'ragged': (2, 1000, HEADS, HEADS, True, True)}
-    errors = {}
-    for case, (batch, seq, heads, kv_heads, causal, cotangent) in \
-            cases.items():
-        q, k, v, out, lse, d_out, d_lse = inputs(batch, seq, heads, kv_heads,
-                                                 causal, cotangent)
+        d_lse = (torch.randn(lse.shape, generator=generator, device='cuda')
+                 * 0.1 if cotangent else None)
+        delta = flash.attention_delta(out, d_out, d_lse).contiguous()
+        args = (q, k, v, d_out, lse, delta)
         want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out,
                                                d_lse, causal=causal)
+        kernels = {
+            'flash_bwd_fused': lambda: flash.flash_bwd_fused(
+                *args, causal=causal),
+            'flash_bwd_dq': lambda: (flash.flash_bwd_dq(
+                *args, causal=causal),),
+            'flash_bwd_dkv': lambda: flash.flash_bwd_dkv(
+                *args, causal=causal)}
+        if heads == kv_heads:
+            kernels = {'flash_bwd_fused_g1': lambda: flash.flash_bwd_fused_g1(
+                *args, causal=causal), **kernels}
+        wants = {'flash_bwd_fused': want, 'flash_bwd_fused_g1': want,
+                 'flash_bwd_dq': want[:1], 'flash_bwd_dkv': want[1:]}
+        calls = 3 if seq >= 8192 else 5
+        plain = measure(lambda i: flash.flash_attention_bwd_plain(
+            q, k, v, out, lse, d_out, d_lse, causal=causal), calls=2,
+            warmup=1)
+        grouped = {'enable_gqa': True} if kv_heads != heads else {}
+        library = None
+        if not cotangent:
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+            reference = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, **grouped)
+            library = measure(lambda i: torch.autograd.grad(
+                reference, leaves, d_out.transpose(1, 2), retain_graph=True),
+                calls=calls, warmup=2)
+            del reference, leaves
         got = {}
-        for backward in ('fused', 'split'):
-            got[backward] = flash.flash_attention_bwd(
-                q, k, v, out, lse, d_out, d_lse, causal=causal,
-                backward=backward)
-            again = flash.flash_attention_bwd(
-                q, k, v, out, lse, d_out, d_lse, causal=causal,
-                backward=backward)
-            torch.cuda.synchronize()
-            bitwise = all(torch.equal(a, b)
-                          for a, b in zip(got[backward], again))
-            errors[(case, backward)] = pairs = grad_errors(got[backward],
-                                                           want)
+        for name, kernel in kernels.items():
+            got[name], again = kernel(), kernel()
+            repeat = all_equal(torch, got[name], again)
+            del again
+            pairs = grad_errors(got[name], wants[name])
             err, tol = worst(pairs)
-            print('backward-check ' + json.dumps(
-                {'case': case, 'backward': backward,
-                 'shape': [batch, seq, heads, kv_heads, HEAD_DIM],
-                 'causal': causal, 'lse_cotangent': cotangent,
-                 'max_abs_err': dict(zip(('dq', 'dk', 'dv'),
-                                         (pair[0] for pair in pairs))),
-                 'worst': [err, tol], 'bitwise_repeat': bitwise}))
-            if err > tol:
-                fail(f'{backward} backward, {case}: max abs err {err} over '
-                     f'{tol}')
-            if not bitwise:
-                fail(f'{backward} backward, {case}: two calls differ')
-        err, tol = worst(grad_errors(got['split'], got['fused']))
+            notes = {}
+            if name == 'flash_bwd_fused' and 'flash_bwd_fused_g1' in got:
+                notes['k2a_equals_k2b'] = all_equal(
+                    torch, got['flash_bwd_fused_g1'], got[name])
+                if not notes['k2a_equals_k2b']:
+                    fail(f'K2a at {shape}: differs from K2b')
+            if not repeat:
+                fail(f'{name} at {shape}: two calls differ')
+            timed = measure(lambda i: kernel(), calls=calls, warmup=2)
+            rows.append(record_check(
+                f'{name}{suffix}[{label}]', shape, err, tol, timed, plain,
+                library, backward_bound(name, batch, seq, heads, kv_heads,
+                                        head_dim, causal),
+                by_events=True, causal=causal, lse_cotangent=cotangent,
+                bitwise_repeat=repeat,
+                grad_errors=[pair[0] for pair in pairs],
+                library_call=None if library is None else (
+                    'scaled_dot_product_attention backward'
+                    + (', causal' if causal else '')
+                    + (', enable_gqa' if grouped else '')), **notes))
+        split = got['flash_bwd_dq'] + got['flash_bwd_dkv']
+        err, tol = worst(grad_errors(split, got['flash_bwd_fused']))
         if err > tol:
-            fail(f'split vs fused backward, {case}: {err} over {tol}')
-        if case == 'train':
-            train_inputs = (q, k, v, out, lse, d_out)
+            fail(f'split vs fused backward at {shape}: {err} over {tol}')
+        del q, k, v, d_out, out, lse, d_lse, delta, args, want, wants, got
+        del split
+        torch.cuda.empty_cache()
+    return rows
 
-    q, k, v, out, lse, d_out = train_inputs
-    delta = flash.attention_delta(out, d_out)
+
+def check_train_forward(torch, generator):
+    """Phase 3's K1 row: the flash forward at the training shape
+    [16, 1024, 12, 64], as the train step runs it, against its plain
+    version, timed beside it and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.ops.cuda import flash
+
     shape = [TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM]
-    elements = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM
-    stats = TRAIN_BATCH * TRAIN_SEQ * HEADS * 4          # lse or delta
-    # flops of one [query, key]-shaped product over the causal pairs
-    product = 2 * HEAD_DIM * attention_pairs(TRAIN_BATCH, TRAIN_SEQ, HEADS)
-    plain = measure(lambda i: flash.flash_attention_bwd_plain(
-        q, k, v, out, lse, d_out), calls=5)
-    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-    reference = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    d_reference = d_out.transpose(1, 2)
-    library = measure(lambda i: torch.autograd.grad(
-        reference, leaves, d_reference, retain_graph=True), calls=20)
-    rows = []
-    timed = measure(lambda i: flash.flash_bwd_fused(q, k, v, d_out, lse,
-                                                    delta), calls=20)
-    rows.append(record_check(
-        'flash_bwd_fused[train]', shape,
-        *worst(errors[('train', 'fused')]), timed, plain, library,
-        bound_ms(7 * 2 * elements + 2 * stats, 5 * product)))
-    timed = measure(lambda i: flash.flash_bwd_dq(q, k, v, d_out, lse, delta),
-                    calls=20)
-    split_dq, *split_dkv = errors[('train', 'split')]
-    rows.append(record_check(
-        'flash_bwd_dq[train]', shape, *split_dq, timed, plain, library,
-        bound_ms(5 * 2 * elements + 2 * stats, 3 * product)))
-    timed = measure(lambda i: flash.flash_bwd_dkv(q, k, v, d_out, lse,
-                                                  delta), calls=20)
-    rows.append(record_check(
-        'flash_bwd_dkv[train]', shape, *worst(split_dkv), timed, plain,
-        library, bound_ms(6 * 2 * elements + 2 * stats, 4 * product)))
-
-    # the flash forward K1 at the training shape, as the train step runs it
+    q, k, v = (torch.randn(shape, generator=generator,
+                           device='cuda').to(torch.bfloat16)
+               for _ in range(3))
+    out, lse = flash.flash_attention_lse(q, k, v)
     want_out, want_lse = flash.flash_attention_plain(q, k, v)
     err = (out.float() - want_out.float()).abs().max().item()
     if (lse - want_lse).abs().max().item() > 1e-3:
         fail('flash forward at the training shape: lse over 1e-3')
+    elements = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM
+    stats = TRAIN_BATCH * TRAIN_SEQ * HEADS * 4           # lse
+    # q.k and p.v over the causal pairs
+    flops = 2 * 2 * HEAD_DIM * attention_pairs(TRAIN_BATCH, TRAIN_SEQ, HEADS)
     timed = measure(lambda i: flash.flash_attention_lse(q, k, v), calls=20)
     plain = measure(lambda i: flash.flash_attention_plain(q, k, v), calls=5)
+    leaves = [t.transpose(1, 2) for t in (q, k, v)]
     with torch.no_grad():
         library = measure(lambda i: F.scaled_dot_product_attention(
             *leaves, is_causal=True), calls=20)
-    rows.append(record_check(
+    return [record_check(
         'flash_attention[train]', shape, err, 2e-2, timed, plain, library,
-        bound_ms(4 * 2 * elements + stats, 2 * product)))
-    return rows
+        bound_ms(4 * 2 * elements + stats, flops))]
 
 
 def grouped_inputs(torch, generator):
@@ -664,15 +735,17 @@ def check_grouped(torch, generator):
     return results
 
 
-def compare_clones(torch, module, criterion, tokens, field, values) -> dict:
+def compare_clones(torch, module, criterion, tokens, field, values,
+                   forward=(('train', True),)) -> dict:
     """The loss and full gradient of ``module`` on ``tokens`` with ``field``
     set to ``values[0]``, held against the same weights with ``values[1]``
-    (clones of the module that share its parameters)."""
+    (clones of the module that share its parameters); ``forward`` holds the
+    keyword arguments of the forward call (a Llama takes none)."""
     params = list(module.parameters())
     results = []
     for value in values:
         clone = module.replace(**{field: value})
-        loss = criterion(clone(tokens, train=True), tokens)
+        loss = criterion(clone(tokens, **dict(forward)), tokens)
         grads = torch.autograd.grad(loss, params)
         results.append((loss.item(),
                         torch.cat([g.float().flatten() for g in grads])))
@@ -840,32 +913,45 @@ def train(torch, seed: int) -> dict:
 
 
 def split_step(torch, generator) -> dict:
-    """Phase 12: one layer's attention at the training shape through
-    ``backward='split'``, its gradients held against ``'fused'``."""
+    """Phase 12: one layer's attention through ``backward='split'``, its
+    gradients held against ``'fused'``: at the training shape, and at head
+    dim 128 under Llama-3 8B's GQA ([1, 2048, 32, 8, 128]). K3a and K3b
+    launch once a case."""
     from tpusystem_torch.ops.cuda import flash
 
     device = torch.device('cuda')
-    shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
-    q, k, v, d_out = (torch.randn(shape, generator=generator,
-                                  device=device).to(torch.bfloat16)
-                      for _ in range(4))
-    grads = {}
-    for backward in ('fused', 'split'):
-        if backward == 'split':
-            flash.flash_bwd_dq.launches = flash.flash_bwd_dkv.launches = 0
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = flash.flash_attention(*leaves, backward=backward)
-        grads[backward] = torch.autograd.grad(out, leaves, d_out)
-    torch.cuda.synchronize()
-    launches = {'flash_bwd_dq': flash.flash_bwd_dq.launches,
-                'flash_bwd_dkv': flash.flash_bwd_dkv.launches}
-    err, tol = worst(grad_errors(grads['split'], grads['fused']))
-    result = dict(launches=launches, max_abs_err=err, tol=tol)
+    cases = {'train': (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEADS, HEAD_DIM),
+             'd128': (1, 2048, 32, 8, 128)}
+    flash.flash_bwd_dq.launches = flash.flash_bwd_dkv.launches = 0
+    results = {}
+    for case, (batch, seq, heads, kv_heads, head_dim) in cases.items():
+        q, d_out = (torch.randn((batch, seq, heads, head_dim),
+                                generator=generator, device=device).to(
+                                    torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((batch, seq, kv_heads, head_dim),
+                            generator=generator, device=device).to(
+                                torch.bfloat16) for _ in range(2))
+        grads = {}
+        for backward in ('fused', 'split'):
+            before = (flash.flash_bwd_dq.launches,
+                      flash.flash_bwd_dkv.launches)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash.flash_attention(*leaves, backward=backward)
+            grads[backward] = torch.autograd.grad(out, leaves, d_out)
+        torch.cuda.synchronize()
+        launched = {'flash_bwd_dq': flash.flash_bwd_dq.launches - before[0],
+                    'flash_bwd_dkv': flash.flash_bwd_dkv.launches - before[1]}
+        err, tol = worst(grad_errors(grads['split'], grads['fused']))
+        results[case] = dict(shape=[batch, seq, heads, kv_heads, head_dim],
+                             launches=launched, max_abs_err=err, tol=tol)
+        if err > tol:
+            fail(f'split vs fused gradients, {case}: {err} over {tol}')
+        if launched != {'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
+            fail(f'the split backward launched {launched}, {case}')
+    result = dict(launches={'flash_bwd_dq': flash.flash_bwd_dq.launches,
+                            'flash_bwd_dkv': flash.flash_bwd_dkv.launches},
+                  cases=results)
     print('split-step ' + json.dumps(result))
-    if err > tol:
-        fail(f'split vs fused gradients: {err} over {tol}')
-    if launches != {'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
-        fail(f'the split backward launched {launches}')
     return result
 
 
@@ -937,18 +1023,32 @@ def check_long_forward(torch, label, q, k, v, out, lse, causal=True,
 def ptxas_report(output: str) -> dict:
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from one
     ``nvcc -Xptxas -v`` output, kernels by their demangled template name
-    (``flash_fwd_kernel<128>``) where the mangled one carries it."""
+    (``flash_fwd_kernel<128>``, ``flash_bwd_kv_kernel<128, true>``) where
+    the mangled one carries it."""
     import re
+
+    def demangled(name):
+        # a length-prefixed name with template arguments:
+        # ..16flash_fwd_kernelILi128EE.. or
+        # ..19flash_bwd_kv_kernelILi128ELb1EEEv..
+        for start in range(len(name)):
+            length = re.match(r'\d+', name[start:])
+            if not length:
+                continue
+            rest = name[start + len(length.group()):]
+            template = re.match(r'([A-Za-z_]\w{%d})ILi(\d+)E(?:Lb([01])E)?'
+                                % (int(length.group()) - 1), rest)
+            if template:
+                flag = {None: '', '0': ', false', '1': ', true'}[
+                    template.group(3)]
+                return f'{template.group(1)}<{template.group(2)}{flag}>'
+        return name
 
     report, name = {}, None
     for line in output.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            name = found.group(1)
-            # a template argument: ..16flash_fwd_kernelILi128EE..
-            template = re.search(r'([A-Za-z_]+)ILi(\d+)E', name)
-            if template:
-                name = f'{template.group(1)}<{template.group(2)}>'
+            name = demangled(found.group(1))
             report[name] = {}
             continue
         if name is None:
@@ -1087,7 +1187,7 @@ def check_long_backward(torch, generator):
 
 
 def dropout_masks(torch, kernel, batch, seq, heads, kv_heads, seed,
-                  outputs=('dq', 'dv')):
+                  outputs=('dq', 'dv'), head_dim=HEAD_DIM):
     """The keep masks a backward kernel applied, read from its gradients:
     with q = 0, lse = 0 and delta = 0 every visible P is 1; dO one-hot on
     the rows of q tile t of head h, v all ones and k one-hot on the rows of
@@ -1096,13 +1196,13 @@ def dropout_masks(torch, kernel, batch, seq, heads, kv_heads, seed,
     ``{output: int8 [batch, heads, seq, seq]}``."""
     tiles = math.ceil(seq / 64)
     group = heads // kv_heads
-    shape = (batch, seq, heads, HEAD_DIM)
+    shape = (batch, seq, heads, head_dim)
     masks = {name: torch.full((batch, heads, seq, seq), -1,
                               dtype=torch.int8, device='cuda')
              for name in outputs}
     zeros = torch.zeros(shape, dtype=torch.bfloat16, device='cuda')
     lse = torch.zeros(shape[:3], device='cuda')
-    value = torch.ones((batch, seq, kv_heads, HEAD_DIM),
+    value = torch.ones((batch, seq, kv_heads, head_dim),
                        dtype=torch.bfloat16, device='cuda')
     for t in range(tiles):
         rows = torch.arange(64 * t, min(64 * t + 64, seq), device='cuda')
@@ -1152,12 +1252,13 @@ def forward_masks(torch, generator, batch, seq, heads, kv_heads, seed,
 
 
 def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
-                    seq=128) -> dict:
+                    seq=128, head_dim=HEAD_DIM) -> dict:
     """K1, K2a (multi-head only), K2b, K3a and K3b's keep masks at
-    ``p = DROPOUT``, read back from their outputs, against the plain hash:
-    ``{'kernel.output heads/kv_heads heads': visible entries that differ or
-    were not read}``, all 0 when every kernel applies exactly the plain
-    hash's masks (the query head's row under GQA)."""
+    ``p = DROPOUT`` and ``head_dim``, read back from their outputs, against
+    the plain hash: ``{'kernel.output heads/kv_heads heads': visible entries
+    that differ or were not read}`` (``... d128`` at head dim 128), all 0
+    when every kernel applies exactly the plain hash's masks (the query
+    head's row under GQA)."""
     from tpusystem_torch.ops.cuda import flash
 
     positions = torch.arange(seq, device='cuda')
@@ -1171,9 +1272,10 @@ def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
         return int((((mask < 0) | (mask.bool() != want)) & visible).sum()
                    .item())
 
-    case = f'{heads}/{kv_heads} heads'
+    case = f'{heads}/{kv_heads} heads' + (
+        '' if head_dim == HEAD_DIM else f' d{head_dim}')
     mismatches = {f'K1 {case}': count(forward_masks(
-        torch, generator, batch, seq, heads, kv_heads, seed))}
+        torch, generator, batch, seq, heads, kv_heads, seed, head_dim))}
     kernels = {'K2b': (flash.flash_bwd_fused, ('dq', 'dk', 'dv')),
                'K3a': (flash.flash_bwd_dq, ('dq',)),
                'K3b': (flash.flash_bwd_dkv, ('dk', 'dv'))}
@@ -1183,7 +1285,7 @@ def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
         if name == 'K3a':
             kernel = (lambda *a, _k=kernel, **kw: (_k(*a, **kw),))
         masks = dropout_masks(torch, kernel, batch, seq, heads, kv_heads,
-                              seed, outputs)
+                              seed, outputs, head_dim)
         for output in ('dq', 'dv'):
             if output in masks:
                 mismatches[f'{name}.{output} {case}'] = count(masks[output])
@@ -1193,10 +1295,10 @@ def mask_mismatches(torch, generator, heads, kv_heads, seed, batch=2,
 def check_dropout_kernels(torch, generator):
     """Phase 9: the flash kernels at ``p = 0.1``. Each kernel's keep masks,
     read back from its outputs at a small shape (MHA and GQA, two batch
-    rows), equal the plain hash bit for bit; then K1, K2a, K2b, K3a and K3b
-    against their plain versions at the dropout step's shape (MHA,
-    [16, 1024, 12, 64]), a GQA group of 3 and K2a past 1024 keys, and K1
-    timed beside its ``p = 0`` time."""
+    rows, head dims 64 and 128), equal the plain hash bit for bit; then K1,
+    K2a, K2b, K3a and K3b against their plain versions at the dropout
+    step's shape (MHA, [16, 1024, 12, 64]), a GQA group of 3 and K2a past
+    1024 keys, and K1 timed beside its ``p = 0`` time."""
     from tpusystem_torch.ops.cuda import flash
 
     seed = 987_654_321
@@ -1204,6 +1306,9 @@ def check_dropout_kernels(torch, generator):
     for heads, kv_heads in ((2, 2), (2, 1)):
         mismatches.update(mask_mismatches(torch, generator, heads, kv_heads,
                                           seed))
+    for heads, kv_heads in ((2, 2), (4, 1)):       # head dim 128
+        mismatches.update(mask_mismatches(torch, generator, heads, kv_heads,
+                                          seed, head_dim=128))
     print('dropout-masks ' + json.dumps(mismatches))
     if any(mismatches.values()):
         fail(f'dropout masks differ from the plain hash: {mismatches}')
@@ -2047,6 +2152,87 @@ def serve_llama(torch, seed: int) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated())
 
 
+def train_llama(torch, seed: int) -> dict:
+    """Phase 16: Llama trains at Llama-3 8B's full width as the reference's
+    ``benchmarks/llama8b_rehearsal.py`` (``chip()``) builds it: dim 4096,
+    32 / 8 heads of 128, SwiGLU 14336, ``max_seq`` 8192, ``remat=True``,
+    flash attention, the vocab cut to 16384, ``ChunkedNextTokenLoss(chunks=8,
+    tied=False)`` and ``AdamW(lr=3e-4, grad_clip=1.0)`` on one sequence of
+    8192 tokens, with depth cut to ``LLAMA_TRAIN_LAYERS`` (random weights
+    from ``seed``), after the earlier phases are freed. First the same
+    model at 2 layers on [1, 2048] is held against plain PyTorch attention
+    (``'xla'``: autograd through ``dot_product_attention``, no kernel):
+    losses within 1e-2, gradients' cosine above 0.999. Then one warm-up and
+    ``LLAMA_TRAIN_STEPS`` timed steps with finite, falling losses, K1
+    launched twice a layer (the recompute), K2b once a layer and K2a, K3a
+    and K3b never; then a traced window of two steps. ``mfu`` counts
+    6 N T plus 12 head_dim flops per causal (query, key) pair and head per
+    layer, over 989 TFLOP/s."""
+    import gc
+
+    import numpy as np
+
+    from tpusystem_torch.models import llama3_8b
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    config = dict(vocab_size=LLAMA_TRAIN_VOCAB, attention='flash',
+                  return_features=True, device='cuda')
+    criterion = ChunkedNextTokenLoss(chunks=8, tied=False)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, LLAMA_TRAIN_VOCAB, (1, LLAMA_TRAIN_SEQ)), device='cuda')
+
+    small = llama3_8b(layers=2, **config)
+    small.init_weights(torch.Generator('cuda').manual_seed(seed))
+    reference = compare_clones(torch, small, criterion, tokens[:, :2048],
+                               'attention', ('flash', 'xla'), forward=())
+    print('train-llama-reference ' + json.dumps(reference))
+    if not (math.isfinite(reference['loss'])
+            and abs(reference['loss'] - reference['reference_loss']) <= 1e-2
+            and reference['grad_cosine'] > 0.999):
+        fail(f'Llama flash train step vs plain attention: {reference}')
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    started = time.perf_counter()
+    module = llama3_8b(layers=LLAMA_TRAIN_LAYERS, **config)
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - started
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused,
+                flash.flash_bwd_fused_g1, flash.flash_bwd_dq,
+                flash.flash_bwd_dkv)
+    state, result = timed_steps(torch, step, state, tokens,
+                                LLAMA_TRAIN_STEPS, counters)
+    check_launches(result, {'flash_attention_lse': 2 * module.layers,
+                            'flash_bwd_fused': module.layers,
+                            'flash_bwd_fused_g1': 0, 'flash_bwd_dq': 0,
+                            'flash_bwd_dkv': 0})
+    params = sum(p.numel() for p in module.parameters())
+    flops = (6 * params * tokens.numel() + 12 * module.head_dim
+             * module.layers * attention_pairs(1, LLAMA_TRAIN_SEQ,
+                                               module.heads))
+    profile = profile_steps(torch, lambda: step(state, tokens, tokens),
+                            steps=2, top_n=16)
+    print('train-llama-profile ' + json.dumps(profile))
+    return dict(result, params=params, layers=module.layers,
+                vocab=module.vocab_size, flops_per_step=flops,
+                mfu=flops / (result['median_step_ms'] / 1e3) / BF16_FLOPS,
+                setup_s=setup_s, held_before_bytes=held,
+                phase_peak_bytes=torch.cuda.max_memory_allocated(),
+                reference=reference, profile=profile)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2078,7 +2264,14 @@ def main() -> None:
     generator = torch.Generator('cuda').manual_seed(args.seed)
     checks = check_kernels(torch, generator)
     k1_128_rows, k1_ptxas = check_k1_head_dim_128(torch, generator)
-    checks += k1_128_rows + check_backward(torch, generator)
+    bwd_ptxas = ptxas_report(LIBRARIES.compiler_output.get('flash_bwd', ''))
+    print('bwd-ptxas ' + json.dumps(bwd_ptxas or 'not available: the library '
+                                    'was built by an earlier process'))
+    checks += (k1_128_rows + check_train_forward(torch, generator)
+               + check_backward(torch, generator, HEAD_DIM,
+                                BWD_CASES[HEAD_DIM]))
+    bwd_128_rows = check_backward(torch, generator, 128, BWD_CASES[128])
+    checks += bwd_128_rows
     checks += check_long_backward(torch, generator)
     served = serve(torch, args.seed)
     bf16_tokens = served.pop('tokens')
@@ -2103,6 +2296,8 @@ def main() -> None:
     print('dlrm-train ' + json.dumps(dlrm))
     llama = serve_llama(torch, args.seed)
     print('serve-llama ' + json.dumps(llama))
+    llama_trained = train_llama(torch, args.seed)
+    print('train-llama ' + json.dumps(llama_trained))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -2127,7 +2322,8 @@ def main() -> None:
             + long['launches']['flash_attention_lse']
             + dropout_trained['launches']['flash_attention_lse']
             + moe_trained['launches']['flash_attention_lse']
-            + llama['launches']['flash_attention_lse']),
+            + llama['launches']['flash_attention_lse']
+            + llama_trained['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -2135,7 +2331,8 @@ def main() -> None:
                             'flash_bwd_fused[train]',
                             trained['launches']['flash_bwd_fused']
                             + dropout_trained['launches']['flash_bwd_fused']
-                            + moe_trained['launches']['flash_bwd_fused']),
+                            + moe_trained['launches']['flash_bwd_fused']
+                            + llama_trained['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -2182,6 +2379,29 @@ def main() -> None:
                 'shape', 'kv_heads', 'causal', 'max_abs_err', 'ms',
                 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
                 for _, entry in k1_128_rows])
+    # the backward kernels at head dim 128: launches on the main paths
+    # (Llama training for K2a and K2b, phase 12's head-dim-128 case for
+    # K3a/K3b), registers and phase 3's shapes at 128
+    d128 = split['cases']['d128']['launches']
+    for name, launches, instances in (
+            ('flash_bwd_fused_g1',
+             llama_trained['launches']['flash_bwd_fused_g1'],
+             ('flash_bwd_g1_kernel<128>',)),
+            ('flash_bwd_fused', llama_trained['launches']['flash_bwd_fused'],
+             ('flash_bwd_kv_kernel<128, true>', 'dq_reduce_kernel<128>')),
+            ('flash_bwd_dq', d128['flash_bwd_dq'],
+             ('flash_bwd_dq_kernel<128>',)),
+            ('flash_bwd_dkv', d128['flash_bwd_dkv'],
+             ('flash_bwd_kv_kernel<128, false>',))):
+        kernels[[k['name'] for k in kernels].index(name)]['head_dim_128'] = (
+            dict(launches=launches,
+                 ptxas={instance: bwd_ptxas.get(instance)
+                        for instance in instances},
+                 shapes=[{key: entry.get(key) for key in (
+                     'shape', 'causal', 'max_abs_err', 'ms', 'plain_ms',
+                     'library_ms', 'bound_ms', 'bound_by', 'k2a_equals_k2b')}
+                     for label, entry in bwd_128_rows
+                     if label.startswith(name + '_d128[')]))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -2191,7 +2411,8 @@ def main() -> None:
              'dropout_kernels': dropout_checks,
              'dropout_train': dropout_trained, 'moe_train': moe_trained,
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
-             'serve_llama': llama, 'k1_ptxas': k1_ptxas,
+             'serve_llama': llama, 'train_llama': llama_trained,
+             'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

@@ -255,30 +255,42 @@ def test_head_dim_128_dropout_masks_equal_the_plain_hash_bitwise(
     _close(lse, want_lse, 1e-3)
 
 
-def test_flash_backward_at_head_dim_128_refuses_with_the_roadmap_item(
-        device):
-    """No backward kernel takes head dim 128: a forward that autograd would
-    differentiate raises before K1 runs, every backward entry raises, and
-    nothing falls back. Without grad, K1 runs."""
+def test_flash_backward_at_head_dim_128_launches_each_kernel_once(device):
+    """At head dim 128 a forward that autograd differentiates runs K1, and
+    its backward launches the fused kernel K2b once (GQA); each backward
+    entry launches its own kernel once; all match the plain backward."""
     generator = torch.Generator(device).manual_seed(7)
-    q, k, v = (_normal(generator, (1, 256, 4, 128), 1.0, device)
-               for _ in range(3))
-    leaf = q.clone().requires_grad_()
-    before = flash.flash_attention_lse.launches
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 2 part B'):
-        flash.flash_attention_lse(leaf, k, v)
-    assert flash.flash_attention_lse.launches == before
-    lse = torch.zeros(1, 256, 4, device=device)
-    for kernel in (flash.flash_bwd_fused_g1, flash.flash_bwd_fused,
-                   flash.flash_bwd_dq, flash.flash_bwd_dkv):
-        with pytest.raises(NotImplementedError, match='Llama training'):
-            kernel(q, k, v, q, lse, lse)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 2 part B'):
-        flash.flash_attention_bwd(q, k, v, q, lse, q)
-    with torch.no_grad():
-        out, _ = flash.flash_attention_lse(leaf, k, v)
-    assert flash.flash_attention_lse.launches == before + 1
-    assert torch.isfinite(out.float()).all()
+    q, d_out = (_normal(generator, (1, 256, 4, 128), 1.0, device)
+                for _ in range(2))
+    k, v = (_normal(generator, (1, 256, 2, 128), 1.0, device)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused_g1,
+                flash.flash_bwd_fused, flash.flash_bwd_dq,
+                flash.flash_bwd_dkv)
+    before = [counter.launches for counter in counters]
+    out, lse = flash.flash_attention_lse(*leaves)
+    got = torch.autograd.grad(out, leaves, d_out)
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        1, 0, 1, 0, 0]
+    want = flash.flash_attention_bwd_plain(q, k, v, out.detach(),
+                                           lse.detach(), d_out)
+    _close_grads(got, want)
+    delta = flash.attention_delta(out.detach(), d_out).contiguous()
+    args = (q, k, v, d_out, lse.detach(), delta)
+    before = [counter.launches for counter in counters]
+    _close_grads(flash.flash_bwd_fused(*args), want)
+    _close_grads((flash.flash_bwd_dq(*args), *flash.flash_bwd_dkv(*args)),
+                 want)
+    out, lse = flash.flash_attention_plain(q, k.repeat(1, 1, 2, 1),
+                                           v.repeat(1, 1, 2, 1))
+    mha = (q, k.repeat(1, 1, 2, 1), v.repeat(1, 1, 2, 1), d_out, lse,
+           flash.attention_delta(out, d_out).contiguous())
+    _close_grads(flash.flash_bwd_fused_g1(*mha),
+                 flash.flash_attention_bwd_plain(*mha[:3], out, lse, d_out))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        0, 1, 1, 1, 1]
 
 
 def test_llama_serves_through_the_engine_on_the_card(device):
@@ -375,9 +387,10 @@ def test_quantized_generate_and_engine_run_the_narrow_kernels(device, mode):
         engine.step()
 
 
-def _bwd_inputs(device, batch, seq, heads, kv_heads, seed):
+def _bwd_inputs(device, batch, seq, heads, kv_heads, seed, head_dim=64):
     generator = torch.Generator(device).manual_seed(seed)
-    shape, kv_shape = (batch, seq, heads, 64), (batch, seq, kv_heads, 64)
+    shape = (batch, seq, heads, head_dim)
+    kv_shape = (batch, seq, kv_heads, head_dim)
     q, k, v, d_out = (_normal(generator, s, 1.0, device)
                       for s in (shape, kv_shape, kv_shape, shape))
     d_lse = torch.randn((batch, seq, heads), generator=generator,
@@ -392,19 +405,37 @@ def _close_grads(got, want):
         _close(g, w, 2 ** -6 * w.float().abs().max().item())
 
 
-@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal', [
-    (1, 1024, 12, 12, True),
-    (8, 512, 12, 12, True),
-    (2, 256, 12, 4, True),          # GQA group 3
-    (1, 300, 4, 4, False),          # non-causal, ragged
-    (2, 1000, 4, 2, True),          # ragged, GQA
-    (1, 1, 2, 2, True),
-])
+def _head_dim_cases(cases, cases_128):
+    """``cases`` at head dim 64 under their earlier ids, then ``cases_128``
+    at head dim 128, ids ending ``-d128``."""
+    return ([pytest.param(*case, 64, id='-'.join(map(str, case)))
+             for case in cases]
+            + [pytest.param(*case, 128, id='-'.join(map(str, case)) + '-d128')
+               for case in cases_128])
+
+
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,head_dim',
+                         _head_dim_cases([
+                             (1, 1024, 12, 12, True),
+                             (8, 512, 12, 12, True),
+                             (2, 256, 12, 4, True),      # GQA group 3
+                             (1, 300, 4, 4, False),      # non-causal, ragged
+                             (2, 1000, 4, 2, True),      # ragged, GQA
+                             (1, 1, 2, 2, True),
+                         ], [
+                             (1, 2048, 32, 8, True),     # Llama-3 8B's heads
+                             (2, 256, 8, 8, True),       # MHA
+                             (1, 1000, 8, 2, True),      # ragged, GQA
+                             (1, 300, 4, 4, False),      # non-causal, ragged
+                             (2, 130, 8, 1, False),      # non-causal, GQA 8
+                         ]))
 @pytest.mark.parametrize('backward', ['fused', 'split'])
 def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
-                                      causal, backward):
+                                      causal, head_dim, backward):
+    """The fused kernel K2b, or K3a + K3b split, against the plain backward,
+    one launch each."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
-                                        seq + heads)
+                                        seq + heads, head_dim=head_dim)
     out, lse = flash.flash_attention_plain(q, k, v, causal=causal)
     counters = ((flash.flash_bwd_fused,) if backward == 'fused'
                 else (flash.flash_bwd_dq, flash.flash_bwd_dkv))
@@ -419,9 +450,13 @@ def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
     _close_grads(got, want)
 
 
-@pytest.mark.parametrize('backward', ['fused', 'split'])
-def test_flash_backward_repeats_bitwise(device, backward):
-    q, k, v, d_out, d_lse = _bwd_inputs(device, 2, 640, 8, 4, 5)
+@pytest.mark.parametrize('backward,head_dim', [
+    pytest.param(backward, head_dim, id=backward + suffix)
+    for head_dim, suffix in ((64, ''), (128, '-d128'))
+    for backward in ('fused', 'split')])
+def test_flash_backward_repeats_bitwise(device, backward, head_dim):
+    q, k, v, d_out, d_lse = _bwd_inputs(device, 2, 640, 8, 4, 5,
+                                        head_dim=head_dim)
     out, lse = flash.flash_attention_plain(q, k, v)
     first = flash.flash_attention_bwd(q, k, v, out, lse, d_out, d_lse,
                                       backward=backward)
@@ -431,20 +466,24 @@ def test_flash_backward_repeats_bitwise(device, backward):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize('batch,seq,heads,causal', [
+@pytest.mark.parametrize('batch,seq,heads,causal,head_dim', _head_dim_cases([
     (1, 2048, 4, True),             # the routed case: MHA past 1024 keys
     (2, 1100, 4, False),            # non-causal, ragged
     (1, 4100, 2, True),             # ragged, 65 tiles
     (2, 200, 3, True),              # shorter than the route, same kernel
     (1, 1, 2, True),
-])
+], [
+    (1, 2048, 8, True),
+    (1, 1100, 4, False),
+    (2, 200, 2, True),
+]))
 def test_k2a_equals_k2b_bitwise_and_matches_plain(device, batch, seq, heads,
-                                                  causal):
+                                                  causal, head_dim):
     """K2a sums each dq row in kv order in its resident buffer, which is
     the sum K2b's reduction takes over the same float32 products: dq, dk
     and dv equal bit for bit, repeat, and match the plain backward."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, heads,
-                                        seq + 7)
+                                        seq + 7, head_dim=head_dim)
     out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
     delta = flash.attention_delta(out, d_out, d_lse).contiguous()
     args = (q, k, v, d_out, lse, delta)
@@ -506,8 +545,10 @@ def test_dropout_kernels_match_plain(device, batch, seq, heads, kv_heads,
     assert not torch.equal(out.detach(), undropped)
 
 
-@pytest.mark.parametrize('heads,kv_heads', [(2, 2), (4, 2), (2, 1)])
-def test_dropout_masks_equal_the_plain_hash_bitwise(device, heads, kv_heads):
+@pytest.mark.parametrize('heads,kv_heads,head_dim', _head_dim_cases(
+    [(2, 2), (4, 2), (2, 1)], [(2, 2), (4, 1)]))
+def test_dropout_masks_equal_the_plain_hash_bitwise(device, heads, kv_heads,
+                                                    head_dim):
     """K1, K2a, K2b, K3a and K3b apply exactly the plain hash's masks, the
     query head's row under GQA: read back from their outputs at a small
     shape (two batch rows, two tiles), every visible entry, by the same
@@ -516,7 +557,8 @@ def test_dropout_masks_equal_the_plain_hash_bitwise(device, heads, kv_heads):
 
     generator = torch.Generator(device).manual_seed(heads + kv_heads)
     mismatches = chip_smoke.mask_mismatches(torch, generator, heads,
-                                            kv_heads, seed=987_654_321)
+                                            kv_heads, seed=987_654_321,
+                                            head_dim=head_dim)
     assert len(mismatches) == (7 if heads == kv_heads else 5)
     assert not any(mismatches.values()), mismatches
     batch, seq = 2, 128
@@ -612,6 +654,53 @@ def test_gpt2_tiny_trains_at_long_context_with_remat_on_the_card(device):
                 flash.flash_bwd_fused)
     before = [counter.launches for counter in counters]
     losses = [step(state, tokens, tokens)[1][1].item() for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        6 * module.layers, 3 * module.layers, 0]
+
+
+def test_head_dim_128_llama_trains_on_the_card_as_on_the_cpu(device):
+    """A head-dim-128 Llama (bf16, flash, remat, the chunked untied head):
+    one step's loss and gradient on the card (K1, K2b) against the same
+    weights on the CPU (the plain versions), the loss within 1e-2 and the
+    gradients' cosine above 0.999 (bf16 rounding at other points); then
+    three AdamW steps on the card with falling losses, K1 twice a layer
+    (the recompute) and K2b once a layer per step."""
+    from tpusystem_torch.models import llama_tiny
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    config = dict(dim=256, heads=2, kv_heads=1, ffn_dim=512, max_seq=256,
+                  attention='flash', remat=True, return_features=True)
+    weights = llama_tiny(device='cpu', **config).state_dict()
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, 256,
+                                                               (2, 256)))
+    criterion = ChunkedNextTokenLoss(chunks=4, tied=False)
+    results = []
+    for where in (device, torch.device('cpu')):
+        module = llama_tiny(device=where, **config)
+        module.load_state_dict(weights)
+        params = list(module.parameters())
+        batch = tokens.to(where)
+        loss = criterion(module(batch), batch)
+        grads = torch.autograd.grad(loss, params)
+        results.append((loss.item(), torch.cat([g.float().flatten().cpu()
+                                                for g in grads])))
+    (loss, grad), (cpu_loss, cpu_grad) = results
+    assert abs(loss - cpu_loss) <= 1e-2, (loss, cpu_loss)
+    assert torch.nn.functional.cosine_similarity(grad, cpu_grad,
+                                                 dim=0).item() > 0.999
+    module = llama_tiny(device=device, **config)
+    module.load_state_dict(weights)
+    optimizer = AdamW(lr=3e-3, grad_clip=1.0)
+    state = init_state(module, optimizer)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    batch = tokens.to(device)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused,
+                flash.flash_bwd_fused_g1)
+    before = [counter.launches for counter in counters]
+    losses = [step(state, batch, batch)[1][1].item() for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert [c.launches - b for c, b in zip(counters, before)] == [
         6 * module.layers, 3 * module.layers, 0]

@@ -58,12 +58,18 @@ def _jax_vjp(q, k, v, d_out, d_lse, *, causal, backward, block):
 # (seq, block): one reference block, and two kv steps (the partial-dq sum
 # under GQA, the resident-dq kernel under MHA)
 @pytest.mark.parametrize('seq,block', [(64, 32), (256, 128)])
-@pytest.mark.parametrize('kv_heads', [4, 2])             # MHA, GQA group 2
+@pytest.mark.parametrize('head_dim,kv_heads', [
+    pytest.param(16, 4, id='4'),                          # MHA
+    pytest.param(16, 2, id='2'),                          # GQA group 2
+    pytest.param(128, 4, id='d128-4'),                    # Llama's head dim
+    pytest.param(128, 1, id='d128-1'),                    # GQA group 4
+])
 @pytest.mark.parametrize('causal', [True, False])
 @pytest.mark.parametrize('backward', ['fused', 'split'])
-def test_plain_backward_matches_jax_vjp(seq, block, kv_heads, causal,
-                                        backward):
-    q, k, v, d_out, d_lse = _inputs(seq + kv_heads, 1, seq, 4, kv_heads, 16)
+def test_plain_backward_matches_jax_vjp(seq, block, head_dim, kv_heads,
+                                        causal, backward):
+    q, k, v, d_out, d_lse = _inputs(seq + kv_heads, 1, seq, 4, kv_heads,
+                                    head_dim)
     out, lse, want = _jax_vjp(q, k, v, d_out, d_lse, causal=causal,
                               backward=backward, block=block)
     got = tflash.flash_attention_bwd_plain(
@@ -74,12 +80,19 @@ def test_plain_backward_matches_jax_vjp(seq, block, kv_heads, causal,
         np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
 
 
-@pytest.mark.parametrize('kv_heads,causal', [(4, True), (2, True),
-                                             (2, False)])
-def test_autograd_through_flash_attention_lse_matches_jax(kv_heads, causal):
+@pytest.mark.parametrize('kv_heads,causal,head_dim', [
+    pytest.param(4, True, 16, id='4-True'),
+    pytest.param(2, True, 16, id='2-True'),
+    pytest.param(2, False, 16, id='2-False'),
+    pytest.param(4, True, 128, id='d128-4-True'),
+    pytest.param(1, True, 128, id='d128-1-True'),
+    pytest.param(1, False, 128, id='d128-1-False'),
+])
+def test_autograd_through_flash_attention_lse_matches_jax(kv_heads, causal,
+                                                          head_dim):
     """The autograd Function on CPU tensors: plain forward, plain backward,
     no kernel launches; both outputs carry a cotangent."""
-    q, k, v, d_out, d_lse = _inputs(7, 2, 96, 4, kv_heads, 16)
+    q, k, v, d_out, d_lse = _inputs(7, 2, 96, 4, kv_heads, head_dim)
     _, _, want = _jax_vjp(q, k, v, d_out, d_lse, causal=causal,
                           backward='fused', block=96)
     tensors = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]

@@ -27,11 +27,14 @@ read from that layer's cursor (``layer_{i}/attn/index``) before the call
 advances it; there is no model-level ``position`` leaf. ``decode_pages``
 switches to the serving engine's paged pool.
 
+Training runs through ``attention='flash'``: K1 forward, and the fused
+backward K2b for GQA (K2a for MHA past 1,024 keys), at head dims 16 to
+128; ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``nn.remat``).
+
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 item: ``scan_layers`` / ``scan_unit``, and the multi-device knobs ``mesh``
-and ``schedule``. Training through the flash kernels at head dim 128
-raises in :mod:`tpusystem_torch.ops.cuda.flash` on the card (the backward
-kernels take head dims 16 to 64).
+and ``schedule``.
 """
 
 from __future__ import annotations

@@ -22,10 +22,12 @@
 // [16, 1024, 12, 64], causal, the fused backward does 5 products of
 // 2 * 64 flops per visible (query, key) pair: ~6.5e10 flops against
 // ~0.18 GB of q, k, v, dO, dq, dk, dv, lse and delta, so the tensor-core
-// bound is ~65 us and the memory bound ~53 us. These first kernels do their
-// products with scalar float32 FMAs out of shared memory (4 x 4 register
-// tiles per thread), so they are bound by the SMs' scalar FP32 rate, far
-// above that bound: mma.sync / wgmma with TMA-fed tiles is the later step.
+// bound is ~65 us and the memory bound ~53 us; at Llama-3 8B's
+// [1, 8192, 32 q / 8 kv heads, 128] the 1.07e9 visible pairs make it
+// 1.39 ms of tensor-core work. These first kernels do their products with
+// scalar float32 FMAs out of shared memory (4 x D / 16 register tiles per
+// thread), so they are bound by the SMs' scalar FP32 rate, far above that
+// bound: mma.sync / wgmma with TMA-fed tiles is the later step.
 //
 // What the design does:
 //   * 64 x 64 tiles; 256 threads, thread (ty, tx) owning rows ty + 16 i and
@@ -67,6 +69,15 @@
 //   * Any sequence length: rows and columns past S are masked (P = 0) and
 //     never written. Tensors keep the public [B, S, H, D] layout (lse and
 //     delta [B, S, Hq]); the kernels compute their own strided offsets.
+//   * Head dims 16, 32, 64 and 128 (by_head_dim), one design for all. At
+//     128 a thread's dk and dv tiles are 4 x 8 floats each (64 registers
+//     live across the sweep) and tile_terms' s and dp 32 more, beside the
+//     operands: ptxas gives K2b's sweep 160 registers, K3b's 153, K2a 154
+//     and the dq sweep 115, none spilling (chip_smoke.py's bwd-ptxas), so
+//     K2b, K3b and K2a run one 256-thread block an SM and K3a two. The tiles take
+//     83,968 bytes of dynamic shared memory (Layout<128>), under the 227 KB
+//     a block may have. K2b's float32 partials grow with D: 8.66 GB a call
+//     at Llama-3 8B's [1, 8192, 32, 128], one layer's backward at a time.
 //
 // Plain C interface (bound with ctypes); launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -74,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_dropout.cuh"
 
@@ -581,6 +594,18 @@ bool valid(int B, int S, int Hq, int Hkv) {
   return B >= 1 && S >= 1 && Hkv >= 1 && Hq % Hkv == 0 && B * Hq <= 65535;
 }
 
+// launch(std::integral_constant<int, D>()) for the instantiated head dims
+template <typename Launch>
+int by_head_dim(int D, Launch launch) {
+  switch (D) {
+    case 16: return launch(std::integral_constant<int, 16>());
+    case 32: return launch(std::integral_constant<int, 32>());
+    case 64: return launch(std::integral_constant<int, 64>());
+    case 128: return launch(std::integral_constant<int, 128>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -599,8 +624,8 @@ size_t flash_bwd_g1_tickets(int B, int S, int H) {
 
 // q, dout [B, S, Hq, D]; k, v [B, S, Hkv, D] bf16 (contiguous); lse and
 // delta [B, S, Hq] float32; dq like q, dk and dv like k; dq_partial holds
-// flash_bwd_partial_elements(...) floats. D in {16, 32, 64}. dropout NULL or
-// off for none (as in every entry point below).
+// flash_bwd_partial_elements(...) floats. D in {16, 32, 64, 128}. dropout
+// NULL or off for none (as in every entry point below).
 int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
                          void* dq_partial, int B, int S, int Hq, int Hkv, int D, float scale,
@@ -608,23 +633,12 @@ int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
-  int err;
-  switch (D) {
-    case 16:
-      err = launch_kv<16, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, drop, s);
-      return err ? err : launch_reduce<16>(dq_partial, dq, B, S, Hq, causal, s);
-    case 32:
-      err = launch_kv<32, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, drop, s);
-      return err ? err : launch_reduce<32>(dq_partial, dq, B, S, Hq, causal, s);
-    case 64:
-      err = launch_kv<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S, Hq, Hkv,
-                                scale, causal, drop, s);
-      return err ? err : launch_reduce<64>(dq_partial, dq, B, S, Hq, causal, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(D, [&](auto dim) {
+    constexpr int DIM = decltype(dim)::value;
+    const int err = launch_kv<DIM, true>(q, k, v, dout, lse, delta, dk, dv, dq_partial, B, S,
+                                         Hq, Hkv, scale, causal, drop, s);
+    return err ? err : launch_reduce<DIM>(dq_partial, dq, B, S, Hq, causal, s);
+  });
 }
 
 // MHA: q, k, v, dout [B, S, H, D] bf16 (contiguous); lse and delta
@@ -637,19 +651,10 @@ int flash_bwd_fused_g1_bf16(const void* q, const void* k, const void* v, const v
   if (B < 1 || S < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
-  switch (D) {
-    case 16:
-      return launch_g1<16>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
-                           scale, causal, drop, s);
-    case 32:
-      return launch_g1<32>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
-                           scale, causal, drop, s);
-    case 64:
-      return launch_g1<64>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, tickets, B, S, H,
-                           scale, causal, drop, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(D, [&](auto dim) {
+    return launch_g1<decltype(dim)::value>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc,
+                                           tickets, B, S, H, scale, causal, drop, s);
+  });
 }
 
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -659,19 +664,10 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* 
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
-  switch (D) {
-    case 16:
-      return launch_kv<16, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, drop, s);
-    case 32:
-      return launch_kv<32, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, drop, s);
-    case 64:
-      return launch_kv<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, Hq, Hkv,
-                                  scale, causal, drop, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(D, [&](auto dim) {
+    return launch_kv<decltype(dim)::value, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                                  B, S, Hq, Hkv, scale, causal, drop, s);
+  });
 }
 
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -681,16 +677,10 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* d
   if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
-  switch (D) {
-    case 16:
-      return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
-    case 32:
-      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv, scale, causal, drop, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(D, [&](auto dim) {
+    return launch_dq<decltype(dim)::value>(q, k, v, dout, lse, delta, dq, B, S, Hq, Hkv,
+                                           scale, causal, drop, s);
+  });
 }
 
 }  // extern "C"

@@ -41,10 +41,7 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 
 NEG_INF = -1e30
 TILE = 64          # kv rows per online-softmax step, as in the CUDA kernels
-FORWARD_HEAD_DIMS = (16, 32, 64, 128)    # K1's instantiations
-BACKWARD_HEAD_DIMS = (16, 32, 64)        # K2a, K2b, K3a and K3b's
-BACKWARD_ITEM = ('ROADMAP queue 2 part B: the flash backward at head dim 128, '
-                 'with Llama training')
+HEAD_DIMS = (16, 32, 64, 128)     # K1's, K2a's, K2b's, K3a's and K3b's
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
 _U32 = 0xFFFFFFFF
@@ -297,31 +294,25 @@ def _check_shapes(query, key) -> None:
                          f'{key.shape[1]})')
 
 
-def _check_backward_head_dim(name: str, head_dim: int) -> None:
-    """The backward kernels are instantiated for ``BACKWARD_HEAD_DIMS``
-    only: a call that would need one at another head dim raises here,
-    before anything runs."""
-    if head_dim not in BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(
-            f'{name}: the flash backward kernels take head dims '
-            f'{BACKWARD_HEAD_DIMS}, not {head_dim}; the backward at head dim '
-            f'128 is not ported to tpusystem_torch yet ({BACKWARD_ITEM})')
+def _check_head_dim(name: str, head_dim: int) -> None:
+    """The kernels are instantiated for ``HEAD_DIMS`` only: a call at
+    another head dim raises here, before anything runs."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f'{name}: head_dim {head_dim} not in {HEAD_DIMS}')
 
 
 def _check_cuda(name, tensors, device) -> None:
     """What the CUDA kernels take: bfloat16 ``[B, S, H, D]`` tensors on one
-    device, a head dim in ``FORWARD_HEAD_DIMS`` and at most 65535 batch rows
-    x heads."""
+    device, a head dim in ``HEAD_DIMS`` and at most 65535 batch rows x
+    heads."""
+    batch, _, heads, head_dim = tensors[0].shape
+    _check_head_dim(name, head_dim)
     if device.type != 'cuda':
         raise ValueError(f'{name}: tensors on {device} are not supported')
     for tensor in tensors:
         if tensor.dtype != torch.bfloat16 or tensor.device != device:
             raise ValueError(f'{name}: the CUDA kernel takes bfloat16 '
                              'tensors on one device')
-    batch, _, heads, head_dim = tensors[0].shape
-    if head_dim not in FORWARD_HEAD_DIMS:
-        raise ValueError(f'{name}: head_dim {head_dim} not in '
-                         f'{FORWARD_HEAD_DIMS}')
     if batch * heads > 65535:
         raise ValueError(f'{name}: batch * heads over 65535')
 
@@ -356,9 +347,9 @@ def _flash_forward(query, key, value, causal: bool, dropout: float, seed):
 
 def _kernel_args(name, query, key):
     """``(batch, seq, q_heads, kv_heads, head_dim)`` of a backward kernel's
-    call, which raises at a head dim the backward kernels do not take."""
+    call, which raises at a head dim the kernels do not take."""
     batch, seq, q_heads, head_dim = query.shape
-    _check_backward_head_dim(name, head_dim)
+    _check_head_dim(name, head_dim)
     return batch, seq, q_heads, key.shape[2], head_dim
 
 
@@ -478,7 +469,6 @@ def flash_attention_bwd(query, key, value, out, lse, d_out, d_lse=None, *,
                                          d_lse, causal=causal,
                                          backward=backward, dropout=dropout,
                                          seed=seed)
-    _check_backward_head_dim('flash_attention_bwd', query.shape[-1])
     _check_cuda('flash_attention_bwd', (query, key, value, out, d_out),
                 query.device)
     query, key, value, d_out = (t.contiguous()
@@ -528,11 +518,8 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     differentiable in both outputs.
 
     ``key``/``value`` may carry fewer heads than ``query`` (GQA). On CUDA
-    the kernels take bfloat16 and any length; K1 takes the head dims in
-    ``FORWARD_HEAD_DIMS``, the backward kernels those in
-    ``BACKWARD_HEAD_DIMS``, so a call off the CPU that autograd would
-    differentiate (grad mode on and an input that requires grad) at head
-    dim 128 raises ``NotImplementedError`` before K1 runs.
+    the kernels take bfloat16, any length and the head dims in
+    ``HEAD_DIMS``.
     ``backward`` picks the gradient kernels: ``'fused'`` (K2a or K2b, see
     :func:`backward_kernels`) or ``'split'`` (K3a + K3b). ``dropout > 0``
     drops attention probabilities with the 'xla' path's semantics
@@ -545,9 +532,6 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     _check_shapes(query, key)
     _check_backward(backward)
     _check_dropout(dropout, seed)
-    if (query.device.type != 'cpu' and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (query, key, value))):
-        _check_backward_head_dim('flash_attention_lse', query.shape[-1])
     return _FlashAttention.apply(query, key, value, causal, backward,
                                  float(dropout), seed)
 
