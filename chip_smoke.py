@@ -10,13 +10,16 @@ Phases, in order; any failure exits non-zero:
 2. hold each serving kernel against its plain PyTorch version on the card at
    the serving path's shapes (bfloat16, batch 8, prefill lengths 512 and
    1024) and time it beside the plain version, the one PyTorch library call
-   that computes the same function, and its bound;
-   then K1 at head dim 128, Llama-3 8B's prefill shapes [1, S, 32, 8, 128]
-   for S = 512, 1024, 4096 and 8192, an MHA case [2, 1024, 8, 8, 128], a
-   ragged length (S = 1000) and a non-causal case, each against the plain
-   forward, timed beside it, ``scaled_dot_product_attention`` (GQA) and
-   its bound, with ptxas' registers and spills of every K1 instantiation
-   (``k1-ptxas``);
+   that computes the same function, and its bound (every check prints
+   ``bound_share``, its bound over its time, and K1's its TFLOP/s);
+   2b. then K1, the TMA-fed ``wgmma`` flash forward (128-row query and kv
+   tiles, two warpgroups), at head dim 128, Llama-3 8B's prefill shapes
+   [1, S, 32, 8, 128] for S = 512, 1024, 4096 and 8192, an MHA case
+   [2, 1024, 8, 8, 128], a ragged length (S = 1000) and a non-causal case,
+   each against the plain forward (out within 2e-2, lse within 1e-3),
+   timed beside it, ``scaled_dot_product_attention`` (GQA) and its bound,
+   with ptxas' registers and spills of every K1 instantiation
+   (``k1-ptxas``; a missing or spilling head dim fails);
 3. the flash forward K1 at the training shape [16, 1024, 12, 64], then the
    flash backward kernels K2b (fused), K3a and K3b (the split dq / dkv
    pair), and K2a under multi-head attention, at GPT-2's head dim 64 (the
@@ -263,17 +266,22 @@ def rotating(make, one_set_bytes: int):
 
 
 def record_check(name, shape, err, tol, timed, plain, library, bound,
-                 by_events=False, **notes):
+                 by_events=False, flops=None, **notes):
     """Print one kernel's check and fail if its error is over ``tol``. With
     ``by_events`` the times quoted are the CUDA-event ones (for kernels of
     milliseconds, where the host's gaps between launches are negligible),
-    the profiler's kernel sum kept beside them."""
+    the profiler's kernel sum kept beside them. ``bound_share`` is
+    ``bound_ms / ms``; with ``flops`` (the work the bound counts) the
+    achieved ``tflops`` stand beside it."""
     pick = 1 if by_events else 0
     entry = dict(shape=shape, max_abs_err=err, tol=tol, ms=timed[pick],
                  event_ms=timed[1], profiler_ms=timed[0],
                  plain_ms=plain[pick],
                  library_ms=None if library is None else library[pick],
-                 bound_ms=bound[0], bound_by=bound[1], **notes)
+                 bound_ms=bound[0], bound_by=bound[1],
+                 bound_share=bound[0] / timed[pick], **notes)
+    if flops is not None:
+        entry['tflops'] = flops / timed[pick] / 1e9
     print('kernel-check ' + json.dumps({'name': name, **entry}))
     if not err <= tol:
         fail(f'{name} {shape}: max abs err {err} over {tol}')
@@ -390,8 +398,8 @@ def check_kernels(torch, generator):
 
     rows = decode_checks(torch, generator)
 
-    def record(*args):
-        rows.append(record_check(*args))
+    def record(*args, **notes):
+        rows.append(record_check(*args, **notes))
 
     # K1 flash forward at the two prefill buckets that route to it
     heads, head_dim = 12, 64
@@ -427,7 +435,7 @@ def check_kernels(torch, generator):
         flops = heads * pairs * 4 * head_dim        # q.k and p.v products
         moved = 4 * seq * heads * head_dim * 2 + seq * heads * 4
         record(f'flash_attention[S={seq}]', list(shape), err, 2e-2, timed,
-               plain, library, bound_ms(moved, flops))
+               plain, library, bound_ms(moved, flops), flops=flops)
     return rows
 
 
@@ -600,7 +608,7 @@ def check_train_forward(torch, generator):
             *leaves, is_causal=True), calls=20)
     return [record_check(
         'flash_attention[train]', shape, err, 2e-2, timed, plain, library,
-        bound_ms(4 * 2 * elements + stats, flops))]
+        bound_ms(4 * 2 * elements + stats, flops), flops=flops)]
 
 
 def grouped_inputs(torch, generator):
@@ -1013,7 +1021,8 @@ def check_long_forward(torch, label, q, k, v, out, lse, causal=True,
              else batch * heads * seq * seq)
     return record_check(label, list(q.shape), err, 2e-2, timed, plain,
                         library, bound_ms(moved, 4 * head_dim * pairs),
-                        by_events=by_events, lse_err=lse_err,
+                        by_events=by_events, flops=4 * head_dim * pairs,
+                        lse_err=lse_err,
                         kv_heads=k.shape[2], causal=causal,
                         library_call='scaled_dot_product_attention'
                         + (', causal' if causal else '')
@@ -1080,6 +1089,13 @@ def check_k1_head_dim_128(torch, generator):
         if 'flash_fwd_kernel' in name}
     print('k1-ptxas ' + json.dumps(registers or 'not available: the '
                                    'library was built by an earlier process'))
+    if registers:           # built here: every head dim, none spilling
+        for head_dim in flash.HEAD_DIMS:
+            entry = registers.get(f'flash_fwd_kernel<{head_dim}>')
+            if entry is None or entry.get('spill_stores', 1) or entry.get(
+                    'spill_loads', 1):
+                fail(f'k1-ptxas: flash_fwd_kernel<{head_dim}> missing or '
+                     f'spilling ({entry})')
     rows = []
     for label, batch, seq, heads, kv_heads, causal in K1_128_CASES:
         q = torch.randn((batch, seq, heads, 128), generator=generator,
@@ -2370,14 +2386,18 @@ def main() -> None:
             'plain_ms': entry['plain_ms'], 'bound_ms': entry['bound_ms'],
             'bound_by': entry['bound_by'], 'library_ms': entry['library_ms'],
             'shape': entry['shape']})
-    # K1's head-dim-128 shapes (Llama-3 8B's prefill), and its registers
-    kernels[[k['name'] for k in kernels].index('flash_attention_lse')][
-        'head_dim_128'] = dict(
+    # K1's design, its instantiations' registers and its head-dim-128
+    # shapes (Llama-3 8B's prefill)
+    k1 = kernels[[k['name'] for k in kernels].index('flash_attention_lse')]
+    k1['design'] = 'wgmma+tma'
+    k1['ptxas'] = k1_ptxas or 'not available: built by an earlier process'
+    k1['head_dim_128'] = dict(
             launches=llama['launches']['flash_attention_lse'],
             ptxas=k1_ptxas.get('flash_fwd_kernel<128>'),
             shapes=[{key: entry[key] for key in (
                 'shape', 'kv_heads', 'causal', 'max_abs_err', 'ms',
-                'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+                'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+                'bound_share', 'tflops')}
                 for _, entry in k1_128_rows])
     # the backward kernels at head dim 128: launches on the main paths
     # (Llama training for K2a and K2b, phase 12's head-dim-128 case for

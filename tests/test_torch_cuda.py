@@ -28,6 +28,8 @@ kernels' tolerance; the dropout keep mask of the threefry kernel is integer
 arithmetic and equals its plain version bit for bit.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -195,6 +197,24 @@ def test_gpt2_tiny_dropout_step_on_the_card_matches_the_cpu(device):
     (1, 2048, 32, 8, 128, True),
     (1, 300, 4, 4, 128, False),
     (2, 130, 8, 2, 128, False),
+    # the edges of K1's 128-row tiles: S of 1 to 1000 around 64 and 128,
+    # every head dim, GQA groups 1, 3, 4 and 8, causal or not, B > 1
+    (1, 1, 4, 4, 64, True),
+    (2, 1, 8, 1, 128, False),
+    (1, 63, 6, 2, 16, True),
+    (2, 63, 8, 2, 32, False),
+    (1, 65, 8, 8, 128, True),
+    (2, 127, 12, 4, 64, True),
+    (1, 127, 4, 4, 16, False),
+    (1, 128, 8, 1, 64, True),
+    (2, 128, 6, 2, 128, False),
+    (1, 129, 16, 2, 32, True),
+    (2, 129, 8, 8, 16, False),
+    (1, 255, 12, 3, 128, True),
+    (2, 255, 4, 4, 64, False),
+    (1, 1000, 24, 8, 64, False),
+    (2, 1000, 8, 1, 32, True),
+    (1, 1000, 6, 2, 16, True),
 ])
 def test_flash_matches_plain(device, batch, seq, heads, kv_heads, head_dim,
                              causal):
@@ -213,16 +233,37 @@ def test_flash_matches_plain(device, batch, seq, heads, kv_heads, head_dim,
     _close(lse, want_lse, 1e-3)
 
 
-def test_flash_at_head_dim_128_repeats_bitwise(device):
-    """K1 at head dim 128 gives the same bits on a repeat (no atomics)."""
-    generator = torch.Generator(device).manual_seed(128)
-    q = _normal(generator, (1, 1000, 16, 128), 1.0, device)
-    k = _normal(generator, (1, 1000, 4, 128), 1.0, device)
-    v = _normal(generator, (1, 1000, 4, 128), 1.0, device)
+@pytest.mark.parametrize('head_dim', flash.HEAD_DIMS)
+def test_flash_at_head_dim_128_repeats_bitwise(device, head_dim):
+    """K1 gives the same bits on a repeat (no atomics), at 128 and at every
+    other head dim it takes."""
+    generator = torch.Generator(device).manual_seed(head_dim)
+    q = _normal(generator, (1, 1000, 16, head_dim), 1.0, device)
+    k = _normal(generator, (1, 1000, 4, head_dim), 1.0, device)
+    v = _normal(generator, (1, 1000, 4, head_dim), 1.0, device)
     first = flash.flash_attention_lse(q, k, v)
     again = flash.flash_attention_lse(q, k, v)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize('which', ['query', 'key'])
+def test_flash_refuses_a_view_off_16_bytes(device, which):
+    """K1's TMA needs each tensor on a 16-byte boundary: a contiguous view
+    two bytes off one raises ``ValueError`` and launches nothing (no copy,
+    no fallback)."""
+    shape = (1, 64, 2, 64)
+    flat = torch.zeros(math.prod(shape) + 1, dtype=torch.bfloat16,
+                       device=device)
+    tensors = {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+               for name in ('query', 'key', 'value')}
+    tensors[which] = flat[1:].view(shape)
+    assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
+    before = flash.flash_attention_lse.launches
+    with pytest.raises(ValueError, match='16-byte'):
+        flash.flash_attention_lse(tensors['query'], tensors['key'],
+                                  tensors['value'])
+    assert flash.flash_attention_lse.launches == before
 
 
 @pytest.mark.parametrize('heads,kv_heads', [(2, 2), (4, 1)])

@@ -70,6 +70,35 @@ def test_flash_attention_lse_matches_jax(kv_heads):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
 
 
+@pytest.mark.parametrize('head_dim,heads,kv_heads,causal', [
+    (16, 6, 2, False),         # GQA group 3, non-causal
+    (32, 4, 4, True),
+    (32, 6, 2, True),          # GQA group 3
+    (64, 4, 4, True),
+    (64, 6, 2, False),
+    (128, 6, 2, False),
+])
+def test_flash_forward_modes_match_jax(head_dim, heads, kv_heads, causal):
+    """The modes K1 keeps, head dims 16-128, a GQA group of 3 and
+    non-causal, beside the causal cases above and at head dim 128
+    (``test_torch_llama.py``): the plain forward K1 is held to on the card
+    against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(head_dim + heads + causal)
+    q = _normal(rng, (1, 256, heads, head_dim))
+    k = _normal(rng, (1, 256, kv_heads, head_dim))
+    v = _normal(rng, (1, 256, kv_heads, head_dim))
+    want_out, want_lse = jflash.flash_attention_lse(   # two kv blocks
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=128, block_kv=128)
+    before = tflash.flash_attention_lse.launches
+    got_out, got_lse = tflash.flash_attention_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal)
+    assert tflash.flash_attention_lse.launches == before   # CPU: plain
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
+
+
 def test_decode_kernels_reject_what_the_card_cannot_take():
     """A tensor on neither the CPU nor CUDA is refused, never computed."""
     x = torch.zeros(2, 8, device='meta')

@@ -1,50 +1,55 @@
-// Causal flash-attention forward for Hopper (sm_90a), bf16 in and out,
-// float32 logsumexp.
+// Flash-attention forward for Hopper (sm_90a), bf16 in and out, float32
+// logsumexp: TMA-fed wgmma tiles.
 //
 // Replaces the Pallas TPU kernel tpusystem/ops/pallas/flash.py:
 // _flash_fwd_kernel (reached through _flash_fwd, flash_attention and
 // flash_attention_lse) -- K1, with its attention-probability dropout.
 //
-// What bounds it on an H100: at the prefill shapes of GPT-2 125M (one
-// sequence of 512 or 1024 tokens, 12 heads of 64) the causal work is
-// ~1.6 GFLOP against ~6.3 MB of q, k, v, out and lse, so the tensor-core
-// bound and the memory bound are both near 2 us. This first kernel does its
-// products with scalar float32 FMAs, so it is bound by the SMs' FP32 rate,
-// well above that: wgmma and TMA are the later step.
+// What bounds it on an H100: at Llama-3 8B's prefill [1, 8192, 32 q, 8 kv,
+// 128] the causal products are ~550 GFLOP against ~170 MB of q, k, v, out
+// and lse, 0.56 ms at the bf16 tensor-core peak and 0.05 ms of memory: the
+// tensor cores bound it, at every shape the main paths give it past a few
+// hundred keys. So both products run on wgmma, fed by TMA.
 //
-// What the design does:
-//   * One block per (64-row query tile, batch * head). q stays in registers
-//     (four threads per query row), k and v stream through shared memory in
-//     64-row tiles, and the [64, 64] score tile never leaves the SM: O(seq)
-//     memory, like the TPU kernel. The tiles live in dynamic shared memory
-//     (FwdLayout): at head dim 128 they take 49,664 bytes, over the 48 KB a
-//     block may declare statically.
-//   * Head dims up to 64: each of a row's four threads holds the whole query
-//     row and computes 16 of the tile's 64 scores. At head dim 128 the row
-//     would take 128 registers a thread, beside the accumulator and the
-//     scores, so there the row is split (SPLIT): each thread holds a quarter
-//     of it (the interleaved pairs sub, sub + 4, ...), takes its part of all
-//     64 dot products, 16 columns at a time, and the row's four threads
-//     reduce-scatter the partial sums with two rounds of shuffles, so each
-//     ends with the same 16 full scores as the unsplit kernel. Its output
-//     dims are 8-wide chunks sub, sub + 4, ... so the four threads' 16-byte
-//     reads of a v row hit distinct shared-memory banks.
-//   * Causal: kv tiles strictly above the diagonal are skipped; the diagonal
-//     tile and the ragged sequence end are masked to -1e30 (NEG_INF).
-//   * Online softmax in float32, the TPU kernel's arithmetic: running max m,
-//     sum l of the unrounded probabilities, the accumulator rescaled by
-//     exp(m_prev - m_new); the probabilities are rounded to bf16 before the
-//     product with v; out = acc / safe_l and lse = m + log(safe_l) with
-//     safe_l = 1 where l == 0.
-//   * GQA: query head h reads kv head h / (Hq / Hkv); grouped kv is never
-//     broadcast.
-//   * Tensors keep the public [B, S, H, D] layout; the kernel computes its own
-//     strided offsets, so the wrapper transposes nothing.
-//   * Dropout (flash.py:127-157): l sums the unmasked probabilities, the
-//     kept ones (probs * keep, from flash_dropout.cuh's positional hash of
-//     the query head's row b * Hq + h) are rounded to bf16 before the
-//     product with v, out = acc / safe_l / (1 - p), and lse stays the full
-//     denominator. At p = 0 none of it runs.
+// What the design does (hopper.cuh notes each layout fact it relies on):
+//   * One block per (128-row query tile, b * Hq + h): two consumer
+//     warpgroups of 64 query rows, 256 threads. The grid's x is b * Hq + h
+//     and its y the query tile counted from the end, so the longest causal
+//     rows are dispatched first and the tail of the grid is short tiles.
+//   * TMA loads into dynamic shared memory, 4-D maps over [B, S, H, D] with
+//     a box of 128 rows by one swizzle row (64 columns of 128 bytes, or the
+//     whole head dim of 16 / 32 at the 32 / 64-byte swizzle); the q tile is
+//     loaded once, the k and v tiles of 128 rows go through a ring of two
+//     stages, a "full" mbarrier a stage with the tile's bytes expected.
+//     Thread 0 issues tile j + 1's loads before tile j's products, into the
+//     stage of tile j - 1 once its "empty" mbarrier has seen all eight
+//     warps arrive after their P.V wait; no block-wide barrier in the loop,
+//     so one warpgroup's softmax can overlap the other's products, a tile
+//     apart at most. TMA zero-fills rows past S.
+//   * S = Q K^T with wgmma.m64n128k16, both operands K-major from shared
+//     memory, D / 16 steps; the scores stay in the accumulator's registers.
+//   * Online softmax in float32 on the accumulator, the TPU kernel's
+//     arithmetic: running max m, sum l of the unrounded probabilities, the
+//     output rescaled by exp(m_prev - m_new); a row's values lie in one quad
+//     of lanes, so its max and sum are two shuffles. The causal mask
+//     (row >= col on global positions, else NEG_INF = -1e30) and the ragged
+//     end (col >= S) are applied on the last visible tile only: with
+//     128-row tiles on both sides that is the diagonal tile, and every
+//     earlier tile is wholly visible.
+//   * O += P V with wgmma.m64nNk16, A = P from registers (the probabilities
+//     rounded to bf16, packed in pairs: the score accumulator's layout is
+//     already the A fragment's) and B = the v tile, MN-major, through the
+//     transpose bit; at head dim 128 one instruction per 64-column block.
+//   * Epilogue: out = acc / safe_l (then / keep under dropout) rounded to
+//     bf16 and stored from registers, rows past S skipped; lse =
+//     m + log(safe_l) with safe_l = 1 where l == 0, written by one lane of
+//     each quad.
+//   * GQA: query head h reads kv head h / (Hq / Hkv) through the maps'
+//     head coordinate; grouped kv is never broadcast.
+//   * Dropout (flash.py:127-157): l sums every probability, the kept ones
+//     (flash_dropout.cuh's positional hash at the element's global row and
+//     column and the query head's row b * Hq + h, passed explicitly) meet v,
+//     and out is divided by keep. At p = 0 none of it runs.
 //
 // Plain C interface (bound with ctypes); launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -54,281 +59,253 @@
 #include <stdint.h>
 
 #include "flash_dropout.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TILE = 64;          // query rows per block and kv rows per tile
-constexpr int THREADS = 256;      // four threads per query row
-constexpr int PER_ROW = THREADS / TILE;
-constexpr int COLS = TILE / PER_ROW;   // score columns per thread
+constexpr int BLOCK_M = 128;      // query rows per block, 64 per warpgroup
+constexpr int BLOCK_N = 128;      // kv rows per tile
+constexpr int THREADS = 256;      // two warpgroups
+constexpr int STAGES = 2;         // the k / v ring
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The dynamic shared memory of one block: the k tile (rows padded by one
-// bf16 pair, so the four threads of a row read distinct banks), the v tile
-// and the rounded probabilities (rows padded by one float). Every offset is
-// a multiple of 16 bytes.
+// The shared memory of one block, from a 1024-byte aligned base: the q tile,
+// then per stage the k tile and the v tile, then the mbarriers: q's, one
+// "full" a stage (the TMA's bytes landed), one "empty" a stage (all eight
+// warps are done reading it). A tile of D columns is D / CHUNK blocks of
+// [rows x ROW_BYTES].
 template <int D>
-struct FwdLayout {
-  static constexpr int KP = D + 2;
-  static constexpr size_t k_bytes = TILE * KP * sizeof(__nv_bfloat16);
-  static constexpr size_t v_bytes = TILE * D * sizeof(__nv_bfloat16);
-  static constexpr size_t p_bytes = TILE * (TILE + 1) * sizeof(float);
-  static constexpr size_t bytes = k_bytes + v_bytes + p_bytes;
-  static_assert(k_bytes % 16 == 0 && v_bytes % 16 == 0, "16-byte offsets");
+struct Tiles {
+  static constexpr int CHUNK = D < 64 ? D : 64;       // columns a TMA box holds
+  static constexpr int ROW_BYTES = CHUNK * 2;          // the swizzle width
+  static constexpr int CHUNKS = D / CHUNK;
+  static constexpr int LAYOUT = hopper::layout_for(ROW_BYTES);
+  static constexpr int K_STEPS = CHUNK / 16;           // k16 steps in one block
+  static constexpr uint32_t Q_CHUNK = BLOCK_M * ROW_BYTES;
+  static constexpr uint32_t KV_CHUNK = BLOCK_N * ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = Q_CHUNK * CHUNKS;
+  static constexpr uint32_t KV_BYTES = KV_CHUNK * CHUNKS;   // one of k, v
+  static constexpr uint32_t KV_OFF = Q_BYTES;               // stage s at + 2 s KV_BYTES
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr uint32_t FULL_OFF = BAR_OFF + 8;          // stage s at + 8 s
+  static constexpr uint32_t EMPTY_OFF = FULL_OFF + 8 * STAGES;
+  static constexpr size_t BYTES = 1024 + EMPTY_OFF + 8 * STAGES;
+  static_assert(D % 16 == 0 && D <= 128 && (D <= 64 || D % 64 == 0), "head dim");
+  static_assert(Q_CHUNK % 1024 == 0 && KV_CHUNK % 1024 == 0, "1024-byte aligned tiles");
 };
 
-// SPLIT kernels hold a quarter of the query row a thread (head dim > 64)
 template <int D>
-constexpr bool kSplitRow = D > 64;
-
-// the head dim of this thread's d-th accumulator: a contiguous quarter of
-// the row, or with SPLIT the 8-wide chunks sub, sub + 4, ...
-template <int D>
-__device__ __forceinline__ int out_dim(int sub, int d) {
-  if constexpr (kSplitRow<D>)
-    return ((d / 8) * PER_ROW + sub) * 8 + d % 8;
-  else
-    return sub * (D / PER_ROW) + d;
-}
-
-// SPLIT: the scores of columns sub + 4 j (j = 0..15) of one k tile, from
-// this thread's pairs sub + 4 i of the query row. Each group of 16 columns
-// is summed over the row's four threads by a reduce-scatter: the xor-2
-// partner takes the columns whose bit 1 differs from sub's, then the xor-1
-// partner those whose bit 0 does.
-template <int D>
-__device__ __forceinline__ void split_scores(const float* qv, const __nv_bfloat16* k_s,
-                                             int sub, float* s) {
-  constexpr int KP = FwdLayout<D>::KP;
-  constexpr int PAIRS = D / 2 / PER_ROW;    // query pairs a thread holds
-  const bool hi = sub & 2;
-  const bool odd = sub & 1;
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                        uint32_t base, int stage, int tile, int hk, int b) {
+  using T = Tiles<D>;
+  const uint32_t bar = base + T::FULL_OFF + 8 * stage;
+  const uint32_t k_s = base + T::KV_OFF + stage * 2 * T::KV_BYTES;
+  hopper::mbarrier_expect_tx(bar, 2 * T::KV_BYTES);
 #pragma unroll
-  for (int g = 0; g < COLS / PER_ROW; ++g) {
-    float part[16];
-#pragma unroll
-    for (int cc = 0; cc < 16; ++cc) {
-      const __nv_bfloat162* krow2 =
-          reinterpret_cast<const __nv_bfloat162*>(k_s + (16 * g + cc) * KP);
-      float dot = 0.0f;
-#pragma unroll
-      for (int i = 0; i < PAIRS; ++i) {
-        const float2 kk = __bfloat1622float2(krow2[sub + PER_ROW * i]);
-        dot = fmaf(qv[2 * i], kk.x, dot);
-        dot = fmaf(qv[2 * i + 1], kk.y, dot);
-      }
-      part[cc] = dot;
-    }
-    float half[8];                          // columns cc with bit 1 == hi
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int low = (i >> 1) * 4 + (i & 1);
-      const float keep = hi ? part[low | 2] : part[low];
-      const float send = hi ? part[low] : part[low | 2];
-      half[i] = keep + __shfl_xor_sync(FULL, send, 2);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {           // column 16 g + 4 j + sub
-      const float keep = odd ? half[2 * j + 1] : half[2 * j];
-      const float send = odd ? half[2 * j] : half[2 * j + 1];
-      s[4 * g + j] = keep + __shfl_xor_sync(FULL, send, 1);
-    }
+  for (int c = 0; c < T::CHUNKS; ++c) {
+    hopper::tma_load_4d(k_s + c * T::KV_CHUNK, tk, bar, c * T::CHUNK, hk, tile * BLOCK_N, b);
+    hopper::tma_load_4d(k_s + T::KV_BYTES + c * T::KV_CHUNK, tv, bar, c * T::CHUNK, hk,
+                        tile * BLOCK_N, b);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int S, int Hq, int Hkv, float scale, int causal,
                  Dropout drop) {
-  static_assert(D % 32 == 0 || D == 16, "head_dim must be 16 or a multiple of 32");
-  constexpr bool SPLIT = kSplitRow<D>;
-  constexpr int KP = FwdLayout<D>::KP;
-  constexpr int DPT = D / PER_ROW;          // output dims per thread
-  constexpr int QV = SPLIT ? D / PER_ROW : D;   // query values per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + FwdLayout<D>::k_bytes);
-  float* p_s =
-      reinterpret_cast<float*>(smem + FwdLayout<D>::k_bytes + FwdLayout<D>::v_bytes);
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (hopper::smem_address(smem) + 1023) & ~1023u;
+  const uint32_t bar_q = base + T::BAR_OFF;
 
   const int tid = threadIdx.x;
-  const int row = tid / PER_ROW;            // query row inside the tile
-  const int sub = tid % PER_ROW;            // lane bits 0-1
-  const int qt = blockIdx.x;
-  const int b = blockIdx.y / Hq;
-  const int h = blockIdx.y % Hq;
+  const int wg = tid / 128;                 // warpgroup: query rows 64 wg ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane % 4;                // columns 2 quad, 2 quad + 1 of a chunk
+  const int b = blockIdx.x / Hq;
+  const int h = blockIdx.x % Hq;
+  const uint32_t head_row = static_cast<uint32_t>(b) * Hq + h;   // dropout's row
   const int hk = h / (Hq / Hkv);
-  const int qrow = qt * TILE + row;
-  const bool live = qrow < S;
+  const int tiles = gridDim.y;
+  const int qt = tiles - 1 - blockIdx.y;    // the longest causal rows first
+  const int last = causal ? qt : tiles - 1; // the last visible kv tile
+  // this thread's two query rows (global positions)
+  const int row0 = qt * BLOCK_M + 64 * wg + 16 * warp + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
 
-  float qv[QV];
-  if (live) {
-    const __nv_bfloat16* src = q + (static_cast<size_t>(b) * S + qrow) * Hq * D +
-                               static_cast<size_t>(h) * D;
-    if constexpr (SPLIT) {
-      const __nv_bfloat162* src2 = reinterpret_cast<const __nv_bfloat162*>(src);
-#pragma unroll
-      for (int i = 0; i < QV / 2; ++i) {
-        const float2 f = __bfloat1622float2(src2[sub + PER_ROW * i]);
-        qv[2 * i] = f.x;
-        qv[2 * i + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
-        const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(pairs[i]);
-          qv[c * 8 + 2 * i] = f.x;
-          qv[c * 8 + 2 * i + 1] = f.y;
-        }
-      }
+  if (tid == 0) {
+    hopper::mbarrier_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbarrier_init(base + T::FULL_OFF + 8 * s, 1);
+      hopper::mbarrier_init(base + T::EMPTY_OFF + 8 * s, THREADS / 32);
     }
-  } else {
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbarrier_expect_tx(bar_q, T::Q_BYTES);
 #pragma unroll
-    for (int d = 0; d < QV; ++d) qv[d] = 0.0f;
+    for (int c = 0; c < T::CHUNKS; ++c)
+      hopper::tma_load_4d(base + c * T::Q_CHUNK, &tq, bar_q, c * T::CHUNK, h, qt * BLOCK_M, b);
+    load_kv<D>(&tk, &tv, base, 0, 0, hk, b);
   }
 
-  float acc[DPT];
+  float acc[D / 2];                         // out: D / 8 chunks of 4
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = 0.0f;
-  float m = NEG_INF;
-  float l = 0.0f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float s_acc[BLOCK_N / 2];                 // scores: 16 chunks of 4
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i) s_acc[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};
 
-  const int tiles = (S + TILE - 1) / TILE;
-  const int last = causal ? min(qt, tiles - 1) : tiles - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    // stage the kv tile (zeros past the sequence end)
-    for (int i = tid; i < TILE * (D / 8); i += THREADS) {
-      const int r = i / (D / 8);
-      const int c = i % (D / 8);
-      const int krow = kt * TILE + r;
-      uint4 kraw = make_uint4(0, 0, 0, 0);
-      uint4 vraw = make_uint4(0, 0, 0, 0);
-      if (krow < S) {
-        const size_t off = (static_cast<size_t>(b) * S + krow) * Hkv * D +
-                           static_cast<size_t>(hk) * D + c * 8;
-        kraw = *reinterpret_cast<const uint4*>(k + off);
-        vraw = *reinterpret_cast<const uint4*>(v + off);
-      }
-      uint32_t* kdst = reinterpret_cast<uint32_t*>(k_s + r * KP + c * 8);
-      kdst[0] = kraw.x;
-      kdst[1] = kraw.y;
-      kdst[2] = kraw.z;
-      kdst[3] = kraw.w;
-      *reinterpret_cast<uint4*>(v_s + r * D + c * 8) = vraw;
+  // this warpgroup's 64 rows of q, block c, k16 step i: base + c Q_CHUNK
+  // + 64 wg ROW_BYTES + 32 i
+  const uint32_t q_s = base + 64 * wg * T::ROW_BYTES;
+  hopper::mbarrier_wait(bar_q, 0);
+
+  for (int j = 0; j <= last; ++j) {
+    const int stage = j % STAGES;
+    if (tid == 0 && j < last) {
+      // tile j + 1 goes where tile j - 1 was: wait until every warp let it go
+      const int next = (j + 1) % STAGES;
+      if (j >= 1) hopper::mbarrier_wait(base + T::EMPTY_OFF + 8 * next, ((j - 1) / STAGES) & 1);
+      load_kv<D>(&tk, &tv, base, next, j + 1, hk, b);
     }
-    __syncthreads();
+    hopper::mbarrier_wait(base + T::FULL_OFF + 8 * stage, (j / STAGES) & 1);
+    const uint32_t k_s = base + T::KV_OFF + stage * 2 * T::KV_BYTES;
+    const uint32_t v_s = k_s + T::KV_BYTES;
 
-    // scores for columns sub, sub + 4, ... of this row
-    float s[COLS];
-    if constexpr (SPLIT) {
-      split_scores<D>(qv, k_s, sub, s);
-    } else {
+    // S = Q K^T
+    hopper::fence_registers<BLOCK_N / 2>(s_acc);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = sub + PER_ROW * j;
-        const __nv_bfloat162* krow2 = reinterpret_cast<const __nv_bfloat162*>(k_s + col * KP);
-        float dot = 0.0f;
+    for (int c = 0; c < T::CHUNKS; ++c) {
 #pragma unroll
-        for (int d = 0; d < D / 2; ++d) {
-          const float2 kk = __bfloat1622float2(krow2[d]);
-          dot = fmaf(qv[2 * d], kk.x, dot);
-          dot = fmaf(qv[2 * d + 1], kk.y, dot);
-        }
-        s[j] = dot;
+      for (int i = 0; i < T::K_STEPS; ++i) {
+        const uint64_t a = hopper::smem_descriptor(q_s + c * T::Q_CHUNK + 32 * i, 16,
+                                                   8 * T::ROW_BYTES, T::LAYOUT);
+        const uint64_t bk = hopper::smem_descriptor(k_s + c * T::KV_CHUNK + 32 * i, 16,
+                                                    8 * T::ROW_BYTES, T::LAYOUT);
+        hopper::wgmma_ss_m64n128k16(s_acc, a, bk, c + i > 0);
       }
     }
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int kcol = kt * TILE + sub + PER_ROW * j;
-      s[j] *= scale;
-      if (kcol >= S || (causal && kcol > qrow)) s[j] = NEG_INF;
-    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_registers<BLOCK_N / 2>(s_acc);
 
-    // online softmax over this tile (the row's four threads agree)
-    float tile_max = s[0];
+    // scale, mask (last visible tile only), the tile's row max
+    float m_new[2] = {m[0], m[1]};
+    const bool edge = j == last;
 #pragma unroll
-    for (int j = 1; j < COLS; ++j) tile_max = fmaxf(tile_max, s[j]);
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(FULL, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(FULL, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float correction = expf(m - m_new);
-    float tile_sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const float p = expf(s[j] - m_new);
-      tile_sum += p;
-      const int col = sub + PER_ROW * j;
-      // the denominator keeps every probability; dropout masks what meets v
-      const float kept =
-          drop.on && !keep_element(qrow, kt * TILE + col, blockIdx.y, drop) ? 0.0f : p;
-      // probabilities meet v in v's dtype, as in the reference kernel
-      p_s[row * (TILE + 1) + col] = __bfloat162float(__float2bfloat16(kept));
+    for (int i = 0; i < BLOCK_N / 2; ++i) {
+      const int r = (i / 2) % 2;            // row0 or row0 + 8
+      float value = s_acc[i] * scale;
+      if (edge) {
+        const int col = j * BLOCK_N + 8 * (i / 4) + 2 * quad + i % 2;
+        if (col >= S || (causal && col > rows[r])) value = NEG_INF;
+      }
+      s_acc[i] = value;
+      m_new[r] = fmaxf(m_new[r], value);
     }
-    tile_sum += __shfl_xor_sync(FULL, tile_sum, 1);
-    tile_sum += __shfl_xor_sync(FULL, tile_sum, 2);
-    l = correction * l + tile_sum;
-    m = m_new;
+    float correction[2], m_log2[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[d] *= correction;
-    __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(FULL, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(FULL, m_new[r], 2));
+      correction[r] = exp2f((m[r] - m_new[r]) * LOG2E);
+      m[r] = m_new[r];
+      m_log2[r] = m_new[r] * LOG2E;
+    }
+    // probabilities: l keeps them unrounded, P meets v rounded to bf16
+    uint32_t p[BLOCK_N / 4];
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 4; ++i) {
+      const int r = i % 2;
+      float lo = exp2f(s_acc[2 * i] * LOG2E - m_log2[r]);     // one FFMA
+      float hi = exp2f(s_acc[2 * i + 1] * LOG2E - m_log2[r]);
+      sum[r] += lo + hi;
+      if (drop.on) {
+        const int col = j * BLOCK_N + 8 * (i / 2) + 2 * quad;
+        if (!keep_element(rows[r], col, head_row, drop)) lo = 0.0f;
+        if (!keep_element(rows[r], col + 1, head_row, drop)) hi = 0.0f;
+      }
+      p[i] = hopper::pack_bf16(lo, hi);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(FULL, sum[r], 1);
+      sum[r] += __shfl_xor_sync(FULL, sum[r], 2);
+      l[r] = correction[r] * l[r] + sum[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= correction[(i / 2) % 2];
 
-    for (int c = 0; c < TILE; ++c) {
-      const float p = p_s[row * (TILE + 1) + c];
-      if constexpr (SPLIT) {
+    // O += P V: k16 slice i of P is p[4 i .. 4 i + 3]; v rows 16 i .. at
+    // 16 i ROW_BYTES in each column block
+    hopper::fence_registers<D / 2>(acc);
+    hopper::wgmma_fence();
 #pragma unroll
-        for (int t = 0; t < DPT / 8; ++t) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(v_s + c * D + out_dim<D>(sub, 8 * t));
-          const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int c = 0; c < T::CHUNKS; ++c) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(pairs[i]);
-            acc[8 * t + 2 * i] = fmaf(p, f.x, acc[8 * t + 2 * i]);
-            acc[8 * t + 2 * i + 1] = fmaf(p, f.y, acc[8 * t + 2 * i + 1]);
-          }
-        }
-      } else {
-        const __nv_bfloat16* vrow = v_s + c * D + sub * DPT;
-#pragma unroll
-        for (int d = 0; d < DPT; ++d) acc[d] = fmaf(p, __bfloat162float(vrow[d]), acc[d]);
+      for (int i = 0; i < BLOCK_N / 16; ++i) {
+        const uint64_t bv = hopper::smem_descriptor(
+            v_s + c * T::KV_CHUNK + 16 * i * T::ROW_BYTES, T::KV_CHUNK, 8 * T::ROW_BYTES,
+            T::LAYOUT);
+        hopper::wgmma_rs<T::CHUNK>(acc + c * T::CHUNK / 2, p + 4 * i, bv, 1);
       }
     }
-    __syncthreads();
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_registers<D / 2>(acc);
+    __syncwarp();                           // this warp is done with the stage
+    if (lane == 0) hopper::mbarrier_arrive(base + T::EMPTY_OFF + 8 * stage);
   }
 
-  if (!live) return;
-  const float safe_l = (l == 0.0f) ? 1.0f : l;
-  const size_t base = (static_cast<size_t>(b) * S + qrow) * Hq + h;
-  __nv_bfloat16* dst = o + base * D;
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) {
-    float value = acc[d] / safe_l;
-    if (drop.on) value = value / drop.keep;        // inverted-dropout scaling
-    dst[out_dim<D>(sub, d)] = __float2bfloat16(value);
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= S) continue;
+    const float safe_l = (l[r] == 0.0f) ? 1.0f : l[r];
+    const size_t at = (static_cast<size_t>(b) * S + rows[r]) * Hq + h;
+    __nv_bfloat16* dst = o + at * D + 2 * quad;
+#pragma unroll
+    for (int chunk = 0; chunk < D / 8; ++chunk) {
+      float lo = acc[4 * chunk + 2 * r] / safe_l;
+      float hi = acc[4 * chunk + 2 * r + 1] / safe_l;
+      if (drop.on) {                        // inverted-dropout scaling
+        lo = lo / drop.keep;
+        hi = hi / drop.keep;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * chunk) = __floats2bfloat162_rn(lo, hi);
+    }
+    if (quad == 0) lse[at] = m[r] + logf(safe_l);
   }
-  if (sub == 0) lse[base] = m + logf(safe_l);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
            int Hq, int Hkv, float scale, int causal, const Dropout& drop, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D>;
-  constexpr size_t bytes = FwdLayout<D>::bytes;
-  if (const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)))
+  using T = Tiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (cudaError_t err = hopper::encode_bshd(&tq, q, B, S, Hq, D, BLOCK_M, T::CHUNK))
     return static_cast<int>(err);
-  const dim3 grid((S + TILE - 1) / TILE, B * Hq);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, Hq, Hkv, scale, causal, drop);
+  if (cudaError_t err = hopper::encode_bshd(&tk, k, B, S, Hkv, D, BLOCK_N, T::CHUNK))
+    return static_cast<int>(err);
+  if (cudaError_t err = hopper::encode_bshd(&tv, v, B, S, Hkv, D, BLOCK_N, T::CHUNK))
+    return static_cast<int>(err);
+  auto kernel = flash_fwd_kernel<D>;
+  if (const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::BYTES)))
+    return static_cast<int>(err);
+  const dim3 grid(B * Hq, (S + BLOCK_M - 1) / BLOCK_M);
+  kernel<<<grid, THREADS, T::BYTES, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                              static_cast<float*>(lse), S, Hq, Hkv, scale,
+                                              causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,14 +313,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 extern "C" {
 
-// q [B, S, Hq, D], k and v [B, S, Hkv, D] bf16 (contiguous); o like q;
-// lse [B, S, Hq] float32. D in {16, 32, 64, 128}; Hq a multiple of Hkv. dropout
-// NULL or off for none.
+// q [B, S, Hq, D], k and v [B, S, Hkv, D] bf16 (contiguous, 16-byte aligned);
+// o like q; lse [B, S, Hq] float32. D in {16, 32, 64, 128}; Hq a multiple of
+// Hkv. dropout NULL or off for none.
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                    int S, int Hq, int Hkv, int D, float scale, int causal,
                    const Dropout* dropout, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || B * Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const void* const tensors[4] = {q, k, v, o};
+  for (const void* pointer : tensors)
+    if (reinterpret_cast<uintptr_t>(pointer) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
   switch (D) {

@@ -40,7 +40,8 @@ import torch
 from tpusystem_torch.ops.cuda._build import LIBRARIES
 
 NEG_INF = -1e30
-TILE = 64          # kv rows per online-softmax step, as in the CUDA kernels
+TILE = 64          # kv rows per online-softmax step of the plain versions and
+                   # the backward kernels (K1 steps over 128-row tiles)
 HEAD_DIMS = (16, 32, 64, 128)     # K1's, K2a's, K2b's, K3a's and K3b's
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
@@ -303,8 +304,9 @@ def _check_head_dim(name: str, head_dim: int) -> None:
 
 def _check_cuda(name, tensors, device) -> None:
     """What the CUDA kernels take: bfloat16 ``[B, S, H, D]`` tensors on one
-    device, a head dim in ``HEAD_DIMS`` and at most 65535 batch rows x
-    heads."""
+    device, each starting on a 16-byte boundary (K1's TMA and the kernels'
+    16-byte loads need it; a view that does not is refused, never copied), a
+    head dim in ``HEAD_DIMS`` and at most 65535 batch rows x heads."""
     batch, _, heads, head_dim = tensors[0].shape
     _check_head_dim(name, head_dim)
     if device.type != 'cuda':
@@ -313,6 +315,9 @@ def _check_cuda(name, tensors, device) -> None:
         if tensor.dtype != torch.bfloat16 or tensor.device != device:
             raise ValueError(f'{name}: the CUDA kernel takes bfloat16 '
                              'tensors on one device')
+        if tensor.data_ptr() % 16:
+            raise ValueError(f'{name}: a tensor starts off a 16-byte '
+                             f'boundary (data_ptr {tensor.data_ptr():#x})')
     if batch * heads > 65535:
         raise ValueError(f'{name}: batch * heads over 65535')
 
