@@ -29,13 +29,16 @@ Phases, in order; any failure exits non-zero:
    each against the plain backward, repeated bitwise, K2a bit for bit K2b,
    the split pair against the fused kernel, timed beside the plain
    backward, the backward of ``scaled_dot_product_attention``
-   (``enable_gqa``) and its bound; with ptxas' registers and spills of
-   every backward instantiation (``bwd-ptxas``);
+   (``enable_gqa``) and its bound (``bound_share``, ``tflops``; K2a and
+   K2b, one TMA-fed ``wgmma`` kernel, with the share of its
+   cycles spent waiting for dq tickets); with ptxas' registers and spills
+   of every backward instantiation (``bwd-ptxas``; a missing or spilling
+   fused instantiation fails);
 4. the flash forward K1 against its plain version at the long-context
    ladder's shapes [4, 4096, 12, 64], [2, 8192, 12, 64] and
    [1, 16384, 12, 64], timed beside it and ``scaled_dot_product_attention``;
-   the resident-dq fused backward K2a (``flash_bwd_fused_g1``, multi-head
-   attention past 1024 keys) at [1, 16384, 12, 64] and [4, 4096, 12, 64]:
+   the fused backward K2a (``flash_bwd_fused_g1``, multi-head attention
+   past 1024 keys) at [1, 16384, 12, 64] and [4, 4096, 12, 64]:
    bit for bit K2b and itself on a repeat, within tolerance of the plain
    backward, timed beside K2b, the plain version and the backward of
    ``scaled_dot_product_attention``; then a non-causal and a ragged case
@@ -199,6 +202,8 @@ LLAMA_PROBE_STEPS = 4
 # sequence of 8192 tokens, vocab 16384) with depth cut to fit one card
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_VOCAB, LLAMA_TRAIN_SEQ = 8, 16384, 8192
 LLAMA_TRAIN_STEPS = 3           # timed, after one warm-up step
+# K2a and K2b: one TMA-fed wgmma kernel, flash_bwd_fused_kernel<head dim>
+FUSED_KERNELS = ('flash_bwd_fused', 'flash_bwd_fused_g1')
 
 
 def fail(message: str) -> None:
@@ -468,7 +473,8 @@ def backward_bound(kernel, batch, seq, heads, kv_heads, head_dim, causal):
     """``bound_ms``'s ``(ms, by)`` of one backward kernel's call: the
     tensors it reads and writes once (q, dO, lse and delta of the query
     heads, k and v of the kv heads, and its gradients), and 5 (K2a, K2b),
-    3 (K3a) or 4 (K3b) products of 2 head_dim flops a visible pair."""
+    3 (K3a) or 4 (K3b) products of 2 head_dim flops a visible pair; and
+    those flops."""
     q_bytes = batch * seq * heads * head_dim * 2
     kv_bytes = batch * seq * kv_heads * head_dim * 2
     stats = 2 * batch * seq * heads * 4
@@ -477,8 +483,9 @@ def backward_bound(kernel, batch, seq, heads, kv_heads, head_dim, causal):
     q_tensors, kv_tensors, products = {
         'flash_bwd_fused': (3, 4, 5), 'flash_bwd_fused_g1': (3, 4, 5),
         'flash_bwd_dq': (3, 2, 3), 'flash_bwd_dkv': (2, 4, 4)}[kernel]
+    flops = products * 2 * head_dim * pairs
     return bound_ms(q_tensors * q_bytes + kv_tensors * kv_bytes + stats,
-                    products * 2 * head_dim * pairs)
+                    flops), flops
 
 
 def check_backward(torch, generator, head_dim, cases):
@@ -490,8 +497,10 @@ def check_backward(torch, generator, head_dim, cases):
     fused ones; each timed (CUDA events) beside the plain backward, the
     backward of ``scaled_dot_product_attention`` (``enable_gqa`` under
     GQA; none for a case with an lse cotangent, which it does not take) and
-    its bound (``backward_bound``). Rows are ``name[label]``, with
-    ``_d{head_dim}`` after the name off GPT-2's head dim."""
+    its bound (``backward_bound``), the fused kernel's rows with its
+    ``design`` and its ticket wait share (``fused_ticket_waits``). Rows are
+    ``name[label]``, with ``_d{head_dim}`` after the name off GPT-2's head
+    dim."""
     import torch.nn.functional as F
 
     from tpusystem_torch.ops.cuda import flash
@@ -555,13 +564,18 @@ def check_backward(torch, generator, head_dim, cases):
                     torch, got['flash_bwd_fused_g1'], got[name])
                 if not notes['k2a_equals_k2b']:
                     fail(f'K2a at {shape}: differs from K2b')
+            if name in FUSED_KERNELS:
+                notes['design'] = 'wgmma+tma'
+                notes['ticket_waits'] = flash.fused_ticket_waits(
+                    *args, causal=causal)
             if not repeat:
                 fail(f'{name} at {shape}: two calls differ')
             timed = measure(lambda i: kernel(), calls=calls, warmup=2)
+            bound, flops = backward_bound(name, batch, seq, heads, kv_heads,
+                                          head_dim, causal)
             rows.append(record_check(
                 f'{name}{suffix}[{label}]', shape, err, tol, timed, plain,
-                library, backward_bound(name, batch, seq, heads, kv_heads,
-                                        head_dim, causal),
+                library, bound, flops=flops,
                 by_events=True, causal=causal, lse_cotangent=cotangent,
                 bitwise_repeat=repeat,
                 grad_errors=[pair[0] for pair in pairs],
@@ -1032,33 +1046,42 @@ def check_long_forward(torch, label, q, k, v, out, lse, causal=True,
 def ptxas_report(output: str) -> dict:
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from one
     ``nvcc -Xptxas -v`` output, kernels by their demangled template name
-    (``flash_fwd_kernel<128>``, ``flash_bwd_kv_kernel<128, true>``) where
+    (``flash_fwd_kernel<128>``, ``flash_bwd_fused_kernel<128>``) where
     the mangled one carries it."""
     import re
 
     def demangled(name):
-        # a length-prefixed name with template arguments:
-        # ..16flash_fwd_kernelILi128EE.. or
-        # ..19flash_bwd_kv_kernelILi128ELb1EEEv..
-        for start in range(len(name)):
-            length = re.match(r'\d+', name[start:])
+        # the Itanium name read from its start, one length-prefixed part
+        # at a time, up to the part that takes template arguments:
+        # _Z16flash_fwd_kernelILi128EE.. or
+        # _ZN45_GLOBAL__N__<hash>_12_flash_bwd_cu_<hash>22flash_bwd_fused_
+        # kernelILi128EEEv... The anonymous namespace's hashes change with
+        # the source's path and may hold digits, so the parts are read in
+        # order and never searched for.
+        at = 3 if name.startswith('_ZN') else 2
+        if not name.startswith('_Z'):
+            return name
+        while True:
+            length = re.match(r'\d+', name[at:])
             if not length:
-                continue
-            rest = name[start + len(length.group()):]
-            template = re.match(r'([A-Za-z_]\w{%d})ILi(\d+)E(?:Lb([01])E)?'
-                                % (int(length.group()) - 1), rest)
+                return name
+            at += len(length.group())
+            part = name[at:at + int(length.group())]
+            at += int(length.group())
+            template = re.match(r'ILi(\d+)E(?:Lb([01])E)?', name[at:])
             if template:
                 flag = {None: '', '0': ', false', '1': ', true'}[
-                    template.group(3)]
-                return f'{template.group(1)}<{template.group(2)}{flag}>'
-        return name
+                    template.group(2)]
+                return f'{part}<{template.group(1)}{flag}>'
 
     report, name = {}, None
     for line in output.splitlines():
-        found = re.search(r"Compiling entry function '(\S+)'", line)
+        # a function's figures follow the line that names it for them
+        found = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([^'\s]+)", line)
         if found:
             name = demangled(found.group(1))
-            report[name] = {}
+            report.setdefault(name, {})
             continue
         if name is None:
             continue
@@ -1072,6 +1095,21 @@ def ptxas_report(output: str) -> dict:
         if found:
             report[name]['registers'] = int(found.group(1))
     return report
+
+
+def check_spills(label: str, report: dict, kernel: str) -> None:
+    """Fail if ``report`` (built by this process) lacks ``kernel<D>`` for a
+    head dim of ``HEAD_DIMS`` or one of them spills."""
+    from tpusystem_torch.ops.cuda import flash
+
+    if not report:          # built by an earlier process: nothing to read
+        return
+    for head_dim in flash.HEAD_DIMS:
+        entry = report.get(f'{kernel}<{head_dim}>')
+        if entry is None or entry.get('spill_stores', 1) or entry.get(
+                'spill_loads', 1):
+            fail(f'{label}: {kernel}<{head_dim}> missing or spilling '
+                 f'({entry})')
 
 
 def check_k1_head_dim_128(torch, generator):
@@ -1089,13 +1127,7 @@ def check_k1_head_dim_128(torch, generator):
         if 'flash_fwd_kernel' in name}
     print('k1-ptxas ' + json.dumps(registers or 'not available: the '
                                    'library was built by an earlier process'))
-    if registers:           # built here: every head dim, none spilling
-        for head_dim in flash.HEAD_DIMS:
-            entry = registers.get(f'flash_fwd_kernel<{head_dim}>')
-            if entry is None or entry.get('spill_stores', 1) or entry.get(
-                    'spill_loads', 1):
-                fail(f'k1-ptxas: flash_fwd_kernel<{head_dim}> missing or '
-                     f'spilling ({entry})')
+    check_spills('k1-ptxas', registers, 'flash_fwd_kernel')
     rows = []
     for label, batch, seq, heads, kv_heads, causal in K1_128_CASES:
         q = torch.randn((batch, seq, heads, 128), generator=generator,
@@ -1115,10 +1147,11 @@ def check_long_backward(torch, generator):
     """Phase 4: the flash kernels at the long-context ladder's shapes. K1
     against its plain forward at every point ([4, 4096], [2, 8192] and
     [1, 16384], 12 heads of 64, causal), timed beside it and
-    ``scaled_dot_product_attention``. K2a, the resident-dq fused backward
-    of multi-head attention past 1024 keys, at [1, 16384, 12, 64] and
-    [4, 4096, 12, 64]: bit for bit K2b (the partial-array kernel) and
-    itself on a repeat, within the gradient tolerance of the plain
+    ``scaled_dot_product_attention``. K2a, the fused backward of
+    multi-head attention past 1024 keys, at [1, 16384, 12, 64] and
+    [4, 4096, 12, 64]: bit for bit K2b (the same kernel through K2b's
+    entry) and itself on a repeat, within the gradient tolerance of the
+    plain
     backward, timed beside K2b, the plain version and the backward of
     ``scaled_dot_product_attention``; then a non-causal and a ragged case
     through ``flash_attention_bwd``'s routing."""
@@ -1137,10 +1170,10 @@ def check_long_backward(torch, generator):
         args = (q, k, v, d_out, lse, delta)
         got = flash.flash_bwd_fused_g1(*args)
         again = flash.flash_bwd_fused_g1(*args)
-        partials = flash.flash_bwd_fused(*args)
-        same_as_k2b, repeat = (all_equal(torch, got, partials),
+        k2b = flash.flash_bwd_fused(*args)
+        same_as_k2b, repeat = (all_equal(torch, got, k2b),
                                all_equal(torch, got, again))
-        del again, partials
+        del again, k2b
         want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out)
         err, tol = worst(grad_errors(got, want))
         del got, want
@@ -1151,9 +1184,9 @@ def check_long_backward(torch, generator):
         if not (same_as_k2b and repeat):
             fail(f'K2a at {shape}: equals K2b {same_as_k2b}, repeats '
                  f'{repeat}')
-        elements = batch * seq * HEADS * HEAD_DIM
-        stats = batch * seq * HEADS * 4
-        product = 2 * HEAD_DIM * attention_pairs(batch, seq, HEADS)
+        bound, flops = backward_bound('flash_bwd_fused_g1', batch, seq,
+                                      HEADS, HEADS, HEAD_DIM, True)
+        waits = flash.fused_ticket_waits(*args)
         timed = measure(lambda i: flash.flash_bwd_fused_g1(*args), calls=5,
                         warmup=2)
         k2b = measure(lambda i: flash.flash_bwd_fused(*args), calls=5,
@@ -1169,9 +1202,9 @@ def check_long_backward(torch, generator):
         del reference, leaves
         rows.append(record_check(
             f'flash_bwd_fused_g1[{batch}x{seq}]', shape, err, tol, timed,
-            plain, library, bound_ms(7 * 2 * elements + 2 * stats,
-                                     5 * product),
-            by_events=True, k2a_equals_k2b=same_as_k2b,
+            plain, library, bound, by_events=True, flops=flops,
+            design='wgmma+tma', ticket_waits=waits,
+            k2a_equals_k2b=same_as_k2b,
             bitwise_repeat=repeat, k2b_ms=k2b[1], k2b_profiler_ms=k2b[0],
             library_call='scaled_dot_product_attention backward, causal'))
     # the routing: fused MHA past 1024 keys launches K2a, at any length
@@ -1186,12 +1219,12 @@ def check_long_backward(torch, generator):
                                         causal=causal)
         launched = flash.flash_bwd_fused_g1.launches - before
         delta = flash.attention_delta(out, d_out, d_lse).contiguous()
-        partials = flash.flash_bwd_fused(q, k, v, d_out, lse, delta,
-                                         causal=causal)
+        k2b = flash.flash_bwd_fused(q, k, v, d_out, lse, delta,
+                                    causal=causal)
         want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out,
                                                d_lse, causal=causal)
         err, tol = worst(grad_errors(got, want))
-        same = all_equal(torch, got, partials)
+        same = all_equal(torch, got, k2b)
         print('long-backward-check ' + json.dumps(
             {'case': case, 'shape': [1, seq, HEADS, HEAD_DIM],
              'causal': causal, 'k2a_launches': launched,
@@ -2283,6 +2316,7 @@ def main() -> None:
     bwd_ptxas = ptxas_report(LIBRARIES.compiler_output.get('flash_bwd', ''))
     print('bwd-ptxas ' + json.dumps(bwd_ptxas or 'not available: the library '
                                     'was built by an earlier process'))
+    check_spills('bwd-ptxas', bwd_ptxas, 'flash_bwd_fused_kernel')
     checks += (k1_128_rows + check_train_forward(torch, generator)
                + check_backward(torch, generator, HEAD_DIM,
                                 BWD_CASES[HEAD_DIM]))
@@ -2399,6 +2433,21 @@ def main() -> None:
                 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                 'bound_share', 'tflops')}
                 for _, entry in k1_128_rows])
+    # K2a and K2b: one TMA-fed wgmma kernel, its registers, its
+    # bound share and, for K2b at Llama-3 8B's training shape, the share of
+    # its cycles spent waiting for dq tickets
+    for name in FUSED_KERNELS:
+        entry = kernels[[k['name'] for k in kernels].index(name)]
+        headline = measured[table[name][2]]
+        entry.update(design='wgmma+tma', bound_share=headline['bound_share'],
+                     tflops=headline['tflops'],
+                     ticket_waits=headline['ticket_waits'],
+                     ptxas={f'<{d}>': bwd_ptxas.get(
+                         f'flash_bwd_fused_kernel<{d}>') for d in (16, 32, 64,
+                                                                   128)})
+    kernels[[k['name'] for k in kernels].index('flash_bwd_fused')][
+        'ticket_waits_llama'] = measured[
+            'flash_bwd_fused_d128[S=8192]']['ticket_waits']
     # the backward kernels at head dim 128: launches on the main paths
     # (Llama training for K2a and K2b, phase 12's head-dim-128 case for
     # K3a/K3b), registers and phase 3's shapes at 128
@@ -2406,20 +2455,21 @@ def main() -> None:
     for name, launches, instances in (
             ('flash_bwd_fused_g1',
              llama_trained['launches']['flash_bwd_fused_g1'],
-             ('flash_bwd_g1_kernel<128>',)),
+             ('flash_bwd_fused_kernel<128>',)),
             ('flash_bwd_fused', llama_trained['launches']['flash_bwd_fused'],
-             ('flash_bwd_kv_kernel<128, true>', 'dq_reduce_kernel<128>')),
+             ('flash_bwd_fused_kernel<128>',)),
             ('flash_bwd_dq', d128['flash_bwd_dq'],
              ('flash_bwd_dq_kernel<128>',)),
             ('flash_bwd_dkv', d128['flash_bwd_dkv'],
-             ('flash_bwd_kv_kernel<128, false>',))):
+             ('flash_bwd_dkv_kernel<128>',))):
         kernels[[k['name'] for k in kernels].index(name)]['head_dim_128'] = (
             dict(launches=launches,
                  ptxas={instance: bwd_ptxas.get(instance)
                         for instance in instances},
                  shapes=[{key: entry.get(key) for key in (
                      'shape', 'causal', 'max_abs_err', 'ms', 'plain_ms',
-                     'library_ms', 'bound_ms', 'bound_by', 'k2a_equals_k2b')}
+                     'library_ms', 'bound_ms', 'bound_by', 'bound_share',
+                     'tflops', 'ticket_waits', 'k2a_equals_k2b')}
                      for label, entry in bwd_128_rows
                      if label.startswith(name + '_d128[')]))
     if args.out is not None:

@@ -1,0 +1,79 @@
+"""``chip_smoke.py``'s reading of ptxas' report, on the CPU.
+
+The spill check finds each kernel instance by its demangled name. nvcc
+names the anonymous namespace of ``flash_bwd.cu`` with hashes that change
+with the source's path and may hold digits, so these cases put digits next
+to the kernel's own length prefix.
+"""
+
+import importlib.util
+import pathlib
+
+import pytest
+
+SCRIPT = pathlib.Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location('chip_smoke', SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _report(mangled, registers=255, spills=0):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spills} bytes spill stores, "
+            f"{spills} bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, used 1 barriers\n")
+
+
+@pytest.mark.parametrize('suffix', ['ac07497f', '629f6fbe', '11af923d',
+                                    '88561712', '55485822', '00000025'])
+@pytest.mark.parametrize('kernel', ['flash_bwd_fused_kernel',
+                                    'flash_bwd_dq_kernel',
+                                    'flash_bwd_dkv_kernel'])
+def test_ptxas_report_names_kernels_whatever_the_namespace_hash(kernel,
+                                                                suffix):
+    namespace = f'_GLOBAL__N__f0fb9384_12_flash_bwd_cu_{suffix}'
+    output = ''.join(
+        _report(f'_ZN{len(namespace)}{namespace}{len(kernel)}{kernel}'
+                f'ILi{head_dim}EEEv14CUtensorMap_stS1_PKfi7Dropout',
+                registers=100 + head_dim)
+        for head_dim in (16, 32, 64, 128))
+    report = _chip_smoke().ptxas_report(output)
+    assert report == {f'{kernel}<{head_dim}>': {
+        'stack': 0, 'spill_stores': 0, 'spill_loads': 0,
+        'registers': 100 + head_dim} for head_dim in (16, 32, 64, 128)}
+
+
+def test_ptxas_report_reads_a_global_kernel_and_its_flag():
+    report = _chip_smoke().ptxas_report(
+        _report('_Z16flash_fwd_kernelILi128ELb1EEvPK13__nv_bfloat16',
+                spills=8))
+    assert report == {'flash_fwd_kernel<128, true>': {
+        'stack': 0, 'spill_stores': 8, 'spill_loads': 8, 'registers': 255}}
+
+
+def test_spill_check_fails_on_a_missing_or_spilling_instance():
+    chip_smoke = _chip_smoke()
+    namespace = '_GLOBAL__N__f0fb9384_12_flash_bwd_cu_629f6fbe'
+    kernel = 'flash_bwd_fused_kernel'
+
+    def output(spilling):
+        return ''.join(
+            _report(f'_ZN{len(namespace)}{namespace}{len(kernel)}{kernel}'
+                    f'ILi{head_dim}EEEv', spills=8 * (head_dim in spilling))
+            for head_dim in (16, 32, 64, 128))
+
+    chip_smoke.check_spills('bwd-ptxas', chip_smoke.ptxas_report(output(())),
+                            kernel)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills(
+            'bwd-ptxas', chip_smoke.ptxas_report(output((64,))), kernel)
+    missing = chip_smoke.ptxas_report(output(()))
+    del missing[f'{kernel}<32>']
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('bwd-ptxas', missing, kernel)

@@ -446,13 +446,28 @@ def _close_grads(got, want):
         _close(g, w, 2 ** -6 * w.float().abs().max().item())
 
 
-def _head_dim_cases(cases, cases_128):
+def _head_dim_cases(cases, cases_128, edges=()):
     """``cases`` at head dim 64 under their earlier ids, then ``cases_128``
-    at head dim 128, ids ending ``-d128``."""
+    at head dim 128, ids ending ``-d128``, then ``edges``: ``(case,
+    head_dim)`` pairs, ids ending ``-edge-d{head_dim}``."""
     return ([pytest.param(*case, 64, id='-'.join(map(str, case)))
              for case in cases]
             + [pytest.param(*case, 128, id='-'.join(map(str, case)) + '-d128')
-               for case in cases_128])
+               for case in cases_128]
+            + [pytest.param(*case, head_dim, id='-'.join(map(str, case))
+                            + f'-edge-d{head_dim}')
+               for case, head_dim in edges])
+
+
+# The fused kernel's tile edges at every head dim: one 64-row q tile (64),
+# one 128-row kv tile (127, 128), one past it (129), a q tile past the
+# diagonal pair (192) and a long ragged length (1000); GQA groups 1, 2, 4
+# and 8 and causal or not in turn. (batch, seq, heads, kv_heads, causal).
+EDGE_SEQS = (64, 127, 128, 129, 192, 1000)
+BWD_EDGES = tuple(
+    ((2, seq, 8, 8 // group, index % 2 == 0), head_dim)
+    for head_dim in (16, 32, 64, 128)
+    for index, (seq, group) in enumerate(zip(EDGE_SEQS, (2, 1, 4, 8, 2, 4))))
 
 
 @pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,head_dim',
@@ -469,12 +484,13 @@ def _head_dim_cases(cases, cases_128):
                              (1, 1000, 8, 2, True),      # ragged, GQA
                              (1, 300, 4, 4, False),      # non-causal, ragged
                              (2, 130, 8, 1, False),      # non-causal, GQA 8
-                         ]))
+                         ], BWD_EDGES))
 @pytest.mark.parametrize('backward', ['fused', 'split'])
 def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
                                       causal, head_dim, backward):
     """The fused kernel K2b, or K3a + K3b split, against the plain backward,
-    one launch each."""
+    one launch each; at GPT-2's and Llama's shapes and at the fused
+    kernel's tile edges (``BWD_EDGES``: every head dim, GQA groups 1-8)."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
                                         seq + heads, head_dim=head_dim)
     out, lse = flash.flash_attention_plain(q, k, v, causal=causal)
@@ -493,7 +509,8 @@ def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
 
 @pytest.mark.parametrize('backward,head_dim', [
     pytest.param(backward, head_dim, id=backward + suffix)
-    for head_dim, suffix in ((64, ''), (128, '-d128'))
+    for head_dim, suffix in ((64, ''), (128, '-d128'), (16, '-d16'),
+                             (32, '-d32'))
     for backward in ('fused', 'split')])
 def test_flash_backward_repeats_bitwise(device, backward, head_dim):
     q, k, v, d_out, d_lse = _bwd_inputs(device, 2, 640, 8, 4, 5,
@@ -517,12 +534,13 @@ def test_flash_backward_repeats_bitwise(device, backward, head_dim):
     (1, 2048, 8, True),
     (1, 1100, 4, False),
     (2, 200, 2, True),
-]))
+], [((2, 64, 4, True), 16), ((2, 129, 4, False), 32),
+    ((1, 127, 2, True), 64), ((2, 64, 2, False), 128)]))
 def test_k2a_equals_k2b_bitwise_and_matches_plain(device, batch, seq, heads,
                                                   causal, head_dim):
-    """K2a sums each dq row in kv order in its resident buffer, which is
-    the sum K2b's reduction takes over the same float32 products: dq, dk
-    and dv equal bit for bit, repeat, and match the plain backward."""
+    """K2a and K2b are one kernel, which sums each dq row in kv order
+    behind a ticket: under MHA dq, dk and dv equal bit for bit, repeat, and
+    match the plain backward."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, heads,
                                         seq + 7, head_dim=head_dim)
     out, lse = flash.flash_attention_lse(q, k, v, causal=causal)
@@ -531,12 +549,12 @@ def test_k2a_equals_k2b_bitwise_and_matches_plain(device, batch, seq, heads,
     before = flash.flash_bwd_fused_g1.launches
     got = flash.flash_bwd_fused_g1(*args, causal=causal)
     again = flash.flash_bwd_fused_g1(*args, causal=causal)
-    partials = flash.flash_bwd_fused(*args, causal=causal)
+    k2b = flash.flash_bwd_fused(*args, causal=causal)
     want = flash.flash_attention_bwd_plain(q, k, v, out, lse, d_out, d_lse,
                                            causal=causal)
     torch.cuda.synchronize()
     assert flash.flash_bwd_fused_g1.launches - before == 2
-    for a, b, c in zip(got, again, partials):
+    for a, b, c in zip(got, again, k2b):
         assert torch.equal(a, b) and torch.equal(a, c)
     _close_grads(got, want)
 
@@ -555,20 +573,25 @@ def test_fused_mha_past_1024_keys_launches_k2a(device):
         q, k, v, out, lse, d_out, d_lse))
 
 
-@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,backward', [
-    (2, 384, 4, 4, True, 'fused'),            # K2b
-    (2, 384, 6, 2, True, 'fused'),            # K2b, GQA
-    (1, 1100, 4, 4, True, 'fused'),           # K2a
-    (1, 300, 4, 4, False, 'split'),           # K3a + K3b
-    (2, 256, 4, 2, True, 'split'),
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,backward,head_dim', [
+    (2, 384, 4, 4, True, 'fused', 64),        # K2b
+    (2, 384, 6, 2, True, 'fused', 64),        # K2b, GQA
+    (1, 1100, 4, 4, True, 'fused', 64),       # K2a
+    (1, 300, 4, 4, False, 'split', 64),       # K3a + K3b
+    (2, 256, 4, 2, True, 'split', 64),
+    # the fused kernel's tile edges at p = 0.1, every head dim
+    (2, 127, 8, 2, True, 'fused', 16),
+    (2, 129, 8, 1, False, 'fused', 32),
+    (2, 192, 8, 4, True, 'fused', 128),
+    (1, 1000, 8, 8, False, 'fused', 128),
 ])
 def test_dropout_kernels_match_plain(device, batch, seq, heads, kv_heads,
-                                     causal, backward):
+                                     causal, backward, head_dim):
     """At p = 0.1 every flash kernel hashes the plain version's masks from
     the same seed: K1's output and lse and the backward within the
     tolerances above, through the autograd Function."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
-                                        seq + heads)
+                                        seq + heads, head_dim=head_dim)
     options = dict(causal=causal, dropout=0.1, seed=424_242)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out, lse = flash.flash_attention_lse(*leaves, backward=backward,

@@ -184,3 +184,18 @@ def test_backward_refuses_tensors_the_card_cannot_take():
     lse = torch.zeros(1, 8, 2, device='meta')
     with pytest.raises(ValueError, match='not supported'):
         tflash.flash_attention_bwd(x, x, x, x, lse, x)
+
+
+@pytest.mark.parametrize('seq', [1, 64, 100, 129])
+def test_fused_kernel_reads_row_statistics_by_head(seq):
+    """The fused kernel reads lse and delta laid out ``[B, H, S_pad]`` (S
+    rounded up to a 64-row q tile), so a q tile's 64 values are one bulk
+    copy: the layout holds every ``[B, S, H]`` value at (b, h, s) and zeros
+    past S."""
+    rows = -(-seq // 64) * 64
+    stats = torch.from_numpy(np.random.default_rng(seq).standard_normal(
+        (2, seq, 3)).astype(np.float32))
+    laid = tflash._by_head(stats, rows)
+    assert laid.shape == (2, 3, rows) and laid.is_contiguous()
+    assert torch.equal(laid[:, :, :seq], stats.transpose(1, 2))
+    assert not laid[:, :, seq:].any()

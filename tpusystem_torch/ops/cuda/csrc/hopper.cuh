@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash kernels: TMA tensor maps and
-// loads, mbarriers, wgmma shared-memory descriptors, the wgmma instructions
-// and the accumulator -> A-fragment packing. Header only; every function is
-// inline, so each source that includes it compiles its own copy.
+// Hopper (sm_90a) building blocks of the flash kernels (K1 in flash_fwd.cu,
+// the fused backward K2a/K2b in flash_bwd.cu): TMA tensor maps and loads,
+// 1-D bulk copies, mbarriers, wgmma shared-memory descriptors, the wgmma
+// instructions and the accumulator -> A-fragment packing. Header only;
+// every function is inline, so each source that includes it compiles its
+// own copy.
 //
 // Layout facts the code relies on (PTX ISA 8.x, "Asynchronous warpgroup
 // level matrix multiply" and "Tensor copy"; CUTLASS's cute/arch/mma_sm90_desc
@@ -36,6 +38,21 @@
 //     rows (8 * R bytes), LBO the stride between R-byte column blocks of N.
 //     The flash kernels issue one instruction per column block (N <= 64 at
 //     the 128-byte swizzle), so LBO is not read.
+//   * An MN-major A operand (the fused backward's dQ = dS K, A = dS read
+//     from the dS^T tile: rows of K = kv, M = 64 query columns contiguous)
+//     is the same canonical layout with M in N's place, read with the
+//     transpose bit on A (imm-trans-a = 1; 16-bit types only): R = 128
+//     bytes hold the 64 rows of M, SBO is 8 * R, k16 step s starts 16 * s
+//     * R bytes in. A tile written by ordinary stores must carry the TMA's
+//     swizzle by hand: element (row r, column c) of a [rows x 64] bf16 tile
+//     at r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2, from a
+//     1024-byte aligned base; and fence.proxy.async must order those
+//     generic-proxy stores before the wgmma (async proxy) reads them.
+//   * The same MN-major B at a narrower swizzle (the k tile of the fused
+//     backward, boxes of D / 2 columns at D = 64 / 32: 64 / 32-byte rows)
+//     holds N = R / 2 columns in one block, so a warpgroup's half of dQ's
+//     columns is one whole block with its own base: no start address ever
+//     falls inside a swizzled row along N.
 //   * Accumulator of wgmma.m64nNk16 (float32): thread t of the warpgroup
 //     (warp w = t / 32, lane l = t % 32) holds, for each n8 column chunk j,
 //     d[4j + 0..3] = (row 16w + l/4, col 8j + 2(l%4)), (same row, col + 1),
@@ -155,6 +172,24 @@ __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// 1-D bulk copy of `bytes` (a multiple of 16) from a 16-byte aligned global
+// address into shared memory at `dst`, completing `bytes` of the barrier's
+// transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (a wgmma reading the tile through a descriptor); a barrier after it
+// orders every thread's stores before the reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // TMA: the box of `map` at coordinates (c0 innermost .. c3) into shared
 // memory at `dst`, completing `bytes` of the barrier's transaction count
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -203,6 +238,14 @@ __device__ __forceinline__ void fence_registers(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// the same for packed A fragments: keeps them live (unmoved, unreused) until
+// the wait after the wgmma that reads them from registers
+template <int N>
+__device__ __forceinline__ void fence_fragments(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // two floats rounded to bf16 and packed as one A-fragment register, the
 // lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -230,6 +273,62 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t a, uint64
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory; TA / TB = 1
+// reads that operand MN-major (the transpose bit), 0 K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float* d, uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float* d, uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// the both-from-shared-memory product at N = 16, 32 or 64 columns
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 16) {
+    wgmma_ss_m64n16k16<TA, TB>(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_ss_m64n32k16<TA, TB>(d, a, b, accumulate);
+  } else {
+    static_assert(N == 64, "wgmma_ss: N must be 16, 32 or 64");
+    wgmma_ss_m64n64k16<TA, TB>(d, a, b, accumulate);
+  }
 }
 
 // D[64 x 16] (+)= A[64 x 16] B[16 x 16]: A in registers, B MN-major in shared memory

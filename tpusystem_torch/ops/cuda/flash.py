@@ -10,12 +10,13 @@ outputs through a ``torch.autograd.Function``: its forward runs K1 and saves
 the logsumexp, its backward runs ``backward='fused'`` (one recomputation of
 each tile for dq, dk and dv) or ``'split'`` (a dq sweep and a dk/dv sweep).
 The fused backward of multi-head attention over more than
-``FUSED_MHA_KEYS`` keys is the resident-dq kernel K2a, as in the reference
-(``flash.py:508``); GQA and shorter MHA take K2b, whose float32 dq partials
-grow with the square of the tile count. The reference also reroutes K2a to
-the split sweeps past a 96 MB working set (``flash.py:508-528``): that is
-the TPU's scoped-VMEM limit, and K2a here keeps its dq sum in device memory,
-so there is no such reroute.
+``FUSED_MHA_KEYS`` keys is K2a, as the reference routes its resident-dq
+kernel (``flash.py:508``); GQA and shorter MHA take K2b. On the card K2a
+and K2b are one TMA-fed ``wgmma`` kernel that sums dq in kv order behind a
+ticket per (head row, q tile), so they agree bit for bit. The reference
+also reroutes K2a to the split sweeps past a 96 MB working set
+(``flash.py:508-528``): that is the TPU's scoped-VMEM limit, and the kernel
+here keeps its dq sum in device memory, so there is no such reroute.
 
 Attention-probability dropout (``dropout > 0`` with an int ``seed``) runs
 in every kernel through the reference's positional hash (:func:`keep_mask`,
@@ -28,7 +29,9 @@ PyTorch version (:func:`flash_attention_plain`,
 kernel), a CUDA tensor launches the kernel or raises.
 ``flash_attention_lse.launches``, ``flash_bwd_fused_g1.launches``,
 ``flash_bwd_fused.launches``, ``flash_bwd_dq.launches`` and
-``flash_bwd_dkv.launches`` count launches.
+``flash_bwd_dkv.launches`` count launches; :func:`fused_clocks` and
+:func:`fused_ticket_waits` are uncounted diagnostic launches of the fused
+kernel (its cycles, and the share of them spent waiting for dq tickets).
 """
 
 from __future__ import annotations
@@ -41,10 +44,12 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 
 NEG_INF = -1e30
 TILE = 64          # kv rows per online-softmax step of the plain versions and
-                   # the backward kernels (K1 steps over 128-row tiles)
+                   # of K3a/K3b (K1 and the fused backward step over 128-row
+                   # kv tiles)
 HEAD_DIMS = (16, 32, 64, 128)     # K1's, K2a's, K2b's, K3a's and K3b's
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
+LOG2E = 1.4426950408889634      # the fused backward's exp2 takes lse * log2(e)
 _U32 = 0xFFFFFFFF
 
 
@@ -168,7 +173,8 @@ def flash_attention_bwd_plain(query, key, value, out, lse, d_out, d_lse=None,
     dropout ``dV`` takes ``P * keep / (1 - p)`` and ``dS`` takes
     ``keep * dP / (1 - p)`` for ``dP`` (``flash.py:270-277``). dk and dv of a
     kv head sum its group's query heads in order; dq sums the kv tiles in
-    ascending order, as K2a's resident sum and K2b's reduction do. The one
+    ascending order, as the fused kernel's tickets do (over 128-row kv
+    tiles). The one
     plain version of K2a, K2b and the split pair K3a + K3b: they compute the
     same function, so ``backward`` is only checked."""
     _check_backward(backward)
@@ -250,14 +256,13 @@ def _bwd_library():
     if not getattr(lib, '_typed', False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         size = ctypes.c_size_t
-        lib.flash_bwd_partial_elements.argtypes = [i32, i32, i32, i32, i32]
-        lib.flash_bwd_partial_elements.restype = size
-        lib.flash_bwd_g1_tickets.argtypes = [i32, i32, i32]
-        lib.flash_bwd_g1_tickets.restype = size
-        lib.flash_bwd_fused_g1_bf16.argtypes = [ptr] * 11 + [i32] * 4 + [
-            f32, i32, ptr, ptr]
-        lib.flash_bwd_fused_g1_bf16.restype = i32
-        lib.flash_bwd_fused_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [
+        lib.flash_bwd_tickets.argtypes = [i32, i32, i32]
+        lib.flash_bwd_tickets.restype = size
+        lib.flash_bwd_padded_rows.argtypes = [i32]
+        lib.flash_bwd_padded_rows.restype = i32
+        lib.flash_bwd_clocks.argtypes = []
+        lib.flash_bwd_clocks.restype = i32
+        lib.flash_bwd_fused_bf16.argtypes = [ptr] * 12 + [i32] * 5 + [
             f32, i32, ptr, ptr]
         lib.flash_bwd_fused_bf16.restype = i32
         lib.flash_bwd_dkv_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [
@@ -358,57 +363,104 @@ def _kernel_args(name, query, key):
     return batch, seq, q_heads, key.shape[2], head_dim
 
 
+def _by_head(stats, rows: int):
+    """``[B, S, H]`` float32 row statistics laid out ``[B, H, rows]``, zero
+    past S, as the fused kernel reads them: a q tile's 64 values are one
+    contiguous bulk copy (lse goes in times log2(e), the kernel's exp2
+    argument)."""
+    batch, seq, heads = stats.shape
+    out = stats.new_zeros((batch, heads, rows))
+    out[:, :, :seq] = stats.transpose(1, 2)
+    return out
+
+
+def _fused_call(query, key, value, d_out, lse, delta, causal, dropout, seed,
+                clocks=None):
+    """One launch of the fused backward kernel (K2a and K2b are its one
+    body): ``(err, (dq, dk, dv))``. ``clocks`` (int64 ``[items,
+    flash_bwd_clocks()]``) takes each work item's cycles and its ticket
+    waits (and, in a build with ``FLASH_BWD_PHASES``, its cycles by phase
+    first)."""
+    batch, seq, q_heads, head_dim = query.shape
+    lib = _bwd_library()
+    rows = lib.flash_bwd_padded_rows(seq)
+    dq_acc = torch.empty(batch * q_heads * rows * head_dim,
+                         dtype=torch.float32, device=query.device)
+    tickets = torch.zeros(lib.flash_bwd_tickets(batch, seq, q_heads),
+                          dtype=torch.int32, device=query.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (query, key, value))
+    err = lib.flash_bwd_fused_bf16(
+        *(_pointer(t) for t in (query, key, value, d_out,
+                                _by_head(lse * LOG2E, rows),
+                                _by_head(delta, rows), dq, dk, dv, dq_acc,
+                                tickets)),
+        None if clocks is None else _pointer(clocks), batch, seq, q_heads,
+        key.shape[2], head_dim, head_dim ** -0.5, int(causal),
+        _dropout_arg(dropout, seed), _stream(query.device))
+    return err, (dq, dk, dv)
+
+
 def flash_bwd_fused_g1(query, key, value, d_out, lse, delta, *,
                        causal: bool = True, dropout: float = 0.0,
                        seed: int | None = None):
-    """K2a on the card: ``(dq, dk, dv)`` of multi-head attention from one
-    recomputation of each visible tile, dq summed in kv order in a resident
-    float32 buffer (no partials); bitwise K2b's result. Contiguous bf16
+    """K2a on the card: ``(dq, dk, dv)`` of multi-head attention, the
+    fused kernel of :func:`flash_bwd_fused` (bitwise its result), launched
+    where the reference runs its resident-dq kernel. Contiguous bf16
     ``[B, S, H, D]`` tensors, float32 ``lse``/``delta``."""
-    batch, seq, heads, kv_heads, head_dim = _kernel_args(
-        'flash_bwd_fused_g1', query, key)
+    _, _, heads, kv_heads, _ = _kernel_args('flash_bwd_fused_g1', query, key)
     if kv_heads != heads:
         raise ValueError('flash_bwd_fused_g1 takes multi-head attention '
                          f'({heads} query heads, {kv_heads} KV heads)')
-    lib = _bwd_library()
-    dq_acc = torch.zeros(query.shape, dtype=torch.float32,
-                         device=query.device)
-    tickets = torch.zeros(lib.flash_bwd_g1_tickets(batch, seq, heads),
-                          dtype=torch.int32, device=query.device)
-    dq, dk, dv = (torch.empty_like(t) for t in (query, key, value))
-    err = lib.flash_bwd_fused_g1_bf16(
-        *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq, dk,
-                                dv, dq_acc, tickets)),
-        batch, seq, heads, head_dim, head_dim ** -0.5, int(causal),
-        _dropout_arg(dropout, seed), _stream(query.device))
+    err, grads = _fused_call(query, key, value, d_out, lse, delta, causal,
+                             dropout, seed)
     _raise_on(err, 'flash_bwd_fused_g1')
     flash_bwd_fused_g1.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 def flash_bwd_fused(query, key, value, d_out, lse, delta, *,
                     causal: bool = True, dropout: float = 0.0,
                     seed: int | None = None):
     """K2b on the card: ``(dq, dk, dv)`` from one recomputation of each
-    visible tile, float32 dq partials summed in kv order by a second pass;
-    ``delta`` from :func:`attention_delta`. Contiguous bf16 ``[B, S, H, D]``
-    tensors, float32 ``lse``/``delta``."""
-    batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
-        'flash_bwd_fused', query, key)
-    lib = _bwd_library()
-    partial = torch.empty(
-        lib.flash_bwd_partial_elements(batch, seq, q_heads, head_dim,
-                                       int(causal)),
-        dtype=torch.float32, device=query.device)
-    dq, dk, dv = (torch.empty_like(t) for t in (query, key, value))
-    err = lib.flash_bwd_fused_bf16(
-        *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dq, dk,
-                                dv, partial)),
-        batch, seq, q_heads, kv_heads, head_dim, head_dim ** -0.5,
-        int(causal), _dropout_arg(dropout, seed), _stream(query.device))
+    visible tile on TMA-fed ``wgmma``, dq summed in kv order behind one
+    ticket per (head row, q tile), any GQA group; ``delta`` from
+    :func:`attention_delta`. Contiguous bf16 ``[B, S, H, D]`` tensors,
+    float32 ``lse``/``delta`` ``[B, S, Hq]``."""
+    _kernel_args('flash_bwd_fused', query, key)
+    err, grads = _fused_call(query, key, value, d_out, lse, delta, causal,
+                             dropout, seed)
     _raise_on(err, 'flash_bwd_fused')
     flash_bwd_fused.launches += 1
-    return dq, dk, dv
+    return grads
+
+
+def fused_clocks(query, key, value, d_out, lse, delta, *,
+                 causal: bool = True):
+    """A diagnostic launch of the fused kernel (not counted in
+    ``launches``): int64 ``[work items, flash_bwd_clocks()]``, thread 0's
+    cycles by phase (zero unless the library was built with
+    ``FLASH_BWD_PHASES``), each item's cycles and its ticket waits."""
+    batch, seq, _, kv_heads, _ = _kernel_args('fused_clocks', query, key)
+    items = -(-seq // 128) * batch * kv_heads
+    clocks = torch.zeros((items, _bwd_library().flash_bwd_clocks()),
+                         dtype=torch.int64, device=query.device)
+    err, _ = _fused_call(query, key, value, d_out, lse, delta, causal, 0.0,
+                         None, clocks)
+    _raise_on(err, 'fused_clocks')
+    return clocks
+
+
+def fused_ticket_waits(query, key, value, d_out, lse, delta, *,
+                       causal: bool = True) -> dict:
+    """The share of the fused kernel's work items' cycles that thread 0
+    spent waiting for dq tickets, summed over the items, and the largest
+    share of one item (:func:`fused_clocks`)."""
+    clocks = fused_clocks(query, key, value, d_out, lse, delta,
+                          causal=causal)[:, -2:].double()
+    cycles, waited = clocks.sum(0).tolist()
+    share = clocks[:, 1] / clocks[:, 0].clamp(min=1)
+    return {'wait_share': waited / cycles, 'max_item_share':
+            share.max().item(), 'items': clocks.shape[0]}
 
 
 def flash_bwd_dq(query, key, value, d_out, lse, delta, *,
