@@ -82,16 +82,25 @@ Phases, in order; any failure exits non-zero:
    at ``dropout=0.1``: one warm-up and three timed steps with falling losses,
    K1 and K2b launched 12 times a step, the mask kernel 25 times;
 10. the grouped MoE kernels K6 (``gather_rows_matmul``) and K7
-   (``matmul_scatter_rows``) against their plain versions at the four shapes
-   one MoE layer gives them in training (forward and backward, 16,384 tokens
-   routed top-2 over 8 experts at capacity 5,120), with bitwise repeats;
+   (``matmul_scatter_rows``), one TMA-fed ``wgmma`` kernel, against their
+   plain versions at the four shapes one MoE layer gives them in training
+   (forward and backward, 16,384 tokens routed top-2 over 8 experts at
+   capacity 5,120), with bitwise repeats, each timed beside the plain
+   version, ``torch.bmm`` and its bound (``bound_share``, ``tflops``); K7's
+   time split into its grouped product, its combine and its token index
+   (``k7-split``); an edge sweep over widths off 16 bytes and off 64, C off
+   the 128-row tile, N under 64 columns, one group and k = 4 at full width
+   (``grouped-edges``); ptxas' registers and spills of every
+   ``grouped_gemm_kernel`` instantiation (``grouped-ptxas``; a missing or
+   spilling one fails);
 11. train the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s whole-model
    settings: the 125M body, 8 experts top-2 in every second block,
    ``moe_sparse_impl='fused'``, ``WithAuxLoss`` over the chunked loss, AdamW,
    16 x 1024 tokens): its loss and gradient on 2 rows held against the same
    weights through the gather impl, then one warm-up and three timed steps
    whose losses must be finite and fall, K6 and K7 launched 12 times per
-   step each; then a traced window of two steps;
+   step each; then a traced window of two steps with the device ms of the
+   grouped products and the combine;
 12. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's, at the training shape and
    at head dim 128 under Llama-3 8B's GQA ([1, 2048, 32, 8, 128]);
@@ -204,6 +213,20 @@ LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_VOCAB, LLAMA_TRAIN_SEQ = 8, 16384, 8192
 LLAMA_TRAIN_STEPS = 3           # timed, after one warm-up step
 # K2a and K2b: one TMA-fed wgmma kernel, flash_bwd_fused_kernel<head dim>
 FUSED_KERNELS = ('flash_bwd_fused', 'flash_bwd_fused_g1')
+# K6 and K7: one TMA-fed wgmma kernel, grouped_gemm_kernel<gather, trans_b>
+GROUPED_INSTANCES = tuple(f'grouped_gemm_kernel<{gather}, {trans_b}>'
+                          for gather in ('false', 'true')
+                          for trans_b in ('false', 'true'))
+# phase 10's edge sweep: (tokens, experts, k, capacity, dim, hidden); widths
+# off 16 bytes (the producer's own loads), C off the 128-row tile with a
+# seated tail, K and N off 64, N under one 64-column box, one group, k = 4
+# at full width
+GROUPED_EDGES = ((40, 4, 2, 12, 20, 30),
+                 (400, 4, 2, 200, 128, 256),
+                 (256, 4, 2, 160, 72, 200),
+                 (128, 4, 2, 80, 40, 48),
+                 (300, 1, 1, 256, 256, 512),
+                 (1024, 8, 4, 640, 768, 3072))
 
 
 def fail(message: str) -> None:
@@ -625,37 +648,122 @@ def check_train_forward(torch, generator):
         bound_ms(4 * 2 * elements + stats, flops), flops=flops)]
 
 
-def grouped_inputs(torch, generator):
-    """One MoE layer's operands at the training shape: 16 x 1024 tokens
-    routed top-2 over 8 experts by the port's own routing (capacity 5120,
-    so some choices drop), random bf16 activations and weights."""
+def grouped_inputs(torch, generator, tokens=TRAIN_BATCH * TRAIN_SEQ,
+                   experts=MOE_EXPERTS, k=MOE_K, capacity=None, dim=DIM,
+                   hidden=HIDDEN):
+    """One MoE layer's operands, by default at the training shape: 16 x
+    1024 tokens routed top-2 over 8 experts by the port's own routing
+    (capacity 5120, so some choices drop), random bf16 activations and
+    weights."""
     from tpusystem_torch.ops import moe
 
     device, bf16 = torch.device('cuda'), torch.bfloat16
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    capacity = moe.expert_capacity(tokens, MOE_EXPERTS, MOE_K, MOE_FACTOR)
+    if capacity is None:
+        capacity = moe.expert_capacity(tokens, experts, k, MOE_FACTOR)
 
     def normal(shape, scale=1.0):
         return (torch.randn(shape, generator=generator, device=device)
                 * scale).to(bf16)
 
-    gates = torch.softmax(torch.randn((tokens, MOE_EXPERTS),
+    gates = torch.softmax(torch.randn((tokens, experts),
                                       generator=generator, device=device),
                           -1)
-    _, slots, weights, _ = moe.route_top_k_sparse(gates, MOE_K, capacity)
+    _, slots, weights, _ = moe.route_top_k_sparse(gates, k, capacity)
     slot_asg, slot_token, _ = moe._invert_seating(
-        slots, MOE_K, tokens, MOE_EXPERTS * capacity)
+        slots, k, tokens, experts * capacity)
     return dict(tokens=tokens, capacity=capacity, slot_token=slot_token,
                 clamped=slot_token.clamp(max=tokens - 1),
                 valid=(slot_token < tokens).float(),
                 w_slot=moe._take(weights, slot_asg),
                 seated=int((slot_token < tokens).sum()),
-                x=normal((tokens, DIM)), d_out=normal((tokens, DIM), 0.01),
-                w1=normal((MOE_EXPERTS, DIM, HIDDEN), DIM ** -0.5),
-                w2=normal((MOE_EXPERTS, HIDDEN, DIM), HIDDEN ** -0.5),
-                b2=normal((MOE_EXPERTS, DIM), 0.1),
-                grown=normal((MOE_EXPERTS * capacity, HIDDEN)),
-                d_pre=normal((MOE_EXPERTS * capacity, HIDDEN), 0.01))
+                x=normal((tokens, dim)), d_out=normal((tokens, dim), 0.01),
+                w1=normal((experts, dim, hidden), dim ** -0.5),
+                w2=normal((experts, hidden, dim), hidden ** -0.5),
+                b2=normal((experts, dim), 0.1),
+                grown=normal((experts * capacity, hidden)),
+                d_pre=normal((experts * capacity, hidden), 0.01))
+
+
+def grouped_calls(gm, g):
+    """The four calls one MoE layer's training step makes of K6 and K7 (the
+    up-projection forward, the down-projection's input gradient, the
+    down-projection forward with its bias and saved rows, the
+    up-projection's input gradient): ``{name: (kernel, plain, args,
+    options)}``."""
+    tokens, capacity = g['tokens'], g['capacity']
+    return {
+        'gather_rows_matmul[fwd]': (
+            gm.gather_rows_matmul, gm.gather_rows_matmul_plain,
+            (g['x'], g['w1'], g['clamped'], g['valid']),
+            dict(rows_per_group=capacity)),
+        'gather_rows_matmul[bwd]': (
+            gm.gather_rows_matmul, gm.gather_rows_matmul_plain,
+            (g['d_out'], g['w2'], g['clamped'], g['w_slot']),
+            dict(rows_per_group=capacity, transpose_rhs=True)),
+        'matmul_scatter_rows[fwd]': (
+            gm.matmul_scatter_rows, gm.matmul_scatter_rows_plain,
+            (g['grown'], g['w2'], g['b2'], g['slot_token'], g['w_slot'],
+             tokens), dict(rows_per_group=capacity)),
+        'matmul_scatter_rows[bwd]': (
+            gm.matmul_scatter_rows, gm.matmul_scatter_rows_plain,
+            (g['d_pre'], g['w1'], None, g['slot_token'], g['valid'], tokens),
+            dict(rows_per_group=capacity, transpose_rhs=True,
+                 save_rows=False)),
+    }
+
+
+def grouped_errors(torch, first, again, want, tokens, slot_token):
+    """``(bitwise, finite, pairs)`` of one K6 or K7 call's result against
+    its plain version: each output's max abs error beside its tolerance
+    (rows 2^-7, K7's combined output 2^-5 of the largest plain value) and,
+    for K7, whether every token no slot seats came out exactly 0."""
+    torch.cuda.synchronize()
+    if isinstance(first, tuple):               # K7: (out, rows | None)
+        bitwise = all(a is None or torch.equal(a, b)
+                      for a, b in zip(first, again))
+        (out, saved), (want_out, want_rows) = first, want
+        pairs = [((out.float() - want_out.float()).abs().max().item(),
+                  2 ** -5 * want_out.float().abs().max().item())]
+        if saved is not None:
+            pairs.append(((saved.float() - want_rows.float()).abs()
+                          .max().item(),
+                          2 ** -7 * want_rows.float().abs().max().item()))
+        seated = torch.zeros(tokens + 1, dtype=torch.bool, device=out.device)
+        seated[slot_token.long()] = True
+        if not bool((out[~seated[:tokens]] == 0).all()):
+            pairs.append((math.inf, 0.0))       # an unseated token not 0
+        return bitwise, torch.isfinite(out.float()).all().item(), pairs
+    pairs = [((first.float() - want.float()).abs().max().item(),
+              2 ** -7 * want.float().abs().max().item())]
+    return (torch.equal(first, again),
+            torch.isfinite(first.float()).all().item(), pairs)
+
+
+def check_grouped_edges(torch, generator) -> dict:
+    """Phase 10's edge sweep: K6 and K7 at ``GROUPED_EDGES``' widths (C off
+    the 128-row tile, K and N off 64 and off 16 bytes, N under one
+    64-column box, one group, k = 4 at full width), each of the four calls
+    of a training step against its plain version with a bitwise repeat."""
+    from tpusystem_torch.ops.cuda import grouped_matmul as gm
+
+    results = {}
+    for tokens, experts, k, capacity, dim, hidden in GROUPED_EDGES:
+        g = grouped_inputs(torch, generator, tokens, experts, k, capacity,
+                           dim, hidden)
+        for name, (kernel, plain, args, options) in grouped_calls(
+                gm, g).items():
+            label = (f'{name}[{tokens}x{experts}x{k}, C={capacity}, '
+                     f'{dim}x{hidden}]')
+            bitwise, finite, pairs = grouped_errors(
+                torch, kernel(*args, **options), kernel(*args, **options),
+                plain(*args, **options), tokens, g['slot_token'])
+            err, tol = worst(pairs)
+            results[label] = dict(bitwise_repeat=bitwise, finite=finite,
+                                  max_abs_err=err, tol=tol)
+            if not (finite and bitwise and err <= tol):
+                fail(f'grouped edge {label}: {results[label]}')
+    print('grouped-edges ' + json.dumps(results))
+    return results
 
 
 def check_grouped(torch, generator):
@@ -663,11 +771,25 @@ def check_grouped(torch, generator):
     of one MoE layer's training step, each with a bitwise repeat, timed
     beside the plain version, ``torch.bmm`` over the same rows gathered
     into the ``[8, 5120, k]`` buffer beforehand (the product alone: no
-    gather, no combine) and the bound. Flops count the seated rows only
-    (empty slots need no product); bytes count each input read once and
-    each output written once."""
+    gather, no combine) and the bound, with ``bound_share`` and ``tflops``.
+    Flops count the seated rows only (empty slots need no product); bytes
+    count each input read once and each output written once. Then K7's
+    time split into its grouped product, its combine and the token index
+    the wrapper builds (``k7-split``), the edge sweep
+    (``grouped-edges``) and ptxas' registers and spills of every
+    ``grouped_gemm_kernel`` instantiation (``grouped-ptxas``; a missing or
+    spilling one fails). Returns ``(checks, split, ptxas)``."""
     from tpusystem_torch.ops import moe
     from tpusystem_torch.ops.cuda import grouped_matmul as gm
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+
+    ptxas = {name: entry for name, entry in ptxas_report(
+        LIBRARIES.compiler_output.get('grouped_matmul', '')).items()
+        if 'grouped_gemm_kernel' in name}
+    print('grouped-ptxas ' + json.dumps(ptxas or 'not available: the '
+                                        'library was built by an earlier '
+                                        'process'))
+    check_spills('grouped-ptxas', ptxas, GROUPED_INSTANCES)
 
     g = grouped_inputs(torch, generator)
     tokens, capacity, seated = g['tokens'], g['capacity'], g['seated']
@@ -680,60 +802,33 @@ def check_grouped(torch, generator):
 
     cases = {
         'gather_rows_matmul[fwd]': dict(
-            kernel=gm.gather_rows_matmul, plain=gm.gather_rows_matmul_plain,
-            args=(g['x'], g['w1'], g['clamped'], g['valid']), options={},
             library=(buffer(g['x']), g['w1']), shape=[tokens, DIM, HIDDEN],
             moved=tokens * DIM * 2 + g['w1'].numel() * 2 + ids_bytes
-            + rows * HIDDEN * 2, flops=2 * seated * DIM * HIDDEN),
+            + rows * HIDDEN * 2),
         'gather_rows_matmul[bwd]': dict(
-            kernel=gm.gather_rows_matmul, plain=gm.gather_rows_matmul_plain,
-            args=(g['d_out'], g['w2'], g['clamped'], g['w_slot']),
-            options=dict(transpose_rhs=True),
             library=(buffer(g['d_out']), g['w2'].transpose(1, 2)),
             shape=[tokens, DIM, HIDDEN],
             moved=tokens * DIM * 2 + g['w2'].numel() * 2 + ids_bytes
-            + rows * HIDDEN * 2, flops=2 * seated * DIM * HIDDEN),
+            + rows * HIDDEN * 2),
         'matmul_scatter_rows[fwd]': dict(
-            kernel=gm.matmul_scatter_rows, plain=gm.matmul_scatter_rows_plain,
-            args=(g['grown'], g['w2'], g['b2'], g['slot_token'], g['w_slot'],
-                  tokens), options={},
             library=(g['grown'].reshape(MOE_EXPERTS, capacity, HIDDEN),
                      g['w2']), shape=[rows, HIDDEN, DIM],
             moved=rows * HIDDEN * 2 + g['w2'].numel() * 2 + MOE_EXPERTS * DIM
-            * 2 + ids_bytes + tokens * DIM * 2 + rows * DIM * 2,
-            flops=2 * seated * HIDDEN * DIM),
+            * 2 + ids_bytes + tokens * DIM * 2 + rows * DIM * 2),
         'matmul_scatter_rows[bwd]': dict(
-            kernel=gm.matmul_scatter_rows, plain=gm.matmul_scatter_rows_plain,
-            args=(g['d_pre'], g['w1'], None, g['slot_token'], g['valid'],
-                  tokens), options=dict(transpose_rhs=True, save_rows=False),
             library=(g['d_pre'].reshape(MOE_EXPERTS, capacity, HIDDEN),
                      g['w1'].transpose(1, 2)), shape=[rows, HIDDEN, DIM],
             moved=rows * HIDDEN * 2 + g['w1'].numel() * 2 + ids_bytes
-            + tokens * DIM * 2, flops=2 * seated * HIDDEN * DIM),
+            + tokens * DIM * 2),
     }
+    flops = 2 * seated * DIM * HIDDEN
     results = []
-    for name, case in cases.items():
-        options = dict(rows_per_group=capacity, **case['options'])
-        run = lambda i: case['kernel'](*case['args'], **options)
-        first, again = run(0), run(1)
-        want = case['plain'](*case['args'], **options)
-        torch.cuda.synchronize()
-        if isinstance(first, tuple):               # K7: (out, rows | None)
-            bitwise = all(a is None or torch.equal(a, b)
-                          for a, b in zip(first, again))
-            (out, saved), (want_out, want_rows) = first, want
-            pairs = [((out.float() - want_out.float()).abs().max().item(),
-                      2 ** -5 * want_out.float().abs().max().item())]
-            if saved is not None:
-                pairs.append(((saved.float() - want_rows.float()).abs()
-                              .max().item(),
-                              2 ** -7 * want_rows.float().abs().max().item()))
-            finite = torch.isfinite(out.float()).all().item()
-        else:
-            bitwise = torch.equal(first, again)
-            pairs = [((first.float() - want.float()).abs().max().item(),
-                      2 ** -7 * want.float().abs().max().item())]
-            finite = torch.isfinite(first.float()).all().item()
+    for name, (kernel, plain, args, options) in grouped_calls(gm, g).items():
+        case = cases[name]
+        run = lambda i: kernel(*args, **options)
+        bitwise, finite, pairs = grouped_errors(
+            torch, run(0), run(1), plain(*args, **options), tokens,
+            g['slot_token'])
         err, tol = worst(pairs)
         print('grouped-check ' + json.dumps(
             {'name': name, 'bitwise_repeat': bitwise, 'finite': finite,
@@ -745,16 +840,45 @@ def check_grouped(torch, generator):
             fail(f'{name}: two calls differ')
         lhs, rhs = case['library']
         timed = measure(run, calls=20)
-        plain = measure(lambda i: case['plain'](*case['args'], **options),
-                        calls=3)
+        plain_timed = measure(lambda i: plain(*args, **options), calls=3)
         library = measure(lambda i: torch.bmm(lhs, rhs), calls=20)
         results.append(record_check(
-            name, case['shape'], err, tol, timed, plain, library,
-            bound_ms(case['moved'], case['flops']), by_events=True,
-            bitwise_repeat=bitwise, library_call='torch.bmm over the rows '
-            'gathered into the [8, 5120, k] buffer beforehand: the product '
-            'alone, no gather, no bias, no combine'))
-    return results
+            name, case['shape'], err, tol, timed, plain_timed, library,
+            bound_ms(case['moved'], flops), by_events=True, flops=flops,
+            design='wgmma+tma', bitwise_repeat=bitwise,
+            library_call='torch.bmm over the rows gathered into the '
+            '[8, 5120, k] buffer beforehand: the product alone, no gather, '
+            'no bias, no combine'))
+
+    # K7's parts at each of its two shapes: the grouped product, the
+    # combine over the product's rows, the token -> row index
+    split = {}
+    for name, (_, _, args, options) in grouped_calls(gm, g).items():
+        if not name.startswith('matmul_scatter_rows'):
+            continue
+        lhs, rhs, bias, row_ids, row_scale, _ = args
+        product = dict(rows_per_group=capacity,
+                       transpose_rhs=options.get('transpose_rhs', False))
+        index = gm.combine_index(row_ids, tokens)
+        product_rows = gm._matmul_rows(lhs, rhs, bias, **product)
+        parts = {
+            'product': measure(lambda i: gm._matmul_rows(lhs, rhs, bias,
+                                                         **product),
+                               calls=20),
+            'combine': measure(lambda i: gm._combine_rows(
+                product_rows, row_scale, index, tokens), calls=20),
+            'index': measure(lambda i: gm.combine_index(row_ids, tokens),
+                             calls=20)}
+        whole = dict(results)[name]['ms']
+        split[name] = dict(
+            whole_ms=whole,
+            **{f'{part}_ms': timed[1] for part, timed in parts.items()},
+            **{f'{part}_device_ms': timed[0]
+               for part, timed in parts.items()},
+            index_share=parts['index'][1] / whole)
+    print('k7-split ' + json.dumps(split))
+    check_grouped_edges(torch, generator)
+    return results, split, ptxas
 
 
 def compare_clones(torch, module, criterion, tokens, field, values,
@@ -876,7 +1000,8 @@ def train_moe(torch, seed: int) -> dict:
     flops = (6 * active * tokens.numel() + 12 * module.layers * HEADS
              * TRAIN_SEQ * TRAIN_SEQ * HEAD_DIM * TRAIN_BATCH)
     profile = profile_steps(torch, lambda: step(state, tokens, tokens),
-                            steps=2, top_n=16)
+                            steps=2, top_n=16,
+                            sums=('grouped_gemm_kernel', 'combine_rows_kernel'))
     print('moe-train-profile ' + json.dumps(profile))
     return dict(result, params=params, active_params=active,
                 flops_per_step=flops, moe_layers=moe_layers,
@@ -1043,11 +1168,31 @@ def check_long_forward(torch, label, q, k, v, out, lse, causal=True,
                         + (', enable_gqa' if grouped else ''))
 
 
+def template_arguments(text: str):
+    """``['128', 'true']`` from the Itanium template argument list at the
+    head of ``text`` (``ILi128ELb1EE...``): int and bool literals in any
+    order and number; None where ``text`` holds no such list."""
+    import re
+
+    if not text.startswith('I'):
+        return None
+    at, arguments = 1, []
+    while True:
+        literal = re.match(r'L([bijlm])(n?)(\d+)E', text[at:])
+        if not literal:
+            break
+        kind, negative, digits = literal.groups()
+        arguments.append({'0': 'false', '1': 'true'}[digits] if kind == 'b'
+                         else ('-' if negative else '') + digits)
+        at += literal.end()
+    return arguments if arguments and text[at:at + 1] == 'E' else None
+
+
 def ptxas_report(output: str) -> dict:
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from one
     ``nvcc -Xptxas -v`` output, kernels by their demangled template name
-    (``flash_fwd_kernel<128>``, ``flash_bwd_fused_kernel<128>``) where
-    the mangled one carries it."""
+    (``flash_fwd_kernel<128>``, ``grouped_gemm_kernel<true, false>``)
+    where the mangled one carries it."""
     import re
 
     def demangled(name):
@@ -1068,11 +1213,9 @@ def ptxas_report(output: str) -> dict:
             at += len(length.group())
             part = name[at:at + int(length.group())]
             at += int(length.group())
-            template = re.match(r'ILi(\d+)E(?:Lb([01])E)?', name[at:])
-            if template:
-                flag = {None: '', '0': ', false', '1': ', true'}[
-                    template.group(2)]
-                return f'{part}<{template.group(1)}{flag}>'
+            arguments = template_arguments(name[at:])
+            if arguments:
+                return f"{part}<{', '.join(arguments)}>"
 
     report, name = {}, None
     for line in output.splitlines():
@@ -1097,19 +1240,17 @@ def ptxas_report(output: str) -> dict:
     return report
 
 
-def check_spills(label: str, report: dict, kernel: str) -> None:
-    """Fail if ``report`` (built by this process) lacks ``kernel<D>`` for a
-    head dim of ``HEAD_DIMS`` or one of them spills."""
-    from tpusystem_torch.ops.cuda import flash
-
+def check_spills(label: str, report: dict, instances) -> None:
+    """Fail if ``report`` (built by this process) lacks one of
+    ``instances`` (demangled names, ``flash_fwd_kernel<128>``) or one of
+    them spills."""
     if not report:          # built by an earlier process: nothing to read
         return
-    for head_dim in flash.HEAD_DIMS:
-        entry = report.get(f'{kernel}<{head_dim}>')
+    for instance in instances:
+        entry = report.get(instance)
         if entry is None or entry.get('spill_stores', 1) or entry.get(
                 'spill_loads', 1):
-            fail(f'{label}: {kernel}<{head_dim}> missing or spilling '
-                 f'({entry})')
+            fail(f'{label}: {instance} missing or spilling ({entry})')
 
 
 def check_k1_head_dim_128(torch, generator):
@@ -1127,7 +1268,8 @@ def check_k1_head_dim_128(torch, generator):
         if 'flash_fwd_kernel' in name}
     print('k1-ptxas ' + json.dumps(registers or 'not available: the '
                                    'library was built by an earlier process'))
-    check_spills('k1-ptxas', registers, 'flash_fwd_kernel')
+    check_spills('k1-ptxas', registers,
+                 [f'flash_fwd_kernel<{d}>' for d in flash.HEAD_DIMS])
     rows = []
     for label, batch, seq, heads, kv_heads, causal in K1_128_CASES:
         q = torch.randn((batch, seq, heads, 128), generator=generator,
@@ -1892,11 +2034,14 @@ def train_dlrm(torch, seed: int) -> dict:
         repeat=repeat, reference=reference, profile=profile)
 
 
-def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
+def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
+                  sums=()) -> dict:
     """Where a step's time goes: a traced window of ``steps`` calls of
     ``step()`` (tracing slows the host, so the step time of the untraced run
     is the one to quote). Device busy share = summed kernel time over the
-    window's wall time; the rest is the card waiting on the host."""
+    window's wall time; the rest is the card waiting on the host. For each
+    name in ``sums``, the device ms a step of every kernel whose name holds
+    it."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1931,7 +2076,10 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8) -> dict:
                 device_busy_share=busy_us / 1e6 / wall,
                 device_ops_per_step=launches / steps,
                 top_kernels_us_per_step=top(kernels),
-                top_operators_us_per_step=top(operators))
+                top_operators_us_per_step=top(operators),
+                kernel_ms_per_step={name: sum(
+                    us for key, us in kernels.items() if name in key)
+                    / 1e3 / steps for name in sums})
 
 
 def serving_prompts(seed: int, vocab: int) -> list:
@@ -2294,6 +2442,7 @@ def main() -> None:
         fail('no CUDA device')
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
     try:
+        from tpusystem_torch.ops.cuda import flash
         from tpusystem_torch.ops.cuda._build import LIBRARIES
     except ImportError as error:
         fail(f'the tpusystem_torch package is not beside this script '
@@ -2316,7 +2465,8 @@ def main() -> None:
     bwd_ptxas = ptxas_report(LIBRARIES.compiler_output.get('flash_bwd', ''))
     print('bwd-ptxas ' + json.dumps(bwd_ptxas or 'not available: the library '
                                     'was built by an earlier process'))
-    check_spills('bwd-ptxas', bwd_ptxas, 'flash_bwd_fused_kernel')
+    check_spills('bwd-ptxas', bwd_ptxas, [f'flash_bwd_fused_kernel<{d}>'
+                                          for d in flash.HEAD_DIMS])
     checks += (k1_128_rows + check_train_forward(torch, generator)
                + check_backward(torch, generator, HEAD_DIM,
                                 BWD_CASES[HEAD_DIM]))
@@ -2336,7 +2486,8 @@ def main() -> None:
     checks.append(check_mask_kernel(torch))
     dropout_trained = train_dropout(torch, args.seed)
     print('dropout-train ' + json.dumps(dropout_trained))
-    checks += check_grouped(torch, generator)
+    grouped_rows, k7_split, grouped_ptxas = check_grouped(torch, generator)
+    checks += grouped_rows
     moe_trained = train_moe(torch, args.seed)
     print('moe-train ' + json.dumps(moe_trained))
     split = split_step(torch, generator)
@@ -2445,6 +2596,20 @@ def main() -> None:
                      ptxas={f'<{d}>': bwd_ptxas.get(
                          f'flash_bwd_fused_kernel<{d}>') for d in (16, 32, 64,
                                                                    128)})
+    # K6 and K7: one TMA-fed wgmma kernel, its registers, both shapes of
+    # each (forward, backward) and K7's time split into its parts
+    for name in ('gather_rows_matmul', 'matmul_scatter_rows'):
+        entry = kernels[[k['name'] for k in kernels].index(name)]
+        entry.update(design='wgmma+tma', ptxas={
+            instance: grouped_ptxas.get(instance)
+            for instance in GROUPED_INSTANCES} if grouped_ptxas
+            else 'not available: built by an earlier process', shapes={
+                label: {key: measured[label][key] for key in (
+                    'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                    'bound_ms', 'bound_by', 'bound_share', 'tflops')}
+                for label in (f'{name}[fwd]', f'{name}[bwd]')})
+    kernels[[k['name'] for k in kernels].index('matmul_scatter_rows')][
+        'split'] = k7_split
     kernels[[k['name'] for k in kernels].index('flash_bwd_fused')][
         'ticket_waits_llama'] = measured[
             'flash_bwd_fused_d128[S=8192]']['ticket_waits']
@@ -2483,6 +2648,7 @@ def main() -> None:
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
              'serve_llama': llama, 'train_llama': llama_trained,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
+             'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

@@ -1,9 +1,10 @@
 """``chip_smoke.py``'s reading of ptxas' report, on the CPU.
 
 The spill check finds each kernel instance by its demangled name. nvcc
-names the anonymous namespace of ``flash_bwd.cu`` with hashes that change
-with the source's path and may hold digits, so these cases put digits next
-to the kernel's own length prefix.
+names the anonymous namespace of ``flash_bwd.cu`` and ``grouped_matmul.cu``
+with hashes that change with the source's path and may hold digits, so
+these cases put digits next to the kernel's own length prefix; template
+arguments are int and bool literals in any order and number.
 """
 
 import importlib.util
@@ -68,12 +69,75 @@ def test_spill_check_fails_on_a_missing_or_spilling_instance():
                     f'ILi{head_dim}EEEv', spills=8 * (head_dim in spilling))
             for head_dim in (16, 32, 64, 128))
 
+    instances = [f'{kernel}<{head_dim}>' for head_dim in (16, 32, 64, 128)]
     chip_smoke.check_spills('bwd-ptxas', chip_smoke.ptxas_report(output(())),
-                            kernel)
+                            instances)
     with pytest.raises(SystemExit):
         chip_smoke.check_spills(
-            'bwd-ptxas', chip_smoke.ptxas_report(output((64,))), kernel)
+            'bwd-ptxas', chip_smoke.ptxas_report(output((64,))), instances)
     missing = chip_smoke.ptxas_report(output(()))
     del missing[f'{kernel}<32>']
     with pytest.raises(SystemExit):
-        chip_smoke.check_spills('bwd-ptxas', missing, kernel)
+        chip_smoke.check_spills('bwd-ptxas', missing, instances)
+
+
+GROUPED = 'grouped_gemm_kernel'
+FLAGS = [(gather, trans_b) for gather in (0, 1) for trans_b in (0, 1)]
+
+
+def _grouped_output(suffix, spilling=()):
+    # K6/K7's kernel, template <bool GATHER, bool TRANS_B>, in the
+    # anonymous namespace of grouped_matmul.cu
+    namespace = f'_GLOBAL__N__9d0c3e11_17_grouped_matmul_cu_{suffix}'
+    return ''.join(
+        _report(f'_ZN{len(namespace)}{namespace}{len(GROUPED)}{GROUPED}'
+                f'ILb{gather}ELb{trans_b}EEEv14CUtensorMap_stS1_NS_7ProblemE',
+                registers=90 + 2 * gather + trans_b,
+                spills=8 * ((gather, trans_b) in spilling))
+        for gather, trans_b in FLAGS)
+
+
+def _flag(value):
+    return 'true' if value else 'false'
+
+
+@pytest.mark.parametrize('suffix', ['ac07497f', '11af923d', '55485822',
+                                    '00000025'])
+def test_ptxas_report_names_bool_bool_kernels_under_a_digit_hash(suffix):
+    report = _chip_smoke().ptxas_report(_grouped_output(suffix))
+    assert report == {
+        f'{GROUPED}<{_flag(gather)}, {_flag(trans_b)}>': {
+            'stack': 0, 'spill_stores': 0, 'spill_loads': 0,
+            'registers': 90 + 2 * gather + trans_b}
+        for gather, trans_b in FLAGS}
+
+
+@pytest.mark.parametrize('arguments,expected', [
+    ('ILi64ELb0ELi3EE', ['64', 'false', '3']),
+    ('ILb1ELi128EE', ['true', '128']),
+    ('ILin2ELj7EE', ['-2', '7']),
+    ('ILb1E', None),
+    ('EPK13__nv_bfloat16', None)])
+def test_template_arguments_read_ints_and_bools_in_any_order(arguments,
+                                                              expected):
+    assert _chip_smoke().template_arguments(arguments) == expected
+
+
+@pytest.mark.parametrize('broken', ['spilling', 'missing'])
+@pytest.mark.parametrize('gather,trans_b', FLAGS)
+def test_grouped_spill_check_fails_on_a_missing_or_spilling_instance(
+        broken, gather, trans_b):
+    chip_smoke = _chip_smoke()
+    instances = chip_smoke.GROUPED_INSTANCES
+    assert sorted(instances) == sorted(
+        f'{GROUPED}<{_flag(g)}, {_flag(t)}>' for g, t in FLAGS)
+    chip_smoke.check_spills('grouped-ptxas', chip_smoke.ptxas_report(
+        _grouped_output('629f6fbe')), instances)
+    if broken == 'spilling':
+        report = chip_smoke.ptxas_report(
+            _grouped_output('629f6fbe', spilling=((gather, trans_b),)))
+    else:
+        report = chip_smoke.ptxas_report(_grouped_output('629f6fbe'))
+        del report[f'{GROUPED}<{_flag(gather)}, {_flag(trans_b)}>']
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('grouped-ptxas', report, instances)

@@ -836,6 +836,11 @@ GROUPED_CASES = [   # tokens, experts, k, capacity, dim, hidden
     (40, 6, 4, 12, 32, 16),          # k = 4
     (2048, 8, 2, 640, 768, 3072),    # one MoE layer's widths
     (1024, 8, 4, 640, 256, 512),     # k = 4, no drops
+    (400, 4, 2, 200, 128, 256),      # C off the 128-row tile, a seated tail
+    (256, 4, 2, 160, 72, 200),       # K, N multiples of 8, not of 64
+    (128, 4, 2, 80, 40, 48),         # N under one 64-column box
+    (300, 1, 1, 256, 256, 512),      # one group
+    (1024, 8, 4, 640, 768, 3072),    # k = 4 at full width
 ]
 
 
@@ -891,6 +896,60 @@ def test_matmul_scatter_rows_matches_plain(device, tokens, experts, k,
     seated = torch.zeros(tokens + 1, dtype=torch.bool, device=device)
     seated[x['slot_token'].long()] = True
     assert (out[~seated[:tokens]] == 0).all()
+
+
+@pytest.mark.parametrize('tokens,experts,k,capacity,dim,hidden',
+                         GROUPED_CASES)
+@pytest.mark.parametrize('transpose_rhs', [False, True])
+def test_matmul_scatter_rows_passes_match_plain(device, tokens, experts, k,
+                                                capacity, dim, hidden,
+                                                transpose_rhs):
+    """K7's two passes alone: the grouped product's rows against the plain
+    product, and the combine bit for bit against ``combine_rows_plain``
+    over the same rows on a CPU copy (both walk a token's rows in ascending
+    order and round every product and add to bfloat16)."""
+    x = _grouped_inputs(device, tokens, experts, k, capacity, dim, hidden,
+                        tokens + 3 * k)
+    rhs = x['w2'].transpose(1, 2).contiguous() if transpose_rhs else x['w2']
+    b2 = None if transpose_rhs else x['b2']
+    rows = gm._matmul_rows(x['lhs'], rhs, b2, rows_per_group=capacity,
+                           transpose_rhs=transpose_rhs)
+    _, want_rows = gm.matmul_scatter_rows_plain(
+        x['lhs'], rhs, b2, x['slot_token'], x['scale'], tokens,
+        rows_per_group=capacity, transpose_rhs=transpose_rhs)
+    out = gm._combine_rows(rows, x['scale'],
+                           gm.combine_index(x['slot_token'], tokens), tokens)
+    torch.cuda.synchronize()
+    _close(rows, want_rows, 2 ** -7 * want_rows.float().abs().max().item())
+    want = gm.combine_rows_plain(rows.cpu(), x['slot_token'].cpu(),
+                                 x['scale'].cpu(), tokens)
+    assert torch.equal(out.cpu(), want)
+
+
+def test_k7_product_timed_alone(device, record_property):
+    """At one MoE layer's widths the grouped product alone takes less time
+    than the whole K7 call (the product, the token index and the combine):
+    CUDA events over 10 calls after 3, both recorded."""
+    x = _grouped_inputs(device, 2048, 8, 2, 640, 768, 3072, 11)
+    args = (x['lhs'], x['w2'], x['b2'])
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10
+
+    product = timed(lambda: gm._matmul_rows(*args, rows_per_group=640))
+    whole = timed(lambda: gm.matmul_scatter_rows(
+        *args, x['slot_token'], x['scale'], 2048, rows_per_group=640))
+    record_property('product_ms', product)
+    record_property('k7_ms', whole)
+    assert 0 < product < whole
 
 
 def test_grouped_kernels_repeat_bitwise(device):

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash kernels (K1 in flash_fwd.cu,
-// the fused backward K2a/K2b in flash_bwd.cu): TMA tensor maps and loads,
-// 1-D bulk copies, mbarriers, wgmma shared-memory descriptors, the wgmma
-// instructions and the accumulator -> A-fragment packing. Header only;
-// every function is inline, so each source that includes it compiles its
-// own copy.
+// the fused backward K2a/K2b in flash_bwd.cu) and the grouped MoE products
+// (K6/K7 in grouped_matmul.cu): TMA tensor maps and loads, 1-D bulk
+// copies, cp.async, ldmatrix, mbarriers, named barriers, wgmma shared-memory
+// descriptors, the wgmma instructions and the accumulator -> A-fragment
+// packing. Header only; every function is inline, so each source that
+// includes it compiles its own copy.
 //
 // Layout facts the code relies on (PTX ISA 8.x, "Asynchronous warpgroup
 // level matrix multiply" and "Tensor copy"; CUTLASS's cute/arch/mma_sm90_desc
@@ -37,7 +38,8 @@
 //     R bytes form a core group, SBO is the stride between groups of 8 K
 //     rows (8 * R bytes), LBO the stride between R-byte column blocks of N.
 //     The flash kernels issue one instruction per column block (N <= 64 at
-//     the 128-byte swizzle), so LBO is not read.
+//     the 128-byte swizzle), so LBO is not read there; the grouped products
+//     read 128 columns (two blocks) in one instruction, so it is read there.
 //   * An MN-major A operand (the fused backward's dQ = dS K, A = dS read
 //     from the dS^T tile: rows of K = kv, M = 64 query columns contiguous)
 //     is the same canonical layout with M in N's place, read with the
@@ -129,6 +131,28 @@ inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   return result == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A map over a contiguous bf16 [d2, d1, d0] tensor (d0 innermost) whose box
+// is `rows` of d1 by `cols` of d0 within one index of d2: it lands as
+// `rows` rows of cols * 2 bytes, swizzled at that width, elements past d0
+// or d1 zero-filled (a group's rows never run into the next group's).
+// Returns cudaErrorInvalidValue if the encoder refuses it.
+inline cudaError_t encode_3d(CUtensorMap* map, const void* base, int d2, int d1, int d0,
+                             int rows, int cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d1) * d0 * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  const CUresult result = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_for(cols * 2),
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return result == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // -------------------------------------------------------------- device side
 
 __device__ __forceinline__ uint32_t smem_address(const void* pointer) {
@@ -190,6 +214,32 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 16 bytes from a 16-byte aligned global address into shared memory at
+// `dst` without passing through registers, through L1 (.ca: many threads
+// reading one row, as a gather's repeated ids do, hit L1 instead of one L2
+// slice); `bytes` 0 writes zeros and reads nothing. cp_async_arrive makes
+// the barrier see one arrival (counted in its expected arrivals) once every
+// cp.async this thread issued before it landed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, one row address a lane (lanes
+// 8 m .. 8 m + 7 address matrix m's rows): thread l receives row l / 4,
+// columns 2 (l % 4) and + 1 of each, the layout of an A fragment register
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(address)
+               : "memory");
+}
+
 // TMA: the box of `map` at coordinates (c0 innermost .. c3) into shared
 // memory at `dst`, completing `bytes` of the barrier's transaction count
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -199,6 +249,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the same for a 3-D map (c0 innermost)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a barrier over `threads` threads (whole warps) of the block, by id 1-15
+// (0 is __syncthreads()'s): one warpgroup syncs without the others
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma layout types of the descriptor, by swizzle width
@@ -273,6 +339,57 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t a, uint64
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory; TA / TB
+// = 1 reads that operand MN-major (the transpose bit), 0 K-major. An
+// MN-major B of 128 columns at the 128-byte swizzle is two 64-column blocks,
+// LBO apart.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A in registers, B from shared
+// memory, K-major (TB = 0) or MN-major (TB = 1, two 64-column blocks LBO
+// apart at the 128-byte swizzle)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory; TA / TB = 1

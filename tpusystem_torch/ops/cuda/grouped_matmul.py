@@ -191,6 +191,40 @@ def gather_rows_matmul(src, rhs, row_ids, row_scale, *, rows_per_group: int,
     return out
 
 
+def _matmul_rows(lhs, rhs, bias, *, rows_per_group: int,
+                 transpose_rhs: bool = False):
+    """K7's first pass on the card: ``rows[j] = bf16(lhs[j] @ rhs[j //
+    rows_per_group] + bias)``, one launch of the grouped product. Counts
+    no launch (:func:`matmul_scatter_rows` does)."""
+    groups, contraction, cols, _ = _operands(rhs, transpose_rhs)
+    _check_cuda('matmul_scatter_rows', (lhs, rhs), lhs.device)
+    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    bias = None if bias is None else bias.float().contiguous()
+    rows = torch.empty((groups * rows_per_group, cols), dtype=torch.bfloat16,
+                       device=lhs.device)
+    err = _library().grouped_matmul_rows_bf16(
+        _pointer(lhs), _pointer(rhs), _pointer(bias), _pointer(rows), groups,
+        rows_per_group, contraction, cols, int(transpose_rhs),
+        _stream(lhs.device))
+    _raise_on(err, 'matmul_scatter_rows (grouped matmul)')
+    return rows
+
+
+def _combine_rows(rows, row_scale, index, tokens: int):
+    """K7's second pass on the card: the ordered combine of ``rows`` into
+    ``[tokens, m]`` through ``index``, :func:`combine_index`'s ``(order,
+    starts)``. Counts no launch."""
+    scale = row_scale.float().contiguous()
+    order, starts = (t.to(torch.int32).contiguous() for t in index)
+    out = torch.empty((tokens, rows.shape[1]), dtype=torch.bfloat16,
+                      device=rows.device)
+    err = _library().combine_rows_bf16(
+        _pointer(rows), _pointer(scale), _pointer(order), _pointer(starts),
+        _pointer(out), tokens, rows.shape[1], _stream(rows.device))
+    _raise_on(err, 'matmul_scatter_rows (combine)')
+    return out
+
+
 def matmul_scatter_rows(lhs, rhs, bias, row_ids, row_scale, tokens: int, *,
                         rows_per_group: int, transpose_rhs: bool = False,
                         save_rows: bool = True):
@@ -225,26 +259,10 @@ def matmul_scatter_rows(lhs, rhs, bias, row_ids, row_scale, tokens: int, *,
             lhs, rhs, bias, row_ids, row_scale, tokens,
             rows_per_group=rows_per_group, transpose_rhs=transpose_rhs,
             save_rows=save_rows)
-    _check_cuda('matmul_scatter_rows', (lhs, rhs), lhs.device)
-    device = lhs.device
-    lhs, rhs = lhs.contiguous(), rhs.contiguous()
-    bias = None if bias is None else bias.float().contiguous()
-    scale = row_scale.float().contiguous()
-    order, starts = (t.to(torch.int32).contiguous()
-                     for t in combine_index(row_ids, tokens))
-    rows = torch.empty((groups * rows_per_group, cols), dtype=torch.bfloat16,
-                       device=device)
-    out = torch.empty((tokens, cols), dtype=torch.bfloat16, device=device)
-    lib = _library()
-    err = lib.grouped_matmul_rows_bf16(
-        _pointer(lhs), _pointer(rhs), _pointer(bias), _pointer(rows), groups,
-        rows_per_group, contraction, cols, int(transpose_rhs),
-        _stream(device))
-    _raise_on(err, 'matmul_scatter_rows (grouped matmul)')
-    err = lib.combine_rows_bf16(
-        _pointer(rows), _pointer(scale), _pointer(order), _pointer(starts),
-        _pointer(out), tokens, cols, _stream(device))
-    _raise_on(err, 'matmul_scatter_rows (combine)')
+    rows = _matmul_rows(lhs, rhs, bias, rows_per_group=rows_per_group,
+                        transpose_rhs=transpose_rhs)
+    out = _combine_rows(rows, row_scale, combine_index(row_ids, tokens),
+                        tokens)
     matmul_scatter_rows.launches += 1
     return out, (rows if save_rows else None)
 
