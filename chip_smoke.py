@@ -27,13 +27,14 @@ Phases, in order; any failure exits non-zero:
    (Llama-3 8B's training shapes [1, S, 32, 8, 128] for S = 8192 and 2048,
    MHA [1, 4096, 8, 8, 128], a ragged S = 1000 and a non-causal S = 1024):
    each against the plain backward, repeated bitwise, K2a bit for bit K2b,
+   K3b's dk and dv bit for bit K2b's (K3b is the fused kernel's body
+   without dq; K3a a dq sweep shaped as K1, all of them TMA-fed ``wgmma``),
    the split pair against the fused kernel, timed beside the plain
    backward, the backward of ``scaled_dot_product_attention``
    (``enable_gqa``) and its bound (``bound_share``, ``tflops``; K2a and
-   K2b, one TMA-fed ``wgmma`` kernel, with the share of its
-   cycles spent waiting for dq tickets); with ptxas' registers and spills
-   of every backward instantiation (``bwd-ptxas``; a missing or spilling
-   fused instantiation fails);
+   K2b with the share of their cycles spent waiting for dq tickets); with
+   ptxas' registers and spills of every backward instantiation
+   (``bwd-ptxas``; a missing or spilling one fails);
 4. the flash forward K1 against its plain version at the long-context
    ladder's shapes [4, 4096, 12, 64], [2, 8192, 12, 64] and
    [1, 16384, 12, 64], timed beside it and ``scaled_dot_product_attention``;
@@ -103,7 +104,7 @@ Phases, in order; any failure exits non-zero:
    grouped products and the combine;
 12. one layer's attention forward and backward through the split backward,
    its gradients held against the fused one's, at the training shape and
-   at head dim 128 under Llama-3 8B's GQA ([1, 2048, 32, 8, 128]);
+   at head dim 128 at Llama-3 8B's training row ([1, 8192, 32, 8, 128]);
 13. the recommender's kernels K8 (``gather_rows``) and K9
    (``scatter_add_rows``) against their plain versions on a CPU copy, bit
    for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
@@ -211,8 +212,18 @@ LLAMA_PROBE_STEPS = 4
 # sequence of 8192 tokens, vocab 16384) with depth cut to fit one card
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_VOCAB, LLAMA_TRAIN_SEQ = 8, 16384, 8192
 LLAMA_TRAIN_STEPS = 3           # timed, after one warm-up step
-# K2a and K2b: one TMA-fed wgmma kernel, flash_bwd_fused_kernel<head dim>
+# K2a and K2b: one TMA-fed wgmma kernel, flash_bwd_fused_kernel<head dim,
+# true>; K3b is its body without dq, <head dim, false>; K3a is
+# flash_bwd_dq_kernel<head dim>. ptxas must report every instance at every
+# head dim without spills (bwd-ptxas).
 FUSED_KERNELS = ('flash_bwd_fused', 'flash_bwd_fused_g1')
+BWD_INSTANCE = {'flash_bwd_fused_g1': 'flash_bwd_fused_kernel<{}, true>',
+                'flash_bwd_fused': 'flash_bwd_fused_kernel<{}, true>',
+                'flash_bwd_dq': 'flash_bwd_dq_kernel<{}>',
+                'flash_bwd_dkv': 'flash_bwd_fused_kernel<{}, false>'}
+BWD_INSTANCES = tuple(sorted({instance.format(head_dim)
+                              for instance in BWD_INSTANCE.values()
+                              for head_dim in (16, 32, 64, 128)}))
 # K6 and K7: one TMA-fed wgmma kernel, grouped_gemm_kernel<gather, trans_b>
 GROUPED_INSTANCES = tuple(f'grouped_gemm_kernel<{gather}, {trans_b}>'
                           for gather in ('false', 'true')
@@ -520,8 +531,9 @@ def check_backward(torch, generator, head_dim, cases):
     fused ones; each timed (CUDA events) beside the plain backward, the
     backward of ``scaled_dot_product_attention`` (``enable_gqa`` under
     GQA; none for a case with an lse cotangent, which it does not take) and
-    its bound (``backward_bound``), the fused kernel's rows with its
-    ``design`` and its ticket wait share (``fused_ticket_waits``). Rows are
+    its bound (``backward_bound``), every row with its ``design``, the
+    fused kernel's with its ticket wait share (``fused_ticket_waits``),
+    K3b's dk and dv bit for bit K2b's (``k3b_equals_k2b``). Rows are
     ``name[label]``, with ``_d{head_dim}`` after the name off GPT-2's head
     dim."""
     import torch.nn.functional as F
@@ -581,14 +593,18 @@ def check_backward(torch, generator, head_dim, cases):
             del again
             pairs = grad_errors(got[name], wants[name])
             err, tol = worst(pairs)
-            notes = {}
+            notes = {'design': 'wgmma+tma'}
             if name == 'flash_bwd_fused' and 'flash_bwd_fused_g1' in got:
                 notes['k2a_equals_k2b'] = all_equal(
                     torch, got['flash_bwd_fused_g1'], got[name])
                 if not notes['k2a_equals_k2b']:
                     fail(f'K2a at {shape}: differs from K2b')
+            if name == 'flash_bwd_dkv':      # the fused body without dq
+                notes['k3b_equals_k2b'] = all_equal(
+                    torch, got[name], got['flash_bwd_fused'][1:])
+                if not notes['k3b_equals_k2b']:
+                    fail(f'K3b at {shape}: dk, dv differ from K2b')
             if name in FUSED_KERNELS:
-                notes['design'] = 'wgmma+tma'
                 notes['ticket_waits'] = flash.fused_ticket_waits(
                     *args, causal=causal)
             if not repeat:
@@ -1062,13 +1078,13 @@ def train(torch, seed: int) -> dict:
 def split_step(torch, generator) -> dict:
     """Phase 12: one layer's attention through ``backward='split'``, its
     gradients held against ``'fused'``: at the training shape, and at head
-    dim 128 under Llama-3 8B's GQA ([1, 2048, 32, 8, 128]). K3a and K3b
-    launch once a case."""
+    dim 128 at Llama-3 8B's training row ([1, 8192, 32, 8, 128]). K3a and
+    K3b launch once a case."""
     from tpusystem_torch.ops.cuda import flash
 
     device = torch.device('cuda')
     cases = {'train': (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEADS, HEAD_DIM),
-             'd128': (1, 2048, 32, 8, 128)}
+             'd128': (1, LLAMA_TRAIN_SEQ, 32, 8, 128)}
     flash.flash_bwd_dq.launches = flash.flash_bwd_dkv.launches = 0
     results = {}
     for case, (batch, seq, heads, kv_heads, head_dim) in cases.items():
@@ -2442,7 +2458,6 @@ def main() -> None:
         fail('no CUDA device')
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
     try:
-        from tpusystem_torch.ops.cuda import flash
         from tpusystem_torch.ops.cuda._build import LIBRARIES
     except ImportError as error:
         fail(f'the tpusystem_torch package is not beside this script '
@@ -2465,8 +2480,7 @@ def main() -> None:
     bwd_ptxas = ptxas_report(LIBRARIES.compiler_output.get('flash_bwd', ''))
     print('bwd-ptxas ' + json.dumps(bwd_ptxas or 'not available: the library '
                                     'was built by an earlier process'))
-    check_spills('bwd-ptxas', bwd_ptxas, [f'flash_bwd_fused_kernel<{d}>'
-                                          for d in flash.HEAD_DIMS])
+    check_spills('bwd-ptxas', bwd_ptxas, BWD_INSTANCES)
     checks += (k1_128_rows + check_train_forward(torch, generator)
                + check_backward(torch, generator, HEAD_DIM,
                                 BWD_CASES[HEAD_DIM]))
@@ -2584,18 +2598,19 @@ def main() -> None:
                 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                 'bound_share', 'tflops')}
                 for _, entry in k1_128_rows])
-    # K2a and K2b: one TMA-fed wgmma kernel, its registers, its
-    # bound share and, for K2b at Llama-3 8B's training shape, the share of
-    # its cycles spent waiting for dq tickets
-    for name in FUSED_KERNELS:
+    # the backward kernels (K2a and K2b one TMA-fed wgmma kernel, K3b its
+    # body without dq, K3a a dq sweep): registers, bound share and, for
+    # K2a and K2b, the share of their cycles spent waiting for dq tickets
+    for name in BWD_INSTANCE:
         entry = kernels[[k['name'] for k in kernels].index(name)]
         headline = measured[table[name][2]]
         entry.update(design='wgmma+tma', bound_share=headline['bound_share'],
                      tflops=headline['tflops'],
-                     ticket_waits=headline['ticket_waits'],
                      ptxas={f'<{d}>': bwd_ptxas.get(
-                         f'flash_bwd_fused_kernel<{d}>') for d in (16, 32, 64,
-                                                                   128)})
+                         BWD_INSTANCE[name].format(d)) for d in (16, 32, 64,
+                                                                 128)})
+        if name in FUSED_KERNELS:
+            entry['ticket_waits'] = headline['ticket_waits']
     # K6 and K7: one TMA-fed wgmma kernel, its registers, both shapes of
     # each (forward, backward) and K7's time split into its parts
     for name in ('gather_rows_matmul', 'matmul_scatter_rows'):
@@ -2617,24 +2632,21 @@ def main() -> None:
     # (Llama training for K2a and K2b, phase 12's head-dim-128 case for
     # K3a/K3b), registers and phase 3's shapes at 128
     d128 = split['cases']['d128']['launches']
-    for name, launches, instances in (
+    for name, launches in (
             ('flash_bwd_fused_g1',
-             llama_trained['launches']['flash_bwd_fused_g1'],
-             ('flash_bwd_fused_kernel<128>',)),
-            ('flash_bwd_fused', llama_trained['launches']['flash_bwd_fused'],
-             ('flash_bwd_fused_kernel<128>',)),
-            ('flash_bwd_dq', d128['flash_bwd_dq'],
-             ('flash_bwd_dq_kernel<128>',)),
-            ('flash_bwd_dkv', d128['flash_bwd_dkv'],
-             ('flash_bwd_dkv_kernel<128>',))):
+             llama_trained['launches']['flash_bwd_fused_g1']),
+            ('flash_bwd_fused', llama_trained['launches']['flash_bwd_fused']),
+            ('flash_bwd_dq', d128['flash_bwd_dq']),
+            ('flash_bwd_dkv', d128['flash_bwd_dkv'])):
+        instance = BWD_INSTANCE[name].format(128)
         kernels[[k['name'] for k in kernels].index(name)]['head_dim_128'] = (
             dict(launches=launches,
-                 ptxas={instance: bwd_ptxas.get(instance)
-                        for instance in instances},
+                 ptxas={instance: bwd_ptxas.get(instance)},
                  shapes=[{key: entry.get(key) for key in (
                      'shape', 'causal', 'max_abs_err', 'ms', 'plain_ms',
                      'library_ms', 'bound_ms', 'bound_by', 'bound_share',
-                     'tflops', 'ticket_waits', 'k2a_equals_k2b')}
+                     'tflops', 'ticket_waits', 'k2a_equals_k2b',
+                     'k3b_equals_k2b')}
                      for label, entry in bwd_128_rows
                      if label.startswith(name + '_d128[')]))
     if args.out is not None:

@@ -141,3 +141,49 @@ def test_grouped_spill_check_fails_on_a_missing_or_spilling_instance(
         del report[f'{GROUPED}<{_flag(gather)}, {_flag(trans_b)}>']
     with pytest.raises(SystemExit):
         chip_smoke.check_spills('grouped-ptxas', report, instances)
+
+
+def _bwd_output(suffix, spilling=()):
+    # the backward library's kernels in the anonymous namespace of
+    # flash_bwd.cu: flash_bwd_fused_kernel<int D, bool WITH_DQ> (K2a/K2b
+    # with dq, K3b without) and flash_bwd_dq_kernel<int D> (K3a)
+    namespace = f'_GLOBAL__N__f0fb9384_12_flash_bwd_cu_{suffix}'
+    fused, dq = 'flash_bwd_fused_kernel', 'flash_bwd_dq_kernel'
+    mangled = [(f'{fused}<{d}, {_flag(w)}>',
+                f'{len(fused)}{fused}ILi{d}ELb{w}EEEv14CUtensorMap_')
+               for d in (16, 32, 64, 128) for w in (0, 1)]
+    mangled += [(f'{dq}<{d}>', f'{len(dq)}{dq}ILi{d}EEEv14CUtensorMap_')
+                for d in (16, 32, 64, 128)]
+    return ''.join(_report(f'_ZN{len(namespace)}{namespace}{tail}',
+                           spills=8 * (name in spilling))
+                   for name, tail in mangled)
+
+
+@pytest.mark.parametrize('broken', ['spilling', 'missing'])
+@pytest.mark.parametrize('kernel', ['flash_bwd_dq', 'flash_bwd_dkv'])
+@pytest.mark.parametrize('head_dim', [16, 32, 64, 128])
+def test_bwd_spill_check_covers_the_split_pair_at_every_head_dim(
+        broken, kernel, head_dim):
+    """``bwd-ptxas`` covers K3a (``flash_bwd_dq_kernel<D>``) and K3b (the
+    fused kernel's body without dq, ``flash_bwd_fused_kernel<D, false>``)
+    beside K2a/K2b (``<D, true>``) at every head dim: the names read back
+    from ptxas' report, and a missing or spilling instance fails."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.BWD_INSTANCES == tuple(sorted(
+        [f'flash_bwd_fused_kernel<{d}, {w}>' for d in (16, 32, 64, 128)
+         for w in ('true', 'false')]
+        + [f'flash_bwd_dq_kernel<{d}>' for d in (16, 32, 64, 128)]))
+    assert chip_smoke.template_arguments(f'ILi{head_dim}ELb0EEEv') == [
+        str(head_dim), 'false']
+    instance = chip_smoke.BWD_INSTANCE[kernel].format(head_dim)
+    assert instance in chip_smoke.BWD_INSTANCES
+    report = chip_smoke.ptxas_report(_bwd_output('629f6fbe'))
+    assert sorted(report) == list(chip_smoke.BWD_INSTANCES)
+    chip_smoke.check_spills('bwd-ptxas', report, chip_smoke.BWD_INSTANCES)
+    if broken == 'spilling':
+        report = chip_smoke.ptxas_report(
+            _bwd_output('11af923d', spilling=(instance,)))
+    else:
+        del report[instance]
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('bwd-ptxas', report, chip_smoke.BWD_INSTANCES)

@@ -468,6 +468,16 @@ BWD_EDGES = tuple(
     ((2, seq, 8, 8 // group, index % 2 == 0), head_dim)
     for head_dim in (16, 32, 64, 128)
     for index, (seq, group) in enumerate(zip(EDGE_SEQS, (2, 1, 4, 8, 2, 4))))
+# The split pair's tile edges at every head dim: one row (1), either side
+# of K3b's 64-row q tile (63, 65) and of K3a's 128-row tiles (127, 129), a
+# long ragged length (1000); GQA groups 1, 3 and 4 and causal or not in
+# turn, an lse cotangent in every case.
+SPLIT_EDGE_SEQS = (1, 63, 65, 127, 129, 1000)
+SPLIT_EDGES = tuple(
+    ((2, seq, 12, 12 // group, index % 2 == 1), head_dim)
+    for head_dim in (16, 32, 64, 128)
+    for index, (seq, group) in enumerate(zip(SPLIT_EDGE_SEQS,
+                                             (1, 3, 4, 1, 3, 4))))
 
 
 @pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,head_dim',
@@ -484,13 +494,14 @@ BWD_EDGES = tuple(
                              (1, 1000, 8, 2, True),      # ragged, GQA
                              (1, 300, 4, 4, False),      # non-causal, ragged
                              (2, 130, 8, 1, False),      # non-causal, GQA 8
-                         ], BWD_EDGES))
+                         ], BWD_EDGES + SPLIT_EDGES))
 @pytest.mark.parametrize('backward', ['fused', 'split'])
 def test_flash_backward_matches_plain(device, batch, seq, heads, kv_heads,
                                       causal, head_dim, backward):
     """The fused kernel K2b, or K3a + K3b split, against the plain backward,
-    one launch each; at GPT-2's and Llama's shapes and at the fused
-    kernel's tile edges (``BWD_EDGES``: every head dim, GQA groups 1-8)."""
+    one launch each; at GPT-2's and Llama's shapes and at the kernels' tile
+    edges (``BWD_EDGES``, ``SPLIT_EDGES``: every head dim, GQA groups
+    1-8)."""
     q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
                                         seq + heads, head_dim=head_dim)
     out, lse = flash.flash_attention_plain(q, k, v, causal=causal)
@@ -559,6 +570,34 @@ def test_k2a_equals_k2b_bitwise_and_matches_plain(device, batch, seq, heads,
     _close_grads(got, want)
 
 
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,causal,dropout,head_dim', [
+    (2, 129, 8, 8, True, 0.0, 16),
+    (2, 65, 12, 4, False, 0.0, 32),
+    (1, 1000, 12, 3, True, 0.1, 64),
+    (2, 640, 8, 4, True, 0.0, 64),
+    (1, 2048, 32, 8, True, 0.0, 128),        # Llama-3 8B's heads
+    (2, 127, 12, 12, False, 0.1, 128),
+])
+def test_k3b_equals_k2b_dk_dv_bitwise(device, batch, seq, heads, kv_heads,
+                                      causal, dropout, head_dim):
+    """K3b is the fused kernel's body without dq: its dk and dv equal K2b's
+    bit for bit, with or without dropout, under MHA and GQA."""
+    q, k, v, d_out, d_lse = _bwd_inputs(device, batch, seq, heads, kv_heads,
+                                        seq + 3, head_dim=head_dim)
+    options = dict(causal=causal, dropout=dropout,
+                   seed=31_337 if dropout else None)
+    out, lse = flash.flash_attention_lse(q, k, v, **options)
+    delta = flash.attention_delta(out, d_out, d_lse).contiguous()
+    args = (q, k, v, d_out, lse, delta)
+    before = flash.flash_bwd_dkv.launches
+    got = flash.flash_bwd_dkv(*args, **options)
+    k2b = flash.flash_bwd_fused(*args, **options)
+    torch.cuda.synchronize()
+    assert flash.flash_bwd_dkv.launches - before == 1
+    for a, b in zip(got, k2b[1:]):
+        assert torch.equal(a, b)
+
+
 def test_fused_mha_past_1024_keys_launches_k2a(device):
     q, k, v, d_out, d_lse = _bwd_inputs(device, 1, 1030, 4, 4, 11)
     out, lse = flash.flash_attention_lse(q, k, v)
@@ -579,6 +618,12 @@ def test_fused_mha_past_1024_keys_launches_k2a(device):
     (1, 1100, 4, 4, True, 'fused', 64),       # K2a
     (1, 300, 4, 4, False, 'split', 64),       # K3a + K3b
     (2, 256, 4, 2, True, 'split', 64),
+    # the split pair's tile edges at p = 0.1, every head dim
+    (2, 63, 12, 4, True, 'split', 16),
+    (2, 129, 12, 4, False, 'split', 32),
+    (1, 65, 12, 12, True, 'split', 64),
+    (2, 127, 12, 3, False, 'split', 128),
+    (1, 1000, 12, 4, True, 'split', 128),
     # the fused kernel's tile edges at p = 0.1, every head dim
     (2, 127, 8, 2, True, 'fused', 16),
     (2, 129, 8, 1, False, 'fused', 32),

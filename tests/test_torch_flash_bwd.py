@@ -186,16 +186,53 @@ def test_backward_refuses_tensors_the_card_cannot_take():
         tflash.flash_attention_bwd(x, x, x, x, lse, x)
 
 
-@pytest.mark.parametrize('seq', [1, 64, 100, 129])
-def test_fused_kernel_reads_row_statistics_by_head(seq):
-    """The fused kernel reads lse and delta laid out ``[B, H, S_pad]`` (S
-    rounded up to a 64-row q tile), so a q tile's 64 values are one bulk
-    copy: the layout holds every ``[B, S, H]`` value at (b, h, s) and zeros
-    past S."""
+class _RecordingLibrary:
+    """A stand-in for the backward kernels' library (they run only on the
+    card): the layout helpers as the library computes them, and every
+    kernel entry point recording its arguments and returning success."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def flash_bwd_padded_rows(seq):
+        return -(-seq // 64) * 64
+
+    @staticmethod
+    def flash_bwd_tickets(batch, seq, heads):
+        return 1 + batch * heads * -(-seq // 64)
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize('wrapper,seq', [
+    pytest.param(wrapper, seq, id=str(seq) if wrapper == 'flash_bwd_fused'
+                 else f'{wrapper}-{seq}')
+    for wrapper in ('flash_bwd_fused', 'flash_bwd_fused_g1', 'flash_bwd_dkv')
+    for seq in (1, 64, 100, 129)])
+def test_fused_kernel_reads_row_statistics_by_head(monkeypatch, wrapper, seq):
+    """The fused kernel (K2a, K2b) and K3b, its body without dq, read lse
+    (times log2 e, their exp2's argument) and delta laid out
+    ``[B, H, S_pad]`` (S rounded up to a 64-row q tile), so a q tile's 64
+    values are one bulk copy: each wrapper hands its kernel every
+    ``[B, S, H]`` value at (b, h, s) and zeros past S (the library stubbed;
+    the kernels run only on the card)."""
+    library = _RecordingLibrary()
+    monkeypatch.setattr(tflash, '_bwd_library', lambda: library)
+    monkeypatch.setattr(tflash, '_pointer', lambda tensor: tensor)
+    monkeypatch.setattr(tflash, '_stream', lambda device: None)
+    kernel = getattr(tflash, wrapper)
+    monkeypatch.setattr(kernel, 'launches', 0)
     rows = -(-seq // 64) * 64
-    stats = torch.from_numpy(np.random.default_rng(seq).standard_normal(
-        (2, seq, 3)).astype(np.float32))
-    laid = tflash._by_head(stats, rows)
-    assert laid.shape == (2, 3, rows) and laid.is_contiguous()
-    assert torch.equal(laid[:, :, :seq], stats.transpose(1, 2))
-    assert not laid[:, :, seq:].any()
+    rng = np.random.default_rng(seq)
+    lse, delta = (torch.from_numpy(rng.standard_normal((2, seq, 3)).astype(
+        np.float32)) for _ in range(2))
+    x = torch.zeros(2, seq, 3, 16, dtype=torch.bfloat16)
+    kernel(x, x, x, x, lse, delta)
+    assert kernel.launches == 1 and len(library.calls) == 1
+    laid = library.calls[0][1][4:6]
+    for got, stats in zip(laid, (lse * tflash.LOG2E, delta)):
+        assert got.shape == (2, 3, rows) and got.is_contiguous()
+        assert torch.equal(got[:, :, :seq], stats.transpose(1, 2))
+        assert not got[:, :, seq:].any()

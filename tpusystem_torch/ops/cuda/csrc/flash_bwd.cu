@@ -18,12 +18,13 @@
 // keep * dP / (1 - p) in place of dP (flash.py:270-277).
 //
 // What bounds it on an H100: 5 products of 2 * D flops a visible (query,
-// key) pair for the fused backward. At Llama-3 8B's [1, 8192, 32 q / 8 kv
-// heads, 128] the 1.07e9 causal pairs make 1.37e12 flops, 1.39 ms at the
-// bf16 tensor-core peak, against ~0.2 GB of q, k, v, dO, dq, dk, dv, lse
-// and delta (0.06 ms); at GPT-2's [16, 1024, 12, 64] ~65 us of products,
-// ~53 us of bytes. The tensor cores bound it, so the fused kernels (K2a and
-// K2b, one body) run their products on wgmma fed by TMA:
+// key) pair for the fused backward (K3a 3, K3b 4). At Llama-3 8B's
+// [1, 8192, 32 q / 8 kv heads, 128] the 1.07e9 causal pairs make 1.37e12
+// flops, 1.39 ms at the bf16 tensor-core peak, against ~0.2 GB of q, k, v,
+// dO, dq, dk, dv, lse and delta (0.06 ms); at GPT-2's [16, 1024, 12, 64]
+// ~65 us of products, ~53 us of bytes. The tensor cores bound it, so every
+// kernel here runs its products on wgmma fed by TMA. The fused kernels (K2a
+// and K2b, one body):
 //
 //   * Geometry. One block per work item (128-row kv tile, b * Hkv + hk),
 //     two consumer warpgroups (256 threads) of 64 kv rows each, whose dK and
@@ -95,25 +96,46 @@
 //     there is no deadlock in any launch order; a wait past ~17 s of cycles
 //     traps instead of hanging the card.
 //   * No float atomics: two calls give bitwise the same dq, dk and dv.
-//   * Registers (ptxas): 255 / 181 / 140 / 124 at D = 128 / 64 / 32 / 16,
-//     no spills. At D = 128 dK and dV take 2 x 64 floats a thread for the
-//     whole sweep, a half's S^T and dP^T 16 each until packed, the 32 P^T
+//   * Registers (ptxas, nvcc 12.9): 255 / 182 / 140 / 124 at D = 128 / 64 / 32
+//     / 16, no spills. At D = 128 dK and dV take 2 x 64 floats a thread for
+//     the whole sweep, a half's S^T and dP^T 16 each until packed, the 32 P^T
 //     and dS^T fragments live until the products retire, then dQ's 32; the
 //     loop derives its shared addresses from an opaque copy of the base so
-//     that no wgmma descriptor is hoisted out of it, and reads dq_acc
-//     after the products. Shared memory at D = 128: k and v 64 KB, the dS^T
-//     tile 16 KB, two stages of q and dO 64 KB, lse and delta 1 KB: one
-//     block an SM. bwd_phases.py (repository root) builds a copy with
-//     FLASH_BWD_PHASES and reports where a pair's cycles go.
+//     that no wgmma descriptor is hoisted out of it, and reads dq_acc after
+//     the products. Shared memory at D = 128: k and v 64 KB, the dS^T tile 16
+//     KB, two stages of q and dO 64 KB, lse and delta 1 KB: one block an SM.
+//     bwd_phases.py (repository root) builds a copy with FLASH_BWD_PHASES and
+//     reports where a pair's cycles go.
 //
-// K3a and K3b (the split pair, two launches on the main paths) still do
-// their products with scalar float32 FMAs out of shared memory through
-// tile_terms_scalar (64 x 64 tiles, 256 threads, thread (ty, tx) owning
-// rows ty + 16 i and columns tx + 16 j of every tile product): K3b a block
-// per (kv tile, b * Hkv + hk) sweeping (group member, q tile) pairs with
-// dk and dv in registers, K3a a block per (q tile, b * Hq + h) sweeping
-// the visible kv tiles with dq in registers. The fused and the split
-// kernels share no tile routine, so their roundings may differ by a step.
+// K3b and K3a, the split pair (two launches; the reference's A/B route):
+//
+//   * K3b (dk, dv) is the fused kernel's body without dQ:
+//     flash_bwd_fused_kernel<D, false>. The same sweep, S^T / dP^T on wgmma,
+//     P^T / dS^T by half_terms and dV += P^T dO, dK += dS^T Q from registers;
+//     no dS^T tile, no dQ product, no dq_acc and no tickets (a block's item
+//     is its blockIdx, numbered as the fused kernel numbers its items). Its
+//     dk and dv are the fused kernel's bit for bit on the same inputs. The
+//     wrapper lays lse (times log2(e)) and delta out [B, Hq, S_pad] as for
+//     the fused kernel.
+//   * K3a (dq) is K1's geometry: flash_bwd_dq_kernel<D>, one block per
+//     (128-row q tile, b * Hq + h), the longest causal rows first, two
+//     warpgroups of 64 query rows. The q and dO tiles are loaded once (TMA,
+//     boxes of 128 rows by min(D, 64) columns), each thread reads its two
+//     rows' lse and delta ([B, S, Hq]) once, and the 128-row k and v tiles
+//     go through a two-stage ring under "full" / "empty" mbarriers, as in
+//     K1; query head h reads kv head h / group through the maps' head
+//     coordinate. Each kv tile is taken in two halves of 64 kv columns (so
+//     that S, dP and dQ fit in registers at D = 128): S = Q K^T and
+//     dP = dO V^T on wgmma.m64n64k16 (both operands K-major), then on the
+//     accumulator P = exp2(s * scale * log2(e) - lse * log2(e)) and
+//     dS = P (dP' - delta) scale (dP' = keep dP / (1 - p) under dropout),
+//     the causal mask and the ragged ends on the edge tiles only (dq_terms),
+//     dS packed to bf16 A fragments, and dQ += dS K with B the k tile
+//     MN-major through the transpose bit, one instruction per column block
+//     (K1's P V). dq stays in registers over the sweep, in kv order, and is
+//     rounded to bf16 once: no partials, no float atomics.
+//   * Registers (ptxas, nvcc 12.9), no spills: K3a 190 / 150 / 126 / 114,
+//     K3b 224 / 158 / 124 / 101 at D = 128 / 64 / 32 / 16.
 //
 // Plain C interface (bound with ctypes); launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -129,298 +151,14 @@
 
 namespace {
 
-constexpr int TILE = 64;               // query rows and kv rows per tile
-constexpr int THREADS = 256;
-constexpr int TX = 16;                 // threads along a product's columns
-constexpr int TY = THREADS / TX;       // threads along its rows
-constexpr int RPT = TILE / TY;         // tile rows per thread
-constexpr int CPT = TILE / TX;         // score columns per thread
-constexpr int SP = TILE + 2;           // padded row of the P and dS tiles
-
 typedef __nv_bfloat16 bf16;
 
-template <int D>
-struct Layout {
-  static constexpr int P = D + 2;      // padded row of a q, k, v or dO tile
-  static constexpr int DPT = D / TX;   // output dims per thread
-  static constexpr size_t bytes =
-      (4 * TILE * P + 2 * TILE * SP) * sizeof(bf16) + 2 * TILE * sizeof(float);
-};
-
-struct Tiles {
-  bf16 *q, *k, *v, *dout, *p, *ds;
-  float *lse, *delta;
-};
-
-template <int D>
-__device__ Tiles carve(unsigned char* smem) {
-  constexpr int P = Layout<D>::P;
-  Tiles t;
-  t.q = reinterpret_cast<bf16*>(smem);
-  t.k = t.q + TILE * P;
-  t.v = t.k + TILE * P;
-  t.dout = t.v + TILE * P;
-  t.p = t.dout + TILE * P;
-  t.ds = t.p + TILE * SP;
-  t.lse = reinterpret_cast<float*>(t.ds + TILE * SP);
-  t.delta = t.lse + TILE;
-  return t;
-}
-
-// rows row0 .. row0 + 63 of head h of batch b of a [B, S, H, D] tensor into
-// a padded shared tile; zeros past the sequence end
-template <int D>
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int row0, int S,
-                          int H, int h, int b) {
-  constexpr int P = Layout<D>::P;
-  constexpr int CHUNKS = D / 8;        // 16-byte chunks per row
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = i % CHUNKS;
-    const int row = row0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      raw = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<size_t>(b) * S + row) * H + h) * D + c * 8);
-    uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * P + c * 8);
-    out[0] = raw.x;
-    out[1] = raw.y;
-    out[2] = raw.z;
-    out[3] = raw.w;
-  }
-}
-
-// one row statistic (lse or delta, [B, S, H] float32) per tile row
-__device__ void load_stats(float* dst, const float* __restrict__ src, int row0, int S,
-                           int H, int h, int b) {
-  for (int r = threadIdx.x; r < TILE; r += THREADS) {
-    const int row = row0 + r;
-    dst[r] = row < S ? src[(static_cast<size_t>(b) * S + row) * H + h] : 0.0f;
-  }
-}
-
-// _bwd_block_terms for K3a and K3b: the kept P and dS of the (q0.., k0..)
-// tile pair of query head row head_row into shared memory, both rounded to
-// bf16, by scalar float32 FMAs. Callers synchronise before and after.
-template <int D>
-__device__ void tile_terms_scalar(const Tiles& t, int q0, int k0, int S, float scale, int causal,
-                           const Dropout& drop, int head_row) {
-  constexpr int P = Layout<D>::P;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.0f;
-
-#pragma unroll 4
-  for (int d = 0; d < D; d += 2) {
-    float2 qv[RPT], ov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = (ty + TY * i) * P + d;
-      qv[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.q + r));
-      ov[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.dout + r));
-    }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = (tx + TX * j) * P + d;
-      kv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.k + c));
-      vv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.v + c));
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-        dp[i][j] = fmaf(ov[i].x, vv[j].x, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].y, vv[j].y, dp[i][j]);
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = ty + TY * i;
-    const int qrow = q0 + row;
-    const float lse = t.lse[row];
-    const float delta = t.delta[row];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = tx + TX * j;
-      const int kcol = k0 + col;
-      const bool visible = qrow < S && kcol < S && (!causal || kcol <= qrow);
-      // masked scores are -1e30 in the reference: exp(-1e30 - lse) == 0
-      const float p = visible ? expf(s[i][j] * scale - lse) : 0.0f;
-      float kept = p, d_kept = dp[i][j];
-      if (drop.on) {
-        const float keep = keep_element(qrow, kcol, head_row, drop) ? 1.0f : 0.0f;
-        kept = p * keep / drop.keep;
-        d_kept = keep * d_kept / drop.keep;
-      }
-      const float ds = p * (d_kept - delta) * scale;
-      t.p[row * SP + col] = __float2bfloat16(kept);
-      t.ds[row * SP + col] = __float2bfloat16(ds);
-    }
-  }
-}
-
-// acc[r][d] += sum over the tile's query rows x of a[x][r] * m[x][d]
-// (dV += P^T dO with a = P, dK += dS^T Q with a = dS)
-template <int D>
-__device__ void accumulate_transposed(float (&acc)[RPT][Layout<D>::DPT], const bf16* a,
-                                      const bf16* m) {
-  constexpr int P = Layout<D>::P;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-#pragma unroll 4
-  for (int x = 0; x < TILE; ++x) {
-    float av[RPT], mv[Layout<D>::DPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = __bfloat162float(a[x * SP + ty + TY * i]);
-#pragma unroll
-    for (int j = 0; j < Layout<D>::DPT; ++j) mv[j] = __bfloat162float(m[x * P + tx + TX * j]);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < Layout<D>::DPT; ++j) acc[i][j] = fmaf(av[i], mv[j], acc[i][j]);
-  }
-}
-
-// acc[r][d] += sum over the tile's kv rows c of a[r][c] * m[c][d]
-// (dQ += dS K)
-template <int D>
-__device__ void accumulate(float (&acc)[RPT][Layout<D>::DPT], const bf16* a, const bf16* m) {
-  constexpr int P = Layout<D>::P;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-#pragma unroll 4
-  for (int c = 0; c < TILE; ++c) {
-    float av[RPT], mv[Layout<D>::DPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = __bfloat162float(a[(ty + TY * i) * SP + c]);
-#pragma unroll
-    for (int j = 0; j < Layout<D>::DPT; ++j) mv[j] = __bfloat162float(m[c * P + tx + TX * j]);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < Layout<D>::DPT; ++j) acc[i][j] = fmaf(av[i], mv[j], acc[i][j]);
-  }
-}
-
-// rows row0 + ty + 16 i (below S) of head h of batch b, rounded to bf16
-template <int D>
-__device__ void store_rows(bf16* __restrict__ dst, const float (&acc)[RPT][Layout<D>::DPT],
-                           int row0, int S, int H, int h, int b) {
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = row0 + ty + TY * i;
-    if (row >= S) continue;
-    bf16* out = dst + ((static_cast<size_t>(b) * S + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < Layout<D>::DPT; ++j) out[tx + TX * j] = __float2bfloat16(acc[i][j]);
-  }
-}
-
-// K3b: one block per (kv tile, batch * kv head), sweeping (group member,
-// q tile) pairs
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                     float scale, int causal, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles t = carve<D>(smem);
-  constexpr int DPT = Layout<D>::DPT;
-  const int kt = blockIdx.x;
-  const int b = blockIdx.y / Hkv;
-  const int hk = blockIdx.y % Hkv;
-  const int group = Hq / Hkv;
-  const int tiles = (S + TILE - 1) / TILE;
-  const int k0 = kt * TILE;
-  load_tile<D>(t.k, k, k0, S, Hkv, hk, b);
-  load_tile<D>(t.v, v, k0, S, Hkv, hk, b);
-
-  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
-
-  const int first = causal ? kt : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int qt = first; qt < tiles; ++qt) {
-      const int q0 = qt * TILE;
-      __syncthreads();                   // the last pair's readers are done
-      load_tile<D>(t.q, q, q0, S, Hq, h, b);
-      load_tile<D>(t.dout, dout, q0, S, Hq, h, b);
-      load_stats(t.lse, lse, q0, S, Hq, h, b);
-      load_stats(t.delta, delta, q0, S, Hq, h, b);
-      __syncthreads();
-      tile_terms_scalar<D>(t, q0, k0, S, scale, causal, drop, b * Hq + h);
-      __syncthreads();
-      accumulate_transposed<D>(dv_acc, t.p, t.dout);
-      accumulate_transposed<D>(dk_acc, t.ds, t.q);
-    }
-  }
-  store_rows<D>(dk, dk_acc, k0, S, Hkv, hk, b);
-  store_rows<D>(dv, dv_acc, k0, S, Hkv, hk, b);
-}
-
-// K3a: one block per (q tile, batch * q head), sweeping the visible kv tiles
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale, int causal,
-                    Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles t = carve<D>(smem);
-  constexpr int DPT = Layout<D>::DPT;
-  const int qt = blockIdx.x;
-  const int b = blockIdx.y / Hq;
-  const int h = blockIdx.y % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int tiles = (S + TILE - 1) / TILE;
-  const int q0 = qt * TILE;
-  load_tile<D>(t.q, q, q0, S, Hq, h, b);
-  load_tile<D>(t.dout, dout, q0, S, Hq, h, b);
-  load_stats(t.lse, lse, q0, S, Hq, h, b);
-  load_stats(t.delta, delta, q0, S, Hq, h, b);
-
-  float dq_acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dq_acc[i][j] = 0.0f;
-
-  const int last = causal ? qt : tiles - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();                     // the last tile's readers are done
-    load_tile<D>(t.k, k, k0, S, Hkv, hk, b);
-    load_tile<D>(t.v, v, k0, S, Hkv, hk, b);
-    __syncthreads();
-    tile_terms_scalar<D>(t, q0, k0, S, scale, causal, drop, blockIdx.y);
-    __syncthreads();
-    accumulate<D>(dq_acc, t.ds, t.k);
-  }
-  store_rows<D>(dq, dq_acc, q0, S, Hq, h, b);
-}
-
-// ------------------------------------------------- the fused kernel (K2a, K2b)
+// ---------------------------------- the fused kernel (K2a, K2b) and K3b
 
 constexpr int KV_ROWS = 128;             // kv rows per work item, 64 a warpgroup
 constexpr int Q_ROWS = 64;               // query rows per (q tile, member) pair
 constexpr int FUSED_THREADS = 256;       // two consumer warpgroups
-constexpr int STAGES = 2;                // the q / dO / lse / delta ring
+constexpr int STAGES = 2;                // the q / dO / lse / delta ring (K3a: the k / v ring)
 constexpr int STATS_BYTES = 2 * Q_ROWS * 4;   // a pair's lse and delta
 constexpr float LOG2E = 1.4426950408889634f;
 // a ticket wait is one predecessor's pair at most (microseconds); ~17 s of
@@ -508,8 +246,9 @@ __device__ __forceinline__ void load_pair(const CUtensorMap* tq, const CUtensorM
 // in pairs they are the A fragments of dV and dK (k16 slice s: frag[4 s ..
 // 4 s + 3]); dS^T also goes to the shared tile for dQ, row ds_row + 8 r,
 // 16-byte chunk 4 half + j swizzled by the row's bits 0-2 as the 128-byte
-// TMA swizzle. EDGE applies the causal mask and the ragged end, DROP the
-// keep hash; without them the code has no branch.
+// TMA swizzle (WITH_DQ only: K3b forms no dQ). EDGE applies the causal
+// mask and the ragged end, DROP the keep hash; without them the code has no
+// branch.
 struct HalfTerms {
   const float* s_acc;
   const float* dp_acc;
@@ -530,7 +269,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <bool EDGE, bool DROP>
+template <bool EDGE, bool DROP, bool WITH_DQ>
 __device__ __forceinline__ void half_terms(const HalfTerms& t, int causal, const Dropout& drop) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -559,24 +298,27 @@ __device__ __forceinline__ void half_terms(const HalfTerms& t, int causal, const
       const int frag = 2 * (4 * t.half + j) + r;
       t.p_frag[frag] = hopper::pack_bf16(kept[0], kept[1]);
       t.ds_frag[frag] = hopper::pack_bf16(ds[0], ds[1]);
-      const int row = t.ds_row + 8 * r;
-      *reinterpret_cast<uint32_t*>(t.ds_tile + row * 128 +
-                                   ((((4 * t.half + j) ^ (row & 7)) << 4) | (4 * t.quad))) =
-          t.ds_frag[frag];
+      if constexpr (WITH_DQ) {
+        const int row = t.ds_row + 8 * r;
+        *reinterpret_cast<uint32_t*>(t.ds_tile + row * 128 +
+                                     ((((4 * t.half + j) ^ (row & 7)) << 4) | (4 * t.quad))) =
+            t.ds_frag[frag];
+      }
     }
   }
 }
 
-// K2a and K2b: one block per work item (128-row kv tile, batch * kv head),
-// taken from tickets[0]; tickets[1 + (b * Hq + h) * q_tiles + qt] is the
-// next kv tile whose dS K may enter dq_acc's q tile qt of head row b * Hq
-// + h. lse (times log2(e)) and delta are [B, Hq, s_pad]; dq_acc holds a
-// float32 tile of 64 x D for each (b * Hq + h, q tile), in the order of the
+// K2a and K2b (WITH_DQ), K3b (not): one block per work item (128-row kv tile,
+// batch * kv head), taken from tickets[0] (K3b: its blockIdx, in the same
+// order; dq, dq_acc and tickets unused); tickets[1 + (b * Hq + h) * q_tiles +
+// qt] is the next kv tile whose dS K may enter dq_acc's q tile qt of head row
+// b * Hq + h. lse (times log2(e)) and delta are [B, Hq, s_pad]; dq_acc holds
+// a float32 tile of 64 x D for each (b * Hq + h, q tile), in the order of the
 // dQ accumulator's fragments: float4 m of thread u of a warpgroup whose dQ
 // columns start at block w at ((w + m) * 128 + u) * 4, so that a warp's
 // float4 access is 512 contiguous bytes. With `clocks` (else NULL) thread 0
 // records its item's cycles and its ticket waits (CLOCKS a work item).
-template <int D>
+template <int D, bool WITH_DQ>
 __global__ void __launch_bounds__(FUSED_THREADS, 1)
 flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -623,7 +365,8 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     for (int n = 0; n < PHASES; ++n) phase[n] = 0;
     mark = started;
 #endif
-    claimed = atomicAdd(tickets, 1);
+    if constexpr (WITH_DQ) claimed = atomicAdd(tickets, 1);
+    else claimed = static_cast<int>(blockIdx.x);
     hopper::mbarrier_init(bar_kv, 1);
     for (int s = 0; s < STAGES; ++s) hopper::mbarrier_init(base + T::FULL_OFF + 8 * s, 1);
     hopper::fence_barrier_init();
@@ -735,29 +478,32 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
                                head_row};
       // the modes are uniform, so each instantiation is straight-line code
       if (drop.on) {
-        if (edge) half_terms<true, true>(terms, causal, drop);
-        else half_terms<false, true>(terms, causal, drop);
+        if (edge) half_terms<true, true, WITH_DQ>(terms, causal, drop);
+        else half_terms<false, true, WITH_DQ>(terms, causal, drop);
       } else {
-        if (edge) half_terms<true, false>(terms, causal, drop);
-        else half_terms<false, false>(terms, causal, drop);
+        if (edge) half_terms<true, false, WITH_DQ>(terms, causal, drop);
+        else half_terms<false, false, WITH_DQ>(terms, causal, drop);
       }
       PHASE(3)
     }
-    hopper::fence_proxy_async();
+    if constexpr (WITH_DQ) hopper::fence_proxy_async();
 
     // kv tile kt's turn on (head row, q tile qt): the tiles before it have
-    // added. Polled with no wgmma in flight.
+    // added. Polled with no wgmma in flight. (K3b from here on: dV and dK
+    // only, then the closing barrier.)
     int* ticket = tickets + 1 + static_cast<size_t>(head_row) * q_tiles + qt;
     const bool last = kt == (causal ? qt / 2 : kv_tiles - 1);
-    if (tid == 0 && kt > 0) {
-      const long long polled = clock64();
-      while (load_acquire(ticket) != kt) {
-        __nanosleep(32);
-        if (clock64() - polled > TICKET_TIMEOUT) __trap();   // fail, never hang the card
+    if constexpr (WITH_DQ) {
+      if (tid == 0 && kt > 0) {
+        const long long polled = clock64();
+        while (load_acquire(ticket) != kt) {
+          __nanosleep(32);
+          if (clock64() - polled > TICKET_TIMEOUT) __trap();   // fail, never hang the card
+        }
+        waited += clock64() - polled;
       }
-      waited += clock64() - polled;
+      __syncthreads();                      // dS^T is whole in shared memory; the ticket is ours
     }
-    __syncthreads();                        // dS^T is whole in shared memory; the ticket is ours
     PHASE(4)
 
     // this pair's dq_acc tile, read under the products below where the
@@ -773,7 +519,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
         sum[m] = first || !adds ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
                                 : __ldcg(acc_tile + (dq_block + m) * 128 + tid % 128);
     };
-    if (T::EARLY_READ) read_acc();
+    if constexpr (WITH_DQ && T::EARLY_READ) read_acc();
 
     // dV += P^T dO and dK += dS^T Q: B the dO / q tile MN-major, its rows
     // 16 s .. at 16 s ROW_BYTES in each column block. dQ[64 q x DQ_N] = dS K
@@ -785,7 +531,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < T::DQ_N / 2; ++j) dq_part[j] = 0.0f;
     hopper::fence_registers<D / 2>(dv_acc);
     hopper::fence_registers<D / 2>(dk_acc);
-    hopper::fence_registers<T::DQ_N / 2>(dq_part);
+    if constexpr (WITH_DQ) hopper::fence_registers<T::DQ_N / 2>(dq_part);
     hopper::wgmma_fence();
 #pragma unroll
     for (int c = 0; c < T::CHUNKS; ++c) {
@@ -800,13 +546,15 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
             hopper::smem_descriptor(q_s + bt, T::Q_CHUNK, 8 * T::ROW_BYTES, T::LAYOUT), 1);
       }
     }
+    if constexpr (WITH_DQ) {
 #pragma unroll
-    for (int s = 0; s < KV_ROWS / 16; ++s) {
-      hopper::wgmma_ss<T::DQ_N, 1, 1>(
-          dq_part, hopper::smem_descriptor(ds_s + 16 * s * 128, 128 * KV_ROWS, 1024, 1),
-          hopper::smem_descriptor(k_dq + 16 * s * T::ROW_BYTES, T::KV_CHUNK, 8 * T::ROW_BYTES,
-                                  T::LAYOUT),
-          s > 0);
+      for (int s = 0; s < KV_ROWS / 16; ++s) {
+        hopper::wgmma_ss<T::DQ_N, 1, 1>(
+            dq_part, hopper::smem_descriptor(ds_s + 16 * s * 128, 128 * KV_ROWS, 1024, 1),
+            hopper::smem_descriptor(k_dq + 16 * s * T::ROW_BYTES, T::KV_CHUNK,
+                                    8 * T::ROW_BYTES, T::LAYOUT),
+            s > 0);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -814,30 +562,32 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::fence_registers<D / 2>(dk_acc);
     hopper::fence_fragments<16>(p_frag);
     hopper::fence_fragments<16>(ds_frag);
-    hopper::fence_registers<T::DQ_N / 2>(dq_part);
-    if (!T::EARLY_READ) read_acc();
+    if constexpr (WITH_DQ) hopper::fence_registers<T::DQ_N / 2>(dq_part);
+    if constexpr (WITH_DQ && !T::EARLY_READ) read_acc();
     PHASE(5)
 
     // dq_acc (+)= dQ through L2, or dq = round(dq_acc + dQ) by the last
-    if (adds) {
+    if constexpr (WITH_DQ) {
+      if (adds) {
 #pragma unroll
-      for (int m = 0; m < T::DQ_N / 8; ++m) {
-        sum[m] = make_float4(sum[m].x + dq_part[4 * m], sum[m].y + dq_part[4 * m + 1],
-                             sum[m].z + dq_part[4 * m + 2], sum[m].w + dq_part[4 * m + 3]);
-        if (!last) __stcg(acc_tile + (dq_block + m) * 128 + tid % 128, sum[m]);
-      }
-      if (last) {
-        // element 4 m + 2 r + e is query row q0 + row_in + 8 r, column
-        // dq_col + 8 m + e
+        for (int m = 0; m < T::DQ_N / 8; ++m) {
+          sum[m] = make_float4(sum[m].x + dq_part[4 * m], sum[m].y + dq_part[4 * m + 1],
+                               sum[m].z + dq_part[4 * m + 2], sum[m].w + dq_part[4 * m + 3]);
+          if (!last) __stcg(acc_tile + (dq_block + m) * 128 + tid % 128, sum[m]);
+        }
+        if (last) {
+          // element 4 m + 2 r + e is query row q0 + row_in + 8 r, column
+          // dq_col + 8 m + e
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = q0 + row_in + 8 * r;
-          if (row >= S) continue;
-          bf16* const out = dq + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + dq_col;
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0 + row_in + 8 * r;
+            if (row >= S) continue;
+            bf16* const out = dq + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + dq_col;
 #pragma unroll
-          for (int m = 0; m < T::DQ_N / 8; ++m)
-            *reinterpret_cast<__nv_bfloat162*>(out + 8 * m) = __floats2bfloat162_rn(
-                r ? sum[m].z : sum[m].x, r ? sum[m].w : sum[m].y);
+            for (int m = 0; m < T::DQ_N / 8; ++m)
+              *reinterpret_cast<__nv_bfloat162*>(out + 8 * m) = __floats2bfloat162_rn(
+                  r ? sum[m].z : sum[m].x, r ? sum[m].w : sum[m].y);
+          }
         }
       }
     }
@@ -846,7 +596,9 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     // at gpu scope, after the block's barrier, publishes the block's adds
     // (as CUTLASS's semaphores do): no fence in every thread
     __syncthreads();
-    if (tid == 0 && !last) store_release(ticket, kt + 1);
+    if constexpr (WITH_DQ) {
+      if (tid == 0 && !last) store_release(ticket, kt + 1);
+    }
     PHASE(7)
   }
 
@@ -873,6 +625,261 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ----------------------------------------------------------------- K3a
+
+constexpr int DQ_ROWS = 128;             // query rows per block, 64 a warpgroup
+constexpr int DQ_KV_ROWS = 128;          // kv rows per ring tile, two halves of 64
+constexpr int DQ_THREADS = 256;          // two warpgroups
+
+// The shared memory of one K3a block, from a 1024-byte aligned base: the q
+// tile, the dO tile, per stage the k tile and the v tile, then the
+// mbarriers: q / dO's, one "full" a stage (the TMA's bytes landed), one
+// "empty" a stage (all eight warps are done reading it). A tile of D
+// columns is CHUNKS blocks of [rows x ROW_BYTES], as K1's.
+template <int D>
+struct DqTiles {
+  static constexpr int CHUNK = D < 64 ? D : 64;       // columns a TMA box holds
+  static constexpr int ROW_BYTES = CHUNK * 2;          // the swizzle width
+  static constexpr int CHUNKS = D / CHUNK;
+  static constexpr int LAYOUT = hopper::layout_for(ROW_BYTES);
+  static constexpr int K_STEPS = CHUNK / 16;           // k16 steps in one block
+  static constexpr uint32_t Q_CHUNK = DQ_ROWS * ROW_BYTES;
+  static constexpr uint32_t KV_CHUNK = DQ_KV_ROWS * ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = Q_CHUNK * CHUNKS;     // one of q, dO
+  static constexpr uint32_t KV_BYTES = KV_CHUNK * CHUNKS;   // one of k, v
+  static constexpr uint32_t DO_OFF = Q_BYTES;
+  static constexpr uint32_t KV_OFF = 2 * Q_BYTES;           // stage s at + 2 s KV_BYTES
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr uint32_t FULL_OFF = BAR_OFF + 8;          // stage s at + 8 s
+  static constexpr uint32_t EMPTY_OFF = FULL_OFF + 8 * STAGES;
+  static constexpr size_t BYTES = 1024 + EMPTY_OFF + 8 * STAGES;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(Q_CHUNK % 1024 == 0 && KV_CHUNK % 1024 == 0, "1024-byte aligned tiles");
+};
+
+// kv tile `tile`'s k and v (TMA) into stage `stage`
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                        uint32_t base, int stage, int tile, int hk, int b) {
+  using T = DqTiles<D>;
+  const uint32_t bar = base + T::FULL_OFF + 8 * stage;
+  const uint32_t k_s = base + T::KV_OFF + stage * 2 * T::KV_BYTES;
+  hopper::mbarrier_expect_tx(bar, 2 * T::KV_BYTES);
+#pragma unroll
+  for (int c = 0; c < T::CHUNKS; ++c) {
+    hopper::tma_load_4d(k_s + c * T::KV_CHUNK, tk, bar, c * T::CHUNK, hk, tile * DQ_KV_ROWS, b);
+    hopper::tma_load_4d(k_s + T::KV_BYTES + c * T::KV_CHUNK, tv, bar, c * T::CHUNK, hk,
+                        tile * DQ_KV_ROWS, b);
+  }
+}
+
+// One half (64 kv columns) of a kv tile's dS for K3a, from the S and dP
+// accumulators [64 q x 64 kv] of a warpgroup: element 4 j + 2 r + e is query
+// row rows[r] and kv column kcol + 8 j + e. Packed in pairs they are the A
+// fragments of dQ += dS K (k16 slice s: frag[4 s .. 4 s + 3]). EDGE applies
+// the causal mask and the ragged ends, DROP the keep hash.
+struct DqTerms {
+  const float* s_acc;
+  const float* dp_acc;
+  uint32_t* ds_frag;
+  float lse_log2[2], delta[2];             // the rows' lse * log2(e) and delta
+  int rows[2];
+  int kcol, S;
+  float scale, scale_log2;
+  uint32_t head_row;                       // dropout's row, b * Hq + h
+};
+
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void dq_terms(const DqTerms& t, int causal, const Dropout& drop) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int at = 4 * j + 2 * r + e;
+        const int kcol = t.kcol + 8 * j + e;
+        float p = exp2_ftz(fmaf(t.s_acc[at], t.scale_log2, -t.lse_log2[r]));
+        if (EDGE && !(t.rows[r] < t.S && kcol < t.S && (!causal || kcol <= t.rows[r])))
+          p = 0.0f;
+        float d_kept = t.dp_acc[at];
+        if (DROP) {
+          const float keep = keep_element(t.rows[r], kcol, t.head_row, drop) ? 1.0f : 0.0f;
+          d_kept = keep * d_kept / drop.keep;
+        }
+        ds[e] = p * (d_kept - t.delta[r]) * t.scale;
+      }
+      t.ds_frag[2 * j + r] = hopper::pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// K3a: one block per (128-row q tile, b * Hq + h); grid (B * Hq, q tiles),
+// the last q tile first. lse and delta [B, S, Hq].
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int Hq,
+                    int Hkv, float scale, int causal, Dropout drop) {
+  using T = DqTiles<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (hopper::smem_address(smem) + 1023) & ~1023u;
+  const uint32_t bar_q = base + T::BAR_OFF;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                 // warpgroup: query rows 64 wg ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane % 4;                // columns 2 quad, 2 quad + 1 of an n8 chunk
+  const int b = blockIdx.x / Hq;
+  const int h = blockIdx.x % Hq;
+  const uint32_t head_row = static_cast<uint32_t>(b) * Hq + h;   // dropout's row
+  const int hk = h / (Hq / Hkv);
+  const int tiles = gridDim.y;
+  const int qt = tiles - 1 - blockIdx.y;    // the longest causal rows first
+  const int last = causal ? qt : tiles - 1; // the last visible kv tile
+  const int q0 = qt * DQ_ROWS;
+  // this thread's two query rows (global positions)
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
+
+  if (tid == 0) {
+    hopper::mbarrier_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbarrier_init(base + T::FULL_OFF + 8 * s, 1);
+      hopper::mbarrier_init(base + T::EMPTY_OFF + 8 * s, DQ_THREADS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbarrier_expect_tx(bar_q, 2 * T::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      hopper::tma_load_4d(base + c * T::Q_CHUNK, &tq, bar_q, c * T::CHUNK, h, q0, b);
+      hopper::tma_load_4d(base + T::DO_OFF + c * T::Q_CHUNK, &tdo, bar_q, c * T::CHUNK, h, q0,
+                          b);
+    }
+    load_kv<D>(&tk, &tv, base, 0, 0, hk, b);
+  }
+
+  // this thread's rows' lse * log2(e) and delta, read once (0 past S)
+  float lse_log2[2], delta_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t at = (static_cast<size_t>(b) * S + row) * Hq + h;
+    lse_log2[r] = row < S ? lse[at] * LOG2E : 0.0f;
+    delta_row[r] = row < S ? delta[at] : 0.0f;
+  }
+
+  float dq_acc[D / 2];                      // D / 8 n8 chunks of 4
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+  hopper::mbarrier_wait(bar_q, 0);
+
+  for (int j = 0; j <= last; ++j) {
+    const int stage = j % STAGES;
+    if (tid == 0 && j < last) {
+      // tile j + 1 goes where tile j - 1 was: wait until every warp let it go
+      const int next = (j + 1) % STAGES;
+      if (j >= 1) hopper::mbarrier_wait(base + T::EMPTY_OFF + 8 * next, ((j - 1) / STAGES) & 1);
+      load_kv<D>(&tk, &tv, base, next, j + 1, hk, b);
+    }
+    hopper::mbarrier_wait(base + T::FULL_OFF + 8 * stage, (j / STAGES) & 1);
+    // this warpgroup's 64 rows of q and dO (block c, k16 step i at + c
+    // Q_CHUNK + 32 i) and the stage's k and v tiles. At D = 128 they derive
+    // from an opaque copy of the base, so that no wgmma descriptor is
+    // hoisted out of the loop (as in the fused kernel).
+    uint32_t tile_base = base;
+    if (D == 128) asm volatile("" : "+r"(tile_base));
+    const uint32_t q_wg = tile_base + 64 * wg * T::ROW_BYTES;
+    const uint32_t do_wg = tile_base + T::DO_OFF + 64 * wg * T::ROW_BYTES;
+    const uint32_t k_s = tile_base + T::KV_OFF + stage * 2 * T::KV_BYTES;
+    const uint32_t v_s = k_s + T::KV_BYTES;
+    const bool edge = (causal && j == qt) || (j + 1) * DQ_KV_ROWS > S || q0 + DQ_ROWS > S;
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // S = Q K^T and dP = dO V^T over kv rows 64 half .. of the tile
+      float s_acc[32], dp_acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s_acc[i] = dp_acc[i] = 0.0f;
+      hopper::fence_registers<32>(s_acc);
+      hopper::fence_registers<32>(dp_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < T::CHUNKS; ++c) {
+#pragma unroll
+        for (int step = 0; step < T::K_STEPS; ++step) {
+          const uint32_t at = c * T::Q_CHUNK + 32 * step;
+          const uint32_t bt = c * T::KV_CHUNK + 64 * half * T::ROW_BYTES + 32 * step;
+          hopper::wgmma_ss<64, 0, 0>(
+              s_acc, hopper::smem_descriptor(q_wg + at, 16, 8 * T::ROW_BYTES, T::LAYOUT),
+              hopper::smem_descriptor(k_s + bt, 16, 8 * T::ROW_BYTES, T::LAYOUT), c + step > 0);
+          hopper::wgmma_ss<64, 0, 0>(
+              dp_acc, hopper::smem_descriptor(do_wg + at, 16, 8 * T::ROW_BYTES, T::LAYOUT),
+              hopper::smem_descriptor(v_s + bt, 16, 8 * T::ROW_BYTES, T::LAYOUT), c + step > 0);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers<32>(s_acc);
+      hopper::fence_registers<32>(dp_acc);
+
+      uint32_t ds_frag[16];
+      const DqTerms terms = {s_acc, dp_acc, ds_frag, {lse_log2[0], lse_log2[1]},
+                             {delta_row[0], delta_row[1]}, {row0, row0 + 8},
+                             j * DQ_KV_ROWS + 64 * half + 2 * quad, S, scale, scale * LOG2E,
+                             head_row};
+      // the modes are uniform, so each instantiation is straight-line code
+      if (drop.on) {
+        if (edge) dq_terms<true, true>(terms, causal, drop);
+        else dq_terms<false, true>(terms, causal, drop);
+      } else {
+        if (edge) dq_terms<true, false>(terms, causal, drop);
+        else dq_terms<false, false>(terms, causal, drop);
+      }
+
+      // dQ += dS K: k16 slice i of dS is ds_frag[4 i ..], kv rows 64 half
+      // + 16 i .. of the k tile, MN-major, at (64 half + 16 i) ROW_BYTES in
+      // each column block
+      hopper::fence_registers<D / 2>(dq_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < T::CHUNKS; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint64_t bk = hopper::smem_descriptor(
+              k_s + c * T::KV_CHUNK + (64 * half + 16 * i) * T::ROW_BYTES, T::KV_CHUNK,
+              8 * T::ROW_BYTES, T::LAYOUT);
+          hopper::wgmma_rs<T::CHUNK>(dq_acc + c * T::CHUNK / 2, ds_frag + 4 * i, bk, 1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers<D / 2>(dq_acc);
+      hopper::fence_fragments<16>(ds_frag);
+    }
+    __syncwarp();                           // this warp is done with the stage
+    if (lane == 0) hopper::mbarrier_arrive(base + T::EMPTY_OFF + 8 * stage);
+  }
+
+  // dq rows row0, row0 + 8 (below S), rounded to bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    bf16* const out = dq + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + 2 * quad;
+#pragma unroll
+    for (int chunk = 0; chunk < D / 8; ++chunk)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * chunk) =
+          __floats2bfloat162_rn(dq_acc[4 * chunk + 2 * r], dq_acc[4 * chunk + 2 * r + 1]);
+  }
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -880,38 +887,29 @@ int prepare(Kernel kernel, size_t bytes) {
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int S, int Hq, int Hkv,
-               float scale, int causal, const Dropout& drop, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  const size_t bytes = Layout<D>::bytes;
-  if (const int err = prepare(kernel, bytes)) return err;
-  const dim3 grid((S + TILE - 1) / TILE, B * Hkv);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq,
-      Hkv, scale, causal, drop);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int S, int Hq, int Hkv, float scale,
               int causal, const Dropout& drop, cudaStream_t stream) {
+  using T = DqTiles<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (cudaError_t err = hopper::encode_bshd(&tq, q, B, S, Hq, D, DQ_ROWS, T::CHUNK))
+    return static_cast<int>(err);
+  if (cudaError_t err = hopper::encode_bshd(&tdo, dout, B, S, Hq, D, DQ_ROWS, T::CHUNK))
+    return static_cast<int>(err);
+  if (cudaError_t err = hopper::encode_bshd(&tk, k, B, S, Hkv, D, DQ_KV_ROWS, T::CHUNK))
+    return static_cast<int>(err);
+  if (cudaError_t err = hopper::encode_bshd(&tv, v, B, S, Hkv, D, DQ_KV_ROWS, T::CHUNK))
+    return static_cast<int>(err);
   auto kernel = flash_bwd_dq_kernel<D>;
-  const size_t bytes = Layout<D>::bytes;
-  if (const int err = prepare(kernel, bytes)) return err;
-  const dim3 grid((S + TILE - 1) / TILE, B * Hq);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, scale, causal,
-      drop);
+  if (const int err = prepare(kernel, T::BYTES)) return err;
+  const dim3 grid(B * Hq, (S + DQ_ROWS - 1) / DQ_ROWS);
+  kernel<<<grid, DQ_THREADS, T::BYTES, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), S, Hq, Hkv, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool WITH_DQ>
 int launch_fused(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, void* dk, void* dv, void* dq_acc,
                  void* tickets, void* clocks, int B, int S, int Hq, int Hkv, float scale,
@@ -926,7 +924,7 @@ int launch_fused(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(err);
   if (cudaError_t err = hopper::encode_bshd(&tv, v, B, S, Hkv, D, KV_ROWS, T::CHUNK))
     return static_cast<int>(err);
-  auto kernel = flash_bwd_fused_kernel<D>;
+  auto kernel = flash_bwd_fused_kernel<D, WITH_DQ>;
   if (const int err = prepare(kernel, T::BYTES)) return err;
   const unsigned items = static_cast<unsigned>((S + KV_ROWS - 1) / KV_ROWS) * B * Hkv;
   kernel<<<items, FUSED_THREADS, T::BYTES, stream>>>(
@@ -995,31 +993,40 @@ int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
   return by_head_dim(D, [&](auto dim) {
-    return launch_fused<decltype(dim)::value>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc,
-                                              tickets, clocks, B, S, Hq, Hkv, scale, causal,
-                                              drop, s);
+    return launch_fused<decltype(dim)::value, true>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                                    dq_acc, tickets, clocks, B, S, Hq, Hkv,
+                                                    scale, causal, drop, s);
   });
 }
 
-// K3b and K3a: lse and delta [B, S, Hq] float32.
+// K3b: dk and dv of the fused kernel, bit for bit, without dq. The
+// arguments as flash_bwd_fused_bf16's: lse * log2(e) and delta [B, Hq,
+// S_pad] float32.
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                        int Hq, int Hkv, int D, float scale, int causal, const Dropout* dropout,
                        void* stream) {
-  if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const tensors[6] = {q, k, v, dout, lse, delta};
+  if (!valid(B, S, Hq, Hkv) || !aligned(tensors, 6))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
   return by_head_dim(D, [&](auto dim) {
-    return launch_dkv<decltype(dim)::value>(q, k, v, dout, lse, delta, dk, dv, B, S, Hq, Hkv,
-                                            scale, causal, drop, s);
+    return launch_fused<decltype(dim)::value, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
+                                                     nullptr, nullptr, nullptr, B, S, Hq, Hkv,
+                                                     scale, causal, drop, s);
   });
 }
 
+// K3a: q, dout [B, S, Hq, D]; k, v [B, S, Hkv, D] bf16 (contiguous, 16-byte
+// aligned); lse and delta [B, S, Hq] float32; dq like q.
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int S, int Hq,
                       int Hkv, int D, float scale, int causal, const Dropout* dropout,
                       void* stream) {
-  if (!valid(B, S, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const tensors[4] = {q, k, v, dout};
+  if (!valid(B, S, Hq, Hkv) || !aligned(tensors, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = dropout_or_off(dropout);
   return by_head_dim(D, [&](auto dim) {

@@ -17,6 +17,10 @@ ticket per (head row, q tile), so they agree bit for bit. The reference
 also reroutes K2a to the split sweeps past a 96 MB working set
 (``flash.py:508-528``): that is the TPU's scoped-VMEM limit, and the kernel
 here keeps its dq sum in device memory, so there is no such reroute.
+The split pair is on the same machinery: K3b is the fused kernel's body
+without dq (its dk and dv are K2b's bit for bit), K3a a dq sweep shaped as
+K1 (a block per 128-row q tile, k and v through a TMA ring, dq in
+registers).
 
 Attention-probability dropout (``dropout > 0`` with an int ``seed``) runs
 in every kernel through the reference's positional hash (:func:`keep_mask`,
@@ -43,9 +47,8 @@ import torch
 from tpusystem_torch.ops.cuda._build import LIBRARIES
 
 NEG_INF = -1e30
-TILE = 64          # kv rows per online-softmax step of the plain versions and
-                   # of K3a/K3b (K1 and the fused backward step over 128-row
-                   # kv tiles)
+TILE = 64          # kv rows per online-softmax step of the plain versions
+                   # (the kernels step over 128-row kv tiles)
 HEAD_DIMS = (16, 32, 64, 128)     # K1's, K2a's, K2b's, K3a's and K3b's
 FUSED_MHA_KEYS = 1024   # past this, the fused MHA backward is K2a
 BACKWARDS = ('fused', 'split')
@@ -374,6 +377,13 @@ def _by_head(stats, rows: int):
     return out
 
 
+def _stats_by_head(lib, lse, delta):
+    """``(lse * log2(e), delta)`` laid out ``[B, Hq, S_pad]`` as the fused
+    kernel and K3b (its body) read them."""
+    rows = lib.flash_bwd_padded_rows(lse.shape[1])
+    return _by_head(lse * LOG2E, rows), _by_head(delta, rows)
+
+
 def _fused_call(query, key, value, d_out, lse, delta, causal, dropout, seed,
                 clocks=None):
     """One launch of the fused backward kernel (K2a and K2b are its one
@@ -391,9 +401,8 @@ def _fused_call(query, key, value, d_out, lse, delta, causal, dropout, seed,
     dq, dk, dv = (torch.empty_like(t) for t in (query, key, value))
     err = lib.flash_bwd_fused_bf16(
         *(_pointer(t) for t in (query, key, value, d_out,
-                                _by_head(lse * LOG2E, rows),
-                                _by_head(delta, rows), dq, dk, dv, dq_acc,
-                                tickets)),
+                                *_stats_by_head(lib, lse, delta), dq, dk, dv,
+                                dq_acc, tickets)),
         None if clocks is None else _pointer(clocks), batch, seq, q_heads,
         key.shape[2], head_dim, head_dim ** -0.5, int(causal),
         _dropout_arg(dropout, seed), _stream(query.device))
@@ -466,7 +475,9 @@ def fused_ticket_waits(query, key, value, d_out, lse, delta, *,
 def flash_bwd_dq(query, key, value, d_out, lse, delta, *,
                  causal: bool = True, dropout: float = 0.0,
                  seed: int | None = None):
-    """K3a on the card: dq, a sweep over the visible kv tiles per q tile."""
+    """K3a on the card: dq, a TMA-fed ``wgmma`` sweep over the visible kv
+    tiles of each 128-row q tile, dq in registers. Contiguous bf16
+    ``[B, S, H, D]`` tensors, float32 ``lse``/``delta`` ``[B, S, Hq]``."""
     batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
         'flash_bwd_dq', query, key)
     dq = torch.empty_like(query)
@@ -482,14 +493,17 @@ def flash_bwd_dq(query, key, value, d_out, lse, delta, *,
 def flash_bwd_dkv(query, key, value, d_out, lse, delta, *,
                   causal: bool = True, dropout: float = 0.0,
                   seed: int | None = None):
-    """K3b on the card: ``(dk, dv)``, a sweep over every (group member, q
-    tile) pair that sees each kv tile."""
+    """K3b on the card: ``(dk, dv)``, the fused kernel's sweep over every
+    (q tile, group member) pair that sees each kv tile, without dq: bit for
+    bit :func:`flash_bwd_fused`'s dk and dv. Arguments as
+    :func:`flash_bwd_fused`'s."""
     batch, seq, q_heads, kv_heads, head_dim = _kernel_args(
         'flash_bwd_dkv', query, key)
+    lib = _bwd_library()
     dk, dv = torch.empty_like(key), torch.empty_like(value)
-    err = _bwd_library().flash_bwd_dkv_bf16(
-        *(_pointer(t) for t in (query, key, value, d_out, lse, delta, dk,
-                                dv)),
+    err = lib.flash_bwd_dkv_bf16(
+        *(_pointer(t) for t in (query, key, value, d_out,
+                                *_stats_by_head(lib, lse, delta), dk, dv)),
         batch, seq, q_heads, kv_heads, head_dim, head_dim ** -0.5,
         int(causal), _dropout_arg(dropout, seed), _stream(query.device))
     _raise_on(err, 'flash_bwd_dkv')
