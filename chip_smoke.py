@@ -6,12 +6,19 @@
 Phases, in order; any failure exits non-zero:
 
 1. build the hand-written kernels from ``tpusystem_torch/ops/cuda/csrc``
-   (``nvcc`` for ``sm_90a``, one process per source, in parallel);
+   (``nvcc`` for ``sm_90a``, one process per source, in parallel), with
+   ptxas' registers and spills of every K4 instantiation
+   (``decode_matmul_kernel<gelu, weight type>``: ``decode-ptxas``)
+   and of K9's staging and fold kernels (``lookup-ptxas``); a missing or
+   spilling one fails;
 2. hold each serving kernel against its plain PyTorch version on the card at
    the serving path's shapes (bfloat16, batch 8, prefill lengths 512 and
    1024) and time it beside the plain version, the one PyTorch library call
    that computes the same function, and its bound (every check prints
-   ``bound_share``, its bound over its time, and K1's its TFLOP/s);
+   ``bound_share``, its bound over its time, and K1's its TFLOP/s); K4
+   splits K over a cluster of 8 blocks per 32-column tile, its weight slab
+   by TMA, its products on ``mma.sync`` (``design`` on its ``kernels``
+   entry, both of its shapes);
    2b. then K1, the TMA-fed ``wgmma`` flash forward (128-row query and kv
    tiles, two warpgroups), at head dim 128, Llama-3 8B's prefill shapes
    [1, S, 32, 8, 128] for S = 512, 1024, 4096 and 8192, an MHA case
@@ -109,13 +116,21 @@ Phases, in order; any failure exits non-zero:
    (``scatter_add_rows``) against their plain versions on a CPU copy, bit
    for bit, at the largest Criteo Kaggle table (10,131,227 x 128 float32)
    with 65,536 Zipf ids, through the dedup pass and without it, the
-   batch-side fold, a bf16 table and a width off the 16-byte loads;
+   batch-side fold (its longest segment and chain floor, that segment's
+   dependent adds at 4 cycles each at ``clocks.max.sm``, beside its byte
+   bound: ``fold-bound``), a bf16 table and a width off the 16-byte loads;
+   then the fold sweep (``fold-sweep``): one id at all 65,536 positions,
+   the vocabulary-3 table's head, all ids distinct, sentinels interleaved
+   and at the end, segments at the long path's threshold and one either
+   side of it, bf16 rows and widths 8, 130 and 512, each bit for bit and
+   repeated, the first two timed beside ``index_add_``;
 14. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
     (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the port's
     ``Loader``: ``dlrm_tiny`` first held against the CPU, then one warm-up
     and five timed steps whose losses must fall, K8 launched 26 times and
     K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
-    and a traced window;
+    and a traced window with K9's device ms per step and the 26 folds'
+    (replayed on the step's batch);
 15. serve Llama-3 8B (``llama3_8b``: 32 layers, dim 4096, 32 / 8 heads of
     128, FFN 14336, vocab 128256, ``max_seq`` 8192; random weights from
     ``--seed``) through ``Engine(rows=8, block_size=16)``, after freeing the
@@ -238,6 +253,19 @@ GROUPED_EDGES = ((40, 4, 2, 12, 20, 30),
                  (128, 4, 2, 80, 40, 48),
                  (300, 1, 1, 256, 256, 512),
                  (1024, 8, 4, 640, 768, 3072))
+# K4: decode_matmul_kernel<GELU, weight type (0 bf16, 1 int8, 2 e4m3)>;
+# ptxas must report every instance without spills (decode-ptxas)
+DECODE_INSTANCES = tuple(f'decode_matmul_kernel<{gelu}, {mode}>'
+                         for mode in (0, 1, 2) for gelu in ('false', 'true'))
+# K9: the staging pass stage_products_kernel<bf16 rows, vector loads> and
+# the fold segment_fold_kernel<bf16 rows> (lookup-ptxas)
+LOOKUP_INSTANCES = tuple(
+    f'stage_products_kernel<{bf16}, {vec}>' for bf16 in ('false', 'true')
+    for vec in ('false', 'true')) + tuple(
+        f'segment_fold_kernel<{bf16}>' for bf16 in ('false', 'true'))
+CHAIN_CYCLES = 4                # a dependent float32 add's latency, SM cycles
+K4_DESIGN = 'cluster-split-k+tma+mma.sync'
+K9_DESIGN = 'ordered-chains+bulk-ring'
 
 
 def fail(message: str) -> None:
@@ -295,6 +323,26 @@ def bound_ms(moved_bytes: float, flops: float):
     memory, compute = moved_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(memory, compute) * 1e3, ('bytes' if memory >= compute
                                         else 'operations')
+
+
+def sm_clock_mhz():
+    """The card's top SM clock in MHz (``nvidia-smi --query-gpu=
+    clocks.max.sm``), or None where it cannot be read."""
+    try:
+        result = subprocess.run(
+            ['nvidia-smi', '--query-gpu=clocks.max.sm',
+             '--format=csv,noheader,nounits'],
+            capture_output=True, text=True, timeout=30, check=True)
+        return float(result.stdout.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return None
+
+
+def chain_floor_ms(longest: int, clock_mhz: float) -> float:
+    """The least time K9's ordered sum can take: its longest segment's
+    chain of dependent float32 adds, ``CHAIN_CYCLES`` cycles each at
+    ``clock_mhz``, however many columns run beside it."""
+    return longest * CHAIN_CYCLES / (clock_mhz * 1e3)
 
 
 def rotating(make, one_set_bytes: int):
@@ -1269,6 +1317,20 @@ def check_spills(label: str, report: dict, instances) -> None:
             fail(f'{label}: {instance} missing or spilling ({entry})')
 
 
+def kernel_ptxas(label: str, library: str, instances) -> dict:
+    """ptxas' registers and spills of ``instances`` in the build of
+    ``csrc/<library>.cu``, printed as ``<label> {...}``; a missing or
+    spilling instance fails the run."""
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+
+    report = ptxas_report(LIBRARIES.compiler_output.get(library, ''))
+    mine = {name: report[name] for name in instances if name in report}
+    print(f'{label} ' + json.dumps(mine or 'not available: the library '
+                                   'was built by an earlier process'))
+    check_spills(label, report, instances)
+    return mine
+
+
 def check_k1_head_dim_128(torch, generator):
     """Phase 2b: K1 at head dim 128, Llama-3 8B's prefill shapes (32 query
     heads over 8 kv heads) at S = 512, 1024, 4096 and 8192, an MHA case
@@ -1735,6 +1797,60 @@ def zipf_ids(vocab: int, count: int, seed: int, alpha: float = 1.3):
                                               p=pmf).astype(np.int32)
 
 
+FOLD_CASES = ('one-id', 'vocab3-head', 'distinct', 'sentinels', 'threshold',
+              'threshold-shifted', 'bf16', 'dim8', 'dim130', 'dim512')
+
+
+def fold_case(case: str, long_min: int, seed: int):
+    """``(rows, ids, scale, table_rows)``, CPU tensors, for one case of K9's
+    fold sweep (``FOLD_CASES``): 65,536 positions of width 128 with one id
+    at every position; the Criteo vocabulary-3 table's Zipf head (~61 % of
+    the batch on one id); every id once; ids of 700 with sentinels every
+    fifth position and 300 at the end; segments of ``long_min`` - 1,
+    ``long_min`` and ``long_min`` + 1 positions (the long path's threshold)
+    from position 0 or shifted off the multiples of ``long_min``; and Zipf
+    ids over 5,000 rows with sentinels, in bf16 rows and at widths 8, 130
+    and 512."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, dim, dtype, table_rows = 65536, 128, torch.float32, 65536
+    if case == 'one-id':
+        ids = np.zeros(n, np.int64)
+    elif case == 'vocab3-head':
+        ids = zipf_ids(3, n, seed).astype(np.int64)
+        table_rows = 3
+    elif case == 'distinct':
+        ids = rng.permutation(n)
+    elif case == 'sentinels':
+        ids = rng.integers(0, 700, n)
+        ids[::5] = table_rows
+        ids[-300:] = table_rows + 7
+    elif case.startswith('threshold'):
+        n = 16 * long_min
+        lengths = [1] * (0 if case == 'threshold' else long_min // 2 + 1)
+        for length in (long_min - 1, long_min, long_min + 1):
+            lengths += [length, 1, length, 3]
+        lengths += [1] * (n - sum(lengths))
+        ids = rng.permutation(np.repeat(np.arange(len(lengths)), lengths))
+        table_rows = n
+    elif case in ('bf16', 'dim8', 'dim130', 'dim512'):
+        ids = zipf_ids(5000, n, seed).astype(np.int64)
+        ids[::97] = 5000
+        table_rows = 5000
+        if case == 'bf16':
+            dtype = torch.bfloat16
+        else:
+            dim = int(case[3:])
+    else:
+        raise ValueError(f'unknown fold case {case!r}')
+    rows = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    return (rows.to(dtype), torch.from_numpy(ids.astype(np.int32)), scale,
+            table_rows)
+
+
 def lookup_bitwise(torch, label, got, again, want) -> float:
     """Fail unless the kernel's ``got`` equals the plain version's
     ``want`` (computed on a CPU copy of the inputs) bit for bit and the
@@ -1851,6 +1967,8 @@ def check_lookup(torch, generator, seed: int):
                                                    inverse.cpu(),
                                                    ones.cpu(), count))
     longest = int(torch.bincount(inverse.long()).max())
+    clock = sm_clock_mhz()
+    floor = None if clock is None else chain_floor_ms(longest, clock)
     timed = measure(lambda i: el.scatter_add_rows(d_rows, inverse, ones,
                                                   count), calls=20)
     plain = measure(lambda i: el.scatter_add_rows_plain(d_rows, inverse,
@@ -1862,8 +1980,15 @@ def check_lookup(torch, generator, seed: int):
         'scatter_add_rows[fold]', [count, count, dim], err, 0.0, timed,
         plain, library, bound_ms(count * dim * 4 * 2 + count * 8,
                                  2 * count * dim),
-        distinct_ids=distinct, longest_segment=longest,
+        distinct_ids=distinct, longest_segment=longest, sm_clock_mhz=clock,
+        chain_floor_ms=floor, chain_floor_share=(
+            None if floor is None else floor / timed[0]),
+        design=K9_DESIGN,
         library_call='torch.zeros + index_add_ (float atomics)'))
+    print('fold-bound ' + json.dumps({
+        'bytes_ms': rows[-1][1]['bound_ms'], 'chain_floor_ms': floor,
+        'longest_segment': longest, 'sm_clock_mhz': clock,
+        'honest_bound_ms': max(rows[-1][1]['bound_ms'], floor or 0.0)}))
     del table, table_cpu
 
     # a bf16 table, and a width off the 16-byte loads (130 float32)
@@ -1889,8 +2014,51 @@ def check_lookup(torch, generator, seed: int):
                        el.scatter_add_rows(grads, ids, scale, rows_n),
                        el.scatter_add_rows_plain(cpu[3], cpu[4], cpu[2],
                                                  rows_n))
-    results['longest_fold_segment'] = longest
+    results.update(longest_fold_segment=longest, sm_clock_mhz=clock,
+                   chain_floor_ms=floor,
+                   fold_sweep=check_fold_sweep(torch, clock))
     return rows, results
+
+
+def check_fold_sweep(torch, clock_mhz) -> dict:
+    """Phase 13's fold sweep: K9 on every case of ``FOLD_CASES`` bit for
+    bit the plain version on the CPU and on a repeat (both of its paths,
+    the long-path threshold and one either side of it); the one-id and
+    vocabulary-3 cases timed beside ``zeros`` + ``index_add_`` with their
+    chain floors."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+
+    results = {}
+    for case in FOLD_CASES:
+        rows, ids, scale, table_rows = fold_case(case, el.LONG_SEGMENT,
+                                                 len(case))
+        want = el.scatter_add_rows_plain(rows, ids, scale, table_rows)
+        on_card = [t.cuda() for t in (rows, ids, scale)]
+        got = el.scatter_add_rows(*on_card, table_rows)
+        err = lookup_bitwise(torch, f'fold[{case}]', got,
+                             el.scatter_add_rows(*on_card, table_rows), want)
+        valid = ids[(ids >= 0) & (ids < table_rows)]
+        longest = int(torch.bincount(valid.long()).max()) if len(valid) else 0
+        entry = dict(shape=list(rows.shape), dtype=str(rows.dtype),
+                     table_rows=table_rows, longest_segment=longest,
+                     max_abs_err=err)
+        if case in ('one-id', 'vocab3-head'):
+            weighted = on_card[0].float() * on_card[2][:, None]
+            index = on_card[1].long()
+            timed = measure(lambda i: el.scatter_add_rows(*on_card,
+                                                          table_rows),
+                            calls=10)
+            library = measure(lambda i: torch.zeros(
+                (table_rows, rows.shape[1]), device='cuda').index_add_(
+                    0, index, weighted), calls=10)
+            floor = (None if clock_mhz is None
+                     else chain_floor_ms(longest, clock_mhz))
+            entry.update(ms=timed[0], library_ms=library[0],
+                         chain_floor_ms=floor)
+        results[case] = entry
+        del got, on_card
+    print('fold-sweep ' + json.dumps(results))
+    return results
 
 
 def dlrm_card_vs_cpu(torch) -> dict:
@@ -2029,7 +2197,10 @@ def train_dlrm(torch, seed: int) -> dict:
     if not (math.isfinite(metrics['loss']) and 0.0 <= metrics['auc'] <= 1.0):
         fail(f'DLRM holdout metrics: {metrics}')
     profile = profile_steps(torch, lambda: step(state, features, labels),
-                            steps=2, top_n=16)
+                            steps=2, top_n=16,
+                            sums=('segment_fold_kernel',
+                                  'stage_products_kernel'))
+    profile['folds'] = dlrm_folds(torch, features, seed)
     print('dlrm-train-profile ' + json.dumps(profile))
     # the least a dense-gradient SGD step moves through the tables: the
     # gradient's zero fill, then the parameters and gradients read and the
@@ -2048,6 +2219,35 @@ def train_dlrm(torch, seed: int) -> dict:
         hbm_bound_ms=4 * table_bytes / HBM_BYTES_PER_S * 1e3,
         step_table_bytes_port=6 * table_bytes, holdout=metrics,
         repeat=repeat, reference=reference, profile=profile)
+
+
+def dlrm_folds(torch, features, seed: int) -> dict:
+    """The device ms of one DLRM step's 26 batch-side folds (K9 over each
+    table's dedup ``inverse`` into [n, 128], as ``recsys.lookup``'s
+    backward runs them), replayed on the step's batch: one timed call runs
+    all 26. The step's K9 time by kernel name (``kernel_ms_per_step``)
+    also holds the 26 table-gradient scatters."""
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    from tpusystem_torch.recsys import dedup_ids
+
+    inverses = []
+    for table, vocab in enumerate(CRITEO_KAGGLE):
+        flat = features['ids'][:, table].reshape(-1).to(torch.int32)
+        sent = torch.where((flat >= 0) & (flat < vocab), flat,
+                           torch.full_like(flat, vocab))
+        inverses.append(dedup_ids(sent, vocab)[1])
+    count = inverses[0].shape[0]
+    generator = torch.Generator('cuda').manual_seed(seed)
+    d_rows = torch.randn((count, DLRM_DIM), generator=generator,
+                         device='cuda')
+    ones = torch.ones(count, device='cuda')
+    timed = measure(lambda i: [el.scatter_add_rows(d_rows, inverse, ones,
+                                                   count)
+                               for inverse in inverses], calls=5)
+    return dict(fold_ms_per_step=timed[0], fold_event_ms_per_step=timed[1],
+                folds=len(inverses), longest_segment=max(
+                    int(torch.bincount(inverse.long()).max())
+                    for inverse in inverses))
 
 
 def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
@@ -2474,6 +2674,10 @@ def main() -> None:
     build_seconds = time.perf_counter() - started
     print(f'built {sorted(LIBRARIES.build())} in {build_seconds:.1f} s')
 
+    decode_ptxas = kernel_ptxas('decode-ptxas', 'decode_matmul',
+                                DECODE_INSTANCES)
+    lookup_ptxas = kernel_ptxas('lookup-ptxas', 'embedding_lookup',
+                                LOOKUP_INSTANCES)
     generator = torch.Generator('cuda').manual_seed(args.seed)
     checks = check_kernels(torch, generator)
     k1_128_rows, k1_ptxas = check_k1_head_dim_128(torch, generator)
@@ -2625,6 +2829,30 @@ def main() -> None:
                 for label in (f'{name}[fwd]', f'{name}[bwd]')})
     kernels[[k['name'] for k in kernels].index('matmul_scatter_rows')][
         'split'] = k7_split
+    # K4 at every weight type: its design, registers and both shapes
+    for name in ('decode_matmul', 'decode_matmul_int8', 'decode_matmul_fp8'):
+        mode = {'': 0, '_int8': 1, '_fp8': 2}[name[len('decode_matmul'):]]
+        kernels[[k['name'] for k in kernels].index(name)].update(
+            design=K4_DESIGN,
+            ptxas={instance: decode_ptxas.get(instance)
+                   for instance in DECODE_INSTANCES
+                   if instance.endswith(f', {mode}>')} if decode_ptxas
+            else 'not available: built by an earlier process',
+            shapes={label: {key: measured[label][key] for key in (
+                'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                'bound_ms', 'bound_by', 'bound_share')}
+                for label in (f'{name}[qkv]', f'{name}[out]')})
+    # K9: its design, registers and the fold beside its chain floor
+    fold = measured['scatter_add_rows[fold]']
+    kernels[[k['name'] for k in kernels].index('scatter_add_rows')].update(
+        design=K9_DESIGN, ptxas=lookup_ptxas or 'not available: built by '
+        'an earlier process', kernel_only_ms=measured[
+            'scatter_add_rows[dedup]']['kernel_only_ms'],
+        fold={key: fold[key] for key in (
+            'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+            'bound_ms', 'bound_by', 'bound_share', 'longest_segment',
+            'sm_clock_mhz', 'chain_floor_ms', 'chain_floor_share')},
+        folds_ms_per_dlrm_step=dlrm['profile']['folds']['fold_ms_per_step'])
     kernels[[k['name'] for k in kernels].index('flash_bwd_fused')][
         'ticket_waits_llama'] = measured[
             'flash_bwd_fused_d128[S=8192]']['ticket_waits']
@@ -2661,6 +2889,7 @@ def main() -> None:
              'serve_llama': llama, 'train_llama': llama_trained,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
+             'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,
              'kernels': kernels,
              'compiler_output': LIBRARIES.compiler_output}, indent=1))
     print(json.dumps({'kernels': kernels}))

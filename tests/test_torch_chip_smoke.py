@@ -187,3 +187,168 @@ def test_bwd_spill_check_covers_the_split_pair_at_every_head_dim(
         del report[instance]
     with pytest.raises(SystemExit):
         chip_smoke.check_spills('bwd-ptxas', report, chip_smoke.BWD_INSTANCES)
+
+
+def _decode_output(suffix, spilling=()):
+    # K4's kernel, template <bool GELU, int weight type>, in the anonymous
+    # namespace of decode_matmul.cu
+    namespace = f'_GLOBAL__N__7e1f0a55_16_decode_matmul_cu_{suffix}'
+    kernel = 'decode_matmul_kernel'
+    return ''.join(
+        _report(f'_ZN{len(namespace)}{namespace}{len(kernel)}{kernel}'
+                f'ILb{gelu}ELi{mode}EEEv14CUtensorMap_stPK13__nv_bfloat16PKf'
+                f'S6_P13__nv_bfloat16iiiii', registers=40 + 8 * mode + gelu,
+                spills=8 * ((gelu, mode) in spilling))
+        for mode in (0, 1, 2) for gelu in (0, 1))
+
+
+def test_decode_instances_are_every_k4_instantiation():
+    """``decode-ptxas`` covers K4 at every activation and weight type the
+    wrapper launches: bf16 (0), int8 (1) and e4m3 (2), with and without
+    GELU."""
+    chip_smoke = _chip_smoke()
+    report = chip_smoke.ptxas_report(_decode_output('629f6fbe'))
+    assert sorted(report) == sorted(chip_smoke.DECODE_INSTANCES)
+    assert report['decode_matmul_kernel<true, 2>']['registers'] == 57
+    assert len(chip_smoke.DECODE_INSTANCES) == 6
+
+
+@pytest.mark.parametrize('broken', ['spilling', 'missing'])
+@pytest.mark.parametrize('gelu', [0, 1])
+@pytest.mark.parametrize('mode', [0, 1, 2])
+def test_decode_spill_check_fails_on_a_missing_or_spilling_instance(
+        broken, gelu, mode):
+    chip_smoke = _chip_smoke()
+    instances = chip_smoke.DECODE_INSTANCES
+    chip_smoke.check_spills('decode-ptxas', chip_smoke.ptxas_report(
+        _decode_output('00000025')), instances)
+    name = f'decode_matmul_kernel<{_flag(gelu)}, {mode}>'
+    if broken == 'spilling':
+        report = chip_smoke.ptxas_report(
+            _decode_output('00000025', spilling=((gelu, mode),)))
+    else:
+        report = chip_smoke.ptxas_report(_decode_output('00000025'))
+        del report[name]
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('decode-ptxas', report, instances)
+
+
+def _lookup_output(suffix, spilling=()):
+    # K9's kernels in the anonymous namespace of embedding_lookup.cu: the
+    # staging pass, template <bool BF16, bool VEC>, and the fold, template
+    # <bool BF16>
+    namespace = f'_GLOBAL__N__15093042_19_embedding_lookup_cu_{suffix}'
+    stage, fold = 'stage_products_kernel', 'segment_fold_kernel'
+    mangled = [(f'{stage}<{_flag(b)}, {_flag(v)}>',
+                f'{len(stage)}{stage}ILb{b}ELb{v}EEEvPKvPKfPKiPKlPfiiii')
+               for b in (0, 1) for v in (0, 1)]
+    mangled += [(f'{fold}<{_flag(b)}>',
+                 f'{len(fold)}{fold}ILb{b}EEEvPKfPKvS2_PKlPKiPfiiiiii')
+                for b in (0, 1)]
+    return ''.join(_report(f'_ZN{len(namespace)}{namespace}{tail}',
+                           registers=60 + 30 * ('fold' in name),
+                           spills=8 * (name in spilling))
+                   for name, tail in mangled)
+
+
+@pytest.mark.parametrize('suffix', ['edaf5b8c', '11af923d', '00000025'])
+def test_lookup_instances_are_every_k9_instantiation(suffix):
+    """``lookup-ptxas`` covers K9's staging pass at both row types, with
+    and without vector loads, and its fold at both row types, whatever
+    digits the anonymous namespace's hash holds."""
+    chip_smoke = _chip_smoke()
+    report = chip_smoke.ptxas_report(_lookup_output(suffix))
+    assert sorted(report) == sorted(chip_smoke.LOOKUP_INSTANCES)
+    assert len(chip_smoke.LOOKUP_INSTANCES) == 6
+    assert report['segment_fold_kernel<true>'] == {
+        'stack': 0, 'spill_stores': 0, 'spill_loads': 0, 'registers': 90}
+
+
+@pytest.mark.parametrize('broken', ['spilling', 'missing'])
+@pytest.mark.parametrize('instance', [
+    'segment_fold_kernel<false>', 'segment_fold_kernel<true>',
+    'stage_products_kernel<false, false>', 'stage_products_kernel<false, true>',
+    'stage_products_kernel<true, false>', 'stage_products_kernel<true, true>'])
+def test_lookup_spill_check_fails_on_a_missing_or_spilling_instance(
+        broken, instance):
+    chip_smoke = _chip_smoke()
+    instances = chip_smoke.LOOKUP_INSTANCES
+    assert instance in instances
+    chip_smoke.check_spills('lookup-ptxas', chip_smoke.ptxas_report(
+        _lookup_output('629f6fbe')), instances)
+    if broken == 'spilling':
+        report = chip_smoke.ptxas_report(
+            _lookup_output('629f6fbe', spilling=(instance,)))
+    else:
+        report = chip_smoke.ptxas_report(_lookup_output('629f6fbe'))
+        del report[instance]
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('lookup-ptxas', report, instances)
+
+
+def test_kernel_ptxas_reads_the_build_output_and_fails_on_a_spill(
+        monkeypatch, capsys):
+    """``kernel_ptxas`` reads a library's compiler output as this process
+    built it, prints the instances' registers and fails on a spill."""
+    chip_smoke = _chip_smoke()
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+    monkeypatch.setitem(LIBRARIES.compiler_output, 'embedding_lookup',
+                        _lookup_output('629f6fbe'))
+    mine = chip_smoke.kernel_ptxas('lookup-ptxas', 'embedding_lookup',
+                                   chip_smoke.LOOKUP_INSTANCES)
+    assert sorted(mine) == sorted(chip_smoke.LOOKUP_INSTANCES)
+    assert capsys.readouterr().out.startswith('lookup-ptxas {')
+    monkeypatch.setitem(LIBRARIES.compiler_output, 'embedding_lookup',
+                        _lookup_output('629f6fbe',
+                                       spilling=('segment_fold_kernel<false>',)))
+    with pytest.raises(SystemExit):
+        chip_smoke.kernel_ptxas('lookup-ptxas', 'embedding_lookup',
+                                chip_smoke.LOOKUP_INSTANCES)
+
+
+@pytest.mark.parametrize('longest,clock,expected', [
+    (16600, 1980.0, 16600 * 4 / 1.98e6), (39831, 1755.0, 39831 * 4 / 1.755e6),
+    (1, 1000.0, 4e-6), (0, 1980.0, 0.0)])
+def test_chain_floor_is_the_longest_segment_in_dependent_adds(longest, clock,
+                                                              expected):
+    """The fold's chain floor: 4 cycles a dependent float32 add at the SM
+    clock (MHz), in ms; ~0.0335 ms for a 16,600-long Zipf head at
+    1.98 GHz."""
+    floor = _chip_smoke().chain_floor_ms(longest, clock)
+    assert floor == pytest.approx(expected, rel=1e-12)
+    if longest == 16600:
+        assert 0.033 < floor < 0.034
+
+
+@pytest.mark.parametrize('case', ['one-id', 'vocab3-head', 'distinct',
+                                  'sentinels', 'threshold',
+                                  'threshold-shifted', 'bf16', 'dim8',
+                                  'dim130', 'dim512'])
+def test_fold_cases_hold_what_they_name(case):
+    """Each case of the K9 fold sweep holds the segments it is there for,
+    with the long path's threshold at 256."""
+    import numpy as np
+    import torch
+    chip_smoke = _chip_smoke()
+    assert case in chip_smoke.FOLD_CASES
+    rows, ids, scale, table_rows = chip_smoke.fold_case(case, 256, 3)
+    assert rows.shape[0] == ids.shape[0] == scale.shape[0]
+    counts = np.bincount(ids.numpy()[(ids.numpy() >= 0)
+                                     & (ids.numpy() < table_rows)])
+    sentinels = int((ids >= table_rows).sum())
+    if case == 'one-id':
+        assert counts.tolist() == [65536]
+    elif case == 'vocab3-head':
+        assert table_rows == 3 and 37000 < counts.max() < 42000
+    elif case == 'distinct':
+        assert counts.max() == 1 and len(counts) == 65536
+    elif case == 'sentinels':
+        assert sentinels > 13000 and bool((ids[-300:] >= table_rows).all())
+    elif case.startswith('threshold'):
+        assert {255, 256, 257} <= set(counts.tolist())
+        assert counts.max() == 257 and rows.shape[0] == 16 * 256
+    else:
+        assert sentinels > 600 and counts.max() > 256
+        assert rows.dtype == (torch.bfloat16 if case == 'bf16'
+                              else torch.float32)
+        assert rows.shape[1] == (128 if case == 'bf16' else int(case[3:]))

@@ -135,6 +135,64 @@ def test_quantized_decode_ffn_matches_plain(device, mode, batch):
     _close(got, want, 2 ** -7 * want.float().abs().max().item())
 
 
+# K4's edges: batches under, at and over one launch's rows; K at GPT-2's
+# widths and one that splits unevenly over the cluster (200 = 8 x 25, not a
+# multiple of 8 x 16); N at GPT-2's widths, under one 32-column tile, and a
+# multiple of 16 that is not one of 32 (the last tile half empty)
+K4_EDGES = [(768, 2304), (768, 768), (3072, 768), (200, 16), (768, 784)]
+
+
+def _decode_weight(generator, mode, shape, device):
+    if mode == 'bf16':
+        return _normal(generator, shape, shape[0] ** -0.5, device)
+    return quantize_leaf(torch.randn(shape, generator=generator,
+                                     device=device) * shape[0] ** -0.5, mode)
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'int8', 'fp8'])
+@pytest.mark.parametrize('batch', [1, 8, 16, 19])
+@pytest.mark.parametrize('inner,cols', K4_EDGES)
+def test_decode_matmul_edges_match_plain_and_repeat(device, mode, batch,
+                                                    inner, cols):
+    """The cluster-split K4 at every weight type within 2**-7 of the
+    largest output, one launch per slice of 16 (bf16) or 8 rows, and
+    bitwise on a repeat (the cluster sums in rank order)."""
+    generator = torch.Generator(device).manual_seed(batch * inner + cols)
+    x = _normal(generator, (batch, inner), 1.0, device)
+    w = _decode_weight(generator, mode, (inner, cols), device)
+    bias = torch.randn(cols, generator=generator, device=device) * 0.1
+    activation = 'gelu' if cols % 3 else None
+    before = dm.decode_matmul.mode_launches[mode]
+    got = dm.decode_matmul(x, w, bias, activation=activation)
+    again = dm.decode_matmul(x, w, bias, activation=activation)
+    want = dm.decode_matmul_plain(x, w, bias, activation=activation)
+    torch.cuda.synchronize()
+    rows = 16 if mode == 'bf16' else 8
+    assert got.shape == (batch, cols) and got.dtype == torch.bfloat16
+    assert dm.decode_matmul.mode_launches[mode] - before == 2 * -(-batch // rows)
+    assert torch.equal(got, again)
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'int8'])
+def test_a_refused_cluster_launch_raises(device, mode, monkeypatch):
+    """A cluster of 32 blocks is past what the card takes (8 portable, 16
+    with an opt-in): the launch is refused, the wrapper raises, and nothing
+    is counted."""
+    generator = torch.Generator(device).manual_seed(7)
+    x = _normal(generator, (4, 768), 1.0, device)
+    w = _decode_weight(generator, mode, (768, 768), device)
+    monkeypatch.setattr(dm, 'CLUSTER', 32)
+    before = dm.decode_matmul.launches
+    with pytest.raises(RuntimeError, match='CUDA launch failed'):
+        dm.decode_matmul(x, w)
+    assert dm.decode_matmul.launches == before
+    monkeypatch.setattr(dm, 'CLUSTER', 8)
+    torch.cuda.synchronize()
+    _close(dm.decode_matmul(x, w), dm.decode_matmul_plain(x, w),
+           2 ** -7 * dm.decode_matmul_plain(x, w).float().abs().max().item())
+
+
 @pytest.mark.parametrize('shape', [(1,), (1000,), (3, 77, 5), (16, 128, 768)])
 @pytest.mark.parametrize('keep', [0.9, 0.5])
 def test_threefry_mask_kernel_equals_the_plain_bits(device, shape, keep):
@@ -1173,6 +1231,27 @@ def test_scatter_add_rows_matches_plain_bitwise(device, rows, dim, count,
     want = el.scatter_add_rows_plain(grads.cpu(), ids.cpu(), scale.cpu(),
                                      rows)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize('case', [
+    'one-id', 'vocab3-head', 'distinct', 'sentinels', 'threshold',
+    'threshold-shifted', 'bf16', 'dim8', 'dim130', 'dim512'])
+def test_fold_sweep_matches_plain_bitwise_and_repeats(device, case):
+    """K9's two paths (segments of ``LONG_SEGMENT`` positions or more by a
+    block per 32 columns through a ring of bulk copies, shorter ones many
+    to a warp) on ``chip_smoke.py``'s fold sweep: bitwise the plain version
+    on the CPU, and on a repeat."""
+    import chip_smoke
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    rows, ids, scale, table_rows = chip_smoke.fold_case(
+        case, el.LONG_SEGMENT, len(case))
+    want = el.scatter_add_rows_plain(rows, ids, scale, table_rows)
+    on_card = [t.to(device) for t in (rows, ids, scale)]
+    got = el.scatter_add_rows(*on_card, table_rows)
+    again = el.scatter_add_rows(*on_card, table_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
 
 
 def test_lookup_kernels_repeat_bitwise(device):

@@ -54,6 +54,26 @@ def test_no_module_imports_jax_or_the_reference():
     assert found == []
 
 
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'bwd_phases.py',
+                                    'grouped_ab.py', 'decode_lookup_ab.py'])
+def test_card_scripts_import_no_jax_or_the_reference(script):
+    """The scripts run on the card's machine, which has no JAX: at the top
+    of the repository, they import the port and nothing of JAX or the
+    reference package, at any depth of the file."""
+    path = PACKAGE.parent / script
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        found += [name for name in names if name.split('.')[0] in FORBIDDEN]
+    assert found == []
+
+
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     module = gpt2_tiny(dtype='float32', device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

@@ -176,6 +176,53 @@ def test_scatter_add_rows_plain_matches_the_pallas_kernel(
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_scatter_add_rows_heavy_duplicates_hold_the_sequential_sum(dtype):
+    """One id ~1,000 times among 2,048, sentinels interleaved and at the
+    end: the plain K9 is bitwise the reference kernel's body as written
+    (``_sequential_scatter``, each product and each add rounded, in
+    ascending position) however long the segment, in float32 and on bf16
+    rows. The interpreted Pallas kernel contracts each product and add into
+    one fused multiply-add, so it is held within the bound that difference
+    allows. For one id's m products x_k and unit roundoff u = 2**-24, the
+    body's sum carries m roundings of products and adds, at most
+    m u sum|x_k| from the exact sum to first order; the fused one m - 1
+    roundings, at most (m - 1) u sum|x_k|; so the two differ by at most
+    (2m - 1) u sum|x_k| per column. At m ~ 1,000 that is ~1e-4 of the
+    column's sum of magnitudes: the 1e-6 of the short-segment test does
+    not carry over."""
+    rng = np.random.default_rng(13)
+    count, table_rows, dim = 2048, 64, 16
+    ids = rng.integers(0, table_rows, count).astype(np.int32)
+    ids[rng.random(count) < 0.5] = 7
+    ids[::37] = table_rows
+    ids[-5:] = table_rows
+    rows = rng.standard_normal((count, dim)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, count).astype(np.float32)
+    if dtype == 'bfloat16':
+        jrows, trows = _bf16(rows)
+        rows = trows.float().numpy()          # the bf16 values, widened
+    else:
+        jrows, trows = jnp.asarray(rows), _t(rows)
+    repeats = int((ids == 7).sum())
+    assert repeats > 950
+    got = tel.scatter_add_rows(trows, _t(ids), _t(scale), table_rows)
+    assert got.dtype == torch.float32 and got.shape == (table_rows, dim)
+    _same(got.numpy(), _sequential_scatter(rows, ids, scale, table_rows))
+    want = np.asarray(jel.scatter_add_rows(
+        jrows, jnp.asarray(ids), jnp.asarray(scale), table_rows,
+        interpret=True))
+    magnitude = np.zeros((table_rows + 1, dim))
+    counts = np.bincount(ids, minlength=table_rows + 1)[:, None]
+    np.add.at(magnitude, ids, np.abs(rows.astype(np.float64)
+                                     * scale[:, None]))
+    bound = ((2 * counts - 1).clip(min=0) * 2.0 ** -24 * magnitude)[
+        :table_rows]
+    error = np.abs(got.numpy().astype(np.float64) - want)
+    assert (error <= bound).all(), float((error - bound).max())
+    assert error[7].max() > 0                 # the fused adds do differ
+
+
 def test_scatter_add_rows_bf16_rows_within_the_reference_bound():
     rng = np.random.default_rng(5)
     rows = rng.standard_normal((32, 16)).astype(np.float32)

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the flash kernels (K1 in flash_fwd.cu,
-// the fused backward K2a/K2b in flash_bwd.cu) and the grouped MoE products
-// (K6/K7 in grouped_matmul.cu): TMA tensor maps and loads, 1-D bulk
-// copies, cp.async, ldmatrix, mbarriers, named barriers, wgmma shared-memory
-// descriptors, the wgmma instructions and the accumulator -> A-fragment
-// packing. Header only; every function is inline, so each source that
-// includes it compiles its own copy.
+// the fused backward K2a/K2b in flash_bwd.cu), the grouped MoE products
+// (K6/K7 in grouped_matmul.cu), the decode matmul (K4 in decode_matmul.cu)
+// and the ordered fold (K9 in embedding_lookup.cu): TMA tensor maps and
+// loads, 1-D bulk copies, cp.async, ldmatrix, mbarriers, named barriers,
+// thread-block clusters and their distributed shared memory, mma.sync,
+// wgmma shared-memory descriptors, the wgmma instructions and the
+// accumulator -> A-fragment packing. Header only; every function is inline, so each source
+// that includes it compiles its own copy.
 //
 // Layout facts the code relies on (PTX ISA 8.x, "Asynchronous warpgroup
 // level matrix multiply" and "Tensor copy"; CUTLASS's cute/arch/mma_sm90_desc
@@ -153,6 +155,30 @@ inline cudaError_t encode_3d(CUtensorMap* map, const void* base, int d2, int d1,
   return result == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A map over a contiguous row-major [rows, cols] matrix of `element_bytes`
+// (2: bf16; 1: int8 or e4m3, moved as bytes) whose box is `box_rows` rows
+// by `box_cols` columns: it lands as box_rows rows of box_cols *
+// element_bytes bytes, swizzled at that width when `swizzle` (32, 64 or 128
+// bytes, the row's width), elements past the matrix zero-filled. Returns
+// cudaErrorInvalidValue if the encoder refuses it (a base or row stride off
+// 16 bytes, a box over 256 in either dimension).
+inline cudaError_t encode_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                             int element_bytes, int box_rows, int box_cols, bool swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * element_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1u, 1u};
+  const CUresult result = encode(
+      map, element_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? swizzle_for(box_cols * element_bytes) : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return result == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // -------------------------------------------------------------- device side
 
 __device__ __forceinline__ uint32_t smem_address(const void* pointer) {
@@ -240,6 +266,31 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t address) {
                : "memory");
 }
 
+// two 8 x 8 bf16 matrices, transposed: lanes 0-7 address matrix 0's rows,
+// 8-15 matrix 1's; thread l receives column l / 4, rows 2 (l % 4) and + 1 of
+// each. From a row-major [k][n] tile (rows of k) that is mma.sync's B
+// fragment of a k16 x n8 step: b0 from rows k..k+7, b1 from k+8..k+15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, uint32_t address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(address)
+               : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, float32 sums (mma.sync):
+// a from ldmatrix_x4 over a row-major [m][k] tile (lanes 0-15 rows 0-15 at
+// k, 16-31 the same rows at k + 8), b from ldmatrix_x2_trans; thread l holds
+// d0, d1 = (row l / 4, columns 2 (l % 4), + 1), d2, d3 = (row l / 4 + 8,
+// the same columns)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float* d, const uint32_t* a,
+                                                  const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // TMA: the box of `map` at coordinates (c0 innermost .. c3) into shared
 // memory at `dst`, completing `bytes` of the barrier's transaction count
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -258,6 +309,68 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a 2-D map (c0 the column, c1 the row)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// this block's rank in its thread-block cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// a cluster barrier in two halves: every thread of every block arrives early
+// (relaxed: it orders no memory; the barrier inits before it are published
+// by their fence) and waits where another block's shared memory is first
+// touched
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address in the shared memory of the cluster's block `rank` at the
+// offset `address` has in this block's own
+__device__ __forceinline__ uint32_t cluster_address(uint32_t address, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(address), "r"(rank));
+  return remote;
+}
+
+// four floats stored asynchronously at a 16-byte aligned cluster address
+// (another block's shared memory), completing 16 bytes of the transaction
+// count of the barrier at the cluster address `remote_bar` (in that block);
+// the values leave from registers, so the storing block may exit at once
+__device__ __forceinline__ void store_async_float4(uint32_t remote, float a, float b, float c,
+                                                   float d, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+      : "memory");
+}
+
+// mbarrier_wait acquiring at cluster scope: the writes other blocks released
+// with their arrivals are visible after it
+__device__ __forceinline__ void mbarrier_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
       : "memory");
 }
 

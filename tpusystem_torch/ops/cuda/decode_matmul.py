@@ -5,8 +5,11 @@ decode step at small batch streams every weight matrix once while its
 ``[B, dim]`` activation is a few KB, so both functions are bound by the
 weight bytes (``csrc/decode_matmul.cu`` holds the design note):
 
-* :func:`decode_matmul` — ``act(x @ w + bias)`` with ``x`` staged in shared
-  memory and ``w`` streamed in column tiles (TPU kernel ``_matmul_kernel``).
+* :func:`decode_matmul` — ``act(x @ w + bias)``, ``K`` split across a
+  thread-block cluster of :data:`CLUSTER` blocks per 32-column tile: each
+  block's weight slab brought in by TMA at its start and multiplied on the
+  tensor cores, the partial tiles summed in rank order in the leading
+  block's shared memory (TPU kernel ``_matmul_kernel``).
 * :func:`decode_ffn` — the fc → GELU → proj chain in one pass whose
   ``[B, 4 * dim]`` hidden never reaches device memory (TPU kernel
   ``_ffn_kernel``).
@@ -37,6 +40,9 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 from tpusystem_torch.ops.precision import QuantizedLeaf, qdot
 
 ACTIVATIONS = (None, 'gelu')
+# K4 splits K across a cluster of this many blocks (8: the portable size);
+# a size the card refuses makes the call raise
+CLUSTER = 8
 # the kernels' weight types, by the name of their entry points
 MODES = {torch.bfloat16: 'bf16', torch.int8: 'int8',
          torch.float8_e4m3fn: 'fp8'}
@@ -87,11 +93,11 @@ def _library():
     lib = LIBRARIES.library('decode_matmul')
     if not getattr(lib, '_typed', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.decode_matmul_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.decode_matmul_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.decode_ffn_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         for mode in ('int8', 'fp8'):
             getattr(lib, f'decode_matmul_{mode}').argtypes = (
-                [ptr] * 5 + [i32] * 4 + [ptr])
+                [ptr] * 5 + [i32] * 5 + [ptr])
             getattr(lib, f'decode_ffn_{mode}').argtypes = (
                 [ptr] * 9 + [i32] * 4 + [ptr])
         for mode in MODES.values():
@@ -188,7 +194,7 @@ def decode_matmul(x, w, bias=None, *, activation=None):
 
     On CUDA: bfloat16 ``x``; ``N`` a multiple of 8 (bf16) or 16 (int8 and
     fp8); batches over 16 rows (8 with narrow weights) launch once per
-    slice."""
+    slice; a cluster launch the card refuses raises ``RuntimeError``."""
     if x.device.type == 'cpu':
         return decode_matmul_plain(x, w, bias, activation=activation)
     if activation not in ACTIVATIONS:
@@ -216,7 +222,7 @@ def decode_matmul(x, w, bias=None, *, activation=None):
                    else (_pointer(values), _pointer(scales)))
         err = kernel(_pointer(x[start:start + rows]), *weights,
                      _pointer(bias), _pointer(out[start:start + rows]), rows,
-                     inner, cols, int(activation == 'gelu'), stream)
+                     inner, cols, int(activation == 'gelu'), CLUSTER, stream)
         _raise_on(err, 'decode_matmul')
         decode_matmul.launches += 1
         decode_matmul.mode_launches[mode] += 1

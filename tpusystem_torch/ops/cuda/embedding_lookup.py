@@ -12,9 +12,12 @@ pair under every embedding lookup of the recommender
   table, duplicate ids summed from 0.0 in ascending ``j``, each product and
   each add rounded, as the reference's sequential read-modify-write does; ids
   ``>= table_rows`` (sentinels) are skipped. On the card the ids are sorted
-  stably, the products are staged in that order, and each distinct id's
-  segment is summed in order by one warp: no float atomics, every call
-  repeats bitwise.
+  stably and each distinct id's segment is summed in order: a segment of
+  :data:`LONG_SEGMENT` positions or more by one block per 16 columns, its
+  products staged in that order and streamed through a ring of bulk copies
+  into back-to-back adds, shorter ones many to a warp. The card finds the
+  segments itself (the call never waits for it); no float atomics, every
+  call repeats bitwise.
 
 :func:`embedding_lookup` wraps the pair in a ``torch.autograd.Function``
 (the reference's ``custom_vjp``): the forward is K8, the backward K9 for the
@@ -44,6 +47,9 @@ _GATHER = {(torch.float32, torch.float32): 'gather_rows_f32',
            (torch.bfloat16, torch.float32): 'gather_rows_bf16_f32'}
 _SCATTER = {torch.float32: 'scatter_add_rows_f32',
             torch.bfloat16: 'scatter_add_rows_bf16'}
+# K9: segments of this many sorted positions or more take the long path (a
+# block per 16 columns); shorter ones the short path (many to a warp)
+LONG_SEGMENT = 256
 
 
 def gather_rows_plain(src, row_ids, row_scale, *, out_dtype=None):
@@ -76,8 +82,10 @@ def _library():
             getattr(lib, name).argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             getattr(lib, name).restype = i32
         for name in _SCATTER.values():
-            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
             getattr(lib, name).restype = i32
+        lib.scatter_group_columns.argtypes = []
+        lib.scatter_group_columns.restype = i32
         lib._typed = True
     return lib
 
@@ -169,11 +177,17 @@ def scatter_add_into(out, rows, row_scale, sorted_ids, order) -> None:
         raise ValueError('scatter_add_rows: out must be contiguous float32')
     rows = rows.contiguous()
     scale = row_scale.float().contiguous()
-    staged = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
-    err = getattr(_library(), name)(
+    lib = _library()
+    count, dim = rows.shape
+    group = lib.scatter_group_columns()
+    # the products in sorted order, in planes of `group` columns
+    staged = torch.empty((-(-dim // group), count, group), dtype=torch.float32,
+                         device=rows.device)
+    vec = dim % 4 == 0 and rows.data_ptr() % (4 * rows.element_size()) == 0
+    err = getattr(lib, name)(
         _pointer(rows), _pointer(scale), _pointer(sorted_ids),
-        _pointer(order), _pointer(staged), _pointer(out), rows.shape[0],
-        rows.shape[1], out.shape[0], _stream(rows.device))
+        _pointer(order), _pointer(staged), _pointer(out), count, dim,
+        out.shape[0], LONG_SEGMENT, int(vec), _stream(rows.device))
     _raise_on(err, 'scatter_add_rows')
 
 
