@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. build the hand-written kernels from ``tpusystem_torch/ops/cuda/csrc``
    (``nvcc`` for ``sm_90a``, one process per source, in parallel), with
-   ptxas' registers and spills of every K4 instantiation
-   (``decode_matmul_kernel<gelu, weight type>``: ``decode-ptxas``)
+   ptxas' registers and spills of every K4 and K5 instantiation
+   (``decode_matmul_kernel<gelu, weight type>``,
+   ``decode_ffn_kernel<weight type>``: ``decode-ptxas``)
    and of K9's staging and fold kernels (``lookup-ptxas``); a missing or
    spilling one fails;
 2. hold each serving kernel against its plain PyTorch version on the card at
@@ -18,7 +19,14 @@ Phases, in order; any failure exits non-zero:
    ``bound_share``, its bound over its time, and K1's its TFLOP/s); K4
    splits K over a cluster of 8 blocks per 32-column tile, its weight slab
    by TMA, its products on ``mma.sync`` (``design`` on its ``kernels``
-   entry, both of its shapes);
+   entry, both of its shapes); K5, the fused FFN, is one launch of clusters
+   of 8 blocks, each cluster a slab of 256 hidden columns: every block's w1
+   and w2 boxes by TMA through a ring of slots (all of them requested at
+   its start at this width), fc and proj on ``mma.sync``, the
+   hidden slab passed between the cluster's blocks in their shared memory,
+   the slabs' float32 partials summed in slab order by the last block to
+   take its columns' ticket (``design``, ``bound_share`` and a bitwise
+   repeat on its ``kernels`` entries);
    2b. then K1, the TMA-fed ``wgmma`` flash forward (128-row query and kv
    tiles, two warpgroups), at head dim 128, Llama-3 8B's prefill shapes
    [1, S, 32, 8, 128] for S = 512, 1024, 4096 and 8192, an MHA case
@@ -253,10 +261,12 @@ GROUPED_EDGES = ((40, 4, 2, 12, 20, 30),
                  (128, 4, 2, 80, 40, 48),
                  (300, 1, 1, 256, 256, 512),
                  (1024, 8, 4, 640, 768, 3072))
-# K4: decode_matmul_kernel<GELU, weight type (0 bf16, 1 int8, 2 e4m3)>;
-# ptxas must report every instance without spills (decode-ptxas)
+# K4: decode_matmul_kernel<GELU, weight type (0 bf16, 1 int8, 2 e4m3)>; K5:
+# decode_ffn_kernel<weight type>; ptxas must report every instance of both
+# without spills (decode-ptxas)
 DECODE_INSTANCES = tuple(f'decode_matmul_kernel<{gelu}, {mode}>'
                          for mode in (0, 1, 2) for gelu in ('false', 'true'))
+FFN_INSTANCES = tuple(f'decode_ffn_kernel<{mode}>' for mode in (0, 1, 2))
 # K9: the staging pass stage_products_kernel<bf16 rows, vector loads> and
 # the fold segment_fold_kernel<bf16 rows> (lookup-ptxas)
 LOOKUP_INSTANCES = tuple(
@@ -265,6 +275,7 @@ LOOKUP_INSTANCES = tuple(
         f'segment_fold_kernel<{bf16}>' for bf16 in ('false', 'true'))
 CHAIN_CYCLES = 4                # a dependent float32 add's latency, SM cycles
 K4_DESIGN = 'cluster-split-k+tma+mma.sync'
+K5_DESIGN = 'cluster-hidden-slab+tma+mma.sync'
 K9_DESIGN = 'ordered-chains+bulk-ring'
 
 
@@ -415,8 +426,8 @@ def decode_checks(torch, generator, mode: str = 'bf16'):
     weight_bytes = 2 if mode == 'bf16' else 1
     rows = []
 
-    def record(*args):
-        rows.append(record_check(*args))
+    def record(*args, **notes):
+        rows.append(record_check(*args, **notes))
 
     # K4 decode_matmul at the qkv and out shapes of one decode step
     for label, cols in (('qkv', 3 * dim), ('out', dim)):
@@ -454,10 +465,15 @@ def decode_checks(torch, generator, mode: str = 'bf16'):
     pick = lambda i: sets[i % len(sets)]
     args = lambda s: (s['x'], s['w1'], s['b1'], s['w2'], s['b2'])
     got = dm.decode_ffn(*args(sets[0]))
+    again = dm.decode_ffn(*args(sets[0]))
     want = dm.decode_ffn_plain(*args(sets[0]))
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 2 ** -7 * want.float().abs().max().item()
+    repeat = bool(torch.equal(got, again))
+    if not repeat:
+        fail(f'decode_ffn{suffix}: a repeat differs (the slabs are summed '
+             'in a fixed order)')
     timed = measure(lambda i: dm.decode_ffn(*args(pick(i))))
     plain = measure(lambda i: dm.decode_ffn_plain(*args(pick(i))))
     library = measure(lambda i: F.linear(F.gelu(
@@ -466,7 +482,8 @@ def decode_checks(torch, generator, mode: str = 'bf16'):
     moved = (ROWS * dim * 2 + sets[0]['w1'].nbytes + sets[0]['w2'].nbytes
              + hidden * 4 + dim * 4 + ROWS * dim * 2)
     record(f'decode_ffn{suffix}', [ROWS, dim, hidden, dim], err, tol, timed,
-           plain, library, bound_ms(moved, 4 * ROWS * dim * hidden))
+           plain, library, bound_ms(moved, 4 * ROWS * dim * hidden),
+           bitwise_repeat=repeat)
     return rows
 
 
@@ -2675,7 +2692,7 @@ def main() -> None:
     print(f'built {sorted(LIBRARIES.build())} in {build_seconds:.1f} s')
 
     decode_ptxas = kernel_ptxas('decode-ptxas', 'decode_matmul',
-                                DECODE_INSTANCES)
+                                DECODE_INSTANCES + FFN_INSTANCES)
     lookup_ptxas = kernel_ptxas('lookup-ptxas', 'embedding_lookup',
                                 LOOKUP_INSTANCES)
     generator = torch.Generator('cuda').manual_seed(args.seed)
@@ -2842,6 +2859,15 @@ def main() -> None:
                 'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
                 'bound_ms', 'bound_by', 'bound_share')}
                 for label in (f'{name}[qkv]', f'{name}[out]')})
+    # K5 at every weight type: its design, registers, bound share, repeat
+    for name in ('decode_ffn', 'decode_ffn_int8', 'decode_ffn_fp8'):
+        mode = {'': 0, '_int8': 1, '_fp8': 2}[name[len('decode_ffn'):]]
+        kernels[[k['name'] for k in kernels].index(name)].update(
+            design=K5_DESIGN,
+            ptxas={FFN_INSTANCES[mode]: decode_ptxas.get(FFN_INSTANCES[mode])}
+            if decode_ptxas else 'not available: built by an earlier process',
+            bound_share=measured[name]['bound_share'],
+            bitwise_repeat=measured[name]['bitwise_repeat'])
     # K9: its design, registers and the fold beside its chain floor
     fold = measured['scatter_add_rows[fold]']
     kernels[[k['name'] for k in kernels].index('scatter_add_rows')].update(

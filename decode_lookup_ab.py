@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K4 (the decode matmul) and K9 (the ordered scatter-add) of two trees, timed in turns on one NVIDIA card.
+"""K4 and K5 (the decode matmul and FFN) and K9 (the ordered scatter-add) of two trees, timed in turns on one NVIDIA card.
 
     python3 decode_lookup_ab.py OTHER_TREE [--seed 0]
 
@@ -10,9 +10,10 @@ turn in a process of its own that builds that tree's kernels and times, on
 the same inputs drawn from ``--seed``:
 
 * ``decode_matmul`` at ``chip_smoke.py`` phases 2 and 6's shapes (8 rows of
-  GPT-2's qkv [768, 2304] and out-projection [768, 768]) with bf16, int8
-  and e4m3 weights, cycling through enough weight sets to keep them out of
-  L2;
+  GPT-2's qkv [768, 2304] and out-projection [768, 768]) and
+  ``decode_ffn`` at their FFN shape (8 rows through [768, 3072] and
+  [3072, 768]), with bf16, int8 and e4m3 weights, cycling through enough
+  input sets to keep them out of L2;
 * ``scatter_add_rows`` at phase 13's fold (65,536 Zipf ids over the largest
   Criteo Kaggle table, deduplicated, their ``inverse`` folded into
   [65,536, 128]) and ``scatter_add_into`` (the kernels alone) on that fold
@@ -35,10 +36,12 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
+MODES = (('', 'bf16'), ('_int8', 'int8'), ('_fp8', 'fp8'))
 CASES = tuple(f'decode_matmul{suffix}[{shape}]'
-              for suffix in ('', '_int8', '_fp8') for shape in ('qkv', 'out')
-              ) + ('scatter_add_rows[fold]', 'scatter_add_into[fold]',
-                   'scatter_add_into[dedup]')
+              for suffix, _ in MODES for shape in ('qkv', 'out')
+              ) + tuple(f'decode_ffn{suffix}' for suffix, _ in MODES) + (
+                  'scatter_add_rows[fold]', 'scatter_add_into[fold]',
+                  'scatter_add_into[dedup]')
 
 
 def chip_smoke():
@@ -47,6 +50,30 @@ def chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def ffn_sets(torch, smoke, generator, mode):
+    """Input sets of ``decode_ffn`` at the FFN shape, enough to keep them
+    out of L2 when cycled."""
+    from tpusystem_torch.ops.precision import quantize_leaf
+
+    def weight(shape):
+        w = torch.randn(shape, generator=generator,
+                        device='cuda') * shape[0] ** -0.5
+        return w.to(torch.bfloat16) if mode == 'bf16' else quantize_leaf(
+            w, mode)
+
+    def one_set():
+        x = torch.randn((smoke.ROWS, smoke.DIM), generator=generator,
+                        device='cuda').to(torch.bfloat16)
+        return (x, weight((smoke.DIM, smoke.HIDDEN)),
+                torch.randn(smoke.HIDDEN, generator=generator,
+                            device='cuda') * 0.1,
+                weight((smoke.HIDDEN, smoke.DIM)),
+                torch.randn(smoke.DIM, generator=generator,
+                            device='cuda') * 0.1)
+    return smoke.rotating(one_set, 2 * smoke.DIM * smoke.HIDDEN
+                          * (2 if mode == 'bf16' else 1))
 
 
 def turn(tree: pathlib.Path, seed: int) -> dict:
@@ -62,7 +89,7 @@ def turn(tree: pathlib.Path, seed: int) -> dict:
     smoke = chip_smoke()
     generator = torch.Generator('cuda').manual_seed(seed)
     times = {}
-    for suffix, mode in (('', 'bf16'), ('_int8', 'int8'), ('_fp8', 'fp8')):
+    for suffix, mode in MODES:
         for shape, cols in (('qkv', 3 * smoke.DIM), ('out', smoke.DIM)):
             def one_set():
                 x = torch.randn((smoke.ROWS, smoke.DIM), generator=generator,
@@ -77,6 +104,10 @@ def turn(tree: pathlib.Path, seed: int) -> dict:
                                   * (2 if mode == 'bf16' else 1))
             times[f'decode_matmul{suffix}[{shape}]'] = smoke.measure(
                 lambda i: dm.decode_matmul(*sets[i % len(sets)]))[0]
+        sets = ffn_sets(torch, smoke, generator, mode)
+        times[f'decode_ffn{suffix}'] = smoke.measure(
+            lambda i: dm.decode_ffn(*sets[i % len(sets)]))[0]
+        del sets
     vocab, dim, count = max(smoke.CRITEO_KAGGLE), smoke.DLRM_DIM, 65536
     raw = torch.as_tensor(smoke.zipf_ids(vocab, count, seed), device='cuda')
     reps, inverse = dedup_ids(raw, vocab)

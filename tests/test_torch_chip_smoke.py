@@ -233,6 +233,50 @@ def test_decode_spill_check_fails_on_a_missing_or_spilling_instance(
         chip_smoke.check_spills('decode-ptxas', report, instances)
 
 
+def _ffn_output(suffix, spilling=()):
+    # one build of decode_matmul.cu: K4's six kernels and K5's, template
+    # <int weight type>, in the same anonymous namespace
+    namespace = f'_GLOBAL__N__7e1f0a55_16_decode_matmul_cu_{suffix}'
+    kernel = 'decode_ffn_kernel'
+    return _decode_output(suffix) + ''.join(
+        _report(f'_ZN{len(namespace)}{namespace}{len(kernel)}{kernel}'
+                f'ILi{mode}EEEv14CUtensorMap_stS1_PK13__nv_bfloat16PKfS6_S6_'
+                f'S6_PfPiPS2_iiiiiiiiii', registers=110 + 8 * mode,
+                spills=8 * (mode in spilling))
+        for mode in (0, 1, 2))
+
+
+@pytest.mark.parametrize('suffix', ['94ea2dd3', '629f6fbe', '00000025'])
+def test_decode_ptxas_covers_every_k5_instantiation(suffix):
+    """``decode-ptxas`` covers K5 at every weight type the wrapper launches
+    (bf16 0, int8 1, e4m3 2) beside K4's six instances: the names read back
+    from one build's report, whatever digits the namespace's hash holds."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.FFN_INSTANCES == tuple(
+        f'decode_ffn_kernel<{mode}>' for mode in (0, 1, 2))
+    instances = chip_smoke.DECODE_INSTANCES + chip_smoke.FFN_INSTANCES
+    report = chip_smoke.ptxas_report(_ffn_output(suffix))
+    assert sorted(report) == sorted(instances)
+    assert report['decode_ffn_kernel<1>']['registers'] == 118
+    chip_smoke.check_spills('decode-ptxas', report, instances)
+
+
+@pytest.mark.parametrize('broken', ['spilling', 'missing'])
+@pytest.mark.parametrize('mode', [0, 1, 2])
+def test_k5_spill_check_fails_on_a_missing_or_spilling_instance(broken,
+                                                                mode):
+    chip_smoke = _chip_smoke()
+    instances = chip_smoke.DECODE_INSTANCES + chip_smoke.FFN_INSTANCES
+    if broken == 'spilling':
+        report = chip_smoke.ptxas_report(
+            _ffn_output('00000025', spilling=(mode,)))
+    else:
+        report = chip_smoke.ptxas_report(_ffn_output('00000025'))
+        del report[f'decode_ffn_kernel<{mode}>']
+    with pytest.raises(SystemExit):
+        chip_smoke.check_spills('decode-ptxas', report, instances)
+
+
 def _lookup_output(suffix, spilling=()):
     # K9's kernels in the anonymous namespace of embedding_lookup.cu: the
     # staging pass, template <bool BF16, bool VEC>, and the fold, template

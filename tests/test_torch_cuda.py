@@ -38,7 +38,7 @@ from tpusystem_torch.ops.cuda import decode_matmul as dm
 from tpusystem_torch.ops.cuda import flash
 from tpusystem_torch.ops.cuda import grouped_matmul as gm
 from tpusystem_torch.ops.cuda import threefry as tf
-from tpusystem_torch.ops.precision import quantize_leaf
+from tpusystem_torch.ops.precision import QuantizedLeaf, quantize_leaf
 
 pytestmark = pytest.mark.cuda
 
@@ -191,6 +191,138 @@ def test_a_refused_cluster_launch_raises(device, mode, monkeypatch):
     torch.cuda.synchronize()
     _close(dm.decode_matmul(x, w), dm.decode_matmul_plain(x, w),
            2 ** -7 * dm.decode_matmul_plain(x, w).float().abs().max().item())
+
+
+# K5's edges (inner, hidden, cols): GPT-2's FFN, GPT-2 tiny's, K uneven over
+# 16 with H off a cluster's hidden slab (b1 large, so a leaked gelu(b1)
+# would show) and N under one 32-column tile, N off a multiple of 32, and
+# GPT-2 XL's FFN, whose weight boxes pass through a block's ring of slots
+# more than once
+K5_EDGES = [(768, 3072, 768), (64, 256, 64), (200, 272, 48), (768, 3072, 784),
+            (1600, 6400, 1600)]
+
+
+def _ffn_inputs(generator, mode, batch, inner, hidden, cols, device):
+    x = _normal(generator, (batch, inner), 1.0, device)
+    w1 = _decode_weight(generator, mode, (inner, hidden), device)
+    w2 = _decode_weight(generator, mode, (hidden, cols), device)
+    b1 = torch.randn(hidden, generator=generator, device=device) * (
+        4.0 if hidden % 256 else 0.1)
+    b2 = torch.randn(cols, generator=generator, device=device) * 0.1
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'int8', 'fp8'])
+@pytest.mark.parametrize('batch', [1, 8, 16, 19])
+@pytest.mark.parametrize('inner,hidden,cols', K5_EDGES)
+def test_decode_ffn_edges_match_plain_and_repeat(device, mode, batch, inner,
+                                                 hidden, cols):
+    """The cluster K5 at every weight type within 2**-7 of the largest
+    output of the plain version, one launch per slice of 16 (bf16) or 8
+    rows, and bitwise on a repeat (the slabs are summed in slab order)."""
+    generator = torch.Generator(device).manual_seed(batch * inner + hidden
+                                                    + cols)
+    args = _ffn_inputs(generator, mode, batch, inner, hidden, cols, device)
+    before = dm.decode_ffn.mode_launches[mode]
+    got = dm.decode_ffn(*args)
+    again = dm.decode_ffn(*args)
+    want = dm.decode_ffn_plain(*args)
+    torch.cuda.synchronize()
+    rows = 16 if mode == 'bf16' else 8
+    assert got.shape == (batch, cols) and got.dtype == torch.bfloat16
+    assert dm.decode_ffn.mode_launches[mode] - before == 2 * -(-batch // rows)
+    assert torch.equal(got, again)
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('mode', ['int8', 'fp8'])
+def test_k5_widens_every_narrow_value_exactly(device, mode):
+    """Every int8 byte and every finite e4m3 byte, subnormals included,
+    through K5: x picks row b of w1 for output row b and w2 is the identity,
+    all scales 1 and biases 0, so output [b, n] is gelu(widen(w1[b, n]))
+    rounded to bf16. It must be the plain version's within 2**-7 of
+    |widen(w1[b, n])|: a flushed subnormal would be off by half of itself."""
+    dtype = torch.int8 if mode == 'int8' else torch.float8_e4m3fn
+    codes = (torch.arange(16).view(16, 1) * 32
+             + torch.arange(256).view(1, 256)) % 256
+    codes[8:] = 0
+    if mode == 'fp8':
+        codes[codes % 128 == 127] = 0             # the two NaN codes
+    values = codes.to(torch.uint8).view(dtype).to(device)
+    ones = torch.ones(1, 256, device=device)
+    w1 = QuantizedLeaf(values, ones)
+    w2 = QuantizedLeaf(torch.eye(256, device=device).to(dtype), ones)
+    x = torch.eye(8, 16, device=device).to(torch.bfloat16)
+    zeros = torch.zeros(256, device=device)
+    got = dm.decode_ffn(x, w1, zeros, w2, zeros)
+    want = dm.decode_ffn_plain(x, w1, zeros, w2, zeros)
+    torch.cuda.synchronize()
+    widened = values[:8].float()
+    assert ((got.float() - want.float()).abs() <= 2 ** -7 * widened.abs()).all()
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'int8'])
+def test_a_refused_cluster_launch_of_k5_raises(device, mode, monkeypatch):
+    """K5 at a cluster of 32 blocks, past what the card takes: the launch
+    is refused, the wrapper raises, nothing is counted, and the next call
+    at 8 blocks gives the plain result."""
+    generator = torch.Generator(device).manual_seed(11)
+    args = _ffn_inputs(generator, mode, 4, 768, 3072, 768, device)
+    monkeypatch.setattr(dm, 'CLUSTER', 32)
+    before = dm.decode_ffn.launches
+    with pytest.raises(RuntimeError, match='CUDA launch failed'):
+        dm.decode_ffn(*args)
+    assert dm.decode_ffn.launches == before
+    monkeypatch.setattr(dm, 'CLUSTER', 8)
+    torch.cuda.synchronize()
+    want = dm.decode_ffn_plain(*args)
+    _close(dm.decode_ffn(*args), want, 2 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize('mode', ['bf16', 'int8'])
+def test_k5_past_its_shared_memory_raises(device, mode):
+    """K5 at K = 12,800, where x's 8 rows no longer fit a block beside one
+    weight box, raises and counts nothing; at K = 6,400 the same 8 rows
+    fit, the boxes pass through the ring many times, and the result is the
+    plain version's. bf16 at 16 rows reaches only about K = 6,100, so 6,400
+    raises there too."""
+    generator = torch.Generator(device).manual_seed(17)
+    for inner in (12800,) + ((6400,) if mode == 'bf16' else ()):
+        batch = 8 if inner == 12800 else 16
+        args = _ffn_inputs(generator, mode, batch, inner, 256, 64, device)
+        before = dm.decode_ffn.launches
+        with pytest.raises(RuntimeError, match='CUDA launch failed'):
+            dm.decode_ffn(*args)
+        assert dm.decode_ffn.launches == before
+    args = _ffn_inputs(generator, mode, 8, 6400, 256, 64, device)
+    got = dm.decode_ffn(*args)
+    want = dm.decode_ffn_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, 2 ** -7 * want.float().abs().max().item())
+
+
+def test_k5_on_two_streams_gives_the_plain_result(device):
+    """K5 launches in flight on two streams at once: each stream has its
+    own ticket counters and partials, so every result equals the default
+    stream's bit for bit and the plain version within tolerance."""
+    generator = torch.Generator(device).manual_seed(13)
+    sets = [_ffn_inputs(generator, mode, 8, 768, 3072, 768, device)
+            for mode in ('bf16', 'bf16')]
+    alone = [dm.decode_ffn(*args) for args in sets]
+    streams = [torch.cuda.Stream(device) for _ in sets]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream(device))
+    outputs = [[], []]
+    for _ in range(20):
+        for k, (stream, args) in enumerate(zip(streams, sets)):
+            with torch.cuda.stream(stream):
+                outputs[k].append(dm.decode_ffn(*args))
+    torch.cuda.synchronize()
+    for k, args in enumerate(sets):
+        assert all(torch.equal(got, alone[k]) for got in outputs[k])
+        want = dm.decode_ffn_plain(*args)
+        _close(outputs[k][-1], want,
+               2 ** -7 * want.float().abs().max().item())
 
 
 @pytest.mark.parametrize('shape', [(1,), (1000,), (3, 77, 5), (16, 128, 768)])

@@ -44,13 +44,26 @@ def test_decode_matmul_matches_jax(with_bias, activation):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_decode_ffn_matches_jax():
+# K5's edge shapes (inner, hidden, cols), the ones the on-card tests hold the
+# kernel to against this plain version: GPT-2's FFN, GPT-2 tiny's, K uneven
+# over 16 with H off a cluster's hidden slab and N under one 32-column tile
+# (b1 large, so a leaked gelu(b1) would show), N off a multiple of 32, and
+# GPT-2 XL's FFN
+K5_EDGES = [(768, 3072, 768), (64, 256, 64), (200, 272, 48), (768, 3072, 784),
+            (1600, 6400, 1600)]
+
+
+@pytest.mark.parametrize('inner,hidden,cols', K5_EDGES)
+def test_decode_ffn_matches_jax(inner, hidden, cols):
     rng = np.random.default_rng(2)
-    x = _normal(rng, (3, 64))
-    w1, b1 = _normal(rng, (64, 256), 64 ** -0.5), _normal(rng, (256,), 0.1)
-    w2, b2 = _normal(rng, (256, 64), 256 ** -0.5), _normal(rng, (64,), 0.1)
+    x = _normal(rng, (3, inner))
+    w1 = _normal(rng, (inner, hidden), inner ** -0.5)
+    b1 = _normal(rng, (hidden,), 4.0 if hidden % 256 else 0.1)
+    w2, b2 = _normal(rng, (hidden, cols), hidden ** -0.5), _normal(rng, (cols,), 0.1)
     want = jdm.decode_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    before = tdm.decode_ffn.launches
     got = tdm.decode_ffn(*(torch.from_numpy(a) for a in (x, w1, b1, w2, b2)))
+    assert tdm.decode_ffn.launches == before        # CPU: plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -104,3 +117,26 @@ def test_decode_kernels_reject_what_the_card_cannot_take():
     x = torch.zeros(2, 8, device='meta')
     with pytest.raises(ValueError, match='not supported'):
         tdm.decode_matmul(x, x.new_zeros(8, 8))
+
+
+def test_k5_workspaces_are_kept_per_stream_and_bounded():
+    """K5's partials and ticket counters: one set a stream, reused by its
+    next call, grown when a call needs more, and let go least recently
+    used first past ``WORKSPACE_STREAMS`` streams."""
+    saved = dict(tdm._WORKSPACES)
+    tdm._WORKSPACES.clear()
+    try:
+        cpu = torch.device('cpu')
+        first = tdm._workspace(cpu, 1, 64, 8)
+        assert tdm._workspace(cpu, 1, 32, 8)[1] is first[1]
+        grown = tdm._workspace(cpu, 1, 128, 8)
+        assert grown[0].numel() == 128 and grown[1] is first[1]
+        assert not grown[1].any()
+        for stream in range(2, tdm.WORKSPACE_STREAMS + 2):
+            tdm._workspace(cpu, stream, 64, 8)
+        assert len(tdm._WORKSPACES) == tdm.WORKSPACE_STREAMS
+        assert (cpu, 1) not in tdm._WORKSPACES
+        assert (cpu, tdm.WORKSPACE_STREAMS + 1) in tdm._WORKSPACES
+    finally:
+        tdm._WORKSPACES.clear()
+        tdm._WORKSPACES.update(saved)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash kernels (K1 in flash_fwd.cu,
 // the fused backward K2a/K2b in flash_bwd.cu), the grouped MoE products
-// (K6/K7 in grouped_matmul.cu), the decode matmul (K4 in decode_matmul.cu)
+// (K6/K7 in grouped_matmul.cu), the decode matmul and FFN (K4, K5 in
+// decode_matmul.cu)
 // and the ordered fold (K9 in embedding_lookup.cu): TMA tensor maps and
 // loads, 1-D bulk copies, cp.async, ldmatrix, mbarriers, named barriers,
 // thread-block clusters and their distributed shared memory, mma.sync,
@@ -262,6 +263,16 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t address) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(address)
+               : "memory");
+}
+
+// two 8 x 8 bf16 matrices, lanes 0-7 addressing matrix 0's rows, 8-15
+// matrix 1's: thread l receives row l / 4, columns 2 (l % 4) and + 1 of each
+// (an A fragment's registers 0 and 2 when rows 8-15 are zero)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, uint32_t address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(address)
                : "memory");
 }

@@ -10,9 +10,13 @@ weight bytes (``csrc/decode_matmul.cu`` holds the design note):
   block's weight slab brought in by TMA at its start and multiplied on the
   tensor cores, the partial tiles summed in rank order in the leading
   block's shared memory (TPU kernel ``_matmul_kernel``).
-* :func:`decode_ffn` — the fc → GELU → proj chain in one pass whose
-  ``[B, 4 * dim]`` hidden never reaches device memory (TPU kernel
-  ``_ffn_kernel``).
+* :func:`decode_ffn` — the fc → GELU → proj chain in one launch whose
+  ``[B, 4 * dim]`` hidden never reaches device memory: a cluster of
+  :data:`CLUSTER` blocks per slab of hidden columns, every block's w1 and
+  w2 slabs brought in by TMA at its start, both products on the tensor
+  cores, the hidden slab passed between the cluster's blocks in their
+  shared memory, and the slabs' float32 partials summed in slab order by
+  the last block to take its share's ticket (TPU kernel ``_ffn_kernel``).
 
 A weight is a bfloat16 matrix or, as in the reference, a
 :class:`~tpusystem_torch.ops.precision.QuantizedLeaf` of int8 or float8 e4m3
@@ -31,6 +35,7 @@ is rounded once.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -40,9 +45,12 @@ from tpusystem_torch.ops.cuda._build import LIBRARIES
 from tpusystem_torch.ops.precision import QuantizedLeaf, qdot
 
 ACTIVATIONS = (None, 'gelu')
-# K4 splits K across a cluster of this many blocks (8: the portable size);
-# a size the card refuses makes the call raise
+# K4 splits K, and K5 each slab of hidden columns, across a cluster of this
+# many blocks (8: the portable size); a size the card refuses makes the call
+# raise
 CLUSTER = 8
+# K5's hidden columns a block: a cluster's slab is CLUSTER times as wide
+SLAB_COLUMNS = 32
 # the kernels' weight types, by the name of their entry points
 MODES = {torch.bfloat16: 'bf16', torch.int8: 'int8',
          torch.float8_e4m3fn: 'fp8'}
@@ -94,17 +102,15 @@ def _library():
     if not getattr(lib, '_typed', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.decode_matmul_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-        lib.decode_ffn_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.decode_ffn_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         for mode in ('int8', 'fp8'):
             getattr(lib, f'decode_matmul_{mode}').argtypes = (
                 [ptr] * 5 + [i32] * 5 + [ptr])
             getattr(lib, f'decode_ffn_{mode}').argtypes = (
-                [ptr] * 9 + [i32] * 4 + [ptr])
+                [ptr] * 10 + [i32] * 5 + [ptr])
         for mode in MODES.values():
             getattr(lib, f'decode_matmul_{mode}').restype = i32
             getattr(lib, f'decode_ffn_{mode}').restype = i32
-        lib.decode_ffn_splits.argtypes = [i32]
-        lib.decode_ffn_splits.restype = i32
         lib.decode_max_rows.argtypes = [i32]
         lib.decode_max_rows.restype = i32
         lib._typed = True
@@ -180,6 +186,31 @@ def _raise_on(err, name):
         raise RuntimeError(f'{name}: CUDA launch failed with error {err}')
 
 
+# K5's scratch by (device, stream): the slabs' float32 partials and one
+# ticket counter a cluster rank. Launches on one stream run in order, so
+# they share it; a launch on another stream has its own, so two in flight
+# never share a counter; each launch leaves its counters 0. Past
+# WORKSPACE_STREAMS streams the least recently used one's is let go: the
+# caching allocator hands its memory only to later work on that stream,
+# which runs after the launches that used it. A CUDA graph keeps the
+# pointers it was captured with, so a capture would need a workspace of
+# its own, held as long as the graph.
+WORKSPACE_STREAMS = 8
+_WORKSPACES: collections.OrderedDict = collections.OrderedDict()
+
+
+def _workspace(device, stream: int, floats: int, ranks: int):
+    partial, tickets = _WORKSPACES.pop((device, stream), (None, None))
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < ranks:
+        tickets = torch.zeros(ranks, dtype=torch.int32, device=device)
+    _WORKSPACES[(device, stream)] = partial, tickets
+    while len(_WORKSPACES) > WORKSPACE_STREAMS:
+        _WORKSPACES.popitem(last=False)
+    return partial, tickets
+
+
 def _vector(mode: str) -> int:
     """Weight values per 16-byte load: the column multiple a kernel takes."""
     return 8 if mode == 'bf16' else 16
@@ -234,11 +265,20 @@ def decode_ffn(x, w1, b1, w2, b2, *, activation='gelu'):
     ``[B, K]``, ``w1`` ``[K, H]``, ``w2`` ``[H, N]`` (both bfloat16, or both
     :class:`QuantizedLeaf` s: w1's scales multiply the hidden sums before
     ``b1`` and the activation, w2's the output sums before ``b2``), biases
-    float32. The CUDA kernel splits the hidden dimension over blocks and
-    sums their float32 partials in a second, deterministic pass, which also
-    applies w2's scales to the full sum; it takes bfloat16 ``x``,
-    ``activation='gelu'``, and ``H`` and ``N`` multiples of 8 (bf16) or 16
-    (int8 and fp8)."""
+    float32.
+
+    On CUDA, one launch per 16 rows (bf16) or 8 rows (int8 and fp8): each
+    cluster of :data:`CLUSTER` blocks takes a slab of hidden columns,
+    keeps its hidden activation on chip and writes a float32 partial of
+    the output; the last block to take its columns' ticket sums the slabs'
+    partials in slab order, applies w2's scales to the full sum, then
+    ``b2``, and rounds once, so a repeat gives the same bits. The partials
+    and the ticket counters are kept per stream. It takes bfloat16 ``x``,
+    ``activation='gelu'``, ``H`` and ``N`` multiples of 8 (bf16) or 16
+    (int8 and fp8), and ``K`` up to about 6,100 (bf16 at 9-16 rows), 12,200
+    (bf16 at up to 8) or 11,700 (int8 and fp8), where x's rows still fit a
+    block beside one weight box; a shape past that, or a launch the card
+    refuses, raises ``RuntimeError``."""
     if x.device.type == 'cpu':
         return decode_ffn_plain(x, w1, b1, w2, b2, activation=activation)
     if activation != 'gelu':
@@ -262,14 +302,15 @@ def decode_ffn(x, w1, b1, w2, b2, *, activation='gelu'):
     b1, b2 = _bias(b1, hidden, x.device), _bias(b2, cols, x.device)
     s1, s2 = _scales(w1), _scales(w2)
     out = torch.empty((batch, cols), dtype=torch.bfloat16, device=x.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    handle = torch.cuda.current_stream(x.device).cuda_stream
+    stream = ctypes.c_void_p(handle)
     kernel = getattr(lib, f'decode_ffn_{mode}')
     step = lib.decode_max_rows(v1.element_size())
-    splits = lib.decode_ffn_splits(hidden)
+    slabs = -(-hidden // (CLUSTER * SLAB_COLUMNS))
+    partial, tickets = _workspace(x.device, handle, slabs * step * cols,
+                                  CLUSTER)
     for start in range(0, batch, step):
         rows = min(step, batch - start)
-        partial = torch.empty((splits, rows, cols), dtype=torch.float32,
-                              device=x.device)
         if mode == 'bf16':
             weights = (_pointer(v1), _pointer(b1), _pointer(v2),
                        _pointer(b2))
@@ -277,8 +318,9 @@ def decode_ffn(x, w1, b1, w2, b2, *, activation='gelu'):
             weights = (_pointer(v1), _pointer(s1), _pointer(b1), _pointer(v2),
                        _pointer(s2), _pointer(b2))
         err = kernel(_pointer(x[start:start + rows]), *weights,
-                     _pointer(partial), _pointer(out[start:start + rows]),
-                     rows, inner, hidden, cols, stream)
+                     _pointer(partial), _pointer(tickets),
+                     _pointer(out[start:start + rows]), rows, inner, hidden,
+                     cols, CLUSTER, stream)
         _raise_on(err, 'decode_ffn')
         decode_ffn.launches += 1
         decode_ffn.mode_launches[mode] += 1
