@@ -133,12 +133,19 @@ Phases, in order; any failure exits non-zero:
    side of it, bf16 rows and widths 8, 130 and 512, each bit for bit and
    repeated, the first two timed beside ``index_add_``;
 14. train the DLRM at MLPerf's widths over the 26 Criteo Kaggle tables
-    (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the port's
-    ``Loader``: ``dlrm_tiny`` first held against the CPU, then one warm-up
-    and five timed steps whose losses must fall, K8 launched 26 times and
-    K9 52 times per step, a repeated step equal bit for bit, a holdout AUC
-    and a traced window with K9's device ms per step and the 26 folds'
-    (replayed on the step's batch);
+    (17.3 GB of float32 tables) with SGD (lr 0.3) at batch 65,536 from the
+    port's ``Loader``, through the port's host layers: ``dlrm_tiny`` first
+    held against the CPU; then a ``Compiler`` builds the ``Recommender``
+    aggregate (its steps take the device and the seed by ``Depends``), the
+    ``train`` handler of a ``Service`` runs one warm-up and five timed steps
+    whose losses must fall, K8 launched 26 times and K9 52 times per step,
+    and ends the phase with one ``Trained`` on a one-process ``Runtime``'s
+    producer, which ``evaluation_consumer`` answers with one
+    ``RecsysEvaluated`` (its metrics bit for bit a direct evaluator run),
+    the ledger counting both; a ``StopIteration`` enqueued on the aggregate
+    unwinds out of its epoch assignment (``dlrm-host``); a repeated step
+    equal bit for bit, a holdout AUC and a traced window with K9's device
+    ms per step and the 26 folds' (replayed on the step's batch);
 15. serve Llama-3 8B (``llama3_8b``: 32 layers, dim 4096, 32 / 8 heads of
     128, FFN 14336, vocab 128256, ``max_seq`` 8192; random weights from
     ``--seed``) through ``Engine(rows=8, block_size=16)``, after freeing the
@@ -177,6 +184,10 @@ import pathlib
 import subprocess
 import sys
 import time
+
+from tpusystem_torch import Aggregate, Compiler, Depends, Runtime
+from tpusystem_torch.registry import gethash
+from tpusystem_torch.train import build_train_step, module_apply
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak, same source
@@ -2140,64 +2151,213 @@ def repeat_step(torch, step, state, features, labels) -> dict:
     return result
 
 
+class Recommender(Aggregate):
+    """The DLRM as an aggregate, as ``examples/tinysys``'s ``Classifier``
+    is the MLP's: the network (a child module), its criterion, optimizer
+    and train state, identified by the network's registry hash. ``fit`` is
+    one train step (the state advances in place); every epoch assignment
+    commits the domain events."""
+
+    def __init__(self, network, criterion, optimizer, state):
+        super().__init__()
+        self.network = network
+        self.criterion, self.optimizer, self.state = (criterion, optimizer,
+                                                      state)
+        self.epoch = 0                  # first assignment: no onepoch()
+        self._step = build_train_step(module_apply(network), criterion,
+                                      optimizer)
+
+    @property
+    def id(self) -> str:
+        return gethash(self.network)
+
+    def fit(self, features, labels):
+        """One step; returns the loss on the device."""
+        self.state, (_, loss) = self._step(self.state, features, labels)
+        return loss
+
+    def onepoch(self) -> None:
+        self.events.commit()
+
+
+def compose_recommender(torch, factory, arguments: dict, holdout, *,
+                        device: str, seed: int, lr: float, batch: int,
+                        counters=()):
+    """Phase 14's composition root, the port's host layers end to end.
+
+    A ``Compiler`` builds the :class:`Recommender`: ``factory(**arguments)``
+    on the device, weights redrawn from a generator seeded ``seed`` there,
+    then SGD at ``lr``, ``BCEWithLogitsLoss`` and the train state; its steps
+    take the device and the seed by ``Depends``. A one-process ``Runtime``
+    with its ledger carries the phase's events to a collector and to
+    ``evaluation_consumer`` (the holdout in batches of ``batch``), which
+    answers each ``Trained`` of this model with ``RecsysEvaluated``. The
+    ``train`` handler of a ``Service`` runs one warm-up step, sets every
+    counter of ``counters`` to 0, times each later step on the host clock,
+    reads the counters, dispatches one ``Trained`` and ends the epoch.
+    Returns ``(model, service, runtime, events)``."""
+    from tpusystem_torch.data import Loader
+    from tpusystem_torch.observe.events import RecsysEvaluated, Trained
+    from tpusystem_torch.recsys import RecsysEvaluator, evaluation_consumer
+    from tpusystem_torch.services import Consumer, Service
+    from tpusystem_torch.train import SGD, BCEWithLogitsLoss, init_state
+
+    def build_device():
+        raise NotImplementedError('the composition root gives the device')
+
+    def build_seed():
+        raise NotImplementedError('the composition root gives the seed')
+
+    compiler = Compiler()
+
+    @compiler.step
+    def build(factory, arguments, device=Depends(build_device)):
+        return factory(**arguments, device=device)
+
+    @compiler.step
+    def initialize(network, device=Depends(build_device),
+                   seed=Depends(build_seed)):
+        network.init_weights(torch.Generator(device).manual_seed(seed))
+        return network
+
+    @compiler.step
+    def assemble(network, seed=Depends(build_seed)):
+        optimizer = SGD(lr=lr)
+        return Recommender(network, BCEWithLogitsLoss(), optimizer,
+                           init_state(network, optimizer, rng=seed))
+
+    compiler.dependency_overrides[build_device] = lambda: device
+    compiler.dependency_overrides[build_seed] = lambda: seed
+    model = compiler.compile(factory, arguments)
+
+    runtime = Runtime(ledger=True)
+    events = []
+    collector = Consumer('collector')
+    for kind in (Trained, RecsysEvaluated):
+        collector.register(kind, events.append)
+    evaluator = RecsysEvaluator(model.network,
+                                Loader(holdout, batch, device=device))
+    runtime.producer.register(collector, evaluation_consumer(
+        evaluator, producer=runtime.producer, subject=model.id))
+    service = Service()
+
+    @service.handler
+    def train(model, batches):
+        features, labels = next(batches)
+        started = time.perf_counter()
+        losses = [model.fit(features, labels).item()]         # warm-up
+        warmup_s = time.perf_counter() - started
+        for counter in counters:
+            counter.launches = 0
+        seconds = []
+        for features, labels in batches:
+            started = time.perf_counter()
+            losses.append(model.fit(features, labels).item())  # waits
+            seconds.append(time.perf_counter() - started)
+        launches = {counter.__name__: counter.launches
+                    for counter in counters}
+        runtime.producer.dispatch(Trained(model, {'loss': losses[-1]}))
+        model.epoch += 1
+        runtime.sync()
+        return dict(losses=losses, seconds=seconds, warmup_s=warmup_s,
+                    launches=launches, batch=(features, labels),
+                    stop=runtime.should_stop(False))
+
+    return model, service, runtime, events
+
+
+def check_host(model, runtime, events, phase, holdout, batch: int) -> dict:
+    """The host layers' checks after the ``train`` handler: one ``Trained``
+    and one ``RecsysEvaluated`` of this model, in that order; the
+    consumer's metrics floats and bit for bit a direct evaluator run on the
+    same state; the ledger counting both; no stop; then a
+    ``StopIteration`` enqueued on the aggregate unwinds out of the epoch
+    assignment, and the collective verdict is to stop."""
+    from tpusystem_torch.data import Loader
+    from tpusystem_torch.recsys import RecsysEvaluator
+
+    names = [type(event).__name__ for event in events]
+    if names != ['Trained', 'RecsysEvaluated'] or any(
+            event.model is not model for event in events):
+        fail(f'the train phase dispatched {names}, not one Trained and '
+             'one RecsysEvaluated of its model')
+    metrics = events[1].metrics
+    device = next(model.network.parameters()).device
+    direct = RecsysEvaluator(model.network, Loader(
+        holdout, batch, device=device)).run(model.state)
+    if (sorted(metrics) != ['auc', 'loss']
+            or any(type(value) is not float for value in metrics.values())
+            or metrics != direct):
+        fail(f'evaluation_consumer gave {metrics}, a direct run {direct}')
+    if runtime.ledger.count != len(events):
+        fail(f'the ledger counted {runtime.ledger.count} events, the '
+             f'collector {len(events)}')
+    if phase['stop'] or model.epoch != 1:
+        fail(f"after the phase: stop {phase['stop']}, epoch {model.epoch}")
+    model.events.enqueue(StopIteration)
+    unwound = False
+    try:
+        model.epoch += 1
+    except StopIteration:
+        unwound = True
+    if not unwound or model.epoch != 2:
+        fail('a StopIteration enqueued on the aggregate did not unwind out '
+             'of its epoch assignment')
+    stop = runtime.should_stop(unwound)
+    if stop is not True:
+        fail(f'the runtime did not agree to stop: {stop}')
+    return dict(events={name: names.count(name) for name in names},
+                ledger_count=runtime.ledger.count,
+                ledger_digest=runtime.ledger.digest, metrics=metrics,
+                direct_metrics_equal=metrics == direct,
+                early_stop_unwound=unwound, should_stop=stop,
+                epoch=model.epoch, id=model.id)
+
+
 def train_dlrm(torch, seed: int) -> dict:
     """Phase 14: the DLRM at MLPerf's widths (NVIDIA DeepLearningExamples'
     PyTorch recipe: 13 dense features, 26 tables of dim 128, bottom MLP
     512-256-128, top MLP 1024-1024-512-256-1, dot interaction) over the
     Criteo Kaggle cardinalities (33,762,577 rows, 17.3 GB of float32
-    tables), batch 65,536 one-hot, trained with SGD: the main path of this
-    slice. Batches come from the port's ``Loader`` over ``SyntheticClicks``
+    tables), batch 65,536 one-hot, trained with SGD through the port's host
+    layers (:func:`compose_recommender`): the main path of this slice.
+    Batches come from the port's ``Loader`` over ``SyntheticClicks``
     (truncated Zipf, alpha 1.3). One warm-up and DLRM_STEPS timed steps
     whose losses must fall, K8 launched once per table per step and K9
-    twice (the table gradient and the batch-side fold); a repeated step
-    from the same state equal bit for bit; a holdout AUC; a traced
-    window of two steps."""
+    twice (the table gradient and the batch-side fold); the phase's events
+    (:func:`check_host`); a repeated step from the same state equal bit for
+    bit; a holdout AUC; a traced window of two steps. The peak memory is
+    the train handler's (its warm-up, its steps and the holdout
+    evaluation that its ``Trained`` starts)."""
     import gc
 
     from tpusystem_torch.data import Loader, SyntheticClicks
     from tpusystem_torch.models import DLRM
     from tpusystem_torch.ops.cuda import embedding_lookup as el
-    from tpusystem_torch.recsys import RecsysEvaluator
-    from tpusystem_torch.train import (SGD, BCEWithLogitsLoss,
-                                       build_train_step, init_state,
-                                       module_apply)
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reference = dlrm_card_vs_cpu(torch)
     started = time.perf_counter()
-    module = DLRM(vocabs=CRITEO_KAGGLE, dim=DLRM_DIM, dense_features=13,
-                  bottom=(512, 256), top=(1024, 1024, 512, 256),
-                  device='cuda')
-    module.init_weights(torch.Generator('cuda').manual_seed(seed))
     clicks = dict(vocabs=CRITEO_KAGGLE, hot=1, dense=13, seed=0)
-    data = SyntheticClicks(samples=DLRM_BATCH * (1 + DLRM_STEPS), **clicks)
     holdout = SyntheticClicks(samples=DLRM_BATCH * 2, train=False, **clicks)
-    setup_s = time.perf_counter() - started
-    optimizer = SGD(lr=DLRM_LR)
-    state = init_state(module, optimizer, rng=seed)
-    step = build_train_step(module_apply(module), BCEWithLogitsLoss(),
-                            optimizer)
-    batches = iter(Loader(data, DLRM_BATCH, shuffle=True, seed=seed))
-    features, labels = next(batches)
-    started = time.perf_counter()
-    state, (_, loss) = step(state, features, labels)            # warm-up
-    losses = [loss.item()]
-    warmup_s = time.perf_counter() - started
     counters = (el.gather_rows, el.scatter_add_rows)
-    for counter in counters:
-        counter.launches = 0
+    model, service, runtime, events = compose_recommender(
+        torch, DLRM, dict(vocabs=CRITEO_KAGGLE, dim=DLRM_DIM,
+                          dense_features=13, bottom=(512, 256),
+                          top=(1024, 1024, 512, 256)), holdout,
+        device='cuda', seed=seed, lr=DLRM_LR, batch=DLRM_BATCH,
+        counters=counters)
+    data = SyntheticClicks(samples=DLRM_BATCH * (1 + DLRM_STEPS), **clicks)
+    setup_s = time.perf_counter() - started
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seconds = []
-    for features, labels in batches:
-        started = time.perf_counter()
-        state, (_, loss) = step(state, features, labels)
-        losses.append(loss.item())                        # waits for the step
-        seconds.append(time.perf_counter() - started)
-    launches = {counter.__name__: counter.launches for counter in counters}
+    phase = service.handle('train', model, iter(
+        Loader(data, DLRM_BATCH, shuffle=True, seed=seed)))
     peak = torch.cuda.max_memory_allocated()
+    losses, seconds, launches = (phase['losses'], phase['seconds'],
+                                 phase['launches'])
     steps, tables = len(seconds), len(CRITEO_KAGGLE)
     if not all(math.isfinite(value) for value in losses):
         fail(f'non-finite DLRM loss: {losses}')
@@ -2208,17 +2368,25 @@ def train_dlrm(torch, seed: int) -> dict:
             'scatter_add_rows': 2 * tables * steps}:
         fail(f'{steps} DLRM steps launched {launches}')
     median = sorted(seconds)[len(seconds) // 2]
-    repeat = repeat_step(torch, step, state, features, labels)
-    metrics = RecsysEvaluator(module, Loader(holdout, DLRM_BATCH)).run(state)
+    host = check_host(model, runtime, events, phase, holdout, DLRM_BATCH)
+    host.update(median_step_ms=1e3 * median, min_step_ms=1e3 * min(seconds),
+                max_step_ms=1e3 * max(seconds),
+                samples_per_s=DLRM_BATCH / median)
+    print('dlrm-host ' + json.dumps(host))
+    metrics = host['metrics']
     print('dlrm-eval ' + json.dumps(metrics))
     if not (math.isfinite(metrics['loss']) and 0.0 <= metrics['auc'] <= 1.0):
         fail(f'DLRM holdout metrics: {metrics}')
-    profile = profile_steps(torch, lambda: step(state, features, labels),
+    features, labels = phase['batch']
+    repeat = repeat_step(torch, lambda state, *batch: model.fit(*batch),
+                         model.state, features, labels)
+    profile = profile_steps(torch, lambda: model.fit(features, labels),
                             steps=2, top_n=16,
                             sums=('segment_fold_kernel',
                                   'stage_products_kernel'))
     profile['folds'] = dlrm_folds(torch, features, seed)
     print('dlrm-train-profile ' + json.dumps(profile))
+    runtime.close()
     # the least a dense-gradient SGD step moves through the tables: the
     # gradient's zero fill, then the parameters and gradients read and the
     # parameters written; the port's SGD also writes and reads -lr * g
@@ -2228,14 +2396,14 @@ def train_dlrm(torch, seed: int) -> dict:
             name: count / steps for name, count in launches.items()},
         losses=losses, step_ms=[1e3 * s for s in seconds],
         median_step_ms=1e3 * median, min_step_ms=1e3 * min(seconds),
-        max_step_ms=1e3 * max(seconds), warmup_s=warmup_s, setup_s=setup_s,
-        samples_per_s=DLRM_BATCH / median, peak_memory_bytes=peak,
-        batch=DLRM_BATCH, steps=steps, lr=DLRM_LR,
-        params=sum(p.numel() for p in module.parameters()),
+        max_step_ms=1e3 * max(seconds), warmup_s=phase['warmup_s'],
+        setup_s=setup_s, samples_per_s=DLRM_BATCH / median,
+        peak_memory_bytes=peak, batch=DLRM_BATCH, steps=steps, lr=DLRM_LR,
+        params=sum(p.numel() for p in model.network.parameters()),
         table_bytes=table_bytes, step_table_bytes_least=4 * table_bytes,
         hbm_bound_ms=4 * table_bytes / HBM_BYTES_PER_S * 1e3,
         step_table_bytes_port=6 * table_bytes, holdout=metrics,
-        repeat=repeat, reference=reference, profile=profile)
+        host=host, repeat=repeat, reference=reference, profile=profile)
 
 
 def dlrm_folds(torch, features, seed: int) -> dict:
@@ -2673,12 +2841,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device')
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-    try:
-        from tpusystem_torch.ops.cuda._build import LIBRARIES
-    except ImportError as error:
-        fail(f'the tpusystem_torch package is not beside this script '
-             f'({error})')
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

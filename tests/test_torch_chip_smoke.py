@@ -396,3 +396,90 @@ def test_fold_cases_hold_what_they_name(case):
         assert rows.dtype == (torch.bfloat16 if case == 'bf16'
                               else torch.float32)
         assert rows.shape[1] == (128 if case == 'bf16' else int(case[3:]))
+
+
+def _phase_14(seed=3, counted=True):
+    """Phase 14's composition on the CPU at ``dlrm_tiny``'s size: the
+    model, the train phase's result and the host objects."""
+    import torch
+    from tpusystem_torch.data import Loader, SyntheticClicks
+    from tpusystem_torch.models import dlrm_tiny
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    chip_smoke = _chip_smoke()
+    clicks = dict(samples=96, vocabs=(64, 32), seed=0)
+    holdout = SyntheticClicks(train=False, **clicks)
+    counters = (el.gather_rows, el.scatter_add_rows) if counted else ()
+    model, service, runtime, events = chip_smoke.compose_recommender(
+        torch, dlrm_tiny, {}, holdout, device='cpu', seed=seed, lr=0.5,
+        batch=32, counters=counters)
+    batches = list(Loader(SyntheticClicks(**clicks), 32, shuffle=True,
+                          seed=seed, device='cpu'))
+    return chip_smoke, holdout, batches, model, service, runtime, events
+
+
+def test_phase_14_drives_the_dlrm_through_the_host_layers_on_the_cpu():
+    """``compose_recommender`` with ``dlrm_tiny`` on the CPU: the
+    ``Compiler`` draws the weights from the injected seed on the injected
+    device, the ``train`` handler's losses are the plain train step's on
+    the same weights and batches, the phase gives one ``Trained`` and one
+    ``RecsysEvaluated`` that ``check_host`` accepts, and the enqueued stop
+    unwinds. On the CPU the lookup runs its plain versions, so the kernels'
+    counters stay at 0."""
+    import torch
+    from tpusystem_torch.models import dlrm_tiny
+    from tpusystem_torch.registry import gethash
+    from tpusystem_torch.train import (SGD, BCEWithLogitsLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    chip_smoke, holdout, batches, model, service, runtime, events = (
+        _phase_14())
+    want = dlrm_tiny(device='cpu')
+    want.init_weights(torch.Generator('cpu').manual_seed(3))
+    weights = want.state_dict()
+    assert isinstance(model, chip_smoke.Recommender)
+    assert isinstance(model, torch.nn.Module) and model.phase == 'train'
+    assert dict(model.named_children()) == {'network': model.network}
+    assert model.id == gethash(model.network) == gethash(want)
+    for name, value in model.network.state_dict().items():
+        assert torch.equal(value, weights[name]), name
+    assert all(model.state.params[name] is param for name, param
+               in model.network.named_parameters())
+
+    phase = service.handle('train', model, iter(batches))
+    optimizer = SGD(lr=0.5)
+    step = build_train_step(module_apply(want), BCEWithLogitsLoss(),
+                            optimizer)
+    state = init_state(want, optimizer, rng=3)
+    plain = [step(state, *batch)[1][1].item() for batch in batches]
+    assert phase['losses'] == plain
+    assert len(phase['seconds']) == 2 and phase['stop'] is False
+    assert phase['launches'] == {'gather_rows': 0, 'scatter_add_rows': 0}
+    host = chip_smoke.check_host(model, runtime, events, phase, holdout,
+                                 32)
+    assert host['events'] == {'Trained': 1, 'RecsysEvaluated': 1}
+    assert host['ledger_count'] == 2 and host['direct_metrics_equal']
+    assert host['early_stop_unwound'] and host['should_stop'] is True
+    assert host['epoch'] == 2 and host['id'] == model.id
+    runtime.close()
+
+
+@pytest.mark.parametrize('broken', ['extra-event', 'other-metrics',
+                                    'unledgered', 'stopped'])
+def test_phase_14_host_check_fails_on_a_wrong_phase(broken):
+    """``check_host`` exits on an extra event, metrics that are not the
+    direct run's, an event the ledger did not count, or a phase that asked
+    to stop."""
+    chip_smoke, holdout, batches, model, service, runtime, events = (
+        _phase_14(counted=False))
+    phase = service.handle('train', model, iter(batches))
+    if broken == 'extra-event':
+        events.append(events[0])
+    elif broken == 'other-metrics':
+        events[1].metrics['auc'] += 1e-9
+    elif broken == 'unledgered':
+        runtime.ledger.count -= 1
+    else:
+        phase['stop'] = True
+    with pytest.raises(SystemExit):
+        chip_smoke.check_host(model, runtime, events, phase, holdout, 32)
+    runtime.close()

@@ -34,24 +34,29 @@ from tpusystem.models import DLRM as JaxDLRM
 from tpusystem.models import TwoTower as JaxTwoTower
 from tpusystem.models import dlrm_tiny as jax_dlrm_tiny
 from tpusystem.models import two_tower_tiny as jax_two_tower_tiny
+from tpusystem.observe.events import Trained as JTrained
 from tpusystem.ops.pallas import embedding_lookup as jel
 from tpusystem.recsys import RecallAtK as JaxRecallAtK
 from tpusystem.recsys import ShardedEmbedding as JaxShardedEmbedding
 from tpusystem.recsys import StreamingAUC as JaxStreamingAUC
 from tpusystem.recsys import dedup_ids as jax_dedup_ids
+from tpusystem.recsys import evaluation_consumer as jax_evaluation_consumer
 from tpusystem.recsys import lookup as jax_lookup
 from tpusystem.recsys import route_plan as jax_route_plan
 from tpusystem.registry import gethash as jax_gethash
+from tpusystem.services import Producer as JProducer
 from tpusystem.train import metrics as jmetrics
 from tpusystem_torch import train as ttrain
 from tpusystem_torch.convert import params_from_jax
 from tpusystem_torch.data import Loader, SyntheticClicks
 from tpusystem_torch.models import DLRM, TwoTower, dlrm_tiny, two_tower_tiny
+from tpusystem_torch.observe.events import Trained as TTrained
 from tpusystem_torch.ops.cuda import embedding_lookup as tel
 from tpusystem_torch.recsys import (RecallAtK, RecsysEvaluator,
                                     ShardedEmbedding, StreamingAUC, dedup_ids,
                                     evaluation_consumer, lookup, route_plan)
 from tpusystem_torch.registry import gethash
+from tpusystem_torch.services import Producer as TProducer
 from tpusystem_torch.train import metrics as tmetrics
 from tpusystem_torch.train import optim as toptim
 
@@ -375,8 +380,36 @@ def test_a_split_table_is_not_ported():
     with pytest.raises(NotImplementedError, match='queue 1: 9'):
         ShardedEmbedding(64, 8, mesh=_mesh(data=2, model=2), device='cpu')
     ShardedEmbedding(64, 8, mesh=_mesh(data=8), device='cpu')   # one shard
-    with pytest.raises(NotImplementedError, match='queue 1: 2'):
-        evaluation_consumer(None)
+    assert (_scoped_evaluations(evaluation_consumer, TTrained, TProducer)
+            == _scoped_evaluations(jax_evaluation_consumer, JTrained,
+                                   JProducer))
+
+
+def _scoped_evaluations(evaluation_consumer, trained, producer_type):
+    """Which ``Trained`` events an evaluation consumer answers, scoped by
+    instance, by ``id`` and not at all, and the ``RecsysEvaluated`` events
+    it dispatches."""
+    runs, dispatched = [], []
+
+    class Evaluator:
+        def run(self, state):
+            runs.append(state)
+            return {'auc': 0.5, 'loss': float(len(runs))}
+
+    mine = types.SimpleNamespace(id='mine', state='mine-state')
+    other = types.SimpleNamespace(id='other', state='other-state')
+    twin = types.SimpleNamespace(id='mine', state='twin-state')
+    producer = producer_type()
+    producer.taps.append(lambda event: dispatched.append(
+        (type(event).__name__, event.model.state, event.metrics)))
+    for subject in (mine, 'mine', None):
+        consumer = evaluation_consumer(Evaluator(), producer=producer,
+                                       subject=subject)
+        for model in (mine, other, twin):
+            consumer.consume(trained(model, {'loss': 1.0}))
+    assert runs == ['mine-state', 'mine-state', 'twin-state', 'mine-state',
+                    'other-state', 'twin-state']
+    return runs, dispatched
 
 
 @pytest.mark.parametrize('dedup', [True, False])

@@ -14,18 +14,21 @@ per phase.
 * :class:`RecsysEvaluator` — drives a held-out loader (any iterable of
   ``(features, labels)``, the port's :class:`~tpusystem_torch.data.Loader`
   included) through the port's ``build_eval_step`` and both accumulators.
-
-Not ported yet: ``evaluation_consumer`` (the reference's bus consumer that
-runs the evaluator on every ``Trained`` event, ``recsys/eval.py:147``) needs
-``services.Consumer`` and ``observe.events``, ROADMAP queue 1 item 2; it
-raises ``NotImplementedError`` naming that item.
+  Wire it to the bus with :func:`evaluation_consumer`: the consumer reacts
+  to each :class:`~tpusystem_torch.observe.events.Trained` (phase cadence)
+  and dispatches :class:`~tpusystem_torch.observe.events.RecsysEvaluated`
+  with the materialized metric floats.
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable
+
 import numpy as np
 import torch
 
+from tpusystem_torch.observe.events import RecsysEvaluated, Trained
+from tpusystem_torch.services.prodcon import Consumer
 from tpusystem_torch.train.metrics import Mean, TopKAccuracy
 
 
@@ -121,10 +124,36 @@ class RecsysEvaluator:
         return metrics
 
 
-def evaluation_consumer(*args, **kwargs):
-    """The bus consumer running the streaming eval at phase cadence: not
-    ported yet."""
-    raise NotImplementedError(
-        'evaluation_consumer is not ported to tpusystem_torch yet (ROADMAP '
-        'queue 1: 2. Skeleton, parity harness, host layers: services.Consumer '
-        'and observe.events)')
+def evaluation_consumer(evaluator: RecsysEvaluator,
+                        state_of: Callable[[Any], Any] | None = None,
+                        producer=None, subject: Any = None):
+    """Consumer running the streaming eval at phase cadence.
+
+    Reacts to :class:`~tpusystem_torch.observe.events.Trained` (the training
+    service dispatches one per train phase), pulls the current
+    ``TrainState`` off the aggregate (``state_of(model)``, default
+    ``model.state``), runs the evaluator (its updates stay on the device,
+    its ``compute`` is the phase's one read back), and — when ``producer``
+    is given — dispatches
+    :class:`~tpusystem_torch.observe.events.RecsysEvaluated` so downstream
+    consumers (ledger, tensorboard) chart the metrics.
+
+    ``subject`` scopes the handler on a shared bus: pass the aggregate
+    instance (or its ``id``) this evaluator's module belongs to, and
+    ``Trained`` events from *other* models are ignored — the evaluator's
+    eval step is bound to one module, so another model's state would be
+    a parameter mismatch. ``None`` (single-model buses) reacts to every
+    ``Trained``."""
+    state_of = state_of or (lambda model: model.state)
+    consumer = Consumer('recsys-eval')
+
+    @consumer.handler
+    def on_trained(event: Trained) -> None:
+        if subject is not None and event.model is not subject \
+                and getattr(event.model, 'id', None) != subject:
+            return
+        metrics = evaluator.run(state_of(event.model))
+        if producer is not None:
+            producer.dispatch(RecsysEvaluated(event.model, metrics))
+
+    return consumer
