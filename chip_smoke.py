@@ -61,10 +61,11 @@ Phases, in order; any failure exits non-zero:
    through the backward's routing;
 5. serve GPT-2 125M (full width, random weights from ``--seed``) through the
    paged ``Engine``: eight requests of 20 to 700 prompt tokens, 32 new tokens
-   each; every serving kernel's launch count must rise during this run, and
-   one decode step's logits through the fused kernels must agree with the
-   module path on the same state; then a traced window of decode steps says
-   where a step's time goes;
+   each; every serving kernel's launch count must rise during this run (the
+   requests are greedy: every step takes the plain argmax and the sampler's
+   kernel never launches), and one decode step's logits through the fused
+   kernels must agree with the module path on the same state; then a traced
+   window of decode steps says where a step's time goes;
 6. streamed int8 and fp8 weights: K4 and K5 with int8, then float8 e4m3
    weights and float32 per-channel scales against their plain versions at
    phase 2's shapes, timed beside them, ``F.linear`` on the widened bf16
@@ -126,7 +127,10 @@ Phases, in order; any failure exits non-zero:
    with 65,536 Zipf ids, through the dedup pass and without it, the
    batch-side fold (its longest segment and chain floor, that segment's
    dependent adds at 4 cycles each at ``clocks.max.sm``, beside its byte
-   bound: ``fold-bound``), a bf16 table and a width off the 16-byte loads;
+   bound: ``fold-bound``), a bf16 table and a width off the 16-byte loads
+   (K8 timed back to back in a CUDA graph by CUDA events, each call
+   writing its own output, so its 33.5 MB are written to HBM at HBM's rate
+   and not absorbed by the 50 MB L2 between launches);
    then the fold sweep (``fold-sweep``): one id at all 65,536 positions,
    the vocabulary-3 table's head, all ids distinct, sentinels interleaved
    and at the end, segments at the long path's threshold and one either
@@ -167,9 +171,37 @@ Phases, in order; any failure exits non-zero:
     K1 16 and K2b 8 launches a step (K2a, K3a, K3b none); step ms,
     tokens/s, peak memory and ``mfu``, and a traced window
     (``train-llama``, ``train-llama-profile``);
-17. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+17. sampled serving (``serve-sampled``): the sampler's per-row uniform
+    kernel (``threefry.cu``, ``row_uniforms``) bit for bit its plain version
+    at 64 ``(seed, position)`` keys over GPT-2's vocabulary and timed at the
+    engine's [8, 50257]; then phase 5's model and prompts through
+    ``Engine(rows=8)`` all greedy, and with two greedy rows, two at
+    temperature 0.8, one at ``top_k`` 40, one at ``top_p`` 0.9, one at
+    ``top_k`` 1 on a greedy row's prompt and one greedy under a grammar:
+    K1, K4, K5 and the uniform kernel launch and the plain sampler never
+    runs, the greedy and ``top_k`` 1 rows equal the all-greedy run's, the
+    rows seated in reverse order emit the same streams, the masked row's
+    tokens pass its mask, and ``sample_token`` at 4,096 positions on fixed
+    logits (``top_k`` 8) within a chi-square bound of the renormalised
+    softmax; decode tokens/s and step ms of both runs, and four steps of
+    each traced;
+18. prefix sharing (``serve-prefix``): the same weights through
+    ``Engine(share_prefix=True)``, eight prompts behind a 256-token prefix
+    and two behind a 640-token one: every hit resumes, K1 only for the two
+    full prefills, each resumed first-token logit row within phase 5's
+    tolerance of a full prefill, a clean pool audit after every eviction;
+    the shares of equal first tokens and 32-token streams against the same
+    prompts without sharing, the time to first token resumed against
+    full, and one resumed and one full prefill traced;
+19. the verybasic example (``verybasic``): ``examples/verybasic_torch/
+    train.py``'s ``main()`` on the card, its epoch loss falling every
+    epoch, the mask kernel once a step; one MLP step (Adam) on the card
+    against the CPU; and ``events.py``, ``prodcon.py``, ``pubsub.py`` printing what
+    the reference's scripts print;
+20. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel), the card's name and power limit, and last the
-    ``{"ok": true, "device": ...}`` line.
+    ``{"ok": true, "device": ...}`` line. Each of phases 17-19 prints its
+    seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -285,6 +317,28 @@ LOOKUP_INSTANCES = tuple(
     for vec in ('false', 'true')) + tuple(
         f'segment_fold_kernel<{bf16}>' for bf16 in ('false', 'true'))
 CHAIN_CYCLES = 4                # a dependent float32 add's latency, SM cycles
+GRAPH_CALLS = 20                # calls captured in one graph_measure graph
+GPT2_VOCAB = 50257
+# phase 17's rows: greedy, sampled, top-k 1 on the first row's prompt, and
+# greedy under the grammar even_ids
+SAMPLED_ROWS = (None, None, dict(seed=1, temperature=0.8),
+                dict(seed=2, temperature=0.8),
+                dict(seed=3, temperature=1.0, top_k=40),
+                dict(seed=4, temperature=1.0, top_p=0.9),
+                dict(seed=5, temperature=0.8, top_k=1), 'masked')
+UNIFORM_PAIRS = 64              # (seed, position) keys of the uniform check
+CHI_POSITIONS, CHI_TOP_K = 4096, 8
+CHI_BOUND = 24.322              # chi-square, 7 degrees of freedom, 0.999
+PREFIX_SHARED, PREFIX_SUFFIXES = 256, (16, 40, 64, 90, 120, 150, 180, 200)
+LONG_PREFIX, LONG_SUFFIXES = 640, (30, 70)
+MLP_TOL = 1e-5
+VERYBASIC_OUTPUT = {
+    'events': 'handled: reduce lr, continue\n'
+              'training stopped: val loss diverged\n',
+    'prodcon': 'train: accuracy=0.91\neval: accuracy=0.88\n'
+               "stored rows: [('train', 0.91), ('eval', 0.88)]\n",
+    'pubsub': 'charting 0.37\ncharting 0.91\ncharting 99.0\n'
+              'stopped: loss diverged\n'}
 K4_DESIGN = 'cluster-split-k+tma+mma.sync'
 K5_DESIGN = 'cluster-hidden-slab+tma+mma.sync'
 K9_DESIGN = 'ordered-chains+bulk-ring'
@@ -339,6 +393,37 @@ def measure(fn, calls: int = 50, warmup: int = 5):
         if device_ms > 0:
             break
     return (device_ms if device_ms > 0 else event_ms), event_ms
+
+
+def graph_measure(torch, fn, replays: int = 5):
+    """Device milliseconds per call of ``fn()`` with no host gaps between
+    calls: ``GRAPH_CALLS`` calls captured in one CUDA graph (each its own
+    output in the graph's memory pool), replayed ``replays`` times and
+    timed by CUDA events. For a kernel shorter than its launch whose output
+    fits in L2, which a profiled window lets L2 drain between launches.
+    Returned as ``(None, event ms)``, in the places of ``measure``'s
+    ``(profiler ms, event ms)``: no profiler runs, so ``record_check`` takes
+    it ``by_events``. The event time includes the graph's gaps between its
+    nodes, so it is not the profiler's kernel sum of the other rows."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = [fn() for _ in range(GRAPH_CALLS)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outputs, graph
+    return None, start.elapsed_time(end) / (GRAPH_CALLS * replays)
 
 
 def bound_ms(moved_bytes: float, flops: float):
@@ -1906,15 +1991,20 @@ def check_lookup(torch, generator, seed: int):
     128 float32) with 65,536 Zipf ids, through ``dedup_ids`` (unique ids,
     sentinel padding: the DLRM's path) and without it (heavy duplicates);
     the batch-side fold (K9 over ``inverse`` into [65,536, 128]); a bf16
-    table; a width off the 16-byte loads. Timed by the profiler's device
-    time (a K8 call is shorter than the host's launch of it, so CUDA events
-    would time the host) beside the plain version on the card and the
-    library calls (``index_select`` times
-    the scale for K8, ``torch.zeros`` + ``index_add_`` with float atomics
-    for K9), never called by the port. Bounds count bytes: K8 the distinct
-    rows read, its output written, ids and scales; K9 its rows, ids and
-    scales read and the float32 table written whole (the zero fill), and
-    without the fill a row read and write per distinct id."""
+    table; a width off the 16-byte loads. K9 is timed by the profiler's
+    device time (a call shorter than the host's launch of it would time the
+    host by CUDA events alone) beside the plain version on the card and the
+    library calls (``index_select`` times the scale for K8, ``torch.zeros``
+    + ``index_add_`` with float atomics for K9), never called by the port.
+    K8's 33.5 MB output fits in the card's 50 MB L2, which drains it to
+    HBM in the host's gaps between launches, so a profiled K8 times under
+    its byte bound: K8, its plain version and the library call are timed by
+    ``graph_measure`` instead, back to back in one CUDA graph, each call
+    writing its own output, by CUDA events (the graph's gaps between nodes
+    included; no profiler time). Bounds count bytes:
+    K8 the distinct rows read, its output written, ids and scales; K9 its
+    rows, ids and scales read and the float32 table written whole (the zero
+    fill), and without the fill a row read and write per distinct id."""
     from tpusystem_torch.ops.cuda import embedding_lookup as el
     from tpusystem_torch.recsys import dedup_ids
 
@@ -1937,16 +2027,17 @@ def check_lookup(torch, generator, seed: int):
                              el.gather_rows(table, clamped, scale),
                              el.gather_rows_plain(table_cpu, *cpu[:2]))
         read = int(torch.unique(clamped).numel())
-        timed = measure(lambda i: el.gather_rows(table, clamped, scale),
-                        calls=20)
-        plain = measure(lambda i: el.gather_rows_plain(table, clamped,
-                                                       scale), calls=20)
-        library = measure(lambda i: torch.index_select(
-            table, 0, clamped) * scale[:, None], calls=20)
+        timed = graph_measure(torch, lambda: el.gather_rows(table, clamped,
+                                                            scale))
+        plain = graph_measure(torch, lambda: el.gather_rows_plain(
+            table, clamped, scale))
+        library = graph_measure(torch, lambda: torch.index_select(
+            table, 0, clamped) * scale[:, None])
         rows.append(record_check(
             f'gather_rows[{path}]', [count, vocab, dim], err, 0.0, timed,
             plain, library, bound_ms(read * dim * 4 + count * dim * 4
                                      + count * 8, count * dim),
+            by_events=True, timing='graph_measure: CUDA events over a graph',
             distinct_rows_read=read,
             library_call='torch.index_select(table, 0, ids) * scale'))
 
@@ -2440,9 +2531,10 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
     """Where a step's time goes: a traced window of ``steps`` calls of
     ``step()`` (tracing slows the host, so the step time of the untraced run
     is the one to quote). Device busy share = summed kernel time over the
-    window's wall time; the rest is the card waiting on the host. For each
-    name in ``sums``, the device ms a step of every kernel whose name holds
-    it."""
+    window's wall time; the rest is the card waiting on the host. The host
+    operators are ranked twice: by the device time they launched and by
+    their own host time. For each name in ``sums``, the device ms a step of
+    every kernel whose name holds it."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2460,12 +2552,14 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
             launches += event.count
     # the host operators that launched the device time, by input shape
     # (ctypes-launched kernels have no host operator and do not appear)
-    operators = {}
+    operators, host = {}, {}
     for event in profile.key_averages(group_by_input_shape=True):
         if event.device_type == torch.autograd.DeviceType.CPU:
+            name = f'{event.key} {event.input_shapes}'[:90]
             device_us = getattr(event, 'self_device_time_total', 0.0)
             if device_us > 0:
-                operators[f'{event.key} {event.input_shapes}'[:90]] = device_us
+                operators[name] = device_us
+            host[name] = event.self_cpu_time_total
     busy_us = sum(kernels.values())
 
     def top(table):
@@ -2478,6 +2572,7 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
                 device_ops_per_step=launches / steps,
                 top_kernels_us_per_step=top(kernels),
                 top_operators_us_per_step=top(operators),
+                top_host_operators_us_per_step=top(host),
                 kernel_ms_per_step={name: sum(
                     us for key, us in kernels.items() if name in key)
                     / 1e3 / steps for name in sums})
@@ -2490,21 +2585,23 @@ def serving_prompts(seed: int, vocab: int) -> list:
     return [rng.integers(0, vocab, (n,)) for n in PROMPT_LENGTHS]
 
 
-def drive_engine(torch, engine, prompts, profile_at: int | None = None
-                 ) -> dict:
-    """Admit every prompt (``MAX_NEW`` tokens each), then step until every
-    request has finished by length with in-vocabulary tokens: the tokens
-    of each request in prompt order, each admission's seconds (prefill and
-    seating, synchronised: the time to first token), the untraced steps'
-    seconds, and the run's step and token counts. ``profile_at`` traces
-    four steps (not counted) after that many."""
+def drive_engine(torch, engine, prompts, profile_at: int | None = None,
+                 samplings=None) -> dict:
+    """Admit every prompt (``MAX_NEW`` tokens each, at its entry of
+    ``samplings`` when given), then step until every request has finished
+    by length with in-vocabulary tokens: the tokens of each request in
+    prompt order, each admission's seconds (prefill and seating,
+    synchronised: the time to first token), the untraced steps' seconds,
+    and the run's step and token counts. ``profile_at`` traces four steps
+    (not counted) after that many."""
     vocab = engine._decoder.vocab_size
+    samplings = samplings or [None] * len(prompts)
     torch.cuda.synchronize()
     started = time.perf_counter()
     seated, admissions = [], []
-    for prompt in prompts:
+    for prompt, sampling in zip(prompts, samplings):
         admitted = time.perf_counter()
-        admission = engine.admit(prompt, MAX_NEW)
+        admission = engine.admit(prompt, MAX_NEW, sampling=sampling)
         torch.cuda.synchronize()
         admissions.append(time.perf_counter() - admitted)
         if admission.finished:
@@ -2573,10 +2670,13 @@ def logit_probe(torch, engine, prompts) -> dict:
 
 
 def serve(torch, seed: int):
-    """Phase 5: GPT-2 125M through the paged Engine (the main path)."""
+    """Phase 5: GPT-2 125M through the paged Engine (the main path); its
+    requests are greedy, so every step takes the plain argmax and the
+    sampler's kernel never launches."""
     from tpusystem_torch.models import gpt2_small
     from tpusystem_torch.ops.cuda import decode_matmul as dm
     from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import threefry as tf
     from tpusystem_torch.serve import Engine
 
     module = gpt2_small(device='cuda')
@@ -2589,11 +2689,15 @@ def serve(torch, seed: int):
     counters = (dm.decode_matmul, dm.decode_ffn, flash.flash_attention_lse)
     dm.reset_launches()
     flash.flash_attention_lse.launches = 0
+    tf.row_uniforms.launches = tf.row_uniforms_plain.runs = 0
     run = drive_engine(torch, engine, prompts)
     launches = {counter.__name__: counter.launches for counter in counters}
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was not launched on the main path')
+    # greedy requests only: every step took the plain argmax
+    if tf.row_uniforms.launches or tf.row_uniforms_plain.runs:
+        fail('greedy serving ran the sampler')
     probe = logit_probe(torch, engine, prompts)
     print('step-profile ' + json.dumps(profile_steps(torch, engine.step)))
     return dict(run, **probe, launches=launches,
@@ -2831,6 +2935,440 @@ def train_llama(torch, seed: int) -> dict:
                 reference=reference, profile=profile)
 
 
+def even_ids(emitted):
+    """Phase 17's grammar: even token ids only (module level, as
+    ``SamplingParams.mask_fn`` asks)."""
+    import numpy as np
+    return np.arange(GPT2_VOCAB) % 2 == 0
+
+
+def sampled_requests(seed: int, vocab: int):
+    """Phase 17's requests: phase 5's prompts with the ``top_k`` 1 row's
+    replaced by the first's, each row's ``SamplingParams`` (``None`` for
+    greedy) from ``SAMPLED_ROWS``, and the ``top_k`` 1 row's index."""
+    from tpusystem_torch.serve import SamplingParams
+
+    prompts = serving_prompts(seed, vocab)
+    top_k_one = next(index for index, spec in enumerate(SAMPLED_ROWS)
+                     if isinstance(spec, dict) and spec.get('top_k') == 1)
+    prompts[top_k_one] = prompts[0]
+    samplings = [None if spec is None
+                 else SamplingParams(mask_fn=even_ids) if spec == 'masked'
+                 else SamplingParams(**spec) for spec in SAMPLED_ROWS]
+    return prompts, samplings, top_k_one
+
+
+def check_row_uniforms(torch):
+    """Phase 17: the sampler's per-row uniform kernel equals its plain bits
+    (the integer ops of ``tpusystem_torch.ops.threefry``, on a CPU copy of
+    the keys) bit for bit at 64 ``(seed, position)`` keys over GPT-2's
+    vocabulary; timed at the engine's shape [8, 50257] beside the plain
+    version on the card. No library call draws jax's bits. Its bound counts
+    the float32 uniforms written once and the keys read, and ~123 32-bit
+    integer operations an element (the mask kernel's count) over the 67 T/s
+    non-tensor rate."""
+    from tpusystem_torch.ops import threefry
+    from tpusystem_torch.ops.cuda import threefry as tf
+    from tpusystem_torch.train.generate import sampling_key
+
+    keys = threefry.key_tensor([sampling_key(seed, 7 * seed + 3)
+                                for seed in range(UNIFORM_PAIRS)])
+    got = tf.row_uniforms(keys.to('cuda'), GPT2_VOCAB)
+    want = threefry.uniform_rows(keys, GPT2_VOCAB)
+    mismatches = int((got.cpu().view(torch.int32)
+                      != want.view(torch.int32)).sum())
+    engine_keys = keys[:ROWS].to('cuda')
+    timed = measure(lambda i: tf.row_uniforms(engine_keys, GPT2_VOCAB))
+    plain = measure(lambda i: threefry.uniform_rows(engine_keys, GPT2_VOCAB),
+                    calls=10, warmup=2)
+    count = ROWS * GPT2_VOCAB
+    memory = (count * 4 + ROWS * 16) / HBM_BYTES_PER_S
+    compute = count * 123 / FP32_OPS
+    bound = (max(memory, compute) * 1e3,
+             'bytes' if memory >= compute else 'operations')
+    return record_check('row_uniforms', [ROWS, GPT2_VOCAB], mismatches, 0,
+                        timed, plain, None, bound, keys_checked=UNIFORM_PAIRS)
+
+
+def sampler_frequencies(torch, seed: int) -> dict:
+    """Phase 17: ``sample_token`` at ``CHI_POSITIONS`` positions of one seed
+    on fixed logits (temperature 1, ``top_k`` 8) against the renormalised
+    softmax of the 8 highest logits: no token outside them, and the
+    chi-square statistic of the counts (7 degrees of freedom) under
+    ``CHI_BOUND``, its 0.999 quantile."""
+    from tpusystem_torch.train.generate import sample_token
+
+    generator = torch.Generator('cuda').manual_seed(seed)
+    logits = torch.randn(GPT2_VOCAB, generator=generator, device='cuda')
+    mask = torch.ones(GPT2_VOCAB, dtype=torch.bool, device='cuda')
+    tokens = torch.stack([sample_token(logits, seed, position, 1.0,
+                                       CHI_TOP_K, 1.0, mask)
+                          for position in range(CHI_POSITIONS)])
+    counts = torch.bincount(tokens, minlength=GPT2_VOCAB).double()
+    top = torch.topk(logits, CHI_TOP_K)
+    expected = torch.softmax(top.values.double(), 0) * CHI_POSITIONS
+    observed = counts[top.indices]
+    outside = int(CHI_POSITIONS - observed.sum().item())
+    chi_square = ((observed - expected) ** 2 / expected).sum().item()
+    if outside or not chi_square <= CHI_BOUND:
+        fail(f'sample_token frequencies: {outside} tokens outside the top '
+             f'{CHI_TOP_K}, chi-square {chi_square} over {CHI_BOUND}')
+    return dict(positions=CHI_POSITIONS, top_k=CHI_TOP_K,
+                chi_square=chi_square, bound=CHI_BOUND,
+                observed=observed.tolist(), expected=expected.tolist())
+
+
+def sampler_cost(torch) -> dict:
+    """Phase 17: what sampling adds to a step, at the engine's [8, 50257]
+    with ``SAMPLED_ROWS``' settings: the device ms of ``sample_rows`` (the
+    profiler's kernel sum) and the host ms a step of the keys' derivation
+    and upload plus ``sample_rows`` (100 calls, synchronised at the end),
+    each beside the plain argmax's."""
+    from tpusystem_torch.train.generate import sample_rows, sampling_keys
+
+    generator = torch.Generator('cuda').manual_seed(1)
+    logits = torch.randn((ROWS, GPT2_VOCAB), generator=generator,
+                         device='cuda') * 3
+    specs = [spec if isinstance(spec, dict) else {} for spec in SAMPLED_ROWS]
+    temperature, top_k, top_p = (torch.tensor(
+        [spec.get(name, default) for spec in specs], device='cuda')
+        for name, default in (('temperature', 0.0), ('top_k', 0),
+                              ('top_p', 1.0)))
+    mask = torch.ones((ROWS, GPT2_VOCAB), dtype=torch.bool, device='cuda')
+    mask[SAMPLED_ROWS.index('masked')] = torch.as_tensor(even_ids([]))
+    seeds = [spec.get('seed', 0) for spec in specs]
+
+    def sampled(position):
+        # as the engine derives and uploads them: one hash on the host,
+        # pinned, not blocking
+        keys = torch.from_numpy(sampling_keys(seeds, [position] * ROWS))
+        keys = keys.pin_memory().to('cuda', non_blocking=True)
+        return sample_rows(logits, keys, temperature, top_k, top_p, mask)
+
+    def host_ms(fn, calls: int = 100):
+        for i in range(5):
+            fn(i)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - started) / calls
+
+    return dict(shape=[ROWS, GPT2_VOCAB],
+                sampled_device_ms=measure(sampled)[0],
+                argmax_device_ms=measure(lambda i: logits.argmax(-1))[0],
+                sampled_host_ms=host_ms(sampled),
+                argmax_host_ms=host_ms(lambda i: logits.argmax(-1)))
+
+
+def serve_sampled(torch, seed: int, bf16_tokens: list) -> dict:
+    """Phase 17: GPT-2 125M (phase 5's weights and prompts, the seventh
+    prompt replaced by the first's) through ``Engine(rows=8,
+    block_size=16)`` on the fused step, all greedy and then with the rows
+    ``SAMPLED_ROWS``: two greedy, two at temperature 0.8, one at ``top_k``
+    40, one at ``top_p`` 0.9, one at ``top_k`` 1 on the first greedy row's
+    prompt, one greedy under a grammar (``even_ids``). K1, K4, K5 and the
+    per-row uniform kernel launch in the mixed run and the plain sampler
+    never runs; the all-greedy run equals phase 5's tokens on the prompts
+    they share; the greedy and ``top_k`` 1 rows equal the all-greedy run's;
+    a second engine with the rows seated in reverse order emits the same
+    streams, sampled ones included; the masked row's tokens pass its mask;
+    then ``sampler_frequencies`` and ``sampler_cost``. Decode tokens/s and
+    step ms of both runs, with the card's name and power limit, and a trace
+    of four steps of each after the eighth (``profile_steps``: where the
+    mixed step's extra time goes)."""
+    import gc
+
+    from tpusystem_torch.models import gpt2_small
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import threefry as tf
+    from tpusystem_torch.serve import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    prompts, samplings, top_k_one = sampled_requests(seed, module.vocab_size)
+    greedy = drive_engine(torch, Engine(module, None, rows=ROWS,
+                                        block_size=BLOCK), prompts,
+                          profile_at=8)
+    for index, (got, want) in enumerate(zip(greedy['tokens'], bf16_tokens)):
+        if index != top_k_one and got != want:
+            fail(f'all-greedy row {index} differs from phase 5 at the same '
+                 'prompt')
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK)
+    if engine.decode_impl != 'fused':
+        fail(f"the engine chose decode_impl={engine.decode_impl!r}")
+    dm.reset_launches()
+    flash.flash_attention_lse.launches = 0
+    tf.row_uniforms.launches = tf.row_uniforms_plain.runs = 0
+    mixed = drive_engine(torch, engine, prompts, samplings=samplings,
+                         profile_at=8)
+    launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                'decode_matmul': dm.decode_matmul.launches,
+                'decode_ffn': dm.decode_ffn.launches,
+                'row_uniforms': tf.row_uniforms.launches}
+    if not all(launches.values()) or tf.row_uniforms_plain.runs:
+        fail(f'sampled serving launched {launches}, the plain sampler ran '
+             f'{tf.row_uniforms_plain.runs} times')
+    same = [index for index, spec in enumerate(SAMPLED_ROWS)
+            if spec is None or index == top_k_one]
+    for index in same:
+        if mixed['tokens'][index] != greedy['tokens'][index]:
+            fail(f'row {index} ({SAMPLED_ROWS[index]}) differs from the '
+                 'all-greedy run')
+    masked = mixed['tokens'][SAMPLED_ROWS.index('masked')]
+    if any(token % 2 for token in masked):
+        fail(f'the masked row emitted odd tokens: {masked}')
+    order = list(reversed(range(ROWS)))
+    again = drive_engine(torch, Engine(module, None, rows=ROWS,
+                                       block_size=BLOCK),
+                         [prompts[i] for i in order],
+                         samplings=[samplings[i] for i in order])
+    if [again['tokens'][order.index(i)] for i in range(ROWS)] \
+            != mixed['tokens']:
+        fail('the rows seated in reverse order emitted other streams')
+    sampled = [index for index, spec in enumerate(SAMPLED_ROWS)
+               if isinstance(spec, dict) and index != top_k_one]
+    moved = sum(mixed['tokens'][i] != greedy['tokens'][i] for i in sampled)
+    frequencies = sampler_frequencies(torch, seed)
+    cost = sampler_cost(torch)
+    timing = ('decode_tokens_per_s', 'step_ms', 'step_ms_quantiles',
+              'admission_s', 'steps', 'profile')
+    return dict(launches=launches, rows=[str(spec) for spec in SAMPLED_ROWS],
+                greedy={key: greedy[key] for key in timing},
+                mixed={key: mixed[key] for key in timing},
+                equal_to_greedy_rows=same, reordered_equal=True,
+                sampled_rows_differing_from_greedy=moved,
+                masked_tokens_even=True, frequencies=frequencies,
+                sampler_cost=cost, card=card_line(),
+                seconds=time.perf_counter() - started)
+
+
+def prefix_prompts(seed: int, vocab: int) -> list:
+    """Phase 18's prompts: ``PREFIX_SUFFIXES`` behind one block-aligned
+    ``PREFIX_SHARED``-token prefix, then ``LONG_SUFFIXES`` behind a
+    ``LONG_PREFIX``-token one."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    prompts = []
+    for shared, suffixes in ((PREFIX_SHARED, PREFIX_SUFFIXES),
+                             (LONG_PREFIX, LONG_SUFFIXES)):
+        head = rng.integers(0, vocab, (shared,))
+        prompts += [np.concatenate([head, rng.integers(0, vocab, (n,))])
+                    for n in suffixes]
+    return prompts
+
+
+def serve_queue(torch, engine, prompts, probe: bool = False) -> dict:
+    """Serve ``prompts`` (``MAX_NEW`` tokens each) in order, admitting while
+    the pool can seat the next one: each request's tokens, first token,
+    admission seconds (synchronised) and adopted prefix length. With
+    ``probe``, each resumed admission's first-token logits (the resume
+    again, on the seated row) are held against a full prefill of its prompt
+    within phase 5's tolerance, 2**-4 of the largest logit (the full
+    prefill takes K1 at these lengths; those launches are counted apart),
+    and the first resumed prompt's resume and full prefill are traced
+    (``profile_steps``, four calls each: where a resumed admission's time
+    goes). Ends with every row evicted and the pool's audit clean."""
+    from tpusystem_torch.ops.cuda import flash
+
+    queue, rows, out = list(range(len(prompts))), {}, {}
+    probes, probe_launches, traces = [], 0, None
+    while queue or engine.active_rows:
+        while queue and engine.can_admit(len(prompts[queue[0]]), MAX_NEW,
+                                         prompt=prompts[queue[0]]):
+            index = queue.pop(0)
+            prompt = prompts[index]
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            admission = engine.admit(prompt, MAX_NEW)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - started
+            shared = engine.pool.shared_tokens(admission.row)
+            rows[admission.row] = index
+            out[index] = dict(first=admission.token, ttft_s=seconds,
+                              shared=shared)
+            if probe and shared:
+                before = flash.flash_attention_lse.launches
+                slots = engine.pool.slots(admission.row)
+                resumed, _ = engine._resume(prompt, slots, shared)
+                full, _ = engine._prefill(prompt)
+                if not traces:
+                    traces = dict(prompt=index, resumed=profile_steps(
+                        torch, lambda: engine._resume(prompt, slots, shared)),
+                        full=profile_steps(
+                            torch, lambda: engine._prefill(prompt)))
+                probe_launches += flash.flash_attention_lse.launches - before
+                err = (resumed - full).abs().max().item()
+                tol = 2 ** -4 * full.abs().max().item()
+                if not err <= tol:
+                    fail(f'resumed prompt {index}: logits {err} from the '
+                         f'full prefill, over {tol}')
+                probes.append(dict(prompt=index, max_abs_err=err, tol=tol,
+                                   argmax_equal=bool(resumed.argmax()
+                                                     == full.argmax())))
+        for row, reason, tokens in engine.step().finished:
+            if reason != 'length' or len(tokens) != MAX_NEW:
+                fail(f'row {row}: {reason}, {len(tokens)} tokens')
+            out[rows.pop(row)]['tokens'] = tokens
+    audit = engine.pool.audit()
+    if audit['live'] or audit['free'] + audit['cached'] \
+            != engine.pool.blocks - 1:
+        fail(f'pool audit after every eviction: {audit}')
+    return dict(requests=[out[index] for index in range(len(prompts))],
+                probes=probes, probe_k1_launches=probe_launches, audit=audit,
+                traces=traces)
+
+
+def serve_prefix(torch, seed: int) -> dict:
+    """Phase 18: GPT-2 125M (phase 5's weights) through ``Engine(rows=8,
+    block_size=16, share_prefix=True)``: eight prompts behind one 256-token
+    prefix with suffixes of 16-200 tokens, two behind one 640-token prefix
+    (the first of each group prefills in full through K1: buckets 512 and
+    1024). Every admission that hits resumes (``resumed_prefills`` equals
+    ``prefix_hits``, eight here), K1 launches only for the two full
+    prefills, each resumed first-token logit row is within tolerance of a
+    full prefill (``serve_queue``), the pool's audit is clean at the end;
+    then the same prompts without sharing: the shares of equal first tokens
+    and of equal 32-token streams, and TTFT resumed against full."""
+    import gc
+    import statistics
+
+    from tpusystem_torch.models import gpt2_small
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.serve import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    prompts = prefix_prompts(seed, module.vocab_size)
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK,
+                    share_prefix=True)
+    flash.flash_attention_lse.launches = 0
+    shared = serve_queue(torch, engine, prompts, probe=True)
+    k1 = flash.flash_attention_lse.launches - shared['probe_k1_launches']
+    hits = len(prompts) - 2
+    if engine.sharing['prefix_hits'] != hits \
+            or engine.sharing['resumed_prefills'] != hits:
+        fail(f'sharing counters {engine.sharing}: {hits} hits, each resumed')
+    if k1 != 2 * module.layers:
+        fail(f'K1 launched {k1} times for the shared run, not once a layer '
+             'for each of the two full prefills')
+    full = serve_queue(torch, Engine(module, None, rows=ROWS,
+                                     block_size=BLOCK), prompts)
+    pairs = list(zip(shared['requests'], full['requests']))
+    resumed = [a['ttft_s'] for a, _ in pairs if a['shared']]
+    unshared = [b['ttft_s'] for a, b in pairs if a['shared']]
+    return dict(
+        sharing=dict(engine.sharing), prefix_hit_rate=engine.prefix_hit_rate(),
+        k1_launches=k1, probes=shared['probes'],
+        first_token_equal=sum(a['first'] == b['first'] for a, b in pairs)
+        / len(pairs),
+        stream_equal=sum(a['tokens'] == b['tokens'] for a, b in pairs)
+        / len(pairs),
+        ttft_s=[dict(shared=a['shared'], prompt=len(prompt),
+                     resumed=a['ttft_s'], full=b['ttft_s'])
+                for (a, b), prompt in zip(pairs, prompts)],
+        ttft_median_resumed_s=statistics.median(resumed),
+        ttft_median_full_s=statistics.median(unshared),
+        traces=shared['traces'], audit=shared['audit'],
+        seconds=time.perf_counter() - started)
+
+
+def mlp_card_vs_cpu(torch) -> dict:
+    """Phase 19: one step of the verybasic MLP (dropout 0.1, one hidden
+    layer of 128, the example's Adam at 1e-3) from the same weights, batch
+    and seed on the card and on the CPU: the same masks (the mask kernel
+    against the plain bits), so loss and parameters agree within
+    ``MLP_TOL`` (float32 sums in another order). The card's module loads
+    the CPU's weights: an MLP draws its first weights on its own device,
+    and the card's generator gives other numbers than the CPU's."""
+    import numpy as np
+
+    from tpusystem_torch.data import SyntheticDigits
+    from tpusystem_torch.models import MLP
+    from tpusystem_torch.train import Adam, CrossEntropyLoss, init_state
+
+    images, labels = SyntheticDigits(samples=64)[np.arange(64)]
+    weights = MLP(features=(128,), device='cpu').state_dict()
+    results = []
+    for where in ('cuda', 'cpu'):
+        module = MLP(features=(128,), device=where)
+        module.load_state_dict(weights)
+        optimizer = Adam(lr=1e-3)
+        state = init_state(module, optimizer)
+        step = build_train_step(module_apply(module), CrossEntropyLoss(),
+                                optimizer)
+        state, (_, loss) = step(state, torch.from_numpy(images).to(where),
+                                torch.from_numpy(labels).to(where))
+        results.append((loss.item(), {name: tensor.detach().cpu() for
+                                      name, tensor in state.params.items()}))
+    (card, card_params), (cpu, cpu_params) = results
+    err = max([abs(card - cpu)] + [
+        (card_params[name] - tensor).abs().max().item()
+        for name, tensor in cpu_params.items()])
+    if not err <= MLP_TOL:
+        fail(f'the MLP step on the card is {err} from the CPU, over '
+             f'{MLP_TOL}')
+    return dict(loss_card=card, loss_cpu=cpu, max_abs_err=err, tol=MLP_TOL)
+
+
+def verybasic(torch) -> dict:
+    """Phase 19: ``examples/verybasic_torch/train.py``'s ``main()`` on the
+    card (the MLP on ``SyntheticDigits``, Adam, three epochs): the epoch
+    loss falls every epoch and the mask kernel launches once a step and
+    hidden layer; ``mlp_card_vs_cpu``; then ``events.py``, ``prodcon.py``
+    and ``pubsub.py`` print what the reference's scripts print
+    (``VERYBASIC_OUTPUT``)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from tpusystem_torch.ops.cuda import threefry as tf
+
+    directory = pathlib.Path(__file__).resolve().parent / 'examples' / \
+        'verybasic_torch'
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f'verybasic_torch_{name}', directory / f'{name}.py')
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    started = time.perf_counter()
+    train_example = load('train')
+    tf.bernoulli_mask.launches = 0
+    losses = train_example.main()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - started
+    launches = tf.bernoulli_mask.launches
+    steps, hidden = 3 * (2048 // 64), 1
+    if launches != steps * hidden:
+        fail(f'the mask kernel launched {launches} times in {steps} steps '
+             f'of {hidden} hidden layer')
+    if not all(a > b for a, b in zip(losses, losses[1:])):
+        fail(f'the verybasic epoch losses did not fall: {losses}')
+    step = mlp_card_vs_cpu(torch)
+    for name, want in VERYBASIC_OUTPUT.items():
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            load(name).main()
+        if printed.getvalue() != want:
+            fail(f'examples/verybasic_torch/{name}.py printed '
+                 f'{printed.getvalue()!r}, not {want!r}')
+    return dict(losses=losses, steps=steps, bernoulli_mask_launches=launches,
+                train_s=train_s, step_card_vs_cpu=step,
+                examples=sorted(VERYBASIC_OUTPUT),
+                seconds=time.perf_counter() - started)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2897,6 +3435,13 @@ def main() -> None:
     print('serve-llama ' + json.dumps(llama))
     llama_trained = train_llama(torch, args.seed)
     print('train-llama ' + json.dumps(llama_trained))
+    checks.append(check_row_uniforms(torch))
+    sampled = serve_sampled(torch, args.seed, bf16_tokens)
+    print('serve-sampled ' + json.dumps(sampled))
+    prefix = serve_prefix(torch, args.seed)
+    print('serve-prefix ' + json.dumps(prefix))
+    basic = verybasic(torch)
+    print('verybasic ' + json.dumps(basic))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -2956,7 +3501,12 @@ def main() -> None:
         # no pallas_call: the reference's masks are XLA's jax.random.bernoulli
         'bernoulli_mask': ('threefry.cu', 'tpusystem/ops/attention.py:374',
                            'bernoulli_mask',
-                           dropout_trained['launches']['bernoulli_mask']),
+                           dropout_trained['launches']['bernoulli_mask']
+                           + basic['bernoulli_mask_launches']),
+        # no pallas_call either: the reference samples with XLA's
+        # jax.random.categorical
+        'row_uniforms': ('threefry.cu', 'tpusystem/train/generate.py:195',
+                         'row_uniforms', sampled['launches']['row_uniforms']),
     }
     measured = dict(checks)
     kernels = []
@@ -3076,6 +3626,8 @@ def main() -> None:
              'dropout_train': dropout_trained, 'moe_train': moe_trained,
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
              'serve_llama': llama, 'train_llama': llama_trained,
+             'serve_sampled': sampled, 'serve_prefix': prefix,
+             'verybasic': basic,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

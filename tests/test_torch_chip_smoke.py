@@ -483,3 +483,43 @@ def test_phase_14_host_check_fails_on_a_wrong_phase(broken):
     with pytest.raises(SystemExit):
         chip_smoke.check_host(model, runtime, events, phase, holdout, 32)
     runtime.close()
+
+
+@pytest.mark.parametrize('script', ['events', 'prodcon', 'pubsub'])
+def test_phase_19_expects_what_the_reference_examples_print(script, capsys):
+    """Phase 19 holds the twins' output against ``VERYBASIC_OUTPUT`` on the
+    card, where the reference cannot run: it is what the reference's
+    scripts print."""
+    path = SCRIPT.parent / 'examples' / 'verybasic' / f'{script}.py'
+    spec = importlib.util.spec_from_file_location(f'reference_{script}',
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.main()
+    assert _chip_smoke().VERYBASIC_OUTPUT[script] == capsys.readouterr().out
+
+
+def test_phase_18_prompts_hit_as_the_phase_expects():
+    """Phase 18's prompts through the radix index as the phase seats them
+    (eight rows; the two long prompts as the first two rows free): every
+    prompt but the first of each prefix adopts its prefix, so the phase
+    expects eight resumed prefills."""
+    from tpusystem_torch.serve import PagedKVCache
+
+    chip_smoke = _chip_smoke()
+    prompts = chip_smoke.prefix_prompts(0, 50257)
+    block = chip_smoke.BLOCK
+    pool = PagedKVCache(chip_smoke.ROWS, chip_smoke.ROWS * 1024 // block + 1,
+                        block, 1024, share_prefix=True)
+    shared = []
+    for row, prompt in enumerate(prompts[:chip_smoke.ROWS]):
+        pool.admit(row, len(prompt) + chip_smoke.MAX_NEW, prompt=prompt)
+        shared.append(pool.shared_tokens(row))
+    for row, prompt in enumerate(prompts[chip_smoke.ROWS:]):
+        pool.evict(row)
+        pool.admit(row, len(prompt) + chip_smoke.MAX_NEW, prompt=prompt)
+        shared.append(pool.shared_tokens(row))
+    assert shared == [0] + [chip_smoke.PREFIX_SHARED] * 7 + [
+        0, chip_smoke.LONG_PREFIX]
+    assert all(len(prompt) < 1024 - chip_smoke.MAX_NEW for prompt in prompts)
+    assert chip_smoke.even_ids([]).shape == (chip_smoke.GPT2_VOCAB,)

@@ -24,8 +24,9 @@ another order: their rows may differ by two bfloat16 steps (2**-7) of the
 largest row; K7's combined output sums up to k such rows, each add rounded
 to bfloat16, so it may differ by 2**-5 of its largest value. The decode
 kernels with int8 / e4m3 weights widen them exactly, so they keep the bf16
-kernels' tolerance; the dropout keep mask of the threefry kernel is integer
-arithmetic and equals its plain version bit for bit.
+kernels' tolerance; the dropout keep mask and the sampler's per-row
+uniforms of the threefry kernels are integer arithmetic (the uniforms an
+exact subtraction after it) and equal their plain versions bit for bit.
 """
 
 import math
@@ -335,6 +336,117 @@ def test_threefry_mask_kernel_equals_the_plain_bits(device, shape, keep):
     assert tf.bernoulli_mask.launches - before == 1
     assert got.dtype == torch.bool and got.shape == shape
     assert torch.equal(got.cpu(), tf.bernoulli_mask_plain(key, keep, shape))
+
+
+@pytest.mark.parametrize('rows', [1, 8, 13])
+@pytest.mark.parametrize('cols', [256, 50257, 128256])
+def test_row_uniforms_kernel_equals_the_plain_bits(device, rows, cols):
+    """The sampler's per-row uniforms, bitwise the plain version's: one key
+    a row (``stride`` 0), and one key over the rows (``stride == cols``,
+    ``generate``'s draw); 50,257 and 128,256 are off the 256-thread block."""
+    from tpusystem_torch.ops import threefry
+    keys = [threefry.fold_in(threefry.PRNGKey(seed), 3 * seed + 1)
+            for seed in range(rows)]
+    for stride, keyset in ((0, keys), (cols, [keys[-1]] * rows)):
+        table = threefry.key_tensor(keyset)
+        before = tf.row_uniforms.launches
+        got = tf.row_uniforms(table.to(device), cols, stride)
+        torch.cuda.synchronize()
+        assert tf.row_uniforms.launches - before == 1
+        assert got.dtype == torch.float32 and got.shape == (rows, cols)
+        want = tf.row_uniforms_plain(table, cols, stride)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_sampler_on_the_card_matches_the_cpu(device):
+    """``sample_rows`` on the same logits on the card (the uniforms from the
+    kernel) and on the CPU (the plain bits) picks the same tokens; the
+    ``log`` s are the card's and the CPU's, an ulp apart at most, which moves
+    no token on these rows."""
+    from tpusystem_torch.ops import threefry
+    from tpusystem_torch.train.generate import sample_rows, sampling_key
+    generator = torch.Generator().manual_seed(5)
+    logits = torch.randn((8, 50257), generator=generator) * 3
+    mask = torch.rand((8, 50257), generator=generator) > 0.2
+    temperature = torch.tensor([0.0, 0.8, 0.8, 1.0, 1.3, 0.7, 2.0, 0.9])
+    top_k = torch.tensor([0, 0, 40, 0, 1, 8, 0, 16])
+    top_p = torch.tensor([1.0, 1.0, 1.0, 0.9, 1.0, 1.0, 0.5, 0.95])
+    for position in range(4):
+        keys = threefry.key_tensor([sampling_key(seed, position)
+                                    for seed in range(8)])
+        before = tf.row_uniforms.launches
+        got = sample_rows(*(t.to(device) for t in (
+            logits, keys, temperature, top_k, top_p, mask)))
+        assert tf.row_uniforms.launches - before == 1
+        want = sample_rows(logits, keys, temperature, top_k, top_p, mask)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize('shape', [(50257,), (3, 50257), (2, 4, 256)])
+def test_categorical_on_the_card_is_one_kernel_draw(device, shape):
+    """``categorical`` on a card tensor draws its uniforms with the kernel,
+    once a call, and picks the CPU's tokens on the same logits."""
+    from tpusystem_torch.ops import threefry
+    generator = torch.Generator().manual_seed(len(shape))
+    logits = torch.randn(shape, generator=generator) * 3
+    for seed in range(4):
+        key = threefry.PRNGKey(seed)
+        before = tf.row_uniforms.launches
+        got = threefry.categorical(key, logits.to(device))
+        assert tf.row_uniforms.launches - before == 1
+        assert torch.equal(got.cpu(), threefry.categorical(key, logits))
+
+
+def test_an_mlp_built_on_the_card_draws_other_weights(device):
+    """An ``MLP`` draws its first weights from a generator seeded 0 on its
+    own device, and the card's generator gives other numbers than the
+    CPU's: two MLPs built on the two devices start apart, so a parity test
+    loads one's weights into the other."""
+    from tpusystem_torch.models import MLP
+    card = MLP(features=(128, 64), device=device).state_dict()
+    cpu = MLP(features=(128, 64), device='cpu').state_dict()
+    assert not torch.equal(card['Dense_0.weight'].cpu(),
+                           cpu['Dense_0.weight'])
+
+
+@pytest.mark.parametrize('rule', ['sgd', 'adam'])
+def test_mlp_dropout_step_on_the_card_matches_the_cpu(device, rule):
+    """Three steps of the verybasic MLP at dropout 0.1 on the card and on
+    the CPU, from the same weights (the CPU module's, loaded into the
+    card's: see the test above) and seed: the mask kernel once a step and
+    hidden layer, the same masks, so losses and parameters agree within
+    1e-5 (float32 sums in another order), with SGD and with the example's
+    Adam."""
+    from tpusystem_torch.data import SyntheticDigits
+    from tpusystem_torch.models import MLP
+    from tpusystem_torch.train import (SGD, Adam, CrossEntropyLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    images, labels = SyntheticDigits(samples=64)[np.arange(64)]
+    weights = MLP(features=(128, 64), device='cpu').state_dict()
+    results = []
+    for where in (device, torch.device('cpu')):
+        module = MLP(features=(128, 64), device=where)
+        module.load_state_dict(weights)
+        optimizer = SGD(lr=0.1) if rule == 'sgd' else Adam(lr=1e-3)
+        state = init_state(module, optimizer, rng=3)
+        step = build_train_step(module_apply(module), CrossEntropyLoss(),
+                                optimizer)
+        before = tf.bernoulli_mask.launches
+        losses = [step(state, torch.from_numpy(images).to(where),
+                       torch.from_numpy(labels).to(where))[1][1].item()
+                  for _ in range(3)]
+        if where.type == 'cuda':
+            assert tf.bernoulli_mask.launches - before == 3 * 2
+        results.append((losses, {name: p.detach().cpu()
+                                 for name, p in state.params.items()}))
+    (card, card_params), (cpu, cpu_params) = results
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-5)
+    for name, tensor in cpu_params.items():
+        np.testing.assert_allclose(card_params[name].numpy(), tensor.numpy(),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_gpt2_tiny_dropout_step_on_the_card_matches_the_cpu(device):

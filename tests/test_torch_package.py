@@ -14,6 +14,7 @@ from tpusystem_torch.serve import Engine
 from tpusystem_torch.train import generate
 
 PACKAGE = pathlib.Path(tpusystem_torch.__file__).resolve().parent
+EXAMPLES = PACKAGE.parent / 'examples' / 'verybasic_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpusystem')
 
 
@@ -25,11 +26,22 @@ def _modules():
         yield path, '.'.join(parts)
 
 
+def _examples():
+    return sorted(EXAMPLES.glob('*.py'))
+
+
 def test_importing_every_module_loads_no_jax():
     names = [name for _, name in _modules()]
-    script = ('import importlib, sys\n'
+    examples = [str(path) for path in _examples()]
+    assert len(examples) == 4
+    script = ('import importlib, importlib.util, sys\n'
               f'for name in {names!r}:\n'
               '    importlib.import_module(name)\n'
+              f'for index, path in enumerate({examples!r}):\n'
+              "    spec = importlib.util.spec_from_file_location("
+              "f'example{index}', path)\n"
+              '    spec.loader.exec_module('
+              'importlib.util.module_from_spec(spec))\n'
               f'print(sorted(m for m in sys.modules '
               f"if m.split('.')[0] in {FORBIDDEN!r}))\n")
     result = subprocess.run([sys.executable, '-c', script],
@@ -40,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
 
 def test_no_module_imports_jax_or_the_reference():
     found = []
-    for path, _ in _modules():
+    for path in [path for path, _ in _modules()] + _examples():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -55,7 +67,8 @@ def test_no_module_imports_jax_or_the_reference():
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'bwd_phases.py',
-                                    'grouped_ab.py', 'decode_lookup_ab.py'])
+                                    'grouped_ab.py', 'decode_lookup_ab.py',
+                                    'serve_ab.py'])
 def test_card_scripts_import_no_jax_or_the_reference(script):
     """The scripts run on the card's machine, which has no JAX: at the top
     of the repository, they import the port and nothing of JAX or the

@@ -193,19 +193,15 @@ def test_generate_token_exact_with_jax(served, decode_impl):
 
 
 def test_engine_refuses_what_is_not_ported(served):
-    from tpusystem_torch.serve import SamplingParams
+    """What the engine still refuses, naming its ROADMAP item: speculative
+    rows (``draft_module``, and with them a grammar mask on speculative
+    rows) and tensor-parallel serving (``mesh``, ``schedule``)."""
     _, _, port, state = served
-    for option in ({'share_prefix': True}, {'draft_module': port},
-                   {'mesh': object()}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+    for option, item in (({'draft_module': port}, 'speculative rows'),
+                         ({'mesh': object()}, 'tensor parallelism'),
+                         ({'schedule': object()}, 'tensor parallelism')):
+        with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
             Engine(port, state, device='cpu', **option)
-    engine = Engine(port, state, rows=1, block_size=8, device='cpu')
-    with pytest.raises(NotImplementedError, match='threefry'):
-        engine.admit([1, 2, 3], 4,
-                     sampling=SamplingParams(seed=0, temperature=0.7))
-    with pytest.raises(NotImplementedError, match='threefry'):
-        generate(port, state, [[1, 2]], steps=2, temperature=0.5,
-                 device='cpu')
 
 
 def test_engine_validates_capacity_and_saturation(served):

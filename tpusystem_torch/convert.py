@@ -5,16 +5,23 @@ The port keeps the reference's parameter names and layouts (a flax
 the nested param tree's path ``h_0/attn/qkv/kernel`` becomes the state-dict
 key ``h_0.attn.qkv.kernel`` (a DLRM's ``table_3/embedding`` becomes
 ``table_3.embedding``, a TwoTower's ``user_tower/fc_0/kernel``
-``user_tower.fc_0.kernel``). Leaves arrive as numpy arrays (or anything
-``numpy.asarray`` takes), so this module needs no JAX.
+``user_tower.fc_0.kernel``). One exception: a dense layer flax names itself
+(``Dense_{i}``, the MLP's) is a ``torch.nn.Linear`` in the port, so its
+``[in, out]`` kernel becomes ``Dense_{i}.weight``, transposed to
+``[out, in]``. Leaves arrive as numpy arrays (or anything ``numpy.asarray``
+takes), so this module needs no JAX.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+# a flax-named dense layer's kernel: a torch Linear's weight in the port
+LINEAR_KERNEL = re.compile(r'(^|\.)Dense_\d+\.kernel$')
 
 
 def _tensor(leaf) -> torch.Tensor:
@@ -36,7 +43,10 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             for name, child in node.items():
                 walk(child, path + (str(name),))
         else:
-            flat['.'.join(path)] = _tensor(node)
+            name, tensor = '.'.join(path), _tensor(node)
+            if LINEAR_KERNEL.search(name):
+                name, tensor = name[:-len('kernel')] + 'weight', tensor.T
+            flat[name] = tensor.contiguous()
 
     walk(tree, ())
     return flat

@@ -1,17 +1,62 @@
 """Built-in datasets: the port of :mod:`tpusystem.data.datasets`.
 
-:class:`SyntheticClicks` is copied as it is (numpy only), so its arrays are
-bitwise the reference's for any arguments. The other datasets of the
-reference (``SyntheticDigits``, ``SyntheticTokens``, ``MemmapTokens``,
-``TorchDataset``) belong to the verybasic/tinysys slice (ROADMAP queue 1
-item 4) and are not ported yet.
+:class:`SyntheticDigits`, :class:`SyntheticTokens` and
+:class:`SyntheticClicks` are copied as they are (numpy only), so their
+arrays are bitwise the reference's for any arguments. The reference's
+``MemmapTokens`` and ``TorchDataset`` are not ported yet (ROADMAP queue 1
+item 4).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from tpusystem_torch.data.loader import ArrayDataset
 from tpusystem_torch.registry import register
+
+
+@register
+class SyntheticDigits(ArrayDataset):
+    """MNIST-shaped 28x28 classification set: each class is a Gaussian blob
+    around a fixed random prototype, so a small MLP separates it quickly."""
+
+    def __init__(self, samples: int = 4096, classes: int = 10, seed: int = 0,
+                 noise: float = 0.35, train: bool = True):
+        rng = np.random.default_rng(seed if train else seed + 1)
+        prototype_rng = np.random.default_rng(seed)  # shared across splits
+        prototypes = prototype_rng.normal(
+            size=(classes, 28 * 28)).astype(np.float32)
+        labels = rng.integers(0, classes, size=samples)
+        images = prototypes[labels] + noise * rng.normal(
+            size=(samples, 28 * 28)).astype(np.float32)
+        super().__init__(images.reshape(samples, 28, 28).astype(np.float32),
+                         labels.astype(np.int32))
+
+
+@register
+class SyntheticTokens(ArrayDataset):
+    """Language-model token streams with learnable bigram structure.
+
+    The sparse bigram transition table derives from ``seed`` alone and is
+    shared across splits (like :class:`SyntheticDigits` prototypes), so a
+    ``train=False`` holdout draws *different sequences from the same
+    distribution* — held-out perplexity is meaningful."""
+
+    def __init__(self, samples: int = 1024, sequence_length: int = 128,
+                 vocab_size: int = 256, seed: int = 0, train: bool = True):
+        table_rng = np.random.default_rng(seed)      # shared across splits
+        table = table_rng.integers(0, vocab_size, size=(vocab_size, 4))
+        # train continues the table stream (a fresh default_rng(seed) would
+        # replay the table draw bit-for-bit into tokens[:, 0]); the holdout
+        # seeds off-stream for independent draws from the same table
+        rng = table_rng if train else np.random.default_rng(seed + 1)
+        tokens = np.empty((samples, sequence_length), dtype=np.int32)
+        tokens[:, 0] = rng.integers(0, vocab_size, size=samples)
+        choices = rng.integers(0, 4, size=(samples, sequence_length))
+        for position in range(1, sequence_length):
+            tokens[:, position] = table[tokens[:, position - 1],
+                                        choices[:, position]]
+        super().__init__(tokens)
 
 
 @register

@@ -1,4 +1,5 @@
-// Threefry-2x32 dropout keep mask for Hopper (sm_90a).
+// Threefry-2x32 draws for Hopper (sm_90a): the dropout keep mask and the
+// sampler's per-row uniforms.
 //
 // Not the port of a Pallas kernel: in the reference, flax's nn.Dropout draws
 // jax.random.bernoulli(key, 1 - rate, shape), which XLA generates. This
@@ -18,10 +19,21 @@
 // kernel, PyTorch would take ~170 elementwise launches over int64 tensors
 // per mask.
 //
-// Plain C interface (bound with ctypes); the entry point launches on the
-// given stream, allocates nothing and returns cudaGetLastError().
+// The sampler's draw (the serving engine's sampled rows, generate's sampled
+// loop) is the same hash: element (r, c) of a [rows, cols] draw hashes the
+// counter r * stride + c under row r's key and is jax.random.uniform's
+// float32 in [tiny, 1) (the uniform of jax's gumbel): the bits' top 23 as a
+// mantissa, less 1, and tiny where that is 0 (minval + (1 - tiny) * u rounds
+// to u for every other u). The log()s and the argmax stay PyTorch ops. Rows
+// take their keys from a [rows, 2] int64 array of 32-bit words on the card;
+// the grid is 2-D, a row per blockIdx.y, so no thread divides its index.
+// The plain version is tpusystem_torch/ops/threefry.py's uniform_rows.
+//
+// Plain C interface (bound with ctypes); the entry points launch on the
+// given stream, allocate nothing and return cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -73,6 +85,24 @@ bernoulli_mask_kernel(uint32_t k0, uint32_t k1, float keep_prob, uint8_t* __rest
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+row_uniforms_kernel(const long long* __restrict__ keys, long long cols, long long stride,
+                    float* __restrict__ out) {
+  const long long row = blockIdx.y;
+  const uint32_t k0 = static_cast<uint32_t>(keys[2 * row]);
+  const uint32_t k1 = static_cast<uint32_t>(keys[2 * row + 1]);
+  float* out_row = out + row * cols;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long c = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; c < cols;
+       c += step) {
+    const long long n = row * stride + c;
+    const uint32_t bits = threefry_bits(k0, k1, static_cast<uint32_t>(n >> 32),
+                                        static_cast<uint32_t>(n));
+    const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+    out_row[c] = fmaxf(u, FLT_MIN);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -86,6 +116,20 @@ int threefry_bernoulli_mask(unsigned int k0, unsigned int k1, float keep_prob, v
   bernoulli_mask_kernel<<<static_cast<int>(blocks), THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       k0, k1, keep_prob, static_cast<uint8_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[rows, cols] (float32) = uniform in [tiny, 1) of counter r * stride + c
+// under key (keys[2r], keys[2r + 1]); keys is int64 [rows, 2] on the card.
+int threefry_row_uniforms(const void* keys, long long rows, long long cols, long long stride,
+                          void* out, void* stream) {
+  if (rows <= 0 || cols <= 0 || rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = (cols + THREADS - 1) / THREADS;
+  const long long most = (MAX_BLOCKS + rows - 1) / rows;
+  if (blocks > most) blocks = most;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+  row_uniforms_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), cols, stride, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

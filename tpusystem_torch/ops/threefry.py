@@ -15,7 +15,12 @@ Only the bits of a draw are device work; on a CUDA device the dropout mask
 is one kernel (:func:`tpusystem_torch.ops.cuda.threefry.bernoulli_mask`).
 
 Also here, :func:`make_rng`: flax's ``Module.make_rng`` key for a module
-path, so the port's dropout masks are the reference's own.
+path, so the port's dropout masks are the reference's own; and jax's
+sampling draw: :func:`categorical_rows`, one key a row, which
+:func:`categorical`, ``generate`` and the serving engine all take (its
+uniforms, :func:`uniform_rows`, are one kernel on a CUDA device,
+:func:`tpusystem_torch.ops.cuda.threefry.row_uniforms`), with
+:func:`gumbel`, the noise it adds, on its own.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ MASK = 0xFFFFFFFF
 PARITY = 0x1BD11BDA                 # Threefry's key-schedule constant
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+TINY = torch.finfo(torch.float32).tiny     # gumbel's lower uniform bound
 
 Key = tuple[int, int]
 
@@ -39,8 +45,9 @@ def _rotl(x, distance: int):
 
 def threefry2x32(key: Key, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of the counter words ``(x0, x1)``
-    under ``key``: ints or ``int64`` tensors of values below ``2**32``.
-    Returns the two output words the same way."""
+    under ``key``: ints or ``int64`` tensors of values below ``2**32`` (the
+    key's words too, broadcast against the counters). Returns the two output
+    words the same way."""
     k0, k1 = key
     schedule = (k0, k1, k0 ^ k1 ^ PARITY)
     x0 = (x0 + schedule[0]) & MASK
@@ -97,17 +104,88 @@ def uniform_from_bits(bits):
             - 1.0)
 
 
-def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``. XLA fuses
-    ``floats * (maxval - minval) + minval`` into one multiply-add, rounded
-    once; the port takes it in float64 (the product is exact there) and
-    rounds once to float32."""
-    low = torch.tensor(minval, dtype=torch.float32, device=device)
-    high = torch.tensor(maxval, dtype=torch.float32, device=device)
-    floats = uniform_from_bits(random_bits(key, shape, device))
+def _scale(floats, minval: float, maxval: float):
+    """``floats`` in ``[0, 1)`` mapped onto ``[minval, maxval)`` as
+    ``jax.random.uniform`` maps them. XLA fuses ``floats * (maxval - minval)
+    + minval`` into one multiply-add, rounded once; the port takes it in
+    float64 (the product is exact there) and rounds once to float32."""
+    low = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    high = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
     scaled = (floats.double() * (high - low).double() + low.double()).float()
     return torch.maximum(low, scaled)
+
+
+def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return _scale(uniform_from_bits(random_bits(key, shape, device)),
+                  minval, maxval)
+
+
+def gumbel_from_uniform(floats):
+    """``-log(-log(u))``: jax's gumbel in its default ``mode='low'`` from
+    its uniform in ``[tiny, 1)``."""
+    return -torch.log(-torch.log(floats))
+
+
+def gumbel(key: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in the default
+    ``mode='low'`` (``jax_high_dynamic_range_gumbel`` off):
+    ``-log(-log(uniform(key, shape, minval=tiny, maxval=1)))``."""
+    return gumbel_from_uniform(uniform(key, shape, TINY, 1.0, device))
+
+
+def key_tensor(keys, device=None) -> torch.Tensor:
+    """``[rows, 2]`` int64 tensor of the keys ``keys`` (pairs of words)."""
+    return torch.tensor([as_key(key) for key in keys], dtype=torch.int64,
+                        device=device).reshape(-1, 2)
+
+
+def uniform_rows(keys, cols: int, stride: int = 0) -> torch.Tensor:
+    """Float32 uniforms in ``[tiny, 1)``, ``[rows, cols]``, one key a row:
+    ``keys`` is an int64 ``[rows, 2]`` tensor of 32-bit words (on the device
+    the draw runs on). Element ``(r, c)`` hashes counter ``r * stride + c``
+    under row ``r``'s key, so with ``stride == 0`` row ``r`` is
+    ``uniform(key_r, (cols,), tiny, 1)`` bit for bit, and with one key
+    repeated and ``stride == cols`` the rows are ``uniform(key, (rows,
+    cols), tiny, 1)``."""
+    rows = keys.shape[0]
+    index = (torch.arange(rows, dtype=torch.int64, device=keys.device)[:, None]
+             * stride
+             + torch.arange(cols, dtype=torch.int64, device=keys.device))
+    bits0, bits1 = threefry2x32((keys[:, :1], keys[:, 1:]), index >> 32,
+                                index & MASK)
+    return _scale(uniform_from_bits(bits0 ^ bits1), TINY, 1.0)
+
+
+def categorical_rows(keys, logits, stride: int = 0) -> torch.Tensor:
+    """The sampler's one draw: for each row of ``logits [rows, vocab]`` the
+    argmax of gumbel noise plus its float32 logits (the first index among
+    equals), row ``r``'s noise from counters ``r * stride + c`` under its key
+    (``keys``, int64 ``[rows, 2]`` on the logits' device). The uniforms are
+    :func:`tpusystem_torch.ops.cuda.threefry.row_uniforms`: one kernel on the
+    card, :func:`uniform_rows` on the CPU."""
+    # imported here: that module imports this one
+    from tpusystem_torch.ops.cuda.threefry import row_uniforms
+    noise = gumbel_from_uniform(row_uniforms(keys, logits.shape[-1], stride))
+    return torch.argmax(noise + logits.float(), dim=-1)
+
+
+def categorical(key: Key, logits, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` (``replace=True``) over
+    the last axis: the argmax of ``gumbel(key, logits.shape) + logits``
+    (float32 logits), the first index among equals. One
+    :func:`categorical_rows` draw, ``key`` repeated over the leading
+    elements with stride ``vocab``, so the counters are the flat indices jax
+    hashes."""
+    if axis not in (-1, logits.dim() - 1):
+        raise ValueError(f'categorical draws over the last axis, got '
+                         f'axis={axis} of {logits.dim()}')
+    vocab = logits.shape[-1]
+    rows = logits.reshape(-1, vocab)
+    keys = key_tensor([key], logits.device).expand(rows.shape[0], 2)
+    return categorical_rows(keys, rows, stride=vocab).reshape(
+        logits.shape[:-1])
 
 
 def bernoulli(key: Key, p: float, shape, device=None) -> torch.Tensor:

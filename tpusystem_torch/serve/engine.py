@@ -8,8 +8,8 @@ pool while batch membership changes between steps:
   mode, padded to a power-of-2 bucket (:func:`prefill_bucket`; buckets of
   512 tokens or more take the flash kernel); the KV strip scatters into the
   row's free-list blocks (:func:`tpusystem_torch.serve.kvcache.adopt_prefill`)
-  and the row's table and cursor are set. The prefill logits' argmax is the
-  request's first token.
+  and the row's table and cursor are set. The request's first token comes
+  from the prefill logits (its argmax, or its sample).
 * **step** — every row advances one token; retired rows idle at the trash
   block behind an active mask, their cursors rewound to 0.
 * **evict** — blocks return to the free list and the row's table resets to
@@ -25,11 +25,34 @@ reference's do (``engine.py:207,569``). Greedy outputs are token-exact
 against the JAX package's engine and against standalone ``generate`` in
 window-invariant arithmetic (float32 on the CPU).
 
+``sampling=`` on admission makes a row sampled or grammar-masked
+(:class:`SamplingParams`): its temperature, top-k, top-p and ``[vocab]``
+mask live in fixed-shape ``[rows]`` / ``[rows, vocab]`` device tensors the
+step reads, and every sampled token's threefry key is a pure function of
+``(seed, position)`` (:func:`tpusystem_torch.train.generate.sampling_key`),
+derived on the host from its mirrors of each row's seed and stream position,
+so a replay that passes the emitted prefix (``emitted=``) reproduces the
+stream bitwise on any engine. While no seated row samples or masks, the step
+takes the plain argmax, bitwise the greedy branch of
+:func:`~tpusystem_torch.train.generate.sample_token`; otherwise every row
+goes through it (greedy rows take its argmax branch), the draw's uniforms one
+kernel on the card (:func:`tpusystem_torch.ops.cuda.threefry.row_uniforms`).
+
+``share_prefix=True`` turns on the radix prefix index of
+:class:`~tpusystem_torch.serve.kvcache.PagedKVCache`: an admission whose
+prompt starts with an already-cached block-aligned prefix adopts those
+blocks by reference and prefills only the uncached suffix (the **resume
+prefill**, :meth:`Engine._resume`: a contiguous cache seeded from the pool
+through the row's slots, its cursors at the cached depth, then the padded
+suffix down the decode path, whose masked read equals the full causal
+prefill in window-invariant arithmetic). A prompt whose full prefill would
+take the flash kernel (512 tokens or more) mixes flash-era prefix KV with
+the masked read, exact only up to a near-tie of the argmax.
+
 The host keeps a mirror of every row's cursor, so each step's read window
 is chosen without waiting on the device; the only per-step device-to-host
 copy is the emitted tokens. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: sampled rows
-(``temperature > 0``), ``share_prefix``, speculative rows
+``NotImplementedError`` naming its ROADMAP item: speculative rows
 (``draft_module``), tensor parallelism (``mesh``, ``schedule``) and the
 disaggregated prefill hand-off.
 """
@@ -44,14 +67,16 @@ import torch
 from torch.func import functional_call
 
 from tpusystem_torch.device import resolve_device
-from tpusystem_torch.serve.kvcache import (PagedKVCache, adopt_prefill,
-                                           write_tables)
-from tpusystem_torch.train.cursors import rewind
+from tpusystem_torch.ops.attention import contiguous_window
+from tpusystem_torch.serve.kvcache import (PagedKVCache, _is_kv,
+                                           adopt_prefill, write_tables)
+from tpusystem_torch.train.cursors import is_cursor, rewind
 from tpusystem_torch.train.decode_fused import (build_fused_paged_step,
                                                 fused_paged_reason)
 from tpusystem_torch.train.generate import (_decoder, _dequant,
                                             _resolve_impl, _stream_params,
-                                            param_dict)
+                                            param_dict, sample_rows,
+                                            sample_token, sampling_keys)
 
 
 class Saturated(RuntimeError):
@@ -59,11 +84,32 @@ class Saturated(RuntimeError):
     queued (the scheduler's job), never crash the engine."""
 
 
+class UnseededSampling(ValueError):
+    """A ``temperature > 0`` request with no seed: its stream would not be
+    reproducible, so replay could not keep its token-exact contract. Refused
+    at admission; a ``ValueError``, as every caller error."""
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request decode-sampling controls (the reference's fields). The
-    port serves greedy requests only: ``temperature > 0`` is refused at
-    admission until the threefry sampler is ported."""
+    """Per-request decode-sampling controls, journal-replayable: a seeded
+    request's token at stream position ``p`` is a pure function of ``(seed,
+    p)``, the logits and the emitted prefix.
+
+    Attributes:
+        seed: threefry counter seed, required when ``temperature > 0``
+            (:class:`UnseededSampling` otherwise); ignored at 0.
+        temperature: 0 (default) is the greedy argmax; > 0 scales the
+            logits before sampling.
+        top_k: keep only the k highest logits (0: no top-k filter).
+        top_p: keep the smallest sorted prefix whose mass before each token
+            stays under ``top_p`` (1.0: no filter).
+        mask_fn: the structured-output hook, a module-level callable
+            ``(emitted: list[int]) -> bool[vocab]`` evaluated on the host
+            before every position; ``False`` tokens are excluded before
+            temperature, top-k and top-p. It must allow at least one token.
+            Composes with greedy rows too (masked argmax).
+    """
     seed: int | None = None
     temperature: float = 0.0
     top_k: int = 0
@@ -129,6 +175,26 @@ class _RowState:
     tokens: list
     max_new: int
     stop: int | None
+    tag: object = None               # opaque caller handle (request id)
+    sampling: object = None          # SamplingParams | None (greedy)
+    prior: tuple = ()                # tokens emitted in a previous life:
+    #                                  positions and mask_fn see prior + tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ops:
+    """One request's sampling operands for a token: ``mask`` a bool
+    ``[vocab]`` array, or ``None`` for all allowed."""
+    seed: int
+    position: int
+    temperature: float
+    top_k: int
+    top_p: float
+    mask: np.ndarray | None
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0 and self.mask is None
 
 
 def _not_ported(what: str, item: str):
@@ -152,10 +218,15 @@ class Engine:
             weight-streaming levers).
         decode_impl: ``'flax'`` | ``'fused'`` | ``'auto'`` (fused on the card
             for bfloat16 modules, flax elsewhere).
+        share_prefix: enable the radix prefix index: requests sharing a
+            block-aligned prompt prefix share its KV blocks and prefill only
+            their uncached suffix.
         device: where to serve; ``None`` is the card.
 
     ``timings`` accumulates host seconds of prefill, admission writes and
-    decode steps; ``last_step_seconds`` is the most recent step's.
+    decode steps; ``last_step_seconds`` is the most recent step's;
+    ``sharing`` counts admissions, prefix hits, prompt and shared tokens and
+    resumed prefills.
     """
 
     def __init__(self, module, params=None, *, rows: int = 4,
@@ -167,9 +238,6 @@ class Engine:
         if reason is not None:
             raise ValueError(f'the serving engine cannot run this module: '
                              f'{reason}')
-        if share_prefix:
-            raise _not_ported('share_prefix', 'prefix sharing and resume '
-                              'prefill')
         if draft_module is not None:
             raise _not_ported('speculative rows (draft_module)',
                               'speculative rows')
@@ -179,6 +247,7 @@ class Engine:
         self.device = resolve_device(device)
         self.rows, self.block_size = rows, block_size
         self.max_seq = module.max_seq
+        self.share_prefix = share_prefix
         if blocks is None:
             blocks = rows * (self.max_seq // block_size) + 1
         self._prefiller = _decoder(module)     # contiguous, shared cursor
@@ -192,7 +261,8 @@ class Engine:
                                          self.device)
         self._fused = (build_fused_paged_step(self._decoder)
                        if reason is None else None)
-        self.pool = PagedKVCache(rows, blocks, block_size, self.max_seq)
+        self.pool = PagedKVCache(rows, blocks, block_size, self.max_seq,
+                                 share_prefix=share_prefix)
         self._cache = self._decoder.init_cache(rows, self.device)
         self._free_rows = list(range(rows - 1, -1, -1))
         # host mirrors; the device tokens feed back into the next step
@@ -200,8 +270,35 @@ class Engine:
         self._cursor = np.zeros(rows, np.int64)
         self._tokens_dev = torch.zeros(rows, dtype=torch.long,
                                        device=self.device)
+        # per-row sampling state: the step reads temperature, top-k, top-p
+        # and the mask on the device; each row's key is derived on the host
+        # from its seed and stream position, so no step waits on the card
+        # for it. Greedy defaults (temperature 0, all-True mask) keep an idle
+        # or unsampled row on the argmax branch.
+        self.vocab = module.vocab_size
+        self._seed = np.zeros(rows, np.int64)
+        self._position = np.zeros(rows, np.int64)
+        self._sampled = np.zeros(rows, bool)       # temperature > 0
+        self._masked = np.zeros(rows, bool)        # has a mask_fn
+        # the step's keys: hashed on the host in one call, staged in pinned
+        # memory and uploaded without blocking (the previous step's token
+        # read has already waited for the last upload)
+        self._keys_host = torch.zeros(
+            (rows, 2), dtype=torch.int64,
+            pin_memory=self.device.type == 'cuda')
+        self._keys_dev = torch.zeros((rows, 2), dtype=torch.int64,
+                                     device=self.device)
+        self._temp_dev = torch.zeros(rows, device=self.device)
+        self._topk_dev = torch.zeros(rows, dtype=torch.long,
+                                     device=self.device)
+        self._topp_dev = torch.ones(rows, device=self.device)
+        self._mask_dev = torch.ones((rows, self.vocab), dtype=torch.bool,
+                                    device=self.device)
         self._rowstate: dict[int, _RowState] = {}
         self.timings = {'prefill': 0.0, 'admit': 0.0, 'step': 0.0}
+        self.sharing = {'admissions': 0, 'prefix_hits': 0,
+                        'prompt_tokens': 0, 'shared_tokens': 0,
+                        'resumed_prefills': 0}
         self.last_step_seconds = 0.0
 
     # ------------------------------------------------------------ admission
@@ -214,17 +311,87 @@ class Engine:
     def active_rows(self) -> int:
         return int(self._active.sum())
 
-    def can_admit(self, prompt_len: int, max_new: int) -> bool:
-        """Whether an admission of this shape would seat right now."""
+    @property
+    def sampled_rows(self) -> int:
+        """Seated requests decoding with ``temperature > 0``."""
+        return sum(1 for state in self._rowstate.values()
+                   if state.sampling is not None and state.sampling.sampled)
+
+    def can_admit(self, prompt_len: int, max_new: int, prompt=None) -> bool:
+        """Whether an admission of this shape would seat right now. Pass the
+        prompt tokens to count prefix sharing (matched blocks need no
+        allocation); without them the estimate is conservative."""
         if not self._free_rows:
             return False
         needed = self.pool.blocks_for(prompt_len + max_new)
         if needed > self.pool.max_blocks:
             return False
+        if self.share_prefix and prompt is not None:
+            needed -= self.pool.adoptable_prefix(prompt)[0] // self.block_size
         return needed <= self.pool.free_blocks
 
     def bucket(self, prompt_len: int) -> int:
         return prefill_bucket(prompt_len, self.block_size, self.max_seq)
+
+    def prefix_cached_len(self, prompt) -> int:
+        """How many leading prompt tokens the radix index would serve from
+        cache if this prompt were admitted now (0 without sharing)."""
+        if not self.share_prefix:
+            return 0
+        return self.pool.adoptable_prefix(prompt)[0]
+
+    def admit_cost(self, prompt) -> int:
+        """Prefill pad-bucket cost of admitting ``prompt``: the bucket of its
+        uncached suffix under prefix sharing, of the whole prompt otherwise
+        (at least one token always prefills)."""
+        suffix = max(len(prompt) - self.prefix_cached_len(prompt), 1)
+        return self.bucket(suffix)
+
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the radix index
+        (0.0 before any admission)."""
+        total = self.sharing['prompt_tokens']
+        return self.sharing['shared_tokens'] / total if total else 0.0
+
+    def _greedy_ops(self, position: int = 0) -> _Ops:
+        """The greedy-default operands: the first token is the argmax."""
+        return _Ops(0, position, 0.0, 0, 1.0, None)
+
+    def _grammar_mask(self, sampling, stream: list) -> np.ndarray | None:
+        """``mask_fn`` over the stream so far, validated (bool ``[vocab]``,
+        at least one token allowed); ``None`` when the request has none."""
+        if sampling is None or sampling.mask_fn is None:
+            return None
+        mask = np.asarray(sampling.mask_fn(list(stream)), bool).reshape(-1)
+        if mask.shape[0] != self.vocab:
+            raise ValueError(
+                f'mask_fn returned {mask.shape[0]} entries, the vocab is '
+                f'{self.vocab}')
+        if not mask.any():
+            raise ValueError(
+                f'mask_fn allowed no token after {len(stream)} emitted — a '
+                'grammar must always leave an escape hatch (e.g. its stop '
+                'token)')
+        return mask
+
+    def _sampling_ops(self, sampling, emitted) -> _Ops:
+        """The request's operands for its first token, at stream position
+        ``len(emitted)`` (the slots a previous life already emitted)."""
+        if sampling is None:
+            return self._greedy_ops(len(emitted))
+        return _Ops(sampling.seed or 0, len(emitted), sampling.temperature,
+                    sampling.top_k, sampling.top_p,
+                    self._grammar_mask(sampling, list(emitted)))
+
+    def _first_token(self, logits, ops: _Ops) -> int:
+        """The request's first token from its prefill logits row."""
+        if ops.greedy:
+            return int(logits.argmax())
+        mask = (torch.ones(self.vocab, dtype=torch.bool, device=self.device)
+                if ops.mask is None
+                else torch.as_tensor(ops.mask, device=self.device))
+        return int(sample_token(logits, ops.seed, ops.position,
+                                ops.temperature, ops.top_k, ops.top_p, mask))
 
     def _validate(self, prompt, max_new: int, sampling) -> None:
         if prompt.size < 1:
@@ -235,66 +402,157 @@ class Engine:
             raise ValueError(
                 f'prompt ({prompt.size}) + max_new ({max_new}) exceeds the '
                 f'cache capacity max_seq={self.max_seq}')
-        if sampling is not None and (sampling.sampled
-                                     or sampling.mask_fn is not None):
-            raise _not_ported('sampled and grammar-masked requests',
-                              'sampling with the threefry port')
+        if (sampling is not None and sampling.sampled
+                and sampling.seed is None):
+            raise UnseededSampling(
+                f'temperature {sampling.temperature} with no seed: the '
+                'stream would not be reproducible, so replay could not keep '
+                'its token-exact contract — pass SamplingParams(seed=...)')
 
     def _seat(self, prompt, max_new: int) -> int:
+        """Claim a free row and seat it in the pool, rolled back whole on a
+        block shortfall."""
         if not self._free_rows:
             raise Saturated('no free row')
-        if not self.can_admit(prompt.size, max_new):
-            raise Saturated(
-                f'{self.pool.blocks_for(prompt.size + max_new)} blocks '
-                f'needed, {self.pool.free_blocks} free')
+        tokens = prompt.size + max_new
+        if not self.can_admit(prompt.size, max_new, prompt=prompt):
+            raise Saturated(f'{self.pool.blocks_for(tokens)} blocks needed '
+                            f'per row, {self.pool.free_blocks} free')
         row = self._free_rows.pop()
-        self.pool.admit(row, prompt.size + max_new)
+        try:
+            self.pool.admit(row, tokens,
+                            prompt=prompt if self.share_prefix else None)
+        except ValueError:
+            self._free_rows.append(row)
+            raise Saturated(f'{self.pool.blocks_for(tokens)} blocks needed '
+                            f'per row, {self.pool.free_blocks} free') from None
         return row
+
+    def _padded(self, tokens) -> torch.Tensor:
+        padded = np.zeros((1, self.bucket(tokens.size)), np.int64)
+        padded[0, :tokens.size] = tokens
+        return torch.as_tensor(padded, device=self.device)
 
     @torch.no_grad()
     def _prefill(self, prompt):
         """The float32 logits ``[vocab]`` at the prompt's last position and
         the contiguous KV strips of one padded prompt."""
-        bucket = self.bucket(prompt.size)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :prompt.size] = prompt
         logits, cache = functional_call(
             self._prefiller, _dequant(self._params, self._prefiller),
-            (torch.as_tensor(padded, device=self.device),), {'cache': None})
+            (self._padded(prompt),), {'cache': None})
         # a copy of the row, so the [1, bucket, vocab] logits free now
         return logits[0, prompt.size - 1].clone(), cache
 
     @torch.no_grad()
-    def admit(self, prompt, max_new: int, *, stop_token: int | None = None,
-              sampling=None) -> Admission:
-        """Prefill ``prompt`` and seat it in a free row. Raises
-        :class:`Saturated` when no row or not enough blocks are free (the
-        caller queues), ``ValueError`` on requests that could never fit."""
-        prompt = np.asarray(prompt, np.int64).reshape(-1)
-        self._validate(prompt, max_new, sampling)
-        row = self._seat(prompt, max_new)
+    def _resume(self, prompt, slots, shared: int):
+        """The resume prefill (the reference's ``_build_resume``): the
+        prefiller's contiguous cache for one row, then only the padded
+        suffix applied. The cache is as long as the window the suffix's
+        masked read takes (so it holds every position the read sees, and no
+        more), each KV leaf one gather from the pool through the row's
+        ``slots``, zeroed at and past ``shared``, and its cursors at
+        ``shared``. Returns what :meth:`_prefill` returns, with KV strips of
+        that window's length."""
+        suffix = self._padded(prompt[shared:])
+        width = contiguous_window(self.max_seq, shared + suffix.shape[1])
+        index = torch.as_tensor(np.asarray(slots[:width], np.int64),
+                                device=self.device)
+        cursor = torch.full((1,), shared, dtype=torch.int32,
+                            device=self.device)
+        cache = {}
+        for path, leaf in self._cache.items():
+            if _is_kv(path):
+                strip = leaf.index_select(0, index)
+                strip[shared:] = 0
+                cache[path] = strip[None]
+            elif is_cursor(path):
+                cache[path] = cursor
+        logits, cache = functional_call(
+            self._prefiller, _dequant(self._params, self._prefiller),
+            (suffix,), {'cache': cache, 'depth': shared})
+        return logits[0, prompt.size - shared - 1].clone(), cache
 
-        started = time.perf_counter()
-        logits, prefill_cache = self._prefill(prompt)
-        first = int(logits.argmax())
-        self.timings['prefill'] += time.perf_counter() - started
+    def _prefill_rows(self, prompt, row: int):
+        """The prefill of an admission already seated in the pool: the
+        resume over the uncached suffix when the row adopted a shared prefix
+        and the suffix's bucket fits behind it, the full prompt otherwise."""
+        shared = self.pool.shared_tokens(row)
+        if shared and shared + self.bucket(prompt.size - shared) \
+                <= self.max_seq:
+            self.sharing['resumed_prefills'] += 1
+            return self._resume(prompt, self.pool.slots(row), shared)
+        return self._prefill(prompt)
 
-        started = time.perf_counter()
-        self._cache = adopt_prefill(self._cache, prefill_cache,
-                                    self.pool.slots(row), row, prompt.size)
-        self._cache = write_tables(self._cache, self.pool.table)
-        self.timings['admit'] += time.perf_counter() - started
-
+    def _register(self, row: int, prompt, first: int, max_new: int,
+                  stop_token: int | None, tag, sampling=None,
+                  emitted=()) -> Admission:
+        """The host-side admission tail: sharing counters, row state,
+        sampling state, token and active mirrors, and the
+        admitted-already-finished check."""
+        shared = self.pool.shared_tokens(row)
+        self.sharing['admissions'] += 1
+        self.sharing['prompt_tokens'] += int(prompt.size)
+        self.sharing['shared_tokens'] += shared
+        self.sharing['prefix_hits'] += bool(shared)
+        # the next token's stream position: `first` landed at len(emitted)
+        self._position[row] = len(emitted) + 1
+        if sampling is not None:
+            self._seed[row] = sampling.seed or 0
+            self._sampled[row] = sampling.sampled
+            self._masked[row] = sampling.mask_fn is not None
+            self._temp_dev[row] = sampling.temperature
+            self._topk_dev[row] = sampling.top_k
+            self._topp_dev[row] = sampling.top_p
         self._active[row] = True
-        self._cursor[row] = prompt.size
         self._tokens_dev[row] = first
         self._rowstate[row] = _RowState(tokens=[first], max_new=max_new,
-                                        stop=stop_token)
+                                        stop=stop_token, tag=tag,
+                                        sampling=sampling,
+                                        prior=tuple(emitted))
         reason = self._finish_reason(row)
         if reason is not None:
             self.evict(row)
             return Admission(row, first, True, reason)
+        mask = self._grammar_mask(sampling, list(emitted) + [first])
+        if mask is not None:
+            self._mask_dev[row] = torch.as_tensor(mask, device=self.device)
         return Admission(row, first, False)
+
+    @torch.no_grad()
+    def admit(self, prompt, max_new: int, *, stop_token: int | None = None,
+              tag=None, sampling=None, emitted=()) -> Admission:
+        """Prefill ``prompt`` and seat it in a free row. Raises
+        :class:`Saturated` when no row or not enough blocks are free (the
+        caller queues), ``ValueError`` on requests that could never fit,
+        :class:`UnseededSampling` among them.
+
+        ``sampling`` is the request's :class:`SamplingParams` (``None``:
+        greedy); ``emitted`` the tokens a previous life already emitted for
+        this request (a replay passes its prefix, which the prompt already
+        includes, so sampling positions continue where the stream left
+        off)."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        self._validate(prompt, max_new, sampling)
+        ops = self._sampling_ops(sampling, emitted)
+        row = self._seat(prompt, max_new)
+
+        started = time.perf_counter()
+        logits, prefill_cache = self._prefill_rows(prompt, row)
+        first = self._first_token(logits, ops)
+        self.timings['prefill'] += time.perf_counter() - started
+
+        started = time.perf_counter()
+        # a resumed prefill's strips are shorter than max_seq: its slots too
+        strip = next(leaf for path, leaf in prefill_cache.items()
+                     if _is_kv(path)).shape[1]
+        self._cache = adopt_prefill(self._cache, prefill_cache,
+                                    self.pool.adoption_slots(row)[:strip],
+                                    row, prompt.size)
+        self._cache = write_tables(self._cache, self.pool.table)
+        self._cursor[row] = prompt.size
+        self.timings['admit'] += time.perf_counter() - started
+        return self._register(row, prompt, first, max_new, stop_token, tag,
+                              sampling, emitted)
 
     def _finish_reason(self, row: int) -> str | None:
         state = self._rowstate[row]
@@ -330,17 +588,38 @@ class Engine:
         cache = {path: leaf.clone() for path, leaf in self._cache.items()}
         return self._decode(decode_impl, cache)[0]
 
+    def _step_keys(self):
+        """The step's ``[rows, 2]`` keys on the device, each row's
+        ``sampling_key(seed, position)`` from the host mirrors (a row that
+        does not sample draws nothing that counts), or ``None`` while no
+        seated row samples or masks: that step takes the plain argmax."""
+        if not (self._sampled | self._masked).any():
+            return None
+        self._keys_host.copy_(torch.from_numpy(
+            sampling_keys(self._seed, self._position)))
+        return self._keys_dev.copy_(self._keys_host, non_blocking=True)
+
+    @torch.no_grad()
     def step(self) -> StepReport:
         """Advance every active row one token (one fixed-shape step) and
         retire the rows that hit their length or stop token."""
         if not self._active.any():
             return StepReport({}, [])
         started = time.perf_counter()
+        # uploaded before the step's launches: the copy waits on no kernel
+        keys = self._step_keys()
         logits, cache = self._decode(self.decode_impl, self._cache)
-        token_dev = logits.argmax(-1)
+        if keys is None:
+            token_dev = logits.argmax(-1)
+        else:
+            token_dev = sample_rows(logits, keys, self._temp_dev,
+                                    self._topk_dev, self._topp_dev,
+                                    self._mask_dev)
         # active rows advance; retired rows park at cursor 0 so their dead
         # writes stay in the trash block's first slots
         self._cursor = np.where(self._active, self._cursor + 1, 0)
+        self._position = np.where(self._active, self._position + 1,
+                                  self._position)
         self._cache = rewind(cache, torch.as_tensor(self._cursor,
                                                     device=self.device))
         self._tokens_dev = token_dev
@@ -357,17 +636,33 @@ class Engine:
             if reason is not None:
                 state = self.evict(row)
                 finished.append((row, reason, list(state.tokens)))
+                continue
+            # the grammar hook: the mask over the whole stream, for the
+            # next position
+            mask = self._grammar_mask(state.sampling,
+                                      list(state.prior) + state.tokens)
+            if mask is not None:
+                self._mask_dev[row] = torch.as_tensor(mask,
+                                                      device=self.device)
         return StepReport(emitted, finished)
 
     # ------------------------------------------------------------- eviction
 
     def evict(self, row: int) -> _RowState:
         """Retire ``row`` (finished or cancelled): its blocks return to the
-        free list and its table resets to trash."""
+        free list (or, shared, drop one reference) and its table resets to
+        trash; a sampled or masked row's state returns to the greedy
+        defaults."""
         if row not in self._rowstate:
             raise ValueError(f'row {row} is not seated')
+        state = self._rowstate[row]
         self.pool.evict(row)
         self._active[row] = False
+        if state.sampling is not None:
+            self._temp_dev[row] = 0.0
+            self._sampled[row] = self._masked[row] = False
+            if state.sampling.mask_fn is not None:
+                self._mask_dev[row] = True
         self._cache = write_tables(self._cache, self.pool.table)
         self._free_rows.append(row)
         return self._rowstate.pop(row)

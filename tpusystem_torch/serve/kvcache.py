@@ -296,8 +296,9 @@ def adopt_prefill(cache: dict, prefill_cache: dict, slots, row: int,
     """Admit a prefilled sequence into ``row`` of the paged cache.
 
     ``prefill_cache`` is the contiguous cache a plain decode-mode prefill
-    left behind (per-layer KV strips ``[1, max_seq, heads, head_dim]``);
-    ``slots`` is the row's ``[max_seq]`` physical token-slot map
+    left behind (per-layer KV strips ``[1, S, heads, head_dim]``: ``S`` is
+    ``max_seq``, or a resumed prefill's read window); ``slots`` is the
+    row's first ``S`` physical token slots
     (:meth:`PagedKVCache.slots`, trash past the allocation, so pad junk
     beyond the prompt lands in trash or in positions the decode writes
     overwrite before the mask exposes them). The pool is written in place;

@@ -190,11 +190,15 @@ def build_fused_paged_step(decoder):
     return step
 
 
-def build_fused(decoder, steps: int):
-    """The fused greedy decode runner of ``generate(decode_impl='fused')``:
+def build_fused(decoder, steps: int, temperature: float = 0.0):
+    """The fused decode runner of ``generate(decode_impl='fused')``:
     module-path prefill (flash routing included), then ``steps - 1`` fused
-    token steps over the contiguous caches. Returns ``run(params, prompt)
-    -> int32 [batch, prompt_len + steps]``."""
+    token steps over the contiguous caches, each token greedy or sampled at
+    ``temperature`` as ``generate``'s module path samples it. Returns
+    ``run(params, prompt, rng) -> int32 [batch, prompt_len + steps]``
+    (``rng`` a threefry key, split before each token)."""
+    from tpusystem_torch.ops.threefry import split
+    from tpusystem_torch.train.generate import _sample
     heads, max_seq = decoder.heads, decoder.max_seq
     compute = decoder.compute_dtype
 
@@ -217,17 +221,19 @@ def build_fused(decoder, steps: int):
         return _head(params, hidden, compute)
 
     @torch.no_grad()
-    def run(params, prompt):
+    def run(params, prompt, rng):
         logits, cache = functional_call(
             decoder, dequantize_streamed(params, compute), (prompt,),
             {'cache': None})
         length = prompt.shape[1]
         cursor = cache['position'].long()                        # uniform
-        token = logits[:, -1].argmax(-1)
+        rng, key = split(rng)
+        token = _sample(logits[:, -1], temperature, key)
         emitted = [token]
         for step in range(steps - 1):
             logits = token_step(params, cache, cursor, token, length + step)
-            token = logits.argmax(-1)
+            rng, key = split(rng)
+            token = _sample(logits, temperature, key)
             emitted.append(token)
             cursor = cursor + 1
         return torch.cat([prompt, torch.stack(emitted, 1)], 1).to(

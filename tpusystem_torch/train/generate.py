@@ -1,5 +1,6 @@
-"""Greedy autoregressive generation with a KV cache: the port of
-:func:`tpusystem.train.generate.generate`.
+"""Autoregressive generation with a KV cache: the port of
+:func:`tpusystem.train.generate.generate`, and the sampler the serving
+engine shares with it (:func:`sample_token`).
 
 ``generate`` clones the LM into decode mode, prefills the prompt in one
 forward pass (prompts of 512 tokens or more through the flash kernel), then
@@ -18,19 +19,32 @@ them on chip; the prefill and the module path run on their dequantized view
 Parameters travel beside the module, as in the reference (``params`` is a
 state dict such as :func:`tpusystem_torch.convert.params_from_jax` returns,
 or ``None`` for the module's own), and are applied with
-:func:`torch.func.functional_call`. Not ported yet: sampling
-(``temperature > 0``: ``categorical`` on top of
-:mod:`tpusystem_torch.ops.threefry`) and speculative decoding.
+:func:`torch.func.functional_call`.
+
+``temperature > 0`` samples with jax's threefry draws, bit for bit the
+reference's: ``rng`` is split before the first token and before every step,
+and each token is ``jax.random.categorical`` of the scaled logits
+(:func:`tpusystem_torch.ops.threefry.categorical`). The draw's uniforms are
+one kernel on the card
+(:func:`tpusystem_torch.ops.cuda.threefry.row_uniforms`); the ``log`` s, the
+sort and the argmax are PyTorch ops. Not ported yet: speculative decoding.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from tpusystem_torch.device import resolve_device
 from tpusystem_torch.ops.precision import (dequantize_streamed,
                                            quantize_streamed)
+from tpusystem_torch.ops.threefry import (MASK, PRNGKey, as_key,
+                                          categorical, categorical_rows,
+                                          fold_in, key_tensor, split,
+                                          threefry2x32)
 from tpusystem_torch.train.decode_fused import (build_fused,
                                                 fused_unsupported_reason)
 
@@ -116,6 +130,94 @@ def _dequant(params: dict, decoder) -> dict:
     return dequantize_streamed(params, decoder.compute_dtype)
 
 
+def _sample(logits, temperature: float, key):
+    """One token a row of ``logits [batch, vocab]`` (``generate.py:138``):
+    the argmax at temperature 0, else ``jax.random.categorical(key,
+    logits / temperature)``, one draw of ``[batch, vocab]`` under ``key``."""
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    # a one-element tensor, not a Python scalar: PyTorch's CUDA division by
+    # a scalar multiplies by its reciprocal, an ulp off the quotient
+    scaled = logits.float() / torch.tensor([temperature], device=logits.device)
+    return categorical(key, scaled)
+
+
+def sampling_key(seed: int, position: int):
+    """The threefry key of one token slot (``generate.py:145``),
+    ``fold_in(PRNGKey(seed), position)``: a pure function of ``(seed,
+    position)``, derived on the host."""
+    return fold_in(PRNGKey(seed), position)
+
+
+def sampling_keys(seeds, positions) -> np.ndarray:
+    """:func:`sampling_key` of many ``(seed, position)`` pairs in one
+    vectorised hash on the host: int64 ``[n, 2]`` words."""
+    seeds = np.asarray(seeds, np.int64) & MASK
+    words = threefry2x32((np.zeros_like(seeds), seeds), 0,
+                         np.asarray(positions, np.int64) & MASK)
+    return np.stack(words, -1)
+
+
+def _nucleus(scaled, top_k, top_p):
+    """The top-k / top-p filter of :func:`sample_rows` on scaled logits
+    ``[rows, vocab]``: ``(filtered, order, keep, mass_before)``, the last
+    three in each row's stable descending order (ties by id)."""
+    order = torch.sort(-scaled, dim=-1, stable=True).indices
+    ranked = torch.gather(scaled, -1, order)
+    rank = torch.arange(scaled.shape[-1], device=scaled.device)[None]
+    keep = torch.where(top_k[:, None] > 0, rank < top_k[:, None], True)
+    # jax.nn.softmax's arithmetic: exp(x - max) / sum
+    unnormalized = torch.exp(ranked - ranked[:, :1])
+    probs = unnormalized / unnormalized.sum(-1, keepdim=True)
+    mass_before = torch.cumsum(probs, -1) - probs
+    keep = keep & (mass_before < top_p.float()[:, None])
+    filtered = torch.empty_like(scaled).scatter_(
+        -1, order, torch.where(keep, ranked, torch.full_like(ranked,
+                                                             -math.inf)))
+    return filtered, order, keep, mass_before
+
+
+def sample_rows(logits, keys, temperature, top_k, top_p, mask):
+    """:func:`sample_token` for every row of ``logits [rows, vocab]`` at
+    once, each row at its own key (``keys``, int64 ``[rows, 2]``) and its own
+    ``temperature``, ``top_k``, ``top_p`` (``[rows]`` tensors) and ``mask``
+    (bool ``[rows, vocab]``), all on the logits' device."""
+    logits = torch.where(mask, logits.float(), -math.inf)
+    greedy = logits.argmax(-1)
+    # the 1e-6 floor keeps the temperature 0 branch finite (its value is
+    # discarded by the final where, but NaNs would poison both sides)
+    scaled = logits / torch.clamp(temperature.float(), min=1e-6)[:, None]
+    sampled = categorical_rows(keys, _nucleus(scaled, top_k, top_p)[0])
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+def sample_token(logits, seed, position, temperature, top_k, top_p, mask):
+    """Deterministically sample one token from one ``[vocab]`` logits row
+    (``generate.py:156-197``): a pure function of ``(logits, seed, position,
+    temperature, top_k, top_p, mask)``.
+
+    * ``mask`` (bool ``[vocab]``) sets disallowed tokens to ``-inf`` first.
+    * ``temperature == 0`` (or ``top_k == 1``) is the argmax, bitwise.
+    * ``top_k > 0`` keeps the k highest scaled logits, ``top_p < 1`` the
+      smallest prefix of the sorted distribution whose mass *before* each
+      token stays under ``top_p`` (the first token always survives); ties
+      break by the stable descending sort, lowest id first.
+    * the draw is ``jax.random.categorical`` at
+      :func:`sampling_key` ``(seed, position)``.
+
+    ``logits`` and ``mask`` are tensors; the rest are Python numbers. Returns
+    a 0-dim int64 tensor on the logits' device."""
+    device = logits.device
+    keys = key_tensor([sampling_key(seed, position)], device)
+    token = sample_rows(
+        logits.reshape(1, -1), keys,
+        torch.tensor([temperature], dtype=torch.float32, device=device),
+        torch.tensor([top_k], device=device),
+        torch.tensor([top_p], dtype=torch.float32, device=device),
+        torch.as_tensor(mask, device=device).reshape(1, -1))
+    return token[0]
+
+
 def _resolve_impl(decode_impl: str, reason: str | None, decoder,
                   device: torch.device) -> str:
     """'flax' | 'fused' for this decode clone; ``reason`` is why the fused
@@ -142,15 +244,17 @@ def _resolve_impl(decode_impl: str, reason: str | None, decoder,
 def generate(module, params, prompt, *, steps: int,
              temperature: float = 0.0, rng=None, stream_dtype: str = 'auto',
              decode_impl: str = 'auto', device=None):
-    """Generate ``steps`` greedy tokens after ``prompt``.
+    """Generate ``steps`` tokens after ``prompt``.
 
     Args:
         module: the LM (its decode-mode clone is used).
         params: state dict of weights, or ``None`` for the module's own.
         prompt: int ``[batch, prompt_len]`` token ids.
         steps: tokens to generate per sequence.
-        temperature: 0 only (greedy); sampling is not ported yet.
-        rng: unused until sampling is ported.
+        temperature: 0 is the greedy argmax; otherwise categorical sampling
+            of ``logits / temperature``.
+        rng: threefry key (two 32-bit words, e.g. ``jax.random.PRNGKey``'s
+            array), required when ``temperature > 0``.
         stream_dtype: ``'auto'`` | ``'bfloat16'`` | ``'float32'`` |
             ``'int8'`` | ``'fp8'``.
         decode_impl: ``'flax'`` | ``'fused'`` | ``'auto'``.
@@ -159,13 +263,11 @@ def generate(module, params, prompt, *, steps: int,
     Returns:
         int32 ``[batch, prompt_len + steps]`` on ``device``.
     """
-    del rng
     if steps < 1:
         raise ValueError(f'steps must be >= 1, got {steps}')
-    if temperature > 0.0:
-        raise NotImplementedError(
-            'temperature sampling is not ported yet (ROADMAP queue 1: '
-            'sampling with the threefry port)')
+    if temperature > 0.0 and rng is None:
+        raise ValueError('temperature sampling needs an rng key')
+    rng = as_key(rng) if rng is not None else PRNGKey(0)
     device = resolve_device(device)
     decoder = _decoder(module)
     params = _stream_params(decoder, param_dict(module, params, device),
@@ -177,22 +279,27 @@ def generate(module, params, prompt, *, steps: int,
             f'cache capacity max_seq={decoder.max_seq}')
     if _resolve_impl(decode_impl, fused_unsupported_reason(decoder), decoder,
                      device) == 'fused':
-        return build_fused(decoder, steps)(params, prompt)
-    return _run(decoder, steps, params, prompt)
+        return build_fused(decoder, steps, temperature)(params, prompt, rng)
+    return _run(decoder, steps, temperature, params, prompt, rng)
 
 
-def _run(decoder, steps: int, params: dict, prompt):
-    """The module-path decode loop: prefill, then one forward per token."""
+def _run(decoder, steps: int, temperature: float, params: dict, prompt,
+         rng):
+    """The module-path decode loop: prefill, then one forward per token;
+    ``rng`` is split before each token, as the reference's scan splits it
+    (``generate.py:669-696``)."""
     params = _dequant(params, decoder)
     logits, cache = functional_call(decoder, params, (prompt,),
                                     {'cache': None})
-    token = logits[:, -1].argmax(-1)
+    rng, key = split(rng)
+    token = _sample(logits[:, -1], temperature, key)
     emitted = [token]
     length = prompt.shape[1]
     for step in range(steps - 1):
         logits, cache = functional_call(
             decoder, params, (token[:, None],),
             {'cache': cache, 'depth': length + step})
-        token = logits[:, -1].argmax(-1)
+        rng, key = split(rng)
+        token = _sample(logits[:, -1], temperature, key)
         emitted.append(token)
     return torch.cat([prompt, torch.stack(emitted, 1)], 1).to(torch.int32)
