@@ -161,6 +161,13 @@ Phases, in order; any failure exits non-zero:
     non-cached forward; time to first token by bucket, decode tokens/s,
     step ms, peak memory and a traced window of 4 decode steps
     (``serve-llama``);
+    15b. the same weights streamed narrow (``serve-llama-narrow``):
+    ``Engine(rows=8, block_size=16, stream_dtype='int8')``, then ``'fp8'``,
+    on four of phase 15's requests (buckets 32, 512, 4096, 8192), 16 new
+    tokens each: the module paged step on the dequantized view, K1 32
+    times for each bucket of 512 or more and K4/K5 never; the share of
+    tokens equal to phase 15's bf16 streams, decode tokens/s, step ms and
+    peak memory;
 16. train Llama at Llama-3 8B's width with
     ``benchmarks/llama8b_rehearsal.py``'s ``chip()`` recipe (dim 4096,
     32 / 8 heads of 128, FFN 14336, ``remat=True``, flash attention, vocab
@@ -198,10 +205,41 @@ Phases, in order; any failure exits non-zero:
     epoch, the mask kernel once a step; one MLP step (Adam) on the card
     against the CPU; and ``events.py``, ``prodcon.py``, ``pubsub.py`` printing what
     the reference's scripts print;
-20. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
-    each backward kernel), the card's name and power limit, and last the
-    ``{"ok": true, "device": ...}`` line. Each of phases 17-19 prints its
-    seconds.
+20. speculative decoding (``spec-generate``):
+    ``benchmarks/speculative_decode.py``'s float32 pair (a GPT-2 of 8
+    layers, dim 512, and a draft of 1 layer, dim 128, vocab 256) trained
+    300 AdamW steps each through the port's ``build_train_step``, then
+    ``generate`` against ``speculative_generate`` at batch 1 and 8, 128
+    steps, K = 3, 5, 7 and a token tree at K = 5: tokens/s, tokens a round,
+    the share of rows equal to plain greedy; and a temperature-0.8 pass,
+    in the vocabulary and repeated bitwise with the same key;
+21. speculative rows (``serve-spec``): phase 5's weights and prompts through
+    the engine with a self-draft at ``tree_fanout`` 1 and 2, a random draft
+    at the benchmark's draft shape with GPT-2's vocabulary, and the
+    self-draft with sampled rows: the self-draft emits more than a token a
+    step and its first tokens equal phase 5's, K1 once a layer for every
+    target and draft prefill of 512 tokens or more and K4/K5 never, a clean
+    pool audit after every eviction, the uniform kernel on the sampled
+    rows, their greedy row equal to its self-draft stream, a ``mask_fn``
+    refused; decode tokens/s, step ms, tokens a request and step, accepted
+    drafts a round, and four traced steps with the draft's and the verify's
+    device ms apart (the port's ``speculative.draft`` and
+    ``speculative.verify`` ranges);
+22. MoE serving (``serve-moe``): K6 and K7 at the MoE model's serving
+    shapes (a decode step's 8 tokens at capacity 8, a 1,024-token prefill
+    at capacity 1,024) against their plain versions, repeated bitwise,
+    timed beside the plain version, ``torch.bmm`` and their bound; then the
+    8-expert GPT-2 MoE (``moe_ceiling.py``'s whole-model settings, random
+    weights) serving phase 5's prompts through ``Engine(rows=8)``: the
+    module paged step, K6 and K7 once per MoE block a prefill and a decode
+    step (6 each a step), K4/K5 never, the logits through the paged cache
+    against the non-cached forward within phase 15's tolerance, decode
+    tokens/s, step ms and a traced window with the grouped kernels' device
+    ms;
+23. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+    each backward kernel, a ``serving`` entry for K6 and K7), the card's
+    name and power limit, and last the ``{"ok": true, "device": ...}``
+    line. Each of phases 15b and 17-22 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -274,6 +312,27 @@ BWD_CASES = {
 LLAMA_PROMPT_LENGTHS = (20, 300, 600, 1100, 2100, 3000, 4500, 7000)
 LLAMA_PROBE = 1100              # the request whose logits are probed
 LLAMA_PROBE_STEPS = 4
+# phase 15b: four of phase 15's requests (buckets 32, 512, 4096, 8192)
+LLAMA_NARROW, LLAMA_NARROW_NEW = (20, 300, 3000, 7000), 16
+# phase 20: benchmarks/speculative_decode.py's pair, float32
+SPEC_VOCAB, SPEC_STEPS, SPEC_TRAIN_STEPS = 256, 128, 300
+SPEC_TARGET = dict(vocab_size=SPEC_VOCAB, layers=8, dim=512, heads=8,
+                   max_seq=512, dropout=0.0, dtype='float32')
+SPEC_DRAFT = dict(vocab_size=SPEC_VOCAB, layers=1, dim=128, heads=2,
+                  max_seq=512, dropout=0.0, dtype='float32')
+SPEC_WIDTHS, SPEC_TREE_K = (3, 5, 7), 5
+# phase 21: speculative rows on GPT-2 125M; the random draft at the
+# benchmark's draft shape with GPT-2's vocabulary; (prompt, sampling) rows
+SPEC_K = 3
+SPEC_SERVE_DRAFT = dict(vocab_size=50257, layers=1, dim=128, heads=2,
+                        max_seq=1024, dropout=0.0)
+SPEC_SAMPLED = ((0, dict(seed=1, temperature=0.8)),
+                (1, dict(seed=2, temperature=0.8)),
+                (3, dict(seed=3, temperature=0.8, top_k=40)),
+                (2, None))
+# phase 22: K6/K7 at the MoE model's serving shapes (label, tokens): a
+# decode step of 8 rows, a 1,024-token prefill; full capacity
+GROUPED_SERVING = (('decode', ROWS), ('prefill', 1024))
 # Llama training: benchmarks/llama8b_rehearsal.py's chip() recipe (one
 # sequence of 8192 tokens, vocab 16384) with depth cut to fit one card
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_VOCAB, LLAMA_TRAIN_SEQ = 8, 16384, 8192
@@ -318,6 +377,7 @@ LOOKUP_INSTANCES = tuple(
         f'segment_fold_kernel<{bf16}>' for bf16 in ('false', 'true'))
 CHAIN_CYCLES = 4                # a dependent float32 add's latency, SM cycles
 GRAPH_CALLS = 20                # calls captured in one graph_measure graph
+MARKED = 'speculative.'         # the port's record_function ranges
 GPT2_VOCAB = 50257
 # phase 17's rows: greedy, sampled, top-k 1 on the first row's prompt, and
 # greedy under the grammar even_ids
@@ -424,6 +484,18 @@ def graph_measure(torch, fn, replays: int = 5):
     torch.cuda.synchronize()
     del outputs, graph
     return None, start.elapsed_time(end) / (GRAPH_CALLS * replays)
+
+
+def cycling(call):
+    """``fn()`` for ``graph_measure`` that calls ``call(i)`` with ``i``
+    counting up, so calls captured back to back take successive input
+    sets."""
+    count = [0]
+
+    def fn():
+        count[0] += 1
+        return call(count[0])
+    return fn
 
 
 def bound_ms(moved_bytes: float, flops: float):
@@ -2534,7 +2606,11 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
     window's wall time; the rest is the card waiting on the host. The host
     operators are ranked twice: by the device time they launched and by
     their own host time. For each name in ``sums``, the device ms a step of
-    every kernel whose name holds it."""
+    every kernel whose name holds it; ``range_device_ms``, the device ms a
+    step of the kernels that ran inside each ``record_function`` range the
+    port marks (the speculative step's ``speculative.draft`` and
+    ``speculative.verify``), read from the ranges' spans on the device's
+    timeline (which are not kernels, and are left out of every sum)."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2547,11 +2623,23 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
         wall = time.perf_counter() - started
     kernels, launches = {}, 0
     for event in profile.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not event.key.startswith(MARKED)):
             kernels[event.key] = getattr(event, 'self_device_time_total', 0.0)
             launches += event.count
     # the host operators that launched the device time, by input shape
     # (ctypes-launched kernels have no host operator and do not appear)
+    device = [event for event in profile.events()
+              if event.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = {}
+    for span in device:
+        if span.name.startswith(MARKED):
+            inside = sum(event.time_range.elapsed_us() for event in device
+                         if not event.name.startswith(MARKED)
+                         and span.time_range.start <= event.time_range.start
+                         < span.time_range.end)
+            ranges[span.name] = ranges.get(span.name, 0.0) + inside / 1e3 \
+                / steps
     operators, host = {}, {}
     for event in profile.key_averages(group_by_input_shape=True):
         if event.device_type == torch.autograd.DeviceType.CPU:
@@ -2575,7 +2663,8 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
                 top_host_operators_us_per_step=top(host),
                 kernel_ms_per_step={name: sum(
                     us for key, us in kernels.items() if name in key)
-                    / 1e3 / steps for name in sums})
+                    / 1e3 / steps for name in sums},
+                range_device_ms=ranges)
 
 
 def serving_prompts(seed: int, vocab: int) -> list:
@@ -2586,55 +2675,86 @@ def serving_prompts(seed: int, vocab: int) -> list:
 
 
 def drive_engine(torch, engine, prompts, profile_at: int | None = None,
-                 samplings=None) -> dict:
-    """Admit every prompt (``MAX_NEW`` tokens each, at its entry of
-    ``samplings`` when given), then step until every request has finished
-    by length with in-vocabulary tokens: the tokens of each request in
-    prompt order, each admission's seconds (prefill and seating,
-    synchronised: the time to first token), the untraced steps' seconds,
-    and the run's step and token counts. ``profile_at`` traces four steps
-    (not counted) after that many."""
+                 samplings=None, max_new: int = MAX_NEW,
+                 audit: bool = False, sums=()) -> dict:
+    """Admit the prompts in order (``max_new`` tokens each, at its entry of
+    ``samplings`` when given) while the engine has a free row (all of them
+    at once where they fit), then step, seating the next ones as rows free,
+    until every request has finished by length with in-vocabulary tokens:
+    the tokens of each request in prompt order, each admission's seconds
+    (prefill and seating, synchronised: the time to first token), the
+    untraced steps' seconds, and the run's step and token counts.
+    ``profile_at`` traces four steps (not timed, their tokens kept) after
+    that many (``sums`` as ``profile_steps`` takes them); ``audit`` checks
+    the pool's audit after every eviction."""
     vocab = engine._decoder.vocab_size
     samplings = samplings or [None] * len(prompts)
+    queue, owner = list(range(len(prompts))), {}
+    admissions, finished = [None] * len(prompts), {}
+    step_seconds, counts, audits = [], dict(emitted=0, steps=0), []
+
+    def admit_ready():
+        while queue and engine.free_rows:
+            index = queue.pop(0)
+            admitted = time.perf_counter()
+            admission = engine.admit(prompts[index], max_new,
+                                     sampling=samplings[index])
+            torch.cuda.synchronize()
+            admissions[index] = time.perf_counter() - admitted
+            if admission.finished:
+                fail(f'request in row {admission.row} finished at admission')
+            owner[admission.row] = index
+
+    def advance():
+        report = engine.step()
+        counts['steps'] += bool(report.emitted)
+        counts['emitted'] += sum(len(tokens)
+                                 for tokens in report.emitted.values())
+        for row, reason, tokens in report.finished:
+            finished[owner.pop(row)] = (reason, tokens)
+            if audit:
+                try:
+                    audits.append(engine.pool.audit())
+                except AssertionError as error:
+                    fail(f'pool audit after evicting row {row}: {error!r}')
+        return report
+
     torch.cuda.synchronize()
     started = time.perf_counter()
-    seated, admissions = [], []
-    for prompt, sampling in zip(prompts, samplings):
-        admitted = time.perf_counter()
-        admission = engine.admit(prompt, MAX_NEW, sampling=sampling)
-        torch.cuda.synchronize()
-        admissions.append(time.perf_counter() - admitted)
-        if admission.finished:
-            fail(f'request in row {admission.row} finished at admission')
-        seated.append(admission.row)
+    admit_ready()
     admit_seconds = time.perf_counter() - started
-    finished, step_seconds, emitted, profile = {}, [], 0, None
-    while engine.active_rows:
-        if len(step_seconds) == profile_at:
-            profile = profile_steps(torch, engine.step)
-        report = engine.step()
+    profile, traced, timed_emitted = None, 0, 0
+    while engine.active_rows or queue:
+        if len(step_seconds) == profile_at and profile is None:
+            profile = profile_steps(torch, advance, sums=sums)
+            traced = profile['steps']
+            admit_ready()
+            continue
+        report = advance()
         step_seconds.append(engine.last_step_seconds)
-        emitted += sum(len(tokens) for tokens in report.emitted.values())
-        for row, reason, tokens in report.finished:
-            finished[row] = (reason, tokens)
+        timed_emitted += sum(len(tokens) for tokens in report.emitted.values())
+        admit_ready()
     torch.cuda.synchronize()
     wall = time.perf_counter() - started
     if len(finished) != len(prompts):
         fail(f'{len(finished)} of {len(prompts)} requests finished')
-    for row, (reason, tokens) in finished.items():
-        if reason != 'length' or len(tokens) != MAX_NEW or not all(
+    for index, (reason, tokens) in finished.items():
+        if reason != 'length' or len(tokens) != max_new or not all(
                 0 <= t < vocab for t in tokens):
-            fail(f'row {row}: {reason}, {len(tokens)} tokens')
+            fail(f'request {index}: {reason}, {len(tokens)} tokens')
     steps = len(step_seconds)
-    return dict(tokens=[finished[row][1] for row in seated], steps=steps,
-                decode_tokens=emitted,
-                decode_tokens_per_s=emitted / sum(step_seconds),
+    return dict(tokens=[finished[index][1] for index in range(len(prompts))],
+                steps=steps, engine_steps=counts['steps'],
+                traced_steps=traced, decode_tokens=counts['emitted'],
+                decode_tokens_per_s=timed_emitted / sum(step_seconds),
                 step_ms=1e3 * sum(step_seconds) / steps,
                 step_ms_quantiles=[1e3 * q for q in quantiles(step_seconds)],
                 admission_s=admissions,
                 prefill_s=engine.timings['prefill'], admit_s=admit_seconds,
                 wall_s=wall, **({} if profile is None else
-                                {'profile': profile}))
+                                {'profile': profile}),
+                **({'audits': len(audits), 'last_audit': audits[-1]}
+                   if audits else {}))
 
 
 def quantiles(values) -> list:
@@ -2751,17 +2871,19 @@ def serve_quantized(torch, seed: int, bf16_tokens: list) -> dict:
     return results
 
 
-def llama_probe(torch, engine, module, prompt) -> dict:
+def llama_probe(torch, engine, module, prompt, full=None) -> dict:
     """The logits through the paged cache of one request, at its prefill's
     last position and at its first ``LLAMA_PROBE_STEPS`` decode steps
     (``Engine.next_logits``), held against the model's own non-cached
-    forward (``decode=False``, xla attention, no kernel) over the prompt and
-    the tokens so far. Both run the same bf16 weights; they round at other
-    points (K1 and the paged read against one einsum attention, the prefill
-    padded to its bucket), and a bfloat16 step here and there, carried
-    through 32 residual blocks, reaches logits of order 1: the tolerance is
-    2**-4 of the largest logit, GPT-2's probe's."""
-    full = module.replace(decode=False, attention='xla')
+    forward (``decode=False``, xla attention, no kernel; ``full`` when
+    given, an MoE model's ``(logits, aux)`` taken at its logits) over the
+    prompt and the tokens so far. Both run the same bf16 weights; they
+    round at other points (K1 and the paged read against one einsum
+    attention, the prefill padded to its bucket), and a bfloat16 step here
+    and there, carried through 32 residual blocks, reaches logits of order
+    1: the tolerance is 2**-4 of the largest logit, GPT-2's probe's."""
+    if full is None:
+        full = module.replace(decode=False, attention='xla')
     tokens = [int(t) for t in prompt]
     with torch.no_grad():
         got = [engine._prefill(prompt)[0]]
@@ -2774,7 +2896,8 @@ def llama_probe(torch, engine, module, prompt) -> dict:
             tokens += engine.step().emitted[admission.row]
         with torch.no_grad():
             want = full(torch.as_tensor([tokens[:len(tokens) - 1]],
-                                        device=module.device))[0, -1]
+                                        device=module.device))
+            want = (want[0] if isinstance(want, tuple) else want)[0, -1]
         torch.cuda.synchronize()
         if not (torch.isfinite(got[0]).all()
                 and got[0].shape == want.shape):
@@ -2802,7 +2925,8 @@ def serve_llama(torch, seed: int) -> dict:
     never; then the logits probe and a traced window of 4 decode steps.
     ``serving_peak_bytes`` is the peak of the serving run;
     ``peak_bytes`` adds the probe's (``next_logits`` clones the pool, and
-    the full forward casts the float32 masters per use)."""
+    the full forward casts the float32 masters per use). Returns ``(module,
+    prompts, tokens, result)``: phase 15b serves the same weights narrow."""
     import gc
 
     import numpy as np
@@ -2843,15 +2967,70 @@ def serve_llama(torch, seed: int) -> dict:
              'times and K4/K5 never')
     probe = llama_probe(torch, engine, module,
                         prompts[LLAMA_PROMPT_LENGTHS.index(LLAMA_PROBE)])
-    del run['tokens']
-    return dict(run, **probe, launches=launches, buckets=buckets,
-                prompt_lengths=list(LLAMA_PROMPT_LENGTHS), max_new=MAX_NEW,
-                ttft_s_by_bucket=dict(zip(map(str, buckets),
-                                          run['admission_s'])),
-                params=sum(p.numel() for p in module.parameters()),
-                setup_s=setup_s, held_before_bytes=held,
-                serving_peak_bytes=serving_peak,
-                peak_bytes=torch.cuda.max_memory_allocated())
+    tokens = run.pop('tokens')
+    return module, prompts, tokens, dict(
+        run, **probe, launches=launches, buckets=buckets,
+        prompt_lengths=list(LLAMA_PROMPT_LENGTHS), max_new=MAX_NEW,
+        ttft_s_by_bucket=dict(zip(map(str, buckets), run['admission_s'])),
+        params=sum(p.numel() for p in module.parameters()),
+        setup_s=setup_s, held_before_bytes=held,
+        serving_peak_bytes=serving_peak,
+        peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def serve_llama_narrow(torch, module, prompts, bf16_tokens) -> dict:
+    """Phase 15b: phase 15's Llama-3 8B weights quantized through
+    ``Engine(rows=8, block_size=16, stream_dtype='int8')``, then ``'fp8'``:
+    four of phase 15's requests (``LLAMA_NARROW``: buckets 32, 512, 4096 and
+    8192) take ``LLAMA_NARROW_NEW`` new tokens each; the route resolves to
+    the module paged step, K1 launches once a layer for each bucket of 512
+    or more and K4/K5 never. Prints the share of tokens equal to phase 15's
+    bf16 streams, decode tokens/s, step ms and the peak memory of each run
+    (the float32 masters stay on the card beside the narrow copy, and the
+    module path dequantizes the narrow copy to bf16 for each forward)."""
+    import gc
+
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.serve import Engine
+
+    chosen = [LLAMA_PROMPT_LENGTHS.index(n) for n in LLAMA_NARROW]
+    requests = [prompts[index] for index in chosen]
+    results = {}
+    for mode in ('int8', 'fp8'):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        started = time.perf_counter()
+        engine = Engine(module, None, rows=ROWS, block_size=BLOCK,
+                        stream_dtype=mode)
+        if engine.decode_impl != 'flax':
+            fail(f'the {mode} Llama engine chose decode_impl='
+                 f"{engine.decode_impl!r}, not 'flax'")
+        buckets = [engine.bucket(len(prompt)) for prompt in requests]
+        dm.reset_launches()
+        flash.flash_attention_lse.launches = 0
+        run = drive_engine(torch, engine, requests, max_new=LLAMA_NARROW_NEW)
+        launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                    'decode_matmul': dm.decode_matmul.launches,
+                    'decode_ffn': dm.decode_ffn.launches}
+        flashed = module.layers * sum(bucket >= 512 for bucket in buckets)
+        if launches != {'flash_attention_lse': flashed, 'decode_matmul': 0,
+                        'decode_ffn': 0}:
+            fail(f'{mode} Llama serving launched {launches}; expected K1 '
+                 f'{flashed} times and K4/K5 never')
+        pairs = [(a, b) for index, got in zip(chosen, run.pop('tokens'))
+                 for a, b in zip(got, bf16_tokens[index])]
+        results[mode] = dict(
+            run, launches=launches, buckets=buckets,
+            equal_to_bf16=sum(a == b for a, b in pairs) / len(pairs),
+            streamed_bytes=sum(getattr(leaf, 'nbytes', 0)
+                               for leaf in engine._params.values()),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            seconds=time.perf_counter() - started)
+        del engine
+    return dict(results, prompt_lengths=list(LLAMA_NARROW),
+                max_new=LLAMA_NARROW_NEW, card=card_line())
 
 
 def train_llama(torch, seed: int) -> dict:
@@ -3369,6 +3548,411 @@ def verybasic(torch) -> dict:
                 seconds=time.perf_counter() - started)
 
 
+def spec_generate(torch, seed: int) -> dict:
+    """Phase 20: ``benchmarks/speculative_decode.py``'s pair trained on the
+    card through the port's ``build_train_step`` as that script trains them
+    (``SPEC_TARGET`` and ``SPEC_DRAFT``, float32, 300 AdamW steps at lr 1e-3
+    each on the same 64 x 64 ``SyntheticTokens`` batch, losses falling),
+    then ``generate`` against ``speculative_generate`` at batch 1 and 8,
+    ``SPEC_STEPS`` new tokens from 16-token prompts, for K in
+    ``SPEC_WIDTHS``: tokens/s of both (each timed on a second call), the
+    mean tokens a row takes a round (``speculative_generate.rounds``
+    counts the verify forwards) and the share of rows equal to plain
+    greedy (float32 on the card: a K+1-token verify may round a near-tie
+    apart from a one-token step, so the share is printed, not required);
+    ``tree_fanout=2`` at K = 5; and one pass at temperature 0.8, whose
+    tokens must lie in the vocabulary and repeat with the same key (its
+    draws launch the uniform kernel)."""
+    import numpy as np
+
+    from tpusystem_torch.data import SyntheticTokens
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.ops.cuda import threefry as tf
+    from tpusystem_torch.train import (AdamW, NextTokenLoss,
+                                       build_train_step, generate,
+                                       init_state, module_apply,
+                                       speculative_generate)
+
+    started = time.perf_counter()
+    dataset = SyntheticTokens(samples=64 * 16, sequence_length=64,
+                              vocab_size=SPEC_VOCAB)
+    batch = torch.as_tensor(np.stack([dataset[i][0] for i in range(64)]),
+                            device='cuda').long()
+
+    def trained(config, offset: int):
+        module = GPT2(**config, device='cuda')
+        module.init_weights(torch.Generator('cuda').manual_seed(seed
+                                                                + offset))
+        optimizer = AdamW(lr=1e-3)
+        state = init_state(module, optimizer)
+        step = build_train_step(module_apply(module), NextTokenLoss(),
+                                optimizer)
+        losses = []
+        for _ in range(SPEC_TRAIN_STEPS):
+            state, (_, loss) = step(state, batch, batch)
+            losses.append(loss)
+        losses = [losses[0].item(), losses[-1].item()]
+        if not (math.isfinite(losses[1]) and losses[1] < losses[0]):
+            fail(f'speculative pair: training losses {losses}')
+        return module, losses
+
+    target, target_losses = trained(SPEC_TARGET, 0)
+    draft, draft_losses = trained(SPEC_DRAFT, 1)
+    train_s = time.perf_counter() - started
+
+    def timed(fn, tokens: int):
+        fn()
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        out = fn().cpu().numpy()
+        return out, tokens / (time.perf_counter() - began)
+
+    runs = []
+    for rows in (1, 8):
+        prompt = torch.as_tensor(np.stack([SyntheticTokens(
+            samples=1, sequence_length=16, vocab_size=SPEC_VOCAB,
+            seed=99 + i)[0][0] for i in range(rows)]), device='cuda')
+        plain, plain_tps = timed(lambda: generate(
+            target, None, prompt, steps=SPEC_STEPS), rows * SPEC_STEPS)
+        cases = [(K, 1) for K in SPEC_WIDTHS] + [(SPEC_TREE_K, 2)]
+        for K, fanout in cases:
+            spec, spec_tps = timed(lambda: speculative_generate(
+                target, None, prompt, steps=SPEC_STEPS, draft_module=draft,
+                draft_params=None, speculate=K, tree_fanout=fanout),
+                rows * SPEC_STEPS)
+            runs.append(dict(
+                batch=rows, speculate=K, tree_fanout=fanout,
+                plain_tokens_per_s=plain_tps, spec_tokens_per_s=spec_tps,
+                speedup=spec_tps / plain_tps,
+                tokens_per_round=(SPEC_STEPS - 1)
+                / speculative_generate.rounds,
+                rows_equal_to_greedy=float(np.mean(
+                    (spec == plain).all(1)))))
+    prompt = torch.as_tensor(np.stack([SyntheticTokens(
+        samples=1, sequence_length=16, vocab_size=SPEC_VOCAB,
+        seed=99 + i)[0][0] for i in range(8)]), device='cuda')
+    tf.row_uniforms.launches = 0
+    sampled = [speculative_generate(
+        target, None, prompt, steps=SPEC_STEPS, draft_module=draft,
+        draft_params=None, speculate=SPEC_TREE_K, temperature=0.8,
+        rng=(0, seed)).cpu().numpy() for _ in range(2)]
+    if not ((sampled[0] >= 0) & (sampled[0] < SPEC_VOCAB)).all():
+        fail('sampled speculative tokens out of the vocabulary')
+    if not np.array_equal(*sampled):
+        fail('sampled speculative decode differs on a repeat with the same '
+             'key')
+    if not tf.row_uniforms.launches:
+        fail('sampled speculative decode did not launch the uniform kernel')
+    return dict(target=SPEC_TARGET, draft=SPEC_DRAFT,
+                target_losses=target_losses, draft_losses=draft_losses,
+                train_s=train_s, steps=SPEC_STEPS, runs=runs,
+                sampled=dict(temperature=0.8, repeat_equal=True,
+                             tokens_per_round=(SPEC_STEPS - 1)
+                             / speculative_generate.rounds,
+                             row_uniforms_launches=tf.row_uniforms.launches),
+                card=card_line(), seconds=time.perf_counter() - started)
+
+
+def spec_engines(torch, module, draft):
+    """Phase 21's engines: the self-draft at ``tree_fanout`` 1 and 2 and the
+    random draft, ``speculate`` 3 each."""
+    from tpusystem_torch.serve import Engine
+
+    return {
+        'self-f1': Engine(module, None, rows=ROWS, block_size=BLOCK,
+                          draft_module=module, speculate=SPEC_K),
+        'self-f2': Engine(module, None, rows=ROWS, block_size=BLOCK,
+                          draft_module=module, speculate=SPEC_K,
+                          tree_fanout=2),
+        'random': Engine(module, None, rows=ROWS, block_size=BLOCK,
+                         draft_module=draft, speculate=SPEC_K)}
+
+
+def serve_spec(torch, seed: int, bf16_tokens: list) -> dict:
+    """Phase 21: speculative rows on phase 5's GPT-2 125M weights and
+    prompts, 32 new tokens each, ``speculate`` 3, through (a) a self-draft
+    (the target drafting for itself with its own weights) at
+    ``tree_fanout`` 1 and 2, (b) a random draft at the benchmark's draft
+    shape with GPT-2's vocabulary (``SPEC_SERVE_DRAFT``), and (c) the
+    self-draft with ``SPEC_SAMPLED`` rows (two at temperature 0.8, one at
+    ``top_k`` 40, one greedy on a 700-token prompt, so the deepest row,
+    and with it every read window, is the same as in (a) while it runs).
+    (a) takes fewer engine steps than it emits tokens and its first tokens
+    equal phase 5's; the streams' share equal to phase 5's is printed
+    (bf16 near-ties between a 4-token verify and a one-token step); (b)
+    emits in the vocabulary, its share equal to (a)'s printed; (c) launches
+    the uniform kernel, its greedy row equals its stream in (a), and a
+    ``mask_fn`` admission raises. K1 launches once a layer for every target
+    and draft prefill of 512 tokens or more; K4/K5 never; the pool's audit
+    is clean after every eviction. Decode tokens/s, step ms, tokens a step
+    and accepted drafts a request and step for each engine, and four traced
+    steps of (a) with the draft's and the verify's device ms apart."""
+    import gc
+
+    from tpusystem_torch.models import GPT2, gpt2_small
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import threefry as tf
+    from tpusystem_torch.serve import Engine, SamplingParams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    draft = GPT2(**SPEC_SERVE_DRAFT, device='cuda')
+    draft.init_weights(torch.Generator('cuda').manual_seed(seed + 1))
+    prompts = serving_prompts(seed, module.vocab_size)
+    buckets = [prefill_bucket_of(len(p)) for p in prompts]
+    results, streams = {}, {}
+    for name, engine in spec_engines(torch, module, draft).items():
+        if engine.decode_impl != 'flax':
+            fail(f'the {name} engine chose decode_impl='
+                 f"{engine.decode_impl!r}, not 'flax'")
+        dm.reset_launches()
+        flash.flash_attention_lse.launches = 0
+        run = drive_engine(torch, engine, prompts, audit=True,
+                           profile_at=4 if name == 'self-f1' else None)
+        drafter = engine._drafter
+        flashed = sum(module.layers + drafter.layers for bucket in buckets
+                      if bucket >= 512)
+        launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                    'decode_matmul': dm.decode_matmul.launches,
+                    'decode_ffn': dm.decode_ffn.launches}
+        if launches != {'flash_attention_lse': flashed, 'decode_matmul': 0,
+                        'decode_ffn': 0}:
+            fail(f'{name}: launched {launches}; expected K1 {flashed} times '
+                 '(each target and draft prefill of 512 tokens or more) and '
+                 'K4/K5 never')
+        audit = engine.pool.audit()
+        if audit['live'] or audit['free'] != engine.pool.blocks - 1:
+            fail(f'{name}: pool audit at the end {audit}')
+        tokens = streams[name] = run.pop('tokens')
+        spec = engine.speculation
+        pairs = [(a, b) for got, want in zip(tokens, bf16_tokens)
+                 for a, b in zip(got, want)]
+        results[name] = dict(
+            run, launches=launches, speculation=dict(spec),
+            tokens_per_request_step=run['decode_tokens'] / spec['groups'],
+            accepted_per_round=spec['accepted'] / spec['groups'],
+            equal_to_phase5=sum(a == b for a, b in pairs) / len(pairs),
+            first_tokens_equal_to_phase5=sum(
+                got[0] == want[0] for got, want in zip(tokens, bf16_tokens))
+            / len(tokens))
+        if name.startswith('self'):
+            if not run['engine_steps'] < run['decode_tokens']:
+                fail(f"{name}: {run['engine_steps']} steps for "
+                     f"{run['decode_tokens']} tokens")
+            if results[name]['first_tokens_equal_to_phase5'] != 1.0:
+                fail(f'{name}: first tokens differ from phase 5')
+        print(f'serve-spec-{name} ' + json.dumps(
+            {key: value for key, value in results[name].items()
+             if key != 'profile'}))
+        del engine
+    pairs = [(a, b) for got, want in zip(streams['random'],
+                                         streams['self-f1'])
+             for a, b in zip(got, want)]
+    results['random']['equal_to_self_draft'] = sum(
+        a == b for a, b in pairs) / len(pairs)
+    trace = results['self-f1'].pop('profile')
+    results['self-f1']['trace'] = {key: trace[key] for key in (
+        'steps', 'traced_step_ms', 'device_ms_per_step',
+        'device_busy_share', 'device_ops_per_step', 'range_device_ms')}
+
+    # (c): sampled rows on the self-draft; the greedy row is the 700-token
+    # prompt's
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK,
+                    draft_module=module, speculate=SPEC_K)
+    try:
+        engine.admit(prompts[0], MAX_NEW, sampling=SamplingParams(
+            mask_fn=even_ids))
+        fail('a mask_fn admission on speculative rows did not raise')
+    except ValueError as error:
+        if 'speculative' not in str(error):
+            raise
+    chosen = [index for index, _ in SPEC_SAMPLED]
+    tf.row_uniforms.launches = tf.row_uniforms_plain.runs = 0
+    run = drive_engine(torch, engine, [prompts[i] for i in chosen],
+                       samplings=[None if spec is None
+                                  else SamplingParams(**spec)
+                                  for _, spec in SPEC_SAMPLED], audit=True)
+    if not tf.row_uniforms.launches or tf.row_uniforms_plain.runs:
+        fail(f'sampled speculative rows launched the uniform kernel '
+             f'{tf.row_uniforms.launches} times, the plain version ran '
+             f'{tf.row_uniforms_plain.runs}')
+    for got, (index, spec) in zip(run['tokens'], SPEC_SAMPLED):
+        if spec is None and got != streams['self-f1'][index]:
+            fail(f'the greedy row on prompt {index} differs from its stream '
+                 'in the self-draft run')
+    spec = engine.speculation
+    results['sampled'] = dict(
+        {key: run[key] for key in ('decode_tokens_per_s', 'step_ms',
+                                   'step_ms_quantiles', 'engine_steps',
+                                   'decode_tokens')},
+        rows=[str(spec) for _, spec in SPEC_SAMPLED],
+        row_uniforms_launches=tf.row_uniforms.launches,
+        tokens_per_request_step=run['decode_tokens'] / spec['groups'],
+        accepted_per_round=spec['accepted'] / spec['groups'],
+        greedy_row_equal=True, mask_fn_refused=True)
+    return dict(results, buckets=buckets, speculate=SPEC_K,
+                draft=SPEC_SERVE_DRAFT, card=card_line(),
+                seconds=time.perf_counter() - started)
+
+
+def prefill_bucket_of(length: int) -> int:
+    """The engine's prefill bucket of a GPT-2 125M prompt (block 16,
+    ``max_seq`` 1024)."""
+    from tpusystem_torch.serve import prefill_bucket
+    return prefill_bucket(length, BLOCK, 1024)
+
+
+def check_grouped_serving(torch, generator) -> list:
+    """Phase 22's kernel checks: K6 and K7's forward calls at the serving
+    shapes of the MoE model (8 experts, top-2, full capacity): a decode
+    step's 8 tokens at capacity 8 (a 64-row buffer) and a 1,024-token
+    prefill's at capacity 1,024, each against its plain version, repeated
+    bitwise, timed beside the plain version, ``torch.bmm`` over the rows
+    gathered into the buffer beforehand and its bound (the seated rows'
+    flops; each input read once, each output written once). The kernel
+    and ``bmm`` are timed by ``graph_measure`` (CUDA events over calls back
+    to back in a graph: a profiled window of calls this short came back
+    under the bytes' bound in one run), each call on the next of several
+    input sets (``rotating``), since one set's expert weights (37.7 MB a
+    product) would otherwise stay in the 50 MB L2 from call to call, as
+    they cannot between a serving step's layers; the plain version by
+    ``measure``'s events (K7's plain combine syncs, so no graph)."""
+    from tpusystem_torch.ops import moe
+    from tpusystem_torch.ops.cuda import grouped_matmul as gm
+
+    results = []
+    for label, tokens in GROUPED_SERVING:
+        def make():
+            g = grouped_inputs(torch, generator, tokens, MOE_EXPERTS, MOE_K,
+                               tokens)
+            g['gathered'] = moe._take(g['x'], g['slot_token']).reshape(
+                MOE_EXPERTS, tokens, DIM)
+            return g
+        first = make()
+        capacity, seated = first['capacity'], first['seated']
+        rows = MOE_EXPERTS * capacity
+        ids_bytes = rows * 8
+        flops = 2 * seated * DIM * HIDDEN
+        moved = {
+            'gather_rows_matmul[fwd]':
+                tokens * DIM * 2 + first['w1'].numel() * 2 + ids_bytes
+                + rows * HIDDEN * 2,
+            'matmul_scatter_rows[fwd]':
+                rows * HIDDEN * 2 + first['w2'].numel() * 2 + MOE_EXPERTS
+                * DIM * 2 + ids_bytes + tokens * DIM * 2 + rows * DIM * 2}
+        sets = [first] + rotating(make, moved['gather_rows_matmul[fwd]'])
+        calls = [grouped_calls(gm, g) for g in sets]
+        library = {'gather_rows_matmul[fwd]': lambda g: (g['gathered'],
+                                                         g['w1']),
+                   'matmul_scatter_rows[fwd]': lambda g: (
+                       g['grown'].reshape(MOE_EXPERTS, capacity, HIDDEN),
+                       g['w2'])}
+        for name in moved:
+            kernel, plain, args, options = calls[0][name]
+            run = lambda i: calls[i % len(sets)][name][0](
+                *calls[i % len(sets)][name][2], **options)
+            bitwise, finite, pairs = grouped_errors(
+                torch, run(0), run(len(sets)), plain(*args, **options),
+                tokens, first['slot_token'])
+            err, tol = worst(pairs)
+            kernel_name = name.split('[')[0]
+            if not (finite and bitwise):
+                fail(f'{kernel_name}[{label}]: finite {finite}, bitwise '
+                     f'repeat {bitwise}')
+            operands = [library[name](g) for g in sets]
+            results.append(record_check(
+                f'{kernel_name}[{label}]', [tokens, MOE_EXPERTS, capacity,
+                                             DIM, HIDDEN],
+                err, tol, graph_measure(torch, cycling(run)),
+                measure(lambda i: plain(*args, **options), calls=5),
+                graph_measure(torch, cycling(
+                    lambda i: torch.bmm(*operands[i % len(sets)]))),
+                bound_ms(moved[name], flops), by_events=True, flops=flops,
+                bitwise_repeat=bitwise, seated_rows=seated, buffer_rows=rows,
+                input_sets=len(sets),
+                timing='graph_measure: CUDA events over a graph (plain: '
+                'measure, CUDA events)',
+                library_call='torch.bmm over the rows gathered into the '
+                f'[8, {capacity}, k] buffer beforehand: the product alone'))
+        del sets, calls
+    return results
+
+
+def serve_moe(torch, seed: int) -> dict:
+    """Phase 22: the 8-expert GPT-2 MoE (``benchmarks/moe_ceiling.py``'s
+    whole-model settings: the 125M body, 8 experts top-2 in every second
+    block, vocab 50304, ``moe_sparse_impl='fused'``; random weights from
+    ``seed``) through ``Engine(rows=8, block_size=16)`` on phase 5's
+    prompts, 32 new tokens each: the route resolves to the module paged
+    step, K4/K5 never launch, K6 and K7 once per MoE block for every
+    prefill and every decode step (6 each a step), K1 once a layer for
+    each prefill of 512 tokens or more; then the logits through the paged
+    cache at one request's prefill and first 4 decode steps against the
+    non-cached forward (xla attention, the gather impl at a capacity that
+    seats every token: no kernel), within phase 15's tolerance; decode
+    tokens/s, step ms and a traced window of 4 steps with the grouped
+    kernels' device ms."""
+    import gc
+
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda import grouped_matmul as gm
+    from tpusystem_torch.serve import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    module = GPT2(vocab_size=50304, dropout=0.0, moe_experts=MOE_EXPERTS,
+                  moe_every=2, moe_k=MOE_K, moe_sparse_impl='fused',
+                  device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK)
+    if engine.decode_impl != 'flax':
+        fail(f'the MoE engine chose decode_impl={engine.decode_impl!r}, '
+             "not 'flax' (the module paged step)")
+    prompts = serving_prompts(seed, 50257)
+    buckets = [engine.bucket(len(prompt)) for prompt in prompts]
+    moe_layers = sum(module.is_moe(i) for i in range(module.layers))
+    counters = (gm.gather_rows_matmul, gm.matmul_scatter_rows,
+                flash.flash_attention_lse)
+    dm.reset_launches()
+    for counter in counters:
+        counter.launches = 0
+    run = drive_engine(torch, engine, prompts, profile_at=8,
+                       sums=('grouped_gemm_kernel', 'combine_rows_kernel'))
+    launches = {counter.__name__: counter.launches for counter in counters}
+    launches.update(decode_matmul=dm.decode_matmul.launches,
+                    decode_ffn=dm.decode_ffn.launches)
+    grouped = moe_layers * (len(prompts) + run['engine_steps'])
+    want = {'gather_rows_matmul': grouped, 'matmul_scatter_rows': grouped,
+            'flash_attention_lse': module.layers * sum(
+                bucket >= 512 for bucket in buckets),
+            'decode_matmul': 0, 'decode_ffn': 0}
+    if launches != want:
+        fail(f'MoE serving launched {launches}, expected {want}')
+    full = module.replace(decode=False, attention='xla',
+                          moe_sparse_impl='gather',
+                          moe_capacity_factor=MOE_EXPERTS / MOE_K)
+    before = {counter.__name__: counter.launches for counter in counters}
+    probe = llama_probe(torch, engine, module, prompts[1], full=full)
+    del run['tokens']
+    profile = run.pop('profile')
+    return dict(run, **probe, launches=launches, moe_layers=moe_layers,
+                grouped_per_decode_step=moe_layers, buckets=buckets,
+                probe_launches={name: counter.launches - before[name]
+                                for name, counter in zip(before, counters)},
+                profile={key: profile[key] for key in (
+                    'steps', 'traced_step_ms', 'device_ms_per_step',
+                    'device_busy_share', 'device_ops_per_step',
+                    'kernel_ms_per_step', 'top_kernels_us_per_step')},
+                card=card_line(), seconds=time.perf_counter() - started)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3431,8 +4015,13 @@ def main() -> None:
     checks += lookup_rows
     dlrm = train_dlrm(torch, args.seed)
     print('dlrm-train ' + json.dumps(dlrm))
-    llama = serve_llama(torch, args.seed)
+    llama_module, llama_prompts, llama_tokens, llama = serve_llama(
+        torch, args.seed)
     print('serve-llama ' + json.dumps(llama))
+    narrow = serve_llama_narrow(torch, llama_module, llama_prompts,
+                                llama_tokens)
+    print('serve-llama-narrow ' + json.dumps(narrow))
+    del llama_module
     llama_trained = train_llama(torch, args.seed)
     print('train-llama ' + json.dumps(llama_trained))
     checks.append(check_row_uniforms(torch))
@@ -3442,6 +4031,14 @@ def main() -> None:
     print('serve-prefix ' + json.dumps(prefix))
     basic = verybasic(torch)
     print('verybasic ' + json.dumps(basic))
+    spec_generated = spec_generate(torch, args.seed)
+    print('spec-generate ' + json.dumps(spec_generated))
+    spec_served = serve_spec(torch, args.seed, bf16_tokens)
+    print('serve-spec ' + json.dumps(spec_served))
+    grouped_serving = check_grouped_serving(torch, generator)
+    checks += grouped_serving
+    moe_served = serve_moe(torch, args.seed)
+    print('serve-moe ' + json.dumps(moe_served))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -3467,7 +4064,12 @@ def main() -> None:
             + dropout_trained['launches']['flash_attention_lse']
             + moe_trained['launches']['flash_attention_lse']
             + llama['launches']['flash_attention_lse']
-            + llama_trained['launches']['flash_attention_lse']),
+            + sum(narrow[mode]['launches']['flash_attention_lse']
+                  for mode in ('int8', 'fp8'))
+            + llama_trained['launches']['flash_attention_lse']
+            + sum(spec_served[name]['launches']['flash_attention_lse']
+                  for name in ('self-f1', 'self-f2', 'random'))
+            + moe_served['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -3486,11 +4088,14 @@ def main() -> None:
         'gather_rows_matmul': ('grouped_matmul.cu',
                                pallas + 'grouped_matmul.py:99',
                                'gather_rows_matmul[fwd]',
-                               moe_trained['launches']['gather_rows_matmul']),
+                               moe_trained['launches']['gather_rows_matmul']
+                               + moe_served['launches'][
+                                   'gather_rows_matmul']),
         'matmul_scatter_rows': (
             'grouped_matmul.cu', pallas + 'grouped_matmul.py:225',
             'matmul_scatter_rows[fwd]',
-            moe_trained['launches']['matmul_scatter_rows']),
+            moe_trained['launches']['matmul_scatter_rows']
+            + moe_served['launches']['matmul_scatter_rows']),
         'gather_rows': ('embedding_lookup.cu',
                         pallas + 'embedding_lookup.py:106',
                         'gather_rows[dedup]', dlrm['launches']['gather_rows']),
@@ -3506,7 +4111,9 @@ def main() -> None:
         # no pallas_call either: the reference samples with XLA's
         # jax.random.categorical
         'row_uniforms': ('threefry.cu', 'tpusystem/train/generate.py:195',
-                         'row_uniforms', sampled['launches']['row_uniforms']),
+                         'row_uniforms', sampled['launches']['row_uniforms']
+                         + spec_generated['sampled']['row_uniforms_launches']
+                         + spec_served['sampled']['row_uniforms_launches']),
     }
     measured = dict(checks)
     kernels = []
@@ -3559,6 +4166,18 @@ def main() -> None:
                 for label in (f'{name}[fwd]', f'{name}[bwd]')})
     kernels[[k['name'] for k in kernels].index('matmul_scatter_rows')][
         'split'] = k7_split
+    # K6 and K7 at the MoE model's serving shapes, with their launches a
+    # decode step
+    for name in ('gather_rows_matmul', 'matmul_scatter_rows'):
+        kernels[[k['name'] for k in kernels].index(name)]['serving'] = dict(
+            launches=moe_served['launches'][name],
+            launches_per_decode_step=moe_served['grouped_per_decode_step'],
+            shapes={label: {key: measured[f'{name}[{label}]'][key]
+                            for key in ('shape', 'max_abs_err', 'ms',
+                                        'plain_ms', 'library_ms', 'bound_ms',
+                                        'bound_by', 'bound_share', 'tflops',
+                                        'bitwise_repeat')}
+                    for label, _ in GROUPED_SERVING})
     # K4 at every weight type: its design, registers and both shapes
     for name in ('decode_matmul', 'decode_matmul_int8', 'decode_matmul_fp8'):
         mode = {'': 0, '_int8': 1, '_fp8': 2}[name[len('decode_matmul'):]]
@@ -3627,7 +4246,9 @@ def main() -> None:
              'split': split, 'lookup': lookup, 'dlrm': dlrm,
              'serve_llama': llama, 'train_llama': llama_trained,
              'serve_sampled': sampled, 'serve_prefix': prefix,
-             'verybasic': basic,
+             'verybasic': basic, 'serve_llama_narrow': narrow,
+             'spec_generate': spec_generated, 'serve_spec': spec_served,
+             'serve_moe': moe_served,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -523,3 +523,88 @@ def test_phase_18_prompts_hit_as_the_phase_expects():
         0, chip_smoke.LONG_PREFIX]
     assert all(len(prompt) < 1024 - chip_smoke.MAX_NEW for prompt in prompts)
     assert chip_smoke.even_ids([]).shape == (chip_smoke.GPT2_VOCAB,)
+
+
+NEW_PHASES = ('serve-llama-narrow', 'spec-generate', 'serve-spec',
+              'serve-moe')
+
+
+def test_the_speculative_moe_and_narrow_phases_print_in_order():
+    """Phases 15b and 20-22 print their lines: Llama's narrow serving right
+    after phase 15 (it reuses its weights), the other three after phase 19,
+    and the ``kernels`` and ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    order = [source.index(f"print('{label} '") for label in (
+        'serve-llama', 'serve-llama-narrow', 'train-llama', 'verybasic',
+        'spec-generate', 'serve-spec', 'serve-moe')]
+    assert order == sorted(order)
+    assert source.index("print('serve-moe '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+    for label in NEW_PHASES:
+        assert label in SCRIPT.read_text()
+
+
+def test_chip_smoke_imports_no_jax():
+    """Importing the script (which imports the port) loads neither JAX nor
+    the JAX package."""
+    import subprocess
+    import sys
+    code = ('import sys; import chip_smoke; '
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'tpusystem')); "
+            'assert not bad, bad')
+    subprocess.run([sys.executable, '-c', code], cwd=SCRIPT.parent,
+                   check=True, timeout=120)
+
+
+def test_phase_21_rows_keep_the_greedy_row_deepest():
+    """Phase 21 (c) holds its greedy row to its stream in (a): the row is
+    the deepest prompt's, so every read window matches (a)'s while it
+    runs; the sampled rows sample and the prompts fit the draft's
+    capacity."""
+    chip_smoke = _chip_smoke()
+    lengths = chip_smoke.PROMPT_LENGTHS
+    greedy = [index for index, spec in chip_smoke.SPEC_SAMPLED
+              if spec is None]
+    assert len(greedy) == 1 and lengths[greedy[0]] == max(lengths)
+    assert sum(spec is not None and spec['temperature'] > 0
+               for _, spec in chip_smoke.SPEC_SAMPLED) == 3
+    assert max(lengths) + chip_smoke.MAX_NEW + chip_smoke.SPEC_K + 1 <= \
+        chip_smoke.SPEC_SERVE_DRAFT['max_seq']
+    assert dict(chip_smoke.GROUPED_SERVING) == {'decode': chip_smoke.ROWS,
+                                                'prefill': 1024}
+
+
+@pytest.mark.parametrize('fanout', [1, 2])
+def test_drive_engine_serves_speculative_rows_through_a_queue(fanout,
+                                                              monkeypatch):
+    """``drive_engine`` on the CPU (no card to synchronise) with more
+    requests than seats: the speculative rows' streams equal the plain
+    engine's, the self-draft takes fewer steps than it emits tokens, a
+    traced window keeps its tokens, and the pool's audit runs after every
+    eviction."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.serve import Engine
+
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *args: None)
+    chip_smoke = _chip_smoke()
+    module = gpt2_tiny(dtype='float32', device='cpu')
+    prompts = [np.random.default_rng(i).integers(0, 256, (n,))
+               for i, n in enumerate((5, 9, 7, 3, 12))]
+    plain = chip_smoke.drive_engine(
+        torch, Engine(module, None, rows=4, block_size=8, device='cpu'),
+        prompts, max_new=10)
+    engine = Engine(module, None, rows=4, block_size=8, draft_module=module,
+                    speculate=3, tree_fanout=fanout, device='cpu')
+    run = chip_smoke.drive_engine(torch, engine, prompts, max_new=10,
+                                  audit=True, profile_at=1)
+    assert run['tokens'] == plain['tokens']
+    assert run['engine_steps'] < run['decode_tokens'] == 5 * 9
+    assert run['traced_steps'] == 4 and run['audits'] == 5
+    assert run['last_audit'] == {'free': engine.pool.blocks - 1, 'cached': 0,
+                                 'live': 0}
+    assert engine.speculation['accepted'] == 3 * engine.speculation['groups']

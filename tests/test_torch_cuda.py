@@ -730,6 +730,112 @@ def test_quantized_generate_and_engine_run_the_narrow_kernels(device, mode):
         engine.step()
 
 
+def _serve(engine, prompts, max_new):
+    """Admit ``prompts`` and step until every request finishes: each
+    request's tokens and the step count."""
+    rows = [engine.admit(prompt, max_new=max_new).row for prompt in prompts]
+    tokens, steps = {}, 0
+    while engine.active_rows:
+        for row, _reason, out in engine.step().finished:
+            tokens[row] = out
+        steps += 1
+    return [tokens[row] for row in rows], steps
+
+
+def test_speculative_engine_steps_on_the_card(device):
+    """Speculative rows on the card (a float32 GPT-2 tiny drafting for
+    itself, fanout 1 and 2): the module paged verify (K4/K5 never launch),
+    fewer steps than tokens, the streams equal the plain module-path
+    engine's on the card, and the pool ends clean."""
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.serve import Engine
+
+    module = gpt2_tiny(dtype='float32', device=device)
+    prompts = [np.random.default_rng(seed).integers(0, 256, (n,))
+               for seed, n in ((0, 9), (1, 20), (2, 5))]
+    want, _ = _serve(Engine(module, None, rows=4, block_size=16,
+                            decode_impl='flax'), prompts, 12)
+    before = dm.decode_matmul.launches, dm.decode_ffn.launches
+    for fanout in (1, 2):
+        engine = Engine(module, None, rows=3 * fanout, block_size=16,
+                        draft_module=module, speculate=3,
+                        tree_fanout=fanout)
+        assert engine.decode_impl == 'flax'
+        got, steps = _serve(engine, prompts, 12)
+        assert got == want and steps < 12
+        audit = engine.pool.audit()
+        assert audit['live'] == 0 and audit['free'] == engine.pool.blocks - 1
+    assert (dm.decode_matmul.launches, dm.decode_ffn.launches) == before
+
+
+def test_moe_engine_steps_run_the_grouped_kernels_on_the_card(device):
+    """An MoE GPT-2 tiny (bf16, ``moe_sparse_impl='fused'``) through the
+    engine on the card: the module paged step, K6 and K7 once per MoE block
+    a prefill and a decode step, K4/K5 never; the next step's logits within
+    2**-4 of the largest logit of the same state through the gather impl
+    (bf16 rounding at other points)."""
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.serve import Engine
+
+    module = gpt2_tiny(moe_experts=4, moe_every=2, moe_sparse_impl='fused',
+                       device=device)
+    engine = Engine(module, None, rows=2, block_size=16)
+    assert engine.decode_impl == 'flax'
+    prompts = [np.arange(n) % 256 for n in (9, 30)]
+    grouped = gm.gather_rows_matmul.launches, gm.matmul_scatter_rows.launches
+    decode = dm.decode_matmul.launches, dm.decode_ffn.launches
+    for prompt in prompts:
+        engine.admit(prompt, max_new=6)
+    engine.step()
+    moe_layers = sum(module.is_moe(i) for i in range(module.layers))
+    assert gm.gather_rows_matmul.launches - grouped[0] == 3 * moe_layers
+    assert gm.matmul_scatter_rows.launches - grouped[1] == 3 * moe_layers
+    fused = engine.next_logits()
+    gather = Engine(module.replace(moe_sparse_impl='gather'), None, rows=2,
+                    block_size=16)
+    for prompt in prompts:
+        gather.admit(prompt, max_new=6)
+    gather.step()
+    want = gather.next_logits()
+    assert torch.isfinite(fused).all()
+    _close(fused, want, 2 ** -4 * want.abs().max().item())
+    while engine.active_rows:
+        engine.step()
+    assert (dm.decode_matmul.launches, dm.decode_ffn.launches) == decode
+
+
+def test_llama_tiny_serves_int8_weights_on_the_card(device):
+    """``llama_tiny`` through the engine at ``stream_dtype='int8'`` on the
+    card: the module paged step on the dequantized view (K4/K5 never
+    launch), in-vocabulary tokens, and the logits through the paged cache
+    within 2**-4 of the largest logit of the non-cached forward on the same
+    dequantized weights."""
+    from tpusystem_torch.models import llama_tiny
+    from tpusystem_torch.ops.precision import dequantize_streamed
+    from tpusystem_torch.serve import Engine
+
+    module = llama_tiny(device=device)
+    engine = Engine(module, None, rows=2, block_size=16, stream_dtype='int8')
+    assert engine.decode_impl == 'flax'
+    assert any(isinstance(leaf, QuantizedLeaf)
+               for leaf in engine._params.values())
+    before = dm.decode_matmul.launches, dm.decode_ffn.launches
+    prompt = np.random.default_rng(5).integers(0, 256, (40,))
+    admission = engine.admit(prompt, max_new=8)
+    tokens = list(prompt) + [admission.token]
+    got = engine.next_logits()[admission.row]
+    weights = dequantize_streamed(engine._params, module.compute_dtype)
+    with torch.no_grad():
+        full = torch.func.functional_call(
+            module.replace(decode=False), weights,
+            (torch.as_tensor([tokens], device=device),))[0, -1]
+    _close(got, full, 2 ** -4 * full.abs().max().item())
+    while engine.active_rows:
+        for _row, _reason, out in engine.step().finished:
+            assert len(out) == 8 and all(0 <= t < 256 for t in out)
+    assert (dm.decode_matmul.launches, dm.decode_ffn.launches) == before
+
+
 def _bwd_inputs(device, batch, seq, heads, kv_heads, seed, head_dim=64):
     generator = torch.Generator(device).manual_seed(seed)
     shape = (batch, seq, heads, head_dim)
@@ -1188,6 +1294,8 @@ GROUPED_CASES = [   # tokens, experts, k, capacity, dim, hidden
     (128, 4, 2, 80, 40, 48),         # N under one 64-column box
     (300, 1, 1, 256, 256, 512),      # one group
     (1024, 8, 4, 640, 768, 3072),    # k = 4 at full width
+    (8, 8, 2, 8, 768, 3072),         # MoE serving: a decode step's 8 tokens
+    (1024, 8, 2, 1024, 768, 3072),   # MoE serving: a 1,024-token prefill
 ]
 
 

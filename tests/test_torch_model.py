@@ -133,15 +133,14 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """``remat`` and training-time dropout are ported; ``scan_layers``, MoE
-    decoding and sequence-parallel attention still name their item. A
-    training forward with dropout needs the step's threefry key."""
-    for option in ({'scan_layers': True},
-                   {'moe_experts': 2, 'decode': True},
-                   {'attention': 'ring'}):
+    """``remat``, training-time dropout and MoE decoding are ported;
+    ``scan_layers`` and sequence-parallel attention still name their item.
+    A training forward with dropout needs the step's threefry key."""
+    for option in ({'scan_layers': True}, {'attention': 'ring'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             gpt2_tiny(device='cpu', **option)
     assert gpt2_tiny(device='cpu', remat=True).remat
+    assert gpt2_tiny(device='cpu', moe_experts=2, decode=True).decode
     module = GPT2(vocab_size=32, layers=1, dim=16, heads=2, max_seq=16,
                   dropout=0.1, device='cpu')
     tokens = torch.zeros(1, 4, dtype=torch.long)

@@ -430,16 +430,29 @@ def test_params_from_jax_carries_an_moe_tree_name_for_name():
 
 
 def test_moe_decode_and_serving_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match='MoE serving'):
-        GPT2(vocab_size=32, layers=2, dim=16, heads=2, max_seq=16,
-             moe_experts=2, decode=True, device='cpu')
+    """MoE decoding and serving are ported (through the module paged step,
+    ``tests/test_torch_serve_moe.py``): a decode-mode MoE model builds and
+    returns ``(logits, cache)``, and the engine and ``generate`` serve it.
+    What still refuses names its reason or item: the fused decode chain
+    (GPT-2's dense FFN) and an MoE layer over more than one device."""
+    module = GPT2(vocab_size=32, layers=2, dim=16, heads=2, max_seq=16,
+                  moe_experts=2, decode=True, device='cpu')
+    logits, cache = module(torch.zeros(1, 4, dtype=torch.long))
+    assert logits.shape == (1, 4, 32) and 'h_1/attn/index' in cache
     module = gpt2_tiny(moe_experts=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='MoE serving'):
-        module.replace(decode=True)(torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match='MoE serving'):
-        Engine(module, None, rows=1, block_size=8, device='cpu')
-    with pytest.raises(NotImplementedError, match='MoE serving'):
-        ttrain.generate(module, None, [[1, 2, 3]], steps=2, device='cpu')
+    engine = Engine(module, None, rows=1, block_size=8, device='cpu')
+    assert engine.decode_impl == 'flax'
+    assert ttrain.generate(module, None, [[1, 2, 3]], steps=2,
+                           device='cpu').shape == (1, 5)
+    with pytest.raises(ValueError, match='MoE blocks'):
+        Engine(module, None, rows=1, block_size=8, decode_impl='fused',
+               device='cpu')
+    with pytest.raises(ValueError, match='MoE blocks'):
+        ttrain.generate(module, None, [[1, 2, 3]], steps=2,
+                        decode_impl='fused', device='cpu')
+    with pytest.raises(NotImplementedError, match='queue 1: 9'):
+        tmoe.MoEMLP(8, 4, mesh=type('Mesh', (), {'size': 2})(),
+                    device='cpu')
 
 
 def test_replace_reaches_the_moe_layers_and_shares_their_weights():

@@ -193,15 +193,18 @@ def test_generate_token_exact_with_jax(served, decode_impl):
 
 
 def test_engine_refuses_what_is_not_ported(served):
-    """What the engine still refuses, naming its ROADMAP item: speculative
-    rows (``draft_module``, and with them a grammar mask on speculative
-    rows) and tensor-parallel serving (``mesh``, ``schedule``)."""
+    """What the engine still refuses, naming its ROADMAP item:
+    tensor-parallel serving (``mesh``, ``schedule``), with speculative rows
+    too. Speculative rows themselves are ported
+    (``tests/test_torch_serve_spec.py``)."""
     _, _, port, state = served
-    for option, item in (({'draft_module': port}, 'speculative rows'),
-                         ({'mesh': object()}, 'tensor parallelism'),
-                         ({'schedule': object()}, 'tensor parallelism')):
+    for option, item in (({'mesh': object()}, 'tensor parallelism'),
+                         ({'schedule': object()}, 'tensor parallelism'),
+                         ({'mesh': object(), 'draft_module': port},
+                          'tensor parallelism')):
         with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
             Engine(port, state, device='cpu', **option)
+    assert Engine(port, state, draft_module=port, device='cpu')._spec
 
 
 def test_engine_validates_capacity_and_saturation(served):

@@ -192,10 +192,14 @@ def test_grammar_mask_dead_end_refused_and_speculation_not_ported(served):
     with pytest.raises(ValueError, match='entries'):
         engine.admit([1, 2, 3], 4, sampling=SamplingParams(
             mask_fn=lambda emitted: np.ones(VOCAB + 1, bool)))
-    # a grammar on speculative rows is refused with the speculative rows
-    with pytest.raises(NotImplementedError, match='speculative rows'):
-        Engine(port, state, rows=2, block_size=8, draft_module=port,
-               device='cpu')
+    # a grammar on speculative rows is refused at admission, as the
+    # reference refuses it (test_serve_sampling.py:207)
+    spec = Engine(port, state, rows=2, block_size=8, draft_module=port,
+                  device='cpu')
+    with pytest.raises(ValueError, match='speculative'):
+        spec.admit([1, 2, 3], 4, sampling=SamplingParams(
+            mask_fn=lambda emitted: np.ones(VOCAB, bool)))
+    assert spec.free_rows == 2
 
 
 def test_kill_mid_sample_replay_is_bitwise(served):

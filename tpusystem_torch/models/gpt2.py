@@ -42,8 +42,12 @@ follows ``dropout``), the attention probabilities from ``attn``'s key,
 inside the flash kernels on ``'flash'``. The keys are derived on the host
 before any block runs, so a recomputed block draws the masks it drew the
 first time. Not ported yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``scan_layers``, ring/ulysses attention, and decoding an
-MoE model.
+its ROADMAP item: ``scan_layers`` and ring/ulysses attention.
+
+An MoE model decodes too (``decode=True``): its expert layers dispatch at
+full capacity, as the reference's do (``gpt2.py:150-153``), and the
+training-only router loss is dropped, so decode returns ``(logits,
+cache)`` whatever the configuration.
 """
 
 from __future__ import annotations
@@ -165,8 +169,9 @@ class Block(nn.Module):
         return hidden + apply_dropout(self.proj(grown, dtype), rate, keys[1])
 
 
-MOE_SERVING = 'MoE serving through the module paged step'
-# GPT2 field -> the MoEMLP setting it governs
+# GPT2 field -> the MoEMLP setting it governs; decode mode dispatches at
+# full capacity (capacity = the call's token count), so routing drops no
+# token and a row's experts never depend on its co-batched neighbours
 MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
                     'moe_sparse_impl': 'sparse_impl', 'dtype': 'dtype',
                     'decode': 'full_capacity'}
@@ -220,8 +225,6 @@ class GPT2(nn.Module):
         super().__init__()
         if scan_layers:
             raise _not_ported('scan_layers', 'scan_layers')
-        if moe_experts and decode:
-            raise _not_ported('decoding an MoE model', MOE_SERVING)
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               'multi-GPU parallelism')
@@ -368,8 +371,6 @@ class GPT2(nn.Module):
         if (rate or attn_rate) and rng is None:
             raise ValueError('a training forward with dropout needs rng=, a '
                              'threefry key')
-        if self.decode and self.moe_experts:
-            raise _not_ported('decoding an MoE model', MOE_SERVING)
         dtype = self.compute_dtype
         batch, length = tokens.shape
         if length > self.max_seq:
@@ -423,8 +424,9 @@ class GPT2(nn.Module):
             outputs = (features, table)
         else:
             outputs = head_logits(features, table, tied=True)
-        if self.moe_experts:
-            # the arity follows the configuration, not which layers are MoE
+        if self.moe_experts and not self.decode:
+            # the arity follows the configuration, not which layers are MoE;
+            # in decode mode the router loss means nothing and is dropped
             aux = (torch.stack(aux_losses).mean() if aux_losses
                    else features.new_zeros((), dtype=torch.float32))
             return outputs, aux

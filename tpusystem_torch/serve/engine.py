@@ -49,12 +49,32 @@ prefill in window-invariant arithmetic). A prompt whose full prefill would
 take the flash kernel (512 tokens or more) mixes flash-era prefix KV with
 the masked read, exact only up to a near-tie of the argmax.
 
+``draft_module`` switches the step to **speculative rows** (the
+reference's ``engine.py:627-735``): each request owns ``tree_fanout``
+adjacent branch rows of the same pool; the draft, a per-row contiguous
+decode cache of its own, runs ``speculate + 1`` greedy steps (fanning the
+branches over its top tokens at the first), then one module-path paged
+verify over every branch's ``[speculate + 1]`` window samples each window
+slot ``j`` at its own ``(seed, position + j)``, so the accepted prefix plus
+one correction is exactly the sequential stream, greedy or sampled. Each
+group's longest accepted branch wins, its window is copied over its
+siblings' inside the pool, and both caches rewind to the accepted depth.
+A step emits 1 to ``speculate + 1`` tokens a request. A grammar
+``mask_fn`` does not compose with it (refused at admission), nor does the
+fused step (``decode_impl='auto'`` resolves to the module path). The draft
+steps and the verify run inside ``record_function`` ranges
+(``speculative.draft``, ``speculative.verify``), so a trace splits the
+step's device time between them.
+
 The host keeps a mirror of every row's cursor, so each step's read window
 is chosen without waiting on the device; the only per-step device-to-host
-copy is the emitted tokens. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: speculative rows
-(``draft_module``), tensor parallelism (``mesh``, ``schedule``) and the
-disaggregated prefill hand-off.
+copy is the emitted tokens (with speculative rows, the ``[groups,
+speculate + 1]`` window and the accepted counts, read together). An MoE
+GPT-2 serves through the module paged step: its experts dispatch at full
+capacity, so a row's tokens never depend on its neighbours. Not ported yet,
+each raising ``NotImplementedError`` naming its ROADMAP item: tensor
+parallelism (``mesh``, ``schedule``) and the disaggregated prefill
+hand-off.
 """
 
 from __future__ import annotations
@@ -65,17 +85,20 @@ import time
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.profiler import record_function
 
 from tpusystem_torch.device import resolve_device
 from tpusystem_torch.ops.attention import contiguous_window
 from tpusystem_torch.serve.kvcache import (PagedKVCache, _is_kv,
                                            adopt_prefill, write_tables)
-from tpusystem_torch.train.cursors import is_cursor, rewind
+from tpusystem_torch.train.cursors import (gather_rows, is_cursor,
+                                          read_cursor, rewind)
 from tpusystem_torch.train.decode_fused import (build_fused_paged_step,
                                                 fused_paged_reason)
 from tpusystem_torch.train.generate import (_decoder, _dequant,
                                             _resolve_impl, _stream_params,
-                                            param_dict, sample_rows,
+                                            draft_tree, param_dict,
+                                            pick_winners, sample_rows,
                                             sample_token, sampling_keys)
 
 
@@ -164,7 +187,8 @@ class Admission:
 @dataclasses.dataclass
 class StepReport:
     """One engine step: ``emitted`` maps row -> the list of new tokens of
-    every active row, ``finished`` lists ``(row, reason, tokens)`` of the
+    every active row (one on the plain step, up to ``speculate + 1`` on a
+    speculative one), ``finished`` lists ``(row, reason, tokens)`` of the
     rows retired (already evicted) this step."""
     emitted: dict
     finished: list
@@ -202,6 +226,42 @@ def _not_ported(what: str, item: str):
                                f'(ROADMAP queue 1: {item})')
 
 
+def _adopt_draft_rows(dcache: dict, prefill_cache: dict, rows, length: int):
+    """Seat one draft prefill strip in ``rows`` of the contiguous per-row
+    draft cache (every branch row of a group gets the same prompt KV):
+    KV rows overwritten in place, the rows' cursors set to ``length``
+    (``engine.py:270``)."""
+    index = torch.as_tensor(rows, device=read_cursor(dcache).device)
+    for path, leaf in dcache.items():
+        if _is_kv(path):
+            leaf[index] = prefill_cache[path].to(leaf.dtype)
+    cursor = read_cursor(dcache).clone()
+    cursor[index] = length
+    return rewind(dcache, cursor)
+
+
+def _copy_winner_windows(cache: dict, rowmap, cursor, speculate: int,
+                         block: int, max_blocks: int) -> None:
+    """Token-tree verify's winner copy in the pool (``engine.py:290``):
+    every branch row's verify window (positions ``cursor .. cursor +
+    speculate``, past its shared prompt blocks) is overwritten in place
+    from its group winner's (``rowmap``), through each row's own table, so
+    block membership never changes. Positions past an allocation map to
+    trash on both sides."""
+    positions = (cursor[:, None].long()
+                 + torch.arange(speculate + 1, device=cursor.device)[None])
+    logical = torch.clamp(positions // block, max=max_blocks - 1)
+    offsets = positions % block
+    # every layer's table leaf is the one host map (write_tables)
+    table = next(leaf for path, leaf in cache.items()
+                 if path.endswith('/table')).long()
+    dst = (table.gather(1, logical) * block + offsets).reshape(-1)
+    src = (table[rowmap].gather(1, logical) * block + offsets).reshape(-1)
+    for path, pool in cache.items():
+        if _is_kv(path):
+            pool[dst] = pool[src]
+
+
 class Engine:
     """The continuous-batching engine over one model's parameters.
 
@@ -232,22 +292,40 @@ class Engine:
     def __init__(self, module, params=None, *, rows: int = 4,
                  block_size: int = 16, blocks: int | None = None,
                  stream_dtype: str = 'auto', decode_impl: str = 'auto',
-                 share_prefix: bool = False, draft_module=None, mesh=None,
-                 schedule=None, device=None) -> None:
+                 share_prefix: bool = False, draft_module=None,
+                 draft_params=None, speculate: int = 4,
+                 tree_fanout: int = 1, mesh=None, schedule=None,
+                 device=None) -> None:
         reason = engine_unsupported_reason(module)
         if reason is not None:
             raise ValueError(f'the serving engine cannot run this module: '
                              f'{reason}')
-        if draft_module is not None:
-            raise _not_ported('speculative rows (draft_module)',
-                              'speculative rows')
         if mesh is not None or schedule is not None:
             raise _not_ported('tensor-parallel serving (mesh, schedule)',
                               'tensor parallelism')
+        self._spec = draft_module is not None
+        if self._spec:
+            if speculate < 1:
+                raise ValueError(f'speculate must be >= 1, got {speculate}')
+            if tree_fanout < 1:
+                raise ValueError(
+                    f'tree_fanout must be >= 1, got {tree_fanout}')
+            if tree_fanout > draft_module.vocab_size:
+                raise ValueError(f'tree_fanout ({tree_fanout}) exceeds the '
+                                 f'draft vocab ({draft_module.vocab_size})')
+            if rows % tree_fanout:
+                raise ValueError(f'rows ({rows}) must be a multiple of '
+                                 f'tree_fanout ({tree_fanout}) — each '
+                                 'request owns fanout adjacent branch rows')
+            if decode_impl == 'fused':
+                raise ValueError(
+                    "decode_impl='fused' does not compose with speculative "
+                    'rows — the verify forward is the module paged step')
         self.device = resolve_device(device)
         self.rows, self.block_size = rows, block_size
         self.max_seq = module.max_seq
         self.share_prefix = share_prefix
+        self.speculate, self.tree_fanout = speculate, tree_fanout
         if blocks is None:
             blocks = rows * (self.max_seq // block_size) + 1
         self._prefiller = _decoder(module)     # contiguous, shared cursor
@@ -257,14 +335,17 @@ class Engine:
             self._decoder, param_dict(module, params, self.device),
             stream_dtype)
         reason = fused_paged_reason(self._decoder)
-        self.decode_impl = _resolve_impl(decode_impl, reason, self._decoder,
-                                         self.device)
+        self.decode_impl = ('flax' if self._spec else _resolve_impl(
+            decode_impl, reason, self._decoder, self.device))
         self._fused = (build_fused_paged_step(self._decoder)
                        if reason is None else None)
         self.pool = PagedKVCache(rows, blocks, block_size, self.max_seq,
                                  share_prefix=share_prefix)
         self._cache = self._decoder.init_cache(rows, self.device)
-        self._free_rows = list(range(rows - 1, -1, -1))
+        # free seats: representative rows, every row when linear, the first
+        # row of each fanout-wide adjacent group when speculative
+        self._stride = tree_fanout if self._spec else 1
+        self._free_rows = list(range(rows - self._stride, -1, -self._stride))
         # host mirrors; the device tokens feed back into the next step
         self._active = np.zeros(rows, bool)
         self._cursor = np.zeros(rows, np.int64)
@@ -300,6 +381,30 @@ class Engine:
                         'prompt_tokens': 0, 'shared_tokens': 0,
                         'resumed_prefills': 0}
         self.last_step_seconds = 0.0
+        if self._spec:
+            self._init_draft(draft_module, draft_params, stream_dtype)
+
+    def _init_draft(self, draft_module, draft_params, stream_dtype: str):
+        """The draft's state (``engine.py:531-545``): a per-row decoder, a
+        contiguous prefiller, its streamed params, a per-row contiguous
+        cache, and the pinned and device buffers of a verify window's
+        ``[rows * (speculate + 1), 2]`` sampling keys."""
+        self._drafter = _decoder(draft_module, per_row=True)
+        self._draft_prefiller = _decoder(draft_module)
+        self._dparams = _stream_params(
+            self._drafter, param_dict(draft_module, draft_params,
+                                      self.device), stream_dtype)
+        self._dcache = self._drafter.init_cache(self.rows, self.device)
+        width = self.rows * (self.speculate + 1)
+        self._wkeys_host = torch.zeros(
+            (width, 2), dtype=torch.int64,
+            pin_memory=self.device.type == 'cuda')
+        self._wkeys_dev = torch.zeros((width, 2), dtype=torch.int64,
+                                      device=self.device)
+        self._parked = False        # an eviction left stale cursors behind
+        # speculative steps, the requests they stepped (``groups``) and the
+        # drafts those requests accepted
+        self.speculation = {'steps': 0, 'accepted': 0, 'groups': 0}
 
     # ------------------------------------------------------------ admission
 
@@ -318,17 +423,26 @@ class Engine:
                    if state.sampling is not None and state.sampling.sampled)
 
     def can_admit(self, prompt_len: int, max_new: int, prompt=None) -> bool:
-        """Whether an admission of this shape would seat right now. Pass the
-        prompt tokens to count prefix sharing (matched blocks need no
-        allocation); without them the estimate is conservative."""
+        """Whether an admission of this shape would seat right now (a
+        speculative request seats ``tree_fanout`` rows). Pass the prompt
+        tokens to count prefix sharing (matched blocks need no allocation);
+        without them the estimate is conservative."""
         if not self._free_rows:
             return False
         needed = self.pool.blocks_for(prompt_len + max_new)
         if needed > self.pool.max_blocks:
             return False
+        fanout = self._stride
         if self.share_prefix and prompt is not None:
-            needed -= self.pool.adoptable_prefix(prompt)[0] // self.block_size
-        return needed <= self.pool.free_blocks
+            matched = (self.pool.adoptable_prefix(prompt)[0]
+                       // self.block_size)
+            # later branches also match the blocks the first branch
+            # registers (every block the prompt covers fully)
+            sibling = max(matched, (prompt_len - 1) // self.block_size)
+            total = (needed - matched) + (fanout - 1) * (needed - sibling)
+        else:
+            total = fanout * needed
+        return total <= self.pool.free_blocks
 
     def bucket(self, prompt_len: int) -> int:
         return prefill_bucket(prompt_len, self.block_size, self.max_seq)
@@ -408,25 +522,46 @@ class Engine:
                 f'temperature {sampling.temperature} with no seed: the '
                 'stream would not be reproducible, so replay could not keep '
                 'its token-exact contract — pass SamplingParams(seed=...)')
+        if not self._spec:
+            return
+        if sampling is not None and sampling.mask_fn is not None:
+            raise ValueError(
+                'mask_fn does not compose with speculative rows — a '
+                'grammar mask cannot update inside a multi-token verify '
+                'window; serve structured requests on the plain engine')
+        needed = prompt.size + max_new + self.speculate + 1
+        if needed > self._drafter.max_seq:
+            raise ValueError(
+                f'prompt + max_new + speculate + 1 = {needed} exceeds the '
+                f'draft cache capacity max_seq={self._drafter.max_seq} (the '
+                'draft overshoots by up to speculate tokens before '
+                'rewinding)')
 
-    def _seat(self, prompt, max_new: int) -> int:
-        """Claim a free row and seat it in the pool, rolled back whole on a
-        block shortfall."""
+    def _seat(self, prompt, max_new: int) -> list[int]:
+        """Claim a free row (a free group of ``tree_fanout`` adjacent rows
+        when speculative, its first row the representative) and seat it in
+        the pool, rolled back whole on a block shortfall. Returns the
+        rows."""
         if not self._free_rows:
             raise Saturated('no free row')
         tokens = prompt.size + max_new
         if not self.can_admit(prompt.size, max_new, prompt=prompt):
             raise Saturated(f'{self.pool.blocks_for(tokens)} blocks needed '
                             f'per row, {self.pool.free_blocks} free')
-        row = self._free_rows.pop()
+        rep = self._free_rows.pop()
+        rows, seated = list(range(rep, rep + self._stride)), []
         try:
-            self.pool.admit(row, tokens,
-                            prompt=prompt if self.share_prefix else None)
+            for row in rows:
+                self.pool.admit(row, tokens,
+                                prompt=prompt if self.share_prefix else None)
+                seated.append(row)
         except ValueError:
-            self._free_rows.append(row)
+            for row in seated:
+                self.pool.evict(row)
+            self._free_rows.append(rep)
             raise Saturated(f'{self.pool.blocks_for(tokens)} blocks needed '
                             f'per row, {self.pool.free_blocks} free') from None
-        return row
+        return rows
 
     def _padded(self, tokens) -> torch.Tensor:
         padded = np.zeros((1, self.bucket(tokens.size)), np.int64)
@@ -483,40 +618,43 @@ class Engine:
             return self._resume(prompt, self.pool.slots(row), shared)
         return self._prefill(prompt)
 
-    def _register(self, row: int, prompt, first: int, max_new: int,
+    def _register(self, rows: list[int], prompt, first: int, max_new: int,
                   stop_token: int | None, tag, sampling=None,
                   emitted=()) -> Admission:
-        """The host-side admission tail: sharing counters, row state,
-        sampling state, token and active mirrors, and the
-        admitted-already-finished check."""
-        shared = self.pool.shared_tokens(row)
+        """The host-side admission tail of a request seated in ``rows`` (its
+        representative first): sharing counters, row state, sampling state,
+        token and active mirrors, and the admitted-already-finished
+        check."""
+        rep = rows[0]
+        shared = sum(self.pool.shared_tokens(row) for row in rows)
         self.sharing['admissions'] += 1
-        self.sharing['prompt_tokens'] += int(prompt.size)
+        self.sharing['prompt_tokens'] += int(prompt.size) * len(rows)
         self.sharing['shared_tokens'] += shared
         self.sharing['prefix_hits'] += bool(shared)
+        index = slice(rep, rep + len(rows))
         # the next token's stream position: `first` landed at len(emitted)
-        self._position[row] = len(emitted) + 1
+        self._position[index] = len(emitted) + 1
         if sampling is not None:
-            self._seed[row] = sampling.seed or 0
-            self._sampled[row] = sampling.sampled
-            self._masked[row] = sampling.mask_fn is not None
-            self._temp_dev[row] = sampling.temperature
-            self._topk_dev[row] = sampling.top_k
-            self._topp_dev[row] = sampling.top_p
-        self._active[row] = True
-        self._tokens_dev[row] = first
-        self._rowstate[row] = _RowState(tokens=[first], max_new=max_new,
+            self._seed[index] = sampling.seed or 0
+            self._sampled[index] = sampling.sampled
+            self._masked[index] = sampling.mask_fn is not None
+            self._temp_dev[index] = sampling.temperature
+            self._topk_dev[index] = sampling.top_k
+            self._topp_dev[index] = sampling.top_p
+        self._active[index] = True
+        self._tokens_dev[index] = first
+        self._rowstate[rep] = _RowState(tokens=[first], max_new=max_new,
                                         stop=stop_token, tag=tag,
                                         sampling=sampling,
                                         prior=tuple(emitted))
-        reason = self._finish_reason(row)
+        reason = self._finish_reason(rep)
         if reason is not None:
-            self.evict(row)
-            return Admission(row, first, True, reason)
+            self.evict(rep)
+            return Admission(rep, first, True, reason)
         mask = self._grammar_mask(sampling, list(emitted) + [first])
         if mask is not None:
-            self._mask_dev[row] = torch.as_tensor(mask, device=self.device)
-        return Admission(row, first, False)
+            self._mask_dev[rep] = torch.as_tensor(mask, device=self.device)
+        return Admission(rep, first, False)
 
     @torch.no_grad()
     def admit(self, prompt, max_new: int, *, stop_token: int | None = None,
@@ -530,14 +668,15 @@ class Engine:
         greedy); ``emitted`` the tokens a previous life already emitted for
         this request (a replay passes its prefix, which the prompt already
         includes, so sampling positions continue where the stream left
-        off)."""
+        off). A speculative engine seats a group of ``tree_fanout`` rows and
+        returns its first row, and prefills the draft too."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         self._validate(prompt, max_new, sampling)
         ops = self._sampling_ops(sampling, emitted)
-        row = self._seat(prompt, max_new)
+        rows = self._seat(prompt, max_new)
 
         started = time.perf_counter()
-        logits, prefill_cache = self._prefill_rows(prompt, row)
+        logits, prefill_cache = self._prefill_rows(prompt, rows[0])
         first = self._first_token(logits, ops)
         self.timings['prefill'] += time.perf_counter() - started
 
@@ -545,14 +684,33 @@ class Engine:
         # a resumed prefill's strips are shorter than max_seq: its slots too
         strip = next(leaf for path, leaf in prefill_cache.items()
                      if _is_kv(path)).shape[1]
-        self._cache = adopt_prefill(self._cache, prefill_cache,
-                                    self.pool.adoption_slots(row)[:strip],
-                                    row, prompt.size)
+        for row in rows:
+            self._cache = adopt_prefill(self._cache, prefill_cache,
+                                        self.pool.adoption_slots(row)[:strip],
+                                        row, prompt.size)
         self._cache = write_tables(self._cache, self.pool.table)
-        self._cursor[row] = prompt.size
+        self._cursor[rows] = prompt.size
+        if self._spec:
+            self._prefill_draft(prompt, rows)
         self.timings['admit'] += time.perf_counter() - started
-        return self._register(row, prompt, first, max_new, stop_token, tag,
+        return self._register(rows, prompt, first, max_new, stop_token, tag,
                               sampling, emitted)
+
+    @torch.no_grad()
+    def _prefill_draft(self, prompt, rows: list[int]) -> None:
+        """The draft's prefill on admission (``engine.py:1021-1030``): the
+        padded prompt through the contiguous draft prefiller, its strip
+        seated in every row of the group."""
+        padded = np.zeros((1, prefill_bucket(prompt.size, self.block_size,
+                                             self._drafter.max_seq)),
+                          np.int64)
+        padded[0, :prompt.size] = prompt
+        _, draft_cache = functional_call(
+            self._draft_prefiller,
+            _dequant(self._dparams, self._draft_prefiller),
+            (torch.as_tensor(padded, device=self.device),), {'cache': None})
+        self._dcache = _adopt_draft_rows(self._dcache, draft_cache, rows,
+                                         prompt.size)
 
     def _finish_reason(self, row: int) -> str | None:
         state = self._rowstate[row]
@@ -601,10 +759,13 @@ class Engine:
 
     @torch.no_grad()
     def step(self) -> StepReport:
-        """Advance every active row one token (one fixed-shape step) and
-        retire the rows that hit their length or stop token."""
+        """Advance every active row one token (one fixed-shape step; up to
+        ``speculate + 1`` a request on the speculative step) and retire the
+        rows that hit their length or stop token."""
         if not self._active.any():
             return StepReport({}, [])
+        if self._spec:
+            return self._spec_tick()
         started = time.perf_counter()
         # uploaded before the step's launches: the copy waits on no kernel
         keys = self._step_keys()
@@ -646,24 +807,137 @@ class Engine:
                                                       device=self.device)
         return StepReport(emitted, finished)
 
+    # ---------------------------------------------------------- speculative
+
+    def _window_candidates(self, vlogits):
+        """The target's choice at every verify window slot, ``[rows,
+        speculate + 1]``: slot ``j`` of a row sampled at its own ``(seed,
+        position + j)`` key through :func:`sample_rows` (so the accepted
+        prefix plus the correction is the sequential sampled stream), or the
+        plain argmax while no seated row samples."""
+        if not self._sampled.any():
+            return vlogits.argmax(-1)
+        rows, width, vocab = vlogits.shape
+        self._wkeys_host.copy_(torch.from_numpy(sampling_keys(
+            np.repeat(self._seed, width),
+            (self._position[:, None] + np.arange(width)[None]).reshape(-1))))
+        keys = self._wkeys_dev.copy_(self._wkeys_host, non_blocking=True)
+        return sample_rows(
+            vlogits.reshape(rows * width, vocab), keys,
+            self._temp_dev.repeat_interleave(width),
+            self._topk_dev.repeat_interleave(width),
+            self._topp_dev.repeat_interleave(width),
+            self._mask_dev.repeat_interleave(width, 0)).reshape(rows, width)
+
+    def _spec_step(self):
+        """The device half of a speculative step (``engine.py:627-735``):
+        ``speculate + 1`` greedy draft steps on the per-row draft cache
+        (the first fanning each group's branches over the draft's top
+        tokens), one module-path paged verify of every branch's window,
+        the window's candidates, the per-group winner, its window copied
+        over its siblings' in the pool, and both caches rewound to the
+        accepted depth (retired rows to 0). Returns ``[groups, speculate +
+        2]``: the emitted window, then the accepted count, still on the
+        device."""
+        K, F = self.speculate, self.tree_fanout
+        if self._parked:
+            # an eviction left its rows' old cursors behind: park them at 0
+            # before the draft's contiguous writes run past its strips
+            self._cursor = np.where(self._active, self._cursor, 0)
+            at = torch.as_tensor(self._cursor, device=self.device)
+            self._cache = rewind(self._cache, at)
+            self._dcache = rewind(self._dcache, at)
+            self._parked = False
+        depth = int(self._cursor.max())
+        cursor0 = torch.as_tensor(self._cursor, device=self.device)
+        tokens = self._tokens_dev
+        with record_function('speculative.draft'):
+            drafts, dcache = draft_tree(
+                self._drafter, _dequant(self._dparams, self._drafter),
+                self._dcache, tokens, depth, K, F)
+        window = torch.cat([tokens[:, None], drafts], 1)
+        with record_function('speculative.verify'):
+            vlogits, cache = functional_call(
+                self._decoder, _dequant(self._params, self._decoder),
+                (window,), {'cache': self._cache, 'depth': depth})
+            candidates = self._window_candidates(vlogits)
+        accepted_w, win_rows, emitted = pick_winners(drafts, candidates, F)
+        active = torch.as_tensor(self._active, device=self.device)
+        advance = (accepted_w + 1).repeat_interleave(F)
+        cursor = torch.where(active, cursor0 + advance,
+                             torch.zeros_like(cursor0))
+        if F > 1:
+            rowmap = win_rows.repeat_interleave(F)
+            _copy_winner_windows(cache, rowmap, cursor0, K, self.block_size,
+                                 self.max_seq // self.block_size)
+            dcache = gather_rows(dcache, rowmap)
+        self._cache, self._dcache = rewind(cache, cursor), rewind(dcache,
+                                                                  cursor)
+        self._tokens_dev = emitted.gather(
+            1, accepted_w[:, None])[:, 0].repeat_interleave(F)
+        return torch.cat([emitted, accepted_w[:, None]], 1)
+
+    def _spec_tick(self) -> StepReport:
+        """One speculative step: the device half, then its one copy to the
+        host (the window and the accepted counts together), from which the
+        cursor and position mirrors advance; each request takes its
+        accepted prefix and correction, truncated at its budget or stop
+        token (``engine.py:1188-1223``)."""
+        started = time.perf_counter()
+        read = self._spec_step().cpu().numpy()              # [groups, K+2]
+        window, accepted = read[:, :-1], read[:, -1]
+        advance = np.repeat(accepted + 1, self.tree_fanout)
+        self._cursor = np.where(self._active, self._cursor + advance, 0)
+        self._position = np.where(self._active, self._position + advance,
+                                  self._position)
+        self.last_step_seconds = time.perf_counter() - started
+        self.timings['step'] += self.last_step_seconds
+        self.speculation['steps'] += 1
+        emitted, finished = {}, []
+        for rep in sorted(self._rowstate):
+            if not self._active[rep]:
+                continue
+            state = self._rowstate[rep]
+            group = rep // self.tree_fanout
+            self.speculation['groups'] += 1
+            self.speculation['accepted'] += int(accepted[group])
+            tokens = [int(t) for t in window[group, :accepted[group] + 1]]
+            # truncated only at a finish, so the device cursors' extra
+            # advance dies with the eviction
+            tokens = tokens[:state.max_new - len(state.tokens)]
+            if state.stop is not None and state.stop in tokens:
+                tokens = tokens[:tokens.index(state.stop) + 1]
+            state.tokens.extend(tokens)
+            emitted[rep] = tokens
+            reason = self._finish_reason(rep)
+            if reason is not None:
+                state = self.evict(rep)
+                finished.append((rep, reason, list(state.tokens)))
+        return StepReport(emitted, finished)
+
     # ------------------------------------------------------------- eviction
 
     def evict(self, row: int) -> _RowState:
-        """Retire ``row`` (finished or cancelled): its blocks return to the
-        free list (or, shared, drop one reference) and its table resets to
-        trash; a sampled or masked row's state returns to the greedy
+        """Retire ``row`` (finished or cancelled; a speculative request's
+        representative row retires its whole group): its blocks return to
+        the free list (or, shared, drop one reference) and its table resets
+        to trash; a sampled or masked row's state returns to the greedy
         defaults."""
         if row not in self._rowstate:
             raise ValueError(f'row {row} is not seated')
         state = self._rowstate[row]
-        self.pool.evict(row)
-        self._active[row] = False
+        members = slice(row, row + self._stride)
+        for member in range(row, row + self._stride):
+            self.pool.evict(member)
+        self._active[members] = False
         if state.sampling is not None:
-            self._temp_dev[row] = 0.0
-            self._sampled[row] = self._masked[row] = False
+            self._temp_dev[members] = 0.0
+            self._sampled[members] = self._masked[members] = False
             if state.sampling.mask_fn is not None:
-                self._mask_dev[row] = True
+                self._mask_dev[members] = True
         self._cache = write_tables(self._cache, self.pool.table)
+        if self._spec:
+            self._parked = True
         self._free_rows.append(row)
         return self._rowstate.pop(row)
 

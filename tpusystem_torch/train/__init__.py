@@ -1,4 +1,4 @@
-from tpusystem_torch.train.generate import generate
+from tpusystem_torch.train.generate import generate, speculative_generate
 from tpusystem_torch.train.losses import (BCEWithLogitsLoss, ChunkedNextTokenLoss,
                                           CrossEntropyLoss, MSELoss,
                                           NextTokenLoss, WithAuxLoss)
@@ -10,7 +10,8 @@ from tpusystem_torch.train.step import (build_1f1b_train_step, build_eval_step,
                                         build_multi_step, build_train_step,
                                         init_state, module_apply)
 
-__all__ = ['generate', 'TrainState', 'build_train_step', 'build_eval_step',
+__all__ = ['generate', 'speculative_generate', 'TrainState',
+           'build_train_step', 'build_eval_step',
            'build_multi_step', 'build_1f1b_train_step', 'init_state',
            'module_apply', 'Optimizer', 'SGD', 'Adam', 'AdamW',
            'CrossEntropyLoss', 'MSELoss', 'BCEWithLogitsLoss',

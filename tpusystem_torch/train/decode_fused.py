@@ -36,11 +36,19 @@ from tpusystem_torch.ops.precision import dequantize_streamed, head_logits
 
 
 def fused_unsupported_reason(decoder) -> str | None:
-    """Why :func:`build_fused` cannot run this decode clone, or ``None``."""
+    """Why :func:`build_fused` cannot run this decode clone, or ``None``:
+    the fused step is GPT-2's dense token step, unrolled, shared-cursor."""
     from tpusystem_torch.models.gpt2 import GPT2
     if not isinstance(decoder, GPT2):
         return ('the fused decode step implements the GPT2 family only '
                 f'(got {type(decoder).__name__})')
+    if decoder.scan_layers:
+        return ('scan_layers stacks params under a leading layer dim the '
+                'fused per-layer sweep does not walk')
+    if decoder.moe_experts:
+        return ('MoE blocks route through expert dispatch, not the FFN '
+                "chain — the serving engine's flax paged step serves MoE; "
+                'this fused chain does not')
     if decoder.per_row_decode:
         return ('per-row cache cursors need the scatter cache write — '
                 "generate()'s fused loop is shared-cursor only; the "
@@ -52,11 +60,19 @@ def fused_unsupported_reason(decoder) -> str | None:
 def fused_paged_reason(decoder) -> str | None:
     """Why :func:`build_fused_paged_step` cannot run this decode clone, or
     ``None``. The paged step owns per-row cursors and the block-table
-    write; what it needs is the GPT-2 dense step and a paged layout."""
+    write; what it needs is the GPT-2 dense step (unrolled, no experts) and
+    a paged layout."""
     from tpusystem_torch.models.gpt2 import GPT2
     if not isinstance(decoder, GPT2):
         return ('the fused paged step implements the GPT2 family only '
                 f'(got {type(decoder).__name__})')
+    if decoder.scan_layers:
+        return ('scan_layers stacks params under a leading layer dim the '
+                'fused per-layer sweep does not walk')
+    if decoder.moe_experts:
+        return ('MoE blocks route through expert dispatch, not the FFN '
+                "chain — the engine's flax paged step serves MoE (full-"
+                'capacity decode dispatch), this fused chain does not')
     if not decoder.decode_pages:
         return ('no decode_pages on this clone — the paged step needs the '
                 "serving engine's block-pool cache layout")
