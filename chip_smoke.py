@@ -236,10 +236,33 @@ Phases, in order; any failure exits non-zero:
     against the non-cached forward within phase 15's tolerance, decode
     tokens/s, step ms and a traced window with the grouped kernels' device
     ms;
-23. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+23. the serving control plane (``serve-disagg``): phase 5's model and
+    requests, every engine ``Engine(rows=8, block_size=16)`` on the fused
+    step. (a) A ``Router`` over a prefill ``ServingReplica``
+    (``Scheduler(prefill_only=True)``: ``export_prefill``, K1 for each
+    bucket of 512 or more) and a decode one (``admit_prefilled``, then K4
+    and K5), the KV strips over one ``Loopback`` through ``KVStripStore``,
+    against a colocated ``Scheduler`` on a third engine: K1 never moves
+    across an ``admit_prefilled``, the first tokens all equal, every
+    request completes; the share of equal streams (and the first
+    difference), decode tokens/s and time to first token of both runs,
+    the bytes of a hand-off and the host ms of each of its steps
+    (export, pack, offer, fetch, unpack, admit). (b) ``InferenceService``
+    on the card with ``on_token`` callbacks: the colocated streams, and
+    its events counted. (c) The decode replica journals into a
+    ``MemStore`` and ``DieAtStep`` kills it mid-stream: the router
+    recovers the journal, the dead replica is retired, a relaunched one
+    (a fresh engine) is adopted and the rows replay onto it; the old
+    engine is collected, the memory after the relaunch is within one KV
+    pool of that before, every journaled prefix kept; the share of
+    streams equal to the colocated run's is printed.
+    (d) ``certify_fleet`` at seed 1 on three port engines (a journaled
+    router with a lease; router, standby and replica kills): its report
+    is ok;
+24. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-22 prints its seconds.
+    line. Each of phases 15b and 17-23 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -392,6 +415,11 @@ CHI_BOUND = 24.322              # chi-square, 7 degrees of freedom, 0.999
 PREFIX_SHARED, PREFIX_SUFFIXES = 256, (16, 40, 64, 90, 120, 150, 180, 200)
 LONG_PREFIX, LONG_SUFFIXES = 640, (30, 70)
 MLP_TOL = 1e-5
+DISAGG_PARTS = ('export_prefill', 'pack', 'offer', 'fetch', 'unpack',
+                'admit_prefilled')
+DISAGG_KILL_TICK = 12           # the decode replica's tick that dies (23 c)
+CERTIFY_SEED = 1                # the reference's real-engine seed (23 d)
+CERTIFY_MAX_NEW = 8
 VERYBASIC_OUTPUT = {
     'events': 'handled: reduce lr, continue\n'
               'training stopped: val loss diverged\n',
@@ -3953,6 +3981,473 @@ def serve_moe(torch, seed: int) -> dict:
                 card=card_line(), seconds=time.perf_counter() - started)
 
 
+def handoff_timers(torch, fleet, wire, prefill_handle, prefill_engine,
+                   decode_engine) -> dict:
+    """Wrap each step of a hand-off with a host timer: the prefill engine's
+    ``export_prefill`` (its prefill, first token and the strips' copy to
+    the host), ``pack_handoff`` (pickle and digest), the prefill handle's
+    offer into its ``KVStripStore``, the ``Loopback`` fetch,
+    ``unpack_handoff`` (digest and unpickle) and the decode engine's
+    ``admit_prefilled`` (the strips' copy to the card and the scatter,
+    synchronised). K1's counter must not move across an
+    ``admit_prefilled``; the K1, K4 and K5 launches of each engine's calls
+    are tallied by side. ``restore()`` puts the fleet module's functions
+    back."""
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+
+    record = {name: [] for name in DISAGG_PARTS}
+    record['payload_bytes'] = []
+    sides = {side: dict(flash_attention_lse=0, decode_matmul=0,
+                        decode_ffn=0) for side in ('prefill', 'decode')}
+
+    def counts():
+        return dict(flash_attention_lse=flash.flash_attention_lse.launches,
+                    decode_matmul=dm.decode_matmul.launches,
+                    decode_ffn=dm.decode_ffn.launches)
+
+    def timed(name, call, side=None, sync=False):
+        def run(*args, **kwargs):
+            before = counts()
+            started = time.perf_counter()
+            out = call(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            if name is not None:
+                record[name].append(time.perf_counter() - started)
+            after = counts()
+            if side is not None:
+                for key, value in after.items():
+                    sides[side][key] += value - before[key]
+            if name == 'admit_prefilled' and (
+                    after['flash_attention_lse']
+                    != before['flash_attention_lse']):
+                fail('K1 launched inside admit_prefilled')
+            if name == 'pack':
+                record['payload_bytes'].append(len(out))
+            return out
+        return run
+
+    originals = (fleet.pack_handoff, fleet.unpack_handoff)
+    fleet.pack_handoff = timed('pack', fleet.pack_handoff)
+    fleet.unpack_handoff = timed('unpack', fleet.unpack_handoff)
+    wire.fetch_blob = timed('fetch', wire.fetch_blob)
+    prefill_handle.offer_strips = timed('offer', prefill_handle.offer_strips)
+    prefill_engine.export_prefill = timed(
+        'export_prefill', prefill_engine.export_prefill, 'prefill')
+    prefill_engine.step = timed(None, prefill_engine.step, 'prefill')
+    decode_engine.admit_prefilled = timed(
+        'admit_prefilled', decode_engine.admit_prefilled, 'decode',
+        sync=True)
+    decode_engine.step = timed(None, decode_engine.step, 'decode')
+
+    def restore():
+        fleet.pack_handoff, fleet.unpack_handoff = originals
+    return dict(record=record, sides=sides, restore=restore)
+
+
+def engine_clock(torch, engine, seated: dict, method: str) -> dict:
+    """Time ``engine``'s decode steps (host seconds of the steps that
+    emitted, and their tokens) and stamp the moment each request's first
+    token is seated (``method``: ``'admit'`` or ``'admit_prefilled'``,
+    synchronised; keyed by the request id the scheduler passes as
+    ``tag``)."""
+    clock = dict(step_s=0.0, emitted=0, steps=0)
+    step, seat = engine.step, getattr(engine, method)
+
+    def stepped():
+        report = step()
+        if report.emitted:
+            clock['step_s'] += engine.last_step_seconds
+            clock['steps'] += 1
+            clock['emitted'] += sum(len(t) for t in report.emitted.values())
+        return report
+
+    def seating(*args, **kwargs):
+        admission = seat(*args, **kwargs)
+        torch.cuda.synchronize()
+        seated[kwargs['tag']] = time.perf_counter()
+        return admission
+
+    engine.step = stepped
+    setattr(engine, method, seating)
+    return clock
+
+
+def decode_rates(clock: dict, submitted: dict, seated: dict,
+                 wall: float) -> dict:
+    return dict(decode_tokens_per_s=clock['emitted'] / clock['step_s'],
+                step_ms=1e3 * clock['step_s'] / clock['steps'],
+                ttft_s=[seated[rid] - submitted[rid]
+                        for rid in sorted(seated)], wall_s=wall)
+
+
+def stream_share(got: dict, want: dict) -> dict:
+    """The share of requests whose streams equal ``want``'s, and the first
+    differing request and token index where one differs."""
+    equal, first = 0, None
+    for rid in want:
+        a, b = list(got[rid].tokens), list(want[rid].tokens)
+        if a == b:
+            equal += 1
+        elif first is None:
+            step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        min(len(a), len(b)))
+            first = dict(request=rid, step=step)
+    return dict(share=equal / len(want), first_difference=first)
+
+
+def disagg_requests(prompts: list) -> list:
+    from tpusystem_torch.serve import Request
+    return [Request(f'r{index}', [int(t) for t in prompt], MAX_NEW)
+            for index, prompt in enumerate(prompts)]
+
+
+def check_completed(name: str, results: dict, count: int) -> None:
+    if sorted(results) != sorted(f'r{i}' for i in range(count)):
+        fail(f'{name}: {len(results)} of {count} requests completed')
+    for rid, completion in results.items():
+        if completion.reason != 'length' or len(completion.tokens) \
+                != MAX_NEW:
+            fail(f'{name} {rid}: {completion.reason}, '
+                 f'{len(completion.tokens)} tokens')
+
+
+def fused_engine(module, **knobs):
+    from tpusystem_torch.serve import Engine
+    engine = Engine(module, None, rows=ROWS, block_size=BLOCK, **knobs)
+    if engine.decode_impl != 'fused':
+        fail(f'a phase 23 engine chose decode_impl={engine.decode_impl!r}, '
+             "not 'fused'")
+    return engine
+
+
+def disagg_serving(torch, module, prompts) -> tuple:
+    """Phase 23 (a): a colocated ``Scheduler`` on one engine, then a
+    ``Router`` over a prefill ``ServingReplica``
+    (``Scheduler(prefill_only=True)``) and a decode one, the hand-offs over
+    one ``Loopback`` through the prefill handle's ``KVStripStore``, on the
+    same requests. Returns (the colocated completions, the record)."""
+    from tpusystem_torch.observe.events import PrefillHandoff
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.parallel.multihost import Loopback
+    from tpusystem_torch.serve import (ReplicaHandle, Router, Scheduler,
+                                       ServingReplica, fleet)
+    from tpusystem_torch.services.prodcon import Consumer, Producer
+
+    colocated_engine, prefill_engine, decode_engine = (
+        fused_engine(module) for _ in range(3))
+    submitted, seated = {}, {}
+    clock = engine_clock(torch, colocated_engine, seated, 'admit')
+    scheduler = Scheduler(colocated_engine)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for request in disagg_requests(prompts):
+        submitted[request.id] = time.perf_counter()
+        scheduler.submit(request)
+    colocated = scheduler.run()
+    torch.cuda.synchronize()
+    colocated_rates = decode_rates(clock, submitted, seated,
+                                   time.perf_counter() - started)
+
+    wire, producer, handoffs = Loopback(), Producer(), []
+    consumer = Consumer('phase-23')
+    consumer.register(PrefillHandoff, handoffs.append)
+    producer.register(consumer)
+    prefill = ReplicaHandle(ServingReplica(
+        lambda: Scheduler(prefill_engine, prefill_only=True),
+        identity='prefill', role='prefill'), transport=wire)
+    decode = ReplicaHandle(ServingReplica(
+        lambda: Scheduler(decode_engine), identity='decode', role='decode'),
+        transport=wire)
+    router = Router([prefill, decode], producer=producer)
+    submitted, seated = {}, {}
+    clock = engine_clock(torch, decode_engine, seated, 'admit_prefilled')
+    timers = handoff_timers(torch, fleet, wire, prefill, prefill_engine,
+                            decode_engine)
+    dm.reset_launches()
+    flash.flash_attention_lse.launches = 0
+    try:
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for request in disagg_requests(prompts):
+            submitted[request.id] = time.perf_counter()
+            if router.submit(request) != 'prefill':
+                fail(f'{request.id} did not land on the prefill replica')
+        disaggregated = router.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+    finally:
+        timers['restore']()
+    launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                'decode_matmul': dm.decode_matmul.launches,
+                'decode_ffn': dm.decode_ffn.launches}
+    sides, record = timers['sides'], timers['record']
+    if not (sides['decode']['decode_matmul']
+            and sides['decode']['decode_ffn']):
+        fail(f'K4/K5 did not launch on the decode side: {sides}')
+    if sides['prefill']['decode_matmul'] or sides['prefill']['decode_ffn'] \
+            or sides['decode']['flash_attention_lse']:
+        fail(f'a replica ran the other role\'s kernels: {sides}')
+    want_k1 = module.layers * sum(prefill_engine.bucket(len(prompt)) >= 512
+                                  for prompt in prompts)
+    if sides['prefill']['flash_attention_lse'] != want_k1:
+        fail(f"K1 launched {sides['prefill']['flash_attention_lse']} times "
+             f'on the prefill side, expected {want_k1}')
+    check_completed('colocated', colocated, len(prompts))
+    check_completed('disaggregated', disaggregated, len(prompts))
+    firsts = sum(disaggregated[rid].tokens[0] == colocated[rid].tokens[0]
+                 for rid in colocated)
+    if firsts != len(colocated):
+        fail(f'first tokens: {firsts} of {len(colocated)} equal to the '
+             'colocated run')
+    if len(record['admit_prefilled']) != len(prompts) \
+            or len(handoffs) != len(prompts):
+        fail(f"{len(record['admit_prefilled'])} admit_prefilled calls and "
+             f'{len(handoffs)} hand-offs for {len(prompts)} requests')
+    return colocated, dict(
+        streams_equal=stream_share(disaggregated, colocated),
+        first_tokens_equal_share=firsts / len(colocated),
+        launches=launches, launches_by_side=sides,
+        handoff_kv_bytes=sorted({event.bytes for event in handoffs}),
+        handoff_payload_bytes=sorted(set(record['payload_bytes'])),
+        handoff_ms={name: [1e3 * s for s in record[name]]
+                    for name in DISAGG_PARTS},
+        handoff_ms_median={name: 1e3 * quantiles(record[name])[1]
+                           for name in DISAGG_PARTS},
+        colocated=colocated_rates,
+        disaggregated=dict(decode_rates(clock, submitted, seated, wall),
+                           router_ticks=router.ticks))
+
+
+def service_streams(torch, module, prompts, colocated: dict) -> dict:
+    """Phase 23 (b): ``InferenceService`` on the card (no ``device=``), the
+    same requests with ``on_token`` callbacks: the streamed and completed
+    tokens equal the colocated run's, and the ``Producer``'s events are
+    counted by type."""
+    from tpusystem_torch.observe import events
+    from tpusystem_torch.serve import InferenceService
+    from tpusystem_torch.services.prodcon import Consumer, Producer
+
+    producer, seen = Producer(), {}
+    consumer = Consumer('phase-23b')
+    for name in ('RequestAdmitted', 'RequestCompleted', 'RequestEvicted',
+                 'ServeStepped', 'TokenStreamed'):
+        consumer.register(getattr(events, name), lambda event, name=name:
+                          seen.__setitem__(name, seen.get(name, 0) + 1))
+    producer.register(consumer)
+    service = InferenceService(module, None, producer=producer, rows=ROWS,
+                               block_size=BLOCK)
+    if service.engine.device.type != 'cuda' \
+            or service.engine.decode_impl != 'fused':
+        fail(f'InferenceService built its engine on '
+             f'{service.engine.device} with {service.engine.decode_impl!r}')
+    streamed = {}
+    started = time.perf_counter()
+    for request in disagg_requests(prompts):
+        streamed[request.id] = []
+        service.submit(request, on_token=lambda index, token, rid=request.id:
+                       streamed[rid].append(token))
+    results = service.run_until_idle()
+    torch.cuda.synchronize()
+    check_completed('service', results, len(prompts))
+    for rid, completion in colocated.items():
+        if results[rid].tokens != completion.tokens \
+                or streamed[rid] != completion.tokens:
+            fail(f'InferenceService {rid} differs from the colocated run')
+    return dict(events=seen, streams_equal_share=1.0,
+                seconds=time.perf_counter() - started)
+
+
+def kill_drill(torch, module, prompts, colocated: dict) -> dict:
+    """Phase 23 (c): the (a) fleet with its decode replica journaling into a
+    ``MemStore`` and killed by ``DieAtStep`` at its tick
+    ``DISAGG_KILL_TICK``: the router's verdict recovers the journal, the
+    dead replica is retired and its engine dropped, and a relaunched decode
+    replica (a fresh engine) is adopted, onto which the router replays the
+    rows (hot: prompt and emitted prefix re-prefilled). Every request
+    completes, its journaled prefix equal to the colocated stream's; the old
+    engine is collected, and the memory allocated after the relaunch is
+    within one KV pool of that before. The share of streams equal to the
+    colocated run's is printed: a replay re-makes the prefix's KV through
+    the prefill's products, not K4's, and in bfloat16 the two round
+    apart, so a stream may fork at a near-tie after the kill."""
+    import gc
+    import weakref
+
+    from tpusystem_torch.checkpoint import MemStore
+    from tpusystem_torch.observe.events import RequestRerouted
+    from tpusystem_torch.parallel.chaos import DieAtStep
+    from tpusystem_torch.parallel.multihost import Loopback
+    from tpusystem_torch.serve import (ReplicaHandle, Router, Scheduler,
+                                       ServingReplica)
+    from tpusystem_torch.services.prodcon import Consumer, Producer
+
+    wire, producer, rerouted = Loopback(), Producer(), []
+    consumer = Consumer('phase-23c')
+    consumer.register(RequestRerouted, rerouted.append)
+    producer.register(consumer)
+    prefill_engine = fused_engine(module)
+    built = []
+
+    def build():
+        engine = fused_engine(module)
+        built.append(weakref.ref(engine))
+        return Scheduler(engine)
+    store = MemStore()
+    victim = ReplicaHandle(ServingReplica(
+        build, identity='decode-a', role='decode', client=store,
+        fault=DieAtStep(step=DISAGG_KILL_TICK)), transport=wire)
+    router = Router([ReplicaHandle(ServingReplica(
+        lambda: Scheduler(prefill_engine, prefill_only=True),
+        identity='prefill', role='prefill'), transport=wire), victim],
+        producer=producer)
+    pool = sum(leaf.nbytes for path, leaf in
+               victim.scheduler.engine._cache.items()
+               if path.endswith(('/key', '/value')))
+    for request in disagg_requests(prompts):
+        router.submit(request)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    while victim.healthy:
+        if router.idle:
+            fail('the decode replica was never killed')
+        router.step()
+    killed_at = router.ticks
+    # the supervisor's part: the dead replica's process is gone, so its
+    # handle is retired and its engine with it
+    router.handles.remove(victim)
+    del victim
+    gc.collect()
+    torch.cuda.synchronize()
+    if built[0]() is not None:
+        fail('the killed decode engine is still reachable')
+    started = time.perf_counter()
+    router.adopt(ReplicaHandle(ServingReplica(
+        build, identity='decode-b', role='decode', client=MemStore()),
+        transport=wire))
+    torch.cuda.synchronize()
+    relaunch_s = time.perf_counter() - started
+    after = torch.cuda.memory_allocated()
+    if abs(after - before) > pool:
+        fail(f'memory allocated after the relaunch ({after}) is more than '
+             f'one KV pool ({pool}) from before it ({before})')
+    results = router.run_until_idle()
+    check_completed('kill drill', results, len(prompts))
+    hot = [event.id for event in rerouted if event.where == 'hot']
+    cold = [event.id for event in rerouted if event.where == 'cold']
+    if not hot:
+        fail('the kill replayed no seated row hot')
+    for event in rerouted:
+        # the journaled prefix survives the kill token for token
+        if results[event.id].tokens[:event.prefix] \
+                != colocated[event.id].tokens[:event.prefix]:
+            fail(f'{event.id}: the replayed prefix differs from the '
+                 'colocated stream')
+    return dict(killed_at_router_tick=killed_at, replayed_hot=len(hot),
+                replayed_cold=len(cold),
+                replayed_prefix_tokens=sum(event.prefix
+                                           for event in rerouted),
+                relaunch_s=relaunch_s, memory_before=before,
+                memory_after=after, kv_pool_bytes=pool,
+                streams_equal=stream_share(results, colocated))
+
+
+def certify(torch, module, prompts) -> dict:
+    """Phase 23 (d): ``certify_fleet`` at seed ``CERTIFY_SEED`` on a fleet
+    of three port engines on the card (the reference's
+    ``test_certify_fleet_real_engines``: a journaled router holding a lease,
+    kills of the router (the standby takes over), the standby and a
+    replica), greedy and seeded-sampled requests."""
+    from tpusystem_torch.checkpoint import MemStore
+    from tpusystem_torch.serve import (FleetHarness, ReplicaHandle, Request,
+                                       Router, RouterJournal, RouterLease,
+                                       SamplingParams, Scheduler,
+                                       ServingReplica, certify_fleet)
+
+    class Clock:
+        now = 1000.0
+
+        def __call__(self):
+            return self.now
+
+    def workload():
+        return [Request(f'r{index}', [int(t) for t in prompt],
+                        CERTIFY_MAX_NEW,
+                        sampling=SamplingParams(temperature=0.8,
+                                                seed=100 + index, top_k=16)
+                        if index % 2 else None)
+                for index, prompt in enumerate(prompts[:6])]
+
+    def build():
+        clock, plane = Clock(), MemStore()
+        handles = []
+        for index in range(3):
+            engine = fused_engine(module)
+            handles.append(ReplicaHandle(ServingReplica(
+                lambda engine=engine: Scheduler(engine, clock=clock),
+                identity=f'rep{index}', client=MemStore(), clock=clock)))
+        lease = RouterLease(client=plane, clock=clock)
+        router = Router(handles, clock=clock,
+                        journal=RouterJournal(client=plane), lease=lease)
+        lease.acquire()
+
+        def takeover():
+            lease = RouterLease(client=plane, clock=clock, holder='standby')
+            standby = Router(router.handles, clock=clock,
+                             journal=RouterJournal(client=plane),
+                             lease=lease)
+            lease.acquire()
+            return standby, standby.recover((plane,))
+
+        def advance():
+            clock.now += 0.05
+        return FleetHarness(router=router, workload=workload(),
+                            kills={'router': takeover,
+                                   'standby': lambda: None,
+                                   'decode': handles[2].kill},
+                            advance=advance)
+    started = time.perf_counter()
+    report = certify_fleet(build, seed=CERTIFY_SEED, lo=1, hi=4)
+    if not report.ok:
+        fail(f'certify_fleet: {report.summary()}')
+    return dict(summary=report.summary(), ok=report.ok,
+                component=report.component, step=report.step,
+                completed=report.completed, degraded=report.degraded,
+                takeover=report.takeover,
+                seconds=time.perf_counter() - started)
+
+
+def serve_disagg(torch, seed: int) -> dict:
+    """Phase 23: GPT-2 125M (phase 5's weights and requests) served through
+    the port's control plane: (a) disaggregated prefill and decode against
+    a colocated ``Scheduler``; (b) ``InferenceService``; (c) a kill drill on
+    the decode replica; (d) ``certify_fleet`` at one seed. K1's, K4's and
+    K5's launches count (a)'s run."""
+    import gc
+
+    from tpusystem_torch.models import gpt2_small
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    prompts = serving_prompts(seed, module.vocab_size)
+    colocated, disagg = disagg_serving(torch, module, prompts)
+    gc.collect()
+    service = service_streams(torch, module, prompts, colocated)
+    gc.collect()
+    drill = kill_drill(torch, module, prompts, colocated)
+    gc.collect()
+    certified = certify(torch, module, prompts)
+    return dict(disagg, service=service, kill=drill, certify=certified,
+                prompt_lengths=list(PROMPT_LENGTHS), max_new=MAX_NEW,
+                card=card_line(), seconds=time.perf_counter() - started)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -4039,6 +4534,8 @@ def main() -> None:
     checks += grouped_serving
     moe_served = serve_moe(torch, args.seed)
     print('serve-moe ' + json.dumps(moe_served))
+    disagg = serve_disagg(torch, args.seed)
+    print('serve-disagg ' + json.dumps(disagg))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -4046,9 +4543,11 @@ def main() -> None:
     table = {
         'decode_matmul': ('decode_matmul.cu', pallas + 'decode_matmul.py:99',
                           'decode_matmul[qkv]',
-                          served['launches']['decode_matmul']),
+                          served['launches']['decode_matmul']
+                          + disagg['launches']['decode_matmul']),
         'decode_ffn': ('decode_matmul.cu', pallas + 'decode_matmul.py:181',
-                       'decode_ffn', served['launches']['decode_ffn']),
+                       'decode_ffn', served['launches']['decode_ffn']
+                       + disagg['launches']['decode_ffn']),
         **{f'{kernel}_{mode}': (
             'decode_matmul.cu', pallas + f'decode_matmul.py:{line}',
             f'{kernel}_{mode}{label}',
@@ -4069,7 +4568,8 @@ def main() -> None:
             + llama_trained['launches']['flash_attention_lse']
             + sum(spec_served[name]['launches']['flash_attention_lse']
                   for name in ('self-f1', 'self-f2', 'random'))
-            + moe_served['launches']['flash_attention_lse']),
+            + moe_served['launches']['flash_attention_lse']
+            + disagg['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -4248,7 +4748,7 @@ def main() -> None:
              'serve_sampled': sampled, 'serve_prefix': prefix,
              'verybasic': basic, 'serve_llama_narrow': narrow,
              'spec_generate': spec_generated, 'serve_spec': spec_served,
-             'serve_moe': moe_served,
+             'serve_moe': moe_served, 'serve_disagg': disagg,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

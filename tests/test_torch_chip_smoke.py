@@ -608,3 +608,68 @@ def test_drive_engine_serves_speculative_rows_through_a_queue(fanout,
     assert run['last_audit'] == {'free': engine.pool.blocks - 1, 'cached': 0,
                                  'live': 0}
     assert engine.speculation['accepted'] == 3 * engine.speculation['groups']
+
+
+def test_phase_23_prints_after_the_moe_phase():
+    """Phase 23 prints its line after phase 22's, and the ``kernels`` and
+    ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('serve-moe '") < source.index(
+        "print('serve-disagg '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny models gain nothing from torch's thread pool, whose spinning
+    threads would slow the test workers beside this one."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_phase_23_drives_the_control_plane_on_the_cpu(monkeypatch,
+                                                      one_torch_thread):
+    """Phase 23's four parts at ``gpt2_tiny`` on the CPU (no card: the
+    engines run the module path, so the only checks that fail are the ones
+    about the card: the fused route and the kernels' counters). The
+    disaggregated streams, the service's and the replayed ones equal the
+    colocated run's in float32, the hand-offs ship full ``max_seq`` strips,
+    the killed engine is collected and the certification passes."""
+    import numpy as np
+    import torch
+
+    import tpusystem_torch.serve.engine as engine_module
+    from tpusystem_torch.models import gpt2_tiny
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    monkeypatch.setattr(chip_smoke, 'fail', failures.append)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *args: None)
+    monkeypatch.setattr(torch.cuda, 'memory_allocated', lambda *args: 0)
+    monkeypatch.setattr(engine_module, 'resolve_device',
+                        lambda device=None: torch.device('cpu'))
+    module = gpt2_tiny(dtype='float32', device='cpu')
+    prompts = [np.random.default_rng(i).integers(0, 256, (n,))
+               for i, n in enumerate((20, 30, 70, 20, 30, 70, 10, 45))]
+    colocated, record = chip_smoke.disagg_serving(torch, module, prompts)
+    assert record['streams_equal'] == {'share': 1.0,
+                                       'first_difference': None}
+    assert record['first_tokens_equal_share'] == 1.0
+    strip = module.max_seq * module.dim * 4          # float32, k or v
+    assert record['handoff_kv_bytes'] == [2 * module.layers * strip]
+    assert all(len(times) == len(prompts)
+               for times in record['handoff_ms'].values())
+    service = chip_smoke.service_streams(torch, module, prompts, colocated)
+    assert service['events']['TokenStreamed'] == len(prompts) \
+        * chip_smoke.MAX_NEW
+    drill = chip_smoke.kill_drill(torch, module, prompts, colocated)
+    assert drill['replayed_hot'] == len(prompts)
+    assert drill['streams_equal']['share'] == 1.0    # exact in float32
+    assert chip_smoke.certify(torch, module, prompts)['ok']
+    assert all('decode_impl' in message or 'K4/K5 did not launch' in message
+               or 'InferenceService built its engine on cpu' in message
+               for message in failures), failures

@@ -26,6 +26,15 @@ def _modules():
         yield path, '.'.join(parts)
 
 
+# the serving control plane and its dependencies (scanned like every module)
+CONTROL_PLANE = ('serve.disagg', 'serve.scheduler', 'serve.failover',
+                 'serve.fleet', 'serve.service', 'serve.certify',
+                 'parallel.chaos', 'checkpoint.memstore')
+# the reference's serving names that exist only for meshes (ROADMAP queue 1
+# item 9, tensor parallelism)
+MESH_ONLY = ('pool_shardings',)
+
+
 def _examples():
     return sorted(EXAMPLES.glob('*.py'))
 
@@ -106,3 +115,20 @@ def test_auto_decode_impl_picks_the_module_path_off_the_card():
                   device='cpu').decode_impl == 'flax'
     assert Engine(module, None, rows=1, block_size=8, device='cpu',
                   decode_impl='fused').decode_impl == 'fused'
+
+
+def test_the_scans_cover_the_control_plane():
+    scanned = {name for _, name in _modules()}
+    assert {f'tpusystem_torch.{name}' for name in CONTROL_PLANE} <= scanned
+
+
+def test_serve_exports_the_references_names_but_the_mesh_ones():
+    """``tpusystem_torch.serve`` offers the reference's names in its order,
+    less the mesh-only ones."""
+    import tpusystem.serve as reference
+
+    import tpusystem_torch.serve as port
+    assert port.__all__ == [name for name in reference.__all__
+                            if name not in MESH_ONLY]
+    assert all(hasattr(port, name) for name in port.__all__)
+    assert all(hasattr(reference, name) for name in MESH_ONLY)

@@ -30,6 +30,7 @@ Event payloads must be plain host values — never device tensors.
 
 from __future__ import annotations
 
+import hashlib
 import queue
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -103,6 +104,13 @@ class WorkerJoined:
 # replicas) are chunked so one blob cannot monopolize the control-plane
 # socket — heartbeats and collective frames interleave between chunks
 BLOB_CHUNK = 1 << 20
+
+
+def _blob_digest(data: bytes) -> str:
+    """BLAKE2b-128 of a blob (``multihost.py:172``): the one integrity
+    digest of the blob plane, the memstore's slots, the request journals
+    and the KV hand-offs."""
+    return hashlib.blake2b(data, digest_size=16).hexdigest()
 
 
 class BlobError(RuntimeError):

@@ -72,9 +72,15 @@ copy is the emitted tokens (with speculative rows, the ``[groups,
 speculate + 1]`` window and the accepted counts, read together). An MoE
 GPT-2 serves through the module paged step: its experts dispatch at full
 capacity, so a row's tokens never depend on its neighbours. Not ported yet,
-each raising ``NotImplementedError`` naming its ROADMAP item: tensor
-parallelism (``mesh``, ``schedule``) and the disaggregated prefill
-hand-off.
+raising ``NotImplementedError`` naming its ROADMAP item: tensor parallelism
+(``mesh``, ``schedule``).
+
+**Disaggregated prefill**: :meth:`Engine.export_prefill` runs a request's
+prefill on one engine and returns its first token and host-side KV strips
+without seating a row; :meth:`Engine.admit_prefilled` seats such strips on
+another engine through the same ``adopt_prefill``/``write_tables`` seam
+:meth:`Engine.admit` uses, with no prefill program
+(:mod:`tpusystem_torch.serve.disagg` ships them).
 """
 
 from __future__ import annotations
@@ -283,8 +289,16 @@ class Engine:
             their uncached suffix.
         device: where to serve; ``None`` is the card.
 
-    ``timings`` accumulates host seconds of prefill, admission writes and
-    decode steps; ``last_step_seconds`` is the most recent step's;
+    Entry points: :meth:`admit` (prefill and seat), :meth:`step`,
+    :meth:`evict`; and the disaggregated pair, :meth:`export_prefill` (a
+    prefill engine's half: the first token and host-side KV strips, no row
+    seated) and :meth:`admit_prefilled` (a decode engine's half: the strips
+    seated without a prefill).
+
+    ``timings`` accumulates host seconds of prefill (:meth:`admit`'s and
+    :meth:`export_prefill`'s), admission writes (:meth:`admit`'s and
+    :meth:`admit_prefilled`'s) and decode steps; ``last_step_seconds`` is
+    the most recent step's;
     ``sharing`` counts admissions, prefix hits, prompt and shared tokens and
     resumed prefills.
     """
@@ -507,7 +521,7 @@ class Engine:
         return int(sample_token(logits, ops.seed, ops.position,
                                 ops.temperature, ops.top_k, ops.top_p, mask))
 
-    def _validate(self, prompt, max_new: int, sampling) -> None:
+    def _validate(self, prompt, max_new: int, sampling=None) -> None:
         if prompt.size < 1:
             raise ValueError('empty prompt')
         if max_new < 1:
@@ -516,26 +530,33 @@ class Engine:
             raise ValueError(
                 f'prompt ({prompt.size}) + max_new ({max_new}) exceeds the '
                 f'cache capacity max_seq={self.max_seq}')
-        if (sampling is not None and sampling.sampled
-                and sampling.seed is None):
+        self._validate_sampling(sampling)
+        if self._spec:
+            needed = prompt.size + max_new + self.speculate + 1
+            if needed > self._drafter.max_seq:
+                raise ValueError(
+                    f'prompt + max_new + speculate + 1 = {needed} exceeds '
+                    f'the draft cache capacity max_seq='
+                    f'{self._drafter.max_seq} (the draft overshoots by up '
+                    'to speculate tokens before rewinding)')
+
+    def _validate_sampling(self, sampling) -> None:
+        """The sampling refusals (``engine.py:900``), also the scheduler's
+        check at submission: :class:`UnseededSampling`, and a ``mask_fn``
+        on a speculative engine."""
+        if sampling is None:
+            return
+        if sampling.sampled and sampling.seed is None:
             raise UnseededSampling(
                 f'temperature {sampling.temperature} with no seed: the '
-                'stream would not be reproducible, so replay could not keep '
-                'its token-exact contract — pass SamplingParams(seed=...)')
-        if not self._spec:
-            return
-        if sampling is not None and sampling.mask_fn is not None:
+                'stream would not be reproducible, so journal replay, '
+                'reroute, and hedging could not keep their token-exact '
+                'contract — pass SamplingParams(seed=...)')
+        if self._spec and sampling.mask_fn is not None:
             raise ValueError(
                 'mask_fn does not compose with speculative rows — a '
                 'grammar mask cannot update inside a multi-token verify '
                 'window; serve structured requests on the plain engine')
-        needed = prompt.size + max_new + self.speculate + 1
-        if needed > self._drafter.max_seq:
-            raise ValueError(
-                f'prompt + max_new + speculate + 1 = {needed} exceeds the '
-                f'draft cache capacity max_seq={self._drafter.max_seq} (the '
-                'draft overshoots by up to speculate tokens before '
-                'rewinding)')
 
     def _seat(self, prompt, max_new: int) -> list[int]:
         """Claim a free row (a free group of ``tree_fanout`` adjacent rows
@@ -695,6 +716,93 @@ class Engine:
         self.timings['admit'] += time.perf_counter() - started
         return self._register(rows, prompt, first, max_new, stop_token, tag,
                               sampling, emitted)
+
+    # ------------------------------------------------- disaggregated prefill
+
+    @torch.no_grad()
+    def export_prefill(self, prompt, *, sampling=None,
+                       emitted=()) -> tuple[int, dict]:
+        """Run the admission prefill without seating a row: the prefill
+        half of disaggregated serving (``engine.py:1038``). Returns
+        ``(first, kv)``: the prompt's first token, chosen at the request's
+        ``(seed, len(emitted))`` counter as :meth:`admit` would choose it,
+        and every KV leaf's contiguous strip (cache path -> ``[1, max_seq,
+        heads, head_dim]``), copied to the host so the blob plane can ship
+        it. The pool, the rows and the radix index are untouched; a
+        decode engine seats the strips with :meth:`admit_prefilled`."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError('empty prompt')
+        if prompt.size >= self.max_seq:
+            raise ValueError(
+                f'prompt ({prompt.size}) leaves no decode room under '
+                f'max_seq={self.max_seq}')
+        self._validate_sampling(sampling)
+        ops = self._sampling_ops(sampling, emitted)
+        started = time.perf_counter()
+        logits, cache = self._prefill(prompt)
+        first = self._first_token(logits, ops)
+        self.timings['prefill'] += time.perf_counter() - started
+        return first, {path: leaf.cpu() for path, leaf in cache.items()
+                       if _is_kv(path)}
+
+    def _strip_cache(self, kv: dict) -> dict:
+        """The contiguous prefill cache rebuilt from exported strips, on this
+        engine's device and in its cache's dtype: the receiving half of
+        :meth:`export_prefill`. The expected shapes come from the
+        prefiller's cache geometry on the ``meta`` device, so no prefill
+        runs and nothing is allocated for them. A missing or misshapen
+        strip raises ``ValueError`` (prefill and decode engines must serve
+        the same module)."""
+        prefill_cache = {}
+        for path, leaf in self._prefiller.init_cache(1, 'meta').items():
+            if not _is_kv(path):
+                continue
+            if path not in kv:
+                raise ValueError(
+                    f'handoff strip missing KV leaf {path} — prefill and '
+                    'decode replicas must serve the same module')
+            strip = kv[path]
+            if tuple(strip.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f'handoff strip {path} is {tuple(strip.shape)}, this '
+                    f'engine expects {tuple(leaf.shape)} — prefill and '
+                    'decode replicas must serve the same module geometry')
+            prefill_cache[path] = strip.to(self.device, leaf.dtype)
+        return prefill_cache
+
+    @torch.no_grad()
+    def admit_prefilled(self, prompt, max_new: int, first: int, kv: dict,
+                        *, stop_token: int | None = None, tag=None,
+                        sampling=None, emitted=()) -> Admission:
+        """Seat a request whose prefill ran on another engine
+        (:meth:`export_prefill`'s strips, shipped over the blob plane). The
+        contract of :meth:`admit` (:class:`Saturated` when nothing is free,
+        ``ValueError`` on a request that could never fit), but no prefill
+        runs here: the strips are checked before any row is seated, then
+        scattered into the row's blocks by :func:`adopt_prefill`. A
+        speculative engine refuses it: its draft cache has no strip."""
+        if self._spec:
+            raise ValueError(
+                'admit_prefilled does not compose with speculative rows — '
+                'the draft cache has no handoff strip; disaggregate the '
+                'plain engine')
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        self._validate(prompt, max_new, sampling)
+        prefill_cache = self._strip_cache(kv)     # validated before seating
+        rows = self._seat(prompt, max_new)
+
+        started = time.perf_counter()
+        for row in rows:
+            self._cache = adopt_prefill(self._cache, prefill_cache,
+                                        self.pool.adoption_slots(row), row,
+                                        prompt.size)
+        self._cache = write_tables(self._cache, self.pool.table)
+        # the host mirror of the cursor (the reference keeps it in the cache)
+        self._cursor[rows] = prompt.size
+        self.timings['admit'] += time.perf_counter() - started
+        return self._register(rows, prompt, int(first), max_new, stop_token,
+                              tag, sampling, emitted)
 
     @torch.no_grad()
     def _prefill_draft(self, prompt, rows: list[int]) -> None:
