@@ -259,10 +259,36 @@ Phases, in order; any failure exits non-zero:
     (d) ``certify_fleet`` at seed 1 on three port engines (a journaled
     router with a lease; router, standby and replica kills): its report
     is ok;
-24. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+24. the resilient trainer (``train-resilient``): GPT-2 125M at phase 7's
+    recipe (16 x 1024 tokens, flash, AdamW clipped at 1.0), random weights
+    from ``--seed``. (a) Two steps of ``scan_layers=True`` against two of
+    the unrolled model from the same weights: losses and parameters bit
+    for bit, the peak memory of each. (b) ``build_multi_step`` at N = 4
+    over 8 batches against 8 single steps: losses and the final state bit
+    for bit, the ms a step of each. (c) The guard drill: ``Guard(warmup=4,
+    zmax=6)``, ``CorruptGrads`` NaN at step 6 and a 200x spike at step 9;
+    step 6's health row has ok = 0 and leaves the parameters and every
+    AdamW slot bit for bit, ``bad_steps`` counts the suppressed steps, the
+    step counter advances while Adam's count does not, ``Sentinel.review``
+    over each 4 steps' rows emits ``AnomalyDetected``; the spike's z-score
+    is printed; the guarded step's ms and host syncs (``torch.cuda.
+    set_sync_debug_mode('warn')``) beside the unguarded one's, no more
+    syncs. (d) An async ``Checkpointer`` every 4 steps (the host ms
+    ``save`` blocks, each commit's ms, the bytes a step); a forced
+    ``Sentinel`` rollback restores step 4 in place and steps 5-8 repeat
+    the first run's losses bit for bit. (e) This script's
+    ``resilient_worker`` under the ``Supervisor`` and its memstore server:
+    SIGKILLed after step 5's hot push (8 steps: a hot push a step costs
+    ~12 s at this width), relaunched, restored through ``hot_resume``
+    (source ``'hot'``), it finishes steps 6-8; its 8 losses and its final
+    state equal an uninterrupted in-process run's bit for bit; detect ->
+    first step, the hot-state bytes, the hot restore's seconds against a
+    fresh ``Checkpointer``'s disk restore and the exit codes are printed.
+    K1 and K2b launch in every in-process step;
+25. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-23 prints its seconds.
+    line. Each of phases 15b and 17-24 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -4448,6 +4474,541 @@ def serve_disagg(torch, seed: int) -> dict:
                 card=card_line(), seconds=time.perf_counter() - started)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the resilient trainer
+
+
+RESILIENT_STEPS, RESILIENT_GROUP = 12, 4
+# (e): a hot push after every step is ~1.5 GB through four BLAKE2b passes
+# (~12 s a step on an H100 80GB HBM3 host), so the drill runs 8 steps, not 12
+RESILIENT_KILL_STEPS, RESILIENT_DIE_AT = 8, 5
+RESILIENT_BATCHES = 8           # distinct batches, cycled by step
+RESILIENT_SAVE_EVERY = 4
+RESILIENT_IDENTITY = 'resilient-gpt2'
+# bench.py's recipe (bench.py:408-434): GPT-2 125M, vocab padded to 50304,
+# flash attention, the chunked loss, AdamW at 3e-4 clipped at 1.0
+RESILIENT_MODEL = dict(vocab_size=50304, dropout=0.0, attention='flash',
+                       return_features=True)
+
+
+class Recipe:
+    """Phase 24's training cell: a module factory (the unrolled weights
+    drawn from ``seed``, restacked under ``hs`` for ``scan_layers``), its
+    criterion, optimizer and batches. ``model`` overrides ``gpt2_small``'s
+    fields; the CPU test passes ``gpt2_tiny``'s widths."""
+
+    def __init__(self, torch, seed: int, device: str = 'cuda',
+                 model: dict | None = None, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ, vocab: int = 50257):
+        self.torch, self.seed, self.device = torch, seed, device
+        self.model = dict(RESILIENT_MODEL if model is None else model)
+        self.batch, self.seq, self.vocab = batch, seq, vocab
+
+    def module(self, scan_layers: bool = True):
+        from tpusystem_torch.models import gpt2_small
+        torch = self.torch
+        unrolled = gpt2_small(**self.model, device=self.device)
+        unrolled.init_weights(torch.Generator(self.device).manual_seed(
+            self.seed))
+        if not scan_layers:
+            return unrolled
+        scanned = gpt2_small(**self.model, scan_layers=True,
+                             device=self.device)
+        scanned.load_state_dict(restack(torch, unrolled.state_dict(),
+                                        unrolled.layers))
+        return scanned
+
+    def criterion(self):
+        from tpusystem_torch.train import ChunkedNextTokenLoss
+        return ChunkedNextTokenLoss(chunks=8)
+
+    def optimizer(self):
+        from tpusystem_torch.train import AdamW
+        return AdamW(lr=3e-4, grad_clip=1.0)
+
+    def batches(self, count: int = RESILIENT_BATCHES) -> list:
+        import numpy as np
+        return [self.torch.as_tensor(np.random.default_rng(
+            [self.seed, index]).integers(0, self.vocab, (self.batch,
+                                                         self.seq)),
+            device=self.device) for index in range(count)]
+
+    def cell(self, module, guard=None, fault=None):
+        """``(state, step)`` over ``module``'s own weights."""
+        from tpusystem_torch.train import init_state
+        optimizer = self.optimizer()
+        state = init_state(module, optimizer, rng=self.seed)
+        if guard is not None:
+            state = guard.arm(state)
+        step = build_train_step(module_apply(module), self.criterion(),
+                                optimizer, guard=guard, fault=fault)
+        return state, step
+
+    def sync(self) -> None:
+        if self.device == 'cuda':
+            self.torch.cuda.synchronize()
+
+    def reset_peak(self) -> None:
+        if self.device == 'cuda':
+            self.torch.cuda.synchronize()
+            self.torch.cuda.reset_peak_memory_stats()
+
+    def peak(self) -> int | None:
+        if self.device != 'cuda':
+            return None
+        self.torch.cuda.synchronize()
+        return self.torch.cuda.max_memory_allocated()
+
+
+def restack(torch, flat: dict, layers: int) -> dict:
+    """An unrolled GPT-2 state dict under a scanned model's names: every
+    ``h_{i}.x`` stacked into ``hs.x`` (copies; the rest cloned)."""
+    out = {name: tensor.clone() for name, tensor in flat.items()
+           if not name.startswith('h_')}
+    names = sorted({name.split('.', 1)[1] for name in flat
+                    if name.startswith('h_')})
+    for name in names:
+        out['hs.' + name] = torch.stack([flat[f'h_{index}.{name}']
+                                         for index in range(layers)])
+    return out
+
+
+def state_tensors(state) -> list:
+    """The parameters and every optimizer slot, the count included."""
+    opt = state.opt_state
+    return ([state.step, opt['count']] + list(state.params.values())
+            + list(opt['mu'].values()) + list(opt['nu'].values()))
+
+
+def state_digest(state) -> str:
+    """BLAKE2b-128 of the parameters' and slots' bytes, in order."""
+    import hashlib
+
+    import torch
+    digest = hashlib.blake2b(digest_size=16)
+    for tensor in state_tensors(state):
+        digest.update(tensor.detach().contiguous().reshape(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def run_steps(recipe, step, state, batches, first: int, last: int) -> list:
+    """Steps ``first`` to ``last`` (1-based), step ``k`` on batch
+    ``(k - 1) % len(batches)``; the losses, read after the last step."""
+    losses = []
+    for at in range(first, last + 1):
+        tokens = batches[(at - 1) % len(batches)]
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss)
+    return [float(loss) for loss in losses]
+
+
+def timed(recipe, call) -> float:
+    recipe.sync()
+    started = time.perf_counter()
+    call()
+    recipe.sync()
+    return time.perf_counter() - started
+
+
+def scan_against_unrolled(recipe) -> dict:
+    """(a) Two steps of the scanned model and two of the unrolled one from
+    the same weights: losses and parameters bit for bit; the peak memory of
+    each (the other run's parameters kept on the host meanwhile)."""
+    torch = recipe.torch
+    batches = recipe.batches(2)
+    result = {}
+    for scan in (False, True):
+        module = recipe.module(scan_layers=scan)
+        state, step = recipe.cell(module)
+        recipe.reset_peak()
+        losses = run_steps(recipe, step, state, batches, 1, 2)
+        peak = recipe.peak()
+        params = {name: tensor.detach().to('cpu', copy=True)
+                  for name, tensor in module.state_dict().items()}
+        result['scanned' if scan else 'unrolled'] = dict(
+            losses=losses, peak_memory_bytes=peak,
+            params=(params if scan
+                    else restack(torch, params, module.layers)))
+        del module, state, step, params
+    unrolled, scanned = result['unrolled'], result['scanned']
+    losses_equal = unrolled['losses'] == scanned['losses']
+    params_equal = all(torch.equal(tensor, scanned['params'][name])
+                       for name, tensor in unrolled['params'].items())
+    if not (losses_equal and params_equal):
+        fail(f"scan_layers differs from the unrolled model: losses "
+             f"{unrolled['losses']} vs {scanned['losses']}, params equal "
+             f'{params_equal}')
+    return dict(losses=scanned['losses'], losses_equal=losses_equal,
+                params_equal=params_equal,
+                peak_memory_bytes={name: result[name]['peak_memory_bytes']
+                                   for name in ('unrolled', 'scanned')})
+
+
+def multi_against_single(recipe) -> dict:
+    """(b) ``build_multi_step`` at N = 4 over 8 batches against 8 single
+    steps from the same weights: losses and final parameters bit for bit,
+    and the ms a step of each."""
+    from tpusystem_torch.train import build_multi_step
+    torch = recipe.torch
+    batches = recipe.batches()
+    module = recipe.module()
+    initial = {name: tensor.detach().clone()
+               for name, tensor in module.state_dict().items()}
+    state, step = recipe.cell(module)
+    single = []
+    seconds = timed(recipe, lambda: single.extend(
+        run_steps(recipe, step, state, batches, 1, len(batches))))
+    single_ms = 1e3 * seconds / len(batches)
+    final = [tensor.detach().clone() for tensor in state_tensors(state)]
+    module.load_state_dict(initial)
+    state, step = recipe.cell(module)
+    multi = build_multi_step(step)
+    stacked = torch.stack(batches)
+    groups = []
+
+    def run():
+        nonlocal state
+        for start in range(0, len(batches), RESILIENT_GROUP):
+            group = stacked[start:start + RESILIENT_GROUP]
+            state, losses = multi(state, group, group)
+            groups.append(losses)
+    seconds = timed(recipe, run)
+    multi_losses = [float(loss) for losses in groups for loss in losses]
+    equal = multi_losses == single and all(
+        torch.equal(a, b) for a, b in zip(final, state_tensors(state)))
+    if not equal:
+        fail(f'build_multi_step differs from single steps: {multi_losses} '
+             f'vs {single}')
+    return dict(n=RESILIENT_GROUP, steps=len(batches), losses=multi_losses,
+                bitwise_equal=equal, single_ms_per_step=single_ms,
+                multi_ms_per_step=1e3 * seconds / len(batches))
+
+
+def both(*faults):
+    """The faults applied in turn at the ``fault=`` seam."""
+    def apply(current, grads, loss):
+        for fault in faults:
+            grads, loss = fault(current, grads, loss)
+        return grads, loss
+    return apply
+
+
+def host_syncs(torch, call) -> dict:
+    """Synchronizing CUDA operations ``call`` issues, as
+    ``torch.cuda.set_sync_debug_mode('warn')`` reports them: their count
+    and the Python lines that issued them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    sites = [f'{pathlib.Path(warning.filename).name}:{warning.lineno}'
+             for warning in caught if 'synchroniz' in str(warning.message)]
+    return dict(count=len(sites), sites=sorted(set(sites)))
+
+
+def guard_drill(recipe) -> dict:
+    """(c) Guard(warmup=4, zmax=6); CorruptGrads NaN at step 6 and a 200x
+    spike at step 9. Step 6's row has ok = 0 and leaves the parameters and
+    every AdamW slot bit for bit; ``bad_steps`` counts the suppressed
+    steps; the step counter advances while Adam's does not. The spike's
+    z-score and verdict are printed, not checked. ``Sentinel.review`` over
+    each group's ``[4, 4]`` rows emits ``AnomalyDetected``. The guarded
+    step's ms and host syncs beside the unguarded one's."""
+    from tpusystem_torch.observe.events import AnomalyDetected
+    from tpusystem_torch.parallel.chaos import CorruptGrads
+    from tpusystem_torch.services.prodcon import Consumer, Producer
+    from tpusystem_torch.train import Guard, Sentinel
+    from tpusystem_torch.train.sentinel import HEALTH_OK, HEALTH_Z
+    torch = recipe.torch
+    batches = recipe.batches()
+    module = recipe.module()
+    initial = {name: tensor.detach().clone()
+               for name, tensor in module.state_dict().items()}
+    fault = both(CorruptGrads(step=6), CorruptGrads(step=9, mode='spike',
+                                                    scale=200.0))
+    state, step = recipe.cell(module, guard=Guard(warmup=4, zmax=6.0),
+                              fault=fault)
+    producer, seen = Producer(), []
+    consumer = Consumer()
+    consumer.register(AnomalyDetected, seen.append)
+    producer.register(consumer)
+    sentinel = Sentinel(producer=producer, model=RESILIENT_IDENTITY)
+    rows, frozen = [], None
+    for at in range(1, RESILIENT_STEPS + 1):
+        tokens = batches[(at - 1) % len(batches)]
+        before = ([tensor.detach().clone()
+                   for tensor in state_tensors(state)[1:]]
+                  if at == 6 else None)
+        state, _ = step(state, tokens, tokens)
+        rows.append(state.health.last.clone())
+        if before is not None:
+            frozen = all(torch.equal(a, b) for a, b in zip(
+                before, state_tensors(state)[1:]))
+        if at % RESILIENT_GROUP == 0:
+            sentinel.review(state, torch.stack(rows[-RESILIENT_GROUP:]))
+    rows = torch.stack(rows).cpu()
+    adam_count, bad_steps = (int(state.opt_state['count']),
+                             int(state.health.bad_steps))
+    flagged = [index + 1 for index in range(len(rows))
+               if rows[index, HEALTH_OK] < 0.5]
+    checks = {'nan_row_ok_is_0': bool(rows[5, HEALTH_OK] == 0.0),
+              'nan_step_frozen_bitwise': frozen,
+              'bad_steps_counts_suppressed': bad_steps == len(flagged),
+              'step_advances': int(state.step) == RESILIENT_STEPS,
+              'adam_count_skips': adam_count == RESILIENT_STEPS - len(flagged),
+              'anomaly_events': [event.step for event in seen] == flagged
+              and 6 in flagged}
+    if not all(checks.values()):
+        fail(f'guard drill: {checks}, rows {rows.tolist()}')
+
+    # the guard's cost: a guarded step against an unguarded one, in turns
+    module.load_state_dict(initial)
+    plain_state, plain_step = recipe.cell(module)
+    guarded_state, guarded_step = recipe.cell(module, guard=Guard())
+    tokens = batches[0]
+    times = {'plain': [], 'guarded': []}
+    for _ in range(3):
+        for name, (run, held) in (('plain', (plain_step, plain_state)),
+                                  ('guarded', (guarded_step, guarded_state))):
+            times[name].append(1e3 * timed(
+                recipe, lambda: run(held, tokens, tokens)))
+    syncs = {name: (host_syncs(torch, lambda: run(held, tokens, tokens))
+                    if recipe.device == 'cuda' else None)
+             for name, (run, held) in (
+                 ('plain', (plain_step, plain_state)),
+                 ('guarded', (guarded_step, guarded_state)))}
+    if recipe.device == 'cuda' and (syncs['guarded']['count']
+                                    > syncs['plain']['count']):
+        fail(f'the guarded step adds host syncs: {syncs}')
+    return dict(checks=checks, rows=rows.tolist(), flagged=flagged,
+                spike=dict(step=9, zscore=float(rows[8, HEALTH_Z]),
+                           flagged=9 in flagged),
+                bad_steps=bad_steps, adam_count=adam_count,
+                anomaly_steps=[event.step for event in seen],
+                step_ms=times, syncs=syncs)
+
+
+def checkpoint_rollback(recipe, root: pathlib.Path) -> dict:
+    """(d) An async ``Checkpointer`` saves every 4 steps of a guarded run;
+    a forced ``Sentinel`` rollback (a bad row at step 5) restores step 4 in
+    place and steps 5-8 repeat the first run's losses bit for bit. The host
+    ms ``save`` blocks for, each commit's ms and the bytes a step."""
+    from tpusystem_torch.checkpoint import Checkpointer
+    from tpusystem_torch.train import Guard, Sentinel, resume_extras
+    torch = recipe.torch
+    batches = recipe.batches()
+    module = recipe.module()
+    state, step = recipe.cell(module, guard=Guard())
+    blocked, losses = [], []
+    with Checkpointer(root, async_save=True, max_to_keep=None) as ckpt:
+        for at in range(1, RESILIENT_STEPS + 1):
+            losses += run_steps(recipe, step, state, batches, at, at)
+            if at % RESILIENT_SAVE_EVERY == 0:
+                started = time.perf_counter()
+                ckpt.save(RESILIENT_IDENTITY, at, state,
+                          extras=resume_extras(state))
+                blocked.append(1e3 * (time.perf_counter() - started))
+        ckpt.wait()
+        store = ckpt._manager(RESILIENT_IDENTITY)
+        commits = [dict(timing) for timing in store.timings]
+        rows = torch.stack([torch.tensor([1.0, 0.0, 0.0, 0.0])] * 4)
+        rows[0] = torch.tensor([0.0, math.nan, math.nan, 0.0])  # step 5
+        sentinel = Sentinel(checkpointer=ckpt, identity=RESILIENT_IDENTITY,
+                            rollback_after=1)
+        # the rows of steps 5-8, read at step 8
+        state.step.fill_(8)
+        restored = sentinel.review(state, rows)
+        rolled_to = int(restored.step)
+        again = run_steps(recipe, step, restored, batches, 5, 8)
+        kept = ckpt.epochs(RESILIENT_IDENTITY)
+    repeats = again == losses[4:8]
+    if not (rolled_to == 4 and repeats and restored is state):
+        fail(f'rollback: to step {rolled_to}, losses {again} vs '
+             f'{losses[4:8]}')
+    return dict(save_blocked_ms=blocked, commits=commits,
+                bytes_per_step=commits[0]['bytes'], rolled_to=rolled_to,
+                repeats_bitwise=repeats, kept_after_rollback=kept,
+                losses=losses)
+
+
+def resilient_worker(out_path: str, root: str, die_at: str, total: str,
+                     seed: str, device: str, cell: str) -> None:
+    """(e)'s worker, run by the ``Supervisor`` through ``sys.executable
+    -c``: the scanned, guarded GPT-2 of phase 24 resumed through
+    ``hot_resume``, then trained to step ``total``: the ``first-step`` mark
+    right after its first step, a hot push after every step, an async disk
+    save every 4, SIGKILLed after step ``die_at``'s push. A resumed worker
+    then times a disk restore of the newest committed step by a fresh
+    ``Checkpointer`` (its verify included) into a second state. Writes JSON
+    lines to ``out_path``."""
+    import os
+    import signal
+
+    import torch
+
+    from tpusystem_torch.checkpoint import (Checkpointer, hot_resume,
+                                            serialize_state,
+                                            supervisor_client)
+    from tpusystem_torch.parallel.chaos import DieAtStep
+    from tpusystem_torch.train import Guard, resume_extras
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def out(record):
+        with open(out_path, 'a') as handle:
+            handle.write(json.dumps(record) + '\n')
+
+    recipe = Recipe(torch, int(seed), device, **json.loads(cell))
+    batches = recipe.batches()
+    state, step = recipe.cell(recipe.module(), guard=Guard())
+    client = supervisor_client()
+    ckpt = Checkpointer(root, async_save=True, max_to_keep=None)
+    die = DieAtStep(step=int(die_at),
+                    action=lambda: os.kill(os.getpid(), signal.SIGKILL))
+    try:
+        started = time.perf_counter()
+        state, at, extras, source = hot_resume(ckpt, RESILIENT_IDENTITY,
+                                               state, client)
+        recipe.sync()
+        restore_s = time.perf_counter() - started
+    except FileNotFoundError:
+        at, source = 0, None
+    else:
+        out({'resumed': at, 'source': source, 'restore_s': restore_s})
+    first = True
+    for current in range(at + 1, int(total) + 1):
+        loss, = run_steps(recipe, step, state, batches, current, current)
+        if first and client is not None:
+            first = False
+            client.mark('first-step', step=current)
+        extras = resume_extras(state)
+        blob = serialize_state(state)
+        if client is not None:
+            client.push(RESILIENT_IDENTITY, current, blob, extras=extras)
+        if current % RESILIENT_SAVE_EVERY == 0:
+            ckpt.save(RESILIENT_IDENTITY, current, state, extras=extras)
+        out({'step': current, 'loss': loss, 'hot_bytes': len(blob)})
+        die(current)
+    ckpt.close()
+    out({'done': True, 'digest': state_digest(state)})
+    if source is not None:
+        spare, _ = recipe.cell(recipe.module(), guard=Guard())
+        with Checkpointer(root) as fresh:
+            started = time.perf_counter()
+            disk_at = fresh.latest(RESILIENT_IDENTITY)
+            fresh.restore(RESILIENT_IDENTITY, spare, epoch=disk_at)
+            recipe.sync()
+        out({'disk_restore_s': time.perf_counter() - started,
+             'disk_step': disk_at})
+
+
+def kill_and_relaunch(recipe, root: pathlib.Path) -> dict:
+    """(e) The uninterrupted run in this process, then the worker under the
+    ``Supervisor`` with its ``MemStoreServer``: killed after step 5's hot
+    push, relaunched, restored from the supervisor's RAM (source
+    ``'hot'``), it finishes steps 6-8; its 8 losses and final state equal
+    the uninterrupted run's bit for bit."""
+    from tpusystem_torch.observe.events import (RecoveryTimeline,
+                                                WorkerExited)
+    from tpusystem_torch.parallel import Supervisor
+    from tpusystem_torch.services.prodcon import Consumer, Producer
+    from tpusystem_torch.train import Guard
+    torch = recipe.torch
+    batches = recipe.batches()
+    state, step = recipe.cell(recipe.module(), guard=Guard())
+    reference = run_steps(recipe, step, state, batches, 1,
+                          RESILIENT_KILL_STEPS)
+    digest = state_digest(state)
+    del state, step
+    if recipe.device == 'cuda':
+        torch.cuda.empty_cache()
+    root.mkdir(parents=True, exist_ok=True)
+    out_path = root / 'worker.jsonl'
+    here = str(pathlib.Path(__file__).resolve().parent)
+    code = (f'import sys; sys.path.insert(0, {here!r}); import chip_smoke; '
+            f'chip_smoke.resilient_worker(*sys.argv[1:])')
+    argv = [sys.executable, '-c', code, str(out_path), str(root / 'ckpt'),
+            str(RESILIENT_DIE_AT), str(RESILIENT_KILL_STEPS),
+            str(recipe.seed),
+            recipe.device, json.dumps(dict(
+                model=recipe.model, batch=recipe.batch, seq=recipe.seq,
+                vocab=recipe.vocab))]
+    producer, seen = Producer(), []
+    consumer = Consumer()
+    for kind in (WorkerExited, RecoveryTimeline):
+        consumer.register(kind, seen.append)
+    producer.register(consumer)
+    supervisor = Supervisor(argv, producer=producer, env={'PYTHONPATH': here},
+                            backoff_base=0.05, backoff_cap=0.2,
+                            crash_loop_window=0.0)
+    started = time.perf_counter()
+    exit_code = supervisor.run()
+    seconds = time.perf_counter() - started
+    records = [json.loads(line) for line in out_path.read_text().splitlines()]
+    losses = {r['step']: r['loss'] for r in records if 'step' in r}
+    resumes = [r for r in records if 'resumed' in r]
+    done = [r for r in records if r.get('done')]
+    disk = [r for r in records if 'disk_restore_s' in r]
+    timelines = [event for event in seen
+                 if isinstance(event, RecoveryTimeline)]
+    result = dict(
+        exit_code=exit_code,
+        exit_codes=[event.code for event in seen
+                    if isinstance(event, WorkerExited)],
+        restarts=supervisor.restarts, resume=resumes, disk_restore=disk,
+        losses=[losses.get(at) for at in range(1, RESILIENT_KILL_STEPS + 1)],
+        reference_losses=reference,
+        hot_bytes=max(r['hot_bytes'] for r in records if 'hot_bytes' in r),
+        detect_to_first_step_s=(timelines[0].seconds if timelines else None),
+        stages=(timelines[0].stages if timelines else None),
+        digest_equal=bool(done) and done[0]['digest'] == digest,
+        supervised_s=seconds)
+    result['losses_equal'] = result['losses'] == reference
+    if not (exit_code == 0 and resumes and resumes[0]['source'] == 'hot'
+            and resumes[0]['resumed'] == RESILIENT_DIE_AT
+            and result['losses_equal'] and result['digest_equal']):
+        fail(f'kill and hot relaunch: {result}')
+    return result
+
+
+def train_resilient(torch, seed: int, device: str = 'cuda',
+                    model: dict | None = None, **shape) -> dict:
+    """Phase 24: GPT-2 125M at phase 7's recipe through the resilient
+    trainer (``scan_layers``, ``build_multi_step``, the guard and the
+    ``Sentinel``, the ``Checkpointer``, a SIGKILL and a hot relaunch under
+    the ``Supervisor``); K1 and K2b launch in every in-process step."""
+    import tempfile
+
+    from tpusystem_torch.ops.cuda import flash
+    recipe = Recipe(torch, seed, device, model, **shape)
+    started = time.perf_counter()
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    for counter in counters:
+        counter.launches = 0
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = pathlib.Path(scratch)
+        result = dict(scan=scan_against_unrolled(recipe),
+                      multi=multi_against_single(recipe),
+                      guard=guard_drill(recipe),
+                      checkpoint=checkpoint_rollback(recipe,
+                                                     scratch / 'rollback'))
+        launches = {counter.__name__: counter.launches
+                    for counter in counters}
+        result['kill'] = kill_and_relaunch(recipe, scratch / 'kill')
+    for counter in counters:
+        counter.launches = 0                 # the reference run of (e)
+    result.update(launches=launches, seconds=time.perf_counter() - started)
+    if device == 'cuda' and not all(launches.values()):
+        fail(f'phase 24 launched no flash kernel: {launches}')
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -4536,6 +5097,8 @@ def main() -> None:
     print('serve-moe ' + json.dumps(moe_served))
     disagg = serve_disagg(torch, args.seed)
     print('serve-disagg ' + json.dumps(disagg))
+    resilient = train_resilient(torch, args.seed)
+    print('train-resilient ' + json.dumps(resilient))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -4569,7 +5132,8 @@ def main() -> None:
             + sum(spec_served[name]['launches']['flash_attention_lse']
                   for name in ('self-f1', 'self-f2', 'random'))
             + moe_served['launches']['flash_attention_lse']
-            + disagg['launches']['flash_attention_lse']),
+            + disagg['launches']['flash_attention_lse']
+            + resilient['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -4578,7 +5142,8 @@ def main() -> None:
                             trained['launches']['flash_bwd_fused']
                             + dropout_trained['launches']['flash_bwd_fused']
                             + moe_trained['launches']['flash_bwd_fused']
-                            + llama_trained['launches']['flash_bwd_fused']),
+                            + llama_trained['launches']['flash_bwd_fused']
+                            + resilient['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -4749,6 +5314,7 @@ def main() -> None:
              'verybasic': basic, 'serve_llama_narrow': narrow,
              'spec_generate': spec_generated, 'serve_spec': spec_served,
              'serve_moe': moe_served, 'serve_disagg': disagg,
+             'train_resilient': resilient,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -673,3 +673,48 @@ def test_phase_23_drives_the_control_plane_on_the_cpu(monkeypatch,
     assert all('decode_impl' in message or 'K4/K5 did not launch' in message
                or 'InferenceService built its engine on cpu' in message
                for message in failures), failures
+
+
+def test_phase_24_prints_after_the_control_plane_phase():
+    """Phase 24 prints its line after phase 23's, and the ``kernels`` and
+    ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('serve-disagg '") < source.index(
+        "print('train-resilient '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+
+
+def test_phase_24_drives_the_resilient_trainer_on_the_cpu(one_torch_thread):
+    """Phase 24's five parts at ``gpt2_tiny``'s widths on the CPU (bfloat16
+    activations, the flash kernels' plain versions): scanned equals
+    unrolled and multi-step equals single steps bit for bit, the NaN step
+    is suppressed with every slot frozen, the forced rollback repeats the
+    run, and the worker SIGKILLed under the Supervisor restores hot and
+    ends where the uninterrupted run ends, bit for bit. Nothing fails."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    model = dict(vocab_size=256, layers=2, dim=64, heads=4, max_seq=128,
+                 dropout=0.0, attention='flash', return_features=True)
+    result = chip_smoke.train_resilient(torch, 0, 'cpu', model, batch=2,
+                                        seq=33, vocab=256)
+    assert failures == []
+    assert result['scan']['losses_equal'] and result['scan']['params_equal']
+    assert result['multi']['bitwise_equal']
+    guard = result['guard']
+    assert all(guard['checks'].values()) and 6 in guard['flagged']
+    assert guard['adam_count'] == 12 - len(guard['flagged'])
+    checkpoint = result['checkpoint']
+    assert checkpoint['rolled_to'] == 4 and checkpoint['repeats_bitwise']
+    assert checkpoint['kept_after_rollback'] == [4]
+    assert len(checkpoint['commits']) == 3
+    kill = result['kill']
+    assert kill['exit_code'] == 0 and kill['exit_codes'] == [-9, 0]
+    assert kill['resume'][0]['source'] == 'hot'
+    assert kill['resume'][0]['resumed'] == 5
+    assert kill['disk_restore'][0]['disk_step'] == 8
+    assert kill['losses_equal'] and kill['digest_equal']
+    assert kill['hot_bytes'] > 0 and kill['detect_to_first_step_s'] > 0

@@ -880,3 +880,112 @@ def test_memstore_slots_read_corruption_as_absent(caplog):
     with caplog.at_level(logging.WARNING, 'tpusystem_torch.memstore'):
         assert store.fetch('x') is None
     assert 'digest' in caplog.text and store.identities() == []
+
+
+# ---------------------------------------------------------------------------
+# bf16 replay: the reference's design and the port's, side by side
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope='module')
+def bf16_pair():
+    """``gpt2_tiny`` in bfloat16 in both packages, on the same weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpusystem.models import gpt2_tiny as reference_tiny
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import gpt2_tiny
+    reference = reference_tiny(dtype='bfloat16')
+    prompt = jnp.asarray(np.random.default_rng(0).integers(0, 256, (1, 8)),
+                         jnp.int32)
+    params = reference.init(jax.random.PRNGKey(0), prompt)['params']
+    port = gpt2_tiny(dtype='bfloat16', device='cpu')
+    port.load_state_dict(params_from_jax(params))
+    return {REF.root: (reference, params),
+            PORT.root: (port, params_from_jax(params))}
+
+
+def _bf16_streams(P, pair, kill_tick):
+    """Eight seeded sampled requests (temperature 0.8) through ``P``'s
+    journaled replica; with ``kill_tick`` the replica is dropped after that
+    many ticks and a relaunched one replays its journal."""
+    module, params = pair[P.root]
+    knobs = dict(rows=4, block_size=8)
+    if P is PORT:
+        knobs['device'] = 'cpu'
+    build = lambda: P.Scheduler(P.Engine(module, params, **knobs))
+    store = P.MemStore()
+    replica = P.ServingReplica(build, identity='bf16', client=store,
+                               cadence=1)
+    rng = np.random.default_rng(5)
+    for index in range(8):
+        prompt = rng.integers(0, 256, (int(rng.integers(4, 12)),)).tolist()
+        replica.submit(P.Request(f'r{index}', prompt, 24,
+                                 sampling=P.SamplingParams(
+                                     seed=100 + index, temperature=0.8)))
+    if kill_tick is not None:
+        for _ in range(kill_tick):
+            replica.step()
+        replica = P.ServingReplica(build, identity='bf16', client=store,
+                                   cadence=1)
+        assert replica.recovered
+    return {name: [int(token) for token in completion.tokens]
+            for name, completion in replica.run_until_idle().items()}
+
+
+def test_bf16_replay_is_token_exact_on_the_cpu_in_both_packages(bf16_pair):
+    """The open question of the card's bf16 replay (a replayed row
+    re-prefills ``prompt + prefix``, where the uninterrupted run made the
+    prefix's KV one decode step at a time): on the CPU in bfloat16 the
+    reference's kill-and-replay and the port's are both token-exact
+    against each package's own uninterrupted run, at the same kill tick,
+    so the port's replay departs from the reference's nowhere the
+    reference can be run. The fork on the card comes from the card's
+    decode products (next test)."""
+    for P in BOTH:
+        whole = _bf16_streams(P, bf16_pair, None)
+        replayed = _bf16_streams(P, bf16_pair, 12)
+        assert replayed == whole, P.root
+
+
+def test_bf16_prefill_and_decode_make_the_same_kv_on_the_cpu(bf16_pair):
+    """Why replay holds on the CPU: in both packages a prefill of twelve
+    tokens and a prefill of six followed by six one-token decode steps
+    leave the same bfloat16 cache, bit for bit. Replay is token-exact
+    exactly when this holds; on the card the decode products run through
+    the decode matmul kernel, whose sums are ordered otherwise than the
+    prefill's, so the caches (and then the streams) may part."""
+    import jax
+    import jax.numpy as jnp
+    tokens = np.random.default_rng(0).integers(0, 256, (1, 12))
+    reference, params = bf16_pair[REF.root]
+    decoder = reference.clone(decode=True)
+
+    def reference_cache(split):
+        cache = decoder.init(jax.random.PRNGKey(0),
+                             jnp.asarray(tokens[:, :split]))['cache']
+        for start, stop in [(0, split)] + [(at, at + 1)
+                                           for at in range(split, 12)]:
+            _, mutated = decoder.apply(
+                {'params': params, 'cache': cache},
+                jnp.asarray(tokens[:, start:stop]), mutable=['cache'])
+            cache = mutated['cache']
+        return [np.asarray(leaf) for leaf in jax.tree.leaves(cache)]
+
+    for whole, split in zip(reference_cache(12), reference_cache(6)):
+        np.testing.assert_array_equal(whole, split)
+    port = bf16_pair[PORT.root][0].replace(decode=True)
+
+    def port_cache(split):
+        ids = torch.from_numpy(tokens)
+        with torch.no_grad():
+            _, cache = port(ids[:, :split])
+            for at in range(split, 12):
+                _, cache = port(ids[:, at:at + 1], cache)
+        return cache
+
+    whole, split = port_cache(12), port_cache(6)
+    assert whole.keys() == split.keys()
+    for name in whole:
+        assert torch.equal(whole[name], split[name]), name

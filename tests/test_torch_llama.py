@@ -512,9 +512,8 @@ def test_init_weights_draw_the_flax_distributions():
 
 def test_unported_options_name_their_roadmap_item(pairs):
     _, _, port, state = pairs['tiny']
-    for option, item in (({'scan_layers': True}, 'scan_layers'),
-                         ({'scan_unit': 2}, 'scan_layers'),
-                         ({'mesh': object()}, 'Multi-GPU parallelism'),
+    assert llama_tiny(device='cpu', scan_layers=True).scan_layers
+    for option, item in (({'mesh': object()}, 'Multi-GPU parallelism'),
                          ({'schedule': object()}, 'Multi-GPU parallelism'),
                          ({'attention': 'ring'}, 'Multi-GPU parallelism')):
         with pytest.raises(NotImplementedError, match=item):

@@ -133,12 +133,15 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """``remat``, training-time dropout and MoE decoding are ported;
-    ``scan_layers`` and sequence-parallel attention still name their item.
-    A training forward with dropout needs the step's threefry key."""
-    for option in ({'scan_layers': True}, {'attention': 'ring'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            gpt2_tiny(device='cpu', **option)
+    """``remat``, training-time dropout, MoE decoding and ``scan_layers``
+    are ported; sequence-parallel attention still names its item, and so
+    does a scanned training forward with dropout. A training forward with
+    dropout needs the step's threefry key."""
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        gpt2_tiny(device='cpu', attention='ring')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        gpt2_tiny(device='cpu', scan_layers=True, dropout=0.1)(
+            torch.zeros((1, 4), dtype=torch.long), train=True, rng=(0, 1))
     assert gpt2_tiny(device='cpu', remat=True).remat
     assert gpt2_tiny(device='cpu', moe_experts=2, decode=True).decode
     module = GPT2(vocab_size=32, layers=1, dim=16, heads=2, max_seq=16,

@@ -295,10 +295,21 @@ def test_speculative_sampling_is_deterministic_per_key(gpt2_pair):
 
 def test_speculative_decode_on_scanned_target_names_its_item():
     """``test_generate.py:277`` runs speculation on a ``scan_layers``
-    target; the port has no scanned stacks yet, and building one raises
-    naming its ROADMAP item (7, scan_layers)."""
-    with pytest.raises(NotImplementedError, match='queue 1: scan_layers'):
-        gpt2_tiny(dtype='float32', layers=4, scan_layers=True, device='cpu')
+    target. The port's scanned stacks landed with ROADMAP item 7: the
+    stacked per-row cursors rewind together and the output is the target's
+    own greedy decode (the twin against the reference is
+    ``tests/test_torch_scan.py``)."""
+    target = gpt2_tiny(dtype='float32', layers=4, scan_layers=True,
+                       device='cpu')
+    draft = gpt2_tiny(dtype='float32', layers=1, dim=32, heads=2,
+                      device='cpu')
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 8)))
+    want = generate(target, None, tokens, steps=12, device='cpu')
+    got = speculative_generate(target, None, tokens, steps=12,
+                               draft_module=draft, draft_params=None,
+                               speculate=3, device='cpu')
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_batched_speculative_matches_batch1_trajectories_row_wise(gpt2_pair):

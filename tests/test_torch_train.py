@@ -361,15 +361,13 @@ def test_unported_training_options_name_their_roadmap_item():
     module = gpt2_tiny(dtype='float32', device='cpu')
     apply, criterion = ttrain.module_apply(module), ttrain.NextTokenLoss()
     optimizer = ttrain.SGD()
-    for option in ({'guard': object()}, {'fault': object()}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ttrain.build_train_step(apply, criterion, optimizer, **option)
-    for builder in (ttrain.build_multi_step, ttrain.build_1f1b_train_step):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            builder(None)
+    # guard=, fault=, build_multi_step and TrainState.health are ported
+    # (tests/test_torch_sentinel.py); the pipelined step still names its item
+    assert ttrain.build_train_step(apply, criterion, optimizer,
+                                   guard=ttrain.Guard(), fault=None)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ttrain.build_1f1b_train_step(None)
     state = ttrain.init_state(module, optimizer)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        state.health
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ttrain.TrainState.create(state.params, {}, health=object())
+    assert state.health is None
+    assert ttrain.Guard().arm(state).health.lr_scale == 1.0
     assert state.step.dtype == torch.int32 and state.global_step == 0

@@ -8,7 +8,12 @@ key ``h_0.attn.qkv.kernel`` (a DLRM's ``table_3/embedding`` becomes
 ``user_tower.fc_0.kernel``). One exception: a dense layer flax names itself
 (``Dense_{i}``, the MLP's) is a ``torch.nn.Linear`` in the port, so its
 ``[in, out]`` kernel becomes ``Dense_{i}.weight``, transposed to
-``[out, in]``. Leaves arrive as numpy arrays (or anything ``numpy.asarray``
+``[out, in]``. A scanned model's stacked tree maps the same way: ``hs/attn/
+qkv/kernel`` of shape ``[layers, in, out]`` is the stacked parameter
+``hs.attn.qkv.kernel`` of the port's ``GPT2(scan_layers=True)``, an MoE or
+``scan_unit`` span's ``hs/d_0/...`` and ``hs/moe_1/moe/w1`` are
+``hs.d_0....`` and ``hs.moe_1.moe.w1``, and Llama's ``blocks/...`` is
+``blocks....`` (:mod:`tpusystem_torch.models.scan`). Leaves arrive as numpy arrays (or anything ``numpy.asarray``
 takes), so this module needs no JAX.
 """
 

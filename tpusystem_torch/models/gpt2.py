@@ -41,8 +41,19 @@ embeddings' ``Dropout_0``, each block's ``Dropout_0`` (attention output) and
 follows ``dropout``), the attention probabilities from ``attn``'s key,
 inside the flash kernels on ``'flash'``. The keys are derived on the host
 before any block runs, so a recomputed block draws the masks it drew the
-first time. Not ported yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``scan_layers`` and ring/ulysses attention.
+first time.
+
+``scan_layers=True`` holds the blocks as one template whose parameters are
+stacked at a leading layer dimension under ``hs`` (``hs.attn.qkv.kernel`` is
+``[layers, in, out]``), the reference's ``nn.scan`` layout, applied layer by
+layer (:mod:`tpusystem_torch.models.scan`). With ``moe_experts`` (or
+``scan_unit > 1``) the template is a :class:`BlockSpan` of ``d_{i}`` and
+``moe_{i}`` blocks, stacked per span. Decode mode stacks the caches too
+(``hs/attn/key`` is ``[layers, batch, max_seq, heads, head_dim]``). A
+scanned training forward with dropout raises ``NotImplementedError``: the
+reference's per-layer keys come from ``nn.scan``'s ``split_rngs``, which the
+port does not derive. Ring and ulysses attention raise too (ROADMAP queue
+1, 9. Multi-GPU parallelism).
 
 An MoE model decodes too (``decode=True``): its expert layers dispatch at
 full capacity, as the reference's do (``gpt2.py:150-153``), and the
@@ -61,6 +72,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
+from tpusystem_torch.models.scan import (apply_unit, init_stacked,
+                                         layer_slices, restack_caches,
+                                         stack_parameters, unit_cache)
 from tpusystem_torch.ops.attention import (apply_dropout, attend,
                                           cached_attention)
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
@@ -169,6 +183,52 @@ class Block(nn.Module):
         return hidden + apply_dropout(self.proj(grown, dtype), rate, keys[1])
 
 
+class BlockSpan(nn.Module):
+    """``span`` consecutive blocks (``tpusystem/models/gpt2.py:207``), the
+    unit a scanned MoE or ``scan_unit`` stack repeats: with ``moe`` block
+    ``i`` is MoE iff ``i % moe_every == moe_every - 1`` (named ``moe_{i}``,
+    dense ones ``d_{i}``). ``attentions`` maps each block's name to its
+    attention function. Returns ``hidden``, or ``(hidden, aux)`` with the
+    mean router loss of the span's MoE blocks."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: int, span: int, *,
+                 device, moe: dict | None = None, moe_every: int = 2) -> None:
+        super().__init__()
+        self.names = []
+        for index in range(span):
+            is_moe = moe is not None and index % moe_every == moe_every - 1
+            name = f'moe_{index}' if is_moe else f'd_{index}'
+            self.add_module(name, Block(dim, heads, mlp_ratio, device=device,
+                                        moe=moe if is_moe else None))
+            self.names.append(name)
+
+    def forward(self, hidden, dtype, attentions: dict, rate: float = 0.0):
+        aux_terms = []
+        for name in self.names:
+            block = getattr(self, name)
+            out = block(hidden, dtype, attentions[name], rate)
+            if block.moe is not None:
+                hidden, aux = out
+                aux_terms.append(aux)
+            else:
+                hidden = out
+        if not aux_terms:
+            return hidden
+        return hidden, torch.stack(aux_terms).mean()
+
+
+def _clone_moe(block: Block, layer_updates: dict) -> Block:
+    """A shallow clone of an MoE block whose expert layer reads other mode
+    fields (the parameters stay shared)."""
+    block = copy.copy(block)
+    layer = copy.copy(block.moe)
+    layer._parameters = dict(layer._parameters)
+    for field, value in layer_updates.items():
+        setattr(layer, field, value)
+    block._modules = dict(block._modules, moe=layer)
+    return block
+
+
 # GPT2 field -> the MoEMLP setting it governs; decode mode dispatches at
 # full capacity (capacity = the call's token count), so routing drops no
 # token and a row's experts never depend on its co-batched neighbours
@@ -205,7 +265,7 @@ class GPT2(nn.Module):
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'attn_dropout', 'remat',
-              'scan_layers',
+              'scan_layers', 'scan_unit',
               'return_features', 'decode', 'per_row_decode', 'decode_pages',
               'moe_experts', 'moe_every', 'moe_k', 'moe_capacity_factor',
               'moe_sparse_impl')
@@ -216,6 +276,7 @@ class GPT2(nn.Module):
                  dtype: str = 'bfloat16', attention: str = 'xla',
                  attn_dropout: float | None = None,
                  remat: bool = False, scan_layers: bool = False,
+                 scan_unit: int = 1,
                  return_features: bool = False, decode: bool = False,
                  per_row_decode: bool = False,
                  decode_pages: tuple | None = None, moe_experts: int = 0,
@@ -223,8 +284,6 @@ class GPT2(nn.Module):
                  moe_capacity_factor: float = 1.25,
                  moe_sparse_impl: str = 'gather', device=None) -> None:
         super().__init__()
-        if scan_layers:
-            raise _not_ported('scan_layers', 'scan_layers')
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               'multi-GPU parallelism')
@@ -234,6 +293,7 @@ class GPT2(nn.Module):
         self.dropout, self.dtype, self.attention = dropout, dtype, attention
         self.attn_dropout = attn_dropout
         self.remat, self.scan_layers, self.decode = remat, scan_layers, decode
+        self.scan_unit = scan_unit
         self.return_features = return_features
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
         self.moe_experts, self.moe_every, self.moe_k = (moe_experts,
@@ -246,10 +306,20 @@ class GPT2(nn.Module):
         moe = dict(experts=moe_experts, **{
             layer_field: getattr(self, field)
             for field, layer_field in MOE_LAYER_FIELDS.items()})
-        for index in range(layers):
-            self.add_module(f'h_{index}', Block(
-                dim, heads, mlp_ratio, device=device,
-                moe=moe if self.is_moe(index) else None))
+        if scan_layers:
+            span = self.scan_span()
+            template = (BlockSpan(dim, heads, mlp_ratio, span, device=device,
+                                  moe=moe if moe_experts else None,
+                                  moe_every=moe_every) if span
+                        else Block(dim, heads, mlp_ratio, device=device))
+            self.stacked_names = stack_parameters(template,
+                                            layers // max(span, 1))
+            self.hs = template
+        else:
+            for index in range(layers):
+                self.add_module(f'h_{index}', Block(
+                    dim, heads, mlp_ratio, device=device,
+                    moe=moe if self.is_moe(index) else None))
         self.ln_f = LayerNorm(dim, device=device)
         self.init_weights(torch.Generator(device).manual_seed(0))
 
@@ -264,6 +334,37 @@ class GPT2(nn.Module):
     def blocks(self):
         return [getattr(self, f'h_{index}') for index in range(self.layers)]
 
+    def scan_span(self) -> int:
+        """Layers per scanned unit: 0 for one plain block, else the
+        :class:`BlockSpan`'s size (``scan_unit``, or ``moe_every`` for an
+        MoE stack), with the reference's ``ValueError`` s
+        (``gpt2.py:378-406``) when it does not divide ``layers``."""
+        if self.moe_experts:
+            span = self.scan_unit if self.scan_unit > 1 else self.moe_every
+            if span % self.moe_every:
+                raise ValueError(
+                    f'scan_unit ({span}) must be a multiple of moe_every '
+                    f'({self.moe_every}) so each scanned span carries whole '
+                    f'MoE groups')
+            if self.layers % span:
+                raise ValueError(
+                    f'scan_layers with moe_experts needs layers '
+                    f'({self.layers}) divisible by the span ({span})')
+            return span
+        if self.scan_unit > 1:
+            if self.layers % self.scan_unit:
+                raise ValueError(f'scan_unit={self.scan_unit} must divide '
+                                 f'layers ({self.layers})')
+            return self.scan_unit
+        return 0
+
+    def scan_prefixes(self) -> list[tuple[str | None, str]]:
+        """``(block name in the span, cache prefix)`` of each block of the
+        scanned unit (``None`` for a plain block template)."""
+        if isinstance(self.hs, BlockSpan):
+            return [(name, f'hs/{name}/attn') for name in self.hs.names]
+        return [(None, 'hs/attn')]
+
     def is_moe(self, index: int) -> bool:
         """Whether block ``index`` carries the expert FFN."""
         return (self.moe_experts > 0
@@ -275,20 +376,23 @@ class GPT2(nn.Module):
         lecun-normal kernels (std ``fan_in ** -0.5``), embeddings with std
         0.02; biases 0, layernorm scales 1; MoE weights as
         :func:`~tpusystem_torch.ops.moe.init_parameter` draws them."""
-        for name, param in self.named_parameters():
-            leaf = name.rsplit('.', 1)[-1]
+        def draw(name, leaf, param):
             if '.moe.' in name:
                 init_parameter(leaf, param, generator)
-                continue
+                return
             if leaf == 'kernel':
                 std = param.shape[0] ** -0.5
             elif leaf == 'embedding':
                 std = EMBED_STD
             else:
                 param.fill_(1.0 if leaf == 'scale' else 0.0)
-                continue
+                return
             param.copy_(torch.randn(param.shape, generator=generator,
                                     device=generator.device) * std)
+
+        for name, param in self.named_parameters():
+            leaf = name.rsplit('.', 1)[-1]
+            init_stacked(param, functools.partial(draw, name, leaf))
 
     def replace(self, **updates) -> 'GPT2':
         """A clone with other mode fields (``dataclasses.replace`` on the
@@ -310,16 +414,18 @@ class GPT2(nn.Module):
                          if name in MOE_LAYER_FIELDS}
         if self.moe_experts and layer_updates:
             clone._modules = dict(self._modules)
-            for index in range(self.layers):
+            if self.scan_layers:
+                span = copy.copy(self.hs)
+                span._modules = {
+                    name: (_clone_moe(block, layer_updates)
+                           if block.moe is not None else block)
+                    for name, block in self.hs._modules.items()}
+                clone._modules['hs'] = span
+            for index in range(0 if self.scan_layers else self.layers):
                 if self.is_moe(index):
                     name = f'h_{index}'
-                    block = copy.copy(self._modules[name])
-                    layer = copy.copy(block.moe)
-                    layer._parameters = dict(layer._parameters)
-                    for field, value in layer_updates.items():
-                        setattr(layer, field, value)
-                    block._modules = dict(block._modules, moe=layer)
-                    clone._modules[name] = block
+                    clone._modules[name] = _clone_moe(self._modules[name],
+                                                      layer_updates)
         return clone
 
     def init_cache(self, batch: int, device=None) -> dict:
@@ -330,6 +436,17 @@ class GPT2(nn.Module):
         dtype = self.compute_dtype
         index = torch.zeros(batch, dtype=torch.int32, device=device)
         cache = {'position': index}
+        if self.scan_layers:
+            # stacked strips: a leading unit dimension per span position
+            units = self.layers // max(self.scan_span(), 1)
+            shape = (units, batch, self.max_seq, self.heads, head_dim)
+            for _, prefix in self.scan_prefixes():
+                cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
+                                                     device=device)
+                cache[prefix + '/value'] = torch.zeros(shape, dtype=dtype,
+                                                       device=device)
+                cache[prefix + '/index'] = index.expand(units, batch)
+            return cache
         for layer in range(self.layers):
             prefix = f'h_{layer}/attn'
             if self.decode_pages:
@@ -391,6 +508,12 @@ class GPT2(nn.Module):
             cache['position'] = offset + length
         else:
             positions = steps
+        if self.scan_layers and (rate or attn_rate):
+            raise NotImplementedError(
+                'a scan_layers training forward with dropout is not ported '
+                'to tpusystem_torch yet: the per-layer keys of nn.scan\'s '
+                "split_rngs are not derived (ROADMAP queue 1: 7. Train-step "
+                'remainders)')
         # every mask's key, derived before any block runs (see the docstring)
         embed_key, block_keys = (dropout_keys(rng, self.layers)
                                  if rate or attn_rate
@@ -399,7 +522,11 @@ class GPT2(nn.Module):
                                embed_key).to(dtype)
         aux_losses = []
         remat = self.remat and not self.decode and torch.is_grad_enabled()
-        for index, block in enumerate(self.blocks()):
+        if self.scan_layers:
+            hidden, aux_losses = self._scanned(hidden, dtype, cache, depth,
+                                               remat)
+        for index, block in enumerate(() if self.scan_layers
+                                      else self.blocks()):
             attn_key, *output_keys = block_keys[index]
             if self.decode:
                 attention = functools.partial(
@@ -418,6 +545,10 @@ class GPT2(nn.Module):
                 aux_losses.append(aux)
         features = self.ln_f(hidden).to(dtype)
         table = self.wte.embedding.to(dtype)
+        if self.scan_layers and aux_losses:
+            # the reference's scanned aux: the mean over spans of each
+            # span's mean router loss
+            aux_losses = [torch.stack(aux_losses).mean()]
         if self.return_features:
             # the criterion owns the head: the [batch * seq, vocab] float32
             # logits never form (ChunkedNextTokenLoss)
@@ -431,6 +562,35 @@ class GPT2(nn.Module):
                    else features.new_zeros((), dtype=torch.float32))
             return outputs, aux
         return (outputs, cache) if self.decode else outputs
+
+
+    def _scanned(self, hidden, dtype, cache, depth, remat):
+        """The scanned stack: the template applied to each unit's parameter
+        slices (one ``unbind`` a parameter); in decode mode each unit reads
+        and writes its slice of the stacked caches."""
+        template, prefixes = self.hs, self.scan_prefixes()
+        strips: dict[str, list] = {}
+        aux_terms = []
+        for unit, slices in enumerate(layer_slices(template,
+                                                   self.stacked_names)):
+            attentions = {}
+            for name, prefix in prefixes:
+                attentions[name] = (functools.partial(
+                    cached_attention, cache=unit_cache(cache, prefix, unit,
+                                                       strips),
+                    prefix=prefix, max_seq=self.max_seq,
+                    per_row=self.per_row_decode, pages=self.decode_pages,
+                    depth=depth) if self.decode else functools.partial(
+                        attend, kernel=self.attention))
+            span = isinstance(template, BlockSpan)
+            hidden = apply_unit(template, self.stacked_names, slices, hidden,
+                                (dtype, attentions if span
+                                 else attentions[None]), remat)
+            if isinstance(hidden, tuple):
+                hidden, aux = hidden
+                aux_terms.append(aux)
+        restack_caches(cache, strips)
+        return hidden, aux_terms
 
 
 register(GPT2, excluded_kwargs={'device'})

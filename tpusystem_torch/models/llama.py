@@ -32,9 +32,13 @@ backward K2b for GQA (K2a for MHA past 1,024 keys), at head dims 16 to
 128; ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat``).
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``scan_layers`` / ``scan_unit``, and the multi-device knobs ``mesh``
-and ``schedule``.
+``scan_layers=True`` holds the blocks as one template whose parameters are
+stacked at a leading layer dimension under ``blocks`` (``blocks.attn.q.
+kernel`` is ``[layers, dim, dim]``), the reference's layout; ``scan_unit >
+1`` stacks :class:`LlamaBlockSpan` s of ``d_{i}`` blocks. Decode mode stacks
+the caches too (:mod:`tpusystem_torch.models.scan`). The multi-device knobs
+``mesh`` and ``schedule`` raise ``NotImplementedError`` (ROADMAP queue 1,
+9. Multi-GPU parallelism).
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
 from tpusystem_torch.models.gpt2 import Dense, Embed
+from tpusystem_torch.models.scan import (apply_unit, init_stacked,
+                                         layer_slices, restack_caches,
+                                         stack_parameters, unit_cache)
 from tpusystem_torch.ops.attention import attend, cached_attention
 from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.registry import register
@@ -177,6 +184,28 @@ class LlamaBlock(nn.Module):
         return hidden + self.down(gated, dtype)
 
 
+class LlamaBlockSpan(nn.Module):
+    """``span`` consecutive :class:`LlamaBlock` s named ``d_{i}``
+    (``tpusystem/models/llama.py:220``), the unit of a ``scan_unit`` stack.
+    ``attentions`` and ``positions`` map each block's name to its attention
+    function and rotary positions."""
+
+    def __init__(self, dim: int, heads: int, kv_heads: int, ffn_dim: int,
+                 span: int, *, device) -> None:
+        super().__init__()
+        self.names = [f'd_{index}' for index in range(span)]
+        for name in self.names:
+            self.add_module(name, LlamaBlock(dim, heads, kv_heads, ffn_dim,
+                                             device=device))
+
+    def forward(self, hidden, dtype, attentions: dict, positions: dict,
+                rope_theta: float):
+        for name in self.names:
+            hidden = getattr(self, name)(hidden, dtype, attentions[name],
+                                         positions[name], rope_theta)
+        return hidden
+
+
 class Llama(nn.Module):
     """Llama-3-style decoder-only transformer.
 
@@ -189,7 +218,8 @@ class Llama(nn.Module):
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'kv_heads', 'ffn_dim',
               'max_seq', 'rope_theta', 'dtype', 'attention', 'remat',
-              'return_features', 'decode', 'per_row_decode', 'decode_pages')
+              'scan_layers', 'scan_unit', 'return_features', 'decode',
+              'per_row_decode', 'decode_pages')
 
     def __init__(self, vocab_size: int = 128_256, layers: int = 32,
                  dim: int = 4096, heads: int = 32, kv_heads: int = 8,
@@ -202,8 +232,9 @@ class Llama(nn.Module):
                  decode_pages: tuple | None = None, schedule=None,
                  device=None) -> None:
         super().__init__()
-        if scan_layers or scan_unit != 1:
-            raise _not_ported('scan_layers / scan_unit', 'scan_layers')
+        if scan_layers and scan_unit > 1 and layers % scan_unit:
+            raise ValueError(f'scan_unit={scan_unit} must divide layers '
+                             f'({layers})')
         if mesh is not None:
             raise _not_ported('a device mesh (mesh=)',
                               '9. Multi-GPU parallelism')
@@ -220,12 +251,23 @@ class Llama(nn.Module):
         self.dtype, self.attention, self.remat = dtype, attention, remat
         self.return_features, self.decode = return_features, decode
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
+        self.scan_layers, self.scan_unit = scan_layers, scan_unit
         compute_dtype(dtype)                               # validates
         self.embed = Embed(vocab_size, dim, device=device)
-        for index in range(layers):
-            self.add_module(f'layer_{index}', LlamaBlock(
-                dim, heads, kv_heads, ffn_dim, device=device,
-                schedule=schedule))
+        if scan_layers:
+            template = (LlamaBlockSpan(dim, heads, kv_heads, ffn_dim,
+                                       scan_unit, device=device)
+                        if scan_unit > 1 else
+                        LlamaBlock(dim, heads, kv_heads, ffn_dim,
+                                   device=device, schedule=schedule))
+            self.stacked_names = stack_parameters(
+                template, layers // max(scan_unit, 1))
+            self.blocks = template
+        else:
+            for index in range(layers):
+                self.add_module(f'layer_{index}', LlamaBlock(
+                    dim, heads, kv_heads, ffn_dim, device=device,
+                    schedule=schedule))
         self.final_norm = RMSNorm(dim, device=device)
         self.lm_head = _HeadKernel(dim, vocab_size, device=device)
         self.init_weights(torch.Generator(device).manual_seed(0))
@@ -242,9 +284,19 @@ class Llama(nn.Module):
     def head_dim(self) -> int:
         return self.dim // self.heads
 
-    def blocks(self):
+    def layer_blocks(self):
+        """The unrolled blocks, ``layer_{i}`` (``blocks`` is the scanned
+        template's name, the reference's)."""
         return [getattr(self, f'layer_{index}')
                 for index in range(self.layers)]
+
+    def scan_prefixes(self) -> list[tuple[str | None, str]]:
+        """``(block name in the span, cache prefix)`` of each block of the
+        scanned unit (``None`` for a plain block template)."""
+        template = self.blocks
+        if isinstance(template, LlamaBlockSpan):
+            return [(name, f'blocks/{name}/attn') for name in template.names]
+        return [(None, 'blocks/attn')]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -252,8 +304,7 @@ class Llama(nn.Module):
         the flax initialisers draw them: kernels ``lecun_normal`` (a normal
         truncated at +-2, variance ``1 / fan_in``), the embedding
         ``nn.Embed``'s normal with std ``dim ** -0.5``, RMSNorm scales 1."""
-        for name, param in self.named_parameters():
-            leaf = name.rsplit('.', 1)[-1]
+        def draw(leaf, param):
             if leaf == 'scale':
                 param.fill_(1.0)
             elif leaf == 'embedding':
@@ -266,7 +317,10 @@ class Llama(nn.Module):
                                       generator=generator)
                 param.copy_(values * (param.shape[0] ** -0.5
                                       / TRUNCATED_STD))
-                del values
+
+        for name, param in self.named_parameters():
+            init_stacked(param, functools.partial(
+                draw, name.rsplit('.', 1)[-1]))
 
     def replace(self, **updates) -> 'Llama':
         """A clone with other mode fields (``dataclasses.replace`` on the
@@ -288,6 +342,17 @@ class Llama(nn.Module):
         dtype = self.compute_dtype
         index = torch.zeros(batch, dtype=torch.int32, device=device)
         cache = {}
+        if self.scan_layers:
+            units = self.layers // max(self.scan_unit, 1)
+            shape = (units, batch, self.max_seq, self.kv_heads,
+                     self.head_dim)
+            for _, prefix in self.scan_prefixes():
+                cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
+                                                     device=device)
+                cache[prefix + '/value'] = torch.zeros(shape, dtype=dtype,
+                                                       device=device)
+                cache[prefix + '/index'] = index.expand(units, batch)
+            return cache
         for layer in range(self.layers):
             prefix = f'layer_{layer}/attn'
             if self.decode_pages:
@@ -325,11 +390,16 @@ class Llama(nn.Module):
         if self.decode:
             cache = {} if cache is None else cache
             if depth is None:
-                cursor = cache.get('layer_0/attn/index')
+                first = (self.scan_prefixes()[0][1] if self.scan_layers
+                         else 'layer_0/attn')
+                cursor = cache.get(first + '/index')
                 depth = 0 if cursor is None else int(cursor.max())
         hidden = self.embed(tokens).to(dtype)
         remat = self.remat and not self.decode and torch.is_grad_enabled()
-        for index, block in enumerate(self.blocks()):
+        if self.scan_layers:
+            hidden = self._scanned(hidden, dtype, cache, depth, remat, steps)
+        for index, block in enumerate(() if self.scan_layers
+                                      else self.layer_blocks()):
             if self.decode:
                 prefix = f'layer_{index}/attn'
                 # rotary at absolute positions: this layer's cursor before
@@ -357,6 +427,40 @@ class Llama(nn.Module):
         else:
             outputs = head_logits(features, table, tied=False)
         return (outputs, cache) if self.decode else outputs
+
+
+    def _scanned(self, hidden, dtype, cache, depth, remat, steps):
+        """The scanned stack (see ``GPT2._scanned``); rotary positions from
+        each block's own cursor slice."""
+        template, prefixes = self.blocks, self.scan_prefixes()
+        strips: dict[str, list] = {}
+        for unit, slices in enumerate(layer_slices(template,
+                                                   self.stacked_names)):
+            attentions, positions = {}, {}
+            for name, prefix in prefixes:
+                if self.decode:
+                    view = unit_cache(cache, prefix, unit, strips)
+                    cursor = view.get(prefix + '/index')
+                    if cursor is None:
+                        cursor = torch.zeros(hidden.shape[0],
+                                             dtype=torch.int32,
+                                             device=hidden.device)
+                    positions[name] = cursor[:, None].long() + steps[None, :]
+                    attentions[name] = functools.partial(
+                        cached_attention, cache=view, prefix=prefix,
+                        max_seq=self.max_seq, per_row=self.per_row_decode,
+                        pages=self.decode_pages, depth=depth)
+                else:
+                    positions[name] = steps
+                    attentions[name] = functools.partial(
+                        attend, kernel=self.attention)
+            if not isinstance(template, LlamaBlockSpan):
+                attentions, positions = attentions[None], positions[None]
+            hidden = apply_unit(template, self.stacked_names, slices, hidden,
+                                (dtype, attentions, positions,
+                                 self.rope_theta), remat)
+        restack_caches(cache, strips)
+        return hidden
 
 
 register(Llama, excluded_kwargs={'mesh', 'device'})

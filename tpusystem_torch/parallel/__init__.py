@@ -1,7 +1,7 @@
 """Parallelism and recovery: the port of :mod:`tpusystem.parallel`, as far
-as one process goes (the one-process control plane and the recovery
-policy). Meshes, sharding, collectives, pipelines, the TCP control plane,
-the supervisor and elastic resizing are ROADMAP queue 1 items 8 and 9."""
+as one process goes (the one-process control plane, the recovery policy and
+the :class:`Supervisor`). Meshes, sharding, collectives, pipelines, the TCP
+control plane and elastic resizing are ROADMAP queue 1 item 9."""
 
 from tpusystem_torch.parallel.multihost import (
     BLOB_CHUNK, BlobError, DistributedProducer, DistributedPublisher,
@@ -15,6 +15,7 @@ from tpusystem_torch.parallel.recovery import (CRASH_LOOP_EXIT, DIVERGED_EXIT,
                                                WorldResizedError,
                                                exit_for_restart,
                                                recovery_consumer)
+from tpusystem_torch.parallel.supervisor import Supervisor
 
 __all__ = ['World', 'world', 'agree', 'Loopback',
            'DistributedProducer', 'DistributedPublisher',
@@ -23,4 +24,4 @@ __all__ = ['World', 'world', 'agree', 'Loopback',
            'Preempted', 'PREEMPTED_EXIT', 'RESTART_EXITS', 'exit_for_restart',
            'DivergenceError', 'DIVERGED_EXIT', 'CRASH_LOOP_EXIT',
            'RESIZED_EXIT', 'WorldResizedError',
-           'FAILURE_EXIT', 'BlobError', 'BLOB_CHUNK']
+           'FAILURE_EXIT', 'BlobError', 'BLOB_CHUNK', 'Supervisor']

@@ -10,13 +10,15 @@ Copied as they are from the reference:
   at a chosen step (in-process: a raise; cross-process: ``os._exit``);
 * :class:`StalledStep` — a scripted serving-step stall at a chosen tick,
   the wedge the step watchdog turns into ``EngineStalled``;
-* :class:`PreemptionWave` — several kills fired together at one step.
+* :class:`PreemptionWave` — several kills fired together at one step;
+* the divergence drills, on tensors: :class:`CorruptGrads` (the train
+  step's ``fault=`` seam: NaN, Inf or a spike from a step, decided on the
+  card), :class:`CorruptBatch` (a window of the batch stream) and
+  :class:`FlipParamBit` (one bit of one element, in place).
 
 Not ported yet: ``Faults``, ``ChaosTransport`` and ``ChaosHub`` wrap the
 TCP transport and hub (ROADMAP queue 1, 9. Multi-GPU parallelism);
-``CorruptGrads``, ``CorruptBatch`` and ``FlipParamBit`` hurt a train step
-(8. Checkpoint, recovery, guard and Sentinel); ``TenantChaosPick`` and
-``pick_tenant_chaos`` serve the orchestrator (10).
+``TenantChaosPick`` and ``pick_tenant_chaos`` serve the orchestrator (10).
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import os
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
+
+import torch
 
 __all__ = ['ChaosPick', 'pick_chaos', 'WorkerKilled', 'DieAtStep',
-           'StalledStep', 'PreemptionWave']
+           'StalledStep', 'PreemptionWave', 'CorruptGrads', 'CorruptBatch',
+           'FlipParamBit']
 
 
 @dataclass(frozen=True)
@@ -179,3 +184,114 @@ class PreemptionWave:
             if index and self.stagger:
                 self.sleep(self.stagger)
             kill()
+
+
+# ---------------------------------------------------------------------------
+# internal faults: the divergence-sentinel drill kinds
+#
+# DieAtStep simulates the process failing as a unit; these simulate the
+# *numerics* failing while the process lives — the faults the guard and the
+# Sentinel ladder (tpusystem_torch.train.sentinel) must absorb.
+# Deterministic (step-indexed, not sampled), so every drill is replayable.
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, value) for value in tree)
+    return fn(tree)
+
+
+@dataclass
+class CorruptGrads:
+    """Gradient corruption over a step window, decided on the card.
+
+    Pass as ``build_train_step(..., fault=CorruptGrads(step=k))``: it fires
+    when the step being computed (1-based, ``state.step + 1``, a tensor)
+    falls in ``[step, step + steps)``, selected with ``torch.where`` so no
+    host read happens. Keyed on the *step counter*, the fault refires if a
+    rollback rewinds the counter into the window; use :class:`CorruptBatch`
+    for data-borne corruption that a skip-window escapes.
+
+    Modes: ``'nan'`` / ``'inf'`` poison every gradient leaf; ``'spike'``
+    scales the gradients by ``scale`` — finite, so only the EMA z-score
+    detector catches it.
+    """
+
+    step: int
+    steps: int = 1
+    mode: str = 'nan'     # 'nan' | 'inf' | 'spike'
+    scale: float = 1e4
+
+    def __call__(self, current_step, grads, loss):
+        fire = ((current_step >= self.step)
+                & (current_step < self.step + self.steps))
+        if self.mode == 'spike':
+            corrupt = lambda leaf: leaf * self.scale
+        elif self.mode in ('nan', 'inf'):
+            bad = float('nan') if self.mode == 'nan' else float('inf')
+            corrupt = lambda leaf: torch.full_like(leaf, bad)
+        else:
+            raise ValueError(f"mode must be 'nan', 'inf' or 'spike', "
+                             f'got {self.mode!r}')
+        return _map(lambda leaf: torch.where(fire, corrupt(leaf), leaf),
+                    grads), loss
+
+
+@dataclass
+class CorruptBatch:
+    """Host-side data corruption of a window of the batch *stream*: the
+    ``batch``-th through ``batch + steps - 1``-th batches fed through this
+    injector (1-based count of calls) have their floating leaves replaced
+    by ``value``; integer leaves are left alone. Keyed on the data stream,
+    not the step counter, so after a rollback's skip-window the poisoned
+    batches are never consumed again::
+
+        for inputs, targets in loader:
+            inputs = corrupt(inputs)
+            state, (_, loss) = step(state, inputs, targets)
+    """
+
+    batch: int
+    steps: int = 1
+    value: float = float('nan')
+    fed: int = field(default=0, init=False)
+
+    def __call__(self, batch_tree: Any) -> Any:
+        self.fed += 1
+        if not (self.batch <= self.fed < self.batch + self.steps):
+            return batch_tree
+
+        def poison(leaf):
+            leaf = torch.as_tensor(leaf)
+            if leaf.is_floating_point():
+                return torch.full_like(leaf, self.value)
+            return leaf
+        return _map(poison, batch_tree)
+
+
+@dataclass
+class FlipParamBit:
+    """Silent data corruption: flip bit ``bit`` (LSB-first within the
+    element's bytes) of the element at flat ``index`` of parameter leaf
+    ``leaf`` (its position in the state dict's order), in place, through an
+    integer view of the tensor. The reference flips it on one replica of a
+    mesh axis (``replica``, ``axis``); on one device the tensor is the
+    replica. ``__call__(params, mesh=None)`` returns ``params``."""
+
+    replica: int = 0
+    leaf: int = 0
+    index: int = 0
+    bit: int = 0
+    axis: str = 'data'
+
+    @torch.no_grad()
+    def __call__(self, params: Any, mesh: Any = None) -> Any:
+        leaves = list(params.values()) if isinstance(params, dict) \
+            else list(params)
+        target = leaves[self.leaf]
+        raw = target.view(-1).view(torch.uint8)
+        offset = self.index * target.element_size() + self.bit // 8
+        raw[offset] ^= 1 << (self.bit % 8)
+        return params

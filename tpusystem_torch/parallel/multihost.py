@@ -31,7 +31,10 @@ Event payloads must be plain host values — never device tensors.
 from __future__ import annotations
 
 import hashlib
+import pickle
 import queue
+import socket
+import struct
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
@@ -104,6 +107,39 @@ class WorkerJoined:
 # replicas) are chunked so one blob cannot monopolize the control-plane
 # socket — heartbeats and collective frames interleave between chunks
 BLOB_CHUNK = 1 << 20
+
+
+# wire format of the local sockets (the memstore's): length-prefixed pickles
+
+_LEN = struct.Struct('>Q')
+
+
+def _send_frame(sock: socket.socket, payload: tuple) -> None:
+    """One frame: an 8-byte big-endian length, then the pickled payload
+    (``multihost.py:131``)."""
+    blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+    sock.sendall(_LEN.pack(len(blob)) + blob)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes | None:
+    chunks = []
+    while n:
+        chunk = sock.recv(n)
+        if not chunk:
+            return None
+        chunks.append(chunk)
+        n -= len(chunk)
+    return b''.join(chunks)
+
+
+def _recv_frame(sock: socket.socket) -> tuple | None:
+    """The next frame's payload, or None when the peer closed
+    (``multihost.py:147``)."""
+    header = _recv_exact(sock, _LEN.size)
+    if header is None:
+        return None
+    blob = _recv_exact(sock, _LEN.unpack(header)[0])
+    return None if blob is None else pickle.loads(blob)
 
 
 def _blob_digest(data: bytes) -> str:

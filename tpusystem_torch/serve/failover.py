@@ -62,11 +62,11 @@ journaling beyond what the journal already holds — the emitted prefix IS
 the position. A pre-sampling packed journal (no ``sampling`` field on
 its requests) unpacks as greedy (:meth:`RequestJournal.unpack`).
 
-The port copies the reference. The supervisor, the memstore's socket
-client and the flight recorder named above are not ported yet (ROADMAP
-queue 1 items 8, 9 and 10): ``client=`` takes the port's in-process
-:class:`~tpusystem_torch.checkpoint.MemStore`, and ``recorder=`` any object
-with ``note`` and ``dump``. A pickled journal row names its request's
+The port copies the reference. ``client=`` takes the port's in-process
+:class:`~tpusystem_torch.checkpoint.MemStore` or the supervisor's
+:class:`~tpusystem_torch.checkpoint.MemStoreClient`; the flight recorder
+is not ported yet (ROADMAP queue 1 item 10), so ``recorder=`` takes any
+object with ``note`` and ``dump``. A pickled journal row names its request's
 class by module, so the port's packed journals differ in bytes (and
 digest) from the reference's for the same rows.
 """

@@ -2,8 +2,9 @@
 :mod:`tpusystem.train.cursors`.
 
 A decode cache is a dict keyed by the reference's cache paths
-(``h_{i}/attn/index`` or Llama's ``layer_{i}/attn/index`` per layer, and
-GPT-2's model-level ``position``). Cursor
+(``h_{i}/attn/index`` or Llama's ``layer_{i}/attn/index`` per layer, a
+scanned stack's ``hs/attn/index`` or ``blocks/attn/index`` with a leading
+layer dimension, and GPT-2's model-level ``position``). Cursor
 leaves are never written in place: an edit installs a new tensor, shared by
 every cursor leaf, so the per-layer cursors cannot drift apart.
 """
@@ -43,10 +44,12 @@ def rewind(cache: dict, cursor) -> dict:
 
 def read_cursor(cache: dict) -> torch.Tensor:
     """The per-row ``[batch]`` cursor of a decode cache (the first ``index``
-    leaf; every layer's agrees under :func:`rewind`)."""
+    leaf; every layer's agrees under :func:`rewind`; a scanned stack's
+    ``[layers, batch]`` leaf gives layer 0's slice)."""
     for path, leaf in cache.items():
         if _leaf(path) == 'index':
-            return leaf
+            return leaf.reshape(-1, leaf.shape[-1])[0] if leaf.dim() > 1 \
+                else leaf
     raise ValueError('no index cursor leaf in this cache — was it created by '
                      "a decode-mode forward or the model's init_cache?")
 

@@ -21,8 +21,18 @@ Where optax differs from ``torch.optim``, the port follows optax:
   (``scale_by_schedule``), so a warmup from 0 makes the first update 0.
 
 Schedules are evaluated in float32 on the count's device: a step never
-waits on the host. ``masked_update`` (the guard's in-graph skip) is not
-ported yet.
+waits on the host.
+
+:func:`masked_update` is the guard's skip (``tpusystem/train/optim.py:26-53``):
+every step takes ``ok`` (a bool tensor on the card) and ``scale`` (a
+float32 tensor multiplying the updates). The new slots and parameters are
+computed into temporaries, one span of leaves at a time (:func:`_runs`),
+and ``torch.where(ok, new, old)`` writes them back, so a bad step moves
+neither the parameters nor any slot (the count included) and no host read
+is needed. The global gradient norm counts a leaf that a scanned model
+stacks at a leading layer dimension as its layer slices, in layer order
+(:func:`global_norm`), so a scanned model clips as the unrolled one does,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -34,10 +44,47 @@ import torch
 from tpusystem_torch.registry import register
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
+def _norm_units(grads: list, params: list | None) -> list:
+    """The tensors whose norms make the global norm: each gradient, except
+    that a run of consecutive leaves stacked at a leading layer dimension
+    (parameters marked ``stacked``, as a scanned model's are) counts as its
+    slices, layer by layer: the order in which the unrolled model's leaves
+    come."""
+    if params is None or not any(getattr(p, 'stacked', False)
+                                 for p in params):
+        return list(grads)
+    units, run = [], []
+
+    def flush():
+        for layer in zip(*(grad.unbind(0) for grad in run)):
+            units.extend(layer)
+        run.clear()
+
+    for grad, param in zip(grads, params):
+        if getattr(param, 'stacked', False):
+            if run and run[0].shape[0] != grad.shape[0]:
+                flush()
+            run.append(grad)
+            continue
+        flush()
+        units.append(grad)
+    flush()
+    return units
+
+
+def global_norm(grads: list, params: list | None = None) -> torch.Tensor:
+    """optax's ``global_norm`` in float32 on the grads' device: the norm of
+    the leaves' norms. With ``params`` (keyed alike) a stacked leaf counts
+    as its layer slices (:func:`_norm_units`)."""
+    units = _norm_units(grads, params)
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(units)))
+
+
+def clip_by_global_norm(grads: list, max_norm: float,
+                        params: list | None = None) -> list:
     """optax's ``clip_by_global_norm``: the grads unchanged when their
     global norm is below ``max_norm``, else each ``g / norm * max_norm``."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm = global_norm(grads, params)
     trigger = norm < max_norm
     clipped = torch._foreach_div(grads, norm)
     torch._foreach_mul_(clipped, max_norm)
@@ -90,10 +137,29 @@ class Optimizer:
     def init(self, params: dict) -> dict:
         raise NotImplementedError
 
-    def step(self, params: dict, grads: dict, state: dict) -> None:
+    def step(self, params: dict, grads: dict, state: dict, *,
+             ok: torch.Tensor | None = None,
+             scale: torch.Tensor | None = None) -> None:
         """One update of ``params`` and ``state`` in place, from ``grads``
-        keyed like ``params``."""
+        keyed like ``params``. With ``ok`` (a bool tensor) the update is
+        :func:`masked_update`'s: applied where ``ok`` holds, nothing moved
+        where it does not; ``scale`` (with ``ok``) multiplies the
+        updates."""
         raise NotImplementedError
+
+
+def masked_update(optimizer: Optimizer, grads: dict, opt_state: dict,
+                  params: dict, ok: torch.Tensor, *,
+                  scale: torch.Tensor | None = None) -> None:
+    """One optimizer update, suppressed on the card when ``ok`` is False
+    (``tpusystem/train/optim.py:26``): the new slots and parameters are
+    computed unconditionally and ``torch.where(ok, new, old)`` keeps the old
+    ones on a bad step, so a NaN gradient reaches neither the weights nor
+    the moments, and nothing waits on the host. ``scale`` (typically
+    ``HealthStats.lr_scale``) multiplies the updates: for SGD, Adam and
+    AdamW that is the learning rate scaled. Updates ``params`` and
+    ``opt_state`` in place (the reference returns them)."""
+    optimizer.step(params, grads, opt_state, ok=ok, scale=scale)
 
 
 def _adam_direction(grads, mu, nu, count, b1, b2, eps):
@@ -106,6 +172,10 @@ def _adam_direction(grads, mu, nu, count, b1, b2, eps):
     squares = torch._foreach_mul(grads, grads)
     torch._foreach_mul_(squares, 1 - b2)
     torch._foreach_add_(nu, squares)
+    return _corrected(mu, nu, count, b1, b2, eps)
+
+
+def _corrected(mu, nu, count, b1, b2, eps):
     exponent = count.float()
     direction = torch._foreach_div(mu, 1 - torch.pow(b1, exponent))
     scale = torch._foreach_div(nu, 1 - torch.pow(b2, exponent))
@@ -141,6 +211,21 @@ def _apply(params, updates, step_size) -> None:
             updates[start:stop], step_size))
 
 
+def _select(ok, news, olds) -> None:
+    """``old = where(ok, new, old)`` for each pair, in place."""
+    for new, old in zip(news, olds):
+        old.copy_(torch.where(ok, new, old))
+
+
+def _masked_apply(ok, scale, params, updates, step_size) -> None:
+    """The masked :func:`_apply` of one span: ``p + ((-lr) * u) * scale``
+    into a temporary, selected by ``ok``."""
+    deltas = torch._foreach_mul(updates, step_size)
+    if scale is not None:
+        torch._foreach_mul_(deltas, scale)
+    _select(ok, torch._foreach_add(params, deltas), params)
+
+
 @register
 class SGD(Optimizer):
     def __init__(self, lr: float = 0.01, momentum: float = 0.0,
@@ -154,20 +239,35 @@ class SGD(Optimizer):
                               for name, leaf in params.items()}
         return state
 
+    def _updates(self, trace, grads):
+        """optax ``trace``: the new trace, in place, and the updates."""
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        if not self.nesterov:
+            return trace
+        updates = torch._foreach_mul(trace, self.momentum)
+        torch._foreach_add_(updates, grads)
+        return updates
+
     @torch.no_grad()
-    def step(self, params, grads, state):
-        if self.momentum:
-            leaves, grads, trace = _leaves(params, grads, (state['trace'],))
-            torch._foreach_mul_(trace, self.momentum)
-            torch._foreach_add_(trace, grads)
-            updates = trace
-            if self.nesterov:
-                updates = torch._foreach_mul(trace, self.momentum)
-                torch._foreach_add_(updates, grads)
-        else:
-            leaves, updates = _leaves(params, grads)
-        _apply(leaves, updates, -self.lr)
-        state['count'] += 1
+    def step(self, params, grads, state, *, ok=None, scale=None):
+        slots = (state['trace'],) if self.momentum else ()
+        leaves, grads, *traces = _leaves(params, grads, slots)
+        if ok is None:
+            updates = (self._updates(traces[0], grads) if self.momentum
+                       else grads)
+            _apply(leaves, updates, -self.lr)
+            state['count'] += 1
+            return
+        for start, stop in _runs(leaves):
+            span = slice(start, stop)
+            updates = grads[span]
+            if self.momentum:
+                trace = torch._foreach_mul(traces[0][span], 1.0)
+                updates = self._updates(trace, grads[span])
+                _select(ok, trace, traces[0][span])
+            _masked_apply(ok, scale, leaves[span], updates, -self.lr)
+        state['count'] += ok.int()
 
 
 @register
@@ -183,14 +283,52 @@ class Adam(Optimizer):
                 'nu': {name: torch.zeros_like(leaf)
                        for name, leaf in params.items()}}
 
+    weight_decay = 0.0
+    grad_clip = 0.0
+
+    def schedule(self):
+        return self.lr
+
     @torch.no_grad()
-    def step(self, params, grads, state):
+    def step(self, params, grads, state, *, ok=None, scale=None):
         leaves, grads, mu, nu = _leaves(params, grads,
                                         (state['mu'], state['nu']))
-        state['count'] += 1
-        updates = _adam_direction(grads, mu, nu, state['count'], self.b1,
-                                  self.b2, self.eps)
-        _apply(leaves, updates, -self.lr)
+        if self.grad_clip:
+            grads = clip_by_global_norm(grads, self.grad_clip, leaves)
+        schedule = self.schedule()
+        step_size = (-schedule(state['count']) if callable(schedule)
+                     else -schedule)
+        if ok is None:
+            state['count'] += 1
+            updates = _adam_direction(grads, mu, nu, state['count'],
+                                      self.b1, self.b2, self.eps)
+            if self.weight_decay:
+                torch._foreach_add_(updates, torch._foreach_mul(
+                    leaves, self.weight_decay))
+            _apply(leaves, updates, step_size)
+            return
+        count = state['count'] + 1
+        for start, stop in _runs(leaves):
+            span = slice(start, stop)
+            # the moments into temporaries: the old ones must survive a
+            # bad step, so nothing is updated before the selection
+            new_mu = torch._foreach_mul(mu[span], self.b1)
+            torch._foreach_add_(new_mu, torch._foreach_mul(grads[span],
+                                                           1 - self.b1))
+            new_nu = torch._foreach_mul(nu[span], self.b2)
+            squares = torch._foreach_mul(grads[span], grads[span])
+            torch._foreach_mul_(squares, 1 - self.b2)
+            torch._foreach_add_(new_nu, squares)
+            del squares
+            updates = _corrected(new_mu, new_nu, count, self.b1, self.b2,
+                                 self.eps)
+            if self.weight_decay:
+                torch._foreach_add_(updates, torch._foreach_mul(
+                    leaves[span], self.weight_decay))
+            _masked_apply(ok, scale, leaves[span], updates, step_size)
+            _select(ok, new_mu, mu[span])
+            _select(ok, new_nu, nu[span])
+        state['count'] += ok.int()
 
 
 @register
@@ -217,19 +355,3 @@ class AdamW(Adam):
         return warmup_cosine(self.lr, max(self.warmup_steps, 1),
                              max(self.decay_steps, self.warmup_steps + 1),
                              self.lr * self.min_lr_ratio)
-
-    @torch.no_grad()
-    def step(self, params, grads, state):
-        leaves, grads, mu, nu = _leaves(params, grads,
-                                        (state['mu'], state['nu']))
-        if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
-        schedule = self.schedule()
-        step_size = (-schedule(state['count']) if callable(schedule)
-                     else -schedule)
-        state['count'] += 1
-        updates = _adam_direction(grads, mu, nu, state['count'], self.b1,
-                                  self.b2, self.eps)
-        torch._foreach_add_(updates,
-                            torch._foreach_mul(leaves, self.weight_decay))
-        _apply(leaves, updates, step_size)

@@ -7,9 +7,13 @@ graph, ``torch.autograd.grad`` takes the gradients (the flash kernels carry
 their own backward), and the optimizer updates the parameters and its slots
 in place. The step returns the state it was given.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``guard=`` and ``fault=`` (the in-step anomaly guard and the chaos
-seam), :func:`build_multi_step` and :func:`build_1f1b_train_step`.
+:func:`build_multi_step` runs N steps per call as a Python loop over eager
+steps (the counterpart of the reference's ``lax.scan``): the per-step losses
+(and, guarded, health rows) stay on the card, stacked, for the caller's one
+read. ``jit=`` is accepted and ignored, as by every ``build_*`` function
+of the port.
+:func:`build_1f1b_train_step` raises ``NotImplementedError`` (ROADMAP queue
+1, 9. Multi-GPU parallelism).
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from collections.abc import Callable
 from inspect import signature
 from typing import Any
 
+import numpy as np
 import torch
 
 from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
+from tpusystem_torch.train.optim import masked_update
 from tpusystem_torch.train.state import TrainState
 
 # apply_fn contract: (params, inputs, rng, train) -> outputs; rng a threefry
@@ -61,7 +67,8 @@ def _detach(outputs):
 
 
 def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
-                     accumulate: int = 1, guard=None, fault=None):
+                     accumulate: int = 1, jit: bool = True, guard=None,
+                     fault=None):
     """Build ``step(state, inputs, targets) -> (state, (outputs, loss))``.
 
     ``optimizer`` is a :class:`tpusystem_torch.train.optim.Optimizer`; it
@@ -77,11 +84,20 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
     even when padding gives microbatches different token counts; other
     criteria are averaged equally. The returned ``outputs`` are the last
     microbatch's, ``loss`` the weighted mean. Microbatch ``i`` takes key
-    ``i`` of ``split(step key, accumulate)``, as the reference does."""
-    if guard is not None:
-        raise _not_ported('build_train_step(guard=)', 'guard and Sentinel')
-    if fault is not None:
-        raise _not_ported('build_train_step(fault=)', 'guard and Sentinel')
+    ``i`` of ``split(step key, accumulate)``, as the reference does.
+
+    ``guard=`` (a :class:`tpusystem_torch.train.Guard`) judges each step on
+    the card (loss and global-grad-norm finiteness, the EMA spike z-score)
+    and suppresses a bad step's update through
+    :func:`~tpusystem_torch.train.optim.masked_update`, scaled by
+    ``state.health.lr_scale``: no host sync. Arm the state first
+    (``guard.arm(state)``). The step counter advances on a suppressed step
+    too (the batch was consumed), while the optimizer's count does not.
+
+    ``fault=`` is the chaos seam: ``fault(step, grads, loss) -> (grads,
+    loss)`` right after the gradients, ``step`` the 1-based index of the
+    step being computed (a tensor on the card), ``grads`` keyed like the
+    parameters (:class:`tpusystem_torch.parallel.chaos.CorruptGrads`)."""
     weight_fn = getattr(criterion, 'weight', None)
 
     def value_and_grad(leaves, params, inputs, targets, rng):
@@ -124,15 +140,27 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
             grads = [(total / weight_sum).to(leaf.dtype)
                      for total, leaf in zip(sums, leaves)]
             loss = loss_sum / weight_sum
-        optimizer.step(state.params, dict(zip(names, grads)),
-                       state.opt_state)
+        grads = dict(zip(names, grads))
+        if fault is not None:
+            grads, loss = fault(state.step + 1, grads, loss)
+        if guard is not None:
+            assert state.health is not None, (
+                'guard= needs health stats on the TrainState: arm it with '
+                'Guard.arm(state) before the first step')
+            ok = guard.judge(state.health, loss,
+                             [grads[name] for name in names], leaves)
+            masked_update(optimizer, grads, state.opt_state, state.params,
+                          ok, scale=state.health.lr_scale)
+        else:
+            optimizer.step(state.params, grads, state.opt_state)
         state.step += 1
         return state, (outputs, loss)
 
     return step
 
 
-def build_eval_step(apply_fn: ApplyFn, criterion: Criterion):
+def build_eval_step(apply_fn: ApplyFn, criterion: Criterion, *,
+                    jit: bool = True):
     """Build ``step(state, inputs, targets) -> (outputs, loss)``: the
     forward in eval mode, without gradients."""
 
@@ -144,9 +172,108 @@ def build_eval_step(apply_fn: ApplyFn, criterion: Criterion):
     return step
 
 
-def build_multi_step(*args, **kwargs):
-    """N train steps per host dispatch: not ported yet."""
-    raise _not_ported('build_multi_step', 'build_multi_step')
+def _at(tree, index: int):
+    """Row ``index`` of every tensor (or array) of a batch tree."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_at(item, index) for item in tree)
+    if isinstance(tree, dict):
+        return {key: _at(item, index) for key, item in tree.items()}
+    return tree[index]
+
+
+def _length(tree) -> int:
+    if isinstance(tree, (tuple, list)):
+        return _length(tree[0])
+    if isinstance(tree, dict):
+        return _length(next(iter(tree.values())))
+    return tree.shape[0]
+
+
+def build_multi_step(step, *, jit: bool = True, outputs_fn=None,
+                     guard: bool = False):
+    """N train steps per call (``tpusystem/train/step.py:182``).
+
+    ``multi(state, inputs, targets) -> (state, losses)``: ``inputs`` and
+    ``targets`` carry a leading ``[N, ...]`` dimension and ``losses`` is the
+    ``[N]`` float32 tensor of the steps' losses, stacked on the card. The N
+    steps run as a Python loop over ``step`` (the counterpart of the
+    reference's ``lax.scan``); nothing is read back per step, so the caller
+    syncs once for the whole group. ``outputs_fn`` (e.g. ``lambda o:
+    o.argmax(-1)``) stacks a reduced output per step: the return becomes
+    ``(state, (stacked_reduced_outputs, losses))``. ``guard=True`` (a step
+    built with ``guard=``) also stacks each step's health row
+    (``state.health.last``): ``(state, (losses, health[N, 4]))``, health
+    last when ``outputs_fn`` is given too."""
+
+    def multi(state: TrainState, inputs, targets):
+        if guard:
+            assert state.health is not None, (
+                'guard=True needs a guarded step and an armed state '
+                '(Guard.arm) — see build_train_step(guard=...)')
+        losses, reduced, rows = [], [], []
+        for index in range(_length(inputs)):
+            state, (outputs, loss) = step(state, _at(inputs, index),
+                                          _at(targets, index))
+            losses.append(torch.as_tensor(loss).float())
+            if outputs_fn is not None:
+                reduced.append(outputs_fn(outputs))
+            if guard:
+                rows.append(state.health.last.clone())
+        ys = (torch.stack(losses),)
+        if outputs_fn is not None:
+            ys = (torch.stack(reduced),) + ys
+        if guard:
+            ys = ys + (torch.stack(rows),)
+        return state, ys[0] if len(ys) == 1 else ys
+
+    return multi
+
+
+def build_multi_eval_step(step, *, jit: bool = True, outputs_fn=None):
+    """Eval counterpart of :func:`build_multi_step`
+    (``tpusystem/train/step.py:232``): ``multi(state, inputs, targets) ->
+    losses[N]`` (or ``(stacked_reduced_outputs, losses)`` with
+    ``outputs_fn``) over stacked batches, ``step`` from
+    :func:`build_eval_step`."""
+
+    def multi(state: TrainState, inputs, targets):
+        losses, reduced = [], []
+        for index in range(_length(inputs)):
+            outputs, loss = step(state, _at(inputs, index),
+                                 _at(targets, index))
+            losses.append(torch.as_tensor(loss).float())
+            if outputs_fn is not None:
+                reduced.append(outputs_fn(outputs))
+        if outputs_fn is None:
+            return torch.stack(losses)
+        return torch.stack(reduced), torch.stack(losses)
+
+    return multi
+
+
+def grouped_batches(loader, size: int):
+    """Yield tuples of ``[n, batch, ...]`` stacks of up to ``size``
+    consecutive batches — the host-side feeder for
+    :func:`build_multi_step` (``tpusystem/train/step.py:249``). Accepts
+    loaders yielding tuples (``(inputs, targets)``) or bare arrays; the tail
+    stack is shorter when the loader's length does not divide ``size``.
+    Tensors stack with ``torch.stack`` (on their device), host arrays with
+    ``np.stack``."""
+    group: list = []
+
+    def flush():
+        return tuple(
+            torch.stack(parts) if isinstance(parts[0], torch.Tensor)
+            else np.stack(parts)
+            for parts in zip(*group))
+
+    for batch in loader:
+        group.append(batch if isinstance(batch, tuple) else (batch,))
+        if len(group) == size:
+            yield flush()
+            group = []
+    if group:
+        yield flush()
 
 
 def build_1f1b_train_step(*args, **kwargs):
