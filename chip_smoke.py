@@ -284,11 +284,36 @@ Phases, in order; any failure exits non-zero:
     state equal an uninterrupted in-process run's bit for bit; detect ->
     first step, the hot-state bytes, the hot restore's seconds against a
     fresh ``Checkpointer``'s disk restore and the exit codes are printed.
+    The supervisor traces (``tracer=``) and gives the worker a flight
+    recorder (``flight_path=``), which phase 25 (d) reads.
     K1 and K2b launch in every in-process step;
-25. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+25. observability and the LM example system (``observe-lm``): (a)
+    ``examples/lm_torch/main.py``'s ``main(epochs=2, full=True)`` then
+    ``main(epochs=3, full=True)`` (GPT-2 125M, flash attention, 16 x 1024
+    tokens, 64 train and 8 evaluation batches an epoch, synthetic tokens)
+    into a temporary root: the second run prints ``from epoch 2``, the
+    document store holds one model at epoch 3 with loss and perplexity rows
+    in both phases, ``weights/`` one identity, every loss is finite, the
+    last evaluation loss is below the first, K1 launches at least 12 times
+    a step and K2b 12 times a train step; tokens/s from the ``StepTimed``
+    events. (b) ``observe.trace`` around two of the recipe's train steps,
+    each under ``observe.step_span`` (after one more step inside the trace):
+    the ``torch.profiler`` trace names K1's ``flash_fwd_kernel`` and K2b's
+    ``flash_bwd_fused_kernel`` inside the ``ProfilerStep#`` ranges (fails if
+    the profiler saw no CUDA kernel or missed either; the counts, 12 a step
+    each when every launch is recorded, are printed). (c) Phase 5's weights and requests through
+    ``InferenceService`` (a bf16 ``Engine(rows=8)`` under a ``Scheduler``)
+    untraced, then with ``tracer=Tracer()``, a ``FlightRecorder`` watching
+    it and a ``serve_metrics_consumer`` on the producer: streams equal, one
+    connected trace per request, the Chrome export parses, K1 for each
+    prefill of 512 tokens or more and K4/K5 in decode; TTFT p50/p99 and
+    decode tokens/s of both runs. (d) Phase 24 (e)'s killed worker's
+    ``WorkerExited.postmortem`` holds its write-ahead ring of steps 1-5 and
+    the supervisor's tracer one ``recovery rank0`` span over its stages;
+26. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-24 prints its seconds.
+    line. Each of phases 15b and 17-25 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -4855,6 +4880,7 @@ def resilient_worker(out_path: str, root: str, die_at: str, total: str,
     from tpusystem_torch.checkpoint import (Checkpointer, hot_resume,
                                             serialize_state,
                                             supervisor_client)
+    from tpusystem_torch.observe import FlightRecorder
     from tpusystem_torch.parallel.chaos import DieAtStep
     from tpusystem_torch.train import Guard, resume_extras
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4868,6 +4894,11 @@ def resilient_worker(out_path: str, root: str, die_at: str, total: str,
     batches = recipe.batches()
     state, step = recipe.cell(recipe.module(), guard=Guard())
     client = supervisor_client()
+    # the black box at the supervisor's TPUSYSTEM_FLIGHT path: a write-ahead
+    # ring of the steps, which survives the SIGKILL
+    recorder = FlightRecorder.from_env(process='resilient-worker')
+    if recorder is not None:
+        recorder.install()
     ckpt = Checkpointer(root, async_save=True, max_to_keep=None)
     die = DieAtStep(step=int(die_at),
                     action=lambda: os.kill(os.getpid(), signal.SIGKILL))
@@ -4894,6 +4925,8 @@ def resilient_worker(out_path: str, root: str, die_at: str, total: str,
         if current % RESILIENT_SAVE_EVERY == 0:
             ckpt.save(RESILIENT_IDENTITY, current, state, extras=extras)
         out({'step': current, 'loss': loss, 'hot_bytes': len(blob)})
+        if recorder is not None:
+            recorder.note('step', step=current, loss=loss)
         die(current)
     ckpt.close()
     out({'done': True, 'digest': state_digest(state)})
@@ -4913,7 +4946,12 @@ def kill_and_relaunch(recipe, root: pathlib.Path) -> dict:
     ``Supervisor`` with its ``MemStoreServer``: killed after step 5's hot
     push, relaunched, restored from the supervisor's RAM (source
     ``'hot'``), it finishes steps 6-8; its 8 losses and final state equal
-    the uninterrupted run's bit for bit."""
+    the uninterrupted run's bit for bit. The supervisor traces (``tracer=``)
+    and gives the worker a flight recorder (``flight_path=``): the killed
+    worker's ``WorkerExited.postmortem`` holds its write-ahead ring of steps
+    1-5, and the tracer one recovery span with its stages as children
+    (phase 25 (d))."""
+    from tpusystem_torch.observe import Tracer
     from tpusystem_torch.observe.events import (RecoveryTimeline,
                                                 WorkerExited)
     from tpusystem_torch.parallel import Supervisor
@@ -4944,9 +4982,11 @@ def kill_and_relaunch(recipe, root: pathlib.Path) -> dict:
     for kind in (WorkerExited, RecoveryTimeline):
         consumer.register(kind, seen.append)
     producer.register(consumer)
+    tracer = Tracer('supervisor')
     supervisor = Supervisor(argv, producer=producer, env={'PYTHONPATH': here},
                             backoff_base=0.05, backoff_cap=0.2,
-                            crash_loop_window=0.0)
+                            crash_loop_window=0.0, tracer=tracer,
+                            flight_path=str(root / 'flight.json'))
     started = time.perf_counter()
     exit_code = supervisor.run()
     seconds = time.perf_counter() - started
@@ -4974,7 +5014,37 @@ def kill_and_relaunch(recipe, root: pathlib.Path) -> dict:
             and resumes[0]['resumed'] == RESILIENT_DIE_AT
             and result['losses_equal'] and result['digest_equal']):
         fail(f'kill and hot relaunch: {result}')
+    result.update(postmortem_and_spans(seen, tracer))
     return result
+
+
+def postmortem_and_spans(seen: list, tracer) -> dict:
+    """Phase 25 (d): the killed worker's post-mortem holds the steps it
+    noted before the kill (its write-ahead ring, each step's loss), and the
+    supervisor's tracer one connected recovery trace: a ``recovery rank0``
+    root over its stage spans."""
+    from tpusystem_torch.observe.events import WorkerExited
+    from tpusystem_torch.observe.trace import connected_traces
+    exits = [event for event in seen if isinstance(event, WorkerExited)]
+    killed = exits[0].postmortem if exits else None
+    steps = ([entry['step'] for entry in killed['entries']
+              if entry['kind'] == 'step'] if killed else [])
+    traces = connected_traces(tracer.events())
+    names = [sorted(event['name'] for event in group)
+             for group in traces.values()]
+    roots = [[event for event in group if 'parent' not in event['args']]
+             for group in traces.values()]
+    record = dict(postmortem_steps=steps,
+                  postmortem_process=killed and killed['process'],
+                  recovery_spans=names)
+    if steps != list(range(1, RESILIENT_DIE_AT + 1)):
+        fail(f'the killed worker\'s post-mortem holds steps {steps}')
+    if not (len(traces) == 1 and len(roots[0]) == 1
+            and roots[0][0]['name'] == 'recovery rank0'
+            and len(names[0]) >= 3):
+        fail(f'the supervisor traced {names}, not one recovery span over '
+             f'its stages')
+    return record
 
 
 def train_resilient(torch, seed: int, device: str = 'cuda',
@@ -5008,6 +5078,379 @@ def train_resilient(torch, seed: int, device: str = 'cuda',
         fail(f'phase 24 launched no flash kernel: {launches}')
     return result
 
+
+
+# ---------------------------------------------------------------------------
+# phase 25: observability and the LM example system
+
+LM_EPOCHS = (2, 3)          # the first run's epochs, then the resumed run's
+# examples/lm_torch/main.py's presets: (batch, sequence) of --full and tiny
+LM_SHAPE = {True: (16, 1024), False: (16, 128)}
+LM_BATCHES = (64, 8)        # its train and evaluation batches an epoch
+PROFILED_STEPS = 2
+FLASH_KERNELS = ('flash_fwd_kernel', 'flash_bwd_fused_kernel')
+
+
+def lm_example():
+    """``examples/lm_torch/main.py`` as a module (a script, not a
+    package)."""
+    import importlib.util
+    path = (pathlib.Path(__file__).resolve().parent / 'examples'
+            / 'lm_torch' / 'main.py')
+    spec = importlib.util.spec_from_file_location('lm_torch_main', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pretrain_lm(torch, lm, root: pathlib.Path, full: bool = True,
+                device=None) -> dict:
+    """Phase 25 (a): the LM example's ``main(epochs=2)`` then ``main(epochs=3)``
+    into ``root``: the second run resumes at epoch 2 and ends at 3, the
+    store holds one model with loss and perplexity rows in both phases,
+    ``weights/`` one identity, every loss is finite, the last evaluation
+    loss is below the first, and K1 (K2b) launch at least once a layer for
+    every step (every train step). Tokens/s from the ``StepTimed`` events of
+    the train phases."""
+    import contextlib
+    import io
+
+    from tpusystem_torch.observe.events import StepTimed
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.services.prodcon import Consumer
+    from tpusystem_torch.storage import (DocumentMetrics, DocumentModels,
+                                         DocumentStore)
+
+    timed = []
+
+    class Observed(lm.Runtime):
+        """The example's ``Runtime`` with one more consumer, for the
+        ``StepTimed`` events."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            consumer = Consumer('phase-25')
+            consumer.register(StepTimed, timed.append)
+            self.producer.register(consumer)
+
+    lm.Runtime, lm.ROOT = Observed, root
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    outputs, seconds = [], []
+    for counter in counters:
+        counter.launches = 0
+    for epochs in LM_EPOCHS:
+        text = io.StringIO()
+        started = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            lm.main(epochs=epochs, full=full, device=device)
+        seconds.append(time.perf_counter() - started)
+        print(text.getvalue(), end='')
+        outputs.append(text.getvalue())
+    launches = {counter.__name__: counter.launches for counter in counters}
+    store = DocumentStore(root / 'experiments.json')
+    try:
+        models = DocumentModels(store).list(lm.experiment())
+        rows = DocumentMetrics(store).list(models[0].hash) if models else []
+    finally:
+        store.close()
+    identities = [path.name for path in (root / 'weights').iterdir()
+                  if path.is_dir()]
+    curves = {}
+    for row in sorted(rows, key=lambda row: row.epoch):
+        curves.setdefault(f'{row.name}/{row.phase}', []).append(row.value)
+    batch, sequence = LM_SHAPE[full]
+    train = [event for event in timed if event.phase == 'train']
+    epochs = LM_EPOCHS[-1]
+    layers = 12 if full else 2
+    steps = dict(train=LM_BATCHES[0] * epochs, evaluation=LM_BATCHES[1] * epochs)
+    record = dict(
+        printed=[line for text in outputs for line in text.splitlines()
+                 if 'from epoch' in line],
+        run_s=seconds, models=[(m.hash, m.epoch) for m in models],
+        identities=identities, curves=curves, launches=launches,
+        steps=steps, layers=layers,
+        train_tokens_per_s=[event.steps * batch * sequence / event.seconds
+                            for event in train],
+        evaluation_steps_per_s=[event.steps_per_second for event in timed
+                                if event.phase == 'evaluation'],
+        card=card_line())
+    losses = [value for values in curves.values() for value in values]
+    evaluation = curves.get('loss/evaluation', [])
+    checks = {
+        'resumed where the first run ended': 'from epoch 0' in outputs[0]
+        and f'from epoch {LM_EPOCHS[0]}' in outputs[1],
+        'one model at the last epoch': [m.epoch for m in models] == [epochs],
+        'rows in both phases': set(curves) == {
+            f'{name}/{phase}' for name in ('loss', 'perplexity')
+            for phase in ('train', 'evaluation')}
+        and all(len(values) == epochs for values in curves.values()),
+        'one identity': len(identities) == 1,
+        'finite losses': bool(losses) and all(map(math.isfinite, losses)),
+        'evaluation loss fell': len(evaluation) == epochs
+        and evaluation[-1] < evaluation[0],
+        'K1 a layer a step': launches['flash_attention_lse']
+        >= layers * (steps['train'] + steps['evaluation']),
+        'K2b a layer a train step': launches['flash_bwd_fused']
+        >= layers * steps['train'],
+    }
+    record['checks'] = checks
+    failed = [name for name, held in checks.items() if not held]
+    if failed:
+        fail(f'phase 25 (a): {failed}: {record}')
+    return record
+
+
+def step_kernels(events: list) -> dict:
+    """The kernels of a ``torch.profiler`` Chrome trace that ran inside its
+    ``ProfilerStep#`` ranges: a kernel whose start lies in a device-side
+    step range (``gpu_user_annotation``), or whose launch (the runtime or
+    driver call of the same ``correlation``) lies in a host-side one. Counts
+    of the flash kernels among them and their device ms."""
+    ranges = [event for event in events if event.get('ph') == 'X'
+              and str(event.get('name', '')).startswith('ProfilerStep#')]
+
+    def spans(category):
+        return [(event['ts'], event['ts'] + event.get('dur', 0))
+                for event in ranges if event.get('cat') == category]
+
+    host, device = spans('user_annotation'), spans('gpu_user_annotation')
+    launched = {event['args']['correlation']: event['ts']
+                for event in events
+                if event.get('cat') in ('cuda_runtime', 'cuda_driver')
+                and 'correlation' in event.get('args', {})}
+    kernels = [event for event in events if event.get('cat') == 'kernel']
+
+    def inside(kernel) -> bool:
+        if any(low <= kernel['ts'] <= high for low, high in device):
+            return True
+        at = launched.get(kernel.get('args', {}).get('correlation'))
+        return at is not None and any(low <= at <= high
+                                      for low, high in host)
+
+    stepped = [kernel for kernel in kernels if inside(kernel)]
+    return dict(
+        kernels=len(kernels), kernels_in_steps=len(stepped),
+        step_ranges=len(host), device_step_ranges=len(device),
+        flash_in_steps={name: sum(name in kernel['name']
+                                  for kernel in stepped)
+                        for name in FLASH_KERNELS},
+        flash_ms_in_steps={name: sum(kernel.get('dur', 0)
+                                     for kernel in stepped
+                                     if name in kernel['name']) / 1e3
+                           for name in FLASH_KERNELS},
+        kernel_ms_in_steps=sum(kernel.get('dur', 0)
+                               for kernel in stepped) / 1e3)
+
+
+def profile_lm(torch, lm, logdir: pathlib.Path, full: bool = True,
+               device=None) -> dict:
+    """Phase 25 (b): the LM example's aggregate at the same recipe, one
+    warm-up step, then ``observe.trace(logdir)`` around one more step and
+    two train steps each under ``observe.step_span``: the exported trace
+    names the port's flash kernels (K1's ``flash_fwd_kernel``, K2b's
+    ``flash_bwd_fused_kernel``) inside the step ranges. Fails if the
+    profiler saw no CUDA kernel or either kernel is missing from the
+    ranges; ``complete`` says whether every launch (a layer's worth of
+    each a step) was recorded."""
+    from tpusystem_torch.data import SyntheticTokens
+    from tpusystem_torch.models import GPT2, gpt2_tiny
+    from tpusystem_torch.observe import step_span, trace
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.train import AdamW, ChunkedNextTokenLoss
+
+    devices = None if device is None else [torch.device(device)]
+    placed = MeshSpec(fsdp=-1).build(devices)
+    if full:
+        network = GPT2(vocab_size=50304, dropout=0.0, return_features=True,
+                       attention='flash', device=placed.device)
+    else:
+        network = gpt2_tiny(return_features=True, device=placed.device)
+    model = lm.LanguageModel(network, ChunkedNextTokenLoss(chunks=8),
+                             AdamW(lr=3e-4, grad_clip=1.0))
+    model.place(lm.sample_tokens(), placed, lm.policy())
+    batch, sequence = LM_SHAPE[full]
+    tokens = model.shard_batch(SyntheticTokens(
+        samples=batch, sequence_length=sequence).arrays[0])
+    model.fit(tokens)                                  # warm-up, untraced
+    torch.cuda.synchronize()
+    with trace(str(logdir)):
+        # a step outside the ranges first: the profiler can miss the
+        # kernels of its first milliseconds (one run lost a step's first
+        # 46, K1 among them)
+        model.fit(tokens)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for step in range(1, PROFILED_STEPS + 1):
+            with step_span('train', step):
+                loss = model.fit(tokens)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - started
+    files = sorted(logdir.glob('*.pt.trace.json'))
+    if not files:
+        fail(f'observe.trace wrote no trace into {logdir}')
+        return {}
+    events = json.loads(files[-1].read_text())['traceEvents']
+    record = dict(step_kernels(events), steps=PROFILED_STEPS,
+                  loss=float(loss), traced_s=traced_s,
+                  trace_bytes=files[-1].stat().st_size)
+    counts = record['flash_in_steps'].values()
+    record['complete'] = all(count == network.layers * PROFILED_STEPS
+                             for count in counts)
+    if not record['kernels']:
+        fail('phase 25 (b): the profiler saw no CUDA kernel')
+    elif not all(counts):
+        fail(f'phase 25 (b): a flash kernel is missing from the step '
+             f'ranges: {record}')
+    return record
+
+
+def traced_serving(torch, module, prompts, device=None) -> dict:
+    """Phase 25 (c): the requests through ``InferenceService`` (a bf16
+    ``Engine(rows=8)`` under a ``Scheduler``) untraced, then traced
+    (``tracer=Tracer()``, a ``FlightRecorder`` watching it, a
+    ``serve_metrics_consumer`` on the producer): the traced streams equal
+    the untraced ones, the export parses and gives one connected trace per
+    request with one ``request`` root, K1 runs once a layer for every
+    prefill of 512 tokens or more and K4/K5 in decode. TTFT p50/p99 from
+    ``ServeLatency``; decode tokens/s of both runs (a measure: single
+    serving runs swing)."""
+    import tempfile
+
+    from tpusystem_torch.observe import (FlightRecorder, ServeLatency,
+                                         SummaryWriter, Tracer,
+                                         serve_metrics_consumer)
+    from tpusystem_torch.observe import tensorboard as tb
+    from tpusystem_torch.observe.trace import connected_traces
+    from tpusystem_torch.ops.cuda import decode_matmul as dm
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.serve import InferenceService
+    from tpusystem_torch.services.prodcon import Producer
+
+    def run(name, tracer, producer):
+        levers = {} if device is None else {'device': device}
+        service = InferenceService(module, None, producer=producer,
+                                   rows=ROWS, block_size=BLOCK,
+                                   tracer=tracer, **levers)
+        if service.engine.decode_impl != 'fused':
+            fail(f'phase 25 (c) chose decode_impl='
+                 f'{service.engine.decode_impl!r}, not \'fused\'')
+        submitted, seated = {}, {}
+        clock = engine_clock(torch, service.engine, seated, 'admit')
+        dm.reset_launches()
+        flash.flash_attention_lse.launches = 0
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for request in disagg_requests(prompts):
+            submitted[request.id] = time.perf_counter()
+            service.submit(request)
+        results = service.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+        launches = {'flash_attention_lse': flash.flash_attention_lse.launches,
+                    'decode_matmul': dm.decode_matmul.launches,
+                    'decode_ffn': dm.decode_ffn.launches}
+        check_completed(name, results, len(prompts))
+        want_k1 = module.layers * sum(service.engine.bucket(len(prompt))
+                                      >= 512 for prompt in prompts)
+        if launches['flash_attention_lse'] != want_k1 \
+                or not launches['decode_matmul'] \
+                or not launches['decode_ffn']:
+            fail(f'phase 25 (c) {name}: K1/K4/K5 launches {launches}, '
+                 f'K1 expected {want_k1}')
+        return results, dict(decode_rates(clock, submitted, seated, wall),
+                             launches=launches)
+
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = pathlib.Path(scratch)
+        plain, untraced = run('untraced', None, Producer())
+        tracer = Tracer('serve')
+        recorder = FlightRecorder(scratch / 'flight.json',
+                                  process='serve').watch(tracer)
+        latency, producer = ServeLatency(), Producer()
+        metrics = serve_metrics_consumer(latency, cadence=4)
+        writer = SummaryWriter(scratch / 'tensorboard')
+        metrics.dependency_overrides[tb.writer] = lambda: writer
+        producer.register(metrics)
+        got, traced = run('traced', tracer, producer)
+        writer.close()
+        exported = tracer.export(scratch / 'serve-trace.json')
+        payload = json.loads(exported.read_text())
+        flight = FlightRecorder.read(scratch / 'flight.json')
+    events = payload['traceEvents']
+    try:
+        traces = connected_traces(events)
+    except ValueError as error:
+        fail(f'phase 25 (c): {error}')
+        traces = {}
+    roots = sorted(sum(event['name'].startswith('request ')
+                       for event in group) for group in traces.values())
+    equal = sum(got[rid].tokens == plain[rid].tokens for rid in plain)
+    record = dict(
+        untraced=untraced, traced=traced,
+        traces=len(traces), request_roots=roots,
+        spans=sum(event['ph'] in ('X', 'i') for event in events),
+        flight_entries=len(flight['entries']) if flight else 0,
+        streams_equal_share=equal / len(plain),
+        ttft_p50_s=latency.ttft.percentile(0.5) if latency.ttft.count
+        else None,
+        ttft_p99_s=latency.ttft.percentile(0.99) if latency.ttft.count
+        else None,
+        ttft_count=latency.ttft.count,
+        tokens_per_s=dict(traced=traced['decode_tokens_per_s'],
+                          untraced=untraced['decode_tokens_per_s']),
+        card=card_line())
+    if len(traces) != len(prompts) or roots != [1] * len(prompts):
+        fail(f'phase 25 (c): {len(traces)} connected traces with request '
+             f'roots {roots} for {len(prompts)} requests')
+    if equal != len(plain):
+        fail(f'phase 25 (c): {equal} of {len(plain)} traced streams equal '
+             f'the untraced ones')
+    if not record['flight_entries'] or latency.ttft.count != len(prompts):
+        fail(f'phase 25 (c): {record["flight_entries"]} flight entries, '
+             f'{latency.ttft.count} TTFT samples')
+    return record
+
+
+def observe_lm(torch, seed: int, drill: dict) -> dict:
+    """Phase 25: the LM example system pretrained and resumed at GPT-2 125M
+    (a), two of its steps profiled (b), phase 5's weights and requests
+    served traced (c); ``drill`` is phase 24 (e)'s supervised kill, traced
+    with a flight recorder (d). K1 and K2b's launches count (a), K1, K4
+    and K5's (c)'s two runs."""
+    import gc
+    import tempfile
+
+    from tpusystem_torch.models import gpt2_small
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    lm = lm_example()
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = pathlib.Path(scratch)
+        pretrained = pretrain_lm(torch, lm, scratch / 'lm')
+        gc.collect()
+        torch.cuda.empty_cache()
+        profiled = profile_lm(torch, lm, scratch / 'profile')
+    gc.collect()
+    torch.cuda.empty_cache()
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    served = traced_serving(torch, module,
+                            serving_prompts(seed, module.vocab_size))
+    serving = [served[run]['launches'] for run in ('untraced', 'traced')]
+    launches = dict(
+        flash_attention_lse=pretrained['launches']['flash_attention_lse']
+        + sum(run['flash_attention_lse'] for run in serving),
+        flash_bwd_fused=pretrained['launches']['flash_bwd_fused'],
+        decode_matmul=sum(run['decode_matmul'] for run in serving),
+        decode_ffn=sum(run['decode_ffn'] for run in serving))
+    return dict(pretrain=pretrained, profile=profiled, serving=served,
+                drill={key: drill[key] for key in (
+                    'postmortem_steps', 'postmortem_process',
+                    'recovery_spans', 'stages')},
+                launches=launches, card=card_line(),
+                seconds=time.perf_counter() - started)
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5099,6 +5542,8 @@ def main() -> None:
     print('serve-disagg ' + json.dumps(disagg))
     resilient = train_resilient(torch, args.seed)
     print('train-resilient ' + json.dumps(resilient))
+    observed = observe_lm(torch, args.seed, resilient['kill'])
+    print('observe-lm ' + json.dumps(observed))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -5107,10 +5552,12 @@ def main() -> None:
         'decode_matmul': ('decode_matmul.cu', pallas + 'decode_matmul.py:99',
                           'decode_matmul[qkv]',
                           served['launches']['decode_matmul']
-                          + disagg['launches']['decode_matmul']),
+                          + disagg['launches']['decode_matmul']
+                          + observed['launches']['decode_matmul']),
         'decode_ffn': ('decode_matmul.cu', pallas + 'decode_matmul.py:181',
                        'decode_ffn', served['launches']['decode_ffn']
-                       + disagg['launches']['decode_ffn']),
+                       + disagg['launches']['decode_ffn']
+                       + observed['launches']['decode_ffn']),
         **{f'{kernel}_{mode}': (
             'decode_matmul.cu', pallas + f'decode_matmul.py:{line}',
             f'{kernel}_{mode}{label}',
@@ -5133,7 +5580,8 @@ def main() -> None:
                   for name in ('self-f1', 'self-f2', 'random'))
             + moe_served['launches']['flash_attention_lse']
             + disagg['launches']['flash_attention_lse']
-            + resilient['launches']['flash_attention_lse']),
+            + resilient['launches']['flash_attention_lse']
+            + observed['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -5143,7 +5591,8 @@ def main() -> None:
                             + dropout_trained['launches']['flash_bwd_fused']
                             + moe_trained['launches']['flash_bwd_fused']
                             + llama_trained['launches']['flash_bwd_fused']
-                            + resilient['launches']['flash_bwd_fused']),
+                            + resilient['launches']['flash_bwd_fused']
+                            + observed['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -5314,7 +5763,7 @@ def main() -> None:
              'verybasic': basic, 'serve_llama_narrow': narrow,
              'spec_generate': spec_generated, 'serve_spec': spec_served,
              'serve_moe': moe_served, 'serve_disagg': disagg,
-             'train_resilient': resilient,
+             'train_resilient': resilient, 'observe_lm': observed,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -718,3 +718,119 @@ def test_phase_24_drives_the_resilient_trainer_on_the_cpu(one_torch_thread):
     assert kill['disk_restore'][0]['disk_step'] == 8
     assert kill['losses_equal'] and kill['digest_equal']
     assert kill['hot_bytes'] > 0 and kill['detect_to_first_step_s'] > 0
+    # phase 25 (d): the killed worker's flight recorder and the traced
+    # recovery
+    assert kill['postmortem_steps'] == [1, 2, 3, 4, 5]
+    assert kill['postmortem_process'] == 'resilient-worker'
+    (spans,) = kill['recovery_spans']
+    assert 'recovery rank0' in spans and len(spans) >= 3
+
+
+def test_phase_25_prints_after_the_resilient_trainer():
+    """Phase 25 prints its line after phase 24's, and the ``kernels`` and
+    ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('train-resilient '") < source.index(
+        "print('observe-lm '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+
+
+def test_phase_25_serves_traced_on_the_cpu(monkeypatch, one_torch_thread):
+    """Phase 25 (c) at ``gpt2_tiny`` on the CPU (the module path: only the
+    checks about the card fail, the fused route and the kernels'
+    counters): the traced streams equal the untraced ones, one connected
+    trace per request with one root, the flight recorder holds the spans
+    and ``ServeLatency`` every admission."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.models import gpt2_tiny
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    monkeypatch.setattr(chip_smoke, 'fail', failures.append)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *args: None)
+    module = gpt2_tiny(dtype='float32', device='cpu')
+    prompts = [np.random.default_rng(i).integers(0, 256, (n,))
+               for i, n in enumerate((20, 30, 70, 20, 30, 70, 10, 45))]
+    record = chip_smoke.traced_serving(torch, module, prompts, device='cpu')
+    assert record['streams_equal_share'] == 1.0
+    assert record['traces'] == len(prompts)
+    assert record['request_roots'] == [1] * len(prompts)
+    assert record['flight_entries'] == record['spans'] > len(prompts)
+    assert record['ttft_count'] == len(prompts)
+    assert 0 < record['ttft_p50_s'] <= record['ttft_p99_s']
+    assert all("decode_impl='flax'" in message or 'K1/K4/K5' in message
+               for message in failures), failures
+
+
+def test_phase_25_pretrains_and_resumes_the_lm_example_on_the_cpu(
+        tmp_path, monkeypatch, one_torch_thread, capsys):
+    """Phase 25 (a) on the LM example's tiny preset on the CPU: every
+    check holds but the two about the card's kernel counters."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    monkeypatch.setattr(chip_smoke, 'fail', failures.append)
+    monkeypatch.setattr(chip_smoke, 'LM_EPOCHS', (1, 2))
+    record = chip_smoke.pretrain_lm(torch, chip_smoke.lm_example(),
+                                    tmp_path, full=False, device='cpu')
+    checks = record['checks']
+    assert {name for name, held in checks.items() if not held} == {
+        'K1 a layer a step', 'K2b a layer a train step'}
+    assert len(failures) == 1 and 'K1 a layer a step' in failures[0]
+    assert record['printed'][1].endswith('from epoch 1')
+    assert len(record['train_tokens_per_s']) == 2
+    assert 'from epoch 1' in capsys.readouterr().out
+
+
+def test_phase_25_profile_fails_without_cuda_kernels(tmp_path, monkeypatch,
+                                                     one_torch_thread):
+    """Phase 25 (b) on the CPU: ``observe.trace`` writes a trace with the
+    two step ranges, and the phase fails because the profiler saw no
+    CUDA kernel."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    monkeypatch.setattr(chip_smoke, 'fail', failures.append)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *args: None)
+    record = chip_smoke.profile_lm(torch, chip_smoke.lm_example(), tmp_path,
+                                   full=False, device='cpu')
+    assert record['step_ranges'] == chip_smoke.PROFILED_STEPS
+    assert record['kernels'] == 0
+    assert failures == ['phase 25 (b): the profiler saw no CUDA kernel']
+
+
+def test_step_kernels_reads_the_kernels_inside_the_step_ranges():
+    """A kernel counts when it starts in a device-side step range, or when
+    its launch (same correlation) lies in a host-side one; others do
+    not."""
+    chip_smoke = _chip_smoke()
+    events = [
+        {'ph': 'X', 'cat': 'user_annotation', 'name': 'ProfilerStep#1',
+         'ts': 100, 'dur': 50},
+        {'ph': 'X', 'cat': 'gpu_user_annotation', 'name': 'ProfilerStep#1',
+         'ts': 300, 'dur': 100},
+        {'ph': 'X', 'cat': 'cuda_runtime', 'name': 'cudaLaunchKernel',
+         'ts': 120, 'dur': 2, 'args': {'correlation': 7}},
+        {'ph': 'X', 'cat': 'cuda_driver', 'name': 'cuLaunchKernelEx',
+         'ts': 10, 'dur': 2, 'args': {'correlation': 8}},
+        # launched inside the host range, runs after the device range
+        {'ph': 'X', 'cat': 'kernel', 'name': 'void flash_fwd_kernel<64>()',
+         'ts': 900, 'dur': 30, 'args': {'correlation': 7}},
+        # inside the device range
+        {'ph': 'X', 'cat': 'kernel',
+         'name': 'void flash_bwd_fused_kernel<64, true>()', 'ts': 350,
+         'dur': 40, 'args': {'correlation': 9}},
+        # launched before the step, runs before it
+        {'ph': 'X', 'cat': 'kernel', 'name': 'void flash_fwd_kernel<64>()',
+         'ts': 20, 'dur': 30, 'args': {'correlation': 8}},
+    ]
+    record = chip_smoke.step_kernels(events)
+    assert record['kernels'] == 3 and record['kernels_in_steps'] == 2
+    assert record['flash_in_steps'] == {'flash_fwd_kernel': 1,
+                                        'flash_bwd_fused_kernel': 1}
+    assert record['kernel_ms_in_steps'] == 0.07

@@ -15,11 +15,14 @@ Left out, with the ROADMAP queue 1 item each waits for:
 
 * tensor parallelism (9): ``submesh``, ``TestDecodeTpPlan``,
   ``TestShardedEngine``, ``TestReasonMatrix``'s mesh cases and every
-  ``mesh=`` case;
-* a real ``observe.Tracer`` (10): the trace-parentage half of
-  ``test_sharing_counters_and_trace_parentage_survive_the_role_hop`` (its
-  sharing half is twinned below).
+  ``mesh=`` case.
+
+``test_sharing_counters_and_trace_parentage_survive_the_role_hop`` is two
+tests here: its sharing half on both families, its trace half on
+``gpt2_tiny``.
 """
+
+import json
 
 import pickle
 import re
@@ -28,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_serving import BOTH, PORT, REF, FakeClock, Served, plain
+from tests.torch_serving import (BOTH, PORT, REF, FakeClock, Served, plain,
+                                 span_tree)
 from tests.torch_serving import witness
 from tpusystem_torch.parallel.multihost import Loopback, _blob_digest
 from tpusystem_torch.serve import (HandoffCorrupt, KVHandoff, KVStripStore,
@@ -411,22 +415,33 @@ class TestAuditUnderAdoptChurn:
 
 
 def role_fleet(P, served, clock, roles, *, wire=None, producer=None,
-               rows=2, clients=None, **engine_knobs):
+               rows=2, clients=None, tracers=None, **engine_knobs):
     """One replica per role string; a shared ``Loopback`` ``wire`` puts the
     hand-offs on the blob plane; ``clients`` gives each replica a journal
-    store that outlives a kill. Returns (router, handles)."""
+    store that outlives a kill; with a ``tracers`` list each scheduler
+    traces into its own ``P.Tracer`` (appended) and the router into
+    ``router.tracer``. Returns (router, handles)."""
     handles = []
     for index, role in enumerate(roles):
-        def build(role=role):
+        tracer = None
+        if tracers is not None:
+            tracer = P.Tracer(f'rep{index}', clock=clock)
+            tracers.append(tracer)
+
+        def build(role=role, tracer=tracer):
             return P.Scheduler(
                 served.engine(P, rows=rows, block_size=8, **engine_knobs),
-                clock=clock, prefill_only=(role == 'prefill'))
+                clock=clock, prefill_only=(role == 'prefill'),
+                tracer=tracer)
         replica = P.ServingReplica(build, identity=f'rep{index}',
                                    clock=clock, role=role,
                                    client=clients[index] if clients
                                    else None)
         handles.append(P.ReplicaHandle(replica, transport=wire, rank=0))
-    return P.Router(handles, clock=clock, producer=producer), handles
+    router = P.Router(handles, clock=clock, producer=producer,
+                      tracer=None if tracers is None
+                      else P.Tracer('router', clock=clock))
+    return router, handles
 
 
 def reference_results(P, served, clock, requests, **engine_knobs):
@@ -630,6 +645,46 @@ class TestRoleFleet:
             assert sharing['shared_tokens'] > 0
             runs[P.root] = (plain(results), dict(sharing))
         assert runs[PORT.root] == runs[REF.root]
+
+    def test_trace_parentage_survives_the_role_hop(self, gpt2, tmp_path):
+        """The trace half of the reference's drill: requests sharing a
+        system prompt hop from the prefill replica to the decode one, and
+        the merged export holds ONE connected trace per request whose spans
+        cross both replicas (queued/handoff on the prefill process,
+        seated/decode on the decode one), zero orphans; the port's span
+        tree is the reference's."""
+        rng = np.random.default_rng(19)
+        head = rng.integers(0, 256, (12,)).tolist()
+        requests = [(f'r{i}', head + rng.integers(0, 256, (k,)).tolist(), 5)
+                    for i, k in enumerate((3, 2, 4))]
+        trees = {}
+        for P in BOTH:
+            clock, tracers = FakeClock(), []
+            router, handles = role_fleet(P, gpt2, clock,
+                                         ('prefill', 'decode'),
+                                         tracers=tracers, share_prefix=True)
+            for rid, prompt, budget in requests:
+                router.submit(P.Request(rid, list(prompt), budget))
+            router.run_until_idle()
+            for tracer in tracers:
+                router.tracer.merge(tracer)
+            payload = json.loads(router.tracer.export(
+                tmp_path / f'{P.root}-disagg.json').read_text())
+            by_trace = P.connected_traces(payload['traceEvents'])
+            events = [e for e in payload['traceEvents']
+                      if e['ph'] in ('X', 'i')]
+            processes = {e['pid']: e['args']['name']
+                         for e in payload['traceEvents'] if e['ph'] == 'M'}
+            for rid, _, _ in requests:
+                roots = [e for e in events if e['name'] == f'request {rid}']
+                assert len(roots) == 1, rid          # ONE trace per request
+                group = by_trace[roots[0]['args']['trace_id']]
+                crossed = {processes[e['pid']] for e in group
+                           if processes[e['pid']].startswith('rep')}
+                assert crossed == {'rep0', 'rep1'}, (rid, crossed)
+                assert 'handoff' in {e['name'] for e in group}, rid
+            trees[P.root] = span_tree(payload['traceEvents'])
+        assert trees[PORT.root] == trees[REF.root]
 
 
 def _rerouted(events) -> list:

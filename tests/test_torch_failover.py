@@ -11,11 +11,10 @@ requests through both packages on ``gpt2_tiny`` in float32 on the CPU
 the reference's, and greedy streams equal the reference's ``generate``.
 The twins of tests the reference marks ``slow`` are marked ``slow``.
 
-Left out, with the ROADMAP queue 1 item each waits for:
-``test_sigkill_subprocess_drill_under_supervisor`` (the ``Supervisor`` and
-``MemStoreClient`` over a socket, items 8 and 9); the TensorBoard
-consumer's charts (``test_tensorboard_failover_handlers_chart_the_events``,
-10); the compiled-step witness ``trace_count`` (the port compiles nothing).
+``test_sigkill_subprocess_drill_under_supervisor``'s twin runs a port
+serving worker under the port's ``Supervisor`` (slow, as the reference's).
+Left out: the compiled-step witness ``trace_count`` (the port compiles
+nothing).
 """
 
 import logging
@@ -989,3 +988,179 @@ def test_bf16_prefill_and_decode_make_the_same_kv_on_the_cpu(bf16_pair):
     assert whole.keys() == split.keys()
     for name in whole:
         assert torch.equal(whole[name], split[name]), name
+
+
+# ---------------------------------------------------------------------------
+# observability: the failover events chart like everything else
+# ---------------------------------------------------------------------------
+
+
+def test_tensorboard_failover_handlers_chart_the_events(tmp_path):
+    from tests.tb import read_scalars
+    from tpusystem_torch.observe.events import (Backpressure,
+                                                EngineRestarted, LoadShed)
+    from tpusystem_torch.observe.tensorboard import (SummaryWriter,
+                                                     tensorboard_consumer,
+                                                     writer)
+
+    consumer = tensorboard_consumer()
+    board = SummaryWriter(tmp_path)
+    consumer.dependency_overrides[writer] = lambda: board
+    consumer.consume(EngineRestarted(cause='stalled', replayed=2,
+                                     resubmitted=1, seconds=0.8))
+    consumer.consume(LoadShed(id='r9', produced=0, queue_depth=7,
+                              slack=-0.5))
+    consumer.consume(Backpressure(engaged=True, queue_depth=7))
+    board.flush()
+    scalars = read_scalars(tmp_path)        # parsed back, not byte-poked
+    value, step = scalars['serve/recovery_seconds']
+    assert value == pytest.approx(0.8) and step == 1    # restart counter
+    assert scalars['serve/replayed'] == (2.0, 1)
+    assert scalars['serve/resubmitted'] == (1.0, 1)
+    assert scalars['serve/shed'] == (7.0, 1)            # triggering depth
+    value, _ = scalars['serve/shed_slack']
+    assert value == pytest.approx(-0.5)
+    assert scalars['serve/backpressure'] == (1.0, 1)
+
+
+# ---------------------------------------------------------------------------
+# the real thing: SIGKILL under the Supervisor (subprocess drill)
+# ---------------------------------------------------------------------------
+
+# the port's serving worker: the reference drill's (``__graft_entry__.py``
+# ``_SERVE_FAILOVER_WORKER``) on the port, ``gpt2_tiny`` in float32 on the
+# CPU with the port's seeded weights
+SERVE_FAILOVER_WORKER = r'''
+import json, os, signal, sys
+results_path, die_tick = sys.argv[1], int(sys.argv[2])
+import torch
+torch.set_num_threads(1)
+from tpusystem_torch.checkpoint import supervisor_client
+from tpusystem_torch.models import gpt2_tiny
+from tpusystem_torch.observe import FlightRecorder
+from tpusystem_torch.observe.events import RequestReplayed
+from tpusystem_torch.serve import (Engine, Request, SamplingParams,
+                                   Scheduler, ServingReplica)
+from tpusystem_torch.services.prodcon import Producer
+import numpy as np
+
+module = gpt2_tiny(dtype='float32', device='cpu')
+rng = np.random.default_rng(5)
+prompts = [rng.integers(0, 256, (n,)).tolist() for n in (5, 9, 7)]
+budgets = [12, 10, 8]
+# r1 decodes seeded-sampled: the replay must land its threefry counters
+# on the same (seed, position) pairs or the drill diverges bitwise
+sampling = [None,
+            SamplingParams(seed=7, temperature=0.9, top_k=16, top_p=0.95),
+            None]
+
+client = supervisor_client()        # None on the unsupervised reference run
+recorder = FlightRecorder.from_env()   # black box at TPUSYSTEM_FLIGHT
+producer = Producer()
+replays = []
+producer.taps.append(lambda event: replays.append(event)
+                     if isinstance(event, RequestReplayed) else None)
+build = lambda: Scheduler(Engine(module, None, rows=2, block_size=8,
+                                 device='cpu'))
+replica = ServingReplica(build, identity='serve-drill', client=client,
+                         cadence=1, recorder=recorder, producer=producer)
+if not replica.recovered:           # the relaunch must NOT double-submit
+    for index, (prompt, budget) in enumerate(zip(prompts, budgets)):
+        replica.submit(Request(f'r{index}', prompt, budget,
+                               sampling=sampling[index]))
+while not replica.idle:
+    replica.step()
+    if die_tick and not replica.recovered \
+            and replica.scheduler.steps == die_tick:
+        os.kill(os.getpid(), signal.SIGKILL)     # mid-decode, no cleanup
+results = replica.run_until_idle()
+report = replica.report
+json.dump({
+    'results': {rid: completion.tokens for rid, completion in
+                results.items()},
+    'reasons': {rid: completion.reason for rid, completion in
+                results.items()},
+    'recovered': replica.recovered,
+    'replayed': len(report.replayed), 'resubmitted': len(report.resubmitted),
+    'replay_prefixes': {event.id: event.prefix for event in replays},
+}, open(results_path, 'w'))
+'''
+
+
+def _postmortem_prefixes(postmortem: dict) -> dict:
+    """Each still-live request's emitted-token count from a post-mortem's
+    tick entries (admission token + decode emissions, finished rows
+    dropped): the journal's evidence, from an independent artifact."""
+    prefixes: dict[str, int] = {}
+    for entry in postmortem['entries']:
+        if entry.get('kind') != 'tick':
+            continue
+        for rid in entry.get('admitted', {}):
+            prefixes[rid] = prefixes.get(rid, 0) + 1
+        for rid in entry.get('emitted', {}):
+            prefixes[rid] = prefixes.get(rid, 0) + 1
+        for rid in entry.get('completed', []):
+            prefixes.pop(rid, None)
+    return prefixes
+
+
+@pytest.mark.slow
+def test_sigkill_subprocess_drill_under_supervisor(tmp_path):
+    """A serving worker subprocess SIGKILLs itself mid-decode, the port's
+    Supervisor relaunches it (signal death = worker-lost), the relaunch
+    recovers the journal from the supervisor's memstore and finishes:
+    completions token-exact against an uninterrupted run of the same
+    worker, and the worker's flight-recorder post-mortem (write-ahead
+    ring, read back by the supervisor onto ``WorkerExited``) reconstructs
+    exactly the emitted prefixes the journal replay re-prefilled."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from tpusystem_torch.observe.events import WorkerExited
+    from tpusystem_torch.parallel.supervisor import Supervisor
+
+    die_tick = 4                     # mid-decode: rows seated, queue live
+    worker = tmp_path / 'serve_worker.py'
+    worker.write_text(SERVE_FAILOVER_WORKER)
+    env = {'PYTHONPATH': str(pathlib.Path(__file__).resolve().parents[1])}
+    reference_path = tmp_path / 'reference.json'
+    subprocess.run([sys.executable, str(worker), str(reference_path), '0'],
+                   env={**os.environ, **env}, check=True, timeout=300)
+    reference = json.loads(reference_path.read_text())
+    assert not reference['recovered']
+
+    drilled_path = tmp_path / 'drilled.json'
+    exits = []
+
+    class _Bus:                      # collect WorkerExited + postmortems
+        def dispatch(self, event):
+            exits.append(event)
+
+    supervisor = Supervisor(
+        [sys.executable, str(worker), str(drilled_path), str(die_tick)],
+        env=env, backoff_base=0.05, backoff_cap=0.2,
+        crash_loop_window=0.0, producer=_Bus(),
+        flight_path=str(tmp_path / 'flight.json'))
+    assert supervisor.run() == 0
+    assert supervisor.restarts == 1
+    drilled = json.loads(drilled_path.read_text())
+    assert drilled['recovered'], 'relaunch never recovered the journal'
+    assert drilled['replayed'] >= 1, drilled
+    assert drilled['results'] == reference['results']
+    assert drilled['reasons'] == reference['reasons']
+    assert drilled['replay_prefixes'].get('r1'), (
+        'sampled request r1 was not mid-stream at the kill',
+        drilled['replay_prefixes'])
+    relaunch = next(event for event in exits
+                    if isinstance(event, WorkerExited)
+                    and event.action == 'relaunch')
+    assert relaunch.postmortem is not None, 'no post-mortem attached'
+    live = _postmortem_prefixes(relaunch.postmortem)
+    expected = {rid: prefix
+                for rid, prefix in drilled['replay_prefixes'].items()
+                if prefix}
+    assert {rid: n for rid, n in live.items() if n} == expected, (
+        live, drilled['replay_prefixes'])

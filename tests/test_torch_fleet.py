@@ -13,21 +13,21 @@ mid-stream; completions and reroute events equal the reference's run, and
 both equal an uninterrupted fleet. The twins of tests the reference marks
 ``slow`` are marked ``slow``.
 
-Left out, with the ROADMAP queue 1 item each waits for (10: a real
-``observe.Tracer`` and the TensorBoard consumer): the trace-plane half of
-``test_preemption_wave_mid_stream_token_exact`` (its token half is
-twinned), ``test_refused_submit_resets_the_trace_for_a_retry``,
-``test_invalid_submit_closes_the_trace_root_before_reraising`` and
-``test_tensorboard_fleet_handlers_chart_the_events``.
+The trace-plane half of ``test_preemption_wave_mid_stream_token_exact``
+is its own test here (``test_preemption_wave_gives_one_connected_trace_per_
+request``): both packages' merged fleet exports hold the reference's
+properties and the same span tree.
 """
 
+import json
 import logging
 
 import numpy as np
 import pytest
 import torch
 
-from tests.torch_serving import PORT, REF, FakeClock, Served, plain
+from tests.torch_serving import (PORT, REF, FakeClock, Served, plain,
+                                 span_tree)
 from tests.torch_serving import witness as witness_in
 from tpusystem_torch.checkpoint.memstore import MemStore
 from tpusystem_torch.serve import (AutoscalePolicy, FleetSaturated,
@@ -735,20 +735,30 @@ def served():
 
 
 def real_fleet(P, served, clock, n=3, *, cadence=1, rows=2, producer=None,
-               **engine_knobs):
+               tracers=None, **engine_knobs):
     """N supervised replicas over real engines, each journaling into its
-    own ``MemStore`` (what a kill leaves behind)."""
+    own ``MemStore`` (what a kill leaves behind). With a ``tracers`` list,
+    each replica's scheduler traces into its own ``P.Tracer`` (appended to
+    the list) and the router into ``router.tracer``."""
     stores = [P.MemStore() for _ in range(n)]
     handles = []
     for i in range(n):
-        def build():
+        tracer = None
+        if tracers is not None:
+            tracer = P.Tracer(f'rep{i}', clock=clock)
+            tracers.append(tracer)
+
+        def build(tracer=tracer):
             return P.Scheduler(served.engine(P, rows=rows, block_size=8,
-                                             **engine_knobs), clock=clock)
+                                             **engine_knobs), clock=clock,
+                               tracer=tracer)
         replica = P.ServingReplica(build, identity=f'rep{i}',
                                    client=stores[i], cadence=cadence,
                                    clock=clock)
         handles.append(P.ReplicaHandle(replica))
-    router = P.Router(handles, clock=clock, producer=producer)
+    router = P.Router(handles, clock=clock, producer=producer,
+                      tracer=None if tracers is None
+                      else P.Tracer('router', clock=clock))
     return router, handles, stores
 
 
@@ -816,6 +826,45 @@ def _wave(P, served):
     return plain(router.results), plain(seen)
 
 
+def _traced_wave(P, served, tmp_path):
+    """The wave drill traced: every replica's tracer merged into the
+    router's, the export is valid Chrome trace JSON with ONE connected
+    trace per request (the rerouted spans on the survivors parent to the
+    original submission's trace, zero orphans), and some trace crosses
+    engines. Returns the export's span tree."""
+    prompts, budgets = mixed_workload()
+    clock = FakeClock()
+    tracers = []
+    router, handles, _ = real_fleet(P, served, clock, n=3, tracers=tracers)
+    for index, (prompt, budget) in enumerate(zip(prompts, budgets)):
+        router.submit(P.Request(f'r{index}', prompt, budget))
+    wave = P.PreemptionWave(step=2, kills=(handles[0].kill,))
+    drive(router, wave, victims=(handles[0],))
+    assert wave.fired and not handles[0].healthy
+    for tracer in tracers:
+        router.tracer.merge(tracer)
+    path = router.tracer.export(tmp_path / f'{P.root}-fleet-trace.json')
+    payload = json.loads(path.read_text())
+    events = [event for event in payload['traceEvents']
+              if event['ph'] in ('X', 'i')]
+    processes = {event['pid']: event['args']['name']
+                 for event in payload['traceEvents'] if event['ph'] == 'M'}
+    by_trace = P.connected_traces(payload['traceEvents'])     # 0 orphans
+    for index in range(len(prompts)):
+        rid = f'r{index}'
+        roots = [event for event in events
+                 if event['name'] == f'request {rid}']
+        assert len(roots) == 1, (rid, len(roots))     # ONE trace each
+        group = by_trace[roots[0]['args']['trace_id']]
+        owners = {event['args'].get('request') for event in group}
+        assert owners <= {rid, None}, (rid, owners)
+    crossed = [trace_id for trace_id, group in by_trace.items()
+               if len({processes[event['pid']] for event in group
+                       if processes[event['pid']].startswith('rep')}) >= 2]
+    assert crossed, 'no trace crossed engines after the handoff'
+    return span_tree(payload['traceEvents'])
+
+
 def _wave_levers(P, served):
     rng = np.random.default_rng(83)
     head = rng.integers(0, 256, (12,)).tolist()
@@ -881,6 +930,15 @@ class TestFleetChaosDrill:
         to the dead replica after the verdict; the port's run is the
         reference's, event for event."""
         assert _wave(PORT, served) == _wave(REF, served)
+
+    def test_preemption_wave_gives_one_connected_trace_per_request(
+            self, served, tmp_path):
+        """The trace-plane half of the reference's acceptance drill:
+        every process's spans merged (the dead replica's included), one
+        connected trace per request across the kill, on the port as on the
+        reference, and the two exports' span trees equal."""
+        assert _traced_wave(PORT, served, tmp_path) == _traced_wave(
+            REF, served, tmp_path)
 
     def test_preemption_wave_with_sharing_and_fused_on(self, served):
         """The kill drill with ``share_prefix=True`` and
@@ -971,3 +1029,90 @@ def _hedged_sampled(P, served):
 @pytest.mark.slow
 def test_hedged_sampled_duplicates_emit_identical_streams(served):
     assert _hedged_sampled(PORT, served) == _hedged_sampled(REF, served)
+
+
+# ---------------------------------------------------------------------------
+# observability: the fleet events chart, and the router's traces
+# ---------------------------------------------------------------------------
+
+
+def test_tensorboard_fleet_handlers_chart_the_events(tmp_path):
+    from tests.tb import read_scalars
+    from tpusystem_torch.observe.events import (FleetResized,
+                                                ReplicaUnhealthy,
+                                                RequestRerouted)
+    from tpusystem_torch.observe.tensorboard import (SummaryWriter,
+                                                     tensorboard_consumer,
+                                                     writer)
+
+    consumer = tensorboard_consumer()
+    board = SummaryWriter(tmp_path)
+    consumer.dependency_overrides[writer] = lambda: board
+    consumer.consume(ReplicaUnhealthy(name='rep0', cause='died mid-step',
+                                      routed=3))
+    consumer.consume(RequestRerouted(id='a', origin='rep0', target='rep1',
+                                     where='hot', prefix=4,
+                                     cause='failover'))
+    consumer.consume(FleetResized(action='grow', replicas=4,
+                                  cause='backpressure', name='rep3'))
+    board.flush()
+    scalars = read_scalars(tmp_path)        # parsed back, not byte-poked
+    assert scalars['fleet/unhealthy_total'] == (1.0, 1)
+    assert scalars['fleet/rehomed_requests'] == (3.0, 1)
+    assert scalars['fleet/rerouted_total'] == (1.0, 1)
+    assert scalars['fleet/reroute_prefix'] == (4.0, 1)
+    assert scalars['fleet/replicas'] == (4.0, 1)
+
+
+def test_refused_submit_resets_the_trace_for_a_retry():
+    """FleetSaturated's contract is retry-later: the refusal closes its
+    root span truthfully AND unbinds it from the request, so the retry
+    roots a fresh trace instead of parenting into a closed one."""
+    from tpusystem_torch.observe import Tracer
+
+    clock = FakeClock()
+    tracer = Tracer('router', clock=clock)
+    router, handles, _ = fake_fleet(clock, n=1, max_queued=1,
+                                    router_knobs={'tracer': tracer})
+    assert router.submit(Request('r0', [1], 8)) == 'rep0'
+    refused = Request('r1', [1], 8)
+    with pytest.raises(FleetSaturated):
+        router.submit(refused)
+    assert refused.trace is None         # unbound for the retry
+    refusal_roots = [e for e in tracer.events()
+                     if e['name'] == 'request r1' and e['ph'] == 'X']
+    assert refusal_roots[0]['args']['reason'] == 'refused'
+    # backlog drains; the retry lands and roots a SECOND, fresh trace
+    router.run_until_idle()
+    assert router.submit(refused) == 'rep0'
+    router.run_until_idle()
+    roots = [e for e in tracer.events() if e['name'] == 'request r1']
+    assert len(roots) == 2
+    assert len({e['args']['trace_id'] for e in roots}) == 2
+
+
+def test_invalid_submit_closes_the_trace_root_before_reraising():
+    """A request that can never run re-raises the scheduler's ValueError to
+    the caller, and the router closes its root span (reason 'invalid')
+    and unbinds ``request.trace``: no open phantom root per bad
+    submission."""
+    from tpusystem_torch.observe import Tracer
+
+    clock = FakeClock()
+    tracer = Tracer('router', clock=clock)
+
+    class Oversized(FakeScheduler):
+        def submit(self, request):
+            raise ValueError(f'{request.id!r}: exceeds engine capacity')
+
+    replica = FakeReplica('rep0', clock=clock)
+    replica.scheduler = Oversized(clock=clock)
+    router = Router([ReplicaHandle(replica)], clock=clock, tracer=tracer)
+    bad = Request('bad', [1], 10_000)
+    with pytest.raises(ValueError, match='capacity'):
+        router.submit(bad)
+    assert bad.trace is None
+    assert router._trace_roots == {}
+    (root,) = [e for e in tracer.events() if e['ph'] == 'X']
+    assert root['args']['reason'] == 'invalid'
+    assert 'open' not in root['args']

@@ -14,7 +14,14 @@ from tpusystem_torch.serve import Engine
 from tpusystem_torch.train import generate
 
 PACKAGE = pathlib.Path(tpusystem_torch.__file__).resolve().parent
-EXAMPLES = PACKAGE.parent / 'examples' / 'verybasic_torch'
+EXAMPLES = PACKAGE.parent / 'examples'
+# the port's example twins: scripts run by path, and tinysys_torch's inner
+# package, imported by name with its example directory on the path
+TWINS = ('verybasic_torch', 'tinysys_torch', 'lm_torch')
+INNER = ('tinysys_torch', 'tinysys_torch.classifier', 'tinysys_torch.domain',
+         'tinysys_torch.metrics', 'tinysys_torch.services',
+         'tinysys_torch.services.compilation',
+         'tinysys_torch.services.training')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpusystem')
 
 
@@ -33,29 +40,68 @@ CONTROL_PLANE = ('serve.disagg', 'serve.scheduler', 'serve.failover',
 # the reference's serving names that exist only for meshes (ROADMAP queue 1
 # item 9, tensor parallelism)
 MESH_ONLY = ('pool_shardings',)
+# the observability slice and the one-device mesh (scanned like every
+# module)
+OBSERVE = ('observe.trace', 'observe.flight', 'observe.metrics',
+           'observe.logs', 'observe.tensorboard', 'observe.tracking',
+           'observe.profile', 'parallel.mesh', 'parallel.sharding',
+           'data.datasets')
 
 
 def _examples():
-    return sorted(EXAMPLES.glob('*.py'))
+    """Every Python file of the example twins."""
+    return sorted(path for twin in TWINS
+                  for path in (EXAMPLES / twin).rglob('*.py'))
+
+
+def _scripts():
+    """The twins' scripts (their top-level files), run by path."""
+    return sorted(path for twin in TWINS
+                  for path in (EXAMPLES / twin).glob('*.py'))
+
+
+def _import_script(blocked: bool) -> str:
+    """A script importing every module of the port, every inner module
+    of the twins and every twin script, then printing the forbidden
+    modules loaded; ``blocked`` makes every forbidden import fail first,
+    as on a machine without JAX."""
+    names = [name for _, name in _modules()]
+    scripts = [str(path) for path in _scripts()]
+    block = ('import importlib.abc\n'
+             'class Absent(importlib.abc.MetaPathFinder):\n'
+             '    def find_spec(self, name, path=None, target=None):\n'
+             f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+             "            raise ImportError(f'{name} is absent')\n"
+             'sys.meta_path.insert(0, Absent())\n') if blocked else ''
+    return ('import importlib, importlib.util, sys\n' + block
+            + f"sys.path.insert(0, {str(EXAMPLES / 'tinysys_torch')!r})\n"
+            f'for name in {names + list(INNER)!r}:\n'
+            '    importlib.import_module(name)\n'
+            f'for index, path in enumerate({scripts!r}):\n'
+            "    spec = importlib.util.spec_from_file_location("
+            "f'example{index}', path)\n"
+            '    spec.loader.exec_module('
+            'importlib.util.module_from_spec(spec))\n'
+            f'print(sorted(m for m in sys.modules '
+            f"if m.split('.')[0] in {FORBIDDEN!r}))\n")
 
 
 def test_importing_every_module_loads_no_jax():
-    names = [name for _, name in _modules()]
-    examples = [str(path) for path in _examples()]
-    assert len(examples) == 4
-    script = ('import importlib, importlib.util, sys\n'
-              f'for name in {names!r}:\n'
-              '    importlib.import_module(name)\n'
-              f'for index, path in enumerate({examples!r}):\n'
-              "    spec = importlib.util.spec_from_file_location("
-              "f'example{index}', path)\n"
-              '    spec.loader.exec_module('
-              'importlib.util.module_from_spec(spec))\n'
-              f'print(sorted(m for m in sys.modules '
-              f"if m.split('.')[0] in {FORBIDDEN!r}))\n")
-    result = subprocess.run([sys.executable, '-c', script],
+    assert len(_scripts()) == 7          # 4 verybasic, 2 tinysys, 1 lm
+    result = subprocess.run([sys.executable, '-c', _import_script(False)],
                             cwd=PACKAGE.parent, capture_output=True,
                             text=True, timeout=120, check=True)
+    assert result.stdout.strip() == '[]', result.stdout
+
+
+def test_every_module_imports_with_jax_absent():
+    """With every JAX and reference import refused, the port, the
+    observability slice, the one-device mesh and the example twins still
+    import."""
+    result = subprocess.run([sys.executable, '-c', _import_script(True)],
+                            cwd=PACKAGE.parent, capture_output=True,
+                            text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-2000:]
     assert result.stdout.strip() == '[]', result.stdout
 
 
@@ -120,6 +166,16 @@ def test_auto_decode_impl_picks_the_module_path_off_the_card():
 def test_the_scans_cover_the_control_plane():
     scanned = {name for _, name in _modules()}
     assert {f'tpusystem_torch.{name}' for name in CONTROL_PLANE} <= scanned
+
+
+def test_the_scans_cover_observability_and_the_example_twins():
+    scanned = {name for _, name in _modules()}
+    assert {f'tpusystem_torch.{name}' for name in OBSERVE} <= scanned
+    files = {path.relative_to(EXAMPLES).as_posix() for path in _examples()}
+    assert {'tinysys_torch/main.py', 'tinysys_torch/analysis.py',
+            'tinysys_torch/tinysys_torch/classifier.py',
+            'tinysys_torch/tinysys_torch/services/training.py',
+            'lm_torch/main.py'} <= files
 
 
 def test_serve_exports_the_references_names_but_the_mesh_ones():

@@ -219,3 +219,30 @@ def test_engine_validates_capacity_and_saturation(served):
     with pytest.raises(Saturated, match='free row'):
         engine.admit(np.arange(4) + 1, max_new=4)
     assert dataclasses.is_dataclass(engine.step())
+
+
+def test_tensorboard_serve_handlers_chart_the_events(tmp_path):
+    """Twin of ``tests/test_serve.py``'s: the serving events chart through
+    the port's TensorBoard consumer, parsed back."""
+    from tests.tb import read_scalars
+    from tpusystem_torch.observe.events import RequestAdmitted, ServeStepped
+    from tpusystem_torch.observe.tensorboard import (SummaryWriter,
+                                                     tensorboard_consumer,
+                                                     writer)
+
+    consumer = tensorboard_consumer()
+    board = SummaryWriter(tmp_path)
+    consumer.dependency_overrides[writer] = lambda: board
+    consumer.consume(RequestAdmitted(id='r', row=0, prompt_tokens=5,
+                                     ttft=0.01, queue_depth=2))
+    consumer.consume(ServeStepped(step=3, active=2, queue_depth=1,
+                                  emitted=2, tokens_per_sec=123.4))
+    board.flush()
+    scalars = read_scalars(tmp_path)        # parsed back, not byte-poked
+    value, step = scalars['serve/ttft_seconds']
+    assert value == pytest.approx(0.01) and step == 1   # admission counter
+    assert scalars['serve/queue_depth_at_admit'] == (2.0, 1)
+    assert scalars['serve/queue_depth'] == (1.0, 3)
+    assert scalars['serve/active_rows'] == (2.0, 3)
+    value, step = scalars['serve/tok_s']
+    assert value == pytest.approx(123.4) and step == 3

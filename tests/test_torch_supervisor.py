@@ -15,9 +15,9 @@ Also here: the serving tests the reference keeps in
 ``test_supervisor_narrates_the_standby_death_and_relaunches``).
 
 Left out: ``TestBuddyReplication`` (replication between supervisors over
-``TcpTransport``, ROADMAP queue 1, 9. Multi-GPU parallelism), and
-``tests/test_serve_failover.py::test_sigkill_subprocess_drill_under_supervisor``,
-whose worker reads its flight-recorder post-mortem (10. Observability).
+``TcpTransport``, ROADMAP queue 1, 9. Multi-GPU parallelism). The twin of
+``tests/test_serve_failover.py::test_sigkill_subprocess_drill_under_supervisor``
+is in ``tests/test_torch_failover.py``.
 """
 
 from __future__ import annotations
@@ -739,9 +739,33 @@ def test_supervisor_narrates_the_standby_death_and_relaunches():
             if isinstance(event, WorkerRelaunched)] == [1]
 
 
-def test_unported_knobs_name_their_items():
-    with pytest.raises(NotImplementedError, match='10. Observability'):
-        Supervisor(['worker'], memstore=False, flight_path='flight.json')
+def test_unported_knobs_name_their_items(tmp_path):
+    """Every knob of the Supervisor is ported now (no knob raises for a
+    later item): ``tracer=`` and ``flight_path=`` construct; the worker is
+    launched with ``TPUSYSTEM_FLIGHT`` at that path after a stale
+    post-mortem is cleared, and the dump it leaves is read back onto its
+    ``WorkerExited``."""
+    from tpusystem_torch.observe import FlightRecorder, Tracer
+    from tpusystem_torch.observe.flight import ENV_FLIGHT
+
+    flight = tmp_path / 'flight.json'
+    flight.write_text('{"process": "the previous worker", "entries": []}')
+    clock = FakeClock()
+
+    def note(worker):          # what a worker's write-ahead ring leaves
+        FlightRecorder(flight, process='w1').note('tick', step=worker.count)
+
+    popen = scripted(FakeWorker(0, on_poll=note))
+    tracer = Tracer('sup', clock=clock)
+    supervisor = policy_supervisor(popen, clock, tracer=tracer,
+                                   flight_path=str(flight))
+    assert supervisor.tracer is tracer
+    seen = capture_events(supervisor)
+    assert supervisor.run() == 0
+    assert popen.launched[0][ENV_FLIGHT] == str(flight)
+    (exited,) = [event for event in seen if isinstance(event, WorkerExited)]
+    assert exited.postmortem['process'] == 'w1'
+    assert [entry['step'] for entry in exited.postmortem['entries']] == [2]
 
 
 # ---------------------------------------------------------------------------

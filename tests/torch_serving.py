@@ -26,12 +26,13 @@ import numpy as np
 def package(root: str) -> SimpleNamespace:
     """One package's serving names: everything ``{root}.serve`` exports,
     plus the chaos seams, the in-process ``MemStore``, the ``Loopback``
-    blob plane, the events and the in-process buses."""
+    blob plane, the events, the in-process buses and the span tracer."""
     serve = importlib.import_module(f'{root}.serve')
     names = {name: getattr(serve, name) for name in serve.__all__}
     chaos = importlib.import_module(f'{root}.parallel.chaos')
     memstore = importlib.import_module(f'{root}.checkpoint.memstore')
     prodcon = importlib.import_module(f'{root}.services.prodcon')
+    trace = importlib.import_module(f'{root}.observe.trace')
     return SimpleNamespace(
         root=root, **names,
         certify=importlib.import_module(f'{root}.serve.certify'),
@@ -41,7 +42,8 @@ def package(root: str) -> SimpleNamespace:
         Loopback=importlib.import_module(
             f'{root}.parallel.multihost').Loopback,
         blob_digest=memstore.blob_digest, MemStore=memstore.MemStore,
-        Producer=prodcon.Producer, Consumer=prodcon.Consumer)
+        Producer=prodcon.Producer, Consumer=prodcon.Consumer,
+        Tracer=trace.Tracer, connected_traces=trace.connected_traces)
 
 
 REF = package('tpusystem')
@@ -98,6 +100,17 @@ def plain(value, *, seconds: bool = True):
                 fields.pop(name, None)
         return (type(value).__name__, fields)
     return value
+
+
+def span_tree(events: list) -> list:
+    """The spans of a tracer's export as data that compares across
+    packages: process label, name, category, phase, timestamps and args
+    (trace, span and parent ids included), in export order."""
+    processes = {event['pid']: event['args']['name'] for event in events
+                 if event['ph'] == 'M'}
+    return [(processes[event['pid']], event['name'], event.get('cat'),
+             event['ph'], event['ts'], event.get('dur'), event['args'])
+            for event in events if event['ph'] in ('X', 'i')]
 
 
 class Served:

@@ -38,6 +38,7 @@ What differs, because the port's state changes in place:
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -384,12 +385,10 @@ class Checkpointer:
         """``max_to_keep`` bounds the rolling window; ``keep_every`` pins
         every Nth step in addition. ``save_retries`` bounds the retries a
         flaky filesystem gets (exponential backoff from ``retry_backoff``
-        seconds). ``tracer`` (the reference's span tracer) is not ported:
-        anything but None raises."""
-        if tracer is not None:
-            raise NotImplementedError(
-                'Checkpointer(tracer=) is not ported to tpusystem_torch yet '
-                '(ROADMAP queue 1: 10. Observability)')
+        seconds). ``tracer`` (an :class:`~tpusystem_torch.observe.Tracer`,
+        default None = no tracing work) wraps every save and restore in a
+        span, so checkpoint cost shows on the same timeline as the
+        recoveries it bounds."""
         self.root = pathlib.Path(root).absolute()
         self.max_to_keep = max_to_keep
         self.keep_every = keep_every
@@ -409,6 +408,14 @@ class Checkpointer:
                 keep_every=self.keep_every, async_save=self.async_save)
         return self._managers[identity]
 
+    def _span(self, name: str, identity: str, epoch: Any):
+        """A tracing span around one checkpoint operation (nullcontext
+        when tracing is off — the default costs nothing)."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, cat='checkpoint',
+                                args={'identity': identity, 'epoch': epoch})
+
     def save(self, identity: str, epoch: int, state: Any, *,
              extras: Any | None = None) -> None:
         """Snapshot ``state`` under (identity, epoch) and return; the
@@ -422,27 +429,28 @@ class Checkpointer:
         commit that failed raises here; the save itself retries transient
         filesystem errors (``save_retries``, ``retry_backoff``)."""
         self._surface_async_errors(identity)
-        if extras is not None:
-            # sidecar BEFORE the payload commit: a kill between the two
-            # must not leave a committed step with no cursor
-            _atomic_write(self._extras_path(identity, epoch),
-                          json.dumps(extras))
-        manager = self._manager(identity)
-        snapshot = _Snapshot(state)
-        for attempt in range(self.save_retries + 1):
-            try:
-                manager.save(int(epoch), snapshot)
-                break
-            except OSError as error:
-                if attempt == self.save_retries:
-                    raise
-                delay = self.retry_backoff * (2 ** attempt)
-                logger.warning(
-                    'checkpoint save %s/%s/%d failed (%s); retry %d/%d '
-                    'in %.1fs', self.root, identity, epoch, error,
-                    attempt + 1, self.save_retries, delay)
-                time.sleep(delay)
-        self._prune_extras(identity)
+        with self._span('checkpoint-save', identity, epoch):
+            if extras is not None:
+                # sidecar BEFORE the payload commit: a kill between the two
+                # must not leave a committed step with no cursor
+                _atomic_write(self._extras_path(identity, epoch),
+                              json.dumps(extras))
+            manager = self._manager(identity)
+            snapshot = _Snapshot(state)
+            for attempt in range(self.save_retries + 1):
+                try:
+                    manager.save(int(epoch), snapshot)
+                    break
+                except OSError as error:
+                    if attempt == self.save_retries:
+                        raise
+                    delay = self.retry_backoff * (2 ** attempt)
+                    logger.warning(
+                        'checkpoint save %s/%s/%d failed (%s); retry %d/%d '
+                        'in %.1fs', self.root, identity, epoch, error,
+                        attempt + 1, self.save_retries, delay)
+                    time.sleep(delay)
+            self._prune_extras(identity)
 
     def _surface_async_errors(self, identity: str) -> None:
         """Re-raise a background commit failure at the next call."""
@@ -564,15 +572,16 @@ class Checkpointer:
         :class:`FileNotFoundError` naming the committed epochs. With
         ``epoch=None`` the newest committed step is used, falling back over
         steps whose payload fails to load (each discard logged)."""
-        if epoch is not None:
-            if not self.verify(identity, epoch):
-                available = self.committed(identity)
-                raise FileNotFoundError(
-                    f'no committed checkpoint for identity {identity!r} '
-                    f'at epoch {epoch} under {self.root} '
-                    f'(committed epochs: {available or "none"})')
-            return self._restore_step(identity, epoch, target)
-        return self._restore_newest(identity, target)[0]
+        with self._span('checkpoint-restore', identity, epoch):
+            if epoch is not None:
+                if not self.verify(identity, epoch):
+                    available = self.committed(identity)
+                    raise FileNotFoundError(
+                        f'no committed checkpoint for identity {identity!r} '
+                        f'at epoch {epoch} under {self.root} '
+                        f'(committed epochs: {available or "none"})')
+                return self._restore_step(identity, epoch, target)
+            return self._restore_newest(identity, target)[0]
 
     def _restore_step(self, identity: str, epoch: int, target: Any) -> Any:
         path = self.root / identity / str(int(epoch)) / _PAYLOAD

@@ -2,9 +2,10 @@
 
 :class:`SyntheticDigits`, :class:`SyntheticTokens` and
 :class:`SyntheticClicks` are copied as they are (numpy only), so their
-arrays are bitwise the reference's for any arguments. The reference's
-``MemmapTokens`` and ``TorchDataset`` are not ported yet (ROADMAP queue 1
-item 4).
+arrays are bitwise the reference's for any arguments. :class:`MemmapTokens`
+gathers its windows with numpy fancy indexing, which the reference's native
+window gather (``tpusystem/data/native``) equals bit for bit by its own
+contract; :class:`TorchDataset` is copied.
 """
 
 from __future__ import annotations
@@ -119,3 +120,67 @@ class SyntheticClicks:
         leaf."""
         return ({'dense': self._dense[index], 'ids': self._ids[index]},
                 self._labels[index])
+
+
+@register
+class MemmapTokens:
+    """Pretraining corpus as a flat binary file of token ids.
+
+    The standard LM data layout (one contiguous ``dtype`` array on disk, as
+    produced by GPT-2/nanoGPT-style tokenizer scripts): the file is
+    memory-mapped, and sample *i* is the ``sequence_length + 1`` window at
+    ``i * stride`` (``+1`` so the loss can shift inputs/targets from one
+    tensor). Batches gather directly from the page cache via vectorized
+    window indexing — no materialized copy of the corpus in RAM.
+
+    Args:
+        path: binary file of token ids.
+        sequence_length: tokens per sample (the model's ``max_seq``).
+        dtype: on-disk integer dtype (``uint16`` fits 64k vocabs and is the
+            common choice; tokens come back as int32).
+        stride: window step; defaults to ``sequence_length`` (disjoint
+            windows — set smaller for overlapping augmentation).
+    """
+
+    def __init__(self, path, sequence_length: int = 1024,
+                 dtype: str = 'uint16', stride: int | None = None):
+        self.path = str(path)
+        self.sequence_length = sequence_length
+        self.dtype = dtype
+        self.stride = stride or sequence_length
+        self._tokens = np.memmap(self.path, dtype=np.dtype(dtype), mode='r')
+        window = sequence_length + 1
+        if len(self._tokens) < window:
+            raise ValueError(
+                f'{self.path}: {len(self._tokens)} tokens < one window ({window})')
+        self._count = (len(self._tokens) - window) // self.stride + 1
+
+    def __len__(self) -> int:
+        return self._count
+
+    def __getitem__(self, index) -> tuple:
+        window = self.sequence_length + 1
+        if isinstance(index, np.ndarray):
+            # batched window gather: one [batch, window] position matrix
+            # indexed straight from the page cache (the reference's native
+            # gather equals this bit for bit)
+            starts = index.astype(np.int64) * self.stride
+            positions = starts[:, None] + np.arange(window)[None, :]
+            return (self._tokens[positions].astype(np.int32),)
+        start = int(index) * self.stride
+        return (self._tokens[start:start + window].astype(np.int32),)
+
+
+class TorchDataset(ArrayDataset):
+    """Adapter: materialize a (map-style) torch dataset into arrays once,
+    so batches feed the device without per-batch torch->numpy conversion."""
+
+    def __init__(self, dataset):
+        first = dataset[0]
+        columns = len(first) if isinstance(first, (tuple, list)) else 1
+        stacked = [[] for _ in range(columns)]
+        for item in dataset:
+            parts = item if isinstance(item, (tuple, list)) else (item,)
+            for column, part in enumerate(parts):
+                stacked[column].append(np.asarray(part))
+        super().__init__(*[np.stack(column) for column in stacked])

@@ -8,10 +8,10 @@ already-materialized metric floats — never device tensors.
 
 Every dataclass is the reference's, field for field: the event ledger
 (:mod:`tpusystem_torch.observe.ledger`) hashes type and field names, so one
-event stream gives one digest in both packages. Most of these events are
-dispatched by layers that only the reference has so far (the sentinel,
-serving fleet, supervisor, elastic protocol and orchestrator, ROADMAP queue
-1 items 5 and 8-10); the comments name those modules in ``tpusystem``.
+event stream gives one digest in both packages. A few of these events are
+dispatched by layers that only the reference has so far (the elastic
+protocol and the orchestrator, ROADMAP queue 1 items 9 and 10); the
+comments name those modules in ``tpusystem``.
 """
 
 from __future__ import annotations

@@ -34,13 +34,14 @@ finish the epoch on the survivors' data shards and stop at the agreed
 early-stop point.
 
 The port runs one process so far (:mod:`tpusystem_torch.runtime`), where no
-peer can be lost. The launcher, the elastic protocol, the sentinel, the
-serving fleet and the flight recorder that the exit codes below speak of are
-the reference's (``tpusystem.parallel.Supervisor``, ``tpusystem.parallel.
-elastic``, ``tpusystem.train.Sentinel``, ``tpusystem.serve.fleet``,
-``tpusystem.observe.FlightRecorder``) and not ported yet (ROADMAP queue 1
-items 5, 8, 9 and 10); so :func:`exit_for_restart` maps the exit code and
-flushes no black box.
+peer can be lost. The launcher, the sentinel, the serving fleet and the
+flight recorder that the exit codes below speak of are ported
+(:class:`~tpusystem_torch.parallel.Supervisor`,
+:class:`~tpusystem_torch.train.Sentinel`, :mod:`tpusystem_torch.serve.fleet`,
+:class:`~tpusystem_torch.observe.FlightRecorder`); the elastic protocol is
+the reference's (``tpusystem.parallel.elastic``) and waits for ROADMAP queue
+1 item 9. :func:`exit_for_restart` maps the exit code and flushes every
+installed flight recorder, as the reference's does.
 """
 
 from __future__ import annotations
@@ -199,8 +200,10 @@ def exit_for_restart(reason: BaseException) -> SystemExit:
     :data:`FAILURE_EXIT`: mapping unknown exceptions to a restartable
     code (the old behavior) would relaunch a deterministic crash forever.
 
-    The reference also flushes its installed ``FlightRecorder`` here;
-    the port has none yet (ROADMAP queue 1 item 10).
+    Every mapping also flushes any installed
+    :class:`~tpusystem_torch.observe.FlightRecorder` (stamped with the
+    verdict's ``reason`` and ``code``), so a typed exit leaves the worker's
+    black box on disk before the process ends.
     """
     if isinstance(reason, WorkerLostError):
         code = LOST_WORKER_EXIT
@@ -214,6 +217,11 @@ def exit_for_restart(reason: BaseException) -> SystemExit:
         code = reason.exit_code          # e.g. RouterFenced -> 47
     else:
         code = FAILURE_EXIT
+    try:   # the black box must never cost the contract its exit code
+        from tpusystem_torch.observe.flight import dump_installed
+        dump_installed(reason=type(reason).__name__, code=code)
+    except Exception:                            # pragma: no cover
+        logger.exception('flight-recorder exit dump failed')
     return SystemExit(code)
 
 

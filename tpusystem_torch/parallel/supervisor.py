@@ -29,9 +29,11 @@ port of :mod:`tpusystem.parallel.supervisor`, copied.
 
 The loop is injectable (``popen``/``clock``/``sleep``), so backoff and
 crash-loop policy are tested without subprocesses or real sleeps.
-``tracer=`` (span tracing) and ``flight_path=`` (the worker's flight
-recorder) wait for ROADMAP queue 1 item 10 and raise
-``NotImplementedError``.
+``tracer=`` (an :class:`~tpusystem_torch.observe.Tracer`) turns every
+recovery into a parent span with one child per stage; ``flight_path=``
+exports ``TPUSYSTEM_FLIGHT`` to the worker
+(:meth:`~tpusystem_torch.observe.FlightRecorder.from_env`) and attaches its
+post-mortem, read back after every exit, to ``WorkerExited.postmortem``.
 
 Typical launcher ``main()``::
 
@@ -145,11 +147,6 @@ class Supervisor:
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
                  poll_interval: float = 0.05) -> None:
-        if tracer is not None or flight_path is not None:
-            raise NotImplementedError(
-                'Supervisor(tracer=, flight_path=) — span tracing and the '
-                "worker's flight recorder — is not ported to tpusystem_torch "
-                'yet (ROADMAP queue 1: 10. Observability)')
         self.argv = list(argv)
         self.rank = rank
         self.transport = transport
@@ -379,7 +376,10 @@ class Supervisor:
         'what the worker saw' attached to the verdict about it. None
         when recording is off or the worker died before its first
         dump (the recorder's write-ahead cadence bounds that window)."""
-        return None     # flight recording waits for ROADMAP item 10
+        if self.flight_path is None:
+            return None
+        from tpusystem_torch.observe.flight import FlightRecorder
+        return FlightRecorder.read(self.flight_path)
 
     def _worker_exited(self, code: int, action: str, uptime: float,
                        reason: str | None) -> None:
@@ -473,6 +473,16 @@ class Supervisor:
             env = {**os.environ, **self.env}
             if self.server is not None:
                 env.update(self.server.env)
+            if self.flight_path is not None:
+                from tpusystem_torch.observe.flight import ENV_FLIGHT
+                env[ENV_FLIGHT] = str(self.flight_path)
+                # clear the previous worker's post-mortem before launch: a
+                # worker that dies before its FIRST dump must attach None,
+                # not its predecessor's final ticks
+                try:
+                    os.unlink(self.flight_path)
+                except OSError:
+                    pass
             self._first_step_at = None
             self._restore_info = None
             launched = self._clock()

@@ -64,9 +64,8 @@ its requests) unpacks as greedy (:meth:`RequestJournal.unpack`).
 
 The port copies the reference. ``client=`` takes the port's in-process
 :class:`~tpusystem_torch.checkpoint.MemStore` or the supervisor's
-:class:`~tpusystem_torch.checkpoint.MemStoreClient`; the flight recorder
-is not ported yet (ROADMAP queue 1 item 10), so ``recorder=`` takes any
-object with ``note`` and ``dump``. A pickled journal row names its request's
+:class:`~tpusystem_torch.checkpoint.MemStoreClient`; ``recorder=`` takes
+an :class:`~tpusystem_torch.observe.FlightRecorder`. A pickled journal row names its request's
 class by module, so the port's packed journals differ in bytes (and
 digest) from the reference's for the same rows.
 """

@@ -21,9 +21,9 @@ clock in tier-1 with zero real sleeps (the ``Supervisor``
 injectable-clock discipline).
 
 The engine keeps the serving levers (``stream_dtype`` weight streaming);
-:func:`serve_levers` names the defaults. ``tracer=`` keeps the reference's
-duck-typed calls (``begin``/``end``); the port has no ``Tracer`` yet
-(ROADMAP queue 1 item 10). An attached
+:func:`serve_levers` names the defaults. ``tracer=`` takes an
+:class:`~tpusystem_torch.observe.Tracer`: one connected trace per request
+(submit, queued, decode, the verdict). An attached
 :class:`~tpusystem_torch.serve.failover.RequestJournal` (``scheduler.journal``)
 witnesses every lifecycle transition for the kill/replay drill —
 docs/serving.md "Surviving engine failure".
