@@ -310,10 +310,24 @@ Phases, in order; any failure exits non-zero:
     decode tokens/s of both runs. (d) Phase 24 (e)'s killed worker's
     ``WorkerExited.postmortem`` holds its write-ahead ring of steps 1-5 and
     the supervisor's tracer one ``recovery rank0`` span over its stages;
-26. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+26. ResNet (``resnet``): (a) ``resnet_tiny`` in float32 with the
+    ImageNet-style stem and pool at 32x32 (its asymmetric 'SAME' pads):
+    the port against a plain forward written from its parameters (also
+    with bf16 convolutions, the residual stream float32), and weights
+    crossed from the CPU into the card: logits and one AdamW
+    ``build_train_step`` step's loss and gradients against the CPU's with
+    cuDNN's TF32 off, within 1e-4. (b) ResNet-50
+    (``benchmarks/ladder_mfu.py:150-153``: 224x224, bf16, NHWC, batch 64)
+    on one synthetic batch from ``--seed``: 3 warm-up and 10 timed AdamW
+    steps (``cudnn.benchmark`` on for the phase), every loss finite and
+    the last below the first, 25.0-26.5 M parameters; step ms, images/s,
+    peak memory, ``mfu`` (convolutions and head, training as three
+    forwards, over 989 TFLOP/s) and a profiled window of two steps. No
+    hand-written kernel launches in the phase;
+27. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-25 prints its seconds.
+    line. Each of phases 15b and 17-26 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -322,9 +336,11 @@ repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -5452,6 +5468,340 @@ def observe_lm(torch, seed: int, drill: dict) -> dict:
                 launches=launches, card=card_line(),
                 seconds=time.perf_counter() - started)
 
+
+# phase 26: benchmarks/ladder_mfu.py:150-153's image rung, ResNet-50 at
+# 224x224, bf16, NHWC, batch 64; a few warm-up steps, then timed ones
+RESNET_BATCH, RESNET_SIZE, RESNET_WARMUP, RESNET_STEPS = 64, 224, 3, 10
+RESNET_PROFILED = 2
+# (a): resnet_tiny with the ImageNet-style stem and pool at 32x32, so the
+# stem's, the pool's and the strided conv's asymmetric 'SAME' pads all run
+RESNET_SMALL = dict(stem_stride=2, stem_pool=True)
+RESNET_SMALL_SHAPE = (4, 32, 32, 3)
+# float32 tolerances: the port against the plain forward below on one
+# device, and the card against the CPU with cuDNN's TF32 off (both
+# 1e-4 absolute); bf16 convolutions against the plain forward's: 2e-3
+RESNET_TOL, RESNET_BF16_TOL = 1e-4, 2e-3
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """XLA's 'SAME' padding of one dim: output ceil(size / stride), the odd
+    element after."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def plain_resnet(torch, params: dict, groups: int, stem_stride: int,
+                 stem_pool: bool, images, dtype):
+    """The ResNet's forward written plainly from its parameters (contiguous
+    NCHW, every pad an explicit ``F.pad``, GroupNorm as E[x^2] - E[x]^2 in
+    float32, the residual stream float32): what phase 26 (a) holds the
+    port's module to. Float32 logits."""
+    F = torch.nn.functional
+
+    def conv(hidden, kernel, stride):
+        size = kernel.shape[0]
+        top, bottom = same_pads(hidden.shape[2], size, stride)
+        left, right = same_pads(hidden.shape[3], size, stride)
+        hidden = F.pad(hidden.to(dtype), (left, right, top, bottom))
+        return F.conv2d(hidden, kernel.to(dtype).permute(3, 2, 0, 1),
+                        stride=stride)
+
+    def norm(hidden, name):
+        batch, channels, height, width = hidden.shape
+        grouped = hidden.float().reshape(batch, groups, -1)
+        mean = grouped.mean(-1, keepdim=True)
+        variance = ((grouped * grouped).mean(-1, keepdim=True)
+                    - mean * mean).clamp_min(0.0)
+        normed = ((grouped - mean) * torch.rsqrt(variance + 1e-6)).reshape(
+            batch, channels, height, width)
+        return (normed * params[f'{name}.scale'].view(1, -1, 1, 1)
+                + params[f'{name}.bias'].view(1, -1, 1, 1))
+
+    hidden = images.permute(0, 3, 1, 2).contiguous()
+    hidden = torch.relu(norm(conv(hidden, params['stem.kernel'],
+                                  stem_stride), 'stem_norm'))
+    if stem_pool:
+        top, bottom = same_pads(hidden.shape[2], 3, 2)
+        left, right = same_pads(hidden.shape[3], 3, 2)
+        hidden = F.max_pool2d(F.pad(hidden, (left, right, top, bottom),
+                                    value=float('-inf')), 3, 2)
+    blocks = sorted({tuple(map(int, found.groups())) for found in (
+        re.match(r's(\d+)_b(\d+)\.', name) for name in params) if found})
+    for stage, index in blocks:
+        block = f's{stage}_b{index}'
+        stride = 2 if stage > 0 and index == 0 else 1
+        shortcut = hidden
+        if f'{block}.proj.kernel' in params:
+            shortcut = norm(conv(hidden, params[f'{block}.proj.kernel'],
+                                 stride), f'{block}.proj_norm')
+        out = torch.relu(norm(conv(hidden, params[f'{block}.conv1.kernel'],
+                                   1), f'{block}.norm1'))
+        out = torch.relu(norm(conv(out, params[f'{block}.conv2.kernel'],
+                                   stride), f'{block}.norm2'))
+        out = norm(conv(out, params[f'{block}.conv3.kernel'], 1),
+                   f'{block}.norm3')
+        hidden = torch.relu(out + shortcut)
+    pooled = hidden.float().mean(dim=(2, 3))
+    return pooled @ params['head.kernel'] + params['head.bias']
+
+
+def resnet_forward_flops(module, size: int) -> int:
+    """One image's forward through ``module`` at ``size`` x ``size``:
+    2 k^2 C_in C_out H_out W_out a convolution, from the shapes, plus the
+    head's 2 in out (norms, pools and adds not counted)."""
+    flops = 0
+
+    def conv(layer, height, width):
+        nonlocal flops
+        size, _, fan_in, fan_out = layer.kernel.shape
+        height, width = (-(-height // layer.stride),
+                         -(-width // layer.stride))
+        flops += 2 * size * size * fan_in * fan_out * height * width
+        return height, width
+
+    height, width = conv(module.stem, size, size)
+    if module.stem_pool:
+        height, width = -(-height // 2), -(-width // 2)
+    for block in module.blocks():
+        if block.project:
+            conv(block.proj, height, width)
+        conv(block.conv1, height, width)
+        height, width = conv(block.conv2, height, width)
+        conv(block.conv3, height, width)
+    return flops + 2 * module.head.kernel.numel()
+
+
+def kernel_counters():
+    """Every hand-written kernel's wrapper (each keeps ``launches``)."""
+    import importlib
+    counters = []
+    for name in ('decode_matmul', 'embedding_lookup', 'flash',
+                 'grouped_matmul', 'threefry'):
+        module = importlib.import_module(f'tpusystem_torch.ops.cuda.{name}')
+        counters += [value for value in vars(module).values()
+                     if callable(value) and hasattr(value, 'launches')]
+    return counters
+
+
+def residual_dtypes(torch, module, images) -> set:
+    """The dtypes each block of ``module`` takes and returns on
+    ``images``: the residual stream, float32 whatever the conv dtype."""
+    seen = set()
+    hooks = [block.register_forward_hook(
+        lambda _, args, out: seen.update((str(args[0].dtype),
+                                          str(out.dtype))))
+        for block in module.blocks()]
+    try:
+        module(images)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return seen
+
+
+@contextlib.contextmanager
+def conv_tf32_off(torch):
+    """cuDNN's TF32 off inside the block, the setting before restored
+    after: float32 convolutions on the card compared with the CPU's."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def resnet_card_vs_cpu(torch, seed: int, device: str = 'cuda') -> dict:
+    """Phase 26 (a): ``resnet_tiny`` with the ImageNet-style stem and pool
+    at 32x32. Its weights are drawn on the CPU from ``seed`` and crossed
+    into a second module on ``device``. (1) the port's logits, on the CPU,
+    against :func:`plain_resnet` (float32 within 1e-4; with the conv dtype
+    overridden to bf16, within 2e-3, every block taking and returning
+    float32): a symmetric pad or a bf16 residual stream fails; (2) the module on ``device`` against the CPU's,
+    float32 with cuDNN's TF32 off: logits, and one
+    ``build_train_step(module_apply(...), CrossEntropyLoss(), AdamW(...))``
+    step's loss and gradients (read through the step's ``fault=`` seam),
+    within 1e-4."""
+    import numpy as np
+
+    from tpusystem_torch.models import resnet_tiny
+    from tpusystem_torch.train import (AdamW, CrossEntropyLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.normal(size=RESNET_SMALL_SHAPE).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(
+        0, 10, RESNET_SMALL_SHAPE[0]).astype(np.int64))
+    record = {}
+    for dtype in ('float32', 'bfloat16'):
+        cpu = resnet_tiny(dtype=dtype, device='cpu', **RESNET_SMALL)
+        cpu.init_weights(torch.Generator().manual_seed(seed))
+        params = {name: tensor.detach()
+                  for name, tensor in cpu.state_dict().items()}
+        with torch.no_grad():
+            want = plain_resnet(torch, params, cpu.groups, cpu.stem_stride,
+                                cpu.stem_pool, images,
+                                getattr(torch, dtype))
+            got = cpu(images)
+            stream = residual_dtypes(torch, cpu, images)
+        record[f'plain_{dtype}_max_abs_err'] = float(
+            (got - want).abs().max())
+        record[f'logit_scale_{dtype}'] = float(want.abs().max())
+        record[f'residual_{dtype}'] = sorted(stream)
+    if not (record['plain_float32_max_abs_err'] <= RESNET_TOL
+            and record['plain_bfloat16_max_abs_err'] <= RESNET_BF16_TOL
+            and record['residual_bfloat16'] == ['torch.float32']):
+        fail(f'phase 26 (a): the ResNet against its plain forward: {record}')
+
+    cpu = resnet_tiny(device='cpu', **RESNET_SMALL)
+    cpu.init_weights(torch.Generator().manual_seed(seed))
+    card = resnet_tiny(device=device, **RESNET_SMALL)
+    card.load_state_dict(cpu.state_dict())
+    runs = {}
+    with conv_tf32_off(torch):
+        for name, module in (('cpu', cpu), ('card', card)):
+            where = module.head.kernel.device
+            seen = {}
+
+            def capture(step, grads, loss, seen=seen):
+                seen['grads'] = {key: grad.detach().cpu()
+                                 for key, grad in grads.items()}
+                return grads, loss
+            with torch.no_grad():
+                logits = module(images.to(where)).cpu()
+            optimizer = AdamW(lr=1e-3)
+            state = init_state(module, optimizer, rng=seed)
+            step = build_train_step(module_apply(module), CrossEntropyLoss(),
+                                    optimizer, fault=capture)
+            state, (_, loss) = step(state, images.to(where),
+                                    labels.to(where))
+            runs[name] = dict(logits=logits, loss=float(loss),
+                              grads=seen['grads'])
+    grad_err = max(float((runs['card']['grads'][key]
+                          - runs['cpu']['grads'][key]).abs().max())
+                   for key in runs['cpu']['grads'])
+    record.update(
+        device=str(device), shape=list(RESNET_SMALL_SHAPE),
+        logits_max_abs_err=float((runs['card']['logits']
+                                  - runs['cpu']['logits']).abs().max()),
+        loss=runs['card']['loss'], cpu_loss=runs['cpu']['loss'],
+        loss_abs_err=abs(runs['card']['loss'] - runs['cpu']['loss']),
+        grads_max_abs_err=grad_err, tolerance=RESNET_TOL,
+        bf16_tolerance=RESNET_BF16_TOL, conv_tf32=False)
+    if not (record['logits_max_abs_err'] <= RESNET_TOL
+            and record['loss_abs_err'] <= RESNET_TOL
+            and grad_err <= RESNET_TOL and math.isfinite(record['loss'])):
+        fail(f'phase 26 (a): the card against the CPU: {record}')
+    return record
+
+
+def train_resnet(torch, seed: int, device: str = 'cuda',
+                 batch: int = RESNET_BATCH, size: int = RESNET_SIZE,
+                 steps: int = RESNET_STEPS, warmup: int = RESNET_WARMUP,
+                 **overrides) -> dict:
+    """Phase 26 (b): ResNet-50 (``resnet50``, bf16 convolutions, random
+    weights from ``seed``) trains on one fixed synthetic NHWC batch from
+    ``seed`` with AdamW: ``warmup`` steps, then ``steps`` timed ones and a
+    profiled window of two. Fails unless every loss is finite, the last
+    is below the first and the parameter count is 25.0-26.5 M. ``mfu``
+    counts the convolutions' and the head's products (2 k^2 C_in C_out
+    H_out W_out each), training as three forwards, over 989 TFLOP/s."""
+    import numpy as np
+
+    from tpusystem_torch.models import resnet50
+    from tpusystem_torch.train import (AdamW, CrossEntropyLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+
+    module = resnet50(device=device, **overrides)
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    params = sum(parameter.numel() for parameter in module.parameters())
+    if not overrides and not 25.0e6 <= params <= 26.5e6:
+        fail(f'phase 26 (b): ResNet-50 has {params} parameters')
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(
+        np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(
+        0, module.classes, batch).astype(np.int64)).to(device)
+    optimizer = AdamW(lr=1e-3)
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module), CrossEntropyLoss(),
+                            optimizer)
+    synchronize = (torch.cuda.synchronize if device != 'cpu'
+                   else (lambda: None))
+    losses = []
+    started = time.perf_counter()
+    for _ in range(warmup):
+        state, (_, loss) = step(state, images, labels)
+        losses.append(loss.item())
+    warmup_s = time.perf_counter() - started
+    synchronize()
+    if device != 'cpu':
+        torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, images, labels)
+        losses.append(loss.item())                    # waits for the step
+        seconds.append(time.perf_counter() - started)
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'phase 26 (b): non-finite ResNet loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'phase 26 (b): the ResNet loss did not fall: {losses}')
+    median = sorted(seconds)[len(seconds) // 2]
+    forward = resnet_forward_flops(module, size)
+    flops = 3 * forward * batch
+    record = dict(
+        batch=batch, image=[size, size, 3], dtype=module.dtype,
+        params=params, losses=losses, warmup_s=warmup_s,
+        step_ms=[1e3 * s for s in seconds], median_step_ms=1e3 * median,
+        min_step_ms=1e3 * min(seconds), max_step_ms=1e3 * max(seconds),
+        images_per_s=batch / median, forward_flops_per_image=forward,
+        flops_per_step=flops, mfu=flops / median / BF16_FLOPS,
+        mfu_convention='2 k^2 C_in C_out H_out W_out a conv plus the '
+        "head's 2 in out, training = 3 x forward, over 989 TFLOP/s dense "
+        'bf16')
+    if device != 'cpu':
+        record['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+        record['profile'] = profile_steps(
+            torch, lambda: step(state, images, labels),
+            steps=RESNET_PROFILED, top_n=10,
+            sums=('conv', 'xmma', 'GroupNorm', 'Moments', 'elementwise',
+                  'adam', 'foreach'))
+    return record
+
+
+def resnet_phase(torch, seed: int) -> dict:
+    """Phase 26: (a) ``resnet_tiny`` on the card against the CPU, (b)
+    ResNet-50 trained at ``ladder_mfu.py``'s rung. Launches none of the
+    hand-written kernels: every counter is set to 0 before and read
+    after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    counters = kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    small = resnet_card_vs_cpu(torch, seed)
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True      # cuDNN picks its algorithms
+    try:
+        trained = train_resnet(torch, seed)
+    finally:
+        torch.backends.cudnn.benchmark = before
+    launched = {counter.__name__: counter.launches for counter in counters
+                if counter.launches}
+    if launched:
+        fail(f'phase 26 launched hand-written kernels: {launched}')
+    return dict(small=small, train=trained, cudnn_benchmark=True,
+                card=card_line(), seconds=time.perf_counter() - started)
+
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -5544,6 +5894,8 @@ def main() -> None:
     print('train-resilient ' + json.dumps(resilient))
     observed = observe_lm(torch, args.seed, resilient['kill'])
     print('observe-lm ' + json.dumps(observed))
+    resnet = resnet_phase(torch, args.seed)
+    print('resnet ' + json.dumps(resnet))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -5764,6 +6116,7 @@ def main() -> None:
              'spec_generate': spec_generated, 'serve_spec': spec_served,
              'serve_moe': moe_served, 'serve_disagg': disagg,
              'train_resilient': resilient, 'observe_lm': observed,
+             'resnet': resnet,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -834,3 +834,96 @@ def test_step_kernels_reads_the_kernels_inside_the_step_ranges():
     assert record['flash_in_steps'] == {'flash_fwd_kernel': 1,
                                         'flash_bwd_fused_kernel': 1}
     assert record['kernel_ms_in_steps'] == 0.07
+
+
+def test_phase_26_prints_after_the_lm_phase():
+    """Phase 26 prints its line after phase 25's, and the ``kernels`` and
+    ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('observe-lm '") < source.index(
+        "print('resnet '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+
+
+def _symmetric_pads(monkeypatch):
+    """flax's asymmetric 'SAME' pads replaced by ``k // 2`` on both sides
+    (the output shapes stay the same)."""
+    from tpusystem_torch.models import resnet
+    same = resnet.same_pads
+    monkeypatch.setattr(
+        resnet, 'same_pads', lambda size, kernel, stride:
+        (kernel // 2,) * 2 if sum(same(size, kernel, stride)) % 2
+        else same(size, kernel, stride))
+
+
+def _bf16_residual(monkeypatch):
+    """Norms that hand bf16 back where the convolutions are bf16: a bf16
+    residual stream."""
+    import torch
+
+    from tpusystem_torch.models import resnet
+    norm = resnet.GroupNorm.forward
+    monkeypatch.setattr(
+        resnet.GroupNorm, 'forward', lambda self, hidden:
+        norm(self, hidden).to(hidden.dtype)
+        if hidden.dtype == torch.bfloat16 else norm(self, hidden))
+
+
+@pytest.mark.parametrize('broken', [None, _symmetric_pads, _bf16_residual],
+                         ids=['as-is', 'symmetric-pads', 'bf16-residual'])
+def test_phase_26_holds_the_resnet_on_the_cpu(monkeypatch, one_torch_thread,
+                                               broken):
+    """Phase 26 (a) at ``resnet_tiny`` on the CPU (both sides on the CPU):
+    the port's ResNet passes against the plain forward, and a symmetric
+    pad or a bf16 residual stream fails it."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    monkeypatch.setattr(chip_smoke, 'fail', failures.append)
+    if broken is not None:
+        broken(monkeypatch)
+    record = chip_smoke.resnet_card_vs_cpu(torch, 0, device='cpu')
+    if broken is None:
+        assert failures == []
+        assert record['plain_float32_max_abs_err'] <= 1e-5
+        assert record['residual_bfloat16'] == ['torch.float32']
+        assert record['grads_max_abs_err'] == 0.0       # same device
+    else:
+        assert len(failures) == 1 and 'plain forward' in failures[0]
+
+
+def test_phase_26_trains_a_small_resnet_on_the_cpu(one_torch_thread):
+    """Phase 26 (b)'s loop at ``resnet_tiny``'s widths on the CPU: the
+    losses are finite and fall, the record names its ``mfu``
+    convention."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.train_resnet(
+        torch, 0, 'cpu', batch=4, size=32, steps=3, warmup=2,
+        stages=(1, 1), width=16, groups=8, classes=10)
+    assert failures == []
+    assert len(record['losses']) == 5 and len(record['step_ms']) == 3
+    assert record['losses'][-1] < record['losses'][0]
+    assert 'training = 3 x forward' in record['mfu_convention']
+    assert record['flops_per_step'] == 3 * 4 * record[
+        'forward_flops_per_image']
+
+
+def test_resnet50_forward_flops_from_the_shapes():
+    """8.18 GFLOP an image at 224x224: ResNet-50's 4.09 G multiply-adds."""
+    from tpusystem_torch.models import resnet50
+    flops = _chip_smoke().resnet_forward_flops(resnet50(device='meta'), 224)
+    assert flops == 8_178_368_512
+
+
+def test_kernel_counters_are_every_kernel_wrapper():
+    names = {counter.__name__ for counter in _chip_smoke().kernel_counters()}
+    assert {'flash_attention_lse', 'flash_bwd_fused', 'flash_bwd_fused_g1',
+            'flash_bwd_dq', 'flash_bwd_dkv', 'decode_matmul', 'decode_ffn',
+            'gather_rows_matmul', 'matmul_scatter_rows', 'gather_rows',
+            'scatter_add_rows', 'bernoulli_mask', 'row_uniforms'} <= names

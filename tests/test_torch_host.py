@@ -979,13 +979,19 @@ def test_compile_is_the_identity():
 
 @pytest.mark.parametrize('how', ['argument', 'environment', 'processes'])
 def test_the_runtime_refuses_a_second_process(_no_job, how):
+    """A job of more than one process joins the TCP control plane
+    (``tests/test_torch_multihost.py`` drives it); one named only by a
+    coordinator or a process count, without this process's rank, is
+    refused before anything is dialed, and the world stays one process."""
     from tpusystem_torch import Runtime
     from tpusystem_torch.parallel import world
+    for name in ('TPUSYSTEM_PROCESS_ID', 'TPUSYSTEM_NUM_PROCESSES'):
+        _no_job.delenv(name, raising=False)
     if how == 'environment':
         _no_job.setenv('TPUSYSTEM_COORDINATOR', 'head:8476')
     arguments = {'argument': dict(coordinator='head:8476'),
                  'environment': {}, 'processes': dict(num_processes=2)}[how]
-    with pytest.raises(NotImplementedError, match='9. Multi-GPU parallelism'):
+    with pytest.raises(ValueError, match='process_id'):
         Runtime(**arguments)
     _no_job.delenv('TPUSYSTEM_COORDINATOR', raising=False)
     assert world().process_count == 1

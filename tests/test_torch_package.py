@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import tpusystem_torch
-from tpusystem_torch.models import gpt2_tiny
+from tpusystem_torch.models import gpt2_tiny, resnet_tiny
 from tpusystem_torch.serve import Engine
 from tpusystem_torch.train import generate
 
@@ -46,6 +46,15 @@ OBSERVE = ('observe.trace', 'observe.flight', 'observe.metrics',
            'observe.logs', 'observe.tensorboard', 'observe.tracking',
            'observe.profile', 'parallel.mesh', 'parallel.sharding',
            'data.datasets')
+
+
+# the multi-process control plane, elastic membership, the orchestrator
+# and the ResNet (scanned like every module)
+MULTI_PROCESS = ('parallel.multihost', 'parallel.chaos', 'parallel.elastic',
+                 'parallel.supervisor', 'runtime', 'orchestrator',
+                 'orchestrator.namespace', 'orchestrator.journal',
+                 'orchestrator.gang', 'orchestrator.certify',
+                 'models.resnet')
 
 
 def _examples():
@@ -105,30 +114,9 @@ def test_every_module_imports_with_jax_absent():
     assert result.stdout.strip() == '[]', result.stdout
 
 
-def test_no_module_imports_jax_or_the_reference():
-    found = []
-    for path in [path for path, _ in _modules()] + _examples():
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [alias.name for alias in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or '']
-            else:
-                continue
-            found += [(path.name, name) for name in names
-                      if name.split('.')[0] in FORBIDDEN]
-    assert found == []
-
-
-@pytest.mark.parametrize('script', ['chip_smoke.py', 'bwd_phases.py',
-                                    'grouped_ab.py', 'decode_lookup_ab.py',
-                                    'serve_ab.py'])
-def test_card_scripts_import_no_jax_or_the_reference(script):
-    """The scripts run on the card's machine, which has no JAX: at the top
-    of the repository, they import the port and nothing of JAX or the
-    reference package, at any depth of the file."""
-    path = PACKAGE.parent / script
+def _forbidden(path: pathlib.Path) -> list[str]:
+    """The JAX or reference modules ``path`` imports, at any depth of the
+    file (lazy imports inside functions too)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     found = []
     for node in ast.walk(tree):
@@ -139,7 +127,35 @@ def test_card_scripts_import_no_jax_or_the_reference(script):
         else:
             continue
         found += [name for name in names if name.split('.')[0] in FORBIDDEN]
+    return found
+
+
+def test_no_module_imports_jax_or_the_reference():
+    found = [(path.name, name)
+             for path in [path for path, _ in _modules()] + _examples()
+             for name in _forbidden(path)]
     assert found == []
+
+
+@pytest.mark.parametrize('source', [
+    'import jax\n', 'from tpusystem.parallel import elastic\n',
+    'def lazy():\n    from tpusystem.orchestrator import gang\n',
+    'import flax.linen as nn\n'])
+def test_the_scan_catches_a_module_that_imports_jax_or_the_reference(
+        tmp_path, source):
+    path = tmp_path / 'planted.py'
+    path.write_text('import torch\n' + source)
+    assert _forbidden(path)
+
+
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'bwd_phases.py',
+                                    'grouped_ab.py', 'decode_lookup_ab.py',
+                                    'serve_ab.py', 'resnet_layout_ab.py'])
+def test_card_scripts_import_no_jax_or_the_reference(script):
+    """The scripts run on the card's machine, which has no JAX: at the top
+    of the repository, they import the port and nothing of JAX or the
+    reference package, at any depth of the file."""
+    assert _forbidden(PACKAGE.parent / script) == []
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -151,6 +167,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         generate(module, None, [[1, 2, 3]], steps=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gpt2_tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet_tiny()
     assert Engine(module, None, rows=1, block_size=8,
                   device='cpu').device.type == 'cpu'
 
@@ -166,6 +184,14 @@ def test_auto_decode_impl_picks_the_module_path_off_the_card():
 def test_the_scans_cover_the_control_plane():
     scanned = {name for _, name in _modules()}
     assert {f'tpusystem_torch.{name}' for name in CONTROL_PLANE} <= scanned
+
+
+def test_the_scans_cover_the_multi_process_slice():
+    """The multi-process control plane, elastic membership, the
+    orchestrator and the ResNet are scanned and imported like every
+    module."""
+    scanned = {name for _, name in _modules()}
+    assert {f'tpusystem_torch.{name}' for name in MULTI_PROCESS} <= scanned
 
 
 def test_the_scans_cover_observability_and_the_example_twins():

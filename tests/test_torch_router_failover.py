@@ -11,12 +11,12 @@ real-engine drills (kill the router mid-stream; one certification, marked
 packages on ``gpt2_tiny`` in float32 on the CPU (``tests/torch_serving.py``)
 and compare completions and the takeover's counts.
 
-Left out, with the ROADMAP queue 1 item each waits for (8: the
-``Supervisor``): ``test_supervised_fenced_router_halts_for_triage``,
-``test_supervisor_narrates_the_standby_death_and_relaunches`` and the
-``supervisor._CODE_NAMES`` check of ``test_fenced_maps_to_exit_47_and_halts``
-(its exit-code half is twinned). The reference's ``trace_count`` witness
-has no counterpart (the port compiles nothing).
+The supervised-router tests (``test_supervised_fenced_router_halts_for_
+triage``, ``test_supervisor_narrates_the_standby_death_and_relaunches`` and
+the ``supervisor._CODE_NAMES`` check of
+``test_fenced_maps_to_exit_47_and_halts``) are twinned in
+``tests/test_torch_supervisor.py``. The reference's ``trace_count``
+witness has no counterpart (the port compiles nothing).
 """
 
 import numpy as np

@@ -12,11 +12,11 @@ events equal the reference's, and its greedy streams equal the reference's
 standalone ``generate``. Runs on the real clock compare everything but
 wall-clock fields.
 
-Left out, with the ROADMAP queue 1 item each waits for: the TensorBoard
-consumer's serving charts
-(``test_tensorboard_serve_handlers_chart_the_events``; 10). The
-compiled-step witness ``trace_count`` has no counterpart (the port compiles
-nothing, so the twins check the streams alone).
+The TensorBoard consumer's serving charts
+(``test_tensorboard_serve_handlers_chart_the_events``) are twinned in
+``tests/test_torch_serve.py``. The compiled-step witness ``trace_count``
+has no counterpart (the port compiles nothing, so the twins check the
+streams alone).
 """
 
 import time

@@ -6,8 +6,9 @@ runs ``speculate + 1`` draft steps, one module-path verify of every branch's
 window, and emits the longest accepted prefix plus one token. In float32 on
 the CPU the streams are token for token the reference ``Engine``'s (the
 same weights, carried over by ``params_from_jax``) and the port's own
-``generate``. ``Scheduler`` is not ported yet (ROADMAP queue 1, item 5), so
-the drills the reference runs through it are driven by ``engine.step()``.
+``generate``. The drills are driven by ``engine.step()``; the port's
+``Scheduler`` (``serve/scheduler.py``) has its own twins in
+``tests/test_torch_scheduler.py``.
 """
 
 import jax

@@ -14,8 +14,9 @@ Also here: the serving tests the reference keeps in
 ``test_supervised_fenced_router_halts_for_triage``,
 ``test_supervisor_narrates_the_standby_death_and_relaunches``).
 
-Left out: ``TestBuddyReplication`` (replication between supervisors over
-``TcpTransport``, ROADMAP queue 1, 9. Multi-GPU parallelism). The twin of
+And ``TestBuddyReplication``: hot state replicated between two
+supervisors over the port's ``TcpTransport`` (and ``ChaosTransport``,
+whose truncated chunks the transfer digest catches). The twin of
 ``tests/test_serve_failover.py::test_sigkill_subprocess_drill_under_supervisor``
 is in ``tests/test_torch_failover.py``.
 """
@@ -36,7 +37,7 @@ import torch
 
 from tpusystem_torch.checkpoint.memstore import (MemStore, MemStoreClient,
                                                  MemStoreServer, blob_digest,
-                                                 serialize_state,
+                                                 pack_hot, serialize_state,
                                                  supervisor_client)
 from tpusystem_torch.observe.events import (RecoveryTimeline, WorkerExited,
                                             WorkerRelaunched)
@@ -50,6 +51,7 @@ from tpusystem_torch.parallel.recovery import (CRASH_LOOP_EXIT,
                                                WorkerLostError,
                                                WorldResizedError,
                                                exit_for_restart)
+from tpusystem_torch.parallel.multihost import Hub, TcpTransport
 from tpusystem_torch.parallel.supervisor import Supervisor
 from tpusystem_torch.services.prodcon import Consumer, Producer
 
@@ -1065,3 +1067,146 @@ class TestEndToEndDrill:
             tmp_path, 'disk', die_at=self.DIE_AT, memstore=False)
         assert code == 0 and resumes[0]['source'] == 'disk'
         assert losses == reference
+
+
+# ---------------------------------------------------------------------------
+# buddy replication over the control plane (supervisor pod)
+
+
+class TestBuddyReplication:
+
+    def pod(self, faults=None):
+        from tpusystem_torch.parallel.chaos import ChaosTransport
+        hub = Hub(2)
+        make = (lambda r: ChaosTransport(hub.address, r, 2, faults=faults[r])
+                if faults else TcpTransport(hub.address, r, 2))
+        transports = [make(rank) for rank in range(2)]
+        deadline = time.monotonic() + 5
+        while len(hub._clients) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return hub, transports
+
+    def test_push_is_replicated_to_the_buddy(self):
+        hub, transports = self.pod()
+        supervisors = [Supervisor(['w'], rank=rank,
+                                  transport=transports[rank], buddy=1 - rank)
+                       for rank in range(2)]
+        try:
+            client = MemStoreClient(supervisors[0].server.address)
+            client.push(IDENTITY, 7, b'hot state bytes', extras={'b': 7})
+            client.close()
+            deadline = time.monotonic() + 5
+            while (supervisors[1].store.newest(IDENTITY, replica=True) is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            replica = supervisors[1].store.newest(IDENTITY, replica=True)
+            assert replica is not None
+            assert replica.blob == b'hot state bytes'
+            assert replica.step == 7 and replica.extras == {'b': 7}
+            # the buddy's LOCAL namespace is untouched — replicas cannot
+            # shadow the buddy host's own state
+            assert supervisors[1].store.newest(IDENTITY) is None
+        finally:
+            for supervisor in supervisors:
+                supervisor.close()
+            for transport in transports:
+                transport.close()
+            hub.close()
+
+    def test_replaced_host_pulls_from_its_buddy(self):
+        """The replaced-host path: a FRESH supervisor (empty RAM) serving
+        its worker's `get` pulls the hot state back from the buddy's
+        replica slot over the control plane, digest-verified end to end."""
+        hub, transports = self.pod()
+        original = Supervisor(['w'], rank=0, transport=transports[0], buddy=1)
+        buddy = Supervisor(['w'], rank=1, transport=transports[1], buddy=0)
+        try:
+            client = MemStoreClient(original.server.address)
+            client.push(IDENTITY, 9, b'replicate me', extras={'b': 9})
+            client.close()
+            deadline = time.monotonic() + 5
+            while (buddy.store.newest(IDENTITY, replica=True) is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            # host 0 is replaced: its supervisor restarts with empty RAM
+            original.close()
+            transports[0].close()
+            replacement_transport = TcpTransport(hub.address, 0, 2)
+            replacement = Supervisor(['w'], rank=0,
+                                     transport=replacement_transport, buddy=1)
+            try:
+                client = MemStoreClient(replacement.server.address)
+                pulled = client.fetch(IDENTITY)
+                client.close()
+                assert pulled is not None
+                assert pulled.step == 9 and pulled.blob == b'replicate me'
+                # and it is now cached locally for the next get
+                assert replacement.store.newest(IDENTITY).step == 9
+            finally:
+                replacement.close()
+                replacement_transport.close()
+        finally:
+            buddy.close()
+            original.close()
+            for transport in transports:
+                transport.close()
+            hub.close()
+
+    def test_concurrent_buddy_push_cannot_satisfy_a_pull(self):
+        """Review regression: while a replaced host pulls its state back
+        (key 'hot:{id}'), the buddy's own concurrent replication push of
+        ITS state (key 'replica:{id}') must never be mistaken for the
+        pull's answer — with symmetric shard shapes that would silently
+        restore the wrong host's bytes."""
+        hub, transports = self.pod()
+        try:
+            # rank 1 actively replicates its own state toward rank 0
+            transports[1].send_blob(0, f'replica:{IDENTITY}', b'rank1 OWN')
+            # rank 0's pull must NOT see it: rank 1 has no replica slot
+            # for rank 0 yet, so the honest answer is a NAK
+            from tpusystem_torch.parallel.multihost import BlobError
+            transports[0].on_blob = lambda *a: None   # swallow the push
+            with pytest.raises(BlobError, match='no blob'):
+                transports[0].fetch_blob(1, f'hot:{IDENTITY}', timeout=5)
+        finally:
+            for transport in transports:
+                transport.close()
+            hub.close()
+
+    def test_truncated_replication_keeps_the_previous_copy(self, caplog):
+        """Chaos: the replication transfer loses half a chunk — the
+        transfer digest catches it at the receiving transport and the
+        buddy keeps its previous (older) replica instead of a torn one."""
+        import logging
+        from tpusystem_torch.parallel.chaos import Faults
+        faults = [Faults(seed=1, truncate=1.0, kinds=('blob',)),
+                  Faults(seed=2)]
+        hub, transports = self.pod(faults=faults)
+        supervisors = [Supervisor(['w'], rank=rank,
+                                  transport=transports[rank], buddy=1 - rank)
+                       for rank in range(2)]
+        try:
+            # seed the buddy with a good older replica, fault-free
+            from tpusystem_torch.checkpoint.memstore import HotState
+            good = pack_hot(HotState(step=3, digest=blob_digest(b'v3'),
+                                     blob=b'v3', extras=None))
+            supervisors[1]._accept_replica(0, f'replica:{IDENTITY}', good)
+            assert supervisors[1].store.newest(IDENTITY, replica=True).step == 3
+            # now the live replication path, with every blob chunk truncated
+            client = MemStoreClient(supervisors[0].server.address)
+            with caplog.at_level(logging.WARNING, 'tpusystem_torch.multihost'):
+                client.push(IDENTITY, 8, b'v8 fresh state')
+                deadline = time.monotonic() + 3
+                while ('digest' not in caplog.text
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+            client.close()
+            assert faults[0].truncated       # the fault really fired
+            held = supervisors[1].store.newest(IDENTITY, replica=True)
+            assert held is not None and held.step == 3   # old copy stands
+        finally:
+            for supervisor in supervisors:
+                supervisor.close()
+            for transport in transports:
+                transport.close()
+            hub.close()

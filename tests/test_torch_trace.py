@@ -1,9 +1,8 @@
 """The port's trace plane (``observe/trace.py``), metric plane
 (``observe/metrics.py``) and flight recorder (``observe/flight.py``): the
 twins of ``tests/test_trace.py``, each test named as its reference test,
-on the port's ``Scheduler``, ``Supervisor`` and ``Checkpointer``
-(``test_elastic_wave_becomes_spans`` waits for the elastic coordinator,
-ROADMAP queue 1 item 9). Then the cross-package check: the reference's
+on the port's ``Scheduler``, ``Supervisor``, ``Checkpointer`` and elastic
+coordinator. Then the cross-package check: the reference's
 ``Scheduler`` and the port's, over twin ``gpt2_tiny`` engines with crossed
 weights on one fake clock, record the same span tree."""
 
@@ -598,8 +597,30 @@ class TestSubsystemSpans:
         assert supervisor.timelines[0].stages['first-step'] == \
             pytest.approx(4.0)
 
-    # test_elastic_wave_becomes_spans has no twin yet: the elastic
-    # coordinator is ROADMAP queue 1, 9. Multi-GPU parallelism
+    def test_elastic_wave_becomes_spans(self):
+        from tpusystem_torch.parallel.elastic import (ElasticCoordinator,
+                                                      ResizeDecision)
+
+        clock = FakeClock()
+        tracer = Tracer('sup0', clock=clock)
+        coordinator = ElasticCoordinator(Loopback(), rank=0, size=4,
+                                         clock=clock, tracer=tracer)
+        # a committed wave's bookkeeping (the protocol itself is drilled
+        # in test_torch_elastic.py; here: its trace-plane projection)
+        coordinator.decisions.append(ResizeDecision(epoch=1,
+                                                    members=(0, 1)))
+        coordinator._committed_at = 50.0
+        coordinator._commit_stages = {'propose': 0.5, 'commit': 1.5}
+        clock.now = 53.0
+        coordinator.resumed(step=12, source='hot-reshard')
+        by_trace = connected(tracer.events())
+        (group,) = by_trace.values()
+        root = next(e for e in group
+                    if e['name'] == 'elastic-resize epoch1')
+        assert root['args']['source'] == 'hot-reshard'
+        assert root['dur'] == pytest.approx(3.0e6)
+        names = {e['name'] for e in group}
+        assert 'wave-open→propose' in names and 'commit→resumed' in names
 
     def test_checkpointer_save_restore_spans(self, tmp_path):
         from tpusystem_torch.checkpoint import Checkpointer

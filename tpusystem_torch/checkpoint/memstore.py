@@ -23,8 +23,9 @@ of :mod:`tpusystem.checkpoint.memstore`, one host's pieces.
   :meth:`~tpusystem_torch.checkpoint.Checkpointer.resume` from disk.
 
 The payload is host bytes only, never device handles, so a blob is valid
-across processes. The TCP transport between supervisors and the hub are
-ROADMAP queue 1 item 9 (Multi-GPU parallelism).
+across processes: supervisors replicate it to their buddies over the
+control plane's blob plane
+(:class:`~tpusystem_torch.parallel.multihost.TcpTransport`).
 """
 
 from __future__ import annotations

@@ -8,10 +8,9 @@ already-materialized metric floats — never device tensors.
 
 Every dataclass is the reference's, field for field: the event ledger
 (:mod:`tpusystem_torch.observe.ledger`) hashes type and field names, so one
-event stream gives one digest in both packages. A few of these events are
-dispatched by layers that only the reference has so far (the elastic
-protocol and the orchestrator, ROADMAP queue 1 items 9 and 10); the
-comments name those modules in ``tpusystem``.
+event stream gives one digest in both packages. The elastic protocol
+(:mod:`tpusystem_torch.parallel.elastic`) and the orchestrator
+(:mod:`tpusystem_torch.orchestrator`) dispatch their events here too.
 """
 
 from __future__ import annotations
@@ -360,7 +359,7 @@ class EngineRestarted:
 
 # --------------------------------------------------------------------------
 # supervisor events — the recovery control loop
-# (tpusystem.parallel.supervisor) narrates every worker exit, relaunch and
+# (tpusystem_torch.parallel.supervisor) narrates every worker exit, relaunch and
 # recovery through the bus, so the ledger orders a whole incident and
 # TensorBoard charts MTTR without any trainer code.
 
@@ -411,7 +410,7 @@ class RecoveryTimeline:
 
 # --------------------------------------------------------------------------
 # elastic events — the membership-epoch protocol
-# (tpusystem.parallel.elastic): every proposed and committed world resize
+# (tpusystem_torch.parallel.elastic): every proposed and committed world resize
 # is a domain event, so the ledger orders a preemption-wave incident and
 # TensorBoard charts the world size and resize latency over time.
 
@@ -455,12 +454,12 @@ class ElasticTimeline:
 
 # --------------------------------------------------------------------------
 # orchestrator events — the multi-tenant gang narrative
-# (tpusystem.orchestrator): admissions, halts, and capacity arbitration
+# (tpusystem_torch.orchestrator): admissions, halts, and capacity arbitration
 # between tenants sharing one physical mesh. Orchestrator dispatches ride
 # the SHARED producer deliberately — they are fleet-of-jobs facts, not
 # one tenant's business — while each event's ``job`` field names the
 # tenant it concerns (and a tenant's own bus stamps `.tenant` on events
-# it emits; tpusystem.orchestrator.namespace has the scoping rules).
+# it emits; tpusystem_torch.orchestrator.namespace has the scoping rules).
 
 
 @event

@@ -1,11 +1,19 @@
-"""Deterministic fault injection for serving: the port of
-:mod:`tpusystem.parallel.chaos`, its serving subset.
+"""Deterministic fault injection: the port of :mod:`tpusystem.parallel.chaos`.
 
 Copied as they are from the reference:
 
+* :class:`Faults`, :class:`ChaosTransport` and :class:`ChaosHub` — the real
+  :class:`~tpusystem_torch.parallel.multihost.TcpTransport` / ``Hub`` stack
+  with seeded, deterministic faults on its frames: dropped, delayed or
+  truncated frames, heartbeat stalls, an abrupt socket death
+  (``ChaosTransport.kill``). Every fault decision is drawn in frame order
+  from one ``random.Random(seed)`` per :class:`Faults`, so the same seed
+  gives the same faults;
 * :class:`ChaosPick` and :func:`pick_chaos` — the seeded victim and tick
   of one fleet chaos certification
-  (:func:`tpusystem_torch.serve.certify_fleet`);
+  (:func:`tpusystem_torch.serve.certify_fleet`); :class:`TenantChaosPick`
+  and :func:`pick_tenant_chaos` — the same one level up, a tenant first
+  (:func:`tpusystem_torch.orchestrator.certify_tenants`);
 * :class:`WorkerKilled` and :class:`DieAtStep` — a scripted worker death
   at a chosen step (in-process: a raise; cross-process: ``os._exit``);
 * :class:`StalledStep` — a scripted serving-step stall at a chosen tick,
@@ -16,24 +24,190 @@ Copied as they are from the reference:
   card), :class:`CorruptBatch` (a window of the batch stream) and
   :class:`FlipParamBit` (one bit of one element, in place).
 
-Not ported yet: ``Faults``, ``ChaosTransport`` and ``ChaosHub`` wrap the
-TCP transport and hub (ROADMAP queue 1, 9. Multi-GPU parallelism);
-``TenantChaosPick`` and ``pick_tenant_chaos`` serve the orchestrator (10).
+The frame faults are control-plane only, by design: the data plane fails
+as a unit with the process, which is exactly what :class:`DieAtStep`
+simulates.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import socket
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 
-__all__ = ['ChaosPick', 'pick_chaos', 'WorkerKilled', 'DieAtStep',
-           'StalledStep', 'PreemptionWave', 'CorruptGrads', 'CorruptBatch',
-           'FlipParamBit']
+from tpusystem_torch.parallel.multihost import Hub, TcpTransport
+
+__all__ = ['Faults', 'ChaosTransport', 'ChaosHub', 'DieAtStep', 'WorkerKilled',
+           'PreemptionWave', 'StalledStep', 'CorruptGrads', 'CorruptBatch',
+           'FlipParamBit', 'ChaosPick', 'pick_chaos', 'TenantChaosPick',
+           'pick_tenant_chaos']
+
+
+@dataclass
+class Faults:
+    """Seeded fault plan consulted once per frame, in send order.
+
+    Args:
+        seed: the determinism anchor — same seed, same decisions.
+        drop: probability a matching frame is silently discarded.
+        delay: probability a matching frame is held for ``delay_seconds``.
+        delay_seconds: hold time for delayed frames.
+        truncate: probability a matching ``blob`` chunk frame is sent with
+            half its payload cut off — the torn-transfer signature the
+            receiver's whole-blob digest must catch (non-blob frames treat
+            a truncate verdict as a pass; the pickle framing would turn a
+            torn control frame into a socket death, which ``kill()``
+            already scripts precisely).
+        kinds: frame kinds eligible for faults (None: every kind not in
+            ``spare``). Transport frame kinds: ``event``, ``reduce``,
+            ``gather``, ``hb``, plus the blob plane's ``blob`` /
+            ``blob-req`` / ``blob-nak``; hub fanout kinds add ``result``,
+            ``lost``, ``joined``.
+        spare: kinds never faulted. By default: handshake/teardown frames
+            (drop those and a scenario tests the dialer's retry loop,
+            usually not what it meant); ``result`` (dropping a collective's
+            result fanout wedges every waiting rank into its full timeout
+            — target it explicitly via ``kinds`` when a scenario wants
+            that); and ``hb``: heartbeats ride their own thread, so
+            probabilistic faults on them would interleave RNG draws
+            scheduler-dependently and break the same-seed-same-faults
+            contract — fault heartbeats with the *scripted*
+            :meth:`stall_heartbeats` instead.
+    """
+
+    seed: int = 0
+    drop: float = 0.0
+    delay: float = 0.0
+    delay_seconds: float = 0.02
+    truncate: float = 0.0
+    kinds: tuple[str, ...] | None = None
+    spare: tuple[str, ...] = ('hello', 'bye', 'peer', 'standby', 'rejected',
+                              'result', 'hb')
+
+    def __post_init__(self) -> None:
+        self._rng = random.Random(self.seed)
+        self._lock = threading.Lock()
+        self._stall_until = 0.0
+        self.dropped: list[str] = []    # observability for assertions
+        self.delayed: list[str] = []
+        self.truncated: list[str] = []
+
+    def verdict(self, kind: str) -> str:
+        """One decision: ``'drop'`` | ``'delay'`` | ``'truncate'`` |
+        ``'pass'``.
+
+        An explicit ``kinds`` list overrides ``spare`` — naming a kind is
+        the opt-in for faulting even default-spared traffic (``result``,
+        ``hb``). Draws are taken for every eligible frame whether or not a
+        fault fires, so the decision stream depends only on the frame
+        sequence — not on which probabilities are enabled."""
+        if self.kinds is not None:
+            if kind not in self.kinds:
+                return 'pass'
+        elif kind in self.spare:
+            return 'pass'
+        with self._lock:
+            roll = self._rng.random()
+            if roll < self.drop:
+                self.dropped.append(kind)
+                return 'drop'
+            if roll < self.drop + self.delay:
+                self.delayed.append(kind)
+                return 'delay'
+            if roll < self.drop + self.delay + self.truncate:
+                self.truncated.append(kind)
+                return 'truncate'
+        return 'pass'
+
+    def decide(self, kind: str) -> float | None:
+        """Verdict as the legacy drop/delay encoding: None = drop the
+        frame, 0.0 = pass, >0 = delay. (A ``truncate`` verdict on a
+        non-blob path reads as pass — only :class:`ChaosTransport`'s blob
+        frames can act on it.)"""
+        verdict = self.verdict(kind)
+        if verdict == 'drop':
+            return None
+        if verdict == 'delay':
+            return self.delay_seconds
+        return 0.0
+
+    def stall_heartbeats(self, seconds: float) -> None:
+        """Swallow outbound heartbeats for ``seconds`` — a host that is
+        alive but unresponsive (GC pause, hung NFS, overloaded NIC), the
+        scenario the hub's liveness timeout must classify as lost."""
+        with self._lock:
+            self._stall_until = time.monotonic() + seconds
+
+    @property
+    def heartbeats_stalled(self) -> bool:
+        with self._lock:
+            return time.monotonic() < self._stall_until
+
+
+class ChaosTransport(TcpTransport):
+    """A :class:`TcpTransport` whose outbound frames pass through a
+    :class:`Faults` plan. The wire protocol, hub, and recovery machinery
+    are the real ones — only the network misbehaves."""
+
+    def __init__(self, address, rank: int, size: int, *,
+                 faults: Faults | None = None, **kwargs: Any):
+        self.faults = faults if faults is not None else Faults()
+        super().__init__(address, rank, size, **kwargs)
+
+    def _send(self, frame: tuple, op_key: tuple | None = None) -> None:
+        kind = frame[0]
+        if kind == 'hb' and self.faults.heartbeats_stalled:
+            return                       # the beat never leaves the host
+        verdict = self.faults.verdict(kind)
+        if verdict == 'drop':
+            return                       # dropped on the (virtual) wire
+        if verdict == 'delay':
+            time.sleep(self.faults.delay_seconds)
+        if verdict == 'truncate' and kind == 'blob':
+            # half the chunk's bytes never make it: the reassembled blob
+            # fails its whole-blob digest at the receiver
+            chunk = frame[-1]
+            frame = frame[:-1] + (chunk[:len(chunk) // 2],)
+        super()._send(frame, op_key)
+
+    def kill(self) -> None:
+        """Abrupt socket death — the crashed-host signature the hub must
+        classify as a loss (EOF with no 'bye'), usable mid-collective.
+
+        Unlike :meth:`close`, nothing is flushed and no teardown runs: the
+        transport object stays around exactly like the OS socket of a
+        SIGKILLed process would."""
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+
+
+class ChaosHub(Hub):
+    """A :class:`Hub` whose fanout passes through a :class:`Faults` plan —
+    faults on the router's side of the star (results and loss broadcasts
+    included, when ``kinds`` says so)."""
+
+    def __init__(self, size: int, *, faults: Faults | None = None,
+                 **kwargs: Any):
+        self.faults = faults if faults is not None else Faults()
+        super().__init__(size, **kwargs)
+
+    def _fanout(self, frame: tuple, exclude: int | None = None,
+                live_only: bool = False) -> None:
+        verdict = self.faults.decide(frame[0])
+        if verdict is None:
+            return
+        if verdict > 0:
+            time.sleep(verdict)
+        super()._fanout(frame, exclude=exclude, live_only=live_only)
 
 
 @dataclass(frozen=True)
@@ -55,7 +229,7 @@ def pick_chaos(seed: int, components: tuple[str, ...] | list[str], *,
     killed after a uniformly-chosen router tick in ``[lo, hi]``. Both
     draws come from one ``random.Random(seed)`` in a fixed order, so a
     seed IS the scenario — a red run replays exactly from its seed, the
-    same discipline as the reference's ``Faults``.
+    same discipline as :class:`Faults`.
     """
     if not components:
         raise ValueError('need at least one component to pick from')
@@ -64,6 +238,39 @@ def pick_chaos(seed: int, components: tuple[str, ...] | list[str], *,
     rng = random.Random(seed)
     component = components[rng.randrange(len(components))]
     return ChaosPick(component=component, step=rng.randint(lo, hi))
+
+
+@dataclass(frozen=True)
+class TenantChaosPick:
+    """One drawn multi-tenant chaos scenario: inside ``tenant``, kill
+    ``component`` after orchestrator tick ``step`` (see
+    :func:`pick_tenant_chaos`)."""
+
+    tenant: str
+    component: str
+    step: int
+
+
+def pick_tenant_chaos(seed: int, tenants: tuple[str, ...] | list[str],
+                      components: tuple[str, ...] | list[str], *,
+                      lo: int = 1, hi: int = 8) -> TenantChaosPick:
+    """Draw the victim for one multi-tenant chaos-certification run —
+    :func:`pick_chaos` lifted one level: a uniformly-chosen tenant, then
+    a uniformly-chosen component inside it, then a uniformly-chosen
+    kill tick in ``[lo, hi]``. All three draws come from one
+    ``random.Random(seed)`` in that fixed order, so a seed IS the
+    scenario and a red cross-tenant drill replays exactly from it."""
+    if not tenants:
+        raise ValueError('need at least one tenant to pick from')
+    if not components:
+        raise ValueError('need at least one component to pick from')
+    if lo < 0 or hi < lo:
+        raise ValueError(f'need 0 <= lo <= hi, got [{lo}, {hi}]')
+    rng = random.Random(seed)
+    tenant = tenants[rng.randrange(len(tenants))]
+    component = components[rng.randrange(len(components))]
+    return TenantChaosPick(tenant=tenant, component=component,
+                           step=rng.randint(lo, hi))
 
 
 class WorkerKilled(RuntimeError):

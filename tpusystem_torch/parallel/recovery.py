@@ -33,15 +33,16 @@ Typical wiring::
 finish the epoch on the survivors' data shards and stop at the agreed
 early-stop point.
 
-The port runs one process so far (:mod:`tpusystem_torch.runtime`), where no
-peer can be lost. The launcher, the sentinel, the serving fleet and the
-flight recorder that the exit codes below speak of are ported
+A job of many processes (:mod:`tpusystem_torch.runtime` over the TCP
+control plane) surfaces a lost peer as ``WorkerLost``. The launcher, the
+sentinel, the serving fleet, the elastic protocol and the flight recorder
+that the exit codes below speak of are ported
 (:class:`~tpusystem_torch.parallel.Supervisor`,
 :class:`~tpusystem_torch.train.Sentinel`, :mod:`tpusystem_torch.serve.fleet`,
-:class:`~tpusystem_torch.observe.FlightRecorder`); the elastic protocol is
-the reference's (``tpusystem.parallel.elastic``) and waits for ROADMAP queue
-1 item 9. :func:`exit_for_restart` maps the exit code and flushes every
-installed flight recorder, as the reference's does.
+:mod:`tpusystem_torch.parallel.elastic`,
+:class:`~tpusystem_torch.observe.FlightRecorder`). :func:`exit_for_restart`
+maps the exit code and flushes every installed flight recorder, as the
+reference's does.
 """
 
 from __future__ import annotations

@@ -20,9 +20,10 @@ port of :mod:`tpusystem.parallel.supervisor`, copied.
   local socket (``TPUSYSTEM_SUPERVISOR``), so a relaunched worker restores
   from the supervisor's RAM (:func:`~tpusystem_torch.checkpoint.hot_resume`).
   With ``transport=`` and ``buddy=`` each verified push is cross-replicated
-  over any transport with the blob plane (``send_blob``/``fetch_blob``);
-  the port has no TCP transport between supervisors yet, so that path is
-  tested only once one lands (ROADMAP queue 1, 9. Multi-GPU parallelism).
+  over the supervisor pod's control plane (a
+  :class:`~tpusystem_torch.parallel.multihost.TcpTransport`, or any
+  transport with the blob plane ``send_blob``/``fetch_blob``), and a
+  replaced host's fresh supervisor pulls its state back from the buddy.
 * **recovery timeline** — every exit, relaunch and detect→first-step
   recovery is a domain event (``WorkerExited``, ``WorkerRelaunched``,
   ``RecoveryTimeline``) on the supervisor's producer.

@@ -1,16 +1,23 @@
-"""Per-host runtime, one-process form: the port of :mod:`tpusystem.runtime`.
+"""Per-host runtime: world, control plane, and buses in one facade. The
+port of :mod:`tpusystem.runtime`.
 
 The reference's composition root is a single-process ``main.py``
 (``examples/tinysys/main.py``); a job of many processes runs that
-composition root once per host. :class:`Runtime` is the object that makes
-the same ``main()`` correct in both worlds. The port has its one-process
-form:
+composition root once per process. :class:`Runtime` is the object that
+makes the same ``main()`` correct in both worlds:
 
-* the world is one process and the control plane a
-  :class:`~tpusystem_torch.parallel.multihost.Loopback`; a coordinator
-  (the argument or ``TPUSYSTEM_COORDINATOR``) or more than one process
-  raises ``NotImplementedError`` (ROADMAP queue 1 item 9, which also holds
-  the reference's ``TcpTransport``, ``Hub`` and ``connect``);
+* names the job's world (:func:`~tpusystem_torch.parallel.multihost.
+  initialize`) when a coordinator (the argument or
+  ``TPUSYSTEM_COORDINATOR``) or more than one process is configured, and
+  stays one process otherwise;
+* brings up the control plane (:mod:`tpusystem_torch.parallel.multihost`):
+  with more than one process every process dials the TCP hub
+  (:func:`~tpusystem_torch.parallel.multihost.connect`; the primary
+  doubles as the :class:`~tpusystem_torch.parallel.multihost.Hub`, rank 1
+  as the standby deputy when ``TPUSYSTEM_CONTROL_DEPUTY`` names one), in
+  one process it is a :class:`~tpusystem_torch.parallel.multihost.Loopback`.
+  Only the control plane: ``torch.distributed`` (the device plane) is
+  ROADMAP queue 1, 9. Multi-GPU parallelism;
 * :class:`~tpusystem_torch.parallel.multihost.DistributedProducer` /
   ``DistributedPublisher`` buses with rank-aware consumer placement, so
   storage/TensorBoard consumers register ``primary_only`` and run exactly
@@ -32,9 +39,12 @@ The epoch loop is the reference's::
                 wants_stop = False
             except StopIteration:  # unhandled stop event unwound from commit
                 wants_stop = True
-            runtime.sync()         # Preempted raises here
+            runtime.sync()         # Preempted / WorkerLostError raise here
             if runtime.should_stop(wants_stop):
                 break
+    except (Preempted, WorkerLostError) as reason:
+        repository.store(model)                # emergency checkpoint
+        raise exit_for_restart(reason)         # the supervisor relaunches
     finally:
         runtime.close()
 """
@@ -47,13 +57,11 @@ import signal as signal_module
 from tpusystem_torch.observe.ledger import EventLedger
 from tpusystem_torch.parallel import multihost
 from tpusystem_torch.parallel.multihost import (DistributedProducer,
-                                                DistributedPublisher,
-                                                Loopback, World)
+                                                DistributedPublisher, Hub,
+                                                Loopback, TcpTransport, World)
 from tpusystem_torch.parallel.recovery import Preempted
 
 
-# The control-plane address of a job of many processes, resolved as the
-# reference resolves it; the port's Runtime does not dial one yet.
 def _control_address(coordinator: str | None,
                      control_port: int | None) -> tuple[str, int]:
     """Resolve where the control-plane hub lives for a multi-host job.
@@ -76,6 +84,16 @@ def _parse_hostport(spec: str, source: str) -> tuple[str, int]:
     return host, int(port)
 
 
+def _deputy_address() -> tuple[str, int] | None:
+    """``TPUSYSTEM_CONTROL_DEPUTY=host:port`` enables hub redundancy: rank 1
+    hosts a standby hub there and every transport fails over to it if the
+    primary hub's host dies (see ``multihost.connect``)."""
+    spec = os.environ.get('TPUSYSTEM_CONTROL_DEPUTY')
+    if not spec:
+        return None
+    return _parse_hostport(spec, 'TPUSYSTEM_CONTROL_DEPUTY')
+
+
 def _coordinator_derived(coordinator: str | None,
                          control_port: int | None) -> tuple[str, int]:
     if coordinator:
@@ -93,17 +111,22 @@ def _coordinator_derived(coordinator: str | None,
 
 
 class Runtime:
-    """Host-side runtime context for a training job of one process.
+    """Host-side runtime context for a training job of one process or many.
 
     Args:
-        coordinator: ``host:port`` of a coordinator, or None to read
-            ``TPUSYSTEM_COORDINATOR`` from the environment. Either, or
-            ``num_processes`` above 1, raises ``NotImplementedError``: the
-            port runs one process, whose control plane is a
-            :class:`Loopback`.
-        num_processes: the job's processes, as the reference takes them.
+        coordinator: ``host:port`` of the job's coordinator, or None to read
+            ``TPUSYSTEM_COORDINATOR`` from the environment; absent both, the
+            job is one process and the control plane a :class:`Loopback`.
+        control_port: TCP port for the control-plane hub on the primary
+            (default: the coordinator's port + 1; ``TPUSYSTEM_CONTROL``
+            overrides both).
+        num_processes / process_id: the job's size and this process's rank
+            (else ``TPUSYSTEM_NUM_PROCESSES`` / ``TPUSYSTEM_PROCESS_ID``).
         ledger: hash-chain the event stream for divergence detection
-            (:meth:`sync` then verifies it across hosts).
+            (:meth:`sync` then verifies it across processes).
+        heartbeat: seconds between liveness pings; a process silent for 4
+            intervals surfaces as a ``WorkerLost`` event on every other
+            process. ``None`` disables failure detection.
         preemption: install the SIGTERM preemption handler
             (:meth:`install_preemption_handler`) at construction. Off by
             default — signal handlers can only be installed from the main
@@ -111,14 +134,27 @@ class Runtime:
     """
 
     def __init__(self, coordinator: str | None = None, *,
+                 control_port: int | None = None,
                  num_processes: int | None = None,
+                 process_id: int | None = None,
                  ledger: bool = False,
+                 heartbeat: float | None = 10.0,
                  preemption: bool = False) -> None:
         coordinator = coordinator or os.environ.get('TPUSYSTEM_COORDINATOR')
         self._preempt_signal: int | None = None
         self._previous_handlers: dict = {}
-        self.world: World = multihost.initialize(coordinator, num_processes)
-        self.transport = Loopback()
+        self.world: World = multihost.initialize(
+            coordinator, num_processes, process_id)
+        self.hub: Hub | None = None
+        if self.world.process_count > 1:
+            address = _control_address(coordinator, control_port)
+            self.transport, self.hub = multihost.connect(
+                address, self.world,
+                heartbeat_interval=heartbeat,
+                heartbeat_timeout=4 * heartbeat if heartbeat else None,
+                deputy_address=_deputy_address())
+        else:
+            self.transport: Loopback | TcpTransport = Loopback()
         self.producer = DistributedProducer(self.transport)
         self.publisher = DistributedPublisher(self.transport)
         self.ledger: EventLedger | None = (
@@ -193,10 +229,22 @@ class Runtime:
         ``torchsystem/domain/events.py:162-163``)."""
         return multihost.agree(self.transport, wants_stop, op='or')
 
-    def barrier(self) -> None:
+    def barrier(self, timeout: float | None = None) -> None:
         """Host-level rendezvous (checkpoint commit points etc.); returns at
-        once in one process."""
-        self.transport.barrier()
+        once in one process.
+
+        ``timeout`` (seconds, default the transport's 300 s) bounds the
+        wait: a peer that died or hung *between* sync points — past the
+        heartbeat detector but before its next contribution — surfaces as
+        :class:`~tpusystem_torch.parallel.multihost.CollectiveTimeout` (a
+        ``ControlPlaneFailover``) instead of hanging this process forever.
+        Handle it like a worker loss: checkpoint-fence and
+        ``exit_for_restart``.
+        """
+        if timeout is None:
+            self.transport.barrier()
+        else:
+            self.transport.barrier(timeout=timeout)
 
     def close(self) -> None:
         try:
@@ -205,10 +253,12 @@ class Runtime:
             self._previous_handlers.clear()
         except ValueError:
             # close() on a non-main thread cannot touch signal dispositions
-            # (a Python constraint); never let that abort the transport
+            # (a Python constraint); never let that abort the transport/hub
             # teardown below — the handler stays until the process exits
             pass
         self.transport.close()
+        if self.hub is not None:
+            self.hub.close()
 
     def __enter__(self) -> 'Runtime':
         return self
