@@ -324,10 +324,25 @@ Phases, in order; any failure exits non-zero:
     peak memory, ``mfu`` (convolutions and head, training as three
     forwards, over 989 TFLOP/s) and a profiled window of two steps. No
     hand-written kernel launches in the phase;
-27. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+27. collectives and data parallelism (``data-parallel``) over a world of
+    one rank: ``multihost.initialize`` joins NCCL on the card through a
+    local store; (a) every collective of ``parallel/collectives.py`` on
+    CUDA tensors over ``MeshSpec(data=-1)`` and ``MeshSpec(fsdp=-1)``
+    against its definition at world size one, bit for bit (the gradients of
+    the gather and the reduce-scatter too), and ``replica_checksums`` of
+    GPT-2 125M's parameters equal to the same sums on the host, one
+    ``FlipParamBit`` changing exactly that leaf's entry; (b) three AdamW
+    steps of phase 7's recipe at [16, 1024] from the same weights,
+    unplaced, under ``DataParallel()`` and ``FullyShardedDataParallel()``:
+    losses and final parameters bit for bit the unplaced ones, K1 and K2b
+    12 launches a step each, each policy's step ms and peak memory; (c)
+    two processes sharing the card over gloo on CUDA tensors (NCCL refuses
+    two ranks on one device) run (b)'s DP steps on 8 rows each: equal
+    global losses, within 2e-5 of (b)'s unplaced ones;
+28. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-26 prints its seconds.
+    line. Each of phases 15b and 17-27 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -5802,16 +5817,338 @@ def resnet_phase(torch, seed: int) -> dict:
 
 
 
+# phase 27: collectives and data parallelism at world size one
+
+DP_STEPS = 3                    # AdamW steps under each policy
+DP_RANKS = 2                    # (c): processes sharing the one card
+DP_RTOL = 2e-5                  # the CPU parity tests' (reference's) rtol
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as probe:
+        probe.bind(('127.0.0.1', 0))
+        return probe.getsockname()[1]
+
+
+def host_checksum(tensor) -> int:
+    """A leaf's bit checksum computed on the host with numpy: its bytes as
+    unsigned words (a 64-bit element as two 32-bit words) summed mod
+    2**32, the definition ``replica_checksums`` computes on the device."""
+    import numpy as np
+    import torch
+
+    size = tensor.element_size()
+    kind = {8: torch.int32, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    words = tensor.detach().cpu().contiguous().reshape(-1).view(
+        kind[size]).numpy()
+    unsigned = words.view({8: np.uint32, 4: np.uint32, 2: np.uint16,
+                           1: np.uint8}[size])
+    return int(unsigned.astype(np.uint64).sum() % (1 << 32))
+
+
+def collectives_at_one(torch, device) -> dict:
+    """Phase 27 (a): every collective of ``parallel/collectives.py`` on
+    tensors on ``device`` over a mesh of one rank (NCCL on the card),
+    against its definition at world size one, bit for bit: the sums and
+    gathers are the tensor itself, the stacked gather adds a dimension, the
+    gradients of the gather and the reduce-scatter pass through."""
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.parallel import collectives as c
+
+    generator = torch.Generator(device).manual_seed(0)
+    x = torch.randn((8, 6), generator=generator, device=device)
+    record = {}
+    for spec in ('data', 'fsdp'):
+        mesh = MeshSpec(**{spec: -1}).build()
+        cases = {
+            'all_reduce_sum': (c.all_reduce_sum(x, mesh, spec), x),
+            'all_reduce_sum[data,fsdp]': (
+                c.all_reduce_sum(x, mesh, ('data', 'fsdp')), x),
+            'all_reduce_mean': (c.all_reduce_mean(x, mesh, spec), x),
+            'all_gather': (c.all_gather(x, mesh, spec, dimension=1), x),
+            'all_gather_stacked': (c.all_gather(x, mesh, spec, tiled=False),
+                                   x[None]),
+            'reduce_scatter': (c.reduce_scatter(x, mesh, spec), x),
+            'all_to_all': (c.all_to_all(x, mesh, spec, split_dimension=1,
+                                        concat_dimension=0), x),
+            'ring_shift': (c.ring_shift(x, mesh, spec), x),
+            'ring_shift_chunked': (c.ring_shift_chunked(
+                x, mesh, spec, chunks=2, reverse=True), x),
+            'ring_allgather': (c.ring_allgather(x, mesh, spec, chunks=2), x),
+            'ring_reducescatter': (c.ring_reducescatter(x, mesh, spec), x),
+        }
+        for name, collective in (('all_gather_grad', c.all_gather),
+                                 ('reduce_scatter_grad', c.reduce_scatter)):
+            leaf = x.clone().requires_grad_()
+            (collective(leaf, mesh, spec) * x).sum().backward()
+            cases[name] = (leaf.grad, x)
+        wrong = [name for name, (got, want) in cases.items()
+                 if not (got.shape == want.shape and torch.equal(got, want))]
+        if (wrong or c.axis_index(mesh, spec) != 0
+                or c.axis_size(mesh, spec) != 1):
+            fail(f'phase 27 (a): collectives over {spec} at world size one: '
+                 f'{wrong}, index {c.axis_index(mesh, spec)}, size '
+                 f'{c.axis_size(mesh, spec)}')
+        record[spec] = dict(checked=sorted(cases),
+                            backend=torch.distributed.get_backend(
+                                mesh.group(spec)))
+    return record
+
+
+def checksum_check(torch, module) -> dict:
+    """Phase 27 (a): ``replica_checksums`` of the model's parameters,
+    placed by ``DataParallel``, equal the same sums computed on the host,
+    leaf for leaf; one ``FlipParamBit`` changes exactly that leaf's
+    entry."""
+    from tpusystem_torch.parallel import (DataParallel, FlipParamBit,
+                                          MeshSpec, replica_checksums)
+
+    mesh = MeshSpec(data=-1).build()
+    params = DataParallel().place(dict(module.named_parameters()), mesh)
+    host = [host_checksum(leaf) for leaf in module.parameters()]
+    started = time.perf_counter()
+    matrix, paths = replica_checksums(params, mesh)
+    seconds = time.perf_counter() - started
+    if matrix.shape != (1, len(host)) or [int(v) for v in matrix[0]] != host:
+        fail(f'phase 27 (a): device checksums differ from the host\'s at '
+             f'{[p for p, a, b in zip(paths, matrix[0], host) if a != b][:4]}')
+    leaf = 4                                    # a block's qkv kernel
+    index = module.get_parameter(paths[leaf].replace('/', '.')).numel() // 3
+    FlipParamBit(leaf=leaf, index=index, bit=7)(params, mesh)
+    flipped, _ = replica_checksums(params, mesh)
+    changed = [index for index in range(len(host))
+               if flipped[0, index] != matrix[0, index]]
+    if changed != [leaf]:
+        fail(f'phase 27 (a): a flip of leaf {leaf} changed entries {changed}')
+    return dict(leaves=len(host), checksum_s=seconds, flipped=paths[leaf],
+                index=index, changed=changed)
+
+
+def policy_steps(torch, seed: int, device: str, factory, shape: tuple,
+                 steps: int = DP_STEPS) -> dict:
+    """Phase 27 (b): ``steps`` AdamW steps of ``factory()``'s model from the
+    same weights and tokens, unplaced, under ``DataParallel()`` and under
+    ``FullyShardedDataParallel()`` over the one-rank mesh; losses and
+    final parameters bit for bit those of the unplaced steps (every
+    collective is the identity at world size one). Each run's K1/K2b
+    launches (counts set to 0 just before it), step ms and peak memory."""
+    import numpy as np
+
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.parallel import (DataParallel,
+                                          FullyShardedDataParallel, MeshSpec,
+                                          batch_sharding)
+    from tpusystem_torch.parallel.sharding import local
+    from tpusystem_torch.train import AdamW, ChunkedNextTokenLoss, init_state
+
+    module = factory()
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    initial = {name: value.detach().clone()
+               for name, value in module.state_dict().items()}
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, module.vocab_size), shape), device=device)
+    criterion = ChunkedNextTokenLoss(chunks=8)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    cuda = device == 'cuda'
+    runs, final = {}, None
+    for name, policy, spec in (
+            ('unplaced', None, None),
+            ('dp', DataParallel(), MeshSpec(data=-1)),
+            ('fsdp', FullyShardedDataParallel(), MeshSpec(fsdp=-1))):
+        module.load_state_dict(initial)
+        optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+        state = init_state(module, optimizer, rng=seed)
+        rows = tokens
+        if policy is not None:
+            mesh = spec.build()
+            state = policy.place(state, mesh)
+            rows = batch_sharding(mesh)(tokens)
+        step = build_train_step(module_apply(module), criterion, optimizer)
+        for counter in counters:
+            counter.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, seconds = [], []
+        for _ in range(steps):
+            started = time.perf_counter()
+            state, (_, loss) = step(state, rows, rows)
+            losses.append(loss.item())              # waits for the step
+            seconds.append(time.perf_counter() - started)
+        params = {key: local(value).detach()
+                  for key, value in state.params.items()}
+        if final is None:
+            final = {key: value.clone() for key, value in params.items()}
+        runs[name] = dict(
+            losses=losses, step_ms=[1e3 * s for s in seconds],
+            median_step_ms=1e3 * sorted(seconds)[len(seconds) // 2],
+            launches={counter.__name__: counter.launches
+                      for counter in counters},
+            peak_memory_bytes=(torch.cuda.max_memory_allocated() if cuda
+                               else None),
+            params_equal=all(torch.equal(params[key], final[key])
+                             for key in final),
+            losses_equal=losses == runs.get('unplaced', {'losses': losses})[
+                'losses'])
+        del state, step, params
+    layers = module.layers
+    for name, run in runs.items():
+        if not (run['params_equal'] and run['losses_equal']):
+            fail(f'phase 27 (b): {name} is not bit for bit the unplaced '
+                 f'step: {run}')
+        if not all(math.isfinite(value) for value in run['losses']):
+            fail(f'phase 27 (b): non-finite {name} losses {run["losses"]}')
+        if cuda and run['launches'] != {'flash_attention_lse': layers * steps,
+                                        'flash_bwd_fused': layers * steps}:
+            fail(f'phase 27 (b): {name} launched {run["launches"]}, not '
+                 f'{layers} of K1 and K2b a step')
+    return dict(runs=runs, shape=list(shape), steps=steps,
+                params=sum(value.numel() for value in initial.values()),
+                launches={counter.__name__: sum(
+                    run['launches'][counter.__name__]
+                    for run in runs.values()) for counter in counters})
+
+
+def dp_model(torch, device: str):
+    from tpusystem_torch.models import gpt2_small
+    return gpt2_small(vocab_size=50304, dropout=0.0, attention='flash',
+                      return_features=True, device=device)
+
+
+def dp_worker(rank: int, port: int, out: str) -> None:
+    """One of phase 27 (c)'s ranks (``--dp-worker RANK PORT OUT``): joins a
+    world of ``DP_RANKS`` processes on the one card over gloo (CUDA
+    tensors; NCCL refuses two ranks on one device), runs the DP steps of
+    (b) on its rows and writes its losses, step ms and launches."""
+    import torch
+
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+    from tpusystem_torch.parallel import multihost
+    LIBRARIES.build()
+    multihost.initialize(f'127.0.0.1:{port}', DP_RANKS, rank,
+                         device='cuda', backend='gloo')
+    try:
+        import numpy as np
+
+        from tpusystem_torch.ops.cuda import flash
+        from tpusystem_torch.parallel import (DataParallel, MeshSpec,
+                                              batch_sharding)
+        from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                           init_state)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        module = dp_model(torch, 'cuda')
+        module.init_weights(torch.Generator('cuda').manual_seed(0))
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
+        optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+        mesh = MeshSpec(data=-1).build()
+        state = DataParallel().place(init_state(module, optimizer, rng=0),
+                                     mesh)
+        rows = batch_sharding(mesh)(tokens)
+        step = build_train_step(module_apply(module),
+                                ChunkedNextTokenLoss(chunks=8), optimizer)
+        counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+        for counter in counters:
+            counter.launches = 0
+        losses, seconds = [], []
+        for _ in range(DP_STEPS):
+            started = time.perf_counter()
+            state, (_, loss) = step(state, rows, rows)
+            losses.append(loss.item())
+            seconds.append(time.perf_counter() - started)
+        pathlib.Path(out).write_text(json.dumps(dict(
+            rank=rank, rows=list(rows.shape), losses=losses,
+            step_ms=[1e3 * s for s in seconds],
+            backend=torch.distributed.get_backend(),
+            launches={counter.__name__: counter.launches
+                      for counter in counters})))
+    finally:
+        multihost.shutdown()
+
+
+def two_ranks_on_one_card(torch, unplaced: list, root: pathlib.Path) -> dict:
+    """Phase 27 (c): ``DP_RANKS`` processes on the one card over gloo run
+    (b)'s DP steps on their rows; their global losses equal each other and
+    (b)'s unplaced losses within the CPU tests' rtol."""
+    port = free_port()
+    root.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         '--dp-worker', str(rank), str(port), str(root / f'rank{rank}.json')],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(DP_RANKS)]
+    try:
+        outputs = [proc.communicate(timeout=300)[0].decode()
+                   for proc in procs]
+    finally:
+        for proc in procs:          # no rank outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            fail(f'phase 27 (c): rank {rank} exited {proc.returncode}:\n'
+                 f'{outputs[rank][-3000:]}')
+    ranks = [json.loads((root / f'rank{rank}.json').read_text())
+             for rank in range(DP_RANKS)]
+    worst = max(abs(a - b) / abs(b) for record in ranks
+                for a, b in zip(record['losses'], unplaced))
+    if any(record['losses'] != ranks[0]['losses'] for record in ranks) \
+            or worst > DP_RTOL:
+        fail(f'phase 27 (c): losses {[r["losses"] for r in ranks]} against '
+             f'the unplaced {unplaced} (rtol {DP_RTOL})')
+    return dict(ranks=ranks, max_rel_err=worst, rtol=DP_RTOL)
+
+
+def data_parallel(torch, seed: int, device: str = 'cuda', factory=None,
+                  shape: tuple = (TRAIN_BATCH, TRAIN_SEQ),
+                  two_ranks: bool = True) -> dict:
+    """Phase 27: (a) the collectives and ``replica_checksums`` over a world
+    of one rank (NCCL on the card, a local store), (b) GPT-2 125M's dense
+    recipe through ``DataParallel`` and ``FullyShardedDataParallel``
+    against the unplaced step, (c) two ranks sharing the card over gloo."""
+    import tempfile
+
+    from tpusystem_torch.parallel import multihost
+
+    started = time.perf_counter()
+    factory = factory or (lambda: dp_model(torch, device))
+    multihost.initialize(f'127.0.0.1:{free_port()}', 1, 0, device=device)
+    try:
+        collective = collectives_at_one(torch, device)
+        checksums = checksum_check(torch, factory())
+        trained = policy_steps(torch, seed, device, factory, shape)
+    finally:
+        multihost.shutdown()
+    record = dict(collectives=collective, checksums=checksums,
+                  train=trained, launches=trained['launches'])
+    if two_ranks:
+        with tempfile.TemporaryDirectory() as root:
+            record['two_ranks'] = two_ranks_on_one_card(
+                torch, trained['runs']['unplaced']['losses'],
+                pathlib.Path(root))
+    record.update(card=card_line() if device == 'cuda' else None,
+                  seconds=time.perf_counter() - started)
+    return record
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--out', type=pathlib.Path, default=None,
                         help='also write the full result as JSON here')
+    parser.add_argument('--dp-worker', nargs=3, default=None,
+                        help=argparse.SUPPRESS)   # phase 27 (c)'s ranks
     args = parser.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device')
+    if args.dp_worker is not None:
+        rank, port, out = args.dp_worker
+        dp_worker(int(rank), int(port), out)
+        return
     from tpusystem_torch.ops.cuda._build import LIBRARIES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5896,6 +6233,8 @@ def main() -> None:
     print('observe-lm ' + json.dumps(observed))
     resnet = resnet_phase(torch, args.seed)
     print('resnet ' + json.dumps(resnet))
+    data_parallel_record = data_parallel(torch, args.seed)
+    print('data-parallel ' + json.dumps(data_parallel_record))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -5933,7 +6272,8 @@ def main() -> None:
             + moe_served['launches']['flash_attention_lse']
             + disagg['launches']['flash_attention_lse']
             + resilient['launches']['flash_attention_lse']
-            + observed['launches']['flash_attention_lse']),
+            + observed['launches']['flash_attention_lse']
+            + data_parallel_record['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -5944,7 +6284,9 @@ def main() -> None:
                             + moe_trained['launches']['flash_bwd_fused']
                             + llama_trained['launches']['flash_bwd_fused']
                             + resilient['launches']['flash_bwd_fused']
-                            + observed['launches']['flash_bwd_fused']),
+                            + observed['launches']['flash_bwd_fused']
+                            + data_parallel_record['launches'][
+                                'flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -6116,7 +6458,7 @@ def main() -> None:
              'spec_generate': spec_generated, 'serve_spec': spec_served,
              'serve_moe': moe_served, 'serve_disagg': disagg,
              'train_resilient': resilient, 'observe_lm': observed,
-             'resnet': resnet,
+             'resnet': resnet, 'data_parallel': data_parallel_record,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -927,3 +927,81 @@ def test_kernel_counters_are_every_kernel_wrapper():
             'flash_bwd_dq', 'flash_bwd_dkv', 'decode_matmul', 'decode_ffn',
             'gather_rows_matmul', 'matmul_scatter_rows', 'gather_rows',
             'scatter_add_rows', 'bernoulli_mask', 'row_uniforms'} <= names
+
+
+def test_phase_27_prints_after_the_resnet_phase():
+    """Phase 27 prints its line after phase 26's, its K1/K2b launches join
+    the ``kernels`` line (phase 28), and the ``kernels`` and ``ok`` lines
+    stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('resnet '") < source.index(
+        "print('data-parallel '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+    assert source.count("data_parallel_record['launches']") == 2
+    assert '28. print the ``kernels`` line' in _chip_smoke().__doc__
+
+
+def _tiny_flash_gpt2():
+    from tpusystem_torch.models import gpt2_tiny
+    return gpt2_tiny(attention='flash', return_features=True, device='cpu')
+
+
+def test_phase_27_drives_both_policies_on_the_cpu(one_torch_thread):
+    """Phase 27 (a) and (b) at ``gpt2_tiny`` over a gloo world of one rank
+    on the CPU: the collectives at world size one, the checksums against
+    the host's, and DP and FSDP bit for bit the unplaced steps; the device
+    plane is left behind it."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.data_parallel(torch, 0, device='cpu',
+                                      factory=_tiny_flash_gpt2,
+                                      shape=(4, 32), two_ranks=False)
+    assert failures == []
+    assert not torch.distributed.is_initialized()
+    assert record['collectives']['data']['backend'] == 'gloo'
+    assert 'all_gather_grad' in record['collectives']['fsdp']['checked']
+    assert record['checksums']['changed'] == [4]
+    runs = record['train']['runs']
+    assert set(runs) == {'unplaced', 'dp', 'fsdp'}
+    for run in runs.values():
+        assert run['params_equal'] and run['losses_equal']
+        assert run['losses'] == runs['unplaced']['losses']
+        assert len(run['step_ms']) == chip_smoke.DP_STEPS
+
+
+def test_phase_27_fails_on_a_step_that_is_not_bitwise(monkeypatch,
+                                                      one_torch_thread):
+    """A DP step whose gradients are off by one ulp fails (b)."""
+    import torch
+
+    from tpusystem_torch.train import step as train_step
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    sync = train_step.sync_grads
+    monkeypatch.setattr(train_step, 'sync_grads', lambda grads, placed, mesh: [
+        torch.nextafter(grad, torch.full_like(grad, 1.0))
+        for grad in sync(grads, placed, mesh)])
+    chip_smoke.data_parallel(torch, 0, device='cpu', factory=_tiny_flash_gpt2,
+                             shape=(4, 32), two_ranks=False)
+    assert any('not bit for bit' in failure for failure in failures)
+
+
+def test_host_checksum_is_the_wrapping_word_sum():
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.parallel.collectives import _bit_checksum
+    chip_smoke = _chip_smoke()
+    for tensor in (torch.tensor([1.0, -2.5, 3e38]),
+                   torch.tensor([0.5, 7.0], dtype=torch.bfloat16),
+                   torch.tensor([2 ** 40 + 3, -1], dtype=torch.int64),
+                   torch.tensor([True, False, True])):
+        assert chip_smoke.host_checksum(tensor) == int(_bit_checksum(tensor))
+    words = np.array([0xFFFFFFFF, 2], dtype=np.uint32)
+    assert chip_smoke.host_checksum(torch.from_numpy(words.view(
+        np.float32))) == 1

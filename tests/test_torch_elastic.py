@@ -9,14 +9,19 @@ the same decisions and events; a wave over real TCP transports (a hub and
 three coordinators, one transport killed) commits one resize; the
 one-device pieces (``split_pieces``, ``collect_pieces`` over the blob
 plane, ``elastic_resume``) restore bit for bit, and fall back to disk.
-``TestResharding`` and ``TestWaveDrill`` need an fsdp mesh of 4-8
-devices: ROADMAP queue 1, 9. Multi-GPU parallelism.
+``TestResharding``, ``TestWaveDrill`` and ``tests/test_chaos.py``'s
+``TestBuddyDoubleLoss`` run in one world of four port processes
+(``tests/torch_ranks.py``, gloo on the CPU): a placed leaf's pieces on an
+fsdp=4 mesh, each rank's own control plane (the hub on rank 0), a wave
+that kills hosts' transports, and the survivors' mesh built over their
+ranks.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import pytest
 
 from tpusystem_torch.parallel.elastic import (ElasticCoordinator,
@@ -586,3 +591,81 @@ def test_collected_pieces_resume_bitwise_and_fall_back_to_disk(tmp_path):
     for (path, got), (_, value) in zip(_tensors(restored), want):
         assert got.equal(value) if hasattr(got, 'equal') else got == value, \
             path
+
+
+# ---------------------------------------------------------------------------
+# resharding across ranks: one world of four port processes
+
+
+@pytest.fixture(scope='module')
+def world(tmp_path_factory):
+    from tests import torch_ranks
+    root = tmp_path_factory.mktemp('elastic-ranks')
+    return torch_ranks.launch(root, dict(
+        scenarios=['resharding', 'wave', 'double_loss'],
+        root=str(root / 'ckpt')), ranks=4)
+
+
+class TestResharding:
+
+    def test_sharded_leaf_merges_and_reshards_across_meshes(self, world):
+        """Four ranks' data-sharded pieces of one [8, 8] array, split over
+        two 'hosts' and merged back (four pieces), refuse the data=2 slice
+        boundaries without ``reshard`` and land on them bit for bit with
+        it; one host's pieces alone do not cover the array."""
+        for result in world:
+            record = result['resharding']
+            assert record['pieces'] == 4
+            assert 'do not cover' in record['errors']['exact']
+            assert 'cover only' in record['errors']['one_host']
+            assert record['exact'] and record['placements']
+
+
+class TestWaveDrill:
+
+    def test_kill_two_of_four_resize_once_reshard_bitwise_grow_back(
+            self, world):
+        """fsdp=4 (every rank holds unique pieces), TP rules with FSDP: two
+        steps, each checkpointed (gathered, rank 0 writes) and each rank's
+        pieces pushed to its supervisor (buddy ``rank ^ 1``). Ranks 1 and 3
+        die in one wave: one resize to (0, 2); each survivor collects all
+        four hosts' pieces (its own, the peer's, the lost buddies'
+        replicas), reshards them onto the survivors' fsdp=2 mesh bit for
+        bit the disk restore, and trains on; host 3 returns and the world
+        grows to (0, 2, 3)."""
+        for rank in (0, 2):
+            record = world[rank]['wave']
+            assert record['decisions'] == [(1, (0, 2))]
+            assert record['buddy_of_0'] == 2
+            assert record['pieces'] == 4
+            assert record['source'] == 'hot-reshard', record
+            assert record['at'] == 2 and record['extras'] == {'step': 2}
+            assert record['bitwise']
+            assert record['step'] == 3 and np.isfinite(record['loss'])
+            assert record['grown'] == (0, 2, 3)
+        assert world[3]['wave']['grown'] == (0, 2, 3)
+        assert world[0]['wave']['loss'] == world[2]['wave']['loss']
+        assert world[0]['wave']['resized'] == [2, 3]
+        assert world[0]['wave']['timelines'] == [('hot-reshard', 2)]
+        assert all(result['wave']['fired'] for result in world)
+
+
+class TestBuddyDoubleLoss:
+
+    def test_double_buddy_loss_falls_back_to_disk(self, world):
+        """Ranks 2 and 3, a buddy pair, die in one wave: their pieces lived
+        only in each other's replica slots, so each survivor collects two
+        contributions, the hot tier cannot cover the state and the resize
+        falls back to disk, bit for bit the last committed step, and trains
+        on identically."""
+        for rank in (0, 1):
+            record = world[rank]['double_loss']
+            assert record['decisions'] == [(1, (0, 1))]
+            assert record['pieces'] == 2
+            assert record['source'] == 'disk' and record['at'] == 2
+            assert record['bitwise']
+            assert np.isfinite(record['resumed'])
+            assert record['resumed'] == record['reference']
+            text = ' '.join(record['warnings'])
+            assert 'no surviving buddy' in text
+            assert 'restore from disk' in text

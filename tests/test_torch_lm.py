@@ -132,7 +132,7 @@ def test_the_full_preset_and_the_mesh_seam(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.mesh()
-    with pytest.raises(NotImplementedError, match='9. Multi-GPU'):
+    with pytest.raises(ValueError, match='one process a device'):
         MeshSpec(fsdp=2).build([torch.device('cpu')] * 2)
     placed = MeshSpec(fsdp=-1).build([torch.device('cpu')])
     assert placed.device == torch.device('cpu') and placed.shape['fsdp'] == 1

@@ -57,6 +57,21 @@ MULTI_PROCESS = ('parallel.multihost', 'parallel.chaos', 'parallel.elastic',
                  'models.resnet')
 
 
+# collectives and data parallelism (ROADMAP 9b; scanned like every module)
+DATA_PARALLEL = ('parallel.collectives', 'parallel.mesh', 'parallel.sharding',
+                 'parallel.multihost', 'runtime', 'data.loader',
+                 'checkpoint.memstore', 'train.step')
+# the reference's parallel names of later sub-items (9c tensor parallelism:
+# overlap and schedule; 9d pipelines) and its JAX-only virtual-device helper
+LATER = {'force_host_platform', 'PipelineParallel', 'compose_stacked_rules',
+         'pipeline_apply', 'pipeline_train', 'allgather_matmul',
+         'matmul_reducescatter', 'allgather_plan', 'reducescatter_plan',
+         'tp_ffn', 'tp_swiglu', 'OverlapSchedule', 'FsdpPlan', 'fsdp_plan',
+         'resolve_schedule', 'PpPlan', 'pp_plan', 'MoePlan', 'moe_plan',
+         'DecodeTpPlan', 'decode_tp_plan', 'schedule_applicable',
+         'scheduled_ffn', 'scheduled_swiglu'}
+
+
 def _examples():
     """Every Python file of the example twins."""
     return sorted(path for twin in TWINS
@@ -192,6 +207,21 @@ def test_the_scans_cover_the_multi_process_slice():
     module."""
     scanned = {name for _, name in _modules()}
     assert {f'tpusystem_torch.{name}' for name in MULTI_PROCESS} <= scanned
+
+
+def test_the_scans_cover_collectives_and_data_parallelism():
+    """The collectives, the meshes over ranks, the sharding policies and
+    the device plane are scanned and imported like every module, and
+    ``tpusystem_torch.parallel`` offers every name of the reference's but
+    those of later sub-items."""
+    import tpusystem.parallel as reference
+
+    import tpusystem_torch.parallel as port
+    scanned = {name for _, name in _modules()}
+    assert {f'tpusystem_torch.{name}' for name in DATA_PARALLEL} <= scanned
+    missing = {name for name in reference.__all__ if not hasattr(port, name)}
+    assert missing == LATER
+    assert all(hasattr(port, name) for name in port.__all__)
 
 
 def test_the_scans_cover_observability_and_the_example_twins():

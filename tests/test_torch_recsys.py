@@ -619,7 +619,7 @@ def test_loader_order_and_cursors_match_bitwise():
                 _batches(JaxLoader(jdata, **kwargs).seek(past), 100))
     with pytest.raises(ValueError, match='>= 0'):
         tloader.seek({'epoch': 0, 'batch': -1})
-    with pytest.raises(NotImplementedError, match='queue 1: 9'):
+    with pytest.raises(TypeError, match='mesh Placement'):
         Loader(tdata, 4, sharding=object(), device='cpu')
 
 

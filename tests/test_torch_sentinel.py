@@ -343,8 +343,17 @@ class TestGuardedStep:
                 jtrain.Guard(**kwargs))
 
     def test_check_parity_waits_for_multi_gpu(self):
-        with pytest.raises(NotImplementedError, match='9. Multi-GPU'):
-            ttrain.Sentinel().check_parity(None, None)
+        """On a one-device mesh there is one replica, so parity holds even
+        after a flip; the replicas of a mesh of ranks are
+        ``tests/test_torch_parallel.py``'s (gloo processes)."""
+        from tpusystem_torch.parallel import FlipParamBit, single_device_mesh
+        mesh = single_device_mesh('cpu')
+        params = {'w': torch.arange(6, dtype=torch.float32),
+                  'b': torch.ones(2)}
+        assert ttrain.Sentinel().check_parity(params, mesh) is None
+        FlipParamBit(leaf=1, index=1, bit=3)(params, mesh)
+        assert ttrain.Sentinel().check_parity(params, mesh) is None
+        assert params['b'][1] != 1.0
 
 
 def capture(producer_module, consumer_module, *event_types):

@@ -52,6 +52,9 @@ from typing import Any
 
 import torch
 
+from tpusystem_torch.parallel.sharding import (held_slices, is_distributed,
+                                               local)
+
 logger = logging.getLogger('tpusystem_torch.checkpoint')
 
 __all__ = ['Checkpointer', 'abstract_like', 'flatten_state', 'assign_state']
@@ -156,8 +159,9 @@ def _check(target: Any, values: dict) -> None:
 @torch.no_grad()
 def assign_state(target: Any, values: dict) -> Any:
     """Write ``values`` (``{path: leaf}``) into ``target`` in place: each
-    tensor is copied into the target's own tensor (on its device), each host
-    leaf replaces the target's. Validates everything first (``ValueError``
+    tensor is copied into the target's own tensor (on its device; a placed
+    leaf, a ``DTensor``, takes its rank's slice of the whole value), each
+    host leaf replaces the target's. Validates everything first (``ValueError``
     on a mismatch, nothing written); returns ``target``."""
     _check(target, values)
 
@@ -169,6 +173,9 @@ def assign_state(target: Any, values: dict) -> Any:
                 result = walk(value, path + (name,))
                 if result is not value:
                     setattr(node, name, result)
+            return node
+        if is_distributed(node):        # a placed leaf takes its slice
+            local(node).copy_(values[key][held_slices(node)])
             return node
         if isinstance(node, torch.Tensor):
             node.copy_(values[key])
@@ -199,12 +206,24 @@ def assign_state(target: Any, values: dict) -> Any:
 class _Snapshot:
     """Host copies of a state's leaves, taken when ``save`` is called:
     tensors on the card into pinned memory by ``non_blocking`` copies
-    behind one recorded event, CPU tensors cloned."""
+    behind one recorded event, CPU tensors cloned. A placed state's leaves
+    are gathered whole first, a collective every rank of its mesh joins,
+    and only the mesh's first rank (``writes``) keeps host copies."""
 
     def __init__(self, state: Any) -> None:
         self.values: dict = {}
         self.event = None
-        for path, leaf in flatten_state(state):
+        leaves = flatten_state(state)
+        placed = next((leaf for _, leaf in leaves if is_distributed(leaf)),
+                      None)
+        first = (None if placed is None
+                 else int(placed.device_mesh.mesh.flatten()[0]))
+        self.writes = first is None or torch.distributed.get_rank() == first
+        for path, leaf in leaves:
+            if is_distributed(leaf):     # gathered whole: a collective
+                leaf = leaf.full_tensor()
+            if not self.writes:
+                continue
             if not isinstance(leaf, torch.Tensor):
                 self.values[path] = leaf
             elif leaf.is_cuda:
@@ -427,16 +446,23 @@ class Checkpointer:
         ``extras`` (JSON-able host metadata) is written synchronously to an
         atomically renamed sidecar before the payload. A previous async
         commit that failed raises here; the save itself retries transient
-        filesystem errors (``save_retries``, ``retry_backoff``)."""
+        filesystem errors (``save_retries``, ``retry_backoff``).
+
+        A state placed on a mesh of ranks is saved whole: every rank of the
+        mesh calls ``save`` (its leaves are gathered) and the mesh's first
+        rank writes; a restore lands each rank's slice of it onto any
+        placement."""
         self._surface_async_errors(identity)
         with self._span('checkpoint-save', identity, epoch):
+            snapshot = _Snapshot(state)
+            if not snapshot.writes:
+                return           # the mesh's first rank writes it
             if extras is not None:
                 # sidecar BEFORE the payload commit: a kill between the two
                 # must not leave a committed step with no cursor
                 _atomic_write(self._extras_path(identity, epoch),
                               json.dumps(extras))
             manager = self._manager(identity)
-            snapshot = _Snapshot(state)
             for attempt in range(self.save_retries + 1):
                 try:
                     manager.save(int(epoch), snapshot)

@@ -6,8 +6,10 @@ of :mod:`tpusystem.checkpoint.memstore`, one host's pieces.
   the dtype) and its host values (the threefry key). The round trip is bit for bit; a deserialize writes into
   the target's own tensors in place, on their device, and refuses a leaf
   whose count, shape or dtype differs (``ValueError``, nothing written).
-* :class:`ShardedLeaf` in its one-device form: one piece, its index the full
-  slice; :func:`merge_hot` folds several blobs of one step.
+* :class:`ShardedLeaf` — a placed leaf's piece keyed by its global slice
+  (a plain tensor: one piece, the full slice); pieces of several ranks
+  merge (:func:`merge_hot`) and reassemble onto other slice boundaries
+  (``place(..., reshard=True)``).
 * :class:`MemStore` — the supervisor-side slot table: newest hot state per
   identity, every read digest-verified (a corrupted slot reads as absent,
   never as state). It is also an in-process ``client`` with the ``fetch``
@@ -46,6 +48,8 @@ from tpusystem_torch.checkpoint.checkpointer import (assign_state,
                                                      flatten_state)
 from tpusystem_torch.parallel.multihost import (BLOB_CHUNK, _blob_digest,
                                                 _recv_frame, _send_frame)
+from tpusystem_torch.parallel.sharding import (held_slices, is_distributed,
+                                               local)
 
 logger = logging.getLogger('tpusystem_torch.memstore')
 
@@ -76,11 +80,17 @@ def _full_key(shape: tuple) -> tuple:
     return tuple((0, dim, 1) for dim in shape)
 
 
+def _slice_key(slices: tuple) -> tuple:
+    """The index key of a piece: ``(start, stop, 1)`` per dim."""
+    return tuple((part.start, part.stop, 1) for part in slices)
+
+
 class ShardedLeaf:
     """Host-local pieces of an array, keyed by their global slice
-    (``memstore.py:81``). On one device a leaf is one piece whose key is
-    the full slice; the form exists so blobs merge as the reference's do
-    (:func:`merge_hot`)."""
+    (``memstore.py:81``): a placed leaf (a ``DTensor``) carries the piece
+    this rank holds, a plain tensor is one piece whose key is the full
+    slice. Pieces of one array merge (:meth:`merged`, :func:`merge_hot`)
+    and reassemble onto any slice boundaries (:meth:`place`)."""
 
     def __init__(self, shape: tuple, dtype: torch.dtype, shards: dict) -> None:
         self.shape = tuple(shape)
@@ -89,6 +99,10 @@ class ShardedLeaf:
 
     @classmethod
     def from_tensor(cls, leaf: torch.Tensor) -> 'ShardedLeaf':
+        if is_distributed(leaf):
+            key = _slice_key(held_slices(leaf))
+            host = local(leaf).detach().to('cpu', copy=True)
+            return cls(tuple(leaf.shape), leaf.dtype, {key: host})
         host = leaf.detach().to('cpu', copy=True)
         return cls(tuple(leaf.shape), leaf.dtype,
                    {_full_key(tuple(leaf.shape)): host})
@@ -120,14 +134,35 @@ class ShardedLeaf:
                 f"contributor's pieces are missing; restore from disk")
         return full
 
-    def place(self, leaf: torch.Tensor) -> torch.Tensor:
-        """The array on ``leaf``'s device (``ValueError`` when the shape or
-        dtype differs, or the pieces do not cover it)."""
+    def place(self, leaf: torch.Tensor, reshard: bool = False
+              ) -> torch.Tensor:
+        """The array laid out as ``leaf`` is, on its device (``ValueError``
+        when the shape or dtype differs). A plain tensor target takes the
+        reassembled array. A placed target (a ``DTensor``) takes the piece
+        held under its rank's slice; when no held piece has that slice
+        (the mesh changed), ``reshard=True`` reassembles the whole array
+        and cuts the slice from it, else ``ValueError``."""
         if self.shape != tuple(leaf.shape) or self.dtype != leaf.dtype:
             raise ValueError(
                 f'hot-state leaf mismatch: blob has {self.shape}/'
                 f'{self.dtype}, target wants {tuple(leaf.shape)}/{leaf.dtype}')
-        return self.reassemble().to(leaf.device)
+        if not is_distributed(leaf):
+            return self.reassemble().to(leaf.device)
+        from torch.distributed.tensor import DTensor
+        slices = held_slices(leaf)
+        piece = self.shards.get(_slice_key(slices))
+        if piece is None:
+            if not reshard:
+                raise ValueError(
+                    'hot shards do not cover the restore layout (the mesh '
+                    'changed since the push); restore from disk')
+            piece = self.reassemble()[slices]
+        device = local(leaf).device
+        with torch.no_grad():
+            return DTensor.from_local(
+                piece.to(device, copy=True).contiguous(), leaf.device_mesh,
+                leaf.placements, run_check=False, shape=leaf.shape,
+                stride=leaf.stride())
 
 
 def serialize_state(state: Any) -> bytes:
@@ -135,7 +170,8 @@ def serialize_state(state: Any) -> bytes:
     copies of its tensors and its host values, in
     :func:`~tpusystem_torch.checkpoint.checkpointer.flatten_state`'s order.
     Only leaves travel; the structure is the restore target's."""
-    leaves = [_host(leaf) if isinstance(leaf, torch.Tensor) else leaf
+    leaves = [ShardedLeaf.from_tensor(leaf) if is_distributed(leaf)
+              else _host(leaf) if isinstance(leaf, torch.Tensor) else leaf
               for _, leaf in flatten_state(state)]
     return pickle.dumps(leaves, protocol=pickle.HIGHEST_PROTOCOL)
 

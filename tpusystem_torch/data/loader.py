@@ -11,8 +11,11 @@ order.
 The batch order of an epoch and the ``state()``/``seek()`` cursors are the
 reference's, bitwise. The reference's native gather (``data/native``) is
 bit-identical to numpy fancy indexing by its own contract; the port uses
-numpy. A ``sharding`` (a mesh placement) is not ported yet (ROADMAP queue 1
-item 9).
+numpy. A ``sharding`` (a mesh placement,
+:func:`~tpusystem_torch.parallel.batch_sharding`) keeps this rank's rows of
+each global batch: every rank draws the same global permutation, so its
+rows are bit for bit those the reference's device at the same mesh
+coordinate holds.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from tpusystem_torch.device import resolve_device
+from tpusystem_torch.parallel.mesh import Placement
 from tpusystem_torch.registry import register
 
 
@@ -74,7 +78,10 @@ class Loader:
         shuffle: reshuffle each epoch with a per-epoch derived seed.
         seed: base shuffle seed (captured in identity).
         drop_remainder: drop the trailing partial batch.
-        sharding: a mesh placement; not ported (must be ``None``).
+        sharding: a mesh placement
+            (:class:`~tpusystem_torch.parallel.mesh.Placement`, e.g.
+            ``batch_sharding(mesh)``): each batch leaf becomes this rank's
+            piece of it (its rows), on the mesh's device.
         prefetch: number of batches kept in flight ahead of consumption.
         device: where batches land, the card unless ``'cpu'`` is asked for.
     """
@@ -82,10 +89,9 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_remainder: bool = True,
                  sharding=None, prefetch: int = 2, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                'Loader(sharding=) is not ported to tpusystem_torch yet '
-                '(ROADMAP queue 1: 9. Multi-GPU parallelism)')
+        if sharding is not None and not isinstance(sharding, Placement):
+            raise TypeError(f'Loader(sharding=) takes a mesh Placement '
+                            f'(batch_sharding(mesh)), not {sharding!r}')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -93,7 +99,8 @@ class Loader:
         self.drop_remainder = drop_remainder
         self.sharding = sharding
         self.prefetch = prefetch
-        self.device = resolve_device(device)
+        self.device = (sharding.device if sharding is not None
+                       and device is None else resolve_device(device))
         self._epoch = 0
         self._skip = 0
         self._position = {'epoch': 0, 'batch': 0}
@@ -147,7 +154,12 @@ class Loader:
     def _place(self, batch):
         """Device-place a batch pytree leaf by leaf: pinned host memory and
         an asynchronous copy on the card, the arrays as tensors on the
-        CPU."""
+        CPU; with a ``sharding``, each leaf cut to this rank's piece
+        first."""
+        if self.sharding is not None:
+            slices = self.sharding.slices
+            batch = _tree_map(lambda array: array[slices(array.shape)],
+                              batch)
         return _tree_map(self._leaf, batch)
 
     def __iter__(self) -> Iterator:

@@ -22,7 +22,8 @@ False by default). Weights are drawn from a generator seeded 0 on the
 module's device (lecun-normal kernels with std ``fan_in ** -0.5``, zero
 biases, tables normal with std 0.02); :meth:`DLRM.init_weights` redraws
 them. ``partition_rules`` (the reference's table placement on a mesh) and a
-``mesh`` that splits the tables are not ported yet (ROADMAP queue 1 item 9).
+``mesh`` that splits the tables are not ported yet (ROADMAP queue 1, 9f.
+Expert and table parallelism).
 """
 
 from __future__ import annotations

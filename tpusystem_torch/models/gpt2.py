@@ -53,7 +53,9 @@ layer (:mod:`tpusystem_torch.models.scan`). With ``moe_experts`` (or
 scanned training forward with dropout raises ``NotImplementedError``: the
 reference's per-layer keys come from ``nn.scan``'s ``split_rngs``, which the
 port does not derive. Ring and ulysses attention raise too (ROADMAP queue
-1, 9. Multi-GPU parallelism).
+1, 9. Multi-GPU parallelism, 9e. Sequence parallelism).
+:meth:`GPT2.partition_rules` are the reference's, for the sharding
+policies of :mod:`tpusystem_torch.parallel.sharding`.
 
 An MoE model decodes too (``decode=True``): its expert layers dispatch at
 full capacity, as the reference's do (``gpt2.py:150-153``), and the
@@ -237,6 +239,15 @@ MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
                     'decode': 'full_capacity'}
 
 
+def block_tp_rules() -> tuple:
+    """One block's tensor-parallel rules (``gpt2.py:28``)."""
+    from tpusystem_torch.parallel.mesh import PartitionSpec as P
+    return ((r'attn/qkv/kernel$', P(None, 'model')),
+            (r'attn/out/kernel$', P('model', None)),
+            (r'fc/kernel$', P(None, 'model')),
+            (r'proj/kernel$', P('model', None)))
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
                                f'(ROADMAP queue 1: {item})')
@@ -286,7 +297,8 @@ class GPT2(nn.Module):
         super().__init__()
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
-                              'multi-GPU parallelism')
+                              'multi-GPU parallelism, 9e. Sequence '
+                              'parallelism')
         device = resolve_device(device)
         self.vocab_size, self.layers, self.dim = vocab_size, layers, dim
         self.heads, self.max_seq, self.mlp_ratio = heads, max_seq, mlp_ratio
@@ -364,6 +376,32 @@ class GPT2(nn.Module):
         if isinstance(self.hs, BlockSpan):
             return [(name, f'hs/{name}/attn') for name in self.hs.names]
         return [(None, 'hs/attn')]
+
+    @staticmethod
+    def partition_rules():
+        """The reference's Megatron-style rules (``gpt2.py:505``), paths in
+        the port's names: qkv/fc split columns on ``model``, out/proj split
+        rows, the embeddings split the vocab/position table; the ``hs/``
+        rules cover ``scan_layers`` (the same splits one dim right, past
+        the layer dim), and the MoE rules the expert stacks. On a mesh with
+        ``model=1`` a rule still claims its dimension, so FSDP inference
+        picks another one; a ``model`` axis of size > 1 is ROADMAP 9c."""
+        from tpusystem_torch.ops.moe import moe_partition_rules
+        from tpusystem_torch.parallel.mesh import EXPERT
+        from tpusystem_torch.parallel.mesh import PartitionSpec as P
+        block = block_tp_rules()
+        return (
+            *tuple((rf'hs/.*{pattern}', P(None, *spec))
+                   for pattern, spec in block),
+            (r'hs/.*moe/w1$', P(None, EXPERT, None, 'model')),
+            (r'hs/.*moe/b1$', P(None, EXPERT, 'model')),
+            (r'hs/.*moe/w2$', P(None, EXPERT, 'model', None)),
+            (r'hs/.*moe/b2$', P(None, EXPERT, None)),
+            (r'hs/.*moe/router$', P()),
+            *block,
+            (r'wte/embedding$', P('model', None)),
+            (r'wpe/embedding$', P(None, 'model')),
+        ) + moe_partition_rules()
 
     def is_moe(self, index: int) -> bool:
         """Whether block ``index`` carries the expert FFN."""

@@ -38,7 +38,7 @@ kernel`` is ``[layers, dim, dim]``), the reference's layout; ``scan_unit >
 1`` stacks :class:`LlamaBlockSpan` s of ``d_{i}`` blocks. Decode mode stacks
 the caches too (:mod:`tpusystem_torch.models.scan`). The multi-device knobs
 ``mesh`` and ``schedule`` raise ``NotImplementedError`` (ROADMAP queue 1,
-9. Multi-GPU parallelism).
+9. Multi-GPU parallelism, 9c. Tensor parallelism; ring attention 9e).
 """
 
 from __future__ import annotations
@@ -165,7 +165,8 @@ class LlamaBlock(nn.Module):
             # the reference's scheduled SwiGLU (llama.py:188-211) composes
             # tensor-parallel rings with FSDP prefetch over a device mesh
             raise _not_ported('the scheduled SwiGLU (schedule=)',
-                              '9. Multi-GPU parallelism')
+                              '9. Multi-GPU parallelism, 9c. Tensor '
+                              'parallelism')
         self.attn_norm = RMSNorm(dim, device=device)
         self.attn = LlamaAttention(dim, heads, kv_heads, device=device)
         self.ffn_norm = RMSNorm(dim, device=device)
@@ -237,10 +238,12 @@ class Llama(nn.Module):
                              f'({layers})')
         if mesh is not None:
             raise _not_ported('a device mesh (mesh=)',
-                              '9. Multi-GPU parallelism')
+                              '9. Multi-GPU parallelism, 9c. Tensor '
+                              'parallelism')
         if attention not in ('xla', 'flash'):          # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
-                              '9. Multi-GPU parallelism')
+                              '9. Multi-GPU parallelism, 9e. Sequence '
+                              'parallelism')
         if dim % heads or heads % kv_heads:
             raise ValueError(f'dim ({dim}) must split over heads ({heads}), '
                              f'and heads over kv_heads ({kv_heads})')

@@ -12,10 +12,9 @@ norms are XLA's, not Pallas kernels). Parameters keep the reference's names
 and layouts: a conv ``kernel`` is HWIO, a norm has ``scale`` and ``bias``,
 the head's ``kernel`` is ``[in, out]``; the kernels are permuted to OIHW
 inside ``forward``. So :func:`tpusystem_torch.convert.params_from_jax`
-carries a ResNet across name for name. Like the port's GPT-2 it has no
-``partition_rules`` (the reference splits the head's classes over
-``model``): a mesh is one device (ROADMAP queue 1: 9. Multi-GPU
-parallelism).
+carries a ResNet across name for name. :meth:`ResNet.partition_rules`
+are the reference's (the head's classes over ``model``; the convs left to
+the data and fsdp axes).
 
 flax pads ``'SAME'``: at stride 2 the padding is asymmetric (a 7x7 stride-2
 conv pads 2 before and 3 after; a 3x3 stride-2 conv or max-pool on an even
@@ -170,6 +169,13 @@ class ResNet(nn.Module):
         self.head.bias = nn.Parameter(torch.empty(classes, device=device))
         if device.type != 'meta':
             self.init_weights(torch.Generator(device).manual_seed(0))
+
+    @staticmethod
+    def partition_rules():
+        """Classifier head splits classes on ``model`` (``resnet.py:95``);
+        conv weights are left to the FSDP/data axes."""
+        from tpusystem_torch.parallel.mesh import PartitionSpec as P
+        return ((r'head/kernel$', P(None, 'model')),)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

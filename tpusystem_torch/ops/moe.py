@@ -46,7 +46,22 @@ SPARSE_IMPLS = ('gather', 'scatter', 'fused')
 
 def _not_ported(what: str):
     return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               '(ROADMAP queue 1: 9. Multi-GPU parallelism)')
+                               '(ROADMAP queue 1: 9. Multi-GPU parallelism, '
+                               '9f. Expert and table parallelism)')
+
+
+def moe_partition_rules():
+    """Sharding rules for stacked expert weights (``moe.py:1038``): experts
+    over the ``expert`` axis, FFN hidden over ``model``."""
+    from tpusystem_torch.parallel.mesh import EXPERT
+    from tpusystem_torch.parallel.mesh import PartitionSpec as P
+    return (
+        (r'moe/w1$', P(EXPERT, None, 'model')),
+        (r'moe/b1$', P(EXPERT, 'model')),
+        (r'moe/w2$', P(EXPERT, 'model', None)),
+        (r'moe/b2$', P(EXPERT, None)),
+        (r'moe/router$', P()),
+    )
 
 
 def expert_capacity(tokens: int, experts: int, k: int,

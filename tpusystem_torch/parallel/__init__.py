@@ -1,20 +1,27 @@
-"""Parallelism and recovery: the port of :mod:`tpusystem.parallel`, as far
-as one device a process goes: meshes and sharding policies in their
-one-device form (a placement is "move to the mesh's device"), the control
-plane of one process or many (the TCP hub, transports and deputy), the
-chaos harness, the recovery policy, elastic membership and the
-:class:`Supervisor`. Meshes over more than one device, device collectives,
-pipelines and resharding across devices are ROADMAP queue 1 item 9."""
+"""Parallelism and recovery: the port of :mod:`tpusystem.parallel`: meshes
+over the ranks of a ``torch.distributed`` process group (one device a
+rank; one device without a group), the collectives over a mesh axis, the
+sharding policies (data parallelism and FSDP placing ``DTensor`` pieces),
+the control plane of one process or many (the TCP hub, transports and
+deputy), the chaos harness, the recovery policy, elastic membership and the
+:class:`Supervisor`. Tensor parallelism (``overlap``, ``schedule``), the
+pipelines, sequence and expert parallelism and elastic resharding across
+ranks are ROADMAP queue 1, 9c-9f."""
 
 from tpusystem_torch.parallel.mesh import (
     AXES, DATA, EXPERT, FSDP, MODEL, SEQ, STAGE,
-    Mesh, MeshSpec, batch_sharding, replicated, single_device_mesh,
-    stacked_batch_sharding,
+    Mesh, MeshSpec, PartitionSpec, batch_sharding, replicated,
+    scan_carry_constraint, single_device_mesh, stacked_batch_sharding,
 )
 from tpusystem_torch.parallel.multihost import (
     BLOB_CHUNK, BlobError, CollectiveTimeout, ControlPlaneFailover,
     DistributedProducer, DistributedPublisher, Hub, Loopback, TcpTransport,
     World, WorkerJoined, WorkerLost, agree, connect, world,
+)
+from tpusystem_torch.parallel.collectives import (
+    all_gather, all_reduce_mean, all_reduce_sum, all_to_all, axis_index,
+    axis_size, pp_hop, reduce_scatter, replica_checksums, ring_allgather,
+    ring_reducescatter, ring_shift, ring_shift_chunked,
 )
 from tpusystem_torch.parallel.chaos import (ChaosHub, ChaosTransport,
                                             CorruptBatch, CorruptGrads,
@@ -34,12 +41,18 @@ from tpusystem_torch.parallel.recovery import (CRASH_LOOP_EXIT, DIVERGED_EXIT,
                                                exit_for_restart,
                                                recovery_consumer)
 from tpusystem_torch.parallel.supervisor import Supervisor
-from tpusystem_torch.parallel.sharding import (FullyShardedDataParallel,
-                                               ShardingPolicy)
+from tpusystem_torch.parallel.sharding import (DataParallel,
+                                               FullyShardedDataParallel,
+                                               ShardingPolicy, TensorParallel)
 
 __all__ = ['MeshSpec', 'single_device_mesh', 'batch_sharding', 'replicated',
-           'stacked_batch_sharding',
-           'ShardingPolicy', 'FullyShardedDataParallel',
+           'scan_carry_constraint', 'stacked_batch_sharding',
+           'ShardingPolicy', 'DataParallel', 'FullyShardedDataParallel',
+           'TensorParallel', 'PartitionSpec',
+           'all_reduce_sum', 'all_reduce_mean', 'all_gather', 'reduce_scatter',
+           'all_to_all', 'ring_shift', 'ring_shift_chunked', 'pp_hop',
+           'ring_allgather', 'ring_reducescatter', 'axis_index', 'axis_size',
+           'replica_checksums',
            'AXES', 'DATA', 'FSDP', 'MODEL', 'SEQ', 'EXPERT', 'STAGE', 'Mesh',
            'World', 'world', 'connect', 'agree', 'Hub', 'Loopback',
            'ControlPlaneFailover', 'CollectiveTimeout',

@@ -482,10 +482,13 @@ class CorruptBatch:
 class FlipParamBit:
     """Silent data corruption: flip bit ``bit`` (LSB-first within the
     element's bytes) of the element at flat ``index`` of parameter leaf
-    ``leaf`` (its position in the state dict's order), in place, through an
-    integer view of the tensor. The reference flips it on one replica of a
-    mesh axis (``replica``, ``axis``); on one device the tensor is the
-    replica. ``__call__(params, mesh=None)`` returns ``params``."""
+    ``leaf`` (its position in the params dict's order) on ONE replica of a
+    mesh axis: the rank at coordinate ``replica`` on ``axis`` and 0 on
+    every other axis flips it in its own piece of the leaf (its local
+    shard), in place, through an integer view; every other rank keeps the
+    original. One device, one element, one bit, as the reference's
+    (``chaos.py:490``). Every rank calls it; on a one-device mesh (or with
+    no mesh) the tensor is the replica. Returns ``params``."""
 
     replica: int = 0
     leaf: int = 0
@@ -495,9 +498,17 @@ class FlipParamBit:
 
     @torch.no_grad()
     def __call__(self, params: Any, mesh: Any = None) -> Any:
+        if mesh is not None and getattr(mesh, 'distributed', False):
+            victim = mesh.ranks[tuple(
+                self.replica if name == self.axis else 0
+                for name in mesh.axis_names)]
+            if mesh.rank != int(victim):
+                return params
         leaves = list(params.values()) if isinstance(params, dict) \
             else list(params)
         target = leaves[self.leaf]
+        if hasattr(target, 'to_local'):
+            target = target.to_local()
         raw = target.view(-1).view(torch.uint8)
         offset = self.index * target.element_size() + self.bit // 8
         raw[offset] ^= 1 << (self.bit % 8)

@@ -1,9 +1,9 @@
 """Elastic training: agree a new world size, reshard in RAM, keep going.
 The port of :mod:`tpusystem.parallel.elastic`, copied (membership is
 standard-library host logic); its state pieces are the port's memstore
-(:class:`~tpusystem_torch.checkpoint.memstore.ShardedLeaf`, one piece a
-leaf on a one-device mesh). Resharding across a mesh of more than one
-device is ROADMAP queue 1, 9. Multi-GPU parallelism.
+(:class:`~tpusystem_torch.checkpoint.memstore.ShardedLeaf`: a placed
+leaf's piece on each rank, one whole piece on a one-device mesh), and a
+resize reshards the merged pieces onto the new mesh's slice boundaries.
 
 The recovery stack restarts a fixed-size job in seconds (supervisor +
 peer-replicated memstore) and topology-portable restore is proven (the
@@ -590,14 +590,18 @@ def split_pieces(state: Any, mesh: Any, hosts: int) -> list[bytes]:
     processes: per-host blobs carrying only that host's device pieces as
     :class:`~tpusystem_torch.checkpoint.memstore.ShardedLeaf` s, in
     :func:`~tpusystem_torch.checkpoint.memstore.serialize_state`'s leaf
-    order.
+    order; host ``h`` owns the ``h``-th contiguous slice of the mesh's
+    ranks (a pod's host-major order), and host values (the threefry key)
+    go to every host.
 
-    The simulation seam that drives the merge path without real processes:
-    host ``h`` owns the ``h``-th contiguous slice of the mesh's devices. The
-    port's mesh is one device, so it splits over one host (every tensor
-    leaf one whole piece) and any other count raises the reference's
-    ``ValueError``; host values (the threefry key) go to every host. A
-    tensor off the mesh's device contributes no piece.
+    Over a mesh of ranks it is a collective (every rank calls it): each
+    rank's pieces of its placed leaves are gathered, so every rank returns
+    every host's blob; with one host per rank, host ``h``'s blob is rank
+    ``h``'s own :func:`~tpusystem_torch.checkpoint.memstore.
+    serialize_state`. On a one-device mesh it splits over one host (every
+    tensor leaf one whole piece; a tensor off the mesh's device contributes
+    no piece). A rank count that ``hosts`` does not divide raises the
+    reference's ``ValueError``.
     """
     import pickle
 
@@ -605,21 +609,37 @@ def split_pieces(state: Any, mesh: Any, hosts: int) -> list[bytes]:
 
     from tpusystem_torch.checkpoint.checkpointer import flatten_state
     from tpusystem_torch.checkpoint.memstore import ShardedLeaf
-    devices = [mesh.device]
-    if len(devices) % hosts:
-        raise ValueError(f'{len(devices)} devices do not split over '
+    ranks = [int(rank) for rank in mesh.ranks.reshape(-1)]
+    if len(ranks) % hosts:
+        raise ValueError(f'{len(ranks)} devices do not split over '
                          f'{hosts} hosts evenly')
-    leaves_per_host: list[list] = [[] for _ in range(hosts)]
-    for _, leaf in flatten_state(state):
-        if not isinstance(leaf, torch.Tensor):
-            for held in leaves_per_host:
+    per_host = len(ranks) // hosts
+    leaves = flatten_state(state)
+    mine = [ShardedLeaf.from_tensor(leaf)
+            if isinstance(leaf, torch.Tensor) and (
+                mesh.distributed or leaf.device == mesh.device) else None
+            for _, leaf in leaves]
+    if mesh.distributed:
+        everyone: list = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, mine)
+        pieces = {rank: everyone[rank] for rank in ranks}
+    else:
+        pieces = {ranks[0]: mine}
+    leaves_per_host: list[list] = []
+    for host in range(hosts):
+        owned = [pieces[rank] for rank in
+                 ranks[host * per_host:(host + 1) * per_host]]
+        held = []
+        for index, (_, leaf) in enumerate(leaves):
+            if not isinstance(leaf, torch.Tensor):
                 held.append(leaf)
-            continue
-        piece = ShardedLeaf.from_tensor(leaf)
-        on_mesh = leaf.device == mesh.device
-        for held in leaves_per_host:
-            held.append(piece if on_mesh else ShardedLeaf(
-                piece.shape, piece.dtype, {}))
+                continue
+            merged = ShardedLeaf(tuple(leaf.shape), leaf.dtype, {})
+            for rank_pieces in owned:
+                if rank_pieces[index] is not None:
+                    merged = merged.merged(rank_pieces[index])
+            held.append(merged)
+        leaves_per_host.append(held)
     return [pickle.dumps(held, protocol=pickle.HIGHEST_PROTOCOL)
             for held in leaves_per_host]
 

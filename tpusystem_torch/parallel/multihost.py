@@ -15,8 +15,8 @@ hosts").
 Two planes, by design:
 
 - **data plane** — tensors move between devices through device
-  collectives (``torch.distributed``: ROADMAP queue 1, 9. Multi-GPU
-  parallelism). This module never touches device tensors.
+  collectives (``torch.distributed``, :mod:`tpusystem_torch.parallel.
+  collectives`). This module only starts its process group.
 - **control plane** (this module) — small, host-side, already-materialized
   Python values move over a TCP star: the primary process runs a
   :class:`Hub` router; every process (primary included) attaches a
@@ -42,10 +42,10 @@ Capabilities:
   (``send_blob``/``fetch_blob``) that hot-state replication rides.
 
 :func:`initialize` names the job's :class:`World` (its arguments, else
-``TPUSYSTEM_PROCESS_ID`` / ``TPUSYSTEM_NUM_PROCESSES``) and joins nothing:
-the control plane is :func:`connect`'s (``Runtime`` calls it), and the
-device plane, ``torch.distributed.init_process_group``, is ROADMAP queue 1,
-9. Multi-GPU parallelism.
+``TPUSYSTEM_PROCESS_ID`` / ``TPUSYSTEM_NUM_PROCESSES``); given a device it
+joins the device plane, ``torch.distributed.init_process_group`` (NCCL on
+the card, gloo on the CPU). The control plane is :func:`connect`'s
+(``Runtime`` calls it).
 
 Transport frames are length-prefixed pickles on a trusted cluster network
 (the same trust model as NCCL/MPI bootstrap); event payloads must be plain
@@ -103,17 +103,29 @@ def world() -> World:
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> World:
+               process_id: int | None = None, *, device=None,
+               backend: str | None = None) -> World:
     """Name this process's place in the job and return the :class:`World`.
 
     One process when neither a coordinator nor more than one process is
     given, so the same ``main()`` runs unchanged in one process. Otherwise
     ``num_processes`` and ``process_id`` come from the arguments, else from
     ``TPUSYSTEM_NUM_PROCESSES`` and ``TPUSYSTEM_PROCESS_ID``
-    (``ValueError`` when either is missing or out of range). It joins the
-    control plane only (:func:`connect`, which ``Runtime`` calls): the
-    reference's ``jax.distributed.initialize`` is the device plane, whose
-    port is ROADMAP queue 1, 9. Multi-GPU parallelism.
+    (``ValueError`` when either is missing or out of range).
+
+    With a ``device`` (``'cuda'`` or ``'cpu'``) it also joins the device
+    plane, the reference's ``jax.distributed.initialize``:
+    ``torch.distributed.init_process_group`` over this world, its backend
+    following the device (NCCL on the card, this rank's card
+    ``process_id % device_count``; gloo on the CPU), its rendezvous a
+    ``TCPStore`` at the coordinator's address (rank 0 serves it). A world
+    of one with a coordinator joins too (a group of one rank). The
+    rendezvous and every collective wait at most
+    :data:`DEVICE_PLANE_TIMEOUT` seconds for a rank. ``backend``
+    names another backend explicitly (``'gloo'`` over CUDA tensors: ranks
+    that share one card, which NCCL refuses). Without a ``device`` it
+    joins nothing: the control plane is :func:`connect`'s (``Runtime``
+    calls it). :func:`shutdown` leaves the device plane.
     """
     global _WORLD
     import os
@@ -133,7 +145,66 @@ def initialize(coordinator_address: str | None = None,
         raise ValueError(f'process_id {process_id} is outside a job of '
                          f'{num_processes} processes')
     _WORLD = World(process_id, num_processes)
+    if device is not None:
+        _join_device_plane(coordinator_address, _WORLD, device, backend)
     return _WORLD
+
+
+# the backend of each device type: the process group follows the device
+BACKENDS = {'cuda': 'nccl', 'cpu': 'gloo'}
+
+# seconds the device plane's rendezvous and collectives wait for a rank
+DEVICE_PLANE_TIMEOUT = 300.0
+
+
+# the device this process's device plane drives (set by initialize)
+_DEVICE = None
+
+
+def device_plane():
+    """The device the device plane was joined for (this rank's card, or
+    the CPU), or None where this process joined none."""
+    return _DEVICE
+
+
+def _join_device_plane(coordinator: str | None, job: World, device,
+                       backend: str | None) -> None:
+    import datetime
+
+    import torch
+
+    from tpusystem_torch.device import resolve_device
+    global _DEVICE
+    if coordinator is None:
+        raise ValueError('the device plane needs the coordinator\'s '
+                         'host:port for its rendezvous store')
+    kind = resolve_device(device).type
+    if kind not in BACKENDS:
+        raise ValueError(f'no process-group backend for device {device!r}')
+    if kind == 'cuda':
+        index = job.process_index % torch.cuda.device_count()
+        torch.cuda.set_device(index)
+        _DEVICE = torch.device('cuda', index)
+    else:
+        _DEVICE = torch.device(kind)
+    host, _, port = coordinator.rpartition(':')
+    wait = datetime.timedelta(seconds=DEVICE_PLANE_TIMEOUT)
+    store = torch.distributed.TCPStore(
+        host, int(port), job.process_count, job.process_index == 0,
+        timeout=wait)
+    torch.distributed.init_process_group(
+        backend or BACKENDS[kind], store=store, rank=job.process_index,
+        world_size=job.process_count, timeout=wait)
+
+
+def shutdown() -> None:
+    """Leave the device plane (``destroy_process_group``), where this
+    process joined one."""
+    import torch
+    global _DEVICE
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    _DEVICE = None
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,8 @@ scatter-adds backward. This module supplies that tier:
 * :class:`ShardedEmbedding` — the table module on one device.
   :func:`route_plan` is copied as it is (pure). A ``mesh`` whose
   ``expert``/``model`` axes hold more than one table shard raises
-  ``NotImplementedError`` (ROADMAP queue 1 item 9: the device-side id →
-  shard routing and the ``psum`` need the multi-GPU layer).
+  ``NotImplementedError`` (ROADMAP queue 1, 9f. Expert and table
+  parallelism: the device-side id → shard routing and the ``psum``).
 """
 
 from __future__ import annotations
@@ -172,7 +172,8 @@ class ShardedEmbedding(nn.Module):
         if table_shards(mesh) > 1:
             raise NotImplementedError(
                 'a table split over a mesh is not ported to tpusystem_torch '
-                'yet (ROADMAP queue 1: 9. Multi-GPU parallelism)')
+                'yet (ROADMAP queue 1: 9. Multi-GPU parallelism, 9f. Expert '
+                'and table parallelism)')
         self.vocab, self.features, self.mesh = vocab, features, mesh
         self.impl, self.dedup, self.init_scale = impl, dedup, init_scale
         self.embedding = nn.Parameter(torch.empty(

@@ -15,9 +15,11 @@ makes the same ``main()`` correct in both worlds:
   (:func:`~tpusystem_torch.parallel.multihost.connect`; the primary
   doubles as the :class:`~tpusystem_torch.parallel.multihost.Hub`, rank 1
   as the standby deputy when ``TPUSYSTEM_CONTROL_DEPUTY`` names one), in
-  one process it is a :class:`~tpusystem_torch.parallel.multihost.Loopback`.
-  Only the control plane: ``torch.distributed`` (the device plane) is
-  ROADMAP queue 1, 9. Multi-GPU parallelism;
+  one process it is a :class:`~tpusystem_torch.parallel.multihost.Loopback`;
+* given a ``device``, joins the device plane beside it
+  (``torch.distributed.init_process_group`` over the same world: NCCL on
+  the card, gloo on the CPU), over which meshes, collectives and placed
+  train steps run, and leaves it on :meth:`close`;
 * :class:`~tpusystem_torch.parallel.multihost.DistributedProducer` /
   ``DistributedPublisher`` buses with rank-aware consumer placement, so
   storage/TensorBoard consumers register ``primary_only`` and run exactly
@@ -127,6 +129,9 @@ class Runtime:
         heartbeat: seconds between liveness pings; a process silent for 4
             intervals surfaces as a ``WorkerLost`` event on every other
             process. ``None`` disables failure detection.
+        device: ``'cuda'`` or ``'cpu'`` to join the device plane
+            (:func:`~tpusystem_torch.parallel.multihost.initialize`); None
+            for the control plane only.
         preemption: install the SIGTERM preemption handler
             (:meth:`install_preemption_handler`) at construction. Off by
             default — signal handlers can only be installed from the main
@@ -139,12 +144,15 @@ class Runtime:
                  process_id: int | None = None,
                  ledger: bool = False,
                  heartbeat: float | None = 10.0,
+                 device=None,
                  preemption: bool = False) -> None:
         coordinator = coordinator or os.environ.get('TPUSYSTEM_COORDINATOR')
         self._preempt_signal: int | None = None
         self._previous_handlers: dict = {}
         self.world: World = multihost.initialize(
-            coordinator, num_processes, process_id)
+            coordinator, num_processes, process_id, device=device)
+        self.device_plane = device is not None and (
+            coordinator is not None or self.world.process_count > 1)
         self.hub: Hub | None = None
         if self.world.process_count > 1:
             address = _control_address(coordinator, control_port)
@@ -259,6 +267,9 @@ class Runtime:
         self.transport.close()
         if self.hub is not None:
             self.hub.close()
+        if self.device_plane:
+            multihost.shutdown()
+            self.device_plane = False
 
     def __enter__(self) -> 'Runtime':
         return self

@@ -26,7 +26,7 @@ Layers, bottom up:
   (:mod:`tpusystem_torch.serve.certify`).
 
 The names are the reference's, in its order, but for ``pool_shardings``,
-which exists only for meshes (tensor parallelism, ROADMAP queue 1 item 9).
+which exists only for meshes (ROADMAP queue 1, 9c. Tensor parallelism).
 """
 
 from tpusystem_torch.serve.certify import (CertifyReport, FleetHarness,

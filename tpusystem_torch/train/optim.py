@@ -76,8 +76,30 @@ def global_norm(grads: list, params: list | None = None) -> torch.Tensor:
     """optax's ``global_norm`` in float32 on the grads' device: the norm of
     the leaves' norms. With ``params`` (keyed alike) a stacked leaf counts
     as its layer slices (:func:`_norm_units`)."""
+    groups = {id(group): group for group in
+              (getattr(param, 'shard_group', None) for param in params or ())
+              if group is not None}
+    if groups:
+        return _sharded_norm(grads, params, groups)
     units = _norm_units(grads, params)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(units)))
+
+
+def _sharded_norm(grads: list, params: list, groups: dict) -> torch.Tensor:
+    """The global norm where some leaves are pieces split over ranks (their
+    ``shard_group``): each rank's squares of its own pieces summed over
+    that group, plus the squares of the whole leaves, counted once."""
+    whole = [grad for grad, param in zip(grads, params)
+             if getattr(param, 'shard_group', None) is None]
+    total = (torch.stack(torch._foreach_norm(whole)).square().sum()
+             if whole else torch.zeros((), device=grads[0].device))
+    for key, group in groups.items():
+        pieces = [grad for grad, param in zip(grads, params)
+                  if id(getattr(param, 'shard_group', None)) == key]
+        squares = torch.stack(torch._foreach_norm(pieces)).square().sum()
+        torch.distributed.all_reduce(squares, group=group)
+        total = total + squares
+    return total.sqrt()
 
 
 def clip_by_global_norm(grads: list, max_norm: float,

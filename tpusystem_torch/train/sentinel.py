@@ -17,9 +17,10 @@ Three layers, cheapest first, as in the reference:
    (:class:`~tpusystem_torch.parallel.recovery.DivergenceError`, exit code
    44). Every transition is a domain event
    (:mod:`tpusystem_torch.observe.events`).
-3. **SDC parity** (:meth:`Sentinel.check_parity`) needs the replicas of a
-   data-parallel mesh and ``collectives.replica_checksums``; it raises
-   ``NotImplementedError`` (ROADMAP queue 1, 9. Multi-GPU parallelism).
+3. **SDC parity** (:meth:`Sentinel.check_parity`): bit checksums of every
+   parameter on each replica of a data-parallel mesh
+   (:func:`tpusystem_torch.parallel.collectives.replica_checksums`),
+   compared across replicas before a checkpoint commits.
 
 Typical wiring::
 
@@ -312,11 +313,58 @@ class Sentinel:
                               to_step=target, window=window))
         return restored
 
-    def check_parity(self, state: Any, mesh: Any, *, axis: str = 'data',
-                     raise_on_mismatch: bool = True):
-        """Cross-replica parity of data-parallel params: needs a mesh and
-        ``collectives.replica_checksums``, which the port does not have."""
-        raise NotImplementedError(
-            'Sentinel.check_parity (cross-replica checksums over a mesh) is '
-            'not ported to tpusystem_torch yet (ROADMAP queue 1: 9. '
-            'Multi-GPU parallelism)')
+    def check_parity(self, state: TrainState | Any, mesh, *,
+                     axis: str = 'data', raise_on_mismatch: bool = True):
+        """Cross-replica parity check of data-parallel params
+        (``sentinel.py:362``).
+
+        Checksums every param leaf per ``axis`` replica (order-independent
+        bit checksums, gathered over ``axis``: :func:`~tpusystem_torch.
+        parallel.collectives.replica_checksums`) and compares rows. Run it
+        at checkpoint cadence, *before* the save: a replica corrupted by an
+        SDC is flagged here instead of contaminating the checkpoint. Every
+        rank of the mesh calls it (the checksums are a collective).
+
+        Returns None when all replicas agree; on a mismatch emits
+        :class:`~tpusystem_torch.observe.events.ReplicaDiverged` and raises
+        :class:`DivergenceError` (or, with ``raise_on_mismatch=False``,
+        returns ``(bad_replicas, bad_leaves)``). A strict majority
+        attributes the minority replicas; without one (two replicas, or an
+        even split) every replica of the disagreeing column is reported.
+        """
+        from tpusystem_torch.parallel import collectives
+        params = state.params if isinstance(state, TrainState) else state
+        matrix, paths = collectives.replica_checksums(params, mesh,
+                                                      axis=axis)
+        if bool(np.all(matrix == matrix[0])):
+            return None
+        bad_replicas: set[int] = set()
+        bad_leaves: list[str] = []
+        for column in range(matrix.shape[1]):
+            values, counts = np.unique(matrix[:, column], return_counts=True)
+            if len(values) == 1:
+                continue
+            bad_leaves.append(paths[column])
+            if np.sum(counts == counts.max()) > 1:
+                # no strict majority: attribution is ambiguous, so every
+                # replica is reported rather than one side of the tie
+                bad_replicas.update(range(matrix.shape[0]))
+                continue
+            majority = values[np.argmax(counts)]
+            bad_replicas.update(
+                int(r) for r in np.nonzero(matrix[:, column] != majority)[0])
+        step = int(state.step) if isinstance(state, TrainState) else None
+        replicas = sorted(bad_replicas)
+        logger.error('cross-replica parity FAILED: replica(s) %s diverge on '
+                     '%d leaf/leaves (e.g. %s)', replicas, len(bad_leaves),
+                     bad_leaves[:3])
+        from tpusystem_torch.observe.events import ReplicaDiverged
+        self._emit(ReplicaDiverged(model=self._subject(), step=step,
+                                   replicas=replicas, leaves=bad_leaves))
+        if raise_on_mismatch:
+            raise DivergenceError(
+                f'silent data corruption: replica(s) {replicas} on mesh axis '
+                f'{axis!r} diverge on {len(bad_leaves)} param leaf/leaves '
+                f'(e.g. {bad_leaves[:3]}); do NOT checkpoint — restart from '
+                f'the last committed step', step=step)
+        return replicas, bad_leaves

@@ -81,6 +81,9 @@ class TrainState:
         step: scalar int32 tensor on the parameters' device.
         health: :class:`HealthStats` when the state is armed for a guarded
             step (``Guard.arm(state)``), else None.
+        mesh: the :class:`~tpusystem_torch.parallel.mesh.Mesh` a sharding
+            policy placed the state on (its leaves then DTensors),
+            else None.
     """
 
     def __init__(self, params: dict, opt_state: Any, rng: tuple,
@@ -89,6 +92,7 @@ class TrainState:
         self.params, self.opt_state, self.rng, self.step = (
             params, opt_state, rng, step)
         self.health = health
+        self.mesh = None     # set when a sharding policy places the state
 
     @classmethod
     def create(cls, params: dict, opt_state: Any,

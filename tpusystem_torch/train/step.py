@@ -12,8 +12,18 @@ steps (the counterpart of the reference's ``lax.scan``): the per-step losses
 (and, guarded, health rows) stay on the card, stacked, for the caller's one
 read. ``jit=`` is accepted and ignored, as by every ``build_*`` function
 of the port.
+
+On a state that a sharding policy placed on a mesh of ranks
+(:mod:`tpusystem_torch.parallel.sharding`) the same step runs SPMD: each
+rank gets its rows of the global batch, gathers the leaves FSDP split
+(a gather whose backward reduce-scatters; all of them whole before the
+forward, held until the backward ends), differentiates its share of the
+global batch's mean loss (``loss * weight / total weight``, the weights
+summed over the batch axes, so masked losses stay the global mean), sums
+the gradients over the batch axes that do not split the leaf, and updates
+its own pieces and slots. The loss it returns is the global one.
 :func:`build_1f1b_train_step` raises ``NotImplementedError`` (ROADMAP queue
-1, 9. Multi-GPU parallelism).
+1, 9d. Pipelines).
 """
 
 from __future__ import annotations
@@ -26,6 +36,9 @@ import numpy as np
 import torch
 
 from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
+from tpusystem_torch.parallel.collectives import all_reduce_sum
+from tpusystem_torch.parallel.sharding import (gather_leaf, is_placed, local,
+                                               local_tree, shard_axes)
 from tpusystem_torch.train.optim import masked_update
 from tpusystem_torch.train.state import TrainState
 
@@ -66,6 +79,32 @@ def _detach(outputs):
     return outputs
 
 
+# the axes a global batch splits over, and its gradients sum over
+BATCH_AXES = ('data', 'fsdp')
+
+
+def sync_grads(grads: list, placed: list, mesh) -> list:
+    """Sum each rank's gradients over the batch axes that do not split the
+    leaf (a gathered leaf's backward summed over the axes that do): one
+    flat all-reduce per set of axes."""
+    buckets: dict = {}
+    for index, leaf in enumerate(placed):
+        split_over = {axis for axes in shard_axes(leaf).values()
+                      for axis in axes}
+        axes = tuple(axis for axis in BATCH_AXES if axis not in split_over)
+        if axes:
+            buckets.setdefault(axes, []).append(index)
+    grads = list(grads)
+    for axes, indices in buckets.items():
+        flat = torch.cat([grads[index].reshape(-1).float()
+                          for index in indices])
+        flat = all_reduce_sum(flat, mesh, axes)
+        for index, part in zip(indices, flat.split(
+                [grads[index].numel() for index in indices])):
+            grads[index] = part.view_as(grads[index]).to(grads[index].dtype)
+    return grads
+
+
 def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                      accumulate: int = 1, jit: bool = True, guard=None,
                      fault=None):
@@ -97,7 +136,12 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
     ``fault=`` is the chaos seam: ``fault(step, grads, loss) -> (grads,
     loss)`` right after the gradients, ``step`` the 1-based index of the
     step being computed (a tensor on the card), ``grads`` keyed like the
-    parameters (:class:`tpusystem_torch.parallel.chaos.CorruptGrads`)."""
+    parameters (:class:`tpusystem_torch.parallel.chaos.CorruptGrads`).
+
+    A placed state (``state.mesh`` a mesh of ranks) takes this rank's rows
+    and steps SPMD (the module docstring); ``outputs`` are this rank's, the
+    ``fault=`` seam and the guard see this rank's pieces of the summed
+    gradients, and the guard's norm is the global one."""
     weight_fn = getattr(criterion, 'weight', None)
 
     def value_and_grad(leaves, params, inputs, targets, rng):
@@ -107,6 +151,8 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
         return loss.detach(), _detach(outputs), grads
 
     def step(state: TrainState, inputs, targets):
+        if is_placed(state):
+            return placed_step(state, inputs, targets)
         rng = state.next_rng()
         names = list(state.params)
         leaves = [state.params[name] for name in names]
@@ -140,7 +186,11 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
             grads = [(total / weight_sum).to(leaf.dtype)
                      for total, leaf in zip(sums, leaves)]
             loss = loss_sum / weight_sum
-        grads = dict(zip(names, grads))
+        return update(state, names, leaves, state.params, state.opt_state,
+                      dict(zip(names, grads)), loss, outputs)
+
+    def update(state, names, leaves, params, opt_state, grads, loss,
+               outputs):
         if fault is not None:
             grads, loss = fault(state.step + 1, grads, loss)
         if guard is not None:
@@ -149,12 +199,56 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                 'Guard.arm(state) before the first step')
             ok = guard.judge(state.health, loss,
                              [grads[name] for name in names], leaves)
-            masked_update(optimizer, grads, state.opt_state, state.params,
-                          ok, scale=state.health.lr_scale)
+            masked_update(optimizer, grads, opt_state, params, ok,
+                          scale=state.health.lr_scale)
         else:
-            optimizer.step(state.params, grads, state.opt_state)
+            optimizer.step(params, grads, opt_state)
         state.step += 1
         return state, (outputs, loss)
+
+    def placed_step(state: TrainState, inputs, targets):
+        """The step over a state placed on a mesh of ranks: ``inputs`` and
+        ``targets`` are this rank's rows of the global batch. The loss
+        differentiated is this rank's share of the global batch's mean,
+        ``loss * weight / total weight``, so the gradients summed over the
+        data-like axes are the global mean's, masked losses included."""
+        mesh = state.mesh
+        rng = state.next_rng()
+        names = list(state.params)
+        placed = [state.params[name] for name in names]
+        held = [local(leaf) for leaf in placed]
+        if accumulate > 1 and inputs.shape[0] % accumulate:
+            raise ValueError(f'batch {inputs.shape[0]} not divisible by '
+                             f'accumulate={accumulate}')
+        micro = (list(zip(inputs.split(inputs.shape[0] // accumulate),
+                          targets.split(targets.shape[0] // accumulate),
+                          split(rng, accumulate)))
+                 if accumulate > 1 else [(inputs, targets, rng)])
+        device = state.step.device
+        weights = [weight_fn(micro_targets).float() if weight_fn
+                   else torch.ones((), device=device)
+                   for _, micro_targets, _ in micro]
+        total = all_reduce_sum(torch.stack(weights).sum(), mesh, BATCH_AXES)
+        total = torch.clamp(total, min=1e-8)         # all-pad batch
+        grads, loss = None, torch.zeros((), device=device)
+        for (micro_inputs, micro_targets, micro_rng), weight in zip(
+                micro, weights):
+            leaves = [piece.detach().requires_grad_(piece.is_floating_point())
+                      for piece in held]
+            params = {name: gather_leaf(leaf, whole, mesh)
+                      for name, leaf, whole in zip(names, leaves, placed)}
+            outputs = apply_fn(params, micro_inputs, micro_rng, True)
+            share = criterion(outputs, micro_targets) * (weight / total)
+            found = torch.autograd.grad(share, leaves)
+            grads = (list(found) if grads is None
+                     else [sum_ + grad for sum_, grad in zip(grads, found)])
+            loss = loss + share.detach()
+            outputs = _detach(outputs)
+        grads = sync_grads(grads, placed, mesh)
+        loss = all_reduce_sum(loss, mesh, BATCH_AXES)
+        return update(state, names, held, dict(zip(names, held)),
+                      local_tree(state.opt_state), dict(zip(names, grads)),
+                      loss, outputs)
 
     return step
 
@@ -162,12 +256,27 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
 def build_eval_step(apply_fn: ApplyFn, criterion: Criterion, *,
                     jit: bool = True):
     """Build ``step(state, inputs, targets) -> (outputs, loss)``: the
-    forward in eval mode, without gradients."""
+    forward in eval mode, without gradients. On a placed state the inputs
+    are this rank's rows and the loss is the global batch's."""
+
+    weight_fn = getattr(criterion, 'weight', None)
 
     @torch.no_grad()
     def step(state: TrainState, inputs, targets):
-        outputs = apply_fn(state.params, inputs, None, False)
-        return outputs, criterion(outputs, targets)
+        if not is_placed(state):
+            outputs = apply_fn(state.params, inputs, None, False)
+            return outputs, criterion(outputs, targets)
+        # a placed state: this rank's rows, the global batch's loss
+        mesh = state.mesh
+        params = {name: gather_leaf(local(leaf), leaf, mesh)
+                  for name, leaf in state.params.items()}
+        outputs = apply_fn(params, inputs, None, False)
+        weight = (weight_fn(targets).float() if weight_fn
+                  else torch.ones((), device=state.step.device))
+        total = torch.clamp(all_reduce_sum(weight, mesh, BATCH_AXES),
+                            min=1e-8)
+        share = criterion(outputs, targets) * (weight / total)
+        return outputs, all_reduce_sum(share, mesh, BATCH_AXES)
 
     return step
 
@@ -278,7 +387,8 @@ def grouped_batches(loader, size: int):
 
 def build_1f1b_train_step(*args, **kwargs):
     """The 1F1B pipelined train step: not ported yet."""
-    raise _not_ported('build_1f1b_train_step', 'multi-GPU parallelism')
+    raise _not_ported('build_1f1b_train_step',
+                      'multi-GPU parallelism, 9d. Pipelines')
 
 
 def init_state(module: torch.nn.Module, optimizer, *,
