@@ -339,10 +339,28 @@ Phases, in order; any failure exits non-zero:
     two processes sharing the card over gloo on CUDA tensors (NCCL refuses
     two ranks on one device) run (b)'s DP steps on 8 rows each: equal
     global losses, within 2e-5 of (b)'s unplaced ones;
-28. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+28. tensor parallelism (``tensor-parallel``): (a) over a world of one
+    rank (NCCL), a ``model`` axis of size 1: the plans say single and
+    one-shot, and three AdamW steps of GPT-2 125M with ``mesh=`` under
+    ``TensorParallel`` at [2, 1024] are bit for bit the unplaced steps,
+    12 K1 and 12 K2b launches a step; (b) two processes sharing the card
+    over gloo on ``MeshSpec(model=2)`` (subprocesses of ``chip_smoke.py
+    --tp-worker RANK PORT OUT SEED``; NCCL refuses two ranks on one device):
+    GPT-2 125M at full width through ``Engine(mesh=..., rows=8)``, prefill
+    logits within 2**-4 of the largest of the one-rank engine's, the ranks'
+    tokens one stream and the share equal to the one-rank engine's
+    printed; three steps each under ``tp_impl='gspmd'`` and
+    ``schedule=OverlapSchedule(tp='overlap', chunks=2)`` at [2, 1024],
+    losses within 5e-3 of (a)'s unplaced ones and of each other, K1 and
+    K2b on each rank's 6 heads every layer; (c) ``scheduled_swiglu`` at
+    Llama-3 8B's FFN widths (1,024 tokens, 4,096 -> 14,336, bf16) under
+    both TP arms on those ranks, forward and gradients within 2**-5 of the
+    largest value of the unsplit SwiGLU's. Prints the ring shift's route,
+    the ranks' launches, step ms and peak memory;
+29. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-27 prints its seconds.
+    line. Each of phases 15b and 17-28 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -6133,6 +6151,363 @@ def data_parallel(torch, seed: int, device: str = 'cuda', factory=None,
     return record
 
 
+# phase 28: tensor parallelism
+
+TP_RANKS = 2                    # (b), (c): processes sharing the one card
+TP_STEPS = 3                    # AdamW steps under each knob
+TP_BATCH = 2                    # rows of 1,024 tokens a step, cut from the
+# dense recipe's 16: every collective of a TP step goes through the host on
+# gloo, and the phase's budget is 60 s
+TP_NEW = 4                      # tokens each request decodes in (b)
+TP_LOSS_RTOL = 5e-3             # bf16 TP step against the unsplit one: the
+# row-parallel sums round once in float32 where the unsplit product rounds
+# in bf16, so logits differ by bf16 steps; the loss of order 11 moves by
+# about 1e-3 at most
+TP_LOGIT_SHARE = 2 ** -4        # prefill logits: of the largest logit, as
+# phase 5's fused-vs-module probe (12 layers of bf16 steps)
+TP_SWIGLU = (1024, 4096, 14336)     # (c): tokens, Llama-3 8B's FFN widths
+TP_SWIGLU_SHARE = 2 ** -5       # (c): max abs error over the largest value,
+# forward and gradients: f32 accumulation against bf16 matmuls
+
+
+def tp_model(torch, seed: int, device: str):
+    return gpt2_125m(torch, seed, device=device)
+
+
+def tp_steps(torch, module, tokens, steps: int, mesh=None) -> dict:
+    """``steps`` AdamW steps of the dense recipe's loss on ``module``'s
+    current weights, unplaced or under ``TensorParallel`` on ``mesh``:
+    losses, step ms, K1/K2b launches, peak memory, final parameters."""
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.sharding import TensorParallel, local
+    from tpusystem_torch.train import AdamW, ChunkedNextTokenLoss, init_state
+
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=0)
+    rows = tokens
+    if mesh is not None:
+        state = TensorParallel(module.partition_rules()).place(state, mesh)
+        rows = batch_sharding(mesh)(tokens)
+    step = build_train_step(module_apply(module), ChunkedNextTokenLoss(
+        chunks=8), optimizer)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    for counter in counters:
+        counter.launches = 0
+    cuda = tokens.device.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, rows, rows)
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - started)
+    return dict(losses=losses, step_ms=[1e3 * s for s in seconds],
+                launches={counter.__name__: counter.launches
+                          for counter in counters},
+                peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None),
+                params={key: local(value).detach().clone()
+                        for key, value in state.params.items()})
+
+
+def tp_at_one(torch, seed: int, device: str, factory, shape) -> dict:
+    """Phase 28 (a): over a world of one rank, a ``model`` axis of size 1:
+    the plans say single and one-shot, and GPT-2 125M with ``mesh=`` under
+    ``TensorParallel`` steps bit for bit as the unplaced model does."""
+    import numpy as np
+
+    from tpusystem_torch.parallel import (MeshSpec, OverlapSchedule,
+                                          allgather_plan, decode_tp_plan,
+                                          schedule_applicable)
+
+    mesh = MeshSpec(model=1).build()
+    module = factory()
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    initial = {name: value.detach().clone()
+               for name, value in module.state_dict().items()}
+    dims = (shape[0], shape[1], module.dim)
+    plans = dict(decode=tuple(decode_tp_plan(mesh)),
+                 overlap=schedule_applicable(OverlapSchedule(tp='overlap'),
+                                             mesh, dims, 4 * module.dim),
+                 ring=tuple(allgather_plan(shape[1], 1, 2)))
+    if plans['decode'][0] != 'single' or plans['overlap'] or \
+            plans['ring'][0] != 'one-shot':
+        fail(f'phase 28 (a): a model axis of one rank planned {plans}')
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, module.vocab_size), shape), device=device)
+    runs = {}
+    for name, placed in (('unplaced', None), ('model1', mesh)):
+        module.load_state_dict(initial)
+        runs[name] = tp_steps(torch, module.replace(mesh=placed), tokens,
+                              TP_STEPS, placed)
+    params = [run.pop('params') for run in runs.values()]
+    equal = all(torch.equal(params[0][key], params[1][key])
+                for key in params[0])
+    if not equal or runs['unplaced']['losses'] != runs['model1']['losses']:
+        fail(f'phase 28 (a): the model=1 step is not bit for bit the '
+             f'unplaced one: {runs}')
+    layers = module.layers
+    for name, run in runs.items():
+        if not all(math.isfinite(value) for value in run['losses']):
+            fail(f'phase 28 (a): non-finite {name} losses {run["losses"]}')
+        if device == 'cuda' and run['launches'] != {
+                'flash_attention_lse': layers * TP_STEPS,
+                'flash_bwd_fused': layers * TP_STEPS}:
+            fail(f'phase 28 (a): {name} launched {run["launches"]}')
+    return dict(plans=plans, runs=runs, shape=list(shape),
+                launches={key: sum(run['launches'][key]
+                                   for run in runs.values())
+                          for key in runs['unplaced']['launches']})
+
+
+def engine_tokens(engine, prompts, max_new: int) -> tuple:
+    """Admit ``prompts`` and step to the end: the tokens of each request
+    and the step times."""
+    admissions = [engine.admit(prompt, max_new) for prompt in prompts]
+    tokens = {admission.row: [admission.token] for admission in admissions}
+    seconds = []
+    while engine.active_rows:
+        started = time.perf_counter()
+        report = engine.step()
+        seconds.append(time.perf_counter() - started)
+        for row, new in report.emitted.items():
+            tokens[row].extend(int(token) for token in new)
+    return [tokens[admission.row] for admission in admissions], seconds
+
+
+def tp_serve(torch, mesh, seed: int) -> dict:
+    """Phase 28 (b), serving: GPT-2 125M's ``Engine(mesh=..., rows=8)``
+    beside the one-rank engine on this rank: prefill logits within
+    ``TP_LOGIT_SHARE`` of the largest, the ranks' tokens gathered (one
+    stream), the share of tokens equal to the one-rank engine's."""
+    from tpusystem_torch.models import gpt2_small
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.serve import Engine
+
+    module = gpt2_small(device='cuda')
+    module.init_weights(torch.Generator('cuda').manual_seed(seed))
+    prompts = serving_prompts(seed, module.vocab_size)
+    single = Engine(module, None, rows=ROWS, block_size=BLOCK,
+                    decode_impl='flax')
+    sharded = Engine(module, None, rows=ROWS, block_size=BLOCK, mesh=mesh)
+    errors = []
+    for prompt in (prompts[0], prompts[2]):
+        got = sharded._prefill(prompt)[0]
+        want = single._prefill(prompt)[0]
+        err = (got - want).abs().max().item()
+        tol = TP_LOGIT_SHARE * want.abs().max().item()
+        if not torch.isfinite(got).all() or err > tol:
+            fail(f'phase 28 (b): prefill logits of a {prompt.size}-token '
+                 f'prompt off by {err} (tolerance {tol})')
+        errors.append(dict(tokens=int(prompt.size), max_abs_err=err,
+                           tol=tol))
+    want, _ = engine_tokens(single, prompts, TP_NEW)
+    flash.flash_attention_lse.launches = 0
+    got, seconds = engine_tokens(sharded, prompts, TP_NEW)
+    everyone = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(everyone, got)
+    if any(tokens != got for tokens in everyone):
+        fail(f'phase 28 (b): the ranks emitted different tokens {everyone}')
+    pairs = [(a, b) for row, ref in zip(got, want) for a, b in zip(row, ref)]
+    return dict(plan=list(sharded.tp_plan), decode_impl=sharded.decode_impl,
+                prefill=errors, tokens=sum(len(row) for row in got),
+                equal_share=sum(a == b for a, b in pairs) / len(pairs),
+                median_step_ms=1e3 * sorted(seconds)[len(seconds) // 2],
+                k1_launches=flash.flash_attention_lse.launches)
+
+
+def tp_swiglu(torch, mesh, seed: int, sizes=TP_SWIGLU) -> dict:
+    """Phase 28 (c): ``scheduled_swiglu`` at Llama-3 8B's FFN widths in
+    bf16, under ``tp='gspmd'`` and ``tp='overlap'`` (two chunks), its
+    forward and gradients against the unsplit SwiGLU on the same weights
+    (each rank's blocks of the gradients), within ``TP_SWIGLU_SHARE`` of
+    the largest value."""
+    import torch.nn.functional as F
+
+    from tpusystem_torch.parallel import (OverlapSchedule, TensorParallel,
+                                          scheduled_swiglu)
+    from tpusystem_torch.parallel.mesh import PartitionSpec as P
+    from tpusystem_torch.parallel.sharding import (gather_leaf, held_slices,
+                                                   local)
+
+    tokens, dim, grown = sizes
+    device = mesh.device
+    generator = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((1, tokens, dim), generator=generator,
+                    device=device).to(torch.bfloat16)
+    weights = {f'{name}.kernel': (torch.randn(shape, generator=generator,
+                                              device=device)
+                                  * shape[0] ** -0.5).to(torch.bfloat16)
+               for name, shape in (('gate', (dim, grown)),
+                                   ('up', (dim, grown)),
+                                   ('down', (grown, dim)))}
+    # the unsplit SwiGLU: bf16 matmuls, autograd
+    leaves = {name: value.clone().requires_grad_()
+              for name, value in weights.items()}
+    x_leaf = x.clone().requires_grad_()
+    want = torch.matmul(F.silu(torch.matmul(x_leaf, leaves['gate.kernel']))
+                        * torch.matmul(x_leaf, leaves['up.kernel']),
+                        leaves['down.kernel'])
+    want_grads = torch.autograd.grad(
+        want.float().square().sum() * 1e-3,
+        [x_leaf] + [leaves[name] for name in weights])
+    # Llama's rules: gate and up split by columns, down by rows
+    placed = TensorParallel(((r'(gate|up)/kernel$', P(None, 'model')),
+                             (r'down/kernel$', P('model', None)))).place(
+        weights, mesh)
+    arms = {}
+    for arm in ('gspmd', 'overlap'):
+        given = {name: gather_leaf(local(leaf).detach().requires_grad_(),
+                                   leaf, mesh, keep=('model',))
+                 for name, leaf in placed.items()}
+        x_arm = x.clone().requires_grad_()
+        schedule = OverlapSchedule(tp=arm, chunks=2)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        started = time.perf_counter()
+        out = scheduled_swiglu(x_arm, given['gate.kernel'],
+                               given['up.kernel'], given['down.kernel'], mesh,
+                               schedule=schedule)
+        grads = torch.autograd.grad(
+            out.float().square().sum() * 1e-3,
+            [x_arm] + [given[name] for name in weights])
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - started
+        errors = {}
+        for label, got, ref in (
+                [('out', out, want), ('x', grads[0], want_grads[0])]
+                + [(name, grad, ref[held_slices(placed[name])])
+                   for name, grad, ref in zip(weights, grads[1:],
+                                              want_grads[1:])]):
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = TP_SWIGLU_SHARE * ref.float().abs().max().item()
+            if not torch.isfinite(got.float()).all() or err > tol:
+                fail(f'phase 28 (c): scheduled_swiglu tp={arm!r} {label} '
+                     f'off by {err} (tolerance {tol})')
+            errors[label] = dict(max_abs_err=err, tol=tol)
+        arms[arm] = dict(errors=errors, fwd_bwd_ms=1e3 * elapsed)
+    return dict(sizes=list(sizes), arms=arms)
+
+
+def tp_worker(rank: int, port: int, out: str, seed: int) -> None:
+    """One of phase 28's ranks (``--tp-worker RANK PORT OUT SEED``): joins a
+    world of ``TP_RANKS`` processes on the one card over gloo, builds
+    ``MeshSpec(model=2)`` and runs (b) and (c), writing what it saw."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+    from tpusystem_torch.parallel import MeshSpec, OverlapSchedule, multihost
+    LIBRARIES.build()
+    multihost.initialize(f'127.0.0.1:{port}', TP_RANKS, rank, device='cuda',
+                         backend='gloo')
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = MeshSpec(model=TP_RANKS).build()
+        served = tp_serve(torch, mesh, seed)
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, 50257, (TP_BATCH, TRAIN_SEQ)), device='cuda')
+        trained = {}
+        for name, knobs in (('gspmd', dict(tp_impl='gspmd')),
+                            ('overlap', dict(schedule=OverlapSchedule(
+                                tp='overlap', chunks=2)))):
+            module = tp_model(torch, seed, 'cuda').replace(mesh=mesh,
+                                                           **knobs)
+            run = tp_steps(torch, module, tokens, TP_STEPS, mesh)
+            run.pop('params')
+            trained[name] = run
+            del module
+        swiglu = tp_swiglu(torch, mesh, seed)
+        pathlib.Path(out).write_text(json.dumps(dict(
+            rank=rank, route=mesh.route,
+            backend=torch.distributed.get_backend(), serve=served,
+            train=trained, swiglu=swiglu)))
+    finally:
+        multihost.shutdown()
+
+
+def tp_two_ranks(torch, seed: int, unplaced: list,
+                 root: pathlib.Path) -> dict:
+    """Phase 28 (b) and (c) over ``TP_RANKS`` processes sharing the card:
+    their losses within ``TP_LOSS_RTOL`` of (a)'s unplaced ones and of each
+    other, K1 and K2b launched on each rank's heads every layer."""
+    port = free_port()
+    root.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         '--tp-worker', str(rank), str(port), str(root / f'rank{rank}.json'),
+         str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(TP_RANKS)]
+    try:
+        outputs = [proc.communicate(timeout=300)[0].decode()
+                   for proc in procs]
+    finally:
+        for proc in procs:          # no rank outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            fail(f'phase 28 (b): rank {rank} exited {proc.returncode}:\n'
+                 f'{outputs[rank][-3000:]}')
+    ranks = [json.loads((root / f'rank{rank}.json').read_text())
+             for rank in range(TP_RANKS)]
+    worst = 0.0
+    for record in ranks:
+        runs = record['train']
+        for name, run in runs.items():
+            if not all(math.isfinite(value) for value in run['losses']):
+                fail(f'phase 28 (b): non-finite {name} losses')
+            worst = max([worst] + [abs(a - b) / abs(b) for a, b in zip(
+                run['losses'], unplaced)])
+            if run['launches'] != {'flash_attention_lse': 12 * TP_STEPS,
+                                   'flash_bwd_fused': 12 * TP_STEPS}:
+                fail(f'phase 28 (b): rank {record["rank"]} {name} launched '
+                     f'{run["launches"]}')
+        worst = max(worst, max(abs(a - b) / abs(b) for a, b in zip(
+            runs['overlap']['losses'], runs['gspmd']['losses'])))
+    if worst > TP_LOSS_RTOL:
+        fail(f'phase 28 (b): TP losses {[r["train"] for r in ranks]} against '
+             f'the unplaced {unplaced} (rtol {TP_LOSS_RTOL})')
+    return dict(ranks=ranks, max_rel_err=worst, rtol=TP_LOSS_RTOL,
+                route=ranks[0]['route'])
+
+
+def tensor_parallel(torch, seed: int, device: str = 'cuda', factory=None,
+                    shape: tuple = (TP_BATCH, TRAIN_SEQ),
+                    two_ranks: bool = True) -> dict:
+    """Phase 28: (a) a model axis of one rank over NCCL, bit for bit the
+    unplaced step; (b) two gloo ranks sharing the card on
+    ``MeshSpec(model=2)``: GPT-2 125M served and trained under both TP
+    arms; (c) the scheduled SwiGLU at Llama-3 8B's widths on those ranks."""
+    import tempfile
+
+    from tpusystem_torch.parallel import multihost
+
+    started = time.perf_counter()
+    factory = factory or (lambda: tp_model(torch, seed, device))
+    multihost.initialize(f'127.0.0.1:{free_port()}', 1, 0, device=device)
+    try:
+        at_one = tp_at_one(torch, seed, device, factory, shape)
+    finally:
+        multihost.shutdown()
+    record = dict(model1=at_one, launches=at_one['launches'])
+    if two_ranks:
+        with tempfile.TemporaryDirectory() as root:
+            record['two_ranks'] = tp_two_ranks(
+                torch, seed, at_one['runs']['unplaced']['losses'],
+                pathlib.Path(root))
+    record.update(card=card_line() if device == 'cuda' else None,
+                  seconds=time.perf_counter() - started)
+    return record
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -6140,6 +6515,8 @@ def main() -> None:
                         help='also write the full result as JSON here')
     parser.add_argument('--dp-worker', nargs=3, default=None,
                         help=argparse.SUPPRESS)   # phase 27 (c)'s ranks
+    parser.add_argument('--tp-worker', nargs=4, default=None,
+                        help=argparse.SUPPRESS)   # phase 28 (b)'s ranks
     args = parser.parse_args()
 
     import torch
@@ -6148,6 +6525,10 @@ def main() -> None:
     if args.dp_worker is not None:
         rank, port, out = args.dp_worker
         dp_worker(int(rank), int(port), out)
+        return
+    if args.tp_worker is not None:
+        rank, port, out, seed = args.tp_worker
+        tp_worker(int(rank), int(port), out, int(seed))
         return
     from tpusystem_torch.ops.cuda._build import LIBRARIES
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6235,6 +6616,8 @@ def main() -> None:
     print('resnet ' + json.dumps(resnet))
     data_parallel_record = data_parallel(torch, args.seed)
     print('data-parallel ' + json.dumps(data_parallel_record))
+    tensor_parallel_record = tensor_parallel(torch, args.seed)
+    print('tensor-parallel ' + json.dumps(tensor_parallel_record))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -6273,7 +6656,8 @@ def main() -> None:
             + disagg['launches']['flash_attention_lse']
             + resilient['launches']['flash_attention_lse']
             + observed['launches']['flash_attention_lse']
-            + data_parallel_record['launches']['flash_attention_lse']),
+            + data_parallel_record['launches']['flash_attention_lse']
+            + tensor_parallel_record['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']),
@@ -6286,6 +6670,8 @@ def main() -> None:
                             + resilient['launches']['flash_bwd_fused']
                             + observed['launches']['flash_bwd_fused']
                             + data_parallel_record['launches'][
+                                'flash_bwd_fused']
+                            + tensor_parallel_record['launches'][
                                 'flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
@@ -6459,6 +6845,7 @@ def main() -> None:
              'serve_moe': moe_served, 'serve_disagg': disagg,
              'train_resilient': resilient, 'observe_lm': observed,
              'resnet': resnet, 'data_parallel': data_parallel_record,
+             'tensor_parallel': tensor_parallel_record,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

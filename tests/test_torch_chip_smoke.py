@@ -939,7 +939,7 @@ def test_phase_27_prints_after_the_resnet_phase():
         "print('data-parallel '") < source.index(
         "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
     assert source.count("data_parallel_record['launches']") == 2
-    assert '28. print the ``kernels`` line' in _chip_smoke().__doc__
+    assert '29. print the ``kernels`` line' in _chip_smoke().__doc__
 
 
 def _tiny_flash_gpt2():
@@ -989,6 +989,50 @@ def test_phase_27_fails_on_a_step_that_is_not_bitwise(monkeypatch,
     chip_smoke.data_parallel(torch, 0, device='cpu', factory=_tiny_flash_gpt2,
                              shape=(4, 32), two_ranks=False)
     assert any('not bit for bit' in failure for failure in failures)
+
+
+def test_phase_28_prints_after_the_data_parallel_phase():
+    """Phase 28 prints its line after phase 27's, its K1/K2b launches join
+    the ``kernels`` line, and the ``kernels`` and ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('data-parallel '") < source.index(
+        "print('tensor-parallel '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+    assert source.count("tensor_parallel_record['launches']") == 2
+    assert '28. tensor parallelism' in _chip_smoke().__doc__
+
+
+def test_phase_28_drives_a_model_axis_of_one_rank_on_the_cpu(
+        one_torch_thread):
+    """Phase 28 (a) at ``gpt2_tiny`` over a gloo world of one rank on the
+    CPU: single and one-shot plans, the model=1 steps bit for bit the
+    unplaced ones; and (c)'s SwiGLU check at a small width over that rank."""
+    import torch
+
+    from tpusystem_torch.parallel import MeshSpec, multihost
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.tensor_parallel(torch, 0, device='cpu',
+                                        factory=_tiny_flash_gpt2,
+                                        shape=(2, 32), two_ranks=False)
+    assert failures == []
+    assert not torch.distributed.is_initialized()
+    runs = record['model1']['runs']
+    assert runs['model1']['losses'] == runs['unplaced']['losses']
+    assert record['model1']['plans']['decode'][0] == 'single'
+    multihost.initialize(f'127.0.0.1:{chip_smoke.free_port()}', 1, 0,
+                         device='cpu')
+    try:
+        swiglu = chip_smoke.tp_swiglu(torch, MeshSpec(model=1).build(), 0,
+                                      sizes=(32, 64, 224))
+    finally:
+        multihost.shutdown()
+    assert failures == []
+    assert set(swiglu['arms']) == {'gspmd', 'overlap'}
+    assert set(swiglu['arms']['overlap']['errors']) == {
+        'out', 'x', 'gate.kernel', 'up.kernel', 'down.kernel'}
 
 
 def test_host_checksum_is_the_wrapping_word_sum():

@@ -636,6 +636,34 @@ def test_flash_backward_at_head_dim_128_launches_each_kernel_once(device):
         0, 1, 1, 1, 1]
 
 
+@pytest.mark.parametrize('batch,seq,heads,kv_heads,head_dim', [
+    (2, 1024, 6, 6, 64),        # GPT-2 125M at TP = 2: a rank's 6 heads
+    (1, 1024, 16, 4, 128),      # Llama-3 8B at TP = 2: 16 q / 4 kv heads
+])
+def test_flash_at_tensor_parallel_shapes_matches_plain(
+        device, batch, seq, heads, kv_heads, head_dim):
+    """K1 and, in autograd's backward, K2b at the head counts one rank of a
+    two-rank ``model`` axis gives them (the sharded flash call), each
+    launched once and held to its plain version."""
+    generator = torch.Generator(device).manual_seed(heads * 1000 + head_dim)
+    q, d_out = (_normal(generator, (batch, seq, heads, head_dim), 1.0,
+                        device) for _ in range(2))
+    k, v = (_normal(generator, (batch, seq, kv_heads, head_dim), 1.0, device)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    before = [counter.launches for counter in counters]
+    out, lse = flash.flash_attention_lse(*leaves)
+    got = torch.autograd.grad(out, leaves, d_out)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    want_out, want_lse = flash.flash_attention_plain(q, k, v)
+    _close(out, want_out, 2e-2)
+    _close(lse, want_lse, 1e-3)
+    _close_grads(got, flash.flash_attention_bwd_plain(
+        q, k, v, out.detach(), lse.detach(), d_out))
+
+
 def test_llama_serves_through_the_engine_on_the_card(device):
     """A head-dim-128 Llama on the card through generate and the Engine:
     a 600-token prompt prefills through K1 (one launch a layer), the decode

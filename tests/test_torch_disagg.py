@@ -11,11 +11,9 @@ events' fields are equal, and exported strips agree within 1e-5. One
 case crosses the packages: strips the reference exported, renamed to the
 port's cache paths, seat on the port and decode the reference's stream.
 
-Left out, with the ROADMAP queue 1 item each waits for:
-
-* tensor parallelism (9): ``submesh``, ``TestDecodeTpPlan``,
-  ``TestShardedEngine``, ``TestReasonMatrix``'s mesh cases and every
-  ``mesh=`` case.
+The tensor-parallel cases (``submesh``, ``TestDecodeTpPlan``,
+``TestShardedEngine``, ``TestReasonMatrix``'s mesh cases) are twinned in
+``tests/test_torch_serve_tp.py`` over a gloo world of port processes.
 
 ``test_sharing_counters_and_trace_parentage_survive_the_role_hop`` is two
 tests here: its sharing half on both families, its trace half on

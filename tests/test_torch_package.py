@@ -37,9 +37,9 @@ def _modules():
 CONTROL_PLANE = ('serve.disagg', 'serve.scheduler', 'serve.failover',
                  'serve.fleet', 'serve.service', 'serve.certify',
                  'parallel.chaos', 'checkpoint.memstore')
-# the reference's serving names that exist only for meshes (ROADMAP queue 1
-# item 9, tensor parallelism)
-MESH_ONLY = ('pool_shardings',)
+# the reference's serving names that exist only for meshes: none since
+# tensor parallelism (ROADMAP 9c) exports pool_shardings
+MESH_ONLY = ()
 # the observability slice and the one-device mesh (scanned like every
 # module)
 OBSERVE = ('observe.trace', 'observe.flight', 'observe.metrics',
@@ -57,19 +57,16 @@ MULTI_PROCESS = ('parallel.multihost', 'parallel.chaos', 'parallel.elastic',
                  'models.resnet')
 
 
-# collectives and data parallelism (ROADMAP 9b; scanned like every module)
+# collectives and data parallelism (ROADMAP 9b) and tensor parallelism (9c;
+# scanned like every module)
 DATA_PARALLEL = ('parallel.collectives', 'parallel.mesh', 'parallel.sharding',
                  'parallel.multihost', 'runtime', 'data.loader',
-                 'checkpoint.memstore', 'train.step')
-# the reference's parallel names of later sub-items (9c tensor parallelism:
-# overlap and schedule; 9d pipelines) and its JAX-only virtual-device helper
+                 'checkpoint.memstore', 'train.step', 'parallel.overlap',
+                 'parallel.schedule')
+# the reference's parallel names of a later sub-item (9d pipelines) and its
+# JAX-only virtual-device helper
 LATER = {'force_host_platform', 'PipelineParallel', 'compose_stacked_rules',
-         'pipeline_apply', 'pipeline_train', 'allgather_matmul',
-         'matmul_reducescatter', 'allgather_plan', 'reducescatter_plan',
-         'tp_ffn', 'tp_swiglu', 'OverlapSchedule', 'FsdpPlan', 'fsdp_plan',
-         'resolve_schedule', 'PpPlan', 'pp_plan', 'MoePlan', 'moe_plan',
-         'DecodeTpPlan', 'decode_tp_plan', 'schedule_applicable',
-         'scheduled_ffn', 'scheduled_swiglu'}
+         'pipeline_apply', 'pipeline_train'}
 
 
 def _examples():

@@ -9,8 +9,10 @@ ranks runs in one world of four port processes (``tests/torch_ranks.py``:
 torch, numpy and ``tpusystem_torch`` only, gloo on the CPU, the coordinator
 on a free port), started once by a module fixture; the reference side runs
 here on four of the eight virtual CPU devices, and weights cross as numpy
-trees (``convert.params_from_jax`` in the workers). Tensor parallelism and
-the combined ``data x fsdp x model`` mesh wait for ROADMAP 9c.
+trees (``convert.params_from_jax`` in the workers). Tensor parallelism's
+twins of ``tests/test_parallel.py:138,151`` run on the reference's own
+layouts, ``model=8`` and ``data=2 x fsdp=2 x model=2``, in a second world
+of eight port processes against all eight virtual devices.
 """
 
 from __future__ import annotations
@@ -336,8 +338,25 @@ def test_mesh_over_ranks_is_the_references(world):
             assert layout['shape'] == dict(mesh.shape)
             assert layout['coordinate'] == _coordinate(mesh, rank)
             assert layout['device'] == 'cpu'
-    for result in world['ranks']:
-        assert '9c. Tensor parallelism' in result['model_axis']
+    # placing over the model axis gives each rank its block of columns
+    whole = np.arange(24.0, dtype=np.float32).reshape(4, 6)
+    mesh = ref_mesh(data=-1, model=2)
+    for rank, result in enumerate(world['ranks']):
+        block = _coordinate(mesh, rank)['model']
+        np.testing.assert_array_equal(result['model_axis'],
+                                      whole[:, 3 * block:3 * block + 3])
+
+
+@pytest.fixture(scope='module')
+def world8(tmp_path_factory):
+    """The tensor-parallel MLP scenarios over eight gloo ranks."""
+    root = tmp_path_factory.mktemp('ranks8')
+    mlp = jtrain.init_state(JaxMLP(features=(64,), classes=10, dropout=0.0),
+                            jtrain.Adam(lr=1e-2), jnp.zeros((8, 28, 28)),
+                            rng=0).params
+    inputs = dict(scenarios=['tp_mlp'], mlp=numpy_tree(mlp),
+                  digits=_digits(), root=None)
+    return dict(inputs=inputs, ranks=torch_ranks.launch(root, inputs, 8))
 
 
 def _train_losses(mesh, policy, batch, steps=4):
@@ -381,6 +400,46 @@ def test_fsdp_matches_single_device_and_actually_shards(world):
         assert result['fsdp_slot_shards'] == result['fsdp_shards']
         assert result['fsdp_shards']['Dense_1.bias'] == (10,)  # < min_size
         assert result['dp_shards']['Dense_0.weight'] == (64, 784)
+
+
+def test_tp_matches_single_device_and_shards_kernels(world8):
+    """``test_parallel.py:138`` on its layout, ``model`` over all eight
+    ranks: Dense_0 split by columns, Dense_1 by rows; the losses equal the
+    single device's within the reference's rtol and each rank's piece of
+    Dense_0 is the reference's shard (transposed: a ``Linear``'s weight)."""
+    single, _ = _train_losses(jpar.single_device_mesh(), jpar.DataParallel(),
+                              _digits())
+    mesh = jpar.MeshSpec(model=-1).build()
+    policy = jpar.TensorParallel(rules=[
+        (r'Dense_0/kernel$', JP(None, 'model')),
+        (r'Dense_1/kernel$', JP('model', None))])
+    want, state = _train_losses(mesh, policy, _digits())
+    np.testing.assert_allclose(want, single, rtol=RTOL)
+    shard = state.params['Dense_0']['kernel'].addressable_shards[0].data.shape
+    assert shard == (784, 64 // 8)
+    for result in world8['ranks']:
+        np.testing.assert_allclose(result['tp_losses'], single, rtol=RTOL)
+        np.testing.assert_allclose(result['tp_losses'], want, rtol=RTOL)
+        assert result['tp_shards']['Dense_0.weight'] == shard[::-1]
+        assert result['tp_shards']['Dense_1.weight'] == (10, 64 // 8)
+
+
+def test_combined_dp_fsdp_tp_mesh(world8):
+    """``test_parallel.py:151``: data=2 x fsdp=2 x model=2 with the rules
+    and FSDP combined trains with the single device's losses."""
+    single, _ = _train_losses(jpar.single_device_mesh(), jpar.DataParallel(),
+                              _digits())
+    mesh = jpar.MeshSpec(data=2, fsdp=2, model=2).build()
+    policy = jpar.TensorParallel(
+        rules=[(r'Dense_0/kernel$', JP(None, 'model'))], fsdp=True,
+        fsdp_min_size=64)
+    want, state = _train_losses(mesh, policy, _digits())
+    np.testing.assert_allclose(want, single, rtol=RTOL)
+    shard = state.params['Dense_0']['kernel'].addressable_shards[0].data.shape
+    for result in world8['ranks']:
+        np.testing.assert_allclose(result['combined_losses'], single,
+                                   rtol=RTOL)
+        assert result['combined_shards']['Dense_0.weight'] == shard[::-1]
 
 
 class TestCollectiveVocabulary:

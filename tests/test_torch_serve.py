@@ -193,17 +193,21 @@ def test_generate_token_exact_with_jax(served, decode_impl):
 
 
 def test_engine_refuses_what_is_not_ported(served):
-    """What the engine still refuses, naming its ROADMAP item:
-    tensor-parallel serving (``mesh``, ``schedule``), with speculative rows
-    too. Speculative rows themselves are ported
+    """What the engine refuses of a mesh, with the reference's reasons
+    (tensor parallelism is ported: ``tests/test_torch_serve_tp.py``): a
+    mesh with a non-trivial axis other than ``model``, and speculative
+    rows under a ``model`` axis; a mesh of one rank serves as one device.
+    Speculative rows themselves are ported
     (``tests/test_torch_serve_spec.py``)."""
+    from tpusystem_torch.parallel.mesh import Mesh
     _, _, port, state = served
-    for option, item in (({'mesh': object()}, 'tensor parallelism'),
-                         ({'schedule': object()}, 'tensor parallelism'),
-                         ({'mesh': object(), 'draft_module': port},
-                          'tensor parallelism')):
-        with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
-            Engine(port, state, device='cpu', **option)
+    with pytest.raises(ValueError, match="'model' axis only"):
+        Engine(port, state, device='cpu', mesh=Mesh('cpu', None, {'data': 2}))
+    with pytest.raises(ValueError, match='speculative rows'):
+        Engine(port, state, device='cpu', draft_module=port,
+               mesh=Mesh('cpu', None, {'model': 2}))
+    single = Engine(port, state, device='cpu', mesh=Mesh('cpu'))
+    assert single.tp_plan.path == 'single' and single.mesh is None
     assert Engine(port, state, draft_module=port, device='cpu')._spec
 
 

@@ -92,9 +92,13 @@ def test_moe_engine_is_token_exact_under_cobatching(impl):
 
 
 def _full_forward_greedy(module, params, prompt, steps):
+    # compiled once a length: op by op, the MoE forward took most of the
+    # test's time
+    forward = jax.jit(lambda params, sequence: module.apply(
+        {'params': params}, sequence))
     sequence = jnp.asarray(prompt, jnp.int32)
     for _ in range(steps):
-        logits, _ = module.apply({'params': params}, sequence)
+        logits, _ = forward(params, sequence)
         token = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
         sequence = jnp.concatenate([sequence, token[:, None]], axis=1)
     return np.asarray(sequence)

@@ -42,16 +42,14 @@ def mesh_layouts(out):
                              coordinate=dict(mesh.coordinate),
                              device=str(mesh.device))
     out['layouts'] = layouts
-    # a mesh with a model axis builds; placing a leaf split over it is 9c
+    # a leaf split over the model axis: this rank's block of its columns
     from tpusystem_torch.parallel.mesh import PartitionSpec
-    from tpusystem_torch.parallel.sharding import TensorParallel
+    from tpusystem_torch.parallel.sharding import TensorParallel, local
     mesh = MeshSpec(data=-1, model=2).build()
     policy = TensorParallel([(r'kernel$', PartitionSpec(None, 'model'))])
-    try:
-        policy.place({'kernel': torch.zeros(4, 6)}, mesh)
-        out['model_axis'] = None
-    except NotImplementedError as error:
-        out['model_axis'] = str(error)
+    whole = torch.arange(24.0).reshape(4, 6)
+    placed = policy.place({'kernel': whole}, mesh)['kernel']
+    out['model_axis'] = local(placed).numpy()
 
 
 def train_mlp(inputs, out):
@@ -708,6 +706,438 @@ def double_loss(inputs, out):
     out['double_loss'] = record
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (twins of tests/test_overlap.py, tests/test_schedule.py,
+# tests/test_parallel.py:138,151 and tests/test_serve_disagg.py's TP cases)
+
+
+def _dtype(name):
+    return {'float32': torch.float32, 'bfloat16': torch.bfloat16}[name]
+
+
+def _numpy(tensor):
+    return tensor.detach().float().numpy()
+
+
+def overlap_rings(inputs, out):
+    """allgather_matmul and matmul_reducescatter over ``model=4`` on the
+    test's operands at chunks 1-3 in float32 and bfloat16: each rank's
+    output block and gradient pieces of ``sum(y^2)``; and the ring shift
+    over both routes, bit for bit."""
+    from tpusystem_torch.parallel import (MeshSpec, allgather_matmul,
+                                          matmul_reducescatter)
+    from tpusystem_torch.parallel.collectives import (ring_shift,
+                                                      ring_shift_chunked)
+    mesh = MeshSpec(model=4).build()
+    rank, n = mesh.axis_index('model'), 4
+    found = {}
+    for name, (x, w) in inputs['overlap'].items():
+        x, w = (torch.from_numpy(a).to(_dtype(name)) for a in (x, w))
+        for kind, fn, x_dim, w_dim in (('ag', allgather_matmul, 0, 1),
+                                       ('rs', matmul_reducescatter, 1, 0)):
+            for chunks in (1, 2, 3):
+                xs = x.chunk(n, x_dim)[rank].clone().requires_grad_()
+                ws = w.chunk(n, w_dim)[rank].clone().requires_grad_()
+                y = fn(xs, ws, mesh, 'model', chunks=chunks)
+                y.float().square().sum().backward()
+                found[name, kind, chunks] = dict(
+                    y=_numpy(y), dx=_numpy(xs.grad), dw=_numpy(ws.grad),
+                    dtypes=(str(y.dtype), str(xs.grad.dtype),
+                            str(ws.grad.dtype)))
+    out['overlap'] = found
+    # the ring shift's two routes: the same bits, forward and backward
+    shifts = {}
+    for route in ('p2p', 'gather'):
+        mesh.route = route
+        value = (torch.arange(24.0).reshape(4, 6) * 1.37 + 100 * rank)
+        got = []
+        for dtype in (torch.float32, torch.bfloat16):
+            leaf = value.to(dtype).detach().clone().requires_grad_()
+            moved = (ring_shift(leaf, mesh, 'model'),
+                     ring_shift(leaf, mesh, 'model', reverse=True),
+                     ring_shift_chunked(leaf, mesh, 'model', chunks=2))
+            sum(part.float() * (index + 2) for index, part in
+                enumerate(moved)).sum().backward()
+            got += [part.detach() for part in moved] + [leaf.grad]
+        shifts[route] = got
+    mesh.route = 'p2p'
+    out['routes'] = dict(
+        default=MeshSpec(model=4).build().route,
+        bitwise=all(torch.equal(a, b) and a.dtype == b.dtype for a, b in
+                    zip(shifts['p2p'], shifts['gather'])),
+        held=[_numpy(part) for part in shifts['gather']])
+
+
+def _ffn_params(operands, dtype):
+    names = ('x', 'fc.kernel', 'fc.bias', 'proj.kernel', 'proj.bias')
+    return {name: torch.from_numpy(array).to(dtype)
+            for name, array in zip(names, operands)}
+
+
+def _ffn_case(mesh, schedule, operands, dtype, grads=True):
+    """scheduled_ffn on this rank's pieces, placed as the step places them
+    (the FFN's TP rules and FSDP at min size 64; the kernels kept split
+    over fsdp under prefetch): this rank's output rows and, with
+    ``grads``, the whole gradients of ``sum(out^2) * 1e-3`` (x's as this
+    rank's rows)."""
+    from tpusystem_torch.parallel import batch_sharding, scheduled_ffn
+    from tpusystem_torch.parallel.mesh import PartitionSpec as P
+    from tpusystem_torch.parallel.sharding import (ShardingPolicy,
+                                                   gather_leaf, local)
+    from tpusystem_torch.train.step import sync_grads
+    params = _ffn_params(operands, dtype)
+    x = batch_sharding(mesh)(params.pop('x')).requires_grad_()
+    placed = ShardingPolicy(rules=((r'fc/kernel$', P(None, 'model')),
+                                   (r'proj/kernel$', P('model', None))),
+                            fsdp=True, fsdp_min_size=64).place(params, mesh)
+    names = list(placed)
+    leaves = [local(placed[name]).detach().requires_grad_()
+              for name in names]
+    keep = {name: (('model', 'fsdp') if schedule.fsdp == 'prefetch'
+                   and name.endswith('kernel') else ('model',))
+            for name in names}
+    given = [gather_leaf(leaf, placed[name], mesh, keep[name])
+             for name, leaf in zip(names, leaves)]
+    result = scheduled_ffn(x, *given, mesh, schedule=schedule)
+    record = dict(out=_numpy(result), dtype=str(result.dtype))
+    if grads:
+        loss = result.float().square().sum() * 1e-3
+        found = torch.autograd.grad(loss, [x] + leaves)
+        synced = sync_grads(list(found[1:]), [placed[n] for n in names],
+                            mesh)
+        with torch.no_grad():
+            record['grads'] = {name: _numpy(gather_leaf(grad, placed[name],
+                                                        mesh))
+                               for name, grad in zip(names, synced)}
+        record['grads']['x'] = _numpy(found[0])
+        record['grad_dtypes'] = {name: str(grad.dtype)
+                                 for name, grad in zip(names, synced)}
+    return record
+
+
+def schedule_rings(inputs, out):
+    """The FSDP rings and the scheduled FFN on the fsdp=4 and the composed
+    fsdp=2 x model=2 meshes, each case as the reference's test runs it."""
+    from tpusystem_torch.parallel import (MeshSpec, OverlapSchedule,
+                                          ring_allgather, ring_reducescatter)
+    from tpusystem_torch.parallel.collectives import all_gather
+    fsdp = MeshSpec(fsdp=4).build()
+    rank = fsdp.axis_index('fsdp')
+    value = torch.from_numpy(inputs['ring_value'])
+    rings = {}
+    for dim, chunks in ((0, 1), (0, 2), (1, 1)):
+        shard = value.chunk(4, dim)[rank]
+        ring = ring_allgather(shard, fsdp, 'fsdp', dimension=dim,
+                              chunks=chunks)
+        rings['gather', dim, chunks] = torch.equal(
+            ring, all_gather(shard, fsdp, 'fsdp', dimension=dim))
+        stacked = torch.from_numpy(inputs['ring_values'][rank])
+        rings['scatter', dim, chunks] = _numpy(ring_reducescatter(
+            stacked, fsdp, 'fsdp', dimension=dim, chunks=chunks))
+    composed = MeshSpec(fsdp=2, model=2).build()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {}
+    for chunks in (1, 2):
+        cases['prefetch', chunks] = _ffn_case(fsdp, OverlapSchedule(
+            fsdp='prefetch', chunks=chunks, fsdp_min_size=64),
+            inputs['ffn'], f32, grads=chunks == 2)
+        cases['composed', chunks] = _ffn_case(composed, OverlapSchedule(
+            tp='overlap', fsdp='prefetch', chunks=chunks, fsdp_min_size=64),
+            inputs['ffn'], f32)
+    cases['monolithic'] = _ffn_case(fsdp, OverlapSchedule(fsdp_min_size=64),
+                                    inputs['ffn'], f32, grads=False)
+    cases['bf16'] = _ffn_case(composed, OverlapSchedule(
+        tp='overlap', fsdp='prefetch', chunks=1, fsdp_min_size=64),
+        inputs['ffn_bf16'], bf16)
+    cases['one-shot'] = _ffn_case(fsdp, OverlapSchedule(
+        fsdp='prefetch', chunks=3, fsdp_min_size=64), inputs['ffn'], f32)
+    cases['row-split'] = _ffn_case(composed, OverlapSchedule(
+        tp='overlap', fsdp='prefetch', chunks=32, fsdp_min_size=64),
+        inputs['ffn96'], f32)
+    out['schedule'] = dict(rings=rings, cases=cases)
+
+
+def _lm(family: str, params, **knobs):
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import GPT2, llama_tiny
+    if family == 'gpt2':
+        module = GPT2(vocab_size=256, layers=2, dim=64, heads=4, max_seq=128,
+                      dropout=0.0, dtype='float32', device='cpu', **knobs)
+    else:
+        module = llama_tiny(dtype='float32', device='cpu', **knobs)
+    module.load_state_dict(params_from_jax(params), strict=True)
+    return module
+
+
+def tp_forward(module, mesh, tokens, policy, grads=True):
+    """``module`` over the mesh as the placed step runs it: its weights
+    placed by ``policy``, each handed to the forward as
+    :meth:`keeps_split` asks, this rank's rows of ``tokens``; returns this
+    rank's logits and, with ``grads``, the whole gradients of
+    ``sum(logits^2) * 1e-3`` summed over the batch axes."""
+    from torch.func import functional_call
+
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.sharding import gather_leaf, local
+    from tpusystem_torch.train.step import sync_grads
+    weights = {name: leaf.detach().clone()
+               for name, leaf in module.named_parameters()}
+    placed = policy.place(weights, mesh)
+    names = list(placed)
+    leaves = [local(placed[name]).detach().requires_grad_()
+              for name in names]
+    given = {name: gather_leaf(leaf, placed[name], mesh,
+                               module.keeps_split(name))
+             for name, leaf in zip(names, leaves)}
+    rows = batch_sharding(mesh)(torch.from_numpy(tokens).long())
+    logits = functional_call(module, given, (rows,))
+    record = dict(logits=_numpy(logits),
+                  shards={name: tuple(local(placed[name]).shape)
+                          for name in names})
+    if grads:
+        loss = logits.float().square().sum() * 1e-3
+        found = torch.autograd.grad(loss, leaves)
+        synced = sync_grads(list(found), [placed[n] for n in names], mesh)
+        with torch.no_grad():
+            record['grads'] = {name: _numpy(gather_leaf(grad, placed[name],
+                                                        mesh))
+                               for name, grad in zip(names, synced)}
+    return record
+
+
+def tp_impl(inputs, out):
+    """GPT-2 and Llama over data=2 x model=2 under ``tp_impl`` 'gspmd' and
+    'overlap', and GPT-2 at a sequence the ring cannot split."""
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.parallel.sharding import ShardingPolicy
+    mesh = MeshSpec(data=2, model=2).build()
+    found = {}
+    for family in ('gpt2', 'llama'):
+        params = inputs[family]
+        policy = ShardingPolicy(rules=_lm(family, params).partition_rules())
+        for impl in ('gspmd', 'overlap'):
+            found[family, impl] = tp_forward(
+                _lm(family, params, mesh=mesh, tp_impl=impl, tp_chunks=2),
+                mesh, inputs['tokens'], policy)
+    policy = ShardingPolicy(rules=_lm('gpt2', inputs['gpt2']).partition_rules())
+    for impl in ('gspmd', 'overlap'):
+        found['seq15', impl] = tp_forward(
+            _lm('gpt2', inputs['gpt2'], mesh=mesh, tp_impl=impl), mesh,
+            inputs['tokens15'], policy, grads=False)
+    out['tp_impl'] = found
+
+
+def tp_schedule(inputs, out):
+    """GPT-2 and Llama over fsdp=2 x model=2 with and without
+    ``schedule=``, the scanned GPT-2, and a checkpoint saved before the
+    knob restored under it."""
+    from tpusystem_torch.checkpoint import Checkpointer
+    from tpusystem_torch.parallel import MeshSpec, OverlapSchedule
+    from tpusystem_torch.parallel.sharding import ShardingPolicy
+    from tpusystem_torch.train import AdamW, init_state
+    mesh = MeshSpec(fsdp=2, model=2).build()
+    schedule = OverlapSchedule(tp='overlap', fsdp='prefetch', chunks=2,
+                               fsdp_min_size=64)
+    found = {}
+    for family in ('gpt2', 'llama'):
+        params = inputs[family]
+        policy = ShardingPolicy(rules=_lm(family, params).partition_rules(),
+                                fsdp=True, fsdp_min_size=64)
+        for name, knob in (('none', None), ('schedule', schedule)):
+            found[family, name] = tp_forward(
+                _lm(family, params, mesh=mesh, schedule=knob), mesh,
+                inputs['tokens'], policy)
+    policy = ShardingPolicy(rules=_lm('gpt2', inputs['gpt2']).partition_rules(),
+                            fsdp=True, fsdp_min_size=64)
+    for name, knob in (('none', None), ('schedule', schedule)):
+        found['scan', name] = tp_forward(
+            _lm('gpt2', inputs['gpt2_scan'], mesh=mesh, schedule=knob,
+                scan_layers=True), mesh, inputs['tokens2'], policy,
+            grads=False)
+    # a checkpoint written by the model without the knob, restored under it
+    old = _lm('gpt2', inputs['gpt2_ckpt'], mesh=mesh)
+    state = init_state(old, AdamW(lr=1e-3), rng=0)
+    root = inputs['root'] + '/pre-schedule'
+    if torch.distributed.get_rank() == 0:
+        with Checkpointer(root, async_save=False) as checkpointer:
+            checkpointer.save('pre-schedule', 0, state)
+    torch.distributed.barrier()
+    blank = init_state(_lm('gpt2', inputs['gpt2']), AdamW(lr=1e-3), rng=0)
+    with torch.no_grad():
+        for leaf in blank.params.values():
+            leaf.zero_()
+    with Checkpointer(root, async_save=False) as checkpointer:
+        restored = checkpointer.restore('pre-schedule', blank)
+    bitwise = all(torch.equal(restored.params[name], leaf)
+                  for name, leaf in state.params.items())
+    new = _lm('gpt2', inputs['gpt2_ckpt'], mesh=mesh, schedule=schedule)
+    new.load_state_dict({name: leaf.detach() for name, leaf in
+                         restored.params.items()})
+    found['checkpoint'] = dict(
+        bitwise=bitwise,
+        old=tp_forward(old, mesh, inputs['tokens3'], policy,
+                       grads=False)['logits'],
+        new=tp_forward(new, mesh, inputs['tokens3'], policy,
+                       grads=False)['logits'])
+    out['tp_schedule'] = found
+
+
+def tp_step(inputs, out):
+    """Three steps of GPT-2 under TensorParallel (data=2 x model=2), under
+    TensorParallel with FSDP and the schedule (fsdp=2 x model=2), and
+    unplaced in this process: guarded, clipped AdamW steps' losses and
+    health rows (the global grad norm, each piece counted once), and SGD
+    steps' final parameters (Adam turns float32 noise in a gradient that
+    is zero in exact arithmetic, the key bias's, into lr-sized steps)."""
+    from tpusystem_torch.parallel import (MeshSpec, OverlapSchedule,
+                                          batch_sharding)
+    from tpusystem_torch.parallel.sharding import ShardingPolicy, gather_leaf
+    from tpusystem_torch.train import (SGD, AdamW, Guard, NextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    tokens = torch.from_numpy(inputs['tokens']).long()
+    schedule = OverlapSchedule(tp='overlap', fsdp='prefetch', chunks=2,
+                               fsdp_min_size=64)
+    found = {}
+    for name, spec, knobs, fsdp in (
+            ('unplaced', None, {}, False),
+            ('tp', MeshSpec(data=2, model=2), {}, False),
+            ('scheduled', MeshSpec(fsdp=2, model=2), {'schedule': schedule},
+             True)):
+        mesh = None if spec is None else spec.build()
+        record = {}
+        for kind in ('adamw', 'sgd'):
+            module = _lm('gpt2', inputs['gpt2'], mesh=mesh, **knobs)
+            optimizer = (AdamW(lr=1e-3, grad_clip=1.0) if kind == 'adamw'
+                         else SGD(lr=0.1))
+            guard = Guard() if kind == 'adamw' else None
+            state = init_state(module, optimizer, rng=0)
+            if guard is not None:
+                state = guard.arm(state)
+            rows = tokens
+            if mesh is not None:
+                state = ShardingPolicy(rules=module.partition_rules(),
+                                       fsdp=fsdp, fsdp_min_size=64).place(
+                    state, mesh)
+                rows = batch_sharding(mesh)(tokens)
+            step = build_train_step(module_apply(module), NextTokenLoss(),
+                                    optimizer, guard=guard)
+            losses, health = [], []
+            for _ in range(3):
+                state, (_, loss) = step(state, rows, rows)
+                losses.append(float(loss))
+                if guard is not None:
+                    health.append(state.health.last.numpy().copy())
+            record[kind] = losses
+            if guard is not None:
+                record['health'] = np.stack(health)
+            else:
+                with torch.no_grad():
+                    record['params'] = {
+                        key: _numpy(gather_leaf(leaf.to_local(), leaf, mesh)
+                                    if mesh is not None else leaf)
+                        for key, leaf in state.params.items()}
+        found[name] = record
+    out['tp_step'] = found
+
+
+def tp_mlp(inputs, out):
+    """The MLP's Adam steps under TensorParallel over every rank (model=-1)
+    and over data=2 x fsdp=2 x model=2 (rules and FSDP combined)."""
+    from tpusystem_torch.parallel import MeshSpec, batch_sharding
+    from tpusystem_torch.parallel.mesh import PartitionSpec as P
+    from tpusystem_torch.parallel.sharding import TensorParallel, local
+    from tpusystem_torch.train import (Adam, CrossEntropyLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    images, labels = inputs['digits']
+    # the port's Linear weight is the reference's kernel transposed
+    for name, spec, policy in (
+            ('tp', MeshSpec(model=-1), TensorParallel(rules=[
+                (r'Dense_0/weight$', P('model', None)),
+                (r'Dense_1/weight$', P(None, 'model'))])),
+            ('combined', MeshSpec(data=2, fsdp=2, model=2), TensorParallel(
+                rules=[(r'Dense_0/weight$', P('model', None))], fsdp=True,
+                fsdp_min_size=64))):
+        mesh = spec.build()
+        module = _mlp(inputs['mlp'], (64,))
+        optimizer = Adam(lr=1e-2)
+        state = policy.place(init_state(module, optimizer, rng=0), mesh)
+        step = build_train_step(module_apply(module), CrossEntropyLoss(),
+                                optimizer)
+        rows = batch_sharding(mesh)
+        losses = []
+        for _ in range(4):
+            state, (_, loss) = step(state, rows(images),
+                                    rows(labels.astype(np.int64)))
+            losses.append(float(loss))
+        out[f'{name}_losses'] = losses
+        out[f'{name}_shards'] = {key: tuple(local(leaf).shape)
+                                 for key, leaf in state.params.items()}
+
+
+def _drain(engine, prompts, budget):
+    for index, prompt in enumerate(prompts):
+        engine.admit(prompt, budget, tag=f'r{index}')
+    tokens: dict = {}
+    for _ in range(64):
+        for tag, new in engine.step().emitted.items():
+            tokens.setdefault(tag, []).extend(int(t) for t in new)
+        if not engine.active_rows:
+            break
+    return tokens
+
+
+def serve_tp(inputs, out):
+    """Engine(mesh=MeshSpec(model=2)) on gpt2_tiny and llama_tiny in
+    float32 beside the one-rank engine, the ranks' tokens gathered; the
+    engine's refusals and gates under the mesh."""
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import gpt2_tiny, llama_tiny
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.serve import Engine, pool_shardings
+    from tpusystem_torch.train.decode_fused import fused_paged_reason
+    found = {}
+    for family, make in (('gpt2', gpt2_tiny), ('llama', llama_tiny)):
+        module = make(dtype='float32', device='cpu')
+        module.load_state_dict(params_from_jax(inputs[family]), strict=True)
+        single = Engine(module, None, rows=2, block_size=8, device='cpu')
+        sharded = Engine(module, None, rows=2, block_size=8, device='cpu',
+                         mesh=MeshSpec(model=2))
+        tokens = _drain(sharded, inputs['prompts'], 6)
+        everyone = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, tokens)
+        found[family] = dict(
+            single=_drain(single, inputs['prompts'], 6), sharded=tokens,
+            ranks=everyone, plan=tuple(sharded.tp_plan),
+            decode_impl=sharded.decode_impl,
+            kv={path: tuple(leaf.shape) for path, leaf in
+                sharded._cache.items() if path.endswith('/key')},
+            specs={path: tuple(placement.spec) for path, placement in
+                   pool_shardings(single._cache, sharded.mesh).items()},
+            audit=sharded.pool.audit())
+    module = gpt2_tiny(dtype='float32', device='cpu')
+    module.load_state_dict(params_from_jax(inputs['gpt2']), strict=True)
+    refusals = {}
+    try:
+        Engine(module, None, rows=2, block_size=8, device='cpu',
+               mesh=MeshSpec(data=2))
+    except ValueError as error:
+        refusals['data'] = str(error)
+    try:
+        Engine(module, None, rows=2, block_size=8, device='cpu',
+               mesh=MeshSpec(model=2), draft_module=module, speculate=2)
+    except ValueError as error:
+        refusals['speculative'] = str(error)
+    mesh = MeshSpec(model=2).build()
+    refusals['fused'] = fused_paged_reason(module.replace(mesh=mesh))
+    refusals['auto'] = Engine(module, None, rows=2, block_size=8,
+                              device='cpu', mesh=mesh,
+                              decode_impl='auto').decode_impl
+    found['refusals'] = refusals
+    out['serve_tp'] = found
+
+
 SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'mlp': train_mlp,
              'collectives': lambda inputs, out: collectives(out),
@@ -715,7 +1145,10 @@ SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'checkpoint': checkpoints, 'resnet': resnet,
              'guarded': guarded,
              'resharding': resharding, 'wave': wave_drill,
-             'double_loss': double_loss}
+             'double_loss': double_loss, 'overlap': overlap_rings,
+             'schedule': schedule_rings, 'tp_impl': tp_impl,
+             'tp_schedule': tp_schedule, 'tp_step': tp_step,
+             'tp_mlp': tp_mlp, 'serve_tp': serve_tp}
 
 
 def launch(root, inputs: dict, ranks: int = 4, timeout: float = 240) -> list:

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import re
 
 import torch
 import torch.nn.functional as F
@@ -82,27 +83,136 @@ from tpusystem_torch.ops.attention import (apply_dropout, attend,
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
 from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.ops.threefry import as_key, make_rng
+from tpusystem_torch.parallel.collectives import (copy_to, gather_from,
+                                                  reduce_from, scatter_to)
+from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL
+from tpusystem_torch.parallel.overlap import DenseParams
+from tpusystem_torch.parallel.schedule import (over_fsdp_whole,
+                                               resolve_schedule,
+                                               schedule_applicable,
+                                               scheduled_ffn)
+from tpusystem_torch.parallel.sharding import held_axes, with_held
 from tpusystem_torch.registry import register
 
 EMBED_STD = 0.02    # GPT-2's initializer range for the embedding tables
 
 
-class Dense(nn.Module):
+def _dense(x, kernel, bias, dtype):
+    out = torch.matmul(x.to(dtype), kernel.to(dtype))
+    return out if bias is None else out + bias.to(dtype)
+
+
+class Dense(DenseParams):
     """``flax.linen.Dense``: a ``[in, out]`` kernel and, unless
     ``use_bias=False``, a bias; the product and the bias add run in the
     compute dtype."""
 
-    def __init__(self, features_in: int, features: int, *, device,
-                 use_bias: bool = True) -> None:
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(features_in, features,
-                                               device=device))
-        self.bias = (nn.Parameter(torch.zeros(features, device=device))
-                     if use_bias else None)
-
     def forward(self, x, dtype):
-        out = torch.matmul(x.to(dtype), self.kernel.to(dtype))
-        return out if self.bias is None else out + self.bias.to(dtype)
+        return _dense(x, self.kernel, self.bias, dtype)
+
+
+# Megatron tensor parallelism over the mesh's ``model`` axis. Activations
+# outside a tensor-parallel product are whole on every ``model`` rank; a
+# kernel reaches the forward whole, or as this rank's block over ``model``
+# (held_axes names it), and each product takes it as it comes.
+
+
+def split_over_model(tensor, dim: int, mesh) -> bool:
+    """Whether ``tensor`` is this rank's block of ``dim`` over a ``model``
+    axis of more than one rank (a block over one rank is the whole)."""
+    return (mesh is not None and mesh.shape[MODEL] > 1
+            and MODEL in held_axes(tensor).get(dim, ()))
+
+
+def column(dense: DenseParams, x, dtype, mesh):
+    """``dense(x)``, column-parallel where the kernel is this rank's block
+    of columns: ``(out, split)``, ``out`` this rank's columns when
+    ``split``. The input's gradient is summed over ``model``; the bias
+    rides its block."""
+    kernel = dense.kernel if mesh is None else over_fsdp_whole(dense.kernel,
+                                                               mesh)
+    if not split_over_model(kernel, 1, mesh):
+        return _dense(x, kernel, dense.bias, dtype), False
+    bias = (None if dense.bias is None
+            else scatter_to(dense.bias, mesh, MODEL, dimension=0))
+    return _dense(copy_to(x, mesh, MODEL), kernel, bias, dtype), True
+
+
+def row(dense: DenseParams, x, split: bool, dtype, mesh):
+    """``dense(x)``, row-parallel where the kernel is this rank's block of
+    rows: the float32 partial products summed over ``model``, cast once,
+    then the bias. ``split`` says ``x`` is this rank's block of features
+    already (a column-parallel product's output)."""
+    kernel = dense.kernel if mesh is None else over_fsdp_whole(dense.kernel,
+                                                               mesh)
+    if not split_over_model(kernel, 0, mesh):
+        if split:
+            x = gather_from(x, mesh, MODEL, dimension=-1)
+        return _dense(x, kernel, dense.bias, dtype)
+    if not split:
+        x = scatter_to(x, mesh, MODEL, dimension=-1)
+    partial = torch.matmul(x.to(dtype).float(), kernel.to(dtype).float())
+    out = reduce_from(partial, mesh, MODEL).to(dtype)
+    return out if dense.bias is None else out + dense.bias.to(dtype)
+
+
+def vocab_lookup(table, ids, mesh):
+    """``table[ids]`` where ``table`` may be this rank's block of rows over
+    ``model``: ids outside the block look up zero, and the sum over
+    ``model`` completes every row."""
+    if not split_over_model(table, 0, mesh):
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - mesh.axis_index(MODEL) * rows
+    inside = (local >= 0) & (local < rows)
+    found = table[local.clamp(0, rows - 1)]
+    return reduce_from(torch.where(inside[..., None], found,
+                                   torch.zeros_like(found)), mesh, MODEL)
+
+
+def feature_lookup(table, ids, mesh):
+    """``table[ids]`` where ``table`` may be this rank's block of features
+    over ``model``: each rank looks up its features, gathered whole."""
+    if not split_over_model(table, 1, mesh):
+        return table[ids]
+    return gather_from(table[ids], mesh, MODEL, dimension=-1)
+
+
+def whole_rows(table, mesh, dimension: int = 0):
+    """``table`` whole, gathered over ``model`` where this rank holds a
+    block of its ``dimension`` (a head's vocabulary)."""
+    if not split_over_model(table, dimension, mesh):
+        return table
+    return gather_from(table, mesh, MODEL, dimension=dimension)
+
+
+def local_heads(attention, mesh):
+    """``attention(q, k, v)`` over a head-split decode cache: this rank's
+    block of the heads in, the context's heads gathered whole out."""
+    def run(query, key, value):
+        pick = functools.partial(scatter_to, mesh=mesh, axis=MODEL,
+                                 dimension=2)
+        context = attention(pick(query), pick(key), pick(value))
+        return gather_from(context, mesh, MODEL, dimension=2)
+    return run
+
+
+def heads_split(mesh, kv_heads: int) -> bool:
+    """Whether a decode cache holds this rank's block of the KV heads: a
+    ``model`` axis of more than one rank that divides them."""
+    model = 1 if mesh is None else mesh.shape[MODEL]
+    return model > 1 and kv_heads % model == 0
+
+
+def global_shape(hidden, mesh) -> tuple:
+    """The ``[batch, seq, dim]`` of the whole batch a rank's rows are part
+    of (its rows times the ``(data, fsdp)`` ranks)."""
+    batch, seq, dim = hidden.shape
+    return (batch * mesh.axis_size((DATA, FSDP)), seq, dim)
+
+
+def _cast(tensor, dtype):
+    return with_held(tensor.to(dtype), tensor)
 
 
 class LayerNorm(nn.Module):
@@ -144,13 +254,16 @@ class SelfAttention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, device=device)
         self.out = Dense(dim, dim, device=device)
 
-    def forward(self, hidden, dtype, attention):
+    def forward(self, hidden, dtype, attention, mesh=None):
         batch, length, dim = hidden.shape
-        qkv = self.qkv(hidden, dtype)
+        qkv, split = column(self.qkv, hidden, dtype, mesh)
+        if split:
+            qkv = gather_from(qkv, mesh, MODEL, dimension=-1)
         shape = (batch, length, self.heads, dim // self.heads)
         query, key, value = (t.reshape(shape) for t in qkv.split(dim, -1))
         context = attention(query, key, value)
-        return self.out(context.reshape(batch, length, dim), dtype)
+        return row(self.out, context.reshape(batch, length, dim), False,
+                   dtype, mesh)
 
 
 class Block(nn.Module):
@@ -169,20 +282,39 @@ class Block(nn.Module):
             self.moe = MoEMLP(dim, mlp_ratio=mlp_ratio, device=device, **moe)
         else:
             self.moe = None
+            self.grown = mlp_ratio * dim
             self.fc = Dense(dim, mlp_ratio * dim, device=device)
             self.proj = Dense(mlp_ratio * dim, dim, device=device)
 
     def forward(self, hidden, dtype, attention, rate: float = 0.0,
-                keys: tuple = (None, None)):
+                keys: tuple = (None, None), tp: tuple | None = None):
+        """``tp`` is ``(mesh, schedule)`` over a mesh (the model's), else
+        ``None``."""
+        mesh, schedule = tp or (None, None)
         normed = self.ln_1(hidden).to(dtype)
-        attended = self.attn(normed, dtype, attention)
+        attended = self.attn(normed, dtype, attention, mesh)
         hidden = hidden + apply_dropout(attended, rate, keys[0])
         normed = self.ln_2(hidden).to(dtype)
         if self.moe is not None:
             shrunk, aux = self.moe(normed)
             return hidden + apply_dropout(shrunk, rate, keys[1]), aux
-        grown = F.gelu(self.fc(normed, dtype), approximate='tanh')
-        return hidden + apply_dropout(self.proj(grown, dtype), rate, keys[1])
+        if mesh is not None and schedule_applicable(
+                schedule, mesh, global_shape(normed, mesh), self.grown):
+            # the scheduled FFN (parallel/schedule.py): the sequence rows
+            # all-gather into the fc matmul and the proj matmul
+            # reduce-scatters them back (decomposed rings when
+            # schedule.tp='overlap'); with schedule.fsdp='prefetch' the
+            # kernels arrive still FSDP-split and are gathered here
+            shrunk = scheduled_ffn(
+                normed, _cast(self.fc.kernel, dtype),
+                self.fc.bias.to(dtype), _cast(self.proj.kernel, dtype),
+                self.proj.bias.to(dtype), mesh, schedule=schedule,
+                activation=functools.partial(F.gelu, approximate='tanh'))
+        else:
+            grown, split = column(self.fc, normed, dtype, mesh)
+            shrunk = row(self.proj, F.gelu(grown, approximate='tanh'),
+                         split, dtype, mesh)
+        return hidden + apply_dropout(shrunk, rate, keys[1])
 
 
 class BlockSpan(nn.Module):
@@ -204,11 +336,13 @@ class BlockSpan(nn.Module):
                                         moe=moe if is_moe else None))
             self.names.append(name)
 
-    def forward(self, hidden, dtype, attentions: dict, rate: float = 0.0):
+    def forward(self, hidden, dtype, attentions: dict, rate: float = 0.0,
+                tp: tuple | None = None):
         aux_terms = []
         for name in self.names:
             block = getattr(self, name)
-            out = block(hidden, dtype, attentions[name], rate)
+            out = block(hidden, dtype, attentions[name], rate, (None, None),
+                        tp)
             if block.moe is not None:
                 hidden, aux = out
                 aux_terms.append(aux)
@@ -272,14 +406,28 @@ class GPT2(nn.Module):
     125M preset == defaults (vocab 50257, 12 x 768, 12 heads, seq 1024).
     ``device`` defaults to the card (``'cpu'`` must be asked for); weights
     are drawn from a generator seeded 0 — :meth:`init_weights` redraws
-    them, ``load_state_dict`` replaces them."""
+    them, ``load_state_dict`` replaces them.
+
+    ``mesh`` (a :class:`~tpusystem_torch.parallel.mesh.Mesh` of ranks)
+    runs tensor parallelism over its ``model`` axis on the pieces the step
+    hands over (:meth:`keeps_split`): ``qkv``/``fc`` column-parallel,
+    ``out``/``proj`` row-parallel (an all-reduce over ``model``), the
+    attention heads split over ``model`` (``attend``'s sharded flash call;
+    a decode cache holds this rank's heads), the vocabulary-split ``wte``
+    looked up to zero outside a rank's rows and summed, the
+    feature-split ``wpe`` gathered, and the tied head on the gathered
+    table. ``tp_impl``/``tp_chunks`` or ``schedule`` (an
+    :class:`~tpusystem_torch.parallel.schedule.OverlapSchedule`) route the
+    dense FFN through :func:`~tpusystem_torch.parallel.schedule.scheduled_ffn`
+    where :func:`~tpusystem_torch.parallel.schedule.schedule_applicable`
+    holds. None of them changes the parameter tree."""
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'attn_dropout', 'remat',
               'scan_layers', 'scan_unit',
               'return_features', 'decode', 'per_row_decode', 'decode_pages',
               'moe_experts', 'moe_every', 'moe_k', 'moe_capacity_factor',
-              'moe_sparse_impl')
+              'moe_sparse_impl', 'mesh', 'tp_impl', 'tp_chunks', 'schedule')
 
     def __init__(self, vocab_size: int = 50257, layers: int = 12,
                  dim: int = 768, heads: int = 12, max_seq: int = 1024,
@@ -293,8 +441,12 @@ class GPT2(nn.Module):
                  decode_pages: tuple | None = None, moe_experts: int = 0,
                  moe_every: int = 2, moe_k: int = 2,
                  moe_capacity_factor: float = 1.25,
-                 moe_sparse_impl: str = 'gather', device=None) -> None:
+                 moe_sparse_impl: str = 'gather', mesh=None,
+                 tp_impl: str = 'gspmd', tp_chunks: int = 1, schedule=None,
+                 device=None) -> None:
         super().__init__()
+        # the reference raises at init; the knob's one resolution
+        resolve_schedule(schedule, tp_impl, tp_chunks)
         if attention not in ('xla', 'flash'):  # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               'multi-GPU parallelism, 9e. Sequence '
@@ -312,6 +464,8 @@ class GPT2(nn.Module):
                                                         moe_every, moe_k)
         self.moe_capacity_factor = moe_capacity_factor
         self.moe_sparse_impl = moe_sparse_impl
+        self.mesh, self.tp_impl, self.tp_chunks = mesh, tp_impl, tp_chunks
+        self.schedule = schedule
         compute_dtype(dtype)                               # validates
         self.wte = Embed(vocab_size, dim, device=device)
         self.wpe = Embed(max_seq, dim, device=device)
@@ -345,6 +499,33 @@ class GPT2(nn.Module):
 
     def blocks(self):
         return [getattr(self, f'h_{index}') for index in range(self.layers)]
+
+    @property
+    def tp(self) -> tuple | None:
+        """``(mesh, schedule)`` the blocks run under, ``None`` without a
+        mesh."""
+        if self.mesh is None:
+            return None
+        return self.mesh, resolve_schedule(self.schedule, self.tp_impl,
+                                           self.tp_chunks)
+
+    def keeps_split(self, name: str) -> tuple:
+        """The mesh axes the forward takes the placed leaf ``name`` split
+        over (the step gathers it over the others): ``model`` for every
+        leaf but the experts', and ``fsdp`` too for the FFN kernels under
+        ``schedule.fsdp='prefetch'``, which the scheduled FFN gathers."""
+        if self.mesh is None or '.moe.' in name:
+            return ()
+        prefetch = self.tp[1].fsdp == 'prefetch' and re.search(
+            r'(^|\.)(fc|proj)\.kernel$', name)
+        return (MODEL, FSDP) if prefetch else (MODEL,)
+
+    def cache_heads(self) -> int:
+        """Heads a decode cache holds: this rank's block over a ``model``
+        axis that divides them, else all."""
+        if heads_split(self.mesh, self.heads):
+            return self.heads // self.mesh.shape[MODEL]
+        return self.heads
 
     def scan_span(self) -> int:
         """Layers per scanned unit: 0 for one plain block, else the
@@ -385,7 +566,7 @@ class GPT2(nn.Module):
         rules cover ``scan_layers`` (the same splits one dim right, past
         the layer dim), and the MoE rules the expert stacks. On a mesh with
         ``model=1`` a rule still claims its dimension, so FSDP inference
-        picks another one; a ``model`` axis of size > 1 is ROADMAP 9c."""
+        picks another one."""
         from tpusystem_torch.ops.moe import moe_partition_rules
         from tpusystem_torch.parallel.mesh import EXPERT
         from tpusystem_torch.parallel.mesh import PartitionSpec as P
@@ -471,13 +652,14 @@ class GPT2(nn.Module):
         pool when ``decode_pages`` is set, else contiguous strips."""
         device = self.device if device is None else torch.device(device)
         head_dim = self.dim // self.heads
+        heads = self.cache_heads()
         dtype = self.compute_dtype
         index = torch.zeros(batch, dtype=torch.int32, device=device)
         cache = {'position': index}
         if self.scan_layers:
             # stacked strips: a leading unit dimension per span position
             units = self.layers // max(self.scan_span(), 1)
-            shape = (units, batch, self.max_seq, self.heads, head_dim)
+            shape = (units, batch, self.max_seq, heads, head_dim)
             for _, prefix in self.scan_prefixes():
                 cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
                                                      device=device)
@@ -489,12 +671,12 @@ class GPT2(nn.Module):
             prefix = f'h_{layer}/attn'
             if self.decode_pages:
                 blocks, block = self.decode_pages
-                shape = (blocks * block, self.heads, head_dim)
+                shape = (blocks * block, heads, head_dim)
                 cache[prefix + '/table'] = torch.zeros(
                     (batch, self.max_seq // block), dtype=torch.int32,
                     device=device)
             else:
-                shape = (batch, self.max_seq, self.heads, head_dim)
+                shape = (batch, self.max_seq, heads, head_dim)
             cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
                                                  device=device)
             cache[prefix + '/value'] = torch.zeros(shape, dtype=dtype,
@@ -556,8 +738,10 @@ class GPT2(nn.Module):
         embed_key, block_keys = (dropout_keys(rng, self.layers)
                                  if rate or attn_rate
                                  else (None, [(None,) * 3] * self.layers))
-        hidden = apply_dropout(self.wte(tokens) + self.wpe(positions), rate,
-                               embed_key).to(dtype)
+        mesh, tp = self.mesh, self.tp
+        embedded = (vocab_lookup(self.wte.embedding, tokens, mesh)
+                    + feature_lookup(self.wpe.embedding, positions, mesh))
+        hidden = apply_dropout(embedded, rate, embed_key).to(dtype)
         aux_losses = []
         remat = self.remat and not self.decode and torch.is_grad_enabled()
         if self.scan_layers:
@@ -567,22 +751,24 @@ class GPT2(nn.Module):
                                       else self.blocks()):
             attn_key, *output_keys = block_keys[index]
             if self.decode:
-                attention = functools.partial(
+                attention = self._cached(functools.partial(
                     cached_attention, cache=cache, prefix=f'h_{index}/attn',
                     max_seq=self.max_seq,
                     per_row=self.per_row_decode, pages=self.decode_pages,
-                    depth=depth)
+                    depth=depth))
             else:
                 attention = functools.partial(attend, kernel=self.attention,
-                                              dropout=attn_rate, rng=attn_key)
+                                              dropout=attn_rate, rng=attn_key,
+                                              mesh=mesh)
             run = (functools.partial(checkpoint, block, use_reentrant=False)
                    if remat else block)
-            hidden = run(hidden, dtype, attention, rate, tuple(output_keys))
+            hidden = run(hidden, dtype, attention, rate, tuple(output_keys),
+                         tp)
             if self.is_moe(index):
                 hidden, aux = hidden
                 aux_losses.append(aux)
         features = self.ln_f(hidden).to(dtype)
-        table = self.wte.embedding.to(dtype)
+        table = whole_rows(self.wte.embedding, mesh).to(dtype)
         if self.scan_layers and aux_losses:
             # the reference's scanned aux: the mean over spans of each
             # span's mean router loss
@@ -602,6 +788,13 @@ class GPT2(nn.Module):
         return (outputs, cache) if self.decode else outputs
 
 
+    def _cached(self, attention):
+        """A decode attention over this rank's heads where the cache holds
+        them (:meth:`cache_heads`)."""
+        if heads_split(self.mesh, self.heads):
+            return local_heads(attention, self.mesh)
+        return attention
+
     def _scanned(self, hidden, dtype, cache, depth, remat):
         """The scanned stack: the template applied to each unit's parameter
         slices (one ``unbind`` a parameter); in decode mode each unit reads
@@ -613,17 +806,19 @@ class GPT2(nn.Module):
                                                    self.stacked_names)):
             attentions = {}
             for name, prefix in prefixes:
-                attentions[name] = (functools.partial(
+                attentions[name] = (self._cached(functools.partial(
                     cached_attention, cache=unit_cache(cache, prefix, unit,
                                                        strips),
                     prefix=prefix, max_seq=self.max_seq,
                     per_row=self.per_row_decode, pages=self.decode_pages,
-                    depth=depth) if self.decode else functools.partial(
-                        attend, kernel=self.attention))
+                    depth=depth)) if self.decode else functools.partial(
+                        attend, kernel=self.attention, mesh=self.mesh))
             span = isinstance(template, BlockSpan)
+            args = ((dtype, attentions, 0.0, self.tp) if span
+                    else (dtype, attentions[None], 0.0, (None, None),
+                          self.tp))
             hidden = apply_unit(template, self.stacked_names, slices, hidden,
-                                (dtype, attentions if span
-                                 else attentions[None]), remat)
+                                args, remat)
             if isinstance(hidden, tuple):
                 hidden, aux = hidden
                 aux_terms.append(aux)
@@ -631,7 +826,7 @@ class GPT2(nn.Module):
         return hidden, aux_terms
 
 
-register(GPT2, excluded_kwargs={'device'})
+register(GPT2, excluded_kwargs={'device', 'mesh'})
 
 
 def gpt2_small(**overrides) -> GPT2:

@@ -36,15 +36,22 @@ backward K2b for GQA (K2a for MHA past 1,024 keys), at head dims 16 to
 stacked at a leading layer dimension under ``blocks`` (``blocks.attn.q.
 kernel`` is ``[layers, dim, dim]``), the reference's layout; ``scan_unit >
 1`` stacks :class:`LlamaBlockSpan` s of ``d_{i}`` blocks. Decode mode stacks
-the caches too (:mod:`tpusystem_torch.models.scan`). The multi-device knobs
-``mesh`` and ``schedule`` raise ``NotImplementedError`` (ROADMAP queue 1,
-9. Multi-GPU parallelism, 9c. Tensor parallelism; ring attention 9e).
+the caches too (:mod:`tpusystem_torch.models.scan`). ``mesh`` runs tensor
+parallelism over its ``model`` axis as :class:`~tpusystem_torch.models.
+gpt2.GPT2` does: ``q``/``k``/``v``/``gate``/``up`` column-parallel,
+``out``/``down`` row-parallel, the GQA heads split over ``model`` (a decode
+cache holds this rank's KV heads where they divide), the vocabulary-split
+``embed`` looked up and summed, the head on the gathered ``lm_head``; and
+``tp_impl``/``tp_chunks`` or ``schedule`` route the SwiGLU through
+:func:`~tpusystem_torch.parallel.schedule.scheduled_swiglu`, gate and up
+fused into one ring. Ring attention raises (ROADMAP queue 1, 9e).
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import re
 
 import torch
 import torch.nn.functional as F
@@ -52,12 +59,20 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
-from tpusystem_torch.models.gpt2 import Dense, Embed
+from tpusystem_torch.models.gpt2 import (Dense, Embed, _cast, column,
+                                         global_shape, heads_split,
+                                         local_heads, row, vocab_lookup,
+                                         whole_rows)
 from tpusystem_torch.models.scan import (apply_unit, init_stacked,
                                          layer_slices, restack_caches,
                                          stack_parameters, unit_cache)
 from tpusystem_torch.ops.attention import attend, cached_attention
 from tpusystem_torch.ops.precision import head_logits
+from tpusystem_torch.parallel.collectives import gather_from
+from tpusystem_torch.parallel.mesh import FSDP, MODEL
+from tpusystem_torch.parallel.schedule import (resolve_schedule,
+                                               schedule_applicable,
+                                               scheduled_swiglu)
 from tpusystem_torch.registry import register
 
 # the std of the unit normal truncated at +-2: flax's truncated_normal
@@ -140,33 +155,33 @@ class LlamaAttention(nn.Module):
         self.out = Dense(dim, dim, device=device, use_bias=False)
 
     def forward(self, hidden, dtype, attention, positions,
-                rope_theta: float):
+                rope_theta: float, mesh=None):
         batch, length, dim = hidden.shape
         head_dim = dim // self.heads
-        query = self.q(hidden, dtype).reshape(batch, length, self.heads,
-                                              head_dim)
-        key = self.k(hidden, dtype).reshape(batch, length, self.kv_heads,
-                                            head_dim)
-        value = self.v(hidden, dtype).reshape(batch, length, self.kv_heads,
-                                              head_dim)
+
+        def project(dense, heads):
+            out, split = column(dense, hidden, dtype, mesh)
+            if split:
+                out = gather_from(out, mesh, MODEL, dimension=-1)
+            return out.reshape(batch, length, heads, head_dim)
+
+        query = project(self.q, self.heads)
+        key = project(self.k, self.kv_heads)
+        value = project(self.v, self.kv_heads)
         cos, sin = rotary_embedding(positions, head_dim, rope_theta)
         context = attention(apply_rotary(query, cos, sin),
                             apply_rotary(key, cos, sin), value)
-        return self.out(context.reshape(batch, length, dim), dtype)
+        return row(self.out, context.reshape(batch, length, dim), False,
+                   dtype, mesh)
 
 
 class LlamaBlock(nn.Module):
     """Pre-RMSNorm transformer block with a SwiGLU FFN."""
 
     def __init__(self, dim: int, heads: int, kv_heads: int, ffn_dim: int, *,
-                 device, schedule=None) -> None:
+                 device) -> None:
         super().__init__()
-        if schedule is not None:
-            # the reference's scheduled SwiGLU (llama.py:188-211) composes
-            # tensor-parallel rings with FSDP prefetch over a device mesh
-            raise _not_ported('the scheduled SwiGLU (schedule=)',
-                              '9. Multi-GPU parallelism, 9c. Tensor '
-                              'parallelism')
+        self.ffn_dim = ffn_dim
         self.attn_norm = RMSNorm(dim, device=device)
         self.attn = LlamaAttention(dim, heads, kv_heads, device=device)
         self.ffn_norm = RMSNorm(dim, device=device)
@@ -176,13 +191,26 @@ class LlamaBlock(nn.Module):
         self.down = dense(ffn_dim, dim)
 
     def forward(self, hidden, dtype, attention, positions,
-                rope_theta: float):
+                rope_theta: float, tp: tuple | None = None):
+        """``tp`` is ``(mesh, schedule)`` over a mesh, else ``None``."""
+        mesh, schedule = tp or (None, None)
         normed = self.attn_norm(hidden)
         hidden = hidden + self.attn(normed, dtype, attention, positions,
-                                    rope_theta)
+                                    rope_theta, mesh)
         normed = self.ffn_norm(hidden)
-        gated = F.silu(self.gate(normed, dtype)) * self.up(normed, dtype)
-        return hidden + self.down(gated, dtype)
+        if mesh is not None and schedule_applicable(
+                schedule, mesh, global_shape(normed, mesh), self.ffn_dim):
+            # the scheduled SwiGLU (parallel/schedule.py): one ring gathers
+            # the sequence rows into the fused gate|up matmul and the down
+            # matmul reduce-scatters them back; under fsdp='prefetch' the
+            # three kernels arrive still FSDP-split and are gathered here
+            return hidden + scheduled_swiglu(
+                normed.to(dtype), _cast(self.gate.kernel, dtype),
+                _cast(self.up.kernel, dtype), _cast(self.down.kernel, dtype),
+                mesh, schedule=schedule)
+        gate, split = column(self.gate, normed, dtype, mesh)
+        up, _ = column(self.up, normed, dtype, mesh)
+        return hidden + row(self.down, F.silu(gate) * up, split, dtype, mesh)
 
 
 class LlamaBlockSpan(nn.Module):
@@ -200,10 +228,10 @@ class LlamaBlockSpan(nn.Module):
                                              device=device))
 
     def forward(self, hidden, dtype, attentions: dict, positions: dict,
-                rope_theta: float):
+                rope_theta: float, tp: tuple | None = None):
         for name in self.names:
             hidden = getattr(self, name)(hidden, dtype, attentions[name],
-                                         positions[name], rope_theta)
+                                         positions[name], rope_theta, tp)
         return hidden
 
 
@@ -220,7 +248,8 @@ class Llama(nn.Module):
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'kv_heads', 'ffn_dim',
               'max_seq', 'rope_theta', 'dtype', 'attention', 'remat',
               'scan_layers', 'scan_unit', 'return_features', 'decode',
-              'per_row_decode', 'decode_pages')
+              'per_row_decode', 'decode_pages', 'mesh', 'tp_impl',
+              'tp_chunks', 'schedule')
 
     def __init__(self, vocab_size: int = 128_256, layers: int = 32,
                  dim: int = 4096, heads: int = 32, kv_heads: int = 8,
@@ -230,16 +259,13 @@ class Llama(nn.Module):
                  scan_layers: bool = False, scan_unit: int = 1,
                  return_features: bool = False, decode: bool = False,
                  per_row_decode: bool = False,
-                 decode_pages: tuple | None = None, schedule=None,
-                 device=None) -> None:
+                 decode_pages: tuple | None = None, tp_impl: str = 'gspmd',
+                 tp_chunks: int = 1, schedule=None, device=None) -> None:
         super().__init__()
         if scan_layers and scan_unit > 1 and layers % scan_unit:
             raise ValueError(f'scan_unit={scan_unit} must divide layers '
                              f'({layers})')
-        if mesh is not None:
-            raise _not_ported('a device mesh (mesh=)',
-                              '9. Multi-GPU parallelism, 9c. Tensor '
-                              'parallelism')
+        resolve_schedule(schedule, tp_impl, tp_chunks)    # validates
         if attention not in ('xla', 'flash'):          # ring / ulysses
             raise _not_ported(f'{attention!r} attention',
                               '9. Multi-GPU parallelism, 9e. Sequence '
@@ -255,6 +281,8 @@ class Llama(nn.Module):
         self.return_features, self.decode = return_features, decode
         self.per_row_decode, self.decode_pages = per_row_decode, decode_pages
         self.scan_layers, self.scan_unit = scan_layers, scan_unit
+        self.mesh, self.tp_impl, self.tp_chunks = mesh, tp_impl, tp_chunks
+        self.schedule = schedule
         compute_dtype(dtype)                               # validates
         self.embed = Embed(vocab_size, dim, device=device)
         if scan_layers:
@@ -262,15 +290,14 @@ class Llama(nn.Module):
                                        scan_unit, device=device)
                         if scan_unit > 1 else
                         LlamaBlock(dim, heads, kv_heads, ffn_dim,
-                                   device=device, schedule=schedule))
+                                   device=device))
             self.stacked_names = stack_parameters(
                 template, layers // max(scan_unit, 1))
             self.blocks = template
         else:
             for index in range(layers):
                 self.add_module(f'layer_{index}', LlamaBlock(
-                    dim, heads, kv_heads, ffn_dim, device=device,
-                    schedule=schedule))
+                    dim, heads, kv_heads, ffn_dim, device=device))
         self.final_norm = RMSNorm(dim, device=device)
         self.lm_head = _HeadKernel(dim, vocab_size, device=device)
         self.init_weights(torch.Generator(device).manual_seed(0))
@@ -286,6 +313,60 @@ class Llama(nn.Module):
     @property
     def head_dim(self) -> int:
         return self.dim // self.heads
+
+    @property
+    def tp(self) -> tuple | None:
+        """``(mesh, schedule)`` the blocks run under, ``None`` without a
+        mesh."""
+        if self.mesh is None:
+            return None
+        return self.mesh, resolve_schedule(self.schedule, self.tp_impl,
+                                           self.tp_chunks)
+
+    def keeps_split(self, name: str) -> tuple:
+        """The mesh axes the forward takes the placed leaf ``name`` split
+        over: ``model``, and ``fsdp`` too for the SwiGLU kernels under
+        ``schedule.fsdp='prefetch'`` (see ``GPT2.keeps_split``)."""
+        if self.mesh is None:
+            return ()
+        prefetch = self.tp[1].fsdp == 'prefetch' and re.search(
+            r'(^|\.)(gate|up|down)\.kernel$', name)
+        return (MODEL, FSDP) if prefetch else (MODEL,)
+
+    def cache_heads(self) -> int:
+        """KV heads a decode cache holds: this rank's block over a
+        ``model`` axis that divides them, else all."""
+        if heads_split(self.mesh, self.kv_heads):
+            return self.kv_heads // self.mesh.shape[MODEL]
+        return self.kv_heads
+
+    def _cached(self, attention):
+        """A decode attention over this rank's heads where the cache holds
+        them (:meth:`cache_heads`)."""
+        if heads_split(self.mesh, self.kv_heads):
+            return local_heads(attention, self.mesh)
+        return attention
+
+    @staticmethod
+    def partition_rules():
+        """The reference's Megatron-style rules (``llama.py:394``), paths in
+        the port's names: q/k/v/gate/up split columns on ``model``;
+        out/down split rows; the embedding and the head split the
+        vocabulary. The ``blocks/`` rules cover ``scan_layers`` (the same
+        splits one dim right, past the layer dim)."""
+        from tpusystem_torch.parallel.mesh import PartitionSpec as P
+        return (
+            (r'blocks/.*attn/(q|k|v)/kernel$', P(None, None, 'model')),
+            (r'blocks/.*attn/out/kernel$', P(None, 'model', None)),
+            (r'blocks/.*(gate|up)/kernel$', P(None, None, 'model')),
+            (r'blocks/.*down/kernel$', P(None, 'model', None)),
+            (r'attn/(q|k|v)/kernel$', P(None, 'model')),
+            (r'attn/out/kernel$', P('model', None)),
+            (r'(gate|up)/kernel$', P(None, 'model')),
+            (r'down/kernel$', P('model', None)),
+            (r'embed/embedding$', P('model', None)),
+            (r'lm_head/kernel$', P(None, 'model')),
+        )
 
     def layer_blocks(self):
         """The unrolled blocks, ``layer_{i}`` (``blocks`` is the scanned
@@ -343,12 +424,12 @@ class Llama(nn.Module):
         ``position`` leaf."""
         device = self.device if device is None else torch.device(device)
         dtype = self.compute_dtype
+        heads = self.cache_heads()
         index = torch.zeros(batch, dtype=torch.int32, device=device)
         cache = {}
         if self.scan_layers:
             units = self.layers // max(self.scan_unit, 1)
-            shape = (units, batch, self.max_seq, self.kv_heads,
-                     self.head_dim)
+            shape = (units, batch, self.max_seq, heads, self.head_dim)
             for _, prefix in self.scan_prefixes():
                 cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
                                                      device=device)
@@ -360,12 +441,12 @@ class Llama(nn.Module):
             prefix = f'layer_{layer}/attn'
             if self.decode_pages:
                 blocks, block = self.decode_pages
-                shape = (blocks * block, self.kv_heads, self.head_dim)
+                shape = (blocks * block, heads, self.head_dim)
                 cache[prefix + '/table'] = torch.zeros(
                     (batch, self.max_seq // block), dtype=torch.int32,
                     device=device)
             else:
-                shape = (batch, self.max_seq, self.kv_heads, self.head_dim)
+                shape = (batch, self.max_seq, heads, self.head_dim)
             cache[prefix + '/key'] = torch.zeros(shape, dtype=dtype,
                                                  device=device)
             cache[prefix + '/value'] = torch.zeros(shape, dtype=dtype,
@@ -397,7 +478,8 @@ class Llama(nn.Module):
                          else 'layer_0/attn')
                 cursor = cache.get(first + '/index')
                 depth = 0 if cursor is None else int(cursor.max())
-        hidden = self.embed(tokens).to(dtype)
+        mesh, tp = self.mesh, self.tp
+        hidden = vocab_lookup(self.embed.embedding, tokens, mesh).to(dtype)
         remat = self.remat and not self.decode and torch.is_grad_enabled()
         if self.scan_layers:
             hidden = self._scanned(hidden, dtype, cache, depth, remat, steps)
@@ -412,19 +494,20 @@ class Llama(nn.Module):
                     cursor = torch.zeros(batch, dtype=torch.int32,
                                          device=tokens.device)
                 positions = cursor[:, None].long() + steps[None, :]
-                attention = functools.partial(
+                attention = self._cached(functools.partial(
                     cached_attention, cache=cache, prefix=prefix,
                     max_seq=self.max_seq, per_row=self.per_row_decode,
-                    pages=self.decode_pages, depth=depth)
+                    pages=self.decode_pages, depth=depth))
             else:
                 positions = steps
-                attention = functools.partial(attend, kernel=self.attention)
+                attention = functools.partial(attend, kernel=self.attention,
+                                              mesh=mesh)
             run = (functools.partial(checkpoint, block, use_reentrant=False)
                    if remat else block)
             hidden = run(hidden, dtype, attention, positions,
-                         self.rope_theta)
+                         self.rope_theta, tp)
         features = self.final_norm(hidden)
-        table = self.lm_head.kernel.to(dtype)
+        table = whole_rows(self.lm_head.kernel, mesh, dimension=1).to(dtype)
         if self.return_features:
             outputs = (features, table)
         else:
@@ -449,19 +532,19 @@ class Llama(nn.Module):
                                              dtype=torch.int32,
                                              device=hidden.device)
                     positions[name] = cursor[:, None].long() + steps[None, :]
-                    attentions[name] = functools.partial(
+                    attentions[name] = self._cached(functools.partial(
                         cached_attention, cache=view, prefix=prefix,
                         max_seq=self.max_seq, per_row=self.per_row_decode,
-                        pages=self.decode_pages, depth=depth)
+                        pages=self.decode_pages, depth=depth))
                 else:
                     positions[name] = steps
                     attentions[name] = functools.partial(
-                        attend, kernel=self.attention)
+                        attend, kernel=self.attention, mesh=self.mesh)
             if not isinstance(template, LlamaBlockSpan):
                 attentions, positions = attentions[None], positions[None]
             hidden = apply_unit(template, self.stacked_names, slices, hidden,
                                 (dtype, attentions, positions,
-                                 self.rope_theta), remat)
+                                 self.rope_theta, self.tp), remat)
         restack_caches(cache, strips)
         return hidden
 

@@ -48,8 +48,20 @@ def lookup(module: nn.Module, name: str) -> torch.Tensor:
 
 def layer_slices(module: nn.Module, names: list[str]) -> list[dict]:
     """``[{name: slice of layer j}]`` for every layer, one ``unbind`` a
-    parameter."""
-    pieces = [lookup(module, name).unbind(0) for name in names]
+    parameter. A stacked piece held split over mesh axes
+    (:func:`~tpusystem_torch.parallel.sharding.held_axes`) gives slices
+    held split over them one dimension left."""
+    pieces = []
+    for name in names:
+        stacked = lookup(module, name)
+        held = getattr(stacked, 'held', None) or {}
+        if 0 in held:
+            raise ValueError(f'{name} is split over {held[0]} at its layer '
+                             'dimension, which a layer slice cannot hold')
+        layers = stacked.unbind(0)
+        for piece in layers if held else ():
+            piece.held = {dim - 1: axes for dim, axes in held.items()}
+        pieces.append(layers)
     return [dict(zip(names, layer)) for layer in zip(*pieces)]
 
 

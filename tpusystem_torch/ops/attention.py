@@ -99,19 +99,28 @@ def dot_product_attention(query, key, value, *, causal: bool = True,
 
 
 def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
-           rng=None):
+           rng=None, mesh=None):
     """Causal attention of the forward and training passes: ``'xla'`` is
     :func:`dot_product_attention` (autograd), ``'flash'`` the flash kernels
     (K1 forward, the fused backward K2a or K2b). ``dropout > 0`` drops
     attention probabilities with masks from the threefry key ``rng`` (the
     reference's ``dropout_rng``): ``bernoulli`` on it over the weights on
     ``'xla'``; on ``'flash'`` the kernels' positional hash of the seed
-    ``randint(rng, (1,), 0, 2**31 - 1)`` (``flash.py:773``)."""
+    ``randint(rng, (1,), 0, 2**31 - 1)`` (``flash.py:773``). ``mesh`` (a
+    mesh of ranks, the reference's ``attention.py:64``) runs ``'flash'``
+    as :func:`~tpusystem_torch.ops.cuda.flash.sharded_flash_attention`,
+    this rank's heads through the kernels; ``'xla'`` computes every head,
+    as the reference's partitioned einsum does."""
     if kernel == 'xla':
         return dot_product_attention(query, key, value, causal=True,
                                      dropout=dropout, rng=rng)
     if kernel == 'flash':
-        from tpusystem_torch.ops.cuda.flash import flash_attention
+        from tpusystem_torch.ops.cuda.flash import (flash_attention,
+                                                    sharded_flash_attention)
+        if mesh is not None:
+            return sharded_flash_attention(query, key, value, mesh,
+                                           causal=True, dropout=dropout,
+                                           rng=rng)
         seed = flash_seed(rng) if dropout else None
         return flash_attention(query, key, value, causal=True,
                                dropout=dropout, seed=seed)

@@ -616,6 +616,54 @@ def flash_attention(query, key, value, *, causal: bool = True,
                                seed=seed)[0]
 
 
+def sharded_flash_attention(query, key, value, mesh, *, causal: bool = True,
+                            dropout: float = 0.0, rng=None):
+    """Flash attention over a mesh of ranks: the reference's
+    ``sharded_flash_attention`` (``flash.py:836``).
+
+    Attention is parallel over batch x heads. A port rank holds its batch
+    rows (split over ``(data, fsdp)`` by the step) and here takes its block
+    of the heads over ``model`` where the query heads divide, launching K1
+    (and the backward kernels, through autograd) on those heads alone; the
+    context's heads are gathered whole again (backward, this rank's block
+    of the gradient). Where the KV heads do not divide the ``model`` axis,
+    KV is broadcast to the query heads first, with the reference's
+    warning. Under dropout the threefry key ``rng`` is folded with the
+    index of each axis of more than one rank, ``data``, ``fsdp``, then
+    ``model`` (the reference's order), before the kernels' seed is drawn
+    from it, so the ranks' masks decorrelate."""
+    import warnings
+
+    from tpusystem_torch.ops.attention import repeat_kv_heads
+    from tpusystem_torch.ops.threefry import flash_seed, fold_in
+    from tpusystem_torch.parallel.collectives import gather_from, scatter_to
+    from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL
+
+    model = mesh.shape[MODEL]
+    split = model > 1 and query.shape[2] % model == 0
+    if split and key.shape[2] % model:
+        warnings.warn(
+            f"sharded_flash_attention: {key.shape[2]} KV heads do not divide "
+            f"the model axis ({model}); broadcasting KV to the "
+            f"{query.shape[2]} query heads. This is correct but forfeits the "
+            "GQA KV memory saving on this mesh — pick a model axis that "
+            "divides the KV head count to keep grouped KV.",
+            stacklevel=2)
+        key, value = repeat_kv_heads(query, key, value)
+    seed = None
+    if dropout:
+        for axis in (DATA, FSDP, MODEL):
+            if mesh.shape[axis] > 1:
+                rng = fold_in(rng, mesh.axis_index(axis))
+        seed = flash_seed(rng)
+    if split:
+        query, key, value = (scatter_to(t, mesh, MODEL, dimension=2)
+                             for t in (query, key, value))
+    out = flash_attention(query, key, value, causal=causal, dropout=dropout,
+                          seed=seed)
+    return gather_from(out, mesh, MODEL, dimension=2) if split else out
+
+
 flash_attention_lse.launches = 0
 flash_bwd_fused_g1.launches = 0
 flash_bwd_fused.launches = 0

@@ -3,10 +3,10 @@ over the ranks of a ``torch.distributed`` process group (one device a
 rank; one device without a group), the collectives over a mesh axis, the
 sharding policies (data parallelism and FSDP placing ``DTensor`` pieces),
 the control plane of one process or many (the TCP hub, transports and
-deputy), the chaos harness, the recovery policy, elastic membership and the
-:class:`Supervisor`. Tensor parallelism (``overlap``, ``schedule``), the
-pipelines, sequence and expert parallelism and elastic resharding across
-ranks are ROADMAP queue 1, 9c-9f."""
+deputy), the chaos harness, the recovery policy, elastic membership, the
+:class:`Supervisor`, and tensor parallelism (``overlap``, ``schedule``: the
+decomposed TP rings, the FSDP prefetch and the planners). The pipelines,
+sequence and expert parallelism are ROADMAP queue 1, 9d-9f."""
 
 from tpusystem_torch.parallel.mesh import (
     AXES, DATA, EXPERT, FSDP, MODEL, SEQ, STAGE,
@@ -44,6 +44,19 @@ from tpusystem_torch.parallel.supervisor import Supervisor
 from tpusystem_torch.parallel.sharding import (DataParallel,
                                                FullyShardedDataParallel,
                                                ShardingPolicy, TensorParallel)
+from tpusystem_torch.parallel.overlap import (allgather_matmul,
+                                              allgather_plan,
+                                              matmul_reducescatter,
+                                              reducescatter_plan, tp_ffn,
+                                              tp_swiglu)
+from tpusystem_torch.parallel.schedule import (DecodeTpPlan, FsdpPlan,
+                                               MoePlan, OverlapSchedule,
+                                               PpPlan, decode_tp_plan,
+                                               fsdp_plan, moe_plan, pp_plan,
+                                               resolve_schedule,
+                                               schedule_applicable,
+                                               scheduled_ffn,
+                                               scheduled_swiglu)
 
 __all__ = ['MeshSpec', 'single_device_mesh', 'batch_sharding', 'replicated',
            'scan_carry_constraint', 'stacked_batch_sharding',
@@ -67,4 +80,10 @@ __all__ = ['MeshSpec', 'single_device_mesh', 'batch_sharding', 'replicated',
            'ResizeDecision', 'collect_pieces', 'elastic_consumer',
            'elastic_resume',
            'Faults', 'ChaosTransport', 'ChaosHub', 'DieAtStep', 'WorkerKilled',
-           'PreemptionWave', 'CorruptGrads', 'CorruptBatch', 'FlipParamBit']
+           'PreemptionWave', 'CorruptGrads', 'CorruptBatch', 'FlipParamBit',
+           'allgather_matmul', 'matmul_reducescatter',
+           'allgather_plan', 'reducescatter_plan', 'tp_ffn', 'tp_swiglu',
+           'OverlapSchedule', 'FsdpPlan', 'fsdp_plan', 'resolve_schedule',
+           'PpPlan', 'pp_plan', 'MoePlan', 'moe_plan',
+           'DecodeTpPlan', 'decode_tp_plan',
+           'schedule_applicable', 'scheduled_ffn', 'scheduled_swiglu']

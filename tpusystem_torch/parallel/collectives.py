@@ -13,6 +13,22 @@ shift. On a one-device mesh every collective is the identity.
 Ring-neighbour convention, fixed here once: rank ``i`` sends to
 ``(i + 1) % n`` when forward, so after ``s`` forward shifts rank ``i``
 holds the shard of rank ``(i - s) % n``.
+
+A ring shift takes the route its mesh picked when it built its groups
+(:attr:`~tpusystem_torch.parallel.mesh.Mesh.route`): ``'p2p'``, one
+``isend``/``irecv`` pair a hop, over NCCL and over gloo on the CPU; and
+``'gather'`` over gloo on CUDA tensors, where a point-to-point send aborts
+the process: every rank all-gathers the shards and keeps its predecessor's
+(the same bytes as the pair at two ranks, ``n`` times them at ``n``).
+
+The Megatron conjugates run tensor parallelism over activations that every
+``model`` rank holds whole (replicated): :func:`copy_to` (identity forward,
+sum of the gradients backward) enters a column-parallel product,
+:func:`reduce_from` (sum forward, identity backward) leaves a row-parallel
+one, :func:`scatter_to` keeps this rank's block of a dimension (its
+backward gathers the blocks) and :func:`gather_from` gathers the blocks
+(its backward keeps this rank's block of the gradient, which every rank
+holds whole).
 """
 
 from __future__ import annotations
@@ -28,7 +44,8 @@ from tpusystem_torch.parallel.mesh import AXES, Mesh, spec_axes
 __all__ = ['all_reduce_sum', 'all_reduce_mean', 'all_gather',
            'reduce_scatter', 'all_to_all', 'ring_shift', 'ring_shift_chunked',
            'pp_hop', 'ring_allgather', 'ring_reducescatter', 'axis_index',
-           'axis_size', 'replica_checksums']
+           'axis_size', 'replica_checksums', 'copy_to', 'reduce_from',
+           'scatter_to', 'gather_from']
 
 
 def _group(mesh: Mesh, axis):
@@ -52,12 +69,21 @@ def _raw_all_reduce(value, group):
     return out
 
 
+def _sum32(value, group):
+    """The all-reduce of ``value`` in float32, cast back once."""
+    return _raw_all_reduce(value.float(), group).to(value.dtype)
+
+
 def _raw_all_gather(value, group, dim):
     n = torch.distributed.get_world_size(group)
     moved = value.movedim(dim, 0).contiguous()
-    out = moved.new_empty((n * moved.shape[0],) + tuple(moved.shape[1:]))
-    _into(torch.distributed.all_gather_into_tensor, out, moved, group)
-    return out.movedim(0, dim)
+    # a copy: 16-bit floats travel as their bytes, which every backend takes
+    wire = (moved.view(torch.uint8) if moved.dtype in (torch.bfloat16,
+                                                       torch.float16)
+            else moved)
+    out = wire.new_empty((n * wire.shape[0],) + tuple(wire.shape[1:]))
+    _into(torch.distributed.all_gather_into_tensor, out, wire, group)
+    return out.view(moved.dtype).movedim(0, dim)
 
 
 def _raw_reduce_scatter(value, group, dim):
@@ -82,13 +108,17 @@ def _raw_all_to_all(value, group, split, concat):
     return torch.cat(out.unbind(0), dim=concat)
 
 
-def _raw_shift(value, group, reverse):
+def _raw_shift(value, group, reverse, route='p2p'):
     dist = torch.distributed
     n = dist.get_world_size(group)
     if n == 1:
         return value.clone()
     rank = dist.get_rank(group)
     step = -1 if reverse else 1
+    if route == 'gather':
+        # every shard to every rank; keep the one the p2p pair would bring
+        gathered = _raw_all_gather(value.unsqueeze(0), group, 0)
+        return gathered[(rank - step) % n].clone()
     send = value.contiguous()
     out = torch.empty_like(send)
     global_rank = dist.get_global_rank
@@ -148,13 +178,64 @@ class _AllToAll(torch.autograd.Function):
 
 class _Shift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, value, group, reverse):
-        ctx.group, ctx.reverse = group, reverse
-        return _raw_shift(value, group, reverse)
+    def forward(ctx, value, group, reverse, route):
+        ctx.group, ctx.reverse, ctx.route = group, reverse, route
+        return _raw_shift(value, group, reverse, route)
 
     @staticmethod
     def backward(ctx, grad):
-        return _raw_shift(grad, ctx.group, not ctx.reverse), None, None
+        return (_raw_shift(grad, ctx.group, not ctx.reverse, ctx.route),
+                None, None, None)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, group):
+        ctx.group = group
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum32(grad, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, group):
+        return _sum32(value, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _block(value, group, dim):
+    n = torch.distributed.get_world_size(group)
+    if value.shape[dim] % n:
+        raise ValueError(f'cannot split {value.shape[dim]} over {n} ranks')
+    return value.chunk(n, dim=dim)[torch.distributed.get_rank(group)]
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(value, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _raw_all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _raw_all_gather(value, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(grad, ctx.group, ctx.dim).contiguous(), None, None
 
 
 def all_reduce_sum(value: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
@@ -205,7 +286,8 @@ def ring_shift(value: torch.Tensor, mesh: Mesh, axis, *,
     """Send this shard to the next (or previous) rank on the ring: rank
     ``i`` sends to ``(i + 1) % n`` when forward."""
     group = _group(mesh, axis)
-    return value if group is None else _Shift.apply(value, group, reverse)
+    return value if group is None else _Shift.apply(value, group, reverse,
+                                                    mesh.route)
 
 
 def ring_shift_chunked(value: torch.Tensor, mesh: Mesh, axis, *,
@@ -221,6 +303,49 @@ def ring_shift_chunked(value: torch.Tensor, mesh: Mesh, axis, *,
                          f'{chunks} ppermute chunks')
     return torch.cat([ring_shift(piece, mesh, axis, reverse=reverse)
                       for piece in value.chunk(chunks, dim=0)], dim=0)
+
+
+def _split_group(mesh: Mesh, axis):
+    """The group of ``axis``, or ``None`` where it has one rank."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return None
+    return _group(mesh, axis)
+
+
+def copy_to(value: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """Identity forward; the gradients summed over ``axis`` backward (the
+    input of a column-parallel product, each rank's part of its gradient
+    coming from its own columns)."""
+    group = _split_group(mesh, axis)
+    return value if group is None else _CopyTo.apply(value, group)
+
+
+def reduce_from(value: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The sum over ``axis`` forward; identity backward (the partial
+    products of a row-parallel product, whose sum every rank goes on
+    with)."""
+    group = _split_group(mesh, axis)
+    return value if group is None else _ReduceFrom.apply(value, group)
+
+
+def scatter_to(value: torch.Tensor, mesh: Mesh, axis, *,
+               dimension: int) -> torch.Tensor:
+    """This rank's block of ``dimension`` of a tensor every rank holds
+    whole; backward, the blocks' gradients gathered whole."""
+    group = _split_group(mesh, axis)
+    if group is None:
+        return value
+    return _ScatterTo.apply(value, group, dimension % value.dim())
+
+
+def gather_from(value: torch.Tensor, mesh: Mesh, axis, *,
+                dimension: int) -> torch.Tensor:
+    """The ranks' blocks of ``dimension`` gathered whole; backward, this
+    rank's block of the gradient every rank holds whole."""
+    group = _split_group(mesh, axis)
+    if group is None:
+        return value
+    return _GatherFrom.apply(value, group, dimension % value.dim())
 
 
 def pp_hop(*args, **kwargs):

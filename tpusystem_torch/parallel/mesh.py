@@ -78,7 +78,9 @@ class Mesh:
     ``coordinate`` this rank's place in it (None on a rank outside the
     mesh), and :meth:`group` the process group along some axes; the groups
     the step and the checksums use are made when the mesh is. Without one,
-    the mesh is one device and every axis has size 1.
+    the mesh is one device and every axis has size 1. ``route`` is the ring
+    shift's transport over its groups, ``'p2p'`` or ``'gather'``
+    (:mod:`tpusystem_torch.parallel.collectives`).
     """
 
     def __init__(self, device: torch.device, device_mesh: Any = None,
@@ -96,6 +98,12 @@ class Mesh:
         self.coordinate = (dict(zip(AXES, (int(index) for index in where[0])))
                            if len(where) else None)
         self._groups: dict = {}
+        # the ring shift's transport (parallel/collectives.py), picked once
+        # from the backend and the device: gloo aborts on a point-to-point
+        # send of CUDA tensors
+        self.route = ('gather' if device_mesh is not None
+                      and torch.distributed.get_backend() == 'gloo'
+                      and self.device.type == 'cuda' else 'p2p')
         if device_mesh is not None:     # made now, while every rank is here
             self.group((DATA, FSDP))
             self.group(AXES[1:])
@@ -342,15 +350,12 @@ def batch_sharding(mesh: Mesh) -> Placement:
 
 def scan_carry_constraint(mesh: Mesh | None):
     """The reference's pin of a scan-over-layers carry in the TP x FSDP
-    composition (``mesh.py:260``): the identity unless the mesh has both an
-    ``fsdp`` and a ``model`` axis larger than 1, which is tensor
-    parallelism (ROADMAP queue 1: 9c. Tensor parallelism)."""
-    if mesh is None or mesh.shape.get(FSDP, 1) < 2 or \
-            mesh.shape.get(MODEL, 1) < 2:
-        return lambda hidden: hidden
-    raise NotImplementedError(
-        'the scan carry over an fsdp x model mesh is not ported to '
-        'tpusystem_torch yet (ROADMAP queue 1: 9c. Tensor parallelism)')
+    composition (``mesh.py:260``): there it keeps the partitioner from
+    resharding the ``[batch, seq, dim]`` carry between layers. A port rank
+    holds its batch rows of the carry whole over ``model`` (every
+    tensor-parallel product leaves it so), so the pin is the identity on
+    every mesh."""
+    return lambda hidden: hidden
 
 
 def stacked_batch_sharding(mesh: Mesh) -> Placement:

@@ -18,11 +18,13 @@ logic, copied:
 ``d`` over and ``Replicate()`` on the others; each rank holds its slice,
 cut from the whole leaf it was given. The port's step
 (:func:`tpusystem_torch.train.build_train_step`) runs on such a state by
-gathering the FSDP-sharded leaves before the forward. Placing a leaf split
-over a ``model``, ``seq``, ``expert`` or ``stage`` axis of size > 1 raises
-with the ROADMAP sub-item that ports it (9c–9f). On a one-device mesh
-(no process group) a placement moves the tree to the mesh's device, as
-before.
+gathering the FSDP-sharded leaves before the forward; a leaf split over
+``model`` (tensor parallelism, alone or with ``fsdp``) reaches the forward
+as this rank's piece, which the models' tensor-parallel products take as
+it is. Placing a leaf split over a ``seq``, ``expert`` or ``stage`` axis
+of size > 1 raises with the ROADMAP sub-item that ports it (9d–9f). On a
+one-device mesh (no process group) a placement moves the tree to the
+mesh's device, as before.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ __all__ = ['Rules', 'TABLE_AXES', 'PartitionSpec', 'table_row_spec',
            'constrain_expert_major', 'leaf_path', 'fsdp_shard_dim',
            'ShardingPolicy', 'DataParallel', 'FullyShardedDataParallel',
            'TensorParallel', 'local', 'local_tree', 'gather_leaf',
-           'is_placed', 'shard_axes', 'held_slices', 'is_distributed']
+           'is_placed', 'shard_axes', 'held_slices', 'is_distributed',
+           'held_axes', 'with_held', 'tp_pieces']
 
 Rules = Sequence[tuple[str, PartitionSpec]]
 
@@ -52,8 +55,8 @@ Rules = Sequence[tuple[str, PartitionSpec]]
 TABLE_AXES = (EXPERT, MODEL)
 
 # the ROADMAP sub-item that ports a placement over each non-data axis
-NOT_PORTED = {MODEL: '9c. Tensor parallelism', SEQ: '9e. Sequence '
-              'parallelism', EXPERT: '9f. Expert and table parallelism',
+NOT_PORTED = {SEQ: '9e. Sequence parallelism',
+              EXPERT: '9f. Expert and table parallelism',
               STAGE: '9d. Pipelines'}
 
 
@@ -234,16 +237,57 @@ def is_placed(state) -> bool:
     return mesh is not None and mesh.distributed
 
 
-def gather_leaf(piece: torch.Tensor, leaf, mesh: Mesh) -> torch.Tensor:
+def gather_leaf(piece: torch.Tensor, leaf, mesh: Mesh,
+                keep: Sequence[str] = ()) -> torch.Tensor:
     """The whole leaf from this rank's ``piece``: all-gathered over each
-    mesh axis that splits it (the minor axis first), differentiably (the
-    gather's backward reduce-scatters, summing over the axis). A
-    replicated leaf's piece is the whole leaf."""
-    from tpusystem_torch.parallel.collectives import all_gather
+    mesh axis that splits it (the minor axis first), differentiably. Over a
+    batch axis (``data``, ``fsdp``) the gather's backward reduce-scatters,
+    summing the ranks' gradients of their own rows; over ``model``, whose
+    ranks compute alike on the same rows, it keeps this rank's block. A
+    replicated leaf's piece is the whole leaf. Axes in ``keep`` stay split:
+    the result is then the piece over them, and carries ``held``, the
+    ``{dim: axes}`` it is still split over (:func:`held_axes`)."""
+    from tpusystem_torch.parallel.collectives import all_gather, gather_from
+    held = {}
     for dim, axes in shard_axes(leaf).items():
-        for axis in reversed(axes):
-            piece = all_gather(piece, mesh, axis, dimension=dim)
+        kept = tuple(axis for axis in axes if axis in keep)
+        if kept:
+            if kept != axes[:len(kept)]:
+                raise ValueError(f'dimension {dim} splits over {axes}: the '
+                                 f'kept axes {kept} must be its major ones')
+            held[dim] = kept
+        for axis in reversed(axes[len(kept):]):
+            gather = gather_from if axis == MODEL else all_gather
+            piece = gather(piece, mesh, axis, dimension=dim)
+    if held:
+        piece = piece.view_as(piece)   # a tensor of its own to mark
+        piece.held = held
     return piece
+
+
+@torch.no_grad()
+def tp_pieces(weights: dict, rules: Rules, mesh: Mesh) -> dict:
+    """This rank's pieces of a dict of whole tensors under
+    ``TensorParallel(rules)`` on ``mesh``, each split over ``model`` marked
+    with :func:`held_axes` (the serving engine's streamed weights)."""
+    placed = TensorParallel(rules).place(weights, mesh)
+    return {name: gather_leaf(local(leaf), leaf, mesh, keep=(MODEL,))
+            for name, leaf in placed.items()}
+
+
+def with_held(tensor: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """``tensor`` (a cast or a view of ``source``) marked with the axes
+    ``source`` is held split over."""
+    held = held_axes(source)
+    if held and tensor is not source:
+        tensor.held = held
+    return tensor
+
+
+def held_axes(tensor) -> dict:
+    """``{dim: mesh axes}`` a tensor reaching a forward is still split over
+    (set by :func:`gather_leaf`'s ``keep``); empty for a whole tensor."""
+    return getattr(tensor, 'held', None) or {}
 
 
 @register
@@ -393,6 +437,7 @@ def TensorParallel(rules: Rules, fsdp: bool = False,
                    fsdp_min_size: int = 4096) -> ShardingPolicy:
     """Megatron-style weight splitting from model-supplied rules, optionally
     combined with FSDP on the remaining dimensions. The specs are the
-    reference's; placing a leaf over a ``model`` axis of size > 1 is
-    ROADMAP 9c."""
+    reference's; each rank holds its ``Shard`` pieces over ``model`` (and
+    ``fsdp``), which the step hands to the forward over ``model`` unsplit
+    (:func:`gather_leaf`'s ``keep``)."""
     return ShardingPolicy(rules=rules, fsdp=fsdp, fsdp_min_size=fsdp_min_size)

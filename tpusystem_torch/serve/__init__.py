@@ -1,4 +1,5 @@
-"""Serving tier of the port: :mod:`tpusystem.serve` on one device.
+"""Serving tier of the port: :mod:`tpusystem.serve`, on one device or
+tensor-parallel over a ``model`` axis of ranks.
 
 Layers, bottom up:
 
@@ -25,8 +26,7 @@ Layers, bottom up:
 * :func:`certify_fleet` — seeded fleet chaos certification
   (:mod:`tpusystem_torch.serve.certify`).
 
-The names are the reference's, in its order, but for ``pool_shardings``,
-which exists only for meshes (ROADMAP queue 1, 9c. Tensor parallelism).
+The names are the reference's, in its order.
 """
 
 from tpusystem_torch.serve.certify import (CertifyReport, FleetHarness,
@@ -54,7 +54,8 @@ from tpusystem_torch.serve.fleet import (AutoscalePolicy, FleetSaturated,
                                          RoutePolicy, Router, RouterFenced,
                                          RouterLease)
 from tpusystem_torch.serve.kvcache import (TRASH_BLOCK, PagedKVCache,
-                                           adopt_prefill, write_tables)
+                                           adopt_prefill, pool_shardings,
+                                           write_tables)
 from tpusystem_torch.serve.scheduler import (Completion, QueueFull, Request,
                                              Scheduler, Tick, serve_levers)
 from tpusystem_torch.serve.service import FleetClient, InferenceService
@@ -74,4 +75,5 @@ __all__ = ['Engine', 'Admission', 'StepReport', 'Saturated',
            'FleetTick', 'ReplicaDead', 'NoHealthyReplica', 'FleetSaturated',
            'KVHandoff', 'KVStripStore', 'HandoffCorrupt', 'RoleMismatch',
            'kv_namespace', 'pack_handoff', 'unpack_handoff', 'fetch_handoff',
+           'pool_shardings',
            'CertifyReport', 'FleetHarness', 'certify_fleet']

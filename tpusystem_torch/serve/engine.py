@@ -71,9 +71,20 @@ is chosen without waiting on the device; the only per-step device-to-host
 copy is the emitted tokens (with speculative rows, the ``[groups,
 speculate + 1]`` window and the accepted counts, read together). An MoE
 GPT-2 serves through the module paged step: its experts dispatch at full
-capacity, so a row's tokens never depend on its neighbours. Not ported yet,
-raising ``NotImplementedError`` naming its ROADMAP item: tensor parallelism
-(``mesh``, ``schedule``).
+capacity, so a row's tokens never depend on its neighbours.
+
+**Tensor parallelism**: ``mesh=`` (a ``MeshSpec`` or a built mesh over the
+process group's ranks; :func:`~tpusystem_torch.parallel.schedule.
+decode_tp_plan` gates it to a ``model`` axis) places the streamed weights
+with ``TensorParallel(module.partition_rules())``, each rank keeping its
+pieces, and the paged pool holds each rank's KV heads
+(:func:`~tpusystem_torch.serve.kvcache.pool_shardings`); the block tables,
+cursors and masks stay whole on every rank. Every rank runs the same engine
+in lockstep: the host's admissions and evictions are the same calls on
+every rank, and every rank emits the same token (the row-parallel sums
+leave each rank the same logits). The fused chain has no ring arms, so
+``decode_impl='auto'`` takes the module path; speculative rows refuse a
+mesh. ``schedule=`` reaches the module's FFN as in training.
 
 **Disaggregated prefill**: :meth:`Engine.export_prefill` runs a request's
 prefill on one engine and returns its first token and host-side KV strips
@@ -95,6 +106,7 @@ from torch.profiler import record_function
 
 from tpusystem_torch.device import resolve_device
 from tpusystem_torch.ops.attention import contiguous_window
+from tpusystem_torch.parallel.sharding import held_axes, tp_pieces
 from tpusystem_torch.serve.kvcache import (PagedKVCache, _is_kv,
                                            adopt_prefill, write_tables)
 from tpusystem_torch.train.cursors import (gather_rows, is_cursor,
@@ -227,11 +239,6 @@ class _Ops:
         return self.temperature == 0 and self.mask is None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               f'(ROADMAP queue 1: {item})')
-
-
 def _adopt_draft_rows(dcache: dict, prefill_cache: dict, rows, length: int):
     """Seat one draft prefill strip in ``rows`` of the contiguous per-row
     draft cache (every branch row of a group gets the same prompt KV):
@@ -314,10 +321,13 @@ class Engine:
         if reason is not None:
             raise ValueError(f'the serving engine cannot run this module: '
                              f'{reason}')
-        if mesh is not None or schedule is not None:
-            raise _not_ported('tensor-parallel serving (mesh, schedule)',
-                              'tensor parallelism')
         self._spec = draft_module is not None
+        self.mesh, self.tp_plan = self._resolve_mesh(mesh)
+        if self._spec and self.tp_plan.path == 'gspmd':
+            raise ValueError(
+                'mesh= does not compose with speculative rows yet — the '
+                'draft cache has no sharding contract; serve the plain '
+                'engine under TP')
         if self._spec:
             if speculate < 1:
                 raise ValueError(f'speculate must be >= 1, got {speculate}')
@@ -345,9 +355,19 @@ class Engine:
         self._prefiller = _decoder(module)     # contiguous, shared cursor
         self._decoder = _decoder(module, per_row=True).replace(
             decode_pages=(blocks, block_size))
-        self._params = _stream_params(
-            self._decoder, param_dict(module, params, self.device),
-            stream_dtype)
+        weights = param_dict(module, params, self.device)
+        self._held = {}
+        if self.mesh is not None:
+            # both clones shard alike; each rank keeps its weight pieces
+            self._prefiller = self._prefiller.replace(mesh=self.mesh,
+                                                      schedule=schedule)
+            self._decoder = self._decoder.replace(mesh=self.mesh,
+                                                  schedule=schedule)
+            weights = tp_pieces(weights, module.partition_rules(), self.mesh)
+            self._held = {name: held_axes(piece)
+                          for name, piece in weights.items()
+                          if held_axes(piece)}
+        self._params = _stream_params(self._decoder, weights, stream_dtype)
         reason = fused_paged_reason(self._decoder)
         self.decode_impl = ('flax' if self._spec else _resolve_impl(
             decode_impl, reason, self._decoder, self.device))
@@ -397,6 +417,30 @@ class Engine:
         self.last_step_seconds = 0.0
         if self._spec:
             self._init_draft(draft_module, draft_params, stream_dtype)
+
+    @staticmethod
+    def _resolve_mesh(mesh):
+        """Build a ``MeshSpec``, pass a built mesh through, and gate by
+        :func:`~tpusystem_torch.parallel.schedule.decode_tp_plan`: the
+        ``'unsupported'`` plan (any non-``model`` axis > 1) raises here,
+        so an engine that constructs is one whose sharding works."""
+        from tpusystem_torch.parallel.schedule import decode_tp_plan
+        if mesh is not None and hasattr(mesh, 'build'):
+            mesh = mesh.build()
+        plan = decode_tp_plan(mesh)
+        if plan.path == 'unsupported':
+            raise ValueError(
+                f'the serving engine cannot shard over this mesh: '
+                f'{plan.reason}')
+        return (mesh if plan.path == 'gspmd' else None), plan
+
+    def _weights(self, decoder) -> dict:
+        """The streamed weights as ``decoder`` takes them (dequantized), each
+        piece still marked with the axes it is split over."""
+        weights = _dequant(self._params, decoder)
+        for name, held in self._held.items():
+            weights[name].held = held
+        return weights
 
     def _init_draft(self, draft_module, draft_params, stream_dtype: str):
         """The draft's state (``engine.py:531-545``): a per-row decoder, a
@@ -594,7 +638,7 @@ class Engine:
         """The float32 logits ``[vocab]`` at the prompt's last position and
         the contiguous KV strips of one padded prompt."""
         logits, cache = functional_call(
-            self._prefiller, _dequant(self._params, self._prefiller),
+            self._prefiller, self._weights(self._prefiller),
             (self._padded(prompt),), {'cache': None})
         # a copy of the row, so the [1, bucket, vocab] logits free now
         return logits[0, prompt.size - 1].clone(), cache
@@ -624,7 +668,7 @@ class Engine:
             elif is_cursor(path):
                 cache[path] = cursor
         logits, cache = functional_call(
-            self._prefiller, _dequant(self._params, self._prefiller),
+            self._prefiller, self._weights(self._prefiller),
             (suffix,), {'cache': cache, 'depth': shared})
         return logits[0, prompt.size - shared - 1].clone(), cache
 
@@ -838,7 +882,7 @@ class Engine:
         if decode_impl == 'fused':
             return self._fused(self._params, cache, self._tokens_dev, depth)
         logits, cache = functional_call(
-            self._decoder, _dequant(self._params, self._decoder),
+            self._decoder, self._weights(self._decoder),
             (self._tokens_dev[:, None],), {'cache': cache, 'depth': depth})
         return logits[:, -1], cache
 

@@ -291,6 +291,33 @@ def _is_kv(path: str) -> bool:
     return path.rsplit('/', 1)[-1] in ('key', 'value')
 
 
+def pool_shardings(cache: dict, mesh) -> dict:
+    """Per-leaf :class:`~tpusystem_torch.parallel.mesh.Placement` of a paged
+    pool under a TP mesh, the mesh-aware half of the pool contract
+    (``kvcache.py:366``).
+
+    KV leaves ``[..., slots, heads, head_dim]`` split over *heads* on the
+    ``model`` axis (each rank holds its attention heads' blocks for every
+    slot, the head split the TP matmuls use, so decode reads its KV
+    locally). Heads that do not divide the axis stay whole, the
+    divisibility discipline of
+    :meth:`~tpusystem_torch.parallel.sharding.ShardingPolicy.spec`.
+    Everything else (block tables, cursors, masks) stays whole: the host's
+    :class:`PagedKVCache` is the one block-table authority. A TP
+    :class:`~tpusystem_torch.serve.Engine`'s decoder makes each rank's KV
+    pieces of this split directly (``init_cache``)."""
+    from tpusystem_torch.parallel.mesh import MODEL, PartitionSpec, Placement
+    model = dict(mesh.shape).get(MODEL, 1)
+
+    def spec(path, leaf):
+        if _is_kv(path) and leaf.dim() >= 2 and leaf.shape[-2] % model == 0:
+            axes = [None] * leaf.dim()
+            axes[-2] = MODEL
+            return Placement(mesh, PartitionSpec(*axes))
+        return Placement(mesh, PartitionSpec())
+    return {path: spec(path, leaf) for path, leaf in cache.items()}
+
+
 def adopt_prefill(cache: dict, prefill_cache: dict, slots, row: int,
                   length: int) -> dict:
     """Admit a prefilled sequence into ``row`` of the paged cache.

@@ -61,8 +61,15 @@ def fused_paged_reason(decoder) -> str | None:
     """Why :func:`build_fused_paged_step` cannot run this decode clone, or
     ``None``. The paged step owns per-row cursors and the block-table
     write; what it needs is the GPT-2 dense step (unrolled, no experts) and
-    a paged layout."""
+    a paged layout, on one device: the TP mesh refuses (no ring arms)."""
     from tpusystem_torch.models.gpt2 import GPT2
+    mesh = getattr(decoder, 'mesh', None)
+    if mesh is not None and dict(getattr(mesh, 'shape', {})).get(
+            'model', 1) > 1:
+        return ('the fused paged step has no ring arms — its Pallas '
+                'matmuls are single-device; under a TP mesh '
+                "decode_impl='auto' serves through the sharded flax "
+                'paged step (token-exact vs single-device)')
     if not isinstance(decoder, GPT2):
         return ('the fused paged step implements the GPT2 family only '
                 f'(got {type(decoder).__name__})')

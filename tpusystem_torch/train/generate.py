@@ -66,13 +66,14 @@ def _decoder(module, per_row: bool = False):
     output, contiguous cache (the serving engine sets ``decode_pages`` on
     its own clone). Each field is set only where the module has it, as the
     reference does (``generate.py:36-46``), so one clone serves GPT-2 and
-    Llama; an MoE GPT-2's expert layers dispatch at full capacity in it and
-    its router loss is dropped. ``per_row`` switches the cache writes to
+    Llama; the mesh is dropped (the serving engine sets its own); an MoE
+    GPT-2's expert layers dispatch at full capacity in it and its router
+    loss is dropped. ``per_row`` switches the cache writes to
     per-row (the speculative paths and the serving engine)."""
     updates = {'decode': True}
     for field, value in (('attention', 'xla'), ('dropout', 0.0),
                          ('return_features', False), ('remat', False),
-                         ('per_row_decode', per_row),
+                         ('mesh', None), ('per_row_decode', per_row),
                          ('decode_pages', None)):
         if hasattr(module, field):
             updates[field] = value

@@ -21,7 +21,19 @@ forward, held until the backward ends), differentiates its share of the
 global batch's mean loss (``loss * weight / total weight``, the weights
 summed over the batch axes, so masked losses stay the global mean), sums
 the gradients over the batch axes that do not split the leaf, and updates
-its own pieces and slots. The loss it returns is the global one.
+its own pieces and slots. The loss it returns is the global one. Over a
+``model`` axis (tensor parallelism) a leaf reaches the forward as this
+rank's piece where the module's ``keeps_split`` asks (GPT-2 and Llama:
+every leaf; under ``schedule.fsdp='prefetch'`` the FFN kernels still
+FSDP-split too, gathered in the FFN), marked with the axes it is split
+over. The models' tensor-parallel products leave a replicated leaf's
+gradient whole on every ``model`` rank: the bias the scheduled FFN adds
+to its rank's sequence rows after the reduce-scatter sums its gradient
+over ``model`` in the FFN's backward (``collectives.copy_to``), and the
+LayerNorms run on whole rows, so the step sums nothing over ``model``;
+the clip's and the guard's norms count each piece once.
+Other modules get every leaf whole (over ``model``, a gather whose
+backward keeps this rank's block).
 :func:`build_1f1b_train_step` raises ``NotImplementedError`` (ROADMAP queue
 1, 9d. Pipelines).
 """
@@ -68,6 +80,9 @@ def module_apply(module: torch.nn.Module) -> ApplyFn:
             kwargs['rng'] = rng
         return torch.func.functional_call(module, params, (inputs,), kwargs)
 
+    # the mesh axes the forward takes each placed leaf split over (the
+    # tensor-parallel models' keeps_split); none for other modules
+    apply.keeps_split = getattr(module, 'keeps_split', lambda name: ())
     return apply
 
 
@@ -217,6 +232,7 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
         names = list(state.params)
         placed = [state.params[name] for name in names]
         held = [local(leaf) for leaf in placed]
+        keeps = getattr(apply_fn, 'keeps_split', lambda name: ())
         if accumulate > 1 and inputs.shape[0] % accumulate:
             raise ValueError(f'batch {inputs.shape[0]} not divisible by '
                              f'accumulate={accumulate}')
@@ -235,7 +251,7 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                 micro, weights):
             leaves = [piece.detach().requires_grad_(piece.is_floating_point())
                       for piece in held]
-            params = {name: gather_leaf(leaf, whole, mesh)
+            params = {name: gather_leaf(leaf, whole, mesh, keeps(name))
                       for name, leaf, whole in zip(names, leaves, placed)}
             outputs = apply_fn(params, micro_inputs, micro_rng, True)
             share = criterion(outputs, micro_targets) * (weight / total)
