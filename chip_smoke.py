@@ -278,9 +278,9 @@ Phases, in order; any failure exits non-zero:
     ``Sentinel`` rollback restores step 4 in place and steps 5-8 repeat
     the first run's losses bit for bit. (e) This script's
     ``resilient_worker`` under the ``Supervisor`` and its memstore server:
-    SIGKILLed after step 5's hot push (8 steps: a hot push a step costs
+    SIGKILLed after step 5's hot push (6 steps: a hot push a step costs
     ~12 s at this width), relaunched, restored through ``hot_resume``
-    (source ``'hot'``), it finishes steps 6-8; its 8 losses and its final
+    (source ``'hot'``), it finishes step 6; its 6 losses and its final
     state equal an uninterrupted in-process run's bit for bit; detect ->
     first step, the hot-state bytes, the hot restore's seconds against a
     fresh ``Checkpointer``'s disk restore and the exit codes are printed.
@@ -357,10 +357,42 @@ Phases, in order; any failure exits non-zero:
     both TP arms on those ranks, forward and gradients within 2**-5 of the
     largest value of the unsplit SwiGLU's. Prints the ring shift's route,
     the ranks' launches, step ms and peak memory;
-29. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+29. pipelines (``pipelines``): (a) over a world of one rank (NCCL), a
+    ``stage`` axis of size 1: ``GPT2Pipelined`` at GPT-2 125M widths (bf16,
+    4 microbatches, ``remat``) on ``bench_recipe``'s 16 x 1024 tokens, two
+    AdamW steps each through GPipe (``build_train_step``) and 1F1B
+    (``build_1f1b_train_step``) against the unpipelined forward's step
+    (``sequential_apply``) from the same weights, losses within 5e-5
+    relative and the parameters after the steps within an update error
+    of 0.1 (``param_errors``); (b) two processes sharing the card over
+    gloo at ``stage=2`` (``chip_smoke.py --pp-worker RANK PORT OUT
+    SEED``): classic GPipe, ``pp='overlap'`` (bit for bit the classic
+    tick), 1F1B and interleaved 1F1B (``interleave=2``), losses and each
+    rank's parameters within those limits of (a)'s unpipelined ones cut to
+    its layers, peak memory a rank of each; (c) on those ranks the MoE
+    pipeline of
+    ``benchmarks/ladder_mfu.py:99-101`` (16 layers, 4 experts every 4th
+    block, 8 microbatches) through GPipe for two steps, losses finite and
+    the aux carried. The pipelined blocks attend through the einsum path,
+    as the reference's do: no hand-written kernel runs;
+30. sequence parallelism (``sequence-parallel``): (a) over a world of one
+    rank (NCCL), a ``seq`` axis of size 1: GPT-2 125M with ``remat`` at
+    the long-context ladder's (1, 16384) with ``attention='ring'`` trains
+    two AdamW steps bit for bit the ``attention='flash'`` steps (zigzag at
+    ring 1 is the flash call), K1 24 and K2a 12 launches a step; (b) two
+    processes sharing the card over gloo at ``seq=2``
+    (``chip_smoke.py --seq-worker RANK PORT OUT SEED``), 8,192 positions
+    each: ``'ring'`` (zigzag, 5 flash blocks a layer: K1 120 and K2a 60 a
+    step with the recomputed forward) and ``'ulysses'`` (6 heads each, K1
+    24 and K2a 12), losses within 1e-4 relative and parameters within an
+    update error of 0.15 of (a)'s flash step, each rank's launches against
+    those predicted, step ms and peak memory; then one layer's attention
+    through each on bf16 [1, 16384, 12, 64] from the seed, output and
+    dq/dk/dv against one flash call over the whole sequence;
+31. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-28 prints its seconds.
+    line. Each of phases 15b and 17-30 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -4554,8 +4586,8 @@ def serve_disagg(torch, seed: int) -> dict:
 
 RESILIENT_STEPS, RESILIENT_GROUP = 12, 4
 # (e): a hot push after every step is ~1.5 GB through four BLAKE2b passes
-# (~12 s a step on an H100 80GB HBM3 host), so the drill runs 8 steps, not 12
-RESILIENT_KILL_STEPS, RESILIENT_DIE_AT = 8, 5
+# (~12 s a step on an H100 80GB HBM3 host), so the drill runs 6 steps, not 12
+RESILIENT_KILL_STEPS, RESILIENT_DIE_AT = 6, 5
 RESILIENT_BATCHES = 8           # distinct batches, cycled by step
 RESILIENT_SAVE_EVERY = 4
 RESILIENT_IDENTITY = 'resilient-gpt2'
@@ -4994,7 +5026,7 @@ def kill_and_relaunch(recipe, root: pathlib.Path) -> dict:
     """(e) The uninterrupted run in this process, then the worker under the
     ``Supervisor`` with its ``MemStoreServer``: killed after step 5's hot
     push, relaunched, restored from the supervisor's RAM (source
-    ``'hot'``), it finishes steps 6-8; its 8 losses and final state equal
+    ``'hot'``), it finishes step 6; its 6 losses and final state equal
     the uninterrupted run's bit for bit. The supervisor traces (``tracer=``)
     and gives the worker a flight recorder (``flight_path=``): the killed
     worker's ``WorkerExited.postmortem`` holds its write-ahead ring of steps
@@ -6508,6 +6540,604 @@ def tensor_parallel(torch, seed: int, device: str = 'cuda', factory=None,
     return record
 
 
+# phase 29: pipelines
+
+PIPE_RANKS = 2                  # (b), (c): processes sharing the one card
+PIPE_STEPS = 2                  # AdamW steps a run
+PIPE_SHAPE = (TRAIN_BATCH, TRAIN_SEQ)   # bench_recipe's 16 x 1024 tokens
+PIPE_MICROBATCHES = 4
+# A pipelined step against the unpipelined one: bf16 products over 4-row
+# microbatches against 16 rows take other kernels and round otherwise, and
+# the AdamW update carries that into the second step. Read on an H100 (700
+# W): losses within 5.31e-6 relative, the update error (param_errors)
+# 0.0418 at most over (a) and (b); a GPipe backward that drops one
+# microbatch's block gradients gives 0.73 (the phase on the CPU, 4 layers).
+PIPE_LOSS_RTOL = 5e-5
+PIPE_UPDATE_RTOL = 0.1
+# benchmarks/ladder_mfu.py:99-101: 16 layers, 4 experts every 4th block,
+# 8 microbatches (the composed ladder row, on a stage axis of 2)
+PIPE_MOE = dict(vocab_size=50304, layers=16, microbatches=8, moe_experts=4,
+                moe_every=4)
+
+
+def pipe_model(torch, seed: int, device: str, mesh, **overrides):
+    """GPT-2 125M pipelined (bf16, remat, features for the chunked loss),
+    weights drawn from ``seed``: the same values whatever the interleave."""
+    from tpusystem_torch.models import GPT2Pipelined
+    config = dict(microbatches=PIPE_MICROBATCHES, remat=True,
+                  return_features=True, mesh=mesh, device=device)
+    config.update(overrides)
+    module = GPT2Pipelined(**config)
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    return module
+
+
+def pipe_steps(torch, module, tokens, path: str, steps: int = PIPE_STEPS,
+               criterion=None) -> dict:
+    """``steps`` AdamW steps of the chunked loss: ``'sequential'`` (the
+    unpipelined forward, unplaced), ``'gpipe'`` (``build_train_step``) or
+    ``'1f1b'`` (``build_1f1b_train_step``) on the state placed by
+    ``PipelineParallel``; losses, step ms, peak memory, the last step's aux
+    (MoE), and this rank's pieces of the parameters before (``start``) and
+    after (``params``) the steps, on the host."""
+    from tpusystem_torch.parallel import PipelineParallel, batch_sharding
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       build_1f1b_train_step, init_state)
+
+    criterion = criterion or ChunkedNextTokenLoss(chunks=8)
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=0)
+    rows = tokens
+    if path == 'sequential':
+        step = build_train_step(
+            lambda params, inputs, rng=None, train=False:
+            module.sequential_apply(inputs), criterion, optimizer)
+    else:
+        mesh = module.mesh
+        state = PipelineParallel(interleave=module.interleave).place(state,
+                                                                     mesh)
+        rows = batch_sharding(mesh)(tokens)
+        step = (build_train_step(module_apply(module), criterion, optimizer)
+                if path == 'gpipe'
+                else build_1f1b_train_step(module, criterion, optimizer))
+    start = host_params(state)
+    cuda = tokens.device.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, seconds, aux = [], [], None
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (outputs, loss) = step(state, rows, rows)
+        losses.append(loss.item())                  # waits for the step
+        seconds.append(time.perf_counter() - started)
+        if module.moe_experts and outputs is not None:
+            aux = outputs[1].item()
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'phase 29: non-finite {path} losses {losses}')
+    return dict(losses=losses, step_ms=[1e3 * s for s in seconds],
+                median_step_ms=1e3 * sorted(seconds)[len(seconds) // 2],
+                peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None), aux=aux,
+                start=start, params=host_params(state))
+
+
+def host_params(state) -> dict:
+    """This rank's pieces of ``state``'s parameters, copied to the host."""
+    from tpusystem_torch.parallel.sharding import local
+    return {key: local(value).detach().to('cpu', copy=True)
+            for key, value in state.params.items()}
+
+
+def relative_errors(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def param_errors(torch, got: dict, want: dict, start: dict,
+                 device: str) -> dict:
+    """How far a run's parameters ``got`` after its steps lie from the
+    reference run's ``want``, both stepped from ``start`` (host tensors,
+    compared a leaf at a time on ``device`` in float32): the largest
+    absolute difference, and the norm of the difference over the norm of
+    the reference's update, over every leaf. AdamW's first steps move each
+    weight by about its learning rate whatever the gradient's size, so a
+    wrong gradient (a microbatch dropped, a cotangent lost) shows as an
+    update error of order one where the loss barely moves."""
+    shapes = {key: tuple(value.shape) for key, value in got.items()}
+    if shapes != {key: tuple(value.shape) for key, value in want.items()}:
+        fail(f'parameters {shapes} against the reference\'s '
+             f'{ {key: tuple(value.shape) for key, value in want.items()} }')
+        return dict(max_abs_err=math.inf, update_rel_err=math.inf)
+    worst = gap_squares = moved_squares = 0.0
+    for key, value in got.items():
+        value = value.to(device).float()
+        reference = want[key].to(device).float()
+        gap = value - reference
+        worst = max(worst, gap.abs().max().item())
+        gap_squares += gap.square().sum().item()
+        moved_squares += (reference - start[key].to(device).float()
+                          ).square().sum().item()
+    return dict(max_abs_err=worst,
+                update_rel_err=math.sqrt(gap_squares / moved_squares))
+
+
+def stage_cut(reference: dict, interleave: int, stages: int,
+              stage: int) -> dict:
+    """The unpipelined run's parameters as rank ``stage`` of ``stages``
+    holds them: the stacked ``h.`` leaves (chunk-major ``[v, L / v, ...]``
+    with ``interleave = v``, a reshape of the layer-major stack) cut on
+    their stage dimension, every other leaf whole."""
+    cut = {}
+    for key, value in reference.items():
+        if key.startswith('h.'):
+            if interleave > 1:
+                value = value.reshape((interleave, -1)
+                                      + tuple(value.shape[1:]))
+            value = value.chunk(stages, dim=int(interleave > 1))[stage]
+        cut[key] = value
+    return cut
+
+
+def pipe_at_one(torch, seed: int, device: str, shape: tuple,
+                **overrides) -> dict:
+    """Phase 29 (a): over a world of one rank, a ``stage`` axis of size 1:
+    GPT-2 125M pipelined through GPipe and 1F1B against the unpipelined
+    forward's step from the same weights, losses within
+    ``PIPE_LOSS_RTOL`` and parameters within ``PIPE_UPDATE_RTOL``. Returns
+    the record and the unpipelined run's final parameters (host
+    tensors)."""
+    import numpy as np
+
+    from tpusystem_torch.parallel import MeshSpec
+    mesh = MeshSpec(stage=1).build()
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, overrides.get('vocab_size', 50257)), shape),
+        device=device)
+    runs, params = {}, {}
+    for path in ('sequential', 'gpipe', '1f1b'):
+        module = pipe_model(torch, seed, device, mesh, **overrides)
+        runs[path] = pipe_steps(torch, module, tokens, path)
+        params[path] = runs[path].pop('params')
+        start = runs[path].pop('start')
+        del module
+    for path in ('gpipe', '1f1b'):
+        err = relative_errors(runs[path]['losses'],
+                              runs['sequential']['losses'])
+        runs[path]['max_rel_err'] = err
+        runs[path]['params'] = param_errors(
+            torch, params.pop(path), params['sequential'], start, device)
+        if (err > PIPE_LOSS_RTOL or runs[path]['params']['update_rel_err']
+                > PIPE_UPDATE_RTOL):
+            fail(f'phase 29 (a): {path} losses {runs[path]["losses"]} '
+                 f'against the unpipelined {runs["sequential"]["losses"]} '
+                 f'(rtol {PIPE_LOSS_RTOL}), parameters '
+                 f'{runs[path]["params"]} (update rtol {PIPE_UPDATE_RTOL})')
+    return (dict(runs=runs, shape=list(shape), rtol=PIPE_LOSS_RTOL,
+                 update_rtol=PIPE_UPDATE_RTOL), params['sequential'])
+
+
+def pipe_worker(rank: int, port: int, out: str, seed: int) -> None:
+    """One of phase 29's ranks (``--pp-worker RANK PORT OUT SEED``): joins a
+    world of ``PIPE_RANKS`` processes on the one card over gloo, builds
+    ``MeshSpec(stage=2)`` and runs (b) (classic GPipe, ``pp='overlap'``,
+    1F1B, interleaved 1F1B; each run's parameters against (a)'s
+    unpipelined ones, ``reference.pt`` beside ``OUT``, cut to this rank's
+    layers) and (c) (the MoE pipeline)."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.parallel import MeshSpec, OverlapSchedule, multihost
+    from tpusystem_torch.train import ChunkedNextTokenLoss, WithAuxLoss
+    multihost.initialize(f'127.0.0.1:{port}', PIPE_RANKS, rank,
+                         device='cuda', backend='gloo')
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = MeshSpec(stage=PIPE_RANKS).build()
+        stage = mesh.axis_index('stage')
+        reference = torch.load(pathlib.Path(out).parent / 'reference.pt')
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, 50257, PIPE_SHAPE), device='cuda')
+        runs, params = {}, {}
+        for name, path, knobs in (
+                ('gpipe', 'gpipe', {}),
+                ('overlap', 'gpipe', dict(schedule=OverlapSchedule(
+                    pp='overlap'))),
+                ('1f1b', '1f1b', {}),
+                ('interleaved_1f1b', '1f1b', dict(interleave=2))):
+            module = pipe_model(torch, seed, 'cuda', mesh, **knobs)
+            run = pipe_steps(torch, module, tokens, path)
+            params[name] = run.pop('params')
+            run['params'] = param_errors(
+                torch, params[name], stage_cut(reference, module.interleave,
+                                               PIPE_RANKS, stage),
+                run.pop('start'), 'cuda')
+            runs[name] = run
+            del module
+            torch.cuda.empty_cache()
+        bitwise = (runs['overlap']['losses'] == runs['gpipe']['losses']
+                   and all(torch.equal(params['overlap'][key], value)
+                           for key, value in params['gpipe'].items()))
+        params.clear()
+        reference.clear()
+        module = pipe_model(torch, seed, 'cuda', mesh, **PIPE_MOE)
+        moe = pipe_steps(torch, module, tokens, 'gpipe', criterion=WithAuxLoss(
+            ChunkedNextTokenLoss(chunks=8)))
+        moe.pop('params')
+        moe.pop('start')
+        pathlib.Path(out).write_text(json.dumps(dict(
+            rank=rank, route=mesh.route,
+            backend=torch.distributed.get_backend(), runs=runs,
+            overlap_bitwise=bitwise, moe=moe)))
+    finally:
+        multihost.shutdown()
+
+
+def worker_ranks(flag: str, ranks: int, seed: int, phase: str,
+                 root: pathlib.Path) -> list:
+    """``ranks`` subprocesses ``chip_smoke.py FLAG RANK PORT OUT SEED``
+    sharing the card over gloo; fails unless every one exits 0, and
+    returns what each wrote."""
+    port = free_port()
+    root.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), flag,
+         str(rank), str(port), str(root / f'rank{rank}.json'), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(ranks)]
+    try:
+        outputs = [proc.communicate(timeout=300)[0].decode()
+                   for proc in procs]
+    finally:
+        for proc in procs:          # no rank outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            fail(f'{phase}: rank {rank} exited {proc.returncode}:\n'
+                 f'{outputs[rank][-3000:]}')
+    return [json.loads((root / f'rank{rank}.json').read_text())
+            for rank in range(ranks)]
+
+
+def pipe_two_ranks(torch, seed: int, at_one: dict,
+                   root: pathlib.Path) -> dict:
+    """Phase 29 (b) and (c) over ``PIPE_RANKS`` processes sharing the card
+    at ``stage=2``: the skewed tick bit for bit the classic one, every
+    run's losses within ``PIPE_LOSS_RTOL`` of (a)'s unpipelined ones and
+    its parameters within ``PIPE_UPDATE_RTOL`` of theirs, the MoE
+    pipeline's losses finite and its aux carried."""
+    ranks = worker_ranks('--pp-worker', PIPE_RANKS, seed, 'phase 29 (b)',
+                         root)
+    want = at_one['runs']['sequential']['losses']
+    worst = worst_update = 0.0
+    for record in ranks:
+        if not record['overlap_bitwise']:
+            fail(f'phase 29 (b): rank {record["rank"]} pp=overlap is not '
+                 f'bit for bit the classic tick: {record["runs"]}')
+        for name, run in record['runs'].items():
+            worst = max(worst, relative_errors(run['losses'], want))
+            worst_update = max(worst_update, run['params']['update_rel_err'])
+        moe = record['moe']
+        if not (all(math.isfinite(value) for value in moe['losses'])
+                and moe['aux'] is not None and math.isfinite(moe['aux'])
+                and moe['aux'] > 0):
+            fail(f'phase 29 (c): rank {record["rank"]} MoE pipeline {moe}')
+    if worst > PIPE_LOSS_RTOL or worst_update > PIPE_UPDATE_RTOL:
+        fail(f'phase 29 (b): losses and parameters '
+             f'{[r["runs"] for r in ranks]} against the unpipelined {want} '
+             f'(rtol {PIPE_LOSS_RTOL}, update rtol {PIPE_UPDATE_RTOL})')
+    return dict(ranks=ranks, max_rel_err=worst, rtol=PIPE_LOSS_RTOL,
+                max_update_rel_err=worst_update, update_rtol=PIPE_UPDATE_RTOL,
+                route=ranks[0]['route'])
+
+
+def pipelines(torch, seed: int, device: str = 'cuda',
+              shape: tuple = PIPE_SHAPE, two_ranks: bool = True,
+              **overrides) -> dict:
+    """Phase 29: (a) one NCCL rank at ``stage=1``, GPipe and 1F1B against
+    the unpipelined step; (b) two gloo ranks sharing the card at
+    ``stage=2``: classic and skewed GPipe, 1F1B and interleaved 1F1B; (c)
+    the MoE pipeline on those ranks. No hand-written kernel runs: the
+    pipelined blocks attend through the einsum path, as the reference's
+    do."""
+    import tempfile
+
+    from tpusystem_torch.parallel import multihost
+
+    started = time.perf_counter()
+    multihost.initialize(f'127.0.0.1:{free_port()}', 1, 0, device=device)
+    try:
+        at_one, reference = pipe_at_one(torch, seed, device, shape,
+                                        **overrides)
+    finally:
+        multihost.shutdown()
+    record = dict(stage1=at_one)
+    if two_ranks:
+        with tempfile.TemporaryDirectory() as root:
+            torch.save(reference, pathlib.Path(root) / 'reference.pt')
+            del reference
+            record['two_ranks'] = pipe_two_ranks(torch, seed, at_one,
+                                                 pathlib.Path(root))
+    record.update(card=card_line() if device == 'cuda' else None,
+                  seconds=time.perf_counter() - started)
+    return record
+
+
+# phase 30: sequence parallelism
+
+SEQ_RANKS = 2                   # (b): processes sharing the one card
+SEQ_STEPS = 2
+SEQ_SHAPE = (1, 16384)          # benchmarks/headline_sweep.py:149-154's rung
+# The split ring's merge and the ulysses swap round otherwise than one
+# flash call over 16,384 keys in bf16. Read on an H100 (700 W): losses
+# within 1.30e-5 relative of (a)'s, the update error 0.0708 (ring) and
+# 0.0360 (ulysses); one layer at seq=2 (bf16 [1, 16384, 12, 64] from the
+# seed) against one flash call, ulysses 0 in all four, the zigzag ring out
+# and dq 9.77e-4, dk 1.56e-2 and dv 3.13e-2 (one bf16 ulp at their largest
+# values, 3.2 and 5.5)
+SEQ_LOSS_RTOL = 1e-4
+SEQ_UPDATE_RTOL = 0.15
+SEQ_LAYER_ATOL = dict(out=4e-3, dq=4e-3, dk=3.2e-2, dv=6.3e-2)
+
+
+def seq_model(torch, seed: int, device: str, length: int, **overrides):
+    """GPT-2 125M of the long-context ladder at ``max_seq = length``,
+    ``remat=True``, flash attention, weights drawn from ``seed``."""
+    from tpusystem_torch.models import gpt2_small
+    config = dict(vocab_size=50304, dropout=0.0, attention='flash',
+                  return_features=True, max_seq=length, remat=True,
+                  device=device)
+    config.update(overrides)
+    module = gpt2_small(**config)
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    return module
+
+
+def seq_predicted(variant: str, ring: int, layers: int) -> dict:
+    """K1 and K2a launches a step a rank: zigzag runs ``2 * ring + 1``
+    flash blocks a layer at ring ``ring`` (the flash call itself at ring
+    1), ulysses one; ``remat`` runs each forward twice."""
+    blocks = 1 if variant == 'ulysses' or ring == 1 else 2 * ring + 1
+    return {'flash_attention_lse': 2 * blocks * layers,
+            'flash_bwd_fused_g1': blocks * layers}
+
+
+def seq_steps(torch, module, tokens, mesh=None, steps: int = SEQ_STEPS):
+    """``steps`` AdamW steps of the chunked loss, unplaced or placed by
+    ``DataParallel`` with this rank's positions over ``seq``: losses, step
+    ms, K1/K2a/K2b launches (counts set to 0 just before), peak memory,
+    the parameters before (``start``) and after (``params``) the steps, on
+    the host."""
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.parallel import DataParallel
+    from tpusystem_torch.parallel.mesh import PartitionSpec, Placement
+    from tpusystem_torch.train import AdamW, ChunkedNextTokenLoss, init_state
+
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=0)
+    rows = tokens
+    if mesh is not None:
+        state = DataParallel().place(state, mesh)
+        rows = Placement(mesh, PartitionSpec(('data', 'fsdp'), 'seq'))(tokens)
+    step = build_train_step(module_apply(module),
+                            ChunkedNextTokenLoss(chunks=8), optimizer)
+    start = host_params(state)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused_g1,
+                flash.flash_bwd_fused)
+    for counter in counters:
+        counter.launches = 0
+    cuda = tokens.device.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, rows, rows)
+        losses.append(loss.item())                  # waits for the step
+        seconds.append(time.perf_counter() - started)
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'phase 30: non-finite losses {losses}')
+    return dict(losses=losses, step_ms=[1e3 * s for s in seconds],
+                median_step_ms=1e3 * sorted(seconds)[len(seconds) // 2],
+                launches={counter.__name__: counter.launches
+                          for counter in counters},
+                peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None),
+                start=start, params=host_params(state))
+
+
+def seq_at_one(torch, seed: int, device: str, shape: tuple,
+               **overrides) -> dict:
+    """Phase 30 (a): over a world of one rank (NCCL), a ``seq`` axis of
+    size 1: ``attention='ring'`` is bit for bit the ``'flash'`` step (zigzag
+    at ring 1 is the flash call), K1 and K2a launched as predicted. Returns
+    the record and the flash run's parameters before and after its steps
+    (host tensors)."""
+    import numpy as np
+
+    from tpusystem_torch.parallel import MeshSpec
+    mesh = MeshSpec(seq=1).build()
+    module = seq_model(torch, seed, device, shape[1], **overrides)
+    initial = {name: value.detach().clone()
+               for name, value in module.state_dict().items()}
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, module.vocab_size), shape), device=device)
+    runs = {}
+    for name, knobs, placed in (('flash', {}, None),
+                                ('ring', dict(attention='ring', mesh=mesh),
+                                 mesh)):
+        module.load_state_dict(initial)
+        runs[name] = seq_steps(torch, module.replace(**knobs), tokens, placed)
+    params = [run.pop('params') for run in runs.values()]
+    start = [run.pop('start') for run in runs.values()][0]
+    equal = all(torch.equal(params[0][key], params[1][key])
+                for key in params[0])
+    if not equal or runs['flash']['losses'] != runs['ring']['losses']:
+        fail(f'phase 30 (a): the ring step at seq=1 is not bit for bit the '
+             f'flash step: {runs}')
+    predicted = seq_predicted('ring', 1, module.layers)
+    if device == 'cuda':
+        for name, run in runs.items():
+            want = dict({key: count * SEQ_STEPS
+                         for key, count in predicted.items()},
+                        flash_bwd_fused=0)
+            if run['launches'] != want:
+                fail(f'phase 30 (a): {name} launched {run["launches"]}, '
+                     f'predicted {want}')
+    return (dict(runs=runs, shape=list(shape), predicted_per_step=predicted,
+                 launches=runs['ring']['launches']),
+            dict(start=start, final=params[0]))
+
+
+def seq_worker(rank: int, port: int, out: str, seed: int) -> None:
+    """One of phase 30 (b)'s ranks (``--seq-worker RANK PORT OUT SEED``):
+    joins a world of ``SEQ_RANKS`` processes on the one card over gloo,
+    builds ``MeshSpec(seq=2)`` and trains ``'ring'`` (zigzag) and
+    ``'ulysses'`` on its half of the positions, each run's parameters
+    against (a)'s flash step (``reference.pt`` beside ``OUT``); then holds
+    one layer's attention through each against one flash call
+    (:func:`seq_layer`)."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.ops.cuda._build import LIBRARIES
+    from tpusystem_torch.parallel import MeshSpec, multihost
+    LIBRARIES.build()
+    multihost.initialize(f'127.0.0.1:{port}', SEQ_RANKS, rank,
+                         device='cuda', backend='gloo')
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = MeshSpec(seq=SEQ_RANKS).build()
+        reference = torch.load(pathlib.Path(out).parent / 'reference.pt')
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, 50257, SEQ_SHAPE), device='cuda')
+        runs = {}
+        for variant in ('ring', 'ulysses'):
+            module = seq_model(torch, seed, 'cuda', SEQ_SHAPE[1],
+                               attention=variant, mesh=mesh)
+            run = seq_steps(torch, module, tokens, mesh)
+            run['params'] = param_errors(torch, run.pop('params'),
+                                         reference['final'],
+                                         run.pop('start'), 'cuda')
+            run['predicted_per_step'] = seq_predicted(variant, SEQ_RANKS,
+                                                      module.layers)
+            runs[variant] = run
+            del module
+            torch.cuda.empty_cache()
+        reference.clear()
+        layer = seq_layer(torch, mesh, seed, SEQ_SHAPE[1], heads=12,
+                          head_dim=64)
+        pathlib.Path(out).write_text(json.dumps(dict(
+            rank=rank, route=mesh.route,
+            backend=torch.distributed.get_backend(), runs=runs,
+            layer=layer)))
+    finally:
+        multihost.shutdown()
+
+
+def seq_layer(torch, mesh, seed: int, length: int, heads: int,
+              head_dim: int) -> dict:
+    """One layer's causal attention over ``length`` positions split over
+    ``seq``: ring (zigzag) and ulysses on this rank's chunk of bf16 q, k, v
+    and output cotangent drawn from ``seed`` (the same on every rank),
+    output and dq/dk/dv against one ``flash_attention`` call over the
+    whole sequence on this device, cut to the chunk; the largest absolute
+    error of each, and the largest absolute value it is of."""
+    from tpusystem_torch.ops.cuda.flash import flash_attention
+    from tpusystem_torch.ops.ring import ring_self_attention
+    generator = torch.Generator(mesh.device).manual_seed(seed)
+    shape = (1, length, heads, head_dim)
+    q, k, v, cotangent = (
+        torch.randn(shape, generator=generator, device=mesh.device,
+                    dtype=torch.bfloat16) for _ in range(4))
+    whole = [tensor.clone().requires_grad_() for tensor in (q, k, v)]
+    out = flash_attention(*whole, causal=True)
+    want = (out, *torch.autograd.grad(out, whole, cotangent))
+    chunk = length // mesh.axis_size('seq')
+    rows = slice(mesh.axis_index('seq') * chunk,
+                 (mesh.axis_index('seq') + 1) * chunk)
+    record = {}
+    for variant in ('ring', 'ulysses'):
+        parts = [tensor[:, rows].clone().requires_grad_()
+                 for tensor in (q, k, v)]
+        out = ring_self_attention(*parts, mesh, causal=True, variant=variant)
+        got = (out, *torch.autograd.grad(out, parts, cotangent[:, rows]))
+        record[variant] = {
+            name: dict(max_abs_err=(value.float() - reference[:, rows].float()
+                                    ).abs().max().item(),
+                       max_abs=reference[:, rows].float().abs().max().item())
+            for name, value, reference in zip(('out', 'dq', 'dk', 'dv'), got,
+                                              want)}
+    return record
+
+
+def seq_two_ranks(torch, seed: int, at_one: dict,
+                  root: pathlib.Path) -> dict:
+    """Phase 30 (b) over ``SEQ_RANKS`` processes sharing the card at
+    ``seq=2``: ring and ulysses losses within ``SEQ_LOSS_RTOL`` of (a)'s
+    and parameters within ``SEQ_UPDATE_RTOL`` of theirs, each rank's K1
+    and K2a launches a step as the schedule predicts, one layer's output
+    and dq/dk/dv within ``SEQ_LAYER_ATOL`` of one flash call's."""
+    ranks = worker_ranks('--seq-worker', SEQ_RANKS, seed, 'phase 30 (b)',
+                         root)
+    want = at_one['runs']['flash']['losses']
+    worst = worst_update = 0.0
+    for record in ranks:
+        for variant, errors in record['layer'].items():
+            for name, error in errors.items():
+                if error['max_abs_err'] > SEQ_LAYER_ATOL[name]:
+                    fail(f'phase 30 (b): rank {record["rank"]} {variant} '
+                         f'{name} {error} against one flash call (atol '
+                         f'{SEQ_LAYER_ATOL[name]})')
+        for variant, run in record['runs'].items():
+            worst = max(worst, relative_errors(run['losses'], want))
+            worst_update = max(worst_update, run['params']['update_rel_err'])
+            per_step = {key: count // SEQ_STEPS
+                        for key, count in run['launches'].items()}
+            if dict(run['predicted_per_step'], flash_bwd_fused=0) != per_step:
+                fail(f'phase 30 (b): rank {record["rank"]} {variant} '
+                     f'launched {per_step} a step, predicted '
+                     f'{run["predicted_per_step"]}')
+    if worst > SEQ_LOSS_RTOL or worst_update > SEQ_UPDATE_RTOL:
+        fail(f'phase 30 (b): losses and parameters '
+             f'{[r["runs"] for r in ranks]} against the flash step {want} '
+             f'(rtol {SEQ_LOSS_RTOL}, update rtol {SEQ_UPDATE_RTOL})')
+    return dict(ranks=ranks, max_rel_err=worst, rtol=SEQ_LOSS_RTOL,
+                max_update_rel_err=worst_update, update_rtol=SEQ_UPDATE_RTOL,
+                layer_atol=SEQ_LAYER_ATOL, route=ranks[0]['route'])
+
+
+def sequence_parallel(torch, seed: int, device: str = 'cuda',
+                      shape: tuple = SEQ_SHAPE, two_ranks: bool = True,
+                      **overrides) -> dict:
+    """Phase 30: (a) one NCCL rank at ``seq=1``, the ring step bit for bit
+    the flash step; (b) two gloo ranks sharing the card at ``seq=2``, ring
+    (zigzag) and ulysses."""
+    import tempfile
+
+    from tpusystem_torch.parallel import multihost
+
+    started = time.perf_counter()
+    multihost.initialize(f'127.0.0.1:{free_port()}', 1, 0, device=device)
+    try:
+        at_one, reference = seq_at_one(torch, seed, device, shape,
+                                       **overrides)
+    finally:
+        multihost.shutdown()
+    record = dict(seq1=at_one, launches=at_one['launches'])
+    if two_ranks:
+        with tempfile.TemporaryDirectory() as root:
+            torch.save(reference, pathlib.Path(root) / 'reference.pt')
+            del reference
+            record['two_ranks'] = seq_two_ranks(torch, seed, at_one,
+                                                pathlib.Path(root))
+    record.update(card=card_line() if device == 'cuda' else None,
+                  seconds=time.perf_counter() - started)
+    return record
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -6517,6 +7147,10 @@ def main() -> None:
                         help=argparse.SUPPRESS)   # phase 27 (c)'s ranks
     parser.add_argument('--tp-worker', nargs=4, default=None,
                         help=argparse.SUPPRESS)   # phase 28 (b)'s ranks
+    parser.add_argument('--pp-worker', nargs=4, default=None,
+                        help=argparse.SUPPRESS)   # phase 29 (b)'s ranks
+    parser.add_argument('--seq-worker', nargs=4, default=None,
+                        help=argparse.SUPPRESS)   # phase 30 (b)'s ranks
     args = parser.parse_args()
 
     import torch
@@ -6529,6 +7163,14 @@ def main() -> None:
     if args.tp_worker is not None:
         rank, port, out, seed = args.tp_worker
         tp_worker(int(rank), int(port), out, int(seed))
+        return
+    if args.pp_worker is not None:
+        rank, port, out, seed = args.pp_worker
+        pipe_worker(int(rank), int(port), out, int(seed))
+        return
+    if args.seq_worker is not None:
+        rank, port, out, seed = args.seq_worker
+        seq_worker(int(rank), int(port), out, int(seed))
         return
     from tpusystem_torch.ops.cuda._build import LIBRARIES
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6618,6 +7260,10 @@ def main() -> None:
     print('data-parallel ' + json.dumps(data_parallel_record))
     tensor_parallel_record = tensor_parallel(torch, args.seed)
     print('tensor-parallel ' + json.dumps(tensor_parallel_record))
+    pipeline_record = pipelines(torch, args.seed)
+    print('pipelines ' + json.dumps(pipeline_record))
+    sequence_record = sequence_parallel(torch, args.seed)
+    print('sequence-parallel ' + json.dumps(sequence_record))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -6657,10 +7303,13 @@ def main() -> None:
             + resilient['launches']['flash_attention_lse']
             + observed['launches']['flash_attention_lse']
             + data_parallel_record['launches']['flash_attention_lse']
-            + tensor_parallel_record['launches']['flash_attention_lse']),
+            + tensor_parallel_record['launches']['flash_attention_lse']
+            + sequence_record['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
-                               long['launches']['flash_bwd_fused_g1']),
+                               long['launches']['flash_bwd_fused_g1']
+                               + sequence_record['launches'][
+                                   'flash_bwd_fused_g1']),
         'flash_bwd_fused': ('flash_bwd.cu', pallas + 'flash.py:281',
                             'flash_bwd_fused[train]',
                             trained['launches']['flash_bwd_fused']
@@ -6672,7 +7321,8 @@ def main() -> None:
                             + data_parallel_record['launches'][
                                 'flash_bwd_fused']
                             + tensor_parallel_record['launches'][
-                                'flash_bwd_fused']),
+                                'flash_bwd_fused']
+                            + sequence_record['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -6846,6 +7496,8 @@ def main() -> None:
              'train_resilient': resilient, 'observe_lm': observed,
              'resnet': resnet, 'data_parallel': data_parallel_record,
              'tensor_parallel': tensor_parallel_record,
+             'pipelines': pipeline_record,
+             'sequence_parallel': sequence_record,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

@@ -715,7 +715,8 @@ def test_phase_24_drives_the_resilient_trainer_on_the_cpu(one_torch_thread):
     assert kill['exit_code'] == 0 and kill['exit_codes'] == [-9, 0]
     assert kill['resume'][0]['source'] == 'hot'
     assert kill['resume'][0]['resumed'] == 5
-    assert kill['disk_restore'][0]['disk_step'] == 8
+    # the last save every RESILIENT_SAVE_EVERY steps of the drill's six
+    assert kill['disk_restore'][0]['disk_step'] == 4
     assert kill['losses_equal'] and kill['digest_equal']
     assert kill['hot_bytes'] > 0 and kill['detect_to_first_step_s'] > 0
     # phase 25 (d): the killed worker's flight recorder and the traced
@@ -939,7 +940,7 @@ def test_phase_27_prints_after_the_resnet_phase():
         "print('data-parallel '") < source.index(
         "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
     assert source.count("data_parallel_record['launches']") == 2
-    assert '29. print the ``kernels`` line' in _chip_smoke().__doc__
+    assert '31. print the ``kernels`` line' in _chip_smoke().__doc__
 
 
 def _tiny_flash_gpt2():
@@ -1033,6 +1034,140 @@ def test_phase_28_drives_a_model_axis_of_one_rank_on_the_cpu(
     assert set(swiglu['arms']) == {'gspmd', 'overlap'}
     assert set(swiglu['arms']['overlap']['errors']) == {
         'out', 'x', 'gate.kernel', 'up.kernel', 'down.kernel'}
+
+
+def test_phases_29_and_30_print_after_the_tensor_parallel_phase():
+    """Phases 29 and 30 print their lines after phase 28's, phase 30's
+    K1, K2a and K2b launches join the ``kernels`` line, and the ``kernels``
+    and ``ok`` lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('tensor-parallel '") < source.index(
+        "print('pipelines '") < source.index(
+        "print('sequence-parallel '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+    assert source.count("sequence_record['launches']") == 3
+    assert '29. pipelines' in _chip_smoke().__doc__
+    assert '30. sequence parallelism' in _chip_smoke().__doc__
+
+
+def test_phase_29_drives_the_pipelines_at_one_rank_on_the_cpu(
+        one_torch_thread):
+    """Phase 29 (a) at a tiny width over a gloo world of one rank: GPipe
+    and 1F1B within the phase's tolerance of the unpipelined step; the
+    device plane is left behind it."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.pipelines(torch, 0, device='cpu', shape=(4, 32),
+                                  two_ranks=False, vocab_size=256, layers=2,
+                                  dim=64, heads=4, max_seq=128,
+                                  dtype='float32')
+    assert failures == []
+    assert not torch.distributed.is_initialized()
+    runs = record['stage1']['runs']
+    assert set(runs) == {'sequential', 'gpipe', '1f1b'}
+    for path in ('gpipe', '1f1b'):
+        assert runs[path]['max_rel_err'] <= chip_smoke.PIPE_LOSS_RTOL
+        assert (runs[path]['params']['update_rel_err']
+                <= chip_smoke.PIPE_UPDATE_RTOL)
+        assert len(runs[path]['losses']) == chip_smoke.PIPE_STEPS
+
+
+def test_phase_30_ring_at_one_rank_is_the_flash_step_on_the_cpu(
+        one_torch_thread):
+    """Phase 30 (a) at a tiny width: the ring step over a ``seq`` axis of
+    one rank is bit for bit the flash step."""
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.sequence_parallel(torch, 0, device='cpu',
+                                          shape=(1, 64), two_ranks=False,
+                                          vocab_size=256, layers=2, dim=64,
+                                          heads=4)
+    assert failures == []
+    assert not torch.distributed.is_initialized()
+    runs = record['seq1']['runs']
+    assert runs['ring']['losses'] == runs['flash']['losses']
+    assert record['launches'] == runs['ring']['launches']
+
+
+def test_param_errors_measure_the_update_against_the_reference():
+    """The update error is the difference's norm over the reference's
+    update's, over every leaf; a mismatched tree fails."""
+    import math
+
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    start = {'a': torch.zeros(3), 'b': torch.ones(2, 2)}
+    want = {'a': torch.tensor([3.0, 0.0, 0.0]), 'b': torch.ones(2, 2) + 4.0}
+    assert chip_smoke.param_errors(torch, want, want, start, 'cpu') == dict(
+        max_abs_err=0.0, update_rel_err=0.0)
+    got = dict(want, a=torch.tensor([3.0, 0.5, 0.0]))
+    errors = chip_smoke.param_errors(torch, got, want, start, 'cpu')
+    assert errors['max_abs_err'] == 0.5
+    assert errors['update_rel_err'] == pytest.approx(0.5 / math.sqrt(73))
+    assert failures == []
+    errors = chip_smoke.param_errors(torch, {'a': got['a']}, want, start,
+                                     'cpu')
+    assert len(failures) == 1 and errors['update_rel_err'] == math.inf
+
+
+@pytest.mark.parametrize('interleave', [1, 2])
+def test_stage_cut_holds_the_layers_a_stage_holds(interleave):
+    """Layer-major stacks cut as a rank of ``stage=2`` holds them: its half
+    of the layers, or with interleave its half of each chunk's layers;
+    unstacked leaves whole."""
+    import torch
+
+    cut = _chip_smoke().stage_cut
+    reference = {'h.kernel': torch.arange(8.0)[:, None].repeat(1, 3),
+                 'wte.embedding': torch.ones(5, 3)}
+    layers = {1: [[4, 5, 6, 7]], 2: [[2, 3], [6, 7]]}[interleave]
+    piece = cut(reference, interleave, 2, 1)
+    assert piece['h.kernel'][..., 0].tolist() == (
+        layers[0] if interleave == 1 else layers)
+    assert piece['wte.embedding'] is reference['wte.embedding']
+
+
+def test_phase_30_layer_check_at_one_rank_is_the_flash_call(
+        one_torch_thread):
+    """Phase 30 (b)'s layer check over a ``seq`` axis of one rank: ring
+    (the flash call at ring 1) and ulysses against one flash call, output
+    and dq/dk/dv on the CPU's plain path."""
+    import torch
+
+    from tpusystem_torch.parallel import MeshSpec, multihost
+    chip_smoke = _chip_smoke()
+    multihost.initialize(f'127.0.0.1:{chip_smoke.free_port()}', 1, 0,
+                         device='cpu')
+    try:
+        record = chip_smoke.seq_layer(torch, MeshSpec(seq=1).build(), 0, 64,
+                                      heads=4, head_dim=16)
+    finally:
+        multihost.shutdown()
+    assert set(record) == {'ring', 'ulysses'}
+    for errors in record.values():
+        assert set(errors) == {'out', 'dq', 'dk', 'dv'}
+        for error in errors.values():
+            assert 0 < error['max_abs'] < 10
+            assert error['max_abs_err'] <= 2 ** -6 * error['max_abs']
+
+
+def test_phase_30_predicts_the_zigzag_launches():
+    predicted = _chip_smoke().seq_predicted
+    assert predicted('ring', 2, 12) == {'flash_attention_lse': 120,
+                                        'flash_bwd_fused_g1': 60}
+    assert predicted('ulysses', 2, 12) == {'flash_attention_lse': 24,
+                                           'flash_bwd_fused_g1': 12}
+    assert predicted('ring', 1, 12) == predicted('ulysses', 2, 12)
 
 
 def test_host_checksum_is_the_wrapping_word_sum():

@@ -513,10 +513,12 @@ def test_init_weights_draw_the_flax_distributions():
 def test_unported_options_name_their_roadmap_item(pairs):
     _, _, port, state = pairs['tiny']
     assert llama_tiny(device='cpu', scan_layers=True).scan_layers
-    # ring attention is 9e; mesh= and schedule= are ported (9c): a
-    # schedule that is not an OverlapSchedule is the reference's TypeError
-    with pytest.raises(NotImplementedError, match='Multi-GPU parallelism'):
-        llama_tiny(device='cpu', attention='ring')
+    # ring attention (9e), mesh= and schedule= (9c) are ported: ring
+    # attention needs a mesh, and a schedule that is not an OverlapSchedule
+    # is the reference's TypeError
+    with pytest.raises(ValueError, match='needs a mesh'):
+        llama_tiny(device='cpu', attention='ring')(
+            torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(TypeError, match='OverlapSchedule'):
         llama_tiny(device='cpu', schedule=object())
     with pytest.raises(ValueError, match='GPT2 family only'):

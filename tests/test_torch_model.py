@@ -133,12 +133,13 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """``remat``, training-time dropout, MoE decoding and ``scan_layers``
-    are ported; sequence-parallel attention still names its item, and so
-    does a scanned training forward with dropout. A training forward with
-    dropout needs the step's threefry key."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        gpt2_tiny(device='cpu', attention='ring')
+    """``remat``, training-time dropout, MoE decoding, ``scan_layers`` and
+    sequence-parallel attention (9e, which needs a mesh) are ported; a
+    scanned training forward with dropout still names its item. A training
+    forward with dropout needs the step's threefry key."""
+    with pytest.raises(ValueError, match='needs a mesh'):
+        gpt2_tiny(device='cpu', attention='ring')(
+            torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         gpt2_tiny(device='cpu', scan_layers=True, dropout=0.1)(
             torch.zeros((1, 4), dtype=torch.long), train=True, rng=(0, 1))

@@ -57,16 +57,15 @@ MULTI_PROCESS = ('parallel.multihost', 'parallel.chaos', 'parallel.elastic',
                  'models.resnet')
 
 
-# collectives and data parallelism (ROADMAP 9b) and tensor parallelism (9c;
-# scanned like every module)
+# collectives and data parallelism (ROADMAP 9b), tensor parallelism (9c),
+# the pipelines (9d) and sequence parallelism (9e; scanned like every
+# module)
 DATA_PARALLEL = ('parallel.collectives', 'parallel.mesh', 'parallel.sharding',
                  'parallel.multihost', 'runtime', 'data.loader',
                  'checkpoint.memstore', 'train.step', 'parallel.overlap',
-                 'parallel.schedule')
-# the reference's parallel names of a later sub-item (9d pipelines) and its
-# JAX-only virtual-device helper
-LATER = {'force_host_platform', 'PipelineParallel', 'compose_stacked_rules',
-         'pipeline_apply', 'pipeline_train'}
+                 'parallel.schedule', 'parallel.pipeline', 'ops.ring')
+# the reference's JAX-only virtual-device helper
+LATER = {'force_host_platform'}
 
 
 def _examples():

@@ -238,8 +238,8 @@ def test_constraints_are_the_identity_at_size_one_and_name_9f():
         jpar.sharding.table_row_spec(2))
     assert tuple(tshard.expert_major_spec(3)) == tuple(
         jpar.sharding.expert_major_spec(3))
-    with pytest.raises(NotImplementedError, match='9d'):
-        tpar.collectives.pp_hop('stage', 1, value)
+    # the pipeline hop is ported (9d): on one device it is the identity
+    assert tpar.collectives.pp_hop(value, shaped(stage=1), 'stage') is value
 
 
 # ---------------------------------------------------------------------------

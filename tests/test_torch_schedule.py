@@ -12,10 +12,10 @@ eight virtual devices, from the same numpy operands, at its own tolerances.
 
 Without twins: ``test_compile_guard_scheduled_step_never_retraces``
 (``:549``) pins that a jitted scheduled step traces once; the port's step is
-eager and has no trace to repeat. The ``pp=`` and ``moe=`` arms' model
-tests (``:667-872``: the overlapped GPipe loop, the pipelined and expert
-dispatch steps and their compile guard) need the pipelines and expert
-parallelism, ROADMAP 9d and 9f; their planners are twinned here.
+eager and has no trace to repeat. The ``pp=`` arm's model tests
+(``:667``, ``:696``, ``:799``, ``:822``, ``:872``) are twinned in
+``tests/test_torch_pipeline.py``; the ``moe=`` arm's (``:740``, ``:762``)
+need expert parallelism, ROADMAP 9f. Both planners are twinned here.
 """
 
 from __future__ import annotations

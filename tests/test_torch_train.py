@@ -362,11 +362,13 @@ def test_unported_training_options_name_their_roadmap_item():
     apply, criterion = ttrain.module_apply(module), ttrain.NextTokenLoss()
     optimizer = ttrain.SGD()
     # guard=, fault=, build_multi_step and TrainState.health are ported
-    # (tests/test_torch_sentinel.py); the pipelined step still names its item
+    # (tests/test_torch_sentinel.py), and so is the pipelined 1F1B step
+    # (tests/test_torch_pipeline.py), which refuses a model with MoE spans
     assert ttrain.build_train_step(apply, criterion, optimizer,
                                    guard=ttrain.Guard(), fault=None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ttrain.build_1f1b_train_step(None)
+    with pytest.raises(ValueError, match='MoE spans'):
+        ttrain.build_1f1b_train_step(gpt2_tiny(device='cpu', moe_experts=2),
+                                     criterion, optimizer)
     state = ttrain.init_state(module, optimizer)
     assert state.health is None
     assert ttrain.Guard().arm(state).health.lr_scale == 1.0

@@ -1138,6 +1138,332 @@ def serve_tp(inputs, out):
     out['serve_tp'] = found
 
 
+def _pipelined(params, mesh, **config):
+    """A ``GPT2Pipelined`` on the CPU in float32 with the reference's
+    weights."""
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import GPT2Pipelined
+    module = GPT2Pipelined(mesh=mesh, device='cpu', **config)
+    module.load_state_dict(params_from_jax(params), strict=True)
+    return module
+
+
+def _rows_of(tensor, mesh):
+    from tpusystem_torch.parallel import batch_sharding
+    return batch_sharding(mesh)(torch.as_tensor(np.asarray(tensor)).long())
+
+
+def pipe_forward(module, mesh, tokens, policy, grads=True):
+    """``module`` as the placed step runs it (weights placed by ``policy``,
+    each handed over as :meth:`keeps_split` asks, this rank's rows): its
+    logits and, with ``grads``, the whole gradients of the global
+    ``mean(logits^2)`` summed over the batch axes."""
+    from torch.func import functional_call
+
+    from tpusystem_torch.parallel.sharding import gather_leaf, local
+    from tpusystem_torch.train.step import sync_grads
+    weights = {name: leaf.detach().clone()
+               for name, leaf in module.named_parameters()}
+    placed = policy.place(weights, mesh)
+    names = list(placed)
+    leaves = [local(placed[name]).detach().requires_grad_()
+              for name in names]
+    given = {name: gather_leaf(leaf, placed[name], mesh,
+                               module.keeps_split(name))
+             for name, leaf in zip(names, leaves)}
+    logits = functional_call(module, given, (_rows_of(tokens, mesh),))
+    record = dict(logits=_numpy(logits))
+    if grads:
+        loss = logits.float().square().sum() / (
+            np.prod(tokens.shape) * logits.shape[-1])
+        found = torch.autograd.grad(loss, leaves)
+        synced = sync_grads(list(found), [placed[n] for n in names], mesh)
+        with torch.no_grad():
+            record['grads'] = {name: _numpy(gather_leaf(grad, placed[name],
+                                                        mesh))
+                               for name, grad in zip(names, synced)}
+    return record
+
+
+def pipe_steps(module, mesh, tokens, targets, policy, optimizer, steps=1,
+               path='gpipe', criterion=None):
+    """``steps`` train steps of ``module`` placed by ``policy``: GPipe
+    through ``build_train_step`` or 1F1B; the losses and the final
+    parameters, gathered whole."""
+    from tpusystem_torch.parallel.sharding import gather_leaf, local
+    from tpusystem_torch.train import (NextTokenLoss, build_1f1b_train_step,
+                                       build_train_step, init_state,
+                                       module_apply)
+    criterion = criterion or NextTokenLoss()
+    state = policy.place(init_state(module, optimizer, rng=0), mesh)
+    step = (build_train_step(module_apply(module), criterion, optimizer)
+            if path == 'gpipe'
+            else build_1f1b_train_step(module, criterion, optimizer))
+    rows, wanted = _rows_of(tokens, mesh), _rows_of(targets, mesh)
+    losses = []
+    for _ in range(steps):
+        state, (_, loss) = step(state, rows, wanted)
+        losses.append(float(loss))
+    with torch.no_grad():
+        params = {name: _numpy(gather_leaf(local(leaf), leaf, mesh))
+                  for name, leaf in state.params.items()}
+    return dict(losses=losses, params=params)
+
+
+def _pp_stack_case(inputs, mesh, schedule, microbatches=2):
+    """The plain tanh stack through ``pipeline_apply``: this rank's rows of
+    the outputs and the whole gradient of ``sum(out^2)`` (over the batch
+    axes)."""
+    from tpusystem_torch.parallel import batch_sharding, pipeline_apply
+    from tpusystem_torch.parallel.collectives import all_reduce_sum
+    weights = torch.from_numpy(inputs['stack_weights']).requires_grad_()
+    rows = batch_sharding(mesh)(inputs['stack_inputs'])
+    out = pipeline_apply(lambda layer, x: torch.tanh(x @ layer['w']),
+                         {'w': weights}, rows, mesh,
+                         microbatches=microbatches, schedule=schedule)
+    (grad,) = torch.autograd.grad(out.float().square().sum(), [weights])
+    grad = all_reduce_sum(grad, mesh, ('data', 'fsdp'))
+    return dict(out=_numpy(out), grad=_numpy(grad))
+
+
+def pipeline(inputs, out):
+    """The pipelines' twins (``tests/test_pipeline.py``,
+    ``tests/test_schedule.py``'s pipelined tests) on eight ranks: GPT-2
+    pipelined over data=2 x stage=4, stage=4 (ranks 0-3), data=2 (ranks
+    0-1), data=2 x stage=2 x model=2, data=2 x fsdp=2 x stage=2 and fsdp=2 x
+    model=2 x stage=2; the plain stack; the hop."""
+    from tpusystem_torch.models import GPT2Pipelined
+    from tpusystem_torch.parallel import (MeshSpec, OverlapSchedule,
+                                          PipelineParallel, ShardingPolicy)
+    from tpusystem_torch.parallel import collectives
+    from tpusystem_torch.train import SGD, AdamW, NextTokenLoss, WithAuxLoss
+    found = {}
+    dp_stage = MeshSpec(data=2, stage=4).build()
+    stage4 = MeshSpec(stage=4).build(ranks=[0, 1, 2, 3])
+    data2 = MeshSpec(data=2).build(ranks=[0, 1])
+    pp_tp = MeshSpec(data=2, stage=2, model=2).build()
+    composed = MeshSpec(data=2, fsdp=2, stage=2).build()
+    composed_tp = MeshSpec(fsdp=2, model=2, stage=2).build()
+    small = dict(vocab_size=64, layers=4, dim=32, heads=4, max_seq=32,
+                 dtype='float32', microbatches=2)
+    wide = dict(vocab_size=256, layers=4, dim=64, heads=4, max_seq=64,
+                dtype='float32', microbatches=8)
+    narrow = dict(vocab_size=128, layers=4, dim=32, heads=2, max_seq=32,
+                  dtype='float32')
+    cases = inputs['pipeline']
+    plain = PipelineParallel()
+
+    # the hop: rank i's value to i + 1 forward, the cotangent back
+    rank = dp_stage.axis_index('stage')
+    value = torch.full((2,), float(rank), requires_grad=True)
+    hopped = collectives.pp_hop(value, dp_stage, 'stage', 2)
+    (back,) = torch.autograd.grad((hopped * (rank + 1)).sum(), [value])
+    found['hop'] = dict(forward=_numpy(hopped), backward=_numpy(back))
+
+    case = cases['forward']
+    module = _pipelined(case['params'], dp_stage, **small)
+    with torch.no_grad():
+        found['forward'] = dict(
+            pipelined=_numpy(module(_rows_of(case['tokens'], dp_stage))),
+            sequential=_numpy(module.sequential_apply(
+                torch.as_tensor(case['tokens']).long())))
+    case = cases['grads']
+    found['grads'] = pipe_forward(_pipelined(case['params'], dp_stage,
+                                             **small),
+                                  dp_stage, case['tokens'], plain)
+    case = cases['train']
+    found['train'] = pipe_steps(_pipelined(case['params'], dp_stage, **small),
+                                dp_stage, case['tokens'], case['tokens'],
+                                plain, AdamW(lr=1e-2), steps=4)
+    found['stack'] = _pp_stack_case(inputs, dp_stage, None)
+    for name, mesh, config in (
+            ('1f1b', dp_stage, wide),
+            ('interleaved_1f1b', dp_stage, dict(wide, layers=8, interleave=2)),
+            ('partial_group', stage4, dict(narrow, layers=8, microbatches=6,
+                                           interleave=2)),
+            ('single_stage', data2, dict(narrow, layers=2, microbatches=2)),
+            ('pp_tp_1f1b', pp_tp, dict(wide, microbatches=4))):
+        if not mesh.member:
+            continue
+        case = cases[name]
+        policy = (PipelineParallel(
+            stacked_rules=GPT2Pipelined.block_partition_rules(),
+            interleave=config.get('interleave', 1)))
+        found[name] = {
+            path: pipe_steps(_pipelined(case['params'], mesh, **config),
+                                mesh, case['tokens'], case['tokens'],
+                                policy, SGD(lr=0.1), path=path)
+            for path in ('gpipe', '1f1b')}
+    if stage4.member:
+        case = cases['weighted']
+        config = dict(narrow, microbatches=4)
+        found['weighted'] = {
+            path: pipe_steps(_pipelined(case['params'], stage4, **config),
+                                stage4, np.abs(case['tokens']),
+                                case['tokens'], plain, SGD(lr=0.1),
+                                path=path)
+            for path in ('gpipe', '1f1b')}
+    for count in (8, 6):
+        case = cases[f'interleaved_forward{count}']
+        module = _pipelined(case['params'], dp_stage,
+                            **dict(small, layers=8, microbatches=count,
+                                   interleave=2))
+        with torch.no_grad():
+            found[f'interleaved_forward{count}'] = _numpy(
+                module(_rows_of(case['tokens'], dp_stage)))
+    case = cases['interleaved_grads']
+    found['interleaved_grads'] = pipe_forward(
+        _pipelined(case['params'], dp_stage,
+                   **dict(small, layers=8, microbatches=8, interleave=2)),
+        dp_stage, case['tokens'], PipelineParallel(interleave=2))
+    case = cases['pp_tp_forward']
+    module = _pipelined(case['params'], pp_tp, **small)
+    found['pp_tp_forward'] = pipe_forward(
+        module, pp_tp, case['tokens'],
+        ShardingPolicy(rules=module.partition_rules()), grads=False)
+    # pp='overlap': bit for bit the classic tick, and the fallback
+    found['overlap'] = {
+        chunks: _pp_stack_case(inputs, dp_stage, OverlapSchedule(
+            pp='overlap', chunks=chunks)) if chunks else _pp_stack_case(
+                inputs, dp_stage, None)
+        for chunks in (0, 1, 2, 3)}
+    # the composed pipelined MoE steps, without and with every arm
+    schedule = OverlapSchedule(tp='overlap', fsdp='prefetch', pp='overlap',
+                               moe='overlap', fsdp_min_size=64)
+    moe = dict(vocab_size=256, layers=4, dim=48, heads=4, max_seq=64,
+               dtype='float32', microbatches=2, moe_experts=2, moe_every=2,
+               moe_capacity_factor=2.0)
+    for name, mesh in (('composed', composed), ('composed_tp', composed_tp)):
+        case = cases[name]
+        policy = PipelineParallel(
+            stacked_rules=GPT2Pipelined.block_partition_rules(), fsdp=True,
+            fsdp_min_size=64)
+        found[name] = {
+            label: pipe_steps(_pipelined(case['params'], mesh,
+                                         schedule=knob, **moe),
+                              mesh, case['tokens'], case['tokens'], policy,
+                              AdamW(lr=1e-3), steps=3,
+                              criterion=WithAuxLoss(NextTokenLoss()))
+            for label, knob in (('none', None), ('schedule', schedule))}
+    out['pipeline'] = found
+
+
+def _seq_rows(tensor, mesh):
+    """This rank's rows over ``(data, fsdp)`` and positions over ``seq``."""
+    from tpusystem_torch.parallel.mesh import PartitionSpec, Placement
+    return Placement(mesh, PartitionSpec(('data', 'fsdp'), 'seq'))(
+        torch.as_tensor(np.asarray(tensor)))
+
+
+def _ring_case(mesh, q, k, v, **options):
+    """``ring_self_attention`` on this rank's chunks: its output chunk and
+    the chunks of the gradients of the global ``mean(out^2)``."""
+    from tpusystem_torch.ops.ring import ring_self_attention
+    leaves = [_seq_rows(t, mesh).float().requires_grad_() for t in (q, k, v)]
+    got = ring_self_attention(*leaves, mesh, **options)
+    loss = got.square().sum() / np.prod(q.shape)
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(out=_numpy(got), grads=[_numpy(grad) for grad in grads])
+
+
+def ring(inputs, out):
+    """Sequence parallelism's twins (``tests/test_attention.py``'s ring
+    tests) on eight ranks: ring, zigzag and ulysses over data=2 x seq=4,
+    the non-causal ring over seq=8, the flops and the variant spies, GQA,
+    the einsum inner kernel, and GPT-2 and Llama trained over data=2 x
+    seq=4 beside the dense models."""
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import gpt2_tiny, llama_tiny
+    from tpusystem_torch.ops import ring as ring_module
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.parallel.sharding import DataParallel
+    from tpusystem_torch.train import (AdamW, NextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    mesh = MeshSpec(data=2, seq=4).build()
+    seq8 = MeshSpec(seq=8).build()
+    q, k, v = inputs['qkv']
+    found = {variant: _ring_case(mesh, q, k, v, variant=variant)
+             for variant in ('ring', 'ulysses')}
+    single = inputs['single']
+    found['noncausal'] = _ring_case(seq8, single, single, single,
+                                    causal=False, variant='ring')
+    found['einsum'] = _ring_case(mesh, q, k, v, variant='ring',
+                                 inner='einsum')
+    # the stripe blocks each rank attends, and which variant ran
+    area, used = [], []
+    real_attention, real_zigzag = (ring_module._attention_lse,
+                                   ring_module.zigzag_ring_attention)
+    real_permute = ring_module._ring_permute
+
+    def counting(query, key, value, **options):
+        area.append(query.shape[1] * key.shape[1])
+        return real_attention(query, key, value, **options)
+
+    def spying(*args, **options):
+        used.append(1)
+        return real_zigzag(*args, **options)
+
+    rotated = []
+
+    def spying_permute(mesh_, axis):
+        permute = real_permute(mesh_, axis)
+
+        def wrapped(tensor):
+            rotated.append(tensor.shape[2])
+            return permute(tensor)
+        return wrapped
+
+    ring_module._attention_lse = counting
+    ring_module.zigzag_ring_attention = spying
+    ring_module._ring_permute = spying_permute
+    try:
+        with torch.no_grad():
+            for variant in ('zigzag', 'ring'):
+                area.clear()
+                ring_module.ring_self_attention(
+                    *(_seq_rows(t, mesh).float() for t in (q, k, v)), mesh,
+                    causal=True, variant=variant)
+                found[f'area_{variant}'] = sum(area)
+        found['upgraded'] = len(used)
+        gq, gk, gv = inputs['gqa']
+        for variant in ('ring', 'ulysses'):
+            rotated.clear()
+            found[f'gqa_{variant}'] = _ring_case(mesh, gq, gk, gv,
+                                                 variant=variant)
+            found[f'gqa_{variant}']['rotated'] = sorted(set(rotated))
+    finally:
+        ring_module._attention_lse = real_attention
+        ring_module.zigzag_ring_attention = real_zigzag
+        ring_module._ring_permute = real_permute
+    # GPT-2 and Llama: three AdamW steps over data=2 x seq=4 beside the
+    # dense models on the whole batch
+    tokens = torch.as_tensor(inputs['tokens']).long()
+    for family, make in (('gpt2', gpt2_tiny), ('llama', llama_tiny)):
+        for variant in ('ring', 'ulysses', 'dense'):
+            knobs = (dict(attention='xla') if variant == 'dense'
+                     else dict(attention=variant, mesh=mesh))
+            # the reference test's GPT-2 is bf16, its Llama float32
+            module = make(dtype='bfloat16' if family == 'gpt2'
+                          else 'float32', device='cpu', **knobs)
+            module.load_state_dict(params_from_jax(inputs[family]),
+                                   strict=True)
+            optimizer = AdamW(lr=1e-3)
+            state = init_state(module, optimizer, rng=0)
+            rows = tokens
+            if variant != 'dense':
+                state = DataParallel().place(state, mesh)
+                rows = _seq_rows(tokens, mesh)
+            step = build_train_step(module_apply(module), NextTokenLoss(),
+                                    optimizer)
+            losses = []
+            for _ in range(3):
+                state, (_, loss) = step(state, rows, rows)
+                losses.append(float(loss))
+            found[f'{family}_{variant}'] = losses
+    out['ring'] = found
+
+
 SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'mlp': train_mlp,
              'collectives': lambda inputs, out: collectives(out),
@@ -1148,7 +1474,8 @@ SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'double_loss': double_loss, 'overlap': overlap_rings,
              'schedule': schedule_rings, 'tp_impl': tp_impl,
              'tp_schedule': tp_schedule, 'tp_step': tp_step,
-             'tp_mlp': tp_mlp, 'serve_tp': serve_tp}
+             'tp_mlp': tp_mlp, 'serve_tp': serve_tp,
+             'pipeline': pipeline, 'ring': ring}
 
 
 def launch(root, inputs: dict, ranks: int = 4, timeout: float = 240) -> list:

@@ -13,7 +13,10 @@ qkv/kernel`` of shape ``[layers, in, out]`` is the stacked parameter
 ``hs.attn.qkv.kernel`` of the port's ``GPT2(scan_layers=True)``, an MoE or
 ``scan_unit`` span's ``hs/d_0/...`` and ``hs/moe_1/moe/w1`` are
 ``hs.d_0....`` and ``hs.moe_1.moe.w1``, and Llama's ``blocks/...`` is
-``blocks....`` (:mod:`tpusystem_torch.models.scan`). Leaves arrive as numpy arrays (or anything ``numpy.asarray``
+``blocks....`` (:mod:`tpusystem_torch.models.scan`); a pipelined model's
+``h/attn/qkv/kernel`` (``[layers, in, out]``, or chunk-major ``[v, layers
+/ v, in, out]`` under ``interleave = v``) and its MoE spans' ``h/moe_1/moe/
+w1`` are ``GPT2Pipelined``'s ``h.attn.qkv.kernel`` and ``h.moe_1.moe.w1``. Leaves arrive as numpy arrays (or anything ``numpy.asarray``
 takes), so this module needs no JAX.
 """
 

@@ -52,8 +52,11 @@ layer (:mod:`tpusystem_torch.models.scan`). With ``moe_experts`` (or
 (``hs/attn/key`` is ``[layers, batch, max_seq, heads, head_dim]``). A
 scanned training forward with dropout raises ``NotImplementedError``: the
 reference's per-layer keys come from ``nn.scan``'s ``split_rngs``, which the
-port does not derive. Ring and ulysses attention raise too (ROADMAP queue
-1, 9. Multi-GPU parallelism, 9e. Sequence parallelism).
+port does not derive. ``attention='ring'`` or ``'ulysses'`` with a
+``mesh`` is sequence parallelism (:mod:`tpusystem_torch.ops.ring`): a rank
+holds its chunk of every row's positions over the ``seq`` axis, embedded at
+their global positions, and attends over the ring (the step sums over
+``seq``: :func:`tpusystem_torch.train.build_train_step`).
 :meth:`GPT2.partition_rules` are the reference's, for the sharding
 policies of :mod:`tpusystem_torch.parallel.sharding`.
 
@@ -72,12 +75,12 @@ import re
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
-from tpusystem_torch.models.scan import (apply_unit, init_stacked,
-                                         layer_slices, restack_caches,
-                                         stack_parameters, unit_cache)
+from tpusystem_torch.models.scan import (apply_unit, checkpointed,
+                                         init_stacked, layer_slices, lookup,
+                                         restack_caches, stack_parameters,
+                                         unit_cache)
 from tpusystem_torch.ops.attention import (apply_dropout, attend,
                                           cached_attention)
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
@@ -85,7 +88,7 @@ from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.ops.threefry import as_key, make_rng
 from tpusystem_torch.parallel.collectives import (copy_to, gather_from,
                                                   reduce_from, scatter_to)
-from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL
+from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL, SEQ, STAGE
 from tpusystem_torch.parallel.overlap import DenseParams
 from tpusystem_torch.parallel.schedule import (over_fsdp_whole,
                                                resolve_schedule,
@@ -225,11 +228,15 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x):
-        x = x.float()
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        return (x - mean) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        return layer_norm(x, self.scale, self.bias)
+
+
+def layer_norm(x, scale, bias):
+    """:class:`LayerNorm`'s arithmetic on the given ``scale`` and ``bias``."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    return (x - mean) * (torch.rsqrt(var + 1e-6) * scale) + bias
 
 
 class Embed(nn.Module):
@@ -382,9 +389,14 @@ def block_tp_rules() -> tuple:
             (r'proj/kernel$', P('model', None)))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               f'(ROADMAP queue 1: {item})')
+def sequence_offset(attention: str, mesh, length: int) -> int:
+    """The first position of this rank's chunk: under the sequence-parallel
+    kernels over a ``seq`` axis of more than one rank, a rank holds
+    positions ``[index * length, (index + 1) * length)`` of its rows."""
+    if (attention not in ('ring', 'ulysses') or mesh is None
+            or mesh.shape[SEQ] == 1):
+        return 0
+    return mesh.axis_index(SEQ) * length
 
 
 def dropout_keys(rng, layers: int) -> tuple:
@@ -447,10 +459,6 @@ class GPT2(nn.Module):
         super().__init__()
         # the reference raises at init; the knob's one resolution
         resolve_schedule(schedule, tp_impl, tp_chunks)
-        if attention not in ('xla', 'flash'):  # ring / ulysses
-            raise _not_ported(f'{attention!r} attention',
-                              'multi-GPU parallelism, 9e. Sequence '
-                              'parallelism')
         device = resolve_device(device)
         self.vocab_size, self.layers, self.dim = vocab_size, layers, dim
         self.heads, self.max_seq, self.mlp_ratio = heads, max_seq, mlp_ratio
@@ -686,11 +694,14 @@ class GPT2(nn.Module):
 
     def dropout_rates(self, train: bool) -> tuple[float, float]:
         """``(rate, attention rate)`` of a forward: 0 outside training;
-        ``attn_dropout=None`` follows ``dropout``."""
+        ``attn_dropout=None`` follows ``dropout`` on the ``'xla'`` and
+        ``'flash'`` kernels and is 0 on the sequence-parallel ones."""
         if not train:
             return 0.0, 0.0
-        attn = self.dropout if self.attn_dropout is None else self.attn_dropout
-        return self.dropout, attn
+        if self.attn_dropout is not None:
+            return self.dropout, self.attn_dropout
+        follows = self.attention in ('xla', 'flash')
+        return self.dropout, self.dropout if follows else 0.0
 
     def forward(self, tokens, cache: dict | None = None, *,
                 train: bool = False, depth: int | None = None,
@@ -727,7 +738,8 @@ class GPT2(nn.Module):
             positions = offset[:, None].long() + steps[None, :]
             cache['position'] = offset + length
         else:
-            positions = steps
+            positions = steps + sequence_offset(self.attention, self.mesh,
+                                                length)
         if self.scan_layers and (rate or attn_rate):
             raise NotImplementedError(
                 'a scan_layers training forward with dropout is not ported '
@@ -760,8 +772,7 @@ class GPT2(nn.Module):
                 attention = functools.partial(attend, kernel=self.attention,
                                               dropout=attn_rate, rng=attn_key,
                                               mesh=mesh)
-            run = (functools.partial(checkpoint, block, use_reentrant=False)
-                   if remat else block)
+            run = checkpointed(block) if remat else block
             hidden = run(hidden, dtype, attention, rate, tuple(output_keys),
                          tp)
             if self.is_moe(index):
@@ -827,6 +838,238 @@ class GPT2(nn.Module):
 
 
 register(GPT2, excluded_kwargs={'device', 'mesh'})
+
+
+class GPT2Pipelined(nn.Module):
+    """GPT-2 with its block stack pipelined over the ``stage`` mesh axis
+    (``tpusystem/models/gpt2.py:536``).
+
+    The blocks are one template whose parameters are stacked at a leading
+    ``layers`` dimension under ``h`` (``h.attn.qkv.kernel`` is ``[layers,
+    dim, 3 * dim]``; with ``interleave = v > 1`` chunk-major ``[v, layers /
+    v, ...]``, a plain reshape of the layer-major stack), run through
+    :func:`~tpusystem_torch.parallel.pipeline.pipeline_apply`: each stage
+    holds ``layers / stages`` of them, and microbatches ride the stage
+    ring. The embeddings, the final layernorm and the tied head run on
+    every rank. Dropout is 0 inside the pipe and attention is the einsum
+    path (``'xla'``), as in the reference. ``forward(tokens)`` returns
+    logits (``(features, table)`` with ``return_features``), or with
+    ``moe_experts > 0`` (every ``moe_every``-th block's FFN an MoE layer on
+    its ``'gather'`` path; the stacked unit a :class:`BlockSpan` of
+    ``moe_every`` blocks) ``(outputs, aux)``, the router losses through the
+    pipeline's aux channel; only the GPipe path takes MoE spans
+    (:func:`~tpusystem_torch.train.build_1f1b_train_step` refuses them).
+
+    ``schedule=OverlapSchedule(pp='overlap', ...)`` skews the GPipe loop
+    (each stage-to-stage hop issued before the microbatch compute it could
+    run under). Its ``tp=`` and ``fsdp=`` arms stay off inside the stages,
+    where the blocks take the Megatron products over ``model`` (PP x TP)
+    and their kernels arrive gathered over ``fsdp``; its ``moe=`` arm has
+    nothing to pipeline on one expert shard. None of them changes the
+    parameter tree. ``mesh`` is required; the step hands each ``h`` leaf to
+    the forward as this rank's stage piece (:meth:`keeps_split`), and a
+    forward given whole stacks takes its slice of them."""
+
+    def __init__(self, vocab_size: int = 50257, layers: int = 12,
+                 dim: int = 768, heads: int = 12, max_seq: int = 1024,
+                 mlp_ratio: int = 4, dtype: str = 'bfloat16',
+                 microbatches: int = 4, remat: bool = True, mesh=None,
+                 return_features: bool = False, interleave: int = 1,
+                 schedule=None, moe_experts: int = 0, moe_every: int = 2,
+                 moe_k: int = 2, moe_capacity_factor: float = 1.25,
+                 device=None) -> None:
+        super().__init__()
+        if mesh is None:
+            raise ValueError('GPT2Pipelined needs a mesh with a stage axis')
+        if layers % max(interleave, 1):
+            raise ValueError(f'{layers} layers not divisible by '
+                             f'interleave={interleave}')
+        device = resolve_device(device)
+        self.vocab_size, self.layers, self.dim = vocab_size, layers, dim
+        self.heads, self.max_seq, self.mlp_ratio = heads, max_seq, mlp_ratio
+        self.dtype = dtype
+        self.microbatches, self.remat, self.mesh = microbatches, remat, mesh
+        self.return_features, self.interleave = return_features, interleave
+        self.schedule = schedule
+        self.moe_experts, self.moe_every = moe_experts, moe_every
+        self.moe_k, self.moe_capacity_factor = moe_k, moe_capacity_factor
+        compute_dtype(dtype)                               # validates
+        if moe_experts:
+            if interleave > 1:
+                raise ValueError('moe_experts with interleave > 1 is not '
+                                 'supported (the aux channel rides the '
+                                 'plain GPipe schedule)')
+            if layers % moe_every:
+                raise ValueError(f'{layers} layers not divisible by '
+                                 f'moe_every ({moe_every})')
+            moe = dict(experts=moe_experts, k=moe_k,
+                       capacity_factor=moe_capacity_factor,
+                       sparse_impl='gather', dtype=dtype,
+                       full_capacity=False)
+            template = BlockSpan(dim, heads, mlp_ratio, moe_every,
+                                 device=device, moe=moe, moe_every=moe_every)
+            self.stacked_units = layers // moe_every
+        else:
+            template = Block(dim, heads, mlp_ratio, device=device)
+            self.stacked_units = layers
+        self.stacked_key = 'h'  # the stage-split layer stack's parameters
+        self.wte = Embed(vocab_size, dim, device=device)
+        self.wpe = Embed(max_seq, dim, device=device)
+        lead = ((self.stacked_units,) if interleave <= 1
+                else (interleave, self.stacked_units // interleave))
+        for sub in template.modules():
+            for name, param in list(sub._parameters.items()):
+                sub._parameters[name] = nn.Parameter(param.detach().expand(
+                    lead + tuple(param.shape)).clone())
+        self.h = template
+        self.ln_f = LayerNorm(dim, device=device)
+        self.init_weights(torch.Generator(device).manual_seed(0))
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return compute_dtype(self.dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.embedding.device
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Redraw every weight from ``generator``, each stacked layer slice
+        as :meth:`GPT2.init_weights` draws a layer's."""
+        lead = 1 if self.interleave <= 1 else 2
+        for name, param in self.named_parameters():
+            leaf = name.rsplit('.', 1)[-1]
+            stacked = name.startswith('h.')
+            pieces = (param.reshape((-1,) + tuple(param.shape[lead:]))
+                      .unbind(0) if stacked else (param,))
+            for piece in pieces:
+                if '.moe.' in name:
+                    init_parameter(leaf, piece, generator)
+                elif leaf == 'kernel':
+                    piece.copy_(torch.randn(piece.shape, generator=generator,
+                                            device=generator.device)
+                                * piece.shape[0] ** -0.5)
+                elif leaf == 'embedding':
+                    piece.copy_(torch.randn(piece.shape, generator=generator,
+                                            device=generator.device)
+                                * EMBED_STD)
+                else:
+                    piece.fill_(1.0 if leaf == 'scale' else 0.0)
+
+    def keeps_split(self, name: str) -> tuple:
+        """The mesh axes the forward takes the placed leaf ``name`` split
+        over: a stacked leaf's ``stage`` piece (and its ``model`` block
+        under PP x TP); every other leaf whole."""
+        return (MODEL, STAGE) if name.startswith('h.') else ()
+
+    def _params(self) -> dict:
+        """Every parameter as the module holds it now (inside a
+        ``functional_call``, the caller's tensors)."""
+        return {name: lookup(self, name) for name, _ in
+                self.named_parameters()}
+
+    def _embed(self, params: dict, tokens):
+        length = tokens.shape[-1]
+        if length > self.max_seq:
+            raise ValueError(f'sequence length {length} exceeds '
+                             f'max_seq={self.max_seq}')
+        positions = torch.arange(length, device=tokens.device)
+        hidden = (params['wte.embedding'][tokens.long()]
+                  + params['wpe.embedding'][positions])
+        return hidden.to(self.compute_dtype)
+
+    def _head(self, params: dict, hidden):
+        # the unpipelined family's ln_f, applied to the given parameters
+        hidden = layer_norm(hidden, params['ln_f.scale'], params['ln_f.bias'])
+        table = params['wte.embedding'].to(self.compute_dtype)
+        if self.return_features:
+            # the criterion owns the head (ChunkedNextTokenLoss)
+            return hidden.to(self.compute_dtype), table
+        return head_logits(hidden, table, tied=True)
+
+    def _block_fn(self):
+        """``(layer_params, x) -> x`` (``(x, aux)`` for an MoE span), the
+        template applied to one layer's slices; under a ``model`` axis of
+        more than one rank the blocks take the Megatron products."""
+        from tpusystem_torch.parallel.schedule import OverlapSchedule
+        template, dtype = self.h, self.compute_dtype
+        attention = functools.partial(attend, kernel='xla')
+        tp = ((self.mesh, OverlapSchedule())
+              if self.mesh.shape[MODEL] > 1 else None)
+        if isinstance(template, BlockSpan):
+            attentions = {name: attention for name in template.names}
+            args = (dtype, attentions, 0.0, tp)
+        else:
+            args = (dtype, attention, 0.0, (None, None), tp)
+
+        def block_fn(layer_params, activations):
+            return torch.func.functional_call(template, layer_params,
+                                              (activations, *args))
+        return block_fn
+
+    def _stacked(self, params: dict) -> dict:
+        """The stacked leaves, keyed by their names in the template."""
+        return {name[2:]: leaf for name, leaf in params.items()
+                if name.startswith('h.')}
+
+    def _flat_stack(self, stacked: dict) -> dict:
+        """Layer-major view of the stacked leaves (undoes the chunk-major
+        interleave storage; the identity when interleave == 1)."""
+        if self.interleave <= 1:
+            return stacked
+        return {name: leaf.reshape((self.layers,) + tuple(leaf.shape[2:]))
+                for name, leaf in stacked.items()}
+
+    def forward(self, tokens, train: bool = False):
+        from tpusystem_torch.parallel.pipeline import pipeline_apply
+        params = self._params()
+        hidden = pipeline_apply(self._block_fn(), self._stacked(params),
+                                self._embed(params, tokens), self.mesh,
+                                microbatches=self.microbatches,
+                                remat=self.remat, interleave=self.interleave,
+                                schedule=self.schedule,
+                                has_aux=bool(self.moe_experts))
+        if self.moe_experts:
+            hidden, aux = hidden
+            return self._head(params, hidden), aux
+        return self._head(params, hidden)
+
+    def sequential_apply(self, tokens):
+        """The forward without the pipeline (the correctness harness), on
+        the module's whole stacks. With MoE spans the aux is the mean over
+        span units on the whole batch, where the pipelined one averages
+        per-microbatch means: they agree only approximately."""
+        from tpusystem_torch.parallel.pipeline import _stage_scan
+        params = self._params()
+        hidden = self._embed(params, tokens)
+        body = _stage_scan(self._block_fn(), has_aux=bool(self.moe_experts))
+        out = body(self._flat_stack(self._stacked(params)), hidden)
+        if self.moe_experts:
+            hidden, aux_sum = out
+            return self._head(params, hidden), aux_sum / self.stacked_units
+        return self._head(params, out)
+
+    @staticmethod
+    def block_partition_rules():
+        """Megatron rules for the within-stack block leaf paths
+        (``attn/qkv/kernel`` etc., no layer dimension): the unpipelined
+        family's block rules. :func:`~tpusystem_torch.parallel.pipeline.
+        PipelineParallel` ``(stacked_rules=...)`` shifts them past the
+        stage dimension(s)."""
+        return block_tp_rules()
+
+    def partition_rules(self):
+        """Stage splitting for the stacked blocks, composed with the
+        Megatron within-stage splits; embeddings and layernorm
+        replicated. With interleave the chunk-major stack splits its
+        second dimension."""
+        from tpusystem_torch.parallel.pipeline import compose_stacked_rules
+        return compose_stacked_rules(r'(^|/)h/', self.block_partition_rules(),
+                                     self.interleave)
+
+
+register(GPT2Pipelined, excluded_kwargs={'device', 'mesh'})
 
 
 def gpt2_small(**overrides) -> GPT2:

@@ -44,7 +44,10 @@ cache holds this rank's KV heads where they divide), the vocabulary-split
 ``embed`` looked up and summed, the head on the gathered ``lm_head``; and
 ``tp_impl``/``tp_chunks`` or ``schedule`` route the SwiGLU through
 :func:`~tpusystem_torch.parallel.schedule.scheduled_swiglu`, gate and up
-fused into one ring. Ring attention raises (ROADMAP queue 1, 9e).
+fused into one ring. ``attention='ring'`` or ``'ulysses'`` with a ``mesh``
+is sequence parallelism, as on :class:`~tpusystem_torch.models.gpt2.GPT2`:
+rotary at this rank's global positions, grouped KV kept grouped round the
+ring.
 """
 
 from __future__ import annotations
@@ -56,16 +59,16 @@ import re
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from tpusystem_torch.device import compute_dtype, resolve_device
 from tpusystem_torch.models.gpt2 import (Dense, Embed, _cast, column,
                                          global_shape, heads_split,
-                                         local_heads, row, vocab_lookup,
-                                         whole_rows)
-from tpusystem_torch.models.scan import (apply_unit, init_stacked,
-                                         layer_slices, restack_caches,
-                                         stack_parameters, unit_cache)
+                                         local_heads, row, sequence_offset,
+                                         vocab_lookup, whole_rows)
+from tpusystem_torch.models.scan import (apply_unit, checkpointed,
+                                         init_stacked, layer_slices,
+                                         restack_caches, stack_parameters,
+                                         unit_cache)
 from tpusystem_torch.ops.attention import attend, cached_attention
 from tpusystem_torch.ops.precision import head_logits
 from tpusystem_torch.parallel.collectives import gather_from
@@ -78,11 +81,6 @@ from tpusystem_torch.registry import register
 # the std of the unit normal truncated at +-2: flax's truncated_normal
 # divides by it so the variance stays 1 / fan_in
 TRUNCATED_STD = 0.87962566103423978
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               f'(ROADMAP queue 1: {item})')
 
 
 def rotary_embedding(positions, head_dim: int, theta: float = 500_000.0):
@@ -266,10 +264,6 @@ class Llama(nn.Module):
             raise ValueError(f'scan_unit={scan_unit} must divide layers '
                              f'({layers})')
         resolve_schedule(schedule, tp_impl, tp_chunks)    # validates
-        if attention not in ('xla', 'flash'):          # ring / ulysses
-            raise _not_ported(f'{attention!r} attention',
-                              '9. Multi-GPU parallelism, 9e. Sequence '
-                              'parallelism')
         if dim % heads or heads % kv_heads:
             raise ValueError(f'dim ({dim}) must split over heads ({heads}), '
                              f'and heads over kv_heads ({kv_heads})')
@@ -471,6 +465,10 @@ class Llama(nn.Module):
                              f'max_seq={self.max_seq}')
         tokens = tokens.long()
         steps = torch.arange(length, device=tokens.device)
+        if not self.decode:
+            # this rank's chunk of the positions under sequence parallelism
+            steps = steps + sequence_offset(self.attention, self.mesh,
+                                            length)
         if self.decode:
             cache = {} if cache is None else cache
             if depth is None:
@@ -502,8 +500,7 @@ class Llama(nn.Module):
                 positions = steps
                 attention = functools.partial(attend, kernel=self.attention,
                                               mesh=mesh)
-            run = (functools.partial(checkpoint, block, use_reentrant=False)
-                   if remat else block)
+            run = checkpointed(block) if remat else block
             hidden = run(hidden, dtype, attention, positions,
                          self.rope_theta, tp)
         features = self.final_norm(hidden)

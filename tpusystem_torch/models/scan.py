@@ -87,6 +87,26 @@ def apply_unit(template: nn.Module, names: list[str], slices: dict,
     return run(hidden, *(slices[name] for name in names))
 
 
+def checkpointed(module: nn.Module):
+    """``module(*args)`` under one non-reentrant checkpoint whose recompute
+    reads the parameters the forward read: the tensors the module holds
+    when it is called (inside a ``functional_call``, the caller's, such as
+    a placed step's pieces) are the checkpoint's explicit inputs, so the
+    backward's recompute, which runs after that call has restored the
+    module's own tensors, takes them again."""
+    names = [name for name, _ in module.named_parameters()]
+
+    def apply(count, *flat):
+        return torch.func.functional_call(
+            module, dict(zip(names, flat[:count])), flat[count:])
+
+    def run(*args):
+        values = [lookup(module, name) for name in names]
+        return checkpoint(apply, len(values), *values, *args,
+                          use_reentrant=False)
+    return run
+
+
 def unit_cache(cache: dict, prefix: str, unit: int, strips: dict) -> dict:
     """One unit's decode cache at ``prefix``: views of the stacked strips
     (written in place by the attention), empty on the prefill; recorded in

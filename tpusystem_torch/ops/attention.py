@@ -110,7 +110,14 @@ def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
     mesh of ranks, the reference's ``attention.py:64``) runs ``'flash'``
     as :func:`~tpusystem_torch.ops.cuda.flash.sharded_flash_attention`,
     this rank's heads through the kernels; ``'xla'`` computes every head,
-    as the reference's partitioned einsum does."""
+    as the reference's partitioned einsum does. ``'ring'`` and
+    ``'ulysses'`` are the sequence-parallel variants
+    (:func:`~tpusystem_torch.ops.ring.ring_self_attention`) on this rank's
+    chunk of the positions, over the ``seq`` axis of ``mesh`` (required):
+    grouped KV stays grouped on the ring (fewer bytes a shift; the flash
+    kernels share KV across each query-head group) and is broadcast for
+    ulysses, whose all-to-all splits the head axis; probability dropout is
+    not implemented there."""
     if kernel == 'xla':
         return dot_product_attention(query, key, value, causal=True,
                                      dropout=dropout, rng=rng)
@@ -124,8 +131,19 @@ def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
         seed = flash_seed(rng) if dropout else None
         return flash_attention(query, key, value, causal=True,
                                dropout=dropout, seed=seed)
-    raise ValueError(f"unknown attention kernel {kernel!r}; expected 'xla' "
-                     "or 'flash'")
+    if dropout:
+        raise ValueError('attention-probability dropout is only implemented '
+                         f"on the 'xla' and 'flash' kernels, not {kernel!r}")
+    if kernel in ('ring', 'ulysses'):
+        from tpusystem_torch.ops.ring import ring_self_attention
+        if mesh is None:
+            raise ValueError(
+                f'{kernel!r} attention needs a mesh with a seq axis '
+                '(pass mesh=... to the model)')
+        return ring_self_attention(query, key, value, mesh, causal=True,
+                                   variant=kernel)
+    raise ValueError(f'unknown attention kernel {kernel!r}; '
+                     "expected 'xla', 'flash', 'ring' or 'ulysses'")
 
 
 def _buckets(first: int, last: int) -> list[int]:

@@ -4,9 +4,11 @@ rank; one device without a group), the collectives over a mesh axis, the
 sharding policies (data parallelism and FSDP placing ``DTensor`` pieces),
 the control plane of one process or many (the TCP hub, transports and
 deputy), the chaos harness, the recovery policy, elastic membership, the
-:class:`Supervisor`, and tensor parallelism (``overlap``, ``schedule``: the
-decomposed TP rings, the FSDP prefetch and the planners). The pipelines,
-sequence and expert parallelism are ROADMAP queue 1, 9d-9f."""
+:class:`Supervisor`, tensor parallelism (``overlap``, ``schedule``: the
+decomposed TP rings, the FSDP prefetch and the planners) and the pipelines
+(``pipeline``: GPipe and 1F1B over ``stage``); sequence parallelism is
+:mod:`tpusystem_torch.ops.ring`. Expert parallelism is ROADMAP queue 1,
+9f."""
 
 from tpusystem_torch.parallel.mesh import (
     AXES, DATA, EXPERT, FSDP, MODEL, SEQ, STAGE,
@@ -44,6 +46,9 @@ from tpusystem_torch.parallel.supervisor import Supervisor
 from tpusystem_torch.parallel.sharding import (DataParallel,
                                                FullyShardedDataParallel,
                                                ShardingPolicy, TensorParallel)
+from tpusystem_torch.parallel.pipeline import (PipelineParallel,
+                                               compose_stacked_rules,
+                                               pipeline_apply, pipeline_train)
 from tpusystem_torch.parallel.overlap import (allgather_matmul,
                                               allgather_plan,
                                               matmul_reducescatter,
@@ -61,7 +66,8 @@ from tpusystem_torch.parallel.schedule import (DecodeTpPlan, FsdpPlan,
 __all__ = ['MeshSpec', 'single_device_mesh', 'batch_sharding', 'replicated',
            'scan_carry_constraint', 'stacked_batch_sharding',
            'ShardingPolicy', 'DataParallel', 'FullyShardedDataParallel',
-           'TensorParallel', 'PartitionSpec',
+           'TensorParallel', 'PipelineParallel', 'compose_stacked_rules',
+           'pipeline_apply', 'pipeline_train', 'PartitionSpec',
            'all_reduce_sum', 'all_reduce_mean', 'all_gather', 'reduce_scatter',
            'all_to_all', 'ring_shift', 'ring_shift_chunked', 'pp_hop',
            'ring_allgather', 'ring_reducescatter', 'axis_index', 'axis_size',

@@ -7,18 +7,20 @@ name (or a tuple of names) and run over that axis's process group
 (``torch.distributed``: NCCL on the card, gloo on the CPU), on the tensor
 this rank holds. Each is differentiable where the reference's is: the
 all-gather's backward is a reduce-scatter and the reverse, the all-to-all's
-backward is the swapped all-to-all, a ring shift's backward the reverse
-shift. On a one-device mesh every collective is the identity.
+backward is the swapped all-to-all, a permutation's backward the inverse
+permutation (a ring shift is the permutation ``i -> i + 1``, its backward
+the reverse shift). On a one-device mesh every collective is the
+identity.
 
 Ring-neighbour convention, fixed here once: rank ``i`` sends to
 ``(i + 1) % n`` when forward, so after ``s`` forward shifts rank ``i``
 holds the shard of rank ``(i - s) % n``.
 
-A ring shift takes the route its mesh picked when it built its groups
+A permutation takes the route its mesh picked when it built its groups
 (:attr:`~tpusystem_torch.parallel.mesh.Mesh.route`): ``'p2p'``, one
 ``isend``/``irecv`` pair a hop, over NCCL and over gloo on the CPU; and
 ``'gather'`` over gloo on CUDA tensors, where a point-to-point send aborts
-the process: every rank all-gathers the shards and keeps its predecessor's
+the process: every rank all-gathers the shards and keeps its source's
 (the same bytes as the pair at two ranks, ``n`` times them at ``n``).
 
 The Megatron conjugates run tensor parallelism over activations that every
@@ -42,8 +44,8 @@ import torch
 from tpusystem_torch.parallel.mesh import AXES, Mesh, spec_axes
 
 __all__ = ['all_reduce_sum', 'all_reduce_mean', 'all_gather',
-           'reduce_scatter', 'all_to_all', 'ring_shift', 'ring_shift_chunked',
-           'pp_hop', 'ring_allgather', 'ring_reducescatter', 'axis_index',
+           'reduce_scatter', 'all_to_all', 'ppermute', 'ring_shift',
+           'ring_shift_chunked', 'pp_hop', 'ring_allgather', 'ring_reducescatter', 'axis_index',
            'axis_size', 'replica_checksums', 'copy_to', 'reduce_from',
            'scatter_to', 'gather_from']
 
@@ -108,24 +110,27 @@ def _raw_all_to_all(value, group, split, concat):
     return torch.cat(out.unbind(0), dim=concat)
 
 
-def _raw_shift(value, group, reverse, route='p2p'):
+def _raw_permute(value, group, sources, route='p2p'):
+    """This rank's arrival when group rank ``sources[r]`` sends to rank
+    ``r``: over ``'gather'`` every rank all-gathers the shards and keeps
+    its source's (a collective: every rank takes part), over ``'p2p'`` one
+    ``isend``/``irecv`` pair (a fixed point sends nothing)."""
     dist = torch.distributed
-    n = dist.get_world_size(group)
-    if n == 1:
+    if len(sources) == 1:
         return value.clone()
     rank = dist.get_rank(group)
-    step = -1 if reverse else 1
+    source = sources[rank]
     if route == 'gather':
-        # every shard to every rank; keep the one the p2p pair would bring
         gathered = _raw_all_gather(value.unsqueeze(0), group, 0)
-        return gathered[(rank - step) % n].clone()
+        return gathered[source].clone()
+    if source == rank:
+        return value.clone()
     send = value.contiguous()
     out = torch.empty_like(send)
     global_rank = dist.get_global_rank
-    ops = [dist.P2POp(dist.isend, send, global_rank(group, (rank + step) % n),
-                      group),
-           dist.P2POp(dist.irecv, out, global_rank(group, (rank - step) % n),
-                      group)]
+    ops = [dist.P2POp(dist.isend, send,
+                      global_rank(group, sources.index(rank)), group),
+           dist.P2POp(dist.irecv, out, global_rank(group, source), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return out
@@ -176,15 +181,18 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None)
 
 
-class _Shift(torch.autograd.Function):
+class _Permute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, value, group, reverse, route):
-        ctx.group, ctx.reverse, ctx.route = group, reverse, route
-        return _raw_shift(value, group, reverse, route)
+    def forward(ctx, value, group, destinations, route):
+        ctx.group, ctx.destinations, ctx.route = group, destinations, route
+        sources = [destinations.index(rank)
+                   for rank in range(len(destinations))]
+        return _raw_permute(value, group, sources, route)
 
     @staticmethod
     def backward(ctx, grad):
-        return (_raw_shift(grad, ctx.group, not ctx.reverse, ctx.route),
+        # the inverse permutation: each gradient goes back to its source
+        return (_raw_permute(grad, ctx.group, ctx.destinations, ctx.route),
                 None, None, None)
 
 
@@ -281,13 +289,26 @@ def all_to_all(value: torch.Tensor, mesh: Mesh, axis, *,
                            concat_dimension % value.dim())
 
 
+def ppermute(value: torch.Tensor, mesh: Mesh, axis, destinations
+             ) -> torch.Tensor:
+    """A permutation of the shards over ``axis`` (``lax.ppermute``): rank
+    ``i`` sends ``value`` to rank ``destinations[i]``; backward, the
+    inverse permutation of the gradient. A pure copy, bit for bit, on
+    either :attr:`~tpusystem_torch.parallel.mesh.Mesh.route`."""
+    group = _group(mesh, axis)
+    if group is None:
+        return value
+    return _Permute.apply(value, group, tuple(destinations), mesh.route)
+
+
 def ring_shift(value: torch.Tensor, mesh: Mesh, axis, *,
                reverse: bool = False) -> torch.Tensor:
     """Send this shard to the next (or previous) rank on the ring: rank
-    ``i`` sends to ``(i + 1) % n`` when forward."""
-    group = _group(mesh, axis)
-    return value if group is None else _Shift.apply(value, group, reverse,
-                                                    mesh.route)
+    ``i`` sends to ``(i + 1) % n`` when forward (:func:`ppermute`)."""
+    ring = axis_size(mesh, axis)
+    step = -1 if reverse else 1
+    return ppermute(value, mesh, axis,
+                    [(rank + step) % ring for rank in range(ring)])
 
 
 def ring_shift_chunked(value: torch.Tensor, mesh: Mesh, axis, *,
@@ -348,11 +369,13 @@ def gather_from(value: torch.Tensor, mesh: Mesh, axis, *,
     return _GatherFrom.apply(value, group, dimension % value.dim())
 
 
-def pp_hop(*args, **kwargs):
-    """One pipeline stage-to-stage hop: ROADMAP queue 1, 9d. Pipelines."""
-    raise NotImplementedError(
-        'pp_hop (the pipeline hop) is not ported to tpusystem_torch yet '
-        '(ROADMAP queue 1: 9d. Pipelines)')
+def pp_hop(value: torch.Tensor, mesh: Mesh, axis, chunks: int = 1
+           ) -> torch.Tensor:
+    """One pipeline stage-to-stage hop: the forward chunked ring shift
+    (rank ``i`` sends to ``(i + 1) % n``, :func:`ring_shift_chunked`), whose
+    backward is the reverse chunked shift of the cotangent (rank ``i`` sends
+    to ``(i - 1) % n``)."""
+    return ring_shift_chunked(value, mesh, axis, chunks=chunks)
 
 
 def ring_allgather(value: torch.Tensor, mesh: Mesh, axis, *,

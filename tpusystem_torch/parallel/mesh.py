@@ -12,9 +12,8 @@ Without a process group a :class:`Mesh` is one device carrying the six
 axes at size 1, and a placement is "move to that device".
 
 :class:`MeshSpec` keeps the reference's arithmetic (``resolved_sizes``,
-``resized``) and its identity. A mesh whose ``model``, ``seq``,
-``expert`` or ``stage`` axis is larger than 1 builds; placing a leaf
-sharded over such an axis raises
+``resized``) and its identity. A mesh whose ``expert`` axis is larger
+than 1 builds; placing a leaf sharded over it raises
 (:mod:`tpusystem_torch.parallel.sharding`).
 
 ======== ========================================================
@@ -107,6 +106,15 @@ class Mesh:
         if device_mesh is not None:     # made now, while every rank is here
             self.group((DATA, FSDP))
             self.group(AXES[1:])
+            # the sums of a sequence-split step and of the 1F1B pipeline,
+            # over all three axes and over those of more than one rank
+            for axis in (SEQ, STAGE):
+                if self.shape[axis] > 1:
+                    self.group((DATA, FSDP, axis))
+                    live = tuple(name for name in (DATA, FSDP, axis)
+                                 if self.shape[name] > 1)
+                    if len(live) > 1:
+                        self.group(live)
 
     @property
     def size(self) -> int:

@@ -26,8 +26,9 @@ Fallbacks are planned, never implicit: the pure :func:`fsdp_plan` pins
 which path each leaf takes (``'skip'``, ``'one-shot'``, ``'ring'``), its
 dimension choice :func:`~tpusystem_torch.parallel.sharding.fsdp_shard_dim`,
 the placement policy's. :func:`pp_plan` and :func:`moe_plan` are the
-pipeline's and the expert exchange's planners, copied; wiring ``pp=`` and
-``moe=`` into a step is ROADMAP 9d and 9f. :func:`decode_tp_plan` is the
+pipeline's and the expert exchange's planners, copied: ``pp=`` drives the
+GPipe loop's skewed tick (:func:`~tpusystem_torch.parallel.pipeline.
+pipeline_apply`); wiring ``moe=`` into the expert exchange is ROADMAP 9f. :func:`decode_tp_plan` is the
 serving engine's. The knob never changes a parameter tree: the models keep
 their dense layers' paths either way.
 """
@@ -78,7 +79,8 @@ class OverlapSchedule:
             schedule owns (TP and FSDP).
         fsdp_min_size: leaves with fewer elements are expected unsharded
             (must match the placement policy's ``fsdp_min_size``).
-        pp: ``'gspmd'`` | ``'overlap'``: the pipeline's tick (ROADMAP 9d).
+        pp: ``'gspmd'`` | ``'overlap'``: the GPipe pipeline's tick
+            (:func:`~tpusystem_torch.parallel.pipeline.pipeline_apply`).
         moe: ``'gspmd'`` | ``'overlap'``: the expert exchange (ROADMAP 9f).
 
     A registered entity: its knobs capture into the experiment identity
@@ -239,7 +241,7 @@ class PpPlan(NamedTuple):
 def pp_plan(rows: int, stages: int, chunks: int = 1,
             interleave: int = 1) -> PpPlan:
     """Plan the pipeline's stage-to-stage sends — pure, so tests can pin
-    the path (the reference's, copied; the pipeline is ROADMAP 9d)."""
+    the path (the reference's, copied)."""
     if stages == 1:
         return PpPlan('skip', 1, 'axis_size == 1')
     if interleave > 1:

@@ -21,10 +21,11 @@ cut from the whole leaf it was given. The port's step
 gathering the FSDP-sharded leaves before the forward; a leaf split over
 ``model`` (tensor parallelism, alone or with ``fsdp``) reaches the forward
 as this rank's piece, which the models' tensor-parallel products take as
-it is. Placing a leaf split over a ``seq``, ``expert`` or ``stage`` axis
-of size > 1 raises with the ROADMAP sub-item that ports it (9d–9f). On a
-one-device mesh (no process group) a placement moves the tree to the
-mesh's device, as before.
+it is; a pipelined model's layer stack split over ``stage`` reaches it as
+this rank's layers (:mod:`tpusystem_torch.parallel.pipeline`). Placing a
+leaf split over an ``expert`` axis of size > 1 raises with the ROADMAP
+sub-item that ports it (9f). On a one-device mesh (no process group) a
+placement moves the tree to the mesh's device, as before.
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from tpusystem_torch.parallel.mesh import (AXES, EXPERT, FSDP, MODEL, SEQ,
-                                           STAGE, Mesh, PartitionSpec,
-                                           Placement, local_slices, spec_axes)
+from tpusystem_torch.parallel.mesh import (AXES, EXPERT, FSDP, MODEL, Mesh,
+                                           PartitionSpec, Placement,
+                                           local_slices, spec_axes)
 from tpusystem_torch.registry import register
 
 __all__ = ['Rules', 'TABLE_AXES', 'PartitionSpec', 'table_row_spec',
@@ -54,10 +55,8 @@ Rules = Sequence[tuple[str, PartitionSpec]]
 # vocab dimension over the combined (expert, model) axes.
 TABLE_AXES = (EXPERT, MODEL)
 
-# the ROADMAP sub-item that ports a placement over each non-data axis
-NOT_PORTED = {SEQ: '9e. Sequence parallelism',
-              EXPERT: '9f. Expert and table parallelism',
-              STAGE: '9d. Pipelines'}
+# the ROADMAP sub-item that ports a placement over each axis not ported yet
+NOT_PORTED = {EXPERT: '9f. Expert and table parallelism'}
 
 
 def _not_ported(what: str, axis: str) -> NotImplementedError:

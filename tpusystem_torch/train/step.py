@@ -33,9 +33,15 @@ over ``model`` in the FFN's backward (``collectives.copy_to``), and the
 LayerNorms run on whole rows, so the step sums nothing over ``model``;
 the clip's and the guard's norms count each piece once.
 Other modules get every leaf whole (over ``model``, a gather whose
-backward keeps this rank's block).
-:func:`build_1f1b_train_step` raises ``NotImplementedError`` (ROADMAP queue
-1, 9d. Pipelines).
+backward keeps this rank's block). Over a ``seq`` axis of more than one
+rank (sequence parallelism) a rank holds its positions of its rows, ``[rows,
+length / seq]``: the step gives the criterion the next chunk's first
+target beside its own (a ring shift over ``seq``; the last chunk's is
+masked, -1), so next-token targets cross the chunk boundaries and masked
+means count the global tokens, and sums the gradients, the weights and the
+loss over ``seq`` too. :func:`build_1f1b_train_step` is the 1F1B pipelined
+step of :class:`~tpusystem_torch.models.GPT2Pipelined`
+(:func:`~tpusystem_torch.parallel.pipeline.pipeline_train`).
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ import numpy as np
 import torch
 
 from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
-from tpusystem_torch.parallel.collectives import all_reduce_sum
+from tpusystem_torch.parallel.collectives import all_reduce_sum, ring_shift
+from tpusystem_torch.parallel.mesh import SEQ
 from tpusystem_torch.parallel.sharding import (gather_leaf, is_placed, local,
                                                local_tree, shard_axes)
 from tpusystem_torch.train.optim import masked_update
@@ -59,11 +66,6 @@ from tpusystem_torch.train.state import TrainState
 ApplyFn = Callable[[dict, Any, tuple | None, bool], Any]
 # criterion contract: (outputs, targets) -> scalar loss
 Criterion = Callable[[Any, Any], torch.Tensor]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               f'(ROADMAP queue 1: {item})')
 
 
 def module_apply(module: torch.nn.Module) -> ApplyFn:
@@ -94,8 +96,47 @@ def _detach(outputs):
     return outputs
 
 
-# the axes a global batch splits over, and its gradients sum over
+# the axes a global batch's rows split over
 BATCH_AXES = ('data', 'fsdp')
+
+
+def batch_axes(mesh) -> tuple:
+    """The axes the gradients, the loss and the token weights sum over:
+    :data:`BATCH_AXES`, and ``seq`` where it has more than one rank (each
+    then holds its positions of its rows)."""
+    return BATCH_AXES + ((SEQ,) if mesh.shape[SEQ] > 1 else ())
+
+
+def chunk_targets(targets, mesh):
+    """A next-token criterion's targets for this rank's chunk of positions
+    over a ``seq`` axis of more than one rank: the chunk's own and the next
+    chunk's first column (from the next ``seq`` rank; -1, masked, on the
+    last), so with :func:`chunk_outputs` ``outputs[:, :-1]`` against
+    ``targets[:, 1:]`` pairs every position of the chunk with the token
+    after it. The targets as they are on other meshes."""
+    if mesh.shape[SEQ] == 1:
+        return targets
+    following = ring_shift(targets[:, :1].contiguous(), mesh, SEQ,
+                           reverse=True)
+    if mesh.axis_index(SEQ) == mesh.shape[SEQ] - 1:
+        following = torch.full_like(following, -1)
+    return torch.cat([targets, following], dim=1)
+
+
+def chunk_outputs(outputs, mesh):
+    """The outputs with one zero position at the end of each tensor with a
+    sequence dimension (rank 3 or more: logits, features) over a ``seq``
+    axis of more than one rank, beside :func:`chunk_targets`."""
+    if mesh.shape[SEQ] == 1:
+        return outputs
+    if isinstance(outputs, torch.Tensor):
+        if outputs.dim() < 3:
+            return outputs
+        return torch.cat([outputs, outputs.new_zeros(
+            (outputs.shape[0], 1) + tuple(outputs.shape[2:]))], dim=1)
+    if isinstance(outputs, (tuple, list)):
+        return type(outputs)(chunk_outputs(item, mesh) for item in outputs)
+    return outputs
 
 
 def sync_grads(grads: list, placed: list, mesh) -> list:
@@ -106,7 +147,8 @@ def sync_grads(grads: list, placed: list, mesh) -> list:
     for index, leaf in enumerate(placed):
         split_over = {axis for axes in shard_axes(leaf).values()
                       for axis in axes}
-        axes = tuple(axis for axis in BATCH_AXES if axis not in split_over)
+        axes = tuple(axis for axis in batch_axes(mesh)
+                     if axis not in split_over)
         if axes:
             buckets.setdefault(axes, []).append(index)
     grads = list(grads)
@@ -241,10 +283,13 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                           split(rng, accumulate)))
                  if accumulate > 1 else [(inputs, targets, rng)])
         device = state.step.device
+        axes = batch_axes(mesh)
+        micro = [(inputs_, chunk_targets(targets_, mesh), rng_)
+                 for inputs_, targets_, rng_ in micro]
         weights = [weight_fn(micro_targets).float() if weight_fn
                    else torch.ones((), device=device)
                    for _, micro_targets, _ in micro]
-        total = all_reduce_sum(torch.stack(weights).sum(), mesh, BATCH_AXES)
+        total = all_reduce_sum(torch.stack(weights).sum(), mesh, axes)
         total = torch.clamp(total, min=1e-8)         # all-pad batch
         grads, loss = None, torch.zeros((), device=device)
         for (micro_inputs, micro_targets, micro_rng), weight in zip(
@@ -254,14 +299,15 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
             params = {name: gather_leaf(leaf, whole, mesh, keeps(name))
                       for name, leaf, whole in zip(names, leaves, placed)}
             outputs = apply_fn(params, micro_inputs, micro_rng, True)
-            share = criterion(outputs, micro_targets) * (weight / total)
+            share = criterion(chunk_outputs(outputs, mesh),
+                              micro_targets) * (weight / total)
             found = torch.autograd.grad(share, leaves)
             grads = (list(found) if grads is None
                      else [sum_ + grad for sum_, grad in zip(grads, found)])
             loss = loss + share.detach()
             outputs = _detach(outputs)
         grads = sync_grads(grads, placed, mesh)
-        loss = all_reduce_sum(loss, mesh, BATCH_AXES)
+        loss = all_reduce_sum(loss, mesh, axes)
         return update(state, names, held, dict(zip(names, held)),
                       local_tree(state.opt_state), dict(zip(names, grads)),
                       loss, outputs)
@@ -287,12 +333,14 @@ def build_eval_step(apply_fn: ApplyFn, criterion: Criterion, *,
         params = {name: gather_leaf(local(leaf), leaf, mesh)
                   for name, leaf in state.params.items()}
         outputs = apply_fn(params, inputs, None, False)
+        padded = chunk_outputs(outputs, mesh)
+        targets = chunk_targets(targets, mesh)
         weight = (weight_fn(targets).float() if weight_fn
                   else torch.ones((), device=state.step.device))
-        total = torch.clamp(all_reduce_sum(weight, mesh, BATCH_AXES),
-                            min=1e-8)
-        share = criterion(outputs, targets) * (weight / total)
-        return outputs, all_reduce_sum(share, mesh, BATCH_AXES)
+        axes = batch_axes(mesh)
+        total = torch.clamp(all_reduce_sum(weight, mesh, axes), min=1e-8)
+        share = criterion(padded, targets) * (weight / total)
+        return outputs, all_reduce_sum(share, mesh, axes)
 
     return step
 
@@ -401,10 +449,83 @@ def grouped_batches(loader, size: int):
         yield flush()
 
 
-def build_1f1b_train_step(*args, **kwargs):
-    """The 1F1B pipelined train step: not ported yet."""
-    raise _not_ported('build_1f1b_train_step',
-                      'multi-GPU parallelism, 9d. Pipelines')
+def build_1f1b_train_step(model, criterion: Criterion, optimizer, *,
+                          jit: bool = True):
+    """1F1B-scheduled train step for pipelined models
+    (:class:`~tpusystem_torch.models.GPT2Pipelined`).
+
+    The :func:`build_train_step` contract, ``step(state, inputs, targets)
+    -> (state, (outputs, loss))`` with ``outputs`` None (microbatch
+    outputs never exist whole under 1F1B), but the forward and backward run
+    through :func:`~tpusystem_torch.parallel.pipeline.pipeline_train`:
+    backwards interleave with forwards, so the per-stage activation stash
+    is bounded by the stage count, not the microbatch count.
+
+    The model supplies the decomposition: ``_embed`` (head), ``_block_fn``
+    (the stage body), ``_head`` composed with ``criterion`` (tail); its tied
+    embedding is in both head and tail, and both gradient contributions are
+    summed. On a placed state each leaf reaches the schedule as the model's
+    ``keeps_split`` asks (a stacked leaf as this rank's stage piece), the
+    gradients come back summed over the batch axes, and a rank updates its
+    own pieces; an unplaced state is whole on every rank, and so are its
+    gradients. MoE spans are refused (their aux rides the GPipe path)."""
+    from tpusystem_torch.parallel.pipeline import pipeline_train
+
+    if getattr(model, 'moe_experts', 0):
+        raise ValueError(
+            'build_1f1b_train_step does not support MoE spans (the router '
+            'aux channel rides the GPipe path only) — use build_train_step')
+
+    def tail_fn(replicated, activations, micro_targets):
+        return criterion(model._head(replicated, activations), micro_targets)
+
+    train = pipeline_train(model._embed, model._block_fn(), tail_fn,
+                           model.mesh, microbatches=model.microbatches,
+                           weight_fn=getattr(criterion, 'weight', None),
+                           interleave=getattr(model, 'interleave', 1))
+    prefix = getattr(model, 'stacked_key', 'h') + '.'
+    keeps = getattr(model, 'keeps_split', lambda name: ())
+
+    def step(state: TrainState, inputs, targets):
+        names = list(state.params)
+        placed = is_placed(state)
+        held = [local(state.params[name]) for name in names]
+        with torch.no_grad():
+            given = dict(zip(names, (
+                gather_leaf(piece, state.params[name], state.mesh,
+                            keeps(name)) if placed else piece
+                for name, piece in zip(names, held))))
+        replicated = {name: leaf for name, leaf in given.items()
+                      if not name.startswith(prefix)}
+        stacked = {name[len(prefix):]: leaf for name, leaf in given.items()
+                   if name.startswith(prefix)}
+        loss, (d_replicated, d_stacked) = train(replicated, stacked, inputs,
+                                                targets)
+        grads = dict(d_replicated, **{prefix + name: grad
+                                      for name, grad in d_stacked.items()})
+        if placed:
+            grads = {name: _own_piece(grads[name], state.params[name],
+                                      state.mesh, keeps(name))
+                     for name in names}
+        optimizer.step(dict(zip(names, held)), grads,
+                       local_tree(state.opt_state))
+        state.step += 1
+        return state, (None, loss)
+
+    return step
+
+
+def _own_piece(grad, leaf, mesh, keep) -> torch.Tensor:
+    """This rank's block of a gradient that holds, over the axes ``keep``
+    leaves out, the whole of a placed leaf's dimensions split over them
+    (the inverse of :func:`~tpusystem_torch.parallel.sharding.gather_leaf`'s
+    gather)."""
+    for dim, axes in shard_axes(leaf).items():
+        rest = tuple(axis for axis in axes if axis not in keep)
+        if rest:
+            size = grad.shape[dim] // mesh.axis_size(rest)
+            grad = grad.narrow(dim, mesh.axis_index(rest) * size, size)
+    return grad.contiguous()
 
 
 def init_state(module: torch.nn.Module, optimizer, *,
