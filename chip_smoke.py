@@ -389,10 +389,28 @@ Phases, in order; any failure exits non-zero:
     those predicted, step ms and peak memory; then one layer's attention
     through each on bf16 [1, 16384, 12, 64] from the seed, output and
     dq/dk/dv against one flash call over the whole sequence;
-31. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
+31. expert and table parallelism (``expert-parallel``): phase 11's MoE
+    GPT-2 (8 experts every second layer, k = 2, bf16, flash attention) on
+    2 x 1,024 tokens, two AdamW steps unplaced on this process, then two
+    processes sharing the card over gloo at ``expert=2``
+    (``chip_smoke.py --ep-worker RANK PORT OUT SEED``), each holding 4
+    experts of each layer: (a) two steps under ``exchange='quota'``,
+    ``'ragged'`` (``all_to_all_single`` with the routed rows) and
+    ``'quota'`` with ``OverlapSchedule(moe='overlap')`` at capacity factor
+    4.0, losses and parameters against the unplaced steps', the overlap
+    loss from the same weights bit for bit the one-shot one, K1 and K2b
+    12 launches a step;
+    one step of each exchange at factor 1.25 and the assignments seated
+    (ragged at least quota's); (b) the DLRM at MLPerf's widths over the
+    Criteo Kaggle tables cut at 1,048,576 rows, three SGD steps of 8,192
+    rows with the tables row-split by ``DLRM.partition_rules`` (the tables
+    of an odd row count stay whole and look up locally) against the same
+    ranks' ``DataParallel`` run: losses and parameters bit for bit, K8 26
+    and K9 52 launches a step a rank;
+32. print the ``kernels`` line (with a ``head_dim_128`` entry for K1 and
     each backward kernel, a ``serving`` entry for K6 and K7), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
-    line. Each of phases 15b and 17-30 prints its seconds.
+    line. Each of phases 15b and 17-31 prints its seconds.
 
 Imports nothing of JAX. Exits non-zero without a CUDA device or without the
 repository beside it.
@@ -7138,6 +7156,348 @@ def sequence_parallel(torch, seed: int, device: str = 'cuda',
     return record
 
 
+# phase 31: expert and table parallelism
+
+EP_RANKS = 2                    # processes sharing the one card
+EP_STEPS = 2                    # AdamW steps a run
+EP_SHAPE = (2, TRAIN_SEQ)       # 2 rows of 1,024 tokens
+EP_AMPLE = 4.0                  # the capacity factor at which nothing drops
+# name: (exchange, schedule moe= arm)
+EP_RUNS = {'quota': ('quota', None), 'ragged': ('ragged', None),
+           'overlap': ('quota', 'overlap')}
+# The expert-parallel step against the unplaced one from the same weights:
+# the expert products run on each owner's arrivals (another bf16 matmul
+# grouping than the unplaced [experts, capacity] buffer) and the router's
+# gradient is summed over the ranks. Read on an H100 (700 W), phase 31
+# alone: the first losses equal, the second within 8.09e-6 relative, the
+# update error (param_errors) 0.0438-0.0505 over the three exchanges and
+# both ranks, the largest parameter difference 1.17e-3.
+EP_LOSS_RTOL = 5e-5
+EP_UPDATE_RTOL = 0.15
+TABLE_ROWS = 1 << 20            # each Criteo Kaggle table cut to 1,048,576
+TABLE_BATCH, TABLE_STEPS = 8192, 3
+
+
+def ep_model(torch, seed: int, device: str, **overrides):
+    """Phase 11's MoE GPT-2 125M (8 experts every second layer, k = 2,
+    bf16, flash attention, features for the chunked loss) at capacity
+    factor ``EP_AMPLE``, weights drawn from ``seed``."""
+    from tpusystem_torch.models import GPT2
+    config = dict(vocab_size=50304, dropout=0.0, attention='flash',
+                  return_features=True, moe_experts=MOE_EXPERTS, moe_every=2,
+                  moe_k=MOE_K, moe_capacity_factor=EP_AMPLE, device=device)
+    config.update(overrides)
+    module = GPT2(**config)
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    return module
+
+
+def ep_steps(torch, module, tokens, steps: int = EP_STEPS) -> dict:
+    """``steps`` AdamW steps of the chunked loss with the router loss,
+    unplaced or (a module with a mesh) placed by ``GPT2.partition_rules``,
+    each rank holding its experts: losses, step ms, K1/K2b launches
+    (counts set to 0 just before), the assignments the MoE layers seated
+    in the last step (over this rank's senders or experts), peak memory,
+    the parameters before (``start``) and after (``params``), on the
+    host."""
+    from tpusystem_torch.ops.cuda import flash
+    from tpusystem_torch.parallel import ShardingPolicy
+    from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
+                                       WithAuxLoss, init_state)
+
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=0)
+    if module.mesh is not None:
+        state = ShardingPolicy(rules=module.partition_rules()).place(
+            state, module.mesh)
+    step = build_train_step(module_apply(module),
+                            WithAuxLoss(ChunkedNextTokenLoss(chunks=8)),
+                            optimizer)
+    start = host_params(state)
+    counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
+    for counter in counters:
+        counter.launches = 0
+    cuda = tokens.device.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(steps):
+        started = time.perf_counter()
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())                  # waits for the step
+        seconds.append(time.perf_counter() - started)
+    if not all(math.isfinite(value) for value in losses):
+        fail(f'phase 31: non-finite losses {losses}')
+    layers = [block.moe for block in module.blocks()
+              if block.moe is not None]
+    seated = (sum(int(layer.seated) for layer in layers)
+              if module.mesh is not None else None)
+    return dict(losses=losses, step_ms=[1e3 * s for s in seconds],
+                median_step_ms=1e3 * sorted(seconds)[len(seconds) // 2],
+                launches={counter.__name__: counter.launches
+                          for counter in counters}, seated=seated,
+                peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None),
+                start=start, params=host_params(state))
+
+
+def expert_cut(reference: dict, ranks: int, rank: int) -> dict:
+    """The unplaced run's parameters as rank ``rank`` of an ``expert`` axis
+    of ``ranks`` holds them: each expert stack's block of experts, every
+    other leaf whole."""
+    return {key: (value.chunk(ranks, dim=0)[rank]
+                  if re.search(r'\.moe\.(w1|b1|w2|b2)$', key) else value)
+            for key, value in reference.items()}
+
+
+def table_model(torch, seed: int, device: str, mesh, **overrides):
+    """The DLRM at MLPerf's widths over the cut Criteo Kaggle tables,
+    weights drawn from ``seed``; its tables row-split over ``mesh`` when
+    given."""
+    from tpusystem_torch.models import DLRM
+    config = dict(vocabs=tuple(min(vocab, TABLE_ROWS)
+                               for vocab in CRITEO_KAGGLE),
+                  dim=DLRM_DIM, dense_features=13, bottom=(512, 256),
+                  top=(1024, 1024, 512, 256))
+    config.update(overrides)
+    module = DLRM(mesh=mesh, device=device, **config)
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    return module
+
+
+def table_drill(torch, mesh, seed: int, device: str, batch: int,
+                steps: int, **overrides) -> dict:
+    """Phase 31 (b) on this rank: ``steps`` SGD steps of the DLRM with its
+    tables row-split by ``DLRM.partition_rules`` over ``mesh`` and with them
+    replicated (``DataParallel``), on the same batches: losses and every
+    parameter bit for bit, the tables the rule's axes divide routed and the
+    others local, K8 and K9 launches each run (counts set to 0 just
+    before)."""
+    from tpusystem_torch.data import Loader, SyntheticClicks
+    from tpusystem_torch.ops.cuda import embedding_lookup as el
+    from tpusystem_torch.parallel import DataParallel, TensorParallel
+    from tpusystem_torch.parallel.sharding import (held_slices,
+                                                   is_distributed, local,
+                                                   shard_axes)
+    from tpusystem_torch.train import SGD, BCEWithLogitsLoss, init_state
+
+    counters = (el.gather_rows, el.scatter_add_rows)
+    runs, pieces, vocabs = {}, {}, None
+    for kind in ('split', 'replicated'):
+        module = table_model(torch, seed, device,
+                             mesh if kind == 'split' else None, **overrides)
+        vocabs = module.vocabs
+        data = SyntheticClicks(samples=batch * steps, vocabs=vocabs, hot=1,
+                               dense=13, seed=0)
+        optimizer = SGD(lr=DLRM_LR)
+        policy = (TensorParallel(module.partition_rules())
+                  if kind == 'split' else DataParallel())
+        state = policy.place(init_state(module, optimizer, rng=0), mesh)
+        step = build_train_step(module_apply(module), BCEWithLogitsLoss(),
+                                optimizer)
+        for counter in counters:
+            counter.launches = 0
+        losses, seconds = [], []
+        for features, labels in Loader(data, batch, device=device):
+            started = time.perf_counter()
+            state, (_, loss) = step(state, features, labels)
+            losses.append(loss.item())
+            seconds.append(time.perf_counter() - started)
+        runs[kind] = dict(losses=losses, step_ms=[1e3 * s for s in seconds],
+                          launches={counter.__name__: counter.launches
+                                    for counter in counters})
+        if kind == 'split':
+            pieces = {key: (local(leaf).clone(), held_slices(leaf)
+                            if is_distributed(leaf) else None)
+                      for key, leaf in state.params.items()}
+            runs['split']['split_tables'] = sum(
+                bool(shard_axes(leaf)) for key, leaf in state.params.items()
+                if 'table' in key)
+        else:
+            runs['params_equal'] = all(
+                torch.equal(piece, local(state.params[key])[slices]
+                            if slices is not None
+                            else local(state.params[key]))
+                for key, (piece, slices) in pieces.items())
+        del module, state, step
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    runs.update(tables=len(vocabs), rows=sum(vocabs),
+                losses_equal=runs['split']['losses']
+                == runs['replicated']['losses'])
+    return runs
+
+
+def ep_worker(rank: int, port: int, out: str, seed: int,
+              device: str = 'cuda', small: dict | None = None) -> None:
+    """One of phase 31's ranks (``--ep-worker RANK PORT OUT SEED``): joins a
+    world of ``EP_RANKS`` processes on the one card over gloo, builds
+    ``MeshSpec(expert=2)`` and runs (a) the MoE GPT-2's steps under each
+    exchange at ``EP_AMPLE`` (parameters against the unplaced run's,
+    ``reference.pt`` beside ``OUT``, cut to this rank's experts), one step
+    of each at phase 11's factor for the seated counts, and (b) the table
+    drill. ``device='cpu'`` and ``small`` (``model``, ``shape``, ``tables``
+    overrides) run the same logic at a tiny size on the CPU."""
+    import numpy as np
+    import torch
+
+    from tpusystem_torch.parallel import MeshSpec, OverlapSchedule, multihost
+    small = small or {}
+    if device == 'cuda':
+        from tpusystem_torch.ops.cuda._build import LIBRARIES
+        LIBRARIES.build()
+    multihost.initialize(f'127.0.0.1:{port}', EP_RANKS, rank, device=device,
+                         backend='gloo')
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = MeshSpec(expert=EP_RANKS).build()
+        reference = torch.load(pathlib.Path(out).parent / 'reference.pt')
+        overrides = small.get('model', {})
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, min(50257, overrides.get('vocab_size', 50257)),
+            tuple(small.get('shape', EP_SHAPE))), device=device)
+        runs = {}
+        for name, (exchange, arm) in EP_RUNS.items():
+            module = ep_model(torch, seed, device, mesh=mesh,
+                              moe_exchange=exchange,
+                              schedule=arm and OverlapSchedule(moe=arm),
+                              **overrides)
+            run = ep_steps(torch, module, tokens)
+            run['params'] = param_errors(
+                torch, run.pop('params'), expert_cut(reference['final'],
+                                                     EP_RANKS, rank),
+                run.pop('start'), device)
+            runs[name] = run
+            del module
+        reference.clear()
+        seated = {}
+        for exchange in ('quota', 'ragged'):
+            module = ep_model(torch, seed, device, mesh=mesh,
+                              moe_exchange=exchange,
+                              **dict(overrides,
+                                     moe_capacity_factor=MOE_FACTOR))
+            run = ep_steps(torch, module, tokens, steps=1)
+            seated[exchange] = dict(seated=run['seated'],
+                                    losses=run['losses'])
+            del module
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+        tables = dict(small.get('tables', {}))
+        drill = table_drill(torch, mesh, seed, device,
+                            tables.pop('batch', TABLE_BATCH),
+                            tables.pop('steps', TABLE_STEPS), **tables)
+        pathlib.Path(out).write_text(json.dumps(dict(
+            rank=rank, backend=torch.distributed.get_backend(),
+            ragged_transport='all_to_all_single', runs=runs, seated=seated,
+            tables=drill)))
+    finally:
+        multihost.shutdown()
+
+
+def ep_check(ranks: list, at_one: dict, layers: int, device: str) -> dict:
+    """Phase 31's limits over the ranks' records: every exchange's losses
+    within ``EP_LOSS_RTOL`` of the unplaced run's and its parameters within
+    ``EP_UPDATE_RTOL``; ``moe='overlap'``'s first loss bit for bit the
+    one-shot quota one; the ragged exchange seating at least as many assignments as
+    the quota one at phase 11's factor (over both ranks); the table drill
+    bit for bit, with both lookups run; on the card, K1/K2b launched once a
+    layer a step and K8/K9 26/52 times a step a rank. Returns the record."""
+    want = at_one['losses']
+    worst = worst_update = 0.0
+    for record in ranks:
+        runs = record['runs']
+        for name, run in runs.items():
+            worst = max(worst, relative_errors(run['losses'], want))
+            worst_update = max(worst_update, run['params']['update_rel_err'])
+            per_step = {key: count // EP_STEPS
+                        for key, count in run['launches'].items()}
+            if device == 'cuda' and per_step != {
+                    'flash_attention_lse': layers, 'flash_bwd_fused': layers}:
+                fail(f'phase 31 (a): rank {record["rank"]} {name} launched '
+                     f'{per_step} a step, not {layers} of K1 and K2b')
+        # from the same parameters the pieces' loss is the one-shot loss
+        # bit for bit; their gradients sum the pieces' products in
+        # another order, so later steps start from other parameters
+        if runs['overlap']['losses'][0] != runs['quota']['losses'][0]:
+            fail(f'phase 31 (a): rank {record["rank"]} moe=overlap loss '
+                 f'{runs["overlap"]["losses"][0]} is not the one-shot quota '
+                 f'loss {runs["quota"]["losses"][0]} bit for bit')
+        tables = record['tables']
+        if not (tables['losses_equal'] and tables['params_equal']):
+            fail(f'phase 31 (b): rank {record["rank"]} row-split tables are '
+                 f'not bit for bit the replicated ones: {tables}')
+        if not 0 < tables['split']['split_tables'] < tables['tables']:
+            fail(f'phase 31 (b): {tables["split"]["split_tables"]} of '
+                 f'{tables["tables"]} tables row-split: both lookups must run')
+        steps = len(tables['split']['losses'])
+        if device == 'cuda':
+            for kind in ('split', 'replicated'):
+                if tables[kind]['launches'] != {
+                        'gather_rows': tables['tables'] * steps,
+                        'scatter_add_rows': 2 * tables['tables'] * steps}:
+                    fail(f'phase 31 (b): rank {record["rank"]} {kind} '
+                         f'launched {tables[kind]["launches"]} in {steps} '
+                         f'steps')
+    seated = {exchange: sum(record['seated'][exchange]['seated']
+                            for record in ranks)
+              for exchange in ('quota', 'ragged')}
+    if seated['ragged'] < seated['quota']:
+        fail(f'phase 31 (a): the ragged exchange seated {seated["ragged"]} '
+             f'assignments, fewer than the quota one\'s {seated["quota"]}')
+    if worst > EP_LOSS_RTOL or worst_update > EP_UPDATE_RTOL:
+        fail(f'phase 31 (a): losses and parameters '
+             f'{[r["runs"] for r in ranks]} against the unplaced {want} '
+             f'(rtol {EP_LOSS_RTOL}, update rtol {EP_UPDATE_RTOL})')
+    launches = {name: sum(run['launches'][name] for record in ranks
+                          for run in record['runs'].values())
+                for name in ('flash_attention_lse', 'flash_bwd_fused')}
+    launches.update({name: sum(record['tables'][kind]['launches'][name]
+                               for record in ranks
+                               for kind in ('split', 'replicated'))
+                     for name in ('gather_rows', 'scatter_add_rows')})
+    return dict(ranks=ranks, max_rel_err=worst, rtol=EP_LOSS_RTOL,
+                max_update_rel_err=worst_update, update_rtol=EP_UPDATE_RTOL,
+                seated=seated, launches=launches)
+
+
+def ep_at_one(torch, seed: int, device: str, shape: tuple,
+              **overrides) -> tuple:
+    """Phase 31's reference: the MoE GPT-2's unplaced steps on this device
+    (no process group). Returns the record and its parameters before and
+    after the steps (host tensors)."""
+    import numpy as np
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, overrides.get('vocab_size', 50257)), shape),
+        device=device)
+    module = ep_model(torch, seed, device, **overrides)
+    run = ep_steps(torch, module, tokens)
+    reference = dict(start=run.pop('start'), final=run.pop('params'))
+    del module
+    return dict(run, shape=list(shape)), reference
+
+
+def expert_parallel(torch, seed: int, device: str = 'cuda',
+                    shape: tuple = EP_SHAPE) -> dict:
+    """Phase 31: the MoE GPT-2's unplaced steps on this process, then two
+    gloo ranks sharing the card at ``expert=2`` (:func:`ep_worker`): (a)
+    the quota, ragged and overlapped exchanges against them, (b) the table
+    drill."""
+    import tempfile
+
+    started = time.perf_counter()
+    at_one, reference = ep_at_one(torch, seed, device, shape)
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(reference, pathlib.Path(root) / 'reference.pt')
+        del reference
+        ranks = worker_ranks('--ep-worker', EP_RANKS, seed, 'phase 31',
+                             pathlib.Path(root))
+    record = dict(unplaced=at_one, **ep_check(ranks, at_one, 12, device))
+    record.update(card=card_line() if device == 'cuda' else None,
+                  seconds=time.perf_counter() - started)
+    return record
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -7151,6 +7511,8 @@ def main() -> None:
                         help=argparse.SUPPRESS)   # phase 29 (b)'s ranks
     parser.add_argument('--seq-worker', nargs=4, default=None,
                         help=argparse.SUPPRESS)   # phase 30 (b)'s ranks
+    parser.add_argument('--ep-worker', nargs=4, default=None,
+                        help=argparse.SUPPRESS)   # phase 31's ranks
     args = parser.parse_args()
 
     import torch
@@ -7171,6 +7533,10 @@ def main() -> None:
     if args.seq_worker is not None:
         rank, port, out, seed = args.seq_worker
         seq_worker(int(rank), int(port), out, int(seed))
+        return
+    if args.ep_worker is not None:
+        rank, port, out, seed = args.ep_worker
+        ep_worker(int(rank), int(port), out, int(seed))
         return
     from tpusystem_torch.ops.cuda._build import LIBRARIES
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7264,6 +7630,8 @@ def main() -> None:
     print('pipelines ' + json.dumps(pipeline_record))
     sequence_record = sequence_parallel(torch, args.seed)
     print('sequence-parallel ' + json.dumps(sequence_record))
+    expert_record = expert_parallel(torch, args.seed)
+    print('expert-parallel ' + json.dumps(expert_record))
 
     csrc = 'tpusystem_torch/ops/cuda/csrc/'
     pallas = 'tpusystem/ops/pallas/'
@@ -7304,7 +7672,8 @@ def main() -> None:
             + observed['launches']['flash_attention_lse']
             + data_parallel_record['launches']['flash_attention_lse']
             + tensor_parallel_record['launches']['flash_attention_lse']
-            + sequence_record['launches']['flash_attention_lse']),
+            + sequence_record['launches']['flash_attention_lse']
+            + expert_record['launches']['flash_attention_lse']),
         'flash_bwd_fused_g1': ('flash_bwd.cu', pallas + 'flash.py:344',
                                'flash_bwd_fused_g1[1x16384]',
                                long['launches']['flash_bwd_fused_g1']
@@ -7322,7 +7691,8 @@ def main() -> None:
                                 'flash_bwd_fused']
                             + tensor_parallel_record['launches'][
                                 'flash_bwd_fused']
-                            + sequence_record['launches']['flash_bwd_fused']),
+                            + sequence_record['launches']['flash_bwd_fused']
+                            + expert_record['launches']['flash_bwd_fused']),
         'flash_bwd_dq': ('flash_bwd.cu', pallas + 'flash.py:162',
                          'flash_bwd_dq[train]',
                          split['launches']['flash_bwd_dq']),
@@ -7342,11 +7712,13 @@ def main() -> None:
             + moe_served['launches']['matmul_scatter_rows']),
         'gather_rows': ('embedding_lookup.cu',
                         pallas + 'embedding_lookup.py:106',
-                        'gather_rows[dedup]', dlrm['launches']['gather_rows']),
+                        'gather_rows[dedup]', dlrm['launches']['gather_rows']
+                        + expert_record['launches']['gather_rows']),
         'scatter_add_rows': ('embedding_lookup.cu',
                              pallas + 'embedding_lookup.py:191',
                              'scatter_add_rows[dedup]',
-                             dlrm['launches']['scatter_add_rows']),
+                             dlrm['launches']['scatter_add_rows']
+                             + expert_record['launches']['scatter_add_rows']),
         # no pallas_call: the reference's masks are XLA's jax.random.bernoulli
         'bernoulli_mask': ('threefry.cu', 'tpusystem/ops/attention.py:374',
                            'bernoulli_mask',
@@ -7498,6 +7870,7 @@ def main() -> None:
              'tensor_parallel': tensor_parallel_record,
              'pipelines': pipeline_record,
              'sequence_parallel': sequence_record,
+             'expert_parallel': expert_record,
              'k1_ptxas': k1_ptxas, 'bwd_ptxas': bwd_ptxas,
              'grouped_ptxas': grouped_ptxas, 'k7_split': k7_split,
              'decode_ptxas': decode_ptxas, 'lookup_ptxas': lookup_ptxas,

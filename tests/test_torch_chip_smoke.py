@@ -940,7 +940,7 @@ def test_phase_27_prints_after_the_resnet_phase():
         "print('data-parallel '") < source.index(
         "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
     assert source.count("data_parallel_record['launches']") == 2
-    assert '31. print the ``kernels`` line' in _chip_smoke().__doc__
+    assert '32. print the ``kernels`` line' in _chip_smoke().__doc__
 
 
 def _tiny_flash_gpt2():
@@ -1184,3 +1184,90 @@ def test_host_checksum_is_the_wrapping_word_sum():
     words = np.array([0xFFFFFFFF, 2], dtype=np.uint32)
     assert chip_smoke.host_checksum(torch.from_numpy(words.view(
         np.float32))) == 1
+
+
+def test_phase_31_prints_after_the_sequence_parallel_phase():
+    """Phase 31 prints its line after phase 30's, its K1/K2b and K8/K9
+    launches join the ``kernels`` line, and the ``kernels`` and ``ok``
+    lines stay last."""
+    import inspect
+    source = inspect.getsource(_chip_smoke().main)
+    assert source.index("print('sequence-parallel '") < source.index(
+        "print('expert-parallel '") < source.index(
+        "print(json.dumps({'kernels': kernels}))") < source.index("'ok': True")
+    assert source.count("expert_record['launches']") == 4
+    assert '31. expert and table parallelism' in _chip_smoke().__doc__
+
+
+def test_expert_cut_holds_the_experts_a_rank_holds():
+    import torch
+
+    cut = _chip_smoke().expert_cut
+    reference = {'h_1.moe.w1': torch.arange(8.0)[:, None].repeat(1, 3),
+                 'h_1.moe.router': torch.ones(3, 8),
+                 'wte.embedding': torch.ones(5, 3)}
+    piece = cut(reference, 2, 1)
+    assert piece['h_1.moe.w1'][:, 0].tolist() == [4, 5, 6, 7]
+    assert piece['h_1.moe.router'] is reference['h_1.moe.router']
+    assert piece['wte.embedding'] is reference['wte.embedding']
+
+
+SMALL_EP = dict(model=dict(vocab_size=256, layers=2, dim=64, heads=4,
+                           max_seq=64, dtype='float32', moe_experts=4),
+                shape=[2, 32],
+                tables=dict(vocabs=(64, 33, 32, 7), dim=8, bottom=(16,),
+                            top=(16,), batch=16, steps=3))
+
+
+def test_phase_31_worker_logic_over_two_gloo_processes(tmp_path,
+                                                       one_torch_thread):
+    """Phase 31's ranks at a tiny width on the CPU: the unplaced MoE GPT-2
+    steps here, then two gloo processes running :func:`ep_worker` at
+    ``expert=2`` (the quota, ragged and overlapped exchanges, the seated
+    counts, the table drill), held to the phase's own limits by
+    :func:`ep_check`: the overlap losses bit for bit the quota ones, the
+    ragged exchange seating at least as many, the row-split DLRM bit for
+    bit the replicated one with both lookups run."""
+    import os
+    import subprocess
+    import sys
+
+    import torch
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    at_one, reference = chip_smoke.ep_at_one(
+        torch, 0, 'cpu', tuple(SMALL_EP['shape']), **SMALL_EP['model'])
+    torch.save(reference, tmp_path / 'reference.pt')
+    port = chip_smoke.free_port()
+    root = str(SCRIPT.parent)
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    procs = [subprocess.Popen(
+        [sys.executable, '-c',
+         f'import sys; sys.path.insert(0, {root!r}); import chip_smoke; '
+         f'chip_smoke.ep_worker({rank}, {port}, '
+         f'{str(tmp_path / f"rank{rank}.json")!r}, 0, device="cpu", '
+         f'small={SMALL_EP!r})'],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(chip_smoke.EP_RANKS)]
+    try:
+        outputs = [proc.communicate(timeout=120)[0].decode()
+                   for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        assert proc.returncode == 0, outputs[rank][-3000:]
+    import json
+    ranks = [json.loads((tmp_path / f'rank{rank}.json').read_text())
+             for rank in range(chip_smoke.EP_RANKS)]
+    record = chip_smoke.ep_check(ranks, at_one, 2, 'cpu')
+    assert failures == []
+    assert set(ranks[0]['runs']) == {'quota', 'ragged', 'overlap'}
+    assert record['seated']['ragged'] >= record['seated']['quota'] > 0
+    tables = ranks[0]['tables']
+    assert tables['split']['split_tables'] == 2 and tables['tables'] == 4
+    assert tables['losses_equal'] and tables['params_equal']

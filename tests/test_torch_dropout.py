@@ -344,3 +344,33 @@ def test_gpt2_dropout_keys_follow_flax_module_paths():
     assert blocks[2] == tuple(threefry.make_rng(KEY, ('h_2', site))
                               for site in ('attn', 'Dropout_0', 'Dropout_1'))
     assert len({embed, *(key for block in blocks for key in block)}) == 10
+
+
+@pytest.mark.parametrize('length', [17, 100, 24])
+def test_flash_dropout_follows_the_reference_where_its_blocks_do_not_tile(
+        length):
+    """The reference's flash call attends through XLA where none of its
+    blocks tiles the length (``flash.py:794``), and drops there with the
+    ``'xla'`` path's ``bernoulli`` masks; the port's kernels take any
+    length, so ``attend`` routes dropout as the reference does
+    (``reference_tiles``, the reference's ``_block_sizes`` at its default
+    blocks). A ``'flash'`` training forward at p = 0.1 matches the
+    reference's within ``TOL`` at 17 and 100 positions (untiled) and at 24
+    (one block, the kernels' hash)."""
+    for seq in (8, 17, 24, 100, 128, 136, 256, 520, 1000, 1024, 1536):
+        assert tflash.reference_tiles(seq, seq) == (
+            jflash._block_sizes(seq, seq, 1024, 1024) is not None), seq
+    tokens = np.random.default_rng(7).integers(0, 256, (2, length))
+    reference = jax_gpt2_tiny(dtype='float32', dropout=0.1,
+                              attention='flash')
+    params = reference.init(jax.random.PRNGKey(0),
+                            jnp.asarray(tokens))['params']
+    key = jax.random.PRNGKey(3)
+    want = reference.apply({'params': params}, jnp.asarray(tokens),
+                           train=True, rngs={'dropout': key})
+    module = gpt2_tiny(device='cpu', dtype='float32', dropout=0.1,
+                       attention='flash')
+    module.load_state_dict(params_from_jax(params))
+    got = module(torch.as_tensor(tokens), train=True,
+                 rng=threefry.as_key(np.asarray(key)))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)

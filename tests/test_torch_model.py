@@ -133,16 +133,21 @@ def test_registry_identity_matches_bitwise(overrides):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """``remat``, training-time dropout, MoE decoding, ``scan_layers`` and
-    sequence-parallel attention (9e, which needs a mesh) are ported; a
-    scanned training forward with dropout still names its item. A training
-    forward with dropout needs the step's threefry key."""
+    """``remat``, training-time dropout, MoE decoding, ``scan_layers``,
+    sequence-parallel attention (9e, which needs a mesh) and a scanned
+    training forward with dropout (item 7; its masks against the
+    reference's in ``tests/test_torch_scan.py``) are ported. A training
+    forward with dropout needs the step's threefry key, and its masks
+    follow it."""
     with pytest.raises(ValueError, match='needs a mesh'):
         gpt2_tiny(device='cpu', attention='ring')(
             torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        gpt2_tiny(device='cpu', scan_layers=True, dropout=0.1)(
-            torch.zeros((1, 4), dtype=torch.long), train=True, rng=(0, 1))
+    scanned = gpt2_tiny(device='cpu', scan_layers=True, dropout=0.1)
+    tokens = torch.arange(8).reshape(1, 8)
+    first, again, other = (scanned(tokens, train=True, rng=key)
+                           for key in ((0, 1), (0, 1), (0, 2)))
+    assert first.shape == (1, 8, 256)
+    assert torch.equal(first, again) and not torch.equal(first, other)
     assert gpt2_tiny(device='cpu', remat=True).remat
     assert gpt2_tiny(device='cpu', moe_experts=2, decode=True).decode
     module = GPT2(vocab_size=32, layers=1, dim=16, heads=2, max_seq=16,

@@ -269,15 +269,32 @@ def test_moe_mlp_matches_the_reference_in_bfloat16(sparse_impl):
 
 
 def test_moe_mlp_options_and_unported_paths():
+    """The layer's options: its parameters, the sharded paths' knobs
+    (``mesh``, ``exchange``, ``schedule``, all ported: the reference's
+    blocker reasons, checked here on shape-only meshes, the paths
+    themselves in ``tests/test_torch_expert.py``), the refused values and
+    ``full_capacity``."""
     layer = tmoe.MoEMLP(8, 4, device='cpu')
     assert {name: tuple(p.shape) for name, p in layer.named_parameters()} == {
         'router': (8, 4), 'w1': (4, 8, 32), 'b1': (4, 32), 'w2': (4, 32, 8),
         'b2': (4, 8)}
     assert all(p.dtype == torch.float32 for p in layer.parameters())
-    for option in ({'mesh': type('Mesh', (), {'size': 4})()},
-                   {'exchange': 'ragged'}, {'schedule': object()}):
-        with pytest.raises(NotImplementedError, match='queue 1: 9'):
-            tmoe.MoEMLP(8, 4, device='cpu', **option)
+    from tpusystem.parallel import MeshSpec as JMeshSpec
+    from tpusystem_torch.parallel.mesh import Mesh
+    for sizes, tokens in ((dict(data=2, expert=2, model=2), 64),
+                          (dict(expert=8), 64),
+                          (dict(data=2, expert=2), 6),
+                          (dict(data=2, expert=2), 64)):
+        count = int(np.prod(list(sizes.values())))
+        want = jmoe.MoEMLP(experts=4, mesh=JMeshSpec(**sizes).build(
+            jax.devices()[:count]))._sharded_sparse_blocker(tokens * 2)
+        got = tmoe.MoEMLP(8, 4, mesh=Mesh('cpu', None, sizes),
+                          device='cpu').sharded_sparse_blocker(tokens)
+        assert got == want, sizes
+    sharded = tmoe.MoEMLP(8, 4, mesh=Mesh('cpu', None, dict(expert=2)),
+                          exchange='ragged', schedule=object(),
+                          dispatch='sparse', device='cpu')
+    assert (sharded.exchange, sharded.dispatch) == ('ragged', 'sparse')
     for option in ({'dispatch': 'ring'}, {'sparse_impl': 'atomic'}):
         with pytest.raises(ValueError):
             tmoe.MoEMLP(8, 4, device='cpu', **option)
@@ -433,8 +450,8 @@ def test_moe_decode_and_serving_raise_naming_their_item():
     """MoE decoding and serving are ported (through the module paged step,
     ``tests/test_torch_serve_moe.py``): a decode-mode MoE model builds and
     returns ``(logits, cache)``, and the engine and ``generate`` serve it.
-    What still refuses names its reason or item: the fused decode chain
-    (GPT-2's dense FFN) and an MoE layer over more than one device."""
+    What still refuses names its reason: the fused decode chain (GPT-2's
+    dense FFN) and the fused grouped kernels over more than one device."""
     module = GPT2(vocab_size=32, layers=2, dim=16, heads=2, max_seq=16,
                   moe_experts=2, decode=True, device='cpu')
     logits, cache = module(torch.zeros(1, 4, dtype=torch.long))
@@ -450,9 +467,13 @@ def test_moe_decode_and_serving_raise_naming_their_item():
     with pytest.raises(ValueError, match='MoE blocks'):
         ttrain.generate(module, None, [[1, 2, 3]], steps=2,
                         decode_impl='fused', device='cpu')
-    with pytest.raises(NotImplementedError, match='queue 1: 9'):
-        tmoe.MoEMLP(8, 4, mesh=type('Mesh', (), {'size': 2})(),
-                    device='cpu')
+    # the grouped kernels are single-shard: an explicit sparse dispatch
+    # over an expert mesh refuses them with the reference's reason
+    from tpusystem_torch.parallel.mesh import Mesh
+    layer = tmoe.MoEMLP(8, 4, mesh=Mesh('cpu', None, dict(expert=2)),
+                        dispatch='sparse', sparse_impl='fused', device='cpu')
+    with pytest.raises(ValueError, match='single-shard only'):
+        layer(torch.zeros(2, 4, 8))
 
 
 def test_replace_reaches_the_moe_layers_and_shares_their_weights():

@@ -227,13 +227,27 @@ def test_model_partition_rules_are_the_references():
 
 
 def test_constraints_are_the_identity_at_size_one_and_name_9f():
+    """The reference's pins (``sharding.py:51-100``) check and never move a
+    tensor: the identity off-mesh, at size one and on a split mesh (an
+    axis a hand-built mesh lacks drops out); a piece held over other axes
+    than the pin's raises."""
     value = torch.ones(4, 2)
     assert tshard.constrain_table_rows(value, shaped(fsdp=4)) is value
+    assert tshard.constrain_table_rows(value, None) is value
     assert tshard.constrain_expert_major(value, None) is value
-    for constrain, sizes in ((tshard.constrain_table_rows, {'model': 2}),
-                             (tshard.constrain_expert_major, {'expert': 2})):
-        with pytest.raises(NotImplementedError, match='9f'):
-            constrain(value, shaped(**sizes))
+    bare = type('Bare', (), {'shape': {'data': 2, 'model': 2}})()
+    assert tshard.constrain_table_rows(value, bare) is value
+    for constrain, sizes, axes in (
+            (tshard.constrain_table_rows, {'model': 2, 'expert': 2},
+             ('expert', 'model')),
+            (tshard.constrain_expert_major, {'expert': 2}, ('expert',))):
+        assert constrain(value, shaped(**sizes)) is value
+        piece = value.view_as(value)
+        piece.held = {0: axes}
+        assert constrain(piece, shaped(**sizes)) is piece
+        piece.held = {0: ('data',)}
+        with pytest.raises(ValueError, match='held split'):
+            constrain(piece, shaped(**sizes))
     assert tuple(tshard.table_row_spec(2)) == tuple(
         jpar.sharding.table_row_spec(2))
     assert tuple(tshard.expert_major_spec(3)) == tuple(

@@ -17,6 +17,18 @@ scores are divided by a temperature of 0.05, so 2e-5 there), and three SGD
 and three AdamW steps of ``dlrm_tiny`` and ``two_tower_tiny`` match the
 reference's ``build_train_step`` within 1e-5, as the GPT-2 steps do in
 ``test_torch_train.py``. The metrics give equal results on equal inputs.
+
+Table parallelism runs in ``table_world``: one world of eight port
+processes (``tests/torch_ranks.py``'s ``tables`` scenario, gloo on the CPU)
+over the reference's table mesh, data=2 x model=2 x expert=2, twinning
+``TestShardedEmbedding``, ``TestDLRM``'s drill and
+``TestRegistryAndCheckpoint``: the routed forward bitwise, its table
+gradient within 1e-6, row-split tables bitwise the replicated ones over
+three steps (a DLRM, one with a table the axes do not divide, a two-tower
+model), the drill's losses within 1e-5 of the reference's, and the
+checkpoint and memstore round trips bitwise. ``test_sharded_step_compiles_once``
+(``tests/test_recsys.py:322``) has no twin: it pins that a jitted step
+traces once, and the port's step is eager.
 """
 
 import types
@@ -27,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpusystem import parallel as jpar
 from tpusystem import train as jtrain
 from tpusystem.data import Loader as JaxLoader
 from tpusystem.data import SyntheticClicks as JaxClicks
@@ -59,6 +72,8 @@ from tpusystem_torch.registry import gethash
 from tpusystem_torch.services import Producer as TProducer
 from tpusystem_torch.train import metrics as tmetrics
 from tpusystem_torch.train import optim as toptim
+
+from tests import torch_ranks
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -377,9 +392,18 @@ def test_route_plan_matches_the_reference():
 
 
 def test_a_split_table_is_not_ported():
-    with pytest.raises(NotImplementedError, match='queue 1: 9'):
-        ShardedEmbedding(64, 8, mesh=_mesh(data=2, model=2), device='cpu')
-    ShardedEmbedding(64, 8, mesh=_mesh(data=8), device='cpu')   # one shard
+    """A table on a mesh that splits it builds as it does without one (the
+    reference's ``test_init_mesh_invariant``: the draw and the digest do not
+    depend on the mesh), and off a process group the lookup is the local
+    one, bit for bit; the routed lookup runs in ``table_world``."""
+    plain = ShardedEmbedding(64, 8, device='cpu')
+    ids = torch.from_numpy(np.random.default_rng(2).integers(-1, 64, (6, 3)))
+    for mesh in (_mesh(data=2, model=2), _mesh(data=8),
+                 _mesh(data=2, model=2, expert=2)):
+        split = ShardedEmbedding(64, 8, mesh=mesh, device='cpu')
+        assert torch.equal(split.embedding, plain.embedding)
+        assert gethash(split) == gethash(plain)
+        assert torch.equal(split(ids), plain(ids))
     assert (_scoped_evaluations(evaluation_consumer, TTrained, TProducer)
             == _scoped_evaluations(jax_evaluation_consumer, JTrained,
                                    JProducer))
@@ -739,3 +763,164 @@ def test_optimizer_runs_split_the_update_without_changing_it(monkeypatch):
                                                          (2, 3)]
     for got, want in zip(*results):
         _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# table parallelism: a world of eight port processes on the table mesh
+
+
+@pytest.fixture(scope='module')
+def table_world(tmp_path_factory):
+    root = tmp_path_factory.mktemp('tables')
+    mesh = jpar.MeshSpec(data=2, model=2, expert=2).build(jax.devices()[:8])
+    cases, reference = {}, {}
+    local = JaxShardedEmbedding(64, 8)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(-1, 64, (16, 3)).astype(np.int32)
+    weights = rng.uniform(0.5, 1.5, (16, 3)).astype(np.float32)
+    params = local.init(jax.random.PRNGKey(1), jnp.asarray(ids))
+    cases['forward'] = dict(table=np.asarray(params['params']['embedding']),
+                            ids=ids, weights=weights)
+    reference['forward'] = np.asarray(local.apply(params, jnp.asarray(ids),
+                                                  jnp.asarray(weights)))
+    rng = np.random.default_rng(4)
+    ids = rng.integers(-1, 64, (16,)).astype(np.int32)
+    cot = rng.standard_normal((16, 8)).astype(np.float32)
+    params = local.init(jax.random.PRNGKey(2), jnp.asarray(ids))
+    cases['grads'] = dict(table=np.asarray(params['params']['embedding']),
+                          ids=ids, cot=cot)
+    reference['grads'] = np.asarray(jax.grad(
+        lambda p: jnp.sum(local.apply(p, jnp.asarray(ids)) * cot))(
+            params)['params']['embedding'])
+
+    batch, labels = _click_batch(np.random.default_rng(6))
+    module = jax_dlrm_tiny(mesh=mesh)
+    optimizer = jtrain.AdamW(lr=1e-2)
+    state = jtrain.init_state(module, optimizer, _to_jax(batch), rng=0)
+    cases.update(batch=batch, labels=labels, dlrm=jax.tree.map(
+        np.asarray, state.params))
+    state = jpar.TensorParallel(module.partition_rules()).place(state, mesh)
+    step = jtrain.build_train_step(jtrain.flax_apply(module),
+                                   jtrain.BCEWithLogitsLoss(), optimizer)
+    sharding = jpar.batch_sharding(mesh)
+    inputs = jax.device_put(_to_jax(batch), sharding)
+    targets = jax.device_put(jnp.asarray(labels), sharding)
+    losses = []
+    for _ in range(3):
+        state, (_, loss) = step(state, inputs, targets)
+        losses.append(float(loss))
+    reference['drill'] = losses
+
+    towers, _ = _two_tower_batch(np.random.default_rng(16), batch=8)
+    cases['towers'] = dict(batch=towers,
+                           targets=np.tile(np.arange(4, dtype=np.int64), 2))
+    ranks = torch_ranks.launch(root, dict(scenarios=['tables'], tables=cases,
+                                          root=str(root)), 8)
+    return dict(reference=reference, ranks=[rank['tables'] for rank in ranks])
+
+
+def test_sharded_init_is_mesh_invariant(table_world):
+    """Twin of ``test_recsys.py:207`` on the ranks: a table built on the
+    table mesh draws the table and the digest it draws without one."""
+    for found in table_world['ranks']:
+        assert found['init'] == dict(equal=True, digest=True)
+
+
+@pytest.mark.parametrize('held', ['whole', 'piece'])
+def test_sharded_forward_bitwise(table_world, held):
+    """Twin of ``test_recsys.py:222``: the routed lookup (ids mapped to the
+    rank's rows, the others masked, the partial rows summed over the table
+    axes) is the unsharded lookup bit for bit, from a whole table and from
+    the rank's rows of it."""
+    want = table_world['reference']['forward']
+    for rank, found in enumerate(table_world['ranks']):
+        rows = want[(rank // 4) * 8:(rank // 4 + 1) * 8]
+        np.testing.assert_array_equal(found[f'forward_{held}']['out'], rows)
+
+
+@pytest.mark.parametrize('held', ['whole', 'piece'])
+def test_sharded_grads_tight(table_world, held):
+    """Twin of ``test_recsys.py:244``: the table gradient through the
+    routed lookup within 1e-6 of the unsharded one (the sum's backward
+    hands the cotangent over once, so nothing is counted per shard)."""
+    want = table_world['reference']['grads']
+    for found in table_world['ranks']:
+        np.testing.assert_allclose(found[f'grads_{held}']['grad'], want,
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_dp_times_table_sharding_bitwise(table_world):
+    """Twin of ``test_recsys.py:281``, the drill: ``dlrm_tiny`` on the table
+    mesh with tables row-split by ``partition_rules`` against the same
+    ranks' run with replicated tables (``DataParallel``): the three AdamW
+    losses and the end parameters bit for bit; the losses within 1e-5 of
+    the reference's row-split run."""
+    for found in table_world['ranks']:
+        drill = found['drill']
+        assert drill['axes']['table_0.embedding'] == {0: ('expert', 'model')}
+        assert drill['split']['losses'] == drill['replicated']['losses']
+        for name, value in drill['replicated']['params'].items():
+            np.testing.assert_array_equal(drill['split']['params'][name],
+                                          value, err_msg=name)
+        np.testing.assert_allclose(drill['split']['losses'],
+                                   table_world['reference']['drill'], **TOL)
+
+
+def test_an_indivisible_table_takes_the_local_path(table_world):
+    """A table of 33 rows beside one of 64: the placement keeps the odd one
+    whole (the rule's axes do not divide it) and its lookup is the local
+    one, the other routed; the run is the replicated run bit for bit."""
+    for found in table_world['ranks']:
+        odd = found['odd']
+        assert odd['axes']['table_1.embedding'] == {}
+        assert odd['axes']['table_0.embedding'] == {0: ('expert', 'model')}
+        assert odd['split']['losses'] == odd['replicated']['losses']
+        for name, value in odd['replicated']['params'].items():
+            np.testing.assert_array_equal(odd['split']['params'][name],
+                                          value, err_msg=name)
+
+
+def test_two_tower_on_the_table_mesh(table_world):
+    """``two_tower_tiny`` with its tables row-split by its
+    ``partition_rules`` trains as with replicated tables, bit for bit
+    (three SGD steps of the in-batch softmax, each rank on its rows)."""
+    for found in table_world['ranks']:
+        towers = found['towers']
+        assert towers['split']['losses'] == towers['replicated']['losses']
+        for name, value in towers['replicated']['params'].items():
+            np.testing.assert_array_equal(towers['split']['params'][name],
+                                          value, err_msg=name)
+
+
+def test_identity_stable_and_distinct():
+    """Twin of ``test_recsys.py:421``: the digest follows the architecture
+    and the lookup impl, not the mesh, as the reference's does."""
+    table_mesh = _mesh(data=2, model=2, expert=2)
+    base = DLRM(vocabs=(64, 32), dim=8, device='cpu')
+    again = DLRM(vocabs=(64, 32), dim=8, device='cpu')
+    bigger = DLRM(vocabs=(128, 32), dim=8, device='cpu')
+    wider = DLRM(vocabs=(64, 32), dim=16, device='cpu')
+    assert gethash(base) == gethash(again)
+    assert len({gethash(base), gethash(bigger), gethash(wider)}) == 3
+    assert gethash(base) == gethash(DLRM(vocabs=(64, 32), dim=8,
+                                         mesh=table_mesh, device='cpu'))
+    assert gethash(base) != gethash(DLRM(vocabs=(64, 32), dim=8,
+                                         impl='take', device='cpu'))
+    assert gethash(base) == jax_gethash(JaxDLRM(vocabs=(64, 32), dim=8))
+
+
+def test_checkpoint_round_trip_sharded_tables(table_world):
+    """Twin of ``test_recsys.py:436``: a state with row-split tables saved
+    after a step (gathered whole in the reference's expert-major order)
+    restores onto a fresh placement, every rank's pieces bit for bit."""
+    assert all(found['checkpoint'] for found in table_world['ranks'])
+
+
+def test_memstore_sharded_leaf_round_trip(table_world):
+    """Twin of ``test_recsys.py:460``: the ranks' hot-state blobs of a
+    table-split state, merged as a restore merges them, restore onto a
+    fresh placement bit for bit, and the ranks' pieces of a row-split
+    table (four slices) reassemble to the table."""
+    for found in table_world['ranks']:
+        assert found['memstore'] == dict(equal=True, reassembled=True,
+                                         pieces=4)

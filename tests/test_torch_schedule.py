@@ -14,8 +14,8 @@ Without twins: ``test_compile_guard_scheduled_step_never_retraces``
 (``:549``) pins that a jitted scheduled step traces once; the port's step is
 eager and has no trace to repeat. The ``pp=`` arm's model tests
 (``:667``, ``:696``, ``:799``, ``:822``, ``:872``) are twinned in
-``tests/test_torch_pipeline.py``; the ``moe=`` arm's (``:740``, ``:762``)
-need expert parallelism, ROADMAP 9f. Both planners are twinned here.
+``tests/test_torch_pipeline.py``, the ``moe=`` arm's (``:740``, ``:762``)
+in ``tests/test_torch_expert.py``. Both planners are twinned here.
 """
 
 from __future__ import annotations
@@ -644,7 +644,8 @@ def test_placed_step_over_a_model_axis(world):
 
 
 # ---------------------------------------------------------------------------
-# the pp= and moe= arms' planners (the arms themselves are ROADMAP 9d, 9f)
+# the pp= and moe= arms' planners (the arms themselves are twinned in
+# tests/test_torch_pipeline.py and tests/test_torch_expert.py)
 
 
 def test_overlap_schedule_validates_the_new_arms():

@@ -1464,6 +1464,352 @@ def ring(inputs, out):
     out['ring'] = found
 
 
+def _moe_layer(mesh, params, hidden, grads=True, **config):
+    """An ``MoEMLP`` over ``mesh`` with the reference's weights (whole on
+    every rank) on this rank's rows of ``hidden``: its output rows, aux,
+    seated count and, with ``grads``, the whole gradients of the global
+    ``mean(out^2) + aux`` summed over the batch axes; ``None`` off the
+    mesh."""
+    from tpusystem_torch.ops.moe import MoEMLP
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.collectives import all_reduce_sum
+    if not mesh.member:
+        return None
+    layer = MoEMLP(hidden.shape[-1], device='cpu', mesh=mesh, **config)
+    layer.load_state_dict({name: torch.from_numpy(np.asarray(value))
+                           for name, value in params.items()})
+    out, aux = layer(batch_sharding(mesh)(hidden))
+    record = dict(out=_numpy(out), aux=float(aux),
+                  seated=None if layer.seated is None else int(layer.seated))
+    if grads:
+        batch = ('data', 'fsdp')
+        loss = (out.float().square().sum() / hidden.size
+                + aux / mesh.axis_size(batch))
+        names = [name for name, _ in layer.named_parameters()]
+        found = torch.autograd.grad(loss, list(layer.parameters()))
+        record['grads'] = {name: _numpy(all_reduce_sum(grad, mesh, batch))
+                           for name, grad in zip(names, found)}
+    return record
+
+
+def _moe_model_step(params, mesh, tokens, **config):
+    """One placed AdamW step of the MoE ``gpt2_tiny`` the overlap twins
+    use: the global loss and the whole gradients, read through ``fault=``;
+    ``None`` off the mesh."""
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import gpt2_tiny
+    from tpusystem_torch.parallel.sharding import ShardingPolicy, gather_leaf
+    from tpusystem_torch.train import (AdamW, NextTokenLoss, WithAuxLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    if not mesh.member:
+        return None
+    module = gpt2_tiny(dim=64, heads=4, mesh=mesh, moe_experts=2,
+                       moe_every=2, moe_capacity_factor=2.0, dtype='float32',
+                       device='cpu', **config)
+    module.load_state_dict(params_from_jax(params), strict=True)
+    optimizer = AdamW(lr=1e-3)
+    state = ShardingPolicy(rules=module.partition_rules()).place(
+        init_state(module, optimizer, rng=0), mesh)
+    placed = dict(state.params)
+    seen = {}
+
+    def fault(step, grads, loss):
+        seen['grads'] = {key: grad.detach().clone()
+                         for key, grad in grads.items()}
+        return grads, loss
+
+    step = build_train_step(module_apply(module),
+                            WithAuxLoss(NextTokenLoss()), optimizer,
+                            fault=fault)
+    rows = _rows_of(tokens, mesh)
+    state, (_, loss) = step(state, rows, rows)
+    with torch.no_grad():
+        grads = {key: _numpy(gather_leaf(grad, placed[key], mesh))
+                 for key, grad in seen['grads'].items()}
+    return dict(loss=float(loss), grads=grads)
+
+
+def expert(inputs, out):
+    """The expert-parallel twins (``tests/test_moe.py``, the ``moe=`` arm
+    of ``tests/test_schedule.py``) on eight ranks: GPT-2 over data=2 x
+    expert=4; the layer over data=2 x expert=2 (ranks 0-3) on every
+    exchange, and over expert=2 (ranks 0-1) under drops and skew; the
+    guards over data=2 x expert=2 x model=2; the MoE gpt2_tiny under
+    ``moe='overlap'`` and one-shot."""
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.ops.moe import MoEMLP
+    from tpusystem_torch.parallel import (MeshSpec, OverlapSchedule,
+                                          ShardingPolicy)
+    from tpusystem_torch.parallel.sharding import local, shard_axes
+    from tpusystem_torch.train import (AdamW, NextTokenLoss, WithAuxLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    cases, found = inputs['expert'], {}
+    wide = MeshSpec(data=2, expert=4).build()
+    pair = MeshSpec(data=2, expert=2).build(ranks=[0, 1, 2, 3])
+    duo = MeshSpec(expert=2).build(ranks=[0, 1])
+    guarded = MeshSpec(data=2, expert=2, model=2).build()
+
+    module = GPT2(vocab_size=64, layers=2, dim=32, heads=4, max_seq=32,
+                  dropout=0.0, dtype='float32', moe_experts=4, moe_every=2,
+                  moe_k=2, mesh=wide, device='cpu')
+    module.load_state_dict(params_from_jax(cases['train']['params']),
+                           strict=True)
+    optimizer = AdamW(lr=1e-2)
+    state = ShardingPolicy(rules=GPT2.partition_rules()).place(
+        init_state(module, optimizer, rng=0), wide)
+    step = build_train_step(module_apply(module),
+                            WithAuxLoss(NextTokenLoss()), optimizer)
+    rows = _rows_of(cases['train']['tokens'], wide)
+    losses = []
+    for _ in range(4):
+        state, ((logits, aux), loss) = step(state, rows, rows)
+        losses.append(float(loss))
+    w1 = state.params['h_1.moe.w1']
+    found['train'] = dict(losses=losses, logits=tuple(logits.shape),
+                          axes=shard_axes(w1), piece=tuple(local(w1).shape),
+                          aux=float(aux))
+
+    layer = cases['layer']
+    for name, config in (
+            ('dense', dict(dispatch='dense')),
+            ('quota', dict(dispatch='sparse')),
+            ('ragged', dict(dispatch='sparse', exchange='ragged')),
+            ('emulated', dict(dispatch='sparse',
+                              exchange='ragged-emulated'))):
+        found[name] = _moe_layer(pair, layer['params'], layer['hidden'],
+                                 experts=4, k=2, capacity_factor=4.0,
+                                 dtype='float32', **config)
+    drops = cases['drops']
+    for name in ('ragged', 'ragged-emulated'):
+        found[f'drops_{name}'] = _moe_layer(
+            duo, drops['params'], drops['hidden'], grads=False, experts=4,
+            k=2, capacity_factor=0.75, dtype='float32', dispatch='sparse',
+            exchange=name)
+    skew = cases['skew']
+    for name, config in (('dense', dict(dispatch='dense')),
+                         ('quota', dict(dispatch='sparse')),
+                         ('ragged', dict(dispatch='sparse',
+                                         exchange='ragged'))):
+        found[f'skew_{name}'] = _moe_layer(
+            duo, skew['params'], skew['hidden'], grads=False, experts=2,
+            k=1, capacity_factor=1.0, dtype='float32', **config)
+
+    guards = cases['guards']
+    refusals = {}
+    hidden = torch.from_numpy(guards['hidden'])
+    rows = hidden[guarded.axis_index('data') * 4:][:4]
+    for name, config, mesh in (
+            ('dense_only', dict(dispatch='sparse'), guarded),
+            ('fused', dict(dispatch='sparse', sparse_impl='fused'), pair),
+            ('exchange', dict(dispatch='sparse', exchange='magic'), pair)):
+        if not mesh.member:
+            continue
+        layer_ = MoEMLP(32, 4, dtype='float32', mesh=mesh, device='cpu',
+                        **config)
+        try:
+            layer_(rows)
+        except ValueError as error:
+            refusals[name] = str(error)
+    try:
+        MoEMLP(32, 4, dtype='float32', mesh=guarded, dispatch='auto',
+               sparse_impl='fussed', device='cpu')
+    except ValueError as error:
+        refusals['typo'] = str(error)
+    found['refusals'] = refusals
+    found['auto'] = _moe_layer(guarded, guards['params'], guards['hidden'],
+                               grads=False, experts=4, dtype='float32',
+                               dispatch='auto')
+
+    sched = cases['schedule']
+    overlap = OverlapSchedule(moe='overlap')
+    for name, tokens, config in (
+            ('one_shot', sched['tokens'], {}),
+            ('overlap', sched['tokens'], dict(schedule=overlap)),
+            ('ragged_one_shot', sched['tokens1'],
+             dict(moe_exchange='ragged-emulated')),
+            ('ragged_overlap', sched['tokens1'],
+             dict(schedule=overlap, moe_exchange='ragged-emulated'))):
+        found[f'model_{name}'] = _moe_model_step(sched['params'], pair,
+                                                 tokens, **config)
+    for name, schedule in (('layer_one_shot', None),
+                           ('layer_overlap', overlap)):
+        found[name] = _moe_layer(pair, sched['layer_params'],
+                                 sched['layer_hidden'], experts=2, k=2,
+                                 capacity_factor=2.0, dtype='float32',
+                                 dispatch='sparse', schedule=schedule)
+    out['expert'] = found
+
+
+def _table_lookup(mesh, table, ids, weights=None, cot=None, piece=False):
+    """A ``ShardedEmbedding(64, 8)`` over ``mesh`` with ``table`` on this
+    rank's rows of ``ids``: whole on every rank (the lookup cuts it), or
+    with ``piece`` this rank's rows of it (as the placed step hands a
+    table over); the output rows and, with ``cot``, the whole gradient of
+    ``sum(out * cot)`` summed over the batch axes."""
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.collectives import all_reduce_sum
+    from tpusystem_torch.parallel.sharding import (TABLE_AXES, TensorParallel,
+                                                   gather_leaf, local,
+                                                   table_row_spec)
+    from tpusystem_torch.recsys import ShardedEmbedding
+    module = ShardedEmbedding(64, 8, mesh=mesh, device='cpu')
+    whole = torch.from_numpy(table)
+    given = leaf = whole.clone().requires_grad_()
+    if piece:
+        placed = TensorParallel([(r'embedding$', table_row_spec(2))]).place(
+            {'embedding': whole}, mesh)['embedding']
+        leaf = local(placed).detach().requires_grad_()
+        given = gather_leaf(leaf, placed, mesh, keep=TABLE_AXES)
+    rows = batch_sharding(mesh)
+    found = torch.func.functional_call(
+        module, {'embedding': given},
+        (rows(ids), None if weights is None else rows(weights)))
+    record = dict(out=_numpy(found))
+    if cot is not None:
+        (grad,) = torch.autograd.grad((found * rows(cot)).sum(), [leaf])
+        grad = all_reduce_sum(grad, mesh, ('data', 'fsdp'))
+        if piece:
+            with torch.no_grad():
+                grad = gather_leaf(grad, placed, mesh)
+        record['grad'] = _numpy(grad)
+    return record
+
+
+def _recsys_steps(module, policy, mesh, batch, targets, optimizer,
+                  criterion, steps=3):
+    """``steps`` placed steps; the losses and the final parameters
+    gathered whole."""
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.sharding import gather_leaf, local
+    from tpusystem_torch.train import build_train_step, init_state, \
+        module_apply
+    state = policy.place(init_state(module, optimizer, rng=0), mesh)
+    step = build_train_step(module_apply(module), criterion, optimizer)
+    rows = batch_sharding(mesh)
+    inputs = {key: rows(value) for key, value in batch.items()}
+    losses = []
+    for _ in range(steps):
+        state, (_, loss) = step(state, inputs, rows(targets))
+        losses.append(float(loss))
+    with torch.no_grad():
+        params = {name: _numpy(gather_leaf(local(leaf), leaf, mesh))
+                  for name, leaf in state.params.items()}
+    return dict(losses=losses, params=params), state
+
+
+def tables(inputs, out):
+    """The table-parallel twins (``tests/test_recsys.py``) over data=2 x
+    model=2 x expert=2: the routed lookup forward and gradient from a whole
+    table and from this rank's rows, the DLRM drill (row-split tables
+    against replicated ones, with a table the axes do not divide), a
+    two-tower model, and a checkpoint and a memstore round trip of
+    row-split tables."""
+    from tpusystem_torch.checkpoint import (Checkpointer, HotState,
+                                            deserialize_state, merge_hot,
+                                            serialize_state)
+    from tpusystem_torch.checkpoint.memstore import ShardedLeaf
+    from tpusystem_torch.convert import params_from_jax
+    from tpusystem_torch.models import dlrm_tiny, two_tower_tiny
+    from tpusystem_torch.parallel import MeshSpec
+    from tpusystem_torch.parallel.sharding import (DataParallel,
+                                                   TensorParallel, local,
+                                                   shard_axes, whole_leaf)
+    from tpusystem_torch.recsys import ShardedEmbedding
+    from tpusystem_torch.registry import gethash
+    from tpusystem_torch.train import (SGD, AdamW, BCEWithLogitsLoss,
+                                       CrossEntropyLoss)
+    cases, found = inputs['tables'], {}
+    mesh = MeshSpec(data=2, model=2, expert=2).build()
+    plain, split = (ShardedEmbedding(64, 8, mesh=mesh_, device='cpu')
+                    for mesh_ in (None, mesh))
+    found['init'] = dict(equal=torch.equal(plain.embedding, split.embedding),
+                         digest=gethash(plain) == gethash(split))
+    forward, grads = cases['forward'], cases['grads']
+    for piece in (False, True):
+        name = 'piece' if piece else 'whole'
+        found[f'forward_{name}'] = _table_lookup(
+            mesh, forward['table'], forward['ids'], forward['weights'],
+            piece=piece)
+        found[f'grads_{name}'] = _table_lookup(
+            mesh, grads['table'], grads['ids'], cot=grads['cot'],
+            piece=piece)
+
+    batch = {key: value for key, value in cases['batch'].items()}
+    labels = cases['labels']
+    for name, vocabs in (('drill', (64, 32)), ('odd', (64, 33))):
+        record = {}
+        for kind in ('split', 'replicated'):
+            module = dlrm_tiny(vocabs=vocabs, device='cpu',
+                               mesh=mesh if kind == 'split' else None)
+            if name == 'drill':
+                module.load_state_dict(params_from_jax(cases['dlrm']),
+                                       strict=True)
+            policy = (TensorParallel(module.partition_rules())
+                      if kind == 'split' else DataParallel())
+            record[kind], state = _recsys_steps(
+                module, policy, mesh, batch, labels, AdamW(lr=1e-2),
+                BCEWithLogitsLoss())
+            if kind == 'split':
+                record['axes'] = {key: shard_axes(leaf)
+                                  for key, leaf in state.params.items()
+                                  if 'table' in key}
+        found[name] = record
+
+    towers = cases['towers']
+    record = {}
+    for kind in ('split', 'replicated'):
+        module = two_tower_tiny(device='cpu',
+                                mesh=mesh if kind == 'split' else None)
+        policy = (TensorParallel(module.partition_rules())
+                  if kind == 'split' else DataParallel())
+        record[kind], _ = _recsys_steps(
+            module, policy, mesh, towers['batch'], towers['targets'],
+            SGD(lr=0.1), CrossEntropyLoss())
+    found['towers'] = record
+
+    module = dlrm_tiny(mesh=mesh, device='cpu')
+    policy = TensorParallel(module.partition_rules())
+    _, state = _recsys_steps(module, policy, mesh, batch, labels,
+                             AdamW(lr=1e-2), BCEWithLogitsLoss(), steps=1)
+    root = inputs['root'] + '/tables'
+    with Checkpointer(root, async_save=False) as checkpointer:
+        checkpointer.save('recsys', 1, state)
+    torch.distributed.barrier()
+    from tpusystem_torch.train import init_state
+    blank = policy.place(init_state(dlrm_tiny(mesh=mesh, device='cpu'),
+                                    AdamW(lr=1e-2), rng=0), mesh)
+    with Checkpointer(root, async_save=False) as checkpointer:
+        restored = checkpointer.restore('recsys', blank, epoch=1)
+    pieces = lambda tree: {key: local(leaf) for key, leaf in tree.items()}
+    found['checkpoint'] = all(
+        torch.equal(local(restored.params[key]), value)
+        for key, value in pieces(state.params).items())
+    blank = policy.place(init_state(dlrm_tiny(mesh=mesh, device='cpu'),
+                                    AdamW(lr=1e-2), rng=0), mesh)
+    # every rank's blob carries its pieces: merged, as a restore merges them
+    blobs = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(blobs, serialize_state(state))
+    merged_blob = merge_hot([HotState(step=1, digest='', blob=blob)
+                             for blob in blobs]).blob
+    again = deserialize_state(merged_blob, blank)
+    table = state.params['table_0.embedding']
+    mine = ShardedLeaf.from_tensor(table)
+    everyone = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(everyone, mine)
+    merged = everyone[0]
+    for other in everyone[1:]:
+        merged = merged.merged(other)
+    found['memstore'] = dict(
+        equal=all(torch.equal(local(again.params[key]), value)
+                  for key, value in pieces(state.params).items()),
+        reassembled=torch.equal(merged.reassemble(), whole_leaf(table)),
+        pieces=len(merged.shards))
+    out['tables'] = found
+
+
 SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'mlp': train_mlp,
              'collectives': lambda inputs, out: collectives(out),
@@ -1475,7 +1821,8 @@ SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'schedule': schedule_rings, 'tp_impl': tp_impl,
              'tp_schedule': tp_schedule, 'tp_step': tp_step,
              'tp_mlp': tp_mlp, 'serve_tp': serve_tp,
-             'pipeline': pipeline, 'ring': ring}
+             'pipeline': pipeline, 'ring': ring, 'expert': expert,
+             'tables': tables}
 
 
 def launch(root, inputs: dict, ranks: int = 4, timeout: float = 240) -> list:

@@ -53,7 +53,7 @@ from typing import Any
 import torch
 
 from tpusystem_torch.parallel.sharding import (held_slices, is_distributed,
-                                               local)
+                                               local, whole_leaf)
 
 logger = logging.getLogger('tpusystem_torch.checkpoint')
 
@@ -221,7 +221,7 @@ class _Snapshot:
         self.writes = first is None or torch.distributed.get_rank() == first
         for path, leaf in leaves:
             if is_distributed(leaf):     # gathered whole: a collective
-                leaf = leaf.full_tensor()
+                leaf = whole_leaf(leaf)
             if not self.writes:
                 continue
             if not isinstance(leaf, torch.Tensor):

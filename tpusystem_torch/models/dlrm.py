@@ -21,13 +21,17 @@ reference's (TF32 stays off: ``torch.backends.cuda.matmul.allow_tf32`` is
 False by default). Weights are drawn from a generator seeded 0 on the
 module's device (lecun-normal kernels with std ``fan_in ** -0.5``, zero
 biases, tables normal with std 0.02); :meth:`DLRM.init_weights` redraws
-them. ``partition_rules`` (the reference's table placement on a mesh) and a
-``mesh`` that splits the tables are not ported yet (ROADMAP queue 1, 9f.
-Expert and table parallelism).
+them. Both ship the reference's ``partition_rules()`` (tables row-split
+over the ``expert``/``model`` axes, the MLPs replicated) and take a
+``mesh`` whose table axes split the tables: the step hands each table to
+its lookup as this rank's rows (:meth:`DLRM.keeps_split`), every other
+leaf whole. A table whose vocabulary the table axes do not divide stays
+whole (the policy drops the rule's axes) and takes the local lookup.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Sequence
 
 import torch
@@ -36,8 +40,19 @@ from torch import nn
 
 from tpusystem_torch.device import resolve_device
 from tpusystem_torch.models.gpt2 import Dense
+from tpusystem_torch.parallel.sharding import TABLE_AXES, table_row_spec
 from tpusystem_torch.recsys.embedding import ShardedEmbedding
 from tpusystem_torch.registry import register
+
+
+def _keeps_tables(module, name: str) -> tuple:
+    """The mesh axes a placed leaf reaches the forward split over: with a
+    ``mesh``, a table's rows stay split over the table axes (its lookup is
+    the routed one); every other leaf arrives whole."""
+    if module.mesh is None or not re.search(r'table(_\d+)?\.embedding$',
+                                            name):
+        return ()
+    return TABLE_AXES
 
 
 class _MLP(nn.Module):
@@ -96,7 +111,8 @@ class DLRM(nn.Module):
         dense_features: width of the dense input.
         bottom: bottom-MLP hidden widths (its output is ``dim`` wide).
         top: top-MLP hidden widths (its output is one logit).
-        mesh: must not split the tables.
+        mesh: a mesh of ranks whose ``expert``/``model`` axes row-split
+            the tables.
         impl / dedup: lookup knobs, passed to every table.
         device: the card unless ``'cpu'`` is asked for.
     """
@@ -152,6 +168,17 @@ class DLRM(nn.Module):
         logits = self.top(torch.cat([bottom, tri], -1))
         return logits[:, 0]
 
+    @staticmethod
+    def partition_rules():
+        """The reference's rules (``dlrm.py:123``): tables row-split over
+        the combined ``expert``/``model`` axes
+        (:func:`~tpusystem_torch.parallel.sharding.table_row_spec`); the
+        small MLPs replicated (``fsdp=True`` on the policy scatters them
+        anyway)."""
+        return ((r'table_\d+/embedding$', table_row_spec(2)),)
+
+    keeps_split = _keeps_tables
+
 
 register(DLRM, excluded_kwargs={'mesh', 'device'})
 
@@ -199,6 +226,14 @@ class TwoTower(nn.Module):
         user = self._tower('user', batch['user'])
         item = self._tower('item', batch['item'])
         return (user @ item.T) / self.temperature
+
+    @staticmethod
+    def partition_rules():
+        """The reference's rules (``dlrm.py:173``): both tables row-split
+        over the ``expert``/``model`` axes."""
+        return ((r'(user|item)_table/embedding$', table_row_spec(2)),)
+
+    keeps_split = _keeps_tables
 
 
 register(TwoTower, excluded_kwargs={'mesh', 'device'})

@@ -50,9 +50,9 @@ layer (:mod:`tpusystem_torch.models.scan`). With ``moe_experts`` (or
 ``scan_unit > 1``) the template is a :class:`BlockSpan` of ``d_{i}`` and
 ``moe_{i}`` blocks, stacked per span. Decode mode stacks the caches too
 (``hs/attn/key`` is ``[layers, batch, max_seq, heads, head_dim]``). A
-scanned training forward with dropout raises ``NotImplementedError``: the
-reference's per-layer keys come from ``nn.scan``'s ``split_rngs``, which the
-port does not derive. ``attention='ring'`` or ``'ulysses'`` with a
+scanned training forward drops with ``nn.scan``'s per-unit keys
+(``split_rngs={'dropout': True}``, :func:`scanned_dropout_keys`).
+``attention='ring'`` or ``'ulysses'`` with a
 ``mesh`` is sequence parallelism (:mod:`tpusystem_torch.ops.ring`): a rank
 holds its chunk of every row's positions over the ``seq`` axis, embedded at
 their global positions, and attends over the ring (the step sums over
@@ -85,10 +85,11 @@ from tpusystem_torch.ops.attention import (apply_dropout, attend,
                                           cached_attention)
 from tpusystem_torch.ops.moe import MoEMLP, init_parameter
 from tpusystem_torch.ops.precision import head_logits
-from tpusystem_torch.ops.threefry import as_key, make_rng
+from tpusystem_torch.ops.threefry import as_key, make_rng, split
 from tpusystem_torch.parallel.collectives import (copy_to, gather_from,
                                                   reduce_from, scatter_to)
-from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL, SEQ, STAGE
+from tpusystem_torch.parallel.mesh import (DATA, EXPERT, FSDP, MODEL, SEQ,
+                                           STAGE)
 from tpusystem_torch.parallel.overlap import DenseParams
 from tpusystem_torch.parallel.schedule import (over_fsdp_whole,
                                                resolve_schedule,
@@ -330,7 +331,8 @@ class BlockSpan(nn.Module):
     ``i`` is MoE iff ``i % moe_every == moe_every - 1`` (named ``moe_{i}``,
     dense ones ``d_{i}``). ``attentions`` maps each block's name to its
     attention function. Returns ``hidden``, or ``(hidden, aux)`` with the
-    mean router loss of the span's MoE blocks."""
+    mean router loss of the span's MoE blocks. ``keys`` maps each block's
+    name to its two output-dropout keys."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int, span: int, *,
                  device, moe: dict | None = None, moe_every: int = 2) -> None:
@@ -344,12 +346,12 @@ class BlockSpan(nn.Module):
             self.names.append(name)
 
     def forward(self, hidden, dtype, attentions: dict, rate: float = 0.0,
-                tp: tuple | None = None):
+                tp: tuple | None = None, keys: dict | None = None):
         aux_terms = []
         for name in self.names:
             block = getattr(self, name)
-            out = block(hidden, dtype, attentions[name], rate, (None, None),
-                        tp)
+            out = block(hidden, dtype, attentions[name], rate,
+                        (keys or {}).get(name, (None, None)), tp)
             if block.moe is not None:
                 hidden, aux = out
                 aux_terms.append(aux)
@@ -376,8 +378,10 @@ def _clone_moe(block: Block, layer_updates: dict) -> Block:
 # full capacity (capacity = the call's token count), so routing drops no
 # token and a row's experts never depend on its co-batched neighbours
 MOE_LAYER_FIELDS = {'moe_k': 'k', 'moe_capacity_factor': 'capacity_factor',
+                    'moe_exchange': 'exchange',
                     'moe_sparse_impl': 'sparse_impl', 'dtype': 'dtype',
-                    'decode': 'full_capacity'}
+                    'decode': 'full_capacity', 'mesh': 'mesh',
+                    'schedule': 'schedule'}
 
 
 def block_tp_rules() -> tuple:
@@ -412,6 +416,27 @@ def dropout_keys(rng, layers: int) -> tuple:
     return make_rng(rng, ('Dropout_0',)), blocks
 
 
+def scanned_dropout_keys(rng, units: int, names) -> list[dict]:
+    """The dropout keys of a scanned stack's ``units`` units from the
+    step's key ``rng``: for each unit ``{name: (attention, attention
+    output, FFN output)}`` over its blocks' ``names`` (``None`` for a plain
+    block template). ``nn.scan(split_rngs={'dropout': True})`` gives unit
+    ``j`` key ``j`` of ``split(rng, units)`` in place of ``rng``, under the
+    template's path ``hs`` (``tpusystem/models/gpt2.py:440``); a block's
+    sites then take flax's ``make_rng`` keys below it, each at count 2:
+    flax traces the scanned body twice (once to find its carry's shape),
+    and every trace advances the sites' counters."""
+    out = []
+    for unit in split(as_key(rng), units):
+        keys = {}
+        for name in names:
+            path = ('hs',) if name is None else ('hs', name)
+            keys[name] = tuple(make_rng(unit, path + (site,), count=2)
+                               for site in ('attn', 'Dropout_0', 'Dropout_1'))
+        out.append(keys)
+    return out
+
+
 class GPT2(nn.Module):
     """Decoder-only transformer with learned positions and tied LM head.
 
@@ -432,14 +457,21 @@ class GPT2(nn.Module):
     :class:`~tpusystem_torch.parallel.schedule.OverlapSchedule`) route the
     dense FFN through :func:`~tpusystem_torch.parallel.schedule.scheduled_ffn`
     where :func:`~tpusystem_torch.parallel.schedule.schedule_applicable`
-    holds. None of them changes the parameter tree."""
+    holds. The expert layers take the mesh too: over an ``expert`` axis
+    each rank holds its experts (:meth:`keeps_split`) and the rows cross by
+    ``moe_exchange`` (``'quota'``, ``'ragged'``, ``'ragged-emulated'``;
+    ``schedule``'s ``moe=`` arm pipelines the quota exchange), or by the
+    dense dispatch where the reference's blocker falls back
+    (:class:`~tpusystem_torch.ops.moe.MoEMLP`). None of them changes the
+    parameter tree."""
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'attn_dropout', 'remat',
               'scan_layers', 'scan_unit',
               'return_features', 'decode', 'per_row_decode', 'decode_pages',
               'moe_experts', 'moe_every', 'moe_k', 'moe_capacity_factor',
-              'moe_sparse_impl', 'mesh', 'tp_impl', 'tp_chunks', 'schedule')
+              'moe_exchange', 'moe_sparse_impl', 'mesh', 'tp_impl',
+              'tp_chunks', 'schedule')
 
     def __init__(self, vocab_size: int = 50257, layers: int = 12,
                  dim: int = 768, heads: int = 12, max_seq: int = 1024,
@@ -453,6 +485,7 @@ class GPT2(nn.Module):
                  decode_pages: tuple | None = None, moe_experts: int = 0,
                  moe_every: int = 2, moe_k: int = 2,
                  moe_capacity_factor: float = 1.25,
+                 moe_exchange: str = 'quota',
                  moe_sparse_impl: str = 'gather', mesh=None,
                  tp_impl: str = 'gspmd', tp_chunks: int = 1, schedule=None,
                  device=None) -> None:
@@ -471,7 +504,8 @@ class GPT2(nn.Module):
         self.moe_experts, self.moe_every, self.moe_k = (moe_experts,
                                                         moe_every, moe_k)
         self.moe_capacity_factor = moe_capacity_factor
-        self.moe_sparse_impl = moe_sparse_impl
+        self.moe_exchange, self.moe_sparse_impl = (moe_exchange,
+                                                   moe_sparse_impl)
         self.mesh, self.tp_impl, self.tp_chunks = mesh, tp_impl, tp_chunks
         self.schedule = schedule
         compute_dtype(dtype)                               # validates
@@ -519,11 +553,14 @@ class GPT2(nn.Module):
 
     def keeps_split(self, name: str) -> tuple:
         """The mesh axes the forward takes the placed leaf ``name`` split
-        over (the step gathers it over the others): ``model`` for every
-        leaf but the experts', and ``fsdp`` too for the FFN kernels under
+        over (the step gathers it over the others): ``expert`` for the
+        expert layers' leaves (each rank runs its own experts), ``model``
+        for every other leaf, and ``fsdp`` too for the FFN kernels under
         ``schedule.fsdp='prefetch'``, which the scheduled FFN gathers."""
-        if self.mesh is None or '.moe.' in name:
+        if self.mesh is None:
             return ()
+        if '.moe.' in name:
+            return (EXPERT,)
         prefetch = self.tp[1].fsdp == 'prefetch' and re.search(
             r'(^|\.)(fc|proj)\.kernel$', name)
         return (MODEL, FSDP) if prefetch else (MODEL,)
@@ -740,15 +777,9 @@ class GPT2(nn.Module):
         else:
             positions = steps + sequence_offset(self.attention, self.mesh,
                                                 length)
-        if self.scan_layers and (rate or attn_rate):
-            raise NotImplementedError(
-                'a scan_layers training forward with dropout is not ported '
-                'to tpusystem_torch yet: the per-layer keys of nn.scan\'s '
-                "split_rngs are not derived (ROADMAP queue 1: 7. Train-step "
-                'remainders)')
         # every mask's key, derived before any block runs (see the docstring)
-        embed_key, block_keys = (dropout_keys(rng, self.layers)
-                                 if rate or attn_rate
+        dropping = bool(rate or attn_rate)
+        embed_key, block_keys = (dropout_keys(rng, self.layers) if dropping
                                  else (None, [(None,) * 3] * self.layers))
         mesh, tp = self.mesh, self.tp
         embedded = (vocab_lookup(self.wte.embedding, tokens, mesh)
@@ -757,8 +788,9 @@ class GPT2(nn.Module):
         aux_losses = []
         remat = self.remat and not self.decode and torch.is_grad_enabled()
         if self.scan_layers:
-            hidden, aux_losses = self._scanned(hidden, dtype, cache, depth,
-                                               remat)
+            hidden, aux_losses = self._scanned(
+                hidden, dtype, cache, depth, remat, rate, attn_rate,
+                rng if dropping else None)
         for index, block in enumerate(() if self.scan_layers
                                       else self.blocks()):
             attn_key, *output_keys = block_keys[index]
@@ -806,16 +838,23 @@ class GPT2(nn.Module):
             return local_heads(attention, self.mesh)
         return attention
 
-    def _scanned(self, hidden, dtype, cache, depth, remat):
+    def _scanned(self, hidden, dtype, cache, depth, remat, rate=0.0,
+                 attn_rate=0.0, rng=None):
         """The scanned stack: the template applied to each unit's parameter
         slices (one ``unbind`` a parameter); in decode mode each unit reads
-        and writes its slice of the stacked caches."""
+        and writes its slice of the stacked caches. With ``rng`` each unit
+        drops with its :func:`scanned_dropout_keys`."""
         template, prefixes = self.hs, self.scan_prefixes()
         strips: dict[str, list] = {}
         aux_terms = []
-        for unit, slices in enumerate(layer_slices(template,
-                                                   self.stacked_names)):
+        units = layer_slices(template, self.stacked_names)
+        names = [name for name, _ in prefixes]
+        unit_keys = (scanned_dropout_keys(rng, len(units), names)
+                     if rng is not None
+                     else [dict.fromkeys(names, (None,) * 3)] * len(units))
+        for unit, slices in enumerate(units):
             attentions = {}
+            keys = unit_keys[unit]
             for name, prefix in prefixes:
                 attentions[name] = (self._cached(functools.partial(
                     cached_attention, cache=unit_cache(cache, prefix, unit,
@@ -823,10 +862,12 @@ class GPT2(nn.Module):
                     prefix=prefix, max_seq=self.max_seq,
                     per_row=self.per_row_decode, pages=self.decode_pages,
                     depth=depth)) if self.decode else functools.partial(
-                        attend, kernel=self.attention, mesh=self.mesh))
+                        attend, kernel=self.attention, mesh=self.mesh,
+                        dropout=attn_rate, rng=keys[name][0]))
             span = isinstance(template, BlockSpan)
-            args = ((dtype, attentions, 0.0, self.tp) if span
-                    else (dtype, attentions[None], 0.0, (None, None),
+            args = ((dtype, attentions, rate, self.tp,
+                     {name: key[1:] for name, key in keys.items()}) if span
+                    else (dtype, attentions[None], rate, keys[None][1:],
                           self.tp))
             hidden = apply_unit(template, self.stacked_names, slices, hidden,
                                 args, remat)

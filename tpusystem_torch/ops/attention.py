@@ -19,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from tpusystem_torch.ops.cuda.threefry import bernoulli_mask
-from tpusystem_torch.ops.threefry import flash_seed
 
 NEG_INF = -1e30
 FLASH_MIN_LENGTH = 512      # prefill lengths routed to the flash kernel
@@ -106,7 +105,10 @@ def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
     attention probabilities with masks from the threefry key ``rng`` (the
     reference's ``dropout_rng``): ``bernoulli`` on it over the weights on
     ``'xla'``; on ``'flash'`` the kernels' positional hash of the seed
-    ``randint(rng, (1,), 0, 2**31 - 1)`` (``flash.py:773``). ``mesh`` (a
+    ``randint(rng, (1,), 0, 2**31 - 1)`` (``flash.py:773``), or at lengths
+    the reference's blocks do not tile the ``'xla'`` masks, as its flash
+    call falls back there (:func:`~tpusystem_torch.ops.cuda.flash.
+    dropped_attention`). ``mesh`` (a
     mesh of ranks, the reference's ``attention.py:64``) runs ``'flash'``
     as :func:`~tpusystem_torch.ops.cuda.flash.sharded_flash_attention`,
     this rank's heads through the kernels; ``'xla'`` computes every head,
@@ -122,15 +124,17 @@ def attend(query, key, value, *, kernel: str = 'xla', dropout: float = 0.0,
         return dot_product_attention(query, key, value, causal=True,
                                      dropout=dropout, rng=rng)
     if kernel == 'flash':
-        from tpusystem_torch.ops.cuda.flash import (flash_attention,
+        from tpusystem_torch.ops.cuda.flash import (dropped_attention,
+                                                    flash_attention,
                                                     sharded_flash_attention)
         if mesh is not None:
             return sharded_flash_attention(query, key, value, mesh,
                                            causal=True, dropout=dropout,
                                            rng=rng)
-        seed = flash_seed(rng) if dropout else None
-        return flash_attention(query, key, value, causal=True,
-                               dropout=dropout, seed=seed)
+        if dropout:
+            return dropped_attention(query, key, value, causal=True,
+                                     dropout=dropout, rng=rng)
+        return flash_attention(query, key, value, causal=True)
     if dropout:
         raise ValueError('attention-probability dropout is only implemented '
                          f"on the 'xla' and 'flash' kernels, not {kernel!r}")

@@ -607,6 +607,47 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
                                  float(dropout), seed)
 
 
+LANES = 128   # the reference's tile granule (``flash.py:47``)
+
+
+def _fit_block(seq: int, want: int = 1024) -> int | None:
+    """The reference's tile for a length (``flash.py:397``): the largest
+    multiple of 128 up to ``want`` that divides ``seq``; one block of
+    ``seq`` up to 128 rows if it is a multiple of 8; else ``None``."""
+    want = min(want, seq)
+    if seq <= LANES:
+        return seq if seq % 8 == 0 else None
+    best = None
+    for candidate in range(LANES, want + 1, LANES):
+        if seq % candidate == 0:
+            best = candidate
+    return best
+
+
+def reference_tiles(seq_q: int, seq_kv: int) -> bool:
+    """Whether the reference's flash call runs its kernels at these lengths
+    (its default 1,024-row blocks, ``flash.py:417``). Where it does not,
+    it attends through XLA (``flash.py:794``), whose probability dropout
+    draws ``bernoulli`` over the weights; the port's kernels take any
+    length, so only dropout needs the reference's route there."""
+    return _fit_block(seq_q) is not None and _fit_block(seq_kv) is not None
+
+
+def dropped_attention(query, key, value, *, causal: bool, dropout: float,
+                      rng):
+    """Attention with probability dropout as the reference's flash call
+    runs it: the kernels with their positional hash of ``rng``'s seed
+    where :func:`reference_tiles` holds, else the ``'xla'`` path's
+    ``bernoulli`` masks of ``rng`` over the weights."""
+    from tpusystem_torch.ops.attention import dot_product_attention
+    from tpusystem_torch.ops.threefry import flash_seed
+    if reference_tiles(query.shape[1], key.shape[1]):
+        return flash_attention(query, key, value, causal=causal,
+                               dropout=dropout, seed=flash_seed(rng))
+    return dot_product_attention(query, key, value, causal=causal,
+                                 dropout=dropout, rng=rng)
+
+
 def flash_attention(query, key, value, *, causal: bool = True,
                     backward: str = 'fused', dropout: float = 0.0,
                     seed: int | None = None):
@@ -630,12 +671,12 @@ def sharded_flash_attention(query, key, value, mesh, *, causal: bool = True,
     KV is broadcast to the query heads first, with the reference's
     warning. Under dropout the threefry key ``rng`` is folded with the
     index of each axis of more than one rank, ``data``, ``fsdp``, then
-    ``model`` (the reference's order), before the kernels' seed is drawn
-    from it, so the ranks' masks decorrelate."""
+    ``model`` (the reference's order), so the ranks' masks decorrelate,
+    and drops as :func:`dropped_attention` does on this rank's heads."""
     import warnings
 
     from tpusystem_torch.ops.attention import repeat_kv_heads
-    from tpusystem_torch.ops.threefry import flash_seed, fold_in
+    from tpusystem_torch.ops.threefry import fold_in
     from tpusystem_torch.parallel.collectives import gather_from, scatter_to
     from tpusystem_torch.parallel.mesh import DATA, FSDP, MODEL
 
@@ -650,17 +691,16 @@ def sharded_flash_attention(query, key, value, mesh, *, causal: bool = True,
             "divides the KV head count to keep grouped KV.",
             stacklevel=2)
         key, value = repeat_kv_heads(query, key, value)
-    seed = None
     if dropout:
         for axis in (DATA, FSDP, MODEL):
             if mesh.shape[axis] > 1:
                 rng = fold_in(rng, mesh.axis_index(axis))
-        seed = flash_seed(rng)
     if split:
         query, key, value = (scatter_to(t, mesh, MODEL, dimension=2)
                              for t in (query, key, value))
-    out = flash_attention(query, key, value, causal=causal, dropout=dropout,
-                          seed=seed)
+    out = (dropped_attention(query, key, value, causal=causal,
+                             dropout=dropout, rng=rng) if dropout
+           else flash_attention(query, key, value, causal=causal))
     return gather_from(out, mesh, MODEL, dimension=2) if split else out
 
 

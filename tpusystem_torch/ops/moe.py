@@ -1,4 +1,5 @@
-"""Mixture-of-experts FFN: the port of :mod:`tpusystem.ops.moe`, one device.
+"""Mixture-of-experts FFN and expert parallelism: the port of
+:mod:`tpusystem.ops.moe`.
 
 Experts live as stacked float32 master weights with a leading ``experts``
 dimension, cast to the compute dtype per use. A float32 router picks each
@@ -25,9 +26,31 @@ Two dispatch formulations behind :class:`MoEMLP`:
   reuses both kernels with swapped operands).
 * ``'dense'``: one-hot dispatch/combine einsums.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: a mesh of more than one device (the sharded quota and ragged
-exchanges) and the overlap ``schedule``.
+On a mesh of ranks (:mod:`tpusystem_torch.parallel`) the layer's rows are
+this rank's rows of the batch, whole over ``expert`` (the step splits the
+batch over ``data``/``fsdp`` only), and its expert stacks this rank's
+experts (the step keeps them split over ``expert``; a whole stack is cut
+here, its gradient summed over ``expert``). The sharded sparse path takes
+the rank's chunk of the rows over ``(data, fsdp, seq, expert)`` on the
+way in and gathers the chunks back on the way out (the conjugate pair
+``scatter_to``/``gather_from``), routes the chunk with the router summed
+over ``expert`` backward (``copy_to``), and moves the routed rows to their
+experts' owners by one of three exchanges (``exchange``):
+
+* ``'quota'``: each sender seats its assignments choice-major into a fixed
+  per-expert quota, one even ``all_to_all`` over ``expert`` each way;
+  ``schedule=OverlapSchedule(moe='overlap')`` splits the rows into pieces
+  (:func:`~tpusystem_torch.parallel.schedule.moe_plan`) and issues piece
+  ``k+1``'s dispatch before piece ``k``'s expert products.
+* ``'ragged'``: the actual routed rows (``all_to_all_single`` with split
+  sizes from the gathered count matrix), seated at the receiver in global
+  ``(choice, token)`` order within the expert group;
+  ``'ragged-emulated'`` the same seating over an all-gather.
+
+The router losses are means over every row shard. ``'auto'`` falls back
+to the dense path where the reference's blocker names a reason: every rank
+routes the whole batch, computes its own experts and sums the partial
+outputs over ``expert``.
 """
 
 from __future__ import annotations
@@ -39,15 +62,20 @@ from torch import nn
 from tpusystem_torch.device import compute_dtype, resolve_device
 from tpusystem_torch.ops.cuda.grouped_matmul import (gather_rows_matmul,
                                                      matmul_scatter_rows)
+from tpusystem_torch.parallel.collectives import (_raw_all_gather,
+                                                  all_gather, all_reduce_sum,
+                                                  all_to_all, copy_to,
+                                                  gather_from, live_axes,
+                                                  ragged_all_to_all,
+                                                  reduce_from, scatter_to)
+from tpusystem_torch.parallel.mesh import DATA, EXPERT, FSDP, MODEL, SEQ
+from tpusystem_torch.parallel.schedule import MoePlan, moe_plan
+from tpusystem_torch.parallel.sharding import constrain_expert_major
 
 DISPATCHES = ('auto', 'sparse', 'dense')
 SPARSE_IMPLS = ('gather', 'scatter', 'fused')
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f'{what} is not ported to tpusystem_torch yet '
-                               '(ROADMAP queue 1: 9. Multi-GPU parallelism, '
-                               '9f. Expert and table parallelism)')
+EXCHANGES = ('quota', 'ragged', 'ragged-emulated')
+ROW_AXES = (DATA, FSDP, SEQ, EXPERT)
 
 
 def moe_partition_rules():
@@ -339,6 +367,30 @@ def init_parameter(name: str, param, generator) -> None:
         param.zero_()
 
 
+def _sparse_combine(buffer, slots, token_ids, weights, tokens: int,
+                    compute):
+    """``out[t] = sum of weights[i] * buffer[slots[i]]`` over the
+    assignments ``i`` of token ``t``, in assignment order (a dropped slot
+    reads zeros), in ``compute``: the scatter impl's combine."""
+    gathered = _take(buffer, slots)
+    return buffer.new_zeros((tokens, buffer.shape[1]), dtype=compute).index_add(
+        0, token_ids, gathered * weights[:, None].to(compute))
+
+
+def _seat_rows(rows, token_ids, slots, buffer_rows: int, compute):
+    """The ``[buffer_rows, dim]`` send buffer: row ``slots[i]`` holds token
+    ``token_ids[i]``'s row (an assignment whose slot is out of range is
+    dropped), the rest zeros; differentiable in ``rows``."""
+    kept = slots < buffer_rows
+    return rows.new_zeros((buffer_rows, rows.shape[1]), dtype=compute
+                          ).index_put((slots[kept],),
+                                      rows.to(compute)[token_ids[kept]])
+
+
+def _exclusive_cumsum(counts, dim: int = 0):
+    return torch.cumsum(counts, dim) - counts
+
+
 class MoEMLP(nn.Module):
     """Expert FFN, the drop-in for the dense fc -> gelu -> proj block.
 
@@ -347,8 +399,20 @@ class MoEMLP(nn.Module):
     Parameters keep the reference's names and shapes: ``router`` ``[dim,
     experts]``, ``w1`` ``[experts, dim, mlp_ratio * dim]``, ``b1``, ``w2``,
     ``b2``, float32. ``full_capacity`` seats every assignment (capacity =
-    tokens). ``mesh`` (more than one device), ``exchange`` other than
-    ``'quota'`` and ``schedule`` are the sharded paths, not ported yet."""
+    tokens).
+
+    ``mesh`` (a mesh of ranks) runs the expert-parallel paths of the module
+    docstring, chosen as the reference chooses (``moe.py:560``): ``'auto'``
+    takes the sharded sparse path unless :meth:`sharded_sparse_blocker`
+    names a reason, and then the dense one; an explicit ``'sparse'`` raises
+    with that reason; ``sparse_impl='fused'`` with an explicit ``'sparse'``
+    raises (the grouped kernels are single-shard), under ``'auto'`` the
+    exchange runs instead. ``exchange`` is ``'quota'``, ``'ragged'`` or
+    ``'ragged-emulated'``; ``schedule`` an
+    :class:`~tpusystem_torch.parallel.schedule.OverlapSchedule` whose
+    ``moe=`` arm governs the quota exchange. After a sharded forward
+    :attr:`seated` counts the assignments this rank's senders (quota) or
+    experts (ragged) seated, on the device."""
 
     def __init__(self, dim: int, experts: int, k: int = 2,
                  mlp_ratio: int = 4, capacity_factor: float = 1.25,
@@ -358,12 +422,6 @@ class MoEMLP(nn.Module):
                  full_capacity: bool = False, schedule=None, *,
                  device=None) -> None:
         super().__init__()
-        if mesh is not None and getattr(mesh, 'size', 1) > 1:
-            raise _not_ported('MoE on a multi-device mesh')
-        if exchange != 'quota':
-            raise _not_ported(f'the {exchange!r} MoE exchange')
-        if schedule is not None:
-            raise _not_ported('the MoE overlap schedule')
         if dispatch not in DISPATCHES:
             raise ValueError(f'unknown dispatch {dispatch!r}; expected '
                              "'sparse', 'dense' or 'auto'")
@@ -377,6 +435,8 @@ class MoEMLP(nn.Module):
         self.balance_coef, self.z_coef = balance_coef, z_coef
         self.dispatch, self.sparse_impl = dispatch, sparse_impl
         self.full_capacity = full_capacity
+        self.mesh, self.exchange, self.schedule = mesh, exchange, schedule
+        self.seated = None
         hidden = mlp_ratio * dim
         self.router = nn.Parameter(torch.empty(dim, experts, device=device))
         self.w1 = nn.Parameter(torch.empty(experts, dim, hidden,
@@ -392,12 +452,70 @@ class MoEMLP(nn.Module):
         for name, param in self.named_parameters():
             init_parameter(name, param, generator)
 
+    def _mode(self, tokens: int) -> str:
+        """``'sparse'``, ``'dense'`` or ``'sparse_sharded'``, as the
+        reference picks (``moe.py:560-577``); ``tokens`` are this rank's
+        rows."""
+        mesh = self.mesh
+        sharded = mesh is not None and getattr(mesh, 'size', 1) > 1
+        if self.dispatch == 'auto':
+            if not sharded:
+                return 'sparse'
+            return ('dense' if self.sharded_sparse_blocker(tokens)
+                    else 'sparse_sharded')
+        if self.dispatch == 'sparse' and sharded:
+            problem = self.sharded_sparse_blocker(tokens)
+            if problem:
+                raise ValueError(
+                    f'dispatch=sparse on a multi-device mesh: {problem} '
+                    f"(use dispatch='auto' to fall back to dense)")
+            return 'sparse_sharded'
+        return self.dispatch
+
+    def sharded_sparse_blocker(self, tokens: int) -> str | None:
+        """Why the sharded sparse path cannot run on this layer's mesh
+        (``None``: it can), the reference's reasons (``moe.py:687``).
+        ``tokens`` are this rank's rows, whole over ``expert`` and
+        ``model``."""
+        shape = dict(self.mesh.shape)
+        missing = [axis for axis in ROW_AXES if axis not in shape]
+        if missing:
+            return (f'mesh lacks the standard row axes {missing} the '
+                    'sparse dispatch shards over')
+        batch = shape[DATA] * shape[FSDP] * shape[SEQ]
+        shards = batch * shape[EXPERT]
+        if shape.get(MODEL, 1) > 1:
+            return 'model-axis TP inside experts is dense-only'
+        if self.experts % shape[EXPERT]:
+            return (f'{self.experts} experts not divisible by the expert '
+                    f'axis ({shape[EXPERT]})')
+        if (tokens * batch) % shards:
+            return (f'{tokens * batch} token rows not divisible by '
+                    f'data*fsdp*seq*expert = {shards}')
+        return None
+
     def forward(self, hidden):
         batch_shape, dim = hidden.shape[:-1], hidden.shape[-1]
         flat = hidden.reshape(-1, dim)
         tokens = flat.shape[0]
         compute = compute_dtype(self.dtype)
-        mode = 'sparse' if self.dispatch == 'auto' else self.dispatch
+        mode = self._mode(tokens)
+        if mode == 'sparse_sharded':
+            if self.sparse_impl == 'fused' and self.dispatch == 'sparse':
+                raise ValueError(
+                    "sparse_impl='fused' is single-shard only; on a "
+                    'multi-device mesh the sharded sparse path uses its '
+                    "exchange formulation (see exchange=). Use "
+                    "sparse_impl='gather' there, or dispatch='auto' to "
+                    'accept the sharded formulation.')
+            if self.exchange not in EXCHANGES:
+                raise ValueError(f'unknown exchange {self.exchange!r}; '
+                                 "expected 'quota', 'ragged' or "
+                                 "'ragged-emulated'")
+            output, aux = self._sharded(hidden, compute)
+            return output.to(hidden.dtype), aux
+        if mode == 'dense' and self.mesh is not None and self.mesh.size > 1:
+            return self._dense_on_mesh(hidden, compute)
 
         logits = flat.float() @ self.router
         gates = torch.softmax(logits, -1)
@@ -410,10 +528,8 @@ class MoEMLP(nn.Module):
         else:
             dispatch, combine, fraction = route_top_k(gates, self.k,
                                                       capacity)
-        # Switch load balance: experts * <fraction dispatched * mean prob>
-        balance = self.experts * (fraction * _mean(gates)).sum()
-        z_term = _mean(torch.logsumexp(logits, -1).square())
-        aux = self.balance_coef * balance + self.z_coef * z_term
+        aux = self._aux(fraction, _mean(gates), _mean(
+            torch.logsumexp(logits, -1).square()))
 
         w1, b1 = self.w1.to(compute), self.b1.to(compute)
         w2, b2 = self.w2.to(compute), self.b2.to(compute)
@@ -431,18 +547,14 @@ class MoEMLP(nn.Module):
                 expert_in = _GatherDispatch.apply(flat.to(compute),
                                                   slot_token, slots_by_choice)
             else:
-                kept = slots < self.experts * capacity
-                rows = flat.to(compute)[token_ids]
-                expert_in = flat.new_zeros((self.experts * capacity, dim),
-                                           dtype=compute).index_put(
-                    (slots[kept],), rows[kept])
+                expert_in = _seat_rows(flat, token_ids, slots,
+                                       self.experts * capacity, compute)
             expert_in = expert_in.reshape(self.experts, capacity, dim)
         else:
             expert_in = torch.einsum('nec,nd->ecd', dispatch.to(compute),
                                      flat.to(compute))
 
-        grown = _gelu(torch.matmul(expert_in, w1) + b1[:, None])
-        shrunk = torch.matmul(grown, w2) + b2[:, None]
+        shrunk = _ffn(expert_in, w1, b1, w2, b2)
 
         if mode == 'sparse':
             buffer = shrunk.reshape(self.experts * capacity, dim)
@@ -451,10 +563,305 @@ class MoEMLP(nn.Module):
                                               slots_by_choice, slot_token,
                                               slot_asg)
             else:
-                gathered = _take(buffer, slots)
-                output = flat.new_zeros((tokens, dim),
-                                        dtype=compute).index_add(
-                    0, token_ids, gathered * weights[:, None].to(compute))
+                output = _sparse_combine(buffer, slots, token_ids, weights,
+                                         tokens, compute)
         else:
             output = torch.einsum('nec,ecd->nd', combine.to(compute), shrunk)
         return output.reshape(*batch_shape, dim).to(hidden.dtype), aux
+
+    def _aux(self, fraction, mean_gates, z_term):
+        """Switch load balance plus router z-loss, with the coefficients."""
+        balance = self.experts * (fraction * mean_gates).sum()
+        return self.balance_coef * balance + self.z_coef * z_term
+
+    # -- expert parallelism ------------------------------------------------
+
+    def _local_experts(self, compute) -> list:
+        """``w1, b1, w2, b2`` of this rank's experts in ``compute``: a
+        stack the step hands over split over ``expert`` as it is, a whole
+        one cut to this rank's block, its gradient summed over ``expert``
+        (every rank computes only its own block's)."""
+        mesh = self.mesh
+        count = self.experts // mesh.shape[EXPERT]
+        start = mesh.axis_index(EXPERT) * count
+        pieces = []
+        for leaf in (self.w1, self.b1, self.w2, self.b2):
+            if leaf.shape[0] != count:
+                leaf = copy_to(leaf, mesh, EXPERT).narrow(0, start, count)
+            pieces.append(leaf.to(compute))
+        return pieces
+
+    def _chunk(self, hidden):
+        """This rank's chunk of the rows over ``(data, fsdp, seq,
+        expert)``, ``[rows, dim]``, as the reference's row sharding cuts the
+        flat global batch: over a ``seq`` axis of more than one rank the
+        positions are gathered first and the rows of the batch split over
+        ``(seq, expert)``."""
+        mesh, dim = self.mesh, hidden.shape[-1]
+        spread = mesh.shape[SEQ] > 1 and hidden.dim() >= 3
+        if spread:
+            hidden = gather_from(hidden, mesh, SEQ, dimension=1)
+        flat = hidden.reshape(-1, dim)
+        if spread:
+            flat = scatter_to(flat, mesh, SEQ, dimension=0)
+        return scatter_to(flat, mesh, EXPERT, dimension=0)
+
+    def _unchunk(self, chunk, hidden):
+        """The inverse of :meth:`_chunk`: this rank's rows (and positions)
+        of the layer's output, ``hidden``'s shape."""
+        mesh = self.mesh
+        out = gather_from(chunk, mesh, EXPERT, dimension=0)
+        if mesh.shape[SEQ] > 1 and hidden.dim() >= 3:
+            out = all_gather(out, mesh, SEQ, dimension=0)
+            whole = out.reshape(hidden.shape[0], -1, *hidden.shape[2:])
+            length = hidden.shape[1]
+            out = whole.narrow(1, mesh.axis_index(SEQ) * length, length)
+        return out.reshape(hidden.shape)
+
+    def _row_mean(self, value):
+        """The mean of ``value`` over every row shard ``(data, fsdp, seq,
+        expert)`` (the reference's ``pmean``): the sum over ``expert``
+        forward only (the ``expert`` ranks' losses are one replicated loss,
+        so its gradient reaches each chunk once), then over the batch
+        axes, whose gradient sums too."""
+        mesh = self.mesh
+        total = reduce_from(value, mesh, EXPERT)
+        batch = live_axes(mesh, (DATA, FSDP, SEQ))
+        if batch:
+            total = all_reduce_sum(total, mesh, batch)
+        return total / mesh.axis_size(ROW_AXES)
+
+    def _routed(self, rows):
+        """Router logits and gates of the rank's chunk (the router's
+        gradient summed over ``expert``)."""
+        router = copy_to(self.router, self.mesh, EXPERT)
+        logits = rows.float() @ router
+        return logits, torch.softmax(logits, -1)
+
+    def _sharded_aux(self, top_first, logits, gates):
+        fraction = _mean(_one_hot(top_first, self.experts))
+        return self._aux(self._row_mean(fraction),
+                         self._row_mean(_mean(gates)),
+                         self._row_mean(_mean(torch.logsumexp(
+                             logits, -1).square())))
+
+    def _sharded(self, hidden, compute):
+        rows = self._chunk(hidden)
+        pieces = self._local_experts(compute)
+        if self.exchange == 'quota':
+            output, aux = self._sharded_sparse(rows, pieces, compute)
+        else:
+            output, aux = self._sharded_ragged(rows, pieces, compute)
+        return self._unchunk(output, hidden), aux
+
+    def _expert_pass(self, recv, quota: int, pieces):
+        """Seated arrivals ``[experts * quota, dim]`` (sender-major) ->
+        this rank's expert FFN -> the rows in the same order."""
+        senders = self.mesh.shape[EXPERT]
+        local, dim = self.experts // senders, recv.shape[-1]
+        expert_in = (recv.reshape(senders, local, quota, dim).transpose(0, 1)
+                     .reshape(local, senders * quota, dim))
+        shrunk = _ffn(expert_in, *pieces)
+        return (shrunk.reshape(local, senders, quota, dim).transpose(0, 1)
+                .reshape(self.experts * quota, dim))
+
+    def _sharded_sparse(self, rows, pieces, compute):
+        """The quota exchange (``moe.py:711``): each sender seats its
+        chunk's assignments choice-major into ``[experts, quota]`` (quota
+        its share of the capacity), one even ``all_to_all`` over
+        ``expert`` hands every expert's rows to its owner (chunk ``d`` to
+        rank ``d``), the owner's FFN runs on ``[local experts, senders *
+        quota]`` rows, and the same exchange brings the outputs home for the
+        weighted combine. Drops are decided per sender; with ample
+        capacity the output is the dense path's. Under
+        ``schedule.moe='overlap'`` (:func:`~tpusystem_torch.parallel.
+        schedule.moe_plan`) the chunk splits into pieces, each seated into
+        its own quota, and piece ``k+1``'s dispatch is issued before piece
+        ``k``'s expert products; routing runs on the whole chunk."""
+        mesh, experts, k = self.mesh, self.experts, self.k
+        local_rows = rows.shape[0]
+        logits, gates = self._routed(rows)
+
+        def exchange(buffer):
+            return all_to_all(buffer, mesh, EXPERT, split_dimension=0,
+                              concat_dimension=0)
+
+        if getattr(self.schedule, 'moe', 'gspmd') == 'overlap':
+            plan = moe_plan(local_rows, mesh.shape[EXPERT], self.exchange)
+        else:
+            plan = MoePlan('one-shot', 1, 'moe overlap inactive')
+        pieces_count = plan.pieces if plan.path == 'overlap' else 1
+        size = local_rows // pieces_count
+        # a sender routes at most its rows to one expert
+        quota = max(1, min(size, int(size * k * self.capacity_factor
+                                     / experts)))
+        routed = []
+        for piece in range(pieces_count):
+            token_ids, slots, weights, _ = route_top_k_sparse(
+                gates[piece * size:(piece + 1) * size], k, quota)
+            send = _seat_rows(rows[piece * size:(piece + 1) * size],
+                              token_ids, slots, experts * quota, compute)
+            routed.append((send, token_ids, slots, weights))
+        # the pipeline: piece p + 1's dispatch is issued before piece p's
+        # expert products, piece p's return after them
+        arrived = [exchange(routed[0][0])]
+        outputs = []
+        for piece in range(pieces_count):
+            if piece + 1 < pieces_count:
+                arrived.append(exchange(routed[piece + 1][0]))
+            back = exchange(self._expert_pass(arrived[piece], quota,
+                                              pieces))
+            _, token_ids, slots, weights = routed[piece]
+            outputs.append(_sparse_combine(back, slots, token_ids, weights,
+                                           size, compute))
+        self.seated = sum((slots < experts * quota).sum()
+                          for _, _, slots, _ in routed).detach()
+        output = outputs[0] if len(outputs) == 1 else torch.cat(outputs)
+        _, top = _top_k(gates, k)
+        return output, self._sharded_aux(top[:, 0], logits, gates)
+
+    def _sharded_ragged(self, rows, pieces, compute):
+        """The ragged exchange (``moe.py:875``): each sender compacts its
+        assignments by expert, keeping ``min(rows, capacity)`` per expert
+        (no more can seat), and ships the actual rows with a ``(expert,
+        key)`` pair each, the key the assignment's global ``(choice,
+        token)`` order in the expert group; each owner seats its
+        arrivals in key order up to ``capacity`` and returns the outputs
+        by the reverse exchange. ``send_bound``/``recv_bound`` are the
+        reference's static buffer sizes."""
+        mesh, experts, k = self.mesh, self.experts, self.k
+        senders = mesh.shape[EXPERT]
+        local = experts // senders
+        local_rows, dim = rows.shape
+        device = rows.device
+        capacity = expert_capacity(local_rows * senders, experts, k,
+                                   self.capacity_factor)
+        send_cap = min(local_rows, capacity)
+        send_bound = min(local_rows * k, experts * send_cap)
+        recv_bound = senders * local * send_cap
+        key_span = k * senders * local_rows
+        transport = 'ragged' if self.exchange == 'ragged' else 'gathered'
+        me = mesh.axis_index(EXPERT)
+
+        logits, gates = self._routed(rows)
+        top_gates, top_experts = _renormalized_top_k(gates, k)
+        expert_ids = top_experts.t().reshape(-1)        # [k * rows]
+        weights = top_gates.t().reshape(-1)
+        token_ids = torch.arange(local_rows, device=device).repeat(k)
+        choice_ids = torch.arange(k * local_rows, device=device) // local_rows
+        key = choice_ids * (senders * local_rows) + me * local_rows + token_ids
+
+        # sender-side compaction in (expert, key) order
+        position, counts = _seating_positions(expert_ids, experts)
+        keep = position < send_cap
+        kept_counts = counts.clamp(max=send_cap)
+        send_slot = torch.where(
+            keep, _exclusive_cumsum(kept_counts)[expert_ids] + position,
+            torch.full_like(position, send_bound))
+        send_rows = _seat_rows(rows, token_ids, send_slot, send_bound,
+                               compute)
+        sentinel = torch.tensor([experts, key_span], device=device)
+        send_meta = sentinel.repeat(send_bound, 1)
+        send_meta[send_slot[keep]] = torch.stack([expert_ids, key],
+                                                 1)[keep]
+
+        # the exchange's geometry from the gathered count matrix
+        sizes = kept_counts.reshape(senders, local).sum(1)
+        in_off = _exclusive_cumsum(sizes)
+        table = _raw_all_gather(sizes[None], mesh.group(EXPERT), 0)
+        recv_sz = table[:, me]
+        recv_off = _exclusive_cumsum(recv_sz)
+        out_off = _exclusive_cumsum(table, 0)[me]
+        rev_out_off = _exclusive_cumsum(table, 1)[:, me]
+        geometry = (in_off, sizes, out_off, recv_off, recv_sz, rev_out_off)
+        recv_rows = ragged_all_to_all(
+            send_rows, send_rows.new_zeros((recv_bound, dim)), *geometry,
+            mesh, EXPERT, transport=transport)
+        recv_meta = ragged_all_to_all(
+            send_meta, sentinel.repeat(recv_bound, 1), *geometry, mesh,
+            EXPERT, transport=transport)
+
+        # receiver-side seating in global (choice, token) order
+        arrived_expert, arrived_key = recv_meta[:, 0], recv_meta[:, 1]
+        valid = arrived_expert < experts
+        mine = (arrived_expert - me * local).clamp(0, local - 1)
+        seat_key = torch.where(valid, mine * key_span + arrived_key,
+                               torch.full_like(mine, local * key_span))
+        order = torch.sort(seat_key, stable=True).indices
+        ranks = torch.empty_like(order)
+        ranks[order] = torch.arange(order.numel(), device=device)
+        starts = _exclusive_cumsum(torch.bincount(
+            torch.where(valid, mine, torch.full_like(mine, local)),
+            minlength=local + 1)[:local])
+        position = ranks - starts[mine]
+        seat = valid & (position < capacity)
+        slot = torch.where(seat, mine * capacity + position,
+                           torch.full_like(mine, local * capacity))
+        expert_in = send_rows.new_zeros((local * capacity, dim)).index_put(
+            (slot[seat],), recv_rows[seat])
+        shrunk = _ffn(expert_in.reshape(local, capacity, dim), *pieces)
+        out_rows = _take(shrunk.reshape(local * capacity, dim), slot)
+        returned = ragged_all_to_all(
+            out_rows, out_rows.new_zeros((send_bound, dim)), recv_off,
+            recv_sz, rev_out_off, in_off, sizes, out_off, mesh, EXPERT,
+            transport=transport)
+        self.seated = seat.sum().detach()
+        output = _sparse_combine(returned, send_slot, token_ids, weights,
+                                 local_rows, compute)
+        return output, self._sharded_aux(top_experts[:, 0], logits, gates)
+
+    def _dense_on_mesh(self, hidden, compute):
+        """The dense path on a mesh of ranks, the reference's global
+        routing (``moe.py:606-666`` with ``_constrain``): every rank
+        gathers the whole batch's rows (over the batch axes, whose
+        gradient reduce-scatters), routes them all, runs its own experts'
+        slots (the expert-major buffer held over ``expert``) and sums the
+        partial outputs over ``expert``; it keeps its own rows. The rows
+        and the router enter with their gradients summed over ``expert``,
+        and the router loss, a replica on every ``expert`` rank, is
+        differentiated on the first only."""
+        mesh, dim = self.mesh, hidden.shape[-1]
+        whole = hidden
+        spread = mesh.shape[SEQ] > 1 and hidden.dim() >= 3
+        if spread:
+            whole = all_gather(whole, mesh, SEQ, dimension=1)
+        batch = live_axes(mesh, (DATA, FSDP))
+        if batch:
+            whole = all_gather(whole, mesh, batch, dimension=0)
+        flat = copy_to(whole, mesh, EXPERT).reshape(-1, dim)
+        tokens = flat.shape[0]
+        logits = flat.float() @ copy_to(self.router, mesh, EXPERT)
+        gates = torch.softmax(logits, -1)
+        capacity = (tokens if self.full_capacity
+                    else expert_capacity(tokens, self.experts, self.k,
+                                         self.capacity_factor))
+        dispatch, combine, fraction = route_top_k(gates, self.k, capacity)
+        aux = self._aux(fraction, _mean(gates), _mean(
+            torch.logsumexp(logits, -1).square()))
+        if mesh.axis_index(EXPERT):
+            aux = aux.detach()
+        pieces = self._local_experts(compute)
+        count = pieces[0].shape[0]
+        mine = slice(mesh.axis_index(EXPERT) * count,
+                     (mesh.axis_index(EXPERT) + 1) * count)
+        expert_in = torch.einsum('nec,nd->ecd', dispatch[:, mine].to(compute),
+                                 flat.to(compute))
+        expert_in = constrain_expert_major(expert_in, mesh)
+        shrunk = constrain_expert_major(_ffn(expert_in, *pieces), mesh)
+        output = reduce_from(torch.einsum(
+            'nec,ecd->nd', combine[:, mine].to(compute), shrunk), mesh, EXPERT)
+        output = output.reshape(whole.shape)
+        if batch:
+            rows = hidden.shape[0]
+            output = output.narrow(0, mesh.axis_index(batch) * rows, rows)
+        if spread:
+            length = hidden.shape[1]
+            output = output.narrow(1, mesh.axis_index(SEQ) * length, length)
+        return output.to(hidden.dtype), aux
+
+
+def _ffn(expert_in, w1, b1, w2, b2):
+    """The per-expert MLP of every dispatch path, on weights already in the
+    compute dtype."""
+    grown = _gelu(torch.matmul(expert_in, w1) + b1[:, None])
+    return torch.matmul(grown, w2) + b2[:, None]

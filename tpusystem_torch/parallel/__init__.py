@@ -7,8 +7,10 @@ deputy), the chaos harness, the recovery policy, elastic membership, the
 :class:`Supervisor`, tensor parallelism (``overlap``, ``schedule``: the
 decomposed TP rings, the FSDP prefetch and the planners) and the pipelines
 (``pipeline``: GPipe and 1F1B over ``stage``); sequence parallelism is
-:mod:`tpusystem_torch.ops.ring`. Expert parallelism is ROADMAP queue 1,
-9f."""
+:mod:`tpusystem_torch.ops.ring`, expert parallelism
+:class:`tpusystem_torch.ops.moe.MoEMLP` on a mesh (its exchanges over
+``expert``: ``collectives.all_to_all`` and ``ragged_all_to_all``) and
+table parallelism :class:`tpusystem_torch.recsys.ShardedEmbedding`."""
 
 from tpusystem_torch.parallel.mesh import (
     AXES, DATA, EXPERT, FSDP, MODEL, SEQ, STAGE,

@@ -23,6 +23,13 @@ A permutation takes the route its mesh picked when it built its groups
 the process: every rank all-gathers the shards and keeps its source's
 (the same bytes as the pair at two ranks, ``n`` times them at ``n``).
 
+The ragged exchange (:func:`ragged_all_to_all`, the reference's
+``_ragged_exchange`` in ``ops/moe.py``) moves a different number of rows to
+each rank: transport ``'ragged'`` is one ``all_to_all_single`` whose split
+sizes are Python ints read from the device (one host sync an exchange),
+``'gathered'`` the all-gather emulation with the same seating and no host
+sync. Its backward is the reverse exchange, the roles swapped.
+
 The Megatron conjugates run tensor parallelism over activations that every
 ``model`` rank holds whole (replicated): :func:`copy_to` (identity forward,
 sum of the gradients backward) enters a column-parallel product,
@@ -47,7 +54,7 @@ __all__ = ['all_reduce_sum', 'all_reduce_mean', 'all_gather',
            'reduce_scatter', 'all_to_all', 'ppermute', 'ring_shift',
            'ring_shift_chunked', 'pp_hop', 'ring_allgather', 'ring_reducescatter', 'axis_index',
            'axis_size', 'replica_checksums', 'copy_to', 'reduce_from',
-           'scatter_to', 'gather_from']
+           'scatter_to', 'gather_from', 'ragged_all_to_all', 'live_axes']
 
 
 def _group(mesh: Mesh, axis):
@@ -108,6 +115,107 @@ def _raw_all_to_all(value, group, split, concat):
     out = torch.empty_like(blocks)
     torch.distributed.all_to_all_single(out, blocks, group=group)
     return torch.cat(out.unbind(0), dim=concat)
+
+
+def _wire(value):
+    """``value`` as bytes every backend takes: 16-bit floats as uint8
+    (twice the columns), other dtypes as they are."""
+    if value.dtype in (torch.bfloat16, torch.float16):
+        return value.contiguous().view(torch.uint8)
+    return value.contiguous()
+
+
+def _raw_ragged(operand, out_init, in_off, send_sz, out_off, recv_sz,
+                group, transport):
+    """Chunk ``d`` of ``operand`` (rows ``[in_off[d], in_off[d] +
+    send_sz[d])``) lands on group rank ``d`` at row ``out_off[d]`` of its
+    copy of ``out_init``; rows nothing lands on keep ``out_init``'s."""
+    out = out_init.clone()
+    if transport == 'ragged':
+        # the split sizes of all_to_all_single are host ints: one sync.
+        # Offsets are the packed prefix sums the callers build, so the
+        # chunks leave from rows [0, sum(send)) in rank order and arrive
+        # packed at rows [0, sum(recv)) in sender order.
+        sizes = torch.cat([send_sz, recv_sz]).tolist()
+        count = len(sizes) // 2
+        send, recv = sizes[:count], sizes[count:]
+        wire = _wire(operand[:sum(send)])
+        arrived = wire.new_empty((sum(recv),) + tuple(wire.shape[1:]))
+        torch.distributed.all_to_all_single(arrived, wire, recv, send,
+                                            group=group)
+        out[:sum(recv)] = arrived.view(out.dtype)
+        return out
+    if transport != 'gathered':
+        raise ValueError(f'unknown ragged transport {transport!r}')
+    me = torch.distributed.get_rank(group)
+    senders = torch.distributed.get_world_size(group)
+    every = _raw_all_gather(operand.unsqueeze(0), group, 0)   # [n, S, ...]
+    meta = _raw_all_gather(torch.stack([in_off, send_sz, out_off]).to(
+        torch.int64).unsqueeze(0), group, 0)                 # [n, 3, n]
+    rows = torch.arange(out.shape[0], device=out.device)
+    for sender in range(senders):
+        source, size, target = meta[sender, :, me]
+        take = (rows - target + source).clamp(0, operand.shape[0] - 1)
+        inside = (rows >= target) & (rows < target + size)
+        mask = inside.reshape((-1,) + (1,) * (out.dim() - 1))
+        out = torch.where(mask, every[sender][take], out)
+    return out
+
+
+class _Ragged(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, operand, out_init, in_off, send_sz, out_off, recv_off,
+                recv_sz, rev_out_off, group, transport):
+        ctx.save_for_backward(in_off, send_sz, recv_off, recv_sz,
+                              rev_out_off)
+        ctx.group, ctx.transport = group, transport
+        ctx.operand_shape = operand.shape
+        return _raw_ragged(operand, out_init, in_off, send_sz, out_off,
+                           recv_sz, group, transport)
+
+    @staticmethod
+    def backward(ctx, grad):
+        in_off, send_sz, recv_off, recv_sz, rev_out_off = ctx.saved_tensors
+        # my arrivals carry their gradient home, to the rows they left from
+        d_operand = _raw_ragged(grad, grad.new_zeros(ctx.operand_shape),
+                                recv_off, recv_sz, rev_out_off, send_sz,
+                                ctx.group, ctx.transport)
+        rows = torch.arange(grad.shape[0], device=grad.device)[:, None]
+        arrived = ((rows >= recv_off) & (rows < recv_off + recv_sz)).any(1)
+        mask = arrived.reshape((-1,) + (1,) * (grad.dim() - 1))
+        d_init = torch.where(mask, torch.zeros((), dtype=grad.dtype,
+                                               device=grad.device), grad)
+        return (d_operand, d_init) + (None,) * 8
+
+
+def ragged_all_to_all(operand, out_init, in_off, send_sz, out_off,
+                      recv_off, recv_sz, rev_out_off, mesh: Mesh, axis, *,
+                      transport: str = 'ragged'):
+    """The reference's differentiable ragged exchange over ``axis``
+    (``ops/moe.py:88``): chunk ``d`` of ``operand`` (rows ``[in_off[d],
+    in_off[d] + send_sz[d])``) lands on rank ``d`` at row ``out_off[d]`` of
+    its ``out_init``-shaped buffer, which keeps ``out_init`` elsewhere.
+    ``recv_off``/``recv_sz`` are where this rank's arrivals sit and
+    ``rev_out_off[d]`` the offset rank ``d`` sent from: the backward
+    sends each arrival's gradient home. ``transport`` is ``'ragged'``
+    (``all_to_all_single``, the actual rows on the wire; the offsets must
+    be the packed prefix sums of the sizes) or ``'gathered'`` (every rank
+    all-gathers every buffer and keeps what lands on it). Integer
+    operands pass through the same transport undifferentiated."""
+    group = _group(mesh, axis)
+    args = (in_off, send_sz, out_off, recv_off, recv_sz, rev_out_off, group,
+            transport)
+    if not operand.is_floating_point():
+        return _raw_ragged(operand, out_init, in_off, send_sz, out_off,
+                           recv_sz, group, transport)
+    return _Ragged.apply(operand, out_init, *args)
+
+
+def live_axes(mesh: Mesh, axes) -> tuple:
+    """Those of ``axes`` that have more than one rank, in the mesh
+    order."""
+    return tuple(axis for axis in AXES
+                 if axis in spec_axes(axes) and mesh.shape[axis] > 1)
 
 
 def _raw_permute(value, group, sources, route='p2p'):

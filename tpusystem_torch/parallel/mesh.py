@@ -12,9 +12,7 @@ Without a process group a :class:`Mesh` is one device carrying the six
 axes at size 1, and a placement is "move to that device".
 
 :class:`MeshSpec` keeps the reference's arithmetic (``resolved_sizes``,
-``resized``) and its identity. A mesh whose ``expert`` axis is larger
-than 1 builds; placing a leaf sharded over it raises
-(:mod:`tpusystem_torch.parallel.sharding`).
+``resized``) and its identity.
 
 ======== ========================================================
 ``data``   pure data parallelism (gradient all-reduce)
@@ -112,6 +110,14 @@ class Mesh:
                 if self.shape[axis] > 1:
                     self.group((DATA, FSDP, axis))
                     live = tuple(name for name in (DATA, FSDP, axis)
+                                 if self.shape[name] > 1)
+                    if len(live) > 1:
+                        self.group(live)
+            if self.shape[EXPERT] > 1:
+                # an expert layer's router statistics sum over the row
+                # axes, a table's partial rows over both table axes
+                for axes in ((DATA, FSDP, SEQ), (MODEL, EXPERT)):
+                    live = tuple(name for name in axes
                                  if self.shape[name] > 1)
                     if len(live) > 1:
                         self.group(live)

@@ -28,7 +28,8 @@ dimension choice :func:`~tpusystem_torch.parallel.sharding.fsdp_shard_dim`,
 the placement policy's. :func:`pp_plan` and :func:`moe_plan` are the
 pipeline's and the expert exchange's planners, copied: ``pp=`` drives the
 GPipe loop's skewed tick (:func:`~tpusystem_torch.parallel.pipeline.
-pipeline_apply`); wiring ``moe=`` into the expert exchange is ROADMAP 9f. :func:`decode_tp_plan` is the
+pipeline_apply`); ``moe=`` the expert layers' quota exchange
+(:class:`~tpusystem_torch.ops.moe.MoEMLP`). :func:`decode_tp_plan` is the
 serving engine's. The knob never changes a parameter tree: the models keep
 their dense layers' paths either way.
 """
@@ -81,7 +82,9 @@ class OverlapSchedule:
             (must match the placement policy's ``fsdp_min_size``).
         pp: ``'gspmd'`` | ``'overlap'``: the GPipe pipeline's tick
             (:func:`~tpusystem_torch.parallel.pipeline.pipeline_apply`).
-        moe: ``'gspmd'`` | ``'overlap'``: the expert exchange (ROADMAP 9f).
+        moe: ``'gspmd'`` | ``'overlap'``: the expert layers' quota
+            exchange, one-shot or pipelined in pieces under the expert
+            products (:func:`moe_plan`).
 
     A registered entity: its knobs capture into the experiment identity
     hash (the reference's hash for the same knobs), so runs under
@@ -273,8 +276,8 @@ class MoePlan(NamedTuple):
 def moe_plan(local_rows: int, expert_size: int, exchange: str = 'quota',
              pieces: int = 2) -> MoePlan:
     """Plan the expert-parallel dispatch pipeline — pure, so tests can
-    pin the path (the reference's, copied; expert parallelism is ROADMAP
-    9f)."""
+    pin the path (the reference's, copied;
+    :class:`~tpusystem_torch.ops.moe.MoEMLP` follows it)."""
     if expert_size == 1:
         return MoePlan('skip', 1, 'axis_size == 1')
     if exchange != 'quota':

@@ -22,10 +22,14 @@ gathering the FSDP-sharded leaves before the forward; a leaf split over
 ``model`` (tensor parallelism, alone or with ``fsdp``) reaches the forward
 as this rank's piece, which the models' tensor-parallel products take as
 it is; a pipelined model's layer stack split over ``stage`` reaches it as
-this rank's layers (:mod:`tpusystem_torch.parallel.pipeline`). Placing a
-leaf split over an ``expert`` axis of size > 1 raises with the ROADMAP
-sub-item that ports it (9f). On a one-device mesh (no process group) a
-placement moves the tree to the mesh's device, as before.
+this rank's layers (:mod:`tpusystem_torch.parallel.pipeline`); an expert
+stack split over ``expert`` reaches it as this rank's experts, and a table
+split over ``expert``/``model`` as this rank's rows (expert-major, the
+reference's order: a dimension split over several axes is cut in
+:data:`SPLIT_ORDER`, which :func:`shard_axes`, :func:`held_slices` and
+:func:`whole_leaf` follow, where a ``DTensor``'s own order would put
+``model`` first). On a one-device mesh (no process group) a placement
+moves the tree to the mesh's device, as before.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from tpusystem_torch.parallel.mesh import (AXES, EXPERT, FSDP, MODEL, Mesh,
-                                           PartitionSpec, Placement,
-                                           local_slices, spec_axes)
+from tpusystem_torch.parallel.mesh import (AXES, DATA, EXPERT, FSDP, MODEL,
+                                           SEQ, STAGE, Mesh, PartitionSpec,
+                                           Placement, local_slices,
+                                           spec_axes)
 from tpusystem_torch.registry import register
 
 __all__ = ['Rules', 'TABLE_AXES', 'PartitionSpec', 'table_row_spec',
@@ -47,7 +52,8 @@ __all__ = ['Rules', 'TABLE_AXES', 'PartitionSpec', 'table_row_spec',
            'ShardingPolicy', 'DataParallel', 'FullyShardedDataParallel',
            'TensorParallel', 'local', 'local_tree', 'gather_leaf',
            'is_placed', 'shard_axes', 'held_slices', 'is_distributed',
-           'held_axes', 'with_held', 'tp_pieces']
+           'held_axes', 'with_held', 'tp_pieces', 'whole_leaf',
+           'SPLIT_ORDER']
 
 Rules = Sequence[tuple[str, PartitionSpec]]
 
@@ -55,31 +61,55 @@ Rules = Sequence[tuple[str, PartitionSpec]]
 # vocab dimension over the combined (expert, model) axes.
 TABLE_AXES = (EXPERT, MODEL)
 
-# the ROADMAP sub-item that ports a placement over each axis not ported yet
-NOT_PORTED = {EXPERT: '9f. Expert and table parallelism'}
+# the order in which the axes splitting one dimension nest, the first
+# major: the mesh's, but for ``expert`` before ``model`` (a table's rows,
+# TABLE_AXES)
+SPLIT_ORDER = (DATA, FSDP, EXPERT, MODEL, SEQ, STAGE)
 
 
-def _not_ported(what: str, axis: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is not ported to tpusystem_torch yet (ROADMAP queue 1: '
-        f'{NOT_PORTED[axis]})')
+def _split_order(axes) -> tuple:
+    return tuple(sorted(spec_axes(axes), key=SPLIT_ORDER.index))
 
 
 def table_row_spec(rank: int) -> PartitionSpec:
     """Spec for a row-sharded embedding table: the leading (vocab)
     dimension splits over the combined ``expert``/``model`` axes, every
-    other dim stays unsharded."""
+    other dim stays unsharded. The expert-major shard order is the
+    contract the routed lookup of :mod:`tpusystem_torch.recsys.embedding`
+    derives its offsets from."""
     return PartitionSpec(TABLE_AXES, *([None] * (rank - 1)))
 
 
-def constrain_table_rows(value, mesh):
-    """Pin a row-sharded table to the ``expert``/``model`` axes: the
-    identity off-mesh or when both have size 1; a table split over them is
-    ROADMAP 9f."""
-    if mesh is None or all(mesh.shape[axis] == 1 for axis in TABLE_AXES):
+def _pinned(value, mesh, axes: tuple, what: str):
+    """``value`` itself: eager PyTorch has no sharding annotation, so the
+    pin checks and never moves a tensor. Where ``axes`` (those the mesh
+    has) split anything, a value marked held (:func:`held_axes`) must be
+    held over exactly them at its leading dimension (``ValueError``
+    otherwise)."""
+    present = tuple(axis for axis in axes if axis in mesh.shape)
+    parts = 1
+    for axis in present:
+        parts *= mesh.shape[axis]
+    if parts == 1:
         return value
-    raise _not_ported('constrain_table_rows over a table-sharded mesh',
-                      EXPERT)
+    held = held_axes(value).get(0)
+    if held is not None and tuple(held) != present:
+        raise ValueError(f'{what} is held split over {held}, not over '
+                         f'{present}')
+    return value
+
+
+def constrain_table_rows(value, mesh):
+    """The reference's pin of a row-sharded table (or table-shaped
+    activation) to the ``expert``/``model`` axes (``sharding.py:51``): the
+    identity off-mesh or when both have size 1; an axis a hand-built mesh
+    lacks drops out. On a mesh of ranks the table reaches the routed
+    lookup as this rank's rows already (the step keeps it split), so the
+    pin checks that a piece marked held is held over these axes and
+    returns the value untouched."""
+    if mesh is None:
+        return value
+    return _pinned(value, mesh, TABLE_AXES, 'a table')
 
 
 def expert_major_spec(rank: int) -> PartitionSpec:
@@ -89,13 +119,14 @@ def expert_major_spec(rank: int) -> PartitionSpec:
 
 
 def constrain_expert_major(value, mesh):
-    """Pin an expert-major buffer to the ``expert`` axis: the identity
-    off-mesh or when the axis has size 1; expert parallelism is ROADMAP
-    9f."""
+    """The reference's pin of an expert-major buffer to the ``expert``
+    axis (``sharding.py:82``): the identity off-mesh or when the axis has
+    size 1. On an expert mesh a rank computes on its own experts' rows,
+    so the pin checks that a piece marked held is held over ``expert``
+    and returns the value untouched."""
     if mesh is None or mesh.shape.get(EXPERT, 1) == 1:
         return value
-    raise _not_ported('constrain_expert_major over an expert-sharded mesh',
-                      EXPERT)
+    return _pinned(value, mesh, (EXPERT,), 'an expert buffer')
 
 
 def leaf_path(key_path) -> str:
@@ -180,7 +211,8 @@ def _map_with_path(fn, tree, path: tuple = ()):
 
 def shard_axes(leaf) -> dict[int, tuple]:
     """``{tensor dim: (mesh axes, major first)}`` of a placed leaf's
-    ``Shard`` placements (empty for a plain tensor or a replicated one)."""
+    ``Shard`` placements (empty for a plain tensor or a replicated one),
+    the axes of one dimension in :data:`SPLIT_ORDER`."""
     placements = getattr(leaf, 'placements', None)
     if placements is None:
         return {}
@@ -188,23 +220,39 @@ def shard_axes(leaf) -> dict[int, tuple]:
     for axis, placement in zip(AXES, placements):
         if placement.is_shard():
             out[placement.dim] = out.get(placement.dim, ()) + (axis,)
-    return out
+    return {dim: _split_order(axes) for dim, axes in out.items()}
 
 
 def held_slices(leaf) -> tuple:
     """The slice of the whole leaf that this rank's piece of a placed leaf
-    (a ``DTensor``) is: each ``Shard(d)`` mesh dimension splits ``d``
-    evenly, the earlier mesh dimension major."""
-    shape = list(leaf.shape)
-    starts = [0] * len(shape)
-    coordinate = leaf.device_mesh.get_coordinate()
-    for index, placement in enumerate(leaf.placements):
-        if placement.is_shard():
-            dim = placement.dim
-            shape[dim] //= leaf.device_mesh.size(index)
-            starts[dim] += coordinate[index] * shape[dim]
-    return tuple(slice(start, start + size)
-                 for start, size in zip(starts, shape))
+    (a ``DTensor``) is: each dimension splits evenly over its
+    :func:`shard_axes`, the first major."""
+    mesh = leaf.device_mesh
+    coordinate = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    slices = [slice(0, size) for size in leaf.shape]
+    for dim, axes in shard_axes(leaf).items():
+        index, parts = 0, 1
+        for axis in axes:
+            size = mesh.size(mesh.mesh_dim_names.index(axis))
+            index, parts = index * size + coordinate[axis], parts * size
+        chunk = leaf.shape[dim] // parts
+        slices[dim] = slice(index * chunk, (index + 1) * chunk)
+    return tuple(slices)
+
+
+@torch.no_grad()
+def whole_leaf(leaf) -> torch.Tensor:
+    """The whole of a placed leaf, all-gathered from every rank's piece in
+    :func:`shard_axes` order (a collective every rank of its mesh joins;
+    the counterpart of ``DTensor.full_tensor``, whose order puts ``model``
+    before ``expert``)."""
+    from tpusystem_torch.parallel.collectives import _raw_all_gather
+    mesh, piece = leaf.device_mesh, local(leaf)
+    for dim, axes in shard_axes(leaf).items():
+        for axis in reversed(axes):
+            if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
+                piece = _raw_all_gather(piece, mesh.get_group(axis), dim)
+    return piece
 
 
 def is_distributed(leaf) -> bool:
@@ -366,13 +414,12 @@ class ShardingPolicy:
         if isinstance(leaf, np.ndarray):
             leaf = torch.from_numpy(np.ascontiguousarray(leaf))
         spec = self.spec(leaf_path(path), tuple(leaf.shape), mesh)
+        spec = PartitionSpec(*(entry if entry is None
+                               or isinstance(entry, str)
+                               else _split_order(entry) for entry in spec))
         placements = [Replicate()] * len(AXES)
         for dim, entry in enumerate(spec):
             for axis in spec_axes(entry):
-                if axis in NOT_PORTED and mesh.shape[axis] > 1:
-                    raise _not_ported(
-                        f'placing {leaf_path(path)} split over the {axis!r} '
-                        f'axis (size {mesh.shape[axis]})', axis)
                 placements[AXES.index(axis)] = Shard(dim)
         piece = leaf.detach()[local_slices(leaf.shape, spec, mesh)]
         piece = piece.to(mesh.device, copy=True).contiguous()

@@ -1,4 +1,4 @@
-"""Embedding tables: the port of :mod:`tpusystem.recsys.embedding`, one device.
+"""Embedding tables: the port of :mod:`tpusystem.recsys.embedding`.
 
 A recommender's parameters are dominated by embedding tables, its compute
 per example is tiny, and its hot path is row movement: gathers forward,
@@ -16,11 +16,14 @@ scatter-adds backward. This module supplies that tier:
   (``inverse`` as the ids into an ``[n, dim]`` buffer): autograd's own
   ``index_add_`` adds with float atomics on the card and would not repeat
   bitwise.
-* :class:`ShardedEmbedding` — the table module on one device.
-  :func:`route_plan` is copied as it is (pure). A ``mesh`` whose
-  ``expert``/``model`` axes hold more than one table shard raises
-  ``NotImplementedError`` (ROADMAP queue 1, 9f. Expert and table
-  parallelism: the device-side id → shard routing and the ``psum``).
+* :class:`ShardedEmbedding` — the table module. On a mesh of ranks whose
+  ``expert``/``model`` axes split the table (:func:`route_plan` copied as
+  it is), each rank holds its rows (expert-major), maps the ids it owns
+  to its local rows (the others to -1), looks them up through K8/K9 and
+  the partial rows are summed over the table axes: each id's row comes
+  from one shard, so the sum adds exact zeros and the forward is the
+  unsharded one bit for bit. The sum's backward hands every shard the
+  cotangent once (``reduce_from``), not summed again.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from torch import nn
 from tpusystem_torch.device import resolve_device
 from tpusystem_torch.ops.cuda.embedding_lookup import (embedding_lookup,
                                                        scatter_add_rows)
+from tpusystem_torch.parallel.collectives import (copy_to, live_axes,
+                                                  reduce_from)
+from tpusystem_torch.parallel.mesh import DATA, FSDP
+from tpusystem_torch.parallel.sharding import (TABLE_AXES,
+                                               constrain_table_rows)
 from tpusystem_torch.registry import register
-
-DATA, FSDP, MODEL, EXPERT = 'data', 'fsdp', 'model', 'expert'
-TABLE_AXES = (EXPERT, MODEL)
 
 
 def dedup_ids(ids, sentinel: int):
@@ -131,17 +136,6 @@ def route_plan(vocab: int, count: int, mesh,
     return None
 
 
-def table_shards(mesh) -> int:
-    """How many ways ``mesh``'s ``expert``/``model`` axes split a table."""
-    if mesh is None:
-        return 1
-    shards = 1
-    for axis in TABLE_AXES:
-        if axis in mesh.axis_names:
-            shards *= mesh.shape[axis]
-    return shards
-
-
 @register('ShardedEmbedding',
           excluded_kwargs={'mesh', 'parent', 'name', 'device'})
 class ShardedEmbedding(nn.Module):
@@ -156,7 +150,9 @@ class ShardedEmbedding(nn.Module):
     Attributes:
         vocab: table rows.
         features: embedding dimension.
-        mesh: must not split the table (more than one shard raises).
+        mesh: a mesh of ranks whose ``expert``/``model`` axes split the
+            table's rows (the forward then takes the rank's piece, or cuts
+            it from a whole table).
         impl: row-movement impl, ``'auto'`` | ``'fused'`` | ``'take'``
             (:func:`~tpusystem_torch.ops.cuda.embedding_lookup.
             embedding_lookup`).
@@ -169,11 +165,6 @@ class ShardedEmbedding(nn.Module):
                  impl: str = 'auto', dedup: bool = True,
                  init_scale: float = 0.02, device=None) -> None:
         super().__init__()
-        if table_shards(mesh) > 1:
-            raise NotImplementedError(
-                'a table split over a mesh is not ported to tpusystem_torch '
-                'yet (ROADMAP queue 1: 9. Multi-GPU parallelism, 9f. Expert '
-                'and table parallelism)')
         self.vocab, self.features, self.mesh = vocab, features, mesh
         self.impl, self.dedup, self.init_scale = impl, dedup, init_scale
         self.embedding = nn.Parameter(torch.empty(
@@ -189,6 +180,39 @@ class ShardedEmbedding(nn.Module):
         shape = tuple(ids.shape)
         flat = ids.reshape(-1)
         flat_w = None if weights is None else weights.reshape(-1).float()
-        out = lookup(self.embedding, flat, flat_w, impl=self.impl,
-                     dedup=self.dedup)
+        blocked = 'no mesh'
+        if getattr(self.mesh, 'distributed', False):
+            # a rank holds its rows of the global batch: the count check is
+            # the global batch's, which always divides
+            rows = self.mesh.axis_size(live_axes(self.mesh, (DATA, FSDP)))
+            blocked = route_plan(self.vocab, flat.shape[0] * rows, self.mesh)
+        if blocked is None:
+            out = self._routed(flat, flat_w)
+        else:
+            out = lookup(self.embedding, flat, flat_w, impl=self.impl,
+                         dedup=self.dedup)
         return out.reshape(shape + (self.features,))
+
+    def _routed(self, flat, flat_w):
+        """The reference's routed lookup (``embedding.py:196``) on this
+        rank's rows of the table: the piece the step hands over (kept
+        split over the table axes), or cut here from a whole table with
+        its gradient summed over them."""
+        mesh = self.mesh
+        axes = live_axes(mesh, TABLE_AXES)
+        shards = mesh.axis_size(axes)
+        local_rows = self.vocab // shards
+        index = mesh.axis_index(tuple(axis for axis in TABLE_AXES
+                                      if axis in axes))   # expert-major
+        table = constrain_table_rows(self.embedding, mesh)
+        if table.shape[0] != local_rows:
+            table = copy_to(table, mesh, axes).narrow(
+                0, index * local_rows, local_rows)
+        local = flat.to(torch.int32) - index * local_rows
+        owned = (flat >= 0) & (local >= 0) & (local < local_rows)
+        routed = torch.where(owned, local, torch.full_like(local, -1))
+        partial = lookup(table, routed, flat_w, impl=self.impl,
+                         dedup=self.dedup)
+        # each id's row lives on one shard: the sum adds exact zeros, and
+        # every shard holds the same cotangent, handed over once
+        return reduce_from(partial, mesh, axes)

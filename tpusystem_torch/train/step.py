@@ -32,6 +32,14 @@ to its rank's sequence rows after the reduce-scatter sums its gradient
 over ``model`` in the FFN's backward (``collectives.copy_to``), and the
 LayerNorms run on whole rows, so the step sums nothing over ``model``;
 the clip's and the guard's norms count each piece once.
+Over ``expert`` (expert and table parallelism) the rows stay whole, as
+over ``model``, and a leaf split over it is held the same way: GPT-2's
+expert stacks reach its expert layers as this rank's experts, a DLRM's or
+a two-tower model's tables their lookups as this rank's rows, and their
+gradients are summed only over the batch axes, among the ranks that hold
+the same piece; the layers sum what they take apart over ``expert``
+themselves (:mod:`tpusystem_torch.ops.moe`,
+:mod:`tpusystem_torch.recsys.embedding`).
 Other modules get every leaf whole (over ``model``, a gather whose
 backward keeps this rank's block). Over a ``seq`` axis of more than one
 rank (sequence parallelism) a rank holds its positions of its rows, ``[rows,
@@ -140,15 +148,15 @@ def chunk_outputs(outputs, mesh):
 
 
 def sync_grads(grads: list, placed: list, mesh) -> list:
-    """Sum each rank's gradients over the batch axes that do not split the
-    leaf (a gathered leaf's backward summed over the axes that do): one
-    flat all-reduce per set of axes."""
+    """Sum each rank's gradients over the batch axes of more than one rank
+    that do not split the leaf (a gathered leaf's backward summed over the
+    axes that do): one flat all-reduce per set of axes."""
     buckets: dict = {}
     for index, leaf in enumerate(placed):
         split_over = {axis for axes in shard_axes(leaf).values()
                       for axis in axes}
         axes = tuple(axis for axis in batch_axes(mesh)
-                     if axis not in split_over)
+                     if axis not in split_over and mesh.shape[axis] > 1)
         if axes:
             buckets.setdefault(axes, []).append(index)
     grads = list(grads)
