@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero:
    (``decode_matmul_kernel<gelu, weight type>``,
    ``decode_ffn_kernel<weight type>``: ``decode-ptxas``)
    and of K9's staging and fold kernels (``lookup-ptxas``); a missing or
-   spilling one fails;
+   spilling one fails; and the native batch gather
+   (``tpusystem_torch/data/native``, built by the system ``g++``;
+   ``native-gather``: fails unless it built and gathers a shuffled batch of
+   rows and of token windows bit for bit numpy's);
 2. hold each serving kernel against its plain PyTorch version on the card at
    the serving path's shapes (bfloat16, batch 8, prefill lengths 512 and
    1024) and time it beside the plain version, the one PyTorch library call
@@ -259,8 +262,9 @@ Phases, in order; any failure exits non-zero:
     (d) ``certify_fleet`` at seed 1 on three port engines (a journaled
     router with a lease; router, standby and replica kills): its report
     is ok;
-24. the resilient trainer (``train-resilient``): GPT-2 125M at phase 7's
-    recipe (16 x 1024 tokens, flash, AdamW clipped at 1.0), random weights
+24. the resilient trainer (``train-resilient``): GPT-2 125M's widths at
+    6 of its 12 layers (the whole run's time) on phase 7's recipe (16 x
+    1024 tokens, flash, AdamW clipped at 1.0), random weights
     from ``--seed``. (a) Two steps of ``scan_layers=True`` against two of
     the unrolled model from the same weights: losses and parameters bit
     for bit, the peak memory of each. (b) ``build_multi_step`` at N = 4
@@ -337,8 +341,21 @@ Phases, in order; any failure exits non-zero:
     losses and final parameters bit for bit the unplaced ones, K1 and K2b
     12 launches a step each, each policy's step ms and peak memory; (c)
     two processes sharing the card over gloo on CUDA tensors (NCCL refuses
-    two ranks on one device) run (b)'s DP steps on 8 rows each: equal
-    global losses, within 2e-5 of (b)'s unplaced ones;
+    two ranks on one device) run the recipe cut to [2, 1024] under
+    ``DataParallel``, ``FullyShardedDataParallel`` at ``fsdp=2`` (which
+    gathers one unit at a time) and the same FSDP state through the CPU
+    tests' whole-gather oracle (every leaf gathered before the forward):
+    each run's global losses equal on both ranks and within 2e-5 of the
+    same steps unplaced (each rank's row a microbatch), K1 and K2b 12
+    launches a step, FSDP's high-water mark of whole gathered bytes at most
+    the largest unit and its bf16 cast (the oracle's over it), each FSDP
+    rank's peak memory below a DP rank's by at least the sharded-away
+    bytes (half the parameters, half the AdamW slots) and the whole
+    parameters less the largest unit, and its peak before the update
+    below the oracle's by at least the whole parameters less the largest
+    unit, each less 64 MiB; each rank's step ms, peak, peak before each
+    update and the gradients' global norm at each update, and DP's and
+    FSDP's losses over two unclipped steps;
 28. tensor parallelism (``tensor-parallel``): (a) over a world of one
     rank (NCCL), a ``model`` axis of size 1: the plans say single and
     one-shot, and three AdamW steps of GPT-2 125M with ``mesh=`` under
@@ -580,6 +597,41 @@ VERYBASIC_OUTPUT = {
 K4_DESIGN = 'cluster-split-k+tma+mma.sync'
 K5_DESIGN = 'cluster-hidden-slab+tma+mma.sync'
 K9_DESIGN = 'ordered-chains+bulk-ring'
+
+
+def native_gather() -> dict:
+    """Phase 1: the native batch gather (``tpusystem_torch/data/native``)
+    built by the system ``g++`` (which ``nvcc`` needs too; fails if it did
+    not build), and a shuffled batch of an ``ArrayDataset`` and of
+    ``MemmapTokens`` gathered through it, bit for bit numpy's."""
+    import tempfile
+
+    import numpy as np
+
+    from tpusystem_torch.data import ArrayDataset, MemmapTokens, native
+    started = time.perf_counter()
+    library = native.library()
+    seconds = time.perf_counter() - started
+    if library is None:
+        fail('native-gather: tpusystem_torch/data/native/batcher.cpp did not '
+             'build with the system g++')
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((4096, 784)).astype(np.float32)
+    span = rng.permutation(4096)[:256]
+    (batch,) = ArrayDataset(rows)[span]
+    with tempfile.TemporaryDirectory() as root:
+        path = pathlib.Path(root) / 'tokens.bin'
+        tokens = rng.integers(0, 50257, 1 << 20, dtype=np.uint16)
+        tokens.tofile(path)
+        starts = span[:16] % 1000              # of 1,023 windows
+        (windows,) = MemmapTokens(path, sequence_length=1024)[starts]
+        want = tokens[starts[:, None] * 1024 + np.arange(1025)[None, :]]
+        windows_equal = bool(np.array_equal(windows, want.astype(np.int32)))
+    rows_equal = bool(np.array_equal(batch, rows[span]))
+    if not (rows_equal and windows_equal):
+        fail(f'native-gather: rows {rows_equal}, windows {windows_equal}')
+    return dict(built=library._name, build_s=seconds, rows_equal=rows_equal,
+                windows_equal=windows_equal)
 
 
 def fail(message: str) -> None:
@@ -4610,9 +4662,11 @@ RESILIENT_BATCHES = 8           # distinct batches, cycled by step
 RESILIENT_SAVE_EVERY = 4
 RESILIENT_IDENTITY = 'resilient-gpt2'
 # bench.py's recipe (bench.py:408-434): GPT-2 125M, vocab padded to 50304,
-# flash attention, the chunked loss, AdamW at 3e-4 clipped at 1.0
-RESILIENT_MODEL = dict(vocab_size=50304, dropout=0.0, attention='flash',
-                       return_features=True)
+# flash attention, the chunked loss, AdamW at 3e-4 clipped at 1.0; cut to 6
+# of its 12 layers to keep the whole run under 1,000 s (the drill's hot
+# pushes and commits scale with the state)
+RESILIENT_MODEL = dict(vocab_size=50304, layers=6, dropout=0.0,
+                       attention='flash', return_features=True)
 
 
 class Recipe:
@@ -5148,10 +5202,11 @@ def postmortem_and_spans(seen: list, tracer) -> dict:
 
 def train_resilient(torch, seed: int, device: str = 'cuda',
                     model: dict | None = None, **shape) -> dict:
-    """Phase 24: GPT-2 125M at phase 7's recipe through the resilient
-    trainer (``scan_layers``, ``build_multi_step``, the guard and the
-    ``Sentinel``, the ``Checkpointer``, a SIGKILL and a hot relaunch under
-    the ``Supervisor``); K1 and K2b launch in every in-process step."""
+    """Phase 24: GPT-2 125M's widths at 6 layers on phase 7's recipe
+    through the resilient trainer (``scan_layers``, ``build_multi_step``,
+    the guard and the ``Sentinel``, the ``Checkpointer``, a SIGKILL and a
+    hot relaunch under the ``Supervisor``); K1 and K2b launch in every
+    in-process step."""
     import tempfile
 
     from tpusystem_torch.ops.cuda import flash
@@ -5890,6 +5945,13 @@ def resnet_phase(torch, seed: int) -> dict:
 DP_STEPS = 3                    # AdamW steps under each policy
 DP_RANKS = 2                    # (c): processes sharing the one card
 DP_RTOL = 2e-5                  # the CPU parity tests' (reference's) rtol
+DP_SHAPE = (2, TRAIN_SEQ)       # (c): the recipe cut to 2 x 1,024 tokens
+FSDP_PEAK_MARGIN = 64 << 20     # (c): allocator rounding and activations
+# (c)'s runs held to the unplaced steps: DP, FSDP gathered per unit, FSDP
+# gathered whole (the oracle); DP and FSDP also run two steps unclipped
+# (grad_clip=0), which tells the clip norm's share in FSDP's distance
+# from DP
+POLICY_RUNS = ('dp', 'fsdp', 'fsdp_whole')
 
 
 def free_port() -> int:
@@ -6071,7 +6133,7 @@ def policy_steps(torch, seed: int, device: str, factory, shape: tuple,
                                         'flash_bwd_fused': layers * steps}:
             fail(f'phase 27 (b): {name} launched {run["launches"]}, not '
                  f'{layers} of K1 and K2b a step')
-    return dict(runs=runs, shape=list(shape), steps=steps,
+    return dict(runs=runs, shape=list(shape), steps=steps, layers=layers,
                 params=sum(value.numel() for value in initial.values()),
                 launches={counter.__name__: sum(
                     run['launches'][counter.__name__]
@@ -6084,61 +6146,262 @@ def dp_model(torch, device: str):
                       return_features=True, device=device)
 
 
-def dp_worker(rank: int, port: int, out: str) -> None:
+class PeakBeforeUpdate:
+    """An optimizer that reads, just before each update, the card's peak
+    memory (the forward's and the backward's peak) and the global norm of
+    the gradients it is handed (the norm AdamW clips by, over pieces
+    where the leaves are split), and then updates as the one it wraps."""
+
+    def __init__(self, torch, inner) -> None:
+        self.torch, self.inner, self.peaks, self.norms = torch, inner, [], []
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def step(self, params, grads, *args, **kwargs):
+        from tpusystem_torch.train.optim import global_norm
+        if self.torch.cuda.is_available():
+            self.peaks.append(self.torch.cuda.max_memory_allocated())
+        self.norms.append(global_norm([grads[name] for name in params],
+                                      list(params.values())).item())
+        return self.inner.step(params, grads, *args, **kwargs)
+
+
+def unit_bytes(module) -> dict:
+    """GPT-2's units of per-unit FSDP gathering and the float32 bytes of
+    each: the embeddings, each block, the final norm with the tied head."""
+    sizes: dict = {}
+    for name, param in module.named_parameters():
+        if name.startswith('h_'):
+            unit = name.split('.')[0]
+        elif name.startswith('ln_f.'):
+            unit = 'head'
+        else:
+            unit = 'embeddings'
+        sizes[unit] = sizes.get(unit, 0) + param.numel() * 4
+    sizes['head'] += module.wte.embedding.numel() * 4     # the tied table
+    return sizes
+
+
+def fsdp_saving(module, ranks: int) -> dict:
+    """Phase 27 (c)'s memory arithmetic for AdamW at ``fsdp=ranks``: the
+    bytes a rank shards away (``(ranks - 1) / ranks`` of the parameters and
+    of the two float32 slots) and the whole parameters less the largest
+    unit, which per-unit gathering never holds whole at once."""
+    params = sum(param.numel() * 4 for param in module.parameters())
+    units = unit_bytes(module)
+    largest = max(units.values())
+    sharded = (ranks - 1) * (params + 2 * params) // ranks
+    return dict(param_bytes=params, largest_unit=max(units, key=units.get),
+                largest_unit_bytes=largest, sharded_away_bytes=sharded,
+                not_gathered_bytes=params - largest,
+                expected_saving_bytes=sharded + params - largest)
+
+
+def dp_worker(rank: int, port: int, out: str, device: str = 'cuda',
+              small: dict | None = None) -> None:
     """One of phase 27 (c)'s ranks (``--dp-worker RANK PORT OUT``): joins a
     world of ``DP_RANKS`` processes on the one card over gloo (CUDA
-    tensors; NCCL refuses two ranks on one device), runs the DP steps of
-    (b) on its rows and writes its losses, step ms and launches."""
+    tensors; NCCL refuses two ranks on one device) and runs the dense
+    recipe cut to ``DP_SHAPE`` under ``DataParallel`` and then
+    ``FullyShardedDataParallel`` at ``fsdp=DP_RANKS``, gathered unit by
+    unit by the port's step (``fsdp``) and whole before the forward by the
+    CPU tests' oracle, the step as it ran before per-unit gathering
+    (``fsdp_whole``, ``tests/torch_ranks.py`` ``oracle_train_step``): its
+    losses, step ms, K1/K2b launches, peak memory of each run's steps and
+    before each update, the gradients' global norm at each update, and the
+    high-water mark of whole gathered bytes; then DP and FSDP two steps
+    with ``grad_clip=0`` (their losses only read). ``device='cpu'`` and
+    ``small`` (``model`` overrides and ``shape``) run the same logic at a
+    tiny size on the CPU."""
     import torch
 
-    from tpusystem_torch.ops.cuda._build import LIBRARIES
     from tpusystem_torch.parallel import multihost
-    LIBRARIES.build()
+    if device == 'cuda':
+        from tpusystem_torch.ops.cuda._build import LIBRARIES
+        LIBRARIES.build()
     multihost.initialize(f'127.0.0.1:{port}', DP_RANKS, rank,
-                         device='cuda', backend='gloo')
+                         device=device, backend='gloo')
     try:
         import numpy as np
 
         from tpusystem_torch.ops.cuda import flash
-        from tpusystem_torch.parallel import (DataParallel, MeshSpec,
-                                              batch_sharding)
+        from tpusystem_torch.parallel import (DataParallel,
+                                              FullyShardedDataParallel,
+                                              MeshSpec, batch_sharding)
+        from tpusystem_torch.parallel.sharding import whole_bytes
         from tpusystem_torch.train import (AdamW, ChunkedNextTokenLoss,
                                            init_state)
+
+        from tests.torch_ranks import oracle_train_step
         torch.backends.cuda.matmul.allow_tf32 = False
-        module = dp_model(torch, 'cuda')
-        module.init_weights(torch.Generator('cuda').manual_seed(0))
+        cuda = device == 'cuda'
+        shape = tuple(small['shape']) if small else DP_SHAPE
+        from tpusystem_torch.models import gpt2_small
+        module = (dp_model(torch, device) if small is None
+                  else gpt2_small(device=device, **small['model']))
         tokens = torch.as_tensor(np.random.default_rng(0).integers(
-            0, 50257, (TRAIN_BATCH, TRAIN_SEQ)), device='cuda')
-        optimizer = AdamW(lr=3e-4, grad_clip=1.0)
-        mesh = MeshSpec(data=-1).build()
-        state = DataParallel().place(init_state(module, optimizer, rng=0),
-                                     mesh)
-        rows = batch_sharding(mesh)(tokens)
-        step = build_train_step(module_apply(module),
-                                ChunkedNextTokenLoss(chunks=8), optimizer)
+            0, min(50257, module.vocab_size), shape), device=device)
         counters = (flash.flash_attention_lse, flash.flash_bwd_fused)
-        for counter in counters:
-            counter.launches = 0
-        losses, seconds = [], []
-        for _ in range(DP_STEPS):
-            started = time.perf_counter()
-            state, (_, loss) = step(state, rows, rows)
-            losses.append(loss.item())
-            seconds.append(time.perf_counter() - started)
-        pathlib.Path(out).write_text(json.dumps(dict(
-            rank=rank, rows=list(rows.shape), losses=losses,
-            step_ms=[1e3 * s for s in seconds],
-            backend=torch.distributed.get_backend(),
-            launches={counter.__name__: counter.launches
-                      for counter in counters})))
+        record = dict(rank=rank, backend=torch.distributed.get_backend(),
+                      policies={})
+        fsdp = FullyShardedDataParallel()
+        for name, policy, spec, clip, steps in (
+                ('dp', DataParallel(), MeshSpec(data=-1), 1.0, DP_STEPS),
+                ('fsdp', fsdp, MeshSpec(fsdp=-1), 1.0, DP_STEPS),
+                ('fsdp_whole', fsdp, MeshSpec(fsdp=-1), 1.0, DP_STEPS),
+                ('dp_unclipped', DataParallel(), MeshSpec(data=-1), 0.0, 2),
+                ('fsdp_unclipped', fsdp, MeshSpec(fsdp=-1), 0.0, 2)):
+            module.init_weights(torch.Generator(device).manual_seed(0))
+            optimizer = PeakBeforeUpdate(torch, AdamW(lr=3e-4,
+                                                      grad_clip=clip))
+            mesh = spec.build()
+            state = policy.place(init_state(module, optimizer, rng=0), mesh)
+            rows = batch_sharding(mesh)(tokens)
+            build = (oracle_train_step if name == 'fsdp_whole'
+                     else build_train_step)
+            step = build(module_apply(module),
+                         ChunkedNextTokenLoss(chunks=8), optimizer)
+            for counter in counters:
+                counter.launches = 0
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            whole_bytes.reset()
+            gathered_before = whole_bytes.live
+            losses, seconds = [], []
+            for _ in range(steps):
+                started = time.perf_counter()
+                state, (_, loss) = step(state, rows, rows)
+                losses.append(loss.item())
+                seconds.append(time.perf_counter() - started)
+            record['policies'][name] = dict(
+                rows=list(rows.shape), losses=losses,
+                step_ms=[1e3 * s for s in seconds],
+                launches={counter.__name__: counter.launches
+                          for counter in counters},
+                peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None),
+                peak_before_update_bytes=(max(optimizer.peaks)
+                                          if optimizer.peaks else None),
+                grad_norms=optimizer.norms,
+                whole_bytes_peak=whole_bytes.peak - gathered_before)
+            del state, step, loss, _
+        record['memory'] = fsdp_saving(module, DP_RANKS)
+        pathlib.Path(out).write_text(json.dumps(record))
     finally:
         multihost.shutdown()
 
 
-def two_ranks_on_one_card(torch, unplaced: list, root: pathlib.Path) -> dict:
+def dp_check(ranks: list, unplaced: list, layers: int, cuda: bool) -> dict:
+    """Phase 27 (c)'s checks on its ranks' records: each policy's global
+    losses equal on every rank and within ``DP_RTOL`` of the unplaced
+    steps', K1 and K2b ``layers`` launches a step; FSDP's whole gathered
+    bytes at most the largest unit and a bf16 cast of it (the whole
+    gather's over it); on the card, each FSDP rank's peak below a DP
+    rank's by at least the sharded-away bytes and the whole parameters
+    less the largest unit, and each FSDP rank's peak before the update
+    below the whole gather's by at least the whole parameters less the
+    largest unit, each less ``FSDP_PEAK_MARGIN``."""
+    worst = {}
+    for name in POLICY_RUNS:
+        runs = [record['policies'][name] for record in ranks]
+        worst[name] = max(abs(a - b) / abs(b) for run in runs
+                          for a, b in zip(run['losses'], unplaced))
+        if any(run['losses'] != runs[0]['losses'] for run in runs) \
+                or worst[name] > DP_RTOL:
+            fail(f'phase 27 (c): {name} losses '
+                 f'{[run["losses"] for run in runs]} against the unplaced '
+                 f'{unplaced} (rtol {DP_RTOL})')
+        want = {'flash_attention_lse': layers * DP_STEPS,
+                'flash_bwd_fused': layers * DP_STEPS}
+        if cuda and any(run['launches'] != want for run in runs):
+            fail(f'phase 27 (c): {name} launched '
+                 f'{[run["launches"] for run in runs]}, not {want}')
+    memory = ranks[0]['memory']
+    bound = memory['largest_unit_bytes'] * 3 // 2
+    gathered = [record['policies']['fsdp']['whole_bytes_peak']
+                for record in ranks]
+    whole = [record['policies']['fsdp_whole']['whole_bytes_peak']
+             for record in ranks]
+    if not all(0 < value <= bound < other
+               for value, other in zip(gathered, whole)):
+        fail(f'phase 27 (c): FSDP ranks held {gathered} whole gathered '
+             f'bytes at once (the whole gather {whole}), bound {bound} '
+             f'(the largest unit, {memory["largest_unit"]}, and its bf16 '
+             f'cast)')
+    savings = gaps = None
+    if cuda:
+        gaps = [record['policies']['fsdp_whole']['peak_before_update_bytes']
+                - record['policies']['fsdp']['peak_before_update_bytes']
+                for record in ranks]
+        floor = memory['not_gathered_bytes'] - FSDP_PEAK_MARGIN
+        if min(gaps) < floor:
+            fail(f'phase 27 (c): FSDP ranks peak before the update only '
+                 f'{gaps} bytes below the whole gather\'s, under {floor} '
+                 f'(the whole parameters less the largest unit, '
+                 f'{memory["not_gathered_bytes"]}, less the margin '
+                 f'{FSDP_PEAK_MARGIN})')
+        savings = [record['policies']['dp']['peak_memory_bytes']
+                   - record['policies']['fsdp']['peak_memory_bytes']
+                   for record in ranks]
+        floor = memory['expected_saving_bytes'] - FSDP_PEAK_MARGIN
+        if min(savings) < floor:
+            fail(f'phase 27 (c): FSDP ranks peak only {savings} bytes '
+                 f'below DP ranks, under {floor} (the sharded-away '
+                 f'{memory["sharded_away_bytes"]} and the whole parameters '
+                 f'less the largest unit, {memory["not_gathered_bytes"]}, '
+                 f'less the margin {FSDP_PEAK_MARGIN})')
+    return dict(max_rel_err=worst, rtol=DP_RTOL, whole_bytes_bound=bound,
+                whole_bytes_peak=gathered, whole_gather_bytes_peak=whole,
+                peak_savings=savings, whole_gather_gaps=gaps,
+                margin=FSDP_PEAK_MARGIN,
+                units_equal_whole_gather=[
+                    record['policies']['fsdp']['losses']
+                    == record['policies']['fsdp_whole']['losses']
+                    for record in ranks],
+                unclipped_rel_err=[
+                    abs(a - b) / abs(b) for a, b in zip(
+                        ranks[0]['policies']['fsdp_unclipped']['losses'],
+                        ranks[0]['policies']['dp_unclipped']['losses'])])
+
+
+def unplaced_steps(torch, seed: int, device: str, factory, shape) -> list:
+    """Phase 27 (c)'s reference: the losses of ``DP_STEPS`` unplaced AdamW
+    steps of ``factory()``'s model on ``shape`` tokens from ``seed`` (the
+    weights and tokens :func:`dp_worker` draws at seed 0), each of the
+    ``DP_RANKS`` ranks' rows a microbatch (``accumulate``, equal to the
+    whole batch by the step's contract): the ranks' kernels on the ranks'
+    shapes, so the per-row gradients are theirs and only the rounding of
+    their sum differs. (A single product over both rows sums in another
+    order, and AdamW's first update, sign(g) an element, turns that into
+    a second loss 1.6e-5 (DP) to 2.4e-5 (FSDP) off at [2, 1024] on an
+    H100 80GB HBM3.)"""
+    import numpy as np
+
+    from tpusystem_torch.train import AdamW, ChunkedNextTokenLoss, init_state
+    module = factory()
+    module.init_weights(torch.Generator(device).manual_seed(seed))
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, min(50257, module.vocab_size), shape), device=device)
+    optimizer = AdamW(lr=3e-4, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=seed)
+    step = build_train_step(module_apply(module),
+                            ChunkedNextTokenLoss(chunks=8), optimizer,
+                            accumulate=DP_RANKS)
+    losses = []
+    for _ in range(DP_STEPS):
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(loss.item())
+    return losses
+
+
+def two_ranks_on_one_card(torch, unplaced: list, root: pathlib.Path,
+                          layers: int) -> dict:
     """Phase 27 (c): ``DP_RANKS`` processes on the one card over gloo run
-    (b)'s DP steps on their rows; their global losses equal each other and
-    (b)'s unplaced losses within the CPU tests' rtol."""
+    the recipe cut to ``DP_SHAPE`` under DP and FSDP (:func:`dp_worker`),
+    held by :func:`dp_check`."""
     port = free_port()
     root.mkdir(parents=True, exist_ok=True)
     procs = [subprocess.Popen(
@@ -6160,13 +6423,8 @@ def two_ranks_on_one_card(torch, unplaced: list, root: pathlib.Path) -> dict:
                  f'{outputs[rank][-3000:]}')
     ranks = [json.loads((root / f'rank{rank}.json').read_text())
              for rank in range(DP_RANKS)]
-    worst = max(abs(a - b) / abs(b) for record in ranks
-                for a, b in zip(record['losses'], unplaced))
-    if any(record['losses'] != ranks[0]['losses'] for record in ranks) \
-            or worst > DP_RTOL:
-        fail(f'phase 27 (c): losses {[r["losses"] for r in ranks]} against '
-             f'the unplaced {unplaced} (rtol {DP_RTOL})')
-    return dict(ranks=ranks, max_rel_err=worst, rtol=DP_RTOL)
+    return dict(ranks=ranks, unplaced=unplaced, shape=list(DP_SHAPE),
+                **dp_check(ranks, unplaced, layers, cuda=True))
 
 
 def data_parallel(torch, seed: int, device: str = 'cuda', factory=None,
@@ -6192,10 +6450,10 @@ def data_parallel(torch, seed: int, device: str = 'cuda', factory=None,
     record = dict(collectives=collective, checksums=checksums,
                   train=trained, launches=trained['launches'])
     if two_ranks:
+        unplaced = unplaced_steps(torch, 0, device, factory, DP_SHAPE)
         with tempfile.TemporaryDirectory() as root:
             record['two_ranks'] = two_ranks_on_one_card(
-                torch, trained['runs']['unplaced']['losses'],
-                pathlib.Path(root))
+                torch, unplaced, pathlib.Path(root), trained['layers'])
     record.update(card=card_line() if device == 'cuda' else None,
                   seconds=time.perf_counter() - started)
     return record
@@ -7550,6 +7808,8 @@ def main() -> None:
         fail(str(error))
     build_seconds = time.perf_counter() - started
     print(f'built {sorted(LIBRARIES.build())} in {build_seconds:.1f} s')
+    native_record = native_gather()
+    print('native-gather ' + json.dumps(native_record))
 
     decode_ptxas = kernel_ptxas('decode-ptxas', 'decode_matmul',
                                 DECODE_INSTANCES + FFN_INSTANCES)
@@ -7854,7 +8114,8 @@ def main() -> None:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
-            {'card': card, 'build_s': build_seconds, 'checks': checks,
+            {'card': card, 'build_s': build_seconds,
+             'native_gather': native_record, 'checks': checks,
              'serve': served, 'serve_quantized': quantized,
              'train': trained, 'long': long,
              'dropout_kernels': dropout_checks,

@@ -992,6 +992,113 @@ def test_phase_27_fails_on_a_step_that_is_not_bitwise(monkeypatch,
     assert any('not bit for bit' in failure for failure in failures)
 
 
+def test_native_gather_check_builds_and_matches_numpy():
+    """Phase 1's native gather check on the CPU (the system ``g++`` builds
+    the library here as on the card): a shuffled batch of rows and of
+    token windows, bit for bit numpy's."""
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    record = chip_smoke.native_gather()
+    assert failures == []
+    assert record['built'].endswith('.so') and '/data/native/build/' in (
+        record['built'])
+    assert record['rows_equal'] and record['windows_equal']
+
+
+SMALL_DP = dict(model=dict(vocab_size=256, layers=2, dim=64, heads=4,
+                           max_seq=64, dropout=0.0, attention='flash',
+                           return_features=True, dtype='float32'),
+                shape=[2, 32])
+
+
+def test_phase_27_memory_arithmetic_names_the_largest_unit():
+    """(c)'s expected saving at ``fsdp=2``: half the parameters and half
+    the two AdamW slots, and the whole parameters less the largest unit
+    (here a block: its float32 bytes are over the embeddings' and the
+    tied head's)."""
+    from tpusystem_torch.models import gpt2_small
+
+    chip_smoke = _chip_smoke()
+    module = gpt2_small(device='cpu', **SMALL_DP['model'])
+    units = chip_smoke.unit_bytes(module)
+    params = sum(param.numel() * 4 for param in module.parameters())
+    assert sorted(units) == ['embeddings', 'h_0', 'h_1', 'head']
+    assert units['head'] == (module.wte.embedding.numel() + 2 * 64) * 4
+    memory = chip_smoke.fsdp_saving(module, 2)
+    assert memory['param_bytes'] == params
+    assert memory['largest_unit'] == 'h_0'
+    assert memory['largest_unit_bytes'] == units['h_0']
+    assert memory['expected_saving_bytes'] == (
+        3 * params // 2 + params - units['h_0'])
+
+
+def test_phase_27_two_ranks_at_a_tiny_width(tmp_path, one_torch_thread):
+    """Phase 27 (c)'s ranks at a tiny width on the CPU: two gloo processes
+    running :func:`dp_worker` under DP, FSDP at ``fsdp=2`` and the
+    whole-gather oracle, held by :func:`dp_check` to the unplaced steps
+    here: equal losses within the rtol, FSDP's losses the oracle's bit for
+    bit, FSDP's whole gathered bytes within the largest unit and its bf16
+    cast and the oracle's over it (the memory peaks are the card's
+    only)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import torch
+
+    from tpusystem_torch.models import gpt2_small
+
+    chip_smoke = _chip_smoke()
+    failures = []
+    chip_smoke.fail = failures.append
+    unplaced = chip_smoke.unplaced_steps(
+        torch, 0, 'cpu', lambda: gpt2_small(device='cpu', **SMALL_DP['model']),
+        tuple(SMALL_DP['shape']))
+    port = chip_smoke.free_port()
+    root = str(SCRIPT.parent)
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    procs = [subprocess.Popen(
+        [sys.executable, '-c',
+         f'import sys; sys.path.insert(0, {root!r}); import chip_smoke; '
+         f'chip_smoke.dp_worker({rank}, {port}, '
+         f'{str(tmp_path / f"rank{rank}.json")!r}, device="cpu", '
+         f'small={SMALL_DP!r})'],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(chip_smoke.DP_RANKS)]
+    try:
+        outputs = [proc.communicate(timeout=120)[0].decode()
+                   for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        assert proc.returncode == 0, outputs[rank][-3000:]
+    ranks = [json.loads((tmp_path / f'rank{rank}.json').read_text())
+             for rank in range(chip_smoke.DP_RANKS)]
+    record = chip_smoke.dp_check(ranks, unplaced, 2, cuda=False)
+    assert failures == []
+    for rank in ranks:
+        assert set(rank['policies']) == {'dp', 'fsdp', 'fsdp_whole',
+                                         'dp_unclipped', 'fsdp_unclipped'}
+        assert rank['policies']['dp']['whole_bytes_peak'] == 0
+        assert rank['policies']['fsdp']['rows'] == [1, 32]
+        assert all(len(rank['policies'][name]['grad_norms'])
+                   == chip_smoke.DP_STEPS for name in chip_smoke.POLICY_RUNS)
+    assert len(record['unclipped_rel_err']) == 2
+    assert all(0 < value <= record['whole_bytes_bound']
+               for value in record['whole_bytes_peak'])
+    assert all(value > record['whole_bytes_bound']
+               for value in record['whole_gather_bytes_peak'])
+    # gathered per unit or whole, the same steps bit for bit
+    assert record['units_equal_whole_gather'] == [True, True]
+    # a whole gather of every leaf would hold far more at once
+    assert record['whole_bytes_bound'] < ranks[0]['memory']['param_bytes']
+
+
 def test_phase_28_prints_after_the_data_parallel_phase():
     """Phase 28 prints its line after phase 27's, its K1/K2b launches join
     the ``kernels`` line, and the ``kernels`` and ``ok`` lines stay last."""

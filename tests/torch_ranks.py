@@ -1810,6 +1810,377 @@ def tables(inputs, out):
     out['tables'] = found
 
 
+def oracle_train_step(apply_fn, criterion, optimizer, accumulate=1):
+    """The placed train step as it ran before per-unit gathering, written
+    out: every leaf gathered whole before each microbatch's forward
+    (``gather_leaf``), held until its backward ends, the forward, the
+    gradients (``torch.autograd.grad``), ``sync_grads`` and the update."""
+    from tpusystem_torch.ops.threefry import split
+    from tpusystem_torch.parallel.collectives import all_reduce_sum
+    from tpusystem_torch.parallel.sharding import (gather_leaf, local,
+                                                   local_tree)
+    from tpusystem_torch.train.step import (batch_axes, chunk_outputs,
+                                            chunk_targets, sync_grads)
+    weight_fn = getattr(criterion, 'weight', None)
+    keeps = apply_fn.keeps_split
+
+    def step(state, inputs, targets):
+        mesh = state.mesh
+        rng = state.next_rng()
+        names = list(state.params)
+        placed = [state.params[name] for name in names]
+        held = [local(leaf) for leaf in placed]
+        micro = (list(zip(inputs.split(inputs.shape[0] // accumulate),
+                          targets.split(targets.shape[0] // accumulate),
+                          split(rng, accumulate)))
+                 if accumulate > 1 else [(inputs, targets, rng)])
+        axes = batch_axes(mesh)
+        micro = [(inputs_, chunk_targets(targets_, mesh), rng_)
+                 for inputs_, targets_, rng_ in micro]
+        weights = [weight_fn(micro_targets).float() if weight_fn
+                   else torch.ones(()) for _, micro_targets, _ in micro]
+        total = torch.clamp(all_reduce_sum(torch.stack(weights).sum(), mesh,
+                                           axes), min=1e-8)
+        grads, loss = None, torch.zeros(())
+        for (micro_inputs, micro_targets, micro_rng), weight in zip(
+                micro, weights):
+            leaves = [piece.detach().requires_grad_(piece.is_floating_point())
+                      for piece in held]
+            params = {name: gather_leaf(leaf, whole, mesh, keeps(name))
+                      for name, leaf, whole in zip(names, leaves, placed)}
+            outputs = apply_fn(params, micro_inputs, micro_rng, True)
+            share = criterion(chunk_outputs(outputs, mesh),
+                              micro_targets) * (weight / total)
+            found = torch.autograd.grad(share, leaves)
+            grads = (list(found) if grads is None
+                     else [sum_ + grad for sum_, grad in zip(grads, found)])
+            loss = loss + share.detach()
+        grads = sync_grads(grads, placed, mesh)
+        loss = all_reduce_sum(loss, mesh, axes)
+        optimizer.step(dict(zip(names, held)), dict(zip(names, grads)),
+                       local_tree(state.opt_state))
+        state.step += 1
+        return state, (None, loss)
+
+    return step
+
+
+def oracle_eval_step(apply_fn, criterion):
+    """The placed eval step before per-unit gathering: every leaf gathered
+    whole, the forward, the global loss."""
+    from tpusystem_torch.parallel.collectives import all_reduce_sum
+    from tpusystem_torch.parallel.sharding import gather_leaf, local
+    from tpusystem_torch.train.step import batch_axes
+
+    @torch.no_grad()
+    def step(state, inputs, targets):
+        mesh = state.mesh
+        params = {name: gather_leaf(local(leaf), leaf, mesh)
+                  for name, leaf in state.params.items()}
+        outputs = apply_fn(params, inputs, None, False)
+        weight = criterion.weight(targets).float()
+        axes = batch_axes(mesh)
+        total = torch.clamp(all_reduce_sum(weight, mesh, axes), min=1e-8)
+        share = criterion(outputs, targets) * (weight / total)
+        return outputs, all_reduce_sum(share, mesh, axes)
+
+    return step
+
+
+def oracle_1f1b_step(model, criterion, optimizer):
+    """The 1F1B step before per-unit gathering: every leaf gathered whole
+    (over the axes ``keeps_split`` leaves out) before the schedule."""
+    from tpusystem_torch.parallel.pipeline import pipeline_train
+    from tpusystem_torch.parallel.sharding import (gather_leaf, local,
+                                                   local_tree)
+    from tpusystem_torch.train.step import _own_piece
+
+    train = pipeline_train(
+        model._embed, model._block_fn(),
+        lambda reps, acts, tgt: criterion(model._head(reps, acts), tgt),
+        model.mesh, microbatches=model.microbatches,
+        weight_fn=getattr(criterion, 'weight', None))
+
+    def step(state, inputs, targets):
+        names = list(state.params)
+        held = [local(state.params[name]) for name in names]
+        with torch.no_grad():
+            given = {name: gather_leaf(piece, state.params[name],
+                                       state.mesh, model.keeps_split(name))
+                     for name, piece in zip(names, held)}
+        replicated = {name: leaf for name, leaf in given.items()
+                      if not name.startswith('h.')}
+        stacked = {name[2:]: leaf for name, leaf in given.items()
+                   if name.startswith('h.')}
+        loss, (d_replicated, d_stacked) = train(replicated, stacked, inputs,
+                                                targets)
+        grads = dict(d_replicated, **{'h.' + name: grad
+                                      for name, grad in d_stacked.items()})
+        grads = {name: _own_piece(grads[name], state.params[name],
+                                  state.mesh, model.keeps_split(name))
+                 for name in names}
+        optimizer.step(dict(zip(names, held)), grads,
+                       local_tree(state.opt_state))
+        state.step += 1
+        return state, (None, loss)
+
+    return step
+
+
+FSDP_TINY = dict(vocab_size=256, layers=4, dim=64, heads=4, max_seq=128,
+                 dropout=0.0, attention='flash')
+
+
+def _unit_bytes(placed: dict, units: list, mesh, keep) -> list:
+    """Each unit's bytes of whole gathered leaves on this rank: a leaf's
+    piece times the ranks of the axes it is gathered over, a stacked
+    leaf's per layer slice (``layers``), leaves gathered over no axis of
+    more than one rank left out."""
+    from tpusystem_torch.parallel.sharding import local, shard_axes
+    found = []
+    for names, per in units:
+        total = 0
+        for name in names:
+            leaf = placed[name]
+            factor = 1
+            for axes in shard_axes(leaf).values():
+                for axis in axes:
+                    if axis not in keep(name):
+                        factor *= mesh.shape[axis]
+            if factor > 1:
+                total += local(leaf).nbytes * factor // per
+        found.append(total)
+    return found
+
+
+# each family's units of per-unit gathering: the embeddings, the prefix of
+# a block's leaves (``{}`` its index) and of the scanned stack's, the final
+# norm with the head
+FAMILY_UNITS = {
+    'gpt2': (['wte.embedding', 'wpe.embedding'], 'h_{}.', 'hs.',
+             ['ln_f.scale', 'ln_f.bias', 'wte.embedding']),
+    'llama': (['embed.embedding'], 'layer_{}.', 'blocks.',
+              ['final_norm.scale', 'lm_head.kernel']),
+    'pipelined': (['wte.embedding', 'wpe.embedding'], None, 'h.',
+                  ['ln_f.scale', 'ln_f.bias', 'wte.embedding'])}
+
+
+def _family_units(names: list, layers: int, scanned: bool,
+                  family: str) -> list:
+    """``(leaf names, slices)`` of a model's units: the embeddings, each
+    block (each layer slice of the stack: ``slices`` = layers), the final
+    norm with the head (GPT-2's the tied table)."""
+    embed, block, stack, head = FAMILY_UNITS[family]
+    if scanned:
+        blocks = [([name for name in names if name.startswith(stack)],
+                   layers)]
+    else:
+        blocks = [([name for name in names
+                    if name.startswith(block.format(index))], 1)
+                  for index in range(layers)]
+    return [(embed, 1)] + blocks + [(head, 1)]
+
+
+def _fsdp_run(kind, path, inputs, mesh, policy, knobs, accumulate, steps):
+    """``steps`` steps of ``kind`` (``'train'``, ``'eval'`` or ``'1f1b'``)
+    on ``path`` (``'units'``, the port's step, or ``'oracle'``): losses,
+    final parameters gathered whole, and the high-water mark of whole
+    gathered bytes over the steps."""
+    from tpusystem_torch.models import GPT2, GPT2Pipelined, llama_tiny
+    from tpusystem_torch.parallel import batch_sharding
+    from tpusystem_torch.parallel.sharding import whole_bytes, whole_leaf
+    from tpusystem_torch.train import (AdamW, NextTokenLoss, WithAuxLoss,
+                                       build_1f1b_train_step,
+                                       build_eval_step, build_train_step,
+                                       init_state, module_apply)
+    tokens = torch.from_numpy(inputs['fsdp_tokens']).long()
+    knobs = dict(knobs)
+    family = knobs.pop('family', 'gpt2')
+    criterion = (WithAuxLoss(NextTokenLoss()) if knobs.get('moe_experts')
+                 else NextTokenLoss())
+    optimizer = AdamW(lr=1e-2, grad_clip=1.0)
+    config = dict(FSDP_TINY, **knobs)
+    if kind == '1f1b':
+        del config['dropout'], config['attention']
+        module = GPT2Pipelined(device='cpu', microbatches=2, **config)
+    elif family == 'llama':
+        module = llama_tiny(device='cpu', layers=FSDP_TINY['layers'],
+                            **knobs)
+    else:
+        module = GPT2(device='cpu', **config)
+    module.init_weights(torch.Generator().manual_seed(inputs['fsdp_seed']))
+    state = policy.place(init_state(module, optimizer, rng=0), mesh)
+    if kind == '1f1b':
+        step = (build_1f1b_train_step(module, criterion, optimizer)
+                if path == 'units'
+                else oracle_1f1b_step(module, criterion, optimizer))
+    elif kind == 'train':
+        apply_fn = module_apply(module)
+        step = (build_train_step(apply_fn, criterion, optimizer,
+                                 accumulate=accumulate)
+                if path == 'units'
+                else oracle_train_step(apply_fn, criterion, optimizer,
+                                       accumulate))
+    else:
+        apply_fn = module_apply(module)
+        evaluate = (build_eval_step(apply_fn, criterion) if path == 'units'
+                    else oracle_eval_step(apply_fn, criterion))
+
+        def step(state, rows, targets):
+            return state, evaluate(state, rows, targets)
+    rows = batch_sharding(mesh)(tokens)
+    losses, peak = [], 0
+    for _ in range(steps):
+        whole_bytes.reset()
+        before = whole_bytes.live
+        state, (_, loss) = step(state, rows, rows)
+        peak = max(peak, whole_bytes.peak - before)
+        losses.append(float(loss))
+    return dict(losses=losses, peak=peak, state=state, module=module,
+                params={name: _numpy(whole_leaf(leaf))
+                        for name, leaf in state.params.items()})
+
+
+def _fsdp_unplaced(inputs, steps=2) -> list:
+    """The losses of the train steps ``fsdp_units`` runs, unplaced in this
+    process."""
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.train import (AdamW, NextTokenLoss,
+                                       build_train_step, init_state,
+                                       module_apply)
+    module = GPT2(device='cpu', **FSDP_TINY)
+    module.init_weights(torch.Generator().manual_seed(inputs['fsdp_seed']))
+    optimizer = AdamW(lr=1e-2, grad_clip=1.0)
+    state = init_state(module, optimizer, rng=0)
+    step = build_train_step(module_apply(module), NextTokenLoss(), optimizer)
+    tokens = torch.from_numpy(inputs['fsdp_tokens']).long()
+    losses = []
+    for _ in range(steps):
+        state, (_, loss) = step(state, tokens, tokens)
+        losses.append(float(loss))
+    return losses
+
+
+def fsdp_units(inputs, out):
+    """Per-unit FSDP gathering against the whole-gather oracle: each case's
+    losses and parameters from the port's step and from the oracle, and
+    both runs' high-water marks of whole gathered bytes beside the bound
+    (the largest unit's whole bytes and a bf16 cast of them)."""
+    from tpusystem_torch.parallel import (FullyShardedDataParallel, MeshSpec,
+                                          PipelineParallel)
+    from tpusystem_torch.parallel.sharding import TensorParallel
+    from tpusystem_torch.models import GPT2
+    found = {}
+    ranks = torch.distributed.get_world_size()
+    fsdp = FullyShardedDataParallel(min_size=64)
+    cases = [('fsdp', 'train', MeshSpec(fsdp=-1), fsdp, {}, 1),
+             ('fsdp_accumulate', 'train', MeshSpec(fsdp=-1), fsdp, {}, 2),
+             ('fsdp_scan', 'train', MeshSpec(fsdp=-1), fsdp,
+              {'scan_layers': True}, 1),
+             ('fsdp_remat', 'train', MeshSpec(fsdp=-1), fsdp,
+              {'remat': True}, 1),
+             ('fsdp_eval', 'eval', MeshSpec(fsdp=-1), fsdp, {}, 1)]
+    if ranks == 2:
+        cases += [
+            ('llama', 'train', MeshSpec(fsdp=-1), fsdp,
+             {'family': 'llama'}, 2),
+            ('llama_scan', 'train', MeshSpec(fsdp=-1), fsdp,
+             {'family': 'llama', 'scan_layers': True}, 1),
+            ('moe', 'train', MeshSpec(fsdp=-1), fsdp, {'moe_experts': 4},
+             1),
+            ('1f1b_one_stage', '1f1b', MeshSpec(stage=1, fsdp=2),
+             PipelineParallel(fsdp=True, fsdp_min_size=64), {'mesh': True},
+             1)]
+    if ranks == 4:
+        cases += [
+            ('data_fsdp', 'train', MeshSpec(data=2, fsdp=2), fsdp, {}, 2),
+            ('data_fsdp_scan', 'train', MeshSpec(data=2, fsdp=2), fsdp,
+             {'scan_layers': True, 'remat': True}, 2),
+            ('tp_fsdp', 'train', MeshSpec(model=2, fsdp=2),
+             TensorParallel(GPT2.partition_rules(), fsdp=True,
+                            fsdp_min_size=64), {'mesh': True}, 1),
+            ('1f1b', '1f1b', MeshSpec(stage=2, fsdp=2),
+             PipelineParallel(fsdp=True, fsdp_min_size=64), {'mesh': True},
+             1)]
+    for name, kind, spec, policy, knobs, accumulate in cases:
+        mesh = spec.build()
+        if knobs.get('mesh'):
+            knobs = dict(knobs, mesh=mesh)
+        runs = {path: _fsdp_run(kind, path, inputs, mesh, policy, knobs,
+                                accumulate, steps=2)
+                for path in ('units', 'oracle')}
+        module, placed = runs['units']['module'], runs['units']['state'].params
+        keep = getattr(module, 'keeps_split', lambda name: ())
+        # a stage's loop of many stages gathers a chunk of the stack or the
+        # replicated leaves a unit (its gathers alone counted); the train
+        # and eval steps and the loop of one stage gather each model unit
+        # and count each gathered leaf's casts too (one bf16 cast beside it)
+        chunked = kind == '1f1b' and mesh.shape['stage'] > 1
+        if chunked:
+            units = [([name for name in placed if not name.startswith('h.')],
+                      1), ([name for name in placed if name.startswith('h.')],
+                           1)]
+        else:
+            family = ('pipelined' if kind == '1f1b'
+                      else knobs.get('family', 'gpt2'))
+            units = _family_units(list(placed), FSDP_TINY['layers'],
+                                  kind == '1f1b'
+                                  or knobs.get('scan_layers', False), family)
+        sizes = _unit_bytes(placed, units, mesh,
+                            keep if kind != 'eval' else lambda name: ())
+        found[name] = dict(
+            losses={path: runs[path]['losses'] for path in runs},
+            params={path: runs[path]['params'] for path in runs},
+            peak={path: runs[path]['peak'] for path in runs},
+            units=sizes,
+            bound=max(sizes) if chunked else max(sizes) * 3 // 2)
+        if name == 'fsdp':
+            found[name]['unplaced'] = _fsdp_unplaced(inputs)
+    found['guard'] = _stand_in_guard(MeshSpec(fsdp=-1).build(), fsdp)
+    out['fsdp_units'] = found
+
+
+def _stand_in_guard(mesh, policy) -> dict:
+    """What a stand-in of a split leaf allows: its metadata, and its whole
+    leaf through ``gathered``, equal to ``gather_leaf``'s; an operation on
+    the stand-in itself raises under ``unit_gathering`` and
+    ``guard_stand_ins`` (else it would compute on the stand-in's NaN)."""
+    from tpusystem_torch.models import GPT2
+    from tpusystem_torch.parallel.sharding import (defer_leaf, gather_leaf,
+                                                   gathered, guard_stand_ins,
+                                                   is_deferred, local,
+                                                   unit_gathering)
+    from tpusystem_torch.train import AdamW, init_state
+    module = GPT2(device='cpu', **FSDP_TINY)
+    state = policy.place(init_state(module, AdamW(lr=1e-2), rng=0), mesh)
+    leaf = state.params['wte.embedding']
+    stand_in = defer_leaf(local(leaf), leaf, mesh)
+    found = dict(deferred=is_deferred(stand_in),
+                 shape=list(stand_in.shape),
+                 whole_shape=list(module.wte.embedding.shape))
+    for name, context in (('unit_gathering', unit_gathering),
+                          ('guard_stand_ins', guard_stand_ins)):
+        with context():
+            meta = (stand_in.shape, stand_in.dtype, stand_in.device,
+                    stand_in.dim(), stand_in.is_floating_point())
+            whole = gathered(stand_in)
+            raised = []
+            for use in (lambda: stand_in * 2, lambda: stand_in.to(
+                    torch.bfloat16), lambda: stand_in.T,
+                    lambda: torch.cat([stand_in, whole])):
+                try:
+                    use()
+                except RuntimeError as error:
+                    raised.append('stand-in' in str(error))
+                else:
+                    raised.append(False)
+        found[name] = dict(
+            meta=len(meta), raised=raised,
+            whole_equal=bool(torch.equal(
+                whole, gather_leaf(local(leaf), leaf, mesh))))
+    return found
+
+
 SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'mlp': train_mlp,
              'collectives': lambda inputs, out: collectives(out),
@@ -1822,7 +2193,7 @@ SCENARIOS = {'layouts': lambda inputs, out: mesh_layouts(out),
              'tp_schedule': tp_schedule, 'tp_step': tp_step,
              'tp_mlp': tp_mlp, 'serve_tp': serve_tp,
              'pipeline': pipeline, 'ring': ring, 'expert': expert,
-             'tables': tables}
+             'tables': tables, 'fsdp_units': fsdp_units}
 
 
 def launch(root, inputs: dict, ranks: int = 4, timeout: float = 240) -> list:

@@ -3,9 +3,9 @@
 :class:`SyntheticDigits`, :class:`SyntheticTokens` and
 :class:`SyntheticClicks` are copied as they are (numpy only), so their
 arrays are bitwise the reference's for any arguments. :class:`MemmapTokens`
-gathers its windows with numpy fancy indexing, which the reference's native
-window gather (``tpusystem/data/native``) equals bit for bit by its own
-contract; :class:`TorchDataset` is copied.
+gathers a batch's windows through the native window gather
+(:mod:`tpusystem_torch.data.native`), as the reference's does;
+:class:`TorchDataset` is copied.
 """
 
 from __future__ import annotations
@@ -161,12 +161,14 @@ class MemmapTokens:
     def __getitem__(self, index) -> tuple:
         window = self.sequence_length + 1
         if isinstance(index, np.ndarray):
-            # batched window gather: one [batch, window] position matrix
-            # indexed straight from the page cache (the reference's native
-            # gather equals this bit for bit)
+            # batched window gather: native per-window memcpy straight from
+            # the page cache (multithreaded, GIL released) when the
+            # toolchain built batcher.cpp, numpy fancy indexing otherwise —
+            # bit-identical either way
+            from tpusystem_torch.data import native
             starts = index.astype(np.int64) * self.stride
-            positions = starts[:, None] + np.arange(window)[None, :]
-            return (self._tokens[positions].astype(np.int32),)
+            rows = native.gather_windows(self._tokens, starts, window)
+            return (rows.astype(np.int32),)
         start = int(index) * self.stride
         return (self._tokens[start:start + window].astype(np.int32),)
 

@@ -9,9 +9,10 @@ thread's current stream, which the training thread's kernels follow in
 order.
 
 The batch order of an epoch and the ``state()``/``seek()`` cursors are the
-reference's, bitwise. The reference's native gather (``data/native``) is
-bit-identical to numpy fancy indexing by its own contract; the port uses
-numpy. A ``sharding`` (a mesh placement,
+reference's, bitwise. Batch gathers go through the native multithreaded
+core (:mod:`tpusystem_torch.data.native`, a copy of the reference's) where
+the C++ toolchain built it, bit-identical to numpy fancy indexing, which
+takes over where it did not. A ``sharding`` (a mesh placement,
 :func:`~tpusystem_torch.parallel.batch_sharding`) keeps this rank's rows of
 each global batch: every rank draws the same global permutation, so its
 rows are bit for bit those the reference's device at the same mesh
@@ -33,7 +34,12 @@ from tpusystem_torch.registry import register
 
 
 class ArrayDataset:
-    """In-memory dataset over parallel arrays (inputs, targets, ...)."""
+    """In-memory dataset over parallel arrays (inputs, targets, ...).
+
+    Batch gathers go through the native multithreaded core
+    (:mod:`tpusystem_torch.data.native`) when it is available; results are
+    bit-identical to numpy fancy indexing either way.
+    """
 
     def __init__(self, *arrays: np.ndarray):
         lengths = {len(array) for array in arrays}
@@ -45,6 +51,9 @@ class ArrayDataset:
         return len(self.arrays[0])
 
     def __getitem__(self, index) -> tuple:
+        if isinstance(index, np.ndarray):
+            from tpusystem_torch.data import native
+            return tuple(native.gather(array, index) for array in self.arrays)
         return tuple(array[index] for array in self.arrays)
 
 

@@ -77,7 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusystem_torch.device import compute_dtype, resolve_device
-from tpusystem_torch.models.scan import (apply_unit, checkpointed,
+from tpusystem_torch.models.scan import (apply_unit, as_unit,
                                          init_stacked, layer_slices, lookup,
                                          restack_caches, stack_parameters,
                                          unit_cache)
@@ -95,7 +95,7 @@ from tpusystem_torch.parallel.schedule import (over_fsdp_whole,
                                                resolve_schedule,
                                                schedule_applicable,
                                                scheduled_ffn)
-from tpusystem_torch.parallel.sharding import held_axes, with_held
+from tpusystem_torch.parallel.sharding import gathered, held_axes, with_held
 from tpusystem_torch.registry import register
 
 EMBED_STD = 0.02    # GPT-2's initializer range for the embedding tables
@@ -463,7 +463,15 @@ class GPT2(nn.Module):
     ``schedule``'s ``moe=`` arm pipelines the quota exchange), or by the
     dense dispatch where the reference's blocker falls back
     (:class:`~tpusystem_torch.ops.moe.MoEMLP`). None of them changes the
-    parameter tree."""
+    parameter tree.
+
+    Under a placed step (:func:`~tpusystem_torch.train.build_train_step`)
+    the forward gathers the leaves FSDP split one unit at a time
+    (``gathers_units``): the embeddings, each block or layer slice, the
+    final norm with the tied head; the backward gathers each unit's leaves
+    again when it reaches the unit."""
+
+    gathers_units = True
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'max_seq', 'mlp_ratio',
               'dropout', 'dtype', 'attention', 'attn_dropout', 'remat',
@@ -782,8 +790,12 @@ class GPT2(nn.Module):
         embed_key, block_keys = (dropout_keys(rng, self.layers) if dropping
                                  else (None, [(None,) * 3] * self.layers))
         mesh, tp = self.mesh, self.tp
-        embedded = (vocab_lookup(self.wte.embedding, tokens, mesh)
-                    + feature_lookup(self.wpe.embedding, positions, mesh))
+        # the units of per-unit FSDP gathering: the embeddings, each block
+        # (or layer slice), the final norm with the head; a unit's leaves
+        # are gathered when it is entered (parallel/sharding.py gathered)
+        embedded = (vocab_lookup(gathered(self.wte.embedding), tokens, mesh)
+                    + feature_lookup(gathered(self.wpe.embedding), positions,
+                                     mesh))
         hidden = apply_dropout(embedded, rate, embed_key).to(dtype)
         aux_losses = []
         remat = self.remat and not self.decode and torch.is_grad_enabled()
@@ -804,14 +816,14 @@ class GPT2(nn.Module):
                 attention = functools.partial(attend, kernel=self.attention,
                                               dropout=attn_rate, rng=attn_key,
                                               mesh=mesh)
-            run = checkpointed(block) if remat else block
+            run = as_unit(block, remat)
             hidden = run(hidden, dtype, attention, rate, tuple(output_keys),
                          tp)
             if self.is_moe(index):
                 hidden, aux = hidden
                 aux_losses.append(aux)
-        features = self.ln_f(hidden).to(dtype)
-        table = whole_rows(self.wte.embedding, mesh).to(dtype)
+        features = as_unit(self.ln_f)(hidden).to(dtype)
+        table = whole_rows(gathered(self.wte.embedding), mesh).to(dtype)
         if self.scan_layers and aux_losses:
             # the reference's scanned aux: the mean over spans of each
             # span's mean router loss

@@ -65,7 +65,7 @@ from tpusystem_torch.models.gpt2 import (Dense, Embed, _cast, column,
                                          global_shape, heads_split,
                                          local_heads, row, sequence_offset,
                                          vocab_lookup, whole_rows)
-from tpusystem_torch.models.scan import (apply_unit, checkpointed,
+from tpusystem_torch.models.scan import (apply_unit, as_unit,
                                          init_stacked, layer_slices,
                                          restack_caches, stack_parameters,
                                          unit_cache)
@@ -76,6 +76,7 @@ from tpusystem_torch.parallel.mesh import FSDP, MODEL
 from tpusystem_torch.parallel.schedule import (resolve_schedule,
                                                schedule_applicable,
                                                scheduled_swiglu)
+from tpusystem_torch.parallel.sharding import gathered
 from tpusystem_torch.registry import register
 
 # the std of the unit normal truncated at +-2: flax's truncated_normal
@@ -241,7 +242,11 @@ class Llama(nn.Module):
     :func:`llama_tiny` are the presets. ``device`` defaults to the card
     (``'cpu'`` must be asked for); weights are drawn from a generator
     seeded 0 — :meth:`init_weights` redraws them, ``load_state_dict``
-    replaces them."""
+    replaces them. Under a placed step it gathers FSDP-split leaves one
+    unit at a time (``gathers_units``: the embedding, each block or layer
+    slice, the final norm with the head)."""
+
+    gathers_units = True
 
     FIELDS = ('vocab_size', 'layers', 'dim', 'heads', 'kv_heads', 'ffn_dim',
               'max_seq', 'rope_theta', 'dtype', 'attention', 'remat',
@@ -477,7 +482,10 @@ class Llama(nn.Module):
                 cursor = cache.get(first + '/index')
                 depth = 0 if cursor is None else int(cursor.max())
         mesh, tp = self.mesh, self.tp
-        hidden = vocab_lookup(self.embed.embedding, tokens, mesh).to(dtype)
+        # the units of per-unit FSDP gathering: the embedding, each block
+        # (or layer slice), the final norm with the head
+        hidden = vocab_lookup(gathered(self.embed.embedding), tokens,
+                              mesh).to(dtype)
         remat = self.remat and not self.decode and torch.is_grad_enabled()
         if self.scan_layers:
             hidden = self._scanned(hidden, dtype, cache, depth, remat, steps)
@@ -500,11 +508,12 @@ class Llama(nn.Module):
                 positions = steps
                 attention = functools.partial(attend, kernel=self.attention,
                                               mesh=mesh)
-            run = checkpointed(block) if remat else block
+            run = as_unit(block, remat)
             hidden = run(hidden, dtype, attention, positions,
                          self.rope_theta, tp)
-        features = self.final_norm(hidden)
-        table = whole_rows(self.lm_head.kernel, mesh, dimension=1).to(dtype)
+        features = as_unit(self.final_norm)(hidden)
+        table = whole_rows(gathered(self.lm_head.kernel), mesh,
+                           dimension=1).to(dtype)
         if self.return_features:
             outputs = (features, table)
         else:

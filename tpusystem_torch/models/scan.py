@@ -12,6 +12,11 @@ to each layer's slices through ``torch.func.functional_call``. Stacked
 parameters are marked ``stacked = True``, so the optimizer's global norm
 counts them as their layer slices, in layer order, as the unrolled model's
 leaves come (:func:`tpusystem_torch.train.optim.global_norm`).
+
+Each layer slice, and each block run through :func:`as_unit`, is a unit of
+per-unit FSDP gathering: a leaf a placed step hands over as a stand-in
+(:func:`~tpusystem_torch.parallel.sharding.defer_leaf`) is gathered when
+its unit is entered and dropped when the unit returns.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import functools
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from tpusystem_torch.parallel.sharding import (deferred_layers, gathered,
+                                               is_deferred)
 
 CACHE_LEAVES = ('/key', '/value', '/index')
 
@@ -50,10 +58,14 @@ def layer_slices(module: nn.Module, names: list[str]) -> list[dict]:
     """``[{name: slice of layer j}]`` for every layer, one ``unbind`` a
     parameter. A stacked piece held split over mesh axes
     (:func:`~tpusystem_torch.parallel.sharding.held_axes`) gives slices
-    held split over them one dimension left."""
+    held split over them one dimension left; a stacked stand-in gives
+    stand-ins of its layer slices, each gathered on its own."""
     pieces = []
     for name in names:
         stacked = lookup(module, name)
+        if is_deferred(stacked):
+            pieces.append(deferred_layers(stacked))
+            continue
         held = getattr(stacked, 'held', None) or {}
         if 0 in held:
             raise ValueError(f'{name} is split over {held[0]} at its layer '
@@ -76,34 +88,43 @@ def init_stacked(param: torch.Tensor, init) -> None:
 def apply_unit(template: nn.Module, names: list[str], slices: dict,
                hidden, args: tuple, remat: bool):
     """``template(hidden, *args)`` with one unit's parameter slices in place
-    of its stacked parameters; with ``remat`` under one non-reentrant
-    checkpoint (the reference's ``nn.remat`` of the block or span)."""
+    of its stacked parameters, stand-ins gathered on entry; with ``remat``
+    under one non-reentrant checkpoint (the reference's ``nn.remat`` of the
+    block or span), which gathers them again in its recompute."""
     def apply(hidden, *values):
         return torch.func.functional_call(
-            template, dict(zip(names, values)), (hidden, *args))
+            template, dict(zip(names, map(gathered, values))),
+            (hidden, *args))
 
     run = (functools.partial(checkpoint, apply, use_reentrant=False)
            if remat else apply)
     return run(hidden, *(slices[name] for name in names))
 
 
-def checkpointed(module: nn.Module):
-    """``module(*args)`` under one non-reentrant checkpoint whose recompute
-    reads the parameters the forward read: the tensors the module holds
-    when it is called (inside a ``functional_call``, the caller's, such as
-    a placed step's pieces) are the checkpoint's explicit inputs, so the
-    backward's recompute, which runs after that call has restored the
-    module's own tensors, takes them again."""
+def as_unit(module: nn.Module, remat: bool = False):
+    """``module(*args)`` as one unit: the stand-ins among the tensors the
+    module holds when it is called (inside a ``functional_call``, the
+    caller's) gathered on entry and dropped on return. With ``remat``,
+    under one non-reentrant checkpoint whose recompute reads the
+    parameters the forward read: those tensors are the checkpoint's
+    explicit inputs, so the backward's recompute, which runs after that
+    call has restored the module's own tensors, takes (and gathers) them
+    again."""
     names = [name for name, _ in module.named_parameters()]
 
     def apply(count, *flat):
         return torch.func.functional_call(
-            module, dict(zip(names, flat[:count])), flat[count:])
+            module, dict(zip(names, map(gathered, flat[:count]))),
+            flat[count:])
 
     def run(*args):
         values = [lookup(module, name) for name in names]
-        return checkpoint(apply, len(values), *values, *args,
-                          use_reentrant=False)
+        if remat:
+            return checkpoint(apply, len(values), *values, *args,
+                              use_reentrant=False)
+        if not any(map(is_deferred, values)):
+            return module(*args)
+        return apply(len(values), *values, *args)
     return run
 
 

@@ -25,6 +25,11 @@ tick, so the tensor-parallel collectives inside a unit run on all of them
 or none (the reference runs units masked under PP x TP for the same
 reason, where its compiler cannot see that).
 
+Under FSDP the 1F1B step hands :func:`pipeline_train` stand-ins for the
+leaves it would gather: each unit gathers what it runs on, a stage's chunk
+of the stack or the replicated leaves of the head and the tail, and drops
+it when the unit ends.
+
 The hidden state enters the pipe replicated over ``stage`` (its gradient
 is summed over the stage group: only stage 0 feeds it) and leaves it
 replicated (the last stage's outputs summed over the stage group with the
@@ -34,6 +39,7 @@ the last stage's own cotangent).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable
 
@@ -45,7 +51,9 @@ from tpusystem_torch.parallel.collectives import (_raw_all_gather,
                                                   ring_shift_chunked)
 from tpusystem_torch.parallel.mesh import (DATA, FSDP, STAGE, Mesh,
                                            PartitionSpec as P)
-from tpusystem_torch.parallel.sharding import ShardingPolicy, held_axes
+from tpusystem_torch.parallel.sharding import (ShardingPolicy, gathered,
+                                               guard_stand_ins, held_axes,
+                                               is_deferred, unit_gathering)
 
 __all__ = ['pipeline_apply', 'pipeline_train', 'PipelineParallel',
            'compose_stacked_rules']
@@ -181,11 +189,50 @@ def _grads(outputs, inputs, cotangents) -> list:
             for leaf, grad in zip(inputs, found)]
 
 
+def _whole(params: dict) -> dict:
+    """The dict with each stand-in gathered whole (a unit's leaves)."""
+    return {name: gathered(leaf) for name, leaf in params.items()}
+
+
+def _uses(params: dict, aliases: dict) -> dict:
+    """One use of each leaf of ``params`` through its alias: a stand-in's
+    gathered now through its anchor, another's the alias itself."""
+    return {name: (params[name].lazy.through(alias)
+                   if is_deferred(params[name]) else alias)
+            for name, alias in aliases.items()}
+
+
+def _listed(alias) -> list:
+    return alias if isinstance(alias, list) else [alias]
+
+
+def _layers(stack: '_Stack', layered: dict, aliases: dict):
+    """``layer(index)``: a layer's parameter dict in the one-stage loop, a
+    stand-in's layer gathered through its anchor when it is asked for,
+    another leaf's slice of its alias (one ``unbind``) with its
+    tensor-parallel marks."""
+    slices = {}
+    for name, alias in aliases.items():
+        if name not in stack.lazies:
+            slices[name] = alias.unbind(0)
+            for piece in slices[name] if stack.held.get(name) else ():
+                piece.held = stack.held[name]
+
+    def layer(index: int) -> dict:
+        return {name: (layered[name][index].through(aliases[name][index])
+                       if name in stack.lazies else slices[name][index])
+                for name in stack.names}
+    return layer
+
+
 class _Stack:
     """This rank's layer chunks of a stacked parameter dict: each leaf as
     ``[chunks, layers_in_chunk, ...]`` (a view of the piece the rank holds,
     or of its slice of a whole stack), the tensor-parallel marks of a layer
-    slice, and the global layer count."""
+    slice, and the global layer count. A stand-in of a leaf still to
+    gather (:func:`~tpusystem_torch.parallel.sharding.defer_leaf`) is
+    gathered a chunk at a time, when :meth:`chunk` hands the chunk to a
+    unit."""
 
     def __init__(self, stacked: dict, mesh: Mesh, chunks: int) -> None:
         stages = mesh.shape[STAGE]
@@ -208,10 +255,18 @@ class _Stack:
         # a whole stack on a stage axis of many ranks: this rank's slice
         self.whole = stages > 1 and not piece
         self.leaves, self.held, self.shapes = [], {}, []
+        self.lazies: dict = {}
         index = mesh.coordinate[STAGE] if stages > 1 else 0
         for name in self.names:
             leaf = stacked[name]
             marks = held_axes(leaf)
+            if is_deferred(leaf):
+                if self.whole:
+                    raise ValueError(f'{name}: a stand-in of a whole stack '
+                                     'on a stage axis of many ranks')
+                self.lazies[name] = ([leaf.lazy] if chunks == 1
+                                     else leaf.lazy.layers(lead_held=True))
+                leaf = leaf.lazy.stand_in()     # its shape and dtype only
             if self.whole:
                 size = leaf.shape[stage_dim] // stages
                 leaf = leaf.narrow(stage_dim, index * size, size)
@@ -227,7 +282,19 @@ class _Stack:
             self.leaves.append(leaf)
 
     def chunk(self, leaves, c: int) -> dict:
-        return {name: leaf[c] for name, leaf in zip(self.names, leaves)}
+        return {name: (self.lazies[name][c].gather() if name in self.lazies
+                       else leaf[c])
+                for name, leaf in zip(self.names, leaves)}
+
+    def layer_leaves(self) -> dict:
+        """Each leaf's layers in layer-major order: a stand-in's as one
+        lazy leaf a layer (gathered by the layer's unit), another's as
+        the ``[layers, ...]`` stack, a view of the rank's leaf."""
+        return {name: ([layer for lazy in self.lazies[name]
+                        for layer in lazy.layers(lead_held=True)]
+                       if name in self.lazies
+                       else leaf.reshape((-1,) + tuple(leaf.shape[2:])))
+                for name, leaf in zip(self.names, self.leaves)}
 
     def restore(self, index: int, grad: torch.Tensor, mesh: Mesh
                 ) -> torch.Tensor:
@@ -582,6 +649,13 @@ def pipeline_train(head_fn, block_fn, tail_fn, mesh: Mesh, *,
         return weight_fn(targets).float()
 
     def step(replicated_params: dict, stacked_params: dict, inputs, targets):
+        # a stand-in used outside the units that gather it raises
+        given = [*replicated_params.values(), *stacked_params.values()]
+        with (guard_stand_ins() if any(map(is_deferred, given))
+              else contextlib.nullcontext()):
+            return run(replicated_params, stacked_params, inputs, targets)
+
+    def run(replicated_params: dict, stacked_params: dict, inputs, targets):
         if inputs.shape[0] % microbatches:
             raise ValueError(
                 f'batch {inputs.shape[0] * data_parallel} not divisible by '
@@ -610,35 +684,58 @@ def pipeline_train(head_fn, block_fn, tail_fn, mesh: Mesh, *,
         if stages == 1:
             # one stage: the plain microbatch loop, the head inside the
             # objective so the embedding's gradients flow; the chunk
-            # dimension flattens back to the layer-major stack
-            flat = [leaf.reshape((-1,) + tuple(leaf.shape[2:]))
-                    for leaf in stack.leaves]
+            # dimension flattens back to the layer-major stack. Each unit
+            # (the head, each layer, the tail) gathers its stand-ins when
+            # it runs, through an anchor that takes the whole leaf's
+            # gradient, and the backward gathers them again
+            layered = stack.layer_leaves()
+            deferred = bool(stack.lazies) or any(map(is_deferred,
+                                                     reps.values()))
             for m in range(microbatches):
                 tgt = micro_tgt[m]
                 weight = weigh(tgt)
-                with torch.enable_grad():
-                    r_alias = {name: _alias(leaf)
+                with torch.enable_grad(), (unit_gathering() if deferred
+                                           else contextlib.nullcontext()):
+                    r_alias = {name: (leaf.lazy.anchor() if is_deferred(leaf)
+                                      else _alias(leaf))
                                for name, leaf in reps.items()}
-                    s_alias = dict(zip(stack.names, map(_alias, flat)))
-                    x = head_fn(r_alias, micro_in[m])
-                    loss_m = weight * tail_fn(r_alias, body(s_alias, x), tgt)
-                    grads = _grads([loss_m], list(r_alias.values())
-                                   + list(s_alias.values()), None)
+                    s_alias = {name: ([lazy.anchor() for lazy in leaf]
+                                      if name in stack.lazies
+                                      else _alias(leaf))
+                               for name, leaf in layered.items()}
+                    x = head_fn(_uses(reps, r_alias), micro_in[m])
+                    layer = _layers(stack, layered, s_alias)
+                    for index in range(stack.layers):
+                        x = block_fn(layer(index), x)
+                    loss_m = weight * tail_fn(_uses(reps, r_alias), x, tgt)
+                    del x
+                grads = _grads([loss_m], list(r_alias.values())
+                               + [anchor for name in stack.names
+                                  for anchor in _listed(s_alias[name])],
+                               None)
                 loss_acc += loss_m.detach().float()
                 weight_acc += weight
                 add(d_reps, grads[:len(reps)])
-                add(d_stacked, [grad.reshape(total.shape) for grad, total
-                                in zip(grads[len(reps):], d_stacked)])
+                grads = grads[len(reps):]
+                for name, total in zip(stack.names, d_stacked):
+                    count = len(_listed(s_alias[name]))
+                    grad = (torch.stack(grads[:count])
+                            if name in stack.lazies else grads[0])
+                    total += grad.reshape(total.shape).float()
+                    grads = grads[count:]
+                del r_alias, s_alias, loss_m, grads
         else:
             with torch.no_grad():
-                zero_act = torch.zeros_like(head_fn(reps, micro_in[0]))
+                zero_act = torch.zeros_like(head_fn(_whole(reps),
+                                                    micro_in[0]))
             stash = zero_act.new_zeros((chunks, slots) + zero_act.shape)
             fwd_msg = bwd_msg = zero_act
             for r in range(rounds):
                 active_f, c_f, m_f = unit(r - stage)
                 with torch.no_grad():
                     x = run_unit(active_f and stage == 0 and c_f == 0,
-                                 lambda: head_fn(reps, micro_in[m_f]),
+                                 lambda: head_fn(_whole(reps),
+                                                 micro_in[m_f]),
                                  lambda: fwd_msg)
                     y = run_unit(active_f,
                                  lambda: body(stack.chunk(stack.leaves, c_f),
@@ -655,7 +752,7 @@ def pipeline_train(head_fn, block_fn, tail_fn, mesh: Mesh, *,
                     weight = weigh(tgt)
                     with torch.enable_grad():
                         r_alias = {name: _alias(leaf)
-                                   for name, leaf in reps.items()}
+                                   for name, leaf in _whole(reps).items()}
                         given = _alias(y)
                         loss_m = tail_fn(r_alias, given, tgt)
                         grads = _grads([loss_m],
@@ -666,6 +763,7 @@ def pipeline_train(head_fn, block_fn, tail_fn, mesh: Mesh, *,
                     loss_acc += loss_m.detach().float() * weight
                     weight_acc += weight
                     add(d_reps, grads[:-1], weight)
+                    del r_alias, given, loss_m, grads
                 # backward unit: recompute the chunk from its stashed input
                 active_b, c_b_rev, m_b = unit(
                     r - (chunks * stages + stages - 2 - stage))
@@ -683,14 +781,16 @@ def pipeline_train(head_fn, block_fn, tail_fn, mesh: Mesh, *,
                     for total, grad in zip(d_stacked, grads[:-1]):
                         total[c_b] += grad.float()
                     dx = grads[-1]
+                    del aliases, given, grads
                     # stage 0's chunk-0 input cotangent flows into the head
                     if stage == 0 and c_b == 0:
                         with torch.enable_grad():
-                            r_alias = {name: _alias(leaf)
-                                       for name, leaf in reps.items()}
+                            r_alias = {name: _alias(leaf) for name, leaf
+                                       in _whole(reps).items()}
                             head = head_fn(r_alias, micro_in[m_b])
                             add(d_reps, _grads([head],
                                                list(r_alias.values()), [dx]))
+                        del r_alias, head
                 if r < rounds - 1:
                     fwd_msg = ring_shift_chunked(y, mesh, STAGE)
                     bwd_msg = ring_shift_chunked(dx, mesh, STAGE,

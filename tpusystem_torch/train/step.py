@@ -16,8 +16,11 @@ of the port.
 On a state that a sharding policy placed on a mesh of ranks
 (:mod:`tpusystem_torch.parallel.sharding`) the same step runs SPMD: each
 rank gets its rows of the global batch, gathers the leaves FSDP split
-(a gather whose backward reduce-scatters; all of them whole before the
-forward, held until the backward ends), differentiates its share of the
+(a gather whose backward reduce-scatters) one unit at a time where the
+forward gathers per unit (``module_apply`` of GPT-2 or Llama: each leaf
+reaches the forward as a stand-in its unit gathers on entry, and the
+backward gathers again; any other forward gets every leaf gathered on
+entry, the whole forward one unit), differentiates its share of the
 global batch's mean loss (``loss * weight / total weight``, the weights
 summed over the batch axes, so masked losses stay the global mean), sums
 the gradients over the batch axes that do not split the leaf, and updates
@@ -54,6 +57,7 @@ step of :class:`~tpusystem_torch.models.GPT2Pipelined`
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Callable
 from inspect import signature
 from typing import Any
@@ -64,8 +68,10 @@ import torch
 from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
 from tpusystem_torch.parallel.collectives import all_reduce_sum, ring_shift
 from tpusystem_torch.parallel.mesh import SEQ
-from tpusystem_torch.parallel.sharding import (gather_leaf, is_placed, local,
-                                               local_tree, shard_axes)
+from tpusystem_torch.parallel.sharding import (defer_leaf, gathered,
+                                               is_deferred, is_placed, local,
+                                               local_tree, shard_axes,
+                                               unit_gathering)
 from tpusystem_torch.train.optim import masked_update
 from tpusystem_torch.train.state import TrainState
 
@@ -93,6 +99,10 @@ def module_apply(module: torch.nn.Module) -> ApplyFn:
     # the mesh axes the forward takes each placed leaf split over (the
     # tensor-parallel models' keeps_split); none for other modules
     apply.keeps_split = getattr(module, 'keeps_split', lambda name: ())
+    # whether the forward gathers the placed steps' stand-ins unit by unit
+    # (parallel/sharding.py defer_leaf); else the steps gather every leaf
+    # on entry, the whole forward one unit
+    apply.gathers_units = getattr(module, 'gathers_units', False)
     return apply
 
 
@@ -102,6 +112,23 @@ def _detach(outputs):
     if isinstance(outputs, (tuple, list)):
         return type(outputs)(_detach(item) for item in outputs)
     return outputs
+
+
+def _handed(apply_fn: ApplyFn, params: dict) -> dict:
+    """A placed step's stand-ins as ``apply_fn`` takes them: as they are
+    where it gathers unit by unit (``gathers_units``), else each gathered
+    on entry (the whole forward one unit)."""
+    if getattr(apply_fn, 'gathers_units', False):
+        return params
+    return {name: gathered(value) for name, value in params.items()}
+
+
+def _units(params: dict):
+    """:func:`~tpusystem_torch.parallel.sharding.unit_gathering` where a
+    leaf of ``params`` is a stand-in, else nothing."""
+    if any(map(is_deferred, params.values())):
+        return unit_gathering()
+    return contextlib.nullcontext()
 
 
 # the axes a global batch's rows split over
@@ -304,11 +331,14 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                 micro, weights):
             leaves = [piece.detach().requires_grad_(piece.is_floating_point())
                       for piece in held]
-            params = {name: gather_leaf(leaf, whole, mesh, keeps(name))
-                      for name, leaf, whole in zip(names, leaves, placed)}
-            outputs = apply_fn(params, micro_inputs, micro_rng, True)
-            share = criterion(chunk_outputs(outputs, mesh),
-                              micro_targets) * (weight / total)
+            params = _handed(apply_fn, {
+                name: defer_leaf(leaf, whole, mesh, keeps(name))
+                for name, leaf, whole in zip(names, leaves, placed)})
+            with _units(params):
+                outputs = apply_fn(params, micro_inputs, micro_rng, True)
+                share = criterion(chunk_outputs(outputs, mesh),
+                                  micro_targets) * (weight / total)
+            del params
             found = torch.autograd.grad(share, leaves)
             grads = (list(found) if grads is None
                      else [sum_ + grad for sum_, grad in zip(grads, found)])
@@ -338,9 +368,12 @@ def build_eval_step(apply_fn: ApplyFn, criterion: Criterion, *,
             return outputs, criterion(outputs, targets)
         # a placed state: this rank's rows, the global batch's loss
         mesh = state.mesh
-        params = {name: gather_leaf(local(leaf), leaf, mesh)
-                  for name, leaf in state.params.items()}
-        outputs = apply_fn(params, inputs, None, False)
+        params = _handed(apply_fn, {
+            name: defer_leaf(local(leaf), leaf, mesh)
+            for name, leaf in state.params.items()})
+        with _units(params):
+            outputs = apply_fn(params, inputs, None, False)
+        del params
         padded = chunk_outputs(outputs, mesh)
         targets = chunk_targets(targets, mesh)
         weight = (weight_fn(targets).float() if weight_fn
@@ -473,7 +506,9 @@ def build_1f1b_train_step(model, criterion: Criterion, optimizer, *,
     (the stage body), ``_head`` composed with ``criterion`` (tail); its tied
     embedding is in both head and tail, and both gradient contributions are
     summed. On a placed state each leaf reaches the schedule as the model's
-    ``keeps_split`` asks (a stacked leaf as this rank's stage piece), the
+    ``keeps_split`` asks (a stacked leaf as this rank's stage piece), one
+    still to gather over other axes as a stand-in the schedule gathers a
+    unit at a time (a chunk of the stack, or the replicated leaves), the
     gradients come back summed over the batch axes, and a rank updates its
     own pieces; an unplaced state is whole on every rank, and so are its
     gradients. MoE spans are refused (their aux rides the GPipe path)."""
@@ -499,9 +534,11 @@ def build_1f1b_train_step(model, criterion: Criterion, optimizer, *,
         placed = is_placed(state)
         held = [local(state.params[name]) for name in names]
         with torch.no_grad():
+            # a stand-in for each leaf to gather: the schedule gathers a
+            # unit's leaves when it runs the unit (parallel/pipeline.py)
             given = dict(zip(names, (
-                gather_leaf(piece, state.params[name], state.mesh,
-                            keeps(name)) if placed else piece
+                defer_leaf(piece, state.params[name], state.mesh,
+                           keeps(name)) if placed else piece
                 for name, piece in zip(names, held))))
         replicated = {name: leaf for name, leaf in given.items()
                       if not name.startswith(prefix)}
