@@ -1,0 +1,6 @@
+"""Tokens of every step completed in the window over the window's seconds
+(the window ends after a device synchronise)."""
+
+
+def read(run):
+    return run.counts['tokens'] / run.window_s
