@@ -567,7 +567,7 @@ LOOKUP_INSTANCES = tuple(
         f'segment_fold_kernel<{bf16}>' for bf16 in ('false', 'true'))
 CHAIN_CYCLES = 4                # a dependent float32 add's latency, SM cycles
 GRAPH_CALLS = 20                # calls captured in one graph_measure graph
-MARKED = 'speculative.'         # the port's record_function ranges
+MARKED = 'speculative.'         # the serving engine's annotate() ranges
 GPT2_VOCAB = 50257
 # phase 17's rows: greedy, sampled, top-k 1 on the first row's prompt, and
 # greedy under the grammar even_ids
@@ -2837,10 +2837,11 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
     operators are ranked twice: by the device time they launched and by
     their own host time. For each name in ``sums``, the device ms a step of
     every kernel whose name holds it; ``range_device_ms``, the device ms a
-    step of the kernels that ran inside each ``record_function`` range the
-    port marks (the speculative step's ``speculative.draft`` and
-    ``speculative.verify``), read from the ranges' spans on the device's
-    timeline (which are not kernels, and are left out of every sum)."""
+    step of the kernels launched inside each range the serving engine marks
+    (``observe.annotate``: the speculative step's ``speculative.draft`` and
+    ``speculative.verify``), read through the host's tree of operators:
+    the ranges are host events linked to their kernels by correlation id,
+    with no span of their own on the device's timeline."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2853,23 +2854,18 @@ def profile_steps(torch, step, steps: int = 4, top_n: int = 8,
         wall = time.perf_counter() - started
     kernels, launches = {}, 0
     for event in profile.key_averages():
-        if (event.device_type == torch.autograd.DeviceType.CUDA
-                and not event.key.startswith(MARKED)):
+        if event.device_type == torch.autograd.DeviceType.CUDA:
             kernels[event.key] = getattr(event, 'self_device_time_total', 0.0)
             launches += event.count
-    # the host operators that launched the device time, by input shape
-    # (ctypes-launched kernels have no host operator and do not appear)
-    device = [event for event in profile.events()
-              if event.device_type == torch.autograd.DeviceType.CUDA]
     ranges = {}
-    for span in device:
-        if span.name.startswith(MARKED):
-            inside = sum(event.time_range.elapsed_us() for event in device
-                         if not event.name.startswith(MARKED)
-                         and span.time_range.start <= event.time_range.start
-                         < span.time_range.end)
-            ranges[span.name] = ranges.get(span.name, 0.0) + inside / 1e3 \
-                / steps
+    for event in profile.events():
+        if (event.device_type == torch.autograd.DeviceType.CPU
+                and event.name.startswith(MARKED)):
+            ranges[event.name] = (ranges.get(event.name, 0.0)
+                                  + event.device_time_total / 1e3 / steps)
+    # the host operators that launched the device time, by input shape
+    # (a ctypes-launched kernel counts to the innermost operator or range
+    # open at its launch)
     operators, host = {}, {}
     for event in profile.key_averages(group_by_input_shape=True):
         if event.device_type == torch.autograd.DeviceType.CPU:

@@ -1,0 +1,9 @@
+"""Percent of the traced window in which the device ran work put down to
+the train step's optimizer range: AdamW's update of every leaf
+(``portbench/attribution.py``)."""
+
+from portbench.attribution import share
+
+
+def read(run):
+    return share(run, ('train.optimizer',))

@@ -6,9 +6,9 @@ Two faces, as in the reference:
   wrap ``torch.profiler`` (the reference wraps ``jax.profiler``): a trace
   records the host's operators and, when a card is present, its kernels
   (CUPTI), and writes a Chrome trace into a TensorBoard-readable logdir
-  (``tensorboard_trace_handler``). Annotations are ``record_function``
-  ranges, which cost next to nothing when no profiler is active, so they
-  stay in production code.
+  (``tensorboard_trace_handler``). Annotations are host ranges that cost
+  one check when no profiler is active, so they stay in production code;
+  the program's own ranges are named in :data:`RANGES`.
 - **bus plane** — :class:`StepTimer` measures host wall-clock around step
   spans and emits :class:`~tpusystem_torch.observe.events.StepTimed`
   events; any consumer (logging, storage, TensorBoard) observes throughput
@@ -32,6 +32,22 @@ from tpusystem_torch.services.prodcon import Producer
 
 # the name torch.profiler.profile.step() gives its step ranges
 STEP_RANGE = 'ProfilerStep#{}'
+
+# The program's ranges (:func:`annotate`), every name under one prefix. The
+# ranges mark forward code only: the autograd engine's backward events carry
+# the sequence number of the forward operator whose node they run, so a
+# trace's reader puts backward work down to the forward range that made it.
+RANGE_PREFIX = 'tpusystem_torch.'
+TRAIN_FORWARD = RANGE_PREFIX + 'train.forward'      # the model's forward
+TRAIN_LOSS = RANGE_PREFIX + 'train.loss'            # the criterion (LM head)
+TRAIN_BACKWARD = RANGE_PREFIX + 'train.backward'    # torch.autograd.grad
+TRAIN_OPTIMIZER = RANGE_PREFIX + 'train.optimizer'  # the update, step count
+ATTENTION = RANGE_PREFIX + 'attention'              # the flash call
+EMBEDDING = RANGE_PREFIX + 'embedding'              # a table's lookup
+RANGES = (TRAIN_FORWARD, TRAIN_LOSS, TRAIN_BACKWARD, TRAIN_OPTIMIZER,
+          ATTENTION, EMBEDDING)
+
+_UNTRACED = contextlib.nullcontext()
 
 
 class ProfilerBusy(RuntimeError):
@@ -86,9 +102,17 @@ def trace(logdir: str) -> Iterator[None]:
 
 
 def annotate(name: str) -> Any:
-    """Named range on the host timeline of an active trace (next to free
-    otherwise)."""
-    return torch.profiler.record_function(name)
+    """Named range on the host timeline of an active trace; with no profiler
+    active, one shared context that does nothing.
+
+    The range is a ``RecordFunction`` of the operators' kind, not a
+    ``record_function`` user annotation: it encloses on the host's timeline
+    the operators and runtime calls made inside it, as an operator does,
+    and the profiler draws no copy of it on the device's timeline, where a
+    trace's reader would count it as device work."""
+    if not torch.autograd._profiler_enabled():
+        return _UNTRACED
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def step_span(name: str, step: int) -> Any:

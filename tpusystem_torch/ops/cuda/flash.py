@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from tpusystem_torch.ops.cuda._build import LIBRARIES
+from tpusystem_torch.observe.profile import ATTENTION, annotate
 
 NEG_INF = -1e30
 TILE = 64          # kv rows per online-softmax step of the plain versions
@@ -603,8 +604,9 @@ def flash_attention_lse(query, key, value, *, causal: bool = True,
     _check_shapes(query, key)
     _check_backward(backward)
     _check_dropout(dropout, seed)
-    return _FlashAttention.apply(query, key, value, causal, backward,
-                                 float(dropout), seed)
+    with annotate(ATTENTION):
+        return _FlashAttention.apply(query, key, value, causal, backward,
+                                     float(dropout), seed)
 
 
 LANES = 128   # the reference's tile granule (``flash.py:47``)

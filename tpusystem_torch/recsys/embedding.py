@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from tpusystem_torch.device import resolve_device
+from tpusystem_torch.observe.profile import EMBEDDING, annotate
 from tpusystem_torch.ops.cuda.embedding_lookup import (embedding_lookup,
                                                        scatter_add_rows)
 from tpusystem_torch.parallel.collectives import (copy_to, live_axes,
@@ -96,19 +97,20 @@ def lookup(table, ids, weights=None, *, impl: str = 'auto',
     no gradient. With ``dedup=True`` the gather touches each distinct id
     once and the table's gradient scatter is collision-free; the output is
     bitwise the same either way."""
-    rows = table.shape[0]
-    ids = ids.to(torch.int32)
-    valid = (ids >= 0) & (ids < rows)
-    sent = torch.where(valid, ids, torch.full_like(ids, rows))
-    if not dedup:
-        return embedding_lookup(table, sent, weights, impl=impl)
-    reps, inverse = dedup_ids(sent, rows)
-    unique_rows = embedding_lookup(table, reps, None, impl=impl)
-    gathered = _ExpandRows.apply(unique_rows, inverse)
-    if weights is None:
-        return gathered
-    scaled = gathered.float() * weights.float()[:, None]
-    return scaled.to(table.dtype)
+    with annotate(EMBEDDING):
+        rows = table.shape[0]
+        ids = ids.to(torch.int32)
+        valid = (ids >= 0) & (ids < rows)
+        sent = torch.where(valid, ids, torch.full_like(ids, rows))
+        if not dedup:
+            return embedding_lookup(table, sent, weights, impl=impl)
+        reps, inverse = dedup_ids(sent, rows)
+        unique_rows = embedding_lookup(table, reps, None, impl=impl)
+        gathered = _ExpandRows.apply(unique_rows, inverse)
+        if weights is None:
+            return gathered
+        scaled = gathered.float() * weights.float()[:, None]
+        return scaled.to(table.dtype)
 
 
 def route_plan(vocab: int, count: int, mesh,

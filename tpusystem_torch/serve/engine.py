@@ -62,8 +62,8 @@ siblings' inside the pool, and both caches rewind to the accepted depth.
 A step emits 1 to ``speculate + 1`` tokens a request. A grammar
 ``mask_fn`` does not compose with it (refused at admission), nor does the
 fused step (``decode_impl='auto'`` resolves to the module path). The draft
-steps and the verify run inside ``record_function`` ranges
-(``speculative.draft``, ``speculative.verify``), so a trace splits the
+steps and the verify run inside ranges (``observe.annotate``:
+``speculative.draft``, ``speculative.verify``), so a trace splits the
 step's device time between them.
 
 The host keeps a mirror of every row's cursor, so each step's read window
@@ -102,9 +102,9 @@ import time
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from tpusystem_torch.device import resolve_device
+from tpusystem_torch.observe.profile import annotate
 from tpusystem_torch.ops.attention import contiguous_window
 from tpusystem_torch.parallel.sharding import held_axes, tp_pieces
 from tpusystem_torch.serve.kvcache import (PagedKVCache, _is_kv,
@@ -1003,12 +1003,12 @@ class Engine:
         depth = int(self._cursor.max())
         cursor0 = torch.as_tensor(self._cursor, device=self.device)
         tokens = self._tokens_dev
-        with record_function('speculative.draft'):
+        with annotate('speculative.draft'):
             drafts, dcache = draft_tree(
                 self._drafter, _dequant(self._dparams, self._drafter),
                 self._dcache, tokens, depth, K, F)
         window = torch.cat([tokens[:, None], drafts], 1)
-        with record_function('speculative.verify'):
+        with annotate('speculative.verify'):
             vlogits, cache = functional_call(
                 self._decoder, _dequant(self._params, self._decoder),
                 (window,), {'cache': self._cache, 'depth': depth})

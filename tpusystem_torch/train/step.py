@@ -65,6 +65,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusystem_torch.observe.profile import (TRAIN_BACKWARD, TRAIN_FORWARD,
+                                            TRAIN_LOSS, TRAIN_OPTIMIZER,
+                                            annotate)
 from tpusystem_torch.ops.threefry import PRNGKey, as_key, split
 from tpusystem_torch.parallel.collectives import all_reduce_sum, ring_shift
 from tpusystem_torch.parallel.mesh import SEQ
@@ -237,9 +240,12 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
     weight_fn = getattr(criterion, 'weight', None)
 
     def value_and_grad(leaves, params, inputs, targets, rng):
-        outputs = apply_fn(params, inputs, rng, True)
-        loss = criterion(outputs, targets)
-        grads = torch.autograd.grad(loss, leaves)
+        with annotate(TRAIN_FORWARD):
+            outputs = apply_fn(params, inputs, rng, True)
+        with annotate(TRAIN_LOSS):
+            loss = criterion(outputs, targets)
+        with annotate(TRAIN_BACKWARD):
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), _detach(outputs), grads
 
     def step(state: TrainState, inputs, targets):
@@ -285,17 +291,18 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                outputs):
         if fault is not None:
             grads, loss = fault(state.step + 1, grads, loss)
-        if guard is not None:
-            assert state.health is not None, (
-                'guard= needs health stats on the TrainState: arm it with '
-                'Guard.arm(state) before the first step')
-            ok = guard.judge(state.health, loss,
-                             [grads[name] for name in names], leaves)
-            masked_update(optimizer, grads, opt_state, params, ok,
-                          scale=state.health.lr_scale)
-        else:
-            optimizer.step(params, grads, opt_state)
-        state.step += 1
+        with annotate(TRAIN_OPTIMIZER):
+            if guard is not None:
+                assert state.health is not None, (
+                    'guard= needs health stats on the TrainState: arm it '
+                    'with Guard.arm(state) before the first step')
+                ok = guard.judge(state.health, loss,
+                                 [grads[name] for name in names], leaves)
+                masked_update(optimizer, grads, opt_state, params, ok,
+                              scale=state.health.lr_scale)
+            else:
+                optimizer.step(params, grads, opt_state)
+            state.step += 1
         return state, (outputs, loss)
 
     def placed_step(state: TrainState, inputs, targets):
@@ -335,11 +342,14 @@ def build_train_step(apply_fn: ApplyFn, criterion: Criterion, optimizer, *,
                 name: defer_leaf(leaf, whole, mesh, keeps(name))
                 for name, leaf, whole in zip(names, leaves, placed)})
             with _units(params):
-                outputs = apply_fn(params, micro_inputs, micro_rng, True)
-                share = criterion(chunk_outputs(outputs, mesh),
-                                  micro_targets) * (weight / total)
+                with annotate(TRAIN_FORWARD):
+                    outputs = apply_fn(params, micro_inputs, micro_rng, True)
+                with annotate(TRAIN_LOSS):
+                    share = criterion(chunk_outputs(outputs, mesh),
+                                      micro_targets) * (weight / total)
             del params
-            found = torch.autograd.grad(share, leaves)
+            with annotate(TRAIN_BACKWARD):
+                found = torch.autograd.grad(share, leaves)
             grads = (list(found) if grads is None
                      else [sum_ + grad for sum_, grad in zip(grads, found)])
             loss = loss + share.detach()
